@@ -1,0 +1,123 @@
+"""Serve sliders over HTTP on one GPU (port of sliders_tpu/cli/serve.py).
+
+  python -m sliders_tpu_torch.cli.serve --base /path/sd15 \
+      --slider age=out/age_last.safetensors --port 8000
+  curl -s localhost:8000/healthz
+  curl -s -X POST localhost:8000/generate -d \
+      '{"prompt": "photo of a person", "slider": "age", "scales": [-2,0,2]}'
+
+The flags are the JAX CLI's, plus --device. --xl, --flux, --pp, --dp other
+than 1, --continuous and schedulers other than ddim are not ported yet and
+exit with a message naming their ROADMAP item.
+"""
+
+import argparse
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--base", required=True, help="local model snapshot dir")
+    p.add_argument("--device", default="cuda", help="torch device to serve on")
+    p.add_argument("--xl", action="store_true")
+    p.add_argument("--flux", action="store_true")
+    p.add_argument("--v2", action="store_true")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--image_size", type=int, default=512)
+    p.add_argument("--ddim_steps", type=int, default=None, help="denoise steps (default 50)")
+    p.add_argument("--scheduler", default="ddim", choices=["ddim", "ddpm", "lms", "euler_a"])
+    p.add_argument("--guidance_scale", type=float, default=None, help="CFG scale (default 7.5)")
+    p.add_argument("--start_noise", type=float, default=750.0)
+    p.add_argument("--skip_till", type=float, default=-1.0,
+                   help="FLUX slider gate (FLUX is not ported yet)")
+    p.add_argument("--pp", type=int, default=1, help="FLUX pipeline-parallel stages")
+    p.add_argument("--precision", default="bfloat16")
+    p.add_argument("--slider", action="append", default=[], metavar="NAME=CKPT",
+                   help="preload a slider checkpoint under NAME (repeatable)")
+    p.add_argument("--no_warmup", action="store_true", help="skip the warmup request")
+    p.add_argument("--warmup_multi", action="store_true",
+                   help="also warm the cross-slider (stacked-adapter) batch path")
+    p.add_argument("--buckets", default=None, metavar="N,N,...",
+                   help="batch bucket sizes (requests pad up to the next bucket); "
+                   "default 1,2,4,8,16")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel devices")
+    p.add_argument("--continuous", action="store_true", help="step-level continuous batching")
+    p.add_argument("--cont_rows", type=int, default=None)
+    p.add_argument("--chunk_steps", type=int, default=5)
+    return p
+
+
+def unported_reason(args):
+    """The message for a flag this port does not serve yet, else None."""
+    if args.xl:
+        return "--xl: SDXL serving is not ported yet (ROADMAP queue 1, item 6)"
+    if args.flux or args.pp != 1:
+        return "--flux/--pp: FLUX serving is not ported yet (ROADMAP queue 1, item 11)"
+    if args.dp != 1:
+        return "--dp: multi-device serving is not ported yet (ROADMAP queue 1, item 15)"
+    if args.continuous:
+        return "--continuous: continuous batching is not ported yet (ROADMAP queue 1, item 13)"
+    if args.scheduler != "ddim":
+        return (f"--scheduler {args.scheduler}: only ddim is ported yet "
+                "(ROADMAP queue 1, item 4)")
+    return None
+
+
+def main(args):
+    reason = unported_reason(args)
+    if reason:
+        raise SystemExit(reason)
+
+    import torch
+
+    from sliders_tpu_torch.models import loader
+    from sliders_tpu_torch.serving.server import SliderEngine, make_http_server
+
+    dtype = torch.bfloat16 if args.precision in ("bf16", "bfloat16") else torch.float32
+    buckets = None
+    if args.buckets is not None:
+        try:
+            buckets = tuple(int(b) for b in args.buckets.split(","))
+        except ValueError:
+            raise SystemExit(f"--buckets wants comma-separated ints (e.g. 5 or 4,8), "
+                             f"got {args.buckets!r}")
+        if not buckets or any(b < 1 for b in buckets):
+            raise SystemExit(f"--buckets wants positive batch sizes, got {args.buckets!r}")
+
+    models = loader.load_sd(args.base, device=args.device, v2=args.v2, dtype=dtype,
+                            load_vae=True)
+    engine = SliderEngine(
+        models,
+        device=args.device,
+        steps=50 if args.ddim_steps is None else args.ddim_steps,
+        image_size=args.image_size,
+        guidance_scale=7.5 if args.guidance_scale is None else args.guidance_scale,
+        start_noise=args.start_noise,
+        compute_dtype=dtype,
+        buckets=buckets,
+    )
+    for spec in args.slider:
+        name, _, path = spec.partition("=")
+        if not path:
+            raise SystemExit(f"--slider wants NAME=CKPT, got {spec!r}")
+        engine.load_slider(name, path)
+        print(f"loaded slider {name!r} from {path}")
+
+    if not args.no_warmup:
+        print("warmup...")
+        engine.warmup(with_slider=next(iter(engine.sliders), None),
+                      multi_tenant=args.warmup_multi and bool(engine.sliders))
+        print("warm.")
+
+    server = make_http_server(engine, args.host, args.port)
+    print(f"serving on http://{args.host}:{server.server_address[1]}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        engine.close()
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

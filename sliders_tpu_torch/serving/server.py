@@ -1,0 +1,447 @@
+"""Slider serving: a warm sampler behind a small HTTP API
+(port of the batch-boundary engine of sliders_tpu/serving/server.py).
+
+  - The scale sweep IS the batch dimension: a request for k scales runs one
+    batched denoise, padded up to a bucket size (1, 2, 4, 8, 16 by default).
+  - One worker thread owns the device and drains a request queue. Queued
+    requests whose adapters share one structure signature — including
+    DIFFERENT sliders — coalesce into one denoise: scales, start_noise and
+    guidance ride as per-row vectors, distinct adapters stack per row
+    (lora/batch.py), and the rows split back per request afterwards.
+    Padding rows reuse request 0's start_noise, guidance, conditioning and
+    latent, at scale 0.
+  - Initial latents come from a torch.Generator seeded with the request
+    seed, so a request's image does not depend on its co-riders.
+
+Endpoints (JSON in, JSON out; images as base64 PNG):
+  GET  /healthz    -> {ok, family, is_xl, image_size, steps, sliders, stats}
+  POST /sliders    -> {name, path}
+  POST /generate   -> {prompt, seed?, slider?, scales?, start_noise?,
+                       negative_prompt?, guidance_scale?}
+                   -> {images: [{scale, png: b64}, ...], latency_ms}
+
+Not ported yet: continuous batching, dp meshes, `/sliders` compose and the
+FLUX engine (ROADMAP queue 1, items 11 and 13).
+
+Run it: python -m sliders_tpu_torch.cli.serve --base <snapshot> [--port N]
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import struct
+import threading
+import time
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
+from sliders_tpu_torch.lora import io as lora_io
+from sliders_tpu_torch.lora.batch import stack_sliders, structure_signature
+from sliders_tpu_torch.models.params import tree_to
+from sliders_tpu_torch.pipelines import text2image as t2i
+
+_SCALE_BUCKETS = (1, 2, 4, 8, 16)
+_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 13)"
+
+
+def _bucket(n: int, buckets=_SCALE_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"at most {buckets[-1]} scales per request, got {n}")
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes (8-bit RGB, no filtering), stdlib only."""
+    h, w, c = img.shape
+    if c != 3 or img.dtype != np.uint8:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+class _Pending:
+    """One queued /generate request awaiting the batching worker."""
+
+    __slots__ = (
+        "prompt", "negative", "seed", "scales", "slider", "weights", "sig",
+        "start_noise", "guidance", "event", "result", "error",
+    )
+
+    def __init__(self, prompt, negative, seed, scales, slider, weights, sig,
+                 start_noise, guidance):
+        self.prompt = prompt
+        self.negative = negative
+        self.seed = seed
+        self.scales = scales
+        self.slider = slider
+        self.weights = weights
+        self.sig = sig
+        self.start_noise = start_noise
+        self.guidance = guidance
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+
+
+class SliderEngine:
+    """Owns the models on one device, the registry of loaded sliders, and the
+    batching worker. Thread-safe: all device work happens in the worker."""
+
+    def __init__(
+        self,
+        models,
+        *,
+        device="cuda",
+        scheduler: str = "ddim",
+        steps: int = 50,
+        image_size: int = 512,
+        guidance_scale: float = 7.5,
+        start_noise: float = 750.0,
+        compute_dtype=torch.bfloat16,
+        buckets=None,
+        mesh=None,
+        continuous: bool = False,
+    ):
+        if continuous:
+            raise NotImplementedError(f"continuous batching is {_NOT_PORTED}")
+        if mesh is not None:
+            raise NotImplementedError(f"multi-device (dp mesh) serving is {_NOT_PORTED}")
+        if models.vae_params is None:
+            raise ValueError("serving needs the VAE (load with load_vae=True)")
+        if models.is_xl:
+            raise NotImplementedError("SDXL serving is not ported yet (ROADMAP queue 1, item 6)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but no CUDA device is available")
+        models.unet_params = tree_to(models.unet_params, self.device)
+        models.vae_params = tree_to(models.vae_params, self.device)
+        for te in models.text_encoders:
+            te.params = tree_to(te.params, self.device)
+        self.models = models
+        self.family = "sd"
+        self.image_size = int(image_size)
+        self.steps = int(steps)
+        self.default_guidance = float(guidance_scale)
+        self.default_start_noise = float(start_noise)
+        self.dtype = compute_dtype
+        self.sampler = make_sampler(make_schedule(), scheduler, num_steps=self.steps)
+        self.fn = t2i.make_sampling_fn(models.unet_config, self.sampler,
+                                       compute_dtype=self.dtype)
+        self._buckets = _SCALE_BUCKETS
+        if buckets is not None:
+            buckets = tuple(int(b) for b in buckets)
+            if not buckets or any(b < 1 for b in buckets):
+                raise ValueError(f"buckets must be non-empty positive ints, got {buckets}")
+            self._buckets = tuple(sorted(buckets))
+        self.sliders: dict[str, dict] = {}
+        self._registry_lock = threading.Lock()
+        # (prompt, negative) -> encoded conditioning; FIFO-capped
+        self._embed_cache: dict[tuple, tuple] = {}
+        self._embed_cache_cap = 32
+        self._queue: list = []
+        self._queue_cv = threading.Condition()
+        self._closed = False
+        self.request_timeout = 3600.0
+        self.stats = {"requests": 0, "batches": 0, "rows": 0}
+        self._worker = threading.Thread(target=self._worker_loop, daemon=True)
+        self._worker.start()
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Stop the batching worker after the queued requests (idempotent);
+        new generate() calls are rejected."""
+        with self._queue_cv:
+            if not self._closed:
+                self._closed = True
+                self._queue.append(None)  # sentinel: worker exits after drain
+                self._queue_cv.notify()
+        self._worker.join(timeout)
+
+    # -- registry ---------------------------------------------------------
+
+    def register_slider(self, name: str, weights: dict) -> None:
+        """Register an in-memory adapter tree (moved to the engine's device)."""
+        weights = tree_to(weights, self.device)
+        with self._registry_lock:
+            self.sliders[name] = weights
+
+    def load_slider(self, name: str, path: str) -> None:
+        self.register_slider(name, lora_io.load_slider(path, self.models.unet_params))
+
+    def load_composition(self, name: str, parts: list) -> None:
+        raise NotImplementedError(
+            "slider composition is not ported yet (ROADMAP queue 1, item 12)"
+        )
+
+    # -- generation -------------------------------------------------------
+
+    def _encode(self, prompt: str, negative: str):
+        """Cached encode_conditioning; called from the worker thread only."""
+        key = (prompt, negative)
+        hit = self._embed_cache.get(key)
+        if hit is None:
+            hit = t2i.encode_conditioning(self.models, prompt, negative)
+            if len(self._embed_cache) >= self._embed_cache_cap:
+                self._embed_cache.pop(next(iter(self._embed_cache)))
+            self._embed_cache[key] = hit
+        return hit
+
+    def _make_pending(self, prompt: str, *, seed: int = 0, slider: Optional[str] = None,
+                      scales: Optional[list] = None, start_noise: Optional[float] = None,
+                      negative_prompt: str = "",
+                      guidance_scale: Optional[float] = None) -> _Pending:
+        """Validate a request and resolve its slider in the CALLER's thread."""
+        scales = [float(s) for s in (scales if scales is not None else [0.0])]
+        _bucket(len(scales), self._buckets)
+        weights, sig = None, None
+        if slider is not None:
+            with self._registry_lock:
+                if slider not in self.sliders:
+                    raise KeyError(f"slider {slider!r} not loaded")
+                weights = self.sliders[slider]
+            sig = structure_signature(weights)
+        return _Pending(
+            str(prompt), str(negative_prompt), int(seed), scales, slider, weights, sig,
+            self.default_start_noise if start_noise is None else float(start_noise),
+            self.default_guidance if guidance_scale is None else float(guidance_scale),
+        )
+
+    def _submit(self, pendings: list) -> None:
+        with self._queue_cv:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            self._queue.extend(pendings)
+            self._queue_cv.notify()
+
+    def _wait(self, p: _Pending) -> list:
+        if not p.event.wait(timeout=self.request_timeout):
+            raise TimeoutError(f"request not served within {self.request_timeout}s")
+        if p.error is not None:
+            raise p.error
+        return p.result
+
+    def generate(self, prompt: str, *, seed: int = 0, slider: Optional[str] = None,
+                 scales: Optional[list] = None, start_noise: Optional[float] = None,
+                 negative_prompt: str = "", guidance_scale: Optional[float] = None) -> list:
+        """Returns [(scale, PNG bytes), ...] ordered like the request's scales.
+        Blocks until the worker has served the request; concurrent callers
+        with compatible adapters share one batched denoise."""
+        p = self._make_pending(prompt, seed=seed, slider=slider, scales=scales,
+                               start_noise=start_noise, negative_prompt=negative_prompt,
+                               guidance_scale=guidance_scale)
+        self._submit([p])
+        return self._wait(p)
+
+    # -- batching worker ---------------------------------------------------
+
+    def _worker_loop(self):
+        max_rows = self._buckets[-1]
+        while True:
+            with self._queue_cv:
+                while not self._queue:
+                    self._queue_cv.wait()
+                if self._queue[0] is None:  # close() sentinel
+                    return
+                batch = [self._queue.pop(0)]
+                rows = len(batch[0].scales)
+                key = batch[0].sig
+                i = 0
+                while i < len(self._queue):
+                    q = self._queue[i]
+                    if q is not None and q.sig == key and rows + len(q.scales) <= max_rows:
+                        batch.append(self._queue.pop(i))
+                        rows += len(q.scales)
+                    else:
+                        i += 1
+            try:
+                # BaseException too: the worker is the only device owner; if
+                # it died silently every caller would hang
+                try:
+                    for p, r in zip(batch, self._generate_batch(batch)):
+                        p.result = r
+                except BaseException as e:  # surfaced in every waiting caller
+                    for p in batch:
+                        p.error = e
+            finally:
+                for p in batch:
+                    p.event.set()
+
+    def _generate_batch(self, batch: list) -> list:
+        """One denoise for all requests in `batch` (same signature), rows
+        split back per request as PNGs."""
+        rows = [len(p.scales) for p in batch]
+        total = sum(rows)
+        pad_n = _bucket(total, self._buckets) - total
+        per_row = [p for p, r in zip(batch, rows) for _ in range(r)] + [batch[0]] * pad_n
+        scale_vec = torch.tensor([s for p in batch for s in p.scales] + [0.0] * pad_n,
+                                 dtype=torch.float32)
+        sn_vec = torch.tensor([p.start_noise for p in per_row], dtype=torch.float32)
+        g_vec = torch.tensor([p.guidance for p in per_row], dtype=torch.float32)
+        # one adapter in flight -> its solo tree; distinct adapters -> one
+        # stacked copy per row (pow2 rank buckets), padding rows at scale 0
+        weights = batch[0].weights
+        if weights is not None and any(p.weights is not weights for p in batch[1:]):
+            weights = stack_sliders([p.weights for p in per_row], round_ranks_pow2=True)
+
+        imgs = self._run_rows(batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec)
+        self.stats["requests"] += len(batch)
+        self.stats["batches"] += 1
+        self.stats["rows"] += total
+
+        results, off = [], 0
+        for p, r in zip(batch, rows):
+            results.append([(s, encode_png(imgs[off + i])) for i, s in enumerate(p.scales)])
+            off += r
+        return results
+
+    def _run_rows(self, batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec) -> np.ndarray:
+        """Denoise one padded row batch -> uint8 (rows, H, W, 3) on the host."""
+        m = self.models
+        conds, unconds, lat_parts = [], [], []
+        for p, r in zip(batch, rows):
+            cond, uncond = self._encode(p.prompt, p.negative)
+            cond_b, uncond_b = t2i.tile_conditioning(cond, uncond, r)
+            conds.append(cond_b)
+            unconds.append(uncond_b)
+            g = torch.Generator().manual_seed(p.seed)
+            lat = t2i.initial_latents(g, 1, self.image_size, self.image_size,
+                                      self.sampler.init_noise_sigma)
+            lat_parts.append(lat.expand(r, -1, -1, -1))
+        if pad_n:  # repeat the first row into the bucket padding
+            conds.append(conds[0][:1].expand(pad_n, -1, -1))
+            unconds.append(unconds[0][:1].expand(pad_n, -1, -1))
+            lat_parts.append(lat_parts[0][:1].expand(pad_n, -1, -1, -1))
+        x = self.fn(
+            m.unet_params,
+            torch.cat(lat_parts).to(self.device),
+            torch.cat(conds),
+            torch.cat(unconds),
+            weights,
+            scale_vec,
+            sn_vec,
+            g_vec,
+        )
+        if not torch.isfinite(x).all():
+            raise FloatingPointError("denoised latents are not finite")
+        return t2i.decode_images(m.vae_params, m.vae_config, x).cpu().numpy()
+
+    def warmup(self, with_slider: Optional[str] = None, n_scales: int = 5,
+               multi_tenant: bool = False) -> None:
+        """Run the hot path once before serving traffic (reference sweep size:
+        5 scales -> bucket 8). `multi_tenant=True` also runs the per-row
+        stacked path once: two queued requests whose trees are distinct
+        objects make the worker stack them."""
+        if multi_tenant and with_slider is None:
+            raise ValueError("multi_tenant warmup needs with_slider")
+        self.generate("warmup", seed=0, slider=with_slider, scales=[0.0] * n_scales)
+        if not multi_tenant:
+            return
+        half = max(1, n_scales // 2)
+        p1 = self._make_pending("warmup", slider=with_slider, scales=[0.0] * half)
+        p2 = self._make_pending("warmup", slider=with_slider,
+                                scales=[0.0] * max(1, n_scales - half))
+        p2.weights = dict(p2.weights)
+        self._submit([p1, p2])
+        for p in (p1, p2):
+            self._wait(p)
+
+
+# -- HTTP layer -----------------------------------------------------------
+
+
+def make_http_server(engine: SliderEngine, host: str = "127.0.0.1", port: int = 8000):
+    """ThreadingHTTPServer over the engine (stdlib only). Handlers validate
+    JSON and call the engine; device work serialises in its worker."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _read_json(self):
+            length = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(length) if length else b"{}"
+            return json.loads(raw)
+
+        def do_GET(self):
+            if self.path != "/healthz":
+                return self._send(404, {"error": f"no route {self.path}"})
+            with engine._registry_lock:
+                names = sorted(engine.sliders)
+            self._send(200, {
+                "ok": True,
+                "family": engine.family,
+                "is_xl": False,
+                "image_size": engine.image_size,
+                "steps": engine.steps,
+                "sliders": names,
+                "stats": dict(engine.stats),
+            })
+
+        def do_POST(self):
+            try:
+                req = self._read_json()
+            except ValueError as e:  # JSONDecodeError and bad Content-Length
+                return self._send(400, {"error": f"bad json: {e}"})
+            if not isinstance(req, dict):
+                return self._send(400, {"error": "body must be a JSON object"})
+            try:
+                if self.path == "/sliders":
+                    if "compose" in req:
+                        engine.load_composition(req.get("name"), req["compose"])
+                    missing = {"name", "path"} - set(req)
+                    if missing:
+                        return self._send(400, {"error": f"missing field(s): {sorted(missing)}"})
+                    engine.load_slider(req["name"], req["path"])
+                    return self._send(200, {"ok": True, "name": req["name"]})
+                if self.path == "/generate":
+                    if "prompt" not in req:
+                        return self._send(400, {"error": "missing field(s): ['prompt']"})
+                    t0 = time.perf_counter()
+                    imgs = engine.generate(
+                        req["prompt"],
+                        seed=req.get("seed", 0),
+                        slider=req.get("slider"),
+                        scales=req.get("scales"),
+                        start_noise=req.get("start_noise"),
+                        negative_prompt=req.get("negative_prompt", ""),
+                        guidance_scale=req.get("guidance_scale"),
+                    )
+                    return self._send(200, {
+                        "images": [{"scale": s, "png": base64.b64encode(png).decode()}
+                                   for s, png in imgs],
+                        "latency_ms": round((time.perf_counter() - t0) * 1e3, 1),
+                    })
+                return self._send(404, {"error": f"no route {self.path}"})
+            except KeyError as e:  # unknown slider name
+                return self._send(404, {"error": f"unknown: {e}"})
+            except NotImplementedError as e:
+                return self._send(501, {"error": str(e)})
+            except TimeoutError as e:  # before OSError: it's a subclass
+                return self._send(504, {"error": str(e)})
+            except (TypeError, ValueError, OSError) as e:
+                return self._send(400, {"error": str(e)})
+            except Exception as e:  # never drop the connection without a reply
+                return self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+    return ThreadingHTTPServer((host, port), Handler)
