@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD1.5 slider-serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SD1.5 slider serving and slider training once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of the repository
 
 Phases, each printing one line or a few before the last:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc.
-  2. build:  nvcc builds sliders_tpu_torch/csrc/sd_attention.cu for sm_90a.
-  3. kernel: the attention kernel against its plain PyTorch version at the
-     slice's shapes (error and median time of each), then the whole tiny
-     slice at 256 px on the GPU (through the kernel) against the CPU (plain
-     path) in f32.
+  2. build:  nvcc builds the attention forward and backward kernels
+     (sliders_tpu_torch/csrc/sd_attention*.cu) for sm_90a, in parallel.
+  3. kernel: the forward kernel against its plain PyTorch version at the
+     serving shapes, the backward kernel against its plain version at the
+     grad-pass shapes (error of dq/dk/dv and median time of each), then the
+     tiny slice at 256 px and three tiny training steps at 256 px on the GPU
+     (through the kernels) against the CPU (plain paths) in f32.
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
      one UNet step timed through the kernel and on the plain attention
-     path, its device time by kernel class, and one VAE decode.
+     path, its device time by kernel class, and one VAE decode; then the
+     training grad pass (batch 1, remat) on the same UNet through both
+     kernels against the plain attention path, in alternating rounds.
   5. http:   /generate with five scales, two concurrent /generate calls for
      the two sliders (coalesced into one stacked batch), /healthz; every
      reply is checked, and the kernel's launch count must equal
      10 routed self-attentions x 50 steps x the denoise batches.
+  6. train:  a full-width SD1.5 snapshot with seeded random weights (UNet +
+     CLIP-L + tokenizer, no VAE) written to a temporary directory, then the
+     training CLI in-process with the values of data/config.yaml (bf16,
+     remat, rank-4 noxattn, AdamW lr 2e-4, DDIM 50) for a few iterations,
+     and a resume from its state file; losses, the moved LoRA, the frozen
+     alphas, the saved files and the launch counts of both kernels are
+     checked, and the time per iteration is split by phase.
 The last line is {"ok": true, "device": {...}}; any failure raises, exits
 non-zero and prints no such line. It needs a CUDA device and the rest of
 the repository beside it.
@@ -27,6 +39,7 @@ the repository beside it.
 from __future__ import annotations
 
 import base64
+import gc
 import json
 import math
 import os
@@ -50,6 +63,14 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype: the 8-row bucket CFG-doubled, and othe
     ((2, 8, 1024, 128), "bfloat16"),
     ((2, 8, 4096, 40), "float32"),
 ]
+BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, one f32
+    ((1, 8, 4096, 40), "bfloat16"),
+    ((1, 8, 1024, 80), "bfloat16"),
+    ((2, 8, 4096, 40), "bfloat16"),
+    ((1, 24, 4096, 128), "bfloat16"),
+    ((1, 8, 4096, 40), "float32"),
+]
+TRAIN_ITERATIONS = 6  # the full-width run; per_steps and state_checkpoint_every 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -107,13 +128,17 @@ def phase_build():
     from sliders_tpu_torch.ops import sd_attention as sa
 
     t0 = time.perf_counter()
-    lib = sa.build_library()
+    libs = sa.build_libraries()
     secs = time.perf_counter() - t0
-    log = lib.with_suffix(".log").read_text().splitlines()
-    regs = [ln.split("info    : ")[-1] for i, ln in enumerate(log)
-            if "Used" in ln and i > 0 and "attn_fwd_bf16ILi48E" in log[i - 2]]
-    say("build", f"{lib.name} in {secs:.1f} s (bf16 d<=48 kernel: {regs[0] if regs else '?'})")
-    sa._library()
+    for name, lib in libs.items():
+        log = lib.with_suffix(".log").read_text().splitlines()
+        regs = [f"{kernel} {ln.split('info    : ')[-1]}" for kernel in
+                ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16")
+                for i, ln in enumerate(log)
+                if "Used" in ln and i > 1 and f"{kernel}ILi48E" in log[i - 2]]
+        say("build", f"{lib.name} (d<=48: {'; '.join(regs) or '?'})")
+        sa._library(name)
+    say("build", f"both libraries built and loaded in {secs:.1f} s")
 
 
 def phase_kernel():
@@ -151,6 +176,49 @@ def phase_kernel():
     return results
 
 
+def bf16_ulp(ref_max: float) -> float:
+    return 2.0 ** (math.floor(math.log2(max(ref_max, 2.0**-30))) - 7)
+
+
+def phase_kernel_bwd():
+    """The backward kernel against sd_attention_bwd_ref at the grad-pass
+    shapes. bf16: both round p and ds at the same points and differ in
+    summation order and the fast exp, held to 4 bf16 ulps at each output's
+    largest magnitude; f32: 1e-5 relative to the largest value."""
+    import torch
+
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = []
+    for shape, dt in BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+        out = sa.sd_attention_bwd(q, k, v, g)
+        ref = sa.sd_attention_bwd_ref(q, k, v, g)
+        torch.cuda.synchronize()
+        errs, worst, ok = [], 0.0, True
+        for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+            ref_max = r.float().abs().max().item()
+            err = (o.float() - r.float()).abs().max().item()
+            tol = 4 * bf16_ulp(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+            errs.append(f"{name} {err:.3g} (tol {tol:.3g}, max|ref| {ref_max:.3g})")
+            ok = ok and err <= tol and o.dtype == dtype and o.shape == r.shape
+            worst = max(worst, err)
+        del out, ref
+        ms = median_ms(lambda: sa.sd_attention_bwd(q, k, v, g))
+        plain_ms = median_ms(lambda: sa.sd_attention_bwd_ref(q, k, v, g), runs=5)
+        say("kernel", f"bwd {shape} {dt}: max|err| vs plain {', '.join(errs)}; median kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"sd_attention_bwd disagrees with its plain version at {shape} {dt}")
+        results.append({"shape": shape, "dtype": dt, "err": worst, "ms": ms, "plain_ms": plain_ms})
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    return results
+
+
 def tiny_slice(device: str, trees: dict, clip_cfg, latents, tok):
     """Tiny SD at 256 px (L=1024 at level 0, so the routed path) in f32,
     3 DDIM steps with a slider at scales [-1, 0, 1]; returns the latents."""
@@ -176,10 +244,10 @@ def tiny_slice(device: str, trees: dict, clip_cfg, latents, tok):
 def phase_tiny_slice(tok_dir: str):
     import torch
 
-    from sliders_tpu.text.tokenizer import ClipTokenizer
     from sliders_tpu_torch.lora.network import create_slider_network
     from sliders_tpu_torch.models import clip_text, unet2d
     from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.text.tokenizer import ClipTokenizer
 
     gen = torch.Generator().manual_seed(1)
     tok = ClipTokenizer.from_pretrained(tok_dir)
@@ -206,6 +274,80 @@ def phase_tiny_slice(tok_dir: str):
         raise AssertionError("the tiny slice on the GPU disagrees with the CPU")
 
 
+TINY_LR = 1e-4
+
+
+def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list):
+    """TINY at 256 px (L=1024 at level 0, so the routed path) in f32 with
+    remat: len(draws) train steps with the given draws; returns the losses,
+    the grad norms and the final LoRA on the CPU."""
+    import torch
+
+    from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
+    from sliders_tpu_torch.lora.network import trainable_mask
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.training import optimizers, text_slider
+
+    sched = make_schedule()
+    tx = optimizers.make_optimizer("adamw", optimizers.make_lr_schedule("constant", TINY_LR, 100),
+                                   trainable_mask=trainable_mask(lora))
+    step = text_slider.make_text_slider_step(
+        unet2d.TINY, sched, make_sampler(sched, "ddim", 5), tx, max_denoising_steps=5,
+        resolution=256, compute_dtype=torch.float32, remat=True)
+    state = text_slider.SliderTrainState.create(0, tree_to(lora, device), tx)
+    params = tree_to(unet, device)
+    on_device = {k: v.to(device) for k, v in pairs.items()}
+    losses, norms = [], []
+    for d in draws:
+        state, m = step(state, params, on_device, draws=d)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    return losses, norms, {m: {k: t.cpu() for k, t in e.items()} for m, e in state.lora.items()}
+
+
+def phase_tiny_train():
+    """Three tiny train steps on the GPU (both kernels, remat) against the
+    CPU (plain paths) with the same draws, in f32 with TF32 off. The two
+    differ only by f32 sums in other orders, so each step's loss is held to
+    1e-5 relative, its grad norm to 1e-4 relative (a wrong gradient path, say
+    swapped dk/dv or a LoRA factor with no gradient, moves it far more), and
+    the LoRA after the last update to 1e-6 absolute (Adam moves an element
+    about lr = 1e-4 a step, so a sign flip of a gradient shows)."""
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.training.text_slider import step_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(6)
+    unet = unet2d.init_params(gen, unet2d.TINY)
+    lora = create_slider_network(gen, unet, rank=4, train_method="noxattn")
+    pairs = {k: torch.randn((1, 8, 32), generator=gen)
+             for k in ("target", "positive", "neutral", "unconditional")}
+    pairs["guidance_signed"] = torch.tensor([2.0])
+    draws = [step_draws(6, i, 1, 5, (1, 32, 32, 4), 1.0) for i in range(3)]
+    fwd0, bwd0 = sa.sd_attention.launches, sa.sd_attention_bwd.launches
+    gpu_losses, gpu_norms, gpu_lora = tiny_train("cuda", unet, lora, pairs, draws)
+    fwd, bwd = sa.sd_attention.launches - fwd0, sa.sd_attention_bwd.launches - bwd0
+    cpu_losses, cpu_norms, cpu_lora = tiny_train("cpu", unet, lora, pairs, draws)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_norms, cpu_norms))
+    lora_err = max((gpu_lora[m][k] - cpu_lora[m][k]).abs().max().item()
+                   for m in cpu_lora for k in ("down", "up"))
+    say("kernel", f"tiny training 256 px f32, 3 steps (t_to {[d[1] for d in draws]}), GPU "
+        f"(kernels: {fwd} forward, {bwd} backward launches) vs CPU (plain): losses "
+        f"{[f'{x:.6g}' for x in gpu_losses]} vs {[f'{x:.6g}' for x in cpu_losses]}, max rel err "
+        f"{loss_err:.3g} (tol 1e-5); grad norms {[f'{x:.6g}' for x in gpu_norms]} vs "
+        f"{[f'{x:.6g}' for x in cpu_norms]}, max rel err {norm_err:.3g} (tol 1e-4); LoRA "
+        f"max|err| {lora_err:.3g} (tol 1e-6)")
+    if fwd == 0 or bwd == 0 or not (loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
+        raise AssertionError("tiny training on the GPU disagrees with the CPU")
+
+
 def write_tokenizer(d: str) -> None:
     """A small synthetic CLIP BPE vocabulary (no tokenizer files ship with
     random weights); any token id it yields is valid for CLIP-L."""
@@ -228,11 +370,11 @@ def write_tokenizer(d: str) -> None:
 def build_engine(tok_dir: str):
     import torch
 
-    from sliders_tpu.text.tokenizer import ClipTokenizer
     from sliders_tpu_torch.lora.network import create_slider_network
     from sliders_tpu_torch.models import clip_text, unet2d, vae
     from sliders_tpu_torch.models.loader import SDModels, TextEncoderBundle
     from sliders_tpu_torch.serving.server import SliderEngine
+    from sliders_tpu_torch.text.tokenizer import ClipTokenizer
 
     # the engine as served: cuDNN convs may use TF32 (the VAE decodes in f32),
     # matmuls stay full f32; both set explicitly
@@ -309,12 +451,11 @@ def phase_step(engine):
             unet2d.apply(m.unet_params, m.unet_config, x, t, ctx, lora=lora)
 
     kernel_ms = median_ms(step)
-    gate = ta.routes_to_sd_kernel
-    ta.routes_to_sd_kernel = lambda *args: False  # every attention on the plain path
+    ta.set_attention_impl("xla")  # every attention on the plain path
     try:
         plain_ms = median_ms(step)
     finally:
-        ta.routes_to_sd_kernel = gate
+        ta.set_attention_impl("auto")
     say("step", f"UNet forward, 16 rows (bucket 8 CFG-doubled), 512 px, bf16, slider on: "
         f"median {kernel_ms:.2f} ms through the kernel, {plain_ms:.2f} ms on the plain "
         f"attention path")
@@ -340,6 +481,83 @@ def phase_step(engine):
     dec_ms = median_ms(lambda: decode_images(m.vae_params, m.vae_config, lat), runs=3)
     say("step", f"VAE decode of 8 images (f32, cuDNN TF32 allowed): median {dec_ms:.2f} ms; "
         f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+
+def phase_grad_ab(engine, rounds: int = 4, passes: int = 5):
+    """The training grad pass at full width (SD1.5 UNet bf16, batch 1,
+    512 px, remat, the rank-4 slider's factors as the leaves) through the
+    kernel route (both kernels) against the plain attention route ('xla'),
+    in alternating order; per round the median of `passes` synced passes,
+    the host's enqueue time, the working memory above what was allocated
+    before, and the grad norm, which must agree between the routes within
+    1e-2 relative (bf16 through the whole UNet, and the plain route's
+    autograd rounds dp where the kernel rounds ds). The kernels' correctness
+    is held tightly elsewhere; this phase measures the routes."""
+    import torch
+
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import attention as ta
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.ops.basic import SliderLora
+
+    m = engine.models
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn((1, 77, 768), generator=gen, device="cuda").bfloat16()
+    t = torch.tensor(501.0, device="cuda")
+    slider = engine.sliders["s1"]
+
+    def grad_pass():
+        leaves = {n: {k: (v.detach().float().requires_grad_() if k != "alpha" else v)
+                      for k, v in e.items()} for n, e in slider.items()}
+        eps = unet2d.apply(m.unet_params, m.unet_config, x, t, ctx,
+                           lora=SliderLora(leaves, 1.0), remat=True)
+        params = [e[k] for e in leaves.values() for k in ("down", "up")]
+        return torch.autograd.grad((eps.float() ** 2).mean(), params)
+
+    def run(impl):
+        ta.set_attention_impl(impl)
+        try:
+            grad_pass()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            b0 = sa.sd_attention_bwd.launches
+            dev, host = [], []
+            for _ in range(passes):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                s.record()
+                grads = grad_pass()
+                h1 = time.perf_counter()
+                e.record()
+                torch.cuda.synchronize()
+                dev.append(s.elapsed_time(e))
+                host.append((h1 - h0) * 1e3)
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads)).item()
+            return {"ms": statistics.median(dev), "host_ms": statistics.median(host),
+                    "work_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                    "bwd_per_pass": (sa.sd_attention_bwd.launches - b0) / passes, "norm": norm}
+        finally:
+            ta.set_attention_impl("auto")
+
+    out = {"auto": [], "xla": []}
+    for r in range(rounds):
+        for impl in (("auto", "xla") if r % 2 == 0 else ("xla", "auto")):
+            out[impl].append(run(impl))
+    for impl, name in (("auto", "kernel route"), ("xla", "plain route")):
+        rs = out[impl]
+        say("grad", f"{name}: ms per pass by round {[round(r['ms'], 2) for r in rs]} (median "
+            f"{statistics.median(r['ms'] for r in rs):.2f}); host enqueue "
+            f"{[round(r['host_ms'], 2) for r in rs]}; working memory "
+            f"{max(r['work_gb'] for r in rs):.2f} GB; backward-kernel launches per pass "
+            f"{rs[0]['bwd_per_pass']:g}; grad norm {rs[0]['norm']:.6g}")
+    k_norm, p_norm = out["auto"][0]["norm"], out["xla"][0]["norm"]
+    if out["auto"][0]["bwd_per_pass"] != ROUTED_PER_FORWARD or out["xla"][0]["bwd_per_pass"] != 0:
+        raise AssertionError("the grad pass did not take the route it was given")
+    if not (math.isfinite(k_norm) and abs(k_norm - p_norm) <= 1e-2 * abs(p_norm)):
+        raise AssertionError(f"grad norms disagree between the routes: {k_norm} vs {p_norm}")
 
 
 def png_pixels(png: bytes):
@@ -480,6 +698,212 @@ def phase_http(engine):
         engine.close(timeout=60)
 
 
+def unet_hf_config(cfg) -> dict:
+    """The diffusers unet/config.json of a UNetConfig (SD1 keys)."""
+    return {
+        "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+        "block_out_channels": list(cfg.block_out_channels),
+        "down_block_types": list(cfg.down_block_types),
+        "up_block_types": list(cfg.up_block_types), "layers_per_block": cfg.layers_per_block,
+        "cross_attention_dim": cfg.cross_attention_dim,
+        "attention_head_dim": list(cfg.num_attention_heads),
+        "transformer_layers_per_block": list(cfg.transformer_layers_per_block),
+        "use_linear_projection": cfg.use_linear_projection,
+        "norm_num_groups": cfg.norm_num_groups,
+    }
+
+
+def write_sd15_snapshot(root: str) -> int:
+    """A diffusers-layout SD1.5 snapshot with seeded random weights: the UNet
+    in bf16, CLIP-L in f32, the synthetic tokenizer, and no VAE (training
+    needs none). Returns the UNet's parameter count."""
+    import torch
+
+    from sliders_tpu_torch.models import clip_text, unet2d
+    from sliders_tpu_torch.models.convert import write_safetensors
+    from sliders_tpu_torch.utils.pytree import flatten
+
+    for sub in ("unet", "text_encoder", "tokenizer"):
+        os.makedirs(os.path.join(root, sub))
+    write_tokenizer(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json")) as f:
+        eos = json.load(f)["<|endoftext|>"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    unet = flatten(unet2d.init_params(gen, unet2d.SD15, dtype=torch.bfloat16, device="cuda"))
+    n_params = sum(t.numel() for t in unet.values())
+    write_safetensors(os.path.join(root, "unet", "diffusion_pytorch_model.safetensors"), unet)
+    with open(os.path.join(root, "unet", "config.json"), "w") as f:
+        json.dump(unet_hf_config(unet2d.SD15), f)
+    del unet
+    cfg = clip_text.CLIP_L
+    clip = flatten(clip_text.init_params(gen, cfg, device="cuda"))
+    write_safetensors(os.path.join(root, "text_encoder", "model.safetensors"), clip)
+    with open(os.path.join(root, "text_encoder", "config.json"), "w") as f:
+        json.dump({"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                   "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "max_position_embeddings": cfg.max_positions, "hidden_act": cfg.hidden_act,
+                   "eos_token_id": eos}, f)
+    return n_params
+
+
+def dump_yaml(tree: dict, indent: int = 0) -> str:
+    """Nested mappings of scalars as YAML (strings double-quoted)."""
+    lines = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            lines.append(" " * indent + f"{k}:")
+            lines.append(dump_yaml(v, indent + 2))
+        elif isinstance(v, bool) or v is None:
+            lines.append(" " * indent + f"{k}: {json.dumps(v)}")  # true / false / null
+        else:
+            text = json.dumps(v) if isinstance(v, str) else repr(v)
+            lines.append(" " * indent + f"{k}: {text}")
+    return "\n".join(lines)
+
+
+def run_training(cfg: dict, path: str, extra: list) -> dict:
+    """The training CLI in-process on cuda:0 with the config `cfg` (written
+    to `path`); the kernels' counts are set to 0 just before and read just
+    after. Returns the per-iteration records, the counts and the LoRA."""
+    import torch
+
+    from sliders_tpu_torch.cli import train_text_slider as cli
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg) + "\n")
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    final = cli.main(cli.build_parser().parse_args(["--config_file", path, "--device", "0",
+                                                    *extra]),
+                     on_step=lambda i, state, m: records.append((i, time.perf_counter(), m)))
+    torch.cuda.synchronize()
+    return {"records": records, "fwd": sa.sd_attention.launches, "bwd": sa.sd_attention_bwd.launches,
+            "lora": final, "seconds": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def expected_fwd(records, remat: bool) -> int:
+    """Forward-kernel launches of the iterations: 10 routed self-attentions
+    per UNet call, t_to calls in the partial denoise, one frozen pass, the
+    grad pass, and with remat the grad pass's forward again in the backward."""
+    return sum(ROUTED_PER_FORWARD * (m["t_to"] + 2 + int(remat)) for _, _, m in records)
+
+
+def phase_train():
+    """SD1.5 at full width through the training CLI, then a resume."""
+    import torch
+
+    from sliders_tpu_torch.core import yaml_subset
+    from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.models import unet2d
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "sd15")
+        t0 = time.perf_counter()
+        n_params = write_sd15_snapshot(snap)
+        say("train", f"SD1.5 snapshot with random weights (UNet {n_params / 1e6:.1f} M params "
+            f"bf16, CLIP-L f32, no VAE) written in {time.perf_counter() - t0:.1f} s")
+
+        cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
+        overrides = {
+            ("prompts_file",): os.path.join(REPO, "data", "prompts.yaml"),
+            ("pretrained_model", "name_or_path"): snap,
+            ("train", "iterations"): TRAIN_ITERATIONS,
+            ("save", "path"): os.path.join(tmp, "out"),
+            ("save", "per_steps"): 3,
+            ("logging", "log_every"): 1,
+            ("tpu", "state_checkpoint_every"): 3,
+        }
+        for keys, value in overrides.items():
+            node = cfg
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = value
+        say("train", f"config data/config.yaml: train {cfg['train']}; network {cfg['network']}; "
+            f"tpu {cfg['tpu']}; overridden: iterations, save.per_steps, logging.log_every, "
+            f"tpu.state_checkpoint_every and the paths (prompts: data/prompts.yaml)")
+        remat = bool(cfg["tpu"]["remat"])
+
+        run = run_training(cfg, os.path.join(tmp, "config.yaml"), [])
+        recs = run["records"]
+        losses = [m["loss"] for _, _, m in recs]
+        t_tos = [m["t_to"] for _, _, m in recs]
+        fwd_expected = expected_fwd(recs, remat)
+        bwd_expected = ROUTED_PER_FORWARD * TRAIN_ITERATIONS
+        say("train", f"{len(recs)} iterations: t_to {t_tos}, losses "
+            f"{[f'{x:.6g}' for x in losses]}; kernel launches: forward {run['fwd']} (expected "
+            f"{fwd_expected} = 10 x sum(t_to + 2 + remat)), backward {run['bwd']} (expected "
+            f"{bwd_expected} = 10 x {TRAIN_ITERATIONS})")
+        if [i for i, _, _ in recs] != list(range(TRAIN_ITERATIONS)):
+            raise AssertionError("the run did not take every iteration")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError("a training loss is not finite")
+        if run["fwd"] != fwd_expected or run["bwd"] != bwd_expected:
+            raise AssertionError("not every routed self-attention of the training run went "
+                                 "through the kernels")
+
+        final = run["lora"]
+        frozen_up = [m for m, e in final.items() if not bool(e["up"].abs().max() > 0)]
+        if frozen_up:
+            raise AssertionError(f"{len(frozen_up)} LoRA up factors never moved from zero, e.g. "
+                                 f"{frozen_up[:3]}")
+        if any(e["alpha"].item() != cfg["network"]["alpha"] for e in final.values()):
+            raise AssertionError("a LoRA alpha changed")
+        name = (f"{cfg['save']['name']}_alpha{float(cfg['network']['alpha'])}"
+                f"_rank{cfg['network']['rank']}_{cfg['network']['training_method']}")
+        out_dir = os.path.join(tmp, "out", name)
+        files = sorted(os.listdir(out_dir))
+        expected_files = sorted(f"{name}{s}" for s in ("_3steps.safetensors", "_last.safetensors",
+                                                       "_metadata.json", "_trainstate.pt"))
+        if files != expected_files:
+            raise AssertionError(f"saved files {files}, expected {expected_files}")
+        meta_unet = unet2d.init_params(None, unet2d.SD15, device="meta")
+        last = lora_io.load_slider(os.path.join(out_dir, f"{name}_last.safetensors"), meta_unet)
+        if set(last) != set(final) or any(not torch.equal(last[m][k], final[m][k])
+                                          for m in final for k in ("down", "up", "alpha")):
+            raise AssertionError("the _last slider does not reload equal to the trained LoRA")
+        say("train", f"{len(final)} LoRA modules: every up factor moved from zero, every alpha "
+            f"still {cfg['network']['alpha']}; files {files}; _last reloads equal")
+
+        # resume from the state saved after step 3 for one more iteration
+        cfg["train"]["iterations"] = 5
+        resumed = run_training(cfg, os.path.join(tmp, "config_resume.yaml"),
+                               ["--resume", os.path.join(out_dir, f"{name}_trainstate.pt")])
+        rrecs = resumed["records"]
+        if [i for i, _, _ in rrecs] != [4]:
+            raise AssertionError(f"the resumed run took steps {[i for i, _, _ in rrecs]}, not [4]")
+        m4, r4 = recs[4][2], rrecs[0][2]
+        rel = abs(r4["loss"] - m4["loss"]) / abs(m4["loss"])
+        r_fwd = expected_fwd(rrecs, remat)
+        say("train", f"resume at step 4: t_to {r4['t_to']} pair {r4['pair']} (first run "
+            f"{m4['t_to']}, {m4['pair']}), loss {r4['loss']:.6g} vs {m4['loss']:.6g} (rel "
+            f"{rel:.3g}); launches forward {resumed['fwd']} (expected {r_fwd}), backward "
+            f"{resumed['bwd']} (expected {ROUTED_PER_FORWARD})")
+        if (r4["t_to"], r4["pair"]) != (m4["t_to"], m4["pair"]) or rel > 1e-3:
+            raise AssertionError("the resumed step does not repeat the first run's step 4")
+        if resumed["fwd"] != r_fwd or resumed["bwd"] != ROUTED_PER_FORWARD:
+            raise AssertionError("the resumed run did not go through the kernels")
+
+    # time per iteration, past the first (which includes cuBLAS/cuDNN set-up)
+    steady = recs[1:]
+    host_s = [b[1] - a[1] for a, b in zip(recs, recs[1:])]
+    phases = {k: statistics.median(m["phase_ms"][k] for _, _, m in steady)
+              for k in ("denoise", "frozen", "grad", "update")}
+    per_call = statistics.median(m["phase_ms"]["denoise"] / m["t_to"] for _, _, m in steady)
+    say("train", f"median per iteration (iterations 1-{len(recs) - 1}): "
+        f"{statistics.median(host_s):.3f} s host wall; device ms: denoise loop "
+        f"{phases['denoise']:.1f} ({per_call:.2f} per CFG-doubled UNet call), frozen pass "
+        f"{phases['frozen']:.2f}, grad pass forward + backward {phases['grad']:.2f}, update "
+        f"{phases['update']:.2f}; peak device memory {run['peak_gb']:.2f} GB; whole run "
+        f"{run['seconds']:.1f} s including the load")
+    return {"fwd": run["fwd"], "bwd": run["bwd"], "resume_fwd": resumed["fwd"],
+            "resume_bwd": resumed["bwd"]}
+
+
 def main() -> int:
     import torch
 
@@ -496,23 +920,44 @@ def main() -> int:
     phase_device()
     phase_build()
     results = phase_kernel()
+    bwd_results = phase_kernel_bwd()
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
         phase_tiny_slice(tok_dir)
+        phase_tiny_train()
         engine = build_engine(tok_dir)
     phase_step(engine)
-    launches = phase_http(engine)
+    phase_grad_ab(engine)
+    serve_launches = phase_http(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train()
 
-    level0 = results[0]
+    # launches: this slice's main path (training); the serving path's count
+    # and the resume's are listed beside it
+    level0, bwd_level0 = results[0], bwd_results[0]
     print(json.dumps({"kernels": [{
         "name": "sd_attention_fwd",
         "route": "cuda",
         "source": "sliders_tpu_torch/csrc/sd_attention.cu",
         "replaces": "sliders_tpu/ops/pallas_attention.py:43",
-        "launches": launches,
+        "launches": train["fwd"],
+        "launches_by_path": {"train": train["fwd"], "train_resume": train["resume_fwd"],
+                             "serve": serve_launches},
         "max_abs_err": max(r["err"] for r in results),
         "ms": level0["ms"],
         "plain_ms": level0["plain_ms"],
+    }, {
+        "name": "sd_attention_bwd",
+        "route": "cuda",
+        "source": "sliders_tpu_torch/csrc/sd_attention_bwd.cu",
+        "replaces": "sliders_tpu/ops/pallas_attention.py:156",
+        "launches": train["bwd"],
+        "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"]},
+        "max_abs_err": max(r["err"] for r in bwd_results),
+        "ms": bwd_level0["ms"],
+        "plain_ms": bwd_level0["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

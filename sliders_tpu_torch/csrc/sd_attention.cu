@@ -30,22 +30,9 @@
 // for batch, head and row (the last dim must be contiguous), so the caller
 // can pass the (B, L, H, d) views of the projection outputs with no copy.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <math.h>
+#include "sd_attention_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;         // q rows per block
-constexpr int BK = 64;         // keys per K/V tile (bf16 path)
-constexpr int NWARPS = 4;      // bf16 path: 16 q rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int BKF = 32;        // keys per K/V tile (f32 path)
-
-struct Strides {
-  long long b, h, l;
-};
 
 struct Params {
   const void* q;
@@ -57,39 +44,7 @@ struct Params {
   float scale;
 };
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> one register of two bf16 (lo in the low half), round to nearest even
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 64 rows x DP columns of src (rows from row0, d valid columns) -> dst with
-// row stride DP + 8; rows past nrows and columns past d are zero.
-template <int DP>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src, long long row_stride,
-                                               int row0, int nrows, int d) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per padded row
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows && c * 8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (long long)row * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + c * 8) = val;
-  }
-}
-
-// the same tile stored transposed: dst[col][row], row stride BK + 8
+// a 64-row tile stored transposed: dst[col][row], row stride BK + 8
 template <int DP>
 __device__ __forceinline__ void load_rows_t_bf16(bf16* dst, const bf16* src, long long row_stride,
                                                  int row0, int nrows, int d) {
@@ -104,42 +59,6 @@ __device__ __forceinline__ void load_rows_t_bf16(bf16* dst, const bf16* src, lon
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[(c * 8 + j) * (BK + 8) + r] = e[j];
   }
-}
-
-// s[nt][.] = scaled logits of this warp's 16 q rows against the 64 keys in ks;
-// keys at or past Lk get -inf.
-template <int DP>
-__device__ __forceinline__ void tile_logits(float (&s)[BK / 8][4], const uint32_t (&qf)[DP / 16][4],
-                                            const bf16* ks, int kv0, int Lk, float scale, int g,
-                                            int t4) {
-  constexpr int SK = DP + 8;
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const bf16* kb = ks + (nt * 8 + g) * SK + kk * 16 + t4 * 2;
-      const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(kb),
-                               *reinterpret_cast<const uint32_t*>(kb + 8)};
-      mma_16816(s[nt], qf[kk], bfr);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kv0 + nt * 8 + t4 * 2 + (e & 1);
-      s[nt][e] = key < Lk ? s[nt][e] * scale : -INFINITY;
-    }
-  }
-}
-
-// reduce over the four threads that share one accumulator row
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int DP>
@@ -164,45 +83,14 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_bf16(Params p) {
   load_rows_bf16<DP>(ks, q, p.qs.l, q0, p.Lq, p.d);
   __syncthreads();
   uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const bf16* base = ks + (r0 + g) * SK + kk * 16 + t4 * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SK);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * SK + 8);
-  }
+  load_a_frags<DP>(qf, ks, r0, g, t4);
   __syncthreads();
 
   // pass 1: row max and sum of exp over all keys (rows g and g + 8)
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float s[BK / 8][4];
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BK) {
-    load_rows_bf16<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    tile_logits<DP>(s, qf, ks, kv0, p.Lk, p.scale, g, t4);
-    __syncthreads();
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      sum0 += __expf(s[nt][0] - mn0) + __expf(s[nt][1] - mn0);
-      sum1 += __expf(s[nt][2] - mn1) + __expf(s[nt][3] - mn1);
-    }
-    // the first tile always holds a valid key, so mn is finite from here on
-    l0 = l0 * __expf(m0 - mn0) + quad_sum(sum0);
-    l1 = l1 * __expf(m1 - mn1) + quad_sum(sum1);
-    m0 = mn0;
-    m1 = mn1;
-  }
+  float m0, m1, l0, l1;
+  row_stats<DP>(qf, ks, k, p.ks.l, p.Lk, p.d, p.scale, g, t4, m0, m1, l0, l1);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  float s[BK / 8][4];
 
   // pass 2: normalised p, rounded to bf16, times V
   float acc[DP / 8][4];
@@ -249,20 +137,6 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_bf16(Params p) {
 
 // f32: one thread per q row, K/V tiles of BKF rows in shared memory
 template <int DP>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long row_stride,
-                                              int row0, int nrows, int d) {
-  constexpr int CH = DP / 4;
-  for (int i = threadIdx.x; i < BKF * CH; i += BQ) {
-    const int r = i / CH, c = i % CH;
-    const int row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < nrows && c * 4 < d)
-      val = *reinterpret_cast<const float4*>(src + (long long)row * row_stride + c * 4);
-    *reinterpret_cast<float4*>(dst + r * DP + c * 4) = val;
-  }
-}
-
-template <int DP>
 __global__ void __launch_bounds__(BQ) attn_fwd_f32(Params p) {
   __shared__ __align__(16) float ks[BKF * DP];
   __shared__ __align__(16) float vs[BKF * DP];
@@ -279,24 +153,9 @@ __global__ void __launch_bounds__(BQ) attn_fwd_f32(Params p) {
   for (int i = 0; i < DP; ++i)
     qr[i] = (row < p.Lq && i < p.d) ? q[(long long)row * p.qs.l + i] : 0.f;
 
-  // pass 1, one key at a time (l rescaled whenever m grows)
-  float m = -INFINITY, l = 0.f;
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BKF) {
-    load_rows_f32<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    const int nk = min(BKF, p.Lk - kv0);
-#pragma unroll 4
-    for (int j = 0; j < nk; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) dot = fmaf(qr[i], ks[j * DP + i], dot);
-      const float s = dot * p.scale;
-      const float mn = fmaxf(m, s);
-      l = l * __expf(m - mn) + __expf(s - mn);
-      m = mn;
-    }
-    __syncthreads();
-  }
+  // pass 1: the row's max and sum over all keys
+  float m, l;
+  row_stats_f32<DP>(qr, ks, k, p.ks.l, p.Lk, p.d, p.scale, m, l);
   const float inv = 1.f / l;
 
   float acc[DP];

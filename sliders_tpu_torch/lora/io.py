@@ -1,5 +1,5 @@
-"""Slider checkpoint loading, interoperable with reference-trained sliders
-(port of the load side of sliders_tpu/lora/io.py).
+"""Slider checkpoint I/O, interoperable with reference-trained sliders
+(port of sliders_tpu/lora/io.py).
 
 Key convention (lora.py:28,206-207,94):
   lora_unet_<module path, dots -> underscores>.lora_down.weight  (torch layout)
@@ -7,24 +7,60 @@ Key convention (lora.py:28,206-207,94):
   lora_unet_<...>.alpha
 The port keeps torch layouts, so the factors load as stored. Because the
 underscore flattening is lossy, names resolve against the candidate module
-paths of the given UNet parameter dict. Saving comes with training
-(ROADMAP queue 1, item 3).
+paths of the given UNet parameter dict. Both `.safetensors` (written by
+`models/convert.write_safetensors`, no package needed) and torch `.pt` files
+are written and read, so the JAX package and the reference load what the
+port saves and the other way round.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
 from sliders_tpu_torch.lora.network import target_module_paths
-from sliders_tpu_torch.models.convert import read_safetensors
+from sliders_tpu_torch.models.convert import read_safetensors, write_safetensors
 
 LORA_PREFIX_UNET = "lora_unet"
 
 
 def _flat_name(module_path: str) -> str:
     return f"{LORA_PREFIX_UNET}_{module_path.replace('.', '_')}"
+
+
+def torch_precision(precision: str) -> torch.dtype:
+    """Save-precision string -> torch dtype (`numpy_precision` of the JAX
+    package)."""
+    if precision in ("fp16", "float16"):
+        return torch.float16
+    if precision in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    return torch.float32
+
+
+def to_reference_state_dict(weights: dict, dtype=torch.float32) -> dict:
+    """LoRA tree -> reference-layout flat state dict (contiguous CPU tensors
+    in `dtype`; the port's factors already have the torch layouts)."""
+    out = {}
+    for module, w in weights.items():
+        name = _flat_name(module)
+        out[f"{name}.lora_down.weight"] = w["down"].detach().to("cpu", dtype).contiguous()
+        out[f"{name}.lora_up.weight"] = w["up"].detach().to("cpu", dtype).contiguous()
+        out[f"{name}.alpha"] = torch.as_tensor(w["alpha"]).detach().to("cpu", dtype).reshape(())
+    return out
+
+
+def save_slider(path: str, weights: dict, dtype=torch.float32, metadata: Optional[dict] = None):
+    """Write a slider checkpoint; the format follows the extension
+    (.safetensors, else a torch .pt state dict), as the reference's
+    LoRANetwork.save_weights does (lora.py:245-248)."""
+    state = to_reference_state_dict(weights, dtype)
+    if os.path.splitext(path)[1] == ".safetensors":
+        write_safetensors(path, state, {k: str(v) for k, v in (metadata or {}).items()})
+    else:
+        torch.save(state, path)
 
 
 def from_reference_state_dict(state: dict, unet_params: dict) -> dict:

@@ -8,8 +8,9 @@ separate LoRA tree is built under those names; `ops/basic.py` adds the
 low-rank branch at matching call sites. Targeting reproduces the reference:
 'lierla' takes to_q/to_k/to_v/to_out.0 of every attn1/attn2, 'c3lier' adds
 the ResnetBlock2D and sampler convs, and `train_method` filters on the
-parent and child names (lora.py:176-205). Factors are torch layouts: linear
-down (r, in), up (out, r); conv down (r, in, kh, kw), up (out, r, 1, 1).
+parent and child names (lora.py:176-205). `trainable_mask` freezes the
+alphas. Factors are torch layouts: linear down (r, in), up (out, r); conv
+down (r, in, kh, kw), up (out, r, 1, 1).
 """
 
 from __future__ import annotations
@@ -126,3 +127,13 @@ def create_slider_network(
     if not weights:
         raise ValueError(f"no LoRA targets for type={network_type} method={train_method}")
     return weights
+
+
+def trainable_mask(weights: dict) -> dict:
+    """True for the trainable factors (down/up), False for alpha, a constant
+    buffer in the reference (lora.py:94)."""
+    return {m: {"down": True, "up": True, "alpha": False} for m in weights}
+
+
+def param_count(weights: dict) -> int:
+    return sum(w[k].numel() for w in weights.values() for k in ("down", "up"))

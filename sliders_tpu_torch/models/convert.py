@@ -12,7 +12,7 @@ every transpose once:
 
 `read_safetensors` reads the public `.safetensors` format with no package
 beyond torch: an 8-byte little-endian header length, a JSON header, then the
-raw tensor bytes.
+raw little-endian tensor bytes. `write_safetensors` is its inverse.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -42,6 +42,9 @@ _ST_DTYPES = {
     "U8": torch.uint8,
     "BOOL": torch.bool,
 }
+
+
+_ST_NAMES = {dtype: name for name, dtype in _ST_DTYPES.items()}
 
 
 def is_embedding_path(path: str) -> bool:
@@ -71,6 +74,38 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
                                 offset=begin)
         out[name] = flat.reshape(shape)
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
+                      metadata: Optional[Mapping[str, str]] = None) -> None:
+    """Write `tensors` (any device) as a `.safetensors` file: the header is
+    JSON padded with spaces to a multiple of 8 bytes, the data follows in
+    name order with no gaps. `metadata` values must be strings."""
+    names = sorted(tensors)
+    header: dict = {}
+    if metadata:
+        if not all(isinstance(v, str) for v in metadata.values()):
+            raise ValueError("safetensors metadata values must be strings")
+        header["__metadata__"] = dict(metadata)
+    blobs, offset = [], 0
+    for name in names:
+        t = tensors[name].detach()
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"tensor {name!r} has unsupported dtype {t.dtype}")
+        data = t.to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+    os.replace(tmp, path)
 
 
 def convert_state_dict(state: Mapping[str, torch.Tensor]) -> dict:

@@ -14,9 +14,9 @@ from typing import Optional
 
 import torch
 
-from sliders_tpu.text.tokenizer import ClipTokenizer
 from sliders_tpu_torch.models import clip_text, convert, unet2d, vae
 from sliders_tpu_torch.models.params import tree_to
+from sliders_tpu_torch.text.tokenizer import ClipTokenizer
 
 
 def unet_config_from_hf(cfg: dict) -> unet2d.UNetConfig:

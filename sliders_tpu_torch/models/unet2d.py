@@ -5,8 +5,12 @@ The parameter dict mirrors the diffusers state-dict paths, so snapshots load
 mechanically (models/convert.py) and LoRA names follow the reference
 convention. Latents are NHWC at `apply`; convs run channels_last.
 
-The SDXL `text_time` conditioning (`is_xl`) and `remat` come with the SDXL
-and training items of ROADMAP queue 1.
+`apply(..., remat=True)` recomputes each basic transformer block in the
+backward pass instead of keeping its activations (non-reentrant
+`torch.utils.checkpoint`, as the JAX package wraps the block in
+`jax.checkpoint`, models/unet2d.py:313-318); it takes effect only when
+grad mode is on. The SDXL `text_time` conditioning (`is_xl`) comes with
+ROADMAP queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sliders_tpu_torch.models.params import ParamFactory
 from sliders_tpu_torch.ops.attention import multihead_attention
@@ -130,7 +135,8 @@ def _basic_transformer_block(p: dict, x, context, heads: int, lora, name: str):
     return x
 
 
-def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name: str):
+def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name: str,
+                   remat: bool = False):
     """diffusers Transformer2DModel: GN -> proj_in -> N blocks -> proj_out
     (+ residual). proj is a 1x1 conv for SD1, a linear for SD2."""
     B, H, W, C = x.shape
@@ -143,9 +149,11 @@ def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name:
         h = h.reshape(B, H * W, C)
     blocks = p["transformer_blocks"]
     for k in range(len(blocks)):
-        h = _basic_transformer_block(
-            blocks[str(k)], h, context, heads, lora, f"{name}.transformer_blocks.{k}"
-        )
+        args = (blocks[str(k)], h, context, heads, lora, f"{name}.transformer_blocks.{k}")
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(_basic_transformer_block, *args, use_reentrant=False)
+        else:
+            h = _basic_transformer_block(*args)
     if cfg.use_linear_projection:
         h = linear(p["proj_out"], h, lora=lora, name=f"{name}.proj_out").reshape(B, H, W, C)
     else:
@@ -179,8 +187,11 @@ def apply(
     timesteps,  # (B,) or scalar
     encoder_hidden_states: torch.Tensor,  # (B, L, cross_attention_dim)
     lora: Optional[SliderLora] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Predict the noise residual. Returns (B, H, W, C_out) in sample.dtype."""
+    """Predict the noise residual. Returns (B, H, W, C_out) in sample.dtype.
+    `remat` checkpoints every basic transformer block (see the module
+    docstring)."""
     _check_supported(cfg)
     B = sample.shape[0]
     dtype = sample.dtype
@@ -204,7 +215,7 @@ def apply(
             if has_attn:
                 h = _transformer2d(
                     bp["attentions"][str(j)], h, ehs, cfg.num_attention_heads[i],
-                    cfg, lora, f"{bname}.attentions.{j}",
+                    cfg, lora, f"{bname}.attentions.{j}", remat,
                 )
             res_stack.append(h)
         if i < n_blocks - 1:
@@ -215,7 +226,7 @@ def apply(
     h = _resnet(mp["resnets"]["0"], h, emb, cfg, lora, "mid_block.resnets.0")
     h = _transformer2d(
         mp["attentions"]["0"], h, ehs, cfg.num_attention_heads[-1],
-        cfg, lora, "mid_block.attentions.0",
+        cfg, lora, "mid_block.attentions.0", remat,
     )
     h = _resnet(mp["resnets"]["1"], h, emb, cfg, lora, "mid_block.resnets.1")
 
@@ -230,7 +241,7 @@ def apply(
             if has_attn:
                 h = _transformer2d(
                     bp["attentions"][str(j)], h, ehs, rev_heads[i],
-                    cfg, lora, f"{bname}.attentions.{j}",
+                    cfg, lora, f"{bname}.attentions.{j}", remat,
                 )
         if i < n_blocks - 1:
             h = _upsample(bp["upsamplers"]["0"], h, lora, f"{bname}.upsamplers.0")

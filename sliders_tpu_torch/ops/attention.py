@@ -1,4 +1,4 @@
-"""Multi-head attention with routing to the SD attention kernel
+"""Multi-head attention with routing to the SD attention kernels
 (port of sliders_tpu/ops/attention.py).
 
 `xla_attention` is the plain version and the reference numerics: f32 logits,
@@ -9,6 +9,19 @@ its plain version on CPU tensors), which at SD1.5 512 px are the level-0
 (L=4096, d=40) and level-1 (L=1024, d=80) self-attentions. The TPU gate's
 VMEM-fit condition (`pick_block_q`, `_fwd_need`) is dropped: the kernel
 streams K/V through shared memory, so no sequence length is too long for it.
+
+Under grad, a routed call goes through `sd_attention.SdAttention`, whose
+backward on CUDA is the backward kernel: `routes_to_sd_bwd_kernel` documents
+that gate, which is the forward gate. The JAX package routes its backward kernel
+only for d >= `BWD_MIN_D` (96) on a TPU, a threshold from a TPU A/B in
+which d=40 was neutral; no H100 measurement backs any threshold, so the
+port routes the backward wherever the forward routes and `chip_smoke.py`
+records both the kernel's and the plain backward's times.
+
+`set_attention_impl` mirrors the JAX package's `set_default_attention_impl`
+(`config.tpu.attention`): 'auto' and 'pallas' take the kernel route where
+the gates allow it (the port has no second kernel for 'pallas' to force),
+'xla' puts every attention on the plain path.
 
 `AttentionTap` and `ring_context` are not ported yet (ROADMAP queue 1,
 items 10 and 15).
@@ -23,6 +36,18 @@ import torch
 from sliders_tpu_torch.ops.sd_attention import MAX_D, sd_attention, sd_attention_ref
 
 SD_KERNEL_MIN_SEQ = 1024
+IMPLS = ("auto", "pallas", "xla")
+
+_impl = "auto"
+
+
+def set_attention_impl(impl: str) -> None:
+    """'auto' | 'pallas' (kernel route where the gates allow) | 'xla' (plain
+    path everywhere); process-wide, as in the JAX package."""
+    global _impl
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl must be one of {IMPLS}, got {impl!r}")
+    _impl = impl
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -52,6 +77,12 @@ def routes_to_sd_kernel(q_shape, k_shape, mask) -> bool:
     return lq == k_shape[2] and lq >= SD_KERNEL_MIN_SEQ and d <= MAX_D and d % 8 == 0
 
 
+def routes_to_sd_bwd_kernel(q_shape, k_shape, mask) -> bool:
+    """The backward kernel's gate: for now the forward gate (see the module
+    docstring for why the JAX package's d >= 96 is not carried over)."""
+    return routes_to_sd_kernel(q_shape, k_shape, mask)
+
+
 def multihead_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -62,7 +93,7 @@ def multihead_attention(
     """q: (B, Lq, D); k, v: (B, Lkv, D). Returns (B, Lq, D). `mask` is
     additive, broadcastable to (B, H, Lq, Lkv)."""
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
-    if routes_to_sd_kernel(qh.shape, kh.shape, mask):
+    if _impl != "xla" and routes_to_sd_kernel(qh.shape, kh.shape, mask):
         out = sd_attention(qh, kh, vh)
     else:
         out = xla_attention(qh, kh, vh, mask)

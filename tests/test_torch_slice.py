@@ -135,13 +135,27 @@ def test_http_generate_round_trip(snapshot):
     assert not engine._worker.is_alive()
 
 
-def test_port_runs_without_jax(snapshot):
-    """Import the port and run the tiny slice with jax made unimportable."""
+def test_port_runs_without_jax(snapshot, tmp_path):
+    """Import the port and run the tiny slice, then two iterations of the
+    training CLI with a resume, with jax, flax, optax, pydantic, PyYAML and
+    safetensors made unimportable (the card's machine has none of them), and
+    the JAX package too (the port shares no module with it)."""
+    (tmp_path / "prompts.yaml").write_text("- target: person\n  positive: old person\n"
+                                           "  action: enhance\n  resolution: 64\n")
+    (tmp_path / "config.yaml").write_text(
+        f"prompts_file: {tmp_path / 'prompts.yaml'}\n"
+        f"pretrained_model:\n  name_or_path: {snapshot}\n"
+        "network:\n  rank: 2\n  training_method: noxattn\n"
+        "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
+        f"save:\n  name: s\n  path: {tmp_path / 'out'}\n  format: pt\n"
+        "tpu:\n  state_checkpoint_every: 1\n")
     code = f"""
 import sys
-for name in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "optax"))]:
+banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "sliders_tpu")
+for name in [m for m in sys.modules if m.split(".")[0] in banned]:
     del sys.modules[name]
-sys.modules["jax"] = sys.modules["flax"] = sys.modules["optax"] = None
+for name in banned:
+    sys.modules[name] = None
 import torch
 from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
 from sliders_tpu_torch.models import loader
@@ -154,7 +168,13 @@ fn = t2i.make_sampling_fn(m.unet_config, make_sampler(make_schedule(), "ddim", 2
 x = fn(m.unet_params, torch.randn(1, 8, 8, 4), cond, uncond, None, None, 750.0, 7.5)
 img = t2i.decode_images(m.vae_params, m.vae_config, x)
 assert img.shape == (1, 16, 16, 3) and torch.isfinite(x).all()
-loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in ("jax", "flax", "optax")]
+from sliders_tpu_torch.cli import train_text_slider as cli
+args = ["--config_file", {str(tmp_path / "config.yaml")!r}, "--device", "cpu"]
+final = cli.main(cli.build_parser().parse_args(args))
+state = {str(tmp_path / "out" / "s_alpha1.0_rank2_noxattn" / "s_alpha1.0_rank2_noxattn_trainstate.pt")!r}
+cli.main(cli.build_parser().parse_args(args + ["--resume", state]))
+assert all(torch.isfinite(t).all() for e in final.values() for t in e.values())
+loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in banned]
 assert not loaded, loaded
 print("ok")
 """
@@ -162,6 +182,7 @@ print("ok")
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
+    assert "resumed from" in res.stdout and "at step 2" in res.stdout
     assert res.stdout.strip().endswith("ok")
 
 
