@@ -1,39 +1,51 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD1.5 slider serving and slider training once on
-one NVIDIA GPU.
+one NVIDIA GPU, under the default conv route and the three conv-kernel
+routes of `ops.basic.set_conv_impl`.
 
     python3 chip_smoke.py        # from the root of the repository
 
 Phases, each printing one line or a few before the last:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc.
-  2. build:  nvcc builds the attention forward and backward kernels
-     (sliders_tpu_torch/csrc/sd_attention*.cu) for sm_90a, in parallel.
-  3. kernel: the forward kernel against its plain PyTorch version at the
-     serving shapes, the backward kernel against its plain version at the
-     grad-pass shapes (error of dq/dk/dv and median time of each), then the
-     tiny slice at 256 px and three tiny training steps at 256 px on the GPU
-     (through the kernels) against the CPU (plain paths) in f32.
+  2. build:  nvcc builds the four kernel libraries (sliders_tpu_torch/csrc:
+     attention forward and backward, the 3x3 conv kernels, GroupNorm) for
+     sm_90a, in parallel; registers and shared memory per kernel.
+  3. kernel: the attention forward kernel against its plain PyTorch version
+     at the serving shapes, the backward kernel at the grad-pass shapes
+     (error of dq/dk/dv and median time of each); the conv kernels #5-#7
+     against their plain versions at every conv shape the SD1.5 UNet routes
+     at 512 px (batch 16, the mode the UNet uses there), two at batch 1 and
+     one f32 shape each; the GroupNorm kernel #8 at the UNet's GN shapes;
+     then the tiny slice at 256 px and three tiny training steps at 256 px
+     on the GPU (through the kernels) against the CPU (plain paths) in f32,
+     under the default route and under conv impl 'fused'.
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
      one UNet step timed through the kernel and on the plain attention
-     path, its device time by kernel class, and one VAE decode; then the
+     path, its device time by kernel class, and one VAE decode; the UNet
+     step under each conv impl ('xla', 'auto', 'fused_ep', 'fused') in
+     alternating rounds, with each conv kernel's launches per forward and
+     the noise prediction's distance from the 'xla' route; then the
      training grad pass (batch 1, remat) on the same UNet through both
-     kernels against the plain attention path, in alternating rounds.
+     attention kernels against the plain attention path.
   5. http:   /generate with five scales, two concurrent /generate calls for
-     the two sliders (coalesced into one stacked batch), /healthz; every
-     reply is checked, and the kernel's launch count must equal
-     10 routed self-attentions x 50 steps x the denoise batches.
+     the two sliders (coalesced into one stacked batch), /healthz; then one
+     five-scale /generate under each conv impl; every reply is checked, and
+     each kernel's launch count must equal its routed calls per UNet forward
+     x 50 steps, plus under 'auto' the VAE decoder's, x the denoise batches.
   6. train:  a full-width SD1.5 snapshot with seeded random weights (UNet +
      CLIP-L + tokenizer, no VAE) written to a temporary directory, then the
      training CLI in-process with the values of data/config.yaml (bf16,
      remat, rank-4 noxattn, AdamW lr 2e-4, DDIM 50) for a few iterations,
-     and a resume from its state file; losses, the moved LoRA, the frozen
-     alphas, the saved files and the launch counts of both kernels are
-     checked, and the time per iteration is split by phase.
-The last line is {"ok": true, "device": {...}}; any failure raises, exits
-non-zero and prints no such line. It needs a CUDA device and the rest of
-the repository beside it.
+     a resume from its state file, and two iterations under conv impl
+     'fused'; losses, the moved LoRA, the frozen alphas, the saved files and
+     the launch counts of the kernels are checked, and the time per
+     iteration is split by phase.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
+no such line. It needs a CUDA device and the rest of the repository beside
+it.
 """
 
 from __future__ import annotations
@@ -71,6 +83,58 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((1, 8, 4096, 40), "float32"),
 ]
 TRAIN_ITERATIONS = 6  # the full-width run; per_steps and state_checkpoint_every 3
+FUSED_ITERATIONS = 2  # the full-width run under conv impl 'fused'
+# The 'fused' run's loss against the default ('xla') run's on the same draws,
+# relative. Both are bf16; 'fused' rounds silu(x*a + s) once in f32 where
+# 'xla' rounds GroupNorm's output and the SiLU apart, so each UNet call's
+# noise prediction differs by up to ~2 % of its largest value (phase_conv_step
+# holds it to 5 %), and t_to such calls feed the loss: held to the same 5 %.
+FUSED_LOSS_RTOL = 0.05
+CONV_IMPLS = ("xla", "auto", "fused_ep", "fused")
+# SD1.5 at 512 px: routed conv-kernel calls per UNet forward under each impl
+# (15 resnets at 64x64, 32x32 and 16x16 pass the gates, 6 down and 9 up;
+# 'auto' adds the three upsampler convs)
+CONV_PER_FORWARD = {"xla": {}, "auto": {"conv3x3": 33}, "fused_ep": {"epi_conv3x3": 30},
+                    "fused": {"fused_conv3x3": 30}}
+# routed calls per VAE decode at 512 px: 'auto' routes every conv2d, so the SD
+# VAE decoder's 3x3 convs take kernel #5 too (mid block 4, up blocks 24,
+# upsamplers 3; conv_in has C = 4 and conv_out N = 3), as in the JAX package;
+# its resnets are not UNet resnets, so 'fused' and 'fused_ep' leave it alone
+CONV_PER_DECODE = {"auto": {"conv3x3": 31}}
+# every (H, C, N, mode) the SD1.5 UNet routes at 512 px: temb for a resnet's
+# conv1, residual for its conv2, none for an upsampler
+CONV_SHAPES = [
+    (64, 320, 320, "temb"), (64, 320, 320, "residual"), (64, 960, 320, "temb"),
+    (64, 640, 320, "temb"), (64, 640, 640, "none"),
+    (32, 320, 640, "temb"), (32, 640, 640, "residual"), (32, 640, 640, "temb"),
+    (32, 1920, 640, "temb"), (32, 1280, 640, "temb"), (32, 960, 640, "temb"),
+    (32, 1280, 1280, "none"),
+    (16, 640, 1280, "temb"), (16, 1280, 1280, "residual"), (16, 1280, 1280, "temb"),
+    (16, 2560, 1280, "temb"), (16, 1920, 1280, "temb"), (16, 1280, 1280, "none"),
+]
+# (B, H, C, N, mode, dtype) beyond the batch-16 serving shapes: the grad
+# pass (batch 1) at levels 0 and 1, and one f32 shape
+CONV_EXTRA = [
+    (1, 64, 320, 320, "temb", "bfloat16"), (1, 32, 640, 640, "residual", "bfloat16"),
+    (2, 32, 320, 640, "temb", "float32"),
+]
+# the training CLI's UNet batches at batch_size 1 (the grad pass 1, the
+# CFG-doubled denoise loop 2, the frozen pass 3): every CONV_SHAPES entry at
+# each is held against the plain versions too (not timed)
+CONV_TRAIN_BATCHES = (1, 2, 3)
+# (H, C, N) of kernel #5's f32 calls in the SD VAE decoder at 512 px under
+# 'auto' (CONV_PER_DECODE), at the serving decode batch (the bucket, 8)
+VAE_CONV_SHAPES = [(64, 512, 512), (128, 512, 512), (256, 512, 512), (256, 512, 256),
+                   (256, 256, 256), (512, 256, 256), (512, 256, 128), (512, 128, 128)]
+VAE_DECODE_BATCH = 8
+# (L, C, silu, eps): the UNet's GroupNorm shapes at 512 px (resnet norms with
+# SiLU, transformer norms without, eps 1e-6)
+GN_SHAPES = [(hw * hw, c, True, 1e-5) for hw, cs in ((64, (320, 640, 960)),
+                                                    (32, (320, 640, 960, 1280, 1920)),
+                                                    (16, (640, 1280, 1920, 2560)),
+                                                    (8, (1280, 2560))) for c in cs] + [
+    (4096, 320, False, 1e-6), (1024, 640, False, 1e-6), (256, 1280, False, 1e-6),
+    (64, 1280, False, 1e-6)]
 
 
 def say(phase: str, msg: str) -> None:
@@ -115,30 +179,55 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.ops import _build
 
-    nvcc = subprocess.run([sa._nvcc(), "--version"], capture_output=True, text=True,
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     say("device", f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"nvcc {nvcc}")
 
 
+# the kernels whose ptxas report `phase_build` prints: the attention kernels
+# at d <= 48 (SD1.5's d = 40; a change to their shared header has moved these
+# counts before), every conv and GroupNorm instantiation
+REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E", "attn_bwd_dq_bf16"),
+            ("attn_bwd_dkdv_bf16ILi48E", "attn_bwd_dkdv_bf16"),
+            ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
+            ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
+            ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
+            ("group_norm_kernelIfE", "group_norm_f32"))
+
+
+def ptxas_report(log: str) -> list:
+    """'kernel Used N registers, ...; spills' for each REPORTED kernel in an
+    nvcc -Xptxas -v log."""
+    out, entry, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry, spill = ln, ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and entry is not None:
+            for key, label in REPORTED:
+                if key in entry:
+                    out.append(f"{label} {ln.split('info    : ')[-1]}"
+                               + (f" ({spill})" if spill and not spill.startswith("0 bytes stack frame, 0 bytes spill") else ""))
+            entry = None
+    return out
+
+
 def phase_build():
-    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = sa.build_libraries()
+    libs = _build.build_libraries()
     secs = time.perf_counter() - t0
     for name, lib in libs.items():
-        log = lib.with_suffix(".log").read_text().splitlines()
-        regs = [f"{kernel} {ln.split('info    : ')[-1]}" for kernel in
-                ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16")
-                for i, ln in enumerate(log)
-                if "Used" in ln and i > 1 and f"{kernel}ILi48E" in log[i - 2]]
-        say("build", f"{lib.name} (d<=48: {'; '.join(regs) or '?'})")
-        sa._library(name)
-    say("build", f"both libraries built and loaded in {secs:.1f} s")
+        regs = ptxas_report(lib.with_suffix(".log").read_text())
+        say("build", f"{lib.name} ({'; '.join(regs) or '?'})")
+        _build.library(name)
+    say("build", f"{len(libs)} libraries built and loaded in {secs:.1f} s")
 
 
 def phase_kernel():
@@ -219,6 +308,163 @@ def phase_kernel_bwd():
     return results
 
 
+def bf16_max_ulps(out, ref) -> float:
+    """The largest error of `out` against `ref`, each element's in bf16 ulps
+    of its own reference value (floored at 2**-6 of the largest, where an
+    f32 sum near zero has no meaningful ulp)."""
+    import torch
+
+    r = ref.float().abs()
+    floor = max(r.max().item(), 2.0**-20) * 2.0**-6
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(r, min=floor))) - 7)
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
+
+
+CONV_ULPS = 2  # both round once from f32 sums taken in other orders: a rounding may flip
+
+
+def conv_case(B, H, C, N, mode, dtype, gen):
+    """Inputs of one routed conv: x (B, H, H, C), the (B, C) GN fold a, s,
+    the weight as the models draw it (`ParamFactory.conv`: OIHW laid out
+    channels_last, 1/sqrt(fan-in)), bias and the mode's extra, scaled like
+    the UNet's (unit activations)."""
+    import torch
+
+    from sliders_tpu_torch.models.params import ParamFactory
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = randn(B, H, H, C).to(dtype)
+    a, s = 1.0 + randn(B, C, scale=0.1), randn(B, C, scale=0.3)
+    w = ParamFactory(gen, dtype, "cuda").conv(C, N)["weight"]
+    b = randn(N, scale=0.1).to(dtype)
+    extra = {"none": None, "temb": randn(B, N).to(dtype),
+             "residual": randn(B, H, H, N).to(dtype)}[mode]
+    return x, a, s, w, b, extra
+
+
+def phase_conv_kernels():
+    """Kernels #5, #7 and #6 against their plain versions (f32 accumulation,
+    f32 epilogue, one rounding; TF32 off), with the weights laid out as the
+    models lay them out: at every conv shape the SD1.5 UNet routes at 512 px
+    in the mode the UNet uses there, at batch 16 (timed) and at the training
+    batches CONV_TRAIN_BATCHES (not timed); the grad pass's batch 1 at two
+    shapes and one f32 shape (timed); and #5 at the SD VAE decoder's f32
+    shapes at the decode batch (timed). bf16 is held to CONV_ULPS bf16 ulps
+    of each element, f32 to 1e-5 of the largest value. Each timed bf16 line
+    also times cuDNN's bf16 conv + bias (the 'xla' route's conv), for
+    reference."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    results = {"conv3x3": [], "epi_conv3x3": [], "fused_conv3x3": []}
+    everything = tuple(results)
+    # (B, H, C, N, mode, dtype, kernels, timed)
+    cases = ([(16, h, c, n, mode, "bfloat16", everything, True) for h, c, n, mode in CONV_SHAPES]
+             + [(*c, everything, True) for c in CONV_EXTRA]
+             + [(B, h, c, n, mode, "bfloat16", everything, False)
+                for B in CONV_TRAIN_BATCHES for h, c, n, mode in CONV_SHAPES]
+             + [(VAE_DECODE_BATCH, h, c, n, "none", "float32", ("conv3x3",), True)
+                for h, c, n in VAE_CONV_SHAPES])
+    seen = set()
+    untimed = {}  # batch -> [cases, calls, worst ulps]
+    for B, H, C, N, mode, dt, kernels, timed in cases:
+        dtype = getattr(torch, dt)
+        x, a, s, w, b, extra = conv_case(B, H, C, N, mode, dtype, gen)
+        calls = [("epi_conv3x3", lambda: tc.epi_conv3x3(x, w, b, extra, mode),
+                  lambda: tc.epi_conv3x3_ref(x, w, b, extra, mode)),
+                 ("fused_conv3x3", lambda: tc.fused_conv3x3(x, a, s, w, b, extra, mode),
+                  lambda: tc.fused_conv3x3_ref(x, a, s, w, b, extra, mode))]
+        if (B, H, C, N, dt) not in seen:  # #5 has no mode: once per shape
+            seen.add((B, H, C, N, dt))
+            calls.insert(0, ("conv3x3", lambda: tc.conv3x3(x, w, b),
+                             lambda: tc.conv3x3_ref(x, w, b)))
+        calls = [c for c in calls if c[0] in kernels]
+        xc = x.permute(0, 3, 1, 2)
+        cudnn_ms = (median_ms(lambda: F.conv2d(xc, w, b, padding=1))
+                    if timed and dt == "bfloat16" else None)
+        parts = []
+        for name, kernel, plain in calls:
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            if dtype == torch.bfloat16:
+                ulps = bf16_max_ulps(out, ref)
+                ok, shown = ulps <= CONV_ULPS, f"{ulps:.2f} ulps (tol {CONV_ULPS})"
+            else:
+                ulps = 0.0
+                ok, shown = err <= 1e-5 * max(1.0, ref_max), f"(tol {1e-5 * max(1.0, ref_max):.3g})"
+            del out, ref
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version at "
+                                     f"{(B, H, H, C)}x{N} {mode} {dt}")
+            entry = {"shape": (B, H, H, C, N), "mode": mode, "dtype": dt, "err": err}
+            if timed:
+                runs = 10 if dt == "bfloat16" else 5
+                entry["ms"], entry["plain_ms"] = median_ms(kernel, runs), median_ms(plain, runs=5)
+                parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
+                             f"{entry['plain_ms']:.4f} ms")
+            else:
+                tally = untimed.setdefault(B, [0, 0, 0.0])
+                tally[1] += 1
+                tally[2] = max(tally[2], ulps)
+            results[name].append(entry)
+        if timed:
+            say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt}: " + "; ".join(parts)
+                + (f"; cuDNN bf16 conv + bias {cudnn_ms:.4f} ms" if cudnn_ms is not None else "")
+                + " (kernel / plain, median)")
+        else:
+            untimed[B][0] += 1
+        del x, a, s, w, b, extra, calls
+        torch.cuda.empty_cache()
+    for B, (n_cases, n_calls, worst) in untimed.items():
+        say("conv", f"batch {B} (training): {n_cases} UNet conv shapes, {n_calls} kernel calls "
+            f"held to their plain versions, worst {worst:.2f} bf16 ulps (tol {CONV_ULPS})")
+    return results
+
+
+def phase_group_norm_kernel():
+    """Kernel #8 against fused_group_norm_ref at the UNet's GroupNorm shapes
+    (batch 16, bf16), with and without SiLU, and one f32 shape. Both fold a
+    and b from f32 sums taken in other orders, so one of them may round the
+    other way: held to 4 bf16 ulps at the largest magnitude (f32: 1e-5)."""
+    import torch
+
+    from sliders_tpu_torch.ops import group_norm as tg
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    results = []
+    for (L, C, silu, eps), dt in [(c, "bfloat16") for c in GN_SHAPES] + [
+            ((4096, 320, True, 1e-5), "float32")]:
+        dtype = getattr(torch, dt)
+        x = (torch.randn((16, L, C), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        gamma = 1.0 + 0.2 * torch.randn(C, generator=gen, device="cuda")
+        beta = 0.3 * torch.randn(C, generator=gen, device="cuda")
+        out = tg.fused_group_norm(x, gamma, beta, 32, eps, silu)
+        ref = tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+        ms = median_ms(lambda: tg.fused_group_norm(x, gamma, beta, 32, eps, silu))
+        plain_ms = median_ms(lambda: tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu))
+        say("gn", f"(16, {L}, {C}) silu={silu} eps={eps} {dt}: max|err| {err:.3g} (tol {tol:.3g}); "
+            f"median kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not err <= tol:
+            raise AssertionError(f"fused_group_norm disagrees with its plain version at {(L, C)}")
+        results.append({"shape": (16, L, C), "silu": silu, "dtype": dt, "err": err, "ms": ms,
+                        "plain_ms": plain_ms})
+        del x, out, ref
+    return results
+
+
 def tiny_slice(device: str, trees: dict, clip_cfg, latents, tok):
     """Tiny SD at 256 px (L=1024 at level 0, so the routed path) in f32,
     3 DDIM steps with a slider at scales [-1, 0, 1]; returns the latents."""
@@ -277,10 +523,11 @@ def phase_tiny_slice(tok_dir: str):
 TINY_LR = 1e-4
 
 
-def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list):
-    """TINY at 256 px (L=1024 at level 0, so the routed path) in f32 with
-    remat: len(draws) train steps with the given draws; returns the losses,
-    the grad norms and the final LoRA on the CPU."""
+def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list, cfg=None):
+    """A tiny UNet (TINY unless `cfg`) at 256 px (L=1024 at level 0, so the
+    routed attention path) in f32 with remat: len(draws) train steps with
+    the given draws; returns the losses, the grad norms and the final LoRA
+    on the CPU."""
     import torch
 
     from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
@@ -293,7 +540,7 @@ def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list):
     tx = optimizers.make_optimizer("adamw", optimizers.make_lr_schedule("constant", TINY_LR, 100),
                                    trainable_mask=trainable_mask(lora))
     step = text_slider.make_text_slider_step(
-        unet2d.TINY, sched, make_sampler(sched, "ddim", 5), tx, max_denoising_steps=5,
+        cfg or unet2d.TINY, sched, make_sampler(sched, "ddim", 5), tx, max_denoising_steps=5,
         resolution=256, compute_dtype=torch.float32, remat=True)
     state = text_slider.SliderTrainState.create(0, tree_to(lora, device), tx)
     params = tree_to(unet, device)
@@ -306,46 +553,67 @@ def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list):
     return losses, norms, {m: {k: t.cpu() for k, t in e.items()} for m, e in state.lora.items()}
 
 
-def phase_tiny_train():
-    """Three tiny train steps on the GPU (both kernels, remat) against the
+def phase_tiny_train(conv_impl: str = "xla"):
+    """Three tiny train steps on the GPU (the kernels, remat) against the
     CPU (plain paths) with the same draws, in f32 with TF32 off. The two
     differ only by f32 sums in other orders, so each step's loss is held to
     1e-5 relative, its grad norm to 1e-4 relative (a wrong gradient path, say
     swapped dk/dv or a LoRA factor with no gradient, moves it far more), and
     the LoRA after the last update to 1e-6 absolute (Adam moves an element
-    about lr = 1e-4 a step, so a sign flip of a gradient shows)."""
+    about lr = 1e-4 a step, so a sign flip of a gradient shows).
+
+    Under conv impl 'fused' the UNet is TINY with 128 channels, so that its
+    resnets pass the conv gates at 32x32 and 16x16 (8 blocks, 16 kernel #6
+    calls a forward); the GPU run's launches must be that per forward times
+    sum(t_to + 2)."""
+    import dataclasses
+
     import torch
 
     from sliders_tpu_torch.lora.network import create_slider_network
     from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import conv3x3 as tc
     from sliders_tpu_torch.ops import sd_attention as sa
     from sliders_tpu_torch.training.text_slider import step_draws
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fused = conv_impl == "fused"
+    cfg = dataclasses.replace(unet2d.TINY, block_out_channels=(128, 128)) if fused else unet2d.TINY
     gen = torch.Generator().manual_seed(6)
-    unet = unet2d.init_params(gen, unet2d.TINY)
+    unet = unet2d.init_params(gen, cfg)
     lora = create_slider_network(gen, unet, rank=4, train_method="noxattn")
     pairs = {k: torch.randn((1, 8, 32), generator=gen)
              for k in ("target", "positive", "neutral", "unconditional")}
     pairs["guidance_signed"] = torch.tensor([2.0])
     draws = [step_draws(6, i, 1, 5, (1, 32, 32, 4), 1.0) for i in range(3)]
-    fwd0, bwd0 = sa.sd_attention.launches, sa.sd_attention_bwd.launches
-    gpu_losses, gpu_norms, gpu_lora = tiny_train("cuda", unet, lora, pairs, draws)
-    fwd, bwd = sa.sd_attention.launches - fwd0, sa.sd_attention_bwd.launches - bwd0
-    cpu_losses, cpu_norms, cpu_lora = tiny_train("cpu", unet, lora, pairs, draws)
+    basic.set_conv_impl(conv_impl)
+    try:
+        sa.sd_attention.launches = sa.sd_attention_bwd.launches = tc.fused_conv3x3.launches = 0
+        gpu_losses, gpu_norms, gpu_lora = tiny_train("cuda", unet, lora, pairs, draws, cfg)
+        fwd, bwd, conv = (sa.sd_attention.launches, sa.sd_attention_bwd.launches,
+                          tc.fused_conv3x3.launches)
+        cpu_losses, cpu_norms, cpu_lora = tiny_train("cpu", unet, lora, pairs, draws, cfg)
+    finally:
+        basic.set_conv_impl("xla")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
     norm_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_norms, cpu_norms))
     lora_err = max((gpu_lora[m][k] - cpu_lora[m][k]).abs().max().item()
                    for m in cpu_lora for k in ("down", "up"))
-    say("kernel", f"tiny training 256 px f32, 3 steps (t_to {[d[1] for d in draws]}), GPU "
-        f"(kernels: {fwd} forward, {bwd} backward launches) vs CPU (plain): losses "
+    conv_expected = 16 * sum(d[1] + 2 for d in draws) if fused else 0
+    say("kernel", f"tiny training 256 px f32, conv impl {conv_impl!r}, 3 steps (t_to "
+        f"{[d[1] for d in draws]}), GPU (kernels: {fwd} forward, {bwd} backward attention, "
+        f"{conv} fused conv launches, expected {conv_expected}) vs CPU (plain): losses "
         f"{[f'{x:.6g}' for x in gpu_losses]} vs {[f'{x:.6g}' for x in cpu_losses]}, max rel err "
         f"{loss_err:.3g} (tol 1e-5); grad norms {[f'{x:.6g}' for x in gpu_norms]} vs "
         f"{[f'{x:.6g}' for x in cpu_norms]}, max rel err {norm_err:.3g} (tol 1e-4); LoRA "
         f"max|err| {lora_err:.3g} (tol 1e-6)")
-    if fwd == 0 or bwd == 0 or not (loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
+    if fwd == 0 or bwd == 0 or conv != conv_expected:
+        raise AssertionError("tiny training on the GPU did not go through the kernels")
+    if not (loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
         raise AssertionError("tiny training on the GPU disagrees with the CPU")
+    return conv
 
 
 def write_tokenizer(d: str) -> None:
@@ -418,12 +686,23 @@ def _leaves(tree):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    for key, cls in (("attn_fwd", "attention kernel"), ("conv", "conv"), ("fprop", "conv"),
+    for key, cls in (("attn_fwd", "attention kernel"), ("conv3x3_", "conv kernel"),
+                     ("conv", "conv"), ("fprop", "conv"),
                      ("gemm", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
                      ("reduce", "reduction"), ("elementwise", "elementwise")):
         if key in n:
             return cls
     return "other"
+
+
+def by_kernel_class(prof) -> dict:
+    """Device ms by `_kernel_class` over a torch.profiler run."""
+    out: dict = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            cls = _kernel_class(e.key)
+            out[cls] = out.get(cls, 0.0) + e.device_time_total / 1e3
+    return out
 
 
 def phase_step(engine):
@@ -466,11 +745,7 @@ def phase_step(engine):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_class: dict = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            cls = _kernel_class(e.key)
-            by_class[cls] = by_class.get(cls, 0.0) + e.device_time_total / 1e3
+    by_class = by_kernel_class(prof)
     busy = sum(by_class.values())
     say("step", "device ms per step by kernel class: " + ", ".join(
         f"{cls} {ms / 3:.2f} ({ms / busy * 100:.1f}%)"
@@ -481,6 +756,90 @@ def phase_step(engine):
     dec_ms = median_ms(lambda: decode_images(m.vae_params, m.vae_config, lat), runs=3)
     say("step", f"VAE decode of 8 images (f32, cuDNN TF32 allowed): median {dec_ms:.2f} ms; "
         f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+
+def conv_launches() -> dict:
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    return {fn.__name__: fn.launches for fn in (tc.conv3x3, tc.epi_conv3x3, tc.fused_conv3x3)
+            if fn.launches}
+
+
+def reset_conv_launches() -> None:
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    tc.conv3x3.launches = tc.epi_conv3x3.launches = tc.fused_conv3x3.launches = 0
+
+
+def phase_conv_step(engine, rounds: int = 2):
+    """The UNet step of `phase_step` (bucket 8, 16 rows, bf16, slider on)
+    under each conv impl, in alternating rounds of 5 synced steps: ms per
+    step, each conv kernel's launches per forward (CONV_PER_FORWARD), and the
+    largest distance of the noise prediction from the 'xla' route's, held to
+    5e-2 of its largest magnitude (bf16 through 16 resnets and 16
+    transformers: the kernels round once where cuDNN + the adds round two or
+    three times, and 'fused' takes GroupNorm through the f32 fold and SiLU
+    in f32; a lost tap, bias, temb or residual moves it by O(1)). Then one
+    profile per impl: device time by kernel class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops.basic import SliderLora
+
+    m = engine.models
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((16, 64, 64, 4), generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn((16, 77, 768), generator=gen, device="cuda").bfloat16()
+    lora = SliderLora(engine.sliders["s1"], torch.linspace(-2, 2, 16, device="cuda"))
+    t = torch.tensor(501.0, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            return unet2d.apply(m.unet_params, m.unet_config, x, t, ctx, lora=lora)
+
+    eps, per_forward, times = {}, {}, {impl: [] for impl in CONV_IMPLS}
+    try:
+        for impl in CONV_IMPLS:
+            basic.set_conv_impl(impl)
+            reset_conv_launches()
+            eps[impl] = step().float()
+            torch.cuda.synchronize()
+            per_forward[impl] = conv_launches()
+        for r in range(rounds):
+            for impl in (CONV_IMPLS if r % 2 == 0 else CONV_IMPLS[::-1]):
+                basic.set_conv_impl(impl)
+                times[impl].append(median_ms(step, runs=5))
+        classes = {}
+        for impl in CONV_IMPLS:
+            basic.set_conv_impl(impl)
+            step()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+            classes[impl] = by_kernel_class(prof)
+    finally:
+        basic.set_conv_impl("xla")
+    ref_max = eps["xla"].abs().max().item()
+    out = {}
+    for impl in CONV_IMPLS:
+        diff = (eps[impl] - eps["xla"]).abs().max().item()
+        cls = classes[impl]
+        busy = sum(cls.values())
+        say("step", f"conv impl {impl!r}: ms per step by round {[round(v, 2) for v in times[impl]]}; "
+            f"conv-kernel launches per forward {per_forward[impl] or 0} (expected "
+            f"{CONV_PER_FORWARD[impl] or 0}); max|eps - eps_xla| {diff:.3g} (tol "
+            f"{5e-2 * ref_max:.3g}, max|eps_xla| {ref_max:.3g}); device ms per step: " + ", ".join(
+                f"{c} {v / 3:.2f}" for c, v in sorted(cls.items(), key=lambda kv: -kv[1]))
+            + f" (busy {busy / 3:.2f})")
+        if per_forward[impl] != CONV_PER_FORWARD[impl]:
+            raise AssertionError(f"conv impl {impl!r} launched {per_forward[impl]} per forward")
+        if not (torch.isfinite(eps[impl]).all() and diff <= 5e-2 * ref_max):
+            raise AssertionError(f"conv impl {impl!r} moved the noise prediction by {diff}")
+        out[impl] = {"ms": statistics.median(times[impl]), "per_forward": per_forward[impl]}
+    return out
 
 
 def phase_grad_ab(engine, rounds: int = 4, passes: int = 5):
@@ -691,11 +1050,48 @@ def phase_http(engine):
             raise AssertionError("the two (b) requests were not coalesced into one batch")
         if launches != expected:
             raise AssertionError("not every routed self-attention went through the kernel")
-        return launches
+        return launches, serve_conv_impls(engine, port)
     finally:
         server.shutdown()
         server.server_close()
         engine.close(timeout=60)
+
+
+def serve_conv_impls(engine, port: int) -> dict:
+    """One five-scale /generate under each conv-kernel impl; the reply is
+    checked as phase 5 checks it, and the impl's kernel must have launched
+    (its calls per UNet forward x 50 steps + its calls per VAE decode) x the
+    denoise batches, the others never. Returns {kernel: launches}."""
+    from sliders_tpu_torch.ops import basic
+
+    scales = [-2, -1, 0, 1, 2]
+    out = {}
+    for impl in CONV_IMPLS[1:]:
+        basic.set_conv_impl(impl)
+        try:
+            stats0 = dict(engine.stats)
+            reset_conv_launches()
+            t0 = time.perf_counter()
+            reply = post(port, "/generate", {"prompt": "a photo of a person", "seed": 1,
+                                             "slider": "s1", "scales": scales})
+            wall = time.perf_counter() - t0
+            launched = conv_launches()
+        finally:
+            basic.set_conv_impl("xla")
+        px = check_images(reply, scales, impl)
+        if px[0] == px[-1]:
+            raise AssertionError(f"{impl}: the -2 and +2 images are identical")
+        batches = engine.stats["batches"] - stats0["batches"]
+        per_decode = CONV_PER_DECODE.get(impl, {})
+        expected = {k: (v * STEPS + per_decode.get(k, 0)) * batches
+                    for k, v in CONV_PER_FORWARD[impl].items()}
+        say("http", f"/generate under conv impl {impl!r}: {len(reply['images'])} images, server "
+            f"latency {reply['latency_ms']} ms, client {wall * 1e3:.1f} ms; {batches} denoise "
+            f"batch(es); conv-kernel launches {launched}, expected {expected}")
+        if launched != expected:
+            raise AssertionError(f"not every routed conv under {impl!r} went through its kernel")
+        out.update(launched)
+    return out
 
 
 def unet_hf_config(cfg) -> dict:
@@ -776,13 +1172,14 @@ def run_training(cfg: dict, path: str, extra: list) -> dict:
     records = []
     torch.cuda.reset_peak_memory_stats()
     sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+    reset_conv_launches()
     t0 = time.perf_counter()
     final = cli.main(cli.build_parser().parse_args(["--config_file", path, "--device", "0",
                                                     *extra]),
                      on_step=lambda i, state, m: records.append((i, time.perf_counter(), m)))
     torch.cuda.synchronize()
     return {"records": records, "fwd": sa.sd_attention.launches, "bwd": sa.sd_attention_bwd.launches,
-            "lora": final, "seconds": time.perf_counter() - t0,
+            "conv": conv_launches(), "lora": final, "seconds": time.perf_counter() - t0,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -791,6 +1188,52 @@ def expected_fwd(records, remat: bool) -> int:
     per UNet call, t_to calls in the partial denoise, one frozen pass, the
     grad pass, and with remat the grad pass's forward again in the backward."""
     return sum(ROUTED_PER_FORWARD * (m["t_to"] + 2 + int(remat)) for _, _, m in records)
+
+
+def run_fused_training(cfg: dict, tmp: str, xla_recs: list) -> dict:
+    """The training CLI for FUSED_ITERATIONS iterations from step 0 under
+    conv impl 'fused', on the same snapshot and config with a fresh output
+    directory: kernel #6 launches 30 x sum(t_to + 2) (each UNet forward
+    routes 15 resnets; remat recomputes transformer blocks, not resnets),
+    the attention kernels as in the default run, every LoRA up factor
+    moves, and each iteration repeats the default run's draws (t_to, pair)
+    with a loss within FUSED_LOSS_RTOL of its loss there (`xla_recs`)."""
+    from sliders_tpu_torch.ops import basic
+
+    cfg = {**cfg, "train": {**cfg["train"], "iterations": FUSED_ITERATIONS},
+           "save": {**cfg["save"], "path": os.path.join(tmp, "out_fused")}}
+    basic.set_conv_impl("fused")
+    try:
+        run = run_training(cfg, os.path.join(tmp, "config_fused.yaml"), [])
+    finally:
+        basic.set_conv_impl("xla")
+    recs = run["records"]
+    t_tos = [m["t_to"] for _, _, m in recs]
+    conv_expected = CONV_PER_FORWARD["fused"]["fused_conv3x3"] * sum(t + 2 for t in t_tos)
+    fwd_expected = expected_fwd(recs, bool(cfg["tpu"]["remat"]))
+    frozen_up = [m for m, e in run["lora"].items() if not bool(e["up"].abs().max() > 0)]
+    losses = [f"{m['loss']:.6g}" for _, _, m in recs]
+    xla = [m for _, _, m in xla_recs[:len(recs)]]
+    xla_losses = [f"{x['loss']:.6g}" for x in xla]
+    rels = [abs(m["loss"] - x["loss"]) / abs(x["loss"]) for (_, _, m), x in zip(recs, xla)]
+    say("train", f"conv impl 'fused', {len(recs)} iterations: t_to {t_tos}, losses "
+        f"{losses} vs 'xla' {xla_losses} on the same draws, max rel diff {max(rels):.3g} "
+        f"(tol {FUSED_LOSS_RTOL}); launches: fused conv {run['conv']} (expected "
+        f"fused_conv3x3 {conv_expected} = 30 x sum(t_to + 2)), attention forward {run['fwd']} "
+        f"(expected {fwd_expected}), backward {run['bwd']}; LoRA up factors that never moved: "
+        f"{len(frozen_up)}; peak device memory {run['peak_gb']:.2f} GB")
+    if [i for i, _, _ in recs] != list(range(FUSED_ITERATIONS)):
+        raise AssertionError("the 'fused' run did not take every iteration")
+    if not all(math.isfinite(m["loss"]) for _, _, m in recs) or frozen_up:
+        raise AssertionError("the 'fused' run's losses or LoRA are wrong")
+    if [(m["t_to"], m["pair"]) for _, _, m in recs] != [(x["t_to"], x["pair"]) for x in xla] or (
+            max(rels) > FUSED_LOSS_RTOL):
+        raise AssertionError("the 'fused' run's losses disagree with the 'xla' run's on the "
+                             "same draws")
+    if run["conv"] != {"fused_conv3x3": conv_expected} or run["fwd"] != fwd_expected or (
+            run["bwd"] != ROUTED_PER_FORWARD * FUSED_ITERATIONS):
+        raise AssertionError("not every routed conv of the 'fused' run went through kernel #6")
+    return run
 
 
 def phase_train():
@@ -887,6 +1330,10 @@ def phase_train():
             raise AssertionError("the resumed step does not repeat the first run's step 4")
         if resumed["fwd"] != r_fwd or resumed["bwd"] != ROUTED_PER_FORWARD:
             raise AssertionError("the resumed run did not go through the kernels")
+        if run["conv"] or resumed["conv"]:
+            raise AssertionError("a conv kernel launched under the default conv impl 'xla'")
+
+        fused = run_fused_training(cfg, tmp, recs)
 
     # time per iteration, past the first (which includes cuBLAS/cuDNN set-up)
     steady = recs[1:]
@@ -900,8 +1347,16 @@ def phase_train():
         f"{phases['frozen']:.2f}, grad pass forward + backward {phases['grad']:.2f}, update "
         f"{phases['update']:.2f}; peak device memory {run['peak_gb']:.2f} GB; whole run "
         f"{run['seconds']:.1f} s including the load")
+    # the same iteration (same draws) under 'xla' and under 'fused'
+    ph, fph = recs[1][2]["phase_ms"], fused["records"][1][2]["phase_ms"]
+    say("train", f"iteration 1 (t_to {recs[1][2]['t_to']}), 'xla' / 'fused': device ms denoise "
+        f"{ph['denoise']:.1f} / {fph['denoise']:.1f}, frozen {ph['frozen']:.2f} / "
+        f"{fph['frozen']:.2f}, grad {ph['grad']:.2f} / {fph['grad']:.2f}, update "
+        f"{ph['update']:.2f} / {fph['update']:.2f}; peak device memory {run['peak_gb']:.2f} / "
+        f"{fused['peak_gb']:.2f} GB")
     return {"fwd": run["fwd"], "bwd": run["bwd"], "resume_fwd": resumed["fwd"],
-            "resume_bwd": resumed["bwd"]}
+            "resume_bwd": resumed["bwd"], "fused_fwd": fused["fwd"], "fused_bwd": fused["bwd"],
+            "fused_conv": fused["conv"].get("fused_conv3x3", 0)}
 
 
 def main() -> int:
@@ -921,22 +1376,36 @@ def main() -> int:
     phase_build()
     results = phase_kernel()
     bwd_results = phase_kernel_bwd()
+    conv_results = phase_conv_kernels()
+    gn_results = phase_group_norm_kernel()
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
         phase_tiny_slice(tok_dir)
         phase_tiny_train()
+        tiny_fused = phase_tiny_train("fused")
         engine = build_engine(tok_dir)
     phase_step(engine)
+    conv_step = phase_conv_step(engine)
     phase_grad_ab(engine)
-    serve_launches = phase_http(engine)
+    serve_launches, serve_conv = phase_http(engine)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train()
 
-    # launches: this slice's main path (training); the serving path's count
-    # and the resume's are listed beside it
+    # launches: each kernel's main path (training for the attention kernels
+    # and #6, serving under its impl for #5 and #7); the other paths that ran
+    # it are listed beside. #8 is routed nowhere, as in the JAX package.
     level0, bwd_level0 = results[0], bwd_results[0]
+
+    def conv_entry(name, source_line, main, by_path):
+        rs = conv_results[name]
+        return {"name": name, "route": "cuda", "source": "sliders_tpu_torch/csrc/conv3x3.cu",
+                "replaces": f"sliders_tpu/ops/pallas_conv.py:{source_line}", "launches": main,
+                "launches_by_path": by_path, "max_abs_err": max(r["err"] for r in rs),
+                "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"]}
+
+    per_step = {impl: v["per_forward"] for impl, v in conv_step.items()}
     print(json.dumps({"kernels": [{
         "name": "sd_attention_fwd",
         "route": "cuda",
@@ -944,7 +1413,7 @@ def main() -> int:
         "replaces": "sliders_tpu/ops/pallas_attention.py:43",
         "launches": train["fwd"],
         "launches_by_path": {"train": train["fwd"], "train_resume": train["resume_fwd"],
-                             "serve": serve_launches},
+                             "train_fused": train["fused_fwd"], "serve": serve_launches},
         "max_abs_err": max(r["err"] for r in results),
         "ms": level0["ms"],
         "plain_ms": level0["plain_ms"],
@@ -954,11 +1423,29 @@ def main() -> int:
         "source": "sliders_tpu_torch/csrc/sd_attention_bwd.cu",
         "replaces": "sliders_tpu/ops/pallas_attention.py:156",
         "launches": train["bwd"],
-        "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"]},
+        "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"],
+                             "train_fused": train["fused_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         "ms": bwd_level0["ms"],
         "plain_ms": bwd_level0["plain_ms"],
-    }]}), flush=True)
+    },
+        conv_entry("conv3x3", 44, serve_conv["conv3x3"],
+                   {"serve_auto": serve_conv["conv3x3"],
+                    "unet_step_auto_per_forward": per_step["auto"]["conv3x3"]}),
+        conv_entry("epi_conv3x3", 409, serve_conv["epi_conv3x3"],
+                   {"serve_fused_ep": serve_conv["epi_conv3x3"],
+                    "unet_step_fused_ep_per_forward": per_step["fused_ep"]["epi_conv3x3"]}),
+        conv_entry("fused_conv3x3", 208, train["fused_conv"],
+                   {"train_fused": train["fused_conv"], "serve_fused": serve_conv["fused_conv3x3"],
+                    "tiny_train_fused": tiny_fused,
+                    "unet_step_fused_per_forward": per_step["fused"]["fused_conv3x3"]}),
+        {"name": "fused_group_norm", "route": "cuda",
+         "source": "sliders_tpu_torch/csrc/group_norm.cu",
+         "replaces": "sliders_tpu/ops/pallas_groupnorm.py:43", "launches": 0,
+         "launches_by_path": {}, "routed": False,
+         "max_abs_err": max(r["err"] for r in gn_results), "ms": gn_results[0]["ms"],
+         "plain_ms": gn_results[0]["plain_ms"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from sliders_tpu_torch.models.params import tree_to
 from sliders_tpu_torch.utils import pytree
 
 # 2-D weights that are NOT linear layers (stored (rows, cols) in both layouts)
@@ -148,7 +149,8 @@ def from_jax_params(tree: dict) -> dict:
     """A JAX parameter tree with numpy leaves -> the port's parameters (f32).
 
     Model trees (UNet, CLIP, VAE) get their linear/conv weights transposed to
-    torch layouts. A slider tree ({lora_name: {down, up, alpha[, rank]}},
+    torch layouts, conv weights laid out channels_last as `params.tree_to`
+    lays them out. A slider tree ({lora_name: {down, up, alpha[, rank]}},
     solo or per-row stacked) gets its factors transposed the same way."""
     if _is_slider_tree(tree):
         out = {}
@@ -162,8 +164,8 @@ def from_jax_params(tree: dict) -> dict:
             out[name] = conv
         return out
     flat = pytree.flatten(tree)
-    return pytree.unflatten({p: _tensor(_jax_weight_to_torch(p, np.asarray(w)))
-                             for p, w in flat.items()})
+    return tree_to(pytree.unflatten({p: _tensor(_jax_weight_to_torch(p, np.asarray(w)))
+                                     for p, w in flat.items()}))
 
 
 def _component_files(component_dir: str) -> list[str]:

@@ -35,8 +35,12 @@ class ParamFactory:
         return p
 
     def conv(self, i: int, o: int, k: int = 3) -> dict:
+        """OIHW weight laid out channels_last, as `tree_to` lays it out: the
+        one layout of the port's conv weights (the conv kernels take no
+        other)."""
+        w = self.normal((o, i, k, k), (i * k * k) ** -0.5)
         return {
-            "weight": self.normal((o, i, k, k), (i * k * k) ** -0.5),
+            "weight": w.contiguous(memory_format=torch.channels_last),
             "bias": self.const((o,), 0.0),
         }
 

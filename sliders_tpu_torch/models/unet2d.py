@@ -5,6 +5,10 @@ The parameter dict mirrors the diffusers state-dict paths, so snapshots load
 mechanically (models/convert.py) and LoRA names follow the reference
 convention. Latents are NHWC at `apply`; convs run channels_last.
 
+The 3x3 convs route through the conv kernels #5-#7 under
+`ops.basic.set_conv_impl` ('auto', 'fused_ep', 'fused'; default 'xla',
+cuDNN everywhere), as the JAX package's UNet routes them.
+
 `apply(..., remat=True)` recomputes each basic transformer block in the
 backward pass instead of keeping its activations (non-reentrant
 `torch.utils.checkpoint`, as the JAX package wraps the block in
@@ -23,12 +27,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from sliders_tpu_torch.models.params import ParamFactory
+from sliders_tpu_torch.ops import conv3x3
 from sliders_tpu_torch.ops.attention import multihead_attention
 from sliders_tpu_torch.ops.basic import (
     SliderLora,
     conv2d,
+    conv_impl,
     gelu,
     group_norm,
+    group_norm_affine,
     layer_norm,
     linear,
     silu,
@@ -98,17 +105,74 @@ def _check_supported(cfg: UNetConfig) -> None:
 
 def _resnet(p: dict, x, emb, cfg: UNetConfig, lora, name: str):
     """diffusers ResnetBlock2D: GN-SiLU-conv x2 with the time-embedding add
-    and a 1x1 shortcut when channels change."""
+    and a 1x1 shortcut when channels change. Under conv impl 'fused' an
+    eligible block takes kernel #6 twice (`_resnet_fused`); under 'fused_ep'
+    each conv without LoRA that passes `epi_supports` takes kernel #7 with
+    its temb / residual epilogue (as `unet2d.py:139-196` of the JAX package
+    routes)."""
+    if _fused_resnet_eligible(p, x, lora, name):
+        return _resnet_fused(p, x, emb, cfg, lora, name)
+    ep = _epi_routes(lora, name)
     h = group_norm(p["norm1"], x, cfg.norm_num_groups, silu=True)
     temb = linear(p["time_emb_proj"], silu(emb), lora=lora, name=f"{name}.time_emb_proj")
-    h = conv2d(p["conv1"], h, padding=1, lora=lora, name=f"{name}.conv1")
-    h = h + temb[:, None, None, :]
+    if ep and conv3x3.epi_supports(h.shape, p["conv1"]["weight"].shape):
+        h = _epi_call(p["conv1"], h, temb.to(h.dtype), "temb")
+    else:
+        h = conv2d(p["conv1"], h, padding=1, lora=lora, name=f"{name}.conv1")
+        h = h + temb[:, None, None, :]
     h2 = group_norm(p["norm2"], h, cfg.norm_num_groups, silu=True)
     res = x
     if "conv_shortcut" in p:
         res = conv2d(p["conv_shortcut"], x, padding=0, lora=lora, name=f"{name}.conv_shortcut")
+    if ep and conv3x3.epi_supports(h2.shape, p["conv2"]["weight"].shape):
+        return _epi_call(p["conv2"], h2, res.to(h2.dtype), "residual")
     h2 = conv2d(p["conv2"], h2, padding=1, lora=lora, name=f"{name}.conv2")
     return res + h2
+
+
+def _lora_on_convs(lora, name: str) -> bool:
+    return lora is not None and any(f"{name}.{m}" in lora.weights for m in ("conv1", "conv2"))
+
+
+def _epi_routes(lora, name: str) -> bool:
+    """Whether this block's convs may take kernel #7: conv impl 'fused_ep'
+    and no LoRA on either conv."""
+    return conv_impl().startswith("fused_ep") and not _lora_on_convs(lora, name)
+
+
+def _epi_call(conv_p: dict, h, extra, mode: str):
+    return conv3x3.epi_conv3x3(h, conv_p["weight"].to(h.dtype), conv_p["bias"].to(h.dtype),
+                               extra, mode)
+
+
+def _fused_resnet_eligible(p: dict, x, lora, name: str) -> bool:
+    """Route this block through kernel #6? Conv impl 'fused', no LoRA on the
+    block's convs (lierla networks never target them; c3lier image sliders
+    fall back) and both convs pass `fused_supports`."""
+    if conv_impl() not in ("fused", "fused_interpret") or _lora_on_convs(lora, name):
+        return False
+    w1, w2 = p["conv1"]["weight"], p["conv2"]["weight"]
+    h1_shape = tuple(x.shape[:3]) + (w1.shape[0],)
+    return conv3x3.fused_supports(x.shape, w1.shape) and conv3x3.fused_supports(h1_shape, w2.shape)
+
+
+def _resnet_fused(p: dict, x, emb, cfg: UNetConfig, lora, name: str):
+    """ResnetBlock2D through kernel #6: two GN statistics passes
+    (`group_norm_affine`) and two kernel calls that apply normalise + SiLU,
+    the 3x3 conv and the bias + temb / bias + residual epilogue. The
+    shortcut stays a plain 1x1 conv."""
+    g = cfg.norm_num_groups
+    a1, s1 = group_norm_affine(p["norm1"], x, g)
+    temb = linear(p["time_emb_proj"], silu(emb), lora=lora, name=f"{name}.time_emb_proj")
+    dt = x.dtype
+    h1 = conv3x3.fused_conv3x3(x, a1, s1, p["conv1"]["weight"].to(dt), p["conv1"]["bias"].to(dt),
+                               temb.to(dt), "temb")
+    a2, s2 = group_norm_affine(p["norm2"], h1, g)
+    res = x
+    if "conv_shortcut" in p:
+        res = conv2d(p["conv_shortcut"], x, padding=0, lora=lora, name=f"{name}.conv_shortcut")
+    return conv3x3.fused_conv3x3(h1, a2, s2, p["conv2"]["weight"].to(dt),
+                                 p["conv2"]["bias"].to(dt), res.to(dt), "residual")
 
 
 def _attention(p: dict, x, context, heads: int, lora, name: str):

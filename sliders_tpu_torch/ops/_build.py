@@ -1,0 +1,125 @@
+"""Build and load the port's CUDA kernel libraries.
+
+Each source in `csrc/` is compiled by nvcc for sm_90a into a shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds). A library lives in `sliders_tpu_torch/_build/`, keyed by a
+hash of its source, the headers it includes and the flags;
+`build_libraries` starts one nvcc per library that has no current build,
+all at once, so the first call builds every kernel of the package in
+parallel. The compiler's register and shared-memory report (`-Xptxas -v`)
+is kept beside each library as `.log`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# name -> (source, headers it includes, {C entry point: argtypes}); pointers
+# and the stream are c_void_p (a Python int would be cut to 32 bits)
+LIBRARIES = {
+    "fwd": (CSRC / "sd_attention.cu", (CSRC / "sd_attention_common.cuh",), {
+        "sd_attention_fwd": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    }),
+    "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",), {
+        "sd_attention_bwd": [_P] * 8 + [_I] * 6 + [_L] * 21 + [_F, _P],
+    }),
+    "conv": (CSRC / "conv3x3.cu", (CSRC / "conv3x3.cuh",), {
+        # x, w, bias, extra, a, s, y; B, H, W, C, N, is_f32, mode, prologue;
+        # x strides (b, h, w), extra strides (b, h, w); stream
+        "conv3x3_launch": [_P] * 7 + [_I] * 8 + [_L] * 6 + [_P],
+    }),
+    "group_norm": (CSRC / "group_norm.cu", (), {
+        # x, gamma, beta, y; B, L, C, groups, is_f32, silu; eps; stream
+        "group_norm_launch": [_P] * 4 + [_I] * 6 + [_F, _P],
+    }),
+}
+SOURCES = {name: lib[0] for name, lib in LIBRARIES.items()}
+
+_libs: dict = {}
+_lib_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
+
+
+def library_path(name: str) -> Path:
+    """Where the build of LIBRARIES[name] lives, keyed by a hash of the
+    source, its headers and the nvcc flags."""
+    source, headers, _ = LIBRARIES[name]
+    digest = hashlib.sha1(source.read_bytes())
+    for header in headers:
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:12]}.so"
+
+
+def build_libraries() -> dict:
+    """Compile every library that has no build of its current source yet,
+    one nvcc process per source, all started together. Returns {name:
+    library path}; the compiler's report is kept beside each library as
+    `.log`. Raises if any build fails."""
+    out = {name: library_path(name) for name in LIBRARIES}
+    jobs = {}
+    for name, path in out.items():
+        if path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name].name}: nvcc failed ({proc.returncode}):\n{log}")
+            continue
+        out[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, out[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def library(name: str):
+    """The loaded library LIBRARIES[name] with its entry points' argtypes
+    set (building every missing library first)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lib_lock:
+        if name not in _libs:
+            path = library_path(name)
+            if not path.exists():
+                build_libraries()
+            lib = ctypes.CDLL(str(path))
+            for symbol, argtypes in LIBRARIES[name][2].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+

@@ -22,6 +22,8 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from sliders_tpu_torch.ops import conv3x3
+
 
 @dataclass
 class SliderLora:
@@ -82,6 +84,42 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+CONV_IMPLS = (
+    "auto", "xla", "interpret",
+    "fused", "fused_interpret",
+    "fused_ep", "fused_ep_interpret",
+)
+_conv_impl = "xla"
+
+
+def conv_impl() -> str:
+    return _conv_impl
+
+
+def set_conv_impl(impl: str) -> None:
+    """Route the UNet's 3x3 convs through the conv kernels (`ops/conv3x3.py`),
+    process-wide, as the JAX package's `set_conv_impl` does:
+
+    - 'xla' (default): cuDNN everywhere;
+    - 'auto': every conv2d that passes `conv3x3.routed` (3x3, stride 1,
+      C >= 64, N >= 128, H*W >= 256) goes through kernel #5, then its LoRA
+      tail as on the plain path;
+    - 'fused_ep': each ResnetBlock2D conv without LoRA that passes
+      `epi_supports` takes kernel #7 (bias + temb row / residual epilogue)
+      after the plain GroupNorm + SiLU (`models/unet2d._resnet`);
+    - 'fused': a ResnetBlock2D whose two convs pass `fused_supports` and
+      carry no LoRA takes `group_norm_affine` and kernel #6 twice.
+
+    The '*_interpret' names are the JAX package's CPU test hooks; here each
+    behaves as its base name, because a CPU tensor runs the kernels' plain
+    versions anyway. Any other name is a ValueError. Takes effect on the
+    next call."""
+    global _conv_impl
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"conv impl must be one of {CONV_IMPLS}, got {impl!r}")
+    _conv_impl = impl
+
+
 def conv2d(
     p: dict,
     x: torch.Tensor,
@@ -92,26 +130,39 @@ def conv2d(
     name: Optional[str] = None,
 ) -> torch.Tensor:
     """NHWC conv with an OIHW kernel and symmetric integer padding (+ LoRA
-    conv branch: down has the base conv's kernel/stride/padding, up is 1x1)."""
+    conv branch: down has the base conv's kernel/stride/padding, up is 1x1).
+    Under conv impl 'auto' a routed 3x3 SAME conv runs kernel #5 (a
+    bias-less conv passes zeros)."""
+    w = p["weight"]
     bias = p.get("bias")
-    xc = _nchw(x)
-    y = F.conv2d(
-        xc, p["weight"].to(x.dtype), None if bias is None else bias.to(x.dtype),
-        stride=stride, padding=padding,
-    )
+    if (_conv_impl in ("auto", "interpret") and padding == 1
+            and conv3x3.routed(x.shape, w.shape, stride)):
+        b = (bias.to(x.dtype) if bias is not None
+             else torch.zeros(w.shape[0], dtype=x.dtype, device=x.device))
+        y = conv3x3.conv3x3(x, w.to(x.dtype), b)
+    else:
+        y = _nhwc(F.conv2d(
+            _nchw(x), w.to(x.dtype), None if bias is None else bias.to(x.dtype),
+            stride=stride, padding=padding,
+        ))
+    return _conv2d_lora_tail(x, y, stride, padding, lora, name)
+
+
+def _conv2d_lora_tail(x, y, stride, padding, lora, name) -> torch.Tensor:
     entry = _lora_entry(lora, name)
-    if entry is not None:
-        down, up = entry["down"].to(x.dtype), entry["up"].to(x.dtype)
-        rank = entry.get("rank", down.shape[-4])
-        scale = _lora_scale(lora.multiplier, entry["alpha"], rank, y)
-        if down.ndim == 5:
-            # per-row stacked: down (B, r, in, kh, kw), up (B, out, r, 1, 1)
-            h = _grouped_per_row_conv(xc, down, stride, padding)
-            h = _grouped_per_row_conv(h, up, 1, 0)
-        else:
-            h = F.conv2d(F.conv2d(xc, down, stride=stride, padding=padding), up)
-        y = y + h * scale
-    return _nhwc(y)
+    if entry is None:
+        return y
+    xc = _nchw(x)
+    down, up = entry["down"].to(x.dtype), entry["up"].to(x.dtype)
+    rank = entry.get("rank", down.shape[-4])
+    scale = _lora_scale(lora.multiplier, entry["alpha"], rank, y)
+    if down.ndim == 5:
+        # per-row stacked: down (B, r, in, kh, kw), up (B, out, r, 1, 1)
+        h = _grouped_per_row_conv(xc, down, stride, padding)
+        h = _grouped_per_row_conv(h, up, 1, 0)
+    else:
+        h = F.conv2d(F.conv2d(xc, down, stride=stride, padding=padding), up)
+    return y + _nhwc(h) * scale
 
 
 def _grouped_per_row_conv(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
@@ -142,6 +193,25 @@ def group_norm(
     if silu:
         out = F.silu(out)
     return out
+
+
+def group_norm_affine(
+    p: dict, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm folded into per-(batch, channel) f32 vectors (a, s) with
+    GN(x) * gamma + beta == x * a + s: a = rstd * gamma, s = beta - mean *
+    rstd * gamma (f32 statistics). The normalise + affine + SiLU then runs
+    inside kernel #6 (`conv3x3.fused_conv3x3`)."""
+    B, H, W, C = x.shape
+    gs = C // num_groups
+    xg = x.reshape(B, H * W, num_groups, gs).float()
+    var, mean = torch.var_mean(xg, dim=(1, 3), correction=0)  # (B, G)
+    rstd = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(gs, dim=-1)  # (B, C)
+    rstd_c = rstd.repeat_interleave(gs, dim=-1)
+    gamma = p["weight"].float()[None]
+    beta = p["bias"].float()[None]
+    return rstd_c * gamma, beta - mean_c * rstd_c * gamma
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -25,47 +25,22 @@ the normalised probabilities, rounds them to the input dtype (the TPU
 kernel's rounding point) and multiplies by V. The source files carry the
 details.
 
-Each library is built with nvcc at first use into `sliders_tpu_torch/_build/`
-(a plain C interface loaded with ctypes), keyed by a hash of its source, the
-shared header and the flags; `build_libraries` starts one nvcc per missing
-library, all at once.
+Both libraries are built with nvcc at first use into
+`sliders_tpu_torch/_build/` together with the package's other kernels
+(`ops/_build.py`).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-SOURCES = {"fwd": CSRC / "sd_attention.cu", "bwd": CSRC / "sd_attention_bwd.cu"}
-HEADERS = (CSRC / "sd_attention_common.cuh",)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from sliders_tpu_torch.ops import _build
+
 MAX_D = 128
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# argtypes of the C entry points: pointers, ints, element strides, scale, stream
-_SIGNATURES = {
-    "fwd": ("sd_attention_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]),
-    "bwd": ("sd_attention_bwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 21 + [ctypes.c_float, ctypes.c_void_p]),
-}
-
-_libs: dict = {}
-_lib_lock = threading.Lock()
 
 
 def sd_attention_ref(
@@ -102,72 +77,6 @@ def sd_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
-
-
-def library_path(name: str) -> Path:
-    """Where the build of SOURCES[name] lives, keyed by a hash of the source,
-    the shared header and the nvcc flags."""
-    digest = hashlib.sha1(SOURCES[name].read_bytes())
-    for header in HEADERS:
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCES[name].stem}_{digest.hexdigest()[:12]}.so"
-
-
-def build_libraries() -> dict:
-    """Compile every kernel library that has no build of its current source
-    yet, one nvcc process per source, all started together. Returns
-    {name: library path}; the compiler's register/shared-memory report is
-    kept beside each library as `.log`. Raises if any build fails."""
-    out = {name: library_path(name) for name in SOURCES}
-    jobs = {}
-    for name, path in out.items():
-        if path.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{SOURCES[name].name}: nvcc failed ({proc.returncode}):\n{log}")
-            continue
-        out[name].with_suffix(".log").write_text(log)
-        os.replace(tmp, out[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
-
-def _library(name: str):
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    with _lib_lock:
-        if name not in _libs:
-            path = library_path(name)
-            if not path.exists():
-                build_libraries()
-            lib = ctypes.CDLL(str(path))
-            symbol, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return _libs[name]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -212,7 +121,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     B, H, Lq, d = q.shape
     Lk = k.shape[2]
     out = _bhld_buffer(q)
-    lib = _library("fwd")
+    lib = _build.library("fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sd_attention_fwd(
@@ -246,7 +155,7 @@ def sd_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Lk = k.shape[2]
     dq, dk, dv = _bhld_buffer(q), _bhld_buffer(k), _bhld_buffer(v)
     stats = torch.empty((3, B, H, Lq), dtype=torch.float32, device=q.device)
-    lib = _library("bwd")
+    lib = _build.library("bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sd_attention_bwd(

@@ -1,4 +1,5 @@
-"""The SD attention kernels against their plain versions on a CUDA device.
+"""The hand-written kernels (SD attention #1-#2, conv #5-#7, GroupNorm #8)
+against their plain versions on a CUDA device.
 
 Skips without a card. On one, run it without the JAX test setup:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernel_cuda.py -q
@@ -132,3 +133,237 @@ def test_routed_attention_grads_match_plain_route(cuda, length, heads, width, dt
     for gk, gp in zip(grads, plain):
         scale = gp.float().abs().max().item()
         assert (gk.float() - gp.float()).abs().max().item() <= rel_tol * max(scale, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# conv kernels #5-#7 and the GroupNorm kernel #8
+# ---------------------------------------------------------------------------
+
+CONV_CASES = [
+    # (B, H, W, C, N), dtype
+    ((2, 32, 32, 320, 640), torch.bfloat16),  # an SD1.5 shape
+    ((1, 16, 24, 100, 200), torch.bfloat16),  # C not a multiple of 8: element loads; N ragged
+    ((3, 17, 15, 64, 131), torch.bfloat16),   # M ragged, N odd: element stores
+    ((2, 16, 16, 96, 129), torch.float32),
+    ((1, 32, 32, 320, 320), torch.float32),
+]
+CONV_KERNELS = [("conv3x3", "none"), ("epi", "none"), ("epi", "temb"), ("epi", "residual"),
+                ("fused", "none"), ("fused", "temb"), ("fused", "residual")]
+
+
+def _conv_inputs(shape, dtype, mode, device, seed=5):
+    B, H, W, C, N = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device=device) * scale
+
+    x = (randn(B, H, W, C) * 2 + 0.5).to(dtype)
+    w = randn(N, C, 3, 3, scale=(9 * C) ** -0.5).to(dtype).contiguous(
+        memory_format=torch.channels_last)  # the port's one conv-weight layout
+    b = randn(N, scale=0.1).to(dtype)
+    a = 1.0 + randn(B, C, scale=0.1)
+    s = randn(B, C, scale=0.3)
+    extra = {"none": None, "temb": randn(B, N).to(dtype),
+             "residual": randn(B, H, W, N).to(dtype)}[mode]
+    return x, a, s, w, b, extra
+
+
+def _conv_call(kernel, mode, x, a, s, w, b, extra, ref=False):
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    if kernel == "conv3x3":
+        return (tc.conv3x3_ref if ref else tc.conv3x3)(x, w, b)
+    if kernel == "epi":
+        return (tc.epi_conv3x3_ref if ref else tc.epi_conv3x3)(x, w, b, extra, mode)
+    return (tc.fused_conv3x3_ref if ref else tc.fused_conv3x3)(x, a, s, w, b, extra, mode)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype", CONV_CASES)
+@pytest.mark.parametrize("kernel,mode", CONV_KERNELS)
+def test_conv_kernels_match_plain(cuda, shape, dtype, kernel, mode):
+    """Kernels #5-#7 against their plain versions (f32 accumulation, one
+    rounding). bf16: both round once from f32 sums taken in other orders,
+    held to 2 bf16 ulps at the largest magnitude; f32: 1e-5 relative, TF32
+    off on the plain side."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    torch.backends.cudnn.allow_tf32 = False
+    args = _conv_inputs(shape, dtype, mode, cuda)
+    fn = {"conv3x3": tc.conv3x3, "epi": tc.epi_conv3x3, "fused": tc.fused_conv3x3}[kernel]
+    launches = fn.launches
+    out = _conv_call(kernel, mode, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    ref = _conv_call(kernel, mode, *args, ref=True)
+    assert out.dtype == dtype and out.shape == ref.shape and out.is_contiguous()
+    ref_max = ref.float().abs().max().item()
+    tol = 2 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.requires_cuda
+def test_conv_kernel_takes_strided_views(cuda):
+    """x and the residual as channel slices of wider tensors: contiguous
+    channels with other strides are taken as they lie."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    x, a, s, w, b, _ = _conv_inputs((2, 16, 16, 128, 128), torch.bfloat16, "none", cuda)
+    wide = torch.cat([x, x.flip(-1)], dim=-1)[..., 128:]
+    res = torch.cat([x, x], dim=-1)[..., :128]
+    assert wide.stride(2) == 256 and not wide.is_contiguous()
+    out = tc.fused_conv3x3(wide, a, s, w, b, res, "residual")
+    ref = tc.fused_conv3x3_ref(wide, a, s, w, b, res, "residual")
+    assert (out.float() - ref.float()).abs().max().item() <= 2 * _ulps_bf16(
+        ref.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype", [((2, 16, 16, 128, 256), torch.bfloat16),
+                                         ((1, 16, 24, 100, 200), torch.bfloat16),
+                                         ((2, 16, 16, 96, 129), torch.float32)])
+def test_conv_kernels_take_channels_last_weights(cuda, shape, dtype):
+    """The weights the port draws (`ParamFactory.conv`) and moves to the card
+    (`tree_to`) are channels_last, the one layout the kernels read: both
+    give the same output, and the contiguous OIHW copy of the weight raises
+    rather than being read or copied."""
+    from sliders_tpu_torch.models.params import ParamFactory, tree_to
+
+    x, a, s, w, b, extra = _conv_inputs(shape, dtype, "temb", cuda)
+    drawn = ParamFactory(None, dtype, cuda).conv(shape[3], shape[4])["weight"]
+    moved = tree_to({"w": w.contiguous()}, cuda)["w"]
+    for t in (drawn, moved):
+        assert not t.is_contiguous() and t.is_contiguous(memory_format=torch.channels_last)
+    for kernel in ("conv3x3", "fused"):
+        out = _conv_call(kernel, "temb", x, a, s, moved, b, extra)
+        assert torch.equal(out, _conv_call(kernel, "temb", x, a, s, w, b, extra))
+        with pytest.raises(ValueError, match="channels_last"):
+            _conv_call(kernel, "temb", x, a, s, w.contiguous(), b, extra)
+
+
+@pytest.mark.requires_cuda
+def test_conv_kernels_refuse_wrong_layouts(cuda):
+    """Channels that are not contiguous (an NCHW tensor viewed as NHWC) or a
+    weight that is not channels_last raise: the wrapper never copies to hide
+    them."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    x, a, s, w, b, _ = _conv_inputs((1, 16, 16, 64, 128), torch.bfloat16, "none", cuda)
+    launches = (tc.conv3x3.launches, tc.epi_conv3x3.launches, tc.fused_conv3x3.launches)
+    nchw_view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous channels"):
+        tc.conv3x3(nchw_view, w, b)
+    with pytest.raises(ValueError, match="contiguous channels"):
+        tc.epi_conv3x3(x, w, b, torch.zeros((1, 128, 16, 16), device=cuda,
+                                            dtype=x.dtype).permute(0, 2, 3, 1), "residual")
+    with pytest.raises(ValueError, match="OIHW weight"):
+        tc.fused_conv3x3(x, a, s, w.transpose(2, 3), b)
+    with pytest.raises(ValueError, match="OIHW weight"):
+        tc.epi_conv3x3(x, w.contiguous(), b)
+    with pytest.raises(ValueError, match="one dtype"):
+        tc.conv3x3(x, w.float(), b)
+    assert launches == (tc.conv3x3.launches, tc.epi_conv3x3.launches, tc.fused_conv3x3.launches)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel,mode", CONV_KERNELS)
+def test_conv_function_grads_match_autograd_through_plain(cuda, kernel, mode):
+    """The autograd Functions' gradients for every input (a and s of #6
+    included) against autograd through the plain version, in f32 with TF32
+    off: the backward is the same formula, so only sums in other orders
+    differ (1e-4 relative)."""
+    torch.backends.cudnn.allow_tf32 = False
+    args = _conv_inputs((2, 16, 16, 64, 128), torch.float32, mode, cuda)
+    g = torch.randn((2, 16, 16, 128), generator=torch.Generator(device=cuda).manual_seed(6),
+                    device=cuda)
+    used = [0, 3, 4] + ([5] if mode != "none" else []) + ([1, 2] if kernel == "fused" else [])
+    grads = []
+    for ref in (False, True):
+        leaves = [None if t is None else t.clone().requires_grad_(i in used)
+                  for i, t in enumerate(args)]
+        out = _conv_call(kernel, mode, *leaves, ref=ref)
+        grads.append(torch.autograd.grad(out, [leaves[i] for i in used], g))
+    for i, gk, gp in zip(used, *grads):
+        scale = gp.abs().max().item()
+        assert (gk - gp).abs().max().item() <= 1e-4 * max(scale, 1e-6), i
+
+
+@pytest.mark.requires_cuda
+def test_fused_resnet_grad_reaches_x_through_group_norm(cuda):
+    """A 'fused' resnet block's input gradient, which flows partly through
+    the GN statistics into kernel #6's a and s, equals the plain block's
+    ('xla'), in f32 with TF32 off."""
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    def norm(c):
+        return {"weight": 1.0 + randn(c, scale=0.1), "bias": randn(c, scale=0.1)}
+
+    def conv(o, i, k):
+        return {"weight": randn(o, i, k, k, scale=(i * k * k) ** -0.5), "bias": randn(o, scale=0.1)}
+
+    p = {"norm1": norm(64), "conv1": conv(128, 64, 3), "norm2": norm(128),
+         "conv2": conv(128, 128, 3), "conv_shortcut": conv(128, 64, 1),
+         "time_emb_proj": {"weight": randn(128, 16, scale=0.25), "bias": randn(128, scale=0.1)}}
+    p = tree_to(p, cuda)  # conv weights channels_last, as the port lays them out
+    x0 = randn(2, 16, 16, 64, scale=2.0) + 0.5
+    emb = randn(2, 16, scale=1.0)
+    cfg = unet2d.TINY  # 8 groups
+    grads = {}
+    for impl in ("fused", "xla"):
+        basic.set_conv_impl(impl)
+        try:
+            x = x0.clone().requires_grad_()
+            launches = tc.fused_conv3x3.launches
+            out = unet2d._resnet(p, x, emb, cfg, None, "blk")
+            (out ** 2).sum().backward()
+            assert tc.fused_conv3x3.launches - launches == (2 if impl == "fused" else 0)
+            grads[impl] = x.grad
+        finally:
+            basic.set_conv_impl("xla")
+    scale = grads["xla"].abs().max().item()
+    assert (grads["fused"] - grads["xla"]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize(
+    "shape,groups,silu,dtype",
+    [
+        ((16, 4096, 320), 32, True, torch.bfloat16),   # SD1.5 norm1 at level 0
+        ((16, 1024, 1280), 32, False, torch.bfloat16),
+        ((16, 64, 2560), 32, True, torch.bfloat16),     # the 8x8 bottleneck
+        ((1, 1000, 96), 8, True, torch.float32),
+    ],
+)
+def test_group_norm_kernel_matches_plain(cuda, shape, groups, silu, dtype):
+    """Kernel #8 against fused_group_norm_ref: f32 sums in other orders, so
+    a or b may round the other way; bf16 held to 2 ulps at the largest
+    magnitude, f32 to 1e-5 relative."""
+    from sliders_tpu_torch.ops import group_norm as tg
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn(shape[-1], generator=gen, device=cuda)
+    beta = 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)
+    launches = tg.fused_group_norm.launches
+    out = tg.fused_group_norm(x, gamma, beta, groups, 1e-5, silu)
+    torch.cuda.synchronize()
+    assert tg.fused_group_norm.launches == launches + 1
+    ref = tg.fused_group_norm_ref(x, gamma, beta, groups, 1e-5, silu)
+    ref_max = ref.float().abs().max().item()
+    tol = 2 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+    assert out.dtype == dtype and (out.float() - ref.float()).abs().max().item() <= tol
+    strided = torch.cat([x, x], dim=-1)[..., : shape[-1]]  # (B, L, C) with row stride 2C
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.fused_group_norm(strided, gamma, beta, groups)
+    with pytest.raises(ValueError, match="contiguous gamma"):
+        tg.fused_group_norm(x, torch.stack([gamma, beta], -1)[:, 0], beta, groups)

@@ -136,10 +136,13 @@ def test_http_generate_round_trip(snapshot):
 
 
 def test_port_runs_without_jax(snapshot, tmp_path):
-    """Import the port and run the tiny slice, then two iterations of the
-    training CLI with a resume, with jax, flax, optax, pydantic, PyYAML and
-    safetensors made unimportable (the card's machine has none of them), and
-    the JAX package too (the port shares no module with it)."""
+    """Import the port (its kernel wrappers too) and run the tiny slice, a
+    GroupNorm and a fused conv call, then two iterations of the training CLI
+    with a resume (conv impl 'fused' is set, but at 64 px the latents are
+    8x8, so no resnet passes the gate and the plain path runs), with jax,
+    flax, optax, pydantic, PyYAML and safetensors made unimportable (the
+    card's machine has none of them), and the JAX package too (the port
+    shares no module with it)."""
     (tmp_path / "prompts.yaml").write_text("- target: person\n  positive: old person\n"
                                            "  action: enhance\n  resolution: 64\n")
     (tmp_path / "config.yaml").write_text(
@@ -157,6 +160,7 @@ for name in [m for m in sys.modules if m.split(".")[0] in banned]:
 for name in banned:
     sys.modules[name] = None
 import torch
+from sliders_tpu_torch.ops import _build, conv3x3, group_norm
 from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.pipelines import text2image as t2i
@@ -168,6 +172,14 @@ fn = t2i.make_sampling_fn(m.unet_config, make_sampler(make_schedule(), "ddim", 2
 x = fn(m.unet_params, torch.randn(1, 8, 8, 4), cond, uncond, None, None, 750.0, 7.5)
 img = t2i.decode_images(m.vae_params, m.vae_config, x)
 assert img.shape == (1, 16, 16, 3) and torch.isfinite(x).all()
+assert sorted(_build.LIBRARIES) == ["bwd", "conv", "fwd", "group_norm"]
+y = group_norm.fused_group_norm(torch.randn(1, 16, 64), torch.ones(64), torch.zeros(64), 32)
+assert torch.isfinite(y).all()
+from sliders_tpu_torch.ops import basic
+basic.set_conv_impl("fused")
+x = conv3x3.fused_conv3x3(torch.randn(1, 16, 16, 64), torch.ones(1, 64), torch.zeros(1, 64),
+                          torch.randn(128, 64, 3, 3), torch.zeros(128))
+assert x.shape == (1, 16, 16, 128)
 from sliders_tpu_torch.cli import train_text_slider as cli
 args = ["--config_file", {str(tmp_path / "config.yaml")!r}, "--device", "cpu"]
 final = cli.main(cli.build_parser().parse_args(args))
