@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD1.5 slider serving and slider training once on
-one NVIDIA GPU, under the default conv route and the three conv-kernel
-routes of `ops.basic.set_conv_impl`.
+"""Drive the PyTorch port's SD1.5 slider serving and slider training, and its
+FLUX-dev slider serving, once on one NVIDIA GPU, under the default conv
+route and the three conv-kernel routes of `ops.basic.set_conv_impl`.
 
     python3 chip_smoke.py        # from the root of the repository
 
 Phases, each printing one line or a few before the last:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc.
-  2. build:  nvcc builds the four kernel libraries (sliders_tpu_torch/csrc:
-     attention forward and backward, the 3x3 conv kernels, GroupNorm) for
-     sm_90a, in parallel; registers and shared memory per kernel.
+  2. build:  nvcc builds the five kernel libraries (sliders_tpu_torch/csrc:
+     attention forward and backward, flash attention, the 3x3 conv kernels,
+     GroupNorm) for sm_90a, in parallel; registers and shared memory per
+     kernel.
   3. kernel: the attention forward kernel against its plain PyTorch version
      at the serving shapes, the backward kernel at the grad-pass shapes
      (error of dq/dk/dv and median time of each); the conv kernels #5-#7
      against their plain versions at every conv shape the SD1.5 UNet routes
      at 512 px (batch 16, the mode the UNet uses there), two at batch 1 and
      one f32 shape each; the GroupNorm kernel #8 at the UNet's GN shapes;
-     then the tiny slice at 256 px and three tiny training steps at 256 px
-     on the GPU (through the kernels) against the CPU (plain paths) in f32,
-     under the default route and under conv impl 'fused'.
+     the flash-attention kernel #4 at FLUX's and the VAE's shapes, and #4
+     and #1 checked, then timed beside SDPA, at the two FLUX serving shapes
+     on head views of (B, L, 3072) buffers; each kernel's bound
+     and the time of one PyTorch call computing the same function; then the
+     tiny slice at 256 px and three tiny training steps at 256 px on the GPU
+     (through the kernels) against the CPU (plain paths) in f32, under the
+     default route and under conv impl 'fused', and a tiny FLUX snapshot
+     served at 1536 px through `cli/serve.py --flux` on both (#4's route).
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
@@ -42,6 +48,16 @@ Phases, each printing one line or a few before the last:
      'fused'; losses, the moved LoRA, the frozen alphas, the saved files and
      the launch counts of the kernels are checked, and the time per
      iteration is split by phase.
+  7. flux:   FLUX-dev at full width and depth (transformer, T5-XXL encoder,
+     CLIP-L, FLUX VAE) in bf16 with seeded random weights and two rank-4
+     xattn sliders; one transformer step at bucket 8, 1024 px, timed and
+     profiled; behind the HTTP server a 5-scale /generate, two concurrent
+     /generate calls for the two sliders (one stacked batch), a skip_till
+     past the last step (equal to the scale-0 image) and /healthz at
+     1024 px, then a 1-scale and a 5-scale /generate from a 2048 px engine
+     on the same models, each with its peak device memory. Launch counts:
+     #1 57 x steps x batches at 1024 px, #4 57 x steps at 2048 px, and one
+     #4 per VAE decode call (its d = 512 mid attention).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
 no such line. It needs a CUDA device and the rest of the repository beside
@@ -73,6 +89,7 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype: the 8-row bucket CFG-doubled, and othe
     ((16, 8, 1024, 80), "bfloat16"),
     ((2, 10, 1024, 64), "bfloat16"),
     ((2, 8, 1024, 128), "bfloat16"),
+    ((2, 24, 4608, 128), "bfloat16"),  # FLUX's joint attention at 1024 px, 2 of 8 rows
     ((2, 8, 4096, 40), "float32"),
 ]
 BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, one f32
@@ -135,6 +152,49 @@ GN_SHAPES = [(hw * hw, c, True, 1e-5) for hw, cs in ((64, (320, 640, 960)),
                                                     (8, (1280, 2560))) for c in cs] + [
     (4096, 320, False, 1e-6), (1024, 640, False, 1e-6), (256, 1280, False, 1e-6),
     (64, 1280, False, 1e-6)]
+# FLUX-dev serving: 19 double-stream + 38 single-stream blocks, one joint
+# attention each; FlowMatch steps per request, cut from the CLI's 30
+FLUX_BLOCKS = 57
+FLUX_STEPS = {1024: 4, 2048: 2}
+# kernel #4 against its plain version: FLUX's joint attention at 2048 px (two
+# of its 24 heads), two rows of the 1024 px bucket, f32 at 1536 px, d = 256,
+# and the VAE's single-head mid attention (d = 512, f32) at the decode shapes
+# of SD1.5 at 512 px (bucket 8) and FLUX at 1024 px (bucket 8) and 2048 px
+FLASH_SHAPES = [
+    ((1, 2, 16896, 128), "bfloat16"), ((2, 24, 4608, 128), "bfloat16"),
+    ((1, 2, 9728, 128), "float32"), ((1, 2, 2048, 256), "bfloat16"),
+    ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
+    ((1, 1, 65536, 512), "float32"),
+]
+# the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
+# 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
+FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
+# the tiny FLUX snapshot: L = 512 + (1536 / 16)**2 = 9728 at d = 128 in f32,
+# which kernel #1's TPU plan refuses, so the joint attention takes #4
+TINY_FLUX_PX = 1536
+TINY_FLUX_STEPS = 2
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 outside
+# them (the f32 kernels use plain FMAs), device memory
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float, dt: str) -> tuple:
+    """(ms, 'operations' or 'bytes'): the least time the card could take for
+    `flops` operations of type `dt` and `nbytes` moved to or from memory."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_bound(shape, dt: str, backward: bool = False) -> tuple:
+    """Non-causal attention on (B, H, L, d): forward 4 B H L^2 d operations
+    (q k^T, p v) over q, k, v read and o written; backward 10 B H L^2 d (s
+    again, dp, dv, dq, dk) over q, k, v, g read and dq, dk, dv written."""
+    B, H, L, d = shape
+    item = 2 if dt == "bfloat16" else 4
+    if backward:
+        return bound(10 * B * H * L * L * d, 7 * B * H * L * d * item, dt)
+    return bound(4 * B * H * L * L * d, 4 * B * H * L * d * item, dt)
 
 
 def say(phase: str, msg: str) -> None:
@@ -196,7 +256,8 @@ REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E",
             ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
-            ("group_norm_kernelIfE", "group_norm_f32"))
+            ("group_norm_kernelIfE", "group_norm_f32"),
+            ("flash_fwd_bf16", "flash_fwd_bf16"), ("flash_fwd_f32", "flash_fwd_f32"))
 
 
 def ptxas_report(log: str) -> list:
@@ -231,7 +292,10 @@ def phase_build():
 
 
 def phase_kernel():
+    """Kernel #1 against its plain version; SDPA on the same inputs is timed
+    beside it (a yardstick, never a path of the port)."""
     import torch
+    import torch.nn.functional as F
 
     from sliders_tpu_torch.ops import sd_attention as sa
 
@@ -254,12 +318,15 @@ def phase_kernel():
         tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else F32_TOL
         ms = median_ms(lambda: sa.sd_attention(q, k, v))
         plain_ms = median_ms(lambda: sa.sd_attention_ref(q, k, v))
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms, bound_by = attention_bound(shape, dt)
         say("kernel", f"{shape} {dt}: max|err| vs plain {err:.3g} (tol {tol:.3g}), vs f32 "
             f"{err32:.3g}, max|ref| {ref_max:.3g}; median kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
         if not (err <= tol and err32 <= 4 * tol):
             raise AssertionError(f"sd_attention disagrees with its plain version at {shape} {dt}")
-        results.append({"shape": shape, "dtype": dt, "err": err, "ms": ms, "plain_ms": plain_ms})
+        results.append({"shape": shape, "dtype": dt, "err": err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return results
@@ -273,8 +340,10 @@ def phase_kernel_bwd():
     """The backward kernel against sd_attention_bwd_ref at the grad-pass
     shapes. bf16: both round p and ds at the same points and differ in
     summation order and the fast exp, held to 4 bf16 ulps at each output's
-    largest magnitude; f32: 1e-5 relative to the largest value."""
+    largest magnitude; f32: 1e-5 relative to the largest value. SDPA's
+    backward on the same inputs is timed beside it."""
     import torch
+    import torch.nn.functional as F
 
     from sliders_tpu_torch.ops import sd_attention as sa
 
@@ -298,12 +367,19 @@ def phase_kernel_bwd():
         del out, ref
         ms = median_ms(lambda: sa.sd_attention_bwd(q, k, v, g))
         plain_ms = median_ms(lambda: sa.sd_attention_bwd_ref(q, k, v, g), runs=5)
+        # SDPA's backward alone: its forward once, then the graph replayed
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves)
+        library_ms = median_ms(lambda: torch.autograd.grad(o, leaves, g, retain_graph=True))
+        bound_ms, bound_by = attention_bound(shape, dt, backward=True)
         say("kernel", f"bwd {shape} {dt}: max|err| vs plain {', '.join(errs)}; median kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         if not ok:
             raise AssertionError(f"sd_attention_bwd disagrees with its plain version at {shape} {dt}")
-        results.append({"shape": shape, "dtype": dt, "err": worst, "ms": ms, "plain_ms": plain_ms})
-        del q, k, v, g
+        results.append({"shape": shape, "dtype": dt, "err": worst, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        del q, k, v, g, leaves, o
         torch.cuda.empty_cache()
     return results
 
@@ -409,6 +485,14 @@ def phase_conv_kernels():
             if timed:
                 runs = 10 if dt == "bfloat16" else 5
                 entry["ms"], entry["plain_ms"] = median_ms(kernel, runs), median_ms(plain, runs=5)
+                # 9 taps x C x N MACs per pixel; x, w, bias, the mode's extra (and
+                # #6's f32 a, s) read once, y written once
+                item = 2 if dt == "bfloat16" else 4
+                extra_n = {"none": 0, "temb": B * N, "residual": B * H * H * N}[mode]
+                nbytes = item * (B * H * H * C + 9 * C * N + N + extra_n + B * H * H * N)
+                nbytes += 8 * B * C if name == "fused_conv3x3" else 0
+                entry["bound_ms"], entry["bound_by"] = bound(2 * 9 * B * H * H * C * N, nbytes, dt)
+                entry["library_ms"] = cudnn_ms
                 parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
                              f"{entry['plain_ms']:.4f} ms")
             else:
@@ -434,8 +518,10 @@ def phase_group_norm_kernel():
     """Kernel #8 against fused_group_norm_ref at the UNet's GroupNorm shapes
     (batch 16, bf16), with and without SiLU, and one f32 shape. Both fold a
     and b from f32 sums taken in other orders, so one of them may round the
-    other way: held to 4 bf16 ulps at the largest magnitude (f32: 1e-5)."""
+    other way: held to 4 bf16 ulps at the largest magnitude (f32: 1e-5).
+    F.group_norm (+ F.silu) on the same inputs is timed beside it."""
     import torch
+    import torch.nn.functional as F
 
     from sliders_tpu_torch.ops import group_norm as tg
 
@@ -455,14 +541,116 @@ def phase_group_norm_kernel():
         tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
         ms = median_ms(lambda: tg.fused_group_norm(x, gamma, beta, 32, eps, silu))
         plain_ms = median_ms(lambda: tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu))
+        # the library's GroupNorm on the channels-first view of x (+ SiLU)
+        xc, gc_, bc = x.transpose(1, 2), gamma.to(dtype), beta.to(dtype)
+
+        def library():
+            y = F.group_norm(xc, 32, gc_, bc, eps)
+            return F.silu(y) if silu else y
+
+        library_ms = median_ms(library)
+        item = 2 if dt == "bfloat16" else 4
+        bound_ms, bound_by = bound(8 * 16 * L * C, 2 * item * 16 * L * C + 8 * C, "float32")
         say("gn", f"(16, {L}, {C}) silu={silu} eps={eps} {dt}: max|err| {err:.3g} (tol {tol:.3g}); "
-            f"median kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"median kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.group_norm"
+            f"{' + SiLU' if silu else ''} {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by})")
         if not err <= tol:
             raise AssertionError(f"fused_group_norm disagrees with its plain version at {(L, C)}")
         results.append({"shape": (16, L, C), "silu": silu, "dtype": dt, "err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
         del x, out, ref
     return results
+
+
+def phase_flash_kernel():
+    """Kernel #4 against flash_attention_ref (the TPU kernel's schedule: 128-key
+    blocks, unnormalised p rounded to v's dtype) at FLASH_SHAPES: bf16 held to
+    4 bf16 ulps at the output's largest magnitude (both round p and o at the
+    same points; sums in other orders and the fast exp may flip a rounding),
+    f32 to F32_TOL; each timed (median of 5) beside its bound. The plain
+    version walks K in blocks, so it holds no L x L logits and runs at every
+    head count. Then at FLUX_SERVE_SHAPES, on head
+    views of (B, L, H*d) buffers as the FLUX path passes them: #4 and #1
+    (which takes these shapes too) held to their plain versions within the
+    same 4 ulps, then #4, its plain version, #1 and SDPA timed on the same
+    inputs, with the bound. Returns (checks, timings)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    checks = []
+    for shape, dt in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        out = fa.flash_attention(q, k, v)
+        ref = fa.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        if dtype == torch.bfloat16:
+            tol, shown = bf16_tolerance(ref_max), f"{err / bf16_ulp(ref_max):.2f} bf16 ulps at max"
+        else:
+            tol, shown = F32_TOL, "f32"
+        ms = median_ms(lambda: fa.flash_attention(q, k, v), runs=5)
+        bound_ms, bound_by = attention_bound(shape, dt)
+        say("flash", f"{shape} {dt}: max|err| vs plain {err:.3g} ({shown}; tol {tol:.3g}), "
+            f"max|ref| {ref_max:.3g}; median #4 {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not (err <= tol and out.shape == ref.shape and out.dtype == dtype):
+            raise AssertionError(f"flash_attention disagrees with its plain version at {shape} "
+                                 f"{dt}")
+        checks.append({"shape": shape, "dtype": dt, "err": err, "ms": ms})
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+    timings = []
+    for shape in FLUX_SERVE_SHAPES:
+        # head views of (B, L, H*d) projections, as `multihead_attention` passes them
+        B, H, L, d = shape
+        q, k, v = (torch.randn((B, L, H * d), generator=gen, device="cuda").bfloat16()
+                   .view(B, L, H, d).permute(0, 2, 1, 3) for _ in range(3))
+        out, ref = fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v)
+        ref_max = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        # #1 against sd_attention_ref a row and 4 heads at a time (its f32
+        # logits over all heads would be 16 GB at 1024 px, 27 GB a row at 2048)
+        sd_out = sa.sd_attention(q, k, v)
+        sd_err = sd_max = 0.0
+        for b in range(B):
+            for h in range(0, H, 4):
+                part = (slice(b, b + 1), slice(h, h + 4))
+                sd_ref = sa.sd_attention_ref(q[part], k[part], v[part]).float()
+                sd_max = max(sd_max, sd_ref.abs().max().item())
+                sd_err = max(sd_err, (sd_out[part].float() - sd_ref).abs().max().item())
+                del sd_ref
+        tol, sd_tol = bf16_tolerance(ref_max), bf16_tolerance(sd_max)
+        say("flash", f"{shape} bf16 head views of (B, L, {H * d}) (FLUX serving): #4 max|err| "
+            f"vs plain {err:.3g} ({err / bf16_ulp(ref_max):.2f} bf16 ulps at max; tol {tol:.3g}), "
+            f"#1 vs its plain version {sd_err:.3g} ({sd_err / bf16_ulp(sd_max):.2f} ulps; tol "
+            f"{sd_tol:.3g})")
+        if not (err <= tol and out.shape == ref.shape and sd_err <= sd_tol):
+            raise AssertionError(f"#4 or #1 disagrees with its plain version at FLUX's {shape}")
+        checks.append({"shape": shape, "dtype": "bfloat16", "err": err, "sd_err": sd_err})
+        del out, ref, sd_out
+        row = {"shape": shape, "dtype": "bfloat16",
+               "ms": median_ms(lambda: fa.flash_attention(q, k, v)),
+               "sd_ms": median_ms(lambda: sa.sd_attention(q, k, v)),
+               "library_ms": median_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+               "plain_ms": median_ms(lambda: fa.flash_attention_ref(q, k, v), runs=3)}
+        row["bound_ms"], row["bound_by"] = attention_bound(shape, "bfloat16")
+        tflops = 4 * math.prod(shape) * shape[2] / row["ms"] / 1e9
+        say("flash", f"{shape} bf16 (FLUX serving): median #4 {row['ms']:.4f} ms ({tflops:.1f} "
+            f"TFLOP/s), #1 {row['sd_ms']:.4f}, SDPA {row['library_ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        timings.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return checks, timings
 
 
 def tiny_slice(device: str, trees: dict, clip_cfg, latents, tok):
@@ -635,6 +823,158 @@ def write_tokenizer(d: str) -> None:
         f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
 
 
+def write_t5_tokenizer(d: str) -> None:
+    """A WordLevel + Whitespace T5 tokenizer.json (the layout the `tokenizers`
+    library saves) with <pad> 0 and </s> 1; any id it yields is valid for
+    T5-XXL."""
+    words = ["<pad>", "</s>", "<unk>", "a", "photo", "of", "person", "very", "old", "young",
+             "smiling"]
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": [],
+            "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+            "post_processor": None, "decoder": None,
+            "model": {"type": "WordLevel", "vocab": {w: i for i, w in enumerate(words)},
+                      "unk_token": "<unk>"}}
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"pad_token": "<pad>", "eos_token": "</s>", "model_max_length": 512}, f)
+
+
+def clip_hf_config(cfg, eos: int) -> dict:
+    """The transformers text_encoder/config.json of a ClipTextConfig."""
+    return {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "intermediate_size": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_positions, "hidden_act": cfg.hidden_act,
+            "eos_token_id": eos}
+
+
+def write_tiny_flux_snapshot(root: str) -> None:
+    """A diffusers-layout FLUX snapshot with seeded random f32 weights: the
+    TINY transformer (2 heads, 2 + 2 blocks) at FLUX's head dim 128, a tiny
+    CLIP (the synthetic BPE tokenizer) and T5 (a WordLevel tokenizer_2), and
+    TINY_FLUX's VAE with 128 mid-block channels, so that its single-head mid
+    attention (d = 128, L = 192**2 at 1536 px) takes kernel #4 as well and no
+    plain L x L score matrix is formed (TINY_FLUX's d = 32 would make it 5.4
+    GB a row)."""
+    import dataclasses
+
+    import torch
+
+    from sliders_tpu_torch.models import clip_text, flux, t5, vae
+    from sliders_tpu_torch.models.convert import write_safetensors
+    from sliders_tpu_torch.utils.pytree import flatten
+
+    gen = torch.Generator().manual_seed(12)
+    fcfg = dataclasses.replace(flux.TINY, attention_head_dim=128, axes_dims_rope=(16, 56, 56))
+    os.makedirs(os.path.join(root, "tokenizer"))
+    write_tokenizer(os.path.join(root, "tokenizer"))
+    write_t5_tokenizer(os.path.join(root, "tokenizer_2"))
+    with open(os.path.join(root, "tokenizer", "vocab.json")) as f:
+        vocab = json.load(f)
+    ccfg = clip_text.ClipTextConfig(
+        vocab_size=len(vocab), hidden_size=fcfg.pooled_projection_dim, num_layers=2, num_heads=2,
+        intermediate_size=2 * fcfg.pooled_projection_dim, max_positions=16,
+        eos_token_id=vocab["<|endoftext|>"])
+    tcfg = t5.T5Config(vocab_size=32, d_model=fcfg.joint_attention_dim, d_kv=8, d_ff=64,
+                       num_layers=2, num_heads=2)
+    vcfg = dataclasses.replace(vae.TINY_FLUX, block_out_channels=(32, 128))
+    components = {
+        "transformer": (flux.init_params(gen, fcfg), {
+            "in_channels": fcfg.in_channels, "num_layers": fcfg.num_layers,
+            "num_single_layers": fcfg.num_single_layers,
+            "attention_head_dim": fcfg.attention_head_dim,
+            "num_attention_heads": fcfg.num_attention_heads,
+            "joint_attention_dim": fcfg.joint_attention_dim,
+            "pooled_projection_dim": fcfg.pooled_projection_dim,
+            "guidance_embeds": fcfg.guidance_embeds, "axes_dims_rope": list(fcfg.axes_dims_rope)}),
+        "text_encoder": (clip_text.init_params(gen, ccfg), clip_hf_config(ccfg, ccfg.eos_token_id)),
+        "text_encoder_2": (t5.init_params(gen, tcfg), {
+            "vocab_size": tcfg.vocab_size, "d_model": tcfg.d_model, "d_kv": tcfg.d_kv,
+            "d_ff": tcfg.d_ff, "num_layers": tcfg.num_layers, "num_heads": tcfg.num_heads}),
+        "vae": (vae.init_params(gen, vcfg), {
+            "latent_channels": vcfg.latent_channels,
+            "block_out_channels": list(vcfg.block_out_channels),
+            "layers_per_block": vcfg.layers_per_block, "norm_num_groups": vcfg.norm_num_groups,
+            "scaling_factor": vcfg.scaling_factor, "shift_factor": vcfg.shift_factor}),
+    }
+    for sub, (params, config) in components.items():
+        os.makedirs(os.path.join(root, sub))
+        write_safetensors(os.path.join(root, sub, "model.safetensors"), flatten(params))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(config, f)
+
+
+def tiny_flux_serve(snap: str, device: str, slider: dict) -> tuple:
+    """The engine `cli/serve.py --flux` builds for the tiny snapshot at
+    TINY_FLUX_PX in f32 on `device`, one request with the slider at scales
+    [-1, 2]; returns (denoised packed latents on the CPU, PNG pixel bytes)."""
+    from sliders_tpu_torch.cli import serve
+
+    engine = serve.make_engine(serve.build_parser().parse_args([
+        "--flux", "--base", snap, "--device", device, "--precision", "float32",
+        "--ddim_steps", str(TINY_FLUX_STEPS), "--image_size", str(TINY_FLUX_PX),
+        "--buckets", "1,2", "--no_warmup"]))
+    denoised = []
+    fn = engine.fn
+    engine.fn = lambda *a: denoised.append(fn(*a)) or denoised[-1]
+    try:
+        engine.register_slider("s", slider)
+        reply = engine.generate("a photo of a very old person", seed=3, slider="s",
+                                scales=[-1.0, 2.0])
+    finally:
+        engine.close(timeout=60)
+    return denoised[0].cpu(), [png_pixels(png)[2] for _, png in reply]
+
+
+def phase_tiny_flux():
+    """The tiny FLUX snapshot through load_flux -> FluxSliderEngine (built by
+    `cli/serve.py --flux`) at TINY_FLUX_PX, f32, TF32 off, on the GPU (the
+    kernels) and on the CPU (plain paths). The denoised latents are held to
+    1e-3 of their largest magnitude (f32 sums in other orders through 4
+    blocks and 2 steps; a wrong block moves them by O(1)), the images to one
+    level of 255. #4 must launch 4 joint attentions x steps + 1 VAE mid
+    attention times; #1 never (T5 and CLIP are masked: plain path)."""
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models.loader import load_flux
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as snap:
+        write_tiny_flux_snapshot(snap)
+        gen = torch.Generator().manual_seed(15)
+        slider = create_slider_network(gen, load_flux(snap, dtype=torch.float32).transformer_params,
+                                       rank=4, train_method="xattn")
+        for e in slider.values():
+            e["up"] = torch.randn(e["up"].shape, generator=gen) * 0.1
+        fa.flash_attention.launches = sa.sd_attention.launches = 0
+        gpu, gpu_px = tiny_flux_serve(snap, "cuda", slider)
+        flash, sd = fa.flash_attention.launches, sa.sd_attention.launches
+        t0 = time.perf_counter()
+        cpu, cpu_px = tiny_flux_serve(snap, "cpu", slider)
+        cpu_s = time.perf_counter() - t0
+    err = (gpu - cpu).abs().max().item()
+    scale = cpu.abs().max().item()
+    px_err = max(max(abs(a - b) for a, b in zip(g, c)) for g, c in zip(gpu_px, cpu_px))
+    expected = 4 * TINY_FLUX_STEPS + 1
+    say("kernel", f"tiny FLUX {TINY_FLUX_PX} px f32 via cli/serve.py --flux, {TINY_FLUX_STEPS} "
+        f"steps, scales [-1, 2]: GPU (#4 {flash} launches, expected {expected}; #1 {sd}) vs CPU "
+        f"(plain, {cpu_s:.1f} s): latents max|err| {err:.3g} (tol {1e-3 * max(1.0, scale):.3g}, "
+        f"max|latent| {scale:.3g}); images max level diff {px_err} (tol 1)")
+    if flash != expected or sd != 0:
+        raise AssertionError("the tiny FLUX slice did not take kernel #4 where the gate routes it")
+    if not torch.isfinite(gpu).all() or err > 1e-3 * max(1.0, scale) or px_err > 1:
+        raise AssertionError("the tiny FLUX slice on the GPU disagrees with the CPU")
+    if gpu_px[0] == gpu_px[1]:
+        raise AssertionError("the tiny FLUX slider did nothing")
+    return flash
+
+
 def build_engine(tok_dir: str):
     import torch
 
@@ -686,13 +1026,21 @@ def _leaves(tree):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    for key, cls in (("attn_fwd", "attention kernel"), ("conv3x3_", "conv kernel"),
+    for key, cls in (("attn_fwd", "attention kernel"), ("flash_fwd", "flash attention kernel"),
+                     ("conv3x3_", "conv kernel"),
                      ("conv", "conv"), ("fprop", "conv"),
-                     ("gemm", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"),
+                     ("gemm", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"), ("nvjet", "gemm"),
                      ("reduce", "reduction"), ("elementwise", "elementwise")):
         if key in n:
             return cls
     return "other"
+
+
+def top_kernels(prof, n: int = 5) -> str:
+    """The n kernels with the most device time over a torch.profiler run."""
+    rows = sorted((e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                  key=lambda e: -e.device_time_total)[:n]
+    return "; ".join(f"{e.key[:60]} {e.device_time_total / 1e3:.1f} ms" for e in rows)
 
 
 def by_kernel_class(prof) -> dict:
@@ -954,107 +1302,134 @@ def post(port: int, path: str, payload: dict) -> dict:
         return json.loads(r.read())
 
 
-def check_images(reply: dict, scales: list, tag: str) -> list:
+def check_images(reply: dict, scales: list, tag: str, size: int = 512) -> list:
     imgs = reply["images"]
     if [im["scale"] for im in imgs] != [float(s) for s in scales]:
         raise AssertionError(f"{tag}: scales {[im['scale'] for im in imgs]} != {scales}")
     pixels = []
     for im in imgs:
         w, h, px = png_pixels(base64.b64decode(im["png"]))
-        if (w, h) != (512, 512):
-            raise AssertionError(f"{tag}: image is {w}x{h}, not 512x512")
+        if (w, h) != (size, size):
+            raise AssertionError(f"{tag}: image is {w}x{h}, not {size}x{size}")
         if px.count(px[:1]) == len(px):
             raise AssertionError(f"{tag}: image at scale {im['scale']} is one flat value")
         pixels.append(px)
     return pixels
 
 
-def phase_http(engine):
-    from sliders_tpu_torch.ops import sd_attention as sa
+def serve_http(engine, fn):
+    """Run fn(port) with `engine` behind the HTTP server; close both after."""
     from sliders_tpu_torch.serving.server import make_http_server
 
     server = make_http_server(engine, "127.0.0.1", 0)
-    port = server.server_address[1]
-    serve = threading.Thread(target=server.serve_forever, daemon=True)
-    serve.start()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
     try:
-        t0 = time.perf_counter()
-        engine.warmup(with_slider="s1")
-        say("http", f"warmup (5 scales -> bucket 8, one denoise) {time.perf_counter() - t0:.2f} s")
-
-        stats0 = dict(engine.stats)
-        sa.sd_attention.launches = 0  # count only the served requests from here
-        replies = {}
-
-        def call(key, payload):
-            t = time.perf_counter()
-            replies[key] = (post(port, "/generate", payload), time.perf_counter() - t)
-
-        scales_a = [-2, -1, 0, 1, 2]
-        ta = threading.Thread(target=call, args=("a", {
-            "prompt": "a photo of a person", "seed": 1, "slider": "s1", "scales": scales_a}))
-        ta.start()
-        # (b) is sent once (a) is denoising (its first kernel launch), so both
-        # (b) requests wait in the queue together and the worker coalesces
-        # them into one stacked batch of 4
-        deadline = time.monotonic() + 600
-        while sa.sd_attention.launches == 0:
-            if time.monotonic() > deadline or not ta.is_alive():
-                raise AssertionError("request (a) never started denoising")
-            time.sleep(0.005)
-        tb = [threading.Thread(target=call, args=(f"b{i}", {
-            "prompt": "a photo of a person", "seed": 2 + i, "slider": f"s{i + 1}",
-            "scales": [-1.5, 1.5]})) for i in range(2)]
-        t_b = time.perf_counter()
-        for t in tb:
-            t.start()
-        while len(engine._queue) < 2:
-            if engine.stats["batches"] != stats0["batches"]:
-                raise AssertionError("request (a) finished before both (b) requests were queued")
-            time.sleep(0.005)
-        say("http", f"both (b) requests queued behind (a) after "
-            f"{(time.perf_counter() - t_b) * 1e3:.1f} ms")
-        for t in [ta, *tb]:
-            t.join(timeout=900)
-            if t.is_alive():
-                raise AssertionError("a /generate call did not return")
-        for key in ("a", "b0", "b1"):
-            if key not in replies:
-                raise AssertionError(f"request {key} failed")
-
-        px_a = check_images(replies["a"][0], scales_a, "a")
-        if px_a[0] == px_a[-1]:
-            raise AssertionError("the -2 and +2 images are identical: the slider did nothing")
-        check_images(replies["b0"][0], [-1.5, 1.5], "b0")
-        check_images(replies["b1"][0], [-1.5, 1.5], "b1")
-
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        if r.status != 200 or not health["ok"] or health["sliders"] != ["s1", "s2"]:
-            raise AssertionError(f"/healthz answered {r.status}: {health}")
-
-        batches = engine.stats["batches"] - stats0["batches"]
-        rows = engine.stats["rows"] - stats0["rows"]
-        launches = sa.sd_attention.launches
-        expected = ROUTED_PER_FORWARD * STEPS * batches
-        for key in ("a", "b0", "b1"):
-            reply, wall = replies[key]
-            say("http", f"/generate {key}: {len(reply['images'])} images, server latency "
-                f"{reply['latency_ms']} ms, client {wall * 1e3:.1f} ms")
-        say("http", "every image 512x512 and not flat; -2 and +2 differ; latents finite "
-            "(the engine refuses non-finite latents before decoding)")
-        say("http", f"/healthz ok; engine stats {health['stats']}; denoise batches for the "
-            f"3 requests: {batches} ({rows} rows); kernel launches {launches}, expected "
-            f"{ROUTED_PER_FORWARD} x {STEPS} x {batches} = {expected}")
-        if batches != 2 or rows != 9:
-            raise AssertionError("the two (b) requests were not coalesced into one batch")
-        if launches != expected:
-            raise AssertionError("not every routed self-attention went through the kernel")
-        return launches, serve_conv_impls(engine, port)
+        return fn(server.server_address[1])
     finally:
         server.shutdown()
         server.server_close()
         engine.close(timeout=60)
+
+
+SWEEP = [-2, -1, 0, 1, 2]
+
+
+def sweep_and_pair(engine, port: int, size: int, tag: str) -> dict:
+    """(a) a 5-scale /generate for slider s1; (b) one 2-scale /generate each
+    for s1 and s2, sent once (a) has started denoising (its first launch of
+    kernel #1), so both wait in the queue together and the worker serves them
+    as one stacked batch of 4. Every image is checked (size x size, not
+    flat; -2 and +2 differ). Returns {key: (reply, client seconds)}."""
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    stats0 = dict(engine.stats)
+    replies = {}
+
+    def call(key, payload):
+        t = time.perf_counter()
+        replies[key] = (post(port, "/generate", payload), time.perf_counter() - t)
+
+    ta = threading.Thread(target=call, args=("a", {
+        "prompt": "a photo of a person", "seed": 1, "slider": "s1", "scales": SWEEP}))
+    ta.start()
+    deadline = time.monotonic() + 600
+    while sa.sd_attention.launches == 0:
+        if time.monotonic() > deadline or not ta.is_alive():
+            raise AssertionError(f"{tag}: request (a) never started denoising")
+        time.sleep(0.005)
+    tb = [threading.Thread(target=call, args=(f"b{i}", {
+        "prompt": "a photo of a person", "seed": 2 + i, "slider": f"s{i + 1}",
+        "scales": [-1.5, 1.5]})) for i in range(2)]
+    t_b = time.perf_counter()
+    for t in tb:
+        t.start()
+    while len(engine._queue) < 2:
+        if engine.stats["batches"] != stats0["batches"]:
+            raise AssertionError(f"{tag}: request (a) finished before both (b) were queued")
+        time.sleep(0.005)
+    say(tag, f"both (b) requests queued behind (a) after "
+        f"{(time.perf_counter() - t_b) * 1e3:.1f} ms")
+    for t in [ta, *tb]:
+        t.join(timeout=900)
+        if t.is_alive():
+            raise AssertionError(f"{tag}: a /generate call did not return")
+    for key in ("a", "b0", "b1"):
+        if key not in replies:
+            raise AssertionError(f"{tag}: request {key} failed")
+    px_a = check_images(replies["a"][0], SWEEP, f"{tag} a", size)
+    if px_a[0] == px_a[-1]:
+        raise AssertionError(f"{tag}: the -2 and +2 images are identical: the slider did nothing")
+    check_images(replies["b0"][0], [-1.5, 1.5], f"{tag} b0", size)
+    check_images(replies["b1"][0], [-1.5, 1.5], f"{tag} b1", size)
+    for key, (reply, wall) in replies.items():
+        say(tag, f"/generate {key}: {len(reply['images'])} images {size}x{size}, server latency "
+            f"{reply['latency_ms']} ms, client {wall * 1e3:.1f} ms")
+    replies["px_a"] = px_a
+    return replies
+
+
+def healthz(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    if r.status != 200 or not health["ok"] or health["sliders"] != ["s1", "s2"]:
+        raise AssertionError(f"/healthz answered {r.status}: {health}")
+    return health
+
+
+def phase_http(engine):
+    """SD1.5 behind the HTTP server: warmup, `sweep_and_pair`, /healthz, then
+    one /generate per conv impl. #1 must launch 10 x 50 x batches, #4 once
+    per batch (the VAE's mid attention)."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    def run(port):
+        t0 = time.perf_counter()
+        engine.warmup(with_slider="s1")
+        say("http", f"warmup (5 scales -> bucket 8, one denoise) {time.perf_counter() - t0:.2f} s")
+        stats0 = dict(engine.stats)
+        # count only the served requests from here
+        sa.sd_attention.launches = fa.flash_attention.launches = 0
+        sweep_and_pair(engine, port, 512, "http")
+        health = healthz(port)
+        batches = engine.stats["batches"] - stats0["batches"]
+        rows = engine.stats["rows"] - stats0["rows"]
+        launches, flash = sa.sd_attention.launches, fa.flash_attention.launches
+        expected = ROUTED_PER_FORWARD * STEPS * batches
+        say("http", "every image 512x512 and not flat; -2 and +2 differ; latents finite "
+            "(the engine refuses non-finite latents before decoding)")
+        say("http", f"/healthz ok; engine stats {health['stats']}; denoise batches for the "
+            f"3 requests: {batches} ({rows} rows); kernel launches {launches}, expected "
+            f"{ROUTED_PER_FORWARD} x {STEPS} x {batches} = {expected}; flash-attention kernel "
+            f"launches {flash} (the VAE's mid attention, d = 512 f32, one per decode), expected "
+            f"{batches}")
+        if batches != 2 or rows != 9:
+            raise AssertionError("the two (b) requests were not coalesced into one batch")
+        if launches != expected or flash != batches:
+            raise AssertionError("not every routed self-attention went through its kernel")
+        return launches, flash, serve_conv_impls(engine, port)
+
+    return serve_http(engine, run)
 
 
 def serve_conv_impls(engine, port: int) -> dict:
@@ -1359,6 +1734,229 @@ def phase_train():
             "fused_conv": fused["conv"].get("fused_conv3x3", 0)}
 
 
+def build_flux_engine(tok_dir: str, t5_tok_dir: str):
+    """FLUX-dev at full width and depth in bf16 with seeded random weights
+    drawn on the card (transformer, T5-XXL encoder, CLIP-L, FLUX VAE), a
+    FluxSliderEngine at 1024 px and two rank-4 xattn sliders with nonzero up."""
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import clip_text, flux, t5, vae
+    from sliders_tpu_torch.models.loader import FluxModels, TextEncoderBundle
+    from sliders_tpu_torch.serving.server import FluxSliderEngine
+    from sliders_tpu_torch.text.t5_tokenizer import T5Tokenizer
+    from sliders_tpu_torch.text.tokenizer import ClipTokenizer
+
+    # as served: cuDNN convs may use TF32 (the VAE decodes in f32), matmuls not
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    tok = ClipTokenizer.from_pretrained(tok_dir)
+    tok.model_max_length = clip_text.CLIP_L.max_positions
+    transformer = flux.init_params(gen, flux.FLUX_DEV, dtype=bf16, device="cuda")
+    t5_params = t5.init_params(gen, t5.T5_XXL, dtype=bf16, device="cuda")
+    models = FluxModels(
+        transformer, flux.FLUX_DEV,
+        TextEncoderBundle(tok, clip_text.init_params(gen, clip_text.CLIP_L, dtype=bf16,
+                                                     device="cuda"), clip_text.CLIP_L),
+        t5_params, t5.T5_XXL, T5Tokenizer.from_pretrained(t5_tok_dir),
+        vae_params=vae.init_params(gen, vae.FLUX_VAE, dtype=bf16, device="cuda"),
+        vae_config=vae.FLUX_VAE,
+    )
+    engine = FluxSliderEngine(models, device="cuda", steps=FLUX_STEPS[1024], image_size=1024,
+                              guidance_scale=3.5, compute_dtype=bf16)
+    for name in ("s1", "s2"):
+        w = create_slider_network(gen, transformer, rank=4, alpha=1.0, train_method="xattn",
+                                  device="cuda")
+        for e in w.values():  # nonzero up, so the scale changes the image
+            e["up"] = torch.randn(e["up"].shape, generator=gen, device="cuda") * 0.05
+        engine.register_slider(name, w)
+    torch.cuda.synchronize()
+    n_flux = sum(t.numel() for t in _leaves(transformer))
+    n_t5 = sum(t.numel() for t in _leaves(t5_params))
+    say("flux", f"FLUX-dev transformer {n_flux / 1e9:.3f} B params (19 + 38 blocks, D 3072, 24 "
+        f"heads, d 128) + T5-XXL encoder {n_t5 / 1e9:.3f} B + CLIP-L + FLUX VAE on "
+        f"{engine.device}, bf16, 1024 px, FlowMatch {FLUX_STEPS[1024]} steps (cut from 30), "
+        f"guidance 3.5, 2 rank-4 xattn sliders ({len(w)} modules each): built in "
+        f"{time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return engine
+
+
+def phase_flux_step(engine) -> dict:
+    """One FLUX-dev transformer forward at bucket 8, 1024 px (4096 image + 512
+    text tokens), bf16, slider on at per-row scales: its launches (57 of #1,
+    none of #4), the median of 3 synced steps, then torch.profiler over 2
+    steps by kernel class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.ops.basic import SliderLora
+
+    m = engine.models
+    cfg = m.transformer_config
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, hw = 8, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    x, pooled, t5e = randn(B, (hw // 2) ** 2, 64), randn(B, 768), randn(B, 512, 4096)
+    t = torch.full((B,), 0.5, device="cuda")
+    g = torch.full((B,), 3.5, device="cuda")
+    lora = SliderLora(engine.sliders["s1"], torch.linspace(-2, 2, B, device="cuda"))
+    img_ids, txt_ids = flux.image_ids(hw, hw), flux.text_ids(512)
+
+    def step():
+        with torch.inference_mode():
+            return flux.apply(m.transformer_params, cfg, x, t, pooled, t5e, txt_ids, img_ids,
+                              guidance=g, lora=lora)
+
+    sa.sd_attention.launches = fa.flash_attention.launches = 0
+    v = step()
+    torch.cuda.synchronize()
+    per_step = (sa.sd_attention.launches, fa.flash_attention.launches)
+    if v.shape != (B, (hw // 2) ** 2, 64) or not torch.isfinite(v).all():
+        raise AssertionError(f"the FLUX step gave {tuple(v.shape)} or non-finite values")
+    if per_step != (FLUX_BLOCKS, 0):
+        raise AssertionError(f"the FLUX step launched (#1, #4) {per_step}, not ({FLUX_BLOCKS}, 0)")
+    ms = median_ms(step, runs=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_class = by_kernel_class(prof)
+    busy = sum(by_class.values())
+    say("flux", f"transformer step, bucket 8, 1024 px, bf16, slider on: median {ms:.1f} ms "
+        f"(launches per step: #1 {per_step[0]}, #4 {per_step[1]}); device ms per step by kernel "
+        f"class: " + ", ".join(f"{c} {v / 2:.1f} ({v / busy * 100:.1f}%)"
+                               for c, v in sorted(by_class.items(), key=lambda kv: -kv[1]))
+        + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 2 steps); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say("flux", f"top kernels over the 2 profiled steps: {top_kernels(prof)}")
+    return {"ms": ms, "sd_per_step": per_step[0]}
+
+
+def flux_image_px(engine) -> int:
+    """The engine's image side: its latents (image_size / 8) upsampled by
+    the VAE's decoder blocks."""
+    return engine.image_size // 8 * 2 ** (len(engine.models.vae_config.block_out_channels) - 1)
+
+
+def phase_flux_http(engine) -> dict:
+    """FLUX-dev at 1024 px behind the HTTP server: `sweep_and_pair`, then (c)
+    (a) again with skip_till past the last step: every image must equal
+    (a)'s scale-0 image (the same batch shape and rows, so no summation
+    order changes); /healthz. #1 must launch 57 x steps x batches, #4 once
+    per batch (the VAE's mid attention)."""
+    import torch
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    steps, size = engine.steps, flux_image_px(engine)
+
+    def run(port):
+        stats0 = dict(engine.stats)
+        torch.cuda.reset_peak_memory_stats()
+        sa.sd_attention.launches = fa.flash_attention.launches = 0
+        replies = sweep_and_pair(engine, port, size, "flux")
+        t0 = time.perf_counter()
+        gated = post(port, "/generate", {"prompt": "a photo of a person", "seed": 1,
+                                         "slider": "s1", "scales": SWEEP, "skip_till": steps})
+        say("flux", f"/generate c (skip_till {steps}): {len(gated['images'])} images, server "
+            f"latency {gated['latency_ms']} ms, client {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        px_a = replies["px_a"]
+        gate_diff = [0 if pc == px_a[2] else sum(a != b for a, b in zip(pc, px_a[2]))
+                     for pc in check_images(gated, SWEEP, "flux c", size)]
+        health = healthz(port)
+        batches = engine.stats["batches"] - stats0["batches"]
+        rows = engine.stats["rows"] - stats0["rows"]
+        sd, flash = sa.sd_attention.launches, fa.flash_attention.launches
+        expected = FLUX_BLOCKS * steps * batches
+        say("flux", f"skip_till {steps} (past the last step): pixels differing from (a)'s "
+            f"scale-0 image per scale {gate_diff} (must be 0); /healthz {health['family']}, "
+            f"stats {health['stats']}; {batches} batches ({rows} rows); launches #1 {sd} "
+            f"(expected {FLUX_BLOCKS} x {steps} x {batches} = {expected}), #4 {flash} (expected "
+            f"{batches}, the VAE's mid attention); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if health["family"] != "flux":
+            raise AssertionError(f"FLUX /healthz answered {health}")
+        if any(gate_diff):
+            raise AssertionError("skip_till past the last step did not give the scale-0 image")
+        if batches != 3 or rows != 14:
+            raise AssertionError("the two FLUX (b) requests were not coalesced into one batch")
+        if sd != expected or flash != batches:
+            raise AssertionError("not every FLUX joint attention went through kernel #1")
+        return {"sd": sd, "flash": flash}
+
+    return serve_http(engine, run)
+
+
+def phase_flux_2048(models, sliders: dict) -> dict:
+    """A second FluxSliderEngine at 2048 px on the same models (L = 512 +
+    128**2 = 16896: kernel #1's TPU plan refuses it, so #4): one /generate of
+    one scale, then the 5-scale sweep (bucket 8), each with its peak device
+    memory. #4 must launch 57 x steps times plus once per VAE decode call
+    (the engine decodes `decode_rows` rows at a time), #1 never."""
+    import torch
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.serving.server import FluxSliderEngine
+
+    engine = FluxSliderEngine(models, device="cuda", steps=FLUX_STEPS[2048], image_size=2048,
+                              guidance_scale=3.5, compute_dtype=torch.bfloat16)
+    engine.register_slider("s1", sliders["s1"])
+
+    def request(port, scales, bucket):
+        torch.cuda.reset_peak_memory_stats()
+        sa.sd_attention.launches = fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        reply = post(port, "/generate", {"prompt": "a photo of a very old person", "seed": 4,
+                                         "slider": "s1", "scales": scales})
+        wall = time.perf_counter() - t0
+        check_images(reply, scales, "flux 2048", flux_image_px(engine))
+        sd, flash = sa.sd_attention.launches, fa.flash_attention.launches
+        decodes = -(-bucket // engine.decode_rows)
+        expected = FLUX_BLOCKS * FLUX_STEPS[2048] + decodes
+        say("flux", f"2048 px engine, {FLUX_STEPS[2048]} steps (cut from 30): /generate "
+            f"{len(scales)} images 2048x2048 (bucket {bucket}), server latency "
+            f"{reply['latency_ms']} ms, client {wall * 1e3:.1f} ms; launches #4 {flash} (expected "
+            f"{FLUX_BLOCKS} x {FLUX_STEPS[2048]} + {decodes} VAE decode calls of "
+            f"{engine.decode_rows} rows = {expected}), #1 {sd} (expected 0); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if flash != expected or sd != 0:
+            raise AssertionError("not every FLUX joint attention at 2048 px went through #4")
+        return flash
+
+    def run(port):
+        return {"flash": request(port, [1.0], 1), "flash_sweep": request(port, SWEEP, 8)}
+
+    return serve_http(engine, run)
+
+
+def phase_flux(tmp: str) -> dict:
+    """Phase 7: FLUX-dev serving at 1024 and 2048 px."""
+    tok_dir, t5_dir = os.path.join(tmp, "tokenizer"), os.path.join(tmp, "tokenizer_2")
+    os.makedirs(tok_dir)
+    write_tokenizer(tok_dir)
+    write_t5_tokenizer(t5_dir)
+    engine = build_flux_engine(tok_dir, t5_dir)
+    step = phase_flux_step(engine)
+    served = phase_flux_http(engine)
+    big = phase_flux_2048(engine.models, engine.sliders)
+    return {"step": step, "serve_1024": served, "serve_2048": big}
+
+
 def main() -> int:
     import torch
 
@@ -1378,32 +1976,43 @@ def main() -> int:
     bwd_results = phase_kernel_bwd()
     conv_results = phase_conv_kernels()
     gn_results = phase_group_norm_kernel()
+    flash_checks, flash_times = phase_flash_kernel()
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
         phase_tiny_slice(tok_dir)
         phase_tiny_train()
         tiny_fused = phase_tiny_train("fused")
+        tiny_flux = phase_tiny_flux()
         engine = build_engine(tok_dir)
     phase_step(engine)
     conv_step = phase_conv_step(engine)
     phase_grad_ab(engine)
-    serve_launches, serve_conv = phase_http(engine)
+    serve_launches, serve_flash, serve_conv = phase_http(engine)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        flux = phase_flux(tmp)
 
     # launches: each kernel's main path (training for the attention kernels
-    # and #6, serving under its impl for #5 and #7); the other paths that ran
-    # it are listed beside. #8 is routed nowhere, as in the JAX package.
-    level0, bwd_level0 = results[0], bwd_results[0]
+    # and #6, serving under its impl for #5 and #7, FLUX serving at 2048 px
+    # for #4); the other paths that ran it are listed beside. #8 is routed
+    # nowhere, as in the JAX package. ms / plain_ms / library_ms / bound_ms
+    # are at the first shape each kernel phase lists (#4: 2048 px serving).
+    level0, bwd_level0, gn0, flash0 = results[0], bwd_results[0], gn_results[0], flash_times[0]
+
+    def timing(r):
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     def conv_entry(name, source_line, main, by_path):
         rs = conv_results[name]
         return {"name": name, "route": "cuda", "source": "sliders_tpu_torch/csrc/conv3x3.cu",
                 "replaces": f"sliders_tpu/ops/pallas_conv.py:{source_line}", "launches": main,
                 "launches_by_path": by_path, "max_abs_err": max(r["err"] for r in rs),
-                "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"]}
+                **timing(rs[0])}
 
     per_step = {impl: v["per_forward"] for impl, v in conv_step.items()}
     print(json.dumps({"kernels": [{
@@ -1413,10 +2022,12 @@ def main() -> int:
         "replaces": "sliders_tpu/ops/pallas_attention.py:43",
         "launches": train["fwd"],
         "launches_by_path": {"train": train["fwd"], "train_resume": train["resume_fwd"],
-                             "train_fused": train["fused_fwd"], "serve": serve_launches},
-        "max_abs_err": max(r["err"] for r in results),
-        "ms": level0["ms"],
-        "plain_ms": level0["plain_ms"],
+                             "train_fused": train["fused_fwd"], "serve": serve_launches,
+                             "flux_serve_1024": flux["serve_1024"]["sd"],
+                             "flux_step_per_forward": flux["step"]["sd_per_step"]},
+        "max_abs_err": max([r["err"] for r in results]
+                           + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
+        **timing(level0),
     }, {
         "name": "sd_attention_bwd",
         "route": "cuda",
@@ -1426,8 +2037,20 @@ def main() -> int:
         "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"],
                              "train_fused": train["fused_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
-        "ms": bwd_level0["ms"],
-        "plain_ms": bwd_level0["plain_ms"],
+        **timing(bwd_level0),
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "sliders_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sliders_tpu/ops/flash_attention.py:50",
+        "launches": flux["serve_2048"]["flash"],
+        "launches_by_path": {"flux_serve_2048": flux["serve_2048"]["flash"],
+                             "flux_serve_2048_sweep": flux["serve_2048"]["flash_sweep"],
+                             "flux_serve_1024_vae": flux["serve_1024"]["flash"],
+                             "tiny_flux_1536": tiny_flux, "serve_vae": serve_flash},
+        "max_abs_err": max(r["err"] for r in flash_checks),
+        **timing(flash0),
+        "sd_attention_ms_same_inputs": flash0["sd_ms"],
     },
         conv_entry("conv3x3", 44, serve_conv["conv3x3"],
                    {"serve_auto": serve_conv["conv3x3"],
@@ -1443,8 +2066,7 @@ def main() -> int:
          "source": "sliders_tpu_torch/csrc/group_norm.cu",
          "replaces": "sliders_tpu/ops/pallas_groupnorm.py:43", "launches": 0,
          "launches_by_path": {}, "routed": False,
-         "max_abs_err": max(r["err"] for r in gn_results), "ms": gn_results[0]["ms"],
-         "plain_ms": gn_results[0]["plain_ms"]},
+         "max_abs_err": max(r["err"] for r in gn_results), **timing(gn0)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,17 @@
 
   python -m sliders_tpu_torch.cli.serve --base /path/sd15 \
       --slider age=out/age_last.safetensors --port 8000
+  python -m sliders_tpu_torch.cli.serve --flux --base /path/flux-dev \
+      --image_size 1024 --slider age=age_flux.safetensors
   curl -s localhost:8000/healthz
   curl -s -X POST localhost:8000/generate -d \
       '{"prompt": "photo of a person", "slider": "age", "scales": [-2,0,2]}'
 
-The flags are the JAX CLI's, plus --device. --xl, --flux, --pp, --dp other
-than 1, --continuous and schedulers other than ddim are not ported yet and
-exit with a message naming their ROADMAP item.
+The flags are the JAX CLI's, plus --device. FLUX serves 30 FlowMatch steps
+at guidance 3.5 by default and gates sliders with --skip_till (per request:
+"skip_till"). --xl, --pp other than 1, --dp other than 1, --continuous and
+SD schedulers other than ddim are not ported yet and exit with a message
+naming their ROADMAP item.
 """
 
 import argparse
@@ -29,7 +33,7 @@ def build_parser():
     p.add_argument("--guidance_scale", type=float, default=None, help="CFG scale (default 7.5)")
     p.add_argument("--start_noise", type=float, default=750.0)
     p.add_argument("--skip_till", type=float, default=-1.0,
-                   help="FLUX slider gate (FLUX is not ported yet)")
+                   help="FLUX slider gate: the slider is on while step index > skip_till")
     p.add_argument("--pp", type=int, default=1, help="FLUX pipeline-parallel stages")
     p.add_argument("--precision", default="bfloat16")
     p.add_argument("--slider", action="append", default=[], metavar="NAME=CKPT",
@@ -51,19 +55,24 @@ def unported_reason(args):
     """The message for a flag this port does not serve yet, else None."""
     if args.xl:
         return "--xl: SDXL serving is not ported yet (ROADMAP queue 1, item 6)"
-    if args.flux or args.pp != 1:
-        return "--flux/--pp: FLUX serving is not ported yet (ROADMAP queue 1, item 11)"
+    if args.pp != 1:
+        return ("--pp: pipeline-parallel FLUX serving is not ported yet "
+                "(ROADMAP queue 1, item 15)")
     if args.dp != 1:
         return "--dp: multi-device serving is not ported yet (ROADMAP queue 1, item 15)"
     if args.continuous:
+        if args.flux:
+            return "--continuous is SD/XL only (the FLUX engine batches at request boundaries)"
         return "--continuous: continuous batching is not ported yet (ROADMAP queue 1, item 13)"
-    if args.scheduler != "ddim":
+    if args.scheduler != "ddim" and not args.flux:
         return (f"--scheduler {args.scheduler}: only ddim is ported yet "
                 "(ROADMAP queue 1, item 4)")
     return None
 
 
-def main(args):
+def make_engine(args):
+    """The engine the flags describe, its sliders loaded and (unless
+    --no_warmup) warmed."""
     reason = unported_reason(args)
     if reason:
         raise SystemExit(reason)
@@ -71,7 +80,7 @@ def main(args):
     import torch
 
     from sliders_tpu_torch.models import loader
-    from sliders_tpu_torch.serving.server import SliderEngine, make_http_server
+    from sliders_tpu_torch.serving.server import FluxSliderEngine, SliderEngine
 
     dtype = torch.bfloat16 if args.precision in ("bf16", "bfloat16") else torch.float32
     buckets = None
@@ -84,18 +93,31 @@ def main(args):
         if not buckets or any(b < 1 for b in buckets):
             raise SystemExit(f"--buckets wants positive batch sizes, got {args.buckets!r}")
 
-    models = loader.load_sd(args.base, device=args.device, v2=args.v2, dtype=dtype,
-                            load_vae=True)
-    engine = SliderEngine(
-        models,
-        device=args.device,
-        steps=50 if args.ddim_steps is None else args.ddim_steps,
-        image_size=args.image_size,
-        guidance_scale=7.5 if args.guidance_scale is None else args.guidance_scale,
-        start_noise=args.start_noise,
-        compute_dtype=dtype,
-        buckets=buckets,
-    )
+    if args.flux:
+        models = loader.load_flux(args.base, device=args.device, dtype=dtype, load_vae=True)
+        engine = FluxSliderEngine(
+            models,
+            device=args.device,
+            steps=30 if args.ddim_steps is None else args.ddim_steps,
+            image_size=args.image_size,
+            guidance_scale=3.5 if args.guidance_scale is None else args.guidance_scale,
+            skip_till=args.skip_till,
+            compute_dtype=dtype,
+            buckets=buckets,
+        )
+    else:
+        models = loader.load_sd(args.base, device=args.device, v2=args.v2, dtype=dtype,
+                                load_vae=True)
+        engine = SliderEngine(
+            models,
+            device=args.device,
+            steps=50 if args.ddim_steps is None else args.ddim_steps,
+            image_size=args.image_size,
+            guidance_scale=7.5 if args.guidance_scale is None else args.guidance_scale,
+            start_noise=args.start_noise,
+            compute_dtype=dtype,
+            buckets=buckets,
+        )
     for spec in args.slider:
         name, _, path = spec.partition("=")
         if not path:
@@ -108,6 +130,12 @@ def main(args):
         engine.warmup(with_slider=next(iter(engine.sliders), None),
                       multi_tenant=args.warmup_multi and bool(engine.sliders))
         print("warm.")
+    return engine
+
+
+def main(args):
+    engine = make_engine(args)
+    from sliders_tpu_torch.serving.server import make_http_server
 
     server = make_http_server(engine, args.host, args.port)
     print(f"serving on http://{args.host}:{server.server_address[1]}")

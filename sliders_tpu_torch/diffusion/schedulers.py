@@ -1,5 +1,5 @@
-"""Diffusion noise schedules and the DDIM sampler
-(port of the DDIM path of sliders_tpu/diffusion/schedulers.py).
+"""Diffusion noise schedules, the DDIM sampler and FlowMatch-Euler
+(port of the DDIM and FlowMatch paths of sliders_tpu/diffusion/schedulers.py).
 
 `make_schedule` builds the 1000-step training tables (scaled_linear betas,
 0.00085 -> 0.012). `make_sampler(schedule, "ddim", n)` precomputes every
@@ -11,13 +11,16 @@ tensor of per-row positions.
 Coefficients are cast to the latents' dtype before use, as the JAX package's
 `_bcast` does, so a bf16 denoise rounds at the same points.
 
-DDPM, LMS, Euler-ancestral and FlowMatch come with the items that need them
-(ROADMAP queue 1, items 4 and 11).
+`make_flowmatch_sampler` builds FLUX's FlowMatch-Euler tables (the
+resolution-dependent mu shift, custom_flux_pipeline.py:67-137) in f64 numpy,
+stored as f32. DDPM, LMS and Euler-ancestral come with ROADMAP queue 1,
+item 4.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -131,3 +134,50 @@ def make_sampler(schedule: DiffusionSchedule, kind: str = "ddim", num_steps: int
         alpha_prod=torch.as_tensor(acp[ts], dtype=torch.float32),
         alpha_prod_prev=torch.as_tensor(alpha_prod_prev, dtype=torch.float32),
     )
+
+
+@dataclass(frozen=True)
+class FlowMatchSampler:
+    """FlowMatch-Euler plan (FLUX): tables on the CPU, f32."""
+
+    timesteps: torch.Tensor  # (n,) in [0, 1000)
+    sigmas: torch.Tensor  # (n + 1,)
+
+    @property
+    def num_steps(self) -> int:
+        return self.timesteps.shape[0]
+
+    def step(self, i, model_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """x + (sigma_{i+1} - sigma_i) * v; dt is cast to x's dtype."""
+        i = torch.as_tensor(i)
+        dt = _bcast(self.sigmas[i + 1] - self.sigmas[i], x)
+        return x + dt * model_out
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, i) -> torch.Tensor:
+        s = _bcast(self.sigmas[torch.as_tensor(i)], x0)
+        return (1.0 - s) * x0 + s * noise
+
+
+def calculate_shift(image_seq_len: int, base_seq_len: int = 256, max_seq_len: int = 4096,
+                    base_shift: float = 0.5, max_shift: float = 1.16) -> float:
+    """Resolution-dependent mu (custom_flux_pipeline.py:67-77)."""
+    m = (max_shift - base_shift) / (max_seq_len - base_seq_len)
+    b = base_shift - m * base_seq_len
+    return image_seq_len * m + b
+
+
+def make_flowmatch_sampler(num_steps: int, image_seq_len: Optional[int] = None,
+                           mu: Optional[float] = None, num_train_timesteps: int = 1000,
+                           use_dynamic_shifting: bool = True) -> FlowMatchSampler:
+    sigmas = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float64)
+    if use_dynamic_shifting:
+        if mu is None:
+            if image_seq_len is None:
+                raise ValueError("need image_seq_len or mu for dynamic shifting")
+            mu = calculate_shift(image_seq_len)
+        # time_shift: exp(mu) / (exp(mu) + (1/s - 1))
+        sigmas = np.exp(mu) / (np.exp(mu) + (1.0 / sigmas - 1.0))
+    timesteps = sigmas * num_train_timesteps
+    sigmas = np.concatenate([sigmas, [0.0]])
+    return FlowMatchSampler(timesteps=torch.as_tensor(timesteps, dtype=torch.float32),
+                            sigmas=torch.as_tensor(sigmas, dtype=torch.float32))

@@ -3,14 +3,21 @@
 
 Instead of monkey-patching module forwards as the reference does
 (trainscripts/textsliders/lora.py:115-218), the target Linear/Conv call
-sites of the UNet parameter dict are enumerated by dotted module path and a
+sites of a model's parameter dict are enumerated by dotted module path and a
 separate LoRA tree is built under those names; `ops/basic.py` adds the
 low-rank branch at matching call sites. Targeting reproduces the reference:
-'lierla' takes to_q/to_k/to_v/to_out.0 of every attn1/attn2, 'c3lier' adds
-the ResnetBlock2D and sampler convs, and `train_method` filters on the
-parent and child names (lora.py:176-205). `trainable_mask` freezes the
+'lierla' takes to_q/to_k/to_v/to_out.0 of every UNet attn1/attn2 and the
+eight projections of every FLUX `transformer_blocks.N.attn` /
+`single_transformer_blocks.N.attn` (flux-sliders targets the same
+'Attention' class, flux lora.py:24-30); 'c3lier' adds the ResnetBlock2D and
+sampler convs; `train_method` filters on the parent and child names
+(lora.py:176-205; flux lora.py:217-231, whose xattn* methods filter on
+'attn', FLUX parents having no 1/2 suffix). `trainable_mask` freezes the
 alphas. Factors are torch layouts: linear down (r, in), up (out, r); conv
 down (r, in, kh, kw), up (out, r, 1, 1).
+
+`ortho_up` (FLUX slider training's orthogonal up init) comes with FLUX
+training (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -24,6 +31,11 @@ import torch
 from sliders_tpu_torch.utils import pytree
 
 _ATTN_PARENT = re.compile(r"^(.*\battn[12])\.(to_q|to_k|to_v|to_out\.0)\.weight$")
+# FLUX attention parents (matches single_transformer_blocks too)
+_FLUX_ATTN_PARENT = re.compile(
+    r"^(.*transformer_blocks\.\d+\.attn)\."
+    r"(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj|to_out\.0|to_add_out)\.weight$"
+)
 _RESNET_PARENT = re.compile(
     r"^(.*\bresnets\.\d+)\.(conv1|conv2|time_emb_proj|conv_shortcut)\.weight$"
 )
@@ -31,10 +43,14 @@ _DOWNSAMPLER = re.compile(r"^(.*\bdownsamplers\.0)\.(conv)\.weight$")
 _UPSAMPLER = re.compile(r"^(.*\bupsamplers\.0)\.(conv)\.weight$")
 
 CONV_PATTERNS = (_RESNET_PARENT, _DOWNSAMPLER, _UPSAMPLER)
+_ORTHO_UP = ("ortho_up (FLUX slider training's frozen orthogonal up) is not ported yet "
+             "(ROADMAP queue 1, items 5 and 11)")
 
 
 def _method_allows(parent: str, child: str, train_method: str) -> bool:
-    """Name filters of the reference create_modules (lora.py:176-205)."""
+    """Name filters of the reference create_modules (lora.py:176-205; for
+    FLUX parents, named '...attn' with no 1/2 suffix, flux lora.py:217-231)."""
+    is_flux = parent.endswith(".attn")
     if train_method in ("noxattn", "noxattn-hspace", "noxattn-hspace-last"):
         if "attn2" in parent or "time_embed" in parent:
             return False
@@ -45,7 +61,7 @@ def _method_allows(parent: str, child: str, train_method: str) -> bool:
         if "attn1" not in parent:
             return False
     elif train_method in ("xattn", "xattn-strict"):
-        if "attn2" not in parent:
+        if not ("attn" in parent if is_flux else "attn2" in parent):
             return False
     elif train_method in ("xattn-up", "xattn-down", "xattn-mid"):
         pos = {"xattn-up": "up_block", "xattn-down": "down_block", "xattn-mid": "mid_block"}
@@ -70,7 +86,7 @@ def target_module_paths(
     unet_params: dict, network_type: str = "lierla", train_method: str = "full"
 ) -> list[str]:
     """Dotted module paths (call-site names) that receive LoRA, sorted."""
-    patterns = [_ATTN_PARENT]
+    patterns = [_ATTN_PARENT, _FLUX_ATTN_PARENT]
     if network_type == "c3lier":
         patterns += list(CONV_PATTERNS)
     elif network_type != "lierla":
@@ -98,6 +114,7 @@ def create_slider_network(
     train_method: str = "full",
     network_type: str = "lierla",
     init_a: float = 1.0,
+    ortho_up: bool = False,
     dtype=torch.float32,
     device="cpu",
 ) -> dict:
@@ -105,6 +122,8 @@ def create_slider_network(
     kaiming-uniform with slope `init_a` (1 for the text sliders, lora.py:97;
     sqrt(5) for the image sliders' copy), up is zero, and alpha defaults to
     the rank when 0/None. Conv ranks clamp to min(rank, in, out)."""
+    if ortho_up:
+        raise NotImplementedError(_ORTHO_UP)
     modules = target_module_paths(unet_params, network_type, train_method)
     flat = pytree.flatten(unet_params)
     weights: dict[str, dict] = {}
@@ -129,9 +148,11 @@ def create_slider_network(
     return weights
 
 
-def trainable_mask(weights: dict) -> dict:
+def trainable_mask(weights: dict, ortho_up: bool = False) -> dict:
     """True for the trainable factors (down/up), False for alpha, a constant
     buffer in the reference (lora.py:94)."""
+    if ortho_up:
+        raise NotImplementedError(_ORTHO_UP)
     return {m: {"down": True, "up": True, "alpha": False} for m in weights}
 
 

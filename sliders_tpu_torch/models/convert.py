@@ -28,8 +28,16 @@ import torch
 from sliders_tpu_torch.models.params import tree_to
 from sliders_tpu_torch.utils import pytree
 
-# 2-D weights that are NOT linear layers (stored (rows, cols) in both layouts)
-_EMBEDDING_SUFFIXES = ("token_embedding.weight", "position_embedding.weight")
+# 2-D weights that are NOT linear layers (stored (rows, cols) in both layouts):
+# CLIP's two embeddings, T5's token embedding (and its tied copy) and T5's
+# relative position table
+_EMBEDDING_SUFFIXES = (
+    "token_embedding.weight",
+    "position_embedding.weight",
+    "shared.weight",
+    "embed_tokens.weight",
+    "relative_attention_bias.weight",
+)
 
 _ST_DTYPES = {
     "F64": torch.float64,
@@ -148,10 +156,11 @@ def _tensor(w) -> torch.Tensor:
 def from_jax_params(tree: dict) -> dict:
     """A JAX parameter tree with numpy leaves -> the port's parameters (f32).
 
-    Model trees (UNet, CLIP, VAE) get their linear/conv weights transposed to
-    torch layouts, conv weights laid out channels_last as `params.tree_to`
-    lays them out. A slider tree ({lora_name: {down, up, alpha[, rank]}},
-    solo or per-row stacked) gets its factors transposed the same way."""
+    Model trees (UNet, CLIP, VAE, FLUX, T5) get their linear/conv weights
+    transposed to torch layouts (embeddings stay as they are), conv weights
+    laid out channels_last as `params.tree_to` lays them out. A slider tree
+    ({lora_name: {down, up, alpha[, rank]}}, solo or per-row stacked) gets
+    its factors transposed the same way."""
     if _is_slider_tree(tree):
         out = {}
         for name, entry in tree.items():

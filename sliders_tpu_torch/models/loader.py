@@ -1,9 +1,11 @@
 """Model loading from LOCAL diffusers snapshot directories
-(port of the SD1 path of sliders_tpu/models/loader.py).
+(port of the SD1 and FLUX paths of sliders_tpu/models/loader.py).
 
-A snapshot holds unet/ text_encoder/ tokenizer/ vae/ subfolders with
-config.json and safetensors weights. Single-file LDM checkpoints, SDXL and
-FLUX snapshots come with later items of ROADMAP queue 1 (items 6, 11, 16).
+An SD snapshot holds unet/ text_encoder/ tokenizer/ vae/ subfolders with
+config.json and safetensors weights (sharded components load too); a FLUX
+snapshot holds transformer/ text_encoder/ (CLIP-L) tokenizer/ text_encoder_2/
+(T5) tokenizer_2/ vae/. Single-file LDM checkpoints and SDXL come with later
+items of ROADMAP queue 1 (items 16 and 6).
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from typing import Optional
 
 import torch
 
-from sliders_tpu_torch.models import clip_text, convert, unet2d, vae
+from sliders_tpu_torch.models import clip_text, convert, flux, t5, unet2d, vae
 from sliders_tpu_torch.models.params import tree_to
+from sliders_tpu_torch.text.t5_tokenizer import T5Tokenizer
 from sliders_tpu_torch.text.tokenizer import ClipTokenizer
 
 
@@ -116,16 +119,78 @@ def load_sd(
         clip_skip = 2
     unet_cfg = unet_config_from_hf(convert.load_component_config(model_dir, "unet"))
     unet_params = tree_to(convert.load_component(model_dir, "unet"), device, dtype)
+    te = _load_clip(model_dir, device, dtype)
+    if clip_skip is not None:
+        te.clip_skip_layers = te.config.num_layers - (clip_skip - 1)
+    bundle = SDModels(unet_params, unet_cfg, [te])
+    if load_vae:
+        _load_vae(bundle, model_dir, device, dtype)
+    return bundle
 
-    te_cfg = clip_config_from_hf(convert.load_component_config(model_dir, "text_encoder"))
-    te_params = tree_to(convert.load_component(model_dir, "text_encoder"), device, dtype)
+
+def _load_vae(bundle, model_dir: str, device, dtype) -> None:
+    bundle.vae_config = vae_config_from_hf(convert.load_component_config(model_dir, "vae"))
+    bundle.vae_params = tree_to(convert.load_component(model_dir, "vae"), device, dtype)
+
+
+def _load_clip(model_dir: str, device, dtype) -> TextEncoderBundle:
+    cfg = clip_config_from_hf(convert.load_component_config(model_dir, "text_encoder"))
+    params = tree_to(convert.load_component(model_dir, "text_encoder"), device, dtype)
     tokenizer = ClipTokenizer.from_pretrained(os.path.join(model_dir, "tokenizer"))
-    tokenizer.model_max_length = te_cfg.max_positions
-    layers = te_cfg.num_layers - (clip_skip - 1) if clip_skip is not None else None
-    bundle = SDModels(
-        unet_params, unet_cfg, [TextEncoderBundle(tokenizer, te_params, te_cfg, layers)]
+    tokenizer.model_max_length = cfg.max_positions
+    return TextEncoderBundle(tokenizer, params, cfg)
+
+
+def flux_config_from_hf(cfg: dict) -> flux.FluxConfig:
+    return flux.FluxConfig(
+        in_channels=cfg.get("in_channels", 64),
+        num_layers=cfg.get("num_layers", 19),
+        num_single_layers=cfg.get("num_single_layers", 38),
+        attention_head_dim=cfg.get("attention_head_dim", 128),
+        num_attention_heads=cfg.get("num_attention_heads", 24),
+        joint_attention_dim=cfg.get("joint_attention_dim", 4096),
+        pooled_projection_dim=cfg.get("pooled_projection_dim", 768),
+        guidance_embeds=cfg.get("guidance_embeds", True),
+        axes_dims_rope=tuple(cfg.get("axes_dims_rope", (16, 56, 56))),
+    )
+
+
+def t5_config_from_hf(cfg: dict) -> t5.T5Config:
+    return t5.T5Config(
+        vocab_size=cfg.get("vocab_size", 32128),
+        d_model=cfg.get("d_model", 4096),
+        d_kv=cfg.get("d_kv", 64),
+        d_ff=cfg.get("d_ff", 10240),
+        num_layers=cfg.get("num_layers", 24),
+        num_heads=cfg.get("num_heads", 64),
+    )
+
+
+@dataclass
+class FluxModels:
+    transformer_params: dict
+    transformer_config: flux.FluxConfig
+    clip: TextEncoderBundle
+    t5_params: dict
+    t5_config: t5.T5Config
+    t5_tokenizer: T5Tokenizer
+    vae_params: Optional[dict] = None
+    vae_config: Optional[vae.VaeConfig] = None
+
+
+def load_flux(model_dir: str, *, device="cpu", dtype=torch.bfloat16,
+              load_vae: bool = False) -> FluxModels:
+    """A FLUX diffusers snapshot (transformer + CLIP-L + T5 + the 16-channel
+    VAE) -> FluxModels with every parameter on `device` in `dtype`. The T5
+    tokenizer is the port's own reader of tokenizer_2/tokenizer.json."""
+    bundle = FluxModels(
+        tree_to(convert.load_component(model_dir, "transformer"), device, dtype),
+        flux_config_from_hf(convert.load_component_config(model_dir, "transformer")),
+        _load_clip(model_dir, device, dtype),
+        tree_to(convert.load_component(model_dir, "text_encoder_2"), device, dtype),
+        t5_config_from_hf(convert.load_component_config(model_dir, "text_encoder_2")),
+        T5Tokenizer.from_pretrained(os.path.join(model_dir, "tokenizer_2")),
     )
     if load_vae:
-        bundle.vae_config = vae_config_from_hf(convert.load_component_config(model_dir, "vae"))
-        bundle.vae_params = tree_to(convert.load_component(model_dir, "vae"), device, dtype)
+        _load_vae(bundle, model_dir, device, dtype)
     return bundle

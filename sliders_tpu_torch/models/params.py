@@ -22,8 +22,10 @@ class ParamFactory:
     def normal(self, shape, std: float) -> torch.Tensor:
         if self.device.type == "meta":
             return torch.empty(shape, dtype=self.dtype, device=self.device)
-        w = torch.randn(shape, generator=self.generator, dtype=torch.float32, device=self.device)
-        return (w * std).to(self.dtype)
+        # drawn in the target dtype on the target device: no f32 copy of a
+        # bf16 model is ever held (FLUX-dev's would be 48 GB)
+        w = torch.randn(shape, generator=self.generator, dtype=self.dtype, device=self.device)
+        return w.mul_(std)
 
     def const(self, shape, value: float) -> torch.Tensor:
         return torch.full(shape, value, dtype=self.dtype, device=self.device)

@@ -34,7 +34,10 @@ class VaeConfig:
 
 
 SD_VAE = VaeConfig()
+FLUX_VAE = VaeConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
 TINY = VaeConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8)
+TINY_FLUX = VaeConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,
+                      latent_channels=4, scaling_factor=0.3611, shift_factor=0.1159)
 
 
 def denormalize_latents(cfg: VaeConfig, latents: torch.Tensor) -> torch.Tensor:
@@ -52,7 +55,8 @@ def _resnet(p: dict, x, groups: int):
 
 
 def _mid_attention(p: dict, x, groups: int):
-    """Single-head spatial attention (d = channels, so never the SD kernel)."""
+    """Single-head spatial attention (d = channels: at 512 channels and
+    L >= 1024 latent pixels it takes kernel #4, as in the JAX package)."""
     B, H, W, C = x.shape
     residual = x
     h = group_norm(p["group_norm"], x, groups, eps=1e-6).reshape(B, H * W, C)

@@ -39,6 +39,9 @@ LIBRARIES = {
     "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",), {
         "sd_attention_bwd": [_P] * 8 + [_I] * 6 + [_L] * 21 + [_F, _P],
     }),
+    "flash": (CSRC / "flash_attention.cu", (CSRC / "sd_attention_common.cuh",), {
+        "flash_attention_fwd": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    }),
     "conv": (CSRC / "conv3x3.cu", (CSRC / "conv3x3.cuh",), {
         # x, w, bias, extra, a, s, y; B, H, W, C, N, is_f32, mode, prologue;
         # x strides (b, h, w), extra strides (b, h, w); stream

@@ -1,27 +1,40 @@
-"""Multi-head attention with routing to the SD attention kernels
+"""Multi-head attention with routing to the attention kernels
 (port of sliders_tpu/ops/attention.py).
 
 `xla_attention` is the plain version and the reference numerics: f32 logits,
 f32 softmax, probabilities cast to v.dtype before P.V. `multihead_attention`
-routes every unmasked self-attention with L_q == L_kv >= 1024 and d <= 128
-to `ops/sd_attention.sd_attention` (the hand-written kernel on CUDA tensors,
-its plain version on CPU tensors), which at SD1.5 512 px are the level-0
-(L=4096, d=40) and level-1 (L=1024, d=80) self-attentions. The TPU gate's
-VMEM-fit condition (`pick_block_q`, `_fwd_need`) is dropped: the kernel
-streams K/V through shared memory, so no sequence length is too long for it.
+routes an unmasked self-attention to one of two hand-written kernels (each
+runs its plain version on CPU tensors):
 
-Under grad, a routed call goes through `sd_attention.SdAttention`, whose
-backward on CUDA is the backward kernel: `routes_to_sd_bwd_kernel` documents
-that gate, which is the forward gate. The JAX package routes its backward kernel
-only for d >= `BWD_MIN_D` (96) on a TPU, a threshold from a TPU A/B in
-which d=40 was neutral; no H100 measurement backs any threshold, so the
-port routes the backward wherever the forward routes and `chip_smoke.py`
-records both the kernel's and the plain backward's times.
+- `ops/flash_attention.flash_attention` (kernel #4) where the JAX package
+  takes the stock TPU flash kernel: `fa_supports` holds (L % 128 == 0,
+  L >= 1024, d % 128 == 0) and kernel #1's TPU gate `pa_supports` refuses
+  (its VMEM plan `pick_block_q` / `_fwd_need`, or d > 128). That is
+  `routes_to_flash_kernel`: FLUX's joint attention from 2048 px in bf16
+  (1536 px in f32) and the VAE's single-head mid attention (d = 512).
+- `ops/sd_attention.sd_attention` (kernel #1) for every other unmasked
+  self-attention with L >= 1024 and d <= 128 (`routes_to_sd_kernel`): SD1.5's
+  level-0 (L=4096, d=40) and level-1 (L=1024, d=80) self-attentions and
+  FLUX's joint attention up to 1536 px in bf16. The TPU plan is not a limit
+  of the port's #1, which streams K/V; it is kept here only as the JAX
+  package's boundary between its two kernels.
+
+Under grad, a call routed to #1 goes through `sd_attention.SdAttention`,
+whose backward on CUDA is the backward kernel: `routes_to_sd_bwd_kernel`
+documents that gate, which is the forward gate. The JAX package routes its
+backward kernel only for d >= `BWD_MIN_D` (96) on a TPU, a threshold from a
+TPU A/B in which d=40 was neutral; no H100 measurement backs any threshold,
+so the port routes the backward wherever the forward routes and
+`chip_smoke.py` records both the kernel's and the plain backward's times.
+Kernel #4 has no backward yet and refuses grad (FLUX training, ROADMAP
+queue 1, item 11).
 
 `set_attention_impl` mirrors the JAX package's `set_default_attention_impl`
-(`config.tpu.attention`): 'auto' and 'pallas' take the kernel route where
-the gates allow it (the port has no second kernel for 'pallas' to force),
-'xla' puts every attention on the plain path.
+(`config.tpu.attention`): 'auto' and 'pallas' take the kernel routes where
+the gates allow them, 'xla' puts every attention on the plain path. The
+JAX package's 'pallas' also sends every call #1 refuses, masked ones
+included, to the stock kernel, which drops the mask (ROADMAP queue 3); the
+port's 'pallas' keeps the gates of 'auto'.
 
 `AttentionTap` and `ring_context` are not ported yet (ROADMAP queue 1,
 items 10 and 15).
@@ -33,9 +46,15 @@ from typing import Optional
 
 import torch
 
+from sliders_tpu_torch.ops.flash_attention import flash_attention
 from sliders_tpu_torch.ops.sd_attention import MAX_D, sd_attention, sd_attention_ref
 
 SD_KERNEL_MIN_SEQ = 1024
+# the JAX package's boundary between kernel #1 and the stock flash kernel:
+# #1's TPU VMEM plan (sliders_tpu/ops/pallas_attention.py:352-404) and the
+# stock kernel's gate (sliders_tpu/ops/flash_attention.py:21-40)
+LANES = 128
+FWD_VMEM_LIMIT = 15 * 2**20
 IMPLS = ("auto", "pallas", "xla")
 
 _impl = "auto"
@@ -67,10 +86,54 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 xla_attention = sd_attention_ref
 
 
+def _fwd_need(block_q: int, lkv: int, itemsize: int) -> int:
+    """The TPU's scoped-VMEM need of kernel #1's forward: the f32 score tile
+    and double-buffered K/V/Q/O blocks at the input width."""
+    return (4 * block_q * lkv + 2 * (2 * itemsize * lkv * LANES)
+            + 2 * (2 * itemsize * block_q * LANES))
+
+
+def pick_block_q(lq: int, lkv: int, itemsize: int) -> int:
+    """The largest q block of 512, 256 or 128 that divides lq and fits the
+    TPU's VMEM plan (0 if none does)."""
+    for b in (512, 256, 128):
+        if lq % b == 0 and _fwd_need(b, lkv, itemsize) <= FWD_VMEM_LIMIT:
+            return b
+    return 0
+
+
+def pa_supports(q_shape, k_shape, itemsize: int = 2) -> bool:
+    """Kernel #1's TPU gate (`pallas_attention.supports`): long self-attention
+    with d <= 128 whose K/V fit its VMEM plan."""
+    if len(q_shape) != 4:
+        return False
+    lq, d, lk = q_shape[2], q_shape[3], k_shape[2]
+    if lq != lk or lq < SD_KERNEL_MIN_SEQ or d > LANES:
+        return False
+    return pick_block_q(lq, lk, itemsize) != 0
+
+
+def fa_supports(q_shape, k_shape) -> bool:
+    """The stock flash kernel's gate (`flash_attention.supports`):
+    self-attention with L % 128 == 0, L >= 1024 and d % 128 == 0."""
+    if len(q_shape) != 4:
+        return False
+    lq, d, lk = q_shape[2], q_shape[3], k_shape[2]
+    return lq == lk and lq % LANES == 0 and lq >= SD_KERNEL_MIN_SEQ and d % LANES == 0
+
+
+def routes_to_flash_kernel(q_shape, k_shape, mask, itemsize: int = 2) -> bool:
+    """Kernel #4's gate, the JAX package's decision for the stock kernel:
+    unmasked, `fa_supports`, and refused by #1's TPU gate."""
+    return (mask is None and fa_supports(q_shape, k_shape)
+            and not pa_supports(q_shape, k_shape, itemsize=itemsize))
+
+
 def routes_to_sd_kernel(q_shape, k_shape, mask) -> bool:
     """The SD kernel's gate on (B, H, L, d) shapes: unmasked self-attention
     (L_q == L_kv) of at least SD_KERNEL_MIN_SEQ tokens with d <= 128 and a
-    multiple of 8 (the kernel's 16-byte loads)."""
+    multiple of 8 (the kernel's 16-byte loads). `multihead_attention` asks
+    `routes_to_flash_kernel` first."""
     if mask is not None or len(q_shape) != 4:
         return False
     lq, d = q_shape[2], q_shape[3]
@@ -93,7 +156,9 @@ def multihead_attention(
     """q: (B, Lq, D); k, v: (B, Lkv, D). Returns (B, Lq, D). `mask` is
     additive, broadcastable to (B, H, Lq, Lkv)."""
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
-    if _impl != "xla" and routes_to_sd_kernel(qh.shape, kh.shape, mask):
+    if _impl != "xla" and routes_to_flash_kernel(qh.shape, kh.shape, mask, qh.element_size()):
+        out = flash_attention(qh, kh, vh)
+    elif _impl != "xla" and routes_to_sd_kernel(qh.shape, kh.shape, mask):
         out = sd_attention(qh, kh, vh)
     else:
         out = xla_attention(qh, kh, vh, mask)

@@ -256,6 +256,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation (`jax.nn.gelu(approximate=True)`):
+    T5's gated GELU and FLUX's MLPs."""
+    return F.gelu(x, approximate="tanh")
+
+
 ACTIVATIONS = {
     "silu": silu,
     "quick_gelu": quick_gelu,

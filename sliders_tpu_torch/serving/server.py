@@ -13,17 +13,22 @@
   - Initial latents come from a torch.Generator seeded with the request
     seed, so a request's image does not depend on its co-riders.
 
+`FluxSliderEngine` serves FLUX sliders over the same queue and batching:
+no CFG doubling, the slider gate is the step-index `skip_till` riding in
+the start_noise slot, and coalescing is always on (the FlowMatch sampler is
+deterministic).
+
 Endpoints (JSON in, JSON out; images as base64 PNG):
   GET  /healthz    -> {ok, family, is_xl, image_size, steps, sliders, stats}
   POST /sliders    -> {name, path}
-  POST /generate   -> {prompt, seed?, slider?, scales?, start_noise?,
-                       negative_prompt?, guidance_scale?}
+  POST /generate   -> {prompt, seed?, slider?, scales?, start_noise? (FLUX:
+                       skip_till?), negative_prompt?, guidance_scale?}
                    -> {images: [{scale, png: b64}, ...], latency_ms}
 
-Not ported yet: continuous batching, dp meshes, `/sliders` compose and the
-FLUX engine (ROADMAP queue 1, items 11 and 13).
+Not ported yet: continuous batching, dp and pp meshes and `/sliders`
+compose (ROADMAP queue 1, items 13, 15 and 12).
 
-Run it: python -m sliders_tpu_torch.cli.serve --base <snapshot> [--port N]
+Run it: python -m sliders_tpu_torch.cli.serve --base <snapshot> [--flux] [--port N]
 """
 
 from __future__ import annotations
@@ -39,13 +44,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
+from sliders_tpu_torch.diffusion.schedulers import (make_flowmatch_sampler, make_sampler,
+                                                    make_schedule)
 from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora.batch import stack_sliders, structure_signature
+from sliders_tpu_torch.models import flux
 from sliders_tpu_torch.models.params import tree_to
+from sliders_tpu_torch.pipelines import flux_t2i
 from sliders_tpu_torch.pipelines import text2image as t2i
 
 _SCALE_BUCKETS = (1, 2, 4, 8, 16)
+# output pixels per FLUX VAE decode call: 8 images at 1024 px, whose f32
+# decode took a bf16 FLUX-dev engine to a 68.3 GB peak on an 80 GB H100
+# (chip_smoke.py); larger buckets and canvases decode in slices of the bucket
+_DECODE_PIXELS = 8 * 1024 * 1024
 _NOT_PORTED = "not ported yet (ROADMAP queue 1, item 13)"
 
 
@@ -70,6 +82,15 @@ def encode_png(img: np.ndarray) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _serving_device(device, models) -> torch.device:
+    if models.vae_params is None:
+        raise ValueError("serving needs the VAE (load with load_vae=True)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is available")
+    return device
 
 
 class _Pending:
@@ -119,13 +140,9 @@ class SliderEngine:
             raise NotImplementedError(f"continuous batching is {_NOT_PORTED}")
         if mesh is not None:
             raise NotImplementedError(f"multi-device (dp mesh) serving is {_NOT_PORTED}")
-        if models.vae_params is None:
-            raise ValueError("serving needs the VAE (load with load_vae=True)")
         if models.is_xl:
             raise NotImplementedError("SDXL serving is not ported yet (ROADMAP queue 1, item 6)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but no CUDA device is available")
+        self.device = _serving_device(device, models)
         models.unet_params = tree_to(models.unet_params, self.device)
         models.vae_params = tree_to(models.vae_params, self.device)
         for te in models.text_encoders:
@@ -140,6 +157,10 @@ class SliderEngine:
         self.sampler = make_sampler(make_schedule(), scheduler, num_steps=self.steps)
         self.fn = t2i.make_sampling_fn(models.unet_config, self.sampler,
                                        compute_dtype=self.dtype)
+        self._init_runtime(buckets)
+
+    def _init_runtime(self, buckets) -> None:
+        """The registry, the prompt cache, the queue and the batching worker."""
         self._buckets = _SCALE_BUCKETS
         if buckets is not None:
             buckets = tuple(int(b) for b in buckets)
@@ -177,8 +198,12 @@ class SliderEngine:
         with self._registry_lock:
             self.sliders[name] = weights
 
+    def _lora_base(self) -> dict:
+        """The parameters whose module paths a slider file's names resolve to."""
+        return self.models.unet_params
+
     def load_slider(self, name: str, path: str) -> None:
-        self.register_slider(name, lora_io.load_slider(path, self.models.unet_params))
+        self.register_slider(name, lora_io.load_slider(path, self._lora_base()))
 
     def load_composition(self, name: str, parts: list) -> None:
         raise NotImplementedError(
@@ -358,6 +383,105 @@ class SliderEngine:
             self._wait(p)
 
 
+class FluxSliderEngine(SliderEngine):
+    """FLUX slider serving over the same queue, registry and batching
+    (the reference's FLUX inference surface, custom_flux_pipeline.py:694-766).
+    What differs from SD:
+
+      - no CFG doubling: `guidance_scale` is the distilled guidance
+        EMBEDDING value (FLUX-dev; ignored by schnell);
+      - the slider gate is the step index `skip_till` (the LoRA is on while
+        step i > skip_till, :703-711), riding in the start_noise slot; the
+        default -1 keeps it on; HTTP also accepts it as `skip_till`;
+      - the FlowMatch sampler is deterministic, so coalescing (and per-row
+        stacked adapters, lora/batch.py) is always on;
+      - initial noise is drawn from a torch.Generator seeded with the
+        request's seed;
+      - the f32 VAE decode takes `decode_rows` rows at a time (8 at 1024 px,
+        2 at 2048 px), which bounds its peak memory.
+    The pipeline-parallel `mesh` (the TPU's capacity path) is not ported
+    (ROADMAP queue 1, item 15): FLUX-dev in bf16 fits one 80 GB card."""
+
+    def __init__(
+        self,
+        models,
+        *,
+        device="cuda",
+        steps: int = 30,
+        image_size: int = 512,
+        guidance_scale: float = 3.5,
+        skip_till: float = -1.0,
+        compute_dtype=torch.bfloat16,
+        mesh=None,
+        buckets=None,
+        num_microbatches: int = 1,
+    ):
+        if mesh is not None or num_microbatches != 1:
+            raise NotImplementedError(
+                "pipeline-parallel FLUX serving is not ported yet (ROADMAP queue 1, item 15)")
+        self.device = _serving_device(device, models)
+        models.transformer_params = tree_to(models.transformer_params, self.device)
+        models.t5_params = tree_to(models.t5_params, self.device)
+        models.clip.params = tree_to(models.clip.params, self.device)
+        models.vae_params = tree_to(models.vae_params, self.device)
+        self.models = models
+        self.family = "flux"
+        self.image_size = int(image_size)
+        self.steps = int(steps)
+        self.default_guidance = float(guidance_scale)
+        self.default_start_noise = float(skip_till)  # the step-index gate
+        self.dtype = compute_dtype
+        self._latent_hw = self.image_size // 8
+        self.decode_rows = max(1, _DECODE_PIXELS // self.image_size ** 2)
+        self.sampler = make_flowmatch_sampler(num_steps=self.steps,
+                                              image_seq_len=(self._latent_hw // 2) ** 2)
+        self.fn = flux_t2i.make_flux_sampling_fn(models.transformer_config, self.sampler,
+                                                 latent_hw=self._latent_hw,
+                                                 compute_dtype=self.dtype)
+        self._init_runtime(buckets)
+
+    def _lora_base(self) -> dict:
+        return self.models.transformer_params
+
+    def _encode(self, prompt: str, negative: str):
+        """Cached 1-row (pooled, t5_embeds); FLUX has no CFG negative, so
+        `negative` is ignored. Called from the worker thread only."""
+        key = (prompt, "")
+        hit = self._embed_cache.get(key)
+        if hit is None:
+            hit = flux_t2i.encode_prompts_flux(self.models, [prompt])
+            if len(self._embed_cache) >= self._embed_cache_cap:
+                self._embed_cache.pop(next(iter(self._embed_cache)))
+            self._embed_cache[key] = hit
+        return hit
+
+    def _run_rows(self, batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec) -> np.ndarray:
+        m = self.models
+        pooleds, t5s, lat_parts = [], [], []
+        for p, r in zip(batch, rows):
+            pooled, t5e = self._encode(p.prompt, p.negative)
+            pooleds.append(pooled.expand(r, -1))
+            t5s.append(t5e.expand(r, -1, -1))
+            lat = flux_t2i.initial_packed_latents(torch.Generator().manual_seed(p.seed), 1,
+                                                  self.image_size, self.image_size,
+                                                  m.vae_config.latent_channels)
+            lat_parts.append(lat.expand(r, -1, -1))
+        if pad_n:  # repeat the first row into the bucket padding
+            pooleds.append(pooleds[0][:1].expand(pad_n, -1))
+            t5s.append(t5s[0][:1].expand(pad_n, -1, -1))
+            lat_parts.append(lat_parts[0][:1].expand(pad_n, -1, -1))
+        x = self.fn(m.transformer_params, torch.cat(lat_parts).to(self.device),
+                    torch.cat(pooleds), torch.cat(t5s), weights, scale_vec,
+                    sn_vec,  # per-row skip_till
+                    g_vec)
+        if not torch.isfinite(x).all():
+            raise FloatingPointError("denoised latents are not finite")
+        lat = flux.unpack_latents(x, self._latent_hw, self._latent_hw)
+        return np.concatenate([
+            t2i.decode_images(m.vae_params, m.vae_config, lat[i:i + self.decode_rows]).cpu().numpy()
+            for i in range(0, lat.shape[0], self.decode_rows)])
+
+
 # -- HTTP layer -----------------------------------------------------------
 
 
@@ -388,7 +512,7 @@ def make_http_server(engine: SliderEngine, host: str = "127.0.0.1", port: int = 
             self._send(200, {
                 "ok": True,
                 "family": engine.family,
-                "is_xl": False,
+                "is_xl": engine.family == "xl",
                 "image_size": engine.image_size,
                 "steps": engine.steps,
                 "sliders": names,
@@ -420,7 +544,9 @@ def make_http_server(engine: SliderEngine, host: str = "127.0.0.1", port: int = 
                         seed=req.get("seed", 0),
                         slider=req.get("slider"),
                         scales=req.get("scales"),
-                        start_noise=req.get("start_noise"),
+                        # FLUX engines gate by step index; "skip_till" is
+                        # that family's name for the same slot
+                        start_noise=req.get("start_noise", req.get("skip_till")),
                         negative_prompt=req.get("negative_prompt", ""),
                         guidance_scale=req.get("guidance_scale"),
                     )

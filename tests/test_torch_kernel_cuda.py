@@ -1,5 +1,5 @@
-"""The hand-written kernels (SD attention #1-#2, conv #5-#7, GroupNorm #8)
-against their plain versions on a CUDA device.
+"""The hand-written kernels (SD attention #1-#2, flash attention #4, conv
+#5-#7, GroupNorm #8) against their plain versions on a CUDA device.
 
 Skips without a card. On one, run it without the JAX test setup:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernel_cuda.py -q
@@ -367,3 +367,66 @@ def test_group_norm_kernel_matches_plain(cuda, shape, groups, silu, dtype):
         tg.fused_group_norm(strided, gamma, beta, groups)
     with pytest.raises(ValueError, match="contiguous gamma"):
         tg.fused_group_norm(x, torch.stack([gamma, beta], -1)[:, 0], beta, groups)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [
+        ((1, 2, 2048, 128), torch.bfloat16),  # FLUX's head dim
+        ((2, 3, 1024, 256), torch.bfloat16),
+        ((1, 2, 1024, 128), torch.float32),
+        ((2, 1, 1024, 512), torch.float32),  # the VAE's single-head mid attention
+    ],
+)
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    """Kernel #4 against flash_attention_ref (128-key blocks, unnormalised p
+    rounded to v's dtype): both round p and o at the same points and sum in
+    other orders with another exp, so bf16 is held to 4 ulps at the output's
+    largest magnitude, f32 to 1e-5."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    launches = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    ref = fa.flash_attention_ref(q, k, v)
+    ref_max = ref.float().abs().max().item()
+    tol = 4 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.requires_cuda
+def test_flash_kernel_takes_head_strided_views(cuda):
+    """(B, L, H*d) projection output viewed as (B, H, L, d); the result is a
+    (B, H, L, d) view of a (B, L, H, d) buffer."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((2, 1024, 3 * 128), generator=gen, device=cuda).bfloat16()
+    qh = x.view(2, 1024, 3, 128).permute(0, 2, 1, 3)
+    out = fa.flash_attention(qh, qh, qh)
+    ref = fa.flash_attention_ref(qh, qh, qh)
+    assert out.permute(0, 2, 1, 3).is_contiguous()
+    assert (out.float() - ref.float()).abs().max().item() <= 4 * _ulps_bf16(
+        ref.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+def test_flash_kernel_refuses_grad_and_bad_shapes(cuda):
+    """No backward yet (FLUX training), and no fallback: shapes the kernel
+    does not take raise."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn((1, 2, 1024, 128), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="FLUX training"):
+        fa.flash_attention(q, q, q)
+    launches = fa.flash_attention.launches
+    for shape in ((1, 2, 1000, 128), (1, 2, 1024, 96)):
+        t = torch.randn(shape, device=cuda)
+        with pytest.raises(ValueError):
+            fa.flash_attention(t, t, t)
+    assert fa.flash_attention.launches == launches
