@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD1.5 slider serving and slider training, and its
-FLUX-dev slider serving, once on one NVIDIA GPU, under the default conv
-route and the three conv-kernel routes of `ops.basic.set_conv_impl`.
+FLUX-dev slider serving and slider training, once on one NVIDIA GPU, under
+the default conv route and the three conv-kernel routes of
+`ops.basic.set_conv_impl`.
 
     python3 chip_smoke.py        # from the root of the repository
 
-Phases, each printing one line or a few before the last:
+Phases, each printing one line or a few before the last, and a [time] line
+with its seconds and the seconds since the start:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc.
   2. build:  nvcc builds the five kernel libraries (sliders_tpu_torch/csrc:
      attention forward and backward, flash attention, the 3x3 conv kernels,
@@ -19,12 +21,16 @@ Phases, each printing one line or a few before the last:
      one f32 shape each; the GroupNorm kernel #8 at the UNet's GN shapes;
      the flash-attention kernel #4 at FLUX's and the VAE's shapes, and #4
      and #1 checked, then timed beside SDPA, at the two FLUX serving shapes
-     on head views of (B, L, 3072) buffers; each kernel's bound
-     and the time of one PyTorch call computing the same function; then the
-     tiny slice at 256 px and three tiny training steps at 256 px on the GPU
-     (through the kernels) against the CPU (plain paths) in f32, under the
-     default route and under conv impl 'fused', and a tiny FLUX snapshot
-     served at 1536 px through `cli/serve.py --flux` on both (#4's route).
+     on head views of (B, L, 3072) buffers; #4's backward (its residual
+     forward, dk/dv and dq kernels) at FLUX training's 2048 px grad pass,
+     the tiny 1536 px f32 run and d = 256, and #2 at FLUX's 512 px grad
+     pass; each kernel's bound and the time of one PyTorch call computing
+     the same function; then the tiny slice at 256 px and three tiny
+     training steps at 256 px on the GPU (through the kernels) against the
+     CPU (plain paths) in f32, under the default route and under conv impl
+     'fused', and a tiny FLUX snapshot served at 1536 px through
+     `cli/serve.py --flux` and trained at 1536 px through
+     `cli/train_flux_slider.py` on both (#4's route, with its backward).
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
@@ -57,7 +63,15 @@ Phases, each printing one line or a few before the last:
      1024 px, then a 1-scale and a 5-scale /generate from a 2048 px engine
      on the same models, each with its peak device memory. Launch counts:
      #1 57 x steps x batches at 1024 px, #4 57 x steps at 2048 px, and one
-     #4 per VAE decode call (its d = 512 mid attention).
+     #4 per VAE decode call (its d = 512 mid attention). Then FLUX-dev
+     slider training on the same models through `train_flux_sliders`
+     (data/config.yaml's values with the xattn method: bf16, remat, rank-4
+     ortho-up LoRA, AdamW lr 2e-4, T5 length 512, max_denoising_steps cut
+     to 8): 4 iterations at 512 px (#1 57 x (t_to + 3) and #2 57 per
+     iteration; iteration 1 under torch.profiler) and 1 at 2048 px (#4 57 x
+     (t_to + 3) and its backward 57), each iteration's host wall and device
+     ms by phase, the peak memory, every down moved and every up and alpha
+     bit for bit as initialised.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
 no such line. It needs a CUDA device and the rest of the repository beside
@@ -97,6 +111,7 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((1, 8, 1024, 80), "bfloat16"),
     ((2, 8, 4096, 40), "bfloat16"),
     ((1, 24, 4096, 128), "bfloat16"),
+    ((1, 24, 1536, 128), "bfloat16"),  # FLUX training's grad pass at 512 px
     ((1, 8, 4096, 40), "float32"),
 ]
 TRAIN_ITERATIONS = 6  # the full-width run; per_steps and state_checkpoint_every 3
@@ -166,6 +181,9 @@ FLASH_SHAPES = [
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
 ]
+# FLUX's VAE decode at 1024 px (bucket 8): #4's plain version and SDPA in f32
+# are timed there too
+VAE_FLASH_SHAPE = (8, 1, 16384, 512)
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
 FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
@@ -173,6 +191,24 @@ FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
 # which kernel #1's TPU plan refuses, so the joint attention takes #4
 TINY_FLUX_PX = 1536
 TINY_FLUX_STEPS = 2
+# kernel #4's backward against its plain version: FLUX training's grad pass
+# at 2048 px (on head views), the tiny FLUX training run at 1536 px (f32),
+# and d = 256
+FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 9728, 128), "float32"),
+                    ((1, 2, 2048, 256), "bfloat16")]
+# tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
+TINY_FLUX_TRAIN_ITERATIONS = 2
+TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
+# Adam moves an element by about lr a step whatever its gradient's size, so
+# f32 gradient noise on elements whose gradient nearly cancels between steps
+# shows in the LoRA in proportion to lr: at 1e-4 the H100 and CPU runs'
+# LoRA differed by 2.2e-6 (loss 4.8e-6 relative). At 1e-5 a gradient of the
+# wrong sign still moves an element 10x past the 1e-6 tolerance.
+TINY_FLUX_LR = 1e-5
+# FLUX-dev training at full width: iterations at each resolution, and
+# max_denoising_steps cut from data/config.yaml's 50 (t_to in [1, 8))
+FLUX_TRAIN_ITERATIONS = {512: 4, 2048: 1}
+FLUX_TRAIN_STEPS = 8
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 outside
 # them (the f32 kernels use plain FMAs), device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -195,6 +231,19 @@ def attention_bound(shape, dt: str, backward: bool = False) -> tuple:
     if backward:
         return bound(10 * B * H * L * L * d, 7 * B * H * L * d * item, dt)
     return bound(4 * B * H * L * L * d, 4 * B * H * L * d * item, dt)
+
+
+T_START = time.perf_counter()
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), then its elapsed seconds and the time since the start, so
+    that a run cut by its time limit shows where it stood."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say("time", f"{name}: {time.perf_counter() - t0:.1f} s (at {time.perf_counter() - T_START:.1f} "
+        f"s)")
+    return out
 
 
 def say(phase: str, msg: str) -> None:
@@ -250,9 +299,15 @@ def phase_device():
 
 # the kernels whose ptxas report `phase_build` prints: the attention kernels
 # at d <= 48 (SD1.5's d = 40; a change to their shared header has moved these
-# counts before), every conv and GroupNorm instantiation
+# counts before) and at d = 128 (FLUX's), every conv and GroupNorm
+# instantiation, #4's forward and backward kernels
 REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E", "attn_bwd_dq_bf16"),
             ("attn_bwd_dkdv_bf16ILi48E", "attn_bwd_dkdv_bf16"),
+            ("attn_fwd_bf16ILi128E", "attn_fwd_bf16<128>"),
+            ("attn_bwd_dq_bf16ILi128E", "attn_bwd_dq_bf16<128>"),
+            ("attn_bwd_dkdv_bf16ILi128E", "attn_bwd_dkdv_bf16<128>"),
+            ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16"), ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16"),
+            ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32"), ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32"),
             ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
@@ -569,7 +624,8 @@ def phase_flash_kernel():
     blocks, unnormalised p rounded to v's dtype) at FLASH_SHAPES: bf16 held to
     4 bf16 ulps at the output's largest magnitude (both round p and o at the
     same points; sums in other orders and the fast exp may flip a rounding),
-    f32 to F32_TOL; each timed (median of 5) beside its bound. The plain
+    f32 to F32_TOL; each timed (median of 5) beside its bound, and at
+    VAE_FLASH_SHAPE beside its plain version and SDPA in f32 too. The plain
     version walks K in blocks, so it holds no L x L logits and runs at every
     head count. Then at FLUX_SERVE_SHAPES, on head
     views of (B, L, H*d) buffers as the FLUX path passes them: #4 and #1
@@ -599,12 +655,19 @@ def phase_flash_kernel():
             tol, shown = F32_TOL, "f32"
         ms = median_ms(lambda: fa.flash_attention(q, k, v), runs=5)
         bound_ms, bound_by = attention_bound(shape, dt)
+        row = {"shape": shape, "dtype": dt, "err": err, "ms": ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        if shape == VAE_FLASH_SHAPE:
+            row["plain_ms"] = median_ms(lambda: fa.flash_attention_ref(q, k, v), runs=3)
+            row["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v), runs=3)
         say("flash", f"{shape} {dt}: max|err| vs plain {err:.3g} ({shown}; tol {tol:.3g}), "
-            f"max|ref| {ref_max:.3g}; median #4 {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"max|ref| {ref_max:.3g}; median #4 {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            + (f"; plain {row['plain_ms']:.4f} ms, SDPA (f32) {row['library_ms']:.4f} ms"
+               if "plain_ms" in row else ""))
         if not (err <= tol and out.shape == ref.shape and out.dtype == dtype):
             raise AssertionError(f"flash_attention disagrees with its plain version at {shape} "
                                  f"{dt}")
-        checks.append({"shape": shape, "dtype": dt, "err": err, "ms": ms})
+        checks.append(row)
         del q, k, v, out, ref
         torch.cuda.empty_cache()
 
@@ -651,6 +714,70 @@ def phase_flash_kernel():
         del q, k, v
         torch.cuda.empty_cache()
     return checks, timings
+
+
+def phase_flash_bwd_kernel():
+    """Kernel #4's backward (the dk/dv kernel, then the dq kernel, from the
+    residual forward's o, m, l and di = rowsum(o * do)) against
+    flash_attention_bwd_ref at FLASH_BWD_SHAPES, on head views of (B, L,
+    H*d) buffers as the FLUX grad pass passes them. Both round p and ds to
+    the input dtype at the same points and sum in other orders with another
+    exp: bf16 is held to 4 ulps at each output's largest magnitude, f32 to
+    1e-5 of it; every error is printed in bf16 ulps at that magnitude. The
+    residuals m and l are held to the plain forward's within 1e-5 relative.
+    The whole backward is timed (median of 5) beside its plain version, the
+    backward of SDPA on the same inputs and the bound (10 B H L^2 d
+    operations; this schedule does 14)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    results = []
+    for shape, dt in FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        B, H, L, d = shape
+        q, k, v, g = (torch.randn((B, L, H * d), generator=gen, device="cuda").to(dtype)
+                      .view(B, L, H, d).permute(0, 2, 1, 3) for _ in range(4))
+        o, m, l = fa._forward(q, k, v, residuals=True)
+        out = fa.flash_attention_bwd(q, k, v, o, g, m, l)
+        _, rm, rl = fa.flash_attention_fwd_ref(q, k, v)
+        ref = fa.flash_attention_bwd_ref(q, k, v, o, g, m, l)
+        torch.cuda.synchronize()
+        stat_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in ((m, rm), (l, rl)))
+        errs, ulps, worst, ok = [], [], 0.0, stat_err <= 1e-5
+        for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+            ref_max = r.float().abs().max().item()
+            err = (a.float() - r.float()).abs().max().item()
+            tol = 4 * bf16_ulp(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+            ulps.append(err / bf16_ulp(ref_max))
+            errs.append(f"{name} {err:.3g} ({ulps[-1]:.2f} bf16 ulps at max|ref| {ref_max:.3g}; "
+                        f"tol {tol:.3g})")
+            ok = ok and err <= tol and a.dtype == dtype and a.shape == r.shape
+            worst = max(worst, err)
+        del out, ref, rm, rl
+        ms = median_ms(lambda: fa.flash_attention_bwd(q, k, v, o, g, m, l), runs=5)
+        plain_ms = median_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, g, m, l), runs=3)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        so = F.scaled_dot_product_attention(*leaves)
+        library_ms = median_ms(lambda: torch.autograd.grad(so, leaves, g, retain_graph=True),
+                               runs=5)
+        bound_ms, bound_by = attention_bound(shape, dt, backward=True)
+        say("flash", f"bwd {shape} {dt} head views: m, l max rel err {stat_err:.3g} (tol 1e-5); "
+            f"max|err| vs plain {', '.join(errs)}; median #4 backward {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd disagrees with its plain version at {shape} "
+                                 f"{dt}")
+        results.append({"shape": shape, "dtype": dt, "err": worst, "err_ulps": max(ulps), "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+        del q, k, v, g, o, m, l, leaves, so
+        torch.cuda.empty_cache()
+    return results
 
 
 def tiny_slice(device: str, trees: dict, clip_cfg, latents, tok):
@@ -975,6 +1102,102 @@ def phase_tiny_flux():
     return flash
 
 
+def tiny_flux_train(snap: str, device: str, lora: dict, tmp: str) -> tuple:
+    """`cli/train_flux_slider.py` on the tiny snapshot at TINY_FLUX_PX in f32
+    with remat on `device` (a CUDA ordinal or cpu), TINY_FLUX_TRAIN_ITERATIONS
+    iterations from `lora`; returns the per-iteration metrics and the final
+    LoRA on the CPU."""
+    from sliders_tpu_torch.cli import train_flux_slider as cli
+
+    prompts = os.path.join(tmp, "tiny_flux_prompts.yaml")
+    with open(prompts, "w") as f:
+        f.write(f"- target: person\n  positive: very old person\n  unconditional: young person\n"
+                f"  neutral: person\n  action: enhance\n  guidance_scale: 2\n"
+                f"  resolution: {TINY_FLUX_PX}\n  batch_size: 1\n")
+    config = os.path.join(tmp, f"tiny_flux_train_{device}.yaml")
+    with open(config, "w") as f:
+        f.write(dump_yaml({
+            "prompts_file": prompts, "pretrained_model": {"name_or_path": snap},
+            "network": {"rank": 4, "alpha": 1.0, "training_method": "xattn"},
+            "train": {"precision": "float32", "iterations": TINY_FLUX_TRAIN_ITERATIONS,
+                      "lr": TINY_FLUX_LR, "max_denoising_steps": TINY_FLUX_TRAIN_STEPS},
+            "save": {"name": "tiny", "path": os.path.join(tmp, f"out_{device}")},
+            "logging": {"log_every": 1}, "tpu": {"remat": True}}) + "\n")
+    records = []
+    final = cli.main(cli.build_parser().parse_args(["--config_file", config, "--device", device]),
+                     on_step=lambda i, state, m: records.append(m), lora=lora)
+    return records, final
+
+
+def flux_counts() -> dict:
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    return {"sd": sa.sd_attention.launches, "sd_bwd": sa.sd_attention_bwd.launches,
+            "flash": fa.flash_attention.launches, "dkv": fa.flash_attention_bwd.dkv_launches,
+            "dq": fa.flash_attention_bwd.dq_launches}
+
+
+def reset_flux_counts() -> None:
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    sa.sd_attention.launches = sa.sd_attention_bwd.launches = fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.dkv_launches = fa.flash_attention_bwd.dq_launches = 0
+
+
+def phase_tiny_flux_train():
+    """The tiny FLUX snapshot through the training CLI at TINY_FLUX_PX in f32
+    (L = 512 + 96**2 = 9728: #4's route, forward and backward), TF32 off, on
+    the GPU (the kernels) and on the CPU (plain versions), from one ortho-up
+    xattn LoRA. f32 sums in other orders only: each iteration's loss is held
+    to 1e-5 relative, its grad norm to 1e-4, the LoRA after the last update
+    to 1e-6. Launches are exact: #4's forward 4 joint attentions x (t_to + 1
+    frozen + 2 grad with remat) per iteration, its dk/dv and dq kernels 4
+    each per iteration, #1 and #2 never. The lr is TINY_FLUX_LR (see there)."""
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models.loader import load_flux
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "flux_tiny")
+        write_tiny_flux_snapshot(snap)
+        lora = create_slider_network(
+            torch.Generator().manual_seed(17), load_flux(snap, dtype=torch.float32)
+            .transformer_params, rank=4, alpha=1.0, train_method="xattn", ortho_up=True)
+        reset_flux_counts()
+        gpu, gpu_lora = tiny_flux_train(snap, "0", lora, tmp)
+        counts = flux_counts()
+        t0 = time.perf_counter()
+        cpu, cpu_lora = tiny_flux_train(snap, "cpu", lora, tmp)
+        cpu_s = time.perf_counter() - t0
+    t_tos = [m["t_to"] for m in gpu]
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(gpu, cpu))
+    norm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                   for a, b in zip(gpu, cpu))
+    lora_err = max((gpu_lora[m][k] - cpu_lora[m][k]).abs().max().item()
+                   for m in cpu_lora for k in ("down", "up"))
+    fwd_expected = 4 * sum(t + 3 for t in t_tos)
+    bwd_expected = 4 * TINY_FLUX_TRAIN_ITERATIONS
+    say("kernel", f"tiny FLUX training {TINY_FLUX_PX} px f32 via cli/train_flux_slider.py, "
+        f"{len(gpu)} iterations (t_to {t_tos}), GPU (#4 forward {counts['flash']} launches, "
+        f"expected {fwd_expected}; dk/dv {counts['dkv']}, dq {counts['dq']}, expected "
+        f"{bwd_expected}; #1 {counts['sd']}, #2 {counts['sd_bwd']}) vs CPU (plain, {cpu_s:.1f} s): "
+        f"losses {[round(m['loss'], 9) for m in gpu]} vs {[round(m['loss'], 9) for m in cpu]}, max "
+        f"rel err {loss_err:.3g} (tol 1e-5); grad norms max rel err {norm_err:.3g} (tol 1e-4); "
+        f"LoRA max|err| {lora_err:.3g} (tol 1e-6)")
+    if (counts["flash"] != fwd_expected or counts["dkv"] != bwd_expected
+            or counts["dq"] != bwd_expected or counts["sd"] or counts["sd_bwd"]):
+        raise AssertionError("tiny FLUX training on the GPU did not take #4's route exactly")
+    if t_tos != [m["t_to"] for m in cpu] or not (
+            loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
+        raise AssertionError("tiny FLUX training on the GPU disagrees with the CPU")
+    return {"flash": counts["flash"], "dkv": counts["dkv"], "dq": counts["dq"]}
+
+
 def build_engine(tok_dir: str):
     import torch
 
@@ -1027,6 +1250,8 @@ def _leaves(tree):
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for key, cls in (("attn_fwd", "attention kernel"), ("flash_fwd", "flash attention kernel"),
+                     ("attn_bwd", "attention backward kernel"),
+                     ("flash_bwd", "flash attention backward kernel"),
                      ("conv3x3_", "conv kernel"),
                      ("conv", "conv"), ("fprop", "conv"),
                      ("gemm", "gemm"), ("xmma", "gemm"), ("cutlass", "gemm"), ("nvjet", "gemm"),
@@ -1944,17 +2169,151 @@ def phase_flux_2048(models, sliders: dict) -> dict:
     return serve_http(engine, run)
 
 
+def flux_train_run(models, tmp: str, px: int, profile: bool = False) -> dict:
+    """`train_flux_sliders` on the in-memory FLUX-dev at `px` with the values
+    of data/config.yaml (bf16, remat, rank 4, alpha 1, AdamW lr 2e-4) but the
+    FLUX slider method xattn (266 modules, ortho-up), data/prompts.yaml's
+    pairs at `px`, T5 length 512, FLUX_TRAIN_ITERATIONS[px] iterations and
+    max_denoising_steps FLUX_TRAIN_STEPS. The kernels' counts are set to 0
+    just before and read just after. With `profile`, torch.profiler records
+    iteration 1 alone (started and stopped at the iteration boundaries,
+    where the step has synced on its loss)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from sliders_tpu_torch.core import config as config_util
+    from sliders_tpu_torch.core import yaml_subset
+    from sliders_tpu_torch.prompts import load_prompts_from_yaml
+    from sliders_tpu_torch.training.driver import train_flux_sliders
+
+    cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
+    pairs = yaml_subset.load(os.path.join(REPO, "data", "prompts.yaml"))
+    prompts_path = os.path.join(tmp, f"flux_prompts_{px}.yaml")
+    with open(prompts_path, "w") as f:
+        for pair in pairs:
+            f.write("\n".join(f"{'- ' if i == 0 else '  '}{k}: {json.dumps(v)}"
+                              for i, (k, v) in enumerate({**pair, "resolution": px}.items())) + "\n")
+    cfg["prompts_file"] = prompts_path
+    cfg["pretrained_model"]["name_or_path"] = "flux-dev (random weights, in memory)"
+    cfg["network"]["training_method"] = "xattn"
+    cfg["train"].update(iterations=FLUX_TRAIN_ITERATIONS[px], max_denoising_steps=FLUX_TRAIN_STEPS)
+    cfg["save"]["path"] = os.path.join(tmp, f"flux_train_{px}")
+    cfg["logging"] = {**cfg.get("logging", {}), "log_every": 1}
+    path = os.path.join(tmp, f"flux_train_{px}.yaml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg) + "\n")
+    config = config_util.load_config_from_yaml(path)
+    prompts = load_prompts_from_yaml(prompts_path, [])
+    records = []  # (iteration, host start, host end, metrics)
+    prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile else None
+
+    def on_step(i, state, m):
+        records.append((i, start[0], time.perf_counter(), m))
+        if prof is not None and i in (0, 1):
+            prof.start() if i == 0 else prof.stop()
+        start[0] = time.perf_counter()  # the profiler's start and stop belong to no iteration
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flux_counts()
+    t0 = time.perf_counter()
+    start = [t0]
+    final = train_flux_sliders(config, prompts, models, seed=0, t5_len=512, on_step=on_step)
+    torch.cuda.synchronize()
+    return {"records": records, "seconds": time.perf_counter() - t0,
+            "counts": flux_counts(), "lora": final, "prof": prof,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "cfg": cfg}
+
+
+def phase_flux_train(models, tmp: str) -> dict:
+    """FLUX-dev slider training at full width on the serving phases' models:
+    FLUX_TRAIN_ITERATIONS at 512 px (L = 1024 + 512: #1 forward, #2 backward)
+    and at 2048 px (L = 16896: #4 forward and backward). Launches are exact:
+    57 blocks x (t_to denoise + 1 frozen + 2 grad with remat) forward and 57
+    backward per iteration. Every down must move, every up and alpha must
+    equal a fresh init's bit for bit (the ortho-up mask freezes them), every
+    loss be finite; per iteration the host wall time and the device ms by
+    phase, and the peak device memory, are printed."""
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    init = create_slider_network(torch.Generator(device="cuda").manual_seed(1),
+                                 models.transformer_params, rank=4, alpha=1.0,
+                                 train_method="xattn", ortho_up=True, device="cuda")
+    init = {m: {k: t.cpu() for k, t in e.items()} for m, e in init.items()}
+    say("flux", f"ortho-up init of {len(init)} xattn modules on the card (the driver's draw, "
+        f"repeated for the checks): {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for px in FLUX_TRAIN_ITERATIONS:
+        run = flux_train_run(models, tmp, px, profile=px == 512)
+        recs, c = run["records"], run["counts"]
+        t_tos = [m["t_to"] for *_, m in recs]
+        fwd_expected = FLUX_BLOCKS * sum(t + 3 for t in t_tos)
+        bwd_expected = FLUX_BLOCKS * len(recs)
+        if px == 2048:
+            expected = {"sd": 0, "sd_bwd": 0, "flash": fwd_expected, "dkv": bwd_expected,
+                        "dq": bwd_expected}
+        else:
+            expected = {"sd": fwd_expected, "sd_bwd": bwd_expected, "flash": 0, "dkv": 0, "dq": 0}
+        final = run["lora"]
+        moved = sum(not torch.equal(final[m]["down"], init[m]["down"]) for m in init)
+        frozen = sum(torch.equal(final[m]["up"], init[m]["up"])
+                     and torch.equal(final[m]["alpha"], init[m]["alpha"]) for m in init)
+        losses = [m["loss"] for *_, m in recs]
+        times = [te - ts for _, ts, te, _ in recs]
+        for (i, *_, m), wall in zip(recs, times):
+            ph = m["phase_ms"]
+            say("flux", f"train {px} px iteration {i}: pair {m['pair']}, t_to {m['t_to']}, loss "
+                f"{m['loss']:.6g}, grad norm {m['grad_norm']:.4g}; host wall {wall:.3f} s"
+                f"{' (with the prompt encodes and the LoRA init)' if i == 0 else ''}"
+                f"{' (profiler on)' if run['prof'] is not None and i == 1 else ''}; device ms: denoise "
+                f"{ph['denoise']:.1f} ({ph['denoise'] / m['t_to']:.1f} per forward), frozen "
+                f"{ph['frozen']:.1f}, grad {ph['grad']:.1f}, update {ph['update']:.2f}")
+        if run["prof"] is not None:
+            by_class = by_kernel_class(run["prof"])
+            busy, wall = sum(by_class.values()), times[1] * 1e3
+            say("flux", f"train {px} px iteration 1 under torch.profiler: host wall {wall:.1f} ms, "
+                f"device busy {busy:.1f} ms, idle share {(1 - busy / wall) * 100:.1f}% (profiler "
+                "on); device ms by kernel class: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])))
+        say("flux", f"train {px} px (bf16, remat, rank 4 xattn ortho-up, AdamW lr "
+            f"{run['cfg']['train']['lr']}, T5 512, max_denoising_steps {FLUX_TRAIN_STEPS} cut from "
+            f"50): {len(recs)} iterations in {run['seconds']:.1f} s; launches {c} (expected "
+            f"{expected}); {moved} of {len(init)} down factors moved, {frozen} up/alpha pairs bit "
+            f"for bit unchanged; peak device memory {run['peak_gb']:.2f} GB")
+        if [r[0] for r in recs] != list(range(FLUX_TRAIN_ITERATIONS[px])):
+            raise AssertionError(f"the {px} px run did not take every iteration")
+        if c != expected:
+            raise AssertionError(f"the {px} px FLUX training run's launches {c} are not {expected}")
+        if moved != len(init) or frozen != len(init) or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"the {px} px FLUX training run's LoRA or losses are wrong")
+        out[px] = {"counts": c, "peak_gb": run["peak_gb"]}
+    return out
+
+
 def phase_flux(tmp: str) -> dict:
-    """Phase 7: FLUX-dev serving at 1024 and 2048 px."""
+    """Phase 7: FLUX-dev serving at 1024 and 2048 px, then training at 512 and
+    2048 px on the same models."""
+    import torch
+
     tok_dir, t5_dir = os.path.join(tmp, "tokenizer"), os.path.join(tmp, "tokenizer_2")
     os.makedirs(tok_dir)
     write_tokenizer(tok_dir)
     write_t5_tokenizer(t5_dir)
-    engine = build_flux_engine(tok_dir, t5_dir)
-    step = phase_flux_step(engine)
-    served = phase_flux_http(engine)
-    big = phase_flux_2048(engine.models, engine.sliders)
-    return {"step": step, "serve_1024": served, "serve_2048": big}
+    engine = timed("flux build", build_flux_engine, tok_dir, t5_dir)
+    step = timed("flux step", phase_flux_step, engine)
+    served = timed("flux serving 1024 px", phase_flux_http, engine)
+    big = timed("flux serving 2048 px", phase_flux_2048, engine.models, engine.sliders)
+    models = engine.models
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = timed("flux training", phase_flux_train, models, tmp)
+    return {"step": step, "serve_1024": served, "serve_2048": big, "train": train}
 
 
 def main() -> int:
@@ -1970,38 +2329,42 @@ def main() -> int:
     if not os.path.abspath(sliders_tpu_torch.__file__).startswith(REPO + os.sep):
         print(f"chip_smoke: sliders_tpu_torch imported from outside {REPO}", file=sys.stderr)
         return 1
-    phase_device()
-    phase_build()
-    results = phase_kernel()
-    bwd_results = phase_kernel_bwd()
-    conv_results = phase_conv_kernels()
-    gn_results = phase_group_norm_kernel()
-    flash_checks, flash_times = phase_flash_kernel()
+    timed("device", phase_device)
+    timed("build", phase_build)
+    results = timed("kernel #1", phase_kernel)
+    bwd_results = timed("kernel #2", phase_kernel_bwd)
+    conv_results = timed("conv kernels", phase_conv_kernels)
+    gn_results = timed("GroupNorm kernel", phase_group_norm_kernel)
+    flash_checks, flash_times = timed("kernel #4", phase_flash_kernel)
+    flash_bwd = timed("kernel #4 backward", phase_flash_bwd_kernel)
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
-        phase_tiny_slice(tok_dir)
-        phase_tiny_train()
-        tiny_fused = phase_tiny_train("fused")
-        tiny_flux = phase_tiny_flux()
-        engine = build_engine(tok_dir)
-    phase_step(engine)
-    conv_step = phase_conv_step(engine)
-    phase_grad_ab(engine)
-    serve_launches, serve_flash, serve_conv = phase_http(engine)
+        timed("tiny slice", phase_tiny_slice, tok_dir)
+        timed("tiny training", phase_tiny_train)
+        tiny_fused = timed("tiny training 'fused'", phase_tiny_train, "fused")
+        tiny_flux = timed("tiny FLUX serving", phase_tiny_flux)
+        tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
+        engine = timed("SD1.5 engine", build_engine, tok_dir)
+    timed("SD1.5 step", phase_step, engine)
+    conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
+    timed("SD1.5 grad pass", phase_grad_ab, engine)
+    serve_launches, serve_flash, serve_conv = timed("SD1.5 http", phase_http, engine)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    train = phase_train()
+    train = timed("SD1.5 training", phase_train)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         flux = phase_flux(tmp)
 
-    # launches: each kernel's main path (training for the attention kernels
-    # and #6, serving under its impl for #5 and #7, FLUX serving at 2048 px
-    # for #4); the other paths that ran it are listed beside. #8 is routed
+    # launches: each kernel's main path (SD1.5 training for the attention
+    # kernels #1, #2 and #6, serving under its impl for #5 and #7, FLUX
+    # serving at 2048 px for #4, FLUX training at 2048 px for #4's
+    # backward); the other paths that ran it are listed beside. #8 is routed
     # nowhere, as in the JAX package. ms / plain_ms / library_ms / bound_ms
-    # are at the first shape each kernel phase lists (#4: 2048 px serving).
+    # are at the first shape each kernel phase lists (#4: 2048 px serving;
+    # its backward: the 2048 px grad pass).
     level0, bwd_level0, gn0, flash0 = results[0], bwd_results[0], gn_results[0], flash_times[0]
 
     def timing(r):
@@ -2024,7 +2387,8 @@ def main() -> int:
         "launches_by_path": {"train": train["fwd"], "train_resume": train["resume_fwd"],
                              "train_fused": train["fused_fwd"], "serve": serve_launches,
                              "flux_serve_1024": flux["serve_1024"]["sd"],
-                             "flux_step_per_forward": flux["step"]["sd_per_step"]},
+                             "flux_step_per_forward": flux["step"]["sd_per_step"],
+                             "flux_train_512": flux["train"][512]["counts"]["sd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -2035,7 +2399,8 @@ def main() -> int:
         "replaces": "sliders_tpu/ops/pallas_attention.py:156",
         "launches": train["bwd"],
         "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"],
-                             "train_fused": train["fused_bwd"]},
+                             "train_fused": train["fused_bwd"],
+                             "flux_train_512": flux["train"][512]["counts"]["sd_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
     }, {
@@ -2047,10 +2412,29 @@ def main() -> int:
         "launches_by_path": {"flux_serve_2048": flux["serve_2048"]["flash"],
                              "flux_serve_2048_sweep": flux["serve_2048"]["flash_sweep"],
                              "flux_serve_1024_vae": flux["serve_1024"]["flash"],
-                             "tiny_flux_1536": tiny_flux, "serve_vae": serve_flash},
+                             "tiny_flux_1536": tiny_flux, "serve_vae": serve_flash,
+                             "flux_train_2048": flux["train"][2048]["counts"]["flash"],
+                             "tiny_flux_train_1536": tiny_flux_train["flash"]},
         "max_abs_err": max(r["err"] for r in flash_checks),
         **timing(flash0),
         "sd_attention_ms_same_inputs": flash0["sd_ms"],
+        "vae_decode_shape": timing(next(r for r in flash_checks
+                                        if r["shape"] == VAE_FLASH_SHAPE)),
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "sliders_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "sliders_tpu/ops/flash_attention.py:50 (the stock kernel's custom_vjp "
+                    "backward: _flash_attention_bwd_dkv :941 and _flash_attention_bwd_dq :1287 "
+                    "of jax/experimental/pallas/ops/tpu/flash_attention.py)",
+        "launches": min(flux["train"][2048]["counts"]["dkv"], flux["train"][2048]["counts"]["dq"]),
+        "launches_by_kernel": {"dkv": flux["train"][2048]["counts"]["dkv"],
+                               "dq": flux["train"][2048]["counts"]["dq"]},
+        "launches_by_path": {"flux_train_2048": flux["train"][2048]["counts"]["dkv"],
+                             "tiny_flux_train_1536": tiny_flux_train["dkv"]},
+        "max_abs_err": max(r["err"] for r in flash_bwd),
+        "max_err_bf16_ulps": max(r["err_ulps"] for r in flash_bwd),
+        **timing(flash_bwd[0]),
     },
         conv_entry("conv3x3", 44, serve_conv["conv3x3"],
                    {"serve_auto": serve_conv["conv3x3"],

@@ -24,7 +24,7 @@ from sliders_tpu_torch.core import config as config_util
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
-from sliders_tpu_torch.training.driver import train_text_sliders
+from sliders_tpu_torch.training.driver import compute_dtype_of, train_text_sliders
 
 
 def resolve_device(spec: str) -> torch.device:
@@ -71,14 +71,12 @@ def main(args, on_step=None):
         raise NotImplementedError("SDXL training is not ported yet (ROADMAP queue 1, item 6)")
     device = resolve_device(args.device)
     set_attention_impl(config.tpu.attention)
-    dtype = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}.get(
-        config.train.precision, torch.float32)
     models = loader.load_sd(
         config.pretrained_model.name_or_path,
         device=device,
         v2=config.pretrained_model.v2,
         clip_skip=config.pretrained_model.clip_skip,
-        dtype=dtype,
+        dtype=compute_dtype_of(config),
     )
     return train_text_sliders(config, prompts, models, resume_from=args.resume,
                               on_step=on_step)

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): online softmax, one pass over K/V.
+// Flash attention for Hopper (sm_90a): the forward (online softmax, one pass
+// over K/V) and its backward.
 //
 // Replaces the stock TPU flash kernel that
 // sliders_tpu/ops/flash_attention.py::flash_attention calls
@@ -38,6 +39,28 @@
 // L % 128 == 0 and d % 128 == 0); strides for batch, head and row with a
 // contiguous last dim, so q/k/v can be head views of (B, L, H*d) projections
 // and o a (B, H, L, d) view of a (B, L, H, d) buffer.
+//
+// Under grad the forward also writes each row's final running max m and sum
+// l in f32 (the residuals the TPU kernel's _flash_attention_fwd saves), and
+// the backward (the TPU kernel's _flash_attention_bwd_dkv and
+// _flash_attention_bwd_dq) recomputes p from them, with di = rowsum(o * do)
+// taken outside, as the TPU code takes it:
+//
+//   s = (q . k) in f32, times sm_scale;  p = exp(s - m) * (1 / l);
+//   dv += round(p)^T . do;               dp = do . v^T in f32;
+//   ds = ((dp - di) * p) * sm_scale;     dk += round(ds)^T . q;  dq += round(ds) . k;
+//
+// round() casts to do's dtype before the product, sums are f32, and dq, dk,
+// dv are cast to the input dtype at the end. Two kernels, no atomics: a
+// K/V-major one for dk and dv (one block per 64 K/V rows and 128-wide output
+// chunk, a loop over every q tile) and a q-major one for dq (one block per 64
+// q rows and output chunk, a loop over every K/V tile); one template with
+// the roles of the row and column operands swapped. Neither writes an L x L
+// tensor. The backward does 14 B H L^2 d operations (s twice, dp twice, dv,
+// dk, dq) against the minimal 10, and at FLUX's d = 128 is tensor-core
+// bound; like the forward it has no wgmma, TMA or copy pipelining yet, and
+// B fragments of the transposed products are read as 16-bit pairs.
+// d = 256 repeats the logits for each output chunk, as the forward does.
 
 #include "sd_attention_common.cuh"
 
@@ -59,10 +82,16 @@ struct FParams {
   const void* k;
   const void* v;
   void* o;
+  float* ml;  // (2, B, H, Lq) f32: each row's max m, then its sum l; null: not written
   int Lk, d;
   Strides qs, ks, vs, os;
   float scale;
 };
+
+// where row `row` of (batch b, head h) keeps its m; its l is one plane further
+__device__ __forceinline__ long long ml_index(int b, int h, int row, int H, int Lq) {
+  return ((long long)b * H + h) * Lq + row;
+}
 
 // ROWS x FD columns of src from column col0 -> dst (row stride FS)
 template <int ROWS>
@@ -187,6 +216,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(FParams p) {
         pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
     *reinterpret_cast<uint32_t*>(o + (row + 8) * p.os.l + col) =
         pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
+  }
+  if (p.ml != nullptr && oc == 0 && t4 == 0) {
+    const int H = gridDim.y / nc, Lq = gridDim.x * FQ;
+    const long long plane = (long long)gridDim.z * H * Lq;
+    const long long i = ml_index(b, h, (int)row, H, Lq);
+    p.ml[i] = m0;
+    p.ml[plane + i] = l0;
+    p.ml[i + 8] = m1;
+    p.ml[plane + i + 8] = l1;
   }
 }
 
@@ -327,6 +365,369 @@ __global__ void __launch_bounds__(FT) flash_fwd_f32(FParams p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
   }
+  if (p.ml != nullptr && oc == 0 && tx == 0) {
+    const int H = gridDim.y / nc, Lq = gridDim.x * FQ;
+    const long long plane = (long long)gridDim.z * H * Lq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long idx = ml_index(b, h, q0 + ty * 4 + i, H, Lq);
+      p.ml[idx] = m[i];
+      p.ml[plane + idx] = l[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int BR = 64;  // rows a block owns: K/V rows (dk/dv) or q rows (dq)
+constexpr int BC = 64;  // columns per streamed tile: q rows (dk/dv) or keys (dq)
+
+struct BParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* g;      // do, the output's gradient
+  const float* m;     // (B, H, Lq) f32 residuals of the forward
+  const float* l;
+  const float* di;    // (B, H, Lq) f32: rowsum(o * do)
+  void* dq;
+  void* dk;
+  void* dv;
+  int H, Lq, Lk, d;
+  Strides qs, ks, vs, gs, dqs, dks, dvs;
+  float scale;
+};
+
+// The operands of one backward kernel. DKV (the dk/dv kernel): the block's
+// rows are K (a1) and V (a2), its columns stream q (b1) and do (b2), and the
+// softmax statistics belong to the columns. Otherwise (the dq kernel): rows
+// q and do, columns K and V, statistics of the rows.
+template <bool DKV, typename T>
+struct Roles {
+  const T *a1, *a2, *b1, *b2;
+  long long a1s, a2s, b1s, b2s;  // row strides
+  int ncols;
+  __device__ Roles(const BParams& p, int b, int h) {
+    const T* q = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
+    const T* k = static_cast<const T*>(p.k) + b * p.ks.b + h * p.ks.h;
+    const T* v = static_cast<const T*>(p.v) + b * p.vs.b + h * p.vs.h;
+    const T* g = static_cast<const T*>(p.g) + b * p.gs.b + h * p.gs.h;
+    if (DKV) {
+      a1 = k, a2 = v, b1 = q, b2 = g;
+      a1s = p.ks.l, a2s = p.vs.l, b1s = p.qs.l, b2s = p.gs.l;
+      ncols = p.Lq;
+    } else {
+      a1 = q, a2 = g, b1 = k, b2 = v;
+      a1s = p.qs.l, a2s = p.gs.l, b1s = p.ks.l, b2s = p.vs.l;
+      ncols = p.Lk;
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t ld32(const bf16* x) {
+  return *reinterpret_cast<const uint32_t*>(x);
+}
+
+// c[nt] += this warp's 16 rows of a (from r0) times rows nt*8.. of b
+// transposed, over one 128-wide chunk (both tiles with row stride FS); the
+// A fragment of each k16 step is read from shared memory as it is needed
+__device__ __forceinline__ void chunk_dot(float (&c)[BC / 8][4], const bf16* a, const bf16* b, int r0,
+                                          int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < FD / 16; ++kk) {
+    const bf16* ab = a + (r0 + g) * FS + kk * 16 + t4 * 2;
+    const uint32_t af[4] = {ld32(ab), ld32(ab + 8 * FS), ld32(ab + 8), ld32(ab + 8 * FS + 8)};
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+      const bf16* bb = b + (nt * 8 + g) * FS + kk * 16 + t4 * 2;
+      const uint32_t bfr[2] = {ld32(bb), ld32(bb + 8)};
+      mma_16816(c[nt], af, bfr);
+    }
+  }
+}
+
+// acc += round_bf16(e) . t, e this warp's 16 x 64 accumulator fragments, t a
+// 64 x 128 tile (row stride FS): two n8 C tiles are one k16 A fragment
+__device__ __forceinline__ void round_dot(float (&acc)[FD / 8][4], const float (&e)[BC / 8][4],
+                                          const bf16* t, int g, int t4) {
+#pragma unroll
+  for (int kc = 0; kc < BC / 16; ++kc) {
+    const uint32_t pa[4] = {pack_bf16(e[2 * kc][0], e[2 * kc][1]),
+                            pack_bf16(e[2 * kc][2], e[2 * kc][3]),
+                            pack_bf16(e[2 * kc + 1][0], e[2 * kc + 1][1]),
+                            pack_bf16(e[2 * kc + 1][2], e[2 * kc + 1][3])};
+#pragma unroll
+    for (int nt = 0; nt < FD / 8; ++nt) {
+      uint32_t bfr[2];
+      b_frag_kn(bfr, t, FS, kc * 16, nt * 8, g, t4);
+      mma_16816(acc[nt], pa, bfr);
+    }
+  }
+}
+
+constexpr int BWD_BF16_SMEM = 4 * BR * FS * 2 + 3 * BR * 4;
+
+template <bool DKV>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_bf16(BParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* a1s = reinterpret_cast<bf16*>(smem);  // [BR][FS]: the block's rows
+  bf16* a2s = a1s + BR * FS;
+  bf16* b1s = a2s + BR * FS;                  // [BC][FS]: the streamed tile
+  bf16* b2s = b1s + BR * FS;
+  float* st_m = reinterpret_cast<float*>(b2s + BR * FS);  // [64] m, 1 / l, di
+  float* st_inv = st_m + BR;
+  float* st_di = st_inv + BR;
+
+  const int nc = p.d / FD;
+  const int row0 = blockIdx.x * BR;
+  const int h = blockIdx.y / nc, oc = blockIdx.y % nc;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;
+  const Roles<DKV, bf16> R(p, b, h);
+  const long long st0 = ((long long)b * p.H + h) * p.Lq;  // this head's statistics
+
+  if (nc == 1) {  // one chunk: the block's rows stay for every tile
+    load_tile_bf16<BR>(a1s, R.a1 + (long long)row0 * R.a1s, R.a1s, 0);
+    load_tile_bf16<BR>(a2s, R.a2 + (long long)row0 * R.a2s, R.a2s, 0);
+  }
+  if (!DKV) {  // the dq kernel's statistics belong to its rows
+    for (int i = threadIdx.x; i < BR; i += NTHREADS) {
+      st_m[i] = p.m[st0 + row0 + i];
+      st_inv[i] = 1.f / p.l[st0 + row0 + i];
+      st_di[i] = p.di[st0 + row0 + i];
+    }
+  }
+
+  float acc1[FD / 8][4], acc2[FD / 8][4];  // DKV: dk, dv; else dq (acc2 unused)
+#pragma unroll
+  for (int nt = 0; nt < FD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[nt][e] = acc2[nt][e] = 0.f;
+  float s[BC / 8][4], dp[BC / 8][4];
+
+  for (int c0 = 0; c0 < R.ncols; c0 += BC) {
+    if (DKV) {
+      for (int i = threadIdx.x; i < BC; i += NTHREADS) {
+        st_m[i] = p.m[st0 + c0 + i];
+        st_inv[i] = 1.f / p.l[st0 + c0 + i];
+        st_di[i] = p.di[st0 + c0 + i];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      if (nc > 1) {
+        load_tile_bf16<BR>(a1s, R.a1 + (long long)row0 * R.a1s, R.a1s, c * FD);
+        load_tile_bf16<BR>(a2s, R.a2 + (long long)row0 * R.a2s, R.a2s, c * FD);
+      }
+      load_tile_bf16<BC>(b1s, R.b1 + (long long)c0 * R.b1s, R.b1s, c * FD);
+      load_tile_bf16<BC>(b2s, R.b2 + (long long)c0 * R.b2s, R.b2s, c * FD);
+      __syncthreads();
+      chunk_dot(s, a1s, b1s, r0, g, t4);  // DKV: k . q^T; else q . k^T
+      chunk_dot(dp, a2s, b2s, r0, g, t4); // DKV: v . do^T; else do . v^T
+      __syncthreads();
+    }
+    if (nc > 1) {  // this block's output columns of the streamed tile
+      load_tile_bf16<BC>(b1s, R.b1 + (long long)c0 * R.b1s, R.b1s, oc * FD);
+      load_tile_bf16<BC>(b2s, R.b2 + (long long)c0 * R.b2s, R.b2s, oc * FD);
+      __syncthreads();
+    }
+    // p = exp(s * scale - m) * (1 / l) into s; ds = ((dp - di) * p) * scale into dp
+#pragma unroll
+    for (int nt = 0; nt < BC / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int si = DKV ? nt * 8 + t4 * 2 + (e & 1) : r0 + g + (e >> 1) * 8;
+        const float pe = __expf(s[nt][e] * p.scale - st_m[si]) * st_inv[si];
+        s[nt][e] = pe;
+        dp[nt][e] = ((dp[nt][e] - st_di[si]) * pe) * p.scale;
+      }
+    }
+    round_dot(acc1, dp, b1s, g, t4);               // DKV: dk += ds^T q; else dq += ds k
+    if (DKV) round_dot(acc2, s, b2s, g, t4);       // dv += p^T do
+    __syncthreads();  // the next tile overwrites b1s, b2s and the statistics
+  }
+
+  bf16* out1 = static_cast<bf16*>(DKV ? p.dk : p.dq) + b * (DKV ? p.dks.b : p.dqs.b) +
+               h * (DKV ? p.dks.h : p.dqs.h);
+  const long long out1_l = DKV ? p.dks.l : p.dqs.l;
+  bf16* out2 = static_cast<bf16*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
+  const long long row = row0 + r0 + g;
+#pragma unroll
+  for (int nt = 0; nt < FD / 8; ++nt) {
+    const int col = oc * FD + nt * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(out1 + row * out1_l + col) = pack_bf16(acc1[nt][0], acc1[nt][1]);
+    *reinterpret_cast<uint32_t*>(out1 + (row + 8) * out1_l + col) =
+        pack_bf16(acc1[nt][2], acc1[nt][3]);
+    if (DKV) {
+      *reinterpret_cast<uint32_t*>(out2 + row * p.dvs.l + col) = pack_bf16(acc2[nt][0], acc2[nt][1]);
+      *reinterpret_cast<uint32_t*>(out2 + (row + 8) * p.dvs.l + col) =
+          pack_bf16(acc2[nt][2], acc2[nt][3]);
+    }
+  }
+}
+
+// f32: FT threads, each a 4 x 4 tile of s and dp (rows ty*4 + i, columns
+// tx + 16 j) over 32-wide head-dim chunks, then p and ds through shared
+// memory into a 4 x 8 tile of each output (columns tx + 16 j of the chunk).
+constexpr int FC = 32;  // streamed rows per output sub-tile
+constexpr int BWD_F32_SMEM =
+    (4 * BR * (FDC + 1) + 2 * BR * (BC + 1) + 2 * FC * FD + 3 * BC) * 4;
+
+template <bool DKV>
+__global__ void __launch_bounds__(FT) flash_bwd_f32(BParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* a1s = reinterpret_cast<float*>(smem);  // [BR][FDC + 1] chunks of the rows
+  float* a2s = a1s + BR * (FDC + 1);
+  float* b1s = a2s + BR * (FDC + 1);            // [BC][FDC + 1] chunks of the tile
+  float* b2s = b1s + BC * (FDC + 1);
+  float* ps = b2s + BC * (FDC + 1);             // [BR][BC + 1]: p
+  float* dss = ps + BR * (BC + 1);              // [BR][BC + 1]: ds
+  float* t1s = dss + BR * (BC + 1);             // [FC][FD]: output columns of the tile
+  float* t2s = t1s + FC * FD;
+  float* st_m = t2s + FC * FD;                  // [64] m, 1 / l, di of the tile's columns
+  float* st_inv = st_m + BC;
+  float* st_di = st_inv + BC;
+
+  const int nc = p.d / FD;
+  const int row0 = blockIdx.x * BR;
+  const int h = blockIdx.y / nc, oc = blockIdx.y % nc;
+  const int b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const Roles<DKV, float> R(p, b, h);
+  const long long st0 = ((long long)b * p.H + h) * p.Lq;
+
+  float rm[4], rinv[4], rdi[4];  // the dq kernel's row statistics
+  if (!DKV) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long r = st0 + row0 + ty * 4 + i;
+      rm[i] = p.m[r];
+      rinv[i] = 1.f / p.l[r];
+      rdi[i] = p.di[r];
+    }
+  }
+  float acc1[4][8], acc2[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc1[i][j] = acc2[i][j] = 0.f;
+
+  for (int c0 = 0; c0 < R.ncols; c0 += BC) {
+    if (DKV && threadIdx.x < BC) {
+      st_m[threadIdx.x] = p.m[st0 + c0 + threadIdx.x];
+      st_inv[threadIdx.x] = 1.f / p.l[st0 + c0 + threadIdx.x];
+      st_di[threadIdx.x] = p.di[st0 + c0 + threadIdx.x];
+    }
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c = 0; c < p.d; c += FDC) {
+      load_tile_f32<BR, FDC, FDC + 1>(a1s, R.a1 + (long long)row0 * R.a1s, R.a1s, c);
+      load_tile_f32<BR, FDC, FDC + 1>(a2s, R.a2 + (long long)row0 * R.a2s, R.a2s, c);
+      load_tile_f32<BC, FDC, FDC + 1>(b1s, R.b1 + (long long)c0 * R.b1s, R.b1s, c);
+      load_tile_f32<BC, FDC, FDC + 1>(b2s, R.b2 + (long long)c0 * R.b2s, R.b2s, c);
+      __syncthreads();
+#pragma unroll 8
+      for (int kd = 0; kd < FDC; ++kd) {
+        float x1[4], x2[4], y1[4], y2[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x1[i] = a1s[(ty * 4 + i) * (FDC + 1) + kd];
+          x2[i] = a2s[(ty * 4 + i) * (FDC + 1) + kd];
+          y1[i] = b1s[(tx + 16 * i) * (FDC + 1) + kd];
+          y2[i] = b2s[(tx + 16 * i) * (FDC + 1) + kd];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(x1[i], y1[j], s[i][j]);
+            dp[i][j] = fmaf(x2[i], y2[j], dp[i][j]);
+          }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ci = tx + 16 * j;
+        const float m = DKV ? st_m[ci] : rm[i], inv = DKV ? st_inv[ci] : rinv[i];
+        const float di = DKV ? st_di[ci] : rdi[i];
+        const float pe = __expf(s[i][j] * p.scale - m) * inv;
+        ps[(ty * 4 + i) * (BC + 1) + ci] = pe;
+        dss[(ty * 4 + i) * (BC + 1) + ci] = ((dp[i][j] - di) * pe) * p.scale;
+      }
+    // acc1 += ds . b1[:, chunk]; DKV: acc2 += p . b2[:, chunk]
+    for (int kc = 0; kc < BC; kc += FC) {
+      load_tile_f32<FC, FD, FD>(t1s, R.b1 + (long long)(c0 + kc) * R.b1s, R.b1s, oc * FD);
+      if (DKV) load_tile_f32<FC, FD, FD>(t2s, R.b2 + (long long)(c0 + kc) * R.b2s, R.b2s, oc * FD);
+      __syncthreads();  // also publishes ps and dss on the first pass
+#pragma unroll 4
+      for (int kk = 0; kk < FC; ++kk) {
+        float e1[4], e2[4], u1[8], u2[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          e1[i] = dss[(ty * 4 + i) * (BC + 1) + kc + kk];
+          e2[i] = ps[(ty * 4 + i) * (BC + 1) + kc + kk];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          u1[j] = t1s[kk * FD + tx + 16 * j];
+          u2[j] = DKV ? t2s[kk * FD + tx + 16 * j] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc1[i][j] = fmaf(e1[i], u1[j], acc1[i][j]);
+            if (DKV) acc2[i][j] = fmaf(e2[i], u2[j], acc2[i][j]);
+          }
+      }
+      __syncthreads();
+    }
+  }
+
+  float* out1 = static_cast<float*>(DKV ? p.dk : p.dq) + b * (DKV ? p.dks.b : p.dqs.b) +
+                h * (DKV ? p.dks.h : p.dqs.h);
+  const long long out1_l = DKV ? p.dks.l : p.dqs.l;
+  float* out2 = static_cast<float*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = row0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      out1[row * out1_l + oc * FD + tx + 16 * j] = acc1[i][j];
+      if (DKV) out2[row * p.dvs.l + oc * FD + tx + 16 * j] = acc2[i][j];
+    }
+  }
+}
+
+template <bool DKV>
+int launch_bwd(const BParams& p, int B, int is_f32, cudaStream_t st) {
+  const dim3 grid((DKV ? p.Lk : p.Lq) / BR, p.H * (p.d / FD), B);
+  cudaError_t err;
+  if (is_f32) {
+    err = cudaFuncSetAttribute(flash_bwd_f32<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BWD_F32_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_f32<DKV><<<grid, FT, BWD_F32_SMEM, st>>>(p);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_bf16<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BWD_BF16_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_bf16<DKV><<<grid, NTHREADS, BWD_BF16_SMEM, st>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -334,9 +735,9 @@ __global__ void __launch_bounds__(FT) flash_fwd_f32(FParams p) {
 // Returns the CUDA error of the launch (0 on success). Pointers 16-byte
 // aligned, Lq % 64 == 0, Lk % 128 == 0, d % 128 == 0, strides (in elements)
 // multiples of 8 with a contiguous last dim; the Python wrapper checks all of
-// this.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int H, int Lq, int Lk, int d, int is_f32, long long q_sb,
+// this. `ml`, if not null, receives the (2, B, H, Lq) f32 residuals m and l.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* ml,
+                                   int B, int H, int Lq, int Lk, int d, int is_f32, long long q_sb,
                                    long long q_sh, long long q_sl, long long k_sb, long long k_sh,
                                    long long k_sl, long long v_sb, long long v_sh, long long v_sl,
                                    long long o_sb, long long o_sh, long long o_sl, float scale,
@@ -344,7 +745,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (B < 1 || H < 1 || Lq < FQ || Lk < FK || Lq % FQ || Lk % FK || d < FD || d % FD ||
       B > 65535 || (long long)H * (d / FD) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FParams p{q, k, v, o, Lk, d,
+  const FParams p{q, k, v, o, static_cast<float*>(ml), Lk, d,
                   {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {o_sb, o_sh, o_sl},
                   scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -361,4 +762,28 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     flash_fwd_bf16<<<grid, NTHREADS, BF16_SMEM, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One backward kernel: part 0 the dk/dv kernel (writes dk, dv), part 1 the
+// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous. Returns
+// the launch's CUDA error (0 on success). Shapes and strides as for the
+// forward, with Lq and Lk multiples of 64; the Python wrapper checks them.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
+                                   const float* m, const float* l, const float* di, void* dq,
+                                   void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
+                                   int is_f32, int part, long long q_sb, long long q_sh,
+                                   long long q_sl, long long k_sb, long long k_sh, long long k_sl,
+                                   long long v_sb, long long v_sh, long long v_sl, long long g_sb,
+                                   long long g_sh, long long g_sl, long long dq_sb,
+                                   long long dq_sh, long long dq_sl, long long dk_sb,
+                                   long long dk_sh, long long dk_sl, long long dv_sb,
+                                   long long dv_sh, long long dv_sl, float scale, void* stream) {
+  if (B < 1 || H < 1 || Lq < BR || Lk < BC || Lq % BR || Lk % BC || d < FD || d % FD ||
+      B > 65535 || (long long)H * (d / FD) > 65535 || part < 0 || part > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BParams p{q, k, v, g, m, l, di, dq, dk, dv, H, Lq, Lk, d,
+                  {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {g_sb, g_sh, g_sl},
+                  {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl}, {dv_sb, dv_sh, dv_sl}, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return part == 0 ? launch_bwd<true>(p, B, is_f32, st) : launch_bwd<false>(p, B, is_f32, st);
 }

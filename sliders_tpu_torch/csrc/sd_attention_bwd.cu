@@ -33,7 +33,8 @@
 // memory traffic and latency, not tensor-core rate. Simple first: mma.sync
 // m16n8k16 bf16 tiles, no copy pipelining, transposed operands read from
 // shared memory as 16-bit pairs. At d=128 the dk/dv kernel holds K, V, dk
-// and dv fragments in registers and may spill.
+// and dv fragments in registers, so it forms p^T and dp^T one k16 slice of
+// the q tile at a time (with all of them live it spilled past 255 registers).
 //
 // f32 runs one thread per row with plain FMAs (one q row in kernel 1, one
 // K/V row in kernel 2). The head dim is zero-padded to a multiple of 16
@@ -217,7 +218,6 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(BwdParams p) {
     dka[nt][0] = dka[nt][1] = dka[nt][2] = dka[nt][3] = 0.f;
     dva[nt][0] = dva[nt][1] = dva[nt][2] = dva[nt][3] = 0.f;
   }
-  float s[BK / 8][4], dp[BK / 8][4];
   for (int q0 = 0; q0 < p.Lq; q0 += BQ) {
     load_rows_bf16<DP>(qs, q, p.qs.l, q0, p.Lq, p.d);
     load_rows_bf16<DP>(gs, go, p.gs.l, q0, p.Lq, p.d);
@@ -229,41 +229,41 @@ __global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(BwdParams p) {
     }
     __syncthreads();
 
-    // p^T: rows are this warp's keys, columns the tile's q rows
-    tile_logits<DP>(s, kf, qs, q0, p.Lq, p.scale, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + t4 * 2 + (e & 1);
-        s[nt][e] = __expf(s[nt][e] - st_m[qi]) * st_inv[qi];
-      }
-    }
-    // dv += round(p)^T . g
+    // one k16 slice of the tile's q rows at a time, so that only two n8
+    // tiles of p^T and dp^T are live beside the K, V, dk and dv registers
+    // (at d = 128, all eight took the kernel past 255 registers into spills)
 #pragma unroll
     for (int kc = 0; kc < BQ / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nt = 2 * kc + j;
+        // p^T: rows are this warp's keys, columns the tile's q rows
+        dot_n8<DP>(s[j], kf, qs, nt, g, t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = nt * 8 + t4 * 2 + (e & 1);
+          s[j][e] = q0 + qi < p.Lq ? __expf(s[j][e] * p.scale - st_m[qi]) * st_inv[qi] : 0.f;
+        }
+        dot_n8<DP>(dp[j], vf, gs, nt, g, t4);  // dp^T = v . g^T
+      }
+      // dv += round(p)^T . g
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
 #pragma unroll
       for (int nt = 0; nt < DP / 8; ++nt) {
         uint32_t bfr[2];
         b_frag_kn(bfr, gs, SK, kc * 16, nt * 8, g, t4);  // B[qi][c] = G[qi][c]
         mma_16816(dva[nt], pa, bfr);
       }
-    }
-    // dp^T = v . g^T, then dk += round(p * (dp - dsum))^T . q
-    tile_dot<DP>(dp, vf, gs, g, t4);
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
+      // dk += round(p * (dp - dsum))^T . q
       float e[2][4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int nt = 2 * kc + j;
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          e[j][c] = s[nt][c] * (dp[nt][c] - st_dsum[nt * 8 + t4 * 2 + (c & 1)]);
+          e[j][c] = s[j][c] * (dp[j][c] - st_dsum[nt * 8 + t4 * 2 + (c & 1)]);
       }
       const uint32_t da[4] = {pack_bf16(e[0][0], e[0][1]), pack_bf16(e[0][2], e[0][3]),
                               pack_bf16(e[1][0], e[1][1]), pack_bf16(e[1][2], e[1][3])};

@@ -16,8 +16,10 @@ sampler convs; `train_method` filters on the parent and child names
 alphas. Factors are torch layouts: linear down (r, in), up (out, r); conv
 down (r, in, kh, kw), up (out, r, 1, 1).
 
-`ortho_up` (FLUX slider training's orthogonal up init) comes with FLUX
-training (ROADMAP queue 1, item 5).
+`ortho_up` is FLUX slider training's init (flux lora.py:52-69, the JAX
+package's network.py:158-164): a linear's up is r distinct columns of Q
+from the QR of a (out, out) normal matrix, drawn on the factors' device,
+and `trainable_mask(ortho_up=True)` freezes it, so only down trains.
 """
 
 from __future__ import annotations
@@ -43,8 +45,6 @@ _DOWNSAMPLER = re.compile(r"^(.*\bdownsamplers\.0)\.(conv)\.weight$")
 _UPSAMPLER = re.compile(r"^(.*\bupsamplers\.0)\.(conv)\.weight$")
 
 CONV_PATTERNS = (_RESNET_PARENT, _DOWNSAMPLER, _UPSAMPLER)
-_ORTHO_UP = ("ortho_up (FLUX slider training's frozen orthogonal up) is not ported yet "
-             "(ROADMAP queue 1, items 5 and 11)")
 
 
 def _method_allows(parent: str, child: str, train_method: str) -> bool:
@@ -121,9 +121,13 @@ def create_slider_network(
     """Build the LoRA tree {module_path: {'down', 'up', 'alpha'}}: down is
     kaiming-uniform with slope `init_a` (1 for the text sliders, lora.py:97;
     sqrt(5) for the image sliders' copy), up is zero, and alpha defaults to
-    the rank when 0/None. Conv ranks clamp to min(rank, in, out)."""
-    if ortho_up:
-        raise NotImplementedError(_ORTHO_UP)
+    the rank when 0/None. Conv ranks clamp to min(rank, in, out).
+
+    `ortho_up=True`: a linear's up (out, r) is r distinct columns, drawn
+    without replacement, of the orthogonal Q of a (out, out) normal matrix,
+    so its columns are orthonormal (the JAX package stores the same vectors
+    as the rows of its (r, out) up). Every draw uses `generator`, which must
+    live on `device`."""
     modules = target_module_paths(unet_params, network_type, train_method)
     flat = pytree.flatten(unet_params)
     weights: dict[str, dict] = {}
@@ -133,7 +137,13 @@ def create_slider_network(
             d_out, d_in = w.shape
             r = rank
             down = _kaiming_uniform(generator, (r, d_in), d_in, init_a, dtype, device)
-            up = torch.zeros((d_out, r), dtype=dtype, device=device)
+            if ortho_up:
+                normal = torch.randn((d_out, d_out), generator=generator, device=device)
+                q, _ = torch.linalg.qr(normal)
+                cols = torch.randperm(d_out, generator=generator, device=device)[:r]
+                up = q[:, cols].to(dtype)
+            else:
+                up = torch.zeros((d_out, r), dtype=dtype, device=device)
         else:  # conv OIHW
             d_out, d_in, kh, kw = w.shape
             r = min(rank, d_in, d_out)  # lora.py:78-80 clamp
@@ -150,10 +160,10 @@ def create_slider_network(
 
 def trainable_mask(weights: dict, ortho_up: bool = False) -> dict:
     """True for the trainable factors (down/up), False for alpha, a constant
-    buffer in the reference (lora.py:94)."""
-    if ortho_up:
-        raise NotImplementedError(_ORTHO_UP)
-    return {m: {"down": True, "up": True, "alpha": False} for m in weights}
+    buffer in the reference (lora.py:94). With `ortho_up`, up is frozen too:
+    flux-sliders trains only lora_down for non-'full' methods (flux
+    lora.py:268-280)."""
+    return {m: {"down": True, "up": not ortho_up, "alpha": False} for m in weights}
 
 
 def param_count(weights: dict) -> int:

@@ -14,6 +14,11 @@ LayerNorm (eps 1e-6, no affine) and the per-head q/k RMSNorm in f32, RoPE
 applied in f32, GELU with the tanh approximation. The joint attention
 (context first) routes as every attention does (`ops/attention.py`): kernel
 #1 up to 1536 px in bf16, kernel #4 beyond.
+
+`apply(..., remat=True)` recomputes each double- and single-stream block in
+the backward instead of keeping its activations (`torch.utils.checkpoint`,
+non-reentrant, as the JAX package wraps the blocks in `jax.checkpoint`,
+models/flux.py:296-298); it takes effect only when grad mode is on.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sliders_tpu_torch.models.params import ParamFactory
 from sliders_tpu_torch.ops.attention import multihead_attention
@@ -232,21 +238,28 @@ def final_layer(params: dict, img: torch.Tensor, temb: torch.Tensor) -> torch.Te
 
 def apply(params: dict, cfg: FluxConfig, packed_latents: torch.Tensor, timestep: torch.Tensor,
           pooled: torch.Tensor, encoder_hidden_states: torch.Tensor, txt_ids_arr, img_ids_arr,
-          guidance: Optional[torch.Tensor] = None,
-          lora: Optional[SliderLora] = None) -> torch.Tensor:
+          guidance: Optional[torch.Tensor] = None, lora: Optional[SliderLora] = None,
+          remat: bool = False) -> torch.Tensor:
     """The flow velocity (B, L_img, in_channels). `txt_ids_arr` (L_txt, 3)
-    and `img_ids_arr` (L_img, 3) are arrays or tensors of RoPE ids."""
+    and `img_ids_arr` (L_img, 3) are arrays or tensors of RoPE ids. `remat`
+    checkpoints every block (see the module docstring)."""
     img, txt, temb = embed_inputs(params, cfg, packed_latents, timestep, pooled,
                                   encoder_hidden_states, guidance)
     ids = torch.cat([torch.as_tensor(txt_ids_arr), torch.as_tensor(img_ids_arr)]).to(img.device)
     cos, sin = rope_tables(ids, cfg)
+
+    def run(block, *args):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     for i in range(cfg.num_layers):
-        img, txt = _double_block(params["transformer_blocks"][str(i)], img, txt, temb, cos, sin,
-                                 cfg, lora, f"transformer_blocks.{i}")
+        img, txt = run(_double_block, params["transformer_blocks"][str(i)], img, txt, temb, cos,
+                       sin, cfg, lora, f"transformer_blocks.{i}")
     x = torch.cat([txt, img], dim=1)
     for i in range(cfg.num_single_layers):
-        x = _single_block(params["single_transformer_blocks"][str(i)], x, temb, cos, sin, cfg,
-                          lora, f"single_transformer_blocks.{i}")
+        x = run(_single_block, params["single_transformer_blocks"][str(i)], x, temb, cos, sin,
+                cfg, lora, f"single_transformer_blocks.{i}")
     return final_layer(params, x[:, txt.shape[1]:], temb)
 
 

@@ -40,7 +40,11 @@ LIBRARIES = {
         "sd_attention_bwd": [_P] * 8 + [_I] * 6 + [_L] * 21 + [_F, _P],
     }),
     "flash": (CSRC / "flash_attention.cu", (CSRC / "sd_attention_common.cuh",), {
-        "flash_attention_fwd": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
+        # q, k, v, o, ml; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
+        "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
+        # q, k, v, do, m, l, di, dq, dk, dv; B, H, Lq, Lk, d, is_f32, part;
+        # q/k/v/do/dq/dk/dv strides; scale, stream
+        "flash_attention_bwd": [_P] * 10 + [_I] * 7 + [_L] * 21 + [_F, _P],
     }),
     "conv": (CSRC / "conv3x3.cu", (CSRC / "conv3x3.cuh",), {
         # x, w, bias, extra, a, s, y; B, H, W, C, N, is_f32, mode, prologue;

@@ -20,14 +20,22 @@ runs its plain version on CPU tensors):
   package's boundary between its two kernels.
 
 Under grad, a call routed to #1 goes through `sd_attention.SdAttention`,
-whose backward on CUDA is the backward kernel: `routes_to_sd_bwd_kernel`
-documents that gate, which is the forward gate. The JAX package routes its
-backward kernel only for d >= `BWD_MIN_D` (96) on a TPU, a threshold from a
-TPU A/B in which d=40 was neutral; no H100 measurement backs any threshold,
-so the port routes the backward wherever the forward routes and
-`chip_smoke.py` records both the kernel's and the plain backward's times.
-Kernel #4 has no backward yet and refuses grad (FLUX training, ROADMAP
-queue 1, item 11).
+whose backward on CUDA is the backward kernel #2: `routes_to_sd_bwd_kernel`
+documents that gate, which is the forward gate. A call routed to #4 goes
+through `flash_attention.FlashAttention`, whose backward is #4's own dk/dv
+and dq kernels (d = 128 and 256), as the stock TPU kernel's custom_vjp.
+
+The backward routing differs from the JAX package's, by design: under #1
+the JAX package differentiates through kernel #2 only for d >= `BWD_MIN_D`
+(96, from a TPU A/B in which d=40 was neutral) and only where #2's TPU VMEM
+budget holds (`supports_bwd`, pallas_attention.py:200-218: at FLUX's L =
+4608 in bf16, 1024 px training, it needs 14.3 MB of a 13 MiB budget); every
+other call takes the XLA VJP of `xla_attention`. No H100 measurement backs
+either limit, so the port routes #2 wherever #1 routes (SD1.5's d=40 and 80,
+FLUX at 512-1536 px), which rounds p and ds where the TPU kernel does, not
+where XLA's VJP does. `chip_smoke.py` records the kernel's and the plain
+backward's times (ROADMAP queue 3;
+`tests/test_torch_flash_attention.py::test_backward_routing_difference_is_pinned`).
 
 `set_attention_impl` mirrors the JAX package's `set_default_attention_impl`
 (`config.tpu.attention`): 'auto' and 'pallas' take the kernel routes where

@@ -12,9 +12,10 @@ Here the slider scale, the gate and the guidance are per-row (B,) vectors and
 the adapters may be per-row stacked, so one batched denoise serves many
 requests: the gate is the LoRA multiplier scale * (i > skip_till). The
 JAX `lax.scan` over steps is a Python loop, one transformer forward per
-step. Not ported yet: a scalar scale with a solo adapter takes the
-merged-delta path (lora/merge.py, ROADMAP queue 1, items 7 and 12), and the
-pipeline-parallel `mesh` (item 15); both are refused by name.
+step. Not ported yet: the merged-delta sampling path that a scalar scale
+with a solo adapter takes (ROADMAP queue 1, item 7; the merge itself is in,
+`lora/merge.py`), and the pipeline-parallel `mesh` (item 15); both are
+refused by name.
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, la
             slider_scale = torch.as_tensor(slider_scale, dtype=torch.float32, device=device)
             if slider_scale.ndim == 0 and not is_stacked(lora_weights):
                 raise NotImplementedError(
-                    "a scalar slider scale with one adapter takes the merged-delta path, not "
-                    "ported yet (ROADMAP queue 1, items 7 and 12); pass a (B,) scale vector")
+                    "a scalar slider scale with one adapter takes the merged-delta sampling "
+                    "path, not ported yet (ROADMAP queue 1, item 7); pass a (B,) scale vector")
             skip_till = torch.as_tensor(skip_till, dtype=torch.float32, device=device)
         pooled = pooled.to(device=device, dtype=compute_dtype)
         t5_embeds = t5_embeds.to(device=device, dtype=compute_dtype)

@@ -1,4 +1,5 @@
-"""Host-side training loop (port of sliders_tpu/training/driver.py).
+"""Host-side training loops (port of sliders_tpu/training/driver.py, and of
+the loop of sliders_tpu/cli/train_flux_slider.py as `train_flux_sliders`).
 
 The reference `train()` loop (train_lora.py:32-340) around one step
 function, with the JAX package's additions and observable behaviour: the
@@ -26,12 +27,18 @@ import numpy as np
 import torch
 
 from sliders_tpu_torch.core.config import RootConfig, to_dict
-from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
+from sliders_tpu_torch.diffusion.schedulers import (
+    make_flowmatch_sampler,
+    make_sampler,
+    make_schedule,
+)
 from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora import network as lnet
-from sliders_tpu_torch.models.loader import SDModels
+from sliders_tpu_torch.models.loader import FluxModels, SDModels
 from sliders_tpu_torch.pipelines.encoding import encode_prompts
+from sliders_tpu_torch.pipelines.flux_t2i import encode_prompts_flux
 from sliders_tpu_torch.training import optimizers as opt_factory
+from sliders_tpu_torch.training.flux_slider import ROLES, make_flux_slider_step
 from sliders_tpu_torch.training.text_slider import (
     SliderTrainState,
     make_text_slider_step,
@@ -120,6 +127,11 @@ def _param_device(tree: dict) -> torch.device:
     raise ValueError("empty parameter tree")
 
 
+def compute_dtype_of(config: RootConfig) -> torch.dtype:
+    return {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}.get(config.train.precision,
+                                                                    torch.float32)
+
+
 def train_text_sliders(
     config: RootConfig,
     prompts: list,
@@ -145,8 +157,7 @@ def train_text_sliders(
         buckets.setdefault((s.resolution, s.batch_size), []).append(s)
 
     cache = PromptEmbedsCache(models)
-    compute_dtype = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}.get(
-        config.train.precision, torch.float32)
+    compute_dtype = compute_dtype_of(config)
     schedule = make_schedule(
         prediction_type="v_prediction" if config.pretrained_model.v_pred else "epsilon")
     sampler = make_sampler(schedule, config.train.noise_scheduler,
@@ -235,5 +246,91 @@ def train_text_sliders(
     print("Saving...")
     lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora,
                         dtype=save_dtype)
+    print("Done.")
+    return {m: {k: t.detach().cpu() for k, t in e.items()} for m, e in state.lora.items()}
+
+
+def train_flux_sliders(
+    config: RootConfig,
+    prompts: list,
+    models: FluxModels,
+    *,
+    seed: int = 0,
+    t5_len: int = 512,
+    transformer_guidance: float = 1.0,
+    on_step=None,
+    lora: Optional[dict] = None,
+) -> dict:
+    """The FLUX text-slider loop of the JAX package's train_flux_slider CLI,
+    on the device of the transformer's parameters: an ortho-up LoRA for
+    every method but 'full' (drawn on that device), every prompt pair
+    encoded once (CLIP pooled + T5 at `t5_len`), one step call per iteration
+    (`tpu.steps_per_call` batches dispatch in the JAX package and changes no
+    result here), `{name}_{i}steps` saves at the JAX CLI's steps, then
+    `{name}_last`. Returns the final LoRA on the CPU; `on_step(step, state,
+    metrics)` is called after every iteration. `lora`, if given, is the tree
+    to train from in place of a fresh init (copied to the device), so that
+    runs on two devices can start from the same factors."""
+    _refuse_unported(config)
+    device = _param_device(models.transformer_params)
+    dtype = compute_dtype_of(config)
+    ortho = config.network.training_method != "full"
+    if lora is None:
+        lora = lnet.create_slider_network(
+            torch.Generator(device=device).manual_seed(seed + 1), models.transformer_params,
+            rank=config.network.rank, alpha=config.network.alpha,
+            train_method=config.network.training_method, ortho_up=ortho,
+            dtype=torch.float32, device=device,  # master LoRA weights in f32; the merge casts
+        )
+    else:
+        lora = {m: {k: t.to(device=device, copy=True) for k, t in e.items()}
+                for m, e in lora.items()}
+    print(f"create LoRA for transformer: {len(lora)} modules (ortho_up={ortho}).")
+    mask = lnet.trainable_mask(lora, ortho_up=ortho)
+    optimizer = opt_factory.make_optimizer(
+        config.train.optimizer,
+        opt_factory.make_lr_schedule(config.train.lr_scheduler, config.train.lr,
+                                     config.train.iterations),
+        opt_factory.parse_optimizer_args(config.train.optimizer_args),
+        trainable_mask=mask,
+    )
+    resolution = prompts[0].resolution
+    sampler = make_flowmatch_sampler(num_steps=config.train.max_denoising_steps,
+                                     image_seq_len=((resolution // 8) // 2) ** 2)
+    step = make_flux_slider_step(
+        models.transformer_config, sampler, optimizer, resolution=resolution,
+        batch_size=prompts[0].batch_size, transformer_guidance=transformer_guidance,
+        compute_dtype=dtype, remat=config.tpu.remat, trainable_mask=mask,
+    )
+
+    pair_dicts = []
+    for s in prompts:
+        sign = 1.0 if s.action == "enhance" else -1.0
+        pair = {"guidance_signed": torch.tensor(sign * s.guidance_scale, dtype=torch.float32,
+                                                device=device)}
+        for role in ROLES:
+            pooled, t5e = encode_prompts_flux(models, [getattr(s, role)], max_t5_len=t5_len)
+            pair[f"{role}_pooled"], pair[f"{role}_t5"] = pooled[0], t5e[0]
+        pair_dicts.append(pair)
+    pairs = stack_prompt_pairs(pair_dicts)
+
+    state = SliderTrainState.create(seed, lora, optimizer)
+    save_dir = Path(config.save.path)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    ext = ".safetensors" if config.save.format == "safetensors" else ".pt"
+    with open(save_dir / f"{config.save.name}_metadata.json", "w") as f:
+        json.dump({"prompts": [p.to_dict() for p in prompts], "config": to_dict(config)}, f,
+                  indent=2)
+
+    iterations, per = config.train.iterations, config.save.per_steps
+    for sj in range(iterations):
+        state, m = step(state, models.transformer_params, pairs)
+        if sj % config.logging.log_every == 0:
+            print(f"step {sj}: loss*1k={m['loss'] * 1000:.4f}")
+        if on_step is not None:
+            on_step(sj, state, m)
+        if per and sj % per == 0 and sj != 0 and sj != iterations - 1:
+            lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"), state.lora)
+    lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
     print("Done.")
     return {m: {k: t.detach().cpu() for k, t in e.items()} for m, e in state.lora.items()}

@@ -8,13 +8,21 @@ p rounded): in f32 only summation orders differ (1e-6 of the largest
 value); in bf16 the two round p at different points (normalised or not), so
 an output may move a few bf16 ulps (held to 4 at the largest magnitude).
 
+`flash_attention_bwd_ref`, the plain version of the backward kernels, is
+held to `jax.vjp` of the JAX package's `xla_attention` (f32: 2e-5 of the
+largest gradient; bf16: 2 ulps at the largest magnitude, since the two round
+p and ds at other points) and to `jax.grad` of the stock TPU kernel itself in
+interpret mode (f32, 2e-6).
+
 The routing decision (#4 / #1 / plain) of `ops/attention.py` is held to the
 JAX package's pure shape functions (`pallas_attention.supports`,
-`flash_attention.supports`) over a grid of shapes in bf16 and f32.
+`flash_attention.supports`) over a grid of shapes in bf16 and f32, and the
+JAX package's backward decision (#2 or its XLA VJP) is pinned beside it.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,13 +73,116 @@ def test_flash_ref_rounds_unnormalised_p():
 
 
 def test_flash_wrapper_on_cpu_runs_the_plain_version_and_refuses_grad():
+    """CPU tensors run the plain version and never reach the kernel; under
+    grad the output carries a gradient through `FlashAttention` at d = 128,
+    and d = 512 (the VAE's, never trained) is refused by name."""
     q, k, v = (torch.from_numpy(t) for t in _qkv((1, 2, 256, 128), 2))
     before = tfa.flash_attention.launches
     torch.testing.assert_close(tfa.flash_attention(q, k, v), tfa.flash_attention_ref(q, k, v),
                                rtol=0, atol=0)
     assert tfa.flash_attention.launches == before  # CPU tensors never reach the kernel
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfa.flash_attention(q.requires_grad_(), k, v)
+    out = tfa.flash_attention(q.clone().requires_grad_(), k, v)
+    assert out.grad_fn is not None
+    wide = torch.zeros((1, 1, 128, 512), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="queue 2, item 3"):
+        tfa.flash_attention(wide, wide, wide)
+
+
+def _jax_vjp(fn, arrays, cotangent):
+    out, vjp = jax.vjp(fn, *arrays)
+    return out, vjp(cotangent)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 128), (1, 1, 384, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_ref_matches_jax_vjp(shape, dtype):
+    """dq, dk, dv of the plain backward (from the plain forward's o, m, l)
+    against jax.vjp of xla_attention with a random cotangent. f32: only
+    summation orders differ (2e-5 of the largest gradient). bf16: the
+    backward rounds p and ds to bf16 before the products where JAX's
+    autograd rounds at its own points, so an element moves up to 2 bf16
+    ulps at the gradient's largest magnitude (1 seen)."""
+    q, k, v = _qkv(shape, 5)
+    g = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, want = _jax_vjp(jax_xla_attention, [jnp.asarray(t).astype(jdt) for t in (q, k, v)],
+                       jnp.asarray(g).astype(jdt))
+    tq, tk, tv, tg = (torch.from_numpy(t).to(tdt) for t in (q, k, v, g))
+    o, m, l = tfa.flash_attention_fwd_ref(tq, tk, tv)
+    assert m.shape == l.shape == shape[:3] and m.dtype == l.dtype == torch.float32
+    got = tfa.flash_attention_bwd_ref(tq, tk, tv, o, tg, m, l)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b.astype(jnp.float32))
+        assert a.dtype == tdt and a.shape == shape
+        scale = np.abs(b).max()
+        tol = 2e-5 * max(1.0, scale) if dtype == "float32" else 2 * _bf16_ulp(scale)
+        err = np.abs(a.float().numpy() - b).max()
+        assert err <= tol, (name, err, tol)
+
+
+def test_flash_bwd_ref_matches_stock_kernel_interpret():
+    """The plain forward and backward against the stock TPU flash kernel the
+    JAX package calls (its custom_vjp: residual forward, dk/dv and dq
+    kernels), run in interpret mode as tests/test_flash_attention.py runs
+    the forward, f32: within 2e-6 (summation orders only)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from sliders_tpu.ops import flash_attention as jax_flash
+
+    shape = (1, 1, 1024, 128)
+    q, k, v = _qkv(shape, 7)
+    g = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        out, want = _jax_vjp(jax_flash.flash_attention, [jnp.asarray(t) for t in (q, k, v)],
+                             jnp.asarray(g))
+        want = [np.asarray(t) for t in want]
+        out = np.asarray(out)
+    tq, tk, tv, tg = (torch.from_numpy(t) for t in (q, k, v, g))
+    o, m, l = tfa.flash_attention_fwd_ref(tq, tk, tv)
+    np.testing.assert_allclose(o.numpy(), out, rtol=0, atol=2e-6)
+    for a, b in zip(tfa.flash_attention_bwd_ref(tq, tk, tv, o, tg, m, l), want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=2e-6)
+
+
+def test_flash_bwd_ref_rounds_p_and_ds():
+    """In bf16 the plain backward keeps the TPU kernels' cast points: p and
+    ds are rounded to do's dtype before the products with do and q/k (so dv
+    and dk differ from the unrounded products), and ds carries the scale
+    before its rounding."""
+    q, k, v = (torch.from_numpy(t).bfloat16() for t in _qkv((1, 1, 128, 128), 9))
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal((1, 1, 128, 128))
+                         .astype(np.float32)).bfloat16()
+    o, m, l = tfa.flash_attention_fwd_ref(q, k, v)
+    dq, dk, dv = tfa.flash_attention_bwd_ref(q, k, v, o, g, m, l)
+    scale = 128**-0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - m[..., None]) * (1.0 / l[..., None])
+    di = (o.float() * g.float()).sum(-1, keepdim=True)
+    ds = (torch.matmul(g.float(), v.float().transpose(-1, -2)) - di) * p * scale
+    want_dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), g.float())
+    want_dk = torch.matmul(ds.bfloat16().float().transpose(-1, -2), q.float())
+    want_dq = torch.matmul(ds.bfloat16().float(), k.float())
+    torch.testing.assert_close(dv, want_dv.bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(dk, want_dk.bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(dq, want_dq.bfloat16(), rtol=0, atol=0)
+    unrounded = torch.matmul(p.transpose(-1, -2), g.float()).bfloat16()
+    assert not torch.equal(dv, unrounded)
+
+
+def test_flash_function_grads_on_cpu_equal_the_plain_backward():
+    """`FlashAttention` on CPU tensors: the output carries a grad_fn, and its
+    gradients are `flash_attention_bwd_ref`'s on the plain forward's
+    residuals, bit for bit."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv((1, 2, 256, 128), 11))
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal((1, 2, 256, 128))
+                         .astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, g)
+    o, m, l = tfa.flash_attention_fwd_ref(q, k, v)
+    for a, b in zip(got, tfa.flash_attention_bwd_ref(q, k, v, o, g, m, l)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _jax_route(q_shape, k_shape, mask, itemsize):
@@ -83,6 +194,61 @@ def _jax_route(q_shape, k_shape, mask, itemsize):
     if jfa.supports(q_shape, k_shape):
         return "flash"
     return "plain"
+
+
+def test_flash_function_under_checkpoint_equals_without():
+    """Inside `torch.utils.checkpoint` (the FLUX blocks' remat), the
+    backward recomputes the forward and unpacks its saved tensors once; the
+    gradients equal those without the checkpoint, bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    q, k, v = (torch.from_numpy(t) for t in _qkv((1, 2, 256, 128), 13))
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal((1, 2, 256, 128))
+                         .astype(np.float32))
+
+    def grads(remat):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn = (lambda *a: checkpoint(tfa.flash_attention, *a, use_reentrant=False)) if remat \
+            else tfa.flash_attention
+        return torch.autograd.grad(fn(*leaves) * 2.0, leaves, g)
+
+    for a, b in zip(grads(True), grads(False)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _jax_bwd_route(q_shape, k_shape, mask, itemsize):
+    """The JAX package's backward on a TPU for a call its forward routes:
+    kernel #2 where #1 routes, d >= BWD_MIN_D and `supports_bwd` holds
+    (pallas_attention.py:119-128), else the XLA VJP; the stock kernel's own
+    backward for #4."""
+    route = _jax_route(q_shape, k_shape, mask, itemsize)
+    if route == "sd":
+        if q_shape[3] >= jpa.BWD_MIN_D and jpa.supports_bwd(q_shape, k_shape, itemsize=itemsize):
+            return "sd_bwd"
+        return "xla_vjp"
+    return {"flash": "flash_bwd", "plain": "xla_vjp"}[route]
+
+
+@pytest.mark.parametrize("L,d,itemsize,want", [
+    (1536, 128, 2, "sd_bwd"),   # FLUX training at 512 px
+    (4608, 128, 2, "xla_vjp"),  # FLUX training at 1024 px: 14.3 MB > the 13 MiB budget
+    (4096, 40, 2, "xla_vjp"),   # SD1.5 level 0: d < BWD_MIN_D
+    (1024, 80, 2, "xla_vjp"),   # SD1.5 level 1
+    (16896, 128, 2, "flash_bwd"),  # FLUX training at 2048 px
+    (9728, 128, 4, "flash_bwd"),   # the tiny FLUX run at 1536 px in f32
+])
+def test_backward_routing_difference_is_pinned(L, d, itemsize, want):
+    """Where the forward takes #1, the JAX package differentiates through
+    kernel #2 only for d >= 96 within #2's TPU VMEM budget, else through the
+    XLA VJP; the port's backward takes #2 wherever #1 routes (ROADMAP queue
+    3). #4's backward follows #4's forward in both."""
+    q_shape = (1, 24, L, d)
+    assert _jax_bwd_route(q_shape, q_shape, None, itemsize) == want
+    port = _port_route(q_shape, q_shape, None, itemsize)
+    if want == "flash_bwd":
+        assert port == "flash"
+    else:
+        assert port == "sd" and ta.routes_to_sd_bwd_kernel(q_shape, q_shape, None)
 
 
 def _port_route(q_shape, k_shape, mask, itemsize):

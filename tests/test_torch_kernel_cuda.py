@@ -1,5 +1,6 @@
-"""The hand-written kernels (SD attention #1-#2, flash attention #4, conv
-#5-#7, GroupNorm #8) against their plain versions on a CUDA device.
+"""The hand-written kernels (SD attention #1-#2, flash attention #4 and its
+backward, conv #5-#7, GroupNorm #8) against their plain versions on a CUDA
+device, and a tiny FLUX training step through them.
 
 Skips without a card. On one, run it without the JAX test setup:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernel_cuda.py -q
@@ -417,12 +418,13 @@ def test_flash_kernel_takes_head_strided_views(cuda):
 
 @pytest.mark.requires_cuda
 def test_flash_kernel_refuses_grad_and_bad_shapes(cuda):
-    """No backward yet (FLUX training), and no fallback: shapes the kernel
-    does not take raise."""
+    """The backward takes d = 128 and 256: grad at the VAE's d = 512 is
+    refused by name; and no fallback: shapes the kernel does not take
+    raise."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
-    q = torch.randn((1, 2, 1024, 128), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="FLUX training"):
+    q = torch.randn((1, 1, 1024, 512), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="queue 2, item 3"):
         fa.flash_attention(q, q, q)
     launches = fa.flash_attention.launches
     for shape in ((1, 2, 1000, 128), (1, 2, 1024, 96)):
@@ -430,3 +432,163 @@ def test_flash_kernel_refuses_grad_and_bad_shapes(cuda):
         with pytest.raises(ValueError):
             fa.flash_attention(t, t, t)
     assert fa.flash_attention.launches == launches
+
+
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    B, L, D = x.shape
+    return x.view(B, L, heads, D // heads).permute(0, 2, 1, 3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize(
+    "shape,dtype,views",
+    [
+        ((1, 2, 2048, 128), torch.bfloat16, False),
+        ((1, 3, 2048, 128), torch.bfloat16, True),  # head views of (B, L, H*d), as FLUX passes them
+        ((2, 2, 1024, 256), torch.bfloat16, False),
+        ((1, 2, 1024, 128), torch.float32, False),
+        ((1, 2, 1024, 128), torch.float32, True),
+        ((1, 1, 1024, 256), torch.float32, False),
+    ],
+)
+def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype, views):
+    """#4's residual forward and its dk/dv and dq kernels against the plain
+    versions on the same inputs: m and l within 1e-5 relative (f32 sums in
+    another order), o as in the forward test, and dq, dk, dv from the same
+    o, m, l against flash_attention_bwd_ref: both round p and ds to the
+    input dtype at the same points and sum in other orders with another
+    exp, so bf16 is held to 4 ulps at each output's largest magnitude, f32
+    to 1e-5 of it."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    B, H, L, d = shape
+    if views:
+        q, k, v, g = (_heads(torch.randn((B, L, H * d), generator=gen, device=cuda).to(dtype), H)
+                      for _ in range(4))
+    else:
+        q, k, v, g = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    counts = (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+              fa.flash_attention_bwd.dq_launches)
+    o, m, l = fa._forward(q, k, v, residuals=True)
+    out = fa.flash_attention_bwd(q, k, v, o, g, m, l)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+            fa.flash_attention_bwd.dq_launches) == tuple(c + 1 for c in counts)
+    ro, rm, rl = fa.flash_attention_fwd_ref(q, k, v)
+    for a, b in ((m, rm), (l, rl)):
+        assert a.shape == (B, H, L) and (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, g, m, l)
+    for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+        assert a.shape == r.shape and a.dtype == dtype
+        ref_max = r.float().abs().max().item()
+        tol = 4 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize(
+    "length,heads,dtype,rel_tol",
+    [
+        (6144, 2, torch.float32, 1e-5),  # #4 in f32 from 6144 tokens (FLUX at 1536 px: 9728)
+        # bf16: the plain route's autograd rounds dp to bf16 and keeps ds in
+        # f32 and normalises p before rounding it, where the kernels keep dp
+        # in f32 and round unnormalised p and ds: 16 bf16 ulps at the largest
+        (10240, 2, torch.bfloat16, 2.0**-6),
+    ],
+)
+def test_flash_function_grads_match_plain_route(cuda, length, heads, dtype, rel_tol):
+    """A self-attention routed to #4 under grad carries a grad_fn, its
+    gradients come from #4's backward kernels, and they equal the plain
+    route's (autograd through xla_attention)."""
+    from sliders_tpu_torch.ops import attention as ta
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x = [(torch.randn((1, length, heads * 128), generator=gen, device=cuda) * 0.5).to(dtype)
+         for _ in range(4)]
+    q, k, v = (t.clone().requires_grad_() for t in x[:3])
+    counts = (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+              fa.flash_attention_bwd.dq_launches, sa.sd_attention.launches)
+    out = ta.multihead_attention(q, k, v, heads)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), x[3])
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+            fa.flash_attention_bwd.dq_launches, sa.sd_attention.launches) == (
+                counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3])
+    ta.set_attention_impl("xla")
+    try:
+        qp, kp, vp = (t.clone().requires_grad_() for t in x[:3])
+        plain = torch.autograd.grad(ta.multihead_attention(qp, kp, vp, heads), (qp, kp, vp), x[3])
+    finally:
+        ta.set_attention_impl("auto")
+    for gk, gp in zip(grads, plain):
+        scale = gp.float().abs().max().item()
+        assert (gk.float() - gp.float()).abs().max().item() <= rel_tol * max(scale, 1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_bwd_kernel_at_flux_training_shape(cuda):
+    """Kernel #2 at d = 128 on FLUX's 512 px grad-pass shape (1, 24, 1536,
+    128), on head views of (B, L, 3072) buffers as models/flux.py passes
+    them: within 4 bf16 ulps of sd_attention_bwd_ref at each output's
+    largest magnitude."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, g = (_heads(torch.randn((1, 1536, 3072), generator=gen, device=cuda).bfloat16(), 24)
+                  for _ in range(4))
+    out = sa.sd_attention_bwd(q, k, v, g)
+    ref = sa.sd_attention_bwd_ref(q, k, v, g)
+    for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+        tol = 4 * _ulps_bf16(r.float().abs().max().item())
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.requires_cuda
+def test_tiny_flux_training_step_moves_every_down(cuda):
+    """One FLUX training step on the card: a TINY transformer at FLUX's head
+    dim 128 in f32 at 1536 px (L = 512 + 96**2 = 9728: #4's route, with
+    remat), an xattn ortho-up slider. t_to = 1 of 2 steps: #4's forward
+    launches 4 joint attentions x (1 denoise + 1 frozen + 2 grad with remat),
+    its backward 4; every down moves, every up and alpha stays bit for bit,
+    and the loss is finite."""
+    import dataclasses
+
+    from sliders_tpu_torch.diffusion.schedulers import make_flowmatch_sampler
+    from sliders_tpu_torch.lora.network import create_slider_network, trainable_mask
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.training import flux_slider, optimizers, text_slider
+
+    cfg = dataclasses.replace(flux.TINY, attention_head_dim=128, axes_dims_rope=(16, 56, 56))
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    params = flux.init_params(gen, cfg, device=cuda)
+    lora = create_slider_network(gen, params, rank=4, train_method="xattn", ortho_up=True,
+                                 device=cuda)
+    before = {m: {k: t.clone() for k, t in e.items()} for m, e in lora.items()}
+    mask = trainable_mask(lora, ortho_up=True)
+    tx = optimizers.make_optimizer("adamw", optimizers.make_lr_schedule("constant", 1e-3, 10),
+                                   trainable_mask=mask)
+    step = flux_slider.make_flux_slider_step(
+        cfg, make_flowmatch_sampler(2, image_seq_len=9216), tx, resolution=1536,
+        compute_dtype=torch.float32, remat=True, trainable_mask=mask)
+    pair = {f"{r}_{k}": torch.randn(shape, generator=gen, device=cuda)
+            for r in flux_slider.ROLES
+            for k, shape in (("t5", (512, cfg.joint_attention_dim)),
+                             ("pooled", (cfg.pooled_projection_dim,)))}
+    pair["guidance_signed"] = torch.tensor(1.0, device=cuda)
+    pairs = text_slider.stack_prompt_pairs([pair])
+    counts = (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+              fa.flash_attention_bwd.dq_launches)
+    state = text_slider.SliderTrainState.create(0, lora, tx)
+    state, m = step(state, params, pairs)
+    torch.cuda.synchronize()
+    assert m["t_to"] == 1 and math.isfinite(m["loss"]) and set(m["phase_ms"]) == {
+        "denoise", "frozen", "grad", "update"}
+    assert (fa.flash_attention.launches - counts[0], fa.flash_attention_bwd.dkv_launches -
+            counts[1], fa.flash_attention_bwd.dq_launches - counts[2]) == (16, 4, 4)
+    for name, e in state.lora.items():
+        assert not torch.equal(e["down"], before[name]["down"]), name
+        assert torch.equal(e["up"], before[name]["up"]) and torch.equal(e["alpha"],
+                                                                        before[name]["alpha"])

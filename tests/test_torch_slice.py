@@ -291,6 +291,12 @@ def test_port_runs_without_jax(snapshot, flux_snapshot, tmp_path):
         "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
         f"save:\n  name: s\n  path: {tmp_path / 'out'}\n  format: pt\n"
         "tpu:\n  state_checkpoint_every: 1\n")
+    (tmp_path / "flux.yaml").write_text(
+        f"prompts_file: {tmp_path / 'prompts.yaml'}\n"
+        f"pretrained_model:\n  name_or_path: {flux_snapshot}\n"
+        "network:\n  rank: 2\n  training_method: xattn\n"
+        "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
+        f"save:\n  name: f\n  path: {tmp_path / 'flux_out'}\n")
     code = f"""
 import sys
 banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "sliders_tpu")
@@ -339,6 +345,10 @@ reply = json.loads(urllib.request.urlopen(req, timeout=120).read())
 assert len(reply["images"]) == 1 and engine.family == "flux", reply
 server.shutdown()
 engine.close(timeout=60)
+from sliders_tpu_torch.cli import train_flux_slider as fcli
+lora = fcli.main(fcli.build_parser().parse_args(
+    ["--config_file", {str(tmp_path / "flux.yaml")!r}, "--device", "cpu", "--t5_len", "16"]))
+assert all(torch.isfinite(t).all() for e in lora.values() for t in e.values())
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in banned]
 assert not loaded, loaded
 print("ok")
@@ -348,6 +358,7 @@ print("ok")
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "resumed from" in res.stdout and "at step 2" in res.stdout
+    assert "create LoRA for transformer: 22 modules (ortho_up=True)." in res.stdout
     assert res.stdout.strip().endswith("ok")
 
 
