@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD1.5 slider serving and slider training, and its
-FLUX-dev slider serving and slider training, once on one NVIDIA GPU, under
-the default conv route and the three conv-kernel routes of
-`ops.basic.set_conv_impl`.
+"""Drive the PyTorch port's SD1.5 slider serving and slider training, its
+FLUX-dev slider serving and slider training, and its SDXL-base slider
+serving and slider training, once on one NVIDIA GPU, under the default conv
+route and the three conv-kernel routes of `ops.basic.set_conv_impl`, and
+with the layout pin (`ops.basic.set_layout_pin`) off and on.
 
     python3 chip_smoke.py        # from the root of the repository
 
 Phases, each printing one line or a few before the last, and a [time] line
 with its seconds and the seconds since the start:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc.
-  2. build:  nvcc builds the five kernel libraries (sliders_tpu_torch/csrc:
+  2. build:  nvcc builds the six kernel libraries (sliders_tpu_torch/csrc:
      attention forward and backward, flash attention, the 3x3 conv kernels,
-     GroupNorm) for sm_90a, in parallel; registers and shared memory per
-     kernel.
+     GroupNorm, the layout pin) for sm_90a, in parallel; registers and
+     shared memory per kernel.
   3. kernel: the attention forward kernel against its plain PyTorch version
-     at the serving shapes, the backward kernel at the grad-pass shapes
-     (error of dq/dk/dv and median time of each); the conv kernels #5-#7
+     at the serving shapes (SD1.5's and SDXL's at bucket 8, SDXL training's
+     at 512 px), the backward kernel at the grad-pass shapes (SD1.5's, and
+     SDXL's d = 64 at 512 px; error of dq/dk/dv and median time of each); the conv kernels #5-#7
      against their plain versions at every conv shape the SD1.5 UNet routes
      at 512 px (batch 16, the mode the UNet uses there), two at batch 1 and
      one f32 shape each; the GroupNorm kernel #8 at the UNet's GN shapes;
@@ -23,14 +25,18 @@ with its seconds and the seconds since the start:
      and #1 checked, then timed beside SDPA, at the two FLUX serving shapes
      on head views of (B, L, 3072) buffers; #4's backward (its residual
      forward, dk/dv and dq kernels) at FLUX training's 2048 px grad pass,
-     the tiny 1536 px f32 run and d = 256, and #2 at FLUX's 512 px grad
-     pass; each kernel's bound and the time of one PyTorch call computing
-     the same function; then the tiny slice at 256 px and three tiny
+     the tiny 1280 px f32 run and d = 256, and #2 at FLUX's 512 px grad
+     pass; the layout pin #9 at the SDXL serving boundaries (bf16 and f32;
+     contiguous, channel-major and sliced inputs; bit for bit) and its
+     identity gradient; each kernel's bound and the time of one PyTorch call
+     computing the same function; then the tiny slice at 256 px and three tiny
      training steps at 256 px on the GPU (through the kernels) against the
      CPU (plain paths) in f32, under the default route and under conv impl
-     'fused', and a tiny FLUX snapshot served at 1536 px through
-     `cli/serve.py --flux` and trained at 1536 px through
-     `cli/train_flux_slider.py` on both (#4's route, with its backward).
+     'fused', and a tiny FLUX snapshot served at 1280 px through
+     `cli/serve.py --flux` and trained at 1280 px through
+     `cli/train_flux_slider.py` on both (#4's route, with its backward), and
+     TINY_XL at 512 px with the pin on (one forward, three XL train steps
+     of a dynamic-crop pair; #1, #2 and #9 with exact launches) on both.
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
@@ -72,6 +78,19 @@ with its seconds and the seconds since the start:
      (t_to + 3) and its backward 57), each iteration's host wall and device
      ms by phase, the peak memory, every down moved and every up and alpha
      bit for bit as initialised.
+  8. sdxl:   SDXL-base at full width (UNet 2,567,463,684 parameters, CLIP-L,
+     bigG with its projection, the SDXL VAE) in bf16 with seeded random
+     weights and a rank-4 noxattn slider: one denoise step at bucket 8 (16
+     CFG rows), 1024 px, guidance rescale 0.7, timed with the pin off and on
+     in turn (#1 70 and #9 0 / 22 launches a step), profiled, beside its
+     analytic bound; a 5-scale /generate at 1024 px (DDIM steps cut to 8)
+     with the pin off and again on (#9 22 x steps, the same images),
+     /healthz is_xl, #4 once per decode; then the training CLI with --xl on
+     a snapshot of the same weights, with data/config-xl.yaml's values and
+     data/prompts-xl.yaml's age pair at 512 px for 4 iterations, pin on:
+     launches exact (#1 10 x (t_to + 3), #2 10, #9 22 x (t_to + 2) + 21 per
+     iteration), every down and up moved, host wall and device ms by phase,
+     peak memory.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
 no such line. It needs a CUDA device and the rest of the repository beside
@@ -92,6 +111,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 
@@ -101,7 +121,9 @@ ROUTED_PER_FORWARD = 10  # SD1.5 at 512 px: 5 self-attentions at L=4096 + 5 at L
 KERNEL_SHAPES = [  # (B, H, L, d), dtype: the 8-row bucket CFG-doubled, and others
     ((16, 8, 4096, 40), "bfloat16"),
     ((16, 8, 1024, 80), "bfloat16"),
-    ((2, 10, 1024, 64), "bfloat16"),
+    ((16, 10, 4096, 64), "bfloat16"),  # SDXL serving at 1024 px: 10 a forward
+    ((16, 20, 1024, 64), "bfloat16"),  # and 60 a forward
+    ((2, 10, 1024, 64), "bfloat16"),  # SDXL training's CFG-doubled denoise at 512 px
     ((2, 8, 1024, 128), "bfloat16"),
     ((2, 24, 4608, 128), "bfloat16"),  # FLUX's joint attention at 1024 px, 2 of 8 rows
     ((2, 8, 4096, 40), "float32"),
@@ -110,6 +132,8 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((1, 8, 4096, 40), "bfloat16"),
     ((1, 8, 1024, 80), "bfloat16"),
     ((2, 8, 4096, 40), "bfloat16"),
+    ((1, 10, 1024, 64), "bfloat16"),  # SDXL training's grad pass at 512 px (10 a pass)
+    ((3, 10, 1024, 64), "bfloat16"),  # the same at batch 3
     ((1, 24, 4096, 128), "bfloat16"),
     ((1, 24, 1536, 128), "bfloat16"),  # FLUX training's grad pass at 512 px
     ((1, 8, 4096, 40), "float32"),
@@ -172,12 +196,12 @@ GN_SHAPES = [(hw * hw, c, True, 1e-5) for hw, cs in ((64, (320, 640, 960)),
 FLUX_BLOCKS = 57
 FLUX_STEPS = {1024: 4, 2048: 2}
 # kernel #4 against its plain version: FLUX's joint attention at 2048 px (two
-# of its 24 heads), two rows of the 1024 px bucket, f32 at 1536 px, d = 256,
+# of its 24 heads), two rows of the 1024 px bucket, f32 at 1280 px, d = 256,
 # and the VAE's single-head mid attention (d = 512, f32) at the decode shapes
 # of SD1.5 at 512 px (bucket 8) and FLUX at 1024 px (bucket 8) and 2048 px
 FLASH_SHAPES = [
     ((1, 2, 16896, 128), "bfloat16"), ((2, 24, 4608, 128), "bfloat16"),
-    ((1, 2, 9728, 128), "float32"), ((1, 2, 2048, 256), "bfloat16"),
+    ((1, 2, 6912, 128), "float32"), ((1, 2, 2048, 256), "bfloat16"),
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
 ]
@@ -187,14 +211,14 @@ VAE_FLASH_SHAPE = (8, 1, 16384, 512)
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
 FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
-# the tiny FLUX snapshot: L = 512 + (1536 / 16)**2 = 9728 at d = 128 in f32,
+# the tiny FLUX snapshot: L = 512 + (1280 / 16)**2 = 6912 at d = 128 in f32,
 # which kernel #1's TPU plan refuses, so the joint attention takes #4
-TINY_FLUX_PX = 1536
+TINY_FLUX_PX = 1280  # the least size whose joint attention #4 takes in f32
 TINY_FLUX_STEPS = 2
 # kernel #4's backward against its plain version: FLUX training's grad pass
-# at 2048 px (on head views), the tiny FLUX training run at 1536 px (f32),
+# at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32),
 # and d = 256
-FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 9728, 128), "float32"),
+FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 6912, 128), "float32"),
                     ((1, 2, 2048, 256), "bfloat16")]
 # tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
 TINY_FLUX_TRAIN_ITERATIONS = 2
@@ -209,6 +233,35 @@ TINY_FLUX_LR = 1e-5
 # max_denoising_steps cut from data/config.yaml's 50 (t_to in [1, 8))
 FLUX_TRAIN_ITERATIONS = {512: 4, 2048: 1}
 FLUX_TRAIN_STEPS = 8
+# SDXL-base (the UNet's 2,567,463,684 parameters are diffusers' sdxl-base-1.0,
+# as tests/test_unet.py pins them). At 1024 px its 11 Transformer2D blocks
+# (5 at 64x64, L = 4096, 2 layers each; 6 at 32x32, L = 1024, 10 layers each)
+# are pinned on both sides by #9 when the pin is on, and #1 takes every
+# self-attention (10 + 60; the cross-attentions' 77 keys stay plain). At
+# 512 px the L = 1024 level is the 640-wide one (10 self-attentions) and the
+# 1280-wide level's L = 256 is below #1's gate. In a grad pass 21 of the 22
+# pins run their backward: the first boundary's input depends on no LoRA
+# factor.
+SDXL_UNET_PARAMS = 2_567_463_684
+SDXL_SD_SHAPES = [(16, 10, 4096, 64), (16, 20, 1024, 64)]  # #1 at 1024 px, bucket 8
+SDXL_BWD_SHAPE = (1, 10, 1024, 64)  # #2 in the 512 px grad pass
+SDXL_PINS = 22
+SDXL_PIN_BWD = 21
+SDXL_SD_1024 = 70
+SDXL_SD_512 = 10
+SDXL_PX = 1024
+SDXL_HTTP_STEPS = 8  # DDIM steps per /generate, cut from the CLI's 50
+SDXL_STEP_ROUNDS = 3  # rounds of the step timing, pin off and on in turn
+SDXL_TRAIN_ITERATIONS = 4  # cut from data/config-xl.yaml's 1000
+# kernel #9 at the SDXL serving boundaries (bucket 8, 16 CFG rows, 1024 px)
+PIN_SHAPES = [(16, 4096, 640), (16, 1024, 1280)]
+# TINY_XL at 512 px: its attention level is 32x32 (L = 1024, #1's route): 8
+# self-attentions and 4 transformers (8 pins, 7 with a gradient) a forward
+TINY_XL_PX = 512
+TINY_XL_SD = 8
+TINY_XL_PINS = 8
+TINY_XL_LR = 1e-5  # as TINY_FLUX_LR
+
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 outside
 # them (the f32 kernels use plain FMAs), device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -300,7 +353,7 @@ def phase_device():
 # the kernels whose ptxas report `phase_build` prints: the attention kernels
 # at d <= 48 (SD1.5's d = 40; a change to their shared header has moved these
 # counts before) and at d = 128 (FLUX's), every conv and GroupNorm
-# instantiation, #4's forward and backward kernels
+# instantiation, #4's forward and backward kernels, #9's copy kernels
 REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E", "attn_bwd_dq_bf16"),
             ("attn_bwd_dkdv_bf16ILi48E", "attn_bwd_dkdv_bf16"),
             ("attn_fwd_bf16ILi128E", "attn_fwd_bf16<128>"),
@@ -312,7 +365,12 @@ REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E",
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
             ("group_norm_kernelIfE", "group_norm_f32"),
-            ("flash_fwd_bf16", "flash_fwd_bf16"), ("flash_fwd_f32", "flash_fwd_f32"))
+            ("flash_fwd_bf16", "flash_fwd_bf16"), ("flash_fwd_f32", "flash_fwd_f32"),
+            ("layout_pin_rows16", "layout_pin_rows16"),
+            ("layout_pin_transposeIt", "layout_pin_transpose_16bit"),
+            ("layout_pin_transposeIj", "layout_pin_transpose_32bit"),
+            ("layout_pin_gatherIt", "layout_pin_gather_16bit"),
+            ("layout_pin_gatherIj", "layout_pin_gather_32bit"))
 
 
 def ptxas_report(log: str) -> list:
@@ -838,11 +896,12 @@ def phase_tiny_slice(tok_dir: str):
 TINY_LR = 1e-4
 
 
-def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list, cfg=None):
-    """A tiny UNet (TINY unless `cfg`) at 256 px (L=1024 at level 0, so the
-    routed attention path) in f32 with remat: len(draws) train steps with
-    the given draws; returns the losses, the grad norms and the final LoRA
-    on the CPU."""
+def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list, cfg=None,
+               px: int = 256, lr: float = TINY_LR):
+    """A tiny UNet (TINY unless `cfg`) at `px` (256: L=1024 at level 0, so
+    the routed attention path) in f32 with remat: len(draws) train steps
+    with the given draws (an SDXL step for a text_time `cfg`); returns the
+    losses, the grad norms and the final LoRA on the CPU."""
     import torch
 
     from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
@@ -852,11 +911,13 @@ def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list, cf
     from sliders_tpu_torch.training import optimizers, text_slider
 
     sched = make_schedule()
-    tx = optimizers.make_optimizer("adamw", optimizers.make_lr_schedule("constant", TINY_LR, 100),
+    cfg = cfg or unet2d.TINY
+    tx = optimizers.make_optimizer("adamw", optimizers.make_lr_schedule("constant", lr, 100),
                                    trainable_mask=trainable_mask(lora))
     step = text_slider.make_text_slider_step(
-        cfg or unet2d.TINY, sched, make_sampler(sched, "ddim", 5), tx, max_denoising_steps=5,
-        resolution=256, compute_dtype=torch.float32, remat=True)
+        cfg, sched, make_sampler(sched, "ddim", 5), tx, max_denoising_steps=5,
+        resolution=px, compute_dtype=torch.float32, remat=True,
+        is_xl=cfg.addition_embed_type is not None)
     state = text_slider.SliderTrainState.create(0, tree_to(lora, device), tx)
     params = tree_to(unet, device)
     on_device = {k: v.to(device) for k, v in pairs.items()}
@@ -974,7 +1035,8 @@ def clip_hf_config(cfg, eos: int) -> dict:
             "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
             "intermediate_size": cfg.intermediate_size,
             "max_position_embeddings": cfg.max_positions, "hidden_act": cfg.hidden_act,
-            "eos_token_id": eos}
+            "eos_token_id": eos,
+            **({"projection_dim": cfg.projection_dim} if cfg.projection_dim else {})}
 
 
 def write_tiny_flux_snapshot(root: str) -> None:
@@ -982,7 +1044,7 @@ def write_tiny_flux_snapshot(root: str) -> None:
     TINY transformer (2 heads, 2 + 2 blocks) at FLUX's head dim 128, a tiny
     CLIP (the synthetic BPE tokenizer) and T5 (a WordLevel tokenizer_2), and
     TINY_FLUX's VAE with 128 mid-block channels, so that its single-head mid
-    attention (d = 128, L = 192**2 at 1536 px) takes kernel #4 as well and no
+    attention (d = 128, L = 160**2 at 1280 px) takes kernel #4 as well and no
     plain L x L score matrix is formed (TINY_FLUX's d = 32 would make it 5.4
     GB a row)."""
     import dataclasses
@@ -1148,7 +1210,7 @@ def reset_flux_counts() -> None:
 
 def phase_tiny_flux_train():
     """The tiny FLUX snapshot through the training CLI at TINY_FLUX_PX in f32
-    (L = 512 + 96**2 = 9728: #4's route, forward and backward), TF32 off, on
+    (L = 512 + 80**2 = 6912: #4's route, forward and backward), TF32 off, on
     the GPU (the kernels) and on the CPU (plain versions), from one ortho-up
     xattn LoRA. f32 sums in other orders only: each iteration's loss is held
     to 1e-5 relative, its grad norm to 1e-4, the LoRA after the last update
@@ -1249,7 +1311,8 @@ def _leaves(tree):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    for key, cls in (("attn_fwd", "attention kernel"), ("flash_fwd", "flash attention kernel"),
+    for key, cls in (("layout_pin", "layout pin kernel"),
+                     ("attn_fwd", "attention kernel"), ("flash_fwd", "flash attention kernel"),
                      ("attn_bwd", "attention backward kernel"),
                      ("flash_bwd", "flash attention backward kernel"),
                      ("conv3x3_", "conv kernel"),
@@ -1521,10 +1584,11 @@ def post(port: int, path: str, payload: dict) -> dict:
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
                                  data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=900) as r:
-        if r.status != 200:
-            raise AssertionError(f"{path} answered {r.status}")
-        return json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:  # the engine's error, e.g. out of memory
+        raise AssertionError(f"{path} answered {e.code}: {e.read()[:2000]!r}") from None
 
 
 def check_images(reply: dict, scales: list, tag: str, size: int = 512) -> list:
@@ -1695,8 +1759,13 @@ def serve_conv_impls(engine, port: int) -> dict:
 
 
 def unet_hf_config(cfg) -> dict:
-    """The diffusers unet/config.json of a UNetConfig (SD1 keys)."""
-    return {
+    """The diffusers unet/config.json of a UNetConfig (SD1 keys, and SDXL's
+    added-conditioning keys for a text_time config)."""
+    xl = {} if cfg.addition_embed_type is None else {
+        "addition_embed_type": cfg.addition_embed_type,
+        "addition_time_embed_dim": cfg.addition_time_embed_dim,
+        "projection_class_embeddings_input_dim": cfg.projection_class_embeddings_input_dim}
+    return {**xl,
         "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
         "block_out_channels": list(cfg.block_out_channels),
         "down_block_types": list(cfg.down_block_types),
@@ -1765,13 +1834,14 @@ def run_training(cfg: dict, path: str, extra: list) -> dict:
     import torch
 
     from sliders_tpu_torch.cli import train_text_slider as cli
+    from sliders_tpu_torch.ops import layout_pin as lp
     from sliders_tpu_torch.ops import sd_attention as sa
 
     with open(path, "w") as f:
         f.write(dump_yaml(cfg) + "\n")
     records = []
     torch.cuda.reset_peak_memory_stats()
-    sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+    sa.sd_attention.launches = sa.sd_attention_bwd.launches = lp.layout_pin_copy.launches = 0
     reset_conv_launches()
     t0 = time.perf_counter()
     final = cli.main(cli.build_parser().parse_args(["--config_file", path, "--device", "0",
@@ -1779,8 +1849,8 @@ def run_training(cfg: dict, path: str, extra: list) -> dict:
                      on_step=lambda i, state, m: records.append((i, time.perf_counter(), m)))
     torch.cuda.synchronize()
     return {"records": records, "fwd": sa.sd_attention.launches, "bwd": sa.sd_attention_bwd.launches,
-            "conv": conv_launches(), "lora": final, "seconds": time.perf_counter() - t0,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "pin": lp.layout_pin_copy.launches, "conv": conv_launches(), "lora": final,
+            "seconds": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def expected_fwd(records, remat: bool) -> int:
@@ -2014,8 +2084,8 @@ def build_flux_engine(tok_dir: str, t5_tok_dir: str):
 def phase_flux_step(engine) -> dict:
     """One FLUX-dev transformer forward at bucket 8, 1024 px (4096 image + 512
     text tokens), bf16, slider on at per-row scales: its launches (57 of #1,
-    none of #4), the median of 3 synced steps, then torch.profiler over 2
-    steps by kernel class."""
+    none of #4), the median of 3 synced steps, then torch.profiler over one
+    step by kernel class."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2054,19 +2124,18 @@ def phase_flux_step(engine) -> dict:
     ms = median_ms(step, runs=3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            step()
+        step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_class = by_kernel_class(prof)
     busy = sum(by_class.values())
     say("flux", f"transformer step, bucket 8, 1024 px, bf16, slider on: median {ms:.1f} ms "
         f"(launches per step: #1 {per_step[0]}, #4 {per_step[1]}); device ms per step by kernel "
-        f"class: " + ", ".join(f"{c} {v / 2:.1f} ({v / busy * 100:.1f}%)"
+        f"class: " + ", ".join(f"{c} {v:.1f} ({v / busy * 100:.1f}%)"
                                for c, v in sorted(by_class.items(), key=lambda kv: -kv[1]))
-        + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 2 steps); peak device "
+        + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 1 step); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    say("flux", f"top kernels over the 2 profiled steps: {top_kernels(prof)}")
+    say("flux", f"top kernels over the profiled step: {top_kernels(prof)}")
     return {"ms": ms, "sd_per_step": per_step[0]}
 
 
@@ -2143,6 +2212,9 @@ def phase_flux_2048(models, sliders: dict) -> dict:
     engine.register_slider("s1", sliders["s1"])
 
     def request(port, scales, bucket):
+        # return the cached blocks of the previous request first: the sweep
+        # peaks at about 68 GB of the card's 80
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         sa.sd_attention.launches = fa.flash_attention.launches = 0
         t0 = time.perf_counter()
@@ -2307,6 +2379,7 @@ def phase_flux(tmp: str) -> dict:
     engine = timed("flux build", build_flux_engine, tok_dir, t5_dir)
     step = timed("flux step", phase_flux_step, engine)
     served = timed("flux serving 1024 px", phase_flux_http, engine)
+    torch.cuda.empty_cache()
     big = timed("flux serving 2048 px", phase_flux_2048, engine.models, engine.sliders)
     models = engine.models
     del engine
@@ -2314,6 +2387,509 @@ def phase_flux(tmp: str) -> dict:
     torch.cuda.empty_cache()
     train = timed("flux training", phase_flux_train, models, tmp)
     return {"step": step, "serve_1024": served, "serve_2048": big, "train": train}
+
+
+# ---------------------------------------------------------------------------
+# kernel #9 and SDXL-base
+# ---------------------------------------------------------------------------
+
+
+def per_call_ms(fn, calls: int = 20) -> float:
+    """Median ms of one call, from CUDA-event timings of `calls` calls in a
+    row (a single call of a fast kernel is mostly launch overhead)."""
+    return median_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+
+def phase_layout_pin_kernel():
+    """Kernel #9 against its plain version at the SDXL serving boundary
+    shapes, in bf16 and f32, on a contiguous tensor, the channel-major view
+    of an NCHW buffer and a slice of wider rows: max abs error 0 (the bits
+    are copied) and a contiguous output. Its gradient through `LayoutPin` is
+    the identity. Median ms beside its bound (2 x bytes / 3.35 TB/s), its
+    plain version and `.contiguous()` (`torch.clone` of a contiguous input)."""
+    import torch
+
+    from sliders_tpu_torch.ops import layout_pin as lp
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = []
+    for B, L, C in PIN_SHAPES:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            views = {
+                "contiguous": torch.randn((B, L, C), generator=gen, device="cuda").to(dtype),
+                "channel_major": torch.randn((B, C, L), generator=gen, device="cuda")
+                .to(dtype).transpose(1, 2),
+                "sliced": torch.randn((B, L, C + 64), generator=gen, device="cuda")
+                .to(dtype)[..., 32:C + 32],
+            }
+            for kind, x in views.items():
+                y = lp.layout_pin_copy(x)
+                ref = lp.layout_pin_ref(x)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                as_int = torch.int16 if dt == "bfloat16" else torch.int32
+                if err != 0 or not torch.equal(y.view(as_int), ref.view(as_int)) or (
+                        not y.is_contiguous()):
+                    raise AssertionError(f"kernel #9 at {(B, L, C)} {dt} {kind}: max|err| {err}")
+                b_ms, b_by = bound(0, 2 * x.numel() * x.element_size(), dt)
+                library = (lambda x=x: torch.clone(x)) if x.is_contiguous() else x.contiguous
+                r = {"shape": (B, L, C), "dtype": dt, "view": kind, "err": err,
+                     "ms": per_call_ms(lambda: lp.layout_pin_copy(x)),
+                     "plain_ms": per_call_ms(lambda: lp.layout_pin_ref(x)),
+                     "library_ms": per_call_ms(library), "bound_ms": b_ms, "bound_by": b_by}
+                say("kernel", f"#9 layout pin {(B, L, C)} {dt} {kind}: max|err| 0, contiguous; "
+                    f"{r['ms']:.4f} ms (bound {b_ms:.4f}, {b_ms / r['ms'] * 100:.0f}% of it; "
+                    f"plain {r['plain_ms']:.4f}, .contiguous()/clone {r['library_ms']:.4f})")
+                out.append(r)
+            del views, x, y, ref
+    x = torch.randn((2, 1024, 1280), generator=gen, device="cuda").bfloat16().requires_grad_()
+    g = torch.randn((2, 1024, 1280), generator=gen, device="cuda").bfloat16().transpose(0, 1)
+    g = g.contiguous().transpose(0, 1)  # a strided cotangent
+    y = lp.LayoutPin.apply(x)
+    (gx,) = torch.autograd.grad(y, x, g)
+    if not (torch.equal(y, x.detach()) and torch.equal(gx, g) and gx.is_contiguous()):
+        raise AssertionError("LayoutPin's forward or gradient is not the identity")
+    say("kernel", "#9 through LayoutPin: output and gradient (of a strided cotangent) equal "
+        "their inputs bit for bit, both contiguous")
+    return out
+
+
+def phase_tiny_sdxl():
+    """TINY_XL (text_time conditioning, linear projections) at TINY_XL_PX in
+    f32, TF32 off, with the layout pin on, on the GPU (the kernels: #1 at
+    the L = 1024 level, #2 in the grad pass, #9 at the transformer
+    boundaries) against the CPU (plain paths; there the pin is the
+    identity). One forward with a slider at per-row scales, held to 1e-5 of
+    its largest value; then three XL train steps of a dynamic-crop pair, held
+    as the tiny FLUX training is: losses 1e-5 relative, grad norms 1e-4,
+    the LoRA after the last update 1e-6 at lr TINY_XL_LR. Launches are
+    exact."""
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import layout_pin as lp
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.ops.basic import SliderLora
+    from sliders_tpu_torch.training.text_slider import step_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, hw = unet2d.TINY_XL, TINY_XL_PX // 8
+    gen = torch.Generator().manual_seed(31)
+    unet = unet2d.init_params(gen, cfg)
+    lora = create_slider_network(gen, unet, rank=4, train_method="noxattn")
+    slider = {m: {**e, "up": torch.randn(e["up"].shape, generator=gen) * 0.1}
+              for m, e in lora.items()}
+    x = torch.randn((3, hw, hw, 4), generator=gen)
+    ctx = torch.randn((3, 7, 32), generator=gen)
+    added = {"text_embeds": torch.randn((3, 16), generator=gen),
+             "time_ids": torch.tensor([[512.0, 512, 0, 0, 512, 512], [1024, 768, 40, 8, 512, 512],
+                                       [600, 700, 3, 90, 512, 512]])}
+    t = torch.tensor([999.0, 500.0, 1.0])
+    mult = torch.tensor([-1.0, 0.0, 2.0])
+
+    def forward(device):
+        with torch.inference_mode():
+            return unet2d.apply(tree_to(unet, device), cfg, x.to(device), t.to(device),
+                                ctx.to(device), added_cond={k: v.to(device) for k, v in added.items()},
+                                lora=SliderLora(tree_to(slider, device), mult.to(device))).cpu()
+
+    def counts():
+        return (sa.sd_attention.launches, sa.sd_attention_bwd.launches, lp.layout_pin_copy.launches)
+
+    pairs = {k: torch.randn((1, 8, 32), generator=gen)
+             for k in ("target", "positive", "neutral", "unconditional")}
+    pairs.update({f"pooled_{k}": torch.randn((1, 16), generator=gen) for k in list(pairs)})
+    pairs["time_ids"] = torch.tensor([[512.0, 512, 0, 0, 512, 512]])
+    pairs["dynamic_crops"] = torch.tensor([1.0])
+    pairs["guidance_signed"] = torch.tensor([2.0])
+    draws = [step_draws(31, i, 1, 5, (1, hw, hw, 4), 1.0, crop=True) for i in range(3)]
+    basic.set_layout_pin(True)
+    try:
+        sa.sd_attention.launches = sa.sd_attention_bwd.launches = lp.layout_pin_copy.launches = 0
+        gpu = forward("cuda")
+        fwd_counts = counts()
+        cpu = forward("cpu")
+        sa.sd_attention.launches = sa.sd_attention_bwd.launches = lp.layout_pin_copy.launches = 0
+        gpu_losses, gpu_norms, gpu_lora = tiny_train("cuda", unet, lora, pairs, draws, cfg,
+                                                     TINY_XL_PX, TINY_XL_LR)
+        train_counts = counts()
+        cpu_losses, cpu_norms, cpu_lora = tiny_train("cpu", unet, lora, pairs, draws, cfg,
+                                                     TINY_XL_PX, TINY_XL_LR)
+    finally:
+        basic.set_layout_pin(False)
+    err, scale = (gpu - cpu).abs().max().item(), cpu.abs().max().item()
+    t_tos = [d[1] for d in draws]
+    train_expected = (TINY_XL_SD * sum(t + 3 for t in t_tos), TINY_XL_SD * len(draws),
+                      sum(TINY_XL_PINS * (t + 2) + TINY_XL_PINS - 1 for t in t_tos))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(gpu_norms, cpu_norms))
+    lora_err = max((gpu_lora[m][k] - cpu_lora[m][k]).abs().max().item()
+                   for m in cpu_lora for k in ("down", "up"))
+    say("kernel", f"tiny SDXL {TINY_XL_PX} px f32, pin on: forward GPU (#1, #2, #9 launches "
+        f"{fwd_counts}, expected ({TINY_XL_SD}, 0, {TINY_XL_PINS})) vs CPU: max|err| {err:.3g} "
+        f"(tol {1e-5 * scale:.3g}, max|eps| {scale:.3g}); 3 XL train steps of a dynamic-crop pair "
+        f"(t_to {t_tos}): launches {train_counts} (expected {train_expected} = 8 x sum(t_to + 3), "
+        f"8 x 3, sum(8 x (t_to + 2) + 7)), losses {[f'{v:.6g}' for v in gpu_losses]} vs "
+        f"{[f'{v:.6g}' for v in cpu_losses]}, max rel err {loss_err:.3g} (tol 1e-5); grad norms "
+        f"max rel err {norm_err:.3g} (tol 1e-4); LoRA max|err| {lora_err:.3g} (tol 1e-6)")
+    if fwd_counts != (TINY_XL_SD, 0, TINY_XL_PINS) or train_counts != train_expected:
+        raise AssertionError("tiny SDXL on the GPU did not go through the kernels exactly")
+    if not torch.isfinite(gpu).all() or err > 1e-5 * scale:
+        raise AssertionError("the tiny SDXL forward on the GPU disagrees with the CPU")
+    if not (loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
+        raise AssertionError("tiny SDXL training on the GPU disagrees with the CPU")
+    return {"sd": fwd_counts[0] + train_counts[0], "sd_bwd": train_counts[1],
+            "pin": fwd_counts[2] + train_counts[2]}
+
+
+def build_sdxl_engine(tok_dir: str):
+    """An SDXL SliderEngine at SDXL-base's full widths (UNet, CLIP-L, bigG
+    with its projection, the SDXL VAE) in bf16 with seeded random weights
+    drawn on the card, 1024 px, DDIM SDXL_HTTP_STEPS, guidance 7.5 with
+    rescale 0.7, start_noise 750, and one rank-4 noxattn slider. Both
+    tokenizers are the synthetic BPE one (tokenizer_2 pads with 0); the
+    encoders' EOS id is its EOS, so the pooled output is read there."""
+    import dataclasses
+
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import clip_text, unet2d, vae
+    from sliders_tpu_torch.models.loader import SDModels, TextEncoderBundle
+    from sliders_tpu_torch.serving.server import SliderEngine
+    from sliders_tpu_torch.text.tokenizer import ClipTokenizer
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    tes = []
+    for cfg, pad in ((clip_text.CLIP_L, None), (clip_text.CLIP_BIG_G, 0)):
+        tok = ClipTokenizer.from_pretrained(tok_dir, pad_token_id=pad)
+        tok.model_max_length = cfg.max_positions
+        cfg = dataclasses.replace(cfg, eos_token_id=tok.eos_token_id)
+        tes.append(TextEncoderBundle(tok, clip_text.init_params(gen, cfg, dtype=torch.bfloat16,
+                                                                device="cuda"), cfg))
+    unet = unet2d.init_params(gen, unet2d.SDXL, dtype=torch.bfloat16, device="cuda")
+    models = SDModels(unet, unet2d.SDXL, tes,
+                      vae_params=vae.init_params(gen, vae.SDXL_VAE, dtype=torch.bfloat16,
+                                                 device="cuda"),
+                      vae_config=vae.SDXL_VAE, is_xl=True)
+    n_unet = sum(t.numel() for t in _leaves(unet))
+    n_te = [sum(t.numel() for t in _leaves(te.params)) for te in tes]
+    n_vae = sum(t.numel() for t in _leaves(models.vae_params))
+    if n_unet != SDXL_UNET_PARAMS:
+        raise AssertionError(f"the SDXL UNet has {n_unet:,} parameters, not {SDXL_UNET_PARAMS:,}")
+    engine = SliderEngine(models, device="cuda", steps=SDXL_HTTP_STEPS, image_size=SDXL_PX,
+                          guidance_scale=7.5, start_noise=750.0, compute_dtype=torch.bfloat16)
+    w = create_slider_network(gen, unet, rank=4, alpha=1.0, train_method="noxattn",
+                              device="cuda")
+    for e in w.values():  # nonzero up, so the scale changes the image
+        e["up"] = torch.randn(e["up"].shape, generator=gen, device="cuda") * 0.05
+    engine.register_slider("s1", w)
+    torch.cuda.synchronize()
+    say("sdxl", f"SDXL-base at full width, bf16, random weights: UNet {n_unet:,} parameters "
+        f"(diffusers' sdxl-base-1.0: {SDXL_UNET_PARAMS:,}), CLIP-L {n_te[0]:,}, bigG {n_te[1]:,}, "
+        f"VAE {n_vae:,}; engine family {engine.family!r}, {SDXL_PX} px, DDIM {engine.steps}, "
+        f"guidance 7.5 with rescale 0.7, 1 rank-4 noxattn slider ({len(w)} modules), decode "
+        f"{engine.decode_rows} rows per VAE call: built in {time.perf_counter() - t0:.1f} s")
+    return engine
+
+
+def sdxl_step_bound(batch: int) -> tuple:
+    """(ms, operations) of the least time of one CFG-doubled SDXL UNet
+    forward of `batch` rows at SDXL_PX: the operations its convs, linears
+    and attention products do, counted by torch's FLOP counter on the meta
+    device from the config (no weights, no card), at the bf16 peak; the
+    weights' bytes give a bound below it."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import attention as ta
+
+    cfg, hw, dt = unet2d.SDXL, SDXL_PX // 8, torch.bfloat16
+    params = unet2d.init_params(None, cfg, dtype=dt, device="meta")
+    x = torch.empty((batch, hw, hw, 4), dtype=dt, device="meta")
+    ctx = torch.empty((batch, 77, cfg.cross_attention_dim), dtype=dt, device="meta")
+    added = {"text_embeds": torch.empty((batch, 1280), dtype=dt, device="meta"),
+             "time_ids": torch.empty((batch, 6), device="meta")}
+    ta.set_attention_impl("xla")  # attention as two counted batched products
+    try:
+        with FlopCounterMode(display=False) as counter, torch.inference_mode():
+            unet2d.apply(params, cfg, x, torch.tensor(1.0, device="meta"), ctx, added_cond=added)
+    finally:
+        ta.set_attention_impl("auto")
+    flops = counter.get_total_flops()
+    nbytes = 2 * sum(t.numel() for t in _leaves(params))
+    return bound(flops, nbytes, "bfloat16")[0], flops
+
+
+def phase_sdxl_step(engine) -> dict:
+    """One SDXL denoise step at bucket 8 (16 CFG rows), 1024 px, bf16: the
+    engine's sampling function with one DDIM step, a rank-4 slider at
+    per-row scales, added conditioning and guidance rescale 0.7. Launches
+    per step with the pin off and on (#1 70; #9 0 and 22), the median of
+    synced steps with the pin off and on in turn, the two outputs' distance,
+    torch.profiler over one step (pin off) by kernel class, and the step's
+    analytic bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import layout_pin as lp
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.pipelines import text2image as t2i
+
+    m = engine.models
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    B, hw = 8, SDXL_PX // 8
+    lat = torch.randn((B, hw, hw, 4), generator=gen, device="cuda")
+    cond, uncond, added = t2i.tile_conditioning(
+        *t2i.encode_conditioning(m, "a photo of a person", "", SDXL_PX), B)
+    fn = t2i.make_sampling_fn(m.unet_config, make_sampler(make_schedule(), "ddim", 1),
+                              guidance_rescale=0.7, compute_dtype=torch.bfloat16)
+    scales = torch.linspace(-2, 2, B, device="cuda")
+    sn, g = torch.full((B,), 1000.0, device="cuda"), torch.full((B,), 7.5, device="cuda")
+
+    def step():
+        return fn(m.unet_params, lat, cond, uncond, engine.sliders["s1"], scales, sn, g, added)
+
+    outs, per_step = {}, {}
+    torch.cuda.reset_peak_memory_stats()  # the step's own peak, not an earlier phase's
+    try:
+        for pin in (False, True):
+            basic.set_layout_pin(pin)
+            sa.sd_attention.launches = lp.layout_pin_copy.launches = 0
+            outs[pin] = step()
+            torch.cuda.synchronize()
+            per_step[pin] = (sa.sd_attention.launches, lp.layout_pin_copy.launches)
+        times = {False: [], True: []}
+        for r in range(SDXL_STEP_ROUNDS):
+            for pin in ((False, True) if r % 2 == 0 else (True, False)):
+                basic.set_layout_pin(pin)
+                times[pin].append(median_ms(step, runs=3))
+    finally:
+        basic.set_layout_pin(False)
+    diff = (outs[True].float() - outs[False].float()).abs().max().item()
+    tol = bf16_ulp(outs[False].float().abs().max().item())
+    if per_step != {False: (SDXL_SD_1024, 0), True: (SDXL_SD_1024, SDXL_PINS)}:
+        raise AssertionError(f"the SDXL step launched (#1, #9) {per_step}, not "
+                             f"({SDXL_SD_1024}, 0) with the pin off and ({SDXL_SD_1024}, "
+                             f"{SDXL_PINS}) with it on")
+    if not torch.isfinite(outs[False]).all() or diff > tol:
+        raise AssertionError(f"the SDXL step is not finite, or the pin changed it by {diff}")
+    off, on = statistics.median(times[False]), statistics.median(times[True])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_class = by_kernel_class(prof)
+    busy = sum(by_class.values())
+    bound_ms, flops = sdxl_step_bound(2 * B)
+    say("sdxl", f"denoise step, bucket 8 (16 CFG rows), {SDXL_PX} px, bf16, slider on, rescale "
+        f"0.7: median {off:.2f} ms with the pin off, {on:.2f} ms on (rounds {times[False]} / "
+        f"{times[True]}; +{on - off:.2f} ms, {(on / off - 1) * 100:.1f}%); launches per step "
+        f"(#1, #9): off {per_step[False]}, on {per_step[True]}; outputs' max|diff| {diff:.3g} "
+        f"(tol one bf16 ulp, {tol:.3g}); "
+        f"bound {bound_ms:.1f} ms ({flops / 1e12:.2f} TFLOP at the bf16 peak; the step takes "
+        f"{bound_ms / off * 100:.1f}% of it)")
+    say("sdxl", "device ms per step by kernel class: " + ", ".join(
+        f"{c} {v:.1f} ({v / busy * 100:.1f}%)"
+        for c, v in sorted(by_class.items(), key=lambda kv: -kv[1]))
+        + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 1 step, pin off); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say("sdxl", f"top kernels of the profiled step: {top_kernels(prof)}")
+    return {"ms_off": off, "ms_on": on, "sd_per_step": per_step[False][0],
+            "pin_per_step": per_step[True][1], "bound_ms": bound_ms}
+
+
+def phase_sdxl_http(engine) -> dict:
+    """SDXL behind the HTTP server: /healthz (is_xl), a warmup, then a 5-scale
+    /generate at 1024 px (SDXL_HTTP_STEPS DDIM steps): five distinct
+    1024x1024 images; #1 launches 70 x steps, #4 once (one f32 decode of the
+    8-row bucket: its d = 512 mid attention), #9 none (pin off); the
+    request's peak device memory. Then the same request with the layout pin
+    on: #9 22 x steps and the same images."""
+    import torch
+
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import layout_pin as lp
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    def run(port):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not (health["ok"] and health["is_xl"] and health["family"] == "xl"
+                and health["image_size"] == SDXL_PX):
+            raise AssertionError(f"/healthz of the SDXL engine: {health}")
+        t0 = time.perf_counter()
+        engine.warmup(with_slider="s1")
+        say("sdxl", f"/healthz {health}; warmup (5 scales -> bucket 8) "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sa.sd_attention.launches = fa.flash_attention.launches = lp.layout_pin_copy.launches = 0
+        t0 = time.perf_counter()
+        reply = post(port, "/generate", {"prompt": "a photo of a person", "seed": 1,
+                                         "slider": "s1", "scales": SWEEP})
+        wall = time.perf_counter() - t0
+        counts = (sa.sd_attention.launches, fa.flash_attention.launches,
+                  lp.layout_pin_copy.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        px = check_images(reply, SWEEP, "sdxl http", SDXL_PX)
+        expected = (SDXL_SD_1024 * SDXL_HTTP_STEPS, 1, 0)
+        say("sdxl", f"/generate 5 scales at {SDXL_PX} px ({SDXL_HTTP_STEPS} steps, cut from 50), "
+            f"pin off: server latency {reply['latency_ms']} ms, client {wall * 1e3:.1f} ms; "
+            f"{len(set(px))} distinct {SDXL_PX}x{SDXL_PX} images; launches (#1, #4, #9) {counts} "
+            f"(expected {expected}); peak device memory {peak:.2f} GB")
+        if len(set(px)) != len(SWEEP):
+            raise AssertionError("the SDXL sweep's images are not all distinct")
+        if counts != expected:
+            raise AssertionError(f"the SDXL request launched {counts}, not {expected}")
+        # the same request with the layout pin on: #9 at every boundary of
+        # every step, and the same images (the pin is the identity)
+        basic.set_layout_pin(True)
+        try:
+            sa.sd_attention.launches = fa.flash_attention.launches = 0
+            lp.layout_pin_copy.launches = 0
+            pinned = post(port, "/generate", {"prompt": "a photo of a person", "seed": 1,
+                                              "slider": "s1", "scales": SWEEP})
+            pin_counts = (sa.sd_attention.launches, fa.flash_attention.launches,
+                          lp.layout_pin_copy.launches)
+        finally:
+            basic.set_layout_pin(False)
+        pin_expected = (SDXL_SD_1024 * SDXL_HTTP_STEPS, 1, SDXL_PINS * SDXL_HTTP_STEPS)
+        same = check_images(pinned, SWEEP, "sdxl http pinned", SDXL_PX) == px
+        say("sdxl", f"the same /generate with the pin on: server latency {pinned['latency_ms']} "
+            f"ms; launches (#1, #4, #9) {pin_counts} (expected {pin_expected}); images "
+            f"{'equal' if same else 'DIFFERENT'} to the unpinned request's")
+        if pin_counts != pin_expected or not same:
+            raise AssertionError("the pinned SDXL request did not pin every boundary, or its "
+                                 "images differ")
+        return {"sd": counts[0], "flash": counts[1], "pin": pin_counts[2],
+                "latency_ms": reply["latency_ms"], "pinned_latency_ms": pinned["latency_ms"],
+                "peak_gb": peak}
+
+    return serve_http(engine, run)
+
+
+def write_sdxl_snapshot(root: str, models) -> None:
+    """A diffusers-layout SDXL snapshot of the engine's weights (bf16): the
+    UNet, CLIP-L, bigG with its projection, both tokenizers; no VAE
+    (training needs none)."""
+    from sliders_tpu_torch.models.convert import write_safetensors
+    from sliders_tpu_torch.utils.pytree import flatten
+
+    for sub in ("tokenizer", "tokenizer_2"):
+        os.makedirs(os.path.join(root, sub))
+        write_tokenizer(os.path.join(root, sub))
+    os.makedirs(os.path.join(root, "unet"))
+    write_safetensors(os.path.join(root, "unet", "diffusion_pytorch_model.safetensors"),
+                      flatten(models.unet_params))
+    with open(os.path.join(root, "unet", "config.json"), "w") as f:
+        json.dump(unet_hf_config(models.unet_config), f)
+    for sub, te in zip(("text_encoder", "text_encoder_2"), models.text_encoders):
+        os.makedirs(os.path.join(root, sub))
+        write_safetensors(os.path.join(root, sub, "model.safetensors"), flatten(te.params))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(clip_hf_config(te.config, te.config.eos_token_id), f)
+
+
+def phase_sdxl_train(snap: str, tmp: str) -> dict:
+    """SDXL slider training at full width through the training CLI in
+    process (`--xl`, on `snap`, a snapshot of the serving phases' weights), with the
+    values of data/config-xl.yaml (bf16, remat, rank-4 noxattn lierla, AdamW
+    lr 2e-4, DDIM 50) and data/prompts-xl.yaml's age pair at 512 px, for
+    SDXL_TRAIN_ITERATIONS iterations, with the layout pin on. Launches are
+    exact: #1 10 x (t_to + 3) (t_to denoise calls, the frozen pass, the grad
+    pass and its remat recompute), #2 10, #9 22 x (t_to + 2) forward (the
+    pins sit outside the remat checkpoints) + 21 backward per iteration.
+    Every down and every up moves from its init; alphas stay."""
+    import torch
+
+    from sliders_tpu_torch.core import yaml_subset
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import basic
+
+    cfg = yaml_subset.load(os.path.join(REPO, "data", "config-xl.yaml"))
+    cfg["prompts_file"] = os.path.join(REPO, "data", "prompts-xl.yaml")
+    cfg["pretrained_model"]["name_or_path"] = snap
+    cfg["train"]["iterations"] = SDXL_TRAIN_ITERATIONS
+    cfg["save"]["path"] = os.path.join(tmp, "sdxl_out")
+    cfg["logging"] = {"log_every": 1}
+    say("sdxl", f"config data/config-xl.yaml: train {cfg['train']}; network {cfg['network']}; "
+        f"tpu {cfg['tpu']}; overridden: iterations, logging.log_every and the paths (prompts: "
+        f"data/prompts-xl.yaml)")
+    basic.set_layout_pin(True)
+    try:
+        run = run_training(cfg, os.path.join(tmp, "config_xl.yaml"), ["--xl"])
+    finally:
+        basic.set_layout_pin(False)
+    recs = run["records"]
+    t_tos = [m["t_to"] for _, _, m in recs]
+    expected = {"sd": SDXL_SD_512 * sum(t + 3 for t in t_tos), "sd_bwd": SDXL_SD_512 * len(recs),
+                "pin": sum(SDXL_PINS * (t + 2) + SDXL_PIN_BWD for t in t_tos)}
+    got = {"sd": run["fwd"], "sd_bwd": run["bwd"], "pin": run["pin"]}
+    init = create_slider_network(torch.Generator().manual_seed(1),
+                                 unet2d.init_params(None, unet2d.SDXL, device="meta"), rank=4,
+                                 alpha=1.0, train_method="noxattn")
+    final = run["lora"]
+    moved = sum(not torch.equal(final[m]["down"], init[m]["down"])
+                and bool(final[m]["up"].abs().max() > 0) for m in init)
+    alphas = all(final[m]["alpha"].item() == 1.0 for m in init)
+    losses = [m["loss"] for _, _, m in recs]
+    say("sdxl", f"train 512 px (bf16, remat, rank 4 noxattn, AdamW lr {cfg['train']['lr']}, "
+        f"DDIM 50, pin on): {len(recs)} iterations, t_to {t_tos}, losses "
+        f"{[f'{v:.6g}' for v in losses]}; launches {got} (expected {expected}: 10 x sum(t_to + "
+        f"3), 10 x {len(recs)}, sum(22 x (t_to + 2) + 21)); {moved} of {len(init)} modules moved "
+        f"both down and up, alphas {'unchanged' if alphas else 'CHANGED'}; peak device memory "
+        f"{run['peak_gb']:.2f} GB; whole run {run['seconds']:.1f} s including the load")
+    prev = None
+    for i, t_end, m in recs:
+        ph = m["phase_ms"]
+        wall = "" if prev is None else f"host wall {t_end - prev:.3f} s; "
+        say("sdxl", f"train iteration {i}: t_to {m['t_to']}, loss {m['loss']:.6g}; {wall}device "
+            f"ms: denoise {ph['denoise']:.1f} ({ph['denoise'] / m['t_to']:.1f} per CFG-doubled "
+            f"UNet call), frozen {ph['frozen']:.1f}, grad {ph['grad']:.1f}, update "
+            f"{ph['update']:.2f}")
+        prev = t_end
+    if [i for i, _, _ in recs] != list(range(SDXL_TRAIN_ITERATIONS)):
+        raise AssertionError("the SDXL run did not take every iteration")
+    if got != expected:
+        raise AssertionError(f"the SDXL training launches {got} are not {expected}")
+    if moved != len(init) or not alphas or not all(map(math.isfinite, losses)):
+        raise AssertionError("the SDXL run's LoRA or losses are wrong")
+    return {**got, "peak_gb": run["peak_gb"]}
+
+
+def phase_sdxl(tmp: str) -> dict:
+    """SDXL-base at full width: the step and the HTTP request on the engine,
+    then training on a snapshot of the same weights."""
+    import torch
+
+    tok_dir = os.path.join(tmp, "sdxl_tokenizer")
+    os.makedirs(tok_dir)
+    write_tokenizer(tok_dir)
+    engine = timed("sdxl build", build_sdxl_engine, tok_dir)
+    step = timed("SDXL step", phase_sdxl_step, engine)
+    http = timed("SDXL http", phase_sdxl_http, engine)
+    snap = os.path.join(tmp, "sdxl")
+    timed("SDXL snapshot", write_sdxl_snapshot, snap, engine.models)
+    del engine  # the training run loads its own copy from the snapshot
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = timed("SDXL training", phase_sdxl_train, snap, tmp)
+    return {"step": step, "http": http, "train": train}
 
 
 def main() -> int:
@@ -2337,6 +2913,7 @@ def main() -> int:
     gn_results = timed("GroupNorm kernel", phase_group_norm_kernel)
     flash_checks, flash_times = timed("kernel #4", phase_flash_kernel)
     flash_bwd = timed("kernel #4 backward", phase_flash_bwd_kernel)
+    pin_results = timed("kernel #9", phase_layout_pin_kernel)
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
         timed("tiny slice", phase_tiny_slice, tok_dir)
@@ -2344,6 +2921,7 @@ def main() -> int:
         tiny_fused = timed("tiny training 'fused'", phase_tiny_train, "fused")
         tiny_flux = timed("tiny FLUX serving", phase_tiny_flux)
         tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
+        tiny_xl = timed("tiny SDXL", phase_tiny_sdxl)
         engine = timed("SD1.5 engine", build_engine, tok_dir)
     timed("SD1.5 step", phase_step, engine)
     conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
@@ -2357,14 +2935,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         flux = phase_flux(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        sdxl = phase_sdxl(tmp)
 
     # launches: each kernel's main path (SD1.5 training for the attention
     # kernels #1, #2 and #6, serving under its impl for #5 and #7, FLUX
     # serving at 2048 px for #4, FLUX training at 2048 px for #4's
-    # backward); the other paths that ran it are listed beside. #8 is routed
-    # nowhere, as in the JAX package. ms / plain_ms / library_ms / bound_ms
-    # are at the first shape each kernel phase lists (#4: 2048 px serving;
-    # its backward: the 2048 px grad pass).
+    # backward, SDXL serving with the pin on for #9); the other paths that
+    # ran it are listed beside. #8 is routed nowhere, as in the JAX package.
+    # ms / plain_ms / library_ms / bound_ms are at the first shape each
+    # kernel phase lists (#4: 2048 px serving; its backward: the 2048 px
+    # grad pass; #9: the (16, 4096, 640) bf16 boundary, contiguous); #1
+    # and #2 give their SDXL shapes' times beside.
     level0, bwd_level0, gn0, flash0 = results[0], bwd_results[0], gn_results[0], flash_times[0]
 
     def timing(r):
@@ -2388,10 +2972,15 @@ def main() -> int:
                              "train_fused": train["fused_fwd"], "serve": serve_launches,
                              "flux_serve_1024": flux["serve_1024"]["sd"],
                              "flux_step_per_forward": flux["step"]["sd_per_step"],
-                             "flux_train_512": flux["train"][512]["counts"]["sd"]},
+                             "flux_train_512": flux["train"][512]["counts"]["sd"],
+                             "sdxl_serve_1024": sdxl["http"]["sd"],
+                             "sdxl_step_per_forward": sdxl["step"]["sd_per_step"],
+                             "sdxl_train_512": sdxl["train"]["sd"], "tiny_sdxl": tiny_xl["sd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
+        "sdxl_serve_shapes": [dict(timing(r), shape=r["shape"]) for r in results
+                              if r["shape"] in SDXL_SD_SHAPES],
     }, {
         "name": "sd_attention_bwd",
         "route": "cuda",
@@ -2400,9 +2989,12 @@ def main() -> int:
         "launches": train["bwd"],
         "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"],
                              "train_fused": train["fused_bwd"],
-                             "flux_train_512": flux["train"][512]["counts"]["sd_bwd"]},
+                             "flux_train_512": flux["train"][512]["counts"]["sd_bwd"],
+                             "sdxl_train_512": sdxl["train"]["sd_bwd"],
+                             "tiny_sdxl": tiny_xl["sd_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
+        "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2412,9 +3004,10 @@ def main() -> int:
         "launches_by_path": {"flux_serve_2048": flux["serve_2048"]["flash"],
                              "flux_serve_2048_sweep": flux["serve_2048"]["flash_sweep"],
                              "flux_serve_1024_vae": flux["serve_1024"]["flash"],
-                             "tiny_flux_1536": tiny_flux, "serve_vae": serve_flash,
+                             "tiny_flux_1280": tiny_flux, "serve_vae": serve_flash,
                              "flux_train_2048": flux["train"][2048]["counts"]["flash"],
-                             "tiny_flux_train_1536": tiny_flux_train["flash"]},
+                             "tiny_flux_train_1280": tiny_flux_train["flash"],
+                             "sdxl_serve_1024_vae": sdxl["http"]["flash"]},
         "max_abs_err": max(r["err"] for r in flash_checks),
         **timing(flash0),
         "sd_attention_ms_same_inputs": flash0["sd_ms"],
@@ -2431,7 +3024,7 @@ def main() -> int:
         "launches_by_kernel": {"dkv": flux["train"][2048]["counts"]["dkv"],
                                "dq": flux["train"][2048]["counts"]["dq"]},
         "launches_by_path": {"flux_train_2048": flux["train"][2048]["counts"]["dkv"],
-                             "tiny_flux_train_1536": tiny_flux_train["dkv"]},
+                             "tiny_flux_train_1280": tiny_flux_train["dkv"]},
         "max_abs_err": max(r["err"] for r in flash_bwd),
         "max_err_bf16_ulps": max(r["err_ulps"] for r in flash_bwd),
         **timing(flash_bwd[0]),
@@ -2451,6 +3044,14 @@ def main() -> int:
          "replaces": "sliders_tpu/ops/pallas_groupnorm.py:43", "launches": 0,
          "launches_by_path": {}, "routed": False,
          "max_abs_err": max(r["err"] for r in gn_results), **timing(gn0)},
+        {"name": "layout_pin", "route": "cuda", "source": "sliders_tpu_torch/csrc/layout_pin.cu",
+         "replaces": "sliders_tpu/ops/basic.py:339", "launches": sdxl["http"]["pin"],
+         "launches_by_path": {"sdxl_serve_1024_pin_on": sdxl["http"]["pin"],
+                              "sdxl_step_per_forward_pin_on": sdxl["step"]["pin_per_step"],
+                              "sdxl_train_512_pin_on": sdxl["train"]["pin"],
+                              "tiny_sdxl": tiny_xl["pin"]},
+         "routed": "opt-in: ops.basic.set_layout_pin(True), off by default as in the JAX package",
+         "max_abs_err": max(r["err"] for r in pin_results), **timing(pin_results[0])},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

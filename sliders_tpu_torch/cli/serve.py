@@ -2,17 +2,20 @@
 
   python -m sliders_tpu_torch.cli.serve --base /path/sd15 \
       --slider age=out/age_last.safetensors --port 8000
+  python -m sliders_tpu_torch.cli.serve --xl --base /path/sdxl-base-1.0 \
+      --image_size 1024 --slider age=age_xl.safetensors
   python -m sliders_tpu_torch.cli.serve --flux --base /path/flux-dev \
       --image_size 1024 --slider age=age_flux.safetensors
   curl -s localhost:8000/healthz
   curl -s -X POST localhost:8000/generate -d \
       '{"prompt": "photo of a person", "slider": "age", "scales": [-2,0,2]}'
 
-The flags are the JAX CLI's, plus --device. FLUX serves 30 FlowMatch steps
-at guidance 3.5 by default and gates sliders with --skip_till (per request:
-"skip_till"). --xl, --pp other than 1, --dp other than 1, --continuous and
-SD schedulers other than ddim are not ported yet and exit with a message
-naming their ROADMAP item.
+The flags are the JAX CLI's, plus --device. SDXL (--xl) serves DDIM 50 at
+guidance 7.5 with guidance rescale 0.7. FLUX serves 30 FlowMatch steps at
+guidance 3.5 by default and gates sliders with --skip_till (per request:
+"skip_till"). --pp other than 1, --dp other than 1, --continuous and SD
+schedulers other than ddim are not ported yet and exit with a message naming
+their ROADMAP item.
 """
 
 import argparse
@@ -53,8 +56,6 @@ def build_parser():
 
 def unported_reason(args):
     """The message for a flag this port does not serve yet, else None."""
-    if args.xl:
-        return "--xl: SDXL serving is not ported yet (ROADMAP queue 1, item 6)"
     if args.pp != 1:
         return ("--pp: pipeline-parallel FLUX serving is not ported yet "
                 "(ROADMAP queue 1, item 15)")
@@ -106,8 +107,11 @@ def make_engine(args):
             buckets=buckets,
         )
     else:
-        models = loader.load_sd(args.base, device=args.device, v2=args.v2, dtype=dtype,
-                                load_vae=True)
+        if args.xl:
+            models = loader.load_sdxl(args.base, device=args.device, dtype=dtype, load_vae=True)
+        else:
+            models = loader.load_sd(args.base, device=args.device, v2=args.v2, dtype=dtype,
+                                    load_vae=True)
         engine = SliderEngine(
             models,
             device=args.device,

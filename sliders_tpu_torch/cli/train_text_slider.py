@@ -1,4 +1,4 @@
-"""Train an SD1.x text slider with the PyTorch port (port of
+"""Train an SD1.x or SDXL text slider with the PyTorch port (port of
 sliders_tpu/cli/train_text_slider.py): the reference trainer's flags
 (train_lora.py:371-429), the same run-name mangling
 `_alpha{a}_rank{r}_{method}` (train_lora.py:360-363), the same config and
@@ -11,7 +11,7 @@ Usage:
 
 `--device` keeps the reference's meaning, a CUDA device ordinal (`cuda:N`);
 `cpu` runs on the CPU (tests). Asking for CUDA with no CUDA device is an
-error. `--xl` (SDXL) is not ported yet (ROADMAP queue 1, item 6).
+error. `--xl` loads an SDXL snapshot (`loader.load_sdxl`), as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -67,17 +67,19 @@ def main(args, on_step=None):
     for p in prompts:
         print(p)
 
-    if args.xl:
-        raise NotImplementedError("SDXL training is not ported yet (ROADMAP queue 1, item 6)")
     device = resolve_device(args.device)
     set_attention_impl(config.tpu.attention)
-    models = loader.load_sd(
-        config.pretrained_model.name_or_path,
-        device=device,
-        v2=config.pretrained_model.v2,
-        clip_skip=config.pretrained_model.clip_skip,
-        dtype=compute_dtype_of(config),
-    )
+    if args.xl:
+        models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
+                                  dtype=compute_dtype_of(config))
+    else:
+        models = loader.load_sd(
+            config.pretrained_model.name_or_path,
+            device=device,
+            v2=config.pretrained_model.v2,
+            clip_skip=config.pretrained_model.clip_skip,
+            dtype=compute_dtype_of(config),
+        )
     return train_text_sliders(config, prompts, models, resume_from=args.resume,
                               on_step=on_step)
 
@@ -95,8 +97,7 @@ def build_parser():
         "--attributes", type=str, default=None,
         help="attributes to disentangle (comma separated string)",
     )
-    parser.add_argument("--xl", action="store_true",
-                        help="Train on SDXL (not ported yet: ROADMAP queue 1, item 6).")
+    parser.add_argument("--xl", action="store_true", help="Train on SDXL.")
     parser.add_argument("--resume", type=str, default=None,
                         help="Train state to resume: a {name}_trainstate.pt written by this CLI.")
     return parser

@@ -1,5 +1,6 @@
-"""CLIP text encoder (CLIP-L/14 for SD1) as a function over a parameter dict
-(port of sliders_tpu/models/clip_text.py).
+"""CLIP text encoder (CLIP-L/14 for SD1 and SDXL, OpenCLIP bigG/14 with
+its projection for SDXL's second encoder) as a function over a parameter
+dict (port of sliders_tpu/models/clip_text.py).
 
 Output contract of the reference's `train_util.encode_prompts`: the last
 hidden state after the final layer norm. The parameter dict mirrors the
@@ -33,7 +34,11 @@ class ClipTextConfig:
     layer_norm_eps: float = 1e-5
 
 
-CLIP_L = ClipTextConfig()  # SD1 text_encoder
+CLIP_L = ClipTextConfig()  # SD1 / SDXL text_encoder
+CLIP_BIG_G = ClipTextConfig(
+    hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+    hidden_act="gelu", projection_dim=1280,
+)  # SDXL text_encoder_2
 
 TINY = ClipTextConfig(
     vocab_size=100, hidden_size=32, num_layers=2, num_heads=2,

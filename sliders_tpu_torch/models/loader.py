@@ -1,11 +1,12 @@
 """Model loading from LOCAL diffusers snapshot directories
-(port of the SD1 and FLUX paths of sliders_tpu/models/loader.py).
+(port of the SD1, SDXL and FLUX paths of sliders_tpu/models/loader.py).
 
 An SD snapshot holds unet/ text_encoder/ tokenizer/ vae/ subfolders with
-config.json and safetensors weights (sharded components load too); a FLUX
-snapshot holds transformer/ text_encoder/ (CLIP-L) tokenizer/ text_encoder_2/
-(T5) tokenizer_2/ vae/. Single-file LDM checkpoints and SDXL come with later
-items of ROADMAP queue 1 (items 16 and 6).
+config.json and safetensors weights (sharded components load too); an SDXL
+snapshot adds text_encoder_2/ (OpenCLIP bigG with its projection) and
+tokenizer_2/; a FLUX snapshot holds transformer/ text_encoder/ (CLIP-L)
+tokenizer/ text_encoder_2/ (T5) tokenizer_2/ vae/. Single-file LDM
+checkpoints come with ROADMAP queue 1, item 16.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ class TextEncoderBundle:
 class SDModels:
     unet_params: dict
     unet_config: unet2d.UNetConfig
-    text_encoders: list  # one CLIP for SD1
+    text_encoders: list  # one CLIP for SD1, CLIP-L and bigG for SDXL
     vae_params: Optional[dict] = None
     vae_config: Optional[vae.VaeConfig] = None
     is_xl: bool = False
@@ -133,12 +134,31 @@ def _load_vae(bundle, model_dir: str, device, dtype) -> None:
     bundle.vae_params = tree_to(convert.load_component(model_dir, "vae"), device, dtype)
 
 
-def _load_clip(model_dir: str, device, dtype) -> TextEncoderBundle:
-    cfg = clip_config_from_hf(convert.load_component_config(model_dir, "text_encoder"))
-    params = tree_to(convert.load_component(model_dir, "text_encoder"), device, dtype)
-    tokenizer = ClipTokenizer.from_pretrained(os.path.join(model_dir, "tokenizer"))
+def _load_clip(model_dir: str, device, dtype, te_sub: str = "text_encoder",
+               tok_sub: str = "tokenizer", pad_token_id: Optional[int] = None
+               ) -> TextEncoderBundle:
+    cfg = clip_config_from_hf(convert.load_component_config(model_dir, te_sub))
+    params = tree_to(convert.load_component(model_dir, te_sub), device, dtype)
+    tokenizer = ClipTokenizer.from_pretrained(os.path.join(model_dir, tok_sub),
+                                              pad_token_id=pad_token_id)
     tokenizer.model_max_length = cfg.max_positions
     return TextEncoderBundle(tokenizer, params, cfg)
+
+
+def load_sdxl(model_dir: str, *, device="cpu", dtype=torch.bfloat16,
+              load_vae: bool = False) -> SDModels:
+    """An SDXL diffusers snapshot -> SDModels(is_xl=True) with every
+    parameter on `device` in `dtype`: the text_time UNet, CLIP-L and bigG
+    (model_util.load_models_xl); tokenizer_2 pads with id 0
+    (model_util.py:150)."""
+    unet_cfg = unet_config_from_hf(convert.load_component_config(model_dir, "unet"))
+    unet_params = tree_to(convert.load_component(model_dir, "unet"), device, dtype)
+    te1 = _load_clip(model_dir, device, dtype)
+    te2 = _load_clip(model_dir, device, dtype, "text_encoder_2", "tokenizer_2", pad_token_id=0)
+    bundle = SDModels(unet_params, unet_cfg, [te1, te2], is_xl=True)
+    if load_vae:
+        _load_vae(bundle, model_dir, device, dtype)
+    return bundle
 
 
 def flux_config_from_hf(cfg: dict) -> flux.FluxConfig:

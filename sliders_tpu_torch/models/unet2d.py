@@ -1,5 +1,5 @@
-"""UNet2DConditionModel (SD1.x) as a function over a parameter dict
-(port of sliders_tpu/models/unet2d.py).
+"""UNet2DConditionModel (SD1.x, SD2.x and SDXL) as a function over a
+parameter dict (port of sliders_tpu/models/unet2d.py).
 
 The parameter dict mirrors the diffusers state-dict paths, so snapshots load
 mechanically (models/convert.py) and LoRA names follow the reference
@@ -13,8 +13,14 @@ cuDNN everywhere), as the JAX package's UNet routes them.
 backward pass instead of keeping its activations (non-reentrant
 `torch.utils.checkpoint`, as the JAX package wraps the block in
 `jax.checkpoint`, models/unet2d.py:313-318); it takes effect only when
-grad mode is on. The SDXL `text_time` conditioning (`is_xl`) comes with
-ROADMAP queue 1, item 6.
+grad mode is on.
+
+SDXL's `text_time` micro-conditioning adds an embedding of the pooled text
+embeds and the six size/crop ids to the time embedding (`apply(...,
+added_cond=...)`). The token tensors at every transformer boundary go
+through `ops.basic.layout_pin` (kernel #9 when `set_layout_pin(True)`, else
+the identity), in the JAX package's four places and outside the remat
+checkpoints, so recomputation adds no pin.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from sliders_tpu_torch.ops.basic import (
     group_norm,
     group_norm_affine,
     layer_norm,
+    layout_pin,
     linear,
     silu,
     timestep_embedding,
@@ -78,6 +85,18 @@ class UNetConfig:
 
 SD15 = UNetConfig()
 
+SDXL = UNetConfig(
+    block_out_channels=(320, 640, 1280),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    cross_attention_dim=2048,
+    num_attention_heads=(5, 10, 20),
+    transformer_layers_per_block=(1, 2, 10),
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    projection_class_embeddings_input_dim=2816,  # pooled 1280 + 6 ids x 256
+)
+
 # tiny config for CPU tests (structure-identical to SD1)
 TINY = UNetConfig(
     block_out_channels=(32, 64),
@@ -90,12 +109,21 @@ TINY = UNetConfig(
     norm_num_groups=8,
 )
 
-
-def _check_supported(cfg: UNetConfig) -> None:
-    if cfg.addition_embed_type is not None:
-        raise NotImplementedError(
-            "SDXL text_time conditioning is not ported yet (ROADMAP queue 1, item 6)"
-        )
+# tiny SDXL-shaped config (text_time conditioning, linear projections)
+TINY_XL = UNetConfig(
+    block_out_channels=(32, 64),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+    layers_per_block=1,
+    cross_attention_dim=32,
+    num_attention_heads=(2, 2),
+    transformer_layers_per_block=(1, 2),
+    use_linear_projection=True,
+    norm_num_groups=8,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=8,
+    projection_class_embeddings_input_dim=16 + 6 * 8,  # pooled 16 + 6 ids x 8
+)
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +230,17 @@ def _basic_transformer_block(p: dict, x, context, heads: int, lora, name: str):
 def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name: str,
                    remat: bool = False):
     """diffusers Transformer2DModel: GN -> proj_in -> N blocks -> proj_out
-    (+ residual). proj is a 1x1 conv for SD1, a linear for SD2."""
+    (+ residual). proj is a 1x1 conv for SD1, a linear for SD2 and SDXL. The
+    (B, L, C) token tensors are pinned on both sides (`layout_pin`)."""
     B, H, W, C = x.shape
     residual = x
     h = group_norm(p["norm"], x, cfg.norm_num_groups, eps=1e-6)
     if cfg.use_linear_projection:
-        h = linear(p["proj_in"], h.reshape(B, H * W, C), lora=lora, name=f"{name}.proj_in")
+        h = layout_pin(h.reshape(B, H * W, C))
+        h = linear(p["proj_in"], h, lora=lora, name=f"{name}.proj_in")
     else:
         h = conv2d(p["proj_in"], h, padding=0, lora=lora, name=f"{name}.proj_in")
-        h = h.reshape(B, H * W, C)
+        h = layout_pin(h.reshape(B, H * W, C))
     blocks = p["transformer_blocks"]
     for k in range(len(blocks)):
         args = (blocks[str(k)], h, context, heads, lora, f"{name}.transformer_blocks.{k}")
@@ -219,9 +249,10 @@ def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name:
         else:
             h = _basic_transformer_block(*args)
     if cfg.use_linear_projection:
-        h = linear(p["proj_out"], h, lora=lora, name=f"{name}.proj_out").reshape(B, H, W, C)
+        h = linear(p["proj_out"], h, lora=lora, name=f"{name}.proj_out")
+        h = layout_pin(h).reshape(B, H, W, C)
     else:
-        h = conv2d(p["proj_out"], h.reshape(B, H, W, C), padding=0, lora=lora,
+        h = conv2d(p["proj_out"], layout_pin(h).reshape(B, H, W, C), padding=0, lora=lora,
                    name=f"{name}.proj_out")
     return h + residual
 
@@ -250,13 +281,14 @@ def apply(
     sample: torch.Tensor,  # (B, H, W, C_in) NHWC latents
     timesteps,  # (B,) or scalar
     encoder_hidden_states: torch.Tensor,  # (B, L, cross_attention_dim)
+    added_cond: Optional[dict] = None,  # SDXL: {'text_embeds': (B, 1280), 'time_ids': (B, 6)}
     lora: Optional[SliderLora] = None,
     remat: bool = False,
 ) -> torch.Tensor:
     """Predict the noise residual. Returns (B, H, W, C_out) in sample.dtype.
+    `added_cond` is required by a `text_time` config and ignored otherwise.
     `remat` checkpoints every basic transformer block (see the module
     docstring)."""
-    _check_supported(cfg)
     B = sample.shape[0]
     dtype = sample.dtype
     timesteps = torch.as_tensor(timesteps, device=sample.device).reshape(-1).expand(B)
@@ -264,6 +296,23 @@ def apply(
     t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
     emb = linear(params["time_embedding"]["linear_1"], t_emb.to(dtype))
     emb = linear(params["time_embedding"]["linear_2"], silu(emb))
+
+    if cfg.addition_embed_type == "text_time":
+        if added_cond is None:
+            raise ValueError("an SDXL UNet needs added_cond {'text_embeds', 'time_ids'}")
+        # each of the B x 6 ids embedded on its own, then (B, 6 * dim) in id order
+        time_ids = added_cond["time_ids"].to(sample.device).reshape(-1)
+        t_ids_emb = timestep_embedding(time_ids, cfg.addition_time_embed_dim).reshape(B, -1)
+        add_emb = torch.cat([added_cond["text_embeds"].to(device=sample.device, dtype=dtype),
+                             t_ids_emb.to(dtype)], dim=-1)
+        if add_emb.shape[-1] != cfg.projection_class_embeddings_input_dim:
+            raise ValueError(f"added conditioning is {add_emb.shape[-1]} wide, the config "
+                             f"takes {cfg.projection_class_embeddings_input_dim}")
+        aug = linear(params["add_embedding"]["linear_1"], add_emb)
+        emb = emb + linear(params["add_embedding"]["linear_2"], silu(aug))
+    elif cfg.addition_embed_type is not None:
+        raise NotImplementedError(f"addition_embed_type {cfg.addition_embed_type!r}: only "
+                                  "'text_time' (SDXL) is ported")
 
     ehs = encoder_hidden_states.to(dtype)
     h = conv2d(params["conv_in"], sample, padding=1, lora=lora, name="conv_in")
@@ -348,7 +397,6 @@ def _up_channel_plan(cfg: UNetConfig):
 def init_params(
     generator: Optional[torch.Generator], cfg: UNetConfig, dtype=torch.float32, device="cpu"
 ) -> dict:
-    _check_supported(cfg)
     f = ParamFactory(generator, dtype, device)
     ted = cfg.time_embed_dim
 
@@ -401,6 +449,11 @@ def init_params(
         "conv_norm_out": f.norm(cfg.block_out_channels[0]),
         "conv_out": f.conv(cfg.block_out_channels[0], cfg.out_channels),
     }
+    if cfg.addition_embed_type == "text_time":
+        params["add_embedding"] = {
+            "linear_1": f.dense(cfg.projection_class_embeddings_input_dim, ted),
+            "linear_2": f.dense(ted, ted),
+        }
 
     down = {}
     n_blocks = len(cfg.down_block_types)

@@ -34,6 +34,7 @@ class VaeConfig:
 
 
 SD_VAE = VaeConfig()
+SDXL_VAE = VaeConfig(scaling_factor=0.13025)
 FLUX_VAE = VaeConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
 TINY = VaeConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8)
 TINY_FLUX = VaeConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,

@@ -55,6 +55,10 @@ LIBRARIES = {
         # x, gamma, beta, y; B, L, C, groups, is_f32, silu; eps; stream
         "group_norm_launch": [_P] * 4 + [_I] * 6 + [_F, _P],
     }),
+    "layout_pin": (CSRC / "layout_pin.cu", (), {
+        # x, y; B, L, C; x strides (b, l, c) in elements; element bytes; stream
+        "layout_pin_launch": [_P] * 2 + [_I] * 3 + [_L] * 3 + [_I, _P],
+    }),
 }
 SOURCES = {name: lib[0] for name, lib in LIBRARIES.items()}
 

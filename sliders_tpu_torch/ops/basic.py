@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from sliders_tpu_torch.ops import conv3x3
+from sliders_tpu_torch.ops.layout_pin import LayoutPin
 
 
 @dataclass
@@ -219,6 +220,28 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var, mean = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)
     out = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
     return out * p["weight"].to(x.dtype) + p["bias"].to(x.dtype)
+
+
+_layout_pin = False
+
+
+def set_layout_pin(enabled: bool) -> None:
+    """Pin the token tensors at the UNet's transformer boundaries with
+    kernel #9 (`ops/layout_pin.py`), process-wide, as the JAX package's
+    `set_layout_pin` does. Off by default: in the JAX package it lost 15 %
+    of the SDXL step on the TPU, and here the boundary tensors are already
+    contiguous, so the pin is a pure copy. Takes effect on the next call."""
+    global _layout_pin
+    _layout_pin = bool(enabled)
+
+
+def layout_pin(x: torch.Tensor) -> torch.Tensor:
+    """`x` copied to a contiguous tensor by kernel #9 (identity gradient,
+    also pinned) when the pin is enabled, `x` is a CUDA tensor and 3-D;
+    otherwise `x` itself, as the JAX gate returns `x` off the TPU."""
+    if not _layout_pin or x.device.type != "cuda" or x.ndim != 3:
+        return x
+    return LayoutPin.apply(x)
 
 
 def timestep_embedding(

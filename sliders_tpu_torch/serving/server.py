@@ -12,6 +12,11 @@
     latent, at scale 0.
   - Initial latents come from a torch.Generator seeded with the request
     seed, so a request's image does not depend on its co-riders.
+  - SDXL (`models.is_xl`, the "xl" family) serves through the same engine:
+    each row carries its pooled text embeds and time ids beside its prompt
+    embeddings, and the guided noise is rescaled at 0.7.
+  - The f32 VAE decode takes `decode_rows` rows at a time (8 M output
+    pixels: 8 rows at 1024 px), which bounds its peak memory.
 
 `FluxSliderEngine` serves FLUX sliders over the same queue and batching:
 no CFG doubling, the slider gate is the step-index `skip_till` riding in
@@ -54,8 +59,8 @@ from sliders_tpu_torch.pipelines import flux_t2i
 from sliders_tpu_torch.pipelines import text2image as t2i
 
 _SCALE_BUCKETS = (1, 2, 4, 8, 16)
-# output pixels per FLUX VAE decode call: 8 images at 1024 px, whose f32
-# decode took a bf16 FLUX-dev engine to a 68.3 GB peak on an 80 GB H100
+# output pixels per VAE decode call: 8 images at 1024 px, whose f32 decode
+# took a bf16 FLUX-dev engine to a 68.3 GB peak on an 80 GB H100
 # (chip_smoke.py); larger buckets and canvases decode in slices of the bucket
 _DECODE_PIXELS = 8 * 1024 * 1024
 _NOT_PORTED = "not ported yet (ROADMAP queue 1, item 13)"
@@ -140,15 +145,13 @@ class SliderEngine:
             raise NotImplementedError(f"continuous batching is {_NOT_PORTED}")
         if mesh is not None:
             raise NotImplementedError(f"multi-device (dp mesh) serving is {_NOT_PORTED}")
-        if models.is_xl:
-            raise NotImplementedError("SDXL serving is not ported yet (ROADMAP queue 1, item 6)")
         self.device = _serving_device(device, models)
         models.unet_params = tree_to(models.unet_params, self.device)
         models.vae_params = tree_to(models.vae_params, self.device)
         for te in models.text_encoders:
             te.params = tree_to(te.params, self.device)
         self.models = models
-        self.family = "sd"
+        self.family = "xl" if models.is_xl else "sd"
         self.image_size = int(image_size)
         self.steps = int(steps)
         self.default_guidance = float(guidance_scale)
@@ -156,11 +159,14 @@ class SliderEngine:
         self.dtype = compute_dtype
         self.sampler = make_sampler(make_schedule(), scheduler, num_steps=self.steps)
         self.fn = t2i.make_sampling_fn(models.unet_config, self.sampler,
+                                       guidance_rescale=0.7 if models.is_xl else 0.0,
                                        compute_dtype=self.dtype)
         self._init_runtime(buckets)
 
     def _init_runtime(self, buckets) -> None:
-        """The registry, the prompt cache, the queue and the batching worker."""
+        """The registry, the prompt cache, the queue, the decode slice and
+        the batching worker."""
+        self.decode_rows = max(1, _DECODE_PIXELS // self.image_size ** 2)
         self._buckets = _SCALE_BUCKETS
         if buckets is not None:
             buckets = tuple(int(b) for b in buckets)
@@ -217,7 +223,7 @@ class SliderEngine:
         key = (prompt, negative)
         hit = self._embed_cache.get(key)
         if hit is None:
-            hit = t2i.encode_conditioning(self.models, prompt, negative)
+            hit = t2i.encode_conditioning(self.models, prompt, negative, self.image_size)
             if len(self._embed_cache) >= self._embed_cache_cap:
                 self._embed_cache.pop(next(iter(self._embed_cache)))
             self._embed_cache[key] = hit
@@ -334,12 +340,13 @@ class SliderEngine:
     def _run_rows(self, batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec) -> np.ndarray:
         """Denoise one padded row batch -> uint8 (rows, H, W, 3) on the host."""
         m = self.models
-        conds, unconds, lat_parts = [], [], []
+        conds, unconds, addeds, lat_parts = [], [], [], []
         for p, r in zip(batch, rows):
-            cond, uncond = self._encode(p.prompt, p.negative)
-            cond_b, uncond_b = t2i.tile_conditioning(cond, uncond, r)
+            cond_b, uncond_b, added_b = t2i.tile_conditioning(*self._encode(p.prompt, p.negative),
+                                                              r)
             conds.append(cond_b)
             unconds.append(uncond_b)
+            addeds.append(added_b)
             g = torch.Generator().manual_seed(p.seed)
             lat = t2i.initial_latents(g, 1, self.image_size, self.image_size,
                                       self.sampler.init_noise_sigma)
@@ -348,6 +355,10 @@ class SliderEngine:
             conds.append(conds[0][:1].expand(pad_n, -1, -1))
             unconds.append(unconds[0][:1].expand(pad_n, -1, -1))
             lat_parts.append(lat_parts[0][:1].expand(pad_n, -1, -1, -1))
+            if addeds[0] is not None:
+                addeds.append({k: v[:1].expand(pad_n, -1) for k, v in addeds[0].items()})
+        added = None if addeds[0] is None else {k: torch.cat([a[k] for a in addeds])
+                                                for k in addeds[0]}
         x = self.fn(
             m.unet_params,
             torch.cat(lat_parts).to(self.device),
@@ -357,10 +368,18 @@ class SliderEngine:
             scale_vec,
             sn_vec,
             g_vec,
+            added,
         )
         if not torch.isfinite(x).all():
             raise FloatingPointError("denoised latents are not finite")
-        return t2i.decode_images(m.vae_params, m.vae_config, x).cpu().numpy()
+        return self._decode(x)
+
+    def _decode(self, lat: torch.Tensor) -> np.ndarray:
+        """uint8 images of the latents, `decode_rows` rows per VAE call."""
+        m = self.models
+        return np.concatenate([
+            t2i.decode_images(m.vae_params, m.vae_config, lat[i:i + self.decode_rows]).cpu().numpy()
+            for i in range(0, lat.shape[0], self.decode_rows)])
 
     def warmup(self, with_slider: Optional[str] = None, n_scales: int = 5,
                multi_tenant: bool = False) -> None:
@@ -397,8 +416,8 @@ class FluxSliderEngine(SliderEngine):
         stacked adapters, lora/batch.py) is always on;
       - initial noise is drawn from a torch.Generator seeded with the
         request's seed;
-      - the f32 VAE decode takes `decode_rows` rows at a time (8 at 1024 px,
-        2 at 2048 px), which bounds its peak memory.
+      - the f32 VAE decode takes `decode_rows` rows at a time, as the SD
+        engine's does (8 at 1024 px, 2 at 2048 px).
     The pipeline-parallel `mesh` (the TPU's capacity path) is not ported
     (ROADMAP queue 1, item 15): FLUX-dev in bf16 fits one 80 GB card."""
 
@@ -432,7 +451,6 @@ class FluxSliderEngine(SliderEngine):
         self.default_start_noise = float(skip_till)  # the step-index gate
         self.dtype = compute_dtype
         self._latent_hw = self.image_size // 8
-        self.decode_rows = max(1, _DECODE_PIXELS // self.image_size ** 2)
         self.sampler = make_flowmatch_sampler(num_steps=self.steps,
                                               image_seq_len=(self._latent_hw // 2) ** 2)
         self.fn = flux_t2i.make_flux_sampling_fn(models.transformer_config, self.sampler,
@@ -476,10 +494,7 @@ class FluxSliderEngine(SliderEngine):
                     g_vec)
         if not torch.isfinite(x).all():
             raise FloatingPointError("denoised latents are not finite")
-        lat = flux.unpack_latents(x, self._latent_hw, self._latent_hw)
-        return np.concatenate([
-            t2i.decode_images(m.vae_params, m.vae_config, lat[i:i + self.decode_rows]).cpu().numpy()
-            for i in range(0, lat.shape[0], self.decode_rows)])
+        return self._decode(flux.unpack_latents(x, self._latent_hw, self._latent_hw))
 
 
 # -- HTTP layer -----------------------------------------------------------

@@ -35,8 +35,9 @@ from sliders_tpu_torch.diffusion.schedulers import (
 from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora import network as lnet
 from sliders_tpu_torch.models.loader import FluxModels, SDModels
-from sliders_tpu_torch.pipelines.encoding import encode_prompts
+from sliders_tpu_torch.pipelines.encoding import encode_prompts, encode_prompts_xl
 from sliders_tpu_torch.pipelines.flux_t2i import encode_prompts_flux
+from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training import optimizers as opt_factory
 from sliders_tpu_torch.training.flux_slider import ROLES, make_flux_slider_step
 from sliders_tpu_torch.training.text_slider import (
@@ -48,38 +49,56 @@ from sliders_tpu_torch.training.text_slider import (
 
 class PromptEmbedsCache:
     """Encode each unique prompt once (reference PromptEmbedsCache,
-    prompt_util.py:31-41 + train_lora.py:109-146)."""
+    prompt_util.py:31-41 + train_lora.py:109-146): the (77, D) embeddings,
+    or for SDXL the pair (text (77, 2048), pooled (1280,))."""
 
     def __init__(self, models: SDModels):
         self.models = models
         self._cache: dict = {}
 
-    def __getitem__(self, prompt: str) -> torch.Tensor:
+    def __getitem__(self, prompt: str):
         if prompt not in self._cache:
-            if self.models.is_xl:
-                raise NotImplementedError("SDXL prompt encoding is not ported yet "
-                                          "(ROADMAP queue 1, item 6)")
-            te = self.models.text_encoders[0]
+            m = self.models
             with torch.no_grad():
-                emb = encode_prompts(te.tokenizer, te.params, te.config, [prompt],
-                                     num_layers=te.clip_skip_layers)
-            self._cache[prompt] = emb[0]
+                if m.is_xl:
+                    tes = m.text_encoders
+                    text, pooled = encode_prompts_xl(
+                        [te.tokenizer for te in tes], [te.params for te in tes],
+                        [te.config for te in tes], [prompt])
+                    self._cache[prompt] = (text[0], pooled[0])
+                else:
+                    te = m.text_encoders[0]
+                    emb = encode_prompts(te.tokenizer, te.params, te.config, [prompt],
+                                         num_layers=te.clip_skip_layers)
+                    self._cache[prompt] = emb[0]
         return self._cache[prompt]
 
 
-def build_pairs(settings: list, cache: PromptEmbedsCache, is_xl: bool = False) -> dict:
+def build_pairs(settings: list, cache: PromptEmbedsCache, is_xl: bool = False,
+                resolution_hw=None) -> dict:
     """PromptSettings -> stacked embeddings for the step; erase folds into
-    the guidance sign (erase == enhance at -g)."""
-    if is_xl:
-        raise NotImplementedError("SDXL pairs are not ported yet (ROADMAP queue 1, item 6)")
+    the guidance sign (erase == enhance at -g). SDXL pairs also carry each
+    role's `pooled_*`, the static `time_ids` of the pair's resolution
+    (`resolution_hw` overrides it for a dynamic-resolution bucket) and the
+    `dynamic_crops` flag, on which the step redraws the crop every
+    iteration."""
     pairs = []
     for s in settings:
-        pair = {k: cache[prompt] for k, prompt in (
-            ("target", s.target), ("positive", s.positive),
-            ("neutral", s.neutral), ("unconditional", s.unconditional))}
+        pair = {}
+        for k, prompt in (("target", s.target), ("positive", s.positive),
+                          ("neutral", s.neutral), ("unconditional", s.unconditional)):
+            if is_xl:
+                pair[k], pair[f"pooled_{k}"] = cache[prompt]
+            else:
+                pair[k] = cache[prompt]
+        device = pair["target"].device
         sign = 1.0 if s.action == "enhance" else -1.0
         pair["guidance_signed"] = torch.tensor(sign * s.guidance_scale, dtype=torch.float32,
-                                               device=pair["target"].device)
+                                               device=device)
+        if is_xl:
+            h, w = resolution_hw or (s.resolution, s.resolution)
+            pair["time_ids"] = get_add_time_ids(h, w)[0].to(device)
+            pair["dynamic_crops"] = torch.tensor(float(s.dynamic_crops), device=device)
         pairs.append(pair)
     return stack_prompt_pairs(pairs)
 
@@ -191,9 +210,10 @@ def train_text_sliders(
                 models.unet_config, schedule, sampler, optimizer,
                 max_denoising_steps=config.train.max_denoising_steps, resolution=hw,
                 batch_size=batch * max(tpu.per_device_batch, 1),
-                compute_dtype=compute_dtype, remat=tpu.remat,
+                compute_dtype=compute_dtype, remat=tpu.remat, is_xl=models.is_xl,
             )
-            bucket_pairs[(bucket_key, hw)] = build_pairs(buckets[bucket_key], cache)
+            bucket_pairs[(bucket_key, hw)] = build_pairs(buckets[bucket_key], cache,
+                                                         models.is_xl, resolution_hw=hw)
         return steps[(bucket_key, hw)], bucket_pairs[(bucket_key, hw)]
 
     state = SliderTrainState.create(seed, lora, optimizer)

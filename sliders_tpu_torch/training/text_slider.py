@@ -21,9 +21,15 @@ leaves. The draws of step 1 come from a `torch.Generator` seeded from
 which is what the JAX package's `fold_in(key, step)` gives; the streams
 differ from JAX's threefry, so a parity test passes the draws in.
 
-Not ported (each raises when asked for): SDXL (`is_xl`, ROADMAP queue 1,
-item 6), the `fused_tail`, `denoise_merged` and `chunk > 1` variants
-(item 18), a device mesh (item 15), and samplers other than DDIM (item 4).
+SDXL (`is_xl`): every UNet call also takes its roles' pooled embeddings and
+the pair's time ids (`pooled_*`, `time_ids` in the pairs). A pair with
+`dynamic_crops` set draws a new crop every iteration, one shared by all four
+roles (train_lora_xl.py:198-203); its three uniforms are the fourth entry of
+the draws.
+
+Not ported (each raises when asked for): the `fused_tail`, `denoise_merged`
+and `chunk > 1` variants (ROADMAP queue 1, item 18), a device mesh (item
+15), and samplers other than DDIM (item 4).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from sliders_tpu_torch.diffusion.guidance import train_grid_tables
 from sliders_tpu_torch.diffusion.schedulers import DiffusionSchedule, Sampler
 from sliders_tpu_torch.models import unet2d
 from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training.optimizers import SliderOptimizer
 
 
@@ -77,14 +84,20 @@ def stack_prompt_pairs(pairs: list) -> dict:
 
 
 def step_draws(seed: int, step: int, n_pairs: int, max_denoising_steps: int,
-               latent_shape: tuple, init_noise_sigma: float):
-    """(pair index, t_to, latents) of iteration `step`: a CPU generator seeded
-    from (seed, step), so every device and every resumed run draws the same."""
+               latent_shape: tuple, init_noise_sigma: float, crop: bool = False):
+    """(pair index, t_to, latents) of iteration `step`: a CPU generator
+    seeded from (seed, step), so every device and every resumed run draws
+    the same. With `crop` (SDXL), a fourth entry follows, drawn last: (scale
+    in [1, 3), u_top, u_left), the uniforms of a dynamic crop
+    (`get_add_time_ids`)."""
     gen = torch.Generator().manual_seed(((seed % 2**32) << 32) | (step % 2**32))
     pair_idx = int(torch.randint(n_pairs, (1,), generator=gen))
     t_to = int(torch.randint(1, max_denoising_steps, (1,), generator=gen))
     latents = torch.randn(latent_shape, generator=gen) * init_noise_sigma
-    return pair_idx, t_to, latents
+    if not crop:
+        return pair_idx, t_to, latents
+    u = torch.rand(3, generator=gen)
+    return pair_idx, t_to, latents, (1.0 + 2.0 * u[0], u[1], u[2])
 
 
 class _PhaseTimer:
@@ -129,13 +142,12 @@ def make_text_slider_step(
     """Build `step(state, unet_params, pairs, draws=None) -> (state, metrics)`.
 
     `pairs` is `stack_prompt_pairs` output on the UNet's device. `draws`, if
-    given, is (pair index, t_to, latents) in place of `step_draws`. The step
+    given, is (pair index, t_to, latents[, crop]) in place of `step_draws`;
+    the crop entry is needed only by a pair with dynamic crops. The step
     updates `state` in place (LoRA, optimizer state, step + 1) and returns
     it with the metrics loss, t_to, pair, grad_norm (Python numbers) and,
     on CUDA, phase_ms: the device time of the denoise loop, the frozen pass,
     the grad pass (forward and backward) and the update."""
-    if is_xl:
-        raise NotImplementedError("SDXL slider training is not ported yet (ROADMAP queue 1, item 6)")
     if fused_tail or denoise_merged or chunk != 1:
         raise NotImplementedError("the fused_tail, denoise_merged and chunk > 1 step variants are "
                                   "not ported yet (ROADMAP queue 1, item 18)")
@@ -149,24 +161,43 @@ def make_text_slider_step(
     height, width = resolution if isinstance(resolution, tuple) else (resolution, resolution)
     latent_shape = (batch_size, height // 8, width // 8, unet_cfg.in_channels)
 
-    def unet(params, x, t, ehs, lora=None):
-        return unet2d.apply(params, unet_cfg, x, t, ehs, lora=lora, remat=remat)
+    def unet(params, x, t, ehs, added, lora=None):
+        return unet2d.apply(params, unet_cfg, x, t, ehs, added_cond=added, lora=lora,
+                            remat=remat)
 
     def rep(e):
-        """(...) -> (batch_size, ...) in the compute dtype."""
+        """(...) -> (batch_size, ...) in the compute dtype (the time ids too,
+        as in the JAX step)."""
         return e.expand(batch_size, *e.shape).to(compute_dtype)
+
+    def added_from(pair, role):
+        if not is_xl:
+            return None
+        return {"text_embeds": rep(pair[f"pooled_{role}"]), "time_ids": rep(pair["time_ids"])}
+
+    def added_concat(*adds):
+        if adds[0] is None:
+            return None
+        return {k: torch.cat([a[k] for a in adds]) for k in adds[0]}
 
     def step(state: SliderTrainState, unet_params: dict, pairs: dict, draws=None):
         device = pairs["target"].device
         n_pairs = pairs["target"].shape[0]
         if draws is None:
             draws = step_draws(state.seed, state.step, n_pairs, max_denoising_steps,
-                               latent_shape, sampler.init_noise_sigma)
-        idx, t_to, latents = draws
+                               latent_shape, sampler.init_noise_sigma, crop=is_xl)
+        idx, t_to, latents, *crop = draws
         idx, t_to = int(idx), int(t_to)
         if not (0 <= idx < n_pairs and 1 <= t_to < max_denoising_steps):
             raise ValueError(f"draws out of range: pair {idx} of {n_pairs}, t_to {t_to}")
         pair = {k: v[idx] for k, v in pairs.items()}
+        if is_xl and "dynamic_crops" in pair:
+            if not crop:
+                raise ValueError("an SDXL pair with dynamic_crops needs the crop draws")
+            dyn_ids = get_add_time_ids(height, width, dynamic_crops=True, draws=crop[0])[0]
+            pair["time_ids"] = torch.where(pair["dynamic_crops"] > 0,
+                                           dyn_ids.to(device, pair["time_ids"].dtype),
+                                           pair["time_ids"])
         timer = _PhaseTimer(device)
         timer.mark("start")
 
@@ -175,11 +206,12 @@ def make_text_slider_step(
             x = torch.as_tensor(latents).to(device=device, dtype=compute_dtype)
             lora_on = SliderLora(weights=state.lora, multiplier=1.0)
             ehs_cfg = torch.cat([rep(pair["unconditional"]), rep(pair["target"])])
+            added_cfg = added_concat(added_from(pair, "unconditional"), added_from(pair, "target"))
             timesteps = sampler.timesteps.to(device)
             s_state = sampler.init_state(x)
             for i in range(t_to):
                 x_in = sampler.scale_model_input(torch.cat([x, x]), i).to(compute_dtype)
-                eps = unet(unet_params, x_in, timesteps[i], ehs_cfg, lora=lora_on)
+                eps = unet(unet_params, x_in, timesteps[i], ehs_cfg, added_cfg, lora=lora_on)
                 eps_u, eps_c = eps.chunk(2)
                 eps_g = eps_u + denoise_guidance * (eps_c - eps_u)
                 x, s_state = sampler.step(i, eps_g, x, s_state)
@@ -194,7 +226,9 @@ def make_text_slider_step(
             # 4. frozen eps: one batched pass, slider OFF
             ehs3 = torch.cat([rep(pair["positive"]), rep(pair["neutral"]),
                               rep(pair["unconditional"])])
-            frozen = unet(unet_params, x_scaled.repeat(3, 1, 1, 1), t_cur, ehs3).float()
+            added3 = added_concat(*(added_from(pair, r)
+                                    for r in ("positive", "neutral", "unconditional")))
+            frozen = unet(unet_params, x_scaled.repeat(3, 1, 1, 1), t_cur, ehs3, added3).float()
             eps_pos, eps_neu, eps_unc = frozen.chunk(3)
             goal = eps_neu + pair["guidance_signed"] * (eps_pos - eps_unc)
             timer.mark("frozen")
@@ -202,7 +236,7 @@ def make_text_slider_step(
         # 5 + 6. grad pass on the target prompt, slider ON
         leaves = {m: {k: t.detach().requires_grad_() for k, t in e.items()}
                   for m, e in state.lora.items()}
-        eps_t = unet(unet_params, x_scaled, t_cur, rep(pair["target"]),
+        eps_t = unet(unet_params, x_scaled, t_cur, rep(pair["target"]), added_from(pair, "target"),
                      lora=SliderLora(weights=leaves, multiplier=1.0)).float()
         diff = eps_t - goal
         loss = torch.mean(diff * diff)

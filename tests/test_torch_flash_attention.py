@@ -234,6 +234,8 @@ def _jax_bwd_route(q_shape, k_shape, mask, itemsize):
     (4608, 128, 2, "xla_vjp"),  # FLUX training at 1024 px: 14.3 MB > the 13 MiB budget
     (4096, 40, 2, "xla_vjp"),   # SD1.5 level 0: d < BWD_MIN_D
     (1024, 80, 2, "xla_vjp"),   # SD1.5 level 1
+    (1024, 64, 2, "xla_vjp"),   # SDXL training at 512 px (640-wide level, 10 heads)
+    (4096, 64, 2, "xla_vjp"),   # SDXL at 1024 px
     (16896, 128, 2, "flash_bwd"),  # FLUX training at 2048 px
     (9728, 128, 4, "flash_bwd"),   # the tiny FLUX run at 1536 px in f32
 ])

@@ -1,6 +1,7 @@
 """The hand-written kernels (SD attention #1-#2, flash attention #4 and its
-backward, conv #5-#7, GroupNorm #8) against their plain versions on a CUDA
-device, and a tiny FLUX training step through them.
+backward, conv #5-#7, GroupNorm #8, the layout pin #9) against their plain
+versions on a CUDA device, a tiny FLUX training step through them, and the
+tiny SDXL UNet's gradient with the layout pin on.
 
 Skips without a card. On one, run it without the JAX test setup:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernel_cuda.py -q
@@ -30,6 +31,7 @@ def cuda():
         # another order leave an element one or two ulps (<= 2**-9 at |o| < 0.5)
         ((2, 8, 4096, 40), torch.bfloat16, 2**-8),
         ((2, 8, 1024, 80), torch.bfloat16, 2**-8),
+        ((2, 20, 1024, 64), torch.bfloat16, 2**-8),  # SDXL's L = 1024 level, 2 of 16 rows
         ((1, 3, 1000, 8), torch.bfloat16, 2**-8),  # ragged last q/k tile
         ((1, 2, 1000, 128), torch.float32, 1e-5),
     ],
@@ -67,6 +69,7 @@ def _ulps_bf16(ref_max: float) -> float:
     [
         ((1, 8, 4096, 40), torch.bfloat16),  # SD1.5 grad pass, level 0
         ((1, 8, 1024, 80), torch.bfloat16),  # SD1.5 grad pass, level 1
+        ((1, 10, 1024, 64), torch.bfloat16),  # SDXL grad pass at 512 px
         ((1, 3, 1000, 8), torch.bfloat16),  # ragged last q/k tile
         ((1, 2, 1024, 128), torch.bfloat16),
         ((1, 2, 1000, 40), torch.float32),
@@ -592,3 +595,108 @@ def test_tiny_flux_training_step_moves_every_down(cuda):
         assert not torch.equal(e["down"], before[name]["down"]), name
         assert torch.equal(e["up"], before[name]["up"]) and torch.equal(e["alpha"],
                                                                         before[name]["alpha"])
+
+
+# ---------------------------------------------------------------------------
+# the layout pin #9
+# ---------------------------------------------------------------------------
+
+
+def _pin_input(kind, shape, dtype, device, seed=11):
+    """(B, L, C) as the pin may meet it: contiguous (the vector copy), the
+    channel-major view of a (B, C, L) buffer (the tile transpose), a slice of
+    wider rows (16-byte rows), a slice off the 16-byte grid and a
+    batch-expanded row (the gather)."""
+    B, L, C = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "contiguous":
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    if kind == "channel_major":
+        return torch.randn((B, C, L), generator=gen, device=device).to(dtype).transpose(1, 2)
+    wide = torch.randn((B, L, C + 16), generator=gen, device=device).to(dtype)
+    if kind == "sliced":
+        return wide[..., 8:C + 8]
+    if kind == "odd_slice":
+        return wide[..., 1:C + 1]
+    if kind == "expanded":
+        return wide[:1, :, :C].expand(B, L, C)
+    raise ValueError(kind)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["contiguous", "channel_major", "sliced", "odd_slice",
+                                  "expanded"])
+@pytest.mark.parametrize("shape,dtype", [((2, 4096, 640), torch.bfloat16),
+                                         ((2, 1024, 1280), torch.float32),
+                                         ((3, 77, 33), torch.bfloat16),  # ragged tiles
+                                         ((1, 1000, 24), torch.float32)])
+def test_layout_pin_kernel_matches_plain(cuda, kind, shape, dtype):
+    """Bit for bit equal to `layout_pin_ref`, contiguous, one launch."""
+    from sliders_tpu_torch.ops import layout_pin as lp
+
+    x = _pin_input(kind, shape, dtype, cuda)
+    before = lp.layout_pin_copy.launches
+    y = lp.layout_pin_copy(x)
+    torch.cuda.synchronize()
+    assert lp.layout_pin_copy.launches == before + 1
+    ref = lp.layout_pin_ref(x)
+    assert y.is_contiguous() and y.dtype == x.dtype and y.shape == x.shape
+    assert torch.equal(y.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.requires_cuda
+def test_layout_pin_refuses_what_it_does_not_take(cuda):
+    from sliders_tpu_torch.ops import layout_pin as lp
+
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        lp.layout_pin_copy(torch.zeros(2, 3, 4, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match=r"\(B, L, C\)"):
+        lp.layout_pin_copy(torch.zeros(2, 3, device=cuda))
+
+
+@pytest.mark.requires_cuda
+def test_tiny_xl_unet_grad_with_the_layout_pin(cuda):
+    """The tiny SDXL UNet's LoRA gradient (noxattn slider, f32) with the pin
+    on equals the gradient with it off (the copy is the identity; 1e-5 of
+    the largest value leaves room for the atomics of the nearest-upsample
+    backward, which sum in no fixed order), and the kernel ran 8 times
+    forward and 7 backward: every
+    boundary of the 4 transformers, and the backward wherever a gradient
+    flows (the first boundary's input depends on no LoRA factor)."""
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import layout_pin as lp
+    from sliders_tpu_torch.ops.basic import SliderLora
+
+    gen = torch.Generator().manual_seed(12)
+    params = tree_to(unet2d.init_params(gen, unet2d.TINY_XL), cuda)
+    lora = tree_to(create_slider_network(gen, params, rank=4, train_method="noxattn"), cuda)
+    for e in lora.values():
+        e["up"] = torch.randn(e["up"].shape, generator=gen).to(cuda) * 0.1
+    x = torch.randn((1, 32, 32, 4), generator=gen).to(cuda)
+    ctx = torch.randn((1, 7, 32), generator=gen).to(cuda)
+    added = {"text_embeds": torch.randn((1, 16), generator=gen).to(cuda),
+             "time_ids": torch.tensor([[512.0, 512, 0, 0, 256, 256]], device=cuda)}
+
+    def grads():
+        leaves = {m: {k: v.clone().requires_grad_() for k, v in e.items()} for m, e in lora.items()}
+        out = unet2d.apply(params, unet2d.TINY_XL, x, 500.0, ctx, added_cond=added,
+                           lora=SliderLora(weights=leaves, multiplier=1.0), remat=True)
+        flat = [v for e in leaves.values() for k, v in e.items() if k != "alpha"]
+        return torch.autograd.grad((out ** 2).mean(), flat)
+
+    plain = grads()
+    basic.set_layout_pin(True)
+    try:
+        before = lp.layout_pin_copy.launches
+        pinned = grads()
+        torch.cuda.synchronize()
+        launched = lp.layout_pin_copy.launches - before
+    finally:
+        basic.set_layout_pin(False)
+    assert launched == 8 + 7
+    for a, b in zip(pinned, plain):
+        assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1e-12)

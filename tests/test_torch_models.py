@@ -107,6 +107,13 @@ def _torch_layout_shape(path: str, shape: tuple) -> tuple:
          lambda: tclip.init_params(None, tclip.CLIP_L, device="meta"), 123_060_480),
         ("sd_vae", lambda k: jvae.init_params(k, jvae.SD_VAE),
          lambda: tvae.init_params(None, tvae.SD_VAE, device="meta"), 83_653_863),
+        # diffusers' sdxl-base-1.0 UNet (tests/test_unet.py pins the same count)
+        ("unet_sdxl", lambda k: junet.init_params(k, junet.SDXL),
+         lambda: tunet.init_params(None, tunet.SDXL, device="meta"), 2_567_463_684),
+        ("clip_big_g", lambda k: jclip.init_params(k, jclip.CLIP_BIG_G),
+         lambda: tclip.init_params(None, tclip.CLIP_BIG_G, device="meta"), 694_659_840),
+        ("sdxl_vae", lambda k: jvae.init_params(k, jvae.SDXL_VAE),
+         lambda: tvae.init_params(None, tvae.SDXL_VAE, device="meta"), 83_653_863),
     ],
 )
 def test_full_size_structure_matches(name, jax_init, port_init, count):

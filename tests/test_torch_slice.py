@@ -71,7 +71,8 @@ def test_slice_matches_jax(snapshot):
     scales = np.array([-1.0, 0.0, 1.0], np.float32)
 
     jc, ju, _ = jt2i.encode_conditioning(jm, "a photo of an old person", "", 64)
-    tc, tu = tt2i.encode_conditioning(tm, "a photo of an old person", "")
+    tc, tu, tadd = tt2i.encode_conditioning(tm, "a photo of an old person", "", 64)
+    assert tadd is None
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=1e-5)
 
     jfn = jt2i.make_sampling_fn(jm.unet_config, js.make_sampler(js.make_schedule(), "ddim", 5),
@@ -81,7 +82,7 @@ def test_slice_matches_jax(snapshot):
              jax.random.key(0))
     tfn = tt2i.make_sampling_fn(tm.unet_config, ts.make_sampler(ts.make_schedule(), "ddim", 5),
                                 compute_dtype=torch.float32)
-    tx = tfn(tm.unet_params, torch.from_numpy(lat), *tt2i.tile_conditioning(tc, tu, 3), tw,
+    tx = tfn(tm.unet_params, torch.from_numpy(lat), *tt2i.tile_conditioning(tc, tu, None, 3)[:2], tw,
              torch.from_numpy(scales), torch.full((3,), 750.0), torch.full((3,), 7.5))
     jx = np.asarray(jx)
     np.testing.assert_allclose(tx.numpy(), jx, rtol=0, atol=1e-5 * np.abs(jx).max())
@@ -272,16 +273,21 @@ def test_flux_engine_decodes_in_slices(flux_snapshot):
         assert np.abs(a - b).max() <= 1
 
 
-def test_port_runs_without_jax(snapshot, flux_snapshot, tmp_path):
+@pytest.fixture(scope="module")
+def xl_snapshot(tmp_path_factory):
+    return make_tiny_snapshot(str(tmp_path_factory.mktemp("sdxl_tiny")), xl=True)
+
+
+def test_port_runs_without_jax(snapshot, flux_snapshot, xl_snapshot, tmp_path):
     """Import the port (its kernel wrappers too) and run the tiny slice, a
-    GroupNorm and a fused conv call, then two iterations of the training CLI
-    with a resume (conv impl 'fused' is set, but at 64 px the latents are
-    8x8, so no resnet passes the gate and the plain path runs), then the
-    FLUX engine built by `cli/serve.py --flux --device cpu` serving one
-    request over HTTP, with jax,
-    flax, optax, pydantic, PyYAML and safetensors made unimportable (the
-    card's machine has none of them), and the JAX package too (the port
-    shares no module with it)."""
+    GroupNorm, a fused conv call and a layout pin, then two iterations of the
+    training CLI with a resume (conv impl 'fused' is set, but at 64 px the
+    latents are 8x8, so no resnet passes the gate and the plain path runs),
+    then the FLUX and SDXL engines built by `cli/serve.py --flux` and `--xl`
+    (`--device cpu`) each serving one request over HTTP, and the FLUX and
+    SDXL training CLIs, with jax, flax, optax, pydantic, PyYAML and
+    safetensors made unimportable (the card's machine has none of them), and
+    the JAX package too (the port shares no module with it)."""
     (tmp_path / "prompts.yaml").write_text("- target: person\n  positive: old person\n"
                                            "  action: enhance\n  resolution: 64\n")
     (tmp_path / "config.yaml").write_text(
@@ -297,6 +303,12 @@ def test_port_runs_without_jax(snapshot, flux_snapshot, tmp_path):
         "network:\n  rank: 2\n  training_method: xattn\n"
         "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
         f"save:\n  name: f\n  path: {tmp_path / 'flux_out'}\n")
+    (tmp_path / "xl.yaml").write_text(
+        f"prompts_file: {tmp_path / 'prompts.yaml'}\n"
+        f"pretrained_model:\n  name_or_path: {xl_snapshot}\n"
+        "network:\n  rank: 2\n  training_method: noxattn\n"
+        "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
+        f"save:\n  name: x\n  path: {tmp_path / 'xl_out'}\n")
     code = f"""
 import sys
 banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "sliders_tpu")
@@ -311,13 +323,16 @@ from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.pipelines import text2image as t2i
 from sliders_tpu_torch.serving.server import SliderEngine
 m = loader.load_sd({snapshot!r}, dtype=torch.float32, load_vae=True)
-cond, uncond = t2i.encode_conditioning(m, "a person", "")
+cond, uncond, _ = t2i.encode_conditioning(m, "a person", "", 64)
 fn = t2i.make_sampling_fn(m.unet_config, make_sampler(make_schedule(), "ddim", 2),
                           compute_dtype=torch.float32)
 x = fn(m.unet_params, torch.randn(1, 8, 8, 4), cond, uncond, None, None, 750.0, 7.5)
 img = t2i.decode_images(m.vae_params, m.vae_config, x)
 assert img.shape == (1, 16, 16, 3) and torch.isfinite(x).all()
-assert sorted(_build.LIBRARIES) == ["bwd", "conv", "flash", "fwd", "group_norm"]
+assert sorted(_build.LIBRARIES) == ["bwd", "conv", "flash", "fwd", "group_norm", "layout_pin"]
+from sliders_tpu_torch.ops import layout_pin
+assert torch.equal(layout_pin.LayoutPin.apply(torch.ones(2, 3, 4).transpose(1, 2)),
+                   torch.ones(2, 4, 3))
 y = group_norm.fused_group_norm(torch.randn(1, 16, 64), torch.ones(64), torch.zeros(64), 32)
 assert torch.isfinite(y).all()
 from sliders_tpu_torch.ops import basic
@@ -345,6 +360,20 @@ reply = json.loads(urllib.request.urlopen(req, timeout=120).read())
 assert len(reply["images"]) == 1 and engine.family == "flux", reply
 server.shutdown()
 engine.close(timeout=60)
+engine = serve.make_engine(serve.build_parser().parse_args(
+    ["--xl", "--base", {xl_snapshot!r}, "--device", "cpu", "--precision", "float32",
+     "--ddim_steps", "2", "--image_size", "64", "--buckets", "1,2", "--no_warmup"]))
+server = make_http_server(engine, "127.0.0.1", 0)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+req = urllib.request.Request(f"http://127.0.0.1:{{server.server_address[1]}}/generate",
+                             data=json.dumps({{"prompt": "a person", "scales": [0.0]}}).encode())
+reply = json.loads(urllib.request.urlopen(req, timeout=120).read())
+assert len(reply["images"]) == 1 and engine.family == "xl", reply
+server.shutdown()
+engine.close(timeout=60)
+xl = cli.main(cli.build_parser().parse_args(
+    ["--config_file", {str(tmp_path / "xl.yaml")!r}, "--device", "cpu", "--xl"]))
+assert all(torch.isfinite(t).all() for e in xl.values() for t in e.values())
 from sliders_tpu_torch.cli import train_flux_slider as fcli
 lora = fcli.main(fcli.build_parser().parse_args(
     ["--config_file", {str(tmp_path / "flux.yaml")!r}, "--device", "cpu", "--t5_len", "16"]))
@@ -391,7 +420,7 @@ def test_encode_png_decodes_with_pillow():
 
 @pytest.mark.parametrize(
     "flags",
-    [["--xl"], ["--flux", "--pp", "2"], ["--pp", "2"], ["--dp", "2"], ["--continuous"],
+    [["--flux", "--pp", "2"], ["--pp", "2"], ["--dp", "2"], ["--continuous"],
      ["--scheduler", "lms"], ["--scheduler", "euler_a"]],
 )
 def test_serve_cli_names_unported_flags(flags):

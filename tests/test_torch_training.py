@@ -294,7 +294,7 @@ def test_step_draws_repeat_per_step():
     assert 0 <= a[0] < 4 and 1 <= a[1] < 50
 
 
-@pytest.mark.parametrize("kw,item", [({"is_xl": True}, "item 6"), ({"fused_tail": True}, "item 18"),
+@pytest.mark.parametrize("kw,item", [({"fused_tail": True}, "item 18"),
                                      ({"denoise_merged": True}, "item 18"),
                                      ({"chunk": 2}, "item 18"), ({"mesh": object()}, "item 15")])
 def test_step_variants_not_ported_raise(kw, item):
@@ -384,10 +384,8 @@ def test_cli_refuses_cuda_without_a_card(cli_run):
         _run_cli(["--config_file", config, "--device", "0"])
 
 
-def test_cli_refuses_xl_and_jax_states(cli_run, tmp_path):
+def test_cli_refuses_jax_states(cli_run, tmp_path):
     _, config, _ = cli_run
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        _run_cli(["--config_file", config, "--device", "cpu", "--xl"])
     msgpack = tmp_path / "x_trainstate.msgpack"
     msgpack.write_bytes(b"\x80")
     with pytest.raises(ValueError, match="do not resume in the port"):
