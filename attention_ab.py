@@ -1,0 +1,255 @@
+#!/usr/bin/env python3
+"""Time the attention kernels of this checkout against those of another
+checkout (a parent commit) on one GPU, in one process, in turns.
+
+    git archive <parent> sliders_tpu_torch/csrc | tar -x -C <dir>
+    python3 attention_ab.py --parent <dir> [--out rows.json]
+
+The parent's `sliders_tpu_torch/csrc/{sd_attention,sd_attention_bwd,
+flash_attention}.cu` are compiled with the flags of `ops/_build.py` into
+`<dir>/_ab_build/` and loaded with ctypes behind the same C entry points, so
+the port's wrappers launch either library on the same inputs. For every
+case both results are held to the unchanged plain versions with the
+tolerances of `chip_smoke.py` (4 bf16 ulps at the output's largest
+magnitude; f32 1e-5), then timed with CUDA events in the order parent,
+change, change, parent (median of `--runs` calls each); each side's time is
+the mean of its two medians. SDPA on the same inputs, the plain version and
+the bound are printed beside. It prints the card's name and power limit
+first and writes every row to `--out` as JSON when given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+# (kernel, (B, H, L, d), dtype, head views of (B, L, H*d) buffers)
+CASES = [
+    ("sd", (16, 8, 4096, 40), "bfloat16", False),
+    ("sd", (16, 8, 1024, 80), "bfloat16", False),
+    ("sd", (16, 10, 4096, 64), "bfloat16", False),
+    ("sd", (16, 20, 1024, 64), "bfloat16", False),
+    ("sd", (2, 10, 1024, 64), "bfloat16", False),
+    ("sd", (2, 24, 4608, 128), "bfloat16", True),
+    ("flash", (1, 24, 16896, 128), "bfloat16", True),
+    ("flash", (2, 24, 4608, 128), "bfloat16", True),
+    ("flash", (1, 2, 16896, 128), "bfloat16", True),
+    ("flash", (8, 1, 16384, 512), "float32", False),
+    ("flash", (8, 1, 4096, 512), "float32", False),
+    ("sd_bwd", (1, 8, 1024, 80), "bfloat16", False),
+]
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+LIBS = {"fwd": "sd_attention.cu", "bwd": "sd_attention_bwd.cu", "flash": "flash_attention.cu"}
+
+
+def bound_ms(shape, dt, backward=False):
+    B, H, L, d = shape
+    item = 2 if dt == "bfloat16" else 4
+    flops = (10 if backward else 4) * B * H * L * L * d
+    nbytes = (7 if backward else 4) * B * H * L * d * item
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def median_ms(fn, runs):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def build_parent(parent: str) -> dict:
+    """Compile the parent's three attention sources; {name: CDLL} with the
+    argtypes of this checkout's entry points (the C interface is the same)."""
+    from sliders_tpu_torch.ops import _build
+
+    csrc = os.path.join(parent, "sliders_tpu_torch", "csrc")
+    out_dir = os.path.join(parent, "_ab_build")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, src in LIBS.items():
+        out = os.path.join(out_dir, f"lib{name}.so")
+        procs[name] = (out, subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                                              os.path.join(csrc, src)],
+                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                             text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"parent {LIBS[name]}: nvcc failed:\n{log}")
+        lib = ctypes.CDLL(out)
+        for symbol, argtypes in _build.LIBRARIES[name][2].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        libs[name] = lib
+    print(f"[ab] parent libraries built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return libs
+
+
+class Using:
+    """Route the port's wrappers to the parent's libraries inside the block."""
+
+    def __init__(self, libs):
+        self.libs = libs
+
+    def __enter__(self):
+        from sliders_tpu_torch.ops import _build
+
+        self.saved = {n: _build.library(n) for n in self.libs}
+        _build._libs.update(self.libs)
+
+    def __exit__(self, *exc):
+        from sliders_tpu_torch.ops import _build
+
+        _build._libs.update(self.saved)
+
+
+def bf16_tol(ref_max: float) -> float:
+    return 4.0 * 2.0 ** (math.floor(math.log2(max(ref_max, 2.0**-20))) - 7)
+
+
+def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    dtype = getattr(torch, dt)
+    B, H, L, d = shape
+    if views:
+        qkv = [torch.randn((B, L, H * d), generator=gen, device="cuda").to(dtype)
+               .view(B, L, H, d).permute(0, 2, 1, 3) for _ in range(4)]
+    else:
+        qkv = [torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4)]
+    q, k, v, g = qkv
+    if kernel == "sd":
+        call, plain = (lambda: sa.sd_attention(q, k, v)), (lambda: sa.sd_attention_ref(q, k, v))
+        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib_names = ("fwd",)
+    elif kernel == "flash":
+        call = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+        plain = lambda: fa.flash_attention_ref(q, k, v)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib_names = ("flash",)
+    else:
+        call = lambda: sa.sd_attention_bwd(q, k, v, g)  # noqa: E731
+        plain = lambda: sa.sd_attention_bwd_ref(q, k, v, g)  # noqa: E731
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        so = F.scaled_dot_product_attention(*leaves)
+        library = lambda: torch.autograd.grad(so, leaves, g, retain_graph=True)  # noqa: E731
+        lib_names = ("bwd",)
+    parent = {n: parent_libs[n] for n in lib_names}
+    # the plain version in pieces of heads where its L x L logits would be large
+    refs = []
+    step = max(1, min(H, int(2**31 // (B * L * L * 4))))
+    for h in range(0, H, step):
+        part = (slice(None), slice(h, h + step))
+        if kernel == "sd":
+            refs.append(sa.sd_attention_ref(q[part], k[part], v[part]).float())
+        elif kernel == "flash":
+            refs.append(fa.flash_attention_ref(q[part], k[part], v[part]).float())
+        else:
+            refs.append(torch.cat([t.float() for t in sa.sd_attention_bwd_ref(
+                q[part], k[part], v[part], g[part])], -1))
+    ref = torch.cat(refs, 1)
+    del refs
+    errs = {}
+    for side, libs in (("parent", parent), ("change", {})):
+        with Using(libs):
+            out = call()
+        out = torch.cat([t.float() for t in out], -1) if isinstance(out, tuple) else out.float()
+        torch.cuda.synchronize()
+        errs[side] = (out - ref).abs().max().item()
+        del out
+    ref_max = ref.abs().max().item()
+    tol = bf16_tol(ref_max) if dtype == torch.bfloat16 else 1e-5
+    del ref
+    torch.cuda.empty_cache()
+    times = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        with Using(parent if side == "parent" else {}):
+            times[side].append(median_ms(call, runs))
+    row = {"kernel": kernel, "shape": shape, "dtype": dt, "views": views, "tol": tol,
+           "err_parent": errs["parent"], "err_change": errs["change"],
+           "parent_ms": statistics.mean(times["parent"]),
+           "change_ms": statistics.mean(times["change"]),
+           "parent_ms_each": times["parent"], "change_ms_each": times["change"],
+           "library_ms": median_ms(library, runs)}
+    row["bound_ms"], row["bound_by"] = bound_ms(shape, dt, backward=kernel == "sd_bwd")
+    big = B * H * L * L * 4 > 2**33
+    row["plain_ms"] = None if big else median_ms(plain, 3)
+    row["ok"] = errs["change"] <= tol
+    print(f"[ab] {kernel} {shape} {dt}{' views' if views else ''}: err parent {errs['parent']:.3g} "
+          f"change {errs['change']:.3g} (tol {tol:.3g}); parent {row['parent_ms']:.4f} ms "
+          f"{['%.4f' % t for t in times['parent']]}, change {row['change_ms']:.4f} ms "
+          f"{['%.4f' % t for t in times['change']]} ({row['change_ms'] / row['parent_ms']:.3f}x); "
+          f"library {row['library_ms']:.4f}, plain "
+          f"{'not timed' if row['plain_ms'] is None else '%.4f' % row['plain_ms']}; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return row
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, help="directory holding the parent's csrc")
+    ap.add_argument("--out", default=None, help="write the rows here as JSON")
+    ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--only", default="", help="comma-separated kernels (sd, flash, sd_bwd)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("attention_ab: needs a CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sliders_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_libraries()
+    print(f"[ab] this checkout's libraries built in {time.perf_counter() - t0:.1f} s", flush=True)
+    parent_libs = build_parent(args.parent)
+    only = set(filter(None, args.only.split(",")))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for case in CASES:
+        if only and case[0] not in only:
+            continue
+        rows.append(run_case(*case, parent_libs, args.runs, gen))
+        torch.cuda.empty_cache()
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    bad = [r for r in rows if not r["ok"]]
+    print(f"[ab] {len(rows) - len(bad)} of {len(rows)} cases within tolerance", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

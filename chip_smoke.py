@@ -12,15 +12,19 @@ with its seconds and the seconds since the start:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA/nvcc.
   2. build:  nvcc builds the six kernel libraries (sliders_tpu_torch/csrc:
      attention forward and backward, flash attention, the 3x3 conv kernels,
-     GroupNorm, the layout pin) for sm_90a, in parallel; registers and
-     shared memory per kernel.
+     GroupNorm, the layout pin) for sm_90a, in parallel; registers, spills
+     and shared memory per kernel (the Hopper-mainloop kernels of
+     attention_sm90.cuh at d = 40, 64, 80, 128 and #4's at d = 128, and
+     #4's f32 d = 512 kernel among them), and the build's seconds.
   3. kernel: the attention forward kernel against its plain PyTorch version
      at the serving shapes (SD1.5's and SDXL's at bucket 8, SDXL training's
      at 512 px), the backward kernel at the grad-pass shapes (SD1.5's, and
      SDXL's d = 64 at 512 px; error of dq/dk/dv and median time of each); the conv kernels #5-#7
      against their plain versions at every conv shape the SD1.5 UNet routes
      at 512 px (batch 16, the mode the UNet uses there), two at batch 1 and
-     one f32 shape each; the GroupNorm kernel #8 at the UNet's GN shapes;
+     one f32 shape each, with cuDNN's conv and one PyTorch expression of each
+     kernel's whole function timed beside; the GroupNorm kernel #8 at the
+     UNet's GN shapes;
      the flash-attention kernel #4 at FLUX's and the VAE's shapes, and #4
      and #1 checked, then timed beside SDPA, at the two FLUX serving shapes
      on head views of (B, L, 3072) buffers; #4's backward (its residual
@@ -41,7 +45,9 @@ with its seconds and the seconds since the start:
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
      one UNet step timed through the kernel and on the plain attention
-     path, its device time by kernel class, and one VAE decode; the UNet
+     path, its device time by kernel class, and the 8-image VAE decode
+     under attention impls 'auto' (#4 on the mid attention) and 'xla' in
+     turns; the UNet
      step under each conv impl ('xla', 'auto', 'fused_ep', 'fused') in
      alternating rounds, with each conv kernel's launches per forward and
      the noise prediction's distance from the 'xla' route; then the
@@ -83,7 +89,8 @@ with its seconds and the seconds since the start:
      weights and a rank-4 noxattn slider: one denoise step at bucket 8 (16
      CFG rows), 1024 px, guidance rescale 0.7, timed with the pin off and on
      in turn (#1 70 and #9 0 / 22 launches a step), profiled, beside its
-     analytic bound; a 5-scale /generate at 1024 px (DDIM steps cut to 8)
+     analytic bound, and the 8-image decode at 1024 px under 'auto' and
+     'xla' in turns; a 5-scale /generate at 1024 px (DDIM steps cut to 8)
      with the pin off and again on (#9 22 x steps, the same images),
      /healthz is_xl, #4 once per decode; then the training CLI with --xl on
      a snapshot of the same weights, with data/config-xl.yaml's values and
@@ -138,6 +145,9 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((1, 24, 1536, 128), "bfloat16"),  # FLUX training's grad pass at 512 px
     ((1, 8, 4096, 40), "float32"),
 ]
+# #2's shapes timed in interleaved rounds with SDPA's backward (rounds each):
+# at (1, 8, 1024, 80) two earlier runs read far apart (ROADMAP queue 2, item 2)
+BWD_INTERLEAVED = {(1, 8, 1024, 80): 6}
 TRAIN_ITERATIONS = 6  # the full-width run; per_steps and state_checkpoint_every 3
 FUSED_ITERATIONS = 2  # the full-width run under conv impl 'fused'
 # The 'fused' run's loss against the default ('xla') run's on the same draws,
@@ -205,9 +215,10 @@ FLASH_SHAPES = [
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
 ]
-# FLUX's VAE decode at 1024 px (bucket 8): #4's plain version and SDPA in f32
-# are timed there too
+# FLUX's and SDXL's VAE decode at 1024 px (bucket 8): #4's plain version and
+# SDPA in f32 are timed there, and at SD1.5's decode at 512 px (bucket 8)
 VAE_FLASH_SHAPE = (8, 1, 16384, 512)
+VAE_DECODE_SHAPES = (VAE_FLASH_SHAPE, (8, 1, 4096, 512))
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
 FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
@@ -350,13 +361,21 @@ def phase_device():
         f"nvcc {nvcc}")
 
 
-# the kernels whose ptxas report `phase_build` prints: the attention kernels
-# at d <= 48 (SD1.5's d = 40; a change to their shared header has moved these
-# counts before) and at d = 128 (FLUX's), every conv and GroupNorm
-# instantiation, #4's forward and backward kernels, #9's copy kernels
-REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E", "attn_bwd_dq_bf16"),
+# the kernels whose ptxas report `phase_build` prints (the first key an entry
+# holds names it): #1's bf16 forward on the Hopper mainloop
+# (attention_sm90.cuh, Cfg<DP, BK, TMA, two-pass>) at SD1.5's d = 40 and 80,
+# SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 on the
+# same mainloop; #2 at d <= 48 (SD1.5's d = 40; a change to its shared
+# header has moved these counts before) and at d = 128, every conv and
+# GroupNorm instantiation, #4's f32 forwards (d = 512 and the others) and
+# backward kernels, #9's copy kernels
+REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
+            ("CfgILi80ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=80 (cp.async)"),
+            ("CfgILi64ELi64ELb1ELb1ELi2E", "attn_sm90 #1 d=64 (TMA, 2 blocks an SM)"),
+            ("CfgILi128ELi128ELb1ELb1ELi1E", "attn_sm90 #1 d=128 (TMA)"),
+            ("CfgILi128ELi128ELb1ELb0ELi1E", "attn_sm90 #4 d=128 (TMA, one pass)"),
+            ("attn_bwd_dq_bf16ILi48E", "attn_bwd_dq_bf16"),
             ("attn_bwd_dkdv_bf16ILi48E", "attn_bwd_dkdv_bf16"),
-            ("attn_fwd_bf16ILi128E", "attn_fwd_bf16<128>"),
             ("attn_bwd_dq_bf16ILi128E", "attn_bwd_dq_bf16<128>"),
             ("attn_bwd_dkdv_bf16ILi128E", "attn_bwd_dkdv_bf16<128>"),
             ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16"), ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16"),
@@ -365,7 +384,8 @@ REPORTED = (("attn_fwd_bf16ILi48E", "attn_fwd_bf16"), ("attn_bwd_dq_bf16ILi48E",
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
             ("group_norm_kernelIfE", "group_norm_f32"),
-            ("flash_fwd_bf16", "flash_fwd_bf16"), ("flash_fwd_f32", "flash_fwd_f32"),
+            ("flash_fwd_bf16", "flash_fwd_bf16 (d = 256)"),
+            ("flash_fwd_f32_d512", "flash_fwd_f32_d512"), ("flash_fwd_f32", "flash_fwd_f32"),
             ("layout_pin_rows16", "layout_pin_rows16"),
             ("layout_pin_transposeIt", "layout_pin_transpose_16bit"),
             ("layout_pin_transposeIj", "layout_pin_transpose_32bit"),
@@ -387,8 +407,22 @@ def ptxas_report(log: str) -> list:
                 if key in entry:
                     out.append(f"{label} {ln.split('info    : ')[-1]}"
                                + (f" ({spill})" if spill and not spill.startswith("0 bytes stack frame, 0 bytes spill") else ""))
+                    break
             entry = None
     return out
+
+
+def sm90_smem(d: int) -> int:
+    """Dynamic shared memory a block of #1's Hopper-mainloop kernel takes at
+    head dim d (attention_sm90.cuh's Cfg as sd_attention.cu picks it: two
+    blocks an SM and 64-key tiles at d = 64, else one and 128-key tiles;
+    1024 bytes of alignment slack and 1024 of barriers, the 128-row q tile,
+    then as many K/V stages as fit 200 KiB split between the SM's blocks, at
+    most 4)."""
+    dp = -(-d // 16) * 16
+    ctas, block_k = (2, 64) if d == 64 else (1, 128)
+    q, stage = 128 * dp * 2, 2 * block_k * dp * 2
+    return 2048 + q + min(4, (200 * 1024 // ctas - 2048 - q) // stage) * stage
 
 
 def phase_build():
@@ -401,6 +435,10 @@ def phase_build():
         regs = ptxas_report(lib.with_suffix(".log").read_text())
         say("build", f"{lib.name} ({'; '.join(regs) or '?'})")
         _build.library(name)
+    say("build", "attn_sm90 dynamic shared memory a block (bytes): " + ", ".join(
+        f"d={d} {sm90_smem(d)}" for d in (40, 64, 80, 128))
+        + "; with one block an SM its consumers take 224 registers a thread and the producer "
+        "56 (setmaxnreg)")
     say("build", f"{len(libs)} libraries built and loaded in {secs:.1f} s")
 
 
@@ -478,12 +516,24 @@ def phase_kernel_bwd():
             ok = ok and err <= tol and o.dtype == dtype and o.shape == r.shape
             worst = max(worst, err)
         del out, ref
-        ms = median_ms(lambda: sa.sd_attention_bwd(q, k, v, g))
         plain_ms = median_ms(lambda: sa.sd_attention_bwd_ref(q, k, v, g), runs=5)
         # SDPA's backward alone: its forward once, then the graph replayed
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves)
-        library_ms = median_ms(lambda: torch.autograd.grad(o, leaves, g, retain_graph=True))
+        kernel = lambda: sa.sd_attention_bwd(q, k, v, g)  # noqa: E731
+        library = lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)  # noqa: E731
+        if shape in BWD_INTERLEAVED:
+            # kernel, SDPA, SDPA, kernel, ... : each the mean of its medians
+            rounds = {"kernel": [], "sdpa": []}
+            for r in range(BWD_INTERLEAVED[shape]):
+                for side in (("kernel", "sdpa") if r % 2 == 0 else ("sdpa", "kernel")):
+                    rounds[side].append(median_ms(kernel if side == "kernel" else library))
+            ms, library_ms = statistics.mean(rounds["kernel"]), statistics.mean(rounds["sdpa"])
+            say("kernel", f"bwd {shape} {dt} interleaved rounds: kernel "
+                f"{[round(t, 4) for t in rounds['kernel']]}, SDPA backward "
+                f"{[round(t, 4) for t in rounds['sdpa']]} ms")
+        else:
+            ms, library_ms = median_ms(kernel), median_ms(library)
         bound_ms, bound_by = attention_bound(shape, dt, backward=True)
         say("kernel", f"bwd {shape} {dt}: max|err| vs plain {', '.join(errs)}; median kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms; bound "
@@ -578,6 +628,22 @@ def phase_conv_kernels():
         xc = x.permute(0, 3, 1, 2)
         cudnn_ms = (median_ms(lambda: F.conv2d(xc, w, b, padding=1))
                     if timed and dt == "bfloat16" else None)
+        # one PyTorch expression per kernel computing its function on the same
+        # inputs (channels-last views, as cuDNN takes the port's layout): #7
+        # conv + bias + the mode's extra; #6 the GN-affine + SiLU prologue too
+        extra_c = (None if extra is None else extra[:, :, None, None] if mode == "temb"
+                   else extra.permute(0, 3, 1, 2))
+        af, sf = a[:, :, None, None], s[:, :, None, None]  # the fold stays f32, as in #6
+
+        def epi_library(inp=xc):
+            y = F.conv2d(inp, w, b, padding=1)
+            return y if extra_c is None else y + extra_c
+
+        library = {"conv3x3": cudnn_ms, "epi_conv3x3": None, "fused_conv3x3": None}
+        if timed and dt == "bfloat16":
+            library["epi_conv3x3"] = median_ms(epi_library)
+            library["fused_conv3x3"] = median_ms(
+                lambda: epi_library(F.silu(xc.float() * af + sf).to(dtype)))
         parts = []
         for name, kernel, plain in calls:
             out, ref = kernel(), plain()
@@ -605,9 +671,11 @@ def phase_conv_kernels():
                 nbytes = item * (B * H * H * C + 9 * C * N + N + extra_n + B * H * H * N)
                 nbytes += 8 * B * C if name == "fused_conv3x3" else 0
                 entry["bound_ms"], entry["bound_by"] = bound(2 * 9 * B * H * H * C * N, nbytes, dt)
-                entry["library_ms"] = cudnn_ms
+                entry["library_ms"] = library[name]
+                entry["cudnn_conv_ms"] = cudnn_ms
                 parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
-                             f"{entry['plain_ms']:.4f} ms")
+                             f"{entry['plain_ms']:.4f} ms"
+                             + (f" (library {library[name]:.4f})" if library[name] else ""))
             else:
                 tally = untimed.setdefault(B, [0, 0, 0.0])
                 tally[1] += 1
@@ -616,7 +684,8 @@ def phase_conv_kernels():
         if timed:
             say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt}: " + "; ".join(parts)
                 + (f"; cuDNN bf16 conv + bias {cudnn_ms:.4f} ms" if cudnn_ms is not None else "")
-                + " (kernel / plain, median)")
+                + " (kernel / plain, median; library: conv + bias + extra for #7, with "
+                "silu(x a + s) before it for #6)")
         else:
             untimed[B][0] += 1
         del x, a, s, w, b, extra, calls
@@ -683,7 +752,7 @@ def phase_flash_kernel():
     4 bf16 ulps at the output's largest magnitude (both round p and o at the
     same points; sums in other orders and the fast exp may flip a rounding),
     f32 to F32_TOL; each timed (median of 5) beside its bound, and at
-    VAE_FLASH_SHAPE beside its plain version and SDPA in f32 too. The plain
+    VAE_DECODE_SHAPES beside its plain version and SDPA in f32 too. The plain
     version walks K in blocks, so it holds no L x L logits and runs at every
     head count. Then at FLUX_SERVE_SHAPES, on head
     views of (B, L, H*d) buffers as the FLUX path passes them: #4 and #1
@@ -715,7 +784,7 @@ def phase_flash_kernel():
         bound_ms, bound_by = attention_bound(shape, dt)
         row = {"shape": shape, "dtype": dt, "err": err, "ms": ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
-        if shape == VAE_FLASH_SHAPE:
+        if shape in VAE_DECODE_SHAPES:
             row["plain_ms"] = median_ms(lambda: fa.flash_attention_ref(q, k, v), runs=3)
             row["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v), runs=3)
         say("flash", f"{shape} {dt}: max|err| vs plain {err:.3g} ({shown}; tol {tol:.3g}), "
@@ -1344,15 +1413,14 @@ def by_kernel_class(prof) -> dict:
 def phase_step(engine):
     """Where a denoise step goes: one UNet forward of the 8-row bucket
     (16 rows CFG-doubled) with a slider, timed through the kernel and on the
-    plain attention path, then profiled by kernel class; and one VAE decode
-    of 8 rows."""
+    plain attention path, then profiled by kernel class; and the VAE decode
+    of 8 rows under attention impls 'auto' and 'xla' in turns (`decode_ab`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from sliders_tpu_torch.models import unet2d
     from sliders_tpu_torch.ops import attention as ta
     from sliders_tpu_torch.ops.basic import SliderLora
-    from sliders_tpu_torch.pipelines.text2image import decode_images
 
     m = engine.models
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1389,9 +1457,55 @@ def phase_step(engine):
         + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 3 steps)")
 
     lat = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
-    dec_ms = median_ms(lambda: decode_images(m.vae_params, m.vae_config, lat), runs=3)
-    say("step", f"VAE decode of 8 images (f32, cuDNN TF32 allowed): median {dec_ms:.2f} ms; "
-        f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    dec = decode_ab(m.vae_params, m.vae_config, lat, "SD1.5 VAE decode of 8 images at 512 px")
+    say("step", f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return dec
+
+
+def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int = 3) -> dict:
+    """One VAE decode (f32, cuDNN TF32 allowed) timed under attention impl
+    'auto' (the mid attention, the VAE's only routed attention, on #4) and
+    'xla' (on the plain path) in alternating rounds (auto, xla, xla, auto,
+    ...; median of `runs` synced decodes each); each impl's time is the
+    median of its rounds. Under 'auto' the decode must launch #4 once, and
+    the two images may differ by a rounding of the mid attention only."""
+    import torch
+
+    from sliders_tpu_torch.ops import attention as ta
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.pipelines.text2image import decode_images
+
+    def decode():
+        return decode_images(vae_params, vae_config, lat)
+
+    imgs, times = {}, {"auto": [], "xla": []}
+    try:
+        for impl in ("auto", "xla"):
+            ta.set_attention_impl(impl)
+            before = fa.flash_attention.launches
+            imgs[impl] = decode()
+            torch.cuda.synchronize()
+            if impl == "auto" and fa.flash_attention.launches != before + 1:
+                raise AssertionError(f"{what}: {fa.flash_attention.launches - before} #4 launches "
+                                     f"under 'auto', not 1")
+        for r in range(rounds):
+            for impl in (("auto", "xla") if r % 2 == 0 else ("xla", "auto")):
+                ta.set_attention_impl(impl)
+                times[impl].append(median_ms(decode, runs=runs))
+    finally:
+        ta.set_attention_impl("auto")
+    diff = (imgs["auto"].int() - imgs["xla"].int()).abs().max().item()
+    auto_ms, xla_ms = statistics.median(times["auto"]), statistics.median(times["xla"])
+    say("decode", f"{what} (f32, cuDNN TF32 allowed): median {auto_ms:.2f} ms under 'auto' (#4 "
+        f"on the mid attention), {xla_ms:.2f} ms under 'xla' (rounds {[round(t, 2) for t in times['auto']]}"
+        f" / {[round(t, 2) for t in times['xla']]}); 'auto' / 'xla' {auto_ms / xla_ms:.3f}; "
+        f"images' max|diff| {diff} of 255")
+    # the mid attention's f32 roundings move a pixel by a level at most; a
+    # wrong attention moves many by tens
+    if diff > 8:
+        raise AssertionError(f"{what}: the images under 'auto' and 'xla' differ by {diff} levels")
+    return {"auto_ms": auto_ms, "xla_ms": xla_ms, "auto_rounds": times["auto"],
+            "xla_rounds": times["xla"], "max_diff_levels": diff}
 
 
 def conv_launches() -> dict:
@@ -2637,7 +2751,9 @@ def phase_sdxl_step(engine) -> dict:
     per step with the pin off and on (#1 70; #9 0 and 22), the median of
     synced steps with the pin off and on in turn, the two outputs' distance,
     torch.profiler over one step (pin off) by kernel class, and the step's
-    analytic bound."""
+    analytic bound; then the VAE decode of 8 images at 1024 px (#4 at
+    (8, 1, 16384, 512) in f32) under attention impls 'auto' and 'xla' in
+    turns (`decode_ab`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2707,8 +2823,12 @@ def phase_sdxl_step(engine) -> dict:
         + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 1 step, pin off); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     say("sdxl", f"top kernels of the profiled step: {top_kernels(prof)}")
+    del outs, prof
+    torch.cuda.empty_cache()
+    dec = decode_ab(m.vae_params, m.vae_config, lat, f"SDXL VAE decode of 8 images at {SDXL_PX} px",
+                    rounds=2, runs=2)
     return {"ms_off": off, "ms_on": on, "sd_per_step": per_step[False][0],
-            "pin_per_step": per_step[True][1], "bound_ms": bound_ms}
+            "pin_per_step": per_step[True][1], "bound_ms": bound_ms, "decode": dec}
 
 
 def phase_sdxl_http(engine) -> dict:
@@ -2923,7 +3043,7 @@ def main() -> int:
         tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
         tiny_xl = timed("tiny SDXL", phase_tiny_sdxl)
         engine = timed("SD1.5 engine", build_engine, tok_dir)
-    timed("SD1.5 step", phase_step, engine)
+    sd15_decode = timed("SD1.5 step", phase_step, engine)
     conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
     timed("SD1.5 grad pass", phase_grad_ab, engine)
     serve_launches, serve_flash, serve_conv = timed("SD1.5 http", phase_http, engine)
@@ -2981,6 +3101,7 @@ def main() -> int:
         **timing(level0),
         "sdxl_serve_shapes": [dict(timing(r), shape=r["shape"]) for r in results
                               if r["shape"] in SDXL_SD_SHAPES],
+        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in results],
     }, {
         "name": "sd_attention_bwd",
         "route": "cuda",
@@ -3011,8 +3132,9 @@ def main() -> int:
         "max_abs_err": max(r["err"] for r in flash_checks),
         **timing(flash0),
         "sd_attention_ms_same_inputs": flash0["sd_ms"],
-        "vae_decode_shape": timing(next(r for r in flash_checks
-                                        if r["shape"] == VAE_FLASH_SHAPE)),
+        "vae_decode_shapes": [dict(timing(r), shape=r["shape"]) for r in flash_checks
+                              if r["shape"] in VAE_DECODE_SHAPES],
+        "decode_ms_auto_vs_xla": {"sd15_512": sd15_decode, "sdxl_1024": sdxl["step"]["decode"]},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",

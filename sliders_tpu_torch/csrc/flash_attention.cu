@@ -19,22 +19,27 @@
 //
 // What bounds it: at FLUX's d = 128 it is tensor-core work. (1, 24, 16896,
 // 128) is 4 L^2 d H = 3.5 TFLOP against 0.42 GB of q/k/v/o: 3.55 ms at
-// 989 TFLOP/s against 0.12 ms at 3.35 TB/s. So the design keeps s, p and the
-// accumulator in registers (mma.sync m16n8k16, bf16 in, f32 accumulate;
-// p goes from the logits' accumulator fragments straight into the A
-// fragments of P.V), reads each K/V tile once per 64-row q tile through
-// shared memory, and takes one pass over K where kernel #1 takes two. No
-// wgmma, TMA, ldmatrix or copy pipelining yet: that is what stands between
-// this kernel and the bound.
+// 989 TFLOP/s against 0.12 ms at 3.35 TB/s. At the VAE's d = 512 in f32 it
+// is FMA work: (8, 1, 16384, 512) is 4.4 TFLOP, 65.6 ms at 67 TFLOP/s.
 //
-// Layout: one block per (64-row q tile, head x 128-wide output chunk,
-// batch). The logits sum over the whole head dim in 128-wide chunks (f32:
-// 32-wide), and each block writes one 128-wide chunk of o, so d = 256 or
-// 512 (the VAE's single-head mid attention) needs no more shared memory or
-// registers than d = 128, at the price of one logits pass per output chunk.
-// bf16: four warps, 16 q rows each, 87,040 bytes of shared memory.
-// f32: 256 threads (16 row groups x 16 column groups), each a 4 x 8 tile of
-// s and of acc on plain FMAs, 74,752 bytes.
+// Three forwards:
+// - bf16, d = 128: the Hopper mainloop of attention_sm90.cuh in one-pass
+//   mode: 128 q rows a block on two consumer warpgroups, a producer
+//   warpgroup filling a TMA ring of 128-key K/V tiles, wgmma for Q.K^T and
+//   P.V with p going from the logits' accumulator straight into P.V's A
+//   registers. The running max is kept on the unscaled logits and p taken
+//   as 2^(c s - c m) with c = sm_scale log2(e), the same exp as above.
+// - bf16, d = 256 (no main path; a test shape and a backward head dim):
+//   flash_fwd_bf16, mma.sync m16n8k16 on four warps of 16 q rows, one block
+//   per (64-row q tile, head x 128-wide output chunk), the logits summed
+//   over the whole head dim once per output chunk; the new mainloop's
+//   64 x 256 f32 accumulator would not leave the consumers room for the
+//   logits.
+// - f32: flash_fwd_f32_d512 at d = 512 (the VAE's single-head mid
+//   attention): one block owns 64 q rows across all of d, so the logits of
+//   a K tile are summed once (see the kernel); flash_fwd_f32 at d = 128 and
+//   256: 256 threads (16 row groups x 16 column groups), each a 4 x 8 tile
+//   of s and of acc on plain FMAs, one block per 128-wide output chunk.
 // Shapes: Lq % 64 == 0, Lk % 128 == 0, d % 128 == 0 (the routing gate asks
 // L % 128 == 0 and d % 128 == 0); strides for batch, head and row with a
 // contiguous last dim, so q/k/v can be head views of (B, L, H*d) projections
@@ -58,11 +63,12 @@
 // the roles of the row and column operands swapped. Neither writes an L x L
 // tensor. The backward does 14 B H L^2 d operations (s twice, dp twice, dv,
 // dk, dq) against the minimal 10, and at FLUX's d = 128 is tensor-core
-// bound; like the forward it has no wgmma, TMA or copy pipelining yet, and
+// bound; it has no wgmma, TMA or copy pipelining yet, and
 // B fragments of the transposed products are read as 16-bit pairs.
-// d = 256 repeats the logits for each output chunk, as the forward does.
+// d = 256 repeats the logits for each output chunk, as its forward does.
 
 #include "sd_attention_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -374,6 +380,233 @@ __global__ void __launch_bounds__(FT) flash_fwd_f32(FParams p) {
       p.ml[idx] = m[i];
       p.ml[plane + idx] = l[i];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 at d = 512: the VAE's single-head mid attention
+// ---------------------------------------------------------------------------
+
+// One block owns 64 q rows across all 512 columns of d, so the logits of a
+// K tile are summed once over d (flash_fwd_f32 above sums them once per
+// 128-wide output chunk: four times at d = 512). 512 threads.
+//   logits: q and K arrive in 32-column chunks; thread (ty, tx) sums rows
+//     ty + 16 i and keys tx + 32 j (i, j < 4), reading 16-byte vectors along
+//     d (a warp: 4 ty x 8 tx, each read one wavefront);
+//   softmax: per-row max and sum across the four warps that share a row go
+//     through shared memory; p (f32, unnormalised) is written once to ps,
+//     key-major, and every thread's 8 rows are rescaled by the block's
+//     correction;
+//   P.V: thread (ry, cx) owns rows 8 ry .. 8 ry + 7 and columns 4 cx .. and
+//     256 + 4 cx .. (64 accumulator floats), V arriving in 16-key chunks.
+// Every chunk (q + K, or V) is one cp.async group into a ring of XSLOTS
+// slots in dynamic shared memory, shared by both kinds of chunk; chunk i
+// takes slot i % XSLOTS, two chunks load while one is used, and one
+// barrier a chunk both publishes it and frees the slot the next copies
+// overwrite (read two chunks before).
+constexpr int XQ = 64;         // q rows per block
+constexpr int XD = 512;        // head dim
+constexpr int XT = 512;        // threads
+constexpr int XDC = 32;        // d columns per logits chunk
+constexpr int XS = XDC + 4;    // q / K chunk row stride (floats)
+constexpr int XKV = 16;        // keys per V chunk
+constexpr int XVS = XD + 4;    // V chunk row stride
+constexpr int XPS = XQ + 4;    // ps row stride: ps[key][row]
+constexpr int XSTEPS = XD / XDC + FK / XKV;  // chunks per K tile: 16 logits + 8 P.V
+constexpr int X_QK = (XQ + FK) * XS;         // floats of a q + K chunk
+constexpr int X_V = XKV * XVS;               // floats of a V chunk
+constexpr int X_SLOT = X_QK > X_V ? X_QK : X_V;
+constexpr int XSLOTS = 4;                    // XSTEPS % XSLOTS == 0: slots repeat per tile
+constexpr int XAHEAD = 2;                    // chunks in flight; XAHEAD <= XSLOTS - 2
+constexpr int X_SMEM = (XSLOTS * X_SLOT + FK * XPS + XQ * 4 * 2 + XQ * 3) * 4;
+
+__device__ __forceinline__ void cp_async16_f(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(XT, 1) flash_fwd_f32_d512(FParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [XSLOTS][X_SLOT]: [XQ + FK][XS] or [XKV][XVS]
+  float* ps = ring + XSLOTS * X_SLOT;             // [FK][XPS]
+  float* rmax = ps + FK * XPS;                 // [XQ][4]: partial row max of 4 warps
+  float* rsum = rmax + XQ * 4;                 // [XQ][4]
+  float* mrow = rsum + XQ * 4;                 // [XQ]: running max
+  float* lrow = mrow + XQ;                     // [XQ]: running sum
+  float* corr = lrow + XQ;                     // [XQ]: this tile's exp(m - m')
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ty = (warp % 4) * 4 + lane / 8, tx = (warp / 4) * 8 + lane % 8;  // logits
+  const int ry = (warp % 2) * 4 + lane / 8, cx = (warp / 2) * 8 + lane % 8;  // P.V
+  const int q0 = blockIdx.x * XQ, h = blockIdx.y, b = blockIdx.z;
+  const float* q = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h + q0 * p.qs.l;
+  const float* k = static_cast<const float*>(p.k) + b * p.ks.b + h * p.ks.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.h;
+  float* o = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h;
+
+  if (tid < XQ) {
+    mrow[tid] = -INFINITY;
+    lrow[tid] = 0.f;
+  }
+  float acc[8][8], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // chunk `step` of the whole walk: K tile step / XSTEPS; within it the
+  // logits chunks (q and K columns 32 c ..), then the V chunks (16 keys each)
+  auto issue = [&](int step) {
+    const int kv0 = (step / XSTEPS) * FK, r = step % XSTEPS;
+    float* dst = ring + (step % XSLOTS) * X_SLOT;
+    if (r < XD / XDC) {
+      for (int i = tid; i < (XQ + FK) * (XDC / 4); i += XT) {
+        const int row = i / (XDC / 4), c4 = (i % (XDC / 4)) * 4;
+        const float* src = row < XQ ? q + (long long)row * p.qs.l
+                                    : k + (long long)(kv0 + row - XQ) * p.ks.l;
+        cp_async16_f(dst + row * XS + c4, src + r * XDC + c4);
+      }
+    } else {
+      const float* src = v + (long long)(kv0 + (r - XD / XDC) * XKV) * p.vs.l;
+      for (int i = tid; i < XKV * (XD / 4); i += XT) {
+        const int row = i / (XD / 4), c4 = (i % (XD / 4)) * 4;
+        cp_async16_f(dst + row * XVS + c4, src + (long long)row * p.vs.l + c4);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  const int total = (p.Lk / FK) * XSTEPS;
+  for (int step = 0; step < XAHEAD; ++step) issue(step);  // total >= XSTEPS > XAHEAD
+  for (int step = 0; step < total; ++step) {
+    // chunk `step` must have landed; the XAHEAD after it may still load
+    // (an empty group stands in for each chunk past the end)
+    if (step + XAHEAD < total)
+      issue(step + XAHEAD);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(XAHEAD) : "memory");
+    __syncthreads();
+    const int r = step % XSTEPS;
+    const float* chunk = ring + (step % XSLOTS) * X_SLOT;
+    if (r < XD / XDC) {
+      const float* qs = chunk;
+      const float* ks = qs + XQ * XS;
+      if (r == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      }
+#pragma unroll 2
+      for (int kd = 0; kd < XDC; kd += 4) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * XS + kd);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 bk = *reinterpret_cast<const float4*>(ks + (tx + 32 * j) * XS + kd);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][j] = fmaf(a[i].x, bk.x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, bk.y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, bk.z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, bk.w, s[i][j]);
+          }
+        }
+      }
+      if (r == XD / XDC - 1) {
+        // online softmax over this 128-key block, as flash_fwd_f32's
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] *= p.scale;
+            mx = fmaxf(mx, s[i][j]);
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          if (lane % 8 == 0) rmax[(ty + 16 * i) * 4 + warp / 4] = mx;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = ty + 16 * i;
+          const float* rm = rmax + row * 4;
+          const float mn = fmaxf(fmaxf(mrow[row], fmaxf(rm[0], rm[1])), fmaxf(rm[2], rm[3]));
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float pj = __expf(s[i][j] - mn);
+            sum += pj;
+            ps[(tx + 32 * j) * XPS + row] = pj;
+          }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+          if (lane % 8 == 0) rsum[row * 4 + warp / 4] = sum;
+        }
+        __syncthreads();
+        if (tid < XQ) {
+          const float* rm = rmax + tid * 4;
+          const float* rs = rsum + tid * 4;
+          const float mn = fmaxf(fmaxf(mrow[tid], fmaxf(rm[0], rm[1])), fmaxf(rm[2], rm[3]));
+          const float a = __expf(mrow[tid] - mn);  // 0 on the first block
+          lrow[tid] = lrow[tid] * a + ((rs[0] + rs[1]) + (rs[2] + rs[3]));
+          mrow[tid] = mn;
+          corr[tid] = a;
+        }
+      }
+    } else {
+      const int vc = r - XD / XDC;
+      if (vc == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = corr[ry * 8 + i];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] *= a;
+        }
+      }
+      const float* vs = chunk;
+      const float* pk = ps + vc * XKV * XPS + ry * 8;
+#pragma unroll 4
+      for (int kk = 0; kk < XKV; ++kk) {
+        const float4 p0 = *reinterpret_cast<const float4*>(pk + kk * XPS);
+        const float4 p1 = *reinterpret_cast<const float4*>(pk + kk * XPS + 4);
+        const float4 v0 = *reinterpret_cast<const float4*>(vs + kk * XVS + cx * 4);
+        const float4 v1 = *reinterpret_cast<const float4*>(vs + kk * XVS + 256 + cx * 4);
+        const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();  // lrow's last update is visible
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = ry * 8 + i;
+    const float inv = 1.f / lrow[row];
+    float* orow = o + (long long)(q0 + row) * p.os.l;
+    *reinterpret_cast<float4*>(orow + cx * 4) =
+        make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+    *reinterpret_cast<float4*>(orow + 256 + cx * 4) =
+        make_float4(acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
+  }
+  if (p.ml != nullptr && tid < XQ) {
+    const int H = gridDim.y, Lq = gridDim.x * XQ;
+    const long long plane = (long long)gridDim.z * H * Lq;
+    const long long idx = ml_index(b, h, q0 + tid, H, Lq);
+    p.ml[idx] = mrow[tid];
+    p.ml[plane + idx] = lrow[tid];
   }
 }
 
@@ -751,10 +984,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(Lq / FQ, H * (d / FD), B);
   cudaError_t err;
-  if (is_f32) {
+  if (is_f32 && d == XD) {
+    err = cudaFuncSetAttribute(flash_fwd_f32_d512, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               X_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_f32_d512<<<dim3(Lq / XQ, H, B), XT, X_SMEM, st>>>(p);
+  } else if (is_f32) {
     err = cudaFuncSetAttribute(flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd_f32<<<grid, FT, F32_SMEM, st>>>(p);
+  } else if (d == 128) {
+    const sm90::Params sp{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                          static_cast<float*>(ml), Lq, Lk, d, B, H,
+                          q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+                          o_sb, o_sh, o_sl, scale};
+    return sm90::launch<sm90::Cfg<128, FK, true, false, 1>>(sp, st);
   } else {
     err = cudaFuncSetAttribute(flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                BF16_SMEM);

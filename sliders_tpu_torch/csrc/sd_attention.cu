@@ -12,25 +12,33 @@
 // P.V) would round at a different point, so this kernel takes two passes
 // over K: pass 1 finds each row's max m and sum l = sum exp(s - m) (l is
 // rescaled when m grows); pass 2 recomputes s, forms the normalised p,
-// rounds it and accumulates p.V.
+// rounds it and accumulates p.V. Pass 1 is a third of the products.
 //
-// Why it streams: the TPU kernel kept all of K/V in 16 MB of VMEM. A Hopper
-// block has at most 227 KB of shared memory, so K/V stream through it in
-// 64-row tiles (K twice, V once). At SD1.5's d=40 the work per byte is far
-// below the H100's bf16 ridge (about 295 operations per byte), so the kernel
-// is bound by memory traffic and launch count, not by tensor-core rate.
-// Reading K twice costs one extra pass over K per q tile, served mostly from
-// L2 (K/V of one head is 4096 x 40 x 2 B = 320 KB); the second QK^T is the
-// price of the reference's rounding point.
+// What bounds it: 4 L^2 d operations (6 with pass 1) against 4 L d bytes
+// per head. At FLUX's d = 128 and SDXL's d = 64 that is tensor-core work;
+// at SD1.5's d = 40 the work per byte is still above the H100's bf16 ridge
+// (about 295 operations per byte) once K/V of a head (4096 x 40 x 2 B =
+// 320 KB) stay in L2, so the kernel has to keep the tensor cores fed.
 //
-// Layout: one block per (64-row q tile, head, batch). bf16 runs four warps,
-// 16 q rows each, with mma.sync m16n8k16 (bf16 in, f32 accumulate); f32 runs
-// one thread per q row with plain FMAs. The head dim is zero-padded to a
-// multiple of 16 inside shared memory only. q/k/v/o take element strides
-// for batch, head and row (the last dim must be contiguous), so the caller
-// can pass the (B, L, H, d) views of the projection outputs with no copy.
+// bf16: the Hopper mainloop of attention_sm90.cuh in two-pass mode: 128 q
+// rows a block on two consumer warpgroups, a producer filling a K/V ring
+// (TMA at d = 64 and 128, cp.async with zero-fill elsewhere), wgmma for
+// Q.K^T and P.V. Both passes run on the same ring: pass 1 streams K only,
+// pass 2 K and V. 128-key tiles and one block an SM (a producer
+// warpgroup, setmaxnreg), except at d = 64: 64-key tiles and two blocks an
+// SM (a producer warp), whose items run out of step with each other, so
+// one block's softmax overlaps the other's products. What stays between it
+// and SDPA at d <= 80: the softmax (two exps a logit, on the 16-a-clock
+// MUFU pipe) runs in step with the products, not beside them.
+// f32 (`--precision float32` only): one thread per q row with plain FMAs,
+// K/V tiles of 32 rows in shared memory.
+//
+// q/k/v/o take element strides for batch, head and row (the last dim must
+// be contiguous), so the caller can pass the (B, L, H, d) views of the
+// projection outputs with no copy.
 
 #include "sd_attention_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -43,97 +51,6 @@ struct Params {
   Strides qs, ks, vs, os;
   float scale;
 };
-
-// a 64-row tile stored transposed: dst[col][row], row stride BK + 8
-template <int DP>
-__device__ __forceinline__ void load_rows_t_bf16(bf16* dst, const bf16* src, long long row_stride,
-                                                 int row0, int nrows, int d) {
-  constexpr int CH = DP / 8;
-  for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows && c * 8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (long long)row * row_stride + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c * 8 + j) * (BK + 8) + r] = e[j];
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS) attn_fwd_bf16(Params p) {
-  constexpr int SK = DP + 8;
-  constexpr int SV = BK + 8;
-  __shared__ __align__(16) bf16 ks[BK * SK];
-  __shared__ __align__(16) bf16 vt[DP * SV];
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
-
-  // Q tile through shared memory (the K buffer) into mma A fragments
-  load_rows_bf16<DP>(ks, q, p.qs.l, q0, p.Lq, p.d);
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-  load_a_frags<DP>(qf, ks, r0, g, t4);
-  __syncthreads();
-
-  // pass 1: row max and sum of exp over all keys (rows g and g + 8)
-  float m0, m1, l0, l1;
-  row_stats<DP>(qf, ks, k, p.ks.l, p.Lk, p.d, p.scale, g, t4, m0, m1, l0, l1);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  float s[BK / 8][4];
-
-  // pass 2: normalised p, rounded to bf16, times V
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BK) {
-    load_rows_bf16<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    load_rows_t_bf16<DP>(vt, v, p.vs.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    tile_logits<DP>(s, qf, ks, kv0, p.Lk, p.scale, g, t4);
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      // accumulator fragments of two n8 tiles are the A fragment of one k16 step
-      const uint32_t pa[4] = {
-          pack_bf16(__expf(s[2 * kc][0] - m0) * inv0, __expf(s[2 * kc][1] - m0) * inv0),
-          pack_bf16(__expf(s[2 * kc][2] - m1) * inv1, __expf(s[2 * kc][3] - m1) * inv1),
-          pack_bf16(__expf(s[2 * kc + 1][0] - m0) * inv0, __expf(s[2 * kc + 1][1] - m0) * inv0),
-          pack_bf16(__expf(s[2 * kc + 1][2] - m1) * inv1, __expf(s[2 * kc + 1][3] - m1) * inv1)};
-#pragma unroll
-      for (int nt = 0; nt < DP / 8; ++nt) {
-        const bf16* vb = vt + (nt * 8 + g) * SV + kc * 16 + t4 * 2;
-        const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(vb),
-                                 *reinterpret_cast<const uint32_t*>(vb + 8)};
-        mma_16816(acc[nt], pa, bfr);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int row0 = q0 + r0 + g;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-    const int col = nt * 8 + t4 * 2;  // d % 8 == 0, so col < d implies col + 1 < d
-    if (col < p.d) {
-      if (row0 < p.Lq)
-        *reinterpret_cast<uint32_t*>(o + (long long)row0 * p.os.l + col) =
-            pack_bf16(acc[nt][0], acc[nt][1]);
-      if (row0 + 8 < p.Lq)
-        *reinterpret_cast<uint32_t*>(o + (long long)(row0 + 8) * p.os.l + col) =
-            pack_bf16(acc[nt][2], acc[nt][3]);
-    }
-  }
-}
 
 // f32: one thread per q row, K/V tiles of BKF rows in shared memory
 template <int DP>
@@ -185,12 +102,25 @@ __global__ void __launch_bounds__(BQ) attn_fwd_f32(Params p) {
 }
 
 template <int DP>
-void launch(const Params& p, int B, int H, int is_f32, cudaStream_t stream) {
-  const dim3 grid((p.Lq + BQ - 1) / BQ, H, B);
-  if (is_f32)
+int launch(const Params& p, int B, int H, int is_f32, cudaStream_t stream) {
+  if (is_f32) {
+    const dim3 grid((p.Lq + BQ - 1) / BQ, H, B);
     attn_fwd_f32<DP><<<grid, BQ, 0, stream>>>(p);
-  else
-    attn_fwd_bf16<DP><<<grid, NTHREADS, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const sm90::Params sp{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
+                        static_cast<const bf16*>(p.v), static_cast<bf16*>(p.o), nullptr,
+                        p.Lq, p.Lk, p.d, B, H,
+                        p.qs.b, p.qs.h, p.qs.l, p.ks.b, p.ks.h, p.ks.l,
+                        p.vs.b, p.vs.h, p.vs.l, p.os.b, p.os.h, p.os.l, p.scale};
+  // d = 64 (SDXL): two blocks an SM, 64-key tiles; else one block, 128-key tiles
+  if constexpr (DP == 64) {
+    if (p.d == 64) return sm90::launch<sm90::Cfg<64, 64, true, true, 2>>(sp, stream);
+  }
+  if constexpr (DP == 128) {
+    if (p.d == 128) return sm90::launch<sm90::Cfg<128, 128, true, true, 1>>(sp, stream);
+  }
+  return sm90::launch<sm90::Cfg<DP, 128, false, true, 1>>(sp, stream);
 }
 
 }  // namespace
@@ -211,15 +141,14 @@ extern "C" int sd_attention_fwd(const void* q, const void* k, const void* v, voi
                  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16 * 16) {
-    case 16: launch<16>(p, B, H, is_f32, st); break;
-    case 32: launch<32>(p, B, H, is_f32, st); break;
-    case 48: launch<48>(p, B, H, is_f32, st); break;
-    case 64: launch<64>(p, B, H, is_f32, st); break;
-    case 80: launch<80>(p, B, H, is_f32, st); break;
-    case 96: launch<96>(p, B, H, is_f32, st); break;
-    case 112: launch<112>(p, B, H, is_f32, st); break;
-    case 128: launch<128>(p, B, H, is_f32, st); break;
+    case 16: return launch<16>(p, B, H, is_f32, st);
+    case 32: return launch<32>(p, B, H, is_f32, st);
+    case 48: return launch<48>(p, B, H, is_f32, st);
+    case 64: return launch<64>(p, B, H, is_f32, st);
+    case 80: return launch<80>(p, B, H, is_f32, st);
+    case 96: return launch<96>(p, B, H, is_f32, st);
+    case 112: return launch<112>(p, B, H, is_f32, st);
+    case 128: return launch<128>(p, B, H, is_f32, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

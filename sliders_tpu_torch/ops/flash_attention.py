@@ -26,8 +26,11 @@ refused there, ROADMAP queue 2, item 3).
 sends to the stock kernel: unmasked self-attention with L % 128 == 0,
 L >= 1024 and d % 128 == 0 that kernel #1's TPU plan refuses (FLUX's joint
 attention from 2048 px in bf16 and 1536 px in f32, and the VAE's single-head
-mid attention, d = 512). The kernels take any such shape, in bf16 or f32.
-The library is built with nvcc at first use into `sliders_tpu_torch/_build/`
+mid attention, d = 512). The kernels take any such shape, in bf16 or f32:
+bf16 at d = 128 on the Hopper mainloop of `csrc/attention_sm90.cuh`, f32 at
+d = 512 on a kernel that sums each K tile's logits once over all of d, and
+the other head dims on the first kernels (`csrc/flash_attention.cu` says
+which). The library is built with nvcc at first use into `sliders_tpu_torch/_build/`
 with the package's other kernels (`ops/_build.py`).
 """
 

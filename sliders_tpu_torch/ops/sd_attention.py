@@ -17,13 +17,14 @@ formula at the kernel's rounding points, used by the tests and
 `chip_smoke.py` to hold the kernel to.
 
 The forward kernel replaces `sliders_tpu/ops/pallas_attention.py::_attn_kernel`
-and the backward kernel `_attn_bwd_kernel`. At SD1.5's d=40 both are bound by
-memory traffic and launch count, not tensor-core rate (about 295 operations
-per byte is the H100's bf16 ridge). The forward streams K twice and V once
-per 64-row q tile: pass 1 finds each row's softmax max and sum, pass 2 forms
-the normalised probabilities, rounds them to the input dtype (the TPU
-kernel's rounding point) and multiplies by V. The source files carry the
-details.
+and the backward kernel `_attn_bwd_kernel`. The forward streams K twice and
+V once per 128-row q tile: pass 1 finds each row's softmax max and sum, pass
+2 forms the normalised probabilities, rounds them to the input dtype (the
+TPU kernel's rounding point) and multiplies by V. In bf16 it runs on the
+Hopper mainloop of `csrc/attention_sm90.cuh` (a producer warpgroup filling a
+K/V ring by TMA or cp.async, wgmma on two consumer warpgroups); the f32
+variant and the backward keep `mma.sync` / plain FMAs. The source files
+carry the details.
 
 Both libraries are built with nvcc at first use into
 `sliders_tpu_torch/_build/` together with the package's other kernels

@@ -12,10 +12,16 @@ WordLevel files the tests write:
   become `unk_id`, consecutive ones fused, as the `tokenizers` library
   does) and `WordLevel` (unknown words -> its unk token);
 - normalizers: `Sequence`, `Replace` (string or regex), `Strip`, and
-  `Precompiled` (sentencepiece's charsmap) only where it is the identity:
-  on printable ASCII. A prompt with any other character raises a
-  ValueError naming ROADMAP queue 3: the charsmap is not ported, and a
-  guess would give other ids than the model was trained on;
+  `Precompiled`: sentencepiece's charsmap (a darts-clone double array over
+  UTF-8 and a pool of replacement strings), applied as the `tokenizers`
+  library applies it (`_Charsmap`). The text is cut into extended grapheme
+  clusters; a cluster shorter than 6 UTF-8 bytes is replaced whole by the
+  value of the first key of the trie that prefixes it, else each of its
+  characters by its own. Clusters are cut by the rules that need no
+  emoji or Hangul tables (CR LF, controls, combining and spacing marks); a
+  prompt with a zero-width joiner, a regional indicator, a conjoining
+  Hangul jamo or a prepended concatenation mark raises a ValueError naming
+  ROADMAP queue 3 rather than being cut by a guess;
 - pre-tokenizers: `Metaspace` ('▁', prefix space), `WhitespaceSplit`,
   `Whitespace`, `Sequence`;
 - post-processor: `TemplateProcessing`'s single template (T5 appends
@@ -28,18 +34,129 @@ template adds them; padding fills with the pad token on the right.
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import re
+import struct
+import unicodedata
 from typing import List, Optional
 
 import numpy as np
 
 _UNK_PENALTY = 10.0  # the tokenizers library's K_UNK_PENALTY
-_PRECOMPILED = ("the Precompiled (sentencepiece charsmap) normalizer is ported only where it is "
-                "the identity, on printable ASCII (ROADMAP queue 3); prompt {!r} has other "
-                "characters")
 _WHITESPACE = re.compile(r"\w+|[^\w\s]+")
+
+# Grapheme_Cluster_Break values beyond the general category (Unicode's
+# UAX #29 table): Extend characters that are not marks, SpacingMark
+# characters that are not Mc, and the Mc characters that are neither
+_EXTEND_EXTRA = ({0x200C, 0xFF9E, 0xFF9F} | set(range(0xE0020, 0xE0080))
+                 | set(range(0x1F3FB, 0x1F400)))  # ZWNJ, halfwidth kana marks, tags, skin tones
+_SPACING_EXTRA = {0x0E33, 0x0EB3}
+_MC_OTHER = ({0x102B, 0x102C, 0x1038, 0x1083, 0x108F, 0x1A61, 0x1A63, 0x1A64, 0xAA7B, 0xAA7D,
+              0x11720, 0x11721} | set(range(0x1062, 0x1065)) | set(range(0x1067, 0x106E))
+             | set(range(0x1087, 0x108D)) | set(range(0x109A, 0x109D)))
+# what the cluster rules here do not cover (GB6-8, GB9b, GB11-13)
+_UNSUPPORTED = ((0x1100, 0x11FF), (0xA960, 0xA97F), (0xD7B0, 0xD7FF),  # conjoining jamo
+                (0x1F1E6, 0x1F1FF),  # regional indicators
+                (0x200D, 0x200D),  # zero-width joiner
+                (0x0600, 0x0605), (0x06DD, 0x06DD), (0x070F, 0x070F), (0x0890, 0x0891),
+                (0x08E2, 0x08E2), (0x0D4E, 0x0D4E), (0x110BD, 0x110BD), (0x110CD, 0x110CD),
+                (0x111C2, 0x111C3), (0x1193F, 0x1193F), (0x11941, 0x11941), (0x11A3A, 0x11A3A),
+                (0x11A84, 0x11A89), (0x11D46, 0x11D46), (0x11F02, 0x11F02))  # prepend
+_UNSUPPORTED_MSG = ("the Precompiled normalizer's grapheme clusters are ported without the emoji, "
+                    "regional-indicator, Hangul-jamo and prepend rules (ROADMAP queue 3); prompt "
+                    "{!r} has {!r}")
+
+
+def _joins_previous(c: str) -> bool:
+    """Whether no cluster boundary falls before c (GB9, GB9a): Extend or
+    SpacingMark."""
+    o = ord(c)
+    cat = unicodedata.category(c)
+    return (cat in ("Mn", "Me") or o in _EXTEND_EXTRA or o in _SPACING_EXTRA
+            or (cat == "Mc" and o not in _MC_OTHER))
+
+
+def _is_control(c: str) -> bool:
+    """Grapheme_Cluster_Break Control, CR or LF (GB4, GB5)."""
+    cat = unicodedata.category(c)
+    return cat in ("Cc", "Zl", "Zp") or (cat == "Cf" and ord(c) not in _EXTEND_EXTRA)
+
+
+def graphemes(text: str) -> List[str]:
+    """Extended grapheme clusters of `text` (UAX #29) for text without the
+    characters of `_UNSUPPORTED` (a ValueError names the first)."""
+    out: List[str] = []
+    prev = None
+    for c in text:
+        o = ord(c)
+        for lo, hi in _UNSUPPORTED:
+            if lo <= o <= hi:
+                raise ValueError(_UNSUPPORTED_MSG.format(text, c))
+        if prev is not None and ((prev == "\r" and c == "\n") or (
+                not _is_control(prev) and not _is_control(c) and _joins_previous(c))):
+            out[-1] += c
+        else:
+            out.append(c)
+        prev = c
+    return out
+
+
+class _Charsmap:
+    """A `Precompiled` normalizer's `precompiled_charsmap`: a little-endian
+    u32 trie size in bytes, the darts-clone double array (u32 units) over
+    UTF-8 keys, then a pool of NUL-terminated replacement strings that the
+    trie's values index by byte offset."""
+
+    def __init__(self, blob: bytes):
+        if len(blob) < 4:
+            raise ValueError("precompiled_charsmap is shorter than its 4-byte header")
+        size = struct.unpack_from("<I", blob)[0]
+        if size % 4 or 4 + size > len(blob):
+            raise ValueError(f"precompiled_charsmap's trie size {size} does not fit its "
+                             f"{len(blob)} bytes")
+        self.units = struct.unpack_from(f"<{size // 4}I", blob, 4)
+        self.pool = blob[4 + size:]
+
+    @staticmethod
+    def _offset(unit: int) -> int:
+        return (unit >> 10) << ((unit & (1 << 9)) >> 6)
+
+    def transform(self, chunk: str) -> Optional[str]:
+        """The replacement of the first (shortest) key that prefixes chunk's
+        UTF-8 bytes, or None (darts-clone's common prefix search, first
+        result, as the `tokenizers` library takes it)."""
+        units = self.units
+        pos = self._offset(units[0])
+        for byte in chunk.encode("utf-8"):
+            if byte == 0:
+                break
+            pos ^= byte
+            if pos >= len(units):
+                return None
+            unit = units[pos]
+            if unit & ((1 << 31) | 0xFF) != byte:  # label
+                return None
+            pos ^= self._offset(unit)
+            if (unit >> 8) & 1 and pos < len(units):  # has a leaf: its value
+                start = units[pos] & ((1 << 31) - 1)
+                end = self.pool.find(b"\0", start)
+                return self.pool[start:end if end >= 0 else len(self.pool)].decode("utf-8")
+        return None
+
+    def normalize(self, text: str) -> str:
+        out = []
+        for cluster in graphemes(text):
+            if len(cluster.encode("utf-8")) < 6:
+                norm = self.transform(cluster)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for c in cluster:
+                norm = self.transform(c)
+                out.append(c if norm is None else norm)
+        return "".join(out)
 
 
 def _pattern(spec: dict) -> re.Pattern:
@@ -70,6 +187,8 @@ class T5Tokenizer:
             raise ValueError(f"tokenizer model {self.kind!r} is not supported")
         self.added = {t["content"]: t["id"] for t in spec.get("added_tokens") or []}
         self.normalizers = self._flatten(spec.get("normalizer"), "normalizers")
+        self.charsmaps = {id(step): _Charsmap(base64.b64decode(step["precompiled_charsmap"]))
+                          for step in self.normalizers if step["type"] == "Precompiled"}
         self.pre_tokenizers = self._flatten(spec.get("pre_tokenizer"), "pretokenizers")
         for step in self.normalizers + self.pre_tokenizers:
             if step["type"] not in ("Replace", "Strip", "Precompiled", "Metaspace",
@@ -133,8 +252,8 @@ class T5Tokenizer:
                     text = text.lstrip()
                 if step.get("strip_right", True):
                     text = text.rstrip()
-            elif any(not " " <= c <= "~" for c in text):  # Precompiled
-                raise ValueError(_PRECOMPILED.format(text))
+            else:  # Precompiled
+                text = self.charsmaps[id(step)].normalize(text)
         return text
 
     def _pre_tokenize(self, text: str) -> list:

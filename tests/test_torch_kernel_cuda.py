@@ -139,6 +139,44 @@ def test_routed_attention_grads_match_plain_route(cuda, length, heads, width, dt
         assert (gk.float() - gp.float()).abs().max().item() <= rel_tol * max(scale, 1e-6)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("length", [1000, 1090, 100])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_kernel_every_head_dim_and_ragged_length(cuda, d, length):
+    """#1's bf16 forward on the Hopper mainloop at every head dim the gate
+    takes (TMA at d = 64 and 128, cp.async with zero-filled pad columns
+    elsewhere), at lengths that leave a ragged last q and key tile (1000,
+    1090) and one below the 128-row q tile (100): within 4 bf16 ulps of the
+    plain version at the output's largest magnitude, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 7 + length)
+    q, k, v = (torch.randn((2, 3, length, d), generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    launches = sa.sd_attention.launches
+    out = sa.sd_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert sa.sd_attention.launches == launches + 1
+    ref = sa.sd_attention_ref(q, k, v)
+    tol = 4 * _ulps_bf16(ref.float().abs().max().item())
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(4, 40, 1090, 40), (4, 40, 1000, 64), (2, 40, 1000, 128)])
+def test_kernel_walks_several_items_per_block(cuda, shape):
+    """More 128-row q tiles than the card has SMs: each block of #1's
+    persistent grid walks several (q tile, head, batch) items, the ring's
+    stages and phases running on from one to the next (cp.async at d = 40,
+    TMA at 64 and 128); every item within 4 bf16 ulps of the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16() for _ in range(3))
+    out = sa.sd_attention(q, k, v)
+    ref = sa.sd_attention_ref(q, k, v)
+    tol = 4 * _ulps_bf16(ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
 # ---------------------------------------------------------------------------
 # conv kernels #5-#7 and the GroupNorm kernel #8
 # ---------------------------------------------------------------------------
@@ -435,6 +473,87 @@ def test_flash_kernel_refuses_grad_and_bad_shapes(cuda):
         with pytest.raises(ValueError):
             fa.flash_attention(t, t, t)
     assert fa.flash_attention.launches == launches
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(3, 2, 1024, 512), (1, 3, 2048, 512)])
+def test_flash_f32_d512_kernel_ragged_grid(cuda, shape):
+    """#4's f32 kernel at d = 512 (one block per 64 q rows across all of d)
+    on batch and head grids other than the VAE's single head: o within 1e-5
+    of the plain version, and its residuals m and l within 1e-5 relative
+    (d = 512 is refused under grad, but the kernel writes them as at d =
+    128)."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda) for _ in range(3))
+    launches = fa.flash_attention.launches
+    o, m, l = fa._forward(q, k, v, residuals=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    ro, rm, rl = fa.flash_attention_fwd_ref(q, k, v)
+    assert (o - ro).abs().max().item() <= 1e-5
+    for a, b in ((m, rm), (l, rl)):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("views", [False, True])
+def test_flash_bf16_forward_residuals(cuda, views):
+    """#4's bf16 forward on the Hopper mainloop (one pass, 128-key blocks)
+    writes m and l equal to flash_attention_fwd_ref's within 1e-5 relative,
+    and o within 4 bf16 ulps, on (B, H, L, d) tensors and on head views of
+    (B, L, H*d) buffers."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    B, H, L, d = 2, 3, 2048, 128
+    if views:
+        q, k, v = (_heads(torch.randn((B, L, H * d), generator=gen, device=cuda).bfloat16(), H)
+                   for _ in range(3))
+    else:
+        q, k, v = (torch.randn((B, H, L, d), generator=gen, device=cuda).bfloat16()
+                   for _ in range(3))
+    launches = fa.flash_attention.launches
+    o, m, l = fa._forward(q, k, v, residuals=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    ro, rm, rl = fa.flash_attention_fwd_ref(q, k, v)
+    for a, b in ((m, rm), (l, rl)):
+        assert a.shape == (B, H, L) and a.dtype == torch.float32
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    tol = 4 * _ulps_bf16(ro.float().abs().max().item())
+    assert (o.float() - ro.float()).abs().max().item() <= tol
+
+
+@pytest.mark.requires_cuda
+def test_flash_function_grads_through_new_forward(cuda):
+    """FlashAttention at (1, 2, 2048, 128) bf16: the new forward's output and
+    residuals feed #4's dk/dv and dq kernels, and the gradients equal the
+    plain route's (autograd through xla_attention) within 16 bf16 ulps at
+    the largest magnitude, the tolerance of
+    test_flash_function_grads_match_plain_route for the same rounding
+    differences."""
+    from sliders_tpu_torch.ops import attention as ta
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    x = [(torch.randn((1, 2, 2048, 128), generator=gen, device=cuda) * 0.5).bfloat16()
+         for _ in range(4)]
+    q, k, v = (t.clone().requires_grad_() for t in x[:3])
+    counts = (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+              fa.flash_attention_bwd.dq_launches)
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), x[3])
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
+            fa.flash_attention_bwd.dq_launches) == tuple(c + 1 for c in counts)
+    qp, kp, vp = (t.clone().requires_grad_() for t in x[:3])
+    plain = torch.autograd.grad(ta.xla_attention(qp, kp, vp), (qp, kp, vp), x[3])
+    for gk, gp in zip(grads, plain):
+        scale = gp.float().abs().max().item()
+        assert (gk.float() - gp.float()).abs().max().item() <= 2.0**-6 * max(scale, 1e-6)
 
 
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:

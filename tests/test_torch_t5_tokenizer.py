@@ -5,11 +5,15 @@ the FLUX pipeline calls it: padding="max_length", truncation=True.
 Two files: the WordLevel + Whitespace one that `tests/helpers.py` writes for
 the tiny FLUX snapshot, and a Unigram + Metaspace one built here with the
 `tokenizers` library in the shape of a FLUX snapshot's tokenizer_2
-(Replace and Strip normalizers, TemplateProcessing appending </s>).
+(Replace and Strip normalizers, TemplateProcessing appending </s>); and the
+latter with a `Precompiled` charsmap in front, assembled here, held to
+`tokenizers.normalizers.Precompiled` string for string.
 """
 
+import base64
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -88,22 +92,106 @@ def test_unigram_segmentation_is_viterbi(tmp_path):
     assert list(ours(["a"], max_length=4)[0]) == [ids["▁a"], 1, 0, 0]
 
 
-def test_precompiled_normalizer_is_identity_on_ascii_only(tmp_path):
-    """A snapshot's Precompiled (sentencepiece charsmap) normalizer is taken
-    as the identity on printable ASCII; any other character is refused by
-    name rather than guessed."""
-    _unigram_tokenizer(str(tmp_path))
-    path = tmp_path / "tokenizer.json"
-    spec = json.loads(path.read_text())
+# a sentencepiece charsmap in small: full-width letters, a ligature, NBSP and
+# a tab to a space, a combining-accent sequence composed, halfwidth kana
+# with its voicing mark composed, and a deletion
+CHARSMAP = {**{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+            **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
+            "\ufb01": "fi", "\u00a0": " ", "\t": " ", "e\u0301": "\u00e9",
+            "A\u0300": "\u00c0", "\uff76\uff9e": "\u30ac", "\u00ad": ""}
+CHARSMAP_PROMPTS = [
+    "ＡＢＣ ｄｅｆ photo", "ﬁne ﬂour", "a\u00a0photo of\u00a0a person", "a\tphoto\t\tof",
+    "cafe\u0301 Ae\u0301", "A\u0300 la carte", "ａ\u0301b",  # a key prefixes the cluster
+    "e\u0301\u0301", "e\u0301\u0302\u0303x",  # a cluster of 7 bytes: char by char
+    "\t\u0301", "x\u00ady", "ｶﾞｷﾞ", "naïve café", "写真 of a person", "line\r\nbreak",
+    "plain ascii prompt", "",
+]
+
+
+def _charsmap_blob(mapping: dict) -> bytes:
+    """A precompiled_charsmap as sentencepiece lays it out: a little-endian
+    u32 trie size, a darts-clone double array over the keys' UTF-8 bytes
+    (each node's children in a block of 256 units of its own, the leaf's
+    value unit at label 0), then the NUL-terminated values."""
+    pool, values = b"", {}
+    for key, val in mapping.items():
+        values[key.encode()] = len(pool)
+        pool += val.encode() + b"\0"
+    trie: dict = {}
+    for key in values:
+        node = trie
+        for byte in key:
+            node = node.setdefault(byte, {})
+        node[None] = values[key]
+    units = [0] * 256
+
+    def place(node: dict, pos: int) -> None:
+        base = len(units)  # a multiple of 256: child c at base ^ c = base + c
+        units.extend([0] * 256)
+        units[pos] |= (pos ^ base) << 10  # offset
+        if None in node:
+            units[pos] |= 1 << 8  # has a leaf
+            units[base] = node[None] | (1 << 31)
+        for byte, child in sorted((b, c) for b, c in node.items() if b is not None):
+            units[base + byte] = byte  # label
+            place(child, base + byte)
+
+    place(trie, 0)
+    return struct.pack("<I", 4 * len(units)) + struct.pack(f"<{len(units)}I", *units) + pool
+
+
+def _precompiled_tokenizer(d):
+    """The Unigram file with a Precompiled step in front, as a FLUX
+    snapshot's T5 tokenizer has it."""
+    _unigram_tokenizer(d)
+    path = os.path.join(d, "tokenizer.json")
+    spec = json.loads(open(path).read())
+    blob = base64.b64encode(_charsmap_blob(CHARSMAP)).decode()
     spec["normalizer"] = {"type": "Sequence", "normalizers": [
-        {"type": "Precompiled", "precompiled_charsmap": "AAAA"}, spec["normalizer"]]}
-    path.write_text(json.dumps(spec))
+        {"type": "Precompiled", "precompiled_charsmap": blob}, spec["normalizer"]]}
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return blob
+
+
+@pytest.mark.parametrize("prompt", CHARSMAP_PROMPTS)
+def test_precompiled_normalizer_equals_tokenizers(tmp_path, prompt):
+    """The port's Precompiled step gives the string that
+    `tokenizers.normalizers.Precompiled` gives on the same charsmap,
+    quirks included (a key that prefixes a short cluster replaces all of
+    it; a cluster of 6 bytes or more goes character by character)."""
+    from tokenizers import normalizers
+
+    blob = base64.b64decode(_precompiled_tokenizer(str(tmp_path)))
     ours = T5Tokenizer.from_pretrained(str(tmp_path))
-    plain = T5Tokenizer(json.loads(json.dumps({**spec, "normalizer": None})))
-    assert ours.tokenize("a photo of a person") == plain.tokenize("a photo of a person")
-    for prompt in ("café", "a\tphoto", "ｆｕｌｌ"):
-        with pytest.raises(ValueError, match="ROADMAP queue 3"):
-            ours([prompt])
+    step = ours.normalizers[0]
+    assert step["type"] == "Precompiled"
+    want = normalizers.Precompiled(blob).normalize_str(prompt)
+    assert ours.charsmaps[id(step)].normalize(prompt) == want
+
+
+def test_precompiled_ids_equal_t5_tokenizer_fast(tmp_path):
+    """Through the whole tokenizer: the port's ids equal T5TokenizerFast's
+    on a file with the charsmap in front of Replace and Strip."""
+    _precompiled_tokenizer(str(tmp_path))
+    ref = transformers.T5TokenizerFast.from_pretrained(str(tmp_path))
+    ours = T5Tokenizer.from_pretrained(str(tmp_path))
+    want = ref(CHARSMAP_PROMPTS, padding="max_length", max_length=32, truncation=True,
+               return_tensors="np").input_ids
+    got = ours(CHARSMAP_PROMPTS, max_length=32)
+    for p, g, w in zip(CHARSMAP_PROMPTS, got, want):
+        np.testing.assert_array_equal(g, w, err_msg=repr(p))
+
+
+@pytest.mark.parametrize("prompt", ["a 👩\u200d💻 person", "🇫🇷 flag", "\u1100\u1161 jamo",
+                                    "\u0600x"])
+def test_precompiled_refuses_clusters_it_cannot_cut(tmp_path, prompt):
+    """Zero-width joiner sequences, regional indicators, conjoining jamo and
+    prepended marks need cluster rules the port does not have: refused by
+    name rather than cut by a guess."""
+    _precompiled_tokenizer(str(tmp_path))
+    with pytest.raises(ValueError, match="ROADMAP queue 3"):
+        T5Tokenizer.from_pretrained(str(tmp_path))([prompt])
 
 
 def test_unsupported_pieces_are_refused(tmp_path):
