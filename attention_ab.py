@@ -10,10 +10,12 @@ flash_attention}.cu` are compiled with the flags of `ops/_build.py` into
 `<dir>/_ab_build/` and loaded with ctypes behind the same C entry points, so
 the port's wrappers launch either library on the same inputs. For every
 case both results are held to the unchanged plain versions with the
-tolerances of `chip_smoke.py` (4 bf16 ulps at the output's largest
+tolerances of `chip_smoke.py` (4 bf16 ulps at each output's largest
 magnitude; f32 1e-5), then timed with CUDA events in the order parent,
-change, change, parent (median of `--runs` calls each); each side's time is
-the mean of its two medians. SDPA on the same inputs, the plain version and
+change, change, parent (median of `--runs` samples each, a sample the mean
+of back-to-back calls adding up to about 20 ms, so that the wrapper's host
+time overlaps the device work and a sample reads the kernels' time); each
+side's time is the mean of its two medians. SDPA on the same inputs, the plain version and
 the bound are printed beside. It prints the card's name and power limit
 first and writes every row to `--out` as JSON when given.
 """
@@ -46,7 +48,18 @@ CASES = [
     ("flash", (1, 2, 16896, 128), "bfloat16", True),
     ("flash", (8, 1, 16384, 512), "float32", False),
     ("flash", (8, 1, 4096, 512), "float32", False),
+    # the backwards: #2 at every bf16 shape of chip_smoke.py's BWD_SHAPES (FLUX's
+    # d = 128 on head views, as its grad pass passes them), #4's dk/dv and dq
+    # kernels from the same residuals at FLUX's 2048 px and 1024 px grad passes
+    ("sd_bwd", (1, 8, 4096, 40), "bfloat16", False),
     ("sd_bwd", (1, 8, 1024, 80), "bfloat16", False),
+    ("sd_bwd", (2, 8, 4096, 40), "bfloat16", False),
+    ("sd_bwd", (1, 10, 1024, 64), "bfloat16", False),
+    ("sd_bwd", (3, 10, 1024, 64), "bfloat16", False),
+    ("sd_bwd", (1, 24, 4096, 128), "bfloat16", True),
+    ("sd_bwd", (1, 24, 1536, 128), "bfloat16", True),
+    ("flash_bwd", (1, 24, 16896, 128), "bfloat16", True),
+    ("flash_bwd", (1, 24, 4608, 128), "bfloat16", True),
 ]
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -62,7 +75,11 @@ def bound_ms(shape, dt, backward=False):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def median_ms(fn, runs):
+def median_ms(fn, runs, reps=1):
+    """Median over `runs` samples of the device time per call; a sample is
+    `reps` calls back to back between two CUDA events, so that with reps > 1
+    the wrapper's host time overlaps the device work of the calls before it
+    and the sample reads the kernels' time."""
     import torch
 
     fn()
@@ -71,10 +88,11 @@ def median_ms(fn, runs):
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -155,55 +173,74 @@ def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
         library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
         lib_names = ("flash",)
     else:
-        call = lambda: sa.sd_attention_bwd(q, k, v, g)  # noqa: E731
-        plain = lambda: sa.sd_attention_bwd_ref(q, k, v, g)  # noqa: E731
+        if kernel == "sd_bwd":
+            call = lambda: sa.sd_attention_bwd(q, k, v, g)  # noqa: E731
+            plain = lambda: sa.sd_attention_bwd_ref(q, k, v, g)  # noqa: E731
+            lib_names = ("bwd",)
+        else:  # flash_bwd: the residual forward once, then the two kernels
+            o, m, l = fa._forward(q, k, v, residuals=True)
+            call = lambda: fa.flash_attention_bwd(q, k, v, o, g, m, l)  # noqa: E731
+            plain = lambda: fa.flash_attention_bwd_ref(q, k, v, o, g, m, l)  # noqa: E731
+            lib_names = ("flash",)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         so = F.scaled_dot_product_attention(*leaves)
         library = lambda: torch.autograd.grad(so, leaves, g, retain_graph=True)  # noqa: E731
-        lib_names = ("bwd",)
     parent = {n: parent_libs[n] for n in lib_names}
-    # the plain version in pieces of heads where its L x L logits would be large
+    # the plain version in pieces of heads where its L x L logits would be
+    # large; each output (o, or dq, dk, dv) one list of pieces
     refs = []
     step = max(1, min(H, int(2**31 // (B * L * L * 4))))
     for h in range(0, H, step):
         part = (slice(None), slice(h, h + step))
         if kernel == "sd":
-            refs.append(sa.sd_attention_ref(q[part], k[part], v[part]).float())
+            out = (sa.sd_attention_ref(q[part], k[part], v[part]),)
         elif kernel == "flash":
-            refs.append(fa.flash_attention_ref(q[part], k[part], v[part]).float())
+            out = (fa.flash_attention_ref(q[part], k[part], v[part]),)
+        elif kernel == "sd_bwd":
+            out = sa.sd_attention_bwd_ref(q[part], k[part], v[part], g[part])
         else:
-            refs.append(torch.cat([t.float() for t in sa.sd_attention_bwd_ref(
-                q[part], k[part], v[part], g[part])], -1))
-    ref = torch.cat(refs, 1)
+            out = fa.flash_attention_bwd_ref(q[part], k[part], v[part], o[part], g[part],
+                                             m[part], l[part])
+        refs.append([t.float() for t in out])
+    ref = [torch.cat(pieces, 1) for pieces in zip(*refs)]
     del refs
-    errs = {}
+    # each output held to its own tolerance: bf16 4 ulps at its largest
+    # magnitude, f32 1e-5; a side's error is its worst output's, as a share
+    # of that output's tolerance
+    tols = [bf16_tol(r.abs().max().item()) if dtype == torch.bfloat16 else 1e-5 for r in ref]
+    errs, shares = {}, {}
     for side, libs in (("parent", parent), ("change", {})):
         with Using(libs):
             out = call()
-        out = torch.cat([t.float() for t in out], -1) if isinstance(out, tuple) else out.float()
+        out = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
-        errs[side] = (out - ref).abs().max().item()
+        each = [(a.float() - r).abs().max().item() for a, r in zip(out, ref)]
+        shares[side] = max(e / t for e, t in zip(each, tols))
+        errs[side] = max(each)
         del out
-    ref_max = ref.abs().max().item()
-    tol = bf16_tol(ref_max) if dtype == torch.bfloat16 else 1e-5
+    tol = min(tols)
     del ref
     torch.cuda.empty_cache()
+    # enough back-to-back calls for about 20 ms a sample (from one timed call)
+    reps = max(1, min(50, int(20.0 / max(median_ms(call, 1), 1e-3))))
     times = {"parent": [], "change": []}
     for side in ("parent", "change", "change", "parent"):
         with Using(parent if side == "parent" else {}):
-            times[side].append(median_ms(call, runs))
+            times[side].append(median_ms(call, runs, reps))
     row = {"kernel": kernel, "shape": shape, "dtype": dt, "views": views, "tol": tol,
            "err_parent": errs["parent"], "err_change": errs["change"],
            "parent_ms": statistics.mean(times["parent"]),
            "change_ms": statistics.mean(times["change"]),
            "parent_ms_each": times["parent"], "change_ms_each": times["change"],
-           "library_ms": median_ms(library, runs)}
-    row["bound_ms"], row["bound_by"] = bound_ms(shape, dt, backward=kernel == "sd_bwd")
+           "library_ms": median_ms(library, runs, reps), "reps": reps}
+    row["bound_ms"], row["bound_by"] = bound_ms(shape, dt, backward=kernel.endswith("_bwd"))
     big = B * H * L * L * 4 > 2**33
     row["plain_ms"] = None if big else median_ms(plain, 3)
-    row["ok"] = errs["change"] <= tol
+    row["err_share_parent"], row["err_share_change"] = shares["parent"], shares["change"]
+    row["ok"] = shares["change"] <= 1.0
     print(f"[ab] {kernel} {shape} {dt}{' views' if views else ''}: err parent {errs['parent']:.3g} "
-          f"change {errs['change']:.3g} (tol {tol:.3g}); parent {row['parent_ms']:.4f} ms "
+          f"change {errs['change']:.3g} (worst output at {shares['change']:.2f} of its tolerance, "
+          f"parent {shares['parent']:.2f}; least tol {tol:.3g}); parent {row['parent_ms']:.4f} ms "
           f"{['%.4f' % t for t in times['parent']]}, change {row['change_ms']:.4f} ms "
           f"{['%.4f' % t for t in times['change']]} ({row['change_ms'] / row['parent_ms']:.3f}x); "
           f"library {row['library_ms']:.4f}, plain "
@@ -219,7 +256,8 @@ def main() -> int:
     ap.add_argument("--parent", required=True, help="directory holding the parent's csrc")
     ap.add_argument("--out", default=None, help="write the rows here as JSON")
     ap.add_argument("--runs", type=int, default=10)
-    ap.add_argument("--only", default="", help="comma-separated kernels (sd, flash, sd_bwd)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_ab: needs a CUDA device", file=sys.stderr)

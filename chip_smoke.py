@@ -14,8 +14,10 @@ with its seconds and the seconds since the start:
      attention forward and backward, flash attention, the 3x3 conv kernels,
      GroupNorm, the layout pin) for sm_90a, in parallel; registers, spills
      and shared memory per kernel (the Hopper-mainloop kernels of
-     attention_sm90.cuh at d = 40, 64, 80, 128 and #4's at d = 128, and
-     #4's f32 d = 512 kernel among them), and the build's seconds.
+     attention_sm90.cuh at d = 40, 64, 80, 128 and #4's at d = 128, the
+     backward mainloop's of attention_bwd_sm90.cuh, #2's dq and dk/dv at
+     d = 40, 64, 80, 128 and #4's at d = 128, and #4's f32 d = 512 kernel
+     among them), and the build's seconds.
   3. kernel: the attention forward kernel against its plain PyTorch version
      at the serving shapes (SD1.5's and SDXL's at bucket 8, SDXL training's
      at 512 px), the backward kernel at the grad-pass shapes (SD1.5's, and
@@ -365,20 +367,29 @@ def phase_device():
 # holds names it): #1's bf16 forward on the Hopper mainloop
 # (attention_sm90.cuh, Cfg<DP, BK, TMA, two-pass>) at SD1.5's d = 40 and 80,
 # SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 on the
-# same mainloop; #2 at d <= 48 (SD1.5's d = 40; a change to its shared
-# header has moved these counts before) and at d = 128, every conv and
-# GroupNorm instantiation, #4's f32 forwards (d = 512 and the others) and
-# backward kernels, #9's copy kernels
+# same mainloop; the bf16 backwards on the Hopper backward mainloop
+# (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's policy>): #2's dq and
+# dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128; every conv and
+# GroupNorm instantiation, #4's f32 forwards (d = 512 and the others) and its
+# d = 256 and f32 backward kernels, #9's copy kernels
+BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1E", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
+            ("BCfgILi48ELi128ELb0ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
+            ("BCfgILi64ELi64ELb1ELb0ELb1E", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
+            ("BCfgILi64ELi64ELb1ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=64 (TMA)"),
+            ("BCfgILi80ELi64ELb0ELb0ELb1E", "attn_bwd_sm90 #2 dq d=80 (cp.async)"),
+            ("BCfgILi80ELi64ELb0ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=80 (cp.async)"),
+            ("BCfgILi128ELi64ELb1ELb0ELb1E", "attn_bwd_sm90 #2 dq d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb1ELb0E", "attn_bwd_sm90 #4 dk/dv d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb0ELb0E", "attn_bwd_sm90 #4 dq d=128 (TMA)"))
 REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("CfgILi80ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=80 (cp.async)"),
             ("CfgILi64ELi64ELb1ELb1ELi2E", "attn_sm90 #1 d=64 (TMA, 2 blocks an SM)"),
             ("CfgILi128ELi128ELb1ELb1ELi1E", "attn_sm90 #1 d=128 (TMA)"),
             ("CfgILi128ELi128ELb1ELb0ELi1E", "attn_sm90 #4 d=128 (TMA, one pass)"),
-            ("attn_bwd_dq_bf16ILi48E", "attn_bwd_dq_bf16"),
-            ("attn_bwd_dkdv_bf16ILi48E", "attn_bwd_dkdv_bf16"),
-            ("attn_bwd_dq_bf16ILi128E", "attn_bwd_dq_bf16<128>"),
-            ("attn_bwd_dkdv_bf16ILi128E", "attn_bwd_dkdv_bf16<128>"),
-            ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16"), ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16"),
+            *BWD_SM90,
+            ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16 (d = 256)"),
+            ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16 (d = 256)"),
             ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32"), ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32"),
             ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
@@ -394,8 +405,8 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
 
 
 def ptxas_report(log: str) -> list:
-    """'kernel Used N registers, ...; spills' for each REPORTED kernel in an
-    nvcc -Xptxas -v log."""
+    """'kernel Used N registers, ... (stack frame and spill bytes)' for each
+    REPORTED kernel in an nvcc -Xptxas -v log."""
     out, entry, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -405,8 +416,7 @@ def ptxas_report(log: str) -> list:
         elif "Used" in ln and entry is not None:
             for key, label in REPORTED:
                 if key in entry:
-                    out.append(f"{label} {ln.split('info    : ')[-1]}"
-                               + (f" ({spill})" if spill and not spill.startswith("0 bytes stack frame, 0 bytes spill") else ""))
+                    out.append(f"{label} {ln.split('info    : ')[-1]}" + (f" ({spill})" if spill else ""))
                     break
             entry = None
     return out
@@ -425,6 +435,19 @@ def sm90_smem(d: int) -> int:
     return 2048 + q + min(4, (200 * 1024 // ctas - 2048 - q) // stage) * stage
 
 
+def bwd_sm90_smem(d: int, dkv: bool) -> int:
+    """Dynamic shared memory a block of the backward mainloop takes
+    (attention_bwd_sm90.cuh's BCfg as the launchers pick it: 128-row
+    streamed tiles for #2 at d <= 48, else 64): 1024 bytes of alignment
+    slack and 1024 of barriers, two resident 128-row tiles, then as many
+    stages of two streamed tiles (and, in the dk/dv kernel, their rows'
+    three f32 statistics) as fit 200 KiB, at most 4."""
+    dp = -(-d // 16) * 16
+    bn = 128 if dp <= 48 else 64
+    res, stage = 2 * 128 * dp * 2, 2 * bn * dp * 2 + (3 * bn * 4 if dkv else 0)
+    return 2048 + res + min(4, (200 * 1024 - 2048 - res) // stage) * stage
+
+
 def phase_build():
     from sliders_tpu_torch.ops import _build
 
@@ -439,6 +462,11 @@ def phase_build():
         f"d={d} {sm90_smem(d)}" for d in (40, 64, 80, 128))
         + "; with one block an SM its consumers take 224 registers a thread and the producer "
         "56 (setmaxnreg)")
+    say("build", "attn_bwd_sm90 dynamic shared memory a block (bytes): " + ", ".join(
+        f"d={d} dq {bwd_sm90_smem(d, False)} dk/dv {bwd_sm90_smem(d, True)}"
+        for d in (40, 64, 80, 128))
+        + "; one block an SM, its consumers take 232 registers a thread and the producer 40 "
+        "(setmaxnreg)")
     say("build", f"{len(libs)} libraries built and loaded in {secs:.1f} s")
 
 
@@ -3068,7 +3096,8 @@ def main() -> int:
     # ms / plain_ms / library_ms / bound_ms are at the first shape each
     # kernel phase lists (#4: 2048 px serving; its backward: the 2048 px
     # grad pass; #9: the (16, 4096, 640) bf16 boundary, contiguous); #1
-    # and #2 give their SDXL shapes' times beside.
+    # and #2 give their SDXL shapes' times beside, and #1, #2 and #4's
+    # backward every shape's under "shapes".
     level0, bwd_level0, gn0, flash0 = results[0], bwd_results[0], gn_results[0], flash_times[0]
 
     def timing(r):
@@ -3116,6 +3145,7 @@ def main() -> int:
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
+        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in bwd_results],
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -3150,6 +3180,7 @@ def main() -> int:
         "max_abs_err": max(r["err"] for r in flash_bwd),
         "max_err_bf16_ulps": max(r["err_ulps"] for r in flash_bwd),
         **timing(flash_bwd[0]),
+        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in flash_bwd],
     },
         conv_entry("conv3x3", 44, serve_conv["conv3x3"],
                    {"serve_auto": serve_conv["conv3x3"],

@@ -57,18 +57,27 @@
 //
 // round() casts to do's dtype before the product, sums are f32, and dq, dk,
 // dv are cast to the input dtype at the end. Two kernels, no atomics: a
-// K/V-major one for dk and dv (one block per 64 K/V rows and 128-wide output
-// chunk, a loop over every q tile) and a q-major one for dq (one block per 64
-// q rows and output chunk, a loop over every K/V tile); one template with
-// the roles of the row and column operands swapped. Neither writes an L x L
-// tensor. The backward does 14 B H L^2 d operations (s twice, dp twice, dv,
-// dk, dq) against the minimal 10, and at FLUX's d = 128 is tensor-core
-// bound; it has no wgmma, TMA or copy pipelining yet, and
-// B fragments of the transposed products are read as 16-bit pairs.
-// d = 256 repeats the logits for each output chunk, as its forward does.
+// K/V-major one for dk and dv (a loop over every q tile) and a q-major one
+// for dq (a loop over every K/V tile). Neither writes an L x L tensor. The
+// backward does 14 B H L^2 d operations (s twice, dp twice, dv, dk, dq)
+// against the minimal 10, and at FLUX's d = 128 is tensor-core bound.
+// - bf16, d = 128: the Hopper backward mainloop of attention_bwd_sm90.cuh
+//   with #4's numeric policy: 128 K/V (or q) rows a block item on two
+//   consumer warpgroups, a producer filling a TMA ring of 64-row (q, do)
+//   (or K, V) tiles, `wgmma` for all five products, p and ds going from
+//   registers into the A operands of dv, dk and dq.
+// - bf16, d = 256 (no main path) and f32 (the tiny f32 FLUX run,
+//   `--precision float32`): flash_bwd_bf16 / flash_bwd_f32, one block per
+//   64 K/V (or q) rows and 128-wide output chunk, one template with the
+//   roles of the row and column operands swapped; mma.sync m16n8k16 bf16
+//   (B fragments of the transposed products read as 16-bit pairs) or plain
+//   FMAs. d = 256 repeats the logits for each output chunk, as its forward
+//   does; the new mainloop's 64 x 256 f32 accumulators (dk and dv) would
+//   leave its consumers no registers for the logits.
 
 #include "sd_attention_common.cuh"
 #include "attention_sm90.cuh"
+#include "attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -1010,7 +1019,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // One backward kernel: part 0 the dk/dv kernel (writes dk, dv), part 1 the
-// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous. Returns
+// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous; bf16 at
+// d = 128 reads two more planes after di, m log2(e) and 1 / l (the wrapper
+// forms them), from a 16-byte aligned di. Returns
 // the launch's CUDA error (0 on success). Shapes and strides as for the
 // forward, with Lq and Lk multiples of 64; the Python wrapper checks them.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
@@ -1030,5 +1041,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                   {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {g_sb, g_sh, g_sl},
                   {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl}, {dv_sb, dv_sh, dv_sl}, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_f32 && d == 128) {
+    // the dk/dv kernel copies 64 rows of the di, m log2(e) and 1 / l planes
+    // at a time
+    if (reinterpret_cast<uintptr_t>(di) % 16) return static_cast<int>(cudaErrorInvalidValue);
+    float* dd = const_cast<float*>(di);
+    const long long plane = (long long)B * H * Lq;
+    const sm90::BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                          static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                          m, l, dd + plane, dd + 2 * plane, dd,
+                          Lq, Lq, Lk, d, B, H, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+                          g_sb, g_sh, g_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl,
+                          dv_sb, dv_sh, dv_sl, scale};
+    return part == 0 ? sm90::launch_bwd_sm90<sm90::BCfg<128, 64, true, true, false>>(a, st)
+                     : sm90::launch_bwd_sm90<sm90::BCfg<128, 64, true, false, false>>(a, st);
+  }
   return part == 0 ? launch_bwd<true>(p, B, is_f32, st) : launch_bwd<false>(p, B, is_f32, st);
 }

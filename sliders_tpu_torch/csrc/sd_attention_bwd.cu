@@ -19,29 +19,29 @@
 // blocks of one head because a TPU grid runs in order. CUDA blocks run in no
 // order, so the work splits into two kernels and no atomics are used (the
 // sums are the same from run to run):
-//   1. dq kernel, one block per 64-row q tile: pass 1 over K finds each row's
-//      softmax max m and sum l; pass 2 over K and V recomputes p and dp and
-//      sums dsum; pass 3 forms ds and accumulates dq = ds . k. It writes dq
-//      and each row's (m, 1/l, dsum) to a small f32 scratch.
-//   2. dk/dv kernel, one block per 64-row K/V tile, which stays in registers:
-//      a loop over all q tiles recomputes p^T = exp(k . q^T * scale - m) / l
-//      from the scratch, and accumulates dv += pb^T . g and, with
-//      dp^T = v . g^T, dk += ds^T . q in f32 registers.
-// p is recomputed three times in kernel 1 and once in kernel 2; at SD1.5's
-// d=40 the work per byte is far below the H100's bf16 ridge (about 295
-// operations per byte), so like the forward kernel this one is bound by
-// memory traffic and latency, not tensor-core rate. Simple first: mma.sync
-// m16n8k16 bf16 tiles, no copy pipelining, transposed operands read from
-// shared memory as 16-bit pairs. At d=128 the dk/dv kernel holds K, V, dk
-// and dv fragments in registers, so it forms p^T and dp^T one k16 slice of
-// the q tile at a time (with all of them live it spilled past 255 registers).
+//   1. a q-major dq kernel: one pass over K and V finds each row's softmax
+//      max m, sum l and dsum (a running max, l and dsum's sum rescaled when
+//      it grows), a second forms ds and accumulates dq = ds . k; it writes
+//      dq and each row's (m, l, dsum) to a small f32 scratch;
+//   2. a K/V-major dk/dv kernel that recomputes p^T from the scratch and
+//      accumulates dv += pb^T . g and, with dp^T = v . g^T, dk += ds^T . q.
 //
-// f32 runs one thread per row with plain FMAs (one q row in kernel 1, one
-// K/V row in kernel 2). The head dim is zero-padded to a multiple of 16
-// inside shared memory and registers only. Every tensor takes element
-// strides for batch, head and row (the last dim must be contiguous).
+// bf16 (every d the gate takes, 8 to 128 in steps of 8): both kernels run on
+// the Hopper backward mainloop of attention_bwd_sm90.cuh (a producer filling
+// a ring by TMA at d = 64 and 128 and by cp.async with zero-filled pad
+// columns elsewhere; `wgmma` on two consumer warpgroups of 64 rows each,
+// ds and p going from registers straight into the A operands of the
+// accumulating products). The source note there says what bounds it.
+//
+// f32 (`--precision float32` only) runs one thread per row with plain FMAs
+// (one q row in the dq kernel, one K/V row in the dk/dv kernel), with K/V or
+// q/g tiles of 32 rows in shared memory, three passes in the dq kernel. The
+// head dim is zero-padded to a multiple of 16 inside shared memory and
+// registers only. Every tensor takes element strides for batch, head and row
+// (the last dim must be contiguous).
 
 #include "sd_attention_common.cuh"
+#include "attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -53,7 +53,8 @@ struct BwdParams {
   void* dq;
   void* dk;
   void* dv;
-  float* stats;  // (3, B, H, Lq) f32: row max m, 1 / row sum, dsum
+  float* stats;  // f32 scratch: m, 1 / l, dsum planes of (B, H, Lq) (f32) or m log2(e),
+                 // 1 / l, dsum of (B, H, Lq rounded up to 128) (bf16)
   int H, Lq, Lk, d;
   Strides qs, ks, vs, gs, dqs, dks, dvs;
   float scale;
@@ -61,241 +62,6 @@ struct BwdParams {
 
 __device__ __forceinline__ long long stat_index(const BwdParams& p, int b, int h, int row) {
   return ((long long)b * p.H + h) * p.Lq + row;
-}
-
-// ---------------------------------------------------------------------------
-// bf16
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_bf16(BwdParams p) {
-  constexpr int SK = DP + 8;
-  __shared__ __align__(16) bf16 ks[BK * SK];
-  __shared__ __align__(16) bf16 vs[BK * SK];
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  const bf16* go = static_cast<const bf16*>(p.g) + b * p.gs.b + h * p.gs.h;
-  bf16* dq = static_cast<bf16*>(p.dq) + b * p.dqs.b + h * p.dqs.h;
-
-  // Q and G tiles through shared memory into mma A fragments
-  load_rows_bf16<DP>(ks, q, p.qs.l, q0, p.Lq, p.d);
-  load_rows_bf16<DP>(vs, go, p.gs.l, q0, p.Lq, p.d);
-  __syncthreads();
-  uint32_t qf[DP / 16][4], gf[DP / 16][4];
-  load_a_frags<DP>(qf, ks, r0, g, t4);
-  load_a_frags<DP>(gf, vs, r0, g, t4);
-  __syncthreads();
-
-  // pass 1: row max and sum of exp (rows g and g + 8 of this warp)
-  float m0, m1, l0, l1;
-  row_stats<DP>(qf, ks, k, p.ks.l, p.Lk, p.d, p.scale, g, t4, m0, m1, l0, l1);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-
-  // pass 2: dsum = sum over keys of dp * p
-  float s[BK / 8][4], dp[BK / 8][4];
-  float dsum0 = 0.f, dsum1 = 0.f;
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BK) {
-    load_rows_bf16<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    load_rows_bf16<DP>(vs, v, p.vs.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    tile_logits<DP>(s, qf, ks, kv0, p.Lk, p.scale, g, t4);
-    tile_dot<DP>(dp, gf, vs, g, t4);  // keys past Lk have zero V rows and p = 0
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      dsum0 += __expf(s[nt][0] - m0) * inv0 * dp[nt][0] + __expf(s[nt][1] - m0) * inv0 * dp[nt][1];
-      dsum1 += __expf(s[nt][2] - m1) * inv1 * dp[nt][2] + __expf(s[nt][3] - m1) * inv1 * dp[nt][3];
-    }
-  }
-  dsum0 = quad_sum(dsum0);
-  dsum1 = quad_sum(dsum1);
-
-  // pass 3: ds = p * (dp - dsum), rounded to bf16, times K
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BK) {
-    load_rows_bf16<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    load_rows_bf16<DP>(vs, v, p.vs.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    tile_logits<DP>(s, qf, ks, kv0, p.Lk, p.scale, g, t4);
-    tile_dot<DP>(dp, gf, vs, g, t4);
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      float e[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nt = 2 * kc + j;
-        e[j][0] = __expf(s[nt][0] - m0) * inv0 * (dp[nt][0] - dsum0);
-        e[j][1] = __expf(s[nt][1] - m0) * inv0 * (dp[nt][1] - dsum0);
-        e[j][2] = __expf(s[nt][2] - m1) * inv1 * (dp[nt][2] - dsum1);
-        e[j][3] = __expf(s[nt][3] - m1) * inv1 * (dp[nt][3] - dsum1);
-      }
-      const uint32_t da[4] = {pack_bf16(e[0][0], e[0][1]), pack_bf16(e[0][2], e[0][3]),
-                              pack_bf16(e[1][0], e[1][1]), pack_bf16(e[1][2], e[1][3])};
-#pragma unroll
-      for (int nt = 0; nt < DP / 8; ++nt) {
-        uint32_t bfr[2];
-        b_frag_kn(bfr, ks, SK, kc * 16, nt * 8, g, t4);  // B[key][c] = K[key][c]
-        mma_16816(acc[nt], da, bfr);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int row0 = q0 + r0 + g;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-    const int col = nt * 8 + t4 * 2;  // d % 8 == 0, so col < d implies col + 1 < d
-    if (col < p.d) {
-      if (row0 < p.Lq)
-        *reinterpret_cast<uint32_t*>(dq + (long long)row0 * p.dqs.l + col) =
-            pack_bf16(acc[nt][0] * p.scale, acc[nt][1] * p.scale);
-      if (row0 + 8 < p.Lq)
-        *reinterpret_cast<uint32_t*>(dq + (long long)(row0 + 8) * p.dqs.l + col) =
-            pack_bf16(acc[nt][2] * p.scale, acc[nt][3] * p.scale);
-    }
-  }
-  if (t4 == 0) {
-    const long long n = (long long)gridDim.z * p.H * p.Lq;  // one stats plane
-    if (row0 < p.Lq) {
-      const long long i = stat_index(p, b, h, row0);
-      p.stats[i] = m0;
-      p.stats[n + i] = inv0;
-      p.stats[2 * n + i] = dsum0;
-    }
-    if (row0 + 8 < p.Lq) {
-      const long long i = stat_index(p, b, h, row0 + 8);
-      p.stats[i] = m1;
-      p.stats[n + i] = inv1;
-      p.stats[2 * n + i] = dsum1;
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS) attn_bwd_dkdv_bf16(BwdParams p) {
-  constexpr int SK = DP + 8;
-  __shared__ __align__(16) bf16 qs[BQ * SK];
-  __shared__ __align__(16) bf16 gs[BQ * SK];
-  __shared__ float st_m[BQ], st_inv[BQ], st_dsum[BQ];
-
-  const int kv0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  const bf16* go = static_cast<const bf16*>(p.g) + b * p.gs.b + h * p.gs.h;
-  bf16* dk = static_cast<bf16*>(p.dk) + b * p.dks.b + h * p.dks.h;
-  bf16* dv = static_cast<bf16*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
-  const long long plane = (long long)gridDim.z * p.H * p.Lq;
-  const float* stats = p.stats + stat_index(p, b, h, 0);
-
-  // this block's K and V rows into A fragments (they stay in registers)
-  load_rows_bf16<DP>(qs, k, p.ks.l, kv0, p.Lk, p.d);
-  load_rows_bf16<DP>(gs, v, p.vs.l, kv0, p.Lk, p.d);
-  __syncthreads();
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  load_a_frags<DP>(kf, qs, r0, g, t4);
-  load_a_frags<DP>(vf, gs, r0, g, t4);
-  __syncthreads();
-
-  float dka[DP / 8][4], dva[DP / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-    dka[nt][0] = dka[nt][1] = dka[nt][2] = dka[nt][3] = 0.f;
-    dva[nt][0] = dva[nt][1] = dva[nt][2] = dva[nt][3] = 0.f;
-  }
-  for (int q0 = 0; q0 < p.Lq; q0 += BQ) {
-    load_rows_bf16<DP>(qs, q, p.qs.l, q0, p.Lq, p.d);
-    load_rows_bf16<DP>(gs, go, p.gs.l, q0, p.Lq, p.d);
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      const bool in = q0 + i < p.Lq;  // rows past Lq get p = 0
-      st_m[i] = in ? stats[q0 + i] : 0.f;
-      st_inv[i] = in ? stats[plane + q0 + i] : 0.f;
-      st_dsum[i] = in ? stats[2 * plane + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // one k16 slice of the tile's q rows at a time, so that only two n8
-    // tiles of p^T and dp^T are live beside the K, V, dk and dv registers
-    // (at d = 128, all eight took the kernel past 255 registers into spills)
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nt = 2 * kc + j;
-        // p^T: rows are this warp's keys, columns the tile's q rows
-        dot_n8<DP>(s[j], kf, qs, nt, g, t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = nt * 8 + t4 * 2 + (e & 1);
-          s[j][e] = q0 + qi < p.Lq ? __expf(s[j][e] * p.scale - st_m[qi]) * st_inv[qi] : 0.f;
-        }
-        dot_n8<DP>(dp[j], vf, gs, nt, g, t4);  // dp^T = v . g^T
-      }
-      // dv += round(p)^T . g
-      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-      for (int nt = 0; nt < DP / 8; ++nt) {
-        uint32_t bfr[2];
-        b_frag_kn(bfr, gs, SK, kc * 16, nt * 8, g, t4);  // B[qi][c] = G[qi][c]
-        mma_16816(dva[nt], pa, bfr);
-      }
-      // dk += round(p * (dp - dsum))^T . q
-      float e[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nt = 2 * kc + j;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          e[j][c] = s[j][c] * (dp[j][c] - st_dsum[nt * 8 + t4 * 2 + (c & 1)]);
-      }
-      const uint32_t da[4] = {pack_bf16(e[0][0], e[0][1]), pack_bf16(e[0][2], e[0][3]),
-                              pack_bf16(e[1][0], e[1][1]), pack_bf16(e[1][2], e[1][3])};
-#pragma unroll
-      for (int nt = 0; nt < DP / 8; ++nt) {
-        uint32_t bfr[2];
-        b_frag_kn(bfr, qs, SK, kc * 16, nt * 8, g, t4);  // B[qi][c] = Q[qi][c]
-        mma_16816(dka[nt], da, bfr);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int row0 = kv0 + r0 + g;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-    const int col = nt * 8 + t4 * 2;
-    if (col < p.d) {
-      if (row0 < p.Lk) {
-        *reinterpret_cast<uint32_t*>(dk + (long long)row0 * p.dks.l + col) =
-            pack_bf16(dka[nt][0] * p.scale, dka[nt][1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dv + (long long)row0 * p.dvs.l + col) =
-            pack_bf16(dva[nt][0], dva[nt][1]);
-      }
-      if (row0 + 8 < p.Lk) {
-        *reinterpret_cast<uint32_t*>(dk + (long long)(row0 + 8) * p.dks.l + col) =
-            pack_bf16(dka[nt][2] * p.scale, dka[nt][3] * p.scale);
-        *reinterpret_cast<uint32_t*>(dv + (long long)(row0 + 8) * p.dvs.l + col) =
-            pack_bf16(dva[nt][2], dva[nt][3]);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -448,29 +214,54 @@ __global__ void __launch_bounds__(BQ) attn_bwd_dkdv_f32(BwdParams p) {
 }
 
 template <int DP>
-int launch_bwd(const BwdParams& p, int B, int is_f32, cudaStream_t stream) {
-  const dim3 grid_q((p.Lq + BQ - 1) / BQ, p.H, B);
-  const dim3 grid_kv((p.Lk + BK - 1) / BK, p.H, B);
-  if (is_f32)
-    attn_bwd_dq_f32<DP><<<grid_q, BQ, 0, stream>>>(p);
-  else
-    attn_bwd_dq_bf16<DP><<<grid_q, NTHREADS, 0, stream>>>(p);
+int launch_f32(const BwdParams& p, int B, cudaStream_t stream) {
+  attn_bwd_dq_f32<DP><<<dim3((p.Lq + BQ - 1) / BQ, p.H, B), BQ, 0, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (is_f32)
-    attn_bwd_dkdv_f32<DP><<<grid_kv, BQ, 0, stream>>>(p);
-  else
-    attn_bwd_dkdv_bf16<DP><<<grid_kv, NTHREADS, 0, stream>>>(p);
+  attn_bwd_dkdv_f32<DP><<<dim3((p.Lk + BQ - 1) / BQ, p.H, B), BQ, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the dq kernel (which writes the statistics), then the dk/dv kernel; TMA
+// where d fills a 64-column box exactly, cp.async elsewhere; 128-row
+// streamed tiles where d <= 48 leaves the consumers the registers
+template <int DP, bool TMA>
+int launch_bf16(const sm90::BwdArgs& a, cudaStream_t stream) {
+  constexpr int BN = DP <= 48 ? 128 : 64;
+  const int err = sm90::launch_bwd_sm90<sm90::BCfg<DP, BN, TMA, false, true>>(a, stream);
+  if (err != 0) return err;
+  return sm90::launch_bwd_sm90<sm90::BCfg<DP, BN, TMA, true, true>>(a, stream);
+}
+
+template <int DP>
+int launch_bwd(const BwdParams& p, int B, int is_f32, cudaStream_t stream) {
+  if (is_f32) return launch_f32<DP>(p, B, stream);
+  // m log2(e), 1 / l, dsum planes of (B, H, Lq rounded up to 128): 16-byte
+  // aligned rows for the dk/dv kernel's copies; the dq kernel's 128-row
+  // tiles fill them
+  const long long sl = (p.Lq + 127) / 128 * 128, plane = (long long)B * p.H * sl;
+  const sm90::BwdArgs a{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
+                        static_cast<const bf16*>(p.v), static_cast<const bf16*>(p.g),
+                        static_cast<bf16*>(p.dq), static_cast<bf16*>(p.dk),
+                        static_cast<bf16*>(p.dv), nullptr, nullptr,
+                        p.stats, p.stats + plane, p.stats + 2 * plane,
+                        sl, p.Lq, p.Lk, p.d, B, p.H,
+                        p.qs.b, p.qs.h, p.qs.l, p.ks.b, p.ks.h, p.ks.l, p.vs.b, p.vs.h, p.vs.l,
+                        p.gs.b, p.gs.h, p.gs.l, p.dqs.b, p.dqs.h, p.dqs.l,
+                        p.dks.b, p.dks.h, p.dks.l, p.dvs.b, p.dvs.h, p.dvs.l, p.scale};
+  if constexpr (DP == 64 || DP == 128) {
+    if (p.d == DP) return launch_bf16<DP, true>(a, stream);
+  }
+  return launch_bf16<DP, false>(a, stream);
 }
 
 }  // namespace
 
 // Launches the dq kernel, then the dk/dv kernel, on `stream`; returns the
-// first cudaGetLastError() that is not 0, else 0. Pointers must be 16-byte
+// first CUDA error that is not 0, else 0. Pointers must be 16-byte
 // aligned, d a multiple of 8 in [8, 128], row/head/batch strides (in
-// elements) multiples of 8, and `stats` a (3, B, H, Lq) f32 scratch; the
-// Python wrapper checks all of this.
+// elements) multiples of 8, and `stats` an f32 scratch of 3 B H Lq' floats,
+// Lq' = Lq rounded up to 128; the Python wrapper checks all of this.
 extern "C" int sd_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                 void* dq, void* dk, void* dv, float* stats, int B, int H, int Lq,
                                 int Lk, int d, int is_f32, long long q_sb, long long q_sh,

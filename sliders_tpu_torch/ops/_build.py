@@ -30,18 +30,23 @@ NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# name -> (source, headers it includes, {C entry point: argtypes}); pointers
-# and the stream are c_void_p (a Python int would be cut to 32 bits)
+# name -> (source, every header it includes, directly or through another
+# header: they key the build, and tests/test_torch_build.py holds the list to
+# the sources' #include lines; {C entry point: argtypes}); pointers and the
+# stream are c_void_p (a Python int would be cut to 32 bits)
 LIBRARIES = {
     "fwd": (CSRC / "sd_attention.cu", (CSRC / "sd_attention_common.cuh",
                                        CSRC / "attention_sm90.cuh"), {
         "sd_attention_fwd": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
     }),
-    "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",), {
+    "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",
+                                           CSRC / "attention_sm90.cuh",
+                                           CSRC / "attention_bwd_sm90.cuh"), {
         "sd_attention_bwd": [_P] * 8 + [_I] * 6 + [_L] * 21 + [_F, _P],
     }),
     "flash": (CSRC / "flash_attention.cu", (CSRC / "sd_attention_common.cuh",
-                                            CSRC / "attention_sm90.cuh"), {
+                                            CSRC / "attention_sm90.cuh",
+                                            CSRC / "attention_bwd_sm90.cuh"), {
         # q, k, v, o, ml; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
         "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
         # q, k, v, do, m, l, di, dq, dk, dv; B, H, Lq, Lk, d, is_f32, part;

@@ -22,9 +22,11 @@ V once per 128-row q tile: pass 1 finds each row's softmax max and sum, pass
 2 forms the normalised probabilities, rounds them to the input dtype (the
 TPU kernel's rounding point) and multiplies by V. In bf16 it runs on the
 Hopper mainloop of `csrc/attention_sm90.cuh` (a producer warpgroup filling a
-K/V ring by TMA or cp.async, wgmma on two consumer warpgroups); the f32
-variant and the backward keep `mma.sync` / plain FMAs. The source files
-carry the details.
+K/V ring by TMA or cp.async, wgmma on two consumer warpgroups). The bf16
+backward runs on the backward mainloop of `csrc/attention_bwd_sm90.cuh` on
+the same ring: a dq kernel that first finds each row's softmax statistics,
+then a dk/dv kernel, no atomics. The f32 variants keep plain FMAs. The
+source files carry the details.
 
 Both libraries are built with nvcc at first use into
 `sliders_tpu_torch/_build/` together with the package's other kernels
@@ -155,7 +157,9 @@ def sd_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Lq, d = q.shape
     Lk = k.shape[2]
     dq, dk, dv = _bhld_buffer(q), _bhld_buffer(k), _bhld_buffer(v)
-    stats = torch.empty((3, B, H, Lq), dtype=torch.float32, device=q.device)
+    # each row's softmax max, sum and dsum; the bf16 kernels keep rows of a
+    # multiple of 128
+    stats = torch.empty((3, B, H, -(-Lq // 128) * 128), dtype=torch.float32, device=q.device)
     lib = _build.library("bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -63,6 +63,17 @@ def _ulps_bf16(ref_max: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(ref_max, 2.0**-30))) - 7)
 
 
+def _bwd_within_tolerance(out, ref, dtype):
+    """dq, dk, dv against the plain version: bf16 within 4 ulps at each
+    output's largest magnitude, f32 within 1e-5 of it."""
+    for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+        assert o.shape == r.shape and o.dtype == dtype, name
+        ref_max = r.float().abs().max().item()
+        tol = 4 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize(
     "shape,dtype",
@@ -86,13 +97,87 @@ def test_bwd_kernel_matches_plain(cuda, shape, dtype):
     out = sa.sd_attention_bwd(q, k, v, g)
     torch.cuda.synchronize()
     assert sa.sd_attention_bwd.launches == launches + 1
-    ref = sa.sd_attention_bwd_ref(q, k, v, g)
-    for name, o, r in zip(("dq", "dk", "dv"), out, ref):
-        assert o.shape == r.shape and o.dtype == dtype
-        ref_max = r.float().abs().max().item()
-        tol = 4 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
-        err = (o.float() - r.float()).abs().max().item()
-        assert err <= tol, (name, err, tol)
+    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), dtype)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("length", [1000, 1090, 100])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_bwd_kernel_every_head_dim_and_ragged_length(cuda, d, length):
+    """#2's bf16 backward on the Hopper backward mainloop at every head dim
+    the gate takes (TMA at d = 64 and 128, cp.async with zero-filled pad
+    columns elsewhere), at B = 2 and lengths that leave a ragged last q and
+    key tile (1000, 1090) and one below a 128-row tile (100): within 4 bf16
+    ulps of sd_attention_bwd_ref at each output's largest magnitude, one
+    counted launch."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 11 + length)
+    q, k, v, g = (torch.randn((2, 3, length, d), generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    launches = sa.sd_attention_bwd.launches
+    out = sa.sd_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert sa.sd_attention_bwd.launches == launches + 1
+    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [40, 64, 80, 128])
+def test_bwd_kernel_takes_head_views(cuda, d):
+    """#2's backward on (B, H, L, d) head views of (B, L, H*d) buffers (q, k,
+    v and g), B = 2, a ragged L: the kernels read the strides as they lie."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 3)
+    q, k, v, g = (_heads(torch.randn((2, 1090, 3 * d), generator=gen, device=cuda).bfloat16(), 3)
+                  for _ in range(4))
+    out = sa.sd_attention_bwd(q, k, v, g)
+    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel,shape", [("sd", (1, 8, 1024, 80)), ("sd", (2, 3, 1090, 128)),
+                                          ("sd", (1, 8, 4096, 40)), ("flash", (1, 3, 2048, 128)),
+                                          ("flash", (2, 2, 1024, 256))])
+def test_bwd_kernels_are_deterministic(cuda, kernel, shape):
+    """Two launches of a backward on the same inputs give bit-identical dq,
+    dk and dv: no atomics, every sum in a fixed order."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    B, H, L, d = shape
+    q, k, v, g = (_heads(torch.randn((B, L, H * d), generator=gen, device=cuda).bfloat16(), H)
+                  for _ in range(4))
+    if kernel == "sd":
+        first, second = sa.sd_attention_bwd(q, k, v, g), sa.sd_attention_bwd(q, k, v, g)
+    else:
+        o, m, l = fa._forward(q, k, v, residuals=True)
+        first = fa.flash_attention_bwd(q, k, v, o, g, m, l)
+        second = fa.flash_attention_bwd(q, k, v, o, g, m, l)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel,shape", [("sd", (1, 3, 1024, 64)), ("sd", (1, 2, 1000, 40)),
+                                          ("flash", (1, 2, 2048, 128))])
+def test_attention_function_under_checkpoint_equals_without(cuda, kernel, shape):
+    """SdAttention and FlashAttention under non-reentrant checkpoint (the
+    training path's remat) give the same gradients as without it, bit for
+    bit: the recomputed forward and the backward kernels are deterministic,
+    and the Function reads its saved tensors once."""
+    from torch.utils.checkpoint import checkpoint
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    fn = sa.sd_attention if kernel == "sd" else fa.flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    x = [torch.randn(shape, generator=gen, device=cuda).bfloat16() for _ in range(4)]
+
+    def grads(remat):
+        q, k, v = (t.clone().requires_grad_() for t in x[:3])
+        out = checkpoint(fn, q, k, v, use_reentrant=False) if remat else fn(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), x[3])
+
+    for name, a, b in zip(("dq", "dk", "dv"), grads(True), grads(False)):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.requires_cuda
@@ -567,6 +652,7 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     [
         ((1, 2, 2048, 128), torch.bfloat16, False),
         ((1, 3, 2048, 128), torch.bfloat16, True),  # head views of (B, L, H*d), as FLUX passes them
+        ((2, 3, 2048, 128), torch.bfloat16, True),
         ((2, 2, 1024, 256), torch.bfloat16, False),
         ((1, 2, 1024, 128), torch.float32, False),
         ((1, 2, 1024, 128), torch.float32, True),
