@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of this checkout against those of another
-checkout (a parent commit) on one GPU, in one process, in turns.
+"""Time the attention and conv kernels of this checkout against those of
+another checkout (a parent commit) on one GPU, in one process, in turns.
 
     git archive <parent> sliders_tpu_torch/csrc | tar -x -C <dir>
-    python3 attention_ab.py --parent <dir> [--out rows.json]
+    python3 attention_ab.py --parent <dir> [--out rows.json] [--only conv]
 
 The parent's `sliders_tpu_torch/csrc/{sd_attention,sd_attention_bwd,
-flash_attention}.cu` are compiled with the flags of `ops/_build.py` into
-`<dir>/_ab_build/` and loaded with ctypes behind the same C entry points, so
-the port's wrappers launch either library on the same inputs. For every
+flash_attention,conv3x3}.cu` are compiled with the flags of `ops/_build.py`
+into `<dir>/_ab_build/` and loaded with ctypes behind the same C entry
+points, so the port's wrappers launch either library on the same inputs
+(the conv wrappers on the parent's library take its one entry,
+`conv3x3_launch`, as a parent without the Hopper mainloop has it). The conv
+cases (kernel 'conv': #5, #7 and #6 at each of chip_smoke.py's batch-16
+SD1.5 shapes and three SDXL shapes) are held to the plain versions within
+chip_smoke.py's CONV_ULPS bf16 ulps of each element. For every
 case both results are held to the unchanged plain versions with the
 tolerances of `chip_smoke.py` (4 bf16 ulps at each output's largest
 magnitude; f32 1e-5), then timed with CUDA events in the order parent,
@@ -35,6 +40,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from chip_smoke import CONV_SHAPES, CONV_ULPS, bf16_max_ulps, bound as roofline, conv_case  # noqa: E402
+
 # (kernel, (B, H, L, d), dtype, head views of (B, L, H*d) buffers)
 CASES = [
     ("sd", (16, 8, 4096, 40), "bfloat16", False),
@@ -60,10 +67,16 @@ CASES = [
     ("sd_bwd", (1, 24, 1536, 128), "bfloat16", True),
     ("flash_bwd", (1, 24, 16896, 128), "bfloat16", True),
     ("flash_bwd", (1, 24, 4608, 128), "bfloat16", True),
+    # the conv kernels: (B, H, W, C, N, mode) at batch 16, bf16
+    *(("conv", (16, h, h, c, n, mode), "bfloat16", False) for h, c, n, mode in CONV_SHAPES),
+    *(("conv", (16, h, h, c, n, mode), "bfloat16", False)
+      for h, c, n, mode in ((128, 320, 320, "temb"), (64, 1920, 640, "temb"),
+                            (32, 2560, 1280, "temb"))),
 ]
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-LIBS = {"fwd": "sd_attention.cu", "bwd": "sd_attention_bwd.cu", "flash": "flash_attention.cu"}
+LIBS = {"fwd": "sd_attention.cu", "bwd": "sd_attention_bwd.cu", "flash": "flash_attention.cu",
+        "conv": "conv3x3.cu"}
 
 
 def bound_ms(shape, dt, backward=False):
@@ -97,8 +110,9 @@ def median_ms(fn, runs, reps=1):
 
 
 def build_parent(parent: str) -> dict:
-    """Compile the parent's three attention sources; {name: CDLL} with the
-    argtypes of this checkout's entry points (the C interface is the same)."""
+    """Compile the parent's attention and conv sources; {name: CDLL} with the
+    argtypes of this checkout's entry points that the parent's library has
+    (the C interface of each is the same)."""
     from sliders_tpu_torch.ops import _build
 
     csrc = os.path.join(parent, "sliders_tpu_torch", "csrc")
@@ -119,29 +133,37 @@ def build_parent(parent: str) -> dict:
             raise RuntimeError(f"parent {LIBS[name]}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(out)
         for symbol, argtypes in _build.LIBRARIES[name][2].items():
-            fn = getattr(lib, symbol)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            if hasattr(lib, symbol):
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = lib
     print(f"[ab] parent libraries built in {time.perf_counter() - t0:.1f} s", flush=True)
     return libs
 
 
 class Using:
-    """Route the port's wrappers to the parent's libraries inside the block."""
+    """Route the port's wrappers to the parent's libraries inside the block
+    (the conv wrappers to the parent's one entry, `conv3x3_launch`)."""
 
     def __init__(self, libs):
         self.libs = libs
 
     def __enter__(self):
         from sliders_tpu_torch.ops import _build
+        from sliders_tpu_torch.ops import conv3x3 as tc
 
         self.saved = {n: _build.library(n) for n in self.libs}
         _build._libs.update(self.libs)
+        self.plan = tc.plan
+        if "conv" in self.libs:
+            tc.plan = lambda *args, **kwargs: tc.Plan("generic")
 
     def __exit__(self, *exc):
         from sliders_tpu_torch.ops import _build
+        from sliders_tpu_torch.ops import conv3x3 as tc
 
         _build._libs.update(self.saved)
+        tc.plan = self.plan
 
 
 def bf16_tol(ref_max: float) -> float:
@@ -249,6 +271,73 @@ def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
     return row
 
 
+def run_conv_case(shape, dt, parent_libs, runs, gen):
+    """#5, #7 and #6 at one (B, H, W, C, N, mode): each held to its plain
+    version within CONV_ULPS bf16 ulps of each element on both sides, then
+    timed parent, change, change, parent; cuDNN's conv + bias and each
+    kernel's PyTorch expression (as chip_smoke.py times them) beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    B, H, W, C, N, mode = shape
+    dtype = getattr(torch, dt)
+    x, a, s, w, b, extra = conv_case(B, H, C, N, mode, dtype, gen)
+    xc = x.permute(0, 3, 1, 2)
+    extra_c = (None if extra is None else extra[:, :, None, None] if mode == "temb"
+               else extra.permute(0, 3, 1, 2))
+
+    def expression(inp):
+        y = F.conv2d(inp, w, b, padding=1)
+        return y if extra_c is None else y + extra_c
+
+    kernels = [("conv3x3", lambda: tc.conv3x3(x, w, b), lambda: tc.conv3x3_ref(x, w, b),
+                lambda: F.conv2d(xc, w, b, padding=1), 0),
+               ("epi_conv3x3", lambda: tc.epi_conv3x3(x, w, b, extra, mode),
+                lambda: tc.epi_conv3x3_ref(x, w, b, extra, mode), lambda: expression(xc), 0),
+               ("fused_conv3x3", lambda: tc.fused_conv3x3(x, a, s, w, b, extra, mode),
+                lambda: tc.fused_conv3x3_ref(x, a, s, w, b, extra, mode),
+                lambda: expression(F.silu(xc.float() * a[:, :, None, None]
+                                          + s[:, :, None, None]).to(dtype)), 8 * B * C)]
+    extra_n = {"none": 0, "temb": B * N, "residual": B * H * W * N}[mode]
+    rows = []
+    for name, call, plain, library, fold_bytes in kernels:
+        ref = plain()
+        ulps = {}
+        for side, libs in (("parent", parent_libs), ("change", {})):
+            with Using(libs):
+                out = call()
+            torch.cuda.synchronize()
+            ulps[side] = bf16_max_ulps(out, ref)
+            del out
+        del ref
+        reps = max(1, min(50, int(20.0 / max(median_ms(call, 1), 1e-3))))
+        times = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent"):
+            with Using(parent_libs if side == "parent" else {}):
+                times[side].append(median_ms(call, runs, reps))
+        nbytes = 2 * (B * H * W * C + 9 * C * N + N + extra_n + B * H * W * N) + fold_bytes
+        row = {"kernel": name, "shape": shape, "dtype": dt, "tol_ulps": CONV_ULPS,
+               "ulps_parent": ulps["parent"], "ulps_change": ulps["change"],
+               "parent_ms": statistics.mean(times["parent"]),
+               "change_ms": statistics.mean(times["change"]),
+               "parent_ms_each": times["parent"], "change_ms_each": times["change"],
+               "library_ms": median_ms(library, runs, reps), "plain_ms": median_ms(plain, 3),
+               "reps": reps}
+        row["bound_ms"], row["bound_by"] = roofline(2 * 9 * B * H * W * C * N, nbytes, dt)
+        row["ok"] = max(ulps.values()) <= CONV_ULPS
+        print(f"[ab] {name} {shape} {dt}: {ulps['parent']:.2f} / {ulps['change']:.2f} bf16 ulps "
+              f"(parent / change, tol {CONV_ULPS}); parent {row['parent_ms']:.4f} ms "
+              f"{['%.4f' % t for t in times['parent']]}, change {row['change_ms']:.4f} ms "
+              f"{['%.4f' % t for t in times['change']]} "
+              f"({row['change_ms'] / row['parent_ms']:.3f}x); library {row['library_ms']:.4f}, "
+              f"plain {row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -257,7 +346,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="write the rows here as JSON")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--only", default="",
-                    help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd)")
+                    help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd, conv)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_ab: needs a CUDA device", file=sys.stderr)
@@ -278,7 +367,11 @@ def main() -> int:
     for case in CASES:
         if only and case[0] not in only:
             continue
-        rows.append(run_case(*case, parent_libs, args.runs, gen))
+        if case[0] == "conv":
+            rows.extend(run_conv_case(case[1], case[2], {"conv": parent_libs["conv"]}, args.runs,
+                                      gen))
+        else:
+            rows.append(run_case(*case, parent_libs, args.runs, gen))
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

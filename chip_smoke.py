@@ -180,6 +180,21 @@ CONV_SHAPES = [
     (16, 640, 1280, "temb"), (16, 1280, 1280, "residual"), (16, 1280, 1280, "temb"),
     (16, 2560, 1280, "temb"), (16, 1920, 1280, "temb"), (16, 1280, 1280, "none"),
 ]
+# every (H, C, N, mode) the SDXL UNet routes at 1024 px (three levels: 15
+# resnet shapes at 128x128, 64x64 and 32x32, the two upsamplers), and its
+# routed calls per forward under each impl (34 resnet convs, +2 upsamplers
+# under 'auto'); tests/test_torch_conv_plan.py holds both lists to the UNets
+SDXL_CONV_SHAPES = [
+    (128, 320, 320, "temb"), (128, 320, 320, "residual"), (128, 960, 320, "temb"),
+    (128, 640, 320, "temb"), (128, 640, 640, "none"),
+    (64, 320, 640, "temb"), (64, 640, 640, "residual"), (64, 640, 640, "temb"),
+    (64, 1920, 640, "temb"), (64, 1280, 640, "temb"), (64, 960, 640, "temb"),
+    (64, 1280, 1280, "none"),
+    (32, 640, 1280, "temb"), (32, 1280, 1280, "residual"), (32, 1280, 1280, "temb"),
+    (32, 2560, 1280, "temb"), (32, 1920, 1280, "temb"),
+]
+SDXL_CONV_PER_FORWARD = {"xla": {}, "auto": {"conv3x3": 36}, "fused_ep": {"epi_conv3x3": 34},
+                         "fused": {"fused_conv3x3": 34}}
 # (B, H, C, N, mode, dtype) beyond the batch-16 serving shapes: the grad
 # pass (batch 1) at levels 0 and 1, and one f32 shape
 CONV_EXTRA = [
@@ -369,8 +384,9 @@ def phase_device():
 # SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 on the
 # same mainloop; the bf16 backwards on the Hopper backward mainloop
 # (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's policy>): #2's dq and
-# dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128; every conv and
-# GroupNorm instantiation, #4's f32 forwards (d = 512 and the others) and its
+# dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128; the conv
+# kernels' Hopper mainloop (conv3x3_sm90.cuh) at each BN, with #6's prologue
+# at BN 128 and 160; every generic conv and GroupNorm instantiation, #4's f32 forwards (d = 512 and the others) and its
 # d = 256 and f32 backward kernels, #9's copy kernels
 BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1E", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
             ("BCfgILi48ELi128ELb0ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
@@ -391,6 +407,8 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16 (d = 256)"),
             ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16 (d = 256)"),
             ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32"), ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32"),
+            *((f"conv3x3_sm90ILi{bn}ELb{pro}E", f"conv3x3_sm90{'<prologue>' if pro else ''} "
+               f"BN={bn}") for bn in (128, 160, 256) for pro in (0, 1) if not (pro and bn == 256)),
             ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
@@ -455,8 +473,14 @@ def phase_build():
     libs = _build.build_libraries()
     secs = time.perf_counter() - t0
     for name, lib in libs.items():
-        regs = ptxas_report(lib.with_suffix(".log").read_text())
+        log = lib.with_suffix(".log").read_text()
+        regs = ptxas_report(log)
         say("build", f"{lib.name} ({'; '.join(regs) or '?'})")
+        serialized = [ln for ln in log.splitlines() if "wgmma.mma_async instructions are serialized"
+                      in ln]
+        if serialized:
+            say("build", f"{lib.name}: ptxas serialized wgmma in {len(serialized)} kernel(s): "
+                + " | ".join(ln.split("(C75")[-1][:160] for ln in serialized))
         _build.library(name)
     say("build", "attn_sm90 dynamic shared memory a block (bytes): " + ", ".join(
         f"d={d} {sm90_smem(d)}" for d in (40, 64, 80, 128))
@@ -467,6 +491,17 @@ def phase_build():
         for d in (40, 64, 80, 128))
         + "; one block an SM, its consumers take 232 registers a thread and the producer 40 "
         "(setmaxnreg)")
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    plans = {}
+    for h, c, n, _ in CONV_SHAPES + SDXL_CONV_SHAPES:
+        plan = tc.plan((16, h, h, c), n, __import__("torch").bfloat16)
+        plans.setdefault((plan.tr, plan.tc, plan.bn), plan)
+    say("build", "conv3x3_sm90 tile plans at the UNets' batch-16 shapes (TR x TC, BN: weight "
+        "stages, dynamic shared memory a block): " + ", ".join(
+            f"{pl.tr}x{pl.tc}, {pl.bn}: {pl.stages}, {pl.smem}" for pl in plans.values())
+        + "; its consumers take 232 registers a thread and the producer 40 (setmaxnreg); #6 "
+        "(512 threads, BN <= 160) 184 and 72")
     say("build", f"{len(libs)} libraries built and loaded in {secs:.1f} s")
 
 
@@ -616,12 +651,15 @@ def phase_conv_kernels():
     f32 epilogue, one rounding; TF32 off), with the weights laid out as the
     models lay them out: at every conv shape the SD1.5 UNet routes at 512 px
     in the mode the UNet uses there, at batch 16 (timed) and at the training
-    batches CONV_TRAIN_BATCHES (not timed); the grad pass's batch 1 at two
+    batches CONV_TRAIN_BATCHES (not timed); at every shape the SDXL UNet
+    routes at 1024 px, at batch 16 (timed); the grad pass's batch 1 at two
     shapes and one f32 shape (timed); and #5 at the SD VAE decoder's f32
     shapes at the decode batch (timed). bf16 is held to CONV_ULPS bf16 ulps
-    of each element, f32 to 1e-5 of the largest value. Each timed bf16 line
-    also times cuDNN's bf16 conv + bias (the 'xla' route's conv), for
-    reference."""
+    of each element, f32 to 1e-5 of the largest value. Every bf16 call must
+    take the Hopper mainloop and every f32 call the generic kernel (counted
+    by variant). Each timed line also times cuDNN's conv + bias in the
+    case's dtype (the 'xla' route's conv) and one PyTorch expression per
+    kernel computing its function, for reference."""
     import torch
     import torch.nn.functional as F
 
@@ -634,6 +672,8 @@ def phase_conv_kernels():
     everything = tuple(results)
     # (B, H, C, N, mode, dtype, kernels, timed)
     cases = ([(16, h, c, n, mode, "bfloat16", everything, True) for h, c, n, mode in CONV_SHAPES]
+             + [(16, h, c, n, mode, "bfloat16", everything, True)
+                for h, c, n, mode in SDXL_CONV_SHAPES]
              + [(*c, everything, True) for c in CONV_EXTRA]
              + [(B, h, c, n, mode, "bfloat16", everything, False)
                 for B in CONV_TRAIN_BATCHES for h, c, n, mode in CONV_SHAPES]
@@ -654,8 +694,7 @@ def phase_conv_kernels():
                              lambda: tc.conv3x3_ref(x, w, b)))
         calls = [c for c in calls if c[0] in kernels]
         xc = x.permute(0, 3, 1, 2)
-        cudnn_ms = (median_ms(lambda: F.conv2d(xc, w, b, padding=1))
-                    if timed and dt == "bfloat16" else None)
+        cudnn_ms = median_ms(lambda: F.conv2d(xc, w, b, padding=1)) if timed else None
         # one PyTorch expression per kernel computing its function on the same
         # inputs (channels-last views, as cuDNN takes the port's layout): #7
         # conv + bias + the mode's extra; #6 the GN-affine + SiLU prologue too
@@ -668,14 +707,21 @@ def phase_conv_kernels():
             return y if extra_c is None else y + extra_c
 
         library = {"conv3x3": cudnn_ms, "epi_conv3x3": None, "fused_conv3x3": None}
-        if timed and dt == "bfloat16":
-            library["epi_conv3x3"] = median_ms(epi_library)
+        if timed:
+            library["epi_conv3x3"] = median_ms(epi_library) if "epi_conv3x3" in kernels else None
             library["fused_conv3x3"] = median_ms(
-                lambda: epi_library(F.silu(xc.float() * af + sf).to(dtype)))
+                lambda: epi_library(F.silu(xc.float() * af + sf).to(dtype))
+            ) if "fused_conv3x3" in kernels else None
         parts = []
+        want = "hopper" if dtype == torch.bfloat16 else "generic"
         for name, kernel, plain in calls:
+            fn = getattr(tc, name)
+            took = fn.variants[want]
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
+            if fn.variants[want] != took + 1:
+                raise AssertionError(f"{name} at {(B, H, H, C)}x{N} {dt} did not take the "
+                                     f"{want} kernel: {fn.variants}")
             err = (out.float() - ref.float()).abs().max().item()
             ref_max = ref.float().abs().max().item()
             if dtype == torch.bfloat16:
@@ -701,6 +747,7 @@ def phase_conv_kernels():
                 entry["bound_ms"], entry["bound_by"] = bound(2 * 9 * B * H * H * C * N, nbytes, dt)
                 entry["library_ms"] = library[name]
                 entry["cudnn_conv_ms"] = cudnn_ms
+                entry["variant"] = want
                 parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
                              f"{entry['plain_ms']:.4f} ms"
                              + (f" (library {library[name]:.4f})" if library[name] else ""))
@@ -710,8 +757,8 @@ def phase_conv_kernels():
                 tally[2] = max(tally[2], ulps)
             results[name].append(entry)
         if timed:
-            say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt}: " + "; ".join(parts)
-                + (f"; cuDNN bf16 conv + bias {cudnn_ms:.4f} ms" if cudnn_ms is not None else "")
+            say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt} [{want}]: " + "; ".join(parts)
+                + f"; cuDNN {dt} conv + bias {cudnn_ms:.4f} ms"
                 + " (kernel / plain, median; library: conv + bias + extra for #7, with "
                 "silu(x a + s) before it for #6)")
         else:
@@ -1543,10 +1590,32 @@ def conv_launches() -> dict:
             if fn.launches}
 
 
+def conv_variants() -> dict:
+    """{variant: launches} summed over the three conv kernels since the last
+    reset, variants that launched only."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    out = {}
+    for fn in (tc.conv3x3, tc.epi_conv3x3, tc.fused_conv3x3):
+        for v, n in fn.variants.items():
+            out[v] = out.get(v, 0) + n
+    return {v: n for v, n in out.items() if n}
+
+
 def reset_conv_launches() -> None:
     from sliders_tpu_torch.ops import conv3x3 as tc
 
-    tc.conv3x3.launches = tc.epi_conv3x3.launches = tc.fused_conv3x3.launches = 0
+    for fn in (tc.conv3x3, tc.epi_conv3x3, tc.fused_conv3x3):
+        fn.launches = 0
+        fn.variants = dict.fromkeys(tc.VARIANTS, 0)
+
+
+def expect_hopper(per_forward: dict, variants: dict, what: str) -> None:
+    """Every routed bf16 UNet conv of a forward took the Hopper mainloop."""
+    total = sum(per_forward.values())
+    if variants != ({"hopper": total} if total else {}):
+        raise AssertionError(f"{what}: conv launches by variant {variants}, expected all "
+                             f"{total} on the Hopper mainloop")
 
 
 def phase_conv_step(engine, rounds: int = 2):
@@ -1585,6 +1654,7 @@ def phase_conv_step(engine, rounds: int = 2):
             eps[impl] = step().float()
             torch.cuda.synchronize()
             per_forward[impl] = conv_launches()
+            expect_hopper(per_forward[impl], conv_variants(), f"SD1.5 step under {impl!r}")
         for r in range(rounds):
             for impl in (CONV_IMPLS if r % 2 == 0 else CONV_IMPLS[::-1]):
                 basic.set_conv_impl(impl)
@@ -1607,7 +1677,8 @@ def phase_conv_step(engine, rounds: int = 2):
         cls = classes[impl]
         busy = sum(cls.values())
         say("step", f"conv impl {impl!r}: ms per step by round {[round(v, 2) for v in times[impl]]}; "
-            f"conv-kernel launches per forward {per_forward[impl] or 0} (expected "
+            f"conv-kernel launches per forward {per_forward[impl] or 0}, all on the Hopper "
+            f"mainloop (expected "
             f"{CONV_PER_FORWARD[impl] or 0}); max|eps - eps_xla| {diff:.3g} (tol "
             f"{5e-2 * ref_max:.3g}, max|eps_xla| {ref_max:.3g}); device ms per step: " + ", ".join(
                 f"{c} {v / 3:.2f}" for c, v in sorted(cls.items(), key=lambda kv: -kv[1]))
@@ -1881,7 +1952,7 @@ def serve_conv_impls(engine, port: int) -> dict:
             reply = post(port, "/generate", {"prompt": "a photo of a person", "seed": 1,
                                              "slider": "s1", "scales": scales})
             wall = time.perf_counter() - t0
-            launched = conv_launches()
+            launched, variants = conv_launches(), conv_variants()
         finally:
             basic.set_conv_impl("xla")
         px = check_images(reply, scales, impl)
@@ -1891,10 +1962,16 @@ def serve_conv_impls(engine, port: int) -> dict:
         per_decode = CONV_PER_DECODE.get(impl, {})
         expected = {k: (v * STEPS + per_decode.get(k, 0)) * batches
                     for k, v in CONV_PER_FORWARD[impl].items()}
+        # the UNet's bf16 convs on the Hopper mainloop, the f32 VAE decoder's
+        # ('auto') on the generic kernel
+        by_variant = {"hopper": sum(CONV_PER_FORWARD[impl].values()) * STEPS * batches,
+                      "generic": sum(per_decode.values()) * batches}
+        by_variant = {v: n for v, n in by_variant.items() if n}
         say("http", f"/generate under conv impl {impl!r}: {len(reply['images'])} images, server "
             f"latency {reply['latency_ms']} ms, client {wall * 1e3:.1f} ms; {batches} denoise "
-            f"batch(es); conv-kernel launches {launched}, expected {expected}")
-        if launched != expected:
+            f"batch(es); conv-kernel launches {launched}, expected {expected}; by variant "
+            f"{variants}, expected {by_variant}")
+        if launched != expected or variants != by_variant:
             raise AssertionError(f"not every routed conv under {impl!r} went through its kernel")
         out.update(launched)
     return out
@@ -2772,23 +2849,14 @@ def sdxl_step_bound(batch: int) -> tuple:
     return bound(flops, nbytes, "bfloat16")[0], flops
 
 
-def phase_sdxl_step(engine) -> dict:
-    """One SDXL denoise step at bucket 8 (16 CFG rows), 1024 px, bf16: the
-    engine's sampling function with one DDIM step, a rank-4 slider at
-    per-row scales, added conditioning and guidance rescale 0.7. Launches
-    per step with the pin off and on (#1 70; #9 0 and 22), the median of
-    synced steps with the pin off and on in turn, the two outputs' distance,
-    torch.profiler over one step (pin off) by kernel class, and the step's
-    analytic bound; then the VAE decode of 8 images at 1024 px (#4 at
-    (8, 1, 16384, 512) in f32) under attention impls 'auto' and 'xla' in
-    turns (`decode_ab`)."""
+def sdxl_step_fn(engine):
+    """(step, latents): one SDXL denoise step at bucket 8 (16 CFG rows),
+    SDXL_PX, bf16, through the engine's sampling function with one DDIM
+    step, a rank-4 slider at per-row scales, added conditioning and
+    guidance rescale 0.7."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
-    from sliders_tpu_torch.ops import basic
-    from sliders_tpu_torch.ops import layout_pin as lp
-    from sliders_tpu_torch.ops import sd_attention as sa
     from sliders_tpu_torch.pipelines import text2image as t2i
 
     m = engine.models
@@ -2805,6 +2873,107 @@ def phase_sdxl_step(engine) -> dict:
     def step():
         return fn(m.unet_params, lat, cond, uncond, engine.sliders["s1"], scales, sn, g, added)
 
+    return step, lat
+
+
+def phase_sdxl_conv_step(engine, rounds: int = 2) -> dict:
+    """The SDXL step of `phase_sdxl_step` (pin off) under each conv impl, in
+    alternating rounds of 3 synced steps: ms per step, each conv kernel's
+    launches per step (one UNet forward of 16 rows; SDXL_CONV_PER_FORWARD),
+    all on the Hopper mainloop; the noise prediction of one UNet forward on
+    random inputs (16 rows, slider on, t = 501) held to the 'xla' route's
+    within 5e-2 of its largest magnitude, as `phase_conv_step` holds
+    SD1.5's (the step's own output carries guidance 7.5, which scales the
+    routes' rounding differences up with it); then one profiled step per
+    impl: device time by kernel class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops.basic import SliderLora
+
+    m = engine.models
+    step, _ = sdxl_step_fn(engine)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    hw, rows = SDXL_PX // 8, 16
+    x = torch.randn((rows, hw, hw, 4), generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn((rows, 77, m.unet_config.cross_attention_dim), generator=gen,
+                      device="cuda").bfloat16()
+    added = {"text_embeds": torch.randn((rows, 1280), generator=gen, device="cuda").bfloat16(),
+             "time_ids": torch.tensor([[SDXL_PX, SDXL_PX, 0, 0, SDXL_PX, SDXL_PX]] * rows,
+                                      dtype=torch.float32, device="cuda")}
+    lora = SliderLora(engine.sliders["s1"], torch.linspace(-2, 2, rows, device="cuda"))
+    t = torch.tensor(501.0, device="cuda")
+
+    def unet():
+        with torch.inference_mode():
+            return unet2d.apply(m.unet_params, m.unet_config, x, t, ctx, lora=lora,
+                                added_cond=added)
+
+    outs, per_forward, times, classes = {}, {}, {impl: [] for impl in CONV_IMPLS}, {}
+    try:
+        for impl in CONV_IMPLS:
+            basic.set_conv_impl(impl)
+            reset_conv_launches()
+            step()
+            torch.cuda.synchronize()
+            per_forward[impl] = conv_launches()
+            expect_hopper(per_forward[impl], conv_variants(), f"SDXL step under {impl!r}")
+            outs[impl] = unet().float()
+        for r in range(rounds):
+            for impl in (CONV_IMPLS if r % 2 == 0 else CONV_IMPLS[::-1]):
+                basic.set_conv_impl(impl)
+                times[impl].append(median_ms(step, runs=3))
+        for impl in CONV_IMPLS:
+            basic.set_conv_impl(impl)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            classes[impl] = by_kernel_class(prof)
+    finally:
+        basic.set_conv_impl("xla")
+    ref_max = outs["xla"].abs().max().item()
+    out = {}
+    for impl in CONV_IMPLS:
+        diff = (outs[impl] - outs["xla"]).abs().max().item()
+        cls = classes[impl]
+        say("sdxl", f"conv impl {impl!r}: ms per step by round {[round(v, 2) for v in times[impl]]}"
+            f"; conv-kernel launches per forward {per_forward[impl] or 0}, all on the Hopper "
+            f"mainloop (expected {SDXL_CONV_PER_FORWARD[impl] or 0}); max|eps - eps_xla| "
+            f"{diff:.3g} (tol {5e-2 * ref_max:.3g}, max|eps_xla| {ref_max:.3g}); device ms per "
+            f"step: " + ", ".join(
+                f"{c} {v:.2f}" for c, v in sorted(cls.items(), key=lambda kv: -kv[1]))
+            + f" (busy {sum(cls.values()):.2f})")
+        if per_forward[impl] != SDXL_CONV_PER_FORWARD[impl]:
+            raise AssertionError(f"SDXL conv impl {impl!r} launched {per_forward[impl]} a forward")
+        if not (torch.isfinite(outs[impl]).all() and diff <= 5e-2 * ref_max):
+            raise AssertionError(f"SDXL conv impl {impl!r} moved the noise prediction by {diff}")
+        out[impl] = {"ms": statistics.median(times[impl]), "per_forward": per_forward[impl],
+                     "device_ms": cls}
+    return out
+
+
+def phase_sdxl_step(engine) -> dict:
+    """One SDXL denoise step at bucket 8 (16 CFG rows), 1024 px, bf16: the
+    engine's sampling function with one DDIM step, a rank-4 slider at
+    per-row scales, added conditioning and guidance rescale 0.7. Launches
+    per step with the pin off and on (#1 70; #9 0 and 22), the median of
+    synced steps with the pin off and on in turn, the two outputs' distance,
+    torch.profiler over one step (pin off) by kernel class, and the step's
+    analytic bound; then the VAE decode of 8 images at 1024 px (#4 at
+    (8, 1, 16384, 512) in f32) under attention impls 'auto' and 'xla' in
+    turns (`decode_ab`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import layout_pin as lp
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    m = engine.models
+    B = 8
+    step, lat = sdxl_step_fn(engine)
     outs, per_step = {}, {}
     torch.cuda.reset_peak_memory_stats()  # the step's own peak, not an earlier phase's
     try:
@@ -3030,6 +3199,7 @@ def phase_sdxl(tmp: str) -> dict:
     write_tokenizer(tok_dir)
     engine = timed("sdxl build", build_sdxl_engine, tok_dir)
     step = timed("SDXL step", phase_sdxl_step, engine)
+    conv = timed("SDXL conv impls", phase_sdxl_conv_step, engine)
     http = timed("SDXL http", phase_sdxl_http, engine)
     snap = os.path.join(tmp, "sdxl")
     timed("SDXL snapshot", write_sdxl_snapshot, snap, engine.models)
@@ -3037,7 +3207,7 @@ def phase_sdxl(tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     train = timed("SDXL training", phase_sdxl_train, snap, tmp)
-    return {"step": step, "http": http, "train": train}
+    return {"step": step, "conv": conv, "http": http, "train": train}
 
 
 def main() -> int:
@@ -3106,11 +3276,16 @@ def main() -> int:
     def conv_entry(name, source_line, main, by_path):
         rs = conv_results[name]
         return {"name": name, "route": "cuda", "source": "sliders_tpu_torch/csrc/conv3x3.cu",
+                "mainloop": "sliders_tpu_torch/csrc/conv3x3_sm90.cuh",
                 "replaces": f"sliders_tpu/ops/pallas_conv.py:{source_line}", "launches": main,
                 "launches_by_path": by_path, "max_abs_err": max(r["err"] for r in rs),
-                **timing(rs[0])}
+                **timing(rs[0]),
+                "shapes": [dict(timing(r), shape=r["shape"], mode=r["mode"], dtype=r["dtype"],
+                                variant=r["variant"], cudnn_conv_ms=r["cudnn_conv_ms"])
+                           for r in rs if "ms" in r]}
 
     per_step = {impl: v["per_forward"] for impl, v in conv_step.items()}
+    xl_step = {impl: v["per_forward"] for impl, v in sdxl["conv"].items()}
     print(json.dumps({"kernels": [{
         "name": "sd_attention_fwd",
         "route": "cuda",
@@ -3184,14 +3359,17 @@ def main() -> int:
     },
         conv_entry("conv3x3", 44, serve_conv["conv3x3"],
                    {"serve_auto": serve_conv["conv3x3"],
-                    "unet_step_auto_per_forward": per_step["auto"]["conv3x3"]}),
+                    "unet_step_auto_per_forward": per_step["auto"]["conv3x3"],
+                    "sdxl_step_auto_per_forward": xl_step["auto"]["conv3x3"]}),
         conv_entry("epi_conv3x3", 409, serve_conv["epi_conv3x3"],
                    {"serve_fused_ep": serve_conv["epi_conv3x3"],
-                    "unet_step_fused_ep_per_forward": per_step["fused_ep"]["epi_conv3x3"]}),
+                    "unet_step_fused_ep_per_forward": per_step["fused_ep"]["epi_conv3x3"],
+                    "sdxl_step_fused_ep_per_forward": xl_step["fused_ep"]["epi_conv3x3"]}),
         conv_entry("fused_conv3x3", 208, train["fused_conv"],
                    {"train_fused": train["fused_conv"], "serve_fused": serve_conv["fused_conv3x3"],
                     "tiny_train_fused": tiny_fused,
-                    "unet_step_fused_per_forward": per_step["fused"]["fused_conv3x3"]}),
+                    "unet_step_fused_per_forward": per_step["fused"]["fused_conv3x3"],
+                    "sdxl_step_fused_per_forward": xl_step["fused"]["fused_conv3x3"]}),
         {"name": "fused_group_norm", "route": "cuda",
          "source": "sliders_tpu_torch/csrc/group_norm.cu",
          "replaces": "sliders_tpu/ops/pallas_groupnorm.py:43", "launches": 0,

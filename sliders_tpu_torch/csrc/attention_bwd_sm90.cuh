@@ -1,7 +1,8 @@
 // The Hopper mainloop of the bf16 attention backwards: kernel #2's exact
 // softmax backward (sd_attention_bwd.cu, every d its gate takes) and kernel
-// #4's flash backward at d = 128 (flash_attention.cu). It takes the PTX
-// wrappers, the ring's fill and the descriptors of attention_sm90.cuh.
+// #4's flash backward at d = 128 (flash_attention.cu). It takes the ring's
+// fill and the descriptors of attention_sm90.cuh, and the PTX wrappers of
+// sm90_ptx.cuh.
 //
 // Both backwards compute the same five products per pair of a q tile and a
 // K/V tile: S = Q.K^T, dP = dO.V^T, dV += P^T.dO, dK += dS^T.Q, dQ += dS.K.
@@ -157,11 +158,6 @@ __device__ __forceinline__ int bwd_items(const BwdArgs& p) {
   return ((C::DKV ? p.Lk : p.Lq) + QROWS - 1) / QROWS * p.H * p.B;
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // keep A registers of an asynchronous wgmma alive (and unmoved) until here
 template <int N>
 __device__ __forceinline__ void fence_a(uint32_t (*a)[4]) {
@@ -176,15 +172,6 @@ __device__ __forceinline__ void mbar_add_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
-}
-
-// one 1-d bulk copy global -> shared by TMA, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // The producer walks the block's items: the two resident tiles of each

@@ -34,8 +34,14 @@
 // bf16 runs mma.sync m16n8k16 (8 warps, 64 x 32 outputs each); f32 runs
 // plain FMAs (a 64 x 64 tile, 4 x 4 outputs a thread), as the attention
 // kernels do.
+//
+// Two entry points: `conv3x3_launch` runs this simple kernel ("generic":
+// every f32 call, and bf16 shapes TMA cannot take); `conv3x3_sm90_launch`
+// runs the Hopper mainloop of conv3x3_sm90.cuh (a TMA halo tile per channel
+// chunk, wgmma over the nine taps) on the tile plan that
+// `ops/conv3x3.plan` makes for every other bf16 call.
 
-#include "conv3x3.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -336,3 +342,61 @@ extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, co
   return prologue ? launch(conv3x3_bf16<true>, p, grid, smem, st)
                   : launch(conv3x3_bf16<false>, p, grid, smem, st);
 }
+
+// Returns the launch's CUDA error (0 on success). The Hopper mainloop on a
+// tile plan (ops/conv3x3.plan): TR x TC output tiles (TR TC = 128), BN
+// output channels a tile (128, 160 or 256; 128 or 160 with the prologue),
+// `stages` weight stages, `smem`
+// bytes of dynamic shared memory. The tensors are conv3x3_launch's, bf16
+// only, with C, x's strides and the addresses of x, w (and a, s) as TMA
+// takes them: C and the strides multiples of 8 elements, the addresses of
+// 16 bytes. A plan that does not hold for the shape is refused
+// (cudaErrorInvalidValue), never changed.
+extern "C" int conv3x3_sm90_launch(const void* x, const void* w, const void* bias,
+                                   const void* extra, const void* a, const void* s, void* y, int B,
+                                   int H, int W, int C, int N, int mode, int prologue,
+                                   long long xs_b, long long xs_h, long long xs_w, long long es_b,
+                                   long long es_h, long long es_w, int TR, int TC, int BN,
+                                   int stages, int smem, void* stream) {
+  using namespace conv_sm90;
+  const bool tc_ok = TC == 8 || TC == 16 || TC == 32 || TC == 64 || TC == 128;
+  if (B < 1 || H < 1 || W < 1 || C < 1 || N < 1 || mode < MODE_NONE || mode > MODE_RESIDUAL ||
+      (mode != MODE_NONE && extra == nullptr) || (prologue && (a == nullptr || s == nullptr)) ||
+      C % 8 != 0 || xs_b % 8 != 0 || xs_h % 8 != 0 || xs_w % 8 != 0 || !aligned16(x) ||
+      !aligned16(w) || (prologue && !(aligned16(a) && aligned16(s))) || !tc_ok ||
+      TR * TC != 128 || (BN != 128 && BN != 160 && BN != 256) || stages < 2 ||
+      stages > MAX_STAGES || smem != plan_smem(TR, TC, BN, stages) || smem > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // vec: the epilogue's 16-byte accesses (store_row16)
+  const bool vec = N % 8 == 0 && aligned16(bias) && aligned16(y) &&
+                   (mode == MODE_NONE ||
+                    (aligned16(extra) && es_b % 8 == 0 &&
+                     (mode == MODE_TEMB || (es_h % 8 == 0 && es_w % 8 == 0))));
+  Params p{x, w, bias, extra, static_cast<const float*>(a), static_cast<const float*>(s), y,
+           B, H, W, C, N, mode, vec ? 1 : 0, xs_b, xs_h, xs_w, es_b, es_h, es_w};
+  Plan q;
+  q.TR = TR;
+  q.TC = TC;
+  q.tc_log2 = __builtin_ctz(TC);
+  q.stages = stages;
+  q.halo_pad = halo_pad(TR, TC);
+  q.TH = (H + TR - 1) / TR;
+  q.TW = (W + TC - 1) / TC;
+  q.NT = (N + BN - 1) / BN;
+  q.KC = (C + CKH - 1) / CKH;
+  const long long tiles = (long long)B * q.TH * q.TW * q.NT;
+  if (tiles > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  q.tiles = static_cast<int>(tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (BN * 2 + (prologue ? 1 : 0)) {
+    case 256: return conv_sm90::launch<128, false>(p, q, smem, st);
+    case 257: return conv_sm90::launch<128, true>(p, q, smem, st);
+    case 320: return conv_sm90::launch<160, false>(p, q, smem, st);
+    case 321: return conv_sm90::launch<160, true>(p, q, smem, st);
+    case 512: return conv_sm90::launch<256, false>(p, q, smem, st);
+    // #6 takes BN <= 160: its consumers have 184 registers, short of a
+    // 64 x 256 f32 accumulator's 128 and the A buffers
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+

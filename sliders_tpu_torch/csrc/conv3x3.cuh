@@ -48,7 +48,8 @@ struct Params {
   void* y;            // (B, H, W, N) contiguous
   int B, H, W, C, N;
   int mode;
-  int vec;   // x and w allow 16-byte loads (C and x's strides multiples of the vector width)
+  int vec;   // generic kernel: x and w allow 16-byte loads (C and x's strides multiples of
+             // the vector width); Hopper mainloop: the epilogue's bias, extra and y do
   long long xs_b, xs_h, xs_w;
   long long es_b, es_h, es_w;
 };

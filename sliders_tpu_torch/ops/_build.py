@@ -36,27 +36,33 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # stream are c_void_p (a Python int would be cut to 32 bits)
 LIBRARIES = {
     "fwd": (CSRC / "sd_attention.cu", (CSRC / "sd_attention_common.cuh",
-                                       CSRC / "attention_sm90.cuh"), {
+                                       CSRC / "attention_sm90.cuh", CSRC / "sm90_ptx.cuh"), {
         "sd_attention_fwd": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
     }),
     "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",
                                            CSRC / "attention_sm90.cuh",
-                                           CSRC / "attention_bwd_sm90.cuh"), {
+                                           CSRC / "attention_bwd_sm90.cuh",
+                                           CSRC / "sm90_ptx.cuh"), {
         "sd_attention_bwd": [_P] * 8 + [_I] * 6 + [_L] * 21 + [_F, _P],
     }),
     "flash": (CSRC / "flash_attention.cu", (CSRC / "sd_attention_common.cuh",
                                             CSRC / "attention_sm90.cuh",
-                                            CSRC / "attention_bwd_sm90.cuh"), {
+                                            CSRC / "attention_bwd_sm90.cuh",
+                                            CSRC / "sm90_ptx.cuh"), {
         # q, k, v, o, ml; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
         "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
         # q, k, v, do, m, l, di, dq, dk, dv; B, H, Lq, Lk, d, is_f32, part;
         # q/k/v/do/dq/dk/dv strides; scale, stream
         "flash_attention_bwd": [_P] * 10 + [_I] * 7 + [_L] * 21 + [_F, _P],
     }),
-    "conv": (CSRC / "conv3x3.cu", (CSRC / "conv3x3.cuh",), {
+    "conv": (CSRC / "conv3x3.cu", (CSRC / "conv3x3.cuh", CSRC / "conv3x3_sm90.cuh",
+                                   CSRC / "sm90_ptx.cuh"), {
         # x, w, bias, extra, a, s, y; B, H, W, C, N, is_f32, mode, prologue;
         # x strides (b, h, w), extra strides (b, h, w); stream
         "conv3x3_launch": [_P] * 7 + [_I] * 8 + [_L] * 6 + [_P],
+        # the same without is_f32, then the tile plan: TR, TC, BN, stages,
+        # shared-memory bytes
+        "conv3x3_sm90_launch": [_P] * 7 + [_I] * 7 + [_L] * 6 + [_I] * 5 + [_P],
     }),
     "group_norm": (CSRC / "group_norm.cu", (), {
         # x, gamma, beta, y; B, L, C, groups, is_f32, silu; eps; stream

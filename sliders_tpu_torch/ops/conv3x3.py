@@ -18,7 +18,12 @@ fold of GN's statistics and affine (`ops/basic.group_norm_affine`).
 On a CUDA tensor each wrapper launches its kernel (`csrc/conv3x3.cu`) on
 the current stream or raises: a layout the kernel does not take (channels
 not contiguous, a weight that is not channels_last) is an error, never a
-quiet copy.
+quiet copy. Which of the library's two kernels runs is chosen by `plan`
+from the shape, strides and addresses alone: the Hopper mainloop
+(`csrc/conv3x3_sm90.cuh`, variant 'hopper') for every bf16 call TMA can
+take, the simple implicit GEMM (variant 'generic') for f32 and the rest.
+Each wrapper counts its launches, and beside them its launches by variant
+(`fn.variants`).
 On a CPU tensor it runs the plain version (`*_ref`): the same function at
 the kernels' rounding points, f32 accumulation, bias and epilogue added in
 f32, one rounding to the input dtype; #6 rounds silu(x*a + s) to the input
@@ -42,6 +47,7 @@ streams its tiles through shared memory, so no image is too large for it.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -83,6 +89,90 @@ def epi_supports(x_shape, w_shape) -> bool:
 def fused_supports(x_shape, w_shape) -> bool:
     """Kernel #6's gate ('fused'): `pallas_conv.fused_supports` without the VMEM plan."""
     return _shape_ok(x_shape, w_shape)
+
+
+# ---------------------------------------------------------------------------
+# the kernel and its tile plan
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("hopper", "generic")
+# csrc/conv3x3_sm90.cuh's constants: channels a chunk (one 128-byte swizzle
+# row a pixel), halo buffers, the most weight stages, the head (barriers,
+# a and s), a block's shared-memory limit on the H100
+CHUNK, HALOS, MAX_STAGES, HEAD, SMEM_MAX = 64, 3, 6, 2048, 232_448
+SM90_TC = (128, 64, 32, 16, 8)  # output tile columns; rows 128 / TC
+SM90_BN = (256, 160, 128)  # output channels a tile: the wgmma widths compiled
+PRO_BN = (160, 128)  # #6's: its consumers' 184 registers hold no 64 x 256 accumulator
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: variant 'hopper' on TR x TC output tiles of BN
+    channels with `stages` weight stages and `smem` bytes of shared memory
+    a block, or variant 'generic' (the other fields 0)."""
+
+    variant: str
+    tr: int = 0
+    tc: int = 0
+    bn: int = 0
+    stages: int = 0
+    smem: int = 0
+
+
+def _halo_pad(tr: int, tc: int) -> int:
+    return -(-(tr + 2) * (tc + 2) * CHUNK * 2 // 1024) * 1024
+
+
+def plan_smem(tr: int, tc: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of a Hopper block: 1024 bytes of alignment
+    slack, the head, three halo buffers, the weight stages."""
+    return 1024 + HEAD + HALOS * _halo_pad(tr, tc) + stages * bn * CHUNK * 2
+
+
+def plan(x_shape, n: int, dtype, x_strides=None, aligned: bool = True,
+         sms: int = H100_SMS, prologue: bool = False) -> Plan:
+    """The kernel and tile plan for x (B, H, W, C) with element strides
+    `x_strides` (contiguous when None) and n output channels; `aligned`
+    tells whether x, w (and a, s) lie on 16-byte addresses.
+
+    'hopper' takes bf16 wherever TMA can: C and x's batch, row and column
+    strides multiples of 8 elements, the addresses aligned, W >= 8. Its
+    tile is the TR x TC (TR TC = 128) of one image with the fewest tiles,
+    then the smallest halo ((TR + 2)(TC + 2) pixels), then the widest; BN
+    the width with the least time in whole waves of `sms` blocks,
+    ceil(tiles / sms) (BN + 64) (64 for a tile's fixed costs; with #6's
+    `prologue` among PRO_BN), then the widest; as many weight stages as the
+    shared memory holds, at most 6. Everything else, f32 included, takes
+    'generic'."""
+    B, H, W, C = x_shape
+    strides = tuple(x_strides[:3]) if x_strides is not None else (H * W * C, W * C, C)
+    if (dtype != torch.bfloat16 or C % 8 or any(s % 8 for s in strides) or not aligned
+            or W < 8):
+        return Plan("generic")
+
+    def mtiles(tc):
+        return B * -(-H // (128 // tc)) * -(-W // tc)
+
+    def tile_key(tc):
+        tr = 128 // tc
+        return (mtiles(tc), -(-H // tr) * -(-W // tc) * (tr + 2) * (tc + 2), -tc)
+
+    tc = min((t for t in SM90_TC if t <= W), key=tile_key)
+    tr = 128 // tc
+    bn = min(PRO_BN if prologue else SM90_BN,
+             key=lambda b: (-(-mtiles(tc) * -(-n // b) // sms) * (b + 64), -b))
+    stages = min(MAX_STAGES, (SMEM_MAX - plan_smem(tr, tc, bn, 0)) // (bn * CHUNK * 2))
+    return Plan("hopper", tr, tc, bn, stages, plan_smem(tr, tc, bn, stages))
+
+
+_SMS: dict = {}
+
+
+def _sms(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 # ---------------------------------------------------------------------------
@@ -199,18 +289,25 @@ def _launch(fn, x, a, s, w, b, extra, mode: str) -> torch.Tensor:
     y = torch.empty((B, H, W, N), dtype=x.dtype, device=x.device)
     es = (0, 0, 0) if extra is None else (
         (extra.stride(0), 0, 0) if mode == "temb" else extra.stride()[:3])
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), 0 if extra is None else extra.data_ptr(),
+            0 if a is None else a.data_ptr(), 0 if s is None else s.data_ptr(), y.data_ptr())
+    how = plan(x.shape, N, x.dtype, x.stride(), aligned=all(q % 16 == 0 for q in ptrs[:2] + (
+        ptrs[4:6] if a is not None else ())), sms=_sms(x.device), prologue=a is not None)
     lib = _build.library("conv")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.conv3x3_launch(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), 0 if extra is None else extra.data_ptr(),
-            0 if a is None else a.data_ptr(), 0 if s is None else s.data_ptr(), y.data_ptr(),
-            B, H, W, C, N, _DTYPES[x.dtype], MODES[mode], int(a is not None),
-            *x.stride()[:3], *es, stream,
-        )
+        if how.variant == "hopper":
+            rc = lib.conv3x3_sm90_launch(
+                *ptrs, B, H, W, C, N, MODES[mode], int(a is not None), *x.stride()[:3], *es,
+                how.tr, how.tc, how.bn, how.stages, how.smem, stream)
+        else:
+            rc = lib.conv3x3_launch(
+                *ptrs, B, H, W, C, N, _DTYPES[x.dtype], MODES[mode], int(a is not None),
+                *x.stride()[:3], *es, stream)
     if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn.__name__} kernel launch failed ({how}): CUDA error {rc}")
     fn.launches += 1
+    fn.variants[how.variant] += 1
     return y
 
 
@@ -295,8 +392,8 @@ def fused_conv3x3(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor, w: torch.Te
     return _launch(fused_conv3x3, x, a, s, w, b, extra, mode)
 
 
-# kernel launches since the last reset (calls on CPU tensors never reach the
-# kernels and are not counted)
-conv3x3.launches = 0
-epi_conv3x3.launches = 0
-fused_conv3x3.launches = 0
+# kernel launches since the last reset, in all and by variant (calls on CPU
+# tensors never reach the kernels and are not counted)
+for _fn in (conv3x3, epi_conv3x3, fused_conv3x3):
+    _fn.launches = 0
+    _fn.variants = dict.fromkeys(VARIANTS, 0)

@@ -17,11 +17,10 @@ WordLevel files the tests write:
   library applies it (`_Charsmap`). The text is cut into extended grapheme
   clusters; a cluster shorter than 6 UTF-8 bytes is replaced whole by the
   value of the first key of the trie that prefixes it, else each of its
-  characters by its own. Clusters are cut by the rules that need no
-  emoji or Hangul tables (CR LF, controls, combining and spacing marks); a
-  prompt with a zero-width joiner, a regional indicator, a conjoining
-  Hangul jamo or a prepended concatenation mark raises a ValueError naming
-  ROADMAP queue 3 rather than being cut by a guess;
+  characters by its own. Clusters are cut by every rule of UAX #29 that
+  the `tokenizers` library applies: CR LF, controls, Hangul syllable
+  sequences, combining and spacing marks, prepended marks, emoji
+  zero-width-joiner sequences and regional-indicator pairs (`graphemes`);
 - pre-tokenizers: `Metaspace` ('▁', prefix space), `WhitespaceSplit`,
   `Whitespace`, `Sequence`;
 - post-processor: `TemplateProcessing`'s single template (T5 appends
@@ -35,6 +34,7 @@ template adds them; padding fills with the pad token on the right.
 from __future__ import annotations
 
 import base64
+import bisect
 import json
 import os
 import re
@@ -56,50 +56,127 @@ _SPACING_EXTRA = {0x0E33, 0x0EB3}
 _MC_OTHER = ({0x102B, 0x102C, 0x1038, 0x1083, 0x108F, 0x1A61, 0x1A63, 0x1A64, 0xAA7B, 0xAA7D,
               0x11720, 0x11721} | set(range(0x1062, 0x1065)) | set(range(0x1067, 0x106E))
              | set(range(0x1087, 0x108D)) | set(range(0x109A, 0x109D)))
-# what the cluster rules here do not cover (GB6-8, GB9b, GB11-13)
-_UNSUPPORTED = ((0x1100, 0x11FF), (0xA960, 0xA97F), (0xD7B0, 0xD7FF),  # conjoining jamo
-                (0x1F1E6, 0x1F1FF),  # regional indicators
-                (0x200D, 0x200D),  # zero-width joiner
-                (0x0600, 0x0605), (0x06DD, 0x06DD), (0x070F, 0x070F), (0x0890, 0x0891),
-                (0x08E2, 0x08E2), (0x0D4E, 0x0D4E), (0x110BD, 0x110BD), (0x110CD, 0x110CD),
-                (0x111C2, 0x111C3), (0x1193F, 0x1193F), (0x11941, 0x11941), (0x11A3A, 0x11A3A),
-                (0x11A84, 0x11A89), (0x11D46, 0x11D46), (0x11F02, 0x11F02))  # prepend
-_UNSUPPORTED_MSG = ("the Precompiled normalizer's grapheme clusters are ported without the emoji, "
-                    "regional-indicator, Hangul-jamo and prepend rules (ROADMAP queue 3); prompt "
-                    "{!r} has {!r}")
+_ZWJ = 0x200D
+# Code-point ranges (inclusive) of Grapheme_Cluster_Break Prepend, L, V and
+# T, and of Extended_Pictographic, as the `regex` package 2026.7.19 gives
+# them (\p{Grapheme_Cluster_Break=Prepend}, =L, =V, =T and
+# \p{Extended_Pictographic}). Hangul LV and LVT syllables follow from the
+# syllable arithmetic: U+AC00..U+D7A3, LV where (cp - 0xAC00) % 28 == 0.
+_PREPEND = ((0x600, 0x605), (0x6DD, 0x6DD), (0x70F, 0x70F), (0x890, 0x891), (0x8E2, 0x8E2),
+            (0xD4E, 0xD4E), (0x110BD, 0x110BD), (0x110CD, 0x110CD), (0x111C2, 0x111C3),
+            (0x113D1, 0x113D1), (0x1193F, 0x1193F), (0x11941, 0x11941), (0x11A84, 0x11A89),
+            (0x11D46, 0x11D46), (0x11F02, 0x11F02))
+_HANGUL = {"L": ((0x1100, 0x115F), (0xA960, 0xA97C)),
+           "V": ((0x1160, 0x11A7), (0xD7B0, 0xD7C6), (0x16D63, 0x16D63), (0x16D67, 0x16D6A)),
+           "T": ((0x11A8, 0x11FF), (0xD7CB, 0xD7FB))}
+_PICTOGRAPHIC = (
+    (0xA9, 0xA9), (0xAE, 0xAE), (0x203C, 0x203C), (0x2049, 0x2049), (0x2122, 0x2122),
+    (0x2139, 0x2139), (0x2194, 0x2199), (0x21A9, 0x21AA), (0x231A, 0x231B), (0x2328, 0x2328),
+    (0x23CF, 0x23CF), (0x23E9, 0x23F3), (0x23F8, 0x23FA), (0x24C2, 0x24C2), (0x25AA, 0x25AB),
+    (0x25B6, 0x25B6), (0x25C0, 0x25C0), (0x25FB, 0x25FE), (0x2600, 0x2604), (0x260E, 0x260E),
+    (0x2611, 0x2611), (0x2614, 0x2615), (0x2618, 0x2618), (0x261D, 0x261D), (0x2620, 0x2620),
+    (0x2622, 0x2623), (0x2626, 0x2626), (0x262A, 0x262A), (0x262E, 0x262F), (0x2638, 0x263A),
+    (0x2640, 0x2640), (0x2642, 0x2642), (0x2648, 0x2653), (0x265F, 0x2660), (0x2663, 0x2663),
+    (0x2665, 0x2666), (0x2668, 0x2668), (0x267B, 0x267B), (0x267E, 0x267F), (0x2692, 0x2697),
+    (0x2699, 0x2699), (0x269B, 0x269C), (0x26A0, 0x26A1), (0x26A7, 0x26A7), (0x26AA, 0x26AB),
+    (0x26B0, 0x26B1), (0x26BD, 0x26BE), (0x26C4, 0x26C5), (0x26C8, 0x26C8), (0x26CE, 0x26CF),
+    (0x26D1, 0x26D1), (0x26D3, 0x26D4), (0x26E9, 0x26EA), (0x26F0, 0x26F5), (0x26F7, 0x26FA),
+    (0x26FD, 0x26FD), (0x2702, 0x2702), (0x2705, 0x2705), (0x2708, 0x270D), (0x270F, 0x270F),
+    (0x2712, 0x2712), (0x2714, 0x2714), (0x2716, 0x2716), (0x271D, 0x271D), (0x2721, 0x2721),
+    (0x2728, 0x2728), (0x2733, 0x2734), (0x2744, 0x2744), (0x2747, 0x2747), (0x274C, 0x274C),
+    (0x274E, 0x274E), (0x2753, 0x2755), (0x2757, 0x2757), (0x2763, 0x2764), (0x2795, 0x2797),
+    (0x27A1, 0x27A1), (0x27B0, 0x27B0), (0x27BF, 0x27BF), (0x2934, 0x2935), (0x2B05, 0x2B07),
+    (0x2B1B, 0x2B1C), (0x2B50, 0x2B50), (0x2B55, 0x2B55), (0x3030, 0x3030), (0x303D, 0x303D),
+    (0x3297, 0x3297), (0x3299, 0x3299), (0x1F004, 0x1F004), (0x1F02C, 0x1F02F),
+    (0x1F094, 0x1F09F), (0x1F0AF, 0x1F0B0), (0x1F0C0, 0x1F0C0), (0x1F0CF, 0x1F0D0),
+    (0x1F0F6, 0x1F0FF), (0x1F170, 0x1F171), (0x1F17E, 0x1F17F), (0x1F18E, 0x1F18E),
+    (0x1F191, 0x1F19A), (0x1F1AE, 0x1F1E5), (0x1F201, 0x1F20F), (0x1F21A, 0x1F21A),
+    (0x1F22F, 0x1F22F), (0x1F232, 0x1F23A), (0x1F23C, 0x1F23F), (0x1F249, 0x1F25F),
+    (0x1F266, 0x1F321), (0x1F324, 0x1F393), (0x1F396, 0x1F397), (0x1F399, 0x1F39B),
+    (0x1F39E, 0x1F3F0), (0x1F3F3, 0x1F3F5), (0x1F3F7, 0x1F3FA), (0x1F400, 0x1F4FD),
+    (0x1F4FF, 0x1F53D), (0x1F549, 0x1F54E), (0x1F550, 0x1F567), (0x1F56F, 0x1F570),
+    (0x1F573, 0x1F57A), (0x1F587, 0x1F587), (0x1F58A, 0x1F58D), (0x1F590, 0x1F590),
+    (0x1F595, 0x1F596), (0x1F5A4, 0x1F5A5), (0x1F5A8, 0x1F5A8), (0x1F5B1, 0x1F5B2),
+    (0x1F5BC, 0x1F5BC), (0x1F5C2, 0x1F5C4), (0x1F5D1, 0x1F5D3), (0x1F5DC, 0x1F5DE),
+    (0x1F5E1, 0x1F5E1), (0x1F5E3, 0x1F5E3), (0x1F5E8, 0x1F5E8), (0x1F5EF, 0x1F5EF),
+    (0x1F5F3, 0x1F5F3), (0x1F5FA, 0x1F64F), (0x1F680, 0x1F6C5), (0x1F6CB, 0x1F6D2),
+    (0x1F6D5, 0x1F6E5), (0x1F6E9, 0x1F6E9), (0x1F6EB, 0x1F6F0), (0x1F6F3, 0x1F6FF),
+    (0x1F7DA, 0x1F7FF), (0x1F80C, 0x1F80F), (0x1F848, 0x1F84F), (0x1F85A, 0x1F85F),
+    (0x1F888, 0x1F88F), (0x1F8AE, 0x1F8AF), (0x1F8BC, 0x1F8BF), (0x1F8C2, 0x1F8CF),
+    (0x1F8D9, 0x1F8FF), (0x1F90C, 0x1F93A), (0x1F93C, 0x1F945), (0x1F947, 0x1F9FF),
+    (0x1FA58, 0x1FA5F), (0x1FA6E, 0x1FAFF), (0x1FC00, 0x1FFFD),
+)
 
 
-def _joins_previous(c: str) -> bool:
-    """Whether no cluster boundary falls before c (GB9, GB9a): Extend or
-    SpacingMark."""
+def _in(ranges, o: int) -> bool:
+    """Whether o lies in one of the sorted, disjoint inclusive `ranges`."""
+    i = bisect.bisect_right(ranges, (o, 0x10FFFF)) - 1
+    return i >= 0 and ranges[i][0] <= o <= ranges[i][1]
+
+
+def _break_class(c: str) -> str:
+    """The Grapheme_Cluster_Break value of c: CR, LF, Control, Extend, ZWJ,
+    Regional_Indicator, Prepend, SpacingMark, L, V, T, LV, LVT or Other."""
     o = ord(c)
+    if c in "\r\n":
+        return "CR" if c == "\r" else "LF"
+    if o == _ZWJ:
+        return "ZWJ"
+    if _in(_PREPEND, o):
+        return "Prepend"
     cat = unicodedata.category(c)
-    return (cat in ("Mn", "Me") or o in _EXTEND_EXTRA or o in _SPACING_EXTRA
-            or (cat == "Mc" and o not in _MC_OTHER))
+    if cat in ("Mn", "Me") or o in _EXTEND_EXTRA:
+        return "Extend"
+    if cat in ("Cc", "Cf", "Zl", "Zp"):
+        return "Control"
+    if o in _SPACING_EXTRA or (cat == "Mc" and o not in _MC_OTHER):
+        return "SpacingMark"
+    if 0x1F1E6 <= o <= 0x1F1FF:
+        return "Regional_Indicator"
+    if 0xAC00 <= o <= 0xD7A3:
+        return "LV" if (o - 0xAC00) % 28 == 0 else "LVT"
+    for kind, ranges in _HANGUL.items():
+        if _in(ranges, o):
+            return kind
+    return "Other"
 
 
-def _is_control(c: str) -> bool:
-    """Grapheme_Cluster_Break Control, CR or LF (GB4, GB5)."""
-    cat = unicodedata.category(c)
-    return cat in ("Cc", "Zl", "Zp") or (cat == "Cf" and ord(c) not in _EXTEND_EXTRA)
+_HANGUL_JOINS = {"L": ("L", "V", "LV", "LVT"), "LV": ("V", "T"), "V": ("V", "T"), "LVT": ("T",),
+                 "T": ("T",)}
 
 
 def graphemes(text: str) -> List[str]:
-    """Extended grapheme clusters of `text` (UAX #29) for text without the
-    characters of `_UNSUPPORTED` (a ValueError names the first)."""
+    """Extended grapheme clusters of `text` (UAX #29, rules GB3-GB13)."""
     out: List[str] = []
     prev = None
+    pict = False  # the text so far ends in Extended_Pictographic Extend*
+    pict_zwj = False  # ... in Extended_Pictographic Extend* ZWJ
+    ris = 0  # regional indicators the text so far ends in
     for c in text:
-        o = ord(c)
-        for lo, hi in _UNSUPPORTED:
-            if lo <= o <= hi:
-                raise ValueError(_UNSUPPORTED_MSG.format(text, c))
-        if prev is not None and ((prev == "\r" and c == "\n") or (
-                not _is_control(prev) and not _is_control(c) and _joins_previous(c))):
+        cur = _break_class(c)
+        is_pict = _in(_PICTOGRAPHIC, ord(c))
+        if prev is None:
+            join = False
+        elif prev == "CR" and cur == "LF":  # GB3
+            join = True
+        elif prev in ("CR", "LF", "Control") or cur in ("CR", "LF", "Control"):  # GB4, GB5
+            join = False
+        elif cur in _HANGUL_JOINS.get(prev, ()):  # GB6-GB8
+            join = True
+        elif cur in ("Extend", "ZWJ", "SpacingMark") or prev == "Prepend":  # GB9-GB9b
+            join = True
+        elif pict_zwj and is_pict:  # GB11
+            join = True
+        else:  # GB12, GB13: a pair of regional indicators
+            join = cur == prev == "Regional_Indicator" and ris % 2 == 1
+        if join:
             out[-1] += c
         else:
             out.append(c)
-        prev = c
+        pict_zwj = pict and cur == "ZWJ"
+        pict = is_pict or (pict and cur == "Extend")
+        ris = ris + 1 if cur == "Regional_Indicator" else 0
+        prev = cur
     return out
 
 

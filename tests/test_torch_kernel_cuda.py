@@ -273,7 +273,22 @@ CONV_CASES = [
     ((3, 17, 15, 64, 131), torch.bfloat16),   # M ragged, N odd: element stores
     ((2, 16, 16, 96, 129), torch.float32),
     ((1, 32, 32, 320, 320), torch.float32),
+    # the Hopper mainloop's edges: a 1 x 128 tile (W = 128), 8 x 16 tiles
+    # with H not a multiple of 8 and N = 320 (BN 160), a ragged W and N with
+    # a partial channel chunk, an odd N at W = 9 (8-column tiles), and #6's
+    # halo outside the image on every side
+    ((2, 1, 128, 64, 256), torch.bfloat16),
+    ((2, 20, 16, 128, 320), torch.bfloat16),
+    ((1, 13, 40, 96, 136), torch.bfloat16),
+    ((2, 9, 9, 72, 129), torch.bfloat16),
 ]
+
+
+def _variant(shape, dtype) -> str:
+    """The kernel `ops/conv3x3.plan` gives a contiguous input: the Hopper
+    mainloop for bf16 with C % 8 == 0 and W >= 8, else the generic one."""
+    return "hopper" if dtype == torch.bfloat16 and shape[3] % 8 == 0 and shape[2] >= 8 else \
+        "generic"
 CONV_KERNELS = [("conv3x3", "none"), ("epi", "none"), ("epi", "temb"), ("epi", "residual"),
                 ("fused", "none"), ("fused", "temb"), ("fused", "residual")]
 
@@ -319,10 +334,12 @@ def test_conv_kernels_match_plain(cuda, shape, dtype, kernel, mode):
     torch.backends.cudnn.allow_tf32 = False
     args = _conv_inputs(shape, dtype, mode, cuda)
     fn = {"conv3x3": tc.conv3x3, "epi": tc.epi_conv3x3, "fused": tc.fused_conv3x3}[kernel]
-    launches = fn.launches
+    launches, variants = fn.launches, dict(fn.variants)
     out = _conv_call(kernel, mode, *args)
     torch.cuda.synchronize()
     assert fn.launches == launches + 1
+    variants[_variant(shape, dtype)] += 1
+    assert fn.variants == variants
     ref = _conv_call(kernel, mode, *args, ref=True)
     assert out.dtype == dtype and out.shape == ref.shape and out.is_contiguous()
     ref_max = ref.float().abs().max().item()
@@ -340,10 +357,91 @@ def test_conv_kernel_takes_strided_views(cuda):
     wide = torch.cat([x, x.flip(-1)], dim=-1)[..., 128:]
     res = torch.cat([x, x], dim=-1)[..., :128]
     assert wide.stride(2) == 256 and not wide.is_contiguous()
-    out = tc.fused_conv3x3(wide, a, s, w, b, res, "residual")
-    ref = tc.fused_conv3x3_ref(wide, a, s, w, b, res, "residual")
+    # strides and an offset of 16-byte multiples: TMA reads the view as it
+    # lies; an offset of 4 channels (8 bytes) leaves it to the generic kernel
+    shifted = torch.cat([x[..., :4], x], dim=-1)[..., 4:]
+    for view, variant in ((wide, "hopper"), (shifted, "generic")):
+        taken = tc.fused_conv3x3.variants[variant]
+        out = tc.fused_conv3x3(view, a, s, w, b, res, "residual")
+        assert tc.fused_conv3x3.variants[variant] == taken + 1
+        ref = tc.fused_conv3x3_ref(view, a, s, w, b, res, "residual")
+        assert (out.float() - ref.float()).abs().max().item() <= 2 * _ulps_bf16(
+            ref.float().abs().max().item())
+
+
+_RCP_CHECK = r'''
+#include "conv3x3_sm90.cuh"
+__global__ void differ(unsigned long long* bad, uint32_t lo, uint32_t hi) {
+  for (uint32_t i = lo + blockIdx.x * blockDim.x + threadIdx.x; i < hi;
+       i += gridDim.x * blockDim.x) {
+    const float d = __uint_as_float(i);
+    if (__float_as_uint(conv_sm90::rcp_rn(d)) != __float_as_uint(__frcp_rn(d)))
+      atomicAdd(bad, 1ull);
+  }
+}
+extern "C" int rcp_rn_differs(unsigned long long* out, unsigned lo, unsigned hi) {
+  unsigned long long* bad;
+  if (cudaMalloc(&bad, 8) != cudaSuccess) return -1;
+  cudaMemset(bad, 0, 8);
+  differ<<<132 * 16, 256>>>(bad, lo, hi);
+  cudaMemcpy(out, bad, 8, cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+@pytest.mark.requires_cuda
+def test_transform_reciprocal_is_frcp_rn(cuda, tmp_path):
+    """#6's prologue on the Hopper mainloop takes its reciprocal from
+    `conv_sm90::rcp_rn`, branch-free, wherever 1 + exp(-u) < 2^126: it
+    gives __frcp_rn's bits on every float of [1, 2^126)."""
+    import ctypes
+    import subprocess
+
+    from sliders_tpu_torch.ops import _build
+
+    src, lib = tmp_path / "rcp_check.cu", tmp_path / "librcp_check.so"
+    src.write_text(_RCP_CHECK)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).rcp_rn_differs
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint]
+    bad = ctypes.c_ulonglong(1)
+    assert fn(ctypes.byref(bad), 0x3F800000, 0x7E800000) == 0  # 1.0 .. 2^126
+    assert bad.value == 0
+
+
+@pytest.mark.requires_cuda
+def test_fused_prologue_takes_its_exact_path_below_minus_87(cuda):
+    """Where x a + s < -87 somewhere in a warp's batch, the Hopper #6
+    rewrites that batch through prologue16 itself; the output stays the
+    plain version's."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    x, a, s, w, b, extra = _conv_inputs((2, 16, 16, 128, 128), torch.bfloat16, "temb", cuda)
+    x[:, 3:5, 2:9, :16] = -120.0
+    x[0, 12, 1, 64:72] = 200.0
+    taken = tc.fused_conv3x3.variants["hopper"]
+    out = tc.fused_conv3x3(x, a, s, w, b, extra, "temb")
+    assert tc.fused_conv3x3.variants["hopper"] == taken + 1
+    ref = tc.fused_conv3x3_ref(x, a, s, w, b, extra, "temb")
     assert (out.float() - ref.float()).abs().max().item() <= 2 * _ulps_bf16(
         ref.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel,mode", [("conv3x3", "none"), ("epi", "temb"),
+                                         ("fused", "residual")])
+@pytest.mark.parametrize("shape", [(16, 16, 16, 1280, 1280), (2, 32, 32, 320, 640),
+                                   (2, 16, 16, 100, 200)])
+def test_conv_kernels_are_deterministic(cuda, kernel, mode, shape):
+    """No split-K and no atomics: two launches on the same inputs give the
+    same bits, on the Hopper mainloop (a persistent grid walking several
+    tiles a block, the first shape) and on the generic kernel."""
+    args = _conv_inputs(shape, torch.bfloat16, mode, cuda)
+    first = _conv_call(kernel, mode, *args)
+    assert torch.equal(first, _conv_call(kernel, mode, *args))
 
 
 @pytest.mark.requires_cuda

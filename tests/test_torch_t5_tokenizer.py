@@ -94,11 +94,12 @@ def test_unigram_segmentation_is_viterbi(tmp_path):
 
 # a sentencepiece charsmap in small: full-width letters, a ligature, NBSP and
 # a tab to a space, a combining-accent sequence composed, halfwidth kana
-# with its voicing mark composed, and a deletion
+# with its voicing mark composed, a deletion, and a prepended mark (a key
+# that prefixes the short cluster the mark starts replaces all of it)
 CHARSMAP = {**{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
             **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
             "\ufb01": "fi", "\u00a0": " ", "\t": " ", "e\u0301": "\u00e9",
-            "A\u0300": "\u00c0", "\uff76\uff9e": "\u30ac", "\u00ad": ""}
+            "A\u0300": "\u00c0", "\uff76\uff9e": "\u30ac", "\u00ad": "", "\u0600": "P"}
 CHARSMAP_PROMPTS = [
     "ＡＢＣ ｄｅｆ photo", "ﬁne ﬂour", "a\u00a0photo of\u00a0a person", "a\tphoto\t\tof",
     "cafe\u0301 Ae\u0301", "A\u0300 la carte", "ａ\u0301b",  # a key prefixes the cluster
@@ -183,15 +184,57 @@ def test_precompiled_ids_equal_t5_tokenizer_fast(tmp_path):
         np.testing.assert_array_equal(g, w, err_msg=repr(p))
 
 
-@pytest.mark.parametrize("prompt", ["a 👩\u200d💻 person", "🇫🇷 flag", "\u1100\u1161 jamo",
-                                    "\u0600x"])
+# clusters cut by the UAX #29 rules for Hangul syllables (GB6-GB8), prepended
+# marks (GB9b), emoji zero-width-joiner sequences (GB11) and regional
+# indicator pairs (GB12, GB13)
+CLUSTER_PROMPTS = [
+    "a 👩\u200d💻 person", "🇫🇷 flag", "\u1100\u1161 jamo", "\u0600x",
+    "a 👨\u200d👩\u200d👧\u200d👦 family", "👩🏽\u200d💻 at work", "🇫🇷🇩🇪 two flags",
+    "🇫🇷🇩 three indicators", "\uac00\u11a8 LV + T", "\u1100\u1161\u11a8 L V T",
+    "\uac01\u11a8\u11a8 LVT T T", "\u0600a letter", "\u0600 space", "a\u200db",
+]
+
+
+@pytest.mark.parametrize("prompt", CLUSTER_PROMPTS)
 def test_precompiled_refuses_clusters_it_cannot_cut(tmp_path, prompt):
-    """Zero-width joiner sequences, regional indicators, conjoining jamo and
-    prepended marks need cluster rules the port does not have: refused by
-    name rather than cut by a guess."""
-    _precompiled_tokenizer(str(tmp_path))
-    with pytest.raises(ValueError, match="ROADMAP queue 3"):
-        T5Tokenizer.from_pretrained(str(tmp_path))([prompt])
+    """Prompts whose clusters need the Hangul, prepend, emoji ZWJ and
+    regional-indicator rules are cut as the `tokenizers` library cuts them:
+    the Precompiled step gives its string and the whole tokenizer
+    T5TokenizerFast's ids; nothing is refused."""
+    from tokenizers import normalizers
+
+    blob = base64.b64decode(_precompiled_tokenizer(str(tmp_path)))
+    ours = T5Tokenizer.from_pretrained(str(tmp_path))
+    step = ours.normalizers[0]
+    assert ours.charsmaps[id(step)].normalize(prompt) == \
+        normalizers.Precompiled(blob).normalize_str(prompt)
+    ref = transformers.T5TokenizerFast.from_pretrained(str(tmp_path))
+    want = ref([prompt], padding="max_length", max_length=32, truncation=True,
+               return_tensors="np").input_ids
+    np.testing.assert_array_equal(ours([prompt], max_length=32), want)
+
+
+# characters of every Grapheme_Cluster_Break class the rules name: CR, LF,
+# controls, Extend (combining acute, variation selector 16, a skin tone),
+# ZWJ, regional indicators, Prepend, SpacingMark, Hangul L, V, T, LV and
+# LVT, Extended_Pictographic (emoji, (c)), letters and spaces
+CLUSTER_POOL = ("\r", "\n", "\x00", "\u200e", "\u0301", "\ufe0f", "\U0001F3FD", "\u200d",
+                "\U0001F1EB", "\U0001F1F7", "\u0600", "\U000110BD", "\u0903", "\u1100",
+                "\ua960", "\u1161", "\ud7b0", "\u11a8", "\ud7cb", "\uac00", "\uac01",
+                "\U0001F469", "\U0001F4BB", "\u00a9", "\u2764", "a", "x", " ")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_graphemes_match_regex(seed):
+    """`graphemes` cuts 500 random strings over CLUSTER_POOL as the `regex`
+    package's \\X does (the package its tables were taken from)."""
+    regex = pytest.importorskip("regex")
+    from sliders_tpu_torch.text.t5_tokenizer import graphemes
+
+    rng = np.random.default_rng(seed)
+    for _ in range(500):
+        text = "".join(rng.choice(CLUSTER_POOL, size=int(rng.integers(1, 12))))
+        assert graphemes(text) == regex.findall(r"\X", text), repr(text)
 
 
 def test_unsupported_pieces_are_refused(tmp_path):
