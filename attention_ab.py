@@ -8,12 +8,20 @@ another checkout (a parent commit) on one GPU, in one process, in turns.
 The parent's `sliders_tpu_torch/csrc/{sd_attention,sd_attention_bwd,
 flash_attention,conv3x3}.cu` are compiled with the flags of `ops/_build.py`
 into `<dir>/_ab_build/` and loaded with ctypes behind the same C entry
-points, so the port's wrappers launch either library on the same inputs
-(the conv wrappers on the parent's library take its one entry,
-`conv3x3_launch`, as a parent without the Hopper mainloop has it). The conv
-cases (kernel 'conv': #5, #7 and #6 at each of chip_smoke.py's batch-16
-SD1.5 shapes and three SDXL shapes) are held to the plain versions within
-chip_smoke.py's CONV_ULPS bf16 ulps of each element. For every
+points, so the port's wrappers launch either library on the same inputs.
+The conv wrappers run the parent's conv library as the parent's own plan
+would: a parent with this checkout's entries (`tf32_split_launch` among
+them) as they are; a parent without the f32 Hopper path with f32 on its
+generic kernel and bf16 on its Hopper entry, which takes no dtype argument
+(`OlderConv`); a parent without any Hopper entry with everything on
+`conv3x3_launch`. The conv cases (kernel
+'conv': #5, #7 and #6 at each of chip_smoke.py's batch-16 SD1.5 shapes and
+three SDXL ones in bf16; #5 and #7 with a residual at the SD VAE decoder's
+f32 shapes at the decode batch; all three at chip_smoke.py's f32
+CONV_EXTRA case) are held to the plain versions within chip_smoke.py's
+CONV_ULPS bf16 ulps of each element, or f32 F32_TOL of the largest value
+(TF32 off on the plain side), and f32 rows print both bounds (FMA and
+3xTF32). For every
 case both results are held to the unchanged plain versions with the
 tolerances of `chip_smoke.py` (4 bf16 ulps at each output's largest
 magnitude; f32 1e-5), then timed with CUDA events in the order parent,
@@ -40,7 +48,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from chip_smoke import CONV_SHAPES, CONV_ULPS, bf16_max_ulps, bound as roofline, conv_case  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CONV_EXTRA, CONV_SHAPES, CONV_ULPS, F32_TOL, VAE_CONV_SHAPES, VAE_DECODE_BATCH, bf16_max_ulps,
+    bound as roofline, conv_case, f32_conv_bounds)
+
+CONV_KERNELS = ("conv3x3", "epi_conv3x3", "fused_conv3x3")
 
 # (kernel, (B, H, L, d), dtype, head views of (B, L, H*d) buffers)
 CASES = [
@@ -67,11 +79,18 @@ CASES = [
     ("sd_bwd", (1, 24, 1536, 128), "bfloat16", True),
     ("flash_bwd", (1, 24, 16896, 128), "bfloat16", True),
     ("flash_bwd", (1, 24, 4608, 128), "bfloat16", True),
-    # the conv kernels: (B, H, W, C, N, mode) at batch 16, bf16
-    *(("conv", (16, h, h, c, n, mode), "bfloat16", False) for h, c, n, mode in CONV_SHAPES),
-    *(("conv", (16, h, h, c, n, mode), "bfloat16", False)
+    # the conv kernels: ((B, H, W, C, N, mode), dtype, the kernels timed) at
+    # batch 16 in bf16, the VAE decoder's f32 shapes at the decode batch, and
+    # the f32 CONV_EXTRA case
+    *(("conv", (16, h, h, c, n, mode), "bfloat16", CONV_KERNELS)
+      for h, c, n, mode in CONV_SHAPES),
+    *(("conv", (16, h, h, c, n, mode), "bfloat16", CONV_KERNELS)
       for h, c, n, mode in ((128, 320, 320, "temb"), (64, 1920, 640, "temb"),
                             (32, 2560, 1280, "temb"))),
+    *(("conv", (VAE_DECODE_BATCH, h, h, c, n, "residual"), "float32", CONV_KERNELS[:2])
+      for h, c, n in VAE_CONV_SHAPES),
+    *(("conv", (b, h, h, c, n, mode), dt, CONV_KERNELS)
+      for b, h, c, n, mode, dt in CONV_EXTRA if dt == "float32"),
 ]
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -109,6 +128,32 @@ def median_ms(fn, runs, reps=1):
     return statistics.median(times)
 
 
+class OlderConv:
+    """A parent's conv library from before the f32 Hopper path: its
+    `conv3x3_launch` as it is, and its `conv3x3_sm90_launch` (bf16 only, no
+    dtype argument), where it has one, behind this checkout's signature."""
+
+    def __init__(self, lib):
+        from sliders_tpu_torch.ops import _build
+
+        self.conv3x3_launch = lib.conv3x3_launch
+        if hasattr(lib, "conv3x3_sm90_launch"):
+            fn = lib.conv3x3_sm90_launch
+            P, I, L = _build._P, _build._I, _build._L
+            fn.argtypes, fn.restype = [P] * 7 + [I] * 7 + [L] * 6 + [I] * 5 + [P], ctypes.c_int
+            self._sm90 = fn
+
+    def __getattr__(self, name):
+        if name == "conv3x3_sm90_launch" and "_sm90" in self.__dict__:
+            return self._sm90_launch
+        raise AttributeError(name)
+
+    def _sm90_launch(self, *args):
+        if args[12]:  # is_f32: an older parent has no f32 Hopper path
+            raise ValueError("the parent's Hopper conv entry takes bf16 only")
+        return self._sm90(*args[:12], *args[13:])
+
+
 def build_parent(parent: str) -> dict:
     """Compile the parent's attention and conv sources; {name: CDLL} with the
     argtypes of this checkout's entry points that the parent's library has
@@ -132,31 +177,44 @@ def build_parent(parent: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"parent {LIBS[name]}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(out)
+        older = name == "conv" and not hasattr(lib, "tf32_split_launch")
         for symbol, argtypes in _build.LIBRARIES[name][2].items():
-            if hasattr(lib, symbol):
+            if hasattr(lib, symbol) and not (older and symbol == "conv3x3_sm90_launch"):
                 fn = getattr(lib, symbol)
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[name] = lib
+        libs[name] = OlderConv(lib) if older else lib
     print(f"[ab] parent libraries built in {time.perf_counter() - t0:.1f} s", flush=True)
     return libs
 
 
 class Using:
-    """Route the port's wrappers to the parent's libraries inside the block
-    (the conv wrappers to the parent's one entry, `conv3x3_launch`)."""
+    """Route the port's wrappers to the parent's libraries inside the block,
+    the conv wrappers with the plan the parent's library can run: this
+    checkout's for a parent with its entries, bf16 only for an `OlderConv`
+    with a Hopper entry (f32 on the generic kernel), else 'generic'."""
 
     def __init__(self, libs):
         self.libs = libs
 
     def __enter__(self):
+        import torch
+
         from sliders_tpu_torch.ops import _build
         from sliders_tpu_torch.ops import conv3x3 as tc
 
         self.saved = {n: _build.library(n) for n in self.libs}
         _build._libs.update(self.libs)
-        self.plan = tc.plan
-        if "conv" in self.libs:
-            tc.plan = lambda *args, **kwargs: tc.Plan("generic")
+        self.plan = plan = tc.plan
+        lib = self.libs.get("conv")
+        if isinstance(lib, OlderConv):
+            hopper_bf16 = hasattr(lib, "conv3x3_sm90_launch")
+
+            def parent_plan(x_shape, n, dtype, *args, **kwargs):
+                if hopper_bf16 and dtype == torch.bfloat16:
+                    return plan(x_shape, n, dtype, *args, **kwargs)
+                return tc.Plan("generic")
+
+            tc.plan = parent_plan
 
     def __exit__(self, *exc):
         from sliders_tpu_torch.ops import _build
@@ -271,9 +329,10 @@ def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
     return row
 
 
-def run_conv_case(shape, dt, parent_libs, runs, gen):
-    """#5, #7 and #6 at one (B, H, W, C, N, mode): each held to its plain
-    version within CONV_ULPS bf16 ulps of each element on both sides, then
+def run_conv_case(shape, dt, names, parent_libs, runs, gen):
+    """The kernels `names` of #5, #7 and #6 at one (B, H, W, C, N, mode):
+    each held to its plain version on both sides (bf16 within CONV_ULPS bf16
+    ulps of each element, f32 within F32_TOL of the largest value), then
     timed parent, change, change, parent; cuDNN's conv + bias and each
     kernel's PyTorch expression (as chip_smoke.py times them) beside."""
     import torch
@@ -300,16 +359,20 @@ def run_conv_case(shape, dt, parent_libs, runs, gen):
                 lambda: tc.fused_conv3x3_ref(x, a, s, w, b, extra, mode),
                 lambda: expression(F.silu(xc.float() * a[:, :, None, None]
                                           + s[:, :, None, None]).to(dtype)), 8 * B * C)]
+    kernels = [k for k in kernels if k[0] in names]
     extra_n = {"none": 0, "temb": B * N, "residual": B * H * W * N}[mode]
+    item = 2 if dt == "bfloat16" else 4
     rows = []
     for name, call, plain, library, fold_bytes in kernels:
         ref = plain()
-        ulps = {}
+        ulps = {}  # bf16: the worst element's ulps; f32: the error as a share of F32_TOL
+        tol = F32_TOL * max(1.0, ref.float().abs().max().item())
         for side, libs in (("parent", parent_libs), ("change", {})):
             with Using(libs):
                 out = call()
             torch.cuda.synchronize()
-            ulps[side] = bf16_max_ulps(out, ref)
+            ulps[side] = (bf16_max_ulps(out, ref) if dt == "bfloat16" else
+                          (out.float() - ref.float()).abs().max().item() / tol)
             del out
         del ref
         reps = max(1, min(50, int(20.0 / max(median_ms(call, 1), 1e-3))))
@@ -317,18 +380,30 @@ def run_conv_case(shape, dt, parent_libs, runs, gen):
         for side in ("parent", "change", "change", "parent"):
             with Using(parent_libs if side == "parent" else {}):
                 times[side].append(median_ms(call, runs, reps))
-        nbytes = 2 * (B * H * W * C + 9 * C * N + N + extra_n + B * H * W * N) + fold_bytes
-        row = {"kernel": name, "shape": shape, "dtype": dt, "tol_ulps": CONV_ULPS,
-               "ulps_parent": ulps["parent"], "ulps_change": ulps["change"],
+        nbytes = item * (B * H * W * C + 9 * C * N + N + extra_n + B * H * W * N) + fold_bytes
+        row = {"kernel": name, "shape": shape, "dtype": dt,
+               **({"tol_ulps": CONV_ULPS, "ulps_parent": ulps["parent"],
+                   "ulps_change": ulps["change"]} if dt == "bfloat16" else
+                  {"tol": tol, "err_share_parent": ulps["parent"],
+                   "err_share_change": ulps["change"]}),
                "parent_ms": statistics.mean(times["parent"]),
                "change_ms": statistics.mean(times["change"]),
                "parent_ms_each": times["parent"], "change_ms_each": times["change"],
                "library_ms": median_ms(library, runs, reps), "plain_ms": median_ms(plain, 3),
                "reps": reps}
-        row["bound_ms"], row["bound_by"] = roofline(2 * 9 * B * H * W * C * N, nbytes, dt)
-        row["ok"] = max(ulps.values()) <= CONV_ULPS
-        print(f"[ab] {name} {shape} {dt}: {ulps['parent']:.2f} / {ulps['change']:.2f} bf16 ulps "
-              f"(parent / change, tol {CONV_ULPS}); parent {row['parent_ms']:.4f} ms "
+        flops = 2 * 9 * B * H * W * C * N
+        if dt == "bfloat16":
+            row["bound_ms"], row["bound_by"] = roofline(flops, nbytes, dt)
+            row["ok"] = max(ulps.values()) <= CONV_ULPS
+            shown = (f"{ulps['parent']:.2f} / {ulps['change']:.2f} bf16 ulps (parent / change, "
+                     f"tol {CONV_ULPS})")
+        else:
+            row.update(f32_conv_bounds(flops, nbytes))
+            row["ok"] = max(ulps.values()) <= 1.0
+            shown = (f"err {ulps['parent']:.3f} / {ulps['change']:.3f} of tol {tol:.3g} (parent / "
+                     f"change); bounds FMA {row['fma_bound_ms']:.4f}, 3xTF32 "
+                     f"{row['tf32x3_bound_ms']:.4f} ms")
+        print(f"[ab] {name} {shape} {dt}: {shown}; parent {row['parent_ms']:.4f} ms "
               f"{['%.4f' % t for t in times['parent']]}, change {row['change_ms']:.4f} ms "
               f"{['%.4f' % t for t in times['change']]} "
               f"({row['change_ms'] / row['parent_ms']:.3f}x); library {row['library_ms']:.4f}, "
@@ -368,8 +443,7 @@ def main() -> int:
         if only and case[0] not in only:
             continue
         if case[0] == "conv":
-            rows.extend(run_conv_case(case[1], case[2], {"conv": parent_libs["conv"]}, args.runs,
-                                      gen))
+            rows.extend(run_conv_case(*case[1:], {"conv": parent_libs["conv"]}, args.runs, gen))
         else:
             rows.append(run_case(*case, parent_libs, args.runs, gen))
         torch.cuda.empty_cache()

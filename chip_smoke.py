@@ -291,8 +291,8 @@ TINY_XL_PINS = 8
 TINY_XL_LR = 1e-5  # as TINY_FLUX_LR
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 outside
-# them (the f32 kernels use plain FMAs), device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# them (plain FMAs), TF32 tensor cores, device memory
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -301,6 +301,15 @@ def bound(flops: float, nbytes: float, dt: str) -> tuple:
     `flops` operations of type `dt` and `nbytes` moved to or from memory."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def f32_conv_bounds(flops: float, nbytes: float) -> dict:
+    """The two bounds of an f32 conv: `flops` on f32 FMAs (67 TFLOP/s) and
+    3 x `flops` on TF32 tensor cores (495 TFLOP/s; the 3xTF32 mainloop's
+    three products), each beside its bytes; the row's bound is the lesser."""
+    fma, tf32 = bound(flops, nbytes, "float32"), bound(3 * flops, nbytes, "tf32")
+    return {"fma_bound_ms": fma[0], "tf32x3_bound_ms": tf32[0],
+            "bound_ms": min(fma, tf32)[0], "bound_by": min(fma, tf32)[1]}
 
 
 def attention_bound(shape, dt: str, backward: bool = False) -> tuple:
@@ -385,9 +394,11 @@ def phase_device():
 # same mainloop; the bf16 backwards on the Hopper backward mainloop
 # (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's policy>): #2's dq and
 # dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128; the conv
-# kernels' Hopper mainloop (conv3x3_sm90.cuh) at each BN, with #6's prologue
-# at BN 128 and 160; every generic conv and GroupNorm instantiation, #4's f32 forwards (d = 512 and the others) and its
-# d = 256 and f32 backward kernels, #9's copy kernels
+# kernels' Hopper mainloop (conv3x3_sm90.cuh) in bf16 at each BN, with #6's
+# prologue at BN 128 and 160, and in f32 (3xTF32) at BN 128 with and without
+# it, and the weights' TF32 split; every generic conv and GroupNorm
+# instantiation, #4's f32 forwards (d = 512 and the others) and its d = 256
+# and f32 backward kernels, #9's copy kernels
 BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1E", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
             ("BCfgILi48ELi128ELb0ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
             ("BCfgILi64ELi64ELb1ELb0ELb1E", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
@@ -407,8 +418,12 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16 (d = 256)"),
             ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16 (d = 256)"),
             ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32"), ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32"),
-            *((f"conv3x3_sm90ILi{bn}ELb{pro}E", f"conv3x3_sm90{'<prologue>' if pro else ''} "
-               f"BN={bn}") for bn in (128, 160, 256) for pro in (0, 1) if not (pro and bn == 256)),
+            *((f"conv3x3_sm90I13__nv_bfloat16Li{bn}ELb{pro}E",
+               f"conv3x3_sm90{'<prologue>' if pro else ''} bf16 BN={bn}")
+              for bn in (128, 160, 256) for pro in (0, 1) if not (pro and bn == 256)),
+            *((f"conv3x3_sm90IfLi128ELb{pro}E",
+               f"conv3x3_sm90{'<prologue>' if pro else ''} f32 (3xTF32) BN=128") for pro in (0, 1)),
+            ("tf32_split", "tf32_split"),
             ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
@@ -493,15 +508,24 @@ def phase_build():
         "(setmaxnreg)")
     from sliders_tpu_torch.ops import conv3x3 as tc
 
+    import torch
+
     plans = {}
     for h, c, n, _ in CONV_SHAPES + SDXL_CONV_SHAPES:
-        plan = tc.plan((16, h, h, c), n, __import__("torch").bfloat16)
+        plan = tc.plan((16, h, h, c), n, torch.bfloat16)
         plans.setdefault((plan.tr, plan.tc, plan.bn), plan)
+    f32_plans = {}
+    for h, c, n in VAE_CONV_SHAPES:
+        plan = tc.plan((VAE_DECODE_BATCH, h, h, c), n, torch.float32)
+        f32_plans.setdefault((plan.tr, plan.tc, plan.bn), plan)
     say("build", "conv3x3_sm90 tile plans at the UNets' batch-16 shapes (TR x TC, BN: weight "
         "stages, dynamic shared memory a block): " + ", ".join(
             f"{pl.tr}x{pl.tc}, {pl.bn}: {pl.stages}, {pl.smem}" for pl in plans.values())
         + "; its consumers take 232 registers a thread and the producer 40 (setmaxnreg); #6 "
-        "(512 threads, BN <= 160) 184 and 72")
+        "(512 threads, BN <= 160) 184 and 72; f32 (3xTF32) at the VAE decoder's shapes: "
+        + ", ".join(f"{pl.tr}x{pl.tc}, {pl.bn}: {pl.stages} stages of hi + lo boxes, {pl.smem}"
+                    for pl in f32_plans.values())
+        + "; consumers 232 and producer 40, f32 #6 (384 threads, 3 transform warps) 224 and 56")
     say("build", f"{len(libs)} libraries built and loaded in {secs:.1f} s")
 
 
@@ -655,11 +679,15 @@ def phase_conv_kernels():
     routes at 1024 px, at batch 16 (timed); the grad pass's batch 1 at two
     shapes and one f32 shape (timed); and #5 at the SD VAE decoder's f32
     shapes at the decode batch (timed). bf16 is held to CONV_ULPS bf16 ulps
-    of each element, f32 to 1e-5 of the largest value. Every bf16 call must
-    take the Hopper mainloop and every f32 call the generic kernel (counted
-    by variant). Each timed line also times cuDNN's conv + bias in the
-    case's dtype (the 'xla' route's conv) and one PyTorch expression per
-    kernel computing its function, for reference."""
+    of each element, f32 to 1e-5 of the largest value (F32_TOL). Every call
+    must take the Hopper mainloop (counted by variant): f32 on its 3xTF32
+    path, each call after one launch of the `tf32_split` kernel, whose
+    output is held to `tf32_split_ref` bit for bit (and timed beside its
+    bound at each f32 weight). Each timed line also times cuDNN's conv +
+    bias in the case's dtype (the 'xla' route's conv) and one PyTorch
+    expression per kernel computing its function, for reference; f32 lines
+    give both bounds (FMA and 3xTF32). Returns the rows by kernel, the
+    split kernel's under "tf32_split"."""
     import torch
     import torch.nn.functional as F
 
@@ -670,6 +698,7 @@ def phase_conv_kernels():
     gen = torch.Generator(device="cuda").manual_seed(9)
     results = {"conv3x3": [], "epi_conv3x3": [], "fused_conv3x3": []}
     everything = tuple(results)
+    results["tf32_split"] = []
     # (B, H, C, N, mode, dtype, kernels, timed)
     cases = ([(16, h, c, n, mode, "bfloat16", everything, True) for h, c, n, mode in CONV_SHAPES]
              + [(16, h, c, n, mode, "bfloat16", everything, True)
@@ -713,15 +742,35 @@ def phase_conv_kernels():
                 lambda: epi_library(F.silu(xc.float() * af + sf).to(dtype))
             ) if "fused_conv3x3" in kernels else None
         parts = []
-        want = "hopper" if dtype == torch.bfloat16 else "generic"
+        want = "hopper"
+        if dtype == torch.float32:  # the split kernel against its plain version, bit for bit
+            before = tc.tf32_split.launches
+            split, split_ref = tc.tf32_split(w), tc.tf32_split_ref(w)
+            torch.cuda.synchronize()
+            if tc.tf32_split.launches != before + 1 or not torch.equal(split, split_ref):
+                raise AssertionError(f"tf32_split at ({N}, {C}, 3, 3) disagrees with "
+                                     f"tf32_split_ref or did not launch")
+            row = {"shape": (N, C, 3, 3), "err": (split - split_ref).abs().max().item()}
+            if timed:
+                row["ms"] = median_ms(lambda: tc.tf32_split(w))
+                row["plain_ms"] = median_ms(lambda: tc.tf32_split_ref(w))
+                # w read once, hi and lo written once; a few integer ops a value
+                row["bound_ms"], row["bound_by"] = bound(0, 3 * 4 * 9 * C * N, "float32")
+                row["library_ms"] = None
+            results["tf32_split"].append(row)
+            del split, split_ref
         for name, kernel, plain in calls:
             fn = getattr(tc, name)
             took = fn.variants[want]
+            splits = tc.tf32_split.launches
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
             if fn.variants[want] != took + 1:
                 raise AssertionError(f"{name} at {(B, H, H, C)}x{N} {dt} did not take the "
                                      f"{want} kernel: {fn.variants}")
+            if tc.tf32_split.launches != splits + (dtype == torch.float32):
+                raise AssertionError(f"{name} at {(B, H, H, C)}x{N} {dt} launched "
+                                     f"{tc.tf32_split.launches - splits} weight splits")
             err = (out.float() - ref.float()).abs().max().item()
             ref_max = ref.float().abs().max().item()
             if dtype == torch.bfloat16:
@@ -729,7 +778,8 @@ def phase_conv_kernels():
                 ok, shown = ulps <= CONV_ULPS, f"{ulps:.2f} ulps (tol {CONV_ULPS})"
             else:
                 ulps = 0.0
-                ok, shown = err <= 1e-5 * max(1.0, ref_max), f"(tol {1e-5 * max(1.0, ref_max):.3g})"
+                tol = F32_TOL * max(1.0, ref_max)
+                ok, shown = err <= tol, f"({err / tol:.3f} of tol {tol:.3g})"
             del out, ref
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at "
@@ -744,21 +794,34 @@ def phase_conv_kernels():
                 extra_n = {"none": 0, "temb": B * N, "residual": B * H * H * N}[mode]
                 nbytes = item * (B * H * H * C + 9 * C * N + N + extra_n + B * H * H * N)
                 nbytes += 8 * B * C if name == "fused_conv3x3" else 0
-                entry["bound_ms"], entry["bound_by"] = bound(2 * 9 * B * H * H * C * N, nbytes, dt)
+                flops = 2 * 9 * B * H * H * C * N
+                if dt == "bfloat16":
+                    entry["bound_ms"], entry["bound_by"] = bound(flops, nbytes, dt)
+                else:  # the lesser of the FMA and the 3xTF32 bound
+                    entry.update(f32_conv_bounds(flops, nbytes))
                 entry["library_ms"] = library[name]
                 entry["cudnn_conv_ms"] = cudnn_ms
                 entry["variant"] = want
                 parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
                              f"{entry['plain_ms']:.4f} ms"
-                             + (f" (library {library[name]:.4f})" if library[name] else ""))
+                             + (f" (library {library[name]:.4f})" if library[name] else "")
+                             + ("" if dt == "bfloat16" else
+                                f" (bounds: FMA {entry['fma_bound_ms']:.4f}, 3xTF32 "
+                                f"{entry['tf32x3_bound_ms']:.4f})"))
             else:
                 tally = untimed.setdefault(B, [0, 0, 0.0])
                 tally[1] += 1
                 tally[2] = max(tally[2], ulps)
             results[name].append(entry)
         if timed:
+            split_part = ""
+            if dtype == torch.float32:
+                sr = results["tf32_split"][-1]
+                split_part = (f"; tf32_split of the weight bit-equal, {sr['ms']:.4f} / "
+                              f"{sr['plain_ms']:.4f} ms (bound {sr['bound_ms']:.4f})")
             say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt} [{want}]: " + "; ".join(parts)
                 + f"; cuDNN {dt} conv + bias {cudnn_ms:.4f} ms"
+                + (" (TF32 off)" if dt == "float32" else "") + split_part
                 + " (kernel / plain, median; library: conv + bias + extra for #7, with "
                 "silu(x a + s) before it for #6)")
         else:
@@ -1085,7 +1148,8 @@ def phase_tiny_train(conv_impl: str = "xla"):
     Under conv impl 'fused' the UNet is TINY with 128 channels, so that its
     resnets pass the conv gates at 32x32 and 16x16 (8 blocks, 16 kernel #6
     calls a forward); the GPU run's launches must be that per forward times
-    sum(t_to + 2)."""
+    sum(t_to + 2), every one on the Hopper mainloop's f32 (3xTF32) path after
+    its weight's split."""
     import dataclasses
 
     import torch
@@ -1110,10 +1174,12 @@ def phase_tiny_train(conv_impl: str = "xla"):
     draws = [step_draws(6, i, 1, 5, (1, 32, 32, 4), 1.0) for i in range(3)]
     basic.set_conv_impl(conv_impl)
     try:
-        sa.sd_attention.launches = sa.sd_attention_bwd.launches = tc.fused_conv3x3.launches = 0
+        sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+        reset_conv_launches()
         gpu_losses, gpu_norms, gpu_lora = tiny_train("cuda", unet, lora, pairs, draws, cfg)
         fwd, bwd, conv = (sa.sd_attention.launches, sa.sd_attention_bwd.launches,
                           tc.fused_conv3x3.launches)
+        variants, splits = conv_variants(), tc.tf32_split.launches
         cpu_losses, cpu_norms, cpu_lora = tiny_train("cpu", unet, lora, pairs, draws, cfg)
     finally:
         basic.set_conv_impl("xla")
@@ -1124,12 +1190,14 @@ def phase_tiny_train(conv_impl: str = "xla"):
     conv_expected = 16 * sum(d[1] + 2 for d in draws) if fused else 0
     say("kernel", f"tiny training 256 px f32, conv impl {conv_impl!r}, 3 steps (t_to "
         f"{[d[1] for d in draws]}), GPU (kernels: {fwd} forward, {bwd} backward attention, "
-        f"{conv} fused conv launches, expected {conv_expected}) vs CPU (plain): losses "
+        f"{conv} fused conv launches, expected {conv_expected}, by variant {variants}, "
+        f"{splits} weight splits) vs CPU (plain): losses "
         f"{[f'{x:.6g}' for x in gpu_losses]} vs {[f'{x:.6g}' for x in cpu_losses]}, max rel err "
         f"{loss_err:.3g} (tol 1e-5); grad norms {[f'{x:.6g}' for x in gpu_norms]} vs "
         f"{[f'{x:.6g}' for x in cpu_norms]}, max rel err {norm_err:.3g} (tol 1e-4); LoRA "
         f"max|err| {lora_err:.3g} (tol 1e-6)")
-    if fwd == 0 or bwd == 0 or conv != conv_expected:
+    if fwd == 0 or bwd == 0 or conv != conv_expected or splits != conv_expected or (
+            variants != ({"hopper": conv} if conv else {})):
         raise AssertionError("tiny training on the GPU did not go through the kernels")
     if not (loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
         raise AssertionError("tiny training on the GPU disagrees with the CPU")
@@ -1489,7 +1557,8 @@ def phase_step(engine):
     """Where a denoise step goes: one UNet forward of the 8-row bucket
     (16 rows CFG-doubled) with a slider, timed through the kernel and on the
     plain attention path, then profiled by kernel class; and the VAE decode
-    of 8 rows under attention impls 'auto' and 'xla' in turns (`decode_ab`)."""
+    of 8 rows under attention impls 'auto' and 'xla' in turns, then under
+    conv impls 'auto' (#5 in f32) and 'xla' (`decode_ab`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1532,23 +1601,35 @@ def phase_step(engine):
         + f"; idle share {(1 - busy / wall) * 100:.1f}% (profiler on, 3 steps)")
 
     lat = torch.randn((8, 64, 64, 4), generator=gen, device="cuda")
-    dec = decode_ab(m.vae_params, m.vae_config, lat, "SD1.5 VAE decode of 8 images at 512 px")
+    what = "SD1.5 VAE decode of 8 images at 512 px"
+    dec = decode_ab(m.vae_params, m.vae_config, lat, what)
+    dec_conv = decode_ab(m.vae_params, m.vae_config, lat, what, route="conv")
     say("step", f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    return dec
+    return dec, dec_conv
 
 
-def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int = 3) -> dict:
-    """One VAE decode (f32, cuDNN TF32 allowed) timed under attention impl
-    'auto' (the mid attention, the VAE's only routed attention, on #4) and
-    'xla' (on the plain path) in alternating rounds (auto, xla, xla, auto,
-    ...; median of `runs` synced decodes each); each impl's time is the
-    median of its rounds. Under 'auto' the decode must launch #4 once, and
-    the two images may differ by a rounding of the mid attention only."""
+def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int = 3,
+              route: str = "attention") -> dict:
+    """One VAE decode (f32, as served: cuDNN may use TF32) timed under impls
+    'auto' and 'xla' in alternating rounds (auto, xla, xla, auto, ...;
+    median of `runs` synced decodes each); each impl's time is the median of
+    its rounds. route 'attention': the attention impl, 'auto' putting the
+    mid attention (the VAE's only routed attention) on #4, which it must
+    launch once; 'xla' the plain path. route 'conv': the conv impl, 'auto'
+    putting the decoder's CONV_PER_DECODE f32 convs on #5's 3xTF32 Hopper
+    mainloop (f32-accurate; each after one weight split), 'xla' on cuDNN in
+    TF32, one TF32 pass: the two are not the same arithmetic. The two images
+    may differ by roundings only."""
     import torch
 
     from sliders_tpu_torch.ops import attention as ta
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import conv3x3 as tc
     from sliders_tpu_torch.ops import flash_attention as fa
     from sliders_tpu_torch.pipelines.text2image import decode_images
+
+    set_impl, rest = ((ta.set_attention_impl, "auto") if route == "attention"
+                      else (basic.set_conv_impl, "xla"))
 
     def decode():
         return decode_images(vae_params, vae_config, lat)
@@ -1556,31 +1637,44 @@ def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int
     imgs, times = {}, {"auto": [], "xla": []}
     try:
         for impl in ("auto", "xla"):
-            ta.set_attention_impl(impl)
+            set_impl(impl)
             before = fa.flash_attention.launches
+            reset_conv_launches()
             imgs[impl] = decode()
             torch.cuda.synchronize()
-            if impl == "auto" and fa.flash_attention.launches != before + 1:
+            if route == "attention" and impl == "auto" and fa.flash_attention.launches != before + 1:
                 raise AssertionError(f"{what}: {fa.flash_attention.launches - before} #4 launches "
                                      f"under 'auto', not 1")
+            convs = CONV_PER_DECODE["auto"]["conv3x3"] if route == "conv" and impl == "auto" else 0
+            if (conv_launches(), conv_variants(), tc.tf32_split.launches) != (
+                    {"conv3x3": convs} if convs else {}, {"hopper": convs} if convs else {}, convs):
+                raise AssertionError(f"{what} under {route} impl {impl!r}: conv launches "
+                                     f"{conv_launches()} by variant {conv_variants()}, "
+                                     f"{tc.tf32_split.launches} splits; expected {convs} on the "
+                                     f"Hopper mainloop")
         for r in range(rounds):
             for impl in (("auto", "xla") if r % 2 == 0 else ("xla", "auto")):
-                ta.set_attention_impl(impl)
+                set_impl(impl)
                 times[impl].append(median_ms(decode, runs=runs))
     finally:
-        ta.set_attention_impl("auto")
+        set_impl(rest)
     diff = (imgs["auto"].int() - imgs["xla"].int()).abs().max().item()
     auto_ms, xla_ms = statistics.median(times["auto"]), statistics.median(times["xla"])
-    say("decode", f"{what} (f32, cuDNN TF32 allowed): median {auto_ms:.2f} ms under 'auto' (#4 "
-        f"on the mid attention), {xla_ms:.2f} ms under 'xla' (rounds {[round(t, 2) for t in times['auto']]}"
-        f" / {[round(t, 2) for t in times['xla']]}); 'auto' / 'xla' {auto_ms / xla_ms:.3f}; "
-        f"images' max|diff| {diff} of 255")
-    # the mid attention's f32 roundings move a pixel by a level at most; a
-    # wrong attention moves many by tens
+    tf32 = "cuDNN TF32 allowed" if torch.backends.cudnn.allow_tf32 else "cuDNN TF32 off"
+    how = ({"auto": "#4 on the mid attention", "xla": "the plain attention path"}
+           if route == "attention" else
+           {"auto": f"{CONV_PER_DECODE['auto']['conv3x3']} convs on #5's 3xTF32 mainloop, "
+                    f"f32-accurate", "xla": f"cuDNN convs, {tf32}: one TF32 pass"})
+    say("decode", f"{what} (f32, {tf32}), {route} impls: median {auto_ms:.2f} ms under 'auto' "
+        f"({how['auto']}), {xla_ms:.2f} ms under 'xla' ({how['xla']}) (rounds "
+        f"{[round(t, 2) for t in times['auto']]} / {[round(t, 2) for t in times['xla']]}); "
+        f"'auto' / 'xla' {auto_ms / xla_ms:.3f}; images' max|diff| {diff} of 255")
+    # the f32 roundings of the mid attention, or TF32's of cuDNN's convs, move
+    # a pixel by a level or two; a wrong kernel moves many by tens
     if diff > 8:
         raise AssertionError(f"{what}: the images under 'auto' and 'xla' differ by {diff} levels")
     return {"auto_ms": auto_ms, "xla_ms": xla_ms, "auto_rounds": times["auto"],
-            "xla_rounds": times["xla"], "max_diff_levels": diff}
+            "xla_rounds": times["xla"], "max_diff_levels": diff, "cudnn_tf32": tf32}
 
 
 def conv_launches() -> dict:
@@ -1608,6 +1702,7 @@ def reset_conv_launches() -> None:
     for fn in (tc.conv3x3, tc.epi_conv3x3, tc.fused_conv3x3):
         fn.launches = 0
         fn.variants = dict.fromkeys(tc.VARIANTS, 0)
+    tc.tf32_split.launches = 0
 
 
 def expect_hopper(per_forward: dict, variants: dict, what: str) -> None:
@@ -1938,8 +2033,12 @@ def serve_conv_impls(engine, port: int) -> dict:
     """One five-scale /generate under each conv-kernel impl; the reply is
     checked as phase 5 checks it, and the impl's kernel must have launched
     (its calls per UNet forward x 50 steps + its calls per VAE decode) x the
-    denoise batches, the others never. Returns {kernel: launches}."""
+    denoise batches, the others never, all on the Hopper mainloop (the
+    decoder's f32 convs under 'auto' on its 3xTF32 path, each after one
+    weight split). Returns {kernel: launches}, with the split kernel's
+    launches under 'auto' as "tf32_split"."""
     from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import conv3x3 as tc
 
     scales = [-2, -1, 0, 1, 2]
     out = {}
@@ -1953,6 +2052,7 @@ def serve_conv_impls(engine, port: int) -> dict:
                                              "slider": "s1", "scales": scales})
             wall = time.perf_counter() - t0
             launched, variants = conv_launches(), conv_variants()
+            splits = tc.tf32_split.launches
         finally:
             basic.set_conv_impl("xla")
         px = check_images(reply, scales, impl)
@@ -1962,18 +2062,20 @@ def serve_conv_impls(engine, port: int) -> dict:
         per_decode = CONV_PER_DECODE.get(impl, {})
         expected = {k: (v * STEPS + per_decode.get(k, 0)) * batches
                     for k, v in CONV_PER_FORWARD[impl].items()}
-        # the UNet's bf16 convs on the Hopper mainloop, the f32 VAE decoder's
-        # ('auto') on the generic kernel
-        by_variant = {"hopper": sum(CONV_PER_FORWARD[impl].values()) * STEPS * batches,
-                      "generic": sum(per_decode.values()) * batches}
-        by_variant = {v: n for v, n in by_variant.items() if n}
+        # the UNet's bf16 convs and the VAE decoder's f32 convs ('auto', each
+        # after one weight split) on the Hopper mainloop
+        by_variant = {"hopper": sum(expected.values())}
+        splits_expected = sum(per_decode.values()) * batches
         say("http", f"/generate under conv impl {impl!r}: {len(reply['images'])} images, server "
             f"latency {reply['latency_ms']} ms, client {wall * 1e3:.1f} ms; {batches} denoise "
             f"batch(es); conv-kernel launches {launched}, expected {expected}; by variant "
-            f"{variants}, expected {by_variant}")
-        if launched != expected or variants != by_variant:
+            f"{variants}, expected {by_variant}; weight splits {splits}, expected "
+            f"{splits_expected}")
+        if launched != expected or variants != by_variant or splits != splits_expected:
             raise AssertionError(f"not every routed conv under {impl!r} went through its kernel")
         out.update(launched)
+        if impl == "auto":
+            out["tf32_split"] = splits
     return out
 
 
@@ -2963,7 +3065,7 @@ def phase_sdxl_step(engine) -> dict:
     torch.profiler over one step (pin off) by kernel class, and the step's
     analytic bound; then the VAE decode of 8 images at 1024 px (#4 at
     (8, 1, 16384, 512) in f32) under attention impls 'auto' and 'xla' in
-    turns (`decode_ab`)."""
+    turns, then under conv impls 'auto' (#5 in f32) and 'xla' (`decode_ab`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3022,10 +3124,12 @@ def phase_sdxl_step(engine) -> dict:
     say("sdxl", f"top kernels of the profiled step: {top_kernels(prof)}")
     del outs, prof
     torch.cuda.empty_cache()
-    dec = decode_ab(m.vae_params, m.vae_config, lat, f"SDXL VAE decode of 8 images at {SDXL_PX} px",
-                    rounds=2, runs=2)
+    what = f"SDXL VAE decode of 8 images at {SDXL_PX} px"
+    dec = decode_ab(m.vae_params, m.vae_config, lat, what, rounds=2, runs=2)
+    dec_conv = decode_ab(m.vae_params, m.vae_config, lat, what, rounds=2, runs=2, route="conv")
     return {"ms_off": off, "ms_on": on, "sd_per_step": per_step[False][0],
-            "pin_per_step": per_step[True][1], "bound_ms": bound_ms, "decode": dec}
+            "pin_per_step": per_step[True][1], "bound_ms": bound_ms, "decode": dec,
+            "decode_conv": dec_conv}
 
 
 def phase_sdxl_http(engine) -> dict:
@@ -3241,7 +3345,7 @@ def main() -> int:
         tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
         tiny_xl = timed("tiny SDXL", phase_tiny_sdxl)
         engine = timed("SD1.5 engine", build_engine, tok_dir)
-    sd15_decode = timed("SD1.5 step", phase_step, engine)
+    sd15_decode, sd15_decode_conv = timed("SD1.5 step", phase_step, engine)
     conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
     timed("SD1.5 grad pass", phase_grad_ab, engine)
     serve_launches, serve_flash, serve_conv = timed("SD1.5 http", phase_http, engine)
@@ -3273,7 +3377,7 @@ def main() -> int:
     def timing(r):
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
-    def conv_entry(name, source_line, main, by_path):
+    def conv_entry(name, source_line, main, by_path, **more):
         rs = conv_results[name]
         return {"name": name, "route": "cuda", "source": "sliders_tpu_torch/csrc/conv3x3.cu",
                 "mainloop": "sliders_tpu_torch/csrc/conv3x3_sm90.cuh",
@@ -3281,8 +3385,9 @@ def main() -> int:
                 "launches_by_path": by_path, "max_abs_err": max(r["err"] for r in rs),
                 **timing(rs[0]),
                 "shapes": [dict(timing(r), shape=r["shape"], mode=r["mode"], dtype=r["dtype"],
-                                variant=r["variant"], cudnn_conv_ms=r["cudnn_conv_ms"])
-                           for r in rs if "ms" in r]}
+                                variant=r["variant"], cudnn_conv_ms=r["cudnn_conv_ms"],
+                                **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
+                           for r in rs if "ms" in r], **more}
 
     per_step = {impl: v["per_forward"] for impl, v in conv_step.items()}
     xl_step = {impl: v["per_forward"] for impl, v in sdxl["conv"].items()}
@@ -3360,7 +3465,9 @@ def main() -> int:
         conv_entry("conv3x3", 44, serve_conv["conv3x3"],
                    {"serve_auto": serve_conv["conv3x3"],
                     "unet_step_auto_per_forward": per_step["auto"]["conv3x3"],
-                    "sdxl_step_auto_per_forward": xl_step["auto"]["conv3x3"]}),
+                    "sdxl_step_auto_per_forward": xl_step["auto"]["conv3x3"]},
+                   decode_ms_conv_auto_vs_xla={"sd15_512": sd15_decode_conv,
+                                               "sdxl_1024": sdxl["step"]["decode_conv"]}),
         conv_entry("epi_conv3x3", 409, serve_conv["epi_conv3x3"],
                    {"serve_fused_ep": serve_conv["epi_conv3x3"],
                     "unet_step_fused_ep_per_forward": per_step["fused_ep"]["epi_conv3x3"],
@@ -3370,6 +3477,18 @@ def main() -> int:
                     "tiny_train_fused": tiny_fused,
                     "unet_step_fused_per_forward": per_step["fused"]["fused_conv3x3"],
                     "sdxl_step_fused_per_forward": xl_step["fused"]["fused_conv3x3"]}),
+        {"name": "tf32_split", "route": "cuda", "source": "sliders_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "sliders_tpu/ops/pallas_conv.py:44 (the f32 weight operand of "
+                     "_conv_kernel's products, split for the 3xTF32 mainloop of #5-#7)",
+         "launches": serve_conv["tf32_split"],
+         "launches_by_path": {"serve_auto": serve_conv["tf32_split"],
+                              "tiny_train_fused": tiny_fused},
+         "max_abs_err": max(r["err"] for r in conv_results["tf32_split"]),
+         # at the SD VAE decoder's 512 x 512 weight
+         **timing(next(r for r in conv_results["tf32_split"]
+                       if "ms" in r and r["shape"] == (512, 512, 3, 3))),
+         "shapes": [dict(timing(r), shape=r["shape"]) for r in conv_results["tf32_split"]
+                    if "ms" in r]},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "sliders_tpu_torch/csrc/group_norm.cu",
          "replaces": "sliders_tpu/ops/pallas_groupnorm.py:43", "launches": 0,

@@ -16,30 +16,31 @@
 // `pre_ref` scratch), and a tap outside the image reads zero in the
 // normalised space (the TPU kernel's zero ring), never silu(s).
 //
-// What bounds it on the H100: at SD1.5's shapes (C, N = 320..2560, M = 4096
-// to 65536 pixels) the product is large, so tensor-core issue rate and
-// shared-memory traffic bound this simple kernel, not device memory. The
-// TPU kernel held a whole padded image per program in VMEM; a Hopper block
-// has at most 227 KB, so each block takes a 128 x 128 output tile and loops
-// over channel chunks of 32: it stages the chunk's weights for all 9 taps
-// once (read as they lie: the port keeps every conv weight channels_last,
-// (N, 3, 3, C) in memory, so each tap's channels are one run; they are laid
-// out by tap in shared memory and no permuted copy is made per call), then
-// for each tap gathers the shifted input tile (zero where the tap leaves
-// the image; the input is never padded in a separate pass),
-// double-buffered through registers so that the next tap's loads overlap
-// this tap's mma.sync. The fused prologue's a and s of a chunk are held in
-// registers across its 9 taps. No TMA, wgmma or cp.async pipeline yet.
-//
-// bf16 runs mma.sync m16n8k16 (8 warps, 64 x 32 outputs each); f32 runs
-// plain FMAs (a 64 x 64 tile, 4 x 4 outputs a thread), as the attention
-// kernels do.
-//
-// Two entry points: `conv3x3_launch` runs this simple kernel ("generic":
-// every f32 call, and bf16 shapes TMA cannot take); `conv3x3_sm90_launch`
-// runs the Hopper mainloop of conv3x3_sm90.cuh (a TMA halo tile per channel
-// chunk, wgmma over the nine taps) on the tile plan that
-// `ops/conv3x3.plan` makes for every other bf16 call.
+// Two kernels, chosen per call by `ops/conv3x3.plan`:
+//   - `conv3x3_sm90_launch`, the Hopper mainloop of conv3x3_sm90.cuh (a TMA
+//     halo tile per 128-byte channel chunk, a TMA weight ring, `wgmma` over
+//     the nine taps), for every call TMA can take: bf16 on bf16 tensor
+//     cores; f32 on TF32 tensor cores with error compensation (3xTF32: each
+//     operand split into a TF32 hi and lo part, three products a step),
+//     because the f32 products must match the exact-f32 plain version to
+//     1e-5 and one TF32 pass keeps about 11 bits. What bounds it is the
+//     tensor cores (f32: three TF32 passes against 495 TFLOP/s, still below
+//     the 67 TFLOP/s FMA bound) and the weight boxes each tile reads from
+//     L2; see the header's note. f32 weights are split once a call by
+//     `tf32_split_launch` below into a (2, N, 3, 3, C) scratch.
+//   - `conv3x3_launch`, the simple kernel ("generic") for what TMA cannot
+//     take (C or x's strides not multiples of 16 bytes, addresses off 16
+//     bytes, W < 8). It takes a 128 x 128 (bf16) or 64 x 64 (f32) output
+//     tile a block and loops over channel chunks of 32 (bf16) or 16 (f32):
+//     it stages the chunk's weights for all 9 taps once (read as they lie:
+//     the port keeps every conv weight channels_last, (N, 3, 3, C) in
+//     memory, so each tap's channels are one run), then for each tap
+//     gathers the shifted input tile (zero where the tap leaves the image),
+//     double-buffered through registers so that the next tap's loads
+//     overlap this tap's products: mma.sync m16n8k16 in bf16 (8 warps, 64 x
+//     32 outputs each), plain FMAs in f32 (4 x 4 outputs a thread). The
+//     fused prologue's a and s of a chunk are held in registers across its
+//     9 taps.
 
 #include "conv3x3_sm90.cuh"
 
@@ -297,6 +298,16 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_f32(Params p) {
   }
 }
 
+// hi = tf32(w), lo = tf32(w - hi) for each of the n values (tf32_split_launch)
+__global__ void tf32_split(const float* __restrict__ w, float* __restrict__ out, long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float v = w[i], hi = conv_sm90::tf32_rna(v);
+    out[i] = hi;
+    out[n + i] = conv_sm90::tf32_rna(__fsub_rn(v, hi));
+  }
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, const Params& p, dim3 grid, size_t smem, cudaStream_t stream) {
   const cudaError_t e =
@@ -343,29 +354,46 @@ extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, co
                   : launch(conv3x3_bf16<false>, p, grid, smem, st);
 }
 
+// Returns the launch's CUDA error (0 on success). hi = tf32(w), lo =
+// tf32(w - hi) of the n f32 values at w (round to nearest, ties away, as
+// `conv_sm90::tf32_rna`), written as out[0..n) and out[n..2n): the channels_last
+// (N, 3, 3, C) weight becomes the (2, N, 3, 3, C) operand of the f32 Hopper
+// mainloop. Plain version: ops/conv3x3.tf32_split_ref.
+extern "C" int tf32_split_launch(const void* w, void* out, long long n, void* stream) {
+  if (n < 1 || w == nullptr || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + 255) / 256;
+  tf32_split<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0,
+               static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(w),
+                                                    static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Returns the launch's CUDA error (0 on success). The Hopper mainloop on a
 // tile plan (ops/conv3x3.plan): TR x TC output tiles (TR TC = 128), BN
-// output channels a tile (128, 160 or 256; 128 or 160 with the prologue),
-// `stages` weight stages, `smem`
-// bytes of dynamic shared memory. The tensors are conv3x3_launch's, bf16
-// only, with C, x's strides and the addresses of x, w (and a, s) as TMA
-// takes them: C and the strides multiples of 8 elements, the addresses of
-// 16 bytes. A plan that does not hold for the shape is refused
+// output channels a tile (bf16: 128, 160 or 256, and 128 or 160 with the
+// prologue; f32: 128), `stages` weight
+// stages, `smem` bytes of dynamic shared memory. The tensors are
+// conv3x3_launch's, with C, x's strides and the addresses of x, w (and a,
+// s) as TMA takes them: C and the strides multiples of 16 bytes, the
+// addresses of 16 bytes. In f32 w is tf32_split_launch's (2, N, 3, 3, C)
+// split of the weight. A plan that does not hold for the shape is refused
 // (cudaErrorInvalidValue), never changed.
 extern "C" int conv3x3_sm90_launch(const void* x, const void* w, const void* bias,
                                    const void* extra, const void* a, const void* s, void* y, int B,
-                                   int H, int W, int C, int N, int mode, int prologue,
+                                   int H, int W, int C, int N, int is_f32, int mode, int prologue,
                                    long long xs_b, long long xs_h, long long xs_w, long long es_b,
                                    long long es_h, long long es_w, int TR, int TC, int BN,
                                    int stages, int smem, void* stream) {
   using namespace conv_sm90;
+  const int V = is_f32 ? 4 : 8;  // elements in 16 bytes
   const bool tc_ok = TC == 8 || TC == 16 || TC == 32 || TC == 64 || TC == 128;
+  const bool bn_ok = is_f32 ? BN == 128 : (BN == 128 || BN == 160 || (BN == 256 && !prologue));
   if (B < 1 || H < 1 || W < 1 || C < 1 || N < 1 || mode < MODE_NONE || mode > MODE_RESIDUAL ||
       (mode != MODE_NONE && extra == nullptr) || (prologue && (a == nullptr || s == nullptr)) ||
-      C % 8 != 0 || xs_b % 8 != 0 || xs_h % 8 != 0 || xs_w % 8 != 0 || !aligned16(x) ||
+      C % V != 0 || xs_b % V != 0 || xs_h % V != 0 || xs_w % V != 0 || !aligned16(x) ||
       !aligned16(w) || (prologue && !(aligned16(a) && aligned16(s))) || !tc_ok ||
-      TR * TC != 128 || (BN != 128 && BN != 160 && BN != 256) || stages < 2 ||
-      stages > MAX_STAGES || smem != plan_smem(TR, TC, BN, stages) || smem > SMEM_MAX)
+      TR * TC != 128 || !bn_ok || stages < 2 || stages > MAX_STAGES ||
+      smem != plan_smem(TR, TC, BN, stages, is_f32 != 0) || smem > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   // vec: the epilogue's 16-byte accesses (store_row16)
   const bool vec = N % 8 == 0 && aligned16(bias) && aligned16(y) &&
@@ -383,20 +411,29 @@ extern "C" int conv3x3_sm90_launch(const void* x, const void* w, const void* bia
   q.TH = (H + TR - 1) / TR;
   q.TW = (W + TC - 1) / TC;
   q.NT = (N + BN - 1) / BN;
-  q.KC = (C + CKH - 1) / CKH;
+  const int ck = is_f32 ? Elem<float>::CK : Elem<bf16>::CK;
+  q.KC = (C + ck - 1) / ck;
   const long long tiles = (long long)B * q.TH * q.TW * q.NT;
   if (tiles > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   q.tiles = static_cast<int>(tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f32) {
+    switch (BN * 2 + (prologue ? 1 : 0)) {
+      case 256: return conv_sm90::launch<float, 128, false>(p, q, smem, st);
+      case 257: return conv_sm90::launch<float, 128, true>(p, q, smem, st);
+      // f32 takes BN = 128: a consumer holds two 64 x BN f32 accumulators
+      // and the hi and lo A fragments of two half taps
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (BN * 2 + (prologue ? 1 : 0)) {
-    case 256: return conv_sm90::launch<128, false>(p, q, smem, st);
-    case 257: return conv_sm90::launch<128, true>(p, q, smem, st);
-    case 320: return conv_sm90::launch<160, false>(p, q, smem, st);
-    case 321: return conv_sm90::launch<160, true>(p, q, smem, st);
-    case 512: return conv_sm90::launch<256, false>(p, q, smem, st);
+    case 256: return conv_sm90::launch<bf16, 128, false>(p, q, smem, st);
+    case 257: return conv_sm90::launch<bf16, 128, true>(p, q, smem, st);
+    case 320: return conv_sm90::launch<bf16, 160, false>(p, q, smem, st);
+    case 321: return conv_sm90::launch<bf16, 160, true>(p, q, smem, st);
+    case 512: return conv_sm90::launch<bf16, 256, false>(p, q, smem, st);
     // #6 takes BN <= 160: its consumers have 184 registers, short of a
     // 64 x 256 f32 accumulator's 128 and the A buffers
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-

@@ -60,9 +60,11 @@ LIBRARIES = {
         # x, w, bias, extra, a, s, y; B, H, W, C, N, is_f32, mode, prologue;
         # x strides (b, h, w), extra strides (b, h, w); stream
         "conv3x3_launch": [_P] * 7 + [_I] * 8 + [_L] * 6 + [_P],
-        # the same without is_f32, then the tile plan: TR, TC, BN, stages,
-        # shared-memory bytes
-        "conv3x3_sm90_launch": [_P] * 7 + [_I] * 7 + [_L] * 6 + [_I] * 5 + [_P],
+        # the same, then the tile plan: TR, TC, BN, stages, shared-memory
+        # bytes (f32: w is tf32_split_launch's split of the weight)
+        "conv3x3_sm90_launch": [_P] * 7 + [_I] * 8 + [_L] * 6 + [_I] * 5 + [_P],
+        # w, out (2 x n f32), n, stream
+        "tf32_split_launch": [_P, _P, _L, _P],
     }),
     "group_norm": (CSRC / "group_norm.cu", (), {
         # x, gamma, beta, y; B, L, C, groups, is_f32, silu; eps; stream

@@ -20,10 +20,14 @@ the current stream or raises: a layout the kernel does not take (channels
 not contiguous, a weight that is not channels_last) is an error, never a
 quiet copy. Which of the library's two kernels runs is chosen by `plan`
 from the shape, strides and addresses alone: the Hopper mainloop
-(`csrc/conv3x3_sm90.cuh`, variant 'hopper') for every bf16 call TMA can
-take, the simple implicit GEMM (variant 'generic') for f32 and the rest.
-Each wrapper counts its launches, and beside them its launches by variant
-(`fn.variants`).
+(`csrc/conv3x3_sm90.cuh`, variant 'hopper') for every call TMA can take,
+bf16 and f32, the simple implicit GEMM (variant 'generic') for the rest.
+In f32 the Hopper mainloop runs three TF32 products a step on each
+operand's TF32 hi and lo parts (3xTF32), within the f32 plain version's
+1e-5; the wrapper first splits the weight with the `tf32_split` kernel
+(plain version `tf32_split_ref`), one launch per f32 call, counted on
+`tf32_split`. Each conv wrapper counts its launches, and beside them its
+launches by variant (`fn.variants`).
 On a CPU tensor it runs the plain version (`*_ref`): the same function at
 the kernels' rounding points, f32 accumulation, bias and epilogue added in
 f32, one rounding to the input dtype; #6 rounds silu(x*a + s) to the input
@@ -96,13 +100,17 @@ def fused_supports(x_shape, w_shape) -> bool:
 # ---------------------------------------------------------------------------
 
 VARIANTS = ("hopper", "generic")
-# csrc/conv3x3_sm90.cuh's constants: channels a chunk (one 128-byte swizzle
-# row a pixel), halo buffers, the most weight stages, the head (barriers,
-# a and s), a block's shared-memory limit on the H100
-CHUNK, HALOS, MAX_STAGES, HEAD, SMEM_MAX = 64, 3, 6, 2048, 232_448
+# csrc/conv3x3_sm90.cuh's constants: bytes of a halo pixel's chunk (one
+# 128-byte swizzle row: 64 bf16 or 32 f32 channels), halo buffers, the most
+# weight stages, the head (barriers, a and s), a block's shared-memory limit
+# on the H100
+PIX, HALOS, MAX_STAGES, HEAD, SMEM_MAX = 128, 3, 6, 2048, 232_448
 SM90_TC = (128, 64, 32, 16, 8)  # output tile columns; rows 128 / TC
 SM90_BN = (256, 160, 128)  # output channels a tile: the wgmma widths compiled
 PRO_BN = (160, 128)  # #6's: its consumers' 184 registers hold no 64 x 256 accumulator
+# f32 (3xTF32), #6 too: a consumer's two f32 accumulators take its
+# registers at 128
+F32_BN = (128,)
 H100_SMS = 132
 
 
@@ -121,13 +129,14 @@ class Plan:
 
 
 def _halo_pad(tr: int, tc: int) -> int:
-    return -(-(tr + 2) * (tc + 2) * CHUNK * 2 // 1024) * 1024
+    return -(-(tr + 2) * (tc + 2) * PIX // 1024) * 1024
 
 
-def plan_smem(tr: int, tc: int, bn: int, stages: int) -> int:
+def plan_smem(tr: int, tc: int, bn: int, stages: int, f32: bool = False) -> int:
     """Dynamic shared memory of a Hopper block: 1024 bytes of alignment
-    slack, the head, three halo buffers, the weight stages."""
-    return 1024 + HEAD + HALOS * _halo_pad(tr, tc) + stages * bn * CHUNK * 2
+    slack, the head, three halo buffers, the weight stages (a box of 128
+    bytes x bn a stage; f32 a hi and a lo box)."""
+    return 1024 + HEAD + HALOS * _halo_pad(tr, tc) + stages * bn * PIX * (2 if f32 else 1)
 
 
 def plan(x_shape, n: int, dtype, x_strides=None, aligned: bool = True,
@@ -136,20 +145,22 @@ def plan(x_shape, n: int, dtype, x_strides=None, aligned: bool = True,
     `x_strides` (contiguous when None) and n output channels; `aligned`
     tells whether x, w (and a, s) lie on 16-byte addresses.
 
-    'hopper' takes bf16 wherever TMA can: C and x's batch, row and column
-    strides multiples of 8 elements, the addresses aligned, W >= 8. Its
-    tile is the TR x TC (TR TC = 128) of one image with the fewest tiles,
-    then the smallest halo ((TR + 2)(TC + 2) pixels), then the widest; BN
-    the width with the least time in whole waves of `sms` blocks,
-    ceil(tiles / sms) (BN + 64) (64 for a tile's fixed costs; with #6's
-    `prologue` among PRO_BN), then the widest; as many weight stages as the
-    shared memory holds, at most 6. Everything else, f32 included, takes
-    'generic'."""
+    'hopper' takes bf16 and f32 wherever TMA can: C and x's batch, row and
+    column strides multiples of 16 bytes (8 bf16 or 4 f32 elements), the
+    addresses aligned, W >= 8. Its tile is the TR x TC (TR TC = 128) of one
+    image with the fewest tiles, then the smallest halo ((TR + 2)(TC + 2)
+    pixels), then the widest; BN the width with the least time in whole
+    waves of `sms` blocks, ceil(tiles / sms) (BN + 64) (64 for a tile's
+    fixed costs), then the widest, among the dtype's widths (bf16 SM90_BN,
+    with #6's `prologue` PRO_BN; f32 F32_BN) that leave room for two weight
+    stages; as many weight stages as the shared memory holds, at most 6.
+    Everything else (other dtypes too) takes 'generic'."""
     B, H, W, C = x_shape
     strides = tuple(x_strides[:3]) if x_strides is not None else (H * W * C, W * C, C)
-    if (dtype != torch.bfloat16 or C % 8 or any(s % 8 for s in strides) or not aligned
-            or W < 8):
+    vec = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
+    if vec is None or C % vec or any(s % vec for s in strides) or not aligned or W < 8:
         return Plan("generic")
+    f32 = dtype == torch.float32
 
     def mtiles(tc):
         return B * -(-H // (128 // tc)) * -(-W // tc)
@@ -160,10 +171,15 @@ def plan(x_shape, n: int, dtype, x_strides=None, aligned: bool = True,
 
     tc = min((t for t in SM90_TC if t <= W), key=tile_key)
     tr = 128 // tc
-    bn = min(PRO_BN if prologue else SM90_BN,
+
+    def room(b):  # weight stages that fit: a box of PIX bytes x b, f32 two
+        return (SMEM_MAX - plan_smem(tr, tc, b, 0, f32)) // (b * PIX * (2 if f32 else 1))
+
+    widths = F32_BN if f32 else PRO_BN if prologue else SM90_BN
+    bn = min((b for b in widths if room(b) >= 2),
              key=lambda b: (-(-mtiles(tc) * -(-n // b) // sms) * (b + 64), -b))
-    stages = min(MAX_STAGES, (SMEM_MAX - plan_smem(tr, tc, bn, 0)) // (bn * CHUNK * 2))
-    return Plan("hopper", tr, tc, bn, stages, plan_smem(tr, tc, bn, stages))
+    stages = min(MAX_STAGES, room(bn))
+    return Plan("hopper", tr, tc, bn, stages, plan_smem(tr, tc, bn, stages, f32))
 
 
 _SMS: dict = {}
@@ -214,6 +230,46 @@ def fused_conv3x3_ref(x, a, s, w, b, extra=None, mode: str = "none") -> torch.Te
     """Plain version of kernel #6: the prologue silu(x*a + s) rounded to
     x.dtype (zero padding after it), then kernel #7's plain version."""
     return epi_conv3x3_ref(_prologue(x, a, s), w, b, extra, mode)
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 v rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero (`cvt.rna.tf32.f32`), as an f32 whose low 13 bits are zero."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_ref(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the `tf32_split` kernel: the (2, N, 3, 3, C) f32
+    operand of the f32 Hopper mainloop from the OIHW (N, C, 3, 3) weight,
+    hi = tf32_rna(w) then lo = tf32_rna(w - hi) in its (N, 3, 3, C) order
+    (w - hi is exact in f32)."""
+    v = w.float().permute(0, 2, 3, 1)
+    hi = tf32_rna(v)
+    return torch.stack([hi, tf32_rna(v - hi)])
+
+
+def tf32_split(w: torch.Tensor) -> torch.Tensor:
+    """tf32_split_ref by the `tf32_split` kernel of `csrc/conv3x3.cu` on a
+    CUDA tensor (an f32 OIHW weight laid out channels_last; counted in
+    `tf32_split.launches`), the plain version on a CPU tensor."""
+    if w.device.type == "cpu":
+        return tf32_split_ref(w)
+    if w.device.type != "cuda" or w.dtype != torch.float32 or w.ndim != 4 or not (
+            w.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError(f"tf32_split takes an f32 OIHW weight laid out channels_last on cpu or "
+                         f"cuda, got {w.dtype} {tuple(w.shape)} strides {w.stride()} on "
+                         f"{w.device}")
+    N, C, kh, kw = w.shape
+    out = torch.empty((2, N, kh, kw, C), dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        rc = _build.library("conv").tf32_split_launch(
+            w.data_ptr(), out.data_ptr(), w.numel(),
+            torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tf32_split kernel launch failed: CUDA error {rc}")
+    tf32_split.launches += 1
+    return out
 
 
 def _conv_formula(x, w, b, extra, mode: str) -> torch.Tensor:
@@ -297,9 +353,12 @@ def _launch(fn, x, a, s, w, b, extra, mode: str) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if how.variant == "hopper":
+            if x.dtype == torch.float32:  # the f32 mainloop reads the weight's TF32 split
+                split = tf32_split(w)
+                ptrs = (ptrs[0], split.data_ptr(), *ptrs[2:])
             rc = lib.conv3x3_sm90_launch(
-                *ptrs, B, H, W, C, N, MODES[mode], int(a is not None), *x.stride()[:3], *es,
-                how.tr, how.tc, how.bn, how.stages, how.smem, stream)
+                *ptrs, B, H, W, C, N, _DTYPES[x.dtype], MODES[mode], int(a is not None),
+                *x.stride()[:3], *es, how.tr, how.tc, how.bn, how.stages, how.smem, stream)
         else:
             rc = lib.conv3x3_launch(
                 *ptrs, B, H, W, C, N, _DTYPES[x.dtype], MODES[mode], int(a is not None),
@@ -397,3 +456,4 @@ def fused_conv3x3(x: torch.Tensor, a: torch.Tensor, s: torch.Tensor, w: torch.Te
 for _fn in (conv3x3, epi_conv3x3, fused_conv3x3):
     _fn.launches = 0
     _fn.variants = dict.fromkeys(VARIANTS, 0)
+tf32_split.launches = 0

@@ -5,9 +5,12 @@ Every conv the SD1.5 UNet routes at 512 px and the SDXL UNet at 1024 px
 (found by running each UNet on the meta device under 'auto', 'fused_ep' and
 'fused' with the launch recorded instead of made) takes the Hopper mainloop
 at the serving batch and the training batches, with tiles inside one image
-and shared memory within the H100's 232,448 bytes a block; f32, C % 8 != 0,
-strides or addresses TMA cannot take stay on the generic kernel. The shape
-lists `chip_smoke.py` drives on the card are held to the same routed sets.
+and shared memory within the H100's 232,448 bytes a block; so does every
+f32 conv of the SD VAE decoder under 'auto' and #6 in f32 (the 3xTF32
+mainloop: 32-channel chunks, hi and lo weight boxes a stage); C or strides
+off 16 bytes, addresses TMA cannot take and W < 8 stay on the generic
+kernel. The shape lists `chip_smoke.py` drives on the card are held to the
+same routed sets.
 """
 
 from collections import Counter
@@ -95,7 +98,7 @@ def test_chip_smoke_drives_every_routed_shape(routed, model):
 
 @pytest.mark.parametrize("shape,n,dtype,strides,aligned", [
     ((2, 16, 16, 100), 128, torch.bfloat16, None, True),  # C % 8 != 0
-    ((2, 16, 16, 128), 128, torch.float32, None, True),  # f32: the FMA kernel
+    ((2, 16, 16, 102), 128, torch.float32, None, True),  # f32 with C % 4 != 0
     ((2, 16, 16, 128), 128, torch.bfloat16, (16 * 16 * 132, 16 * 132, 132), True),  # strides
     ((2, 16, 16, 128), 128, torch.bfloat16, None, False),  # an address off 16 bytes
     ((2, 64, 4, 128), 128, torch.bfloat16, None, True),  # W < 8
@@ -129,3 +132,45 @@ def test_bn_fills_the_waves():
     assert tc.plan((16, 32, 32, 1280), 1280, torch.bfloat16).bn == 256
     assert tc.plan((16, 32, 32, 1280), 1280, torch.bfloat16, prologue=True).bn == 160
     assert tc.plan((16, 64, 64, 320), 320, torch.bfloat16, sms=66).bn == 160
+
+
+@pytest.mark.parametrize("h,c,n", chip_smoke.VAE_CONV_SHAPES)
+@pytest.mark.parametrize("batch", [1, chip_smoke.VAE_DECODE_BATCH])
+def test_vae_decoder_f32_convs_take_the_hopper_mainloop(h, c, n, batch):
+    """Every f32 conv the SD VAE decoder routes under 'auto' takes the 3xTF32
+    Hopper plan: 8 x 16 tiles, an f32 width, two or more stages of hi and lo
+    weight boxes within the block's shared memory."""
+    plan = tc.plan((batch, h, h, c), n, torch.float32)
+    assert plan.variant == "hopper" and (plan.tr, plan.tc) == (8, 16)
+    assert plan.bn in tc.F32_BN and 2 <= plan.stages <= tc.MAX_STAGES
+    assert plan.smem == tc.plan_smem(plan.tr, plan.tc, plan.bn, plan.stages, f32=True)
+    assert plan.smem <= tc.SMEM_MAX == 232_448
+    # a stage holds the tap's hi box and its lo box, 128 bytes x BN each
+    assert (tc.plan_smem(8, 16, plan.bn, plan.stages + 1, f32=True) - plan.smem
+            == 2 * plan.bn * tc.PIX)
+
+
+@pytest.mark.parametrize("shape,n", [((2, 32, 32, 320), 640), ((3, 16, 16, 128), 128),
+                                     ((1, 13, 40, 96), 136), ((2, 1, 128, 64), 256)])
+def test_f32_prologue_and_ragged_shapes_take_the_hopper_mainloop(shape, n):
+    """#6 in f32 (chip_smoke's f32 CONV_EXTRA case, the tiny 'fused' training
+    UNet's levels) takes F32_BN as #5 does; ragged and 1 x 128 tiles keep
+    two stages."""
+    for prologue in (False, True):
+        plan = tc.plan(shape, n, torch.float32, prologue=prologue)
+        assert plan.variant == "hopper" and plan.tc <= shape[2]
+        assert plan.bn in tc.F32_BN
+        assert plan.stages >= 2 and plan.smem <= tc.SMEM_MAX
+        assert plan.smem == tc.plan_smem(plan.tr, plan.tc, plan.bn, plan.stages, f32=True)
+
+
+@pytest.mark.parametrize("shape,strides,aligned", [
+    ((2, 16, 16, 130), None, True),  # C % 4 != 0
+    ((2, 16, 16, 128), (16 * 16 * 130, 16 * 130, 130), True),  # strides off 16 bytes
+    ((2, 16, 16, 128), (16 * 16 * 128 + 2, 16 * 128, 128), True),  # an odd batch stride
+    ((2, 16, 16, 128), None, False),  # an address off 16 bytes
+    ((2, 64, 7, 128), None, True),  # W < 8
+])
+def test_f32_shapes_tma_cannot_take_stay_generic(shape, strides, aligned):
+    assert tc.plan(shape, 128, torch.float32, strides, aligned=aligned) == tc.Plan("generic")
+    assert tc.plan(shape, 128, torch.float16) == tc.Plan("generic")  # no fp16 kernel

@@ -273,6 +273,12 @@ CONV_CASES = [
     ((3, 17, 15, 64, 131), torch.bfloat16),   # M ragged, N odd: element stores
     ((2, 16, 16, 96, 129), torch.float32),
     ((1, 32, 32, 320, 320), torch.float32),
+    # f32 on the 3xTF32 mainloop: ragged M and N with a partial chunk, an odd
+    # N at W = 9, a 1 x 128 tile; C % 4 != 0 stays on the generic kernel
+    ((1, 13, 40, 100, 136), torch.float32),
+    ((2, 9, 9, 72, 129), torch.float32),
+    ((2, 1, 128, 64, 256), torch.float32),
+    ((1, 16, 24, 102, 200), torch.float32),
     # the Hopper mainloop's edges: a 1 x 128 tile (W = 128), 8 x 16 tiles
     # with H not a multiple of 8 and N = 320 (BN 160), a ragged W and N with
     # a partial channel chunk, an odd N at W = 9 (8-column tiles), and #6's
@@ -286,9 +292,10 @@ CONV_CASES = [
 
 def _variant(shape, dtype) -> str:
     """The kernel `ops/conv3x3.plan` gives a contiguous input: the Hopper
-    mainloop for bf16 with C % 8 == 0 and W >= 8, else the generic one."""
-    return "hopper" if dtype == torch.bfloat16 and shape[3] % 8 == 0 and shape[2] >= 8 else \
-        "generic"
+    mainloop where C is a multiple of 16 bytes (8 bf16 or 4 f32 channels)
+    and W >= 8, else the generic one."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    return "hopper" if shape[3] % vec == 0 and shape[2] >= 8 else "generic"
 CONV_KERNELS = [("conv3x3", "none"), ("epi", "none"), ("epi", "temb"), ("epi", "residual"),
                 ("fused", "none"), ("fused", "temb"), ("fused", "residual")]
 
@@ -345,6 +352,89 @@ def test_conv_kernels_match_plain(cuda, shape, dtype, kernel, mode):
     ref_max = ref.float().abs().max().item()
     tol = 2 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# (H, C, N) of the SD VAE decoder's f32 convs under 'auto' (chip_smoke.py's
+# VAE_CONV_SHAPES), and the tiny 'fused' training UNet's (128 channels at
+# 32 x 32 and 16 x 16) at the training batches 1-3
+VAE_F32 = [(64, 512, 512), (128, 512, 512), (256, 512, 512), (256, 512, 256),
+           (256, 256, 256), (512, 256, 256), (512, 256, 128), (512, 128, 128)]
+TRAIN_F32 = [(b, h, h, 128, 128) for b in (1, 2, 3) for h in (32, 16)]
+
+
+def _f32_within(out, ref) -> bool:
+    """The f32 kernels' tolerance: 1e-5 of the largest value (TF32 off on
+    the plain side)."""
+    return (out - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("h,c,n", VAE_F32)
+def test_f32_conv_kernels_at_vae_shapes(cuda, h, c, n):
+    """#5, #7 (residual) and #6 (residual) in f32 at the VAE decoder's shapes
+    (one image): the 3xTF32 mainloop, one weight split a call, within 1e-5
+    of the largest value of the exact-f32 plain version."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, a, s, w, b, extra = _conv_inputs((1, h, h, c, n), torch.float32, "residual", cuda)
+    for kernel, mode in (("conv3x3", "none"), ("epi", "residual"), ("fused", "residual")):
+        fn = {"conv3x3": tc.conv3x3, "epi": tc.epi_conv3x3, "fused": tc.fused_conv3x3}[kernel]
+        hopper, splits = fn.variants["hopper"], tc.tf32_split.launches
+        e = extra if mode == "residual" else None
+        out = _conv_call(kernel, mode, x, a, s, w, b, e)
+        torch.cuda.synchronize()
+        assert fn.variants["hopper"] == hopper + 1 and tc.tf32_split.launches == splits + 1
+        assert _f32_within(out, _conv_call(kernel, mode, x, a, s, w, b, e, ref=True)), kernel
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", TRAIN_F32)
+def test_f32_fused_conv_at_training_batches(cuda, shape):
+    """#6 in f32 at the tiny 'fused' training UNet's shapes, with temb and
+    with a residual, on the 3xTF32 mainloop."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    torch.backends.cudnn.allow_tf32 = False
+    for mode in ("temb", "residual"):
+        args = _conv_inputs(shape, torch.float32, mode, cuda)
+        hopper = tc.fused_conv3x3.variants["hopper"]
+        out = _conv_call("fused", mode, *args)
+        assert tc.fused_conv3x3.variants["hopper"] == hopper + 1
+        assert _f32_within(out, _conv_call("fused", mode, *args, ref=True)), mode
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(512, 512), (128, 256), (136, 100)])
+def test_tf32_split_kernel_equals_plain(cuda, shape):
+    """The `tf32_split` kernel gives `tf32_split_ref`'s bits, ties (13
+    dropped bits of 0x1000) and values past them included, one launch a
+    call."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    n, c = shape
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    w = torch.randn((n, c, 3, 3), generator=gen, device=cuda) * (9 * c) ** -0.5
+    bits = w.view(torch.int32)
+    bits[: n // 4] = (bits[: n // 4] & -0x2000) | 0x1000  # exact ties, both signs
+    bits[n // 4: n // 2] = (bits[n // 4: n // 2] & -0x2000) | 0x1001
+    w = w.contiguous(memory_format=torch.channels_last)
+    before = tc.tf32_split.launches
+    got = tc.tf32_split(w)
+    torch.cuda.synchronize()
+    assert tc.tf32_split.launches == before + 1
+    assert got.shape == (2, n, 3, 3, c) and torch.equal(got, tc.tf32_split_ref(w.cpu()).to(cuda))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel,mode", [("conv3x3", "none"), ("epi", "residual"),
+                                         ("fused", "temb")])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 512, 512), (2, 13, 40, 96, 136)])
+def test_f32_conv_kernels_are_deterministic(cuda, kernel, mode, shape):
+    """The 3xTF32 mainloop has no split-K and no atomics either: two launches
+    give the same bits."""
+    args = _conv_inputs(shape, torch.float32, mode, cuda)
+    assert torch.equal(_conv_call(kernel, mode, *args), _conv_call(kernel, mode, *args))
 
 
 @pytest.mark.requires_cuda
