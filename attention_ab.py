@@ -4,6 +4,7 @@ another checkout (a parent commit) on one GPU, in one process, in turns.
 
     git archive <parent> sliders_tpu_torch/csrc | tar -x -C <dir>
     python3 attention_ab.py --parent <dir> [--out rows.json] [--only conv]
+        [--rounds 3]
 
 The parent's `sliders_tpu_torch/csrc/{sd_attention,sd_attention_bwd,
 flash_attention,conv3x3}.cu` are compiled with the flags of `ops/_build.py`
@@ -11,10 +12,9 @@ into `<dir>/_ab_build/` and loaded with ctypes behind the same C entry
 points, so the port's wrappers launch either library on the same inputs.
 The conv wrappers run the parent's conv library as the parent's own plan
 would: a parent with this checkout's entries (`tf32_split_launch` among
-them) as they are; a parent without the f32 Hopper path with f32 on its
-generic kernel and bf16 on its Hopper entry, which takes no dtype argument
-(`OlderConv`); a parent without any Hopper entry with everything on
-`conv3x3_launch`. The conv cases (kernel
+them) as they are; a parent whose Hopper entry takes bf16 only (no dtype
+argument, before the f32 Hopper path) with f32 on its generic kernel
+(`BF16HopperConv`; it can go once no such parent is timed). The conv cases (kernel
 'conv': #5, #7 and #6 at each of chip_smoke.py's batch-16 SD1.5 shapes and
 three SDXL ones in bf16; #5 and #7 with a residual at the SD VAE decoder's
 f32 shapes at the decode batch; all three at chip_smoke.py's f32
@@ -25,12 +25,13 @@ CONV_ULPS bf16 ulps of each element, or f32 F32_TOL of the largest value
 case both results are held to the unchanged plain versions with the
 tolerances of `chip_smoke.py` (4 bf16 ulps at each output's largest
 magnitude; f32 1e-5), then timed with CUDA events in the order parent,
-change, change, parent (median of `--runs` samples each, a sample the mean
-of back-to-back calls adding up to about 20 ms, so that the wrapper's host
-time overlaps the device work and a sample reads the kernels' time); each
-side's time is the mean of its two medians. SDPA on the same inputs, the plain version and
-the bound are printed beside. It prints the card's name and power limit
-first and writes every row to `--out` as JSON when given.
+change, change, parent (the conv cases `--rounds` times; median of
+`--runs` samples each, a sample the mean of back-to-back calls adding up
+to about 20 ms, so that the wrapper's host time overlaps the device work
+and a sample reads the kernels' time); each side's time is the median of
+its medians (of two, their mean). SDPA on the same inputs, the plain
+version and the bound are printed beside. It prints the card's name and
+power limit first and writes every row to `--out` as JSON when given.
 """
 
 from __future__ import annotations
@@ -128,28 +129,22 @@ def median_ms(fn, runs, reps=1):
     return statistics.median(times)
 
 
-class OlderConv:
-    """A parent's conv library from before the f32 Hopper path: its
-    `conv3x3_launch` as it is, and its `conv3x3_sm90_launch` (bf16 only, no
-    dtype argument), where it has one, behind this checkout's signature."""
+class BF16HopperConv:
+    """A parent's conv library whose Hopper entry takes bf16 only (no dtype
+    argument): its `conv3x3_launch` as it is, and its `conv3x3_sm90_launch`
+    behind this checkout's signature."""
 
     def __init__(self, lib):
         from sliders_tpu_torch.ops import _build
 
         self.conv3x3_launch = lib.conv3x3_launch
-        if hasattr(lib, "conv3x3_sm90_launch"):
-            fn = lib.conv3x3_sm90_launch
-            P, I, L = _build._P, _build._I, _build._L
-            fn.argtypes, fn.restype = [P] * 7 + [I] * 7 + [L] * 6 + [I] * 5 + [P], ctypes.c_int
-            self._sm90 = fn
+        self._sm90 = lib.conv3x3_sm90_launch
+        P, I, L = _build._P, _build._I, _build._L
+        self._sm90.argtypes = [P] * 7 + [I] * 7 + [L] * 6 + [I] * 5 + [P]
+        self._sm90.restype = ctypes.c_int
 
-    def __getattr__(self, name):
-        if name == "conv3x3_sm90_launch" and "_sm90" in self.__dict__:
-            return self._sm90_launch
-        raise AttributeError(name)
-
-    def _sm90_launch(self, *args):
-        if args[12]:  # is_f32: an older parent has no f32 Hopper path
+    def conv3x3_sm90_launch(self, *args):
+        if args[12]:  # is_f32: the parent's Hopper entry has no f32 path
             raise ValueError("the parent's Hopper conv entry takes bf16 only")
         return self._sm90(*args[:12], *args[13:])
 
@@ -177,12 +172,12 @@ def build_parent(parent: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"parent {LIBS[name]}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(out)
-        older = name == "conv" and not hasattr(lib, "tf32_split_launch")
+        bf16_hopper = name == "conv" and not hasattr(lib, "tf32_split_launch")
         for symbol, argtypes in _build.LIBRARIES[name][2].items():
-            if hasattr(lib, symbol) and not (older and symbol == "conv3x3_sm90_launch"):
+            if hasattr(lib, symbol) and not (bf16_hopper and symbol == "conv3x3_sm90_launch"):
                 fn = getattr(lib, symbol)
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[name] = OlderConv(lib) if older else lib
+        libs[name] = BF16HopperConv(lib) if bf16_hopper else lib
     print(f"[ab] parent libraries built in {time.perf_counter() - t0:.1f} s", flush=True)
     return libs
 
@@ -190,8 +185,8 @@ def build_parent(parent: str) -> dict:
 class Using:
     """Route the port's wrappers to the parent's libraries inside the block,
     the conv wrappers with the plan the parent's library can run: this
-    checkout's for a parent with its entries, bf16 only for an `OlderConv`
-    with a Hopper entry (f32 on the generic kernel), else 'generic'."""
+    checkout's for a parent with its entries; for a `BF16HopperConv`, bf16
+    as this checkout plans it and f32 on the generic kernel."""
 
     def __init__(self, libs):
         self.libs = libs
@@ -206,11 +201,9 @@ class Using:
         _build._libs.update(self.libs)
         self.plan = plan = tc.plan
         lib = self.libs.get("conv")
-        if isinstance(lib, OlderConv):
-            hopper_bf16 = hasattr(lib, "conv3x3_sm90_launch")
-
+        if isinstance(lib, BF16HopperConv):
             def parent_plan(x_shape, n, dtype, *args, **kwargs):
-                if hopper_bf16 and dtype == torch.bfloat16:
+                if dtype == torch.bfloat16:
                     return plan(x_shape, n, dtype, *args, **kwargs)
                 return tc.Plan("generic")
 
@@ -329,11 +322,11 @@ def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
     return row
 
 
-def run_conv_case(shape, dt, names, parent_libs, runs, gen):
+def run_conv_case(shape, dt, names, parent_libs, runs, rounds, gen):
     """The kernels `names` of #5, #7 and #6 at one (B, H, W, C, N, mode):
     each held to its plain version on both sides (bf16 within CONV_ULPS bf16
     ulps of each element, f32 within F32_TOL of the largest value), then
-    timed parent, change, change, parent; cuDNN's conv + bias and each
+    timed parent, change, change, parent, `rounds` times; cuDNN's conv + bias and each
     kernel's PyTorch expression (as chip_smoke.py times them) beside."""
     import torch
     import torch.nn.functional as F
@@ -377,7 +370,7 @@ def run_conv_case(shape, dt, names, parent_libs, runs, gen):
         del ref
         reps = max(1, min(50, int(20.0 / max(median_ms(call, 1), 1e-3))))
         times = {"parent": [], "change": []}
-        for side in ("parent", "change", "change", "parent"):
+        for side in ("parent", "change", "change", "parent") * rounds:
             with Using(parent_libs if side == "parent" else {}):
                 times[side].append(median_ms(call, runs, reps))
         nbytes = item * (B * H * W * C + 9 * C * N + N + extra_n + B * H * W * N) + fold_bytes
@@ -386,8 +379,8 @@ def run_conv_case(shape, dt, names, parent_libs, runs, gen):
                    "ulps_change": ulps["change"]} if dt == "bfloat16" else
                   {"tol": tol, "err_share_parent": ulps["parent"],
                    "err_share_change": ulps["change"]}),
-               "parent_ms": statistics.mean(times["parent"]),
-               "change_ms": statistics.mean(times["change"]),
+               "parent_ms": statistics.median(times["parent"]),
+               "change_ms": statistics.median(times["change"]),
                "parent_ms_each": times["parent"], "change_ms_each": times["change"],
                "library_ms": median_ms(library, runs, reps), "plain_ms": median_ms(plain, 3),
                "reps": reps}
@@ -420,6 +413,8 @@ def main() -> int:
     ap.add_argument("--parent", required=True, help="directory holding the parent's csrc")
     ap.add_argument("--out", default=None, help="write the rows here as JSON")
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="turns of parent, change, change, parent for each conv case")
     ap.add_argument("--only", default="",
                     help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd, conv)")
     args = ap.parse_args()
@@ -443,7 +438,8 @@ def main() -> int:
         if only and case[0] not in only:
             continue
         if case[0] == "conv":
-            rows.extend(run_conv_case(*case[1:], {"conv": parent_libs["conv"]}, args.runs, gen))
+            rows.extend(run_conv_case(*case[1:], {"conv": parent_libs["conv"]}, args.runs,
+                                      args.rounds, gen))
         else:
             rows.append(run_case(*case, parent_libs, args.runs, gen))
         torch.cuda.empty_cache()

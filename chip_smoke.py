@@ -25,7 +25,8 @@ with its seconds and the seconds since the start:
      against their plain versions at every conv shape the SD1.5 UNet routes
      at 512 px (batch 16, the mode the UNet uses there), two at batch 1 and
      one f32 shape each, with cuDNN's conv and one PyTorch expression of each
-     kernel's whole function timed beside; the GroupNorm kernel #8 at the
+     kernel's whole function timed beside, and the generic kernel at the
+     CONV_GENERIC shapes the plan leaves to it; the GroupNorm kernel #8 at the
      UNet's GN shapes;
      the flash-attention kernel #4 at FLUX's and the VAE's shapes, and #4
      and #1 checked, then timed beside SDPA, at the two FLUX serving shapes
@@ -56,8 +57,9 @@ with its seconds and the seconds since the start:
      training grad pass (batch 1, remat) on the same UNet through both
      attention kernels against the plain attention path.
   5. http:   /generate with five scales, two concurrent /generate calls for
-     the two sliders (coalesced into one stacked batch), /healthz; then one
-     five-scale /generate under each conv impl; every reply is checked, and
+     the two sliders (coalesced into one stacked batch), /healthz; then
+     five-scale /generate calls under each conv impl ('auto' and 'xla' three
+     each, in turns, their latencies printed); every reply is checked, and
      each kernel's launch count must equal its routed calls per UNet forward
      x 50 steps, plus under 'auto' the VAE decoder's, x the denoise batches.
   6. train:  a full-width SD1.5 snapshot with seeded random weights (UNet +
@@ -200,6 +202,13 @@ SDXL_CONV_PER_FORWARD = {"xla": {}, "auto": {"conv3x3": 36}, "fused_ep": {"epi_c
 CONV_EXTRA = [
     (1, 64, 320, 320, "temb", "bfloat16"), (1, 32, 640, 640, "residual", "bfloat16"),
     (2, 32, 320, 640, "temb", "float32"),
+]
+# (B, H, C, N, mode, dtype) that ops/conv3x3.plan leaves to the generic kernel
+# (the PR 3 kernel): f32 with C % 4 != 0, f32 with W < 8, bf16 with C % 8 != 0.
+# All three kernels at each are held to their plain versions (not timed)
+CONV_GENERIC = [
+    (2, 32, 102, 128, "temb", "float32"), (8, 6, 64, 96, "residual", "float32"),
+    (2, 32, 100, 160, "residual", "bfloat16"),
 ]
 # the training CLI's UNet batches at batch_size 1 (the grad pass 1, the
 # CFG-doubled denoise loop 2, the frozen pass 3): every CONV_SHAPES entry at
@@ -358,6 +367,27 @@ def median_ms(fn, runs: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fns, runs: int = 10) -> float:
+    """Device time of one call: the calls `fns` (each on inputs of its own,
+    their outputs kept, so that together they outgrow the 50 MB L2 and each
+    reads and writes HBM) captured in one CUDA graph, its replay timed by
+    median_ms, over len(fns). For kernels shorter than their wrapper's host
+    time, which median_ms reads instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in fns]
+    ms = median_ms(graph.replay, runs) / len(fns)
+    del graph, outs
+    return ms
 
 
 def bf16_tolerance(ref_max: float) -> float:
@@ -677,11 +707,13 @@ def phase_conv_kernels():
     in the mode the UNet uses there, at batch 16 (timed) and at the training
     batches CONV_TRAIN_BATCHES (not timed); at every shape the SDXL UNet
     routes at 1024 px, at batch 16 (timed); the grad pass's batch 1 at two
-    shapes and one f32 shape (timed); and #5 at the SD VAE decoder's f32
-    shapes at the decode batch (timed). bf16 is held to CONV_ULPS bf16 ulps
-    of each element, f32 to 1e-5 of the largest value (F32_TOL). Every call
-    must take the Hopper mainloop (counted by variant): f32 on its 3xTF32
-    path, each call after one launch of the `tf32_split` kernel, whose
+    shapes and one f32 shape (timed); #5 at the SD VAE decoder's f32
+    shapes at the decode batch (timed); and the CONV_GENERIC shapes (not
+    timed). bf16 is held to CONV_ULPS bf16 ulps of each element, f32 to
+    1e-5 of the largest value (F32_TOL). Every call must take the variant
+    it is planned onto (counted by variant): the CONV_GENERIC ones the
+    generic kernel, every other one the Hopper mainloop, f32 on its 3xTF32
+    path, each such call after one launch of the `tf32_split` kernel, whose
     output is held to `tf32_split_ref` bit for bit (and timed beside its
     bound at each f32 weight). Each timed line also times cuDNN's conv +
     bias in the case's dtype (the 'xla' route's conv) and one PyTorch
@@ -707,10 +739,12 @@ def phase_conv_kernels():
              + [(B, h, c, n, mode, "bfloat16", everything, False)
                 for B in CONV_TRAIN_BATCHES for h, c, n, mode in CONV_SHAPES]
              + [(VAE_DECODE_BATCH, h, c, n, "none", "float32", ("conv3x3",), True)
-                for h, c, n in VAE_CONV_SHAPES])
+                for h, c, n in VAE_CONV_SHAPES]
+             + [(*c, everything, False) for c in CONV_GENERIC])
     seen = set()
     untimed = {}  # batch -> [cases, calls, worst ulps]
     for B, H, C, N, mode, dt, kernels, timed in cases:
+        want = "generic" if (B, H, C, N, mode, dt) in CONV_GENERIC else "hopper"
         dtype = getattr(torch, dt)
         x, a, s, w, b, extra = conv_case(B, H, C, N, mode, dtype, gen)
         calls = [("epi_conv3x3", lambda: tc.epi_conv3x3(x, w, b, extra, mode),
@@ -742,8 +776,8 @@ def phase_conv_kernels():
                 lambda: epi_library(F.silu(xc.float() * af + sf).to(dtype))
             ) if "fused_conv3x3" in kernels else None
         parts = []
-        want = "hopper"
-        if dtype == torch.float32:  # the split kernel against its plain version, bit for bit
+        # the split kernel against its plain version, bit for bit
+        if dtype == torch.float32 and want == "hopper":
             before = tc.tf32_split.launches
             split, split_ref = tc.tf32_split(w), tc.tf32_split_ref(w)
             torch.cuda.synchronize()
@@ -753,6 +787,10 @@ def phase_conv_kernels():
             row = {"shape": (N, C, 3, 3), "err": (split - split_ref).abs().max().item()}
             if timed:
                 row["ms"] = median_ms(lambda: tc.tf32_split(w))
+                # at least 20 calls and 150 MB of w, hi and lo (3 x 4 x 9 C N bytes a call)
+                copies = [w.clone() for _ in range(max(20, -(-150_000_000 // (108 * C * N))))]
+                row["graph_ms"] = graph_ms([lambda c=c: tc.tf32_split(c) for c in copies])
+                del copies
                 row["plain_ms"] = median_ms(lambda: tc.tf32_split_ref(w))
                 # w read once, hi and lo written once; a few integer ops a value
                 row["bound_ms"], row["bound_by"] = bound(0, 3 * 4 * 9 * C * N, "float32")
@@ -768,7 +806,7 @@ def phase_conv_kernels():
             if fn.variants[want] != took + 1:
                 raise AssertionError(f"{name} at {(B, H, H, C)}x{N} {dt} did not take the "
                                      f"{want} kernel: {fn.variants}")
-            if tc.tf32_split.launches != splits + (dtype == torch.float32):
+            if tc.tf32_split.launches != splits + (dtype == torch.float32 and want == "hopper"):
                 raise AssertionError(f"{name} at {(B, H, H, C)}x{N} {dt} launched "
                                      f"{tc.tf32_split.launches - splits} weight splits")
             err = (out.float() - ref.float()).abs().max().item()
@@ -784,7 +822,8 @@ def phase_conv_kernels():
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version at "
                                      f"{(B, H, H, C)}x{N} {mode} {dt}")
-            entry = {"shape": (B, H, H, C, N), "mode": mode, "dtype": dt, "err": err}
+            entry = {"shape": (B, H, H, C, N), "mode": mode, "dtype": dt, "err": err,
+                     "variant": want}
             if timed:
                 runs = 10 if dt == "bfloat16" else 5
                 entry["ms"], entry["plain_ms"] = median_ms(kernel, runs), median_ms(plain, runs=5)
@@ -801,13 +840,14 @@ def phase_conv_kernels():
                     entry.update(f32_conv_bounds(flops, nbytes))
                 entry["library_ms"] = library[name]
                 entry["cudnn_conv_ms"] = cudnn_ms
-                entry["variant"] = want
                 parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
                              f"{entry['plain_ms']:.4f} ms"
                              + (f" (library {library[name]:.4f})" if library[name] else "")
                              + ("" if dt == "bfloat16" else
                                 f" (bounds: FMA {entry['fma_bound_ms']:.4f}, 3xTF32 "
                                 f"{entry['tf32x3_bound_ms']:.4f})"))
+            elif want == "generic":
+                parts.append(f"{name} err {err:.3g} {shown}")
             else:
                 tally = untimed.setdefault(B, [0, 0, 0.0])
                 tally[1] += 1
@@ -818,12 +858,15 @@ def phase_conv_kernels():
             if dtype == torch.float32:
                 sr = results["tf32_split"][-1]
                 split_part = (f"; tf32_split of the weight bit-equal, {sr['ms']:.4f} / "
-                              f"{sr['plain_ms']:.4f} ms (bound {sr['bound_ms']:.4f})")
+                              f"{sr['plain_ms']:.4f} ms, {sr['graph_ms']:.4f} ms a call in a "
+                              f"CUDA graph (bound {sr['bound_ms']:.4f})")
             say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt} [{want}]: " + "; ".join(parts)
                 + f"; cuDNN {dt} conv + bias {cudnn_ms:.4f} ms"
                 + (" (TF32 off)" if dt == "float32" else "") + split_part
                 + " (kernel / plain, median; library: conv + bias + extra for #7, with "
                 "silu(x a + s) before it for #6)")
+        elif want == "generic":
+            say("conv", f"({B}, {H}, {H}, {C})->{N} {mode} {dt} [{want}]: " + "; ".join(parts))
         else:
             untimed[B][0] += 1
         del x, a, s, w, b, extra, calls
@@ -1995,8 +2038,8 @@ def healthz(port: int) -> dict:
 
 def phase_http(engine):
     """SD1.5 behind the HTTP server: warmup, `sweep_and_pair`, /healthz, then
-    one /generate per conv impl. #1 must launch 10 x 50 x batches, #4 once
-    per batch (the VAE's mid attention)."""
+    /generate under each conv impl (`serve_conv_impls`). #1 must launch 10 x
+    50 x batches, #4 once per batch (the VAE's mid attention)."""
     from sliders_tpu_torch.ops import flash_attention as fa
     from sliders_tpu_torch.ops import sd_attention as sa
 
@@ -2029,20 +2072,28 @@ def phase_http(engine):
     return serve_http(engine, run)
 
 
+GENERATE_TURNS = ("auto", "xla", "xla", "auto", "auto", "xla", "fused_ep", "fused")
+
+
 def serve_conv_impls(engine, port: int) -> dict:
-    """One five-scale /generate under each conv-kernel impl; the reply is
-    checked as phase 5 checks it, and the impl's kernel must have launched
-    (its calls per UNet forward x 50 steps + its calls per VAE decode) x the
-    denoise batches, the others never, all on the Hopper mainloop (the
-    decoder's f32 convs under 'auto' on its 3xTF32 path, each after one
-    weight split). Returns {kernel: launches}, with the split kernel's
-    launches under 'auto' as "tf32_split"."""
+    """Five-scale /generate calls under the conv-kernel impls in
+    GENERATE_TURNS ('auto' and 'xla' three times each, in turns, then
+    'fused_ep' and 'fused'); each reply is checked as phase 5 checks it,
+    and the impl's kernel must have launched (its calls per UNet forward x
+    50 steps + its calls per VAE decode) x the denoise batches, the others
+    never, all on the Hopper mainloop (the decoder's f32 convs under 'auto'
+    on its 3xTF32 path, each after one weight split). Prints the server
+    latencies of 'auto' and 'xla' with their medians. Returns {kernel:
+    launches} of one request an impl, with the split kernel's launches
+    under 'auto' as "tf32_split" and the latencies (ms) under
+    "generate_ms"."""
     from sliders_tpu_torch.ops import basic
     from sliders_tpu_torch.ops import conv3x3 as tc
 
     scales = [-2, -1, 0, 1, 2]
-    out = {}
-    for impl in CONV_IMPLS[1:]:
+    latency = {"auto": [], "xla": []}
+    out = {"generate_ms": latency}
+    for impl in GENERATE_TURNS:
         basic.set_conv_impl(impl)
         try:
             stats0 = dict(engine.stats)
@@ -2064,7 +2115,7 @@ def serve_conv_impls(engine, port: int) -> dict:
                     for k, v in CONV_PER_FORWARD[impl].items()}
         # the UNet's bf16 convs and the VAE decoder's f32 convs ('auto', each
         # after one weight split) on the Hopper mainloop
-        by_variant = {"hopper": sum(expected.values())}
+        by_variant = {"hopper": sum(expected.values())} if expected else {}
         splits_expected = sum(per_decode.values()) * batches
         say("http", f"/generate under conv impl {impl!r}: {len(reply['images'])} images, server "
             f"latency {reply['latency_ms']} ms, client {wall * 1e3:.1f} ms; {batches} denoise "
@@ -2076,6 +2127,13 @@ def serve_conv_impls(engine, port: int) -> dict:
         out.update(launched)
         if impl == "auto":
             out["tf32_split"] = splits
+        if impl in latency:
+            latency[impl].append(reply["latency_ms"])
+    auto_ms, xla_ms = statistics.median(latency["auto"]), statistics.median(latency["xla"])
+    say("http", f"/generate server latency in turns {GENERATE_TURNS[:6]}: 'auto' "
+        f"{latency['auto']} ms (median {auto_ms:.1f}; the decoder's f32 convs on #5's 3xTF32 "
+        f"mainloop, f32-accurate), 'xla' {latency['xla']} ms (median {xla_ms:.1f}; cuDNN "
+        f"convs with TF32 on, as served: one TF32 pass); 'auto' / 'xla' {auto_ms / xla_ms:.3f}")
     return out
 
 
@@ -3387,8 +3445,12 @@ def main() -> int:
                 "shapes": [dict(timing(r), shape=r["shape"], mode=r["mode"], dtype=r["dtype"],
                                 variant=r["variant"], cudnn_conv_ms=r["cudnn_conv_ms"],
                                 **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
-                           for r in rs if "ms" in r], **more}
+                           for r in rs if "ms" in r],
+                "generic_shapes": [{k: r[k] for k in ("shape", "mode", "dtype", "err")}
+                                   for r in rs if r["variant"] == "generic"], **more}
 
+    split512 = next(r for r in conv_results["tf32_split"]
+                    if "ms" in r and r["shape"] == (512, 512, 3, 3))
     per_step = {impl: v["per_forward"] for impl, v in conv_step.items()}
     xl_step = {impl: v["per_forward"] for impl, v in sdxl["conv"].items()}
     print(json.dumps({"kernels": [{
@@ -3467,7 +3529,8 @@ def main() -> int:
                     "unet_step_auto_per_forward": per_step["auto"]["conv3x3"],
                     "sdxl_step_auto_per_forward": xl_step["auto"]["conv3x3"]},
                    decode_ms_conv_auto_vs_xla={"sd15_512": sd15_decode_conv,
-                                               "sdxl_1024": sdxl["step"]["decode_conv"]}),
+                                               "sdxl_1024": sdxl["step"]["decode_conv"]},
+                   generate_ms_conv_auto_vs_xla=serve_conv["generate_ms"]),
         conv_entry("epi_conv3x3", 409, serve_conv["epi_conv3x3"],
                    {"serve_fused_ep": serve_conv["epi_conv3x3"],
                     "unet_step_fused_ep_per_forward": per_step["fused_ep"]["epi_conv3x3"],
@@ -3485,10 +3548,10 @@ def main() -> int:
                               "tiny_train_fused": tiny_fused},
          "max_abs_err": max(r["err"] for r in conv_results["tf32_split"]),
          # at the SD VAE decoder's 512 x 512 weight
-         **timing(next(r for r in conv_results["tf32_split"]
-                       if "ms" in r and r["shape"] == (512, 512, 3, 3))),
-         "shapes": [dict(timing(r), shape=r["shape"]) for r in conv_results["tf32_split"]
-                    if "ms" in r]},
+         **{k: split512[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "graph_ms")},
+         "shapes": [dict(timing(r), shape=r["shape"], graph_ms=r["graph_ms"])
+                    for r in conv_results["tf32_split"] if "ms" in r]},
         {"name": "fused_group_norm", "route": "cuda",
          "source": "sliders_tpu_torch/csrc/group_norm.cu",
          "replaces": "sliders_tpu/ops/pallas_groupnorm.py:43", "launches": 0,

@@ -298,14 +298,35 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_f32(Params p) {
   }
 }
 
-// hi = tf32(w), lo = tf32(w - hi) for each of the n values (tf32_split_launch)
-__global__ void tf32_split(const float* __restrict__ w, float* __restrict__ out, long long n) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float v = w[i], hi = conv_sm90::tf32_rna(v);
-    out[i] = hi;
-    out[n + i] = conv_sm90::tf32_rna(__fsub_rn(v, hi));
+// hi = tf32(w), lo = tf32(w - hi) for each of the n values (tf32_split_launch),
+// four a thread-step by 16-byte loads and stores where `vec` (n % 4 == 0 and
+// both addresses on 16 bytes: every weight the f32 Hopper mainloop takes)
+__device__ __forceinline__ void split_one(float v, float& hi, float& lo) {
+  hi = conv_sm90::tf32_rna(v);
+  lo = conv_sm90::tf32_rna(__fsub_rn(v, hi));
+}
+
+__global__ void tf32_split(const float* __restrict__ w, float* __restrict__ out, long long n,
+                           int vec) {
+  const long long first = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (vec) {
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    float4* hi4 = reinterpret_cast<float4*>(out);
+    float4* lo4 = reinterpret_cast<float4*>(out + n);
+    for (long long i = first; i < n / 4; i += step) {
+      const float4 v = w4[i];
+      float4 hi, lo;
+      split_one(v.x, hi.x, lo.x);
+      split_one(v.y, hi.y, lo.y);
+      split_one(v.z, hi.z, lo.z);
+      split_one(v.w, hi.w, lo.w);
+      hi4[i] = hi;
+      lo4[i] = lo;
+    }
+    return;
   }
+  for (long long i = first; i < n; i += step) split_one(w[i], out[i], out[n + i]);
 }
 
 template <typename Kernel>
@@ -361,10 +382,11 @@ extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, co
 // mainloop. Plain version: ops/conv3x3.tf32_split_ref.
 extern "C" int tf32_split_launch(const void* w, void* out, long long n, void* stream) {
   if (n < 1 || w == nullptr || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + 255) / 256;
+  const int vec = n % 4 == 0 && aligned16(w) && aligned16(out);
+  const long long blocks = ((vec ? n / 4 : n) + 255) / 256;
   tf32_split<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0,
                static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(w),
-                                                    static_cast<float*>(out), n);
+                                                    static_cast<float*>(out), n, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

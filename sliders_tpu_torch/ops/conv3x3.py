@@ -234,16 +234,21 @@ def fused_conv3x3_ref(x, a, s, w, b, extra=None, mode: str = "none") -> torch.Te
 
 def tf32_rna(v: torch.Tensor) -> torch.Tensor:
     """f32 v rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero (`cvt.rna.tf32.f32`), as an f32 whose low 13 bits are zero."""
-    bits = v.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    from zero (`cvt.rna.tf32.f32`), as an f32 whose low 13 bits are zero.
+    A NaN is returned as it is (the integer add would turn a small payload
+    into inf and -NaN into +0; the card's cvt may give another NaN's bits),
+    so the kernels' bits equal these for every input but a NaN."""
+    v = v.float().contiguous()
+    rounded = ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(v), v, rounded)
 
 
 def tf32_split_ref(w: torch.Tensor) -> torch.Tensor:
     """Plain version of the `tf32_split` kernel: the (2, N, 3, 3, C) f32
     operand of the f32 Hopper mainloop from the OIHW (N, C, 3, 3) weight,
     hi = tf32_rna(w) then lo = tf32_rna(w - hi) in its (N, 3, 3, C) order
-    (w - hi is exact in f32)."""
+    (w - hi is exact in f32). The kernel gives these bits for every weight
+    without a NaN."""
     v = w.float().permute(0, 2, 3, 1)
     hi = tf32_rna(v)
     return torch.stack([hi, tf32_rna(v - hi)])

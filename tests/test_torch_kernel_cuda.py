@@ -405,11 +405,11 @@ def test_f32_fused_conv_at_training_batches(cuda, shape):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("shape", [(512, 512), (128, 256), (136, 100)])
+@pytest.mark.parametrize("shape", [(512, 512), (128, 256), (136, 100), (7, 13)])
 def test_tf32_split_kernel_equals_plain(cuda, shape):
     """The `tf32_split` kernel gives `tf32_split_ref`'s bits, ties (13
     dropped bits of 0x1000) and values past them included, one launch a
-    call."""
+    call; by 16-byte accesses, and by 4-byte ones where 9 N C % 4 != 0."""
     from sliders_tpu_torch.ops import conv3x3 as tc
 
     n, c = shape

@@ -8,6 +8,12 @@ lo gives w back to 2^-22, ties round away from zero, and the error argument
 of the three-product scheme (3xTF32): a_lo w_hi + a_hi w_lo + a_hi w_hi,
 summed exactly, stays within the kernels' f32 tolerance (1e-5 of the
 largest output) at 9 x 512 = 4608 terms, where one TF32 product does not.
+That argument bounds the split's error only: the sums here are exact, so
+it does not model the tensor cores' own accumulation, which over a whole
+K = 9 C misses the tolerance at C = 512. The mainloop's answer to that
+(each 32-channel chunk's products summed on their own, then added into a
+second f32 accumulator) is held by the card tests of
+`tests/test_torch_kernel_cuda.py` and by `chip_smoke.py`.
 """
 
 from fractions import Fraction
@@ -90,6 +96,18 @@ def test_rounding_is_to_nearest_ties_away():
                          * np.float32(1e3))
     got = tc.tf32_rna(v).tolist()
     assert got == [_rna_exact(x) for x in v.tolist()]
+
+
+def test_rounding_keeps_nan_and_inf():
+    """A NaN stays a NaN, whatever its sign and payload (the integer add alone
+    would turn 0x7f800001 into inf and -NaN into +0); inf stays inf."""
+    bits = torch.tensor([0x7F800001, 0x7FC00000, -0x800000 + 1, 0x7F800000, -0x800000],
+                        dtype=torch.int32)  # NaN, NaN, -NaN, inf, -inf
+    got = tc.tf32_rna(bits.view(torch.float32))
+    assert torch.isnan(got[:3]).all()
+    assert got[3].item() == float("inf") and got[4].item() == float("-inf")
+    hi, lo = tc.tf32_split_ref(torch.full((1, 1, 3, 3), float("nan")))
+    assert torch.isnan(hi).all() and torch.isnan(lo).all()
 
 
 def test_split_of_a_cuda_weight_needs_the_card_only():
