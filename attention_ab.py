@@ -25,12 +25,13 @@ CONV_ULPS bf16 ulps of each element, or f32 F32_TOL of the largest value
 case both results are held to the unchanged plain versions with the
 tolerances of `chip_smoke.py` (4 bf16 ulps at each output's largest
 magnitude; f32 1e-5), then timed with CUDA events in the order parent,
-change, change, parent (the conv cases `--rounds` times; median of
-`--runs` samples each, a sample the mean of back-to-back calls adding up
-to about 20 ms, so that the wrapper's host time overlaps the device work
-and a sample reads the kernels' time); each side's time is the median of
-its medians (of two, their mean). SDPA on the same inputs, the plain
-version and the bound are printed beside. It prints the card's name and
+change, change, parent, `--rounds` times (median of `--runs` samples
+each, a sample the mean of back-to-back calls adding up to about 20 ms, so
+that the wrapper's host time overlaps the device work and a sample reads
+the kernels' time); each side's time is the median of its medians (of
+two, their mean). SDPA on the same inputs (the backward in the same
+dtype), the plain version and the bound (f32: both bounds, 3xTF32 and FMA)
+are printed beside. It prints the card's name and
 power limit first and writes every row to `--out` as JSON when given.
 """
 
@@ -51,7 +52,7 @@ sys.path.insert(0, REPO)
 
 from chip_smoke import (  # noqa: E402
     CONV_EXTRA, CONV_SHAPES, CONV_ULPS, F32_TOL, VAE_CONV_SHAPES, VAE_DECODE_BATCH, bf16_max_ulps,
-    bound as roofline, conv_case, f32_conv_bounds)
+    bound as roofline, conv_case, f32_bounds)
 
 CONV_KERNELS = ("conv3x3", "epi_conv3x3", "fused_conv3x3")
 
@@ -78,8 +79,18 @@ CASES = [
     ("sd_bwd", (3, 10, 1024, 64), "bfloat16", False),
     ("sd_bwd", (1, 24, 4096, 128), "bfloat16", True),
     ("sd_bwd", (1, 24, 1536, 128), "bfloat16", True),
+    # #2 in f32 (the TF32 plan) at SD1.5's d = 40 and 80, SDXL's 64 and
+    # FLUX's 128 below 1536 px (head views)
+    ("sd_bwd", (1, 8, 4096, 40), "float32", False),
+    ("sd_bwd", (1, 8, 1024, 80), "float32", False),
+    ("sd_bwd", (1, 10, 1024, 64), "float32", False),
+    ("sd_bwd", (1, 24, 1536, 128), "float32", True),
     ("flash_bwd", (1, 24, 16896, 128), "bfloat16", True),
     ("flash_bwd", (1, 24, 4608, 128), "bfloat16", True),
+    # #4's bf16 backward at d = 256 (no main path): a test shape and one
+    # that fills the card
+    ("flash_bwd", (1, 2, 2048, 256), "bfloat16", True),
+    ("flash_bwd", (1, 16, 4096, 256), "bfloat16", True),
     # the conv kernels: ((B, H, W, C, N, mode), dtype, the kernels timed) at
     # batch 16 in bf16, the VAE decoder's f32 shapes at the decode batch, and
     # the f32 CONV_EXTRA case
@@ -93,19 +104,22 @@ CASES = [
     *(("conv", (b, h, h, c, n, mode), dt, CONV_KERNELS)
       for b, h, c, n, mode, dt in CONV_EXTRA if dt == "float32"),
 ]
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 LIBS = {"fwd": "sd_attention.cu", "bwd": "sd_attention_bwd.cu", "flash": "flash_attention.cu",
         "conv": "conv3x3.cu"}
 
 
-def bound_ms(shape, dt, backward=False):
+def bounds(shape, dt, backward=False) -> dict:
+    """bound_ms and bound_by of an attention call (forward 4 B H L^2 d
+    operations over 4 B H L d elements, backward 10 over 7); f32 also both
+    of its bounds, 3xTF32 and FMA, the lesser the row's."""
     B, H, L, d = shape
     item = 2 if dt == "bfloat16" else 4
     flops = (10 if backward else 4) * B * H * L * L * d
     nbytes = (7 if backward else 4) * B * H * L * d * item
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    if dt == "float32":
+        return f32_bounds(flops, nbytes)
+    ms, by = roofline(flops, nbytes, dt)
+    return {"bound_ms": ms, "bound_by": by}
 
 
 def median_ms(fn, runs, reps=1):
@@ -221,7 +235,7 @@ def bf16_tol(ref_max: float) -> float:
     return 4.0 * 2.0 ** (math.floor(math.log2(max(ref_max, 2.0**-20))) - 7)
 
 
-def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
+def run_case(kernel, shape, dt, views, parent_libs, runs, rounds, gen):
     import torch
     import torch.nn.functional as F
 
@@ -297,16 +311,16 @@ def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
     # enough back-to-back calls for about 20 ms a sample (from one timed call)
     reps = max(1, min(50, int(20.0 / max(median_ms(call, 1), 1e-3))))
     times = {"parent": [], "change": []}
-    for side in ("parent", "change", "change", "parent"):
+    for side in ("parent", "change", "change", "parent") * rounds:
         with Using(parent if side == "parent" else {}):
             times[side].append(median_ms(call, runs, reps))
     row = {"kernel": kernel, "shape": shape, "dtype": dt, "views": views, "tol": tol,
            "err_parent": errs["parent"], "err_change": errs["change"],
-           "parent_ms": statistics.mean(times["parent"]),
-           "change_ms": statistics.mean(times["change"]),
+           "parent_ms": statistics.median(times["parent"]),
+           "change_ms": statistics.median(times["change"]),
            "parent_ms_each": times["parent"], "change_ms_each": times["change"],
-           "library_ms": median_ms(library, runs, reps), "reps": reps}
-    row["bound_ms"], row["bound_by"] = bound_ms(shape, dt, backward=kernel.endswith("_bwd"))
+           "library_ms": median_ms(library, runs, reps), "reps": reps,
+           **bounds(shape, dt, backward=kernel.endswith("_bwd"))}
     big = B * H * L * L * 4 > 2**33
     row["plain_ms"] = None if big else median_ms(plain, 3)
     row["err_share_parent"], row["err_share_change"] = shares["parent"], shares["change"]
@@ -318,7 +332,9 @@ def run_case(kernel, shape, dt, views, parent_libs, runs, gen):
           f"{['%.4f' % t for t in times['change']]} ({row['change_ms'] / row['parent_ms']:.3f}x); "
           f"library {row['library_ms']:.4f}, plain "
           f"{'not timed' if row['plain_ms'] is None else '%.4f' % row['plain_ms']}; bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+          + (f"; bounds 3xTF32 {row['tf32x3_bound_ms']:.4f}, FMA {row['fma_bound_ms']:.4f} ms"
+             if "fma_bound_ms" in row else ""), flush=True)
     return row
 
 
@@ -391,7 +407,7 @@ def run_conv_case(shape, dt, names, parent_libs, runs, rounds, gen):
             shown = (f"{ulps['parent']:.2f} / {ulps['change']:.2f} bf16 ulps (parent / change, "
                      f"tol {CONV_ULPS})")
         else:
-            row.update(f32_conv_bounds(flops, nbytes))
+            row.update(f32_bounds(flops, nbytes))
             row["ok"] = max(ulps.values()) <= 1.0
             shown = (f"err {ulps['parent']:.3f} / {ulps['change']:.3f} of tol {tol:.3g} (parent / "
                      f"change); bounds FMA {row['fma_bound_ms']:.4f}, 3xTF32 "
@@ -414,7 +430,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="write the rows here as JSON")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=1,
-                    help="turns of parent, change, change, parent for each conv case")
+                    help="turns of parent, change, change, parent for each case")
     ap.add_argument("--only", default="",
                     help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd, conv)")
     args = ap.parse_args()
@@ -441,7 +457,7 @@ def main() -> int:
             rows.extend(run_conv_case(*case[1:], {"conv": parent_libs["conv"]}, args.runs,
                                       args.rounds, gen))
         else:
-            rows.append(run_case(*case, parent_libs, args.runs, gen))
+            rows.append(run_case(*case, parent_libs, args.runs, args.rounds, gen))
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -15,25 +15,28 @@ with its seconds and the seconds since the start:
      GroupNorm, the layout pin) for sm_90a, in parallel; registers, spills
      and shared memory per kernel (the Hopper-mainloop kernels of
      attention_sm90.cuh at d = 40, 64, 80, 128 and #4's at d = 128, the
-     backward mainloop's of attention_bwd_sm90.cuh, #2's dq and dk/dv at
-     d = 40, 64, 80, 128 and #4's at d = 128, and #4's f32 d = 512 kernel
-     among them), and the build's seconds.
+     backward mainloop's of attention_bwd_sm90.cuh, #2's bf16 dq and dk/dv
+     at d = 40, 64, 80, 128, #4's at d = 128 and 256, #2's f32 (3xTF32) at
+     every instantiation, and #4's f32 d = 512 kernel among them), and the
+     build's seconds.
   3. kernel: the attention forward kernel against its plain PyTorch version
      at the serving shapes (SD1.5's and SDXL's at bucket 8, SDXL training's
      at 512 px), the backward kernel at the grad-pass shapes (SD1.5's, and
-     SDXL's d = 64 at 512 px; error of dq/dk/dv and median time of each); the conv kernels #5-#7
+     SDXL's d = 64 at 512 px, bf16 and f32; error of dq/dk/dv and median
+     time of each, f32 beside both bounds); the conv kernels #5-#7
      against their plain versions at every conv shape the SD1.5 UNet routes
      at 512 px (batch 16, the mode the UNet uses there), two at batch 1 and
      one f32 shape each, with cuDNN's conv and one PyTorch expression of each
      kernel's whole function timed beside, and the generic kernel at the
      CONV_GENERIC shapes the plan leaves to it; the GroupNorm kernel #8 at the
      UNet's GN shapes;
-     the flash-attention kernel #4 at FLUX's and the VAE's shapes, and #4
-     and #1 checked, then timed beside SDPA, at the two FLUX serving shapes
-     on head views of (B, L, 3072) buffers; #4's backward (its residual
+     the flash-attention kernel #4 at FLUX's and the VAE's shapes (SDPA
+     beside at the VAE's, f32 d = 128 and bf16 d = 256), and #4 and #1
+     checked, then timed beside SDPA, at the two FLUX serving shapes on
+     head views of (B, L, 3072) buffers; #4's backward (its residual
      forward, dk/dv and dq kernels) at FLUX training's 2048 px grad pass,
-     the tiny 1280 px f32 run and d = 256, and #2 at FLUX's 512 px grad
-     pass; the layout pin #9 at the SDXL serving boundaries (bf16 and f32;
+     the tiny 1280 px f32 run and d = 256 (two shapes), and #2 at FLUX's
+     512 px grad pass; the layout pin #9 at the SDXL serving boundaries (bf16 and f32;
      contiguous, channel-major and sliced inputs; bit for bit) and its
      identity gradient; each kernel's bound and the time of one PyTorch call
      computing the same function; then the tiny slice at 256 px and three tiny
@@ -50,7 +53,8 @@ with its seconds and the seconds since the start:
      one UNet step timed through the kernel and on the plain attention
      path, its device time by kernel class, and the 8-image VAE decode
      under attention impls 'auto' (#4 on the mid attention) and 'xla' in
-     turns; the UNet
+     turns (and under conv impls, the 'xla' decode once more with cuDNN's
+     global TF32 flag flipped: the same bits, as the decode sets its own); the UNet
      step under each conv impl ('xla', 'auto', 'fused_ep', 'fused') in
      alternating rounds, with each conv kernel's launches per forward and
      the noise prediction's distance from the 'xla' route; then the
@@ -139,7 +143,7 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype: the 8-row bucket CFG-doubled, and othe
     ((2, 24, 4608, 128), "bfloat16"),  # FLUX's joint attention at 1024 px, 2 of 8 rows
     ((2, 8, 4096, 40), "float32"),
 ]
-BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, one f32
+BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, and f32
     ((1, 8, 4096, 40), "bfloat16"),
     ((1, 8, 1024, 80), "bfloat16"),
     ((2, 8, 4096, 40), "bfloat16"),
@@ -147,7 +151,12 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((3, 10, 1024, 64), "bfloat16"),  # the same at batch 3
     ((1, 24, 4096, 128), "bfloat16"),
     ((1, 24, 1536, 128), "bfloat16"),  # FLUX training's grad pass at 512 px
+    # --precision float32 (the TF32 plan): SD1.5's two levels, SDXL's d and
+    # FLUX's d below 1536 px
     ((1, 8, 4096, 40), "float32"),
+    ((1, 8, 1024, 80), "float32"),
+    ((1, 10, 1024, 64), "float32"),
+    ((1, 24, 1536, 128), "float32"),
 ]
 # #2's shapes timed in interleaved rounds with SDPA's backward (rounds each):
 # at (1, 8, 1024, 80) two earlier runs read far apart (ROADMAP queue 2, item 2)
@@ -245,6 +254,8 @@ FLASH_SHAPES = [
 # SDPA in f32 are timed there, and at SD1.5's decode at 512 px (bucket 8)
 VAE_FLASH_SHAPE = (8, 1, 16384, 512)
 VAE_DECODE_SHAPES = (VAE_FLASH_SHAPE, (8, 1, 4096, 512))
+# and at the shapes of #4's first-design forwards (f32 d = 128, bf16 d = 256)
+FLASH_SDPA_SHAPES = VAE_DECODE_SHAPES + ((1, 2, 6912, 128), (1, 2, 2048, 256))
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
 FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
@@ -254,9 +265,9 @@ TINY_FLUX_PX = 1280  # the least size whose joint attention #4 takes in f32
 TINY_FLUX_STEPS = 2
 # kernel #4's backward against its plain version: FLUX training's grad pass
 # at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32),
-# and d = 256
+# and d = 256 at a test shape and at one that fills the card
 FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 6912, 128), "float32"),
-                    ((1, 2, 2048, 256), "bfloat16")]
+                    ((1, 2, 2048, 256), "bfloat16"), ((1, 16, 4096, 256), "bfloat16")]
 # tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
 TINY_FLUX_TRAIN_ITERATIONS = 2
 TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
@@ -312,13 +323,25 @@ def bound(flops: float, nbytes: float, dt: str) -> tuple:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def f32_conv_bounds(flops: float, nbytes: float) -> dict:
-    """The two bounds of an f32 conv: `flops` on f32 FMAs (67 TFLOP/s) and
-    3 x `flops` on TF32 tensor cores (495 TFLOP/s; the 3xTF32 mainloop's
-    three products), each beside its bytes; the row's bound is the lesser."""
+def f32_bounds(flops: float, nbytes: float) -> dict:
+    """The two bounds of an f32 kernel (a conv, #2's backward): `flops` on
+    f32 FMAs (67 TFLOP/s) and 3 x `flops` on TF32 tensor cores (495 TFLOP/s;
+    the 3xTF32 mainloops' three products), each beside its bytes; the row's
+    bound is the lesser."""
     fma, tf32 = bound(flops, nbytes, "float32"), bound(3 * flops, nbytes, "tf32")
     return {"fma_bound_ms": fma[0], "tf32x3_bound_ms": tf32[0],
             "bound_ms": min(fma, tf32)[0], "bound_by": min(fma, tf32)[1]}
+
+
+def attention_bounds(shape, dt: str, backward: bool = False) -> dict:
+    """attention_bound as bound_ms and bound_by; f32 with both of its
+    bounds (f32_bounds), the lesser the row's."""
+    B, H, L, d = shape
+    if dt == "float32":
+        flops = (10 if backward else 4) * B * H * L * L * d
+        return f32_bounds(flops, (7 if backward else 4) * B * H * L * d * 4)
+    ms, by = attention_bound(shape, dt, backward)
+    return {"bound_ms": ms, "bound_by": by}
 
 
 def attention_bound(shape, dt: str, backward: bool = False) -> tuple:
@@ -421,33 +444,43 @@ def phase_device():
 # holds names it): #1's bf16 forward on the Hopper mainloop
 # (attention_sm90.cuh, Cfg<DP, BK, TMA, two-pass>) at SD1.5's d = 40 and 80,
 # SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 on the
-# same mainloop; the bf16 backwards on the Hopper backward mainloop
-# (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's policy>): #2's dq and
-# dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128; the conv
-# kernels' Hopper mainloop (conv3x3_sm90.cuh) in bf16 at each BN, with #6's
-# prologue at BN 128 and 160, and in f32 (3xTF32) at BN 128 with and without
-# it, and the weights' TF32 split; every generic conv and GroupNorm
-# instantiation, #4's f32 forwards (d = 512 and the others) and its d = 256
-# and f32 backward kernels, #9's copy kernels
-BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1E", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
-            ("BCfgILi48ELi128ELb0ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
-            ("BCfgILi64ELi64ELb1ELb0ELb1E", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
-            ("BCfgILi64ELi64ELb1ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=64 (TMA)"),
-            ("BCfgILi80ELi64ELb0ELb0ELb1E", "attn_bwd_sm90 #2 dq d=80 (cp.async)"),
-            ("BCfgILi80ELi64ELb0ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=80 (cp.async)"),
-            ("BCfgILi128ELi64ELb1ELb0ELb1E", "attn_bwd_sm90 #2 dq d=128 (TMA)"),
-            ("BCfgILi128ELi64ELb1ELb1ELb1E", "attn_bwd_sm90 #2 dk/dv d=128 (TMA)"),
-            ("BCfgILi128ELi64ELb1ELb1ELb0E", "attn_bwd_sm90 #4 dk/dv d=128 (TMA)"),
-            ("BCfgILi128ELi64ELb1ELb0ELb0E", "attn_bwd_sm90 #4 dq d=128 (TMA)"))
+# same mainloop; the backwards on the Hopper backward mainloop
+# (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's policy, plan>): #2's
+# bf16 dq and dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128
+# (PAIR), #4's at d = 256 (SPLIT), #2's f32 kernels at every instantiation
+# (TF32: DP is twice the padded f32 head dim); the conv kernels' Hopper
+# mainloop (conv3x3_sm90.cuh) in bf16 at each BN, with #6's prologue at BN
+# 128 and 160, and in f32 (3xTF32) at BN 128 with and without it, and the
+# weights' TF32 split; every generic conv and GroupNorm instantiation, #4's
+# f32 forwards (d = 512 and the others) and its f32 backward kernels, #9's
+# copy kernels
+# #2's f32 (TF32 plan) instantiations: (padded head dim, TMA)
+TF32_CONFIGS = ((16, 0), (32, 1), (40, 0), (48, 0), (64, 1), (80, 0), (96, 0), (112, 0),
+                (128, 0), (128, 1))
+BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
+            ("BCfgILi48ELi128ELb0ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
+            ("BCfgILi64ELi64ELb1ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
+            ("BCfgILi64ELi64ELb1ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=64 (TMA)"),
+            ("BCfgILi80ELi64ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=80 (cp.async)"),
+            ("BCfgILi80ELi64ELb0ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=80 (cp.async)"),
+            ("BCfgILi128ELi64ELb1ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb1ELb0ELi0EE", "attn_bwd_sm90 #4 dk/dv d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb0ELb0ELi0EE", "attn_bwd_sm90 #4 dq d=128 (TMA)"),
+            ("BCfgILi256ELi32ELb1ELb1ELb0ELi1EE", "attn_bwd_sm90 #4 dk/dv d=256 (TMA, SPLIT)"),
+            ("BCfgILi256ELi64ELb1ELb0ELb0ELi1EE", "attn_bwd_sm90 #4 dq d=256 (TMA, SPLIT)"),
+            *((f"BCfgILi{2 * dpf}ELi{64 if dpf <= 48 else 32}ELb{tma}ELb{dkv}ELb1ELi2EE",
+               f"attn_bwd_sm90 #2 f32 {'dk/dv' if dkv else 'dq'} d={dpf} "
+               f"({'TMA' if tma else 'cp.async'}, TF32)")
+              for dpf, tma in TF32_CONFIGS for dkv in (0, 1)))
 REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("CfgILi80ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=80 (cp.async)"),
             ("CfgILi64ELi64ELb1ELb1ELi2E", "attn_sm90 #1 d=64 (TMA, 2 blocks an SM)"),
             ("CfgILi128ELi128ELb1ELb1ELi1E", "attn_sm90 #1 d=128 (TMA)"),
             ("CfgILi128ELi128ELb1ELb0ELi1E", "attn_sm90 #4 d=128 (TMA, one pass)"),
             *BWD_SM90,
-            ("flash_bwd_bf16ILb1E", "flash_bwd_dkv_bf16 (d = 256)"),
-            ("flash_bwd_bf16ILb0E", "flash_bwd_dq_bf16 (d = 256)"),
             ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32"), ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32"),
+            ("tf32_split_bhld", "tf32_split_bhld (#2 f32)"),
             *((f"conv3x3_sm90I13__nv_bfloat16Li{bn}ELb{pro}E",
                f"conv3x3_sm90{'<prologue>' if pro else ''} bf16 BN={bn}")
               for bn in (128, 160, 256) for pro in (0, 1) if not (pro and bn == 256)),
@@ -498,17 +531,27 @@ def sm90_smem(d: int) -> int:
     return 2048 + q + min(4, (200 * 1024 // ctas - 2048 - q) // stage) * stage
 
 
-def bwd_sm90_smem(d: int, dkv: bool) -> int:
+def bwd_sm90_smem(dp: int, bn: int, dkv: bool, kind: int = 0) -> int:
     """Dynamic shared memory a block of the backward mainloop takes
-    (attention_bwd_sm90.cuh's BCfg as the launchers pick it: 128-row
-    streamed tiles for #2 at d <= 48, else 64): 1024 bytes of alignment
-    slack and 1024 of barriers, two resident 128-row tiles, then as many
-    stages of two streamed tiles (and, in the dk/dv kernel, their rows'
-    three f32 statistics) as fit 200 KiB, at most 4."""
-    dp = -(-d // 16) * 16
-    bn = 128 if dp <= 48 else 64
-    res, stage = 2 * 128 * dp * 2, 2 * bn * dp * 2 + (3 * bn * 4 if dkv else 0)
-    return 2048 + res + min(4, (200 * 1024 - 2048 - res) // stage) * stage
+    (attention_bwd_sm90.cuh's BCfg<DP, BN, ..., plan>, plan 0 PAIR, 1 SPLIT,
+    2 TF32): 1024 bytes of alignment slack and 1024 of barriers, two
+    resident tiles (128 rows; 64 for SPLIT and TF32 but the f32 dq kernel
+    to d = 64), the consumers' exchange, then as many stages of two streamed tiles (TF32: a hi and a lo
+    plane each) and, in the dk/dv kernel, their rows' three f32 statistics
+    as fit 200 KiB (PAIR) or the block's 227 KiB, at most 4."""
+    own = kind == 2 and not dkv and dp <= 128  # the f32 dq kernel's own rows (d <= 64)
+    res = (128 if kind == 0 or own else 64) * dp * 2
+    stage = 2 * (2 if kind == 2 else 1) * bn * dp * 2 + (3 * bn * 4 if dkv else 0)
+    xtile = 64 * bn * 4
+    if kind == 1:
+        x = bn // 2 * 128 * 4 + (0 if dkv else bn // 16 * 4 * 128 * 4)
+    elif kind == 2:
+        x = 4 * xtile if dkv or own else (2 * xtile
+                                         + -(-(bn // 2 + 2) * 128 * 4 // 1024) * 1024)
+    else:
+        x = 0
+    fixed = 2048 + 2 * res + x
+    return fixed + min(4, ((200 * 1024 if kind == 0 else 232448) - fixed) // stage) * stage
 
 
 def phase_build():
@@ -531,9 +574,15 @@ def phase_build():
         f"d={d} {sm90_smem(d)}" for d in (40, 64, 80, 128))
         + "; with one block an SM its consumers take 224 registers a thread and the producer "
         "56 (setmaxnreg)")
-    say("build", "attn_bwd_sm90 dynamic shared memory a block (bytes): " + ", ".join(
-        f"d={d} dq {bwd_sm90_smem(d, False)} dk/dv {bwd_sm90_smem(d, True)}"
-        for d in (40, 64, 80, 128))
+    pair = [(d, -(-d // 16) * 16, 128 if d <= 48 else 64) for d in (40, 64, 80, 128)]
+    tf32 = [(d, 2 * d, 64 if d <= 48 else 32) for d in (40, 64, 80, 128)]
+    say("build", "attn_bwd_sm90 dynamic shared memory a block (bytes): bf16 PAIR " + ", ".join(
+        f"d={d} dq {bwd_sm90_smem(dp, bn, False)} dk/dv {bwd_sm90_smem(dp, bn, True)}"
+        for d, dp, bn in pair)
+        + f"; bf16 SPLIT d=256 dq {bwd_sm90_smem(256, 64, False, 1)} dk/dv "
+        f"{bwd_sm90_smem(256, 32, True, 1)}; f32 TF32 " + ", ".join(
+            f"d={d} dq {bwd_sm90_smem(dp, bn, False, 2)} dk/dv {bwd_sm90_smem(dp, bn, True, 2)}"
+            for d, dp, bn in tf32)
         + "; one block an SM, its consumers take 232 registers a thread and the producer 40 "
         "(setmaxnreg)")
     from sliders_tpu_torch.ops import conv3x3 as tc
@@ -608,8 +657,9 @@ def phase_kernel_bwd():
     """The backward kernel against sd_attention_bwd_ref at the grad-pass
     shapes. bf16: both round p and ds at the same points and differ in
     summation order and the fast exp, held to 4 bf16 ulps at each output's
-    largest magnitude; f32: 1e-5 relative to the largest value. SDPA's
-    backward on the same inputs is timed beside it."""
+    largest magnitude; f32 (three TF32 products a step): 1e-5 relative to
+    the largest value. SDPA's backward on the same inputs is timed beside
+    it, and f32 rows give both bounds (3xTF32 and FMA)."""
     import torch
     import torch.nn.functional as F
 
@@ -651,14 +701,16 @@ def phase_kernel_bwd():
                 f"{[round(t, 4) for t in rounds['sdpa']]} ms")
         else:
             ms, library_ms = median_ms(kernel), median_ms(library)
-        bound_ms, bound_by = attention_bound(shape, dt, backward=True)
+        bounds = attention_bounds(shape, dt, backward=True)
         say("kernel", f"bwd {shape} {dt}: max|err| vs plain {', '.join(errs)}; median kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms; bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']})"
+            + (f"; bounds 3xTF32 {bounds['tf32x3_bound_ms']:.4f}, FMA "
+               f"{bounds['fma_bound_ms']:.4f} ms" if dt == "float32" else ""))
         if not ok:
             raise AssertionError(f"sd_attention_bwd disagrees with its plain version at {shape} {dt}")
         results.append({"shape": shape, "dtype": dt, "err": worst, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                        "library_ms": library_ms, **bounds})
         del q, k, v, g, leaves, o
         torch.cuda.empty_cache()
     return results
@@ -837,7 +889,7 @@ def phase_conv_kernels():
                 if dt == "bfloat16":
                     entry["bound_ms"], entry["bound_by"] = bound(flops, nbytes, dt)
                 else:  # the lesser of the FMA and the 3xTF32 bound
-                    entry.update(f32_conv_bounds(flops, nbytes))
+                    entry.update(f32_bounds(flops, nbytes))
                 entry["library_ms"] = library[name]
                 entry["cudnn_conv_ms"] = cudnn_ms
                 parts.append(f"{name} err {err:.3g} {shown} {entry['ms']:.4f} / "
@@ -933,7 +985,7 @@ def phase_flash_kernel():
     4 bf16 ulps at the output's largest magnitude (both round p and o at the
     same points; sums in other orders and the fast exp may flip a rounding),
     f32 to F32_TOL; each timed (median of 5) beside its bound, and at
-    VAE_DECODE_SHAPES beside its plain version and SDPA in f32 too. The plain
+    FLASH_SDPA_SHAPES beside its plain version and SDPA in its dtype too. The plain
     version walks K in blocks, so it holds no L x L logits and runs at every
     head count. Then at FLUX_SERVE_SHAPES, on head
     views of (B, L, H*d) buffers as the FLUX path passes them: #4 and #1
@@ -965,12 +1017,12 @@ def phase_flash_kernel():
         bound_ms, bound_by = attention_bound(shape, dt)
         row = {"shape": shape, "dtype": dt, "err": err, "ms": ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
-        if shape in VAE_DECODE_SHAPES:
+        if shape in FLASH_SDPA_SHAPES:
             row["plain_ms"] = median_ms(lambda: fa.flash_attention_ref(q, k, v), runs=3)
             row["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v), runs=3)
         say("flash", f"{shape} {dt}: max|err| vs plain {err:.3g} ({shown}; tol {tol:.3g}), "
             f"max|ref| {ref_max:.3g}; median #4 {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-            + (f"; plain {row['plain_ms']:.4f} ms, SDPA (f32) {row['library_ms']:.4f} ms"
+            + (f"; plain {row['plain_ms']:.4f} ms, SDPA ({dt}) {row['library_ms']:.4f} ms"
                if "plain_ms" in row else ""))
         if not (err <= tol and out.shape == ref.shape and out.dtype == dtype):
             raise AssertionError(f"flash_attention disagrees with its plain version at {shape} "
@@ -1524,8 +1576,9 @@ def build_engine(tok_dir: str):
     from sliders_tpu_torch.serving.server import SliderEngine
     from sliders_tpu_torch.text.tokenizer import ClipTokenizer
 
-    # the engine as served: cuDNN convs may use TF32 (the VAE decodes in f32),
-    # matmuls stay full f32; both set explicitly
+    # the engine as served: cuDNN convs may use TF32, matmuls stay full f32;
+    # both set explicitly (the f32 VAE decode sets its own,
+    # text2image.decode_precision)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1653,7 +1706,8 @@ def phase_step(engine):
 
 def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int = 3,
               route: str = "attention") -> dict:
-    """One VAE decode (f32, as served: cuDNN may use TF32) timed under impls
+    """One VAE decode (f32, as served: under the decode's own TF32 flags,
+    `text2image.decode_precision`) timed under impls
     'auto' and 'xla' in alternating rounds (auto, xla, xla, auto, ...;
     median of `runs` synced decodes each); each impl's time is the median of
     its rounds. route 'attention': the attention impl, 'auto' putting the
@@ -1662,14 +1716,16 @@ def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int
     putting the decoder's CONV_PER_DECODE f32 convs on #5's 3xTF32 Hopper
     mainloop (f32-accurate; each after one weight split), 'xla' on cuDNN in
     TF32, one TF32 pass: the two are not the same arithmetic. The two images
-    may differ by roundings only."""
+    may differ by roundings only. Under route 'conv' the 'xla' decode runs
+    once more with cuDNN's global TF32 flag flipped, and must give the same
+    bits: the decode sets its own."""
     import torch
 
     from sliders_tpu_torch.ops import attention as ta
     from sliders_tpu_torch.ops import basic
     from sliders_tpu_torch.ops import conv3x3 as tc
     from sliders_tpu_torch.ops import flash_attention as fa
-    from sliders_tpu_torch.pipelines.text2image import decode_images
+    from sliders_tpu_torch.pipelines.text2image import DECODE_CONV_TF32, decode_images
 
     set_impl, rest = ((ta.set_attention_impl, "auto") if route == "attention"
                       else (basic.set_conv_impl, "xla"))
@@ -1695,6 +1751,16 @@ def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int
                                      f"{conv_launches()} by variant {conv_variants()}, "
                                      f"{tc.tf32_split.launches} splits; expected {convs} on the "
                                      f"Hopper mainloop")
+        if route == "conv":
+            flag = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = not flag
+            try:
+                flipped = decode()
+            finally:
+                torch.backends.cudnn.allow_tf32 = flag
+            if not torch.equal(flipped, imgs["xla"]):
+                raise AssertionError(f"{what}: the 'xla' decode moved with cuDNN's global TF32 "
+                                     f"flag")
         for r in range(rounds):
             for impl in (("auto", "xla") if r % 2 == 0 else ("xla", "auto")):
                 set_impl(impl)
@@ -1703,7 +1769,7 @@ def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int
         set_impl(rest)
     diff = (imgs["auto"].int() - imgs["xla"].int()).abs().max().item()
     auto_ms, xla_ms = statistics.median(times["auto"]), statistics.median(times["xla"])
-    tf32 = "cuDNN TF32 allowed" if torch.backends.cudnn.allow_tf32 else "cuDNN TF32 off"
+    tf32 = ("cuDNN TF32 allowed" if DECODE_CONV_TF32 else "cuDNN TF32 off") + " by the decode"
     how = ({"auto": "#4 on the mid attention", "xla": "the plain attention path"}
            if route == "attention" else
            {"auto": f"{CONV_PER_DECODE['auto']['conv3x3']} convs on #5's 3xTF32 mainloop, "
@@ -3477,6 +3543,7 @@ def main() -> int:
         "name": "sd_attention_bwd",
         "route": "cuda",
         "source": "sliders_tpu_torch/csrc/sd_attention_bwd.cu",
+        "mainloop": "sliders_tpu_torch/csrc/attention_bwd_sm90.cuh",
         "replaces": "sliders_tpu/ops/pallas_attention.py:156",
         "launches": train["bwd"],
         "launches_by_path": {"train": train["bwd"], "train_resume": train["resume_bwd"],
@@ -3487,7 +3554,9 @@ def main() -> int:
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
-        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in bwd_results],
+        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"],
+                        **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
+                   for r in bwd_results],
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -3506,11 +3575,14 @@ def main() -> int:
         "sd_attention_ms_same_inputs": flash0["sd_ms"],
         "vae_decode_shapes": [dict(timing(r), shape=r["shape"]) for r in flash_checks
                               if r["shape"] in VAE_DECODE_SHAPES],
+        "sdpa_shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in flash_checks
+                        if r["shape"] in FLASH_SDPA_SHAPES and "plain_ms" in r],
         "decode_ms_auto_vs_xla": {"sd15_512": sd15_decode, "sdxl_1024": sdxl["step"]["decode"]},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "sliders_tpu_torch/csrc/flash_attention.cu",
+        "mainloop": "sliders_tpu_torch/csrc/attention_bwd_sm90.cuh",
         "replaces": "sliders_tpu/ops/flash_attention.py:50 (the stock kernel's custom_vjp "
                     "backward: _flash_attention_bwd_dkv :941 and _flash_attention_bwd_dq :1287 "
                     "of jax/experimental/pallas/ops/tpu/flash_attention.py)",

@@ -651,17 +651,19 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
 // ---------------------------------------------------------------------------
 
 // a (d, L, H, B) bf16 tensor map with element strides (row, head, batch),
-// 64-column x `rows` boxes, 128-byte swizzle, zeros past L
+// `cols`-column x `rows` boxes, zeros past L: 64 columns with the 128-byte
+// swizzle, or 8 (16 bytes, a core matrix's row) with none
 inline bool make_map(CUtensorMap* map, const void* ptr, int d, int L, int H, int B, long long sl,
-                     long long sh, long long sb, int rows) {
+                     long long sh, long long sb, int rows, int cols = 64) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

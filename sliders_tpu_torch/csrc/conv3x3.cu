@@ -302,8 +302,8 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_f32(Params p) {
 // four a thread-step by 16-byte loads and stores where `vec` (n % 4 == 0 and
 // both addresses on 16 bytes: every weight the f32 Hopper mainloop takes)
 __device__ __forceinline__ void split_one(float v, float& hi, float& lo) {
-  hi = conv_sm90::tf32_rna(v);
-  lo = conv_sm90::tf32_rna(__fsub_rn(v, hi));
+  hi = sm90::tf32_rna(v);
+  lo = sm90::tf32_rna(__fsub_rn(v, hi));
 }
 
 __global__ void tf32_split(const float* __restrict__ w, float* __restrict__ out, long long n,
@@ -377,7 +377,7 @@ extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, co
 
 // Returns the launch's CUDA error (0 on success). hi = tf32(w), lo =
 // tf32(w - hi) of the n f32 values at w (round to nearest, ties away, as
-// `conv_sm90::tf32_rna`), written as out[0..n) and out[n..2n): the channels_last
+// `sm90::tf32_rna`), written as out[0..n) and out[n..2n): the channels_last
 // (N, 3, 3, C) weight becomes the (2, N, 3, 3, C) operand of the f32 Hopper
 // mainloop. Plain version: ops/conv3x3.tf32_split_ref.
 extern "C" int tf32_split_launch(const void* w, void* out, long long n, void* stream) {

@@ -61,19 +61,18 @@
 // for dq (a loop over every K/V tile). Neither writes an L x L tensor. The
 // backward does 14 B H L^2 d operations (s twice, dp twice, dv, dk, dq)
 // against the minimal 10, and at FLUX's d = 128 is tensor-core bound.
-// - bf16, d = 128: the Hopper backward mainloop of attention_bwd_sm90.cuh
-//   with #4's numeric policy: 128 K/V (or q) rows a block item on two
-//   consumer warpgroups, a producer filling a TMA ring of 64-row (q, do)
-//   (or K, V) tiles, `wgmma` for all five products, p and ds going from
-//   registers into the A operands of dv, dk and dq.
-// - bf16, d = 256 (no main path) and f32 (the tiny f32 FLUX run,
-//   `--precision float32`): flash_bwd_bf16 / flash_bwd_f32, one block per
-//   64 K/V (or q) rows and 128-wide output chunk, one template with the
-//   roles of the row and column operands swapped; mma.sync m16n8k16 bf16
-//   (B fragments of the transposed products read as 16-bit pairs) or plain
-//   FMAs. d = 256 repeats the logits for each output chunk, as its forward
-//   does; the new mainloop's 64 x 256 f32 accumulators (dk and dv) would
-//   leave its consumers no registers for the logits.
+// - bf16, d = 128 and 256: the Hopper backward mainloop of
+//   attention_bwd_sm90.cuh with #4's numeric policy, a producer filling a
+//   TMA ring of 64-row (q, do) (or K, V) tiles and `wgmma` for all five
+//   products. At d = 128 (PAIR) 128 K/V (or q) rows a block item on two
+//   consumer warpgroups, p and ds going from registers into the A operands
+//   of dv, dk and dq. At d = 256 (SPLIT) a 64 x 256 f32 accumulator takes
+//   128 registers a thread, so an item is 64 rows and each consumer
+//   warpgroup holds one output (dv or dk; each half of dq), p and ds
+//   crossing between them through shared memory.
+// - f32 (the tiny f32 FLUX run, `--precision float32`): flash_bwd_f32, one
+//   block per 64 K/V (or q) rows and 128-wide output chunk, one template
+//   with the roles of the row and column operands swapped, plain FMAs.
 
 #include "sd_attention_common.cuh"
 #include "attention_sm90.cuh"
@@ -668,153 +667,6 @@ struct Roles {
   }
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* x) {
-  return *reinterpret_cast<const uint32_t*>(x);
-}
-
-// c[nt] += this warp's 16 rows of a (from r0) times rows nt*8.. of b
-// transposed, over one 128-wide chunk (both tiles with row stride FS); the
-// A fragment of each k16 step is read from shared memory as it is needed
-__device__ __forceinline__ void chunk_dot(float (&c)[BC / 8][4], const bf16* a, const bf16* b, int r0,
-                                          int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < FD / 16; ++kk) {
-    const bf16* ab = a + (r0 + g) * FS + kk * 16 + t4 * 2;
-    const uint32_t af[4] = {ld32(ab), ld32(ab + 8 * FS), ld32(ab + 8), ld32(ab + 8 * FS + 8)};
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-      const bf16* bb = b + (nt * 8 + g) * FS + kk * 16 + t4 * 2;
-      const uint32_t bfr[2] = {ld32(bb), ld32(bb + 8)};
-      mma_16816(c[nt], af, bfr);
-    }
-  }
-}
-
-// acc += round_bf16(e) . t, e this warp's 16 x 64 accumulator fragments, t a
-// 64 x 128 tile (row stride FS): two n8 C tiles are one k16 A fragment
-__device__ __forceinline__ void round_dot(float (&acc)[FD / 8][4], const float (&e)[BC / 8][4],
-                                          const bf16* t, int g, int t4) {
-#pragma unroll
-  for (int kc = 0; kc < BC / 16; ++kc) {
-    const uint32_t pa[4] = {pack_bf16(e[2 * kc][0], e[2 * kc][1]),
-                            pack_bf16(e[2 * kc][2], e[2 * kc][3]),
-                            pack_bf16(e[2 * kc + 1][0], e[2 * kc + 1][1]),
-                            pack_bf16(e[2 * kc + 1][2], e[2 * kc + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < FD / 8; ++nt) {
-      uint32_t bfr[2];
-      b_frag_kn(bfr, t, FS, kc * 16, nt * 8, g, t4);
-      mma_16816(acc[nt], pa, bfr);
-    }
-  }
-}
-
-constexpr int BWD_BF16_SMEM = 4 * BR * FS * 2 + 3 * BR * 4;
-
-template <bool DKV>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_bf16(BParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* a1s = reinterpret_cast<bf16*>(smem);  // [BR][FS]: the block's rows
-  bf16* a2s = a1s + BR * FS;
-  bf16* b1s = a2s + BR * FS;                  // [BC][FS]: the streamed tile
-  bf16* b2s = b1s + BR * FS;
-  float* st_m = reinterpret_cast<float*>(b2s + BR * FS);  // [64] m, 1 / l, di
-  float* st_inv = st_m + BR;
-  float* st_di = st_inv + BR;
-
-  const int nc = p.d / FD;
-  const int row0 = blockIdx.x * BR;
-  const int h = blockIdx.y / nc, oc = blockIdx.y % nc;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-  const Roles<DKV, bf16> R(p, b, h);
-  const long long st0 = ((long long)b * p.H + h) * p.Lq;  // this head's statistics
-
-  if (nc == 1) {  // one chunk: the block's rows stay for every tile
-    load_tile_bf16<BR>(a1s, R.a1 + (long long)row0 * R.a1s, R.a1s, 0);
-    load_tile_bf16<BR>(a2s, R.a2 + (long long)row0 * R.a2s, R.a2s, 0);
-  }
-  if (!DKV) {  // the dq kernel's statistics belong to its rows
-    for (int i = threadIdx.x; i < BR; i += NTHREADS) {
-      st_m[i] = p.m[st0 + row0 + i];
-      st_inv[i] = 1.f / p.l[st0 + row0 + i];
-      st_di[i] = p.di[st0 + row0 + i];
-    }
-  }
-
-  float acc1[FD / 8][4], acc2[FD / 8][4];  // DKV: dk, dv; else dq (acc2 unused)
-#pragma unroll
-  for (int nt = 0; nt < FD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc1[nt][e] = acc2[nt][e] = 0.f;
-  float s[BC / 8][4], dp[BC / 8][4];
-
-  for (int c0 = 0; c0 < R.ncols; c0 += BC) {
-    if (DKV) {
-      for (int i = threadIdx.x; i < BC; i += NTHREADS) {
-        st_m[i] = p.m[st0 + c0 + i];
-        st_inv[i] = 1.f / p.l[st0 + c0 + i];
-        st_di[i] = p.di[st0 + c0 + i];
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      if (nc > 1) {
-        load_tile_bf16<BR>(a1s, R.a1 + (long long)row0 * R.a1s, R.a1s, c * FD);
-        load_tile_bf16<BR>(a2s, R.a2 + (long long)row0 * R.a2s, R.a2s, c * FD);
-      }
-      load_tile_bf16<BC>(b1s, R.b1 + (long long)c0 * R.b1s, R.b1s, c * FD);
-      load_tile_bf16<BC>(b2s, R.b2 + (long long)c0 * R.b2s, R.b2s, c * FD);
-      __syncthreads();
-      chunk_dot(s, a1s, b1s, r0, g, t4);  // DKV: k . q^T; else q . k^T
-      chunk_dot(dp, a2s, b2s, r0, g, t4); // DKV: v . do^T; else do . v^T
-      __syncthreads();
-    }
-    if (nc > 1) {  // this block's output columns of the streamed tile
-      load_tile_bf16<BC>(b1s, R.b1 + (long long)c0 * R.b1s, R.b1s, oc * FD);
-      load_tile_bf16<BC>(b2s, R.b2 + (long long)c0 * R.b2s, R.b2s, oc * FD);
-      __syncthreads();
-    }
-    // p = exp(s * scale - m) * (1 / l) into s; ds = ((dp - di) * p) * scale into dp
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int si = DKV ? nt * 8 + t4 * 2 + (e & 1) : r0 + g + (e >> 1) * 8;
-        const float pe = __expf(s[nt][e] * p.scale - st_m[si]) * st_inv[si];
-        s[nt][e] = pe;
-        dp[nt][e] = ((dp[nt][e] - st_di[si]) * pe) * p.scale;
-      }
-    }
-    round_dot(acc1, dp, b1s, g, t4);               // DKV: dk += ds^T q; else dq += ds k
-    if (DKV) round_dot(acc2, s, b2s, g, t4);       // dv += p^T do
-    __syncthreads();  // the next tile overwrites b1s, b2s and the statistics
-  }
-
-  bf16* out1 = static_cast<bf16*>(DKV ? p.dk : p.dq) + b * (DKV ? p.dks.b : p.dqs.b) +
-               h * (DKV ? p.dks.h : p.dqs.h);
-  const long long out1_l = DKV ? p.dks.l : p.dqs.l;
-  bf16* out2 = static_cast<bf16*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
-  const long long row = row0 + r0 + g;
-#pragma unroll
-  for (int nt = 0; nt < FD / 8; ++nt) {
-    const int col = oc * FD + nt * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(out1 + row * out1_l + col) = pack_bf16(acc1[nt][0], acc1[nt][1]);
-    *reinterpret_cast<uint32_t*>(out1 + (row + 8) * out1_l + col) =
-        pack_bf16(acc1[nt][2], acc1[nt][3]);
-    if (DKV) {
-      *reinterpret_cast<uint32_t*>(out2 + row * p.dvs.l + col) = pack_bf16(acc2[nt][0], acc2[nt][1]);
-      *reinterpret_cast<uint32_t*>(out2 + (row + 8) * p.dvs.l + col) =
-          pack_bf16(acc2[nt][2], acc2[nt][3]);
-    }
-  }
-}
-
 // f32: FT threads, each a 4 x 4 tile of s and dp (rows ty*4 + i, columns
 // tx + 16 j) over 32-wide head-dim chunks, then p and ds through shared
 // memory into a 4 x 8 tile of each output (columns tx + 16 j of the chunk).
@@ -955,20 +807,12 @@ __global__ void __launch_bounds__(FT) flash_bwd_f32(BParams p) {
 }
 
 template <bool DKV>
-int launch_bwd(const BParams& p, int B, int is_f32, cudaStream_t st) {
+int launch_bwd_f32(const BParams& p, int B, cudaStream_t st) {
   const dim3 grid((DKV ? p.Lk : p.Lq) / BR, p.H * (p.d / FD), B);
-  cudaError_t err;
-  if (is_f32) {
-    err = cudaFuncSetAttribute(flash_bwd_f32<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               BWD_F32_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_f32<DKV><<<grid, FT, BWD_F32_SMEM, st>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(flash_bwd_bf16<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               BWD_BF16_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_bf16<DKV><<<grid, NTHREADS, BWD_BF16_SMEM, st>>>(p);
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_f32<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_F32_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_f32<DKV><<<grid, FT, BWD_F32_SMEM, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1019,11 +863,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // One backward kernel: part 0 the dk/dv kernel (writes dk, dv), part 1 the
-// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous; bf16 at
-// d = 128 reads two more planes after di, m log2(e) and 1 / l (the wrapper
-// forms them), from a 16-byte aligned di. Returns
-// the launch's CUDA error (0 on success). Shapes and strides as for the
-// forward, with Lq and Lk multiples of 64; the Python wrapper checks them.
+// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous; bf16
+// reads two more planes after di, m log2(e) and 1 / l (the wrapper forms
+// them), from a 16-byte aligned di. Returns the launch's CUDA error (0 on
+// success). Shapes and strides as for the forward, with Lq and Lk
+// multiples of 64 and bf16 d = 128 or 256; the Python wrapper checks them.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                    const float* m, const float* l, const float* di, void* dq,
                                    void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
@@ -1035,27 +879,32 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long dk_sh, long long dk_sl, long long dv_sb,
                                    long long dv_sh, long long dv_sl, float scale, void* stream) {
   if (B < 1 || H < 1 || Lq < BR || Lk < BC || Lq % BR || Lk % BC || d < FD || d % FD ||
-      B > 65535 || (long long)H * (d / FD) > 65535 || part < 0 || part > 1)
+      B > 65535 || (long long)H * (d / FD) > 65535 || part < 0 || part > 1 ||
+      (!is_f32 && d != 128 && d != 256))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BParams p{q, k, v, g, m, l, di, dq, dk, dv, H, Lq, Lk, d,
-                  {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {g_sb, g_sh, g_sl},
-                  {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl}, {dv_sb, dv_sh, dv_sl}, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_f32 && d == 128) {
-    // the dk/dv kernel copies 64 rows of the di, m log2(e) and 1 / l planes
-    // at a time
-    if (reinterpret_cast<uintptr_t>(di) % 16) return static_cast<int>(cudaErrorInvalidValue);
-    float* dd = const_cast<float*>(di);
-    const long long plane = (long long)B * H * Lq;
-    const sm90::BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-                          static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                          m, l, dd + plane, dd + 2 * plane, dd,
-                          Lq, Lq, Lk, d, B, H, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
-                          g_sb, g_sh, g_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl,
-                          dv_sb, dv_sh, dv_sl, scale};
-    return part == 0 ? sm90::launch_bwd_sm90<sm90::BCfg<128, 64, true, true, false>>(a, st)
-                     : sm90::launch_bwd_sm90<sm90::BCfg<128, 64, true, false, false>>(a, st);
+  if (is_f32) {
+    const BParams p{q, k, v, g, m, l, di, dq, dk, dv, H, Lq, Lk, d,
+                    {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {g_sb, g_sh, g_sl},
+                    {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl}, {dv_sb, dv_sh, dv_sl}, scale};
+    return part == 0 ? launch_bwd_f32<true>(p, B, st) : launch_bwd_f32<false>(p, B, st);
   }
-  return part == 0 ? launch_bwd<true>(p, B, is_f32, st) : launch_bwd<false>(p, B, is_f32, st);
+  // the dk/dv kernel copies BN rows of the di, m log2(e) and 1 / l planes at
+  // a time
+  if (reinterpret_cast<uintptr_t>(di) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  float* dd = const_cast<float*>(di);
+  const long long plane = (long long)B * H * Lq;
+  const sm90::BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                        m, l, dd + plane, dd + 2 * plane, dd,
+                        Lq, Lq, Lk, d, B, H, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+                        g_sb, g_sh, g_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl,
+                        dv_sb, dv_sh, dv_sl, scale, d, nullptr, nullptr, nullptr, nullptr};
+  using sm90::BCfg;
+  if (d == 128)
+    return part == 0 ? sm90::launch_bwd_sm90<BCfg<128, 64, true, true, false>>(a, st)
+                     : sm90::launch_bwd_sm90<BCfg<128, 64, true, false, false>>(a, st);
+  return part == 0 ? sm90::launch_bwd_sm90<BCfg<256, 32, true, true, false, sm90::SPLIT>>(a, st)
+                   : sm90::launch_bwd_sm90<BCfg<256, 64, true, false, false, sm90::SPLIT>>(a, st);
 }

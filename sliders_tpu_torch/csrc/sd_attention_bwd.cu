@@ -22,23 +22,23 @@
 //   1. a q-major dq kernel: one pass over K and V finds each row's softmax
 //      max m, sum l and dsum (a running max, l and dsum's sum rescaled when
 //      it grows), a second forms ds and accumulates dq = ds . k; it writes
-//      dq and each row's (m, l, dsum) to a small f32 scratch;
+//      dq and each row's (m log2 e, 1 / l, dsum) to a small f32 scratch;
 //   2. a K/V-major dk/dv kernel that recomputes p^T from the scratch and
 //      accumulates dv += pb^T . g and, with dp^T = v . g^T, dk += ds^T . q.
 //
-// bf16 (every d the gate takes, 8 to 128 in steps of 8): both kernels run on
-// the Hopper backward mainloop of attention_bwd_sm90.cuh (a producer filling
-// a ring by TMA at d = 64 and 128 and by cp.async with zero-filled pad
-// columns elsewhere; `wgmma` on two consumer warpgroups of 64 rows each,
-// ds and p going from registers straight into the A operands of the
-// accumulating products). The source note there says what bounds it.
-//
-// f32 (`--precision float32` only) runs one thread per row with plain FMAs
-// (one q row in the dq kernel, one K/V row in the dk/dv kernel), with K/V or
-// q/g tiles of 32 rows in shared memory, three passes in the dq kernel. The
-// head dim is zero-padded to a multiple of 16 inside shared memory and
-// registers only. Every tensor takes element strides for batch, head and row
-// (the last dim must be contiguous).
+// Both kernels run on the Hopper backward mainloop of
+// attention_bwd_sm90.cuh at every d the gate takes (8 to 128 in steps of
+// 8): a producer filling a ring by TMA (bf16 by cp.async with zero-filled
+// pad columns where a row is not 128 or 256 bytes), `wgmma` on two
+// consumer warpgroups. bf16 runs the PAIR plan (ds and p from registers
+// straight into the A operands of the accumulating products). f32
+// (`--precision float32`) runs the TF32 plan, every product three TF32
+// `wgmma`s (hi and lo parts): this file's `tf32_split_bhld` first writes
+// the hi and lo planes of q, k, v and g into the scratch after the
+// statistics, once a call; f32 rows are handed to the mainloop as bf16 rows
+// of twice the width. The source note there says what bounds each plan and
+// what its design does about it. Every tensor takes element strides for
+// batch, head and row (the last dim must be contiguous).
 
 #include "sd_attention_common.cuh"
 #include "attention_bwd_sm90.cuh"
@@ -53,173 +53,92 @@ struct BwdParams {
   void* dq;
   void* dk;
   void* dv;
-  float* stats;  // f32 scratch: m, 1 / l, dsum planes of (B, H, Lq) (f32) or m log2(e),
-                 // 1 / l, dsum of (B, H, Lq rounded up to 128) (bf16)
+  // f32 scratch: m log2(e), 1 / l, dsum planes of (B, H, sl), sl = Lq
+  // rounded up to 128; f32 then the hi and lo planes of q, g, k and v
+  float* stats;
   int H, Lq, Lk, d;
   Strides qs, ks, vs, gs, dqs, dks, dvs;
   float scale;
 };
 
-__device__ __forceinline__ long long stat_index(const BwdParams& p, int b, int h, int row) {
-  return ((long long)b * p.H + h) * p.Lq + row;
-}
-
-// ---------------------------------------------------------------------------
-// f32: plain FMAs, one thread per row
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__device__ __forceinline__ void load_row_f32(float (&r)[DP], const float* src, long long row_stride,
-                                             int row, int nrows, int d) {
+// hi = tf32(x), lo = tf32(x - hi) of a (B, H, L, d) f32 tensor with element
+// strides (b, h, l) into two contiguous (B, H, L, d) planes, hi then lo, n
+// elements each; four floats a thread (d % 8 == 0, 16-byte rows)
+__global__ void tf32_split_bhld(const float* x, long long sb, long long sh, long long sl, int H,
+                                int L, int d, float* hi, long long n) {
+  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4; i < n;
+       i += 4ll * gridDim.x * blockDim.x) {
+    const int c = static_cast<int>(i % d);
+    long long r = i / d;
+    const int l = static_cast<int>(r % L);
+    r /= L;
+    const int h = static_cast<int>(r % H);
+    const float4 v = *reinterpret_cast<const float4*>(x + (r / H) * sb + h * sh + l * sl + c);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    float out_hi[4], out_lo[4];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) r[i] = (row < nrows && i < d) ? src[(long long)row * row_stride + i] : 0.f;
-}
-
-template <int DP>
-__global__ void __launch_bounds__(BQ) attn_bwd_dq_f32(BwdParams p) {
-  __shared__ __align__(16) float ks[BKF * DP];
-  __shared__ __align__(16) float vs[BKF * DP];
-
-  const int row = blockIdx.x * BQ + threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const float* k = static_cast<const float*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const float* v = static_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.h;
-  const float* go = static_cast<const float*>(p.g) + b * p.gs.b + h * p.gs.h;
-  float* dq = static_cast<float*>(p.dq) + b * p.dqs.b + h * p.dqs.h;
-
-  float qr[DP], gr[DP];
-  load_row_f32<DP>(qr, q, p.qs.l, row, p.Lq, p.d);
-  load_row_f32<DP>(gr, go, p.gs.l, row, p.Lq, p.d);
-
-  float m, l;
-  row_stats_f32<DP>(qr, ks, k, p.ks.l, p.Lk, p.d, p.scale, m, l);
-  const float inv = 1.f / l;
-
-  // pass 2: dsum
-  float dsum = 0.f;
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BKF) {
-    load_rows_f32<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    load_rows_f32<DP>(vs, v, p.vs.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    const int nk = min(BKF, p.Lk - kv0);
-#pragma unroll 2
-    for (int j = 0; j < nk; ++j) {
-      float dot = 0.f, dpj = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        dot = fmaf(qr[i], ks[j * DP + i], dot);
-        dpj = fmaf(gr[i], vs[j * DP + i], dpj);
-      }
-      dsum = fmaf(__expf(dot * p.scale - m) * inv, dpj, dsum);
+    for (int j = 0; j < 4; ++j) {
+      out_hi[j] = sm90::tf32_rna(e[j]);
+      out_lo[j] = sm90::tf32_rna(__fsub_rn(e[j], out_hi[j]));
     }
-    __syncthreads();
-  }
-
-  // pass 3: dq = sum_j p_j (dp_j - dsum) k_j
-  float acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += BKF) {
-    load_rows_f32<DP>(ks, k, p.ks.l, kv0, p.Lk, p.d);
-    load_rows_f32<DP>(vs, v, p.vs.l, kv0, p.Lk, p.d);
-    __syncthreads();
-    const int nk = min(BKF, p.Lk - kv0);
-#pragma unroll 2
-    for (int j = 0; j < nk; ++j) {
-      float dot = 0.f, dpj = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        dot = fmaf(qr[i], ks[j * DP + i], dot);
-        dpj = fmaf(gr[i], vs[j * DP + i], dpj);
-      }
-      const float dsj = __expf(dot * p.scale - m) * inv * (dpj - dsum);
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[i] = fmaf(dsj, ks[j * DP + i], acc[i]);
-    }
-    __syncthreads();
-  }
-  if (row < p.Lq) {
-#pragma unroll
-    for (int i = 0; i < DP; ++i)
-      if (i < p.d) dq[(long long)row * p.dqs.l + i] = acc[i] * p.scale;
-    const long long n = (long long)gridDim.z * p.H * p.Lq;
-    const long long si = stat_index(p, b, h, row);
-    p.stats[si] = m;
-    p.stats[n + si] = inv;
-    p.stats[2 * n + si] = dsum;
+    *reinterpret_cast<float4*>(hi + i) = make_float4(out_hi[0], out_hi[1], out_hi[2], out_hi[3]);
+    *reinterpret_cast<float4*>(hi + n + i) =
+        make_float4(out_lo[0], out_lo[1], out_lo[2], out_lo[3]);
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(BQ) attn_bwd_dkdv_f32(BwdParams p) {
-  __shared__ __align__(16) float qs[BKF * DP];
-  __shared__ __align__(16) float gs[BKF * DP];
-  __shared__ float st_m[BKF], st_inv[BKF], st_dsum[BKF];
-
-  const int row = blockIdx.x * BQ + threadIdx.x;  // a K/V row
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const float* k = static_cast<const float*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const float* v = static_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.h;
-  const float* go = static_cast<const float*>(p.g) + b * p.gs.b + h * p.gs.h;
-  float* dk = static_cast<float*>(p.dk) + b * p.dks.b + h * p.dks.h;
-  float* dv = static_cast<float*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
-  const long long plane = (long long)gridDim.z * p.H * p.Lq;
-  const float* stats = p.stats + stat_index(p, b, h, 0);
-
-  float kr[DP], vr[DP], dka[DP], dva[DP];
-  load_row_f32<DP>(kr, k, p.ks.l, row, p.Lk, p.d);
-  load_row_f32<DP>(vr, v, p.vs.l, row, p.Lk, p.d);
-#pragma unroll
-  for (int i = 0; i < DP; ++i) dka[i] = dva[i] = 0.f;
-
-  for (int q0 = 0; q0 < p.Lq; q0 += BKF) {
-    load_rows_f32<DP>(qs, q, p.qs.l, q0, p.Lq, p.d);
-    load_rows_f32<DP>(gs, go, p.gs.l, q0, p.Lq, p.d);
-    if (threadIdx.x < BKF && q0 + threadIdx.x < p.Lq) {
-      st_m[threadIdx.x] = stats[q0 + threadIdx.x];
-      st_inv[threadIdx.x] = stats[plane + q0 + threadIdx.x];
-      st_dsum[threadIdx.x] = stats[2 * plane + q0 + threadIdx.x];
-    }
-    __syncthreads();
-    const int nq = min(BKF, p.Lq - q0);
-#pragma unroll 2
-    for (int j = 0; j < nq; ++j) {
-      float dot = 0.f, dpj = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        dot = fmaf(kr[i], qs[j * DP + i], dot);
-        dpj = fmaf(vr[i], gs[j * DP + i], dpj);
-      }
-      const float pj = __expf(dot * p.scale - st_m[j]) * st_inv[j];
-      const float dsj = pj * (dpj - st_dsum[j]);
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        dva[i] = fmaf(pj, gs[j * DP + i], dva[i]);
-        dka[i] = fmaf(dsj, qs[j * DP + i], dka[i]);
-      }
-    }
-    __syncthreads();
-  }
-  if (row < p.Lk) {
-#pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      if (i < p.d) {
-        dk[(long long)row * p.dks.l + i] = dka[i] * p.scale;
-        dv[(long long)row * p.dvs.l + i] = dva[i];
-      }
-    }
-  }
-}
-
-template <int DP>
-int launch_f32(const BwdParams& p, int B, cudaStream_t stream) {
-  attn_bwd_dq_f32<DP><<<dim3((p.Lq + BQ - 1) / BQ, p.H, B), BQ, 0, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_f32<DP><<<dim3((p.Lk + BQ - 1) / BQ, p.H, B), BQ, 0, stream>>>(p);
+int split(const float* x, const Strides& s, int B, int H, int L, int d, float* hi,
+          cudaStream_t stream) {
+  const long long n = (long long)B * H * L * d;
+  const long long blocks = (n / 4 + 255) / 256;
+  tf32_split_bhld<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      x, s.b, s.h, s.l, H, L, d, hi, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the mainloop's arguments: q, k, v, g as bf16 rows of dw columns (f32: 2 d,
+// strides doubled), the statistics planes at the head of the scratch
+sm90::BwdArgs bwd_args(const BwdParams& p, int B, bool f32) {
+  const long long sl = (p.Lq + 127) / 128 * 128, plane = (long long)B * p.H * sl;
+  const long long x = f32 ? 2 : 1;
+  return sm90::BwdArgs{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
+                       static_cast<const bf16*>(p.v), static_cast<const bf16*>(p.g),
+                       static_cast<bf16*>(p.dq), static_cast<bf16*>(p.dk),
+                       static_cast<bf16*>(p.dv), nullptr, nullptr,
+                       p.stats, p.stats + plane, p.stats + 2 * plane,
+                       sl, p.Lq, p.Lk, p.d, B, p.H,
+                       x * p.qs.b, x * p.qs.h, x * p.qs.l, x * p.ks.b, x * p.ks.h, x * p.ks.l,
+                       x * p.vs.b, x * p.vs.h, x * p.vs.l, x * p.gs.b, x * p.gs.h, x * p.gs.l,
+                       p.dqs.b, p.dqs.h, p.dqs.l, p.dks.b, p.dks.h, p.dks.l,
+                       p.dvs.b, p.dvs.h, p.dvs.l, p.scale, static_cast<int>(x * p.d),
+                       nullptr, nullptr, nullptr, nullptr};
+}
+
+// f32: the split pass over q, g, k and v, then the dq kernel (which writes
+// the statistics), then the dk/dv kernel, on the TF32 plan with the head
+// dim padded to DPF; 64-row streamed tiles where DPF <= 48, else 32 (two
+// stages of four planes fit beside the exchange)
+template <int DPF, bool TMA>
+int launch_f32(const BwdParams& p, int B, cudaStream_t stream) {
+  sm90::BwdArgs a = bwd_args(p, B, true);
+  const long long nq = (long long)B * p.H * p.Lq * p.d, nk = (long long)B * p.H * p.Lk * p.d;
+  float* hq = p.stats + 3 * (long long)B * p.H * a.sl;
+  float* hg = hq + 2 * nq;
+  float* hk = hg + 2 * nq;
+  float* hv = hk + 2 * nk;
+  int err = split(static_cast<const float*>(p.q), p.qs, B, p.H, p.Lq, p.d, hq, stream);
+  if (err == 0) err = split(static_cast<const float*>(p.g), p.gs, B, p.H, p.Lq, p.d, hg, stream);
+  if (err == 0) err = split(static_cast<const float*>(p.k), p.ks, B, p.H, p.Lk, p.d, hk, stream);
+  if (err == 0) err = split(static_cast<const float*>(p.v), p.vs, B, p.H, p.Lk, p.d, hv, stream);
+  if (err != 0) return err;
+  a.hq = reinterpret_cast<const bf16*>(hq);
+  a.hg = reinterpret_cast<const bf16*>(hg);
+  a.hk = reinterpret_cast<const bf16*>(hk);
+  a.hv = reinterpret_cast<const bf16*>(hv);
+  constexpr int BN = DPF <= 48 ? 64 : 32;
+  err = sm90::launch_bwd_sm90<sm90::BCfg<2 * DPF, BN, TMA, false, true, sm90::TF32>>(a, stream);
+  if (err != 0) return err;
+  return sm90::launch_bwd_sm90<sm90::BCfg<2 * DPF, BN, TMA, true, true, sm90::TF32>>(a, stream);
 }
 
 // the dq kernel (which writes the statistics), then the dk/dv kernel; TMA
@@ -234,34 +153,46 @@ int launch_bf16(const sm90::BwdArgs& a, cudaStream_t stream) {
 }
 
 template <int DP>
-int launch_bwd(const BwdParams& p, int B, int is_f32, cudaStream_t stream) {
-  if (is_f32) return launch_f32<DP>(p, B, stream);
-  // m log2(e), 1 / l, dsum planes of (B, H, Lq rounded up to 128): 16-byte
-  // aligned rows for the dk/dv kernel's copies; the dq kernel's 128-row
-  // tiles fill them
-  const long long sl = (p.Lq + 127) / 128 * 128, plane = (long long)B * p.H * sl;
-  const sm90::BwdArgs a{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
-                        static_cast<const bf16*>(p.v), static_cast<const bf16*>(p.g),
-                        static_cast<bf16*>(p.dq), static_cast<bf16*>(p.dk),
-                        static_cast<bf16*>(p.dv), nullptr, nullptr,
-                        p.stats, p.stats + plane, p.stats + 2 * plane,
-                        sl, p.Lq, p.Lk, p.d, B, p.H,
-                        p.qs.b, p.qs.h, p.qs.l, p.ks.b, p.ks.h, p.ks.l, p.vs.b, p.vs.h, p.vs.l,
-                        p.gs.b, p.gs.h, p.gs.l, p.dqs.b, p.dqs.h, p.dqs.l,
-                        p.dks.b, p.dks.h, p.dks.l, p.dvs.b, p.dvs.h, p.dvs.l, p.scale};
+int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  const sm90::BwdArgs a = bwd_args(p, B, false);
   if constexpr (DP == 64 || DP == 128) {
     if (p.d == DP) return launch_bf16<DP, true>(a, stream);
   }
   return launch_bf16<DP, false>(a, stream);
 }
 
+// f32: d itself where it is 40 (SD1.5) or a multiple of 16, else the next
+// of those; TMA where a row is 128, 256 or 512 bytes (d = 32, 64, 128)
+int launch_f32_any(const BwdParams& p, int B, cudaStream_t stream) {
+  switch (p.d) {
+    case 8:
+    case 16: return launch_f32<16, false>(p, B, stream);
+    case 24: return launch_f32<40, false>(p, B, stream);
+    case 32: return launch_f32<32, true>(p, B, stream);
+    case 40: return launch_f32<40, false>(p, B, stream);
+    case 48: return launch_f32<48, false>(p, B, stream);
+    case 56: return launch_f32<80, false>(p, B, stream);
+    case 64: return launch_f32<64, true>(p, B, stream);
+    case 72:
+    case 80: return launch_f32<80, false>(p, B, stream);
+    case 88:
+    case 96: return launch_f32<96, false>(p, B, stream);
+    case 104:
+    case 112: return launch_f32<112, false>(p, B, stream);
+    case 120: return launch_f32<128, false>(p, B, stream);
+    case 128: return launch_f32<128, true>(p, B, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Launches the dq kernel, then the dk/dv kernel, on `stream`; returns the
-// first CUDA error that is not 0, else 0. Pointers must be 16-byte
-// aligned, d a multiple of 8 in [8, 128], row/head/batch strides (in
-// elements) multiples of 8, and `stats` an f32 scratch of 3 B H Lq' floats,
-// Lq' = Lq rounded up to 128; the Python wrapper checks all of this.
+// Launches the dq kernel, then the dk/dv kernel (f32: after the split
+// pass), on `stream`; returns the first CUDA error that is not 0, else 0.
+// Pointers must be 16-byte aligned, d a multiple of 8 in [8, 128],
+// row/head/batch strides (in elements) multiples of 8, and `stats` an f32
+// scratch of 3 B H Lq' floats, Lq' = Lq rounded up to 128, and in f32 4 B H
+// (Lq + Lk) d more; the Python wrapper checks all of this.
 extern "C" int sd_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                 void* dq, void* dk, void* dv, float* stats, int B, int H, int Lq,
                                 int Lk, int d, int is_f32, long long q_sb, long long q_sh,
@@ -279,15 +210,16 @@ extern "C" int sd_attention_bwd(const void* q, const void* k, const void* v, con
                     {g_sb, g_sh, g_sl}, {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl},
                     {dv_sb, dv_sh, dv_sl}, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f32) return launch_f32_any(p, B, st);
   switch ((d + 15) / 16 * 16) {
-    case 16: return launch_bwd<16>(p, B, is_f32, st);
-    case 32: return launch_bwd<32>(p, B, is_f32, st);
-    case 48: return launch_bwd<48>(p, B, is_f32, st);
-    case 64: return launch_bwd<64>(p, B, is_f32, st);
-    case 80: return launch_bwd<80>(p, B, is_f32, st);
-    case 96: return launch_bwd<96>(p, B, is_f32, st);
-    case 112: return launch_bwd<112>(p, B, is_f32, st);
-    case 128: return launch_bwd<128>(p, B, is_f32, st);
+    case 16: return launch_bwd<16>(p, B, st);
+    case 32: return launch_bwd<32>(p, B, st);
+    case 48: return launch_bwd<48>(p, B, st);
+    case 64: return launch_bwd<64>(p, B, st);
+    case 80: return launch_bwd<80>(p, B, st);
+    case 96: return launch_bwd<96>(p, B, st);
+    case 112: return launch_bwd<112>(p, B, st);
+    case 128: return launch_bwd<128>(p, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -15,8 +15,8 @@ When grad mode is on and an input requires grad, the call goes through
 row's final max m and sum l in f32 (the residuals of the TPU kernel's
 `_flash_attention_fwd`), and its backward is `flash_attention_bwd`: on CUDA
 the TPU kernel's two backward kernels ported by hand (a K/V-major dk/dv
-kernel and a q-major dq kernel, no atomics; bf16 at d = 128 on the backward
-mainloop of `csrc/attention_bwd_sm90.cuh`), on the CPU
+kernel and a q-major dq kernel, no atomics; bf16 at d = 128 and 256 on the
+backward mainloop of `csrc/attention_bwd_sm90.cuh`), on the CPU
 `flash_attention_bwd_ref`, their plain version on the same schedule and
 cast points. di = rowsum(o * do) is a torch reduction, as the TPU code takes
 it outside its kernels. The backward takes d = 128 and 256 (FLUX's joint
@@ -183,8 +183,8 @@ def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
     stats = [t.float().contiguous() for t in (m, l)]
     if any(t.shape != (B, H, Lq) for t in stats):
         raise ValueError(f"m and l must be (B, H, Lq) = {(B, H, Lq)}")
-    # di, then each row's m log2(e) and 1 / l: the form the bf16 d = 128
-    # dk/dv kernel's exps take, made once per row (the other kernels read di)
+    # di, then each row's m log2(e) and 1 / l: the form the bf16 dk/dv
+    # kernel's exps take, made once per row (the f32 kernels read di)
     di = torch.empty((3, B, H, Lq), dtype=torch.float32, device=q.device)
     torch.sum(o.float() * do.float(), -1, out=di[0])
     torch.mul(stats[0], LOG2E, out=di[1])

@@ -25,8 +25,11 @@ Hopper mainloop of `csrc/attention_sm90.cuh` (a producer warpgroup filling a
 K/V ring by TMA or cp.async, wgmma on two consumer warpgroups). The bf16
 backward runs on the backward mainloop of `csrc/attention_bwd_sm90.cuh` on
 the same ring: a dq kernel that first finds each row's softmax statistics,
-then a dk/dv kernel, no atomics. The f32 variants keep plain FMAs. The
-source files carry the details.
+then a dk/dv kernel, no atomics. The f32 forward keeps plain FMAs; the f32
+backward runs on the same backward mainloop with every product as three
+TF32 `wgmma`s (error-compensated TF32), after a pass that splits q, k, v and
+g into TF32 hi and lo planes in the scratch. The source files carry the
+details.
 
 Both libraries are built with nvcc at first use into
 `sliders_tpu_torch/_build/` together with the package's other kernels
@@ -139,12 +142,23 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _scratch_floats(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Floats of the backward kernels' scratch: each q row's softmax max,
+    sum and dsum (3 planes of (B, H, Lq rounded up to 128)), and in f32 the
+    hi and lo TF32 planes of q, g, k and v that the split pass writes."""
+    B, H, Lq, d = q.shape
+    n = 3 * B * H * (-(-Lq // 128) * 128)
+    if q.dtype == torch.float32:
+        n += 4 * B * H * (Lq + k.shape[2]) * d
+    return n
+
+
 def sd_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      g: torch.Tensor) -> tuple:
     """(dq, dk, dv) of `sd_attention(q, k, v)` for the output gradient g, all
     (B, H, L, d) in the input dtype. CUDA tensors launch the backward kernel
-    (a dq kernel, then a dk/dv kernel, on the current stream); CPU tensors
-    run `sd_attention_bwd_ref`."""
+    (in f32 the TF32 split pass, then a dq kernel, then a dk/dv kernel, on
+    the current stream); CPU tensors run `sd_attention_bwd_ref`."""
     if q.device.type == "cpu":
         return sd_attention_bwd_ref(q, k, v, g)
     if q.device.type != "cuda":
@@ -157,9 +171,7 @@ def sd_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Lq, d = q.shape
     Lk = k.shape[2]
     dq, dk, dv = _bhld_buffer(q), _bhld_buffer(k), _bhld_buffer(v)
-    # each row's softmax max, sum and dsum; the bf16 kernels keep rows of a
-    # multiple of 128
-    stats = torch.empty((3, B, H, -(-Lq // 128) * 128), dtype=torch.float32, device=q.device)
+    stats = torch.empty(_scratch_floats(q, k), dtype=torch.float32, device=q.device)
     lib = _build.library("bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

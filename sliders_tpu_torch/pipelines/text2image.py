@@ -19,6 +19,8 @@ continuous step function (ROADMAP queue 1, items 7 and 13).
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Optional
 
 import torch
@@ -109,12 +111,37 @@ def initial_latents(generator: torch.Generator, batch: int, height: int, width: 
     return noise * init_noise_sigma
 
 
+# The served decode's f32 arithmetic, set here and not left to whatever the
+# process set last: cuDNN's convs (conv impl 'xla') in TF32, one pass, as
+# they ran before the port chose (PyTorch's default); matmuls in full f32.
+# The f32-accurate decode is conv impl 'auto', whose conv kernels run
+# 3xTF32 whatever these flags say (PERF.md section 7).
+DECODE_CONV_TF32 = True
+DECODE_MATMUL_TF32 = False
+
+
+@contextlib.contextmanager
+def decode_precision():
+    """cuDNN's and cuBLAS's TF32 flags as the served decode takes them
+    (DECODE_CONV_TF32, DECODE_MATMUL_TF32) inside the block, restored after."""
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = DECODE_CONV_TF32
+    torch.backends.cuda.matmul.allow_tf32 = DECODE_MATMUL_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
 @torch.inference_mode()
 def decode_images(vae_params: dict, vae_cfg: vae.VaeConfig, latents: torch.Tensor) -> torch.Tensor:
     """latents -> uint8 (B, H, W, 3) images. Decodes in f32 whatever the
     weights' dtype (conv2d casts weights to the activation dtype), as the
-    JAX package does."""
-    imgs = vae.decode(vae_params, vae_cfg, vae.denormalize_latents(vae_cfg, latents).float())
+    JAX package does, under `decode_precision`, so the same latents give
+    the same images whatever TF32 flags the process holds."""
+    with decode_precision():
+        imgs = vae.decode(vae_params, vae_cfg, vae.denormalize_latents(vae_cfg, latents).float())
     imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
     return (imgs * 255).to(torch.uint8)
 

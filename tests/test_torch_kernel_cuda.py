@@ -101,49 +101,56 @@ def test_bwd_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("length", [1000, 1090, 100])
 @pytest.mark.parametrize("d", list(range(8, 129, 8)))
-def test_bwd_kernel_every_head_dim_and_ragged_length(cuda, d, length):
-    """#2's bf16 backward on the Hopper backward mainloop at every head dim
-    the gate takes (TMA at d = 64 and 128, cp.async with zero-filled pad
-    columns elsewhere), at B = 2 and lengths that leave a ragged last q and
-    key tile (1000, 1090) and one below a 128-row tile (100): within 4 bf16
-    ulps of sd_attention_bwd_ref at each output's largest magnitude, one
-    counted launch."""
+def test_bwd_kernel_every_head_dim_and_ragged_length(cuda, d, length, dtype):
+    """#2's backward on the Hopper backward mainloop at every head dim the
+    gate takes (TMA where a row is 128, 256 or 512 bytes, cp.async with
+    zero-filled pad columns elsewhere), bf16 on the PAIR plan and f32 on the
+    TF32 plan (three TF32 products a step), at B = 2 and lengths that leave
+    a ragged last q and key tile (1000, 1090) and one below a tile (100):
+    bf16 within 4 ulps of sd_attention_bwd_ref at each output's largest
+    magnitude, f32 within 1e-5 of it, one counted launch."""
     gen = torch.Generator(device=cuda).manual_seed(d * 11 + length)
-    q, k, v, g = (torch.randn((2, 3, length, d), generator=gen, device=cuda).bfloat16()
+    q, k, v, g = (torch.randn((2, 3, length, d), generator=gen, device=cuda).to(dtype)
                   for _ in range(4))
     launches = sa.sd_attention_bwd.launches
     out = sa.sd_attention_bwd(q, k, v, g)
     torch.cuda.synchronize()
     assert sa.sd_attention_bwd.launches == launches + 1
-    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), torch.bfloat16)
+    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), dtype)
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [40, 64, 80, 128])
-def test_bwd_kernel_takes_head_views(cuda, d):
+def test_bwd_kernel_takes_head_views(cuda, d, dtype):
     """#2's backward on (B, H, L, d) head views of (B, L, H*d) buffers (q, k,
-    v and g), B = 2, a ragged L: the kernels read the strides as they lie."""
+    v and g), B = 2, a ragged L: the kernels (and, in f32, the split pass)
+    read the strides as they lie."""
     gen = torch.Generator(device=cuda).manual_seed(d + 3)
-    q, k, v, g = (_heads(torch.randn((2, 1090, 3 * d), generator=gen, device=cuda).bfloat16(), 3)
+    q, k, v, g = (_heads(torch.randn((2, 1090, 3 * d), generator=gen, device=cuda).to(dtype), 3)
                   for _ in range(4))
     out = sa.sd_attention_bwd(q, k, v, g)
-    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), torch.bfloat16)
+    _bwd_within_tolerance(out, sa.sd_attention_bwd_ref(q, k, v, g), dtype)
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("kernel,shape", [("sd", (1, 8, 1024, 80)), ("sd", (2, 3, 1090, 128)),
-                                          ("sd", (1, 8, 4096, 40)), ("flash", (1, 3, 2048, 128)),
-                                          ("flash", (2, 2, 1024, 256))])
-def test_bwd_kernels_are_deterministic(cuda, kernel, shape):
+@pytest.mark.parametrize("kernel,shape,dtype", [
+    ("sd", (1, 8, 1024, 80), torch.bfloat16), ("sd", (2, 3, 1090, 128), torch.bfloat16),
+    ("sd", (1, 8, 4096, 40), torch.bfloat16), ("flash", (1, 3, 2048, 128), torch.bfloat16),
+    ("flash", (2, 2, 1024, 256), torch.bfloat16), ("sd", (1, 8, 4096, 40), torch.float32),
+    ("sd", (2, 3, 1090, 128), torch.float32), ("sd", (1, 10, 1024, 64), torch.float32),
+    ("flash", (1, 2, 1024, 128), torch.float32)])
+def test_bwd_kernels_are_deterministic(cuda, kernel, shape, dtype):
     """Two launches of a backward on the same inputs give bit-identical dq,
     dk and dv: no atomics, every sum in a fixed order."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(35)
     B, H, L, d = shape
-    q, k, v, g = (_heads(torch.randn((B, L, H * d), generator=gen, device=cuda).bfloat16(), H)
+    q, k, v, g = (_heads(torch.randn((B, L, H * d), generator=gen, device=cuda).to(dtype), H)
                   for _ in range(4))
     if kernel == "sd":
         first, second = sa.sd_attention_bwd(q, k, v, g), sa.sd_attention_bwd(q, k, v, g)
@@ -842,6 +849,8 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
         ((1, 3, 2048, 128), torch.bfloat16, True),  # head views of (B, L, H*d), as FLUX passes them
         ((2, 3, 2048, 128), torch.bfloat16, True),
         ((2, 2, 1024, 256), torch.bfloat16, False),
+        ((2, 3, 1024, 256), torch.bfloat16, True),  # d = 256 on head views
+        ((1, 16, 4096, 256), torch.bfloat16, False),  # fills the card
         ((1, 2, 1024, 128), torch.float32, False),
         ((1, 2, 1024, 128), torch.float32, True),
         ((1, 1, 1024, 256), torch.float32, False),
@@ -1093,3 +1102,44 @@ def test_tiny_xl_unet_grad_with_the_layout_pin(cuda):
     assert launched == 8 + 7
     for a, b in zip(pinned, plain):
         assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1e-12)
+
+
+@pytest.mark.requires_cuda
+def test_served_decode_sets_its_own_conv_precision(cuda):
+    """The served decode (`text2image.decode_images`) takes the same TF32
+    flags whatever the process set before it: after cuDNN's TF32 flag is
+    set True and after it is set False the images are bit-identical, and
+    the flags are as they were afterwards. The decode's floats (the same
+    `vae.decode` under `decode_precision`: cuDNN convs in TF32 under conv
+    impl 'xla') are held to the plain f32 decode (TF32 off everywhere):
+    TF32 keeps 11 bits, so each conv's products round by up to 2^-10 of
+    their size, and over the SD decoder's 30-odd convs that compounds to
+    under 2^-6 of the output's largest magnitude."""
+    from sliders_tpu_torch.models import vae
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.pipelines import text2image as t2i
+
+    assert basic.conv_impl() == "xla"
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    params = vae.init_params(gen, vae.SD_VAE, device=cuda)
+    lat = torch.randn((2, 16, 16, 4), generator=gen, device=cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    images = []
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            images.append(t2i.decode_images(params, vae.SD_VAE, lat))
+            assert torch.backends.cudnn.allow_tf32 is flag
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            x = vae.denormalize_latents(vae.SD_VAE, lat).float()
+            plain = vae.decode(params, vae.SD_VAE, x)
+            with t2i.decode_precision():
+                served = vae.decode(params, vae.SD_VAE, x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert images[0].dtype == torch.uint8 and images[0].shape == (2, 128, 128, 3)
+    assert torch.equal(images[0], images[1])
+    scale = plain.abs().max().item()
+    assert (served - plain).abs().max().item() <= 2.0**-6 * scale
