@@ -9,9 +9,11 @@ another checkout (a parent commit) on one GPU, in one process, in turns.
 The parent's `sliders_tpu_torch/csrc/{sd_attention,sd_attention_bwd,
 flash_attention,conv3x3}.cu` are compiled with the flags of `ops/_build.py`
 into `<dir>/_ab_build/` and loaded with ctypes behind the same C entry
-points, so the port's wrappers launch either library on the same inputs.
-The conv wrappers run the parent's conv library as the parent's own plan
-would: a parent with this checkout's entries (`tf32_split_launch` among
+points, so the port's wrappers launch either library on the same inputs
+(a parent whose #1 entry takes no scratch, from before the f32 forward's
+3xTF32 kernel, behind `ScratchlessFwd`). The conv wrappers run the
+parent's conv library as the parent's own plan would: a parent with this
+checkout's entries (`tf32_split_launch` among
 them) as they are; a parent whose Hopper entry takes bf16 only (no dtype
 argument, before the f32 Hopper path) with f32 on its generic kernel
 (`BF16HopperConv`; it can go once no such parent is timed). The conv cases (kernel
@@ -64,6 +66,13 @@ CASES = [
     ("sd", (16, 20, 1024, 64), "bfloat16", False),
     ("sd", (2, 10, 1024, 64), "bfloat16", False),
     ("sd", (2, 24, 4608, 128), "bfloat16", True),
+    # #1 in f32 (3xTF32, its split pass in the call): the CFG-doubled denoise
+    # of SD1.5's two levels and SDXL's d = 64 at 512 px, FLUX's 1024 px joint
+    # attention on head views
+    ("sd", (2, 8, 4096, 40), "float32", False),
+    ("sd", (2, 8, 1024, 80), "float32", False),
+    ("sd", (2, 10, 1024, 64), "float32", False),
+    ("sd", (2, 24, 4608, 128), "float32", True),
     ("flash", (1, 24, 16896, 128), "bfloat16", True),
     ("flash", (2, 24, 4608, 128), "bfloat16", True),
     ("flash", (1, 2, 16896, 128), "bfloat16", True),
@@ -87,6 +96,10 @@ CASES = [
     ("sd_bwd", (1, 24, 1536, 128), "float32", True),
     ("flash_bwd", (1, 24, 16896, 128), "bfloat16", True),
     ("flash_bwd", (1, 24, 4608, 128), "bfloat16", True),
+    # #4's f32 backward (the TF32 plan) at the tiny f32 FLUX run's 1280 px
+    # and at FLUX's 1536 px, where f32 first routes to #4
+    ("flash_bwd", (1, 2, 6912, 128), "float32", True),
+    ("flash_bwd", (1, 24, 9728, 128), "float32", True),
     # #4's bf16 backward at d = 256 (no main path): a test shape and one
     # that fills the card
     ("flash_bwd", (1, 2, 2048, 256), "bfloat16", True),
@@ -163,6 +176,24 @@ class BF16HopperConv:
         return self._sm90(*args[:12], *args[13:])
 
 
+class ScratchlessFwd:
+    """A parent's #1 library from before the f32 forward took a scratch (its
+    `sd_attention_fwd` has no scratch argument; f32 on the FMA kernel
+    `attn_fwd_f32`): that entry behind this checkout's signature, the
+    scratch dropped. It can go once no such parent is timed."""
+
+    def __init__(self, lib):
+        from sliders_tpu_torch.ops import _build
+
+        self._fwd = lib.sd_attention_fwd
+        self._fwd.argtypes = [_build._P] * 4 + [_build._I] * 6 + [_build._L] * 12 + [
+            _build._F, _build._P]
+        self._fwd.restype = ctypes.c_int
+
+    def sd_attention_fwd(self, q, k, v, o, scratch, *rest):
+        return self._fwd(q, k, v, o, *rest)
+
+
 def build_parent(parent: str) -> dict:
     """Compile the parent's attention and conv sources; {name: CDLL} with the
     argtypes of this checkout's entry points that the parent's library has
@@ -186,6 +217,11 @@ def build_parent(parent: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"parent {LIBS[name]}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(out)
+        if name == "fwd":
+            with open(os.path.join(csrc, LIBS[name])) as f:
+                if "attn_fwd_f32" in f.read():
+                    libs[name] = ScratchlessFwd(lib)
+                    continue
         bf16_hopper = name == "conv" and not hasattr(lib, "tf32_split_launch")
         for symbol, argtypes in _build.LIBRARIES[name][2].items():
             if hasattr(lib, symbol) and not (bf16_hopper and symbol == "conv3x3_sm90_launch"):

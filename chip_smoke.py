@@ -14,14 +14,17 @@ with its seconds and the seconds since the start:
      attention forward and backward, flash attention, the 3x3 conv kernels,
      GroupNorm, the layout pin) for sm_90a, in parallel; registers, spills
      and shared memory per kernel (the Hopper-mainloop kernels of
-     attention_sm90.cuh at d = 40, 64, 80, 128 and #4's at d = 128, the
-     backward mainloop's of attention_bwd_sm90.cuh, #2's bf16 dq and dk/dv
-     at d = 40, 64, 80, 128, #4's at d = 128 and 256, #2's f32 (3xTF32) at
-     every instantiation, and #4's f32 d = 512 kernel among them), and the
-     build's seconds.
+     attention_sm90.cuh at d = 40, 64, 80, 128 and #4's at d = 128, #1's
+     f32 (3xTF32) forward at every instantiation, the backward mainloop's
+     of attention_bwd_sm90.cuh, #2's bf16 dq and dk/dv at d = 40, 64, 80,
+     128, #4's at d = 128 and 256, #2's f32 (3xTF32) at every
+     instantiation and #4's at d = 128, the split passes, and #4's f32
+     d = 512 kernel among them), and the build's seconds.
   3. kernel: the attention forward kernel against its plain PyTorch version
      at the serving shapes (SD1.5's and SDXL's at bucket 8, SDXL training's
-     at 512 px), the backward kernel at the grad-pass shapes (SD1.5's, and
+     at 512 px) and in f32 (3xTF32) at SD1.5's and SDXL's 512 px denoise
+     and FLUX's 1024 px head views (SDPA f32 and both bounds beside), the
+     backward kernel at the grad-pass shapes (SD1.5's, and
      SDXL's d = 64 at 512 px, bf16 and f32; error of dq/dk/dv and median
      time of each, f32 beside both bounds); the conv kernels #5-#7
      against their plain versions at every conv shape the SD1.5 UNet routes
@@ -34,9 +37,10 @@ with its seconds and the seconds since the start:
      beside at the VAE's, f32 d = 128 and bf16 d = 256), and #4 and #1
      checked, then timed beside SDPA, at the two FLUX serving shapes on
      head views of (B, L, 3072) buffers; #4's backward (its residual
-     forward, dk/dv and dq kernels) at FLUX training's 2048 px grad pass,
-     the tiny 1280 px f32 run and d = 256 (two shapes), and #2 at FLUX's
-     512 px grad pass; the layout pin #9 at the SDXL serving boundaries (bf16 and f32;
+     forward, dk/dv and dq kernels, each on its plan) at FLUX training's
+     2048 px grad pass, the tiny 1280 px f32 run and FLUX's 1536 px in f32
+     (the TF32 plan), and d = 256 (two shapes), and #2 at FLUX's 512 px
+     grad pass; the layout pin #9 at the SDXL serving boundaries (bf16 and f32;
      contiguous, channel-major and sliced inputs; bit for bit) and its
      identity gradient; each kernel's bound and the time of one PyTorch call
      computing the same function; then the tiny slice at 256 px and three tiny
@@ -59,7 +63,8 @@ with its seconds and the seconds since the start:
      alternating rounds, with each conv kernel's launches per forward and
      the noise prediction's distance from the 'xla' route; then the
      training grad pass (batch 1, remat) on the same UNet through both
-     attention kernels against the plain attention path.
+     attention kernels against the plain attention path, in bf16 and in
+     f32 (#1 and #2 on 3xTF32), in turns.
   5. http:   /generate with five scales, two concurrent /generate calls for
      the two sliders (coalesced into one stacked batch), /healthz; then
      five-scale /generate calls under each conv impl ('auto' and 'xla' three
@@ -133,15 +138,21 @@ import zlib
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 50
 ROUTED_PER_FORWARD = 10  # SD1.5 at 512 px: 5 self-attentions at L=4096 + 5 at L=1024
-KERNEL_SHAPES = [  # (B, H, L, d), dtype: the 8-row bucket CFG-doubled, and others
-    ((16, 8, 4096, 40), "bfloat16"),
-    ((16, 8, 1024, 80), "bfloat16"),
-    ((16, 10, 4096, 64), "bfloat16"),  # SDXL serving at 1024 px: 10 a forward
-    ((16, 20, 1024, 64), "bfloat16"),  # and 60 a forward
-    ((2, 10, 1024, 64), "bfloat16"),  # SDXL training's CFG-doubled denoise at 512 px
-    ((2, 8, 1024, 128), "bfloat16"),
-    ((2, 24, 4608, 128), "bfloat16"),  # FLUX's joint attention at 1024 px, 2 of 8 rows
-    ((2, 8, 4096, 40), "float32"),
+KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubled, and others
+    ((16, 8, 4096, 40), "bfloat16", False),
+    ((16, 8, 1024, 80), "bfloat16", False),
+    ((16, 10, 4096, 64), "bfloat16", False),  # SDXL serving at 1024 px: 10 a forward
+    ((16, 20, 1024, 64), "bfloat16", False),  # and 60 a forward
+    ((2, 10, 1024, 64), "bfloat16", False),  # SDXL training's CFG-doubled denoise at 512 px
+    ((2, 8, 1024, 128), "bfloat16", False),
+    ((2, 24, 4608, 128), "bfloat16", False),  # FLUX's joint attention at 1024 px, 2 of 8 rows
+    # --precision float32 (3xTF32): the CFG-doubled denoise of SD1.5's two
+    # levels and SDXL's d = 64 at 512 px, and FLUX's joint attention at
+    # 1024 px on head views of (B, L, 3072)
+    ((2, 8, 4096, 40), "float32", False),
+    ((2, 8, 1024, 80), "float32", False),
+    ((2, 10, 1024, 64), "float32", False),
+    ((2, 24, 4608, 128), "float32", True),
 ]
 BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, and f32
     ((1, 8, 4096, 40), "bfloat16"),
@@ -247,6 +258,7 @@ FLUX_STEPS = {1024: 4, 2048: 2}
 FLASH_SHAPES = [
     ((1, 2, 16896, 128), "bfloat16"), ((2, 24, 4608, 128), "bfloat16"),
     ((1, 2, 6912, 128), "float32"), ((1, 2, 2048, 256), "bfloat16"),
+    ((1, 2, 2048, 256), "float32"),
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
 ]
@@ -254,7 +266,8 @@ FLASH_SHAPES = [
 # SDPA in f32 are timed there, and at SD1.5's decode at 512 px (bucket 8)
 VAE_FLASH_SHAPE = (8, 1, 16384, 512)
 VAE_DECODE_SHAPES = (VAE_FLASH_SHAPE, (8, 1, 4096, 512))
-# and at the shapes of #4's first-design forwards (f32 d = 128, bf16 d = 256)
+# and at the shapes of #4's first-design forwards (f32 d = 128, d = 256 in
+# bf16 and f32)
 FLASH_SDPA_SHAPES = VAE_DECODE_SHAPES + ((1, 2, 6912, 128), (1, 2, 2048, 256))
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
@@ -264,9 +277,11 @@ FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
 TINY_FLUX_PX = 1280  # the least size whose joint attention #4 takes in f32
 TINY_FLUX_STEPS = 2
 # kernel #4's backward against its plain version: FLUX training's grad pass
-# at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32),
-# and d = 256 at a test shape and at one that fills the card
+# at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32, the
+# TF32 plan), FLUX's grad pass at 1536 px in f32 (where f32 first routes to
+# #4), and d = 256 at a test shape and at one that fills the card
 FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 6912, 128), "float32"),
+                    ((1, 24, 9728, 128), "float32"),
                     ((1, 2, 2048, 256), "bfloat16"), ((1, 16, 4096, 256), "bfloat16")]
 # tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
 TINY_FLUX_TRAIN_ITERATIONS = 2
@@ -444,19 +459,25 @@ def phase_device():
 # holds names it): #1's bf16 forward on the Hopper mainloop
 # (attention_sm90.cuh, Cfg<DP, BK, TMA, two-pass>) at SD1.5's d = 40 and 80,
 # SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 on the
-# same mainloop; the backwards on the Hopper backward mainloop
-# (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's policy, plan>): #2's
-# bf16 dq and dk/dv kernels at d = 40, 64, 80 and 128 and #4's at d = 128
-# (PAIR), #4's at d = 256 (SPLIT), #2's f32 kernels at every instantiation
-# (TF32: DP is twice the padded f32 head dim); the conv kernels' Hopper
+# same mainloop; #1's f32 forward (sd_attention.cu, attn_fwd_tf32<FCfg<DPF,
+# BK, TMA>>, 3xTF32) at every instantiation; the backwards on the Hopper
+# backward mainloop (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's
+# policy, plan>): #2's bf16 dq and dk/dv kernels at d = 40, 64, 80 and 128
+# and #4's at d = 128 (PAIR), #4's at d = 256 (SPLIT), #2's f32 kernels at
+# every instantiation and #4's at d = 128 (TF32: DP is twice the padded f32
+# head dim); the split passes of those f32 paths; the conv kernels' Hopper
 # mainloop (conv3x3_sm90.cuh) in bf16 at each BN, with #6's prologue at BN
 # 128 and 160, and in f32 (3xTF32) at BN 128 with and without it, and the
 # weights' TF32 split; every generic conv and GroupNorm instantiation, #4's
-# f32 forwards (d = 512 and the others) and its f32 backward kernels, #9's
-# copy kernels
-# #2's f32 (TF32 plan) instantiations: (padded head dim, TMA)
+# f32 forwards (d = 512 and the others) and its f32 d = 256 backward
+# kernels, #9's copy kernels
+# #2's f32 (TF32 plan) instantiations, and #1's f32 forward's (FCfg<DPF,
+# BK, TMA>, attn_fwd_tf32): (padded head dim, TMA)
 TF32_CONFIGS = ((16, 0), (32, 1), (40, 0), (48, 0), (64, 1), (80, 0), (96, 0), (112, 0),
                 (128, 0), (128, 1))
+FWD_TF32 = tuple((f"FCfgILi{dpf}ELi{64 if dpf <= 64 else 32}ELb{tma}EE",
+                  f"attn_fwd_tf32 #1 f32 d={dpf} ({'TMA' if tma else '16-byte TMA'}, 3xTF32)")
+                 for dpf, tma in TF32_CONFIGS)
 BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
             ("BCfgILi48ELi128ELb0ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
             ("BCfgILi64ELi64ELb1ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
@@ -469,6 +490,8 @@ BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=40 (cp.
             ("BCfgILi128ELi64ELb1ELb0ELb0ELi0EE", "attn_bwd_sm90 #4 dq d=128 (TMA)"),
             ("BCfgILi256ELi32ELb1ELb1ELb0ELi1EE", "attn_bwd_sm90 #4 dk/dv d=256 (TMA, SPLIT)"),
             ("BCfgILi256ELi64ELb1ELb0ELb0ELi1EE", "attn_bwd_sm90 #4 dq d=256 (TMA, SPLIT)"),
+            ("BCfgILi256ELi32ELb1ELb1ELb0ELi2EE", "attn_bwd_sm90 #4 f32 dk/dv d=128 (TMA, TF32)"),
+            ("BCfgILi256ELi32ELb1ELb0ELb0ELi2EE", "attn_bwd_sm90 #4 f32 dq d=128 (TMA, TF32)"),
             *((f"BCfgILi{2 * dpf}ELi{64 if dpf <= 48 else 32}ELb{tma}ELb{dkv}ELb1ELi2EE",
                f"attn_bwd_sm90 #2 f32 {'dk/dv' if dkv else 'dq'} d={dpf} "
                f"({'TMA' if tma else 'cp.async'}, TF32)")
@@ -478,9 +501,11 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("CfgILi64ELi64ELb1ELb1ELi2E", "attn_sm90 #1 d=64 (TMA, 2 blocks an SM)"),
             ("CfgILi128ELi128ELb1ELb1ELi1E", "attn_sm90 #1 d=128 (TMA)"),
             ("CfgILi128ELi128ELb1ELb0ELi1E", "attn_sm90 #4 d=128 (TMA, one pass)"),
+            *FWD_TF32,
             *BWD_SM90,
-            ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32"), ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32"),
-            ("tf32_split_bhld", "tf32_split_bhld (#2 f32)"),
+            ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32 (d = 256)"),
+            ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32 (d = 256)"),
+            ("tf32_split_bhld", "tf32_split_bhld"), ("tf32_split_vt", "tf32_split_vt"),
             *((f"conv3x3_sm90I13__nv_bfloat16Li{bn}ELb{pro}E",
                f"conv3x3_sm90{'<prologue>' if pro else ''} bf16 BN={bn}")
               for bn in (128, 160, 256) for pro in (0, 1) if not (pro and bn == 256)),
@@ -554,6 +579,17 @@ def bwd_sm90_smem(dp: int, bn: int, dkv: bool, kind: int = 0) -> int:
     return fixed + min(4, ((200 * 1024 if kind == 0 else 232448) - fixed) // stage) * stage
 
 
+def fwd_tf32_smem(dpf: int) -> int:
+    """Dynamic shared memory a block of #1's f32 forward takes (sd_attention.cu's
+    FCfg<DPF, BK>: 64 keys a stage where DPF <= 64, else 32): 1024 bytes of
+    alignment slack and 1024 of barriers, the 128-row f32 q tile, then as
+    many stages of K's and V^T's hi and lo planes as fit the block's 227 KiB,
+    at most 4."""
+    bk = 64 if dpf <= 64 else 32
+    fixed, stage = 2048 + 128 * dpf * 4, 4 * bk * dpf * 4
+    return fixed + min(4, (232448 - fixed) // stage) * stage
+
+
 def phase_build():
     from sliders_tpu_torch.ops import _build
 
@@ -585,6 +621,9 @@ def phase_build():
             for d, dp, bn in tf32)
         + "; one block an SM, its consumers take 232 registers a thread and the producer 40 "
         "(setmaxnreg)")
+    say("build", "attn_fwd_tf32 (#1 f32) dynamic shared memory a block (bytes): " + ", ".join(
+        f"d={d} {fwd_tf32_smem(d)}" for d in (40, 64, 80, 128))
+        + "; one block an SM, consumers 232 registers a thread, producer 40 (setmaxnreg)")
     from sliders_tpu_torch.ops import conv3x3 as tc
 
     import torch
@@ -621,9 +660,15 @@ def phase_kernel():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    for shape, dt in KERNEL_SHAPES:
+    for shape, dt, views in KERNEL_SHAPES:
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        B, H, L, d = shape
+        if views:  # head views of (B, L, H*d) projections, as FLUX passes them
+            q, k, v = (torch.randn((B, L, H * d), generator=gen, device="cuda").to(dtype)
+                       .view(B, L, H, d).permute(0, 2, 1, 3) for _ in range(3))
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
         out = sa.sd_attention(q, k, v)
         ref = sa.sd_attention_ref(q, k, v)
         ref32 = sa.sd_attention_ref(q.float(), k.float(), v.float())
@@ -636,14 +681,17 @@ def phase_kernel():
         ms = median_ms(lambda: sa.sd_attention(q, k, v))
         plain_ms = median_ms(lambda: sa.sd_attention_ref(q, k, v))
         library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        bound_ms, bound_by = attention_bound(shape, dt)
-        say("kernel", f"{shape} {dt}: max|err| vs plain {err:.3g} (tol {tol:.3g}), vs f32 "
-            f"{err32:.3g}, max|ref| {ref_max:.3g}; median kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err <= tol and err32 <= 4 * tol):
+        bounds = attention_bounds(shape, dt)
+        say("kernel", f"{shape} {dt}{' head views' if views else ''}: max|err| vs plain "
+            f"{err:.3g} (tol {tol:.3g}), vs f32 {err32:.3g}, max|ref| {ref_max:.3g}; median "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({dt}) {library_ms:.4f} ms; bound "
+            f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']})"
+            + (f"; bounds 3xTF32 {bounds['tf32x3_bound_ms']:.4f}, FMA "
+               f"{bounds['fma_bound_ms']:.4f} ms" if dt == "float32" else ""))
+        if not (err <= tol and err32 <= 4 * tol and out.dtype == dtype and out.shape == shape):
             raise AssertionError(f"sd_attention disagrees with its plain version at {shape} {dt}")
         results.append({"shape": shape, "dtype": dt, "err": err, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                        "library_ms": library_ms, **bounds})
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return results
@@ -1087,7 +1135,9 @@ def phase_flash_bwd_kernel():
     residuals m and l are held to the plain forward's within 1e-5 relative.
     The whole backward is timed (median of 5) beside its plain version, the
     backward of SDPA on the same inputs and the bound (10 B H L^2 d
-    operations; this schedule does 14)."""
+    operations; this schedule does 14; f32 both bounds, 3xTF32 and FMA).
+    Both kernels must launch on the plan of (dtype, d) (`bwd_plan`: f32 at
+    d = 128 the TF32 plan)."""
     import torch
     import torch.nn.functional as F
 
@@ -1102,12 +1152,17 @@ def phase_flash_bwd_kernel():
         q, k, v, g = (torch.randn((B, L, H * d), generator=gen, device="cuda").to(dtype)
                       .view(B, L, H, d).permute(0, 2, 1, 3) for _ in range(4))
         o, m, l = fa._forward(q, k, v, residuals=True)
+        plans = dict(fa.flash_attention_bwd.launches_by_plan)
         out = fa.flash_attention_bwd(q, k, v, o, g, m, l)
+        plan = fa.bwd_plan(dtype, d)
+        plans = {p: n - plans[p] for p, n in fa.flash_attention_bwd.launches_by_plan.items()}
         _, rm, rl = fa.flash_attention_fwd_ref(q, k, v)
         ref = fa.flash_attention_bwd_ref(q, k, v, o, g, m, l)
         torch.cuda.synchronize()
         stat_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in ((m, rm), (l, rl)))
-        errs, ulps, worst, ok = [], [], 0.0, stat_err <= 1e-5
+        # both kernels on the plan of (dtype, d): f32 at d = 128 the TF32 plan
+        errs, ulps, worst = [], [], 0.0
+        ok = stat_err <= 1e-5 and plans == {p: 2 if p == plan else 0 for p in plans}
         for name, a, r in zip(("dq", "dk", "dv"), out, ref):
             ref_max = r.float().abs().max().item()
             err = (a.float() - r.float()).abs().max().item()
@@ -1124,17 +1179,19 @@ def phase_flash_bwd_kernel():
         so = F.scaled_dot_product_attention(*leaves)
         library_ms = median_ms(lambda: torch.autograd.grad(so, leaves, g, retain_graph=True),
                                runs=5)
-        bound_ms, bound_by = attention_bound(shape, dt, backward=True)
-        say("flash", f"bwd {shape} {dt} head views: m, l max rel err {stat_err:.3g} (tol 1e-5); "
-            f"max|err| vs plain {', '.join(errs)}; median #4 backward {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+        bounds = attention_bounds(shape, dt, backward=True)
+        say("flash", f"bwd {shape} {dt} head views ({plan} plan, launches {plans}): m, l max rel "
+            f"err {stat_err:.3g} (tol 1e-5); max|err| vs plain {', '.join(errs)}; median #4 "
+            f"backward {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward ({dt}) "
+            f"{library_ms:.4f} ms; bound {bounds['bound_ms']:.4f} ms ({bounds['bound_by']})"
+            + (f"; bounds 3xTF32 {bounds['tf32x3_bound_ms']:.4f}, FMA "
+               f"{bounds['fma_bound_ms']:.4f} ms" if dt == "float32" else ""))
         if not ok:
-            raise AssertionError(f"flash_attention_bwd disagrees with its plain version at {shape} "
-                                 f"{dt}")
-        results.append({"shape": shape, "dtype": dt, "err": worst, "err_ulps": max(ulps), "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by})
+            raise AssertionError(f"flash_attention_bwd disagrees with its plain version (or left "
+                                 f"its plan) at {shape} {dt}")
+        results.append({"shape": shape, "dtype": dt, "plan": plan, "err": worst,
+                        "err_ulps": max(ulps), "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, **bounds})
         del q, k, v, g, o, m, l, leaves, so
         torch.cuda.empty_cache()
     return results
@@ -1504,7 +1561,8 @@ def flux_counts() -> dict:
 
     return {"sd": sa.sd_attention.launches, "sd_bwd": sa.sd_attention_bwd.launches,
             "flash": fa.flash_attention.launches, "dkv": fa.flash_attention_bwd.dkv_launches,
-            "dq": fa.flash_attention_bwd.dq_launches}
+            "dq": fa.flash_attention_bwd.dq_launches,
+            "bwd_plans": dict(fa.flash_attention_bwd.launches_by_plan)}
 
 
 def reset_flux_counts() -> None:
@@ -1513,6 +1571,7 @@ def reset_flux_counts() -> None:
 
     sa.sd_attention.launches = sa.sd_attention_bwd.launches = fa.flash_attention.launches = 0
     fa.flash_attention_bwd.dkv_launches = fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention_bwd.launches_by_plan = dict.fromkeys(fa.BWD_PLANS, 0)
 
 
 def phase_tiny_flux_train():
@@ -1523,7 +1582,8 @@ def phase_tiny_flux_train():
     to 1e-5 relative, its grad norm to 1e-4, the LoRA after the last update
     to 1e-6. Launches are exact: #4's forward 4 joint attentions x (t_to + 1
     frozen + 2 grad with remat) per iteration, its dk/dv and dq kernels 4
-    each per iteration, #1 and #2 never. The lr is TINY_FLUX_LR (see there)."""
+    each per iteration, every one on the TF32 plan (3xTF32 `wgmma`), #1 and
+    #2 never. The lr is TINY_FLUX_LR (see there)."""
     import torch
 
     from sliders_tpu_torch.lora.network import create_slider_network
@@ -1554,17 +1614,21 @@ def phase_tiny_flux_train():
     say("kernel", f"tiny FLUX training {TINY_FLUX_PX} px f32 via cli/train_flux_slider.py, "
         f"{len(gpu)} iterations (t_to {t_tos}), GPU (#4 forward {counts['flash']} launches, "
         f"expected {fwd_expected}; dk/dv {counts['dkv']}, dq {counts['dq']}, expected "
-        f"{bwd_expected}; #1 {counts['sd']}, #2 {counts['sd_bwd']}) vs CPU (plain, {cpu_s:.1f} s): "
+        f"{bwd_expected}, by plan {counts['bwd_plans']}; #1 {counts['sd']}, #2 "
+        f"{counts['sd_bwd']}) vs CPU (plain, {cpu_s:.1f} s): "
         f"losses {[round(m['loss'], 9) for m in gpu]} vs {[round(m['loss'], 9) for m in cpu]}, max "
         f"rel err {loss_err:.3g} (tol 1e-5); grad norms max rel err {norm_err:.3g} (tol 1e-4); "
         f"LoRA max|err| {lora_err:.3g} (tol 1e-6)")
     if (counts["flash"] != fwd_expected or counts["dkv"] != bwd_expected
-            or counts["dq"] != bwd_expected or counts["sd"] or counts["sd_bwd"]):
+            or counts["dq"] != bwd_expected or counts["sd"] or counts["sd_bwd"]
+            or counts["bwd_plans"] != {p: 2 * bwd_expected if p == "tf32" else 0
+                                       for p in counts["bwd_plans"]}):
         raise AssertionError("tiny FLUX training on the GPU did not take #4's route exactly")
     if t_tos != [m["t_to"] for m in cpu] or not (
             loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
         raise AssertionError("tiny FLUX training on the GPU disagrees with the CPU")
-    return {"flash": counts["flash"], "dkv": counts["dkv"], "dq": counts["dq"]}
+    return {"flash": counts["flash"], "dkv": counts["dkv"], "dq": counts["dq"],
+            "bwd_plans": counts["bwd_plans"]}
 
 
 def build_engine(tok_dir: str):
@@ -1895,37 +1959,55 @@ def phase_conv_step(engine, rounds: int = 2):
     return out
 
 
-def phase_grad_ab(engine, rounds: int = 4, passes: int = 5):
-    """The training grad pass at full width (SD1.5 UNet bf16, batch 1,
-    512 px, remat, the rank-4 slider's factors as the leaves) through the
-    kernel route (both kernels) against the plain attention route ('xla'),
-    in alternating order; per round the median of `passes` synced passes,
-    the host's enqueue time, the working memory above what was allocated
-    before, and the grad norm, which must agree between the routes within
-    1e-2 relative (bf16 through the whole UNet, and the plain route's
-    autograd rounds dp where the kernel rounds ds). The kernels' correctness
-    is held tightly elsewhere; this phase measures the routes."""
+def phase_grad_ab(engine, dtype: str = "bfloat16", rounds: int = 4, passes: int = 5):
+    """The training grad pass at full width (SD1.5 UNet, batch 1, 512 px,
+    remat, the rank-4 slider's factors as the leaves) through the kernel
+    route (#1 and #2) against the plain attention route ('xla'), in
+    alternating order; per round the median of `passes` synced passes, the
+    host's enqueue time, the working memory above what was allocated
+    before, and the grad norm. Each pass must launch #2 once a routed
+    self-attention (10) and #1 twice (the forward and remat's recompute: 20)
+    on the kernel route and neither on the plain one.
+
+    bf16 (the engine's weights): the grad norms agree within 1e-2 relative
+    (bf16 through the whole UNet, and the plain route's autograd rounds dp
+    where the kernel rounds ds). f32 (`precision: float32`; the engine's
+    weights cast to f32, TF32 off in matmuls and convs): #1 and #2 run on
+    3xTF32 `wgmma`, the plain route's attention on f32 cuBLAS; each
+    attention output and gradient agrees with the plain route's within
+    1e-5 of its largest magnitude (the kernel phases), and such differences
+    carried through 16 attention layers and the UNet's backward stay far
+    below 1e-4 relative in the norm, which a gradient path gone wrong
+    (swapped dk and dv, a factor with no gradient) misses by orders of
+    magnitude: held to 1e-4. The kernels' correctness is held tightly
+    elsewhere; this phase measures the routes. Returns the per-route
+    medians."""
     import torch
 
     from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
     from sliders_tpu_torch.ops import attention as ta
     from sliders_tpu_torch.ops import sd_attention as sa
     from sliders_tpu_torch.ops.basic import SliderLora
 
+    f32 = dtype == "float32"
     m = engine.models
+    params = tree_to(m.unet_params, dtype=torch.float32) if f32 else m.unet_params
+    cast = torch.float32 if f32 else torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").bfloat16()
-    ctx = torch.randn((1, 77, 768), generator=gen, device="cuda").bfloat16()
+    x = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").to(cast)
+    ctx = torch.randn((1, 77, 768), generator=gen, device="cuda").to(cast)
     t = torch.tensor(501.0, device="cuda")
     slider = engine.sliders["s1"]
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
     def grad_pass():
         leaves = {n: {k: (v.detach().float().requires_grad_() if k != "alpha" else v)
                       for k, v in e.items()} for n, e in slider.items()}
-        eps = unet2d.apply(m.unet_params, m.unet_config, x, t, ctx,
+        eps = unet2d.apply(params, m.unet_config, x, t, ctx,
                            lora=SliderLora(leaves, 1.0), remat=True)
-        params = [e[k] for e in leaves.values() for k in ("down", "up")]
-        return torch.autograd.grad((eps.float() ** 2).mean(), params)
+        grads = [e[k] for e in leaves.values() for k in ("down", "up")]
+        return torch.autograd.grad((eps.float() ** 2).mean(), grads)
 
     def run(impl):
         ta.set_attention_impl(impl)
@@ -1934,7 +2016,7 @@ def phase_grad_ab(engine, rounds: int = 4, passes: int = 5):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            b0 = sa.sd_attention_bwd.launches
+            f0, b0 = sa.sd_attention.launches, sa.sd_attention_bwd.launches
             dev, host = [], []
             for _ in range(passes):
                 s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1950,26 +2032,42 @@ def phase_grad_ab(engine, rounds: int = 4, passes: int = 5):
             norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads)).item()
             return {"ms": statistics.median(dev), "host_ms": statistics.median(host),
                     "work_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                    "fwd_per_pass": (sa.sd_attention.launches - f0) / passes,
                     "bwd_per_pass": (sa.sd_attention_bwd.launches - b0) / passes, "norm": norm}
         finally:
             ta.set_attention_impl("auto")
 
     out = {"auto": [], "xla": []}
-    for r in range(rounds):
-        for impl in (("auto", "xla") if r % 2 == 0 else ("xla", "auto")):
-            out[impl].append(run(impl))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = not f32 and flags[1]
+    try:
+        for r in range(rounds):
+            for impl in (("auto", "xla") if r % 2 == 0 else ("xla", "auto")):
+                out[impl].append(run(impl))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     for impl, name in (("auto", "kernel route"), ("xla", "plain route")):
         rs = out[impl]
-        say("grad", f"{name}: ms per pass by round {[round(r['ms'], 2) for r in rs]} (median "
-            f"{statistics.median(r['ms'] for r in rs):.2f}); host enqueue "
+        say("grad", f"{dtype} {name}: ms per pass by round {[round(r['ms'], 2) for r in rs]} "
+            f"(median {statistics.median(r['ms'] for r in rs):.2f}); host enqueue "
             f"{[round(r['host_ms'], 2) for r in rs]}; working memory "
-            f"{max(r['work_gb'] for r in rs):.2f} GB; backward-kernel launches per pass "
-            f"{rs[0]['bwd_per_pass']:g}; grad norm {rs[0]['norm']:.6g}")
+            f"{max(r['work_gb'] for r in rs):.2f} GB; kernel launches per pass: #1 "
+            f"{rs[0]['fwd_per_pass']:g}, #2 {rs[0]['bwd_per_pass']:g}; grad norm "
+            f"{rs[0]['norm']:.8g}")
     k_norm, p_norm = out["auto"][0]["norm"], out["xla"][0]["norm"]
-    if out["auto"][0]["bwd_per_pass"] != ROUTED_PER_FORWARD or out["xla"][0]["bwd_per_pass"] != 0:
+    rel = abs(k_norm - p_norm) / abs(p_norm)
+    tol = 1e-4 if f32 else 1e-2
+    say("grad", f"{dtype} grad norms: kernel route {k_norm:.8g}, plain route {p_norm:.8g}, "
+        f"relative difference {rel:.3g} (tol {tol:g})")
+    if (out["auto"][0]["bwd_per_pass"], out["auto"][0]["fwd_per_pass"]) != (
+            ROUTED_PER_FORWARD, 2 * ROUTED_PER_FORWARD) or (
+            out["xla"][0]["bwd_per_pass"], out["xla"][0]["fwd_per_pass"]) != (0, 0):
         raise AssertionError("the grad pass did not take the route it was given")
-    if not (math.isfinite(k_norm) and abs(k_norm - p_norm) <= 1e-2 * abs(p_norm)):
+    if not (math.isfinite(k_norm) and rel <= tol):
         raise AssertionError(f"grad norms disagree between the routes: {k_norm} vs {p_norm}")
+    del params
+    return {impl: {"ms": statistics.median(r["ms"] for r in rs),
+                   "host_ms": statistics.median(r["host_ms"] for r in rs),
+                   "work_gb": max(r["work_gb"] for r in rs)} for impl, rs in out.items()}
 
 
 def png_pixels(png: bytes):
@@ -2771,11 +2869,13 @@ def phase_flux_train(models, tmp: str) -> dict:
         t_tos = [m["t_to"] for *_, m in recs]
         fwd_expected = FLUX_BLOCKS * sum(t + 3 for t in t_tos)
         bwd_expected = FLUX_BLOCKS * len(recs)
-        if px == 2048:
+        plans = dict.fromkeys(c["bwd_plans"], 0)
+        if px == 2048:  # bf16 d = 128: #4's backward on the PAIR plan
             expected = {"sd": 0, "sd_bwd": 0, "flash": fwd_expected, "dkv": bwd_expected,
-                        "dq": bwd_expected}
+                        "dq": bwd_expected, "bwd_plans": {**plans, "pair": 2 * bwd_expected}}
         else:
-            expected = {"sd": fwd_expected, "sd_bwd": bwd_expected, "flash": 0, "dkv": 0, "dq": 0}
+            expected = {"sd": fwd_expected, "sd_bwd": bwd_expected, "flash": 0, "dkv": 0, "dq": 0,
+                        "bwd_plans": plans}
         final = run["lora"]
         moved = sum(not torch.equal(final[m]["down"], init[m]["down"]) for m in init)
         frozen = sum(torch.equal(final[m]["up"], init[m]["up"])
@@ -3472,6 +3572,7 @@ def main() -> int:
     sd15_decode, sd15_decode_conv = timed("SD1.5 step", phase_step, engine)
     conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
     timed("SD1.5 grad pass", phase_grad_ab, engine)
+    grad_f32 = timed("SD1.5 grad pass f32", phase_grad_ab, engine, "float32")
     serve_launches, serve_flash, serve_conv = timed("SD1.5 http", phase_http, engine)
     del engine
     gc.collect()
@@ -3538,7 +3639,10 @@ def main() -> int:
         **timing(level0),
         "sdxl_serve_shapes": [dict(timing(r), shape=r["shape"]) for r in results
                               if r["shape"] in SDXL_SD_SHAPES],
-        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in results],
+        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"],
+                        **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
+                   for r in results],
+        "grad_pass_f32_ms_by_route": grad_f32,
     }, {
         "name": "sd_attention_bwd",
         "route": "cuda",
@@ -3591,10 +3695,14 @@ def main() -> int:
                                "dq": flux["train"][2048]["counts"]["dq"]},
         "launches_by_path": {"flux_train_2048": flux["train"][2048]["counts"]["dkv"],
                              "tiny_flux_train_1280": tiny_flux_train["dkv"]},
+        "launches_by_plan": {"flux_train_2048": flux["train"][2048]["counts"]["bwd_plans"],
+                             "tiny_flux_train_1280": tiny_flux_train["bwd_plans"]},
         "max_abs_err": max(r["err"] for r in flash_bwd),
         "max_err_bf16_ulps": max(r["err_ulps"] for r in flash_bwd),
         **timing(flash_bwd[0]),
-        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in flash_bwd],
+        "shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"], plan=r["plan"],
+                        **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
+                   for r in flash_bwd],
     },
         conv_entry("conv3x3", 44, serve_conv["conv3x3"],
                    {"serve_auto": serve_conv["conv3x3"],

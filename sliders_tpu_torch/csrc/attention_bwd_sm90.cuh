@@ -1,8 +1,10 @@
 // The Hopper mainloop of the attention backwards: kernel #2's exact softmax
 // backward (sd_attention_bwd.cu, every d its gate takes, bf16 and f32) and
-// kernel #4's flash backward in bf16 at d = 128 and 256
-// (flash_attention.cu). It takes the ring's fill and the descriptors of
-// attention_sm90.cuh, and the PTX wrappers of sm90_ptx.cuh.
+// kernel #4's flash backward in bf16 at d = 128 and 256 and in f32 at d =
+// 128 (flash_attention.cu). It takes the ring's fill and the descriptors of
+// attention_sm90.cuh, and the PTX wrappers of sm90_ptx.cuh. Its TF32 pieces
+// (the split pass at the end of this file, the in-kernel splits, the
+// three-product step tf32x3) also serve #1's f32 forward (sd_attention.cu).
 //
 // Both backwards compute the same five products per pair of a q tile and a
 // K/V tile: S = Q.K^T, dP = dO.V^T, dV += P^T.dO, dK += dS^T.Q, dQ += dS.K.
@@ -57,7 +59,9 @@
 // replaces split d into 128-wide output chunks across blocks and formed S
 // and dP for each.
 //
-// TF32 (f32, #2 at every d of its gate, 8..128): error-compensated TF32,
+// TF32 (f32: #2 at every d of its gate, 8..128, and #4 at d = 128, whose
+// dq kernel reads the forward's residuals and makes no statistics pass):
+// error-compensated TF32,
 // as the f32 convs run (conv3x3_sm90.cuh): each product is three
 // `wgmma.m64nNk8.f32.tf32.tf32` a k8 step, A_lo B_hi + A_hi B_lo + A_hi
 // B_hi, with hi = x rounded to TF32 and lo = the rest (the split pass:
@@ -95,9 +99,11 @@
 //     copied nothing made it 31 % faster at d = 40). dq above (two stages
 //     of 128 resident rows do not fit): warpgroup 0 S and p (to warpgroup 1
 //     through the f32 exchange), warpgroup 1 dP, ds and dQ^T, while
-//     warpgroup 0 goes on to the next tile's S; in the statistics pass
+//     warpgroup 0 goes on to the next tile's S; in #2's statistics pass
 //     warpgroup 0 sends each tile's exps and the rescale of its rows,
-//     warpgroup 1 keeps the dsum sum, and 1 / l crosses at the end.
+//     warpgroup 1 keeps the dsum sum, and 1 / l crosses at the end. #4 (d =
+//     128 only: DP = 256, so this form) reads m and l in warpgroup 0 and
+//     di in warpgroup 1.
 //   - Shared memory: 64 resident rows raw, stages of 2 x 2 planes of BN
 //     rows, and 64 KB (BN = 64) or 32 KB (BN = 32) of exchange; BN is 64
 //     where d <= 48 and 32 above, so d = 128 fits two stages in 227 KB.
@@ -249,7 +255,8 @@ struct BCfg {
                 "S tiles are wgmma n32, n64 or n128");
   static_assert(KIND != SPLIT || (DP == 256 && BN == (DKV ? 32 : 64) && !SD),
                 "SPLIT is #4 at d = 256");
-  static_assert(KIND != TF32 || (SD && DPF % 8 == 0 && DPF <= 128), "TF32 is #2 in f32");
+  static_assert(KIND != TF32 || ((SD || DPF == 128) && DPF % 8 == 0 && DPF <= 128),
+                "TF32 is #2 in f32, and #4 in f32 at d = 128");
 };
 
 struct BRing {
@@ -1156,7 +1163,7 @@ __device__ __forceinline__ void dkdv_item_tf32(const BwdArgs& p, const BRing& r,
                 p.d, acc, 1.f, warp, g, t4);
   else
     store_t<MB>(reinterpret_cast<float*>(p.dk) + it.b * p.dkb + it.h * p.dkh, p.dkl, it.q0, p.Lk,
-                p.d, acc, p.scale, warp, g, t4);
+                p.d, acc, C::SD ? p.scale : 1.f, warp, g, t4);
 }
 
 // One item of a dq consumer that owns its 64 q rows (OWN): the statistics
@@ -1273,9 +1280,9 @@ __device__ __forceinline__ void dq_item_tf32_own(const BwdArgs& p, const BRing& 
               it.q0 + 64 * cw, p.Lq, p.d, acc, p.scale, warp, g, t4);
 }
 
-// One item of a dq consumer: the statistics pass (cw 0: S, the running max
-// and l; cw 1: dP and the dsum sum), then the dq pass (cw 0: S and p; cw 1:
-// dP, ds and dQ^T)
+// One item of a dq consumer: for #2 the statistics pass (cw 0: S, the
+// running max and l; cw 1: dP and the dsum sum), for #4 the forward's
+// residuals; then the dq pass (cw 0: S and p; cw 1: dP, ds and dQ^T)
 template <class C>
 __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, const Item& it,
                                              int cw, int t, int& stage, int& phase, int rphase) {
@@ -1302,82 +1309,98 @@ __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, c
         [&](int kk, int pl) { return bdesc<C>(tb + pl * C::TILE_BYTES, C::BN, 0, kk); });
   };
 
-  // the statistics pass: running max M (unscaled), l and u = sum p dp,
-  // both rescaled when M grows; dsum = u / l
-  float M0 = -INFINITY, M1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
-  for (int j = 0; j < nt; ++j) {
-    wait_stage<C>(r, stage, phase);
-    logits(r.stages + stage * C::STAGE_BYTES);
-    mbar_arrive(&r.empty[stage]);
-    next_stage<C>(stage, phase);
+  // the rows' statistics: warpgroup 0 m log2 e and 1 / l, warpgroup 1 dd
+  float mb0 = 0.f, mb1 = 0.f, iv0 = 0.f, iv1 = 0.f, dd0 = 0.f, dd1 = 0.f;
+  if constexpr (!C::SD) {
+    // #4: the forward's residuals, formed as the wrapper forms the dk/dv
+    // kernel's planes (m log2(e), the correctly rounded 1 / l), and di
+    const long long rbase = ((long long)it.b * p.H + it.h) * p.Lq;
     if (cw == 0) {
-      mask_keys<C>(s, j * C::BN, p.Lk, t4);
-      // the first tile always holds a valid key, so mn is finite from here on
-      const float2 mn = tile_max(s, H2, M0, M1);
-      const float b0 = (mn.x * p.scale) * LOG2E, b1 = (mn.y * p.scale) * LOG2E;
-      const float a0 = ex2((M0 * p.scale) * LOG2E - b0), a1 = ex2((M1 * p.scale) * LOG2E - b1);
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < H2; i += 4) {
-        s[i] = ex2(fmaf(s[i], c, -b0));
-        s[i + 1] = ex2(fmaf(s[i + 1], c, -b0));
-        s[i + 2] = ex2(fmaf(s[i + 2], c, -b1));
-        s[i + 3] = ex2(fmaf(s[i + 3], c, -b1));
-        sum0 += s[i] + s[i + 1];
-        sum1 += s[i + 2] + s[i + 3];
-      }
-      bar_sync(XEMPTY, 2 * WG);
-#pragma unroll
-      for (int i = 0; i < H2; ++i) x[i * WG] = s[i];
-      x[H2 * WG] = a0;
-      x[(H2 + 1) * WG] = a1;
-      bar_arrive(XFULL, 2 * WG);
-      l0 = l0 * a0 + quad_sum(sum0);
-      l1 = l1 * a1 + quad_sum(sum1);
-      M0 = mn.x;
-      M1 = mn.y;
+      mb0 = in0 ? p.m[rbase + row] * LOG2E : 0.f;
+      mb1 = in1 ? p.m[rbase + row + 8] * LOG2E : 0.f;
+      iv0 = in0 ? __frcp_rn(p.l[rbase + row]) : 0.f;
+      iv1 = in1 ? __frcp_rn(p.l[rbase + row + 8]) : 0.f;
     } else {
-      bar_sync(XFULL, 2 * WG);
-      float su0 = 0.f, su1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < H2; i += 4) {
-        su0 = fmaf(x[i * WG], s[i], fmaf(x[(i + 1) * WG], s[i + 1], su0));
-        su1 = fmaf(x[(i + 2) * WG], s[i + 2], fmaf(x[(i + 3) * WG], s[i + 3], su1));
-      }
-      const float a0 = x[H2 * WG], a1 = x[(H2 + 1) * WG];
-      bar_arrive(XEMPTY, 2 * WG);
-      u0 = u0 * a0 + quad_sum(su0);
-      u1 = u1 * a1 + quad_sum(su1);
-    }
-  }
-  // the rows' statistics, for the dq pass and the dk/dv kernel (rows past
-  // Lq give it p = 0): warpgroup 0 m log2 e and 1 / l, warpgroup 1 dsum
-  float mb0 = 0.f, mb1 = 0.f, iv0, iv1, dd0 = 0.f, dd1 = 0.f;
-  if (cw == 0) {
-    mb0 = (M0 * p.scale) * LOG2E;  // m = scale max s, as #4's residual
-    mb1 = (M1 * p.scale) * LOG2E;
-    iv0 = __frcp_rn(l0);
-    iv1 = __frcp_rn(l1);
-    bar_sync(XEMPTY, 2 * WG);
-    x[0] = iv0;
-    x[WG] = iv1;
-    bar_arrive(XFULL, 2 * WG);
-    if (t4 == 0) {
-      p.mb[sbase + row] = in0 ? mb0 : INFINITY;
-      p.iv[sbase + row] = in0 ? iv0 : 0.f;
-      p.mb[sbase + row + 8] = in1 ? mb1 : INFINITY;
-      p.iv[sbase + row + 8] = in1 ? iv1 : 0.f;
+      dd0 = in0 ? p.dd[sbase + row] : 0.f;
+      dd1 = in1 ? p.dd[sbase + row + 8] : 0.f;
     }
   } else {
-    bar_sync(XFULL, 2 * WG);
-    iv0 = x[0];
-    iv1 = x[WG];
-    bar_arrive(XEMPTY, 2 * WG);
-    dd0 = u0 * iv0;
-    dd1 = u1 * iv1;
-    if (t4 == 0) {
-      p.dd[sbase + row] = in0 ? dd0 : 0.f;
-      p.dd[sbase + row + 8] = in1 ? dd1 : 0.f;
+    // #2: the statistics pass: running max M (unscaled), l and u = sum p dp,
+    // both rescaled when M grows; dsum = u / l
+    float M0 = -INFINITY, M1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
+    for (int j = 0; j < nt; ++j) {
+      wait_stage<C>(r, stage, phase);
+      logits(r.stages + stage * C::STAGE_BYTES);
+      mbar_arrive(&r.empty[stage]);
+      next_stage<C>(stage, phase);
+      if (cw == 0) {
+        mask_keys<C>(s, j * C::BN, p.Lk, t4);
+        // the first tile always holds a valid key, so mn is finite from here on
+        const float2 mn = tile_max(s, H2, M0, M1);
+        const float b0 = (mn.x * p.scale) * LOG2E, b1 = (mn.y * p.scale) * LOG2E;
+        const float a0 = ex2((M0 * p.scale) * LOG2E - b0), a1 = ex2((M1 * p.scale) * LOG2E - b1);
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < H2; i += 4) {
+          s[i] = ex2(fmaf(s[i], c, -b0));
+          s[i + 1] = ex2(fmaf(s[i + 1], c, -b0));
+          s[i + 2] = ex2(fmaf(s[i + 2], c, -b1));
+          s[i + 3] = ex2(fmaf(s[i + 3], c, -b1));
+          sum0 += s[i] + s[i + 1];
+          sum1 += s[i + 2] + s[i + 3];
+        }
+        bar_sync(XEMPTY, 2 * WG);
+#pragma unroll
+        for (int i = 0; i < H2; ++i) x[i * WG] = s[i];
+        x[H2 * WG] = a0;
+        x[(H2 + 1) * WG] = a1;
+        bar_arrive(XFULL, 2 * WG);
+        l0 = l0 * a0 + quad_sum(sum0);
+        l1 = l1 * a1 + quad_sum(sum1);
+        M0 = mn.x;
+        M1 = mn.y;
+      } else {
+        bar_sync(XFULL, 2 * WG);
+        float su0 = 0.f, su1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < H2; i += 4) {
+          su0 = fmaf(x[i * WG], s[i], fmaf(x[(i + 1) * WG], s[i + 1], su0));
+          su1 = fmaf(x[(i + 2) * WG], s[i + 2], fmaf(x[(i + 3) * WG], s[i + 3], su1));
+        }
+        const float a0 = x[H2 * WG], a1 = x[(H2 + 1) * WG];
+        bar_arrive(XEMPTY, 2 * WG);
+        u0 = u0 * a0 + quad_sum(su0);
+        u1 = u1 * a1 + quad_sum(su1);
+      }
+    }
+    // the rows' statistics, for the dq pass and the dk/dv kernel (rows past
+    // Lq give it p = 0)
+    if (cw == 0) {
+      mb0 = (M0 * p.scale) * LOG2E;  // m = scale max s, as #4's residual
+      mb1 = (M1 * p.scale) * LOG2E;
+      iv0 = __frcp_rn(l0);
+      iv1 = __frcp_rn(l1);
+      bar_sync(XEMPTY, 2 * WG);
+      x[0] = iv0;
+      x[WG] = iv1;
+      bar_arrive(XFULL, 2 * WG);
+      if (t4 == 0) {
+        p.mb[sbase + row] = in0 ? mb0 : INFINITY;
+        p.iv[sbase + row] = in0 ? iv0 : 0.f;
+        p.mb[sbase + row + 8] = in1 ? mb1 : INFINITY;
+        p.iv[sbase + row + 8] = in1 ? iv1 : 0.f;
+      }
+    } else {
+      bar_sync(XFULL, 2 * WG);
+      iv0 = x[0];
+      iv1 = x[WG];
+      bar_arrive(XEMPTY, 2 * WG);
+      dd0 = u0 * iv0;
+      dd1 = u1 * iv1;
+      if (t4 == 0) {
+        p.dd[sbase + row] = in0 ? dd0 : 0.f;
+        p.dd[sbase + row + 8] = in1 ? dd1 : 0.f;
+      }
     }
   }
 
@@ -1426,7 +1449,7 @@ __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, c
   mbar_arrive(r.rempty);  // the last read of Q and dO is done
   if (cw == 1)
     store_t<MB>(reinterpret_cast<float*>(p.dq) + it.b * p.dqb + it.h * p.dqh, p.dql, it.q0, p.Lq,
-                p.d, acc, p.scale, warp, g, t4);
+                p.d, acc, C::SD ? p.scale : 1.f, warp, g, t4);
 }
 
 template <class C>
@@ -1559,6 +1582,46 @@ int launch_bwd_sm90(const BwdArgs& p, cudaStream_t stream) {
   const int n = ((C::DKV ? p.Lk : p.Lq) + C::RROWS - 1) / C::RROWS * p.H * p.B;
   const int blocks = n < sms ? n : sms;
   attn_bwd_sm90<C><<<blocks, C::THREADS, C::SMEM, stream>>>(p, m[0], m[1], m[2], m[3], m[4], m[5]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the TF32 split pass of the streamed tensors (#2's and #4's f32 backwards,
+// #1's f32 forward for K)
+// ---------------------------------------------------------------------------
+
+// hi = tf32(x), lo = tf32(x - hi) of a (B, H, L, d) f32 tensor with element
+// strides (b, h, l) into two contiguous (B, H, L, d) planes, hi then lo, n
+// elements each; four floats a thread (d % 8 == 0, 16-byte rows)
+__global__ void tf32_split_bhld(const float* x, long long sb, long long sh, long long sl, int H,
+                                int L, int d, float* hi, long long n) {
+  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4; i < n;
+       i += 4ll * gridDim.x * blockDim.x) {
+    const int c = static_cast<int>(i % d);
+    long long r = i / d;
+    const int l = static_cast<int>(r % L);
+    r /= L;
+    const int h = static_cast<int>(r % H);
+    const float4 v = *reinterpret_cast<const float4*>(x + (r / H) * sb + h * sh + l * sl + c);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    float out_hi[4], out_lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out_hi[j] = tf32_rna(e[j]);
+      out_lo[j] = tf32_rna(__fsub_rn(e[j], out_hi[j]));
+    }
+    *reinterpret_cast<float4*>(hi + i) = make_float4(out_hi[0], out_hi[1], out_hi[2], out_hi[3]);
+    *reinterpret_cast<float4*>(hi + n + i) =
+        make_float4(out_lo[0], out_lo[1], out_lo[2], out_lo[3]);
+  }
+}
+
+inline int split(const float* x, const Strides& s, int B, int H, int L, int d, float* hi,
+                 cudaStream_t stream) {
+  const long long n = (long long)B * H * L * d;
+  const long long blocks = (n / 4 + 255) / 256;
+  tf32_split_bhld<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      x, s.b, s.h, s.l, H, L, d, hi, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -70,9 +70,20 @@
 //   128 registers a thread, so an item is 64 rows and each consumer
 //   warpgroup holds one output (dv or dk; each half of dq), p and ds
 //   crossing between them through shared memory.
-// - f32 (the tiny f32 FLUX run, `--precision float32`): flash_bwd_f32, one
-//   block per 64 K/V (or q) rows and 128-wide output chunk, one template
-//   with the roles of the row and column operands swapped, plain FMAs.
+// - f32 at d = 128 (FLUX under `--precision float32`, the tiny f32 FLUX
+//   run): the same mainloop's TF32 plan with #4's policy, every product
+//   three TF32 `wgmma`s (the note there): the split pass
+//   (tf32_split_bhld) writes the TF32 hi and lo planes of the kernel's
+//   streamed tensors (q and do for dk/dv, k and v for dq) into the scratch
+//   after di's planes; 32-row streamed tiles, 64 resident rows. The dq
+//   kernel reads the forward's residuals, so it makes three products (S,
+//   dP, dQ^T) and no statistics pass.
+// - f32 at d = 256 (no path runs it): flash_bwd_f32, one block per 64 K/V
+//   (or q) rows and 128-wide output chunk, one template with the roles of
+//   the row and column operands swapped, plain FMAs. The TF32 plan's
+//   64-row resident f32 tiles would be 64 KB a plane at d = 256, two of
+//   them beside two ring stages of hi and lo planes: more than a block's
+//   227 KB.
 
 #include "sd_attention_common.cuh"
 #include "attention_sm90.cuh"
@@ -864,10 +875,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 // One backward kernel: part 0 the dk/dv kernel (writes dk, dv), part 1 the
 // dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous; bf16
-// reads two more planes after di, m log2(e) and 1 / l (the wrapper forms
-// them), from a 16-byte aligned di. Returns the launch's CUDA error (0 on
-// success). Shapes and strides as for the forward, with Lq and Lk
-// multiples of 64 and bf16 d = 128 or 256; the Python wrapper checks them.
+// and f32 at d = 128 read two more planes after di, m log2(e) and 1 / l
+// (the wrapper forms them), from a 16-byte aligned di, and f32 at d = 128
+// takes 4 B H max(Lq, Lk) d floats more after them for the split planes.
+// Returns the launch's CUDA error (0 on success). Shapes and strides as for
+// the forward, with Lq and Lk multiples of 64 and bf16 d = 128 or 256; the
+// Python wrapper checks them.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                    const float* m, const float* l, const float* di, void* dq,
                                    void* dk, void* dv, int B, int H, int Lq, int Lk, int d,
@@ -883,7 +896,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       (!is_f32 && d != 128 && d != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f32) {
+  const bool tf32 = is_f32 && d == 128;
+  if (is_f32 && !tf32) {
     const BParams p{q, k, v, g, m, l, di, dq, dk, dv, H, Lq, Lk, d,
                     {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {g_sb, g_sh, g_sl},
                     {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl}, {dv_sb, dv_sh, dv_sl}, scale};
@@ -894,14 +908,42 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (reinterpret_cast<uintptr_t>(di) % 16) return static_cast<int>(cudaErrorInvalidValue);
   float* dd = const_cast<float*>(di);
   const long long plane = (long long)B * H * Lq;
-  const sm90::BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                        static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-                        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                        m, l, dd + plane, dd + 2 * plane, dd,
-                        Lq, Lq, Lk, d, B, H, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
-                        g_sb, g_sh, g_sl, dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl,
-                        dv_sb, dv_sh, dv_sl, scale, d, nullptr, nullptr, nullptr, nullptr};
+  // f32 rows are handed over as bf16 rows of twice the width
+  const long long x = tf32 ? 2 : 1;
+  sm90::BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                  m, l, dd + plane, dd + 2 * plane, dd,
+                  Lq, Lq, Lk, d, B, H, x * q_sb, x * q_sh, x * q_sl, x * k_sb, x * k_sh, x * k_sl,
+                  x * v_sb, x * v_sh, x * v_sl, x * g_sb, x * g_sh, x * g_sl,
+                  dq_sb, dq_sh, dq_sl, dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl, scale,
+                  static_cast<int>(x * d), nullptr, nullptr, nullptr, nullptr};
   using sm90::BCfg;
+  if (tf32) {
+    // the split pass writes the hi and lo planes of the part's streamed
+    // tensors (dk/dv: q and do; dq: k and v) after the statistics planes;
+    // the dq kernel's split runs after the dk/dv kernel on the stream
+    float* planes = dd + 3 * plane;
+    const long long n = plane / Lq * (part == 0 ? Lq : Lk) * d;
+    const Strides s1 = part == 0 ? Strides{q_sb, q_sh, q_sl} : Strides{k_sb, k_sh, k_sl};
+    const Strides s2 = part == 0 ? Strides{g_sb, g_sh, g_sl} : Strides{v_sb, v_sh, v_sl};
+    int err = sm90::split(static_cast<const float*>(part == 0 ? q : k), s1, B, H,
+                          part == 0 ? Lq : Lk, d, planes, st);
+    if (err == 0)
+      err = sm90::split(static_cast<const float*>(part == 0 ? g : v), s2, B, H,
+                        part == 0 ? Lq : Lk, d, planes + 2 * n, st);
+    if (err != 0) return err;
+    const bf16* h1 = reinterpret_cast<const bf16*>(planes);
+    const bf16* h2 = reinterpret_cast<const bf16*>(planes + 2 * n);
+    if (part == 0) {
+      a.hq = h1;
+      a.hg = h2;
+      return sm90::launch_bwd_sm90<BCfg<256, 32, true, true, false, sm90::TF32>>(a, st);
+    }
+    a.hk = h1;
+    a.hv = h2;
+    return sm90::launch_bwd_sm90<BCfg<256, 32, true, false, false, sm90::TF32>>(a, st);
+  }
   if (d == 128)
     return part == 0 ? sm90::launch_bwd_sm90<BCfg<128, 64, true, true, false>>(a, st)
                      : sm90::launch_bwd_sm90<BCfg<128, 64, true, false, false>>(a, st);

@@ -33,7 +33,7 @@
 // consumer warpgroups. bf16 runs the PAIR plan (ds and p from registers
 // straight into the A operands of the accumulating products). f32
 // (`--precision float32`) runs the TF32 plan, every product three TF32
-// `wgmma`s (hi and lo parts): this file's `tf32_split_bhld` first writes
+// `wgmma`s (hi and lo parts): the `tf32_split_bhld` pass first writes
 // the hi and lo planes of q, k, v and g into the scratch after the
 // statistics, once a call; f32 rows are handed to the mainloop as bf16 rows
 // of twice the width. The source note there says what bounds each plan and
@@ -60,41 +60,6 @@ struct BwdParams {
   Strides qs, ks, vs, gs, dqs, dks, dvs;
   float scale;
 };
-
-// hi = tf32(x), lo = tf32(x - hi) of a (B, H, L, d) f32 tensor with element
-// strides (b, h, l) into two contiguous (B, H, L, d) planes, hi then lo, n
-// elements each; four floats a thread (d % 8 == 0, 16-byte rows)
-__global__ void tf32_split_bhld(const float* x, long long sb, long long sh, long long sl, int H,
-                                int L, int d, float* hi, long long n) {
-  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4; i < n;
-       i += 4ll * gridDim.x * blockDim.x) {
-    const int c = static_cast<int>(i % d);
-    long long r = i / d;
-    const int l = static_cast<int>(r % L);
-    r /= L;
-    const int h = static_cast<int>(r % H);
-    const float4 v = *reinterpret_cast<const float4*>(x + (r / H) * sb + h * sh + l * sl + c);
-    const float e[4] = {v.x, v.y, v.z, v.w};
-    float out_hi[4], out_lo[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      out_hi[j] = sm90::tf32_rna(e[j]);
-      out_lo[j] = sm90::tf32_rna(__fsub_rn(e[j], out_hi[j]));
-    }
-    *reinterpret_cast<float4*>(hi + i) = make_float4(out_hi[0], out_hi[1], out_hi[2], out_hi[3]);
-    *reinterpret_cast<float4*>(hi + n + i) =
-        make_float4(out_lo[0], out_lo[1], out_lo[2], out_lo[3]);
-  }
-}
-
-int split(const float* x, const Strides& s, int B, int H, int L, int d, float* hi,
-          cudaStream_t stream) {
-  const long long n = (long long)B * H * L * d;
-  const long long blocks = (n / 4 + 255) / 256;
-  tf32_split_bhld<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      x, s.b, s.h, s.l, H, L, d, hi, n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // the mainloop's arguments: q, k, v, g as bf16 rows of dw columns (f32: 2 d,
 // strides doubled), the statistics planes at the head of the scratch
@@ -126,6 +91,7 @@ int launch_f32(const BwdParams& p, int B, cudaStream_t stream) {
   float* hg = hq + 2 * nq;
   float* hk = hg + 2 * nq;
   float* hv = hk + 2 * nk;
+  using sm90::split;
   int err = split(static_cast<const float*>(p.q), p.qs, B, p.H, p.Lq, p.d, hq, stream);
   if (err == 0) err = split(static_cast<const float*>(p.g), p.gs, B, p.H, p.Lq, p.d, hg, stream);
   if (err == 0) err = split(static_cast<const float*>(p.k), p.ks, B, p.H, p.Lk, p.d, hk, stream);

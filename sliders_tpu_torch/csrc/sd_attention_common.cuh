@@ -1,9 +1,8 @@
-// Device helpers shared by the attention kernels: the f32 paths of the SD
-// attention forward and backward (sd_attention.cu, sd_attention_bwd.cu), the
-// mma.sync kernels of flash_attention.cu (d = 256 and f32), and the Hopper
-// mainloops (attention_sm90.cuh, attention_bwd_sm90.cuh), which take the
-// bf16 packing and the quad reductions: tile constants, mma.sync m16n8k16
-// bf16 fragments, and the f32 tile loaders.
+// Device helpers shared by the attention kernels: the mma.sync kernels of
+// flash_attention.cu (d = 256 and f32) and the Hopper mainloops
+// (attention_sm90.cuh, attention_bwd_sm90.cuh), which take the bf16 packing
+// and the quad reductions: tile constants, the strides, mma.sync m16n8k16
+// bf16 fragments.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16x16, row-major):  reg0 = A[g][2t4..+1], reg1 = A[g+8][2t4..+1],
@@ -23,9 +22,7 @@
 
 namespace {
 
-constexpr int BQ = 64;         // f32 paths: threads (rows) per block
 constexpr int NTHREADS = 128;  // mma.sync paths: four warps of 16 rows
-constexpr int BKF = 32;        // rows per streamed tile (f32 paths, BQ threads)
 
 struct Strides {
   long long b, h, l;
@@ -86,48 +83,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// f32: BKF rows x DP columns into dst (row stride DP), by a block of BQ threads
-template <int DP>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long row_stride,
-                                              int row0, int nrows, int d) {
-  constexpr int CH = DP / 4;
-  for (int i = threadIdx.x; i < BKF * CH; i += BQ) {
-    const int r = i / CH, c = i % CH;
-    const int row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < nrows && c * 4 < d)
-      val = *reinterpret_cast<const float4*>(src + (long long)row * row_stride + c * 4);
-    *reinterpret_cast<float4*>(dst + r * DP + c * 4) = val;
-  }
-}
-
-// f32: one thread per row (qr, zero past d); the row's softmax max m and sum
-// l over all keys, K streamed through the BKF-row shared tile ks (row
-// stride DP), one key at a time with l rescaled whenever m grows
-template <int DP>
-__device__ __forceinline__ void row_stats_f32(const float (&qr)[DP], float* ks, const float* k,
-                                              long long k_row_stride, int Lk, int d, float scale,
-                                              float& m, float& l) {
-  m = -INFINITY;
-  l = 0.f;
-  for (int kv0 = 0; kv0 < Lk; kv0 += BKF) {
-    load_rows_f32<DP>(ks, k, k_row_stride, kv0, Lk, d);
-    __syncthreads();
-    const int nk = min(BKF, Lk - kv0);
-#pragma unroll 4
-    for (int j = 0; j < nk; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) dot = fmaf(qr[i], ks[j * DP + i], dot);
-      const float s = dot * scale;
-      const float mn = fmaxf(m, s);
-      l = l * __expf(m - mn) + __expf(s - mn);
-      m = mn;
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace

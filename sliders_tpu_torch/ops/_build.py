@@ -36,8 +36,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # stream are c_void_p (a Python int would be cut to 32 bits)
 LIBRARIES = {
     "fwd": (CSRC / "sd_attention.cu", (CSRC / "sd_attention_common.cuh",
-                                       CSRC / "attention_sm90.cuh", CSRC / "sm90_ptx.cuh"), {
-        "sd_attention_fwd": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F, _P],
+                                       CSRC / "attention_sm90.cuh",
+                                       CSRC / "attention_bwd_sm90.cuh", CSRC / "sm90_ptx.cuh"), {
+        # q, k, v, o, scratch; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
+        "sd_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
     }),
     "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",
                                            CSRC / "attention_sm90.cuh",

@@ -15,8 +15,10 @@ When grad mode is on and an input requires grad, the call goes through
 row's final max m and sum l in f32 (the residuals of the TPU kernel's
 `_flash_attention_fwd`), and its backward is `flash_attention_bwd`: on CUDA
 the TPU kernel's two backward kernels ported by hand (a K/V-major dk/dv
-kernel and a q-major dq kernel, no atomics; bf16 at d = 128 and 256 on the
-backward mainloop of `csrc/attention_bwd_sm90.cuh`), on the CPU
+kernel and a q-major dq kernel, no atomics; bf16 at d = 128 and 256 and
+f32 at d = 128 (three TF32 products for each, after a pass that splits the
+streamed operands into TF32 hi and lo planes) on the backward mainloop of
+`csrc/attention_bwd_sm90.cuh`), on the CPU
 `flash_attention_bwd_ref`, their plain version on the same schedule and
 cast points. di = rowsum(o * do) is a torch reduction, as the TPU code takes
 it outside its kernels. The backward takes d = 128 and 256 (FLUX's joint
@@ -47,6 +49,8 @@ from sliders_tpu_torch.ops.sd_attention import _bhld_buffer, _kernel_layout
 BLOCK_K = 128  # the TPU kernel's block_k (BlockSizes.get_default)
 BLOCK_Q = 128  # the TPU backward's block_q_dkv / block_q_dq
 BWD_HEAD_DIMS = (128, 256)
+# the backward's plans (csrc/attention_bwd_sm90.cuh; "fma": flash_bwd_f32)
+BWD_PLANS = ("pair", "split", "tf32", "fma")
 LOG2E = 1.4426950408889634  # the kernels' exps are base 2
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -164,6 +168,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool)
     return (out, ml[0], ml[1]) if residuals else (out, None, None)
 
 
+def _bwd_scratch_floats(q: torch.Tensor, k: torch.Tensor) -> int:
+    """Floats of the backward's scratch: di, m log2(e) and 1 / l, (B, H, Lq)
+    each, and at f32 d = 128 (the TF32 plan) the hi and lo planes of the two
+    tensors a kernel streams (q and do, then k and v, in the same room)."""
+    B, H, Lq, d = q.shape
+    n = 3 * B * H * Lq
+    if q.dtype == torch.float32 and d == 128:
+        n += 4 * B * H * max(Lq, k.shape[2]) * d
+    return n
+
+
+def bwd_plan(dtype: torch.dtype, d: int) -> str:
+    """The plan the backward kernels run at (dtype, d): bf16 d = 128 PAIR,
+    d = 256 SPLIT, f32 d = 128 the TF32 plan, other f32 head dims the FMA
+    kernels of flash_attention.cu."""
+    if dtype == torch.float32:
+        return "tf32" if d == 128 else "fma"
+    return "pair" if d == 128 else "split"
+
+
 def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
     """(dq, dk, dv) of `flash_attention(q, k, v)` for the output gradient
     `do`, from the forward's output o and residuals m, l; all (B, H, L, d)
@@ -183,9 +207,11 @@ def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
     stats = [t.float().contiguous() for t in (m, l)]
     if any(t.shape != (B, H, Lq) for t in stats):
         raise ValueError(f"m and l must be (B, H, Lq) = {(B, H, Lq)}")
-    # di, then each row's m log2(e) and 1 / l: the form the bf16 dk/dv
-    # kernel's exps take, made once per row (the f32 kernels read di)
-    di = torch.empty((3, B, H, Lq), dtype=torch.float32, device=q.device)
+    # di, then each row's m log2(e) and 1 / l: the form the Hopper dk/dv
+    # kernels' exps take, made once per row (the d = 256 f32 kernels read
+    # di); at f32 d = 128 the split planes follow
+    scratch = torch.empty(_bwd_scratch_floats(q, k), dtype=torch.float32, device=q.device)
+    di = scratch[:3 * B * H * Lq].view(3, B, H, Lq)
     torch.sum(o.float() * do.float(), -1, out=di[0])
     torch.mul(stats[0], LOG2E, out=di[1])
     torch.reciprocal(stats[1], out=di[2])
@@ -210,6 +236,7 @@ def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
                 flash_attention_bwd.dkv_launches += 1
             else:
                 flash_attention_bwd.dq_launches += 1
+            flash_attention_bwd.launches_by_plan[bwd_plan(q.dtype, d)] += 1
     return dq, dk, dv
 
 
@@ -251,3 +278,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 flash_attention.launches = 0
 flash_attention_bwd.dkv_launches = 0
 flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.launches_by_plan = dict.fromkeys(BWD_PLANS, 0)  # both kernels, by plan

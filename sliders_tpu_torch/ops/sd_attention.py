@@ -25,11 +25,12 @@ Hopper mainloop of `csrc/attention_sm90.cuh` (a producer warpgroup filling a
 K/V ring by TMA or cp.async, wgmma on two consumer warpgroups). The bf16
 backward runs on the backward mainloop of `csrc/attention_bwd_sm90.cuh` on
 the same ring: a dq kernel that first finds each row's softmax statistics,
-then a dk/dv kernel, no atomics. The f32 forward keeps plain FMAs; the f32
-backward runs on the same backward mainloop with every product as three
-TF32 `wgmma`s (error-compensated TF32), after a pass that splits q, k, v and
-g into TF32 hi and lo planes in the scratch. The source files carry the
-details.
+then a dk/dv kernel, no atomics. In f32 both take every product as three
+TF32 `wgmma`s (error-compensated TF32), after a pass that splits their
+streamed operands into TF32 hi and lo planes in a scratch the wrapper
+allocates: the forward splits k, and v transposed (its own two-pass kernel
+in `csrc/sd_attention.cu`); the backward q, k, v and g, on the same
+backward mainloop. The source files carry the details.
 
 Both libraries are built with nvcc at first use into
 `sliders_tpu_torch/_build/` together with the package's other kernels
@@ -127,11 +128,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     B, H, Lq, d = q.shape
     Lk = k.shape[2]
     out = _bhld_buffer(q)
+    scratch = (torch.empty(_fwd_scratch_floats(k), dtype=torch.float32, device=q.device)
+               if q.dtype == torch.float32 else None)
     lib = _build.library("fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sd_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, H, Lq, Lk, d, _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             1.0 / math.sqrt(d), stream,
@@ -140,6 +144,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"sd_attention kernel launch failed: CUDA error {rc}")
     sd_attention.launches += 1
     return out
+
+
+def _fwd_scratch_floats(k: torch.Tensor) -> int:
+    """Floats of the f32 forward's scratch: the TF32 hi and lo planes of k,
+    (B, H, Lk, d) each, and of v transposed, (B, H, d, Lk rounded up to 8)
+    each, that its split pass writes."""
+    B, H, Lk, d = k.shape
+    return 2 * B * H * d * (Lk + -(-Lk // 8) * 8)
 
 
 def _scratch_floats(q: torch.Tensor, k: torch.Tensor) -> int:

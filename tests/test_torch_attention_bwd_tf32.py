@@ -1,4 +1,4 @@
-"""The error argument of #2's f32 backward on the CPU.
+"""The error argument of #2's and #4's f32 backwards on the CPU.
 
 On the card the f32 backward (`csrc/attention_bwd_sm90.cuh`, its TF32 plan)
 takes every product as three TF32 products a k8 step, A_lo B_hi + A_hi B_lo
@@ -18,6 +18,16 @@ and ds in f32 as the kernels form them. It holds the result to an f64 reference 
 output's largest magnitude), and shows that one TF32 product (A_hi B_hi)
 misses it.
 
+#4's f32 backward at d = 128 runs the same plan with #4's numeric policy
+(the TPU flash kernel's `_flash_attention_bwd_dkv` and `_dq`): p = exp(s
+scale - m) (1 / l) from the forward's residuals m and l, ds = ((dp - di)
+p) scale with di = rowsum(o do), the scale applied before the products,
+dv += p^T do, dk += ds^T q, dq = ds k, over 32-row tiles; its dq kernel
+reads m, l and di and makes no statistics pass. It is emulated at FLUX's
+1280 px length (L = 6912, the tiny f32 FLUX run's) and held to f64, to
+`flash_attention_bwd_ref` and to `jax.vjp` of the JAX package's plain path
+(`xla_attention`) in the same way.
+
 It cannot model the tensor cores' own accumulation inside a tile's chain
 of products (the sums here are exact): the card tests of
 `tests/test_torch_kernel_cuda.py` and `chip_smoke.py` guard that.
@@ -26,14 +36,19 @@ of products (the sums here are exact): the card tests of
 import functools
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sliders_tpu.ops.attention import xla_attention as jax_xla_attention
+from sliders_tpu_torch.ops import flash_attention as fa
 from sliders_tpu_torch.ops import sd_attention as sa
 from sliders_tpu_torch.ops.conv3x3 import tf32_rna
 
 L = 4096
+L_FLASH = 6912  # FLUX's joint attention at 1280 px: 512 + 80**2 tokens
 TOL = 1e-5  # of max(1, each output's largest magnitude), as the card tests hold it
 
 
@@ -100,6 +115,41 @@ def _case(d: int) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _flash_case(d: int) -> dict:
+    """#4's policy emulated (three products and one), the f64 reference,
+    `flash_attention_bwd_ref` (from the plain forward's o, m, l) and jax.vjp
+    of `xla_attention` at (1, 1, L_FLASH, d)."""
+    rng = np.random.default_rng(200 + d)
+    q, k, v, g = (rng.standard_normal((L_FLASH, d)).astype(np.float32) for _ in range(4))
+    tq, tk, tv, tg = (torch.from_numpy(t) for t in (q, k, v, g))
+    scale = d ** -0.5
+    o, m, l = fa.flash_attention_fwd_ref(*(t[None, None] for t in (tq, tk, tv)))
+    o, m, l = o[0, 0], m[0, 0], l[0, 0]
+    di = (o * tg).sum(-1, keepdim=True)
+    out = {}
+    for name, three in (("3x", True), ("1x", False)):
+        s = _product(tq, tk.T.contiguous(), three)
+        dp = _product(tg, tv.T.contiguous(), three)
+        p = torch.exp(s * scale - m[:, None]) * (1.0 / l)[:, None]
+        ds = ((dp - di) * p) * scale
+        del s, dp
+        out[name] = (_tiled(ds, tk, 32, three), _tiled(ds.T.contiguous(), tq, 32, three),
+                     _tiled(p.T.contiguous(), tg, 32, three))
+        del p, ds
+    qd, kd, vd, gd = (t.double() for t in (tq, tk, tv, tg))
+    p = torch.softmax((qd @ kd.T) * scale, dim=-1)
+    dp = gd @ vd.T
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    out["f64"] = (ds @ kd, ds.T @ qd, p.T @ gd)
+    del p, dp, ds
+    ref = fa.flash_attention_bwd_ref(*(t[None, None] for t in (tq, tk, tv, o, tg, m, l)))
+    out["ref"] = tuple(t[0, 0] for t in ref)
+    _, vjp = jax.vjp(jax_xla_attention, *(jnp.asarray(t[None, None]) for t in (q, k, v)))
+    out["jax"] = tuple(torch.from_numpy(np.array(t)[0, 0]) for t in vjp(jnp.asarray(g[None, None])))
+    return out
+
+
 def _err(got, want) -> float:
     """The largest error over dq, dk, dv, each as a share of its tolerance."""
     return max((a.double() - b.double()).abs().max().item()
@@ -121,3 +171,17 @@ def test_one_product_misses_the_f32_tolerance(d):
     """One TF32 product a step (11 bits an operand) misses the same
     tolerance by far: the compensation is what makes the path f32."""
     assert _err(_case(d)["1x"], _case(d)["f64"]) > 10.0
+
+
+@pytest.mark.parametrize("want", ["f64", "ref", "jax"])
+def test_flash_policy_three_products_meet_the_f32_tolerance(want):
+    """#4's f32 backward at d = 128 on the TF32 plan, with #4's policy: dq,
+    dk and dv within 1e-5 of each output's largest magnitude against f64,
+    the plain version and the JAX package's plain path."""
+    assert _err(_flash_case(128)["3x"], _flash_case(128)[want]) <= 0.5
+
+
+def test_flash_policy_one_product_misses_the_f32_tolerance():
+    """One TF32 product a step misses the tolerance under #4's policy too
+    (by about ten times)."""
+    assert _err(_flash_case(128)["1x"], _flash_case(128)["f64"]) > 1.0

@@ -142,10 +142,13 @@ def test_bwd_kernel_takes_head_views(cuda, d, dtype):
     ("sd", (1, 8, 4096, 40), torch.bfloat16), ("flash", (1, 3, 2048, 128), torch.bfloat16),
     ("flash", (2, 2, 1024, 256), torch.bfloat16), ("sd", (1, 8, 4096, 40), torch.float32),
     ("sd", (2, 3, 1090, 128), torch.float32), ("sd", (1, 10, 1024, 64), torch.float32),
-    ("flash", (1, 2, 1024, 128), torch.float32)])
+    ("flash", (1, 2, 1024, 128), torch.float32), ("flash", (1, 2, 6912, 128), torch.float32),
+    ("sd_fwd", (1, 8, 4096, 40), torch.float32), ("sd_fwd", (2, 3, 1090, 128), torch.float32),
+    ("sd_fwd", (1, 10, 1024, 64), torch.float32)])
 def test_bwd_kernels_are_deterministic(cuda, kernel, shape, dtype):
     """Two launches of a backward on the same inputs give bit-identical dq,
-    dk and dv: no atomics, every sum in a fixed order."""
+    dk and dv: no atomics, every sum in a fixed order. So do two launches of
+    #1's f32 forward ('sd_fwd': its split pass and two-pass kernel)."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(35)
@@ -154,6 +157,8 @@ def test_bwd_kernels_are_deterministic(cuda, kernel, shape, dtype):
                   for _ in range(4))
     if kernel == "sd":
         first, second = sa.sd_attention_bwd(q, k, v, g), sa.sd_attention_bwd(q, k, v, g)
+    elif kernel == "sd_fwd":
+        first, second = (sa.sd_attention(q, k, v),), (sa.sd_attention(q, k, v),)
     else:
         o, m, l = fa._forward(q, k, v, residuals=True)
         first = fa.flash_attention_bwd(q, k, v, o, g, m, l)
@@ -199,6 +204,9 @@ def test_attention_function_under_checkpoint_equals_without(cuda, kernel, shape)
         # kernel's cast points): 16 bf16 ulps at the largest magnitude
         (4096, 8, 320, torch.bfloat16, 2.0**-6),
         (1024, 8, 640, torch.bfloat16, 2.0**-6),
+        # f32 at SD1.5's two levels: #1's and #2's 3xTF32 kernels
+        (4096, 8, 320, torch.float32, 1e-5),
+        (1024, 8, 640, torch.float32, 1e-5),
     ],
 )
 def test_routed_attention_grads_match_plain_route(cuda, length, heads, width, dtype, rel_tol):
@@ -267,6 +275,60 @@ def test_kernel_walks_several_items_per_block(cuda, shape):
     ref = sa.sd_attention_ref(q, k, v)
     tol = 4 * _ulps_bf16(ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _f32_fwd_within(out, ref):
+    """#1's f32 forward against its plain version: within 1e-5 of max(1, the
+    output's largest magnitude), in f32 and of the reference's shape."""
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    err = (out - ref).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lengths", [(1000, 1000), (1090, 1090), (100, 100), (1000, 1090),
+                                     (130, 70)])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_f32_kernel_every_head_dim_and_ragged_length(cuda, d, lengths):
+    """#1's f32 forward on 3xTF32 `wgmma` (after its split pass) at every
+    head dim the gate takes, B = 2, 3 heads, lengths that leave a ragged
+    last q and key tile, one below a tile, and Lq != Lk both ways: within
+    1e-5 of the plain version (f32, TF32 off), one counted launch."""
+    Lq, Lk = lengths
+    gen = torch.Generator(device=cuda).manual_seed(d * 13 + Lq + 3 * Lk)
+    q = torch.randn((2, 3, Lq, d), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 3, Lk, d), generator=gen, device=cuda) for _ in range(2))
+    launches = sa.sd_attention.launches
+    out = sa.sd_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert sa.sd_attention.launches == launches + 1
+    _f32_fwd_within(out, sa.sd_attention_ref(q, k, v))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [40, 64, 80, 128])
+def test_f32_kernel_takes_head_views(cuda, d):
+    """#1's f32 forward on (B, H, L, d) head views of (B, L, H*d) buffers
+    (q, k and v, as the UNet and FLUX pass them), B = 2, a ragged L and
+    more items than SMs: the split pass and the kernel read the strides as
+    they lie; the output is a (B, H, L, d) view of a (B, L, H, d) buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 37)
+    q, k, v = (_heads(torch.randn((2, 1090, 40 * d), generator=gen, device=cuda), 40)
+               for _ in range(3))
+    out = sa.sd_attention(q, k, v)
+    assert out.permute(0, 2, 1, 3).is_contiguous()
+    _f32_fwd_within(out, sa.sd_attention_ref(q, k, v))
+
+
+@pytest.mark.requires_cuda
+def test_f32_kernel_refuses_what_it_does_not_take(cuda):
+    """#1's f32 entry takes d in [8, 128] in steps of 8 and raises on the
+    rest, as the bf16 one does; no CPU fallback for a CUDA tensor."""
+    for d in (4, 12, 136):
+        q = torch.randn((1, 1, 128, d), device=cuda)
+        with pytest.raises(ValueError):
+            sa.sd_attention(q, q, q)
 
 
 # ---------------------------------------------------------------------------
@@ -854,6 +916,7 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
         ((1, 2, 1024, 128), torch.float32, False),
         ((1, 2, 1024, 128), torch.float32, True),
         ((1, 1, 1024, 256), torch.float32, False),
+        ((1, 2, 6912, 128), torch.float32, True),  # the tiny f32 FLUX run's 1280 px
     ],
 )
 def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype, views):
@@ -893,6 +956,29 @@ def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype, views):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,dtype,plan", [(128, torch.bfloat16, "pair"),
+                                          (256, torch.bfloat16, "split"),
+                                          (128, torch.float32, "tf32"),
+                                          (256, torch.float32, "fma")])
+def test_flash_bwd_launches_by_plan(cuda, d, dtype, plan):
+    """#4's backward counts each kernel launch under its plan: bf16 d = 128
+    PAIR, d = 256 SPLIT, f32 d = 128 the TF32 plan (3xTF32 `wgmma`) and f32
+    d = 256 still the FMA kernel (flash_bwd_f32)."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(d + 38)
+    q, k, v, g = (torch.randn((1, 2, 1024, d), generator=gen, device=cuda).to(dtype)
+                  for _ in range(4))
+    o, m, l = fa._forward(q, k, v, residuals=True)
+    before = dict(fa.flash_attention_bwd.launches_by_plan)
+    fa.flash_attention_bwd(q, k, v, o, g, m, l)
+    torch.cuda.synchronize()
+    after = fa.flash_attention_bwd.launches_by_plan
+    assert {p: after[p] - before[p] for p in after} == {
+        p: (2 if p == plan else 0) for p in fa.BWD_PLANS}
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize(
     "length,heads,dtype,rel_tol",
     [
@@ -901,6 +987,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype, views):
         # f32 and normalises p before rounding it, where the kernels keep dp
         # in f32 and round unnormalised p and ds: 16 bf16 ulps at the largest
         (10240, 2, torch.bfloat16, 2.0**-6),
+        (9728, 2, torch.float32, 1e-5),  # FLUX at 1536 px, where f32 first routes to #4
     ],
 )
 def test_flash_function_grads_match_plain_route(cuda, length, heads, dtype, rel_tol):
