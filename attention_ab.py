@@ -11,7 +11,9 @@ flash_attention,conv3x3}.cu` are compiled with the flags of `ops/_build.py`
 into `<dir>/_ab_build/` and loaded with ctypes behind the same C entry
 points, so the port's wrappers launch either library on the same inputs
 (a parent whose #1 entry takes no scratch, from before the f32 forward's
-3xTF32 kernel, behind `ScratchlessFwd`). The conv wrappers run the
+3xTF32 kernel, behind `ScratchlessFwd`; a parent whose #4 forward entry
+takes none, from before #4's f32 forward on 3xTF32, behind
+`ScratchlessFlash`). The conv wrappers run the
 parent's conv library as the parent's own plan would: a parent with this
 checkout's entries (`tf32_split_launch` among
 them) as they are; a parent whose Hopper entry takes bf16 only (no dtype
@@ -78,6 +80,15 @@ CASES = [
     ("flash", (1, 2, 16896, 128), "bfloat16", True),
     ("flash", (8, 1, 16384, 512), "float32", False),
     ("flash", (8, 1, 4096, 512), "float32", False),
+    # #4 in bf16 at d = 256 (a test shape and one that fills the card) and in
+    # f32 (the one-pass 3xTF32 plans) at the tiny f32 FLUX run's 1280 px and
+    # FLUX's 1536 px on head views, and at d = 256
+    ("flash", (1, 2, 2048, 256), "bfloat16", False),
+    ("flash", (1, 16, 4096, 256), "bfloat16", False),
+    ("flash", (1, 2, 6912, 128), "float32", True),
+    ("flash", (1, 24, 9728, 128), "float32", True),
+    ("flash", (1, 2, 2048, 256), "float32", False),
+    ("flash", (1, 16, 4096, 256), "float32", False),
     # the backwards: #2 at every bf16 shape of chip_smoke.py's BWD_SHAPES (FLUX's
     # d = 128 on head views, as its grad pass passes them), #4's dk/dv and dq
     # kernels from the same residuals at FLUX's 2048 px and 1024 px grad passes
@@ -104,6 +115,8 @@ CASES = [
     # that fills the card
     ("flash_bwd", (1, 2, 2048, 256), "bfloat16", True),
     ("flash_bwd", (1, 16, 4096, 256), "bfloat16", True),
+    # #4's f32 backward at d = 256 (the FMA kernels flash_bwd_f32)
+    ("flash_bwd", (1, 2, 2048, 256), "float32", False),
     # the conv kernels: ((B, H, W, C, N, mode), dtype, the kernels timed) at
     # batch 16 in bf16, the VAE decoder's f32 shapes at the decode batch, and
     # the f32 CONV_EXTRA case
@@ -194,6 +207,29 @@ class ScratchlessFwd:
         return self._fwd(q, k, v, o, *rest)
 
 
+class ScratchlessFlash:
+    """A parent's #4 library from before its f32 forward at d = 128 / 256
+    took a scratch (its `flash_attention_fwd` has no scratch argument; those
+    head dims on the FMA kernel `flash_fwd_f32`, bf16 d = 256 on
+    `flash_fwd_bf16`): that entry behind this checkout's signature, the
+    scratch dropped, and its backward entry as it is. It can go once no such
+    parent is timed."""
+
+    def __init__(self, lib):
+        from sliders_tpu_torch.ops import _build
+
+        self._fwd = lib.flash_attention_fwd
+        self._fwd.argtypes = [_build._P] * 5 + [_build._I] * 6 + [_build._L] * 12 + [
+            _build._F, _build._P]
+        self._fwd.restype = ctypes.c_int
+        self.flash_attention_bwd = lib.flash_attention_bwd
+        self.flash_attention_bwd.argtypes = _build.LIBRARIES["flash"][2]["flash_attention_bwd"]
+        self.flash_attention_bwd.restype = ctypes.c_int
+
+    def flash_attention_fwd(self, q, k, v, o, ml, scratch, *rest):
+        return self._fwd(q, k, v, o, ml, *rest)
+
+
 def build_parent(parent: str) -> dict:
     """Compile the parent's attention and conv sources; {name: CDLL} with the
     argtypes of this checkout's entry points that the parent's library has
@@ -217,11 +253,15 @@ def build_parent(parent: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"parent {LIBS[name]}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(out)
-        if name == "fwd":
+        if name in ("fwd", "flash"):
             with open(os.path.join(csrc, LIBS[name])) as f:
-                if "attn_fwd_f32" in f.read():
-                    libs[name] = ScratchlessFwd(lib)
-                    continue
+                text = f.read()
+            if name == "fwd" and "attn_fwd_f32" in text:
+                libs[name] = ScratchlessFwd(lib)
+                continue
+            if name == "flash" and "flash_fwd_bf16" in text:
+                libs[name] = ScratchlessFlash(lib)
+                continue
         bf16_hopper = name == "conv" and not hasattr(lib, "tf32_split_launch")
         for symbol, argtypes in _build.LIBRARIES[name][2].items():
             if hasattr(lib, symbol) and not (bf16_hopper and symbol == "conv3x3_sm90_launch"):

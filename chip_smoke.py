@@ -252,13 +252,17 @@ GN_SHAPES = [(hw * hw, c, True, 1e-5) for hw, cs in ((64, (320, 640, 960)),
 FLUX_BLOCKS = 57
 FLUX_STEPS = {1024: 4, 2048: 2}
 # kernel #4 against its plain version: FLUX's joint attention at 2048 px (two
-# of its 24 heads), two rows of the 1024 px bucket, f32 at 1280 px, d = 256,
-# and the VAE's single-head mid attention (d = 512, f32) at the decode shapes
-# of SD1.5 at 512 px (bucket 8) and FLUX at 1024 px (bucket 8) and 2048 px
+# of its 24 heads), two rows of the 1024 px bucket, f32 at 1280 px (the tiny
+# FLUX run) and at 1536 px (all 24 heads, where f32 first routes to #4), d =
+# 256 at a test shape and at one that fills the card in both dtypes, and the
+# VAE's single-head mid attention (d = 512, f32) at the decode shapes of
+# SD1.5 at 512 px (bucket 8) and FLUX at 1024 px (bucket 8) and 2048 px;
+# every call must launch on the plan of its (dtype, d) (`fwd_plan`)
 FLASH_SHAPES = [
     ((1, 2, 16896, 128), "bfloat16"), ((2, 24, 4608, 128), "bfloat16"),
-    ((1, 2, 6912, 128), "float32"), ((1, 2, 2048, 256), "bfloat16"),
-    ((1, 2, 2048, 256), "float32"),
+    ((1, 2, 6912, 128), "float32"), ((1, 24, 9728, 128), "float32"),
+    ((1, 2, 2048, 256), "bfloat16"), ((1, 16, 4096, 256), "bfloat16"),
+    ((1, 2, 2048, 256), "float32"), ((1, 16, 4096, 256), "float32"),
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
 ]
@@ -266,9 +270,9 @@ FLASH_SHAPES = [
 # SDPA in f32 are timed there, and at SD1.5's decode at 512 px (bucket 8)
 VAE_FLASH_SHAPE = (8, 1, 16384, 512)
 VAE_DECODE_SHAPES = (VAE_FLASH_SHAPE, (8, 1, 4096, 512))
-# and at the shapes of #4's first-design forwards (f32 d = 128, d = 256 in
-# bf16 and f32)
-FLASH_SDPA_SHAPES = VAE_DECODE_SHAPES + ((1, 2, 6912, 128), (1, 2, 2048, 256))
+# and at the shapes of #4's bf16 d = 256 and f32 d = 128 / 256 forwards
+FLASH_SDPA_SHAPES = VAE_DECODE_SHAPES + ((1, 2, 6912, 128), (1, 24, 9728, 128),
+                                         (1, 2, 2048, 256), (1, 16, 4096, 256))
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
 FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
@@ -279,10 +283,12 @@ TINY_FLUX_STEPS = 2
 # kernel #4's backward against its plain version: FLUX training's grad pass
 # at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32, the
 # TF32 plan), FLUX's grad pass at 1536 px in f32 (where f32 first routes to
-# #4), and d = 256 at a test shape and at one that fills the card
+# #4), and d = 256 at a test shape (bf16, and f32 on the FMA kernels
+# flash_bwd_f32) and at one that fills the card
 FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 6912, 128), "float32"),
                     ((1, 24, 9728, 128), "float32"),
-                    ((1, 2, 2048, 256), "bfloat16"), ((1, 16, 4096, 256), "bfloat16")]
+                    ((1, 2, 2048, 256), "bfloat16"), ((1, 16, 4096, 256), "bfloat16"),
+                    ((1, 2, 2048, 256), "float32")]
 # tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
 TINY_FLUX_TRAIN_ITERATIONS = 2
 TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
@@ -458,9 +464,10 @@ def phase_device():
 # the kernels whose ptxas report `phase_build` prints (the first key an entry
 # holds names it): #1's bf16 forward on the Hopper mainloop
 # (attention_sm90.cuh, Cfg<DP, BK, TMA, two-pass>) at SD1.5's d = 40 and 80,
-# SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 on the
-# same mainloop; #1's f32 forward (sd_attention.cu, attn_fwd_tf32<FCfg<DPF,
-# BK, TMA>>, 3xTF32) at every instantiation; the backwards on the Hopper
+# SDXL's d = 64 and FLUX's d = 128, and #4's bf16 forward at d = 128 and 256
+# on the same mainloop; the f32 forwards (attention_fwd_tf32.cuh,
+# attn_fwd_tf32<FCfg<DPF, BK, TMA, plan>>, 3xTF32): #1's at every
+# instantiation, #4's at d = 128 and 256; the backwards on the Hopper
 # backward mainloop (attention_bwd_sm90.cuh, BCfg<DP, BN, TMA, dk/dv, #2's
 # policy, plan>): #2's bf16 dq and dk/dv kernels at d = 40, 64, 80 and 128
 # and #4's at d = 128 (PAIR), #4's at d = 256 (SPLIT), #2's f32 kernels at
@@ -469,13 +476,13 @@ def phase_device():
 # mainloop (conv3x3_sm90.cuh) in bf16 at each BN, with #6's prologue at BN
 # 128 and 160, and in f32 (3xTF32) at BN 128 with and without it, and the
 # weights' TF32 split; every generic conv and GroupNorm instantiation, #4's
-# f32 forwards (d = 512 and the others) and its f32 d = 256 backward
-# kernels, #9's copy kernels
+# f32 d = 512 forward and its f32 d = 256 backward kernels, #9's copy
+# kernels
 # #2's f32 (TF32 plan) instantiations, and #1's f32 forward's (FCfg<DPF,
-# BK, TMA>, attn_fwd_tf32): (padded head dim, TMA)
+# BK, TMA, FWD_TWO_PASS>, attn_fwd_tf32): (padded head dim, TMA)
 TF32_CONFIGS = ((16, 0), (32, 1), (40, 0), (48, 0), (64, 1), (80, 0), (96, 0), (112, 0),
                 (128, 0), (128, 1))
-FWD_TF32 = tuple((f"FCfgILi{dpf}ELi{64 if dpf <= 64 else 32}ELb{tma}EE",
+FWD_TF32 = tuple((f"FCfgILi{dpf}ELi{64 if dpf <= 64 else 32}ELb{tma}ELi0EE",
                   f"attn_fwd_tf32 #1 f32 d={dpf} ({'TMA' if tma else '16-byte TMA'}, 3xTF32)")
                  for dpf, tma in TF32_CONFIGS)
 BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
@@ -501,7 +508,10 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("CfgILi64ELi64ELb1ELb1ELi2E", "attn_sm90 #1 d=64 (TMA, 2 blocks an SM)"),
             ("CfgILi128ELi128ELb1ELb1ELi1E", "attn_sm90 #1 d=128 (TMA)"),
             ("CfgILi128ELi128ELb1ELb0ELi1E", "attn_sm90 #4 d=128 (TMA, one pass)"),
+            ("CfgILi256ELi64ELb1ELb0ELi1E", "attn_sm90 #4 d=256 (TMA, one pass)"),
             *FWD_TF32,
+            ("FCfgILi128ELi32ELb1ELi1EE", "attn_fwd_tf32 #4 f32 d=128 (TMA, 3xTF32, one pass)"),
+            ("FCfgILi256ELi32ELb1ELi2EE", "attn_fwd_tf32 #4 f32 d=256 (TMA, 3xTF32, split d)"),
             *BWD_SM90,
             ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32 (d = 256)"),
             ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32 (d = 256)"),
@@ -516,8 +526,7 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
             ("group_norm_kernelIfE", "group_norm_f32"),
-            ("flash_fwd_bf16", "flash_fwd_bf16 (d = 256)"),
-            ("flash_fwd_f32_d512", "flash_fwd_f32_d512"), ("flash_fwd_f32", "flash_fwd_f32"),
+            ("flash_fwd_f32_d512", "flash_fwd_f32_d512"),
             ("layout_pin_rows16", "layout_pin_rows16"),
             ("layout_pin_transposeIt", "layout_pin_transpose_16bit"),
             ("layout_pin_transposeIj", "layout_pin_transpose_32bit"),
@@ -544,14 +553,15 @@ def ptxas_report(log: str) -> list:
 
 
 def sm90_smem(d: int) -> int:
-    """Dynamic shared memory a block of #1's Hopper-mainloop kernel takes at
-    head dim d (attention_sm90.cuh's Cfg as sd_attention.cu picks it: two
-    blocks an SM and 64-key tiles at d = 64, else one and 128-key tiles;
+    """Dynamic shared memory a block of the bf16 Hopper-mainloop kernel takes
+    at head dim d (attention_sm90.cuh's Cfg as sd_attention.cu and, at d =
+    256, flash_attention.cu pick it: two blocks an SM and 64-key tiles at
+    d = 64, one and 64-key tiles at d = 256, else one and 128-key tiles;
     1024 bytes of alignment slack and 1024 of barriers, the 128-row q tile,
     then as many K/V stages as fit 200 KiB split between the SM's blocks, at
     most 4)."""
     dp = -(-d // 16) * 16
-    ctas, block_k = (2, 64) if d == 64 else (1, 128)
+    ctas, block_k = (2, 64) if d == 64 else (1, 64) if d == 256 else (1, 128)
     q, stage = 128 * dp * 2, 2 * block_k * dp * 2
     return 2048 + q + min(4, (200 * 1024 // ctas - 2048 - q) // stage) * stage
 
@@ -579,14 +589,18 @@ def bwd_sm90_smem(dp: int, bn: int, dkv: bool, kind: int = 0) -> int:
     return fixed + min(4, ((200 * 1024 if kind == 0 else 232448) - fixed) // stage) * stage
 
 
-def fwd_tf32_smem(dpf: int) -> int:
-    """Dynamic shared memory a block of #1's f32 forward takes (sd_attention.cu's
-    FCfg<DPF, BK>: 64 keys a stage where DPF <= 64, else 32): 1024 bytes of
-    alignment slack and 1024 of barriers, the 128-row f32 q tile, then as
-    many stages of K's and V^T's hi and lo planes as fit the block's 227 KiB,
-    at most 4."""
+def fwd_tf32_smem(dpf: int, split_d: bool = False) -> int:
+    """Dynamic shared memory a block of the f32 forwards takes
+    (attention_fwd_tf32.cuh's FCfg<DPF, BK, TMA, PLAN>: 64 keys a stage
+    where DPF <= 64, else 32): 1024 bytes of alignment slack and 1024 of
+    barriers, the f32 q tile (128 rows; 64 under FWD_SPLIT_D, #4 at d = 256,
+    with 4 partial S tiles of 64 x 32 f32 for the exchange), then as many
+    stages of K's and V^T's hi and lo planes (FWD_SPLIT_D: K's two or V^T's
+    two) as fit the block's 227 KiB, at most 4."""
     bk = 64 if dpf <= 64 else 32
-    fixed, stage = 2048 + 128 * dpf * 4, 4 * bk * dpf * 4
+    rows, planes = (64, 2) if split_d else (128, 4)
+    fixed = 2048 + rows * dpf * 4 + (4 * 64 * bk * 4 if split_d else 0)
+    stage = planes * bk * dpf * 4
     return fixed + min(4, (232448 - fixed) // stage) * stage
 
 
@@ -624,6 +638,10 @@ def phase_build():
     say("build", "attn_fwd_tf32 (#1 f32) dynamic shared memory a block (bytes): " + ", ".join(
         f"d={d} {fwd_tf32_smem(d)}" for d in (40, 64, 80, 128))
         + "; one block an SM, consumers 232 registers a thread, producer 40 (setmaxnreg)")
+    say("build", f"#4's forwards, dynamic shared memory a block (bytes): bf16 d=128 "
+        f"{sm90_smem(128)} (consumers 224 registers a thread, producer 56), d=256 "
+        f"{sm90_smem(256)} (232 / 40); f32 (3xTF32) d=128 {fwd_tf32_smem(128)}, d=256 "
+        f"{fwd_tf32_smem(256, split_d=True)} (232 / 40)")
     from sliders_tpu_torch.ops import conv3x3 as tc
 
     import torch
@@ -1032,8 +1050,11 @@ def phase_flash_kernel():
     blocks, unnormalised p rounded to v's dtype) at FLASH_SHAPES: bf16 held to
     4 bf16 ulps at the output's largest magnitude (both round p and o at the
     same points; sums in other orders and the fast exp may flip a rounding),
-    f32 to F32_TOL; each timed (median of 5) beside its bound, and at
-    FLASH_SDPA_SHAPES beside its plain version and SDPA in its dtype too. The plain
+    f32 to F32_TOL; every call must launch once, on the plan of its (dtype,
+    d) (`fwd_plan`: bf16 "sm90", f32 d = 128 / 256 "tf32", d = 512 "d512");
+    each timed (median of 5) beside its bound (f32: 3xTF32 and FMA, the lesser
+    the row's), and at FLASH_SDPA_SHAPES beside its plain version and SDPA in
+    its dtype too. The plain
     version walks K in blocks, so it holds no L x L logits and runs at every
     head count. Then at FLUX_SERVE_SHAPES, on head
     views of (B, L, H*d) buffers as the FLUX path passes them: #4 and #1
@@ -1052,7 +1073,10 @@ def phase_flash_kernel():
     for shape, dt in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        plan = fa.fwd_plan(dtype, shape[3])
+        plans = dict(fa.flash_attention.launches_by_plan)
         out = fa.flash_attention(q, k, v)
+        plans = {p: n - plans[p] for p, n in fa.flash_attention.launches_by_plan.items()}
         ref = fa.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -1062,16 +1086,21 @@ def phase_flash_kernel():
         else:
             tol, shown = F32_TOL, "f32"
         ms = median_ms(lambda: fa.flash_attention(q, k, v), runs=5)
-        bound_ms, bound_by = attention_bound(shape, dt)
-        row = {"shape": shape, "dtype": dt, "err": err, "ms": ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+        row = {"shape": shape, "dtype": dt, "plan": plan, "err": err, "ms": ms,
+               **attention_bounds(shape, dt)}
         if shape in FLASH_SDPA_SHAPES:
             row["plain_ms"] = median_ms(lambda: fa.flash_attention_ref(q, k, v), runs=3)
             row["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, k, v), runs=3)
-        say("flash", f"{shape} {dt}: max|err| vs plain {err:.3g} ({shown}; tol {tol:.3g}), "
-            f"max|ref| {ref_max:.3g}; median #4 {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+        say("flash", f"{shape} {dt} ({plan} plan, launches {plans}): max|err| vs plain {err:.3g} "
+            f"({shown}; tol {tol:.3g}), max|ref| {ref_max:.3g}; median #4 {ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+            + (f" (3xTF32 {row['tf32x3_bound_ms']:.4f}, FMA {row['fma_bound_ms']:.4f})"
+               if dt == "float32" else "")
             + (f"; plain {row['plain_ms']:.4f} ms, SDPA ({dt}) {row['library_ms']:.4f} ms"
                if "plain_ms" in row else ""))
+        if plans != {p: 1 if p == plan else 0 for p in plans}:
+            raise AssertionError(f"flash_attention at {shape} {dt} did not launch once on its "
+                                 f"{plan} plan: {plans}")
         if not (err <= tol and out.shape == ref.shape and out.dtype == dtype):
             raise AssertionError(f"flash_attention disagrees with its plain version at {shape} "
                                  f"{dt}")
@@ -1488,7 +1517,8 @@ def phase_tiny_flux():
     1e-3 of their largest magnitude (f32 sums in other orders through 4
     blocks and 2 steps; a wrong block moves them by O(1)), the images to one
     level of 255. #4 must launch 4 joint attentions x steps + 1 VAE mid
-    attention times; #1 never (T5 and CLIP are masked: plain path)."""
+    attention times, all f32 at d = 128 on its "tf32" plan (the one-pass
+    3xTF32 kernel); #1 never (T5 and CLIP are masked: plain path)."""
     import torch
 
     from sliders_tpu_torch.lora.network import create_slider_network
@@ -1506,8 +1536,10 @@ def phase_tiny_flux():
         for e in slider.values():
             e["up"] = torch.randn(e["up"].shape, generator=gen) * 0.1
         fa.flash_attention.launches = sa.sd_attention.launches = 0
+        fa.flash_attention.launches_by_plan = dict.fromkeys(fa.FWD_PLANS, 0)
         gpu, gpu_px = tiny_flux_serve(snap, "cuda", slider)
         flash, sd = fa.flash_attention.launches, sa.sd_attention.launches
+        plans = dict(fa.flash_attention.launches_by_plan)
         t0 = time.perf_counter()
         cpu, cpu_px = tiny_flux_serve(snap, "cpu", slider)
         cpu_s = time.perf_counter() - t0
@@ -1516,16 +1548,18 @@ def phase_tiny_flux():
     px_err = max(max(abs(a - b) for a, b in zip(g, c)) for g, c in zip(gpu_px, cpu_px))
     expected = 4 * TINY_FLUX_STEPS + 1
     say("kernel", f"tiny FLUX {TINY_FLUX_PX} px f32 via cli/serve.py --flux, {TINY_FLUX_STEPS} "
-        f"steps, scales [-1, 2]: GPU (#4 {flash} launches, expected {expected}; #1 {sd}) vs CPU "
+        f"steps, scales [-1, 2]: GPU (#4 {flash} launches, expected {expected}, by plan {plans}; "
+        f"#1 {sd}) vs CPU "
         f"(plain, {cpu_s:.1f} s): latents max|err| {err:.3g} (tol {1e-3 * max(1.0, scale):.3g}, "
         f"max|latent| {scale:.3g}); images max level diff {px_err} (tol 1)")
-    if flash != expected or sd != 0:
-        raise AssertionError("the tiny FLUX slice did not take kernel #4 where the gate routes it")
+    if flash != expected or sd != 0 or plans != {p: flash if p == "tf32" else 0 for p in plans}:
+        raise AssertionError("the tiny FLUX slice did not take kernel #4's tf32 plan where the "
+                             "gate routes it")
     if not torch.isfinite(gpu).all() or err > 1e-3 * max(1.0, scale) or px_err > 1:
         raise AssertionError("the tiny FLUX slice on the GPU disagrees with the CPU")
     if gpu_px[0] == gpu_px[1]:
         raise AssertionError("the tiny FLUX slider did nothing")
-    return flash
+    return {"flash": flash, "fwd_plans": plans}
 
 
 def tiny_flux_train(snap: str, device: str, lora: dict, tmp: str) -> tuple:
@@ -1562,6 +1596,7 @@ def flux_counts() -> dict:
     return {"sd": sa.sd_attention.launches, "sd_bwd": sa.sd_attention_bwd.launches,
             "flash": fa.flash_attention.launches, "dkv": fa.flash_attention_bwd.dkv_launches,
             "dq": fa.flash_attention_bwd.dq_launches,
+            "fwd_plans": dict(fa.flash_attention.launches_by_plan),
             "bwd_plans": dict(fa.flash_attention_bwd.launches_by_plan)}
 
 
@@ -1571,6 +1606,7 @@ def reset_flux_counts() -> None:
 
     sa.sd_attention.launches = sa.sd_attention_bwd.launches = fa.flash_attention.launches = 0
     fa.flash_attention_bwd.dkv_launches = fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention.launches_by_plan = dict.fromkeys(fa.FWD_PLANS, 0)
     fa.flash_attention_bwd.launches_by_plan = dict.fromkeys(fa.BWD_PLANS, 0)
 
 
@@ -1581,9 +1617,11 @@ def phase_tiny_flux_train():
     xattn LoRA. f32 sums in other orders only: each iteration's loss is held
     to 1e-5 relative, its grad norm to 1e-4, the LoRA after the last update
     to 1e-6. Launches are exact: #4's forward 4 joint attentions x (t_to + 1
-    frozen + 2 grad with remat) per iteration, its dk/dv and dq kernels 4
-    each per iteration, every one on the TF32 plan (3xTF32 `wgmma`), #1 and
-    #2 never. The lr is TINY_FLUX_LR (see there)."""
+    frozen + 2 grad with remat) per iteration, every one on its "tf32" plan
+    (the one-pass 3xTF32 kernel, whose residuals the backward reads), its
+    dk/dv and dq kernels 4 each per iteration, every one on the backward's
+    TF32 plan (3xTF32 `wgmma`), #1 and #2 never. The lr is TINY_FLUX_LR (see
+    there)."""
     import torch
 
     from sliders_tpu_torch.lora.network import create_slider_network
@@ -1613,7 +1651,8 @@ def phase_tiny_flux_train():
     bwd_expected = 4 * TINY_FLUX_TRAIN_ITERATIONS
     say("kernel", f"tiny FLUX training {TINY_FLUX_PX} px f32 via cli/train_flux_slider.py, "
         f"{len(gpu)} iterations (t_to {t_tos}), GPU (#4 forward {counts['flash']} launches, "
-        f"expected {fwd_expected}; dk/dv {counts['dkv']}, dq {counts['dq']}, expected "
+        f"expected {fwd_expected}, by plan {counts['fwd_plans']}; dk/dv {counts['dkv']}, dq "
+        f"{counts['dq']}, expected "
         f"{bwd_expected}, by plan {counts['bwd_plans']}; #1 {counts['sd']}, #2 "
         f"{counts['sd_bwd']}) vs CPU (plain, {cpu_s:.1f} s): "
         f"losses {[round(m['loss'], 9) for m in gpu]} vs {[round(m['loss'], 9) for m in cpu]}, max "
@@ -1621,6 +1660,8 @@ def phase_tiny_flux_train():
         f"LoRA max|err| {lora_err:.3g} (tol 1e-6)")
     if (counts["flash"] != fwd_expected or counts["dkv"] != bwd_expected
             or counts["dq"] != bwd_expected or counts["sd"] or counts["sd_bwd"]
+            or counts["fwd_plans"] != {p: fwd_expected if p == "tf32" else 0
+                                       for p in counts["fwd_plans"]}
             or counts["bwd_plans"] != {p: 2 * bwd_expected if p == "tf32" else 0
                                        for p in counts["bwd_plans"]}):
         raise AssertionError("tiny FLUX training on the GPU did not take #4's route exactly")
@@ -1628,7 +1669,7 @@ def phase_tiny_flux_train():
             loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
         raise AssertionError("tiny FLUX training on the GPU disagrees with the CPU")
     return {"flash": counts["flash"], "dkv": counts["dkv"], "dq": counts["dq"],
-            "bwd_plans": counts["bwd_plans"]}
+            "fwd_plans": counts["fwd_plans"], "bwd_plans": counts["bwd_plans"]}
 
 
 def build_engine(tok_dir: str):
@@ -2869,13 +2910,14 @@ def phase_flux_train(models, tmp: str) -> dict:
         t_tos = [m["t_to"] for *_, m in recs]
         fwd_expected = FLUX_BLOCKS * sum(t + 3 for t in t_tos)
         bwd_expected = FLUX_BLOCKS * len(recs)
-        plans = dict.fromkeys(c["bwd_plans"], 0)
-        if px == 2048:  # bf16 d = 128: #4's backward on the PAIR plan
+        fwd_plans, plans = dict.fromkeys(c["fwd_plans"], 0), dict.fromkeys(c["bwd_plans"], 0)
+        if px == 2048:  # bf16 d = 128: #4's forward on "sm90", its backward on PAIR
             expected = {"sd": 0, "sd_bwd": 0, "flash": fwd_expected, "dkv": bwd_expected,
-                        "dq": bwd_expected, "bwd_plans": {**plans, "pair": 2 * bwd_expected}}
+                        "dq": bwd_expected, "fwd_plans": {**fwd_plans, "sm90": fwd_expected},
+                        "bwd_plans": {**plans, "pair": 2 * bwd_expected}}
         else:
             expected = {"sd": fwd_expected, "sd_bwd": bwd_expected, "flash": 0, "dkv": 0, "dq": 0,
-                        "bwd_plans": plans}
+                        "fwd_plans": fwd_plans, "bwd_plans": plans}
         final = run["lora"]
         moved = sum(not torch.equal(final[m]["down"], init[m]["down"]) for m in init)
         frozen = sum(torch.equal(final[m]["up"], init[m]["up"])
@@ -3670,16 +3712,21 @@ def main() -> int:
         "launches_by_path": {"flux_serve_2048": flux["serve_2048"]["flash"],
                              "flux_serve_2048_sweep": flux["serve_2048"]["flash_sweep"],
                              "flux_serve_1024_vae": flux["serve_1024"]["flash"],
-                             "tiny_flux_1280": tiny_flux, "serve_vae": serve_flash,
+                             "tiny_flux_1280": tiny_flux["flash"], "serve_vae": serve_flash,
                              "flux_train_2048": flux["train"][2048]["counts"]["flash"],
                              "tiny_flux_train_1280": tiny_flux_train["flash"],
                              "sdxl_serve_1024_vae": sdxl["http"]["flash"]},
+        "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
+                             "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
+                             "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},
         "max_abs_err": max(r["err"] for r in flash_checks),
         **timing(flash0),
         "sd_attention_ms_same_inputs": flash0["sd_ms"],
         "vae_decode_shapes": [dict(timing(r), shape=r["shape"]) for r in flash_checks
                               if r["shape"] in VAE_DECODE_SHAPES],
-        "sdpa_shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"]) for r in flash_checks
+        "sdpa_shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"], plan=r["plan"],
+                             **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
+                        for r in flash_checks
                         if r["shape"] in FLASH_SDPA_SHAPES and "plain_ms" in r],
         "decode_ms_auto_vs_xla": {"sd15_512": sd15_decode, "sdxl_1024": sdxl["step"]["decode"]},
     }, {

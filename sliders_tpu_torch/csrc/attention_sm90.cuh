@@ -1,13 +1,13 @@
 // The Hopper mainloop of the bf16 attention forwards: kernel #1's two-pass
 // exact softmax (sd_attention.cu) and kernel #4's one-pass online softmax at
-// d = 128 (flash_attention.cu). It takes the bf16 packing and the quad
-// reductions from sd_attention_common.cuh, which does not include it, so
-// #2's build does not move with it, and the PTX wrappers (mbarriers, TMA,
+// d = 128 and 256 (flash_attention.cu). It takes the bf16 packing and the
+// quad reductions from sd_attention_common.cuh, which does not include it,
+// so #2's build does not move with it, and the PTX wrappers (mbarriers, TMA,
 // the wgmma fence and waits) from sm90_ptx.cuh, which the conv mainloop
 // shares.
 //
-// What bounds it: at d = 128 the tensor cores (4 L^2 d operations against
-// 4 L d bytes per head); at d <= 80 the softmax, two exps a logit in
+// What bounds it: at d = 128 and 256 the tensor cores (4 L^2 d operations
+// against 4 L d bytes per head); at d <= 80 the softmax, two exps a logit in
 // two-pass mode on the MUFU pipe (16 a clock an SM), which runs in step
 // with the products rather than beside them.
 //
@@ -25,18 +25,22 @@
 //     and goes, rounded to bf16, straight into the A registers of
 //     O += P.V, `wgmma` with A from registers and V read MN-major through
 //     the instruction's transpose flag (no V transpose anywhere).
-// With one block an SM, `setmaxnreg` moves registers from the producer (56)
-// to the consumers (224), whose S and O accumulators are up to 64 + 64
-// floats a thread. With two (d = 64, 64-key tiles), 112 registers a thread
-// suffice, and the two blocks' items run out of step with each other.
+// With one block an SM, `setmaxnreg` moves registers from the producer to
+// the consumers: 56 / 224 where their S and O accumulators are up to 64 +
+// 64 floats a thread, 40 / 232 at d = 256, where O alone is 128 floats a
+// thread beside S's 32 (64-key tiles) and p's 16 bf16 A registers. With two
+// blocks an SM (d = 64, 64-key tiles), 112 registers a thread suffice, and
+// the two blocks' items run out of step with each other.
 //
 // Two ways to fill the ring, chosen per head dim at compile time:
-//   - TMA (d = 64 and d = 128, where a head's row is one or two 128-byte
-//     swizzle rows): one thread issues `cp.async.bulk.tensor.4d` loads of
-//     64-column boxes through a (d, L, H, B) tensor map built on the host
-//     per launch, so a box over a head view never reads the next head's
-//     columns, and rows past L arrive as zeros. The tiles are 128-byte
-//     swizzled and the descriptors say so.
+//   - TMA (d = 64, 128 and 256, where a head's row is one, two or four
+//     128-byte swizzle rows): one thread issues `cp.async.bulk.tensor.4d`
+//     loads of 64-column boxes through a (d, L, H, B) tensor map built on
+//     the host per launch, so a box over a head view never reads the next
+//     head's columns, and rows past L arrive as zeros. The tiles are 128-byte
+//     swizzled and the descriptors say so. At d = 256 (#4) a 128-row q tile
+//     is 64 KB and a stage of 64 keys of K and V another 64 KB: two stages
+//     fit the 200 KB budget.
 //   - cp.async (every other d the gate takes, 8..120 in steps of 8): the
 //     producer's threads issue 16-byte copies with zero-fill into the
 //     canonical no-swizzle layout (8 x 16-byte core matrices, 128
@@ -189,6 +193,10 @@ struct Cfg {
   static constexpr int CTAS = CTAS_;
   static constexpr int PRODUCER = CTAS == 1 ? WG : 32;  // producer threads
   static constexpr int THREADS = 2 * WG + PRODUCER;     // consumers first
+  // setmaxnreg with one block an SM: 2 x 128 x CONSUMER_REGS + 128 x
+  // PRODUCER_REGS may not pass the block's 384 x 168
+  static constexpr int CONSUMER_REGS = DP == 256 ? 232 : 224;
+  static constexpr int PRODUCER_REGS = DP == 256 ? 40 : 56;
   static constexpr int Q_BYTES = QROWS * DP * 2;
   static constexpr int TILE_BYTES = BK * DP * 2;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K then V
@@ -197,7 +205,8 @@ struct Cfg {
   static constexpr int SMEM = 1024 /* align */ + 1024 /* barriers */ + Q_BYTES +
                               STAGES * STAGE_BYTES;
   static_assert(STAGES >= 2, "the ring needs two stages");
-  static_assert(!TMA || DP == 64 || DP == 128, "TMA boxes are 64 columns");
+  static_assert(!TMA || DP == 64 || DP == 128 || DP == 256, "TMA boxes are 64 columns");
+  static_assert(DP <= 128 || (TMA && !TWO_PASS && CTAS == 1), "d = 256 is #4's one pass");
   static_assert(TMA || CTAS == 1, "a producer warp issues TMA only");
 };
 
@@ -638,10 +647,12 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   }
   __syncthreads();
   if (threadIdx.x >= 2 * WG) {
-    if constexpr (C::CTAS == 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if constexpr (C::CTAS == 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS) : "memory");
     produce<C>(p, r, &tq, &tk, &tv);
   } else {
-    if constexpr (C::CTAS == 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    if constexpr (C::CTAS == 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS) : "memory");
     consume<C>(p, r, threadIdx.x / WG);
   }
 }

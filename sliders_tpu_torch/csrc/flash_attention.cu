@@ -22,28 +22,34 @@
 // 989 TFLOP/s against 0.12 ms at 3.35 TB/s. At the VAE's d = 512 in f32 it
 // is FMA work: (8, 1, 16384, 512) is 4.4 TFLOP, 65.6 ms at 67 TFLOP/s.
 //
-// Three forwards:
-// - bf16, d = 128: the Hopper mainloop of attention_sm90.cuh in one-pass
-//   mode: 128 q rows a block on two consumer warpgroups, a producer
-//   warpgroup filling a TMA ring of 128-key K/V tiles, wgmma for Q.K^T and
-//   P.V with p going from the logits' accumulator straight into P.V's A
-//   registers. The running max is kept on the unscaled logits and p taken
-//   as 2^(c s - c m) with c = sm_scale log2(e), the same exp as above.
-// - bf16, d = 256 (no main path; a test shape and a backward head dim):
-//   flash_fwd_bf16, mma.sync m16n8k16 on four warps of 16 q rows, one block
-//   per (64-row q tile, head x 128-wide output chunk), the logits summed
-//   over the whole head dim once per output chunk; the new mainloop's
-//   64 x 256 f32 accumulator would not leave the consumers room for the
-//   logits.
-// - f32: flash_fwd_f32_d512 at d = 512 (the VAE's single-head mid
-//   attention): one block owns 64 q rows across all of d, so the logits of
-//   a K tile are summed once (see the kernel); flash_fwd_f32 at d = 128 and
-//   256: 256 threads (16 row groups x 16 column groups), each a 4 x 8 tile
-//   of s and of acc on plain FMAs, one block per 128-wide output chunk.
-// Shapes: Lq % 64 == 0, Lk % 128 == 0, d % 128 == 0 (the routing gate asks
-// L % 128 == 0 and d % 128 == 0); strides for batch, head and row with a
-// contiguous last dim, so q/k/v can be head views of (B, L, H*d) projections
-// and o a (B, H, L, d) view of a (B, L, H, d) buffer.
+// Four forwards, each at one block an SM walking (q tile, head, batch)
+// items of a persistent grid, with a producer filling a TMA ring:
+// - bf16, d = 128 and 256: the Hopper mainloop of attention_sm90.cuh in
+//   one-pass mode: 128 q rows a block on two consumer warpgroups (64 each),
+//   `wgmma` for Q.K^T and P.V with p going from the logits' accumulator
+//   straight into P.V's A registers; 128-key K/V tiles at d = 128, 64-key
+//   tiles at d = 256 (a 128-row q tile is 64 KB there and a 64-key stage
+//   another 64 KB), whose consumers hold a 64 x 256 f32 O (128 registers a
+//   thread; `setmaxnreg` 232 / 40). The running max is kept on the unscaled
+//   logits and p taken as 2^(c s - c m) with c = sm_scale log2(e), the same
+//   exp as above.
+// - f32, d = 128 and 256 (FLUX under `--precision float32` from 1280 px):
+//   the 3xTF32 mainloop of attention_fwd_tf32.cuh (every product three TF32
+//   `wgmma`s a k8 step) in its one-pass plans, after split passes write K's
+//   TF32 hi and lo planes and V's transposed into the wrapper's scratch.
+//   d = 128 (FWD_ONE_PASS): 128 q rows, 32-key stages of four planes; d =
+//   256 (FWD_SPLIT_D): 64 q rows, the two consumer warpgroups each
+//   contracting half of d for S (the partial S tiles summed through shared
+//   memory, so both hold the same bits) and owning half of O's columns.
+//   p, unnormalised, needs no rounding (v's dtype is f32).
+// - f32, d = 512 (the VAE's single-head mid attention): flash_fwd_f32_d512,
+//   one block owns 64 q rows across all of d, so the logits of a K tile are
+//   summed once (see the kernel), on plain FMAs.
+// Shapes: Lq % 64 == 0, Lk % 128 == 0, bf16 d = 128 or 256, f32 d = 128,
+// 256 or 512 (the routing gate asks L % 128 == 0 and d % 128 == 0; the
+// wrapper refuses the other head dims); strides for batch, head and row with
+// a contiguous last dim, so q/k/v can be head views of (B, L, H*d)
+// projections and o a (B, H, L, d) view of a (B, L, H, d) buffer.
 //
 // Under grad the forward also writes each row's final running max m and sum
 // l in f32 (the residuals the TPU kernel's _flash_attention_fwd saves), and
@@ -77,7 +83,8 @@
 //   streamed tensors (q and do for dk/dv, k and v for dq) into the scratch
 //   after di's planes; 32-row streamed tiles, 64 resident rows. The dq
 //   kernel reads the forward's residuals, so it makes three products (S,
-//   dP, dQ^T) and no statistics pass.
+//   dP, dQ^T) and no statistics pass. The forward's 3xTF32 plan writes
+//   those residuals.
 // - f32 at d = 256 (no path runs it): flash_bwd_f32, one block per 64 K/V
 //   (or q) rows and 128-wide output chunk, one template with the roles of
 //   the row and column operands swapped, plain FMAs. The TF32 plan's
@@ -88,19 +95,14 @@
 #include "sd_attention_common.cuh"
 #include "attention_sm90.cuh"
 #include "attention_bwd_sm90.cuh"
+#include "attention_fwd_tf32.cuh"
 
 namespace {
 
-constexpr int FQ = 64;       // q rows per block
-constexpr int FK = 128;      // keys per tile: the TPU kernel's block_k
-constexpr int FD = 128;      // head-dim chunk (bf16 logits) and output chunk
-constexpr int FS = FD + 8;   // bf16 shared row stride (16-byte rows, conflict-free fragments)
-constexpr int FT = 256;      // f32 threads
-constexpr int FDC = 32;      // f32 head-dim chunk of the logits
-constexpr int FKV = 32;      // f32 keys per V sub-tile
-
-constexpr int BF16_SMEM = (FQ + 2 * FK) * FS * 2;
-constexpr int F32_SMEM = (FQ * (FDC + 1) + FK * (FDC + 1) + FQ * (FK + 1) + FKV * FD) * 4;
+constexpr int FK = 128;      // keys per tile: the TPU kernel's block_k (d = 512, bf16 d = 128)
+constexpr int FD = 128;      // output chunk of the f32 d = 256 backward
+constexpr int FT = 256;      // its threads
+constexpr int FDC = 32;      // its head-dim chunk of the logits
 
 struct FParams {
   const void* q;
@@ -116,141 +118,6 @@ struct FParams {
 // where row `row` of (batch b, head h) keeps its m; its l is one plane further
 __device__ __forceinline__ long long ml_index(int b, int h, int row, int H, int Lq) {
   return ((long long)b * H + h) * Lq + row;
-}
-
-// ROWS x FD columns of src from column col0 -> dst (row stride FS)
-template <int ROWS>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long long row_stride,
-                                               int col0) {
-  constexpr int CH = FD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    *reinterpret_cast<uint4*>(dst + r * FS + c * 8) =
-        *reinterpret_cast<const uint4*>(src + (long long)r * row_stride + col0 + c * 8);
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16(FParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [FQ][FS]: the q chunk
-  bf16* ks = qs + FQ * FS;                   // [FK][FS]: the K chunk
-  bf16* vs = ks + FK * FS;                   // [FK][FS]: this block's V columns
-
-  const int nc = p.d / FD;
-  const int q0 = blockIdx.x * FQ;
-  const int h = blockIdx.y / nc, oc = blockIdx.y % nc;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h + q0 * p.qs.l;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
-
-  if (nc == 1) load_tile_bf16<FQ>(qs, q, p.qs.l, 0);  // one chunk: q stays for every tile
-
-  // rows g and g + 8 of this warp's 16: running max, running sum, accumulator
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[FD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < FD / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float s[FK / 8][4];
-
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += FK) {
-#pragma unroll
-    for (int nt = 0; nt < FK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const bf16* kt = k + (long long)kv0 * p.ks.l;
-    for (int c = 0; c < nc; ++c) {
-      if (nc > 1) load_tile_bf16<FQ>(qs, q, p.qs.l, c * FD);
-      load_tile_bf16<FK>(ks, kt, p.ks.l, c * FD);
-      if (c == nc - 1) load_tile_bf16<FK>(vs, v + (long long)kv0 * p.vs.l, p.vs.l, oc * FD);
-      __syncthreads();
-      uint32_t qf[FD / 16][4];
-      load_a_frags<FD>(qf, qs, r0, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < FK / 8; ++nt) {
-#pragma unroll
-        for (int kk = 0; kk < FD / 16; ++kk) {
-          const bf16* kb = ks + (nt * 8 + g) * FS + kk * 16 + t4 * 2;
-          const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(kb),
-                                   *reinterpret_cast<const uint32_t*>(kb + 8)};
-          mma_16816(s[nt], qf[kk], bfr);
-        }
-      }
-      if (c < nc - 1) __syncthreads();  // the next chunk overwrites qs and ks
-    }
-
-    // online softmax over this 128-key block
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < FK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= p.scale;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);  // 0 on the first block
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < FK / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - mn0);
-      s[nt][1] = __expf(s[nt][1] - mn0);
-      s[nt][2] = __expf(s[nt][2] - mn1);
-      s[nt][3] = __expf(s[nt][3] - mn1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * a0 + quad_sum(sum0);  // the sum of the unrounded p, as the TPU kernel's
-    l1 = l1 * a1 + quad_sum(sum1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nt = 0; nt < FD / 8; ++nt) {
-      acc[nt][0] *= a0;
-      acc[nt][1] *= a0;
-      acc[nt][2] *= a1;
-      acc[nt][3] *= a1;
-    }
-
-    // acc += round_bf16(p) . V: two n8 accumulator tiles are one k16 A fragment
-#pragma unroll
-    for (int kc = 0; kc < FK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < FD / 8; ++nt) {
-        uint32_t bfr[2];
-        b_frag_kn(bfr, vs, FS, kc * 16, nt * 8, g, t4);
-        mma_16816(acc[nt], pa, bfr);
-      }
-    }
-    __syncthreads();  // the next block overwrites ks and vs
-  }
-
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const long long row = q0 + r0 + g;
-#pragma unroll
-  for (int nt = 0; nt < FD / 8; ++nt) {
-    const int col = oc * FD + nt * 8 + t4 * 2;
-    *reinterpret_cast<uint32_t*>(o + row * p.os.l + col) =
-        pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o + (row + 8) * p.os.l + col) =
-        pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
-  }
-  if (p.ml != nullptr && oc == 0 && t4 == 0) {
-    const int H = gridDim.y / nc, Lq = gridDim.x * FQ;
-    const long long plane = (long long)gridDim.z * H * Lq;
-    const long long i = ml_index(b, h, (int)row, H, Lq);
-    p.ml[i] = m0;
-    p.ml[plane + i] = l0;
-    p.ml[i + 8] = m1;
-    p.ml[plane + i + 8] = l1;
-  }
 }
 
 // ROWS x COLS floats of src from column col0 -> dst (row stride DST_STRIDE),
@@ -275,140 +142,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long
   }
 }
 
-// the 16 threads that share a row group are lanes 16 apart at most: reduce over them
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__global__ void __launch_bounds__(FT) flash_fwd_f32(FParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [FQ][FDC + 1]
-  float* ks = qs + FQ * (FDC + 1);             // [FK][FDC + 1]
-  float* ps = ks + FK * (FDC + 1);             // [FQ][FK + 1]: this block's p
-  float* vs = ps + FQ * (FK + 1);              // [FKV][FD]
-
-  const int nc = p.d / FD;
-  const int q0 = blockIdx.x * FQ;
-  const int h = blockIdx.y / nc, oc = blockIdx.y % nc;
-  const int b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;  // rows ty*4 + i, columns tx + 16 j
-
-  const float* q = static_cast<const float*>(p.q) + b * p.qs.b + h * p.qs.h + q0 * p.qs.l;
-  const float* k = static_cast<const float*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const float* v = static_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.h;
-  float* o = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h;
-
-  float m[4], l[4], acc[4][8], s[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < p.Lk; kv0 += FK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-    const float* kt = k + (long long)kv0 * p.ks.l;
-    for (int c = 0; c < p.d; c += FDC) {
-      load_tile_f32<FQ, FDC, FDC + 1>(qs, q, p.qs.l, c);
-      load_tile_f32<FK, FDC, FDC + 1>(ks, kt, p.ks.l, c);
-      __syncthreads();
-#pragma unroll 8
-      for (int kd = 0; kd < FDC; ++kd) {
-        float a[4], bk[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * (FDC + 1) + kd];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bk[j] = ks[(tx + 16 * j) * (FDC + 1) + kd];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // online softmax over this 128-key block; p (f32 = v's dtype) into ps
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] *= p.scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], half_warp_max(mx));
-      const float a = __expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pj = __expf(s[i][j] - mn);
-        sum += pj;
-        ps[(ty * 4 + i) * (FK + 1) + tx + 16 * j] = pj;
-        acc[i][j] *= a;
-      }
-      l[i] = l[i] * a + half_warp_sum(sum);
-      m[i] = mn;
-    }
-
-    // acc += p . V over this block's 128 output columns, FKV keys at a time
-    for (int kc = 0; kc < FK; kc += FKV) {
-      load_tile_f32<FKV, FD, FD>(vs, v + (long long)(kv0 + kc) * p.vs.l, p.vs.l, oc * FD);
-      __syncthreads();  // also publishes ps on the first pass
-#pragma unroll 8
-      for (int kk = 0; kk < FKV; ++kk) {
-        float pv[4], vv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * (FK + 1) + kc + kk];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) vv[j] = vs[kk * FD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv = 1.f / l[i];
-    float* orow = o + (long long)(q0 + ty * 4 + i) * p.os.l + oc * FD;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
-  }
-  if (p.ml != nullptr && oc == 0 && tx == 0) {
-    const int H = gridDim.y / nc, Lq = gridDim.x * FQ;
-    const long long plane = (long long)gridDim.z * H * Lq;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long idx = ml_index(b, h, q0 + ty * 4 + i, H, Lq);
-      p.ml[idx] = m[i];
-      p.ml[plane + idx] = l[i];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // f32 at d = 512: the VAE's single-head mid attention
 // ---------------------------------------------------------------------------
 
 // One block owns 64 q rows across all 512 columns of d, so the logits of a
-// K tile are summed once over d (flash_fwd_f32 above sums them once per
-// 128-wide output chunk: four times at d = 512). 512 threads.
+// K tile are summed once over d (a block per 128-wide output chunk would sum
+// them four times). 512 threads.
 //   logits: q and K arrive in 32-column chunks; thread (ty, tx) sums rows
 //     ty + 16 i and keys tx + 32 j (i, j < 4), reading 16-byte vectors along
 //     d (a warp: 4 ty x 8 tx, each read one wavefront);
@@ -538,7 +278,8 @@ __global__ void __launch_bounds__(XT, 1) flash_fwd_f32_d512(FParams p) {
         }
       }
       if (r == XD / XDC - 1) {
-        // online softmax over this 128-key block, as flash_fwd_f32's
+        // online softmax over this 128-key block: p = exp(s - m'),
+        // unnormalised, and the rescale exp(m - m')
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float mx = -INFINITY;
@@ -830,47 +571,56 @@ int launch_bwd_f32(const BParams& p, int B, cudaStream_t st) {
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). Pointers 16-byte
-// aligned, Lq % 64 == 0, Lk % 128 == 0, d % 128 == 0, strides (in elements)
-// multiples of 8 with a contiguous last dim; the Python wrapper checks all of
-// this. `ml`, if not null, receives the (2, B, H, Lq) f32 residuals m and l.
+// aligned, Lq % 64 == 0, Lk % 128 == 0, bf16 d = 128 or 256, f32 d = 128,
+// 256 or 512, strides (in elements) multiples of 8 with a contiguous last
+// dim, and at f32 d = 128 and 256 `scratch` 16-byte aligned f32 room for
+// K's hi and lo planes and V^T's (4 B H Lk d floats; null otherwise); the
+// Python wrapper checks all of this. `ml`, if not null, receives the (2, B,
+// H, Lq) f32 residuals m and l.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* ml,
-                                   int B, int H, int Lq, int Lk, int d, int is_f32, long long q_sb,
-                                   long long q_sh, long long q_sl, long long k_sb, long long k_sh,
-                                   long long k_sl, long long v_sb, long long v_sh, long long v_sl,
-                                   long long o_sb, long long o_sh, long long o_sl, float scale,
-                                   void* stream) {
-  if (B < 1 || H < 1 || Lq < FQ || Lk < FK || Lq % FQ || Lk % FK || d < FD || d % FD ||
-      B > 65535 || (long long)H * (d / FD) > 65535)
+                                   float* scratch, int B, int H, int Lq, int Lk, int d, int is_f32,
+                                   long long q_sb, long long q_sh, long long q_sl, long long k_sb,
+                                   long long k_sh, long long k_sl, long long v_sb, long long v_sh,
+                                   long long v_sl, long long o_sb, long long o_sh, long long o_sl,
+                                   float scale, void* stream) {
+  const bool tf32 = is_f32 && (d == 128 || d == 256);
+  // the d = 512 kernel's blocks take XQ q rows and FK-key tiles, unmasked
+  if (B < 1 || H < 1 || Lq < XQ || Lk < FK || Lq % XQ || Lk % FK || B > 65535 ||
+      H > 65535 || (is_f32 ? !tf32 && d != XD : d != 128 && d != 256) ||
+      (tf32 && (scratch == nullptr || (long long)B * H > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const FParams p{q, k, v, o, static_cast<float*>(ml), Lk, d,
-                  {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {o_sb, o_sh, o_sl},
-                  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Lq / FQ, H * (d / FD), B);
-  cudaError_t err;
   if (is_f32 && d == XD) {
-    err = cudaFuncSetAttribute(flash_fwd_f32_d512, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               X_SMEM);
+    const FParams p{q, k, v, o, static_cast<float*>(ml), Lk, d,
+                    {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {o_sb, o_sh, o_sl},
+                    scale};
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32_d512, cudaFuncAttributeMaxDynamicSharedMemorySize, X_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd_f32_d512<<<dim3(Lq / XQ, H, B), XT, X_SMEM, st>>>(p);
-  } else if (is_f32) {
-    err = cudaFuncSetAttribute(flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_f32<<<grid, FT, F32_SMEM, st>>>(p);
-  } else if (d == 128) {
-    const sm90::Params sp{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                          static_cast<float*>(ml), Lq, Lk, d, B, H,
-                          q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
-                          o_sb, o_sh, o_sl, scale};
-    return sm90::launch<sm90::Cfg<128, FK, true, false, 1>>(sp, st);
-  } else {
-    err = cudaFuncSetAttribute(flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               BF16_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_bf16<<<grid, NTHREADS, BF16_SMEM, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  // f32 rows are handed over as bf16 rows of twice the width (q's strides
+  // doubled; o is stored as f32)
+  const long long x = tf32 ? 2 : 1;
+  const sm90::Params sp{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                        static_cast<float*>(ml), Lq, Lk, d, B, H,
+                        x * q_sb, x * q_sh, x * q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+                        o_sb, o_sh, o_sl, scale};
+  using sm90::FCfg;
+  if (tf32) {
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const Strides ks{k_sb, k_sh, k_sl}, vs{v_sb, v_sh, v_sl};
+    return d == 128
+               ? sm90::launch_fwd_tf32<FCfg<128, 32, true, sm90::FWD_ONE_PASS>>(sp, kf, ks, vf, vs,
+                                                                                 scratch, st)
+               : sm90::launch_fwd_tf32<FCfg<256, 32, true, sm90::FWD_SPLIT_D>>(sp, kf, ks, vf, vs,
+                                                                               scratch, st);
+  }
+  return d == 128 ? sm90::launch<sm90::Cfg<128, FK, true, false, 1>>(sp, st)
+                  : sm90::launch<sm90::Cfg<256, 64, true, false, 1>>(sp, st);
 }
 
 // One backward kernel: part 0 the dk/dv kernel (writes dk, dv), part 1 the

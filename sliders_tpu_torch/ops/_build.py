@@ -37,7 +37,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 LIBRARIES = {
     "fwd": (CSRC / "sd_attention.cu", (CSRC / "sd_attention_common.cuh",
                                        CSRC / "attention_sm90.cuh",
-                                       CSRC / "attention_bwd_sm90.cuh", CSRC / "sm90_ptx.cuh"), {
+                                       CSRC / "attention_bwd_sm90.cuh",
+                                       CSRC / "attention_fwd_tf32.cuh", CSRC / "sm90_ptx.cuh"), {
         # q, k, v, o, scratch; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
         "sd_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
     }),
@@ -50,9 +51,11 @@ LIBRARIES = {
     "flash": (CSRC / "flash_attention.cu", (CSRC / "sd_attention_common.cuh",
                                             CSRC / "attention_sm90.cuh",
                                             CSRC / "attention_bwd_sm90.cuh",
+                                            CSRC / "attention_fwd_tf32.cuh",
                                             CSRC / "sm90_ptx.cuh"), {
-        # q, k, v, o, ml; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
-        "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
+        # q, k, v, o, ml, scratch; B, H, Lq, Lk, d, is_f32; q/k/v/o strides;
+        # scale, stream
+        "flash_attention_fwd": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P],
         # q, k, v, do, m, l, di, dq, dk, dv; B, H, Lq, Lk, d, is_f32, part;
         # q/k/v/do/dq/dk/dv strides; scale, stream
         "flash_attention_bwd": [_P] * 10 + [_I] * 7 + [_L] * 21 + [_F, _P],

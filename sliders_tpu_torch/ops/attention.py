@@ -132,7 +132,11 @@ def fa_supports(q_shape, k_shape) -> bool:
 
 def routes_to_flash_kernel(q_shape, k_shape, mask, itemsize: int = 2) -> bool:
     """Kernel #4's gate, the JAX package's decision for the stock kernel:
-    unmasked, `fa_supports`, and refused by #1's TPU gate."""
+    unmasked, `fa_supports`, and refused by #1's TPU gate. It takes every
+    d % 128 == 0 as the stock kernel does; the port's kernels take only the
+    head dims of `flash_attention.fwd_plan` (bf16 d = 128 / 256, f32 d =
+    128 / 256 / 512) and raise on the card for any other, which no model of
+    the repository routes."""
     return (mask is None and fa_supports(q_shape, k_shape)
             and not pa_supports(q_shape, k_shape, itemsize=itemsize))
 

@@ -3,7 +3,7 @@
 flash kernel, a `custom_vjp`).
 
 `flash_attention(q, k, v)` takes (B, H, L, d) tensors. On a CUDA tensor it
-launches the forward kernel in `csrc/flash_attention.cu` or raises; on a CPU
+launches the forward kernel of its plan (`fwd_plan`) or raises; on a CPU
 tensor it runs `flash_attention_ref`, the plain PyTorch version with the TPU
 kernel's schedule: 128-key blocks, a running max and sum per row, the
 UNNORMALISED probabilities rounded to v's dtype before P.V, and the
@@ -29,12 +29,16 @@ refused there, ROADMAP queue 2, item 3).
 sends to the stock kernel: unmasked self-attention with L % 128 == 0,
 L >= 1024 and d % 128 == 0 that kernel #1's TPU plan refuses (FLUX's joint
 attention from 2048 px in bf16 and 1536 px in f32, and the VAE's single-head
-mid attention, d = 512). The kernels take any such shape, in bf16 or f32:
-bf16 at d = 128 on the Hopper mainloop of `csrc/attention_sm90.cuh`, f32 at
-d = 512 on a kernel that sums each K tile's logits once over all of d, and
-the other head dims on the first kernels (`csrc/flash_attention.cu` says
-which). The library is built with nvcc at first use into `sliders_tpu_torch/_build/`
-with the package's other kernels (`ops/_build.py`).
+mid attention, d = 512). The forward kernels take such shapes at bf16 d = 128
+and 256 (plan "sm90": the Hopper mainloop of `csrc/attention_sm90.cuh`, one
+pass), f32 d = 128 and 256 (plan "tf32": the one-pass 3xTF32 plans of
+`csrc/attention_fwd_tf32.cuh`, after split passes write k's TF32 hi and lo
+planes and v's transposed into a scratch this wrapper allocates) and f32
+d = 512 (plan "d512": a kernel that sums each K tile's logits once over all
+of d); other head dims raise on CUDA tensors (no model of the repository
+routes them; the stock TPU kernel takes any multiple of 128). The library is
+built with nvcc at first use into `sliders_tpu_torch/_build/` with the
+package's other kernels (`ops/_build.py`).
 """
 
 from __future__ import annotations
@@ -44,11 +48,16 @@ import math
 import torch
 
 from sliders_tpu_torch.ops import _build
-from sliders_tpu_torch.ops.sd_attention import _bhld_buffer, _kernel_layout
+from sliders_tpu_torch.ops.sd_attention import _bhld_buffer, _fwd_scratch_floats, _kernel_layout
 
 BLOCK_K = 128  # the TPU kernel's block_k (BlockSizes.get_default)
 BLOCK_Q = 128  # the TPU backward's block_q_dkv / block_q_dq
 BWD_HEAD_DIMS = (128, 256)
+# the forward's plans ("sm90": attention_sm90.cuh; "tf32": attention_fwd_tf32.cuh;
+# "d512": flash_fwd_f32_d512), and the plan of each (dtype, head dim) it takes
+FWD_PLANS = ("sm90", "tf32", "d512")
+FWD_PLAN_OF = {torch.bfloat16: {128: "sm90", 256: "sm90"},
+               torch.float32: {128: "tf32", 256: "tf32", 512: "d512"}}
 # the backward's plans (csrc/attention_bwd_sm90.cuh; "fma": flash_bwd_f32)
 BWD_PLANS = ("pair", "split", "tf32", "fma")
 LOG2E = 1.4426950408889634  # the kernels' exps are base 2
@@ -141,6 +150,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"multiples of 8 on a 16-byte aligned base, got {t.stride()}")
 
 
+def fwd_plan(dtype: torch.dtype, d: int) -> str:
+    """The plan the forward kernel runs at (dtype, d): bf16 d = 128 and 256
+    "sm90" (attention_sm90.cuh, one pass), f32 d = 128 and 256 "tf32" (the
+    one-pass 3xTF32 plans of attention_fwd_tf32.cuh), f32 d = 512 "d512".
+    Raises ValueError for any other (dtype, d)."""
+    plan = FWD_PLAN_OF.get(dtype, {}).get(d)
+    if plan is None:
+        raise ValueError(f"flash_attention's kernels take bf16 d in "
+                         f"{tuple(FWD_PLAN_OF[torch.bfloat16])} and f32 d in "
+                         f"{tuple(FWD_PLAN_OF[torch.float32])}, not {dtype} d = {d}")
+    return plan
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool) -> tuple:
     """(o, m, l); m and l are None unless `residuals`."""
     if q.device.type == "cpu":
@@ -150,14 +172,18 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool)
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     _check(q, k, v)
     B, H, Lq, d = q.shape
+    plan = fwd_plan(q.dtype, d)
     out = _bhld_buffer(q)
     ml = torch.empty((2, B, H, Lq), dtype=torch.float32, device=q.device) if residuals else None
+    # the "tf32" plan's split planes of k and v (transposed)
+    scratch = (torch.empty(_fwd_scratch_floats(k), dtype=torch.float32, device=q.device)
+               if plan == "tf32" else None)
     lib = _build.library("flash")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if ml is None else ml.data_ptr(),
+            None if ml is None else ml.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, H, Lq, k.shape[2], d, _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             d ** -0.5, stream,
@@ -165,6 +191,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_plan[plan] += 1
     return (out, ml[0], ml[1]) if residuals else (out, None, None)
 
 
@@ -276,6 +303,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 # kernel launches since the last reset; the counts prove a run went through
 # the kernels (calls on CPU tensors never reach them)
 flash_attention.launches = 0
+flash_attention.launches_by_plan = dict.fromkeys(FWD_PLANS, 0)
 flash_attention_bwd.dkv_launches = 0
 flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.launches_by_plan = dict.fromkeys(BWD_PLANS, 0)  # both kernels, by plan

@@ -138,7 +138,7 @@ def test_one_product_misses_the_f32_tolerance(d):
     assert _err(_case(d)["1x"], _case(d)["f64"]) > 1.0
 
 
-@pytest.mark.parametrize("d", [8, 40, 128])
+@pytest.mark.parametrize("d", [8, 40, 128, 256])
 def test_p_fragments_meet_the_split_pass_key_order(d):
     """The kernel's move of p from the S accumulator into P V's A registers
     (h[0..3] = s[4 kk], s[4 kk + 2], s[4 kk + 1], s[4 kk + 3]) and the split

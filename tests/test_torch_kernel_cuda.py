@@ -759,7 +759,10 @@ def test_group_norm_kernel_matches_plain(cuda, shape, groups, silu, dtype):
     [
         ((1, 2, 2048, 128), torch.bfloat16),  # FLUX's head dim
         ((2, 3, 1024, 256), torch.bfloat16),
+        ((1, 16, 4096, 256), torch.bfloat16),  # fills the card
         ((1, 2, 1024, 128), torch.float32),
+        ((2, 3, 1024, 256), torch.float32),
+        ((1, 16, 4096, 256), torch.float32),  # fills the card
         ((2, 1, 1024, 512), torch.float32),  # the VAE's single-head mid attention
     ],
 )
@@ -767,15 +770,19 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     """Kernel #4 against flash_attention_ref (128-key blocks, unnormalised p
     rounded to v's dtype): both round p and o at the same points and sum in
     other orders with another exp, so bf16 is held to 4 ulps at the output's
-    largest magnitude, f32 to 1e-5."""
+    largest magnitude, f32 to 1e-5. One launch, on the plan of (dtype, d)."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(9)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(3))
     launches = fa.flash_attention.launches
+    plans = dict(fa.flash_attention.launches_by_plan)
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == launches + 1
+    plan = fa.fwd_plan(dtype, shape[3])
+    assert {p: n - plans[p] for p, n in fa.flash_attention.launches_by_plan.items()} == {
+        p: (1 if p == plan else 0) for p in fa.FWD_PLANS}
     ref = fa.flash_attention_ref(q, k, v)
     ref_max = ref.float().abs().max().item()
     tol = 4 * _ulps_bf16(ref_max) if dtype == torch.bfloat16 else 1e-5
@@ -784,33 +791,36 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.requires_cuda
-def test_flash_kernel_takes_head_strided_views(cuda):
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (256, torch.bfloat16),
+                                     (128, torch.float32), (256, torch.float32)])
+def test_flash_kernel_takes_head_strided_views(cuda, d, dtype):
     """(B, L, H*d) projection output viewed as (B, H, L, d); the result is a
-    (B, H, L, d) view of a (B, L, H, d) buffer."""
+    (B, H, L, d) view of a (B, L, H, d) buffer. bf16 within 4 ulps at the
+    largest magnitude, f32 within 1e-5."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(10)
-    x = torch.randn((2, 1024, 3 * 128), generator=gen, device=cuda).bfloat16()
-    qh = x.view(2, 1024, 3, 128).permute(0, 2, 1, 3)
+    x = torch.randn((2, 1024, 3 * d), generator=gen, device=cuda).to(dtype)
+    qh = x.view(2, 1024, 3, d).permute(0, 2, 1, 3)
     out = fa.flash_attention(qh, qh, qh)
     ref = fa.flash_attention_ref(qh, qh, qh)
     assert out.permute(0, 2, 1, 3).is_contiguous()
-    assert (out.float() - ref.float()).abs().max().item() <= 4 * _ulps_bf16(
-        ref.float().abs().max().item())
+    tol = 4 * _ulps_bf16(ref.float().abs().max().item()) if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.requires_cuda
 def test_flash_kernel_refuses_grad_and_bad_shapes(cuda):
     """The backward takes d = 128 and 256: grad at the VAE's d = 512 is
     refused by name; and no fallback: shapes the kernel does not take
-    raise."""
+    raise (d = 384 has no forward plan)."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
     q = torch.randn((1, 1, 1024, 512), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="queue 2, item 3"):
         fa.flash_attention(q, q, q)
     launches = fa.flash_attention.launches
-    for shape in ((1, 2, 1000, 128), (1, 2, 1024, 96)):
+    for shape in ((1, 2, 1000, 128), (1, 2, 1024, 96), (1, 2, 1024, 384)):
         t = torch.randn(shape, device=cuda)
         with pytest.raises(ValueError):
             fa.flash_attention(t, t, t)
@@ -866,6 +876,83 @@ def test_flash_bf16_forward_residuals(cuda, views):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
     tol = 4 * _ulps_bf16(ro.float().abs().max().item())
     assert (o.float() - ro.float()).abs().max().item() <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,dtype,views", [(256, torch.bfloat16, False),
+                                           (256, torch.bfloat16, True),
+                                           (128, torch.float32, False),
+                                           (128, torch.float32, True),
+                                           (256, torch.float32, False),
+                                           (256, torch.float32, True)])
+def test_flash_forward_residuals_by_plan(cuda, d, dtype, views):
+    """#4's bf16 forward at d = 256 (the Hopper mainloop, 64-key tiles) and
+    its f32 forwards at d = 128 and 256 (the one-pass 3xTF32 plans) write m
+    and l equal to flash_attention_fwd_ref's within 1e-5 relative, and o
+    within 4 bf16 ulps (bf16) or 1e-5 (f32), on (B, H, L, d) tensors and on
+    head views of (B, L, H*d) buffers."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    B, H, L = 2, 3, 2048
+    if views:
+        q, k, v = (_heads(torch.randn((B, L, H * d), generator=gen, device=cuda).to(dtype), H)
+                   for _ in range(3))
+    else:
+        q, k, v = (torch.randn((B, H, L, d), generator=gen, device=cuda).to(dtype)
+                   for _ in range(3))
+    o, m, l = fa._forward(q, k, v, residuals=True)
+    torch.cuda.synchronize()
+    ro, rm, rl = fa.flash_attention_fwd_ref(q, k, v)
+    for a, b in ((m, rm), (l, rl)):
+        assert a.shape == (B, H, L) and a.dtype == torch.float32
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    tol = 4 * _ulps_bf16(ro.float().abs().max().item()) if dtype == torch.bfloat16 else 1e-5
+    assert (o.float() - ro.float()).abs().max().item() <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (256, torch.bfloat16),
+                                     (128, torch.float32), (256, torch.float32),
+                                     (512, torch.float32)])
+def test_flash_forward_is_deterministic(cuda, d, dtype):
+    """Two launches of #4's forward on the same inputs give the same bits:
+    no atomics, and every sum (at d = 256 in f32 the two warpgroups' partial
+    S tiles too) in one fixed order."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    q, k, v = (torch.randn((2, 3, 2048, d), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    first = fa._forward(q, k, v, residuals=True)
+    second = fa._forward(q, k, v, residuals=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,dtype,plan", [(128, torch.bfloat16, "sm90"),
+                                          (256, torch.bfloat16, "sm90"),
+                                          (128, torch.float32, "tf32"),
+                                          (256, torch.float32, "tf32"),
+                                          (512, torch.float32, "d512")])
+def test_flash_fwd_launches_by_plan(cuda, d, dtype, plan):
+    """#4's forward counts each launch under its plan: bf16 on the Hopper
+    mainloop ("sm90"), f32 d = 128 and 256 on the one-pass 3xTF32 plans
+    ("tf32"), f32 d = 512 on flash_fwd_f32_d512 ("d512")."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(d + 36)
+    q, k, v = (torch.randn((1, 2, 1024, d), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    before = dict(fa.flash_attention.launches_by_plan)
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = fa.flash_attention.launches_by_plan
+    assert fa.fwd_plan(dtype, d) == plan
+    assert {p: after[p] - before[p] for p in after} == {
+        p: (1 if p == plan else 0) for p in fa.FWD_PLANS}
 
 
 @pytest.mark.requires_cuda
@@ -980,25 +1067,28 @@ def test_flash_bwd_launches_by_plan(cuda, d, dtype, plan):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize(
-    "length,heads,dtype,rel_tol",
+    "length,heads,dtype,rel_tol,d",
     [
-        (6144, 2, torch.float32, 1e-5),  # #4 in f32 from 6144 tokens (FLUX at 1536 px: 9728)
+        (6144, 2, torch.float32, 1e-5, 128),  # #4 in f32 from 6144 tokens (FLUX at 1536 px: 9728)
         # bf16: the plain route's autograd rounds dp to bf16 and keeps ds in
         # f32 and normalises p before rounding it, where the kernels keep dp
         # in f32 and round unnormalised p and ds: 16 bf16 ulps at the largest
-        (10240, 2, torch.bfloat16, 2.0**-6),
-        (9728, 2, torch.float32, 1e-5),  # FLUX at 1536 px, where f32 first routes to #4
+        (10240, 2, torch.bfloat16, 2.0**-6, 128),
+        (9728, 2, torch.float32, 1e-5, 128),  # FLUX at 1536 px, where f32 first routes to #4
+        (4096, 2, torch.bfloat16, 2.0**-6, 256),  # bf16 d = 256: the SPLIT backward
     ],
 )
-def test_flash_function_grads_match_plain_route(cuda, length, heads, dtype, rel_tol):
+def test_flash_function_grads_match_plain_route(cuda, length, heads, dtype, rel_tol, d):
     """A self-attention routed to #4 under grad carries a grad_fn, its
-    gradients come from #4's backward kernels, and they equal the plain
-    route's (autograd through xla_attention)."""
+    gradients come from #4's backward kernels reading the new forwards'
+    residuals (f32 d = 128: the one-pass 3xTF32 plan; bf16 d = 256: the
+    Hopper mainloop at 64-key tiles), and they equal the plain route's
+    (autograd through xla_attention)."""
     from sliders_tpu_torch.ops import attention as ta
     from sliders_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(22)
-    x = [(torch.randn((1, length, heads * 128), generator=gen, device=cuda) * 0.5).to(dtype)
+    x = [(torch.randn((1, length, heads * d), generator=gen, device=cuda) * 0.5).to(dtype)
          for _ in range(4)]
     q, k, v = (t.clone().requires_grad_() for t in x[:3])
     counts = (fa.flash_attention.launches, fa.flash_attention_bwd.dkv_launches,
