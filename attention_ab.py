@@ -7,13 +7,14 @@ another checkout (a parent commit) on one GPU, in one process, in turns.
         [--rounds 3]
 
 The parent's `sliders_tpu_torch/csrc/{sd_attention,sd_attention_bwd,
-flash_attention,conv3x3}.cu` are compiled with the flags of `ops/_build.py`
-into `<dir>/_ab_build/` and loaded with ctypes behind the same C entry
-points, so the port's wrappers launch either library on the same inputs
-(a parent whose #1 entry takes no scratch, from before the f32 forward's
-3xTF32 kernel, behind `ScratchlessFwd`; a parent whose #4 forward entry
-takes none, from before #4's f32 forward on 3xTF32, behind
-`ScratchlessFlash`). The conv wrappers run the
+flash_attention,conv3x3,group_norm}.cu` are compiled with the flags of
+`ops/_build.py` into `<dir>/_ab_build/` and loaded with ctypes behind the
+same C entry points, so the port's wrappers launch either library on the
+same inputs (a parent whose #1 entry takes no scratch, from before the f32
+forward's 3xTF32 kernel, behind `ScratchlessFwd`; a parent whose #4
+forward entry takes none, from before #4's f32 forward on 3xTF32, behind
+`ScratchlessFlash`; a parent's one-pass GroupNorm #8, whose entry takes no
+partials scratch or plan, behind `OnePassGroupNorm`). The conv wrappers run the
 parent's conv library as the parent's own plan would: a parent with this
 checkout's entries (`tf32_split_launch` among
 them) as they are; a parent whose Hopper entry takes bf16 only (no dtype
@@ -28,7 +29,8 @@ CONV_ULPS bf16 ulps of each element, or f32 F32_TOL of the largest value
 3xTF32). For every
 case both results are held to the unchanged plain versions with the
 tolerances of `chip_smoke.py` (4 bf16 ulps at each output's largest
-magnitude; f32 1e-5), then timed with CUDA events in the order parent,
+magnitude; f32 1e-5; GroupNorm cases 'gn' at chip_smoke.py's GN_SHAPES
+and its f32 shape, beside `F.group_norm` (+ SiLU) and the byte bound), then timed with CUDA events in the order parent,
 change, change, parent, `--rounds` times (median of `--runs` samples
 each, a sample the mean of back-to-back calls adding up to about 20 ms, so
 that the wrapper's host time overlaps the device work and a sample reads
@@ -55,8 +57,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from chip_smoke import (  # noqa: E402
-    CONV_EXTRA, CONV_SHAPES, CONV_ULPS, F32_TOL, VAE_CONV_SHAPES, VAE_DECODE_BATCH, bf16_max_ulps,
-    bound as roofline, conv_case, f32_bounds)
+    CONV_EXTRA, CONV_SHAPES, CONV_ULPS, F32_TOL, GN_SHAPES, VAE_CONV_SHAPES, VAE_DECODE_BATCH,
+    bf16_max_ulps, bf16_tolerance, bound as roofline, conv_case, f32_bounds, graph_ms)
 
 CONV_KERNELS = ("conv3x3", "epi_conv3x3", "fused_conv3x3")
 
@@ -115,8 +117,15 @@ CASES = [
     # that fills the card
     ("flash_bwd", (1, 2, 2048, 256), "bfloat16", True),
     ("flash_bwd", (1, 16, 4096, 256), "bfloat16", True),
-    # #4's f32 backward at d = 256 (the FMA kernels flash_bwd_f32)
+    # #4's f32 backward at d = 256 and 512 (the TF32 plan on clusters that
+    # split d; a parent from before it on the FMA kernels flash_bwd_f32): a
+    # test shape, one that fills the card, and the VAE's single head
     ("flash_bwd", (1, 2, 2048, 256), "float32", False),
+    ("flash_bwd", (1, 16, 4096, 256), "float32", False),
+    ("flash_bwd", (1, 1, 4096, 512), "float32", False),
+    # GroupNorm #8 at chip_smoke.py's GN_SHAPES (batch 16, bf16) and its f32 shape
+    *(("gn", (16, L, C, silu, eps), "bfloat16", None) for L, C, silu, eps in GN_SHAPES),
+    ("gn", (16, 4096, 320, True, 1e-5), "float32", None),
     # the conv kernels: ((B, H, W, C, N, mode), dtype, the kernels timed) at
     # batch 16 in bf16, the VAE decoder's f32 shapes at the decode batch, and
     # the f32 CONV_EXTRA case
@@ -131,7 +140,7 @@ CASES = [
       for b, h, c, n, mode, dt in CONV_EXTRA if dt == "float32"),
 ]
 LIBS = {"fwd": "sd_attention.cu", "bwd": "sd_attention_bwd.cu", "flash": "flash_attention.cu",
-        "conv": "conv3x3.cu"}
+        "conv": "conv3x3.cu", "group_norm": "group_norm.cu"}
 
 
 def bounds(shape, dt, backward=False) -> dict:
@@ -230,6 +239,24 @@ class ScratchlessFlash:
         return self._fwd(q, k, v, o, ml, *rest)
 
 
+class OnePassGroupNorm:
+    """A parent's #8 library from before the two-pass kernel (its
+    `group_norm_launch` takes no partials scratch and no plan): that entry
+    behind this checkout's signature, the scratch and the plan dropped. It
+    can go once no such parent is timed."""
+
+    def __init__(self, lib):
+        from sliders_tpu_torch.ops import _build
+
+        self._gn = lib.group_norm_launch
+        self._gn.argtypes = [_build._P] * 4 + [_build._I] * 6 + [_build._F, _build._P]
+        self._gn.restype = ctypes.c_int
+
+    def group_norm_launch(self, x, gamma, beta, y, part, B, L, C, groups, is_f32, silu, eps,
+                          rows, rpi, stream):
+        return self._gn(x, gamma, beta, y, B, L, C, groups, is_f32, silu, eps, stream)
+
+
 def build_parent(parent: str) -> dict:
     """Compile the parent's attention and conv sources; {name: CDLL} with the
     argtypes of this checkout's entry points that the parent's library has
@@ -262,6 +289,11 @@ def build_parent(parent: str) -> dict:
             if name == "flash" and "flash_fwd_bf16" in text:
                 libs[name] = ScratchlessFlash(lib)
                 continue
+        if name == "group_norm":
+            with open(os.path.join(csrc, LIBS[name])) as f:
+                if "group_norm_kernel" in f.read():
+                    libs[name] = OnePassGroupNorm(lib)
+                    continue
         bf16_hopper = name == "conv" and not hasattr(lib, "tf32_split_launch")
         for symbol, argtypes in _build.LIBRARIES[name][2].items():
             if hasattr(lib, symbol) and not (bf16_hopper and symbol == "conv3x3_sm90_launch"):
@@ -498,6 +530,84 @@ def run_conv_case(shape, dt, names, parent_libs, runs, rounds, gen):
     return rows
 
 
+def run_gn_case(shape, dt, parent_libs, runs, rounds, gen):
+    """#8 at one (B, L, C, silu, eps): both sides held to
+    fused_group_norm_ref as chip_smoke.py holds it (bf16 4 ulps at the
+    largest magnitude, f32 1e-5 of it), then timed parent, change, change,
+    parent, `rounds` times; F.group_norm (+ SiLU) on the channels-first view
+    and the byte bound (x read once, y written once) beside. A call at the
+    small shapes takes less device time than its wrapper's host time, which
+    those samples then read; so each side's and the library's device time
+    is also taken from a CUDA graph of calls on copies of x that together
+    outgrow L2 (`graph_ms`), in the order parent, change, change, parent."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import group_norm as tg
+
+    B, L, C, silu, eps = shape
+    dtype = getattr(torch, dt)
+    x = (torch.randn((B, L, C), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn(C, generator=gen, device="cuda")
+    beta = 0.3 * torch.randn(C, generator=gen, device="cuda")
+    call = lambda: tg.fused_group_norm(x, gamma, beta, 32, eps, silu)  # noqa: E731
+    ref = tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu).float()
+    ref_max = ref.abs().max().item()
+    tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
+    errs = {}
+    for side, libs in (("parent", parent_libs), ("change", {})):
+        with Using(libs):
+            out = call()
+        torch.cuda.synchronize()
+        errs[side] = (out.float() - ref).abs().max().item()
+        del out
+    del ref
+    xc, gc_, bc = x.transpose(1, 2), gamma.to(dtype), beta.to(dtype)
+
+    def library():
+        y = F.group_norm(xc, 32, gc_, bc, eps)
+        return F.silu(y) if silu else y
+
+    reps = max(1, min(50, int(20.0 / max(median_ms(call, 1), 1e-3))))
+    times = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent") * rounds:
+        with Using(parent_libs if side == "parent" else {}):
+            times[side].append(median_ms(call, runs, reps))
+    item = 2 if dt == "bfloat16" else 4
+    # up to 16 copies of x, reading up to 128 MB in all (the small shapes' copies fit L2)
+    xs = [x] + [x.clone() for _ in range(min(15, (2**27 - 1) // (B * L * C * item)))]
+    calls = [lambda xi=xi: tg.fused_group_norm(xi, gamma, beta, 32, eps, silu) for xi in xs]
+    graphs = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        with Using(parent_libs if side == "parent" else {}):
+            graphs[side].append(graph_ms(calls))
+    lib_graph = graph_ms([lambda xi=xi: (F.silu if silu else (lambda t: t))(
+        F.group_norm(xi.transpose(1, 2), 32, gc_, bc, eps)) for xi in xs])
+    del xs, calls
+    bound_ms, bound_by = roofline(8 * B * L * C, 2 * item * B * L * C + 8 * C, "float32")
+    row = {"kernel": "gn", "shape": shape, "dtype": dt, "tol": tol, "err_parent": errs["parent"],
+           "err_change": errs["change"], "parent_ms": statistics.median(times["parent"]),
+           "change_ms": statistics.median(times["change"]), "parent_ms_each": times["parent"],
+           "change_ms_each": times["change"], "library_ms": median_ms(library, runs, reps),
+           "plain_ms": median_ms(lambda: tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu), 3),
+           "reps": reps, "bound_ms": bound_ms, "bound_by": bound_by,
+           "graph_parent_ms": statistics.mean(graphs["parent"]),
+           "graph_change_ms": statistics.mean(graphs["change"]), "graph_library_ms": lib_graph,
+           "ok": errs["change"] <= tol}
+    print(f"[ab] gn {shape} {dt}: err parent {errs['parent']:.3g} change {errs['change']:.3g} "
+          f"(tol {tol:.3g}); parent {row['parent_ms']:.4f} ms "
+          f"{['%.4f' % t for t in times['parent']]}, change {row['change_ms']:.4f} ms "
+          f"{['%.4f' % t for t in times['change']]} ({row['change_ms'] / row['parent_ms']:.3f}x); "
+          f"library {row['library_ms']:.4f}, plain {row['plain_ms']:.4f}; bound {bound_ms:.4f} ms "
+          f"({bound_by}; change at {bound_ms / row['change_ms']:.1%} of it); in CUDA graphs "
+          f"parent {row['graph_parent_ms']:.4f} ms {['%.4f' % t for t in graphs['parent']]}, "
+          f"change {row['graph_change_ms']:.4f} ms {['%.4f' % t for t in graphs['change']]} "
+          f"({row['graph_change_ms'] / row['graph_parent_ms']:.3f}x, at "
+          f"{bound_ms / row['graph_change_ms']:.1%} of the bound), library {lib_graph:.4f} ms",
+          flush=True)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -508,7 +618,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1,
                     help="turns of parent, change, change, parent for each case")
     ap.add_argument("--only", default="",
-                    help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd, conv)")
+                    help="comma-separated kernels (sd, flash, sd_bwd, flash_bwd, conv, gn)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_ab: needs a CUDA device", file=sys.stderr)
@@ -532,6 +642,9 @@ def main() -> int:
         if case[0] == "conv":
             rows.extend(run_conv_case(*case[1:], {"conv": parent_libs["conv"]}, args.runs,
                                       args.rounds, gen))
+        elif case[0] == "gn":
+            rows.append(run_gn_case(*case[1:3], {"group_norm": parent_libs["group_norm"]},
+                                    args.runs, args.rounds, gen))
         else:
             rows.append(run_case(*case, parent_libs, args.runs, args.rounds, gen))
         torch.cuda.empty_cache()

@@ -283,12 +283,13 @@ TINY_FLUX_STEPS = 2
 # kernel #4's backward against its plain version: FLUX training's grad pass
 # at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32, the
 # TF32 plan), FLUX's grad pass at 1536 px in f32 (where f32 first routes to
-# #4), and d = 256 at a test shape (bf16, and f32 on the FMA kernels
-# flash_bwd_f32) and at one that fills the card
+# #4), d = 256 at a test shape and at one that fills the card (bf16 on
+# SPLIT, f32 on the cluster plan), and f32 d = 512 at the VAE's single head
 FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 6912, 128), "float32"),
                     ((1, 24, 9728, 128), "float32"),
                     ((1, 2, 2048, 256), "bfloat16"), ((1, 16, 4096, 256), "bfloat16"),
-                    ((1, 2, 2048, 256), "float32")]
+                    ((1, 2, 2048, 256), "float32"), ((1, 16, 4096, 256), "float32"),
+                    ((1, 1, 4096, 512), "float32")]
 # tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
 TINY_FLUX_TRAIN_ITERATIONS = 2
 TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
@@ -393,9 +394,12 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def median_ms(fn, runs: int = 10) -> float:
-    """Median over `runs` launches, each timed with CUDA events between
-    torch.cuda.synchronize() calls, after one warm-up call."""
+def median_ms(fn, runs: int = 10, reps: int = 1) -> float:
+    """Median over `runs` samples, each timed with CUDA events between
+    torch.cuda.synchronize() calls, after one warm-up call; a sample is
+    `reps` calls back to back, per call (reps > 1: the wrapper's host time
+    overlaps the device work of the calls before it, so a short kernel's
+    sample reads its device time, not its wrapper's)."""
     import torch
 
     fn()
@@ -406,10 +410,11 @@ def median_ms(fn, runs: int = 10) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -475,9 +480,9 @@ def phase_device():
 # head dim); the split passes of those f32 paths; the conv kernels' Hopper
 # mainloop (conv3x3_sm90.cuh) in bf16 at each BN, with #6's prologue at BN
 # 128 and 160, and in f32 (3xTF32) at BN 128 with and without it, and the
-# weights' TF32 split; every generic conv and GroupNorm instantiation, #4's
-# f32 d = 512 forward and its f32 d = 256 backward kernels, #9's copy
-# kernels
+# weights' TF32 split; #4's f32 backward at d = 256 and 512 (TF32 on
+# clusters of 2 and 4 blocks, DP a block's share); every generic conv and
+# GroupNorm instantiation, #4's f32 d = 512 forward, #9's copy kernels
 # #2's f32 (TF32 plan) instantiations, and #1's f32 forward's (FCfg<DPF,
 # BK, TMA, FWD_TWO_PASS>, attn_fwd_tf32): (padded head dim, TMA)
 TF32_CONFIGS = ((16, 0), (32, 1), (40, 0), (48, 0), (64, 1), (80, 0), (96, 0), (112, 0),
@@ -485,21 +490,24 @@ TF32_CONFIGS = ((16, 0), (32, 1), (40, 0), (48, 0), (64, 1), (80, 0), (96, 0), (
 FWD_TF32 = tuple((f"FCfgILi{dpf}ELi{64 if dpf <= 64 else 32}ELb{tma}ELi0EE",
                   f"attn_fwd_tf32 #1 f32 d={dpf} ({'TMA' if tma else '16-byte TMA'}, 3xTF32)")
                  for dpf, tma in TF32_CONFIGS)
-BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
-            ("BCfgILi48ELi128ELb0ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
-            ("BCfgILi64ELi64ELb1ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
-            ("BCfgILi64ELi64ELb1ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=64 (TMA)"),
-            ("BCfgILi80ELi64ELb0ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=80 (cp.async)"),
-            ("BCfgILi80ELi64ELb0ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=80 (cp.async)"),
-            ("BCfgILi128ELi64ELb1ELb0ELb1ELi0EE", "attn_bwd_sm90 #2 dq d=128 (TMA)"),
-            ("BCfgILi128ELi64ELb1ELb1ELb1ELi0EE", "attn_bwd_sm90 #2 dk/dv d=128 (TMA)"),
-            ("BCfgILi128ELi64ELb1ELb1ELb0ELi0EE", "attn_bwd_sm90 #4 dk/dv d=128 (TMA)"),
-            ("BCfgILi128ELi64ELb1ELb0ELb0ELi0EE", "attn_bwd_sm90 #4 dq d=128 (TMA)"),
-            ("BCfgILi256ELi32ELb1ELb1ELb0ELi1EE", "attn_bwd_sm90 #4 dk/dv d=256 (TMA, SPLIT)"),
-            ("BCfgILi256ELi64ELb1ELb0ELb0ELi1EE", "attn_bwd_sm90 #4 dq d=256 (TMA, SPLIT)"),
-            ("BCfgILi256ELi32ELb1ELb1ELb0ELi2EE", "attn_bwd_sm90 #4 f32 dk/dv d=128 (TMA, TF32)"),
-            ("BCfgILi256ELi32ELb1ELb0ELb0ELi2EE", "attn_bwd_sm90 #4 f32 dq d=128 (TMA, TF32)"),
-            *((f"BCfgILi{2 * dpf}ELi{64 if dpf <= 48 else 32}ELb{tma}ELb{dkv}ELb1ELi2EE",
+BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dq d=40 (cp.async)"),
+            ("BCfgILi48ELi128ELb0ELb1ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dk/dv d=40 (cp.async)"),
+            ("BCfgILi64ELi64ELb1ELb0ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dq d=64 (TMA)"),
+            ("BCfgILi64ELi64ELb1ELb1ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dk/dv d=64 (TMA)"),
+            ("BCfgILi80ELi64ELb0ELb0ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dq d=80 (cp.async)"),
+            ("BCfgILi80ELi64ELb0ELb1ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dk/dv d=80 (cp.async)"),
+            ("BCfgILi128ELi64ELb1ELb0ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dq d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb1ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dk/dv d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb1ELb0ELi0ELi1EE", "attn_bwd_sm90 #4 dk/dv d=128 (TMA)"),
+            ("BCfgILi128ELi64ELb1ELb0ELb0ELi0ELi1EE", "attn_bwd_sm90 #4 dq d=128 (TMA)"),
+            ("BCfgILi256ELi32ELb1ELb1ELb0ELi1ELi1EE", "attn_bwd_sm90 #4 dk/dv d=256 (TMA, SPLIT)"),
+            ("BCfgILi256ELi64ELb1ELb0ELb0ELi1ELi1EE", "attn_bwd_sm90 #4 dq d=256 (TMA, SPLIT)"),
+            ("BCfgILi256ELi32ELb1ELb1ELb0ELi2ELi1EE", "attn_bwd_sm90 #4 f32 dk/dv d=128 (TMA, TF32)"),
+            ("BCfgILi256ELi32ELb1ELb0ELb0ELi2ELi1EE", "attn_bwd_sm90 #4 f32 dq d=128 (TMA, TF32)"),
+            *((f"BCfgILi256ELi{32 if cs == 2 else 16}ELb1ELb{dkv}ELb0ELi2ELi{cs}EE",
+               f"attn_bwd_sm90 #4 f32 {'dk/dv' if dkv else 'dq'} d={128 * cs} (TMA, TF32, "
+               f"cluster of {cs})") for cs in (2, 4) for dkv in (1, 0)),
+            *((f"BCfgILi{2 * dpf}ELi{64 if dpf <= 48 else 32}ELb{tma}ELb{dkv}ELb1ELi2ELi1EE",
                f"attn_bwd_sm90 #2 f32 {'dk/dv' if dkv else 'dq'} d={dpf} "
                f"({'TMA' if tma else 'cp.async'}, TF32)")
               for dpf, tma in TF32_CONFIGS for dkv in (0, 1)))
@@ -513,8 +521,6 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("FCfgILi128ELi32ELb1ELi1EE", "attn_fwd_tf32 #4 f32 d=128 (TMA, 3xTF32, one pass)"),
             ("FCfgILi256ELi32ELb1ELi2EE", "attn_fwd_tf32 #4 f32 d=256 (TMA, 3xTF32, split d)"),
             *BWD_SM90,
-            ("flash_bwd_f32ILb1E", "flash_bwd_dkv_f32 (d = 256)"),
-            ("flash_bwd_f32ILb0E", "flash_bwd_dq_f32 (d = 256)"),
             ("tf32_split_bhld", "tf32_split_bhld"), ("tf32_split_vt", "tf32_split_vt"),
             *((f"conv3x3_sm90I13__nv_bfloat16Li{bn}ELb{pro}E",
                f"conv3x3_sm90{'<prologue>' if pro else ''} bf16 BN={bn}")
@@ -524,8 +530,8 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("tf32_split", "tf32_split"),
             ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
-            ("group_norm_kernelI13__nv_bfloat16E", "group_norm_bf16"),
-            ("group_norm_kernelIfE", "group_norm_f32"),
+            ("gn_statsI13__nv_bfloat16E", "gn_stats bf16"), ("gn_statsIfE", "gn_stats f32"),
+            ("gn_applyI13__nv_bfloat16E", "gn_apply bf16"), ("gn_applyIfE", "gn_apply f32"),
             ("flash_fwd_f32_d512", "flash_fwd_f32_d512"),
             ("layout_pin_rows16", "layout_pin_rows16"),
             ("layout_pin_transposeIt", "layout_pin_transpose_16bit"),
@@ -566,18 +572,22 @@ def sm90_smem(d: int) -> int:
     return 2048 + q + min(4, (200 * 1024 // ctas - 2048 - q) // stage) * stage
 
 
-def bwd_sm90_smem(dp: int, bn: int, dkv: bool, kind: int = 0) -> int:
+def bwd_sm90_smem(dp: int, bn: int, dkv: bool, kind: int = 0, cs: int = 1) -> int:
     """Dynamic shared memory a block of the backward mainloop takes
-    (attention_bwd_sm90.cuh's BCfg<DP, BN, ..., plan>, plan 0 PAIR, 1 SPLIT,
-    2 TF32): 1024 bytes of alignment slack and 1024 of barriers, two
-    resident tiles (128 rows; 64 for SPLIT and TF32 but the f32 dq kernel
-    to d = 64), the consumers' exchange, then as many stages of two streamed tiles (TF32: a hi and a lo
-    plane each) and, in the dk/dv kernel, their rows' three f32 statistics
-    as fit 200 KiB (PAIR) or the block's 227 KiB, at most 4."""
+    (attention_bwd_sm90.cuh's BCfg<DP, BN, ..., plan, CS>, plan 0 PAIR, 1
+    SPLIT, 2 TF32, CS blocks a cluster): 1024 bytes of alignment slack and
+    1024 of barriers, two resident tiles (128 rows; 64 for SPLIT and TF32
+    but the f32 dq kernel to d = 64), the consumers' exchange (64-row
+    tiles of at least 32 f32 columns), the other blocks' partial tiles (CS
+    > 2: two slots of two 64 x BN f32 tiles from each; at CS = 2 they land
+    in the exchange), then as many stages
+    of two streamed tiles (TF32: a hi and a lo plane each) and, in the dk/dv
+    kernel, their rows' three f32 statistics as fit 200 KiB (PAIR) or the
+    block's 227 KiB, at most 4."""
     own = kind == 2 and not dkv and dp <= 128  # the f32 dq kernel's own rows (d <= 64)
     res = (128 if kind == 0 or own else 64) * dp * 2
     stage = 2 * (2 if kind == 2 else 1) * bn * dp * 2 + (3 * bn * 4 if dkv else 0)
-    xtile = 64 * bn * 4
+    xtile = 64 * max(bn, 32) * 4
     if kind == 1:
         x = bn // 2 * 128 * 4 + (0 if dkv else bn // 16 * 4 * 128 * 4)
     elif kind == 2:
@@ -585,7 +595,7 @@ def bwd_sm90_smem(dp: int, bn: int, dkv: bool, kind: int = 0) -> int:
                                          + -(-(bn // 2 + 2) * 128 * 4 // 1024) * 1024)
     else:
         x = 0
-    fixed = 2048 + 2 * res + x
+    fixed = 2048 + 2 * res + x + (2 * 2 * (cs - 1) * bn // 2 * 128 * 4 if cs > 2 else 0)
     return fixed + min(4, ((200 * 1024 if kind == 0 else 232448) - fixed) // stage) * stage
 
 
@@ -617,8 +627,12 @@ def phase_build():
         serialized = [ln for ln in log.splitlines() if "wgmma.mma_async instructions are serialized"
                       in ln]
         if serialized:
-            say("build", f"{lib.name}: ptxas serialized wgmma in {len(serialized)} kernel(s): "
-                + " | ".join(ln.split("(C75")[-1][:160] for ln in serialized))
+            # each by its REPORTED label where it has one, else its mangled name
+            names = [next((label for key, label in REPORTED if key in ln),
+                          ln.split("'")[-2] if ln.count("'") >= 2 else ln[-160:])
+                     for ln in serialized]
+            say("build", f"{lib.name}: ptxas serialized wgmma in {len(serialized)} kernel(s) "
+                f"(C7512 / C7513): " + " | ".join(names))
         _build.library(name)
     say("build", "attn_sm90 dynamic shared memory a block (bytes): " + ", ".join(
         f"d={d} {sm90_smem(d)}" for d in (40, 64, 80, 128))
@@ -633,6 +647,9 @@ def phase_build():
         f"{bwd_sm90_smem(256, 32, True, 1)}; f32 TF32 " + ", ".join(
             f"d={d} dq {bwd_sm90_smem(dp, bn, False, 2)} dk/dv {bwd_sm90_smem(dp, bn, True, 2)}"
             for d, dp, bn in tf32)
+        + "; f32 on clusters that split d: " + ", ".join(
+            f"d={128 * cs} dq {bwd_sm90_smem(256, 32 // (cs // 2), False, 2, cs)} dk/dv "
+            f"{bwd_sm90_smem(256, 32 // (cs // 2), True, 2, cs)}" for cs in (2, 4))
         + "; one block an SM, its consumers take 232 registers a thread and the producer 40 "
         "(setmaxnreg)")
     say("build", "attn_fwd_tf32 (#1 f32) dynamic shared memory a block (bytes): " + ", ".join(
@@ -1000,7 +1017,11 @@ def phase_group_norm_kernel():
     (batch 16, bf16), with and without SiLU, and one f32 shape. Both fold a
     and b from f32 sums taken in other orders, so one of them may round the
     other way: held to 4 bf16 ulps at the largest magnitude (f32: 1e-5).
-    F.group_norm (+ F.silu) on the same inputs is timed beside it."""
+    Each call must count one launch. F.group_norm (+ F.silu) on the same
+    inputs is timed beside it, each time the mean of 20 calls back to back
+    (a call's device time is shorter than its wrapper's host time), and the
+    kernel's time is printed as a share of its byte bound (x read once, y
+    written once)."""
     import torch
     import torch.nn.functional as F
 
@@ -1014,14 +1035,20 @@ def phase_group_norm_kernel():
         x = (torch.randn((16, L, C), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
         gamma = 1.0 + 0.2 * torch.randn(C, generator=gen, device="cuda")
         beta = 0.3 * torch.randn(C, generator=gen, device="cuda")
+        launches = tg.fused_group_norm.launches
         out = tg.fused_group_norm(x, gamma, beta, 32, eps, silu)
+        if tg.fused_group_norm.launches != launches + 1:
+            raise AssertionError("fused_group_norm did not count one launch for one call")
         ref = tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         ref_max = ref.float().abs().max().item()
         tol = bf16_tolerance(ref_max) if dtype == torch.bfloat16 else 1e-5 * max(1.0, ref_max)
-        ms = median_ms(lambda: tg.fused_group_norm(x, gamma, beta, 32, eps, silu))
-        plain_ms = median_ms(lambda: tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu))
+        # 20 calls back to back a sample: a call is tens of microseconds of
+        # device time, less than the wrapper's host time alone
+        ms = median_ms(lambda: tg.fused_group_norm(x, gamma, beta, 32, eps, silu), reps=20)
+        plain_ms = median_ms(lambda: tg.fused_group_norm_ref(x, gamma, beta, 32, eps, silu),
+                             reps=20)
         # the library's GroupNorm on the channels-first view of x (+ SiLU)
         xc, gc_, bc = x.transpose(1, 2), gamma.to(dtype), beta.to(dtype)
 
@@ -1029,13 +1056,13 @@ def phase_group_norm_kernel():
             y = F.group_norm(xc, 32, gc_, bc, eps)
             return F.silu(y) if silu else y
 
-        library_ms = median_ms(library)
+        library_ms = median_ms(library, reps=20)
         item = 2 if dt == "bfloat16" else 4
         bound_ms, bound_by = bound(8 * 16 * L * C, 2 * item * 16 * L * C + 8 * C, "float32")
         say("gn", f"(16, {L}, {C}) silu={silu} eps={eps} {dt}: max|err| {err:.3g} (tol {tol:.3g}); "
             f"median kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.group_norm"
             f"{' + SiLU' if silu else ''} {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+            f"({bound_by}; the kernel at {bound_ms / ms:.1%} of it)")
         if not err <= tol:
             raise AssertionError(f"fused_group_norm disagrees with its plain version at {(L, C)}")
         results.append({"shape": (16, L, C), "silu": silu, "dtype": dt, "err": err, "ms": ms,

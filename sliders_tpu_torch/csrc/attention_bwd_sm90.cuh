@@ -1,7 +1,7 @@
 // The Hopper mainloop of the attention backwards: kernel #2's exact softmax
 // backward (sd_attention_bwd.cu, every d its gate takes, bf16 and f32) and
 // kernel #4's flash backward in bf16 at d = 128 and 256 and in f32 at d =
-// 128 (flash_attention.cu). It takes the ring's fill and the descriptors of
+// 128, 256 and 512 (flash_attention.cu). It takes the ring's fill and the descriptors of
 // attention_sm90.cuh, and the PTX wrappers of sm90_ptx.cuh. Its TF32 pieces
 // (the split pass at the end of this file, the in-kernel splits, the
 // three-product step tf32x3) also serve #1's f32 forward (sd_attention.cu).
@@ -113,6 +113,33 @@
 //     time at d = 40), and the kernel splits its own values with integer
 //     operations (two cvt.rna.tf32.f32 an element held the exchange).
 //
+// CLUSTER (TF32 with CS = d / 128 > 1: #4 in f32 at d = 256 and 512, no
+// model's path): at d = 256 the 64 resident rows alone are 128 KB, and a
+// stage of 32 streamed rows' hi and lo planes another 128 KB, more than a
+// block holds. So the CS blocks of a thread-block cluster split d, each
+// the TF32 plan's d = 128 kernel over its columns [128 rank, + 128): the
+// resident rows' and the streamed tiles' columns by its own TMA ring; the
+// partial S^T and dP^T (dq: S and dP) over them, from zero, three TF32
+// products a k8 step. Each consumer warpgroup sends its 64 x BN partial to
+// the same warpgroup of every other block of the cluster (st.shared::cluster,
+// then a remote mbarrier arrival that releases the stores), waits for
+// theirs and sums the CS partials in rank order (cluster_sum), so every
+// block forms the same p and ds bits. Then each block's transposed
+// products make its 128 columns of dV^T and dK^T (dQ^T) from its own
+// streamed columns. S and dP are formed once per tile, not once per
+// 128-wide output chunk as by the FMA kernels this replaced.
+//   - d = 256 (XALIAS): the d = 128 kernel's shared memory exactly (two
+//     32-row stages), so the other block's partial lands in the exchange
+//     tile this block overwrites next (P^T's or dS^T's lo tile; in the dq
+//     kernel the f32 exchange, each thread's elements where it then writes
+//     p, and dS's lo tile); after the tile's products read them, one thread
+//     arrives on the other block's xfree barrier, and a block sends tile n
+//     only after tile n - 1's free. (16-row tiles with receive slots of
+//     their own, the first design, take twice the tiles and m64n16 S
+//     products: PERF.md, section 6.)
+//   - d = 512: three senders' partials need slots of their own: 16-row
+//     stages, two slots a role in turn, two stages.
+//
 // Two numeric policies on one template parameter (SD), each at its
 // reference's rounding points:
 //   - #4 (flash, SD = false; the TPU kernel's _flash_attention_bwd_dkv and
@@ -204,7 +231,7 @@ constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory on the H100
 // ring stages of two BN-row tiles (TF32: each a hi and a lo plane), the
 // consumers' exchange (SPLIT, TF32), then the stages' statistics (dk/dv
 // only). DP is a row's bytes / 2: d rounded up to 16 in bf16, 2 d in f32.
-template <int DP_, int BN_, bool TMA_, bool DKV_, bool SD_, int KIND_ = PAIR>
+template <int DP_, int BN_, bool TMA_, bool DKV_, bool SD_, int KIND_ = PAIR, int CS_ = 1>
 struct BCfg {
   static constexpr int DP = DP_;
   static constexpr int BN = BN_;      // rows of a streamed tile: q rows (dk/dv) or keys (dq)
@@ -218,6 +245,9 @@ struct BCfg {
   static constexpr bool DKV = DKV_;   // the dk/dv kernel, else the dq kernel
   static constexpr bool SD = SD_;     // #2's policy, else #4's
   static constexpr int KIND = KIND_;
+  // TF32 with d split across a cluster of CS blocks (#4 in f32 at d = 256
+  // and 512, CLUSTER in the note): DP is a block's share of the row
+  static constexpr int CS = CS_;
   // TF32's dq kernel where d <= 64: each consumer warpgroup its own 64 of 128
   // resident q rows and every product of them (no exchange), so a K/V tile
   // is read once for 128 rows
@@ -232,7 +262,9 @@ struct BCfg {
   static constexpr int TILE_BYTES = BN * DP * 2;
   static constexpr int STAGE_BYTES = 2 * PLANES * TILE_BYTES;
   static constexpr int STAT_BYTES = DKV ? 3 * BN * 4 : 0;  // mb, iv, dd per column
-  static constexpr int XTILE = 64 * BN * 4;  // TF32: a 64 x BN f32 exchange tile
+  // TF32: a 64 x BN f32 exchange tile, rows 128 bytes apart (32-column
+  // boxes; at BN = 16 half of each row is used)
+  static constexpr int XTILE = 64 * (BN < 32 ? 32 : BN) * 4;
   // SPLIT: p in f32 in accumulator order, and (dq) ds's bf16 A registers;
   // TF32 dk/dv: the hi and lo tiles of P^T, then of dS^T; TF32 dq: dS's hi
   // and lo tiles, then an f32 exchange in accumulator order (e and the
@@ -243,7 +275,16 @@ struct BCfg {
           ? (DKV || OWN ? 4 * XTILE
                         : 2 * XTILE + ((BN / 2 + 2) * WG * 4 + 1023) / 1024 * 1024)
           : 0;
-  static constexpr int FIXED = 1024 /* align */ + 1024 /* barriers */ + 2 * RES_BYTES + XBYTES;
+  // CLUSTER: a partial tile of S^T (S) or dP^T (dP), 64 x BN f32 in
+  // accumulator order. At d = 256 (XALIAS) the other block's partial lands
+  // in the exchange tile this block next overwrites, with a "free" barrier
+  // back to the sender; at d = 512 (three senders) the partials take
+  // buffers of their own: [2 slots][2 roles][CS - 1 senders]
+  static constexpr bool XALIAS = CS == 2;
+  static constexpr int PART_BYTES = (BN / 2) * WG * 4;
+  static constexpr int RECV_BYTES = CS > 2 ? 2 * 2 * (CS - 1) * PART_BYTES : 0;
+  static constexpr int FIXED =
+      1024 /* align */ + 1024 /* barriers */ + 2 * RES_BYTES + XBYTES + RECV_BYTES;
   static constexpr int STAGES_FIT =
       ((KIND == PAIR ? SMEM_BUDGET : SMEM_MAX) - FIXED) / (STAGE_BYTES + STAT_BYTES);
   static constexpr int STAGES = STAGES_FIT > 4 ? 4 : STAGES_FIT;
@@ -251,12 +292,16 @@ struct BCfg {
   static_assert(STAGES >= 2, "the ring needs two stages");
   static_assert(SMEM <= SMEM_MAX, "a block's shared memory");
   static_assert(!TMA || DP == 64 || DP == 128 || DP == 256, "TMA boxes are 64 columns");
-  static_assert(BN == 32 || BN == 64 || (KIND == PAIR && BN == 128),
-                "S tiles are wgmma n32, n64 or n128");
+  static_assert(BN == 32 || BN == 64 || (KIND == PAIR && BN == 128) || (CS == 4 && BN == 16),
+                "S tiles are wgmma n16 (CLUSTER at d = 512), n32, n64 or n128");
   static_assert(KIND != SPLIT || (DP == 256 && BN == (DKV ? 32 : 64) && !SD),
                 "SPLIT is #4 at d = 256");
   static_assert(KIND != TF32 || ((SD || DPF == 128) && DPF % 8 == 0 && DPF <= 128),
-                "TF32 is #2 in f32, and #4 in f32 at d = 128");
+                "TF32 is #2 in f32, and #4 in f32 at d = 128 (a block's 128 columns)");
+  static_assert(CS == 1 || (KIND == TF32 && !SD && TMA && DPF == 128 &&
+                            ((CS == 2 && BN == 32) || (CS == 4 && BN == 16))),
+                "CLUSTER is #4 in f32 at d = 256 (32-row tiles) and 512 (16-row tiles), a "
+                "block's 128 columns each");
 };
 
 struct BRing {
@@ -268,6 +313,10 @@ struct BRing {
   uint32_t stages;   // stage s at stages + s * STAGE_BYTES: tile 1 (Q or K), then tile 2 (dO
                      // or V), each PLANES planes (hi, then lo) of TILE_BYTES
   uint32_t xchg;     // the consumers' exchange (SPLIT, TF32)
+  uint32_t recv;     // CLUSTER at d = 512: the other blocks' partial tiles
+  uint64_t* xfull;   // CLUSTER: [2 slots][2 roles] (XALIAS: [2 roles]): the partials have landed
+  uint64_t* xfree;   // XALIAS: [2 roles]: the other block may send its next partial
+  uint32_t rank;     // CLUSTER: this block's rank, its columns DPF rank ..
   float* stats;      // stage s: [3][BN] floats at stats + s * 3 * BN
   unsigned char* gbase;  // the generic address of shared address sbase
   uint32_t sbase;
@@ -290,6 +339,24 @@ __device__ __forceinline__ Item bwd_item(const BwdArgs& p, int w) {
 template <class C>
 __device__ __forceinline__ int bwd_items(const BwdArgs& p) {
   return ((C::DKV ? p.Lk : p.Lq) + C::RROWS - 1) / C::RROWS * p.H * p.B;
+}
+
+// the first item of this block and the step between its items: a block
+// walks every gridDim.x-th item, a cluster (CLUSTER) every cluster_count()-th
+template <class C>
+__device__ __forceinline__ int first_item() {
+  if constexpr (C::CS > 1)
+    return cluster_id();
+  else
+    return blockIdx.x;
+}
+
+template <class C>
+__device__ __forceinline__ int item_step() {
+  if constexpr (C::CS > 1)
+    return cluster_count();
+  else
+    return gridDim.x;
 }
 
 // keep A registers of an asynchronous wgmma alive (and unmoved) until here
@@ -330,7 +397,9 @@ __device__ __forceinline__ void bwd_produce(const BwdArgs& p, const BRing& r,
     // boxes of 64 bf16 columns x rows (128-byte swizzle) or of 8 (16 bytes)
     constexpr int BW = C::TMA ? 64 : 8;
     constexpr int BOXES = C::DP / BW, RBOX = C::RROWS * BW * 2, BBOX = C::BN * BW * 2;
-    for (int w = blockIdx.x; w < bwd_items<C>(p); w += gridDim.x, rphase ^= 1) {
+    // CLUSTER: this block's columns of every row, from column DP rank on
+    const int col0 = C::CS > 1 ? static_cast<int>(r.rank) * C::DP : 0;
+    for (int w = first_item<C>(); w < bwd_items<C>(p); w += item_step<C>(), rphase ^= 1) {
       const Item it = bwd_item<C>(p, w);
       const long long sbase = ((long long)it.b * p.H + it.h) * p.sl;
       mbar_wait(r.rempty, rphase ^ 1);
@@ -338,8 +407,9 @@ __device__ __forceinline__ void bwd_produce(const BwdArgs& p, const BRing& r,
       // (the 16-byte boxes' loops stay rolled: the producer keeps 40 registers)
 #pragma unroll(C::TMA16 ? 1 : BOXES)
       for (int x = 0; x < BOXES; ++x) {
-        tma_load_4d(r.res + x * RBOX, ta1, r.rfull, x * BW, it.q0, it.h, it.b);
-        tma_load_4d(r.res + C::RES_BYTES + x * RBOX, ta2, r.rfull, x * BW, it.q0, it.h, it.b);
+        tma_load_4d(r.res + x * RBOX, ta1, r.rfull, col0 + x * BW, it.q0, it.h, it.b);
+        tma_load_4d(r.res + C::RES_BYTES + x * RBOX, ta2, r.rfull, col0 + x * BW, it.q0, it.h,
+                    it.b);
       }
       for (int i = 0; i < total; ++i) {
         const int c0 = (i % nt) * C::BN;
@@ -348,13 +418,13 @@ __device__ __forceinline__ void bwd_produce(const BwdArgs& p, const BRing& r,
         mbar_expect_tx(&r.full[stage], C::STAGE_BYTES + C::STAT_BYTES);
 #pragma unroll(C::TMA16 ? 1 : BOXES)
         for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(t1 + x * BBOX, tb1, &r.full[stage], x * BW, c0, it.h, it.b);
-          tma_load_4d(t1 + T2 + x * BBOX, tb2, &r.full[stage], x * BW, c0, it.h, it.b);
+          tma_load_4d(t1 + x * BBOX, tb1, &r.full[stage], col0 + x * BW, c0, it.h, it.b);
+          tma_load_4d(t1 + T2 + x * BBOX, tb2, &r.full[stage], col0 + x * BW, c0, it.h, it.b);
           if constexpr (C::PLANES == 2) {
-            tma_load_4d(t1 + C::TILE_BYTES + x * BBOX, tb1l, &r.full[stage], x * BW, c0, it.h,
-                        it.b);
-            tma_load_4d(t1 + T2 + C::TILE_BYTES + x * BBOX, tb2l, &r.full[stage], x * BW, c0,
+            tma_load_4d(t1 + C::TILE_BYTES + x * BBOX, tb1l, &r.full[stage], col0 + x * BW, c0,
                         it.h, it.b);
+            tma_load_4d(t1 + T2 + C::TILE_BYTES + x * BBOX, tb2l, &r.full[stage], col0 + x * BW,
+                        c0, it.h, it.b);
           }
         }
         if constexpr (C::DKV) {
@@ -1082,11 +1152,74 @@ __device__ __forceinline__ void store_t(float* out, long long ld, int n0, int nr
     }
 }
 
-// One item of a dk/dv consumer (cw 0: S^T, p, dV; cw 1: dP^T, ds, dK)
+// CLUSTER: s holds this warpgroup's tile (S^T or S for cw 0, dP^T or dP
+// for cw 1) over this block's columns of d. Send it to every other block of
+// the cluster -- remote stores into the buffer at shared address `buf`,
+// element i of thread t at buf + 4 (i WG + t) plus PART_BYTES times the
+// sender's index there (its rank, less one above the receiver's), then an
+// arrival on the receiver's barrier `bar` -- wait for this block's `bar`
+// phase of parity `parity` (the others' partials), and sum the CS partials
+// in rank order, so every block holds the same bits.
+template <class C>
+__device__ __forceinline__ void cluster_sum(const BRing& r, float* s, int t, uint32_t buf,
+                                            uint64_t* bar, int parity) {
+  constexpr int H2 = C::BN / 2;
+  const int rank = static_cast<int>(r.rank);
+  auto elem = [&](int index) { return buf + index * C::PART_BYTES + t * 4; };
+#pragma unroll
+  for (int q = 0; q < C::CS; ++q) {
+    if (q == rank) continue;
+    const uint32_t dst = mapa(elem(rank - (rank > q)), q);
+#pragma unroll
+    for (int i = 0; i < H2; ++i) st_cluster(dst + i * WG * 4, s[i]);
+    mbar_arrive_cluster(mapa(smem_u32(bar), q));
+  }
+  mbar_wait_cluster(bar, parity);
+  float tot[H2];
+#pragma unroll
+  for (int q = 0; q < C::CS; ++q) {
+    const uint32_t src = elem(q - (q > rank));
+#pragma unroll
+    for (int i = 0; i < H2; ++i) {
+      const float v = q == rank ? s[i] : *at<const float>(r, src + i * WG * 4);
+      tot[i] = q == 0 ? v : tot[i] + v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < H2; ++i) s[i] = tot[i];
+}
+
+// CLUSTER, the exchange of tile n (this warpgroup's n-th) for role cw, the
+// partial landing at `alias` (XALIAS) or in the receive slots (CS > 2: two
+// in turn; a block sends tile n + 1 only after it has read its slot of tile
+// n - 1, so the senders of tile n + 2 find it read). XALIAS sends tile n
+// only after the other block freed `alias` from tile n - 1 (cluster_free).
+template <class C>
+__device__ __forceinline__ void cluster_tile(const BRing& r, float* s, int cw, int t, int n,
+                                             uint32_t alias) {
+  if constexpr (C::XALIAS) {
+    if (n > 0) mbar_wait_cluster(&r.xfree[cw], (n - 1) & 1);
+    cluster_sum<C>(r, s, t, alias, &r.xfull[cw], n & 1);
+  } else {
+    const int sel = (n & 1) * 2 + cw;
+    cluster_sum<C>(r, s, t, r.recv + sel * (C::CS - 1) * C::PART_BYTES, &r.xfull[sel],
+                   (n >> 1) & 1);
+  }
+}
+
+// XALIAS: tell the other block that this block's buffer of role cw may take
+// its next partial (one thread, after a barrier over the threads that read it)
+__device__ __forceinline__ void cluster_free(const BRing& r, int cw) {
+  mbar_arrive_cluster(mapa(smem_u32(&r.xfree[cw]), r.rank ^ 1));
+}
+
+// One item of a dk/dv consumer (cw 0: S^T, p, dV; cw 1: dP^T, ds, dK);
+// xn counts this consumer's tiles (CLUSTER's exchanges), `last` marks the
+// block's last item
 template <class C>
 __device__ __forceinline__ void dkdv_item_tf32(const BwdArgs& p, const BRing& r, const Item& it,
                                                int cw, int t, int& stage, int& phase,
-                                               int rphase) {
+                                               int rphase, int& xn, bool last) {
   constexpr int KS = C::DPF / 8, KQ = C::BN / 8, MB = C::MB;
   const int warp = t / 32, lane = t % 32, g = lane >> 2, t4 = lane & 3;
   const float c = p.scale * LOG2E;
@@ -1113,13 +1246,18 @@ __device__ __forceinline__ void dkdv_item_tf32(const BwdArgs& p, const BRing& r,
           a_rows<C>(h, l, res, warp, lane, kk);
         },
         [&](int kk, int pl) { return bdesc<C>(tb + pl * C::TILE_BYTES, C::BN, 0, kk); });
+    // XALIAS: the other block's partial lands in this role's lo tile, which
+    // put_split then overwrites
+    const bool final_tile = last && j == nt - 1;
+    if constexpr (C::CS > 1) cluster_tile<C>(r, s, cw, t, xn++, xt + C::XTILE);
     if (cw == 0) {
 #pragma unroll
       for (int i = 0; i < C::BN / 2; ++i) {  // p^T of q column 8 (i / 4) + 2 t4 + (i & 1)
         const int col = (i / 4) * 8 + 2 * t4 + (i & 1);
         s[i] = ex2(fmaf(s[i], c, -st[col])) * st[C::BN + col];
       }
-      bar_sync(XEMPTY, 2 * WG);  // warpgroup 1 has read the last tile's p
+      // warpgroup 1 has read the last tile's p (XALIAS: synced after dV^T)
+      if constexpr (!C::XALIAS) bar_sync(XEMPTY, 2 * WG);
     } else {
       bar_sync(XFULL, 2 * WG);
 #pragma unroll
@@ -1136,6 +1274,7 @@ __device__ __forceinline__ void dkdv_item_tf32(const BwdArgs& p, const BRing& r,
         }
       bar_arrive(XEMPTY, 2 * WG);
     }
+    if constexpr (C::XALIAS) bar_sync(WGBAR + cw, WG);  // every thread has read its partial
     put_split<C>(r, xt, s, warp, g, t4);
     fence_proxy_async();
     if (cw == 0) bar_arrive(XFULL, 2 * WG);
@@ -1154,16 +1293,25 @@ __device__ __forceinline__ void dkdv_item_tf32(const BwdArgs& p, const BRing& r,
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[mb][i] += part[i];
     }
+    if constexpr (C::XALIAS) {
+      // P^T (read by this wgmma and by warpgroup 1) and dS^T are free again:
+      // the other block may send its next partial into them
+      bar_sync(cw == 0 ? XEMPTY : WGBAR + 1, cw == 0 ? 2 * WG : WG);
+      if (t == 0 && !final_tile) cluster_free(r, cw);
+    }
     mbar_arrive(&r.empty[stage]);
     next_stage<C>(stage, phase);
   }
   mbar_arrive(r.rempty);  // the last read of K and V is done
+  // CLUSTER: this block's DPF columns of dV and dK
+  const int col0 = C::CS > 1 ? static_cast<int>(r.rank) * C::DPF : 0;
+  const int d = C::CS > 1 ? C::DPF : p.d;
   if (cw == 0)
-    store_t<MB>(reinterpret_cast<float*>(p.dv) + it.b * p.dvb + it.h * p.dvh, p.dvl, it.q0, p.Lk,
-                p.d, acc, 1.f, warp, g, t4);
+    store_t<MB>(reinterpret_cast<float*>(p.dv) + it.b * p.dvb + it.h * p.dvh + col0, p.dvl,
+                it.q0, p.Lk, d, acc, 1.f, warp, g, t4);
   else
-    store_t<MB>(reinterpret_cast<float*>(p.dk) + it.b * p.dkb + it.h * p.dkh, p.dkl, it.q0, p.Lk,
-                p.d, acc, C::SD ? p.scale : 1.f, warp, g, t4);
+    store_t<MB>(reinterpret_cast<float*>(p.dk) + it.b * p.dkb + it.h * p.dkh + col0, p.dkl,
+                it.q0, p.Lk, d, acc, C::SD ? p.scale : 1.f, warp, g, t4);
 }
 
 // One item of a dq consumer that owns its 64 q rows (OWN): the statistics
@@ -1282,10 +1430,13 @@ __device__ __forceinline__ void dq_item_tf32_own(const BwdArgs& p, const BRing& 
 
 // One item of a dq consumer: for #2 the statistics pass (cw 0: S, the
 // running max and l; cw 1: dP and the dsum sum), for #4 the forward's
-// residuals; then the dq pass (cw 0: S and p; cw 1: dP, ds and dQ^T)
+// residuals; then the dq pass (cw 0: S and p; cw 1: dP, ds and dQ^T); xn
+// counts this consumer's dq-pass tiles (CLUSTER's exchanges), `last` marks
+// the block's last item
 template <class C>
 __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, const Item& it,
-                                             int cw, int t, int& stage, int& phase, int rphase) {
+                                             int cw, int t, int& stage, int& phase, int rphase,
+                                             int& xn, bool last) {
   constexpr int KS = C::DPF / 8, KK = C::BN / 8, MB = C::MB, H2 = C::BN / 2;
   const int warp = t / 32, lane = t % 32, g = lane >> 2, t4 = lane & 3;
   const float c = p.scale * LOG2E;
@@ -1414,6 +1565,12 @@ __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, c
     wait_stage<C>(r, stage, phase);
     const uint32_t tk = r.stages + stage * C::STAGE_BYTES;  // K hi, K lo, V hi, V lo
     logits(tk);
+    // XALIAS: the other block's S partial lands in the f32 exchange (each
+    // thread's elements where it then writes p), its dP partial in dS's lo
+    // tile, which put_split then overwrites
+    const bool final_tile = last && j == nt - 1;
+    if constexpr (C::CS > 1)
+      cluster_tile<C>(r, s, cw, t, xn++, r.xchg + (cw ? C::XTILE : 2 * C::XTILE));
     if (cw == 0) {
       mask_keys<C>(s, j * C::BN, p.Lk, t4);
 #pragma unroll
@@ -1428,6 +1585,10 @@ __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, c
 #pragma unroll
       for (int i = 0; i < H2; ++i) s[i] = ds_of<C>(x[i * WG], s[i], i & 2 ? dd1 : dd0, p.scale);
       bar_arrive(XEMPTY, 2 * WG);
+      if constexpr (C::XALIAS) {
+        bar_sync(WGBAR + 1, WG);  // p and the dP partial are read: the exchange is free
+        if (t == 0 && !final_tile) cluster_free(r, 0);
+      }
       put_split<C>(r, r.xchg, s, warp, g, t4);
       fence_proxy_async();
       bar_sync(WGBAR + 1, WG);  // the whole tile is written before the wgmma reads it
@@ -1442,29 +1603,39 @@ __device__ __forceinline__ void dq_item_tf32(const BwdArgs& p, const BRing& r, c
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[mb][i] += part[i];
       }
+      if constexpr (C::XALIAS) {
+        bar_sync(WGBAR + 1, WG);  // dQ^T's wgmma has read dS: its lo tile is free
+        if (t == 0 && !final_tile) cluster_free(r, 1);
+      }
     }
     mbar_arrive(&r.empty[stage]);
     next_stage<C>(stage, phase);
   }
   mbar_arrive(r.rempty);  // the last read of Q and dO is done
-  if (cw == 1)
-    store_t<MB>(reinterpret_cast<float*>(p.dq) + it.b * p.dqb + it.h * p.dqh, p.dql, it.q0, p.Lq,
-                p.d, acc, C::SD ? p.scale : 1.f, warp, g, t4);
+  if (cw == 1) {
+    // CLUSTER: this block's DPF columns of dQ
+    const int col0 = C::CS > 1 ? static_cast<int>(r.rank) * C::DPF : 0;
+    store_t<MB>(reinterpret_cast<float*>(p.dq) + it.b * p.dqb + it.h * p.dqh + col0, p.dql, it.q0,
+                p.Lq, C::CS > 1 ? C::DPF : p.d, acc, C::SD ? p.scale : 1.f, warp, g, t4);
+  }
 }
 
 template <class C>
 __device__ __forceinline__ void bwd_consume(const BwdArgs& p, const BRing& r, int cw) {
   const int t = threadIdx.x - WG * cw;
   const int warp = t / 32, g = (t % 32) >> 2, t4 = t & 3;
-  int stage = 0, phase = 0, rphase = 0;
+  int stage = 0, phase = 0, rphase = 0, xn = 0;
+  // XALIAS's dk/dv kernel syncs XEMPTY after each tile's products instead
+  constexpr bool LEAD = C::KIND != PAIR && !(C::XALIAS && C::DKV);
   if constexpr (C::KIND != PAIR) {
     // each exchange starts empty: its reader's arrivals lead its writer's
     // waits by one, and the writer takes the last one at the end
-    if (cw == 1) bar_arrive(XEMPTY, 2 * WG);
+    if (LEAD && cw == 1) bar_arrive(XEMPTY, 2 * WG);
     if (C::KIND == SPLIT && !C::DKV && cw == 0) bar_arrive(DEMPTY, 2 * WG);
   }
-  for (int w = blockIdx.x; w < bwd_items<C>(p); w += gridDim.x, rphase ^= 1) {
+  for (int w = first_item<C>(); w < bwd_items<C>(p); w += item_step<C>(), rphase ^= 1) {
     const Item it = bwd_item<C>(p, w);
+    const bool last = w + item_step<C>() >= bwd_items<C>(p);
     if constexpr (C::KIND == PAIR) {
       if constexpr (C::DKV)
         dkdv_item<C>(p, r, it, cw * 8, warp, g, t4, stage, phase, rphase);
@@ -1477,15 +1648,15 @@ __device__ __forceinline__ void bwd_consume(const BwdArgs& p, const BRing& r, in
         dq_item_split<C>(p, r, it, cw, t, stage, phase, rphase);
     } else {
       if constexpr (C::DKV)
-        dkdv_item_tf32<C>(p, r, it, cw, t, stage, phase, rphase);
+        dkdv_item_tf32<C>(p, r, it, cw, t, stage, phase, rphase, xn, last);
       else if constexpr (C::OWN)
         dq_item_tf32_own<C>(p, r, it, cw, t, stage, phase, rphase);
       else
-        dq_item_tf32<C>(p, r, it, cw, t, stage, phase, rphase);
+        dq_item_tf32<C>(p, r, it, cw, t, stage, phase, rphase, xn, last);
     }
   }
   if constexpr (C::KIND != PAIR) {
-    if (cw == 0) bar_sync(XEMPTY, 2 * WG);
+    if (LEAD && cw == 0) bar_sync(XEMPTY, 2 * WG);
     if (C::KIND == SPLIT && !C::DKV && cw == 1) bar_sync(DEMPTY, 2 * WG);
   }
 }
@@ -1514,7 +1685,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   r.res = r.sbase + 1024;
   r.stages = r.res + 2 * C::RES_BYTES;
   r.xchg = r.stages + C::STAGES * C::STAGE_BYTES;
-  r.stats = at<float>(r, r.xchg + C::XBYTES);
+  r.recv = r.xchg + C::XBYTES;
+  r.xfull = bars + 2 * C::STAGES + 2;
+  r.xfree = bars + 2 * C::STAGES + 6;
+  r.rank = C::CS > 1 ? cluster_rank() : 0;
+  r.stats = at<float>(r, r.recv + C::RECV_BYTES);
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&r.full[s], C::CPASYNC ? C::PRODUCER : 1);
@@ -1522,9 +1697,17 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     }
     mbar_init(r.rfull, C::CPASYNC ? C::PRODUCER : 1);
     mbar_init(r.rempty, 2 * WG);
+    // CLUSTER: a slot's partials arrive from the warpgroup of its role in
+    // each of the other blocks; XALIAS's frees from one thread of the other
+    for (int x = 0; x < (C::CS > 1 ? 4 : 0); ++x) mbar_init(&r.xfull[x], (C::CS - 1) * WG);
+    for (int x = 0; x < (C::XALIAS ? 2 : 0); ++x) mbar_init(&r.xfree[x], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // CLUSTER: no block sends before every block's barriers are set up
+  if constexpr (C::CS > 1)
+    cluster_sync();
+  else
+    __syncthreads();
   if (threadIdx.x >= 2 * WG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     bwd_produce<C>(p, r, &ta1, &ta2, &tb1, &tb2, &tb1l, &tb2l);
@@ -1580,9 +1763,36 @@ int launch_bwd_sm90(const BwdArgs& p, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int n = ((C::DKV ? p.Lk : p.Lq) + C::RROWS - 1) / C::RROWS * p.H * p.B;
-  const int blocks = n < sms ? n : sms;
-  attn_bwd_sm90<C><<<blocks, C::THREADS, C::SMEM, stream>>>(p, m[0], m[1], m[2], m[3], m[4], m[5]);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (C::CS == 1) {
+    const int blocks = n < sms ? n : sms;
+    attn_bwd_sm90<C><<<blocks, C::THREADS, C::SMEM, stream>>>(p, m[0], m[1], m[2], m[3], m[4],
+                                                               m[5]);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    // CLUSTER: clusters of CS blocks, at most as many as fit the card at once
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C::CS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.blockDim = dim3(C::THREADS);
+    cfg.dynamicSmemBytes = C::SMEM;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    static int fit = 0;
+    if (fit == 0) {
+      cfg.gridDim = dim3((sms / C::CS) * C::CS);
+      err = cudaOccupancyMaxActiveClusters(&fit, attn_bwd_sm90<C>, &cfg);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (fit < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    cfg.gridDim = dim3((n < fit ? n : fit) * C::CS);
+    err = cudaLaunchKernelEx(&cfg, attn_bwd_sm90<C>, p, m[0], m[1], m[2], m[3], m[4], m[5]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -24,11 +24,13 @@
 //     cvt.rna.tf32.f32 on the hot path).
 //   - The tensor cores' accumulation is not f32's over long sums, so each
 //     K/V tile's P.V starts from zero and is added into a running f32 sum.
-//   - The online rescale is a = 2^(b - b') of the exponents b = c m the p's
-//     were taken against, as rounded to f32: exactly 1 while the max holds.
-//     2^(c m - b') would be 1 plus up to two ulps of the rounding of b', a
-//     factor l took again every tile: up to 216 x 2.4e-7 = 5e-5 at L =
-//     6912 in 32-key tiles (o divides it out; the residual l keeps it).
+//   - The online rescale (#4's one pass, #1's first pass) is a = 2^(b - b')
+//     of the exponents b = c m the p's were taken against, as rounded to
+//     f32: exactly 1 while the max holds. 2^(c m - b') would be 1 plus up
+//     to two ulps of the rounding of b', a factor l took again every tile:
+//     up to 216 x 2.4e-7 = 5e-5 at L = 6912 in 32-key tiles (#4's o divides
+//     it out, its residual l keeps it; #1's second pass normalises p by that
+//     l, so its o would take it).
 //   - One block an SM (a persistent grid walking (q tile, head, batch)
 //     items): two consumer warpgroups and a one-thread TMA producer,
 //     `setmaxnreg` 232 / 40.
@@ -227,15 +229,19 @@ __device__ __forceinline__ void fwd_item_tf32(const Params& p, const Ring& r, co
     mask_keys<C>(s, j * C::BK, p.Lk, t4);
     // the first tile always holds a valid key, so mn is finite from here on
     const float2 mn = tile_max(s, H2, M0, M1);
-    const float b0 = mn.x * c, b1 = mn.y * c;
+    // (the exponents as rounded products: a product fused into a - c m
+    // would not round c m as the tile's exps take it)
+    const float b0 = __fmul_rn(mn.x, c), b1 = __fmul_rn(mn.y, c);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int i = 0; i < H2; i += 4) {
       sum0 += ex2(fmaf(s[i], c, -b0)) + ex2(fmaf(s[i + 1], c, -b0));
       sum1 += ex2(fmaf(s[i + 2], c, -b1)) + ex2(fmaf(s[i + 3], c, -b1));
     }
-    l0 = l0 * ex2(fmaf(M0, c, -b0)) + quad_sum(sum0);
-    l1 = l1 * ex2(fmaf(M1, c, -b1)) + quad_sum(sum1);
+    // l rescaled by a = 2^(b - b'), b = c M the exponent the last tile's
+    // sum was taken against: exactly 1 where the max holds
+    l0 = l0 * ex2(__fmul_rn(M0, c) - b0) + quad_sum(sum0);
+    l1 = l1 * ex2(__fmul_rn(M1, c) - b1) + quad_sum(sum1);
     M0 = mn.x;
     M1 = mn.y;
   }
@@ -356,7 +362,7 @@ __device__ __forceinline__ void fwd_item_online(const Params& p, const Ring& r, 
     // of the rounding of b', a factor l took again every tile), 0 on the
     // first tile
     const float2 mn = tile_max(s, H2, M0, M1);
-    const float b0 = mn.x * c, b1 = mn.y * c;
+    const float b0 = __fmul_rn(mn.x, c), b1 = __fmul_rn(mn.y, c);  // not fused into B - b
     const float a0 = ex2(B0 - b0), a1 = ex2(B1 - b1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll

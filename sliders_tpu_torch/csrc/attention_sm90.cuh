@@ -500,16 +500,21 @@ __device__ __forceinline__ void consume_item(const Params& p, const Ring& r, con
       advance(stage, phase);
       mask_keys<C>(sa, j * C::BK, p.Lk, t4);
       const float2 mn = tile_max(sa, C::BK / 2, M0, M1);
-      // the first tile always holds a valid key, so mn is finite from here on
-      const float b0 = mn.x * c, b1 = mn.y * c;
+      // the first tile always holds a valid key, so mn is finite from here on;
+      // b = c M as a rounded product (a product fused into the rescale's
+      // exponent would not round c M as the tile's exps take it)
+      const float b0 = __fmul_rn(mn.x, c), b1 = __fmul_rn(mn.y, c);
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int i = 0; i < C::BK / 2; i += 4) {
         sum0 += ex2(fmaf(sa[i], c, -b0)) + ex2(fmaf(sa[i + 1], c, -b0));
         sum1 += ex2(fmaf(sa[i + 2], c, -b1)) + ex2(fmaf(sa[i + 3], c, -b1));
       }
-      l0 = l0 * ex2(fmaf(M0, c, -b0)) + quad_sum(sum0);
-      l1 = l1 * ex2(fmaf(M1, c, -b1)) + quad_sum(sum1);
+      // l rescaled by a = 2^(b - b'), b the exponent the last tile's sum was
+      // taken against: exactly 1 where the max holds (2^(c M - b') would be
+      // 1 + an ulp or two of b''s rounding, a factor l took every tile)
+      l0 = l0 * ex2(__fmul_rn(M0, c) - b0) + quad_sum(sum0);
+      l1 = l1 * ex2(__fmul_rn(M1, c) - b1) + quad_sum(sum1);
       M0 = mn.x;
       M1 = mn.y;
     }
@@ -544,8 +549,10 @@ __device__ __forceinline__ void consume_item(const Params& p, const Ring& r, con
       mask_keys<C>(sa, j * C::BK, p.Lk, t4);
       // online softmax over this block: unnormalised p, o rescaled
       const float2 mn = tile_max(sa, C::BK / 2, M0, M1);
-      const float b0 = mn.x * c, b1 = mn.y * c;
-      const float a0 = ex2(fmaf(M0, c, -b0)), a1 = ex2(fmaf(M1, c, -b1));  // 0 on the first block
+      // o and l rescaled by a = 2^(b - b'), exactly 1 where the max holds, 0
+      // on the first block (b, b' rounded products, as in pass 1 above)
+      const float b0 = __fmul_rn(mn.x, c), b1 = __fmul_rn(mn.y, c);
+      const float a0 = ex2(__fmul_rn(M0, c) - b0), a1 = ex2(__fmul_rn(M1, c) - b1);
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int i = 0; i < C::BK / 2; i += 4) {

@@ -85,12 +85,15 @@
 //   kernel reads the forward's residuals, so it makes three products (S,
 //   dP, dQ^T) and no statistics pass. The forward's 3xTF32 plan writes
 //   those residuals.
-// - f32 at d = 256 (no path runs it): flash_bwd_f32, one block per 64 K/V
-//   (or q) rows and 128-wide output chunk, one template with the roles of
-//   the row and column operands swapped, plain FMAs. The TF32 plan's
-//   64-row resident f32 tiles would be 64 KB a plane at d = 256, two of
-//   them beside two ring stages of hi and lo planes: more than a block's
-//   227 KB.
+// - f32 at d = 256 and 512 (no path runs them): the TF32 plan on a
+//   cluster of d / 128 blocks that split d (CLUSTER in the mainloop's
+//   note): each block holds 128 columns of the 64 resident rows and
+//   streams the same columns of 32-row (d = 512: 16-row) tiles, forms partial S^T and dP^T
+//   (S and dP) over them, the partials cross between the blocks through
+//   distributed shared memory and are summed in rank order, and each block
+//   owns its 128 columns of dV, dK (dQ). A single block could not hold
+//   the 64 resident rows across d = 256 (128 KB) beside two stages of
+//   streamed hi and lo planes.
 
 #include "sd_attention_common.cuh"
 #include "attention_sm90.cuh"
@@ -99,10 +102,8 @@
 
 namespace {
 
-constexpr int FK = 128;      // keys per tile: the TPU kernel's block_k (d = 512, bf16 d = 128)
-constexpr int FD = 128;      // output chunk of the f32 d = 256 backward
-constexpr int FT = 256;      // its threads
-constexpr int FDC = 32;      // its head-dim chunk of the logits
+constexpr int FK = 128;  // keys per tile: the TPU kernel's block_k (d = 512, bf16 d = 128)
+constexpr int BR = 64;   // the backward's rows: Lq and Lk are multiples of it
 
 struct FParams {
   const void* q;
@@ -118,28 +119,6 @@ struct FParams {
 // where row `row` of (batch b, head h) keeps its m; its l is one plane further
 __device__ __forceinline__ long long ml_index(int b, int h, int row, int H, int Lq) {
   return ((long long)b * H + h) * Lq + row;
-}
-
-// ROWS x COLS floats of src from column col0 -> dst (row stride DST_STRIDE),
-// 16-byte loads; a stride that is not a multiple of 4 takes scalar stores
-template <int ROWS, int COLS, int DST_STRIDE>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long row_stride,
-                                              int col0) {
-  constexpr int CH = COLS / 4;
-  for (int i = threadIdx.x; i < ROWS * CH; i += FT) {
-    const int r = i / CH, c = i % CH;
-    const float4 val =
-        *reinterpret_cast<const float4*>(src + (long long)r * row_stride + col0 + c * 4);
-    float* d = dst + r * DST_STRIDE + c * 4;
-    if (DST_STRIDE % 4 == 0) {
-      *reinterpret_cast<float4*>(d) = val;
-    } else {
-      d[0] = val.x;
-      d[1] = val.y;
-      d[2] = val.z;
-      d[3] = val.w;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -370,204 +349,6 @@ __global__ void __launch_bounds__(XT, 1) flash_fwd_f32_d512(FParams p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-constexpr int BR = 64;  // rows a block owns: K/V rows (dk/dv) or q rows (dq)
-constexpr int BC = 64;  // columns per streamed tile: q rows (dk/dv) or keys (dq)
-
-struct BParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* g;      // do, the output's gradient
-  const float* m;     // (B, H, Lq) f32 residuals of the forward
-  const float* l;
-  const float* di;    // (B, H, Lq) f32: rowsum(o * do)
-  void* dq;
-  void* dk;
-  void* dv;
-  int H, Lq, Lk, d;
-  Strides qs, ks, vs, gs, dqs, dks, dvs;
-  float scale;
-};
-
-// The operands of one backward kernel. DKV (the dk/dv kernel): the block's
-// rows are K (a1) and V (a2), its columns stream q (b1) and do (b2), and the
-// softmax statistics belong to the columns. Otherwise (the dq kernel): rows
-// q and do, columns K and V, statistics of the rows.
-template <bool DKV, typename T>
-struct Roles {
-  const T *a1, *a2, *b1, *b2;
-  long long a1s, a2s, b1s, b2s;  // row strides
-  int ncols;
-  __device__ Roles(const BParams& p, int b, int h) {
-    const T* q = static_cast<const T*>(p.q) + b * p.qs.b + h * p.qs.h;
-    const T* k = static_cast<const T*>(p.k) + b * p.ks.b + h * p.ks.h;
-    const T* v = static_cast<const T*>(p.v) + b * p.vs.b + h * p.vs.h;
-    const T* g = static_cast<const T*>(p.g) + b * p.gs.b + h * p.gs.h;
-    if (DKV) {
-      a1 = k, a2 = v, b1 = q, b2 = g;
-      a1s = p.ks.l, a2s = p.vs.l, b1s = p.qs.l, b2s = p.gs.l;
-      ncols = p.Lq;
-    } else {
-      a1 = q, a2 = g, b1 = k, b2 = v;
-      a1s = p.qs.l, a2s = p.gs.l, b1s = p.ks.l, b2s = p.vs.l;
-      ncols = p.Lk;
-    }
-  }
-};
-
-// f32: FT threads, each a 4 x 4 tile of s and dp (rows ty*4 + i, columns
-// tx + 16 j) over 32-wide head-dim chunks, then p and ds through shared
-// memory into a 4 x 8 tile of each output (columns tx + 16 j of the chunk).
-constexpr int FC = 32;  // streamed rows per output sub-tile
-constexpr int BWD_F32_SMEM =
-    (4 * BR * (FDC + 1) + 2 * BR * (BC + 1) + 2 * FC * FD + 3 * BC) * 4;
-
-template <bool DKV>
-__global__ void __launch_bounds__(FT) flash_bwd_f32(BParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* a1s = reinterpret_cast<float*>(smem);  // [BR][FDC + 1] chunks of the rows
-  float* a2s = a1s + BR * (FDC + 1);
-  float* b1s = a2s + BR * (FDC + 1);            // [BC][FDC + 1] chunks of the tile
-  float* b2s = b1s + BC * (FDC + 1);
-  float* ps = b2s + BC * (FDC + 1);             // [BR][BC + 1]: p
-  float* dss = ps + BR * (BC + 1);              // [BR][BC + 1]: ds
-  float* t1s = dss + BR * (BC + 1);             // [FC][FD]: output columns of the tile
-  float* t2s = t1s + FC * FD;
-  float* st_m = t2s + FC * FD;                  // [64] m, 1 / l, di of the tile's columns
-  float* st_inv = st_m + BC;
-  float* st_di = st_inv + BC;
-
-  const int nc = p.d / FD;
-  const int row0 = blockIdx.x * BR;
-  const int h = blockIdx.y / nc, oc = blockIdx.y % nc;
-  const int b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const Roles<DKV, float> R(p, b, h);
-  const long long st0 = ((long long)b * p.H + h) * p.Lq;
-
-  float rm[4], rinv[4], rdi[4];  // the dq kernel's row statistics
-  if (!DKV) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long r = st0 + row0 + ty * 4 + i;
-      rm[i] = p.m[r];
-      rinv[i] = 1.f / p.l[r];
-      rdi[i] = p.di[r];
-    }
-  }
-  float acc1[4][8], acc2[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc1[i][j] = acc2[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < R.ncols; c0 += BC) {
-    if (DKV && threadIdx.x < BC) {
-      st_m[threadIdx.x] = p.m[st0 + c0 + threadIdx.x];
-      st_inv[threadIdx.x] = 1.f / p.l[st0 + c0 + threadIdx.x];
-      st_di[threadIdx.x] = p.di[st0 + c0 + threadIdx.x];
-    }
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int c = 0; c < p.d; c += FDC) {
-      load_tile_f32<BR, FDC, FDC + 1>(a1s, R.a1 + (long long)row0 * R.a1s, R.a1s, c);
-      load_tile_f32<BR, FDC, FDC + 1>(a2s, R.a2 + (long long)row0 * R.a2s, R.a2s, c);
-      load_tile_f32<BC, FDC, FDC + 1>(b1s, R.b1 + (long long)c0 * R.b1s, R.b1s, c);
-      load_tile_f32<BC, FDC, FDC + 1>(b2s, R.b2 + (long long)c0 * R.b2s, R.b2s, c);
-      __syncthreads();
-#pragma unroll 8
-      for (int kd = 0; kd < FDC; ++kd) {
-        float x1[4], x2[4], y1[4], y2[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          x1[i] = a1s[(ty * 4 + i) * (FDC + 1) + kd];
-          x2[i] = a2s[(ty * 4 + i) * (FDC + 1) + kd];
-          y1[i] = b1s[(tx + 16 * i) * (FDC + 1) + kd];
-          y2[i] = b2s[(tx + 16 * i) * (FDC + 1) + kd];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(x1[i], y1[j], s[i][j]);
-            dp[i][j] = fmaf(x2[i], y2[j], dp[i][j]);
-          }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ci = tx + 16 * j;
-        const float m = DKV ? st_m[ci] : rm[i], inv = DKV ? st_inv[ci] : rinv[i];
-        const float di = DKV ? st_di[ci] : rdi[i];
-        const float pe = __expf(s[i][j] * p.scale - m) * inv;
-        ps[(ty * 4 + i) * (BC + 1) + ci] = pe;
-        dss[(ty * 4 + i) * (BC + 1) + ci] = ((dp[i][j] - di) * pe) * p.scale;
-      }
-    // acc1 += ds . b1[:, chunk]; DKV: acc2 += p . b2[:, chunk]
-    for (int kc = 0; kc < BC; kc += FC) {
-      load_tile_f32<FC, FD, FD>(t1s, R.b1 + (long long)(c0 + kc) * R.b1s, R.b1s, oc * FD);
-      if (DKV) load_tile_f32<FC, FD, FD>(t2s, R.b2 + (long long)(c0 + kc) * R.b2s, R.b2s, oc * FD);
-      __syncthreads();  // also publishes ps and dss on the first pass
-#pragma unroll 4
-      for (int kk = 0; kk < FC; ++kk) {
-        float e1[4], e2[4], u1[8], u2[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          e1[i] = dss[(ty * 4 + i) * (BC + 1) + kc + kk];
-          e2[i] = ps[(ty * 4 + i) * (BC + 1) + kc + kk];
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          u1[j] = t1s[kk * FD + tx + 16 * j];
-          u2[j] = DKV ? t2s[kk * FD + tx + 16 * j] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc1[i][j] = fmaf(e1[i], u1[j], acc1[i][j]);
-            if (DKV) acc2[i][j] = fmaf(e2[i], u2[j], acc2[i][j]);
-          }
-      }
-      __syncthreads();
-    }
-  }
-
-  float* out1 = static_cast<float*>(DKV ? p.dk : p.dq) + b * (DKV ? p.dks.b : p.dqs.b) +
-                h * (DKV ? p.dks.h : p.dqs.h);
-  const long long out1_l = DKV ? p.dks.l : p.dqs.l;
-  float* out2 = static_cast<float*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = row0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      out1[row * out1_l + oc * FD + tx + 16 * j] = acc1[i][j];
-      if (DKV) out2[row * p.dvs.l + oc * FD + tx + 16 * j] = acc2[i][j];
-    }
-  }
-}
-
-template <bool DKV>
-int launch_bwd_f32(const BParams& p, int B, cudaStream_t st) {
-  const dim3 grid((DKV ? p.Lk : p.Lq) / BR, p.H * (p.d / FD), B);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_f32<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_F32_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_f32<DKV><<<grid, FT, BWD_F32_SMEM, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). Pointers 16-byte
@@ -624,12 +405,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // One backward kernel: part 0 the dk/dv kernel (writes dk, dv), part 1 the
-// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous; bf16
-// and f32 at d = 128 read two more planes after di, m log2(e) and 1 / l
-// (the wrapper forms them), from a 16-byte aligned di, and f32 at d = 128
-// takes 4 B H max(Lq, Lk) d floats more after them for the split planes.
-// Returns the launch's CUDA error (0 on success). Shapes and strides as for
-// the forward, with Lq and Lk multiples of 64 and bf16 d = 128 or 256; the
+// dq kernel (writes dq). m, l and di are (B, H, Lq) f32, contiguous; the
+// kernels read two more planes after di, m log2(e) and 1 / l (the wrapper
+// forms them), from a 16-byte aligned di, and f32 takes 4 B H max(Lq, Lk)
+// d floats more after them for the split planes. Returns the launch's CUDA
+// error (0 on success). Shapes and strides as for the forward, with Lq and
+// Lk multiples of 64, bf16 d = 128 or 256 and f32 d = 128, 256 or 512; the
 // Python wrapper checks them.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                    const float* m, const float* l, const float* di, void* dq,
@@ -641,18 +422,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    long long dq_sh, long long dq_sl, long long dk_sb,
                                    long long dk_sh, long long dk_sl, long long dv_sb,
                                    long long dv_sh, long long dv_sl, float scale, void* stream) {
-  if (B < 1 || H < 1 || Lq < BR || Lk < BC || Lq % BR || Lk % BC || d < FD || d % FD ||
-      B > 65535 || (long long)H * (d / FD) > 65535 || part < 0 || part > 1 ||
-      (!is_f32 && d != 128 && d != 256))
+  if (B < 1 || H < 1 || Lq < BR || Lk < BR || Lq % BR || Lk % BR || B > 65535 || H > 65535 ||
+      part < 0 || part > 1 || (d != 128 && d != 256 && (!is_f32 || d != 512)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool tf32 = is_f32 && d == 128;
-  if (is_f32 && !tf32) {
-    const BParams p{q, k, v, g, m, l, di, dq, dk, dv, H, Lq, Lk, d,
-                    {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {g_sb, g_sh, g_sl},
-                    {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl}, {dv_sb, dv_sh, dv_sl}, scale};
-    return part == 0 ? launch_bwd_f32<true>(p, B, st) : launch_bwd_f32<false>(p, B, st);
-  }
+  const bool tf32 = is_f32 != 0;
   // the dk/dv kernel copies BN rows of the di, m log2(e) and 1 / l planes at
   // a time
   if (reinterpret_cast<uintptr_t>(di) % 16) return static_cast<int>(cudaErrorInvalidValue);
@@ -688,11 +462,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     if (part == 0) {
       a.hq = h1;
       a.hg = h2;
-      return sm90::launch_bwd_sm90<BCfg<256, 32, true, true, false, sm90::TF32>>(a, st);
+    } else {
+      a.hk = h1;
+      a.hv = h2;
     }
-    a.hk = h1;
-    a.hv = h2;
-    return sm90::launch_bwd_sm90<BCfg<256, 32, true, false, false, sm90::TF32>>(a, st);
+    // d = 256 and 512: clusters of d / 128 blocks, 32- and 16-row streamed tiles
+    constexpr int TF32 = sm90::TF32;
+    if (d == 128)
+      return part == 0 ? sm90::launch_bwd_sm90<BCfg<256, 32, true, true, false, TF32>>(a, st)
+                       : sm90::launch_bwd_sm90<BCfg<256, 32, true, false, false, TF32>>(a, st);
+    if (d == 256)
+      return part == 0 ? sm90::launch_bwd_sm90<BCfg<256, 32, true, true, false, TF32, 2>>(a, st)
+                       : sm90::launch_bwd_sm90<BCfg<256, 32, true, false, false, TF32, 2>>(a, st);
+    return part == 0 ? sm90::launch_bwd_sm90<BCfg<256, 16, true, true, false, TF32, 4>>(a, st)
+                     : sm90::launch_bwd_sm90<BCfg<256, 16, true, false, false, TF32, 4>>(a, st);
   }
   if (d == 128)
     return part == 0 ? sm90::launch_bwd_sm90<BCfg<128, 64, true, true, false>>(a, st)

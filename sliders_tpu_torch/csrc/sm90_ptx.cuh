@@ -53,6 +53,74 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (clock64() - t0 > 20000000000ll) __trap();
 }
 
+// thread block clusters (#4's f32 backward at d = 256 and 512, whose blocks
+// split d): the rank of this block in its cluster, the cluster's index in
+// the grid and the number of clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of every block of the cluster (and its shared memory
+// writes, mbarrier inits among them) has reached here
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
+}
+
+// the shared::cluster address of shared address `a` in block `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// a float to the shared::cluster address a
+__device__ __forceinline__ void st_cluster(uint32_t a, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(x) : "memory");
+}
+
+// an arrival on the mbarrier at shared::cluster address a, releasing this
+// thread's earlier writes (to any block of the cluster) to the threads that
+// wait on it
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t a) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+
+// wait for the phase of parity `parity` of this block's mbarrier, acquiring
+// what the cluster's arrivals released; trap after ~10 s
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  auto done = [&]() {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    return ok != 0;
+  };
+  if (done()) return;
+  const long long t0 = clock64();
+  while (!done())
+    if (clock64() - t0 > 20000000000ll) __trap();
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -72,8 +72,9 @@ LIBRARIES = {
         "tf32_split_launch": [_P, _P, _L, _P],
     }),
     "group_norm": (CSRC / "group_norm.cu", (), {
-        # x, gamma, beta, y; B, L, C, groups, is_f32, silu; eps; stream
-        "group_norm_launch": [_P] * 4 + [_I] * 6 + [_F, _P],
+        # x, gamma, beta, y, partials; B, L, C, groups, is_f32, silu; eps;
+        # rows, rpi (ops/group_norm.plan); stream
+        "group_norm_launch": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
     }),
     "layout_pin": (CSRC / "layout_pin.cu", (), {
         # x, y; B, L, C; x strides (b, l, c) in elements; element bytes; stream

@@ -16,14 +16,16 @@ row's final max m and sum l in f32 (the residuals of the TPU kernel's
 `_flash_attention_fwd`), and its backward is `flash_attention_bwd`: on CUDA
 the TPU kernel's two backward kernels ported by hand (a K/V-major dk/dv
 kernel and a q-major dq kernel, no atomics; bf16 at d = 128 and 256 and
-f32 at d = 128 (three TF32 products for each, after a pass that splits the
-streamed operands into TF32 hi and lo planes) on the backward mainloop of
-`csrc/attention_bwd_sm90.cuh`), on the CPU
+f32 at d = 128, 256 and 512 (three TF32 products for each, after a pass
+that splits the streamed operands into TF32 hi and lo planes; at d = 256
+and 512 on clusters of d / 128 blocks that split d) on the backward
+mainloop of `csrc/attention_bwd_sm90.cuh`), on the CPU
 `flash_attention_bwd_ref`, their plain version on the same schedule and
 cast points. di = rowsum(o * do) is a torch reduction, as the TPU code takes
-it outside its kernels. The backward takes d = 128 and 256 (FLUX's joint
-attention; the VAE's d = 512 mid attention never runs under grad and is
-refused there, ROADMAP queue 2, item 3).
+it outside its kernels. Under grad `flash_attention` takes d = 128 and 256
+(FLUX's joint attention; the VAE's d = 512 mid attention never runs under
+grad and is refused there, ROADMAP queue 2, item 3); `flash_attention_bwd`
+itself also takes f32 d = 512.
 
 `ops/attention.routes_to_flash_kernel` sends here the shapes the JAX package
 sends to the stock kernel: unmasked self-attention with L % 128 == 0,
@@ -58,8 +60,12 @@ BWD_HEAD_DIMS = (128, 256)
 FWD_PLANS = ("sm90", "tf32", "d512")
 FWD_PLAN_OF = {torch.bfloat16: {128: "sm90", 256: "sm90"},
                torch.float32: {128: "tf32", 256: "tf32", 512: "d512"}}
-# the backward's plans (csrc/attention_bwd_sm90.cuh; "fma": flash_bwd_f32)
-BWD_PLANS = ("pair", "split", "tf32", "fma")
+# the backward's plans (csrc/attention_bwd_sm90.cuh's PAIR, SPLIT, TF32 and
+# TF32 on a cluster of blocks that split d), and the plan of each (dtype,
+# head dim) the backward takes
+BWD_PLANS = ("pair", "split", "tf32", "cluster")
+BWD_PLAN_OF = {torch.bfloat16: {128: "pair", 256: "split"},
+               torch.float32: {128: "tf32", 256: "cluster", 512: "cluster"}}
 LOG2E = 1.4426950408889634  # the kernels' exps are base 2
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -197,22 +203,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool)
 
 def _bwd_scratch_floats(q: torch.Tensor, k: torch.Tensor) -> int:
     """Floats of the backward's scratch: di, m log2(e) and 1 / l, (B, H, Lq)
-    each, and at f32 d = 128 (the TF32 plan) the hi and lo planes of the two
+    each, and in f32 (the TF32 plans) the hi and lo planes of the two
     tensors a kernel streams (q and do, then k and v, in the same room)."""
     B, H, Lq, d = q.shape
     n = 3 * B * H * Lq
-    if q.dtype == torch.float32 and d == 128:
+    if q.dtype == torch.float32:
         n += 4 * B * H * max(Lq, k.shape[2]) * d
     return n
 
 
 def bwd_plan(dtype: torch.dtype, d: int) -> str:
-    """The plan the backward kernels run at (dtype, d): bf16 d = 128 PAIR,
-    d = 256 SPLIT, f32 d = 128 the TF32 plan, other f32 head dims the FMA
-    kernels of flash_attention.cu."""
-    if dtype == torch.float32:
-        return "tf32" if d == 128 else "fma"
-    return "pair" if d == 128 else "split"
+    """The plan the backward kernels run at (dtype, d): bf16 d = 128 "pair",
+    d = 256 "split", f32 d = 128 "tf32" (3xTF32), f32 d = 256 and 512
+    "cluster" (3xTF32 on clusters of d / 128 blocks that split d). Raises
+    ValueError for any other (dtype, d)."""
+    plan = BWD_PLAN_OF.get(dtype, {}).get(d)
+    if plan is None:
+        raise ValueError(f"flash_attention_bwd's kernels take bf16 d in "
+                         f"{tuple(BWD_PLAN_OF[torch.bfloat16])} and f32 d in "
+                         f"{tuple(BWD_PLAN_OF[torch.float32])}, not {dtype} d = {d}")
+    return plan
 
 
 def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
@@ -229,14 +239,14 @@ def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q {tuple(q.shape)} "
                          f"{q.dtype}")
+    plan = bwd_plan(q.dtype, d)
     if not _kernel_layout(do):
         do = do.contiguous()
     stats = [t.float().contiguous() for t in (m, l)]
     if any(t.shape != (B, H, Lq) for t in stats):
         raise ValueError(f"m and l must be (B, H, Lq) = {(B, H, Lq)}")
     # di, then each row's m log2(e) and 1 / l: the form the Hopper dk/dv
-    # kernels' exps take, made once per row (the d = 256 f32 kernels read
-    # di); at f32 d = 128 the split planes follow
+    # kernels' exps take, made once per row; in f32 the split planes follow
     scratch = torch.empty(_bwd_scratch_floats(q, k), dtype=torch.float32, device=q.device)
     di = scratch[:3 * B * H * Lq].view(3, B, H, Lq)
     torch.sum(o.float() * do.float(), -1, out=di[0])
@@ -263,7 +273,7 @@ def flash_attention_bwd(q, k, v, o, do, m, l) -> tuple:
                 flash_attention_bwd.dkv_launches += 1
             else:
                 flash_attention_bwd.dq_launches += 1
-            flash_attention_bwd.launches_by_plan[bwd_plan(q.dtype, d)] += 1
+            flash_attention_bwd.launches_by_plan[plan] += 1
     return dq, dk, dv
 
 

@@ -91,3 +91,44 @@ def test_group_norm_affine_bf16_input_keeps_f32_fold():
     assert ta.dtype == ts.dtype == torch.float32
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja, np.float32), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js, np.float32), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,silu", [((2, 4096, 320), True), ((2, 1024, 1280), False)])
+def test_kernel_summation_order_matches_jax_kernel(shape, silu, dtype):
+    """The card kernel's order of the f32 sums (`fused_group_norm_chunked`:
+    each thread's per-channel sums over its rows of a chunk, the block's
+    fold over its row threads and the group's channels, the chunks' partials
+    in order) at the UNet's level-0 and level-1 widths: against the JAX
+    kernel in interpret mode and the plain version, within the tolerances
+    above."""
+    rng = np.random.default_rng(2)
+    x = _normal(rng, *shape, scale=2.0) + 0.5
+    c = shape[-1]
+    gamma, beta = 1.0 + _normal(rng, c, scale=0.2), _normal(rng, c, scale=0.3)
+    jd, td = DTYPES[dtype]
+    tx, tgm, tbt = torch.from_numpy(x).to(td), torch.from_numpy(gamma), torch.from_numpy(beta)
+    out = tg.fused_group_norm_chunked(tx, tgm, tbt, 32, 1e-5, silu)
+    assert out.dtype == td and tuple(out.shape) == shape
+    jax_out = np.asarray(pg.fused_group_norm(jnp.asarray(x, jd), jnp.asarray(gamma),
+                                             jnp.asarray(beta), 32, 1e-5, silu, True)
+                         .astype(jnp.float32))
+    plain = tg.fused_group_norm_ref(tx, tgm, tbt, 32, 1e-5, silu).float().numpy()
+    for want in (jax_out, plain):
+        scale = max(1.0, float(np.abs(want).max()))
+        tol = 1e-5 * scale if dtype == "float32" else 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+        assert np.abs(out.float().numpy() - want).max() <= tol
+
+
+@pytest.mark.parametrize("L,C", [(4096, 320), (4096, 960), (1024, 1280), (256, 2560),
+                                 (64, 1280), (1000, 96)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_plan_covers_every_row_once(L, C, dtype):
+    """The plan at the UNet's shapes (batch 16): a block's C / V * rpi
+    threads fit one block, its chunks cover the L rows once, and a pass has
+    about four blocks an SM (fewer where a thread would sum under four rows)."""
+    vec, rpi, rows, chunks = tg.plan(16, L, C, dtype)
+    assert vec == 16 // torch.empty((), dtype=dtype).element_size() and C % vec == 0
+    assert 1 <= C // vec * rpi <= 1024 and rpi == max(1, tg.THREADS // (C // vec))
+    assert (chunks - 1) * rows < L <= chunks * rows
+    assert 16 * chunks <= 4 * tg.SMS + 16 or rows <= 4 * rpi

@@ -143,11 +143,13 @@ def test_bwd_kernel_takes_head_views(cuda, d, dtype):
     ("flash", (2, 2, 1024, 256), torch.bfloat16), ("sd", (1, 8, 4096, 40), torch.float32),
     ("sd", (2, 3, 1090, 128), torch.float32), ("sd", (1, 10, 1024, 64), torch.float32),
     ("flash", (1, 2, 1024, 128), torch.float32), ("flash", (1, 2, 6912, 128), torch.float32),
+    ("flash", (1, 3, 2048, 256), torch.float32), ("flash", (1, 1, 1024, 512), torch.float32),
     ("sd_fwd", (1, 8, 4096, 40), torch.float32), ("sd_fwd", (2, 3, 1090, 128), torch.float32),
     ("sd_fwd", (1, 10, 1024, 64), torch.float32)])
 def test_bwd_kernels_are_deterministic(cuda, kernel, shape, dtype):
     """Two launches of a backward on the same inputs give bit-identical dq,
-    dk and dv: no atomics, every sum in a fixed order. So do two launches of
+    dk and dv: no atomics, every sum in a fixed order (#4's f32 d = 256 and
+    512: the cluster's partials added in rank order). So do two launches of
     #1's f32 forward ('sd_fwd': its split pass and two-pass kernel)."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
@@ -723,15 +725,23 @@ def test_fused_resnet_grad_reaches_x_through_group_norm(cuda):
     "shape,groups,silu,dtype",
     [
         ((16, 4096, 320), 32, True, torch.bfloat16),   # SD1.5 norm1 at level 0
+        ((16, 4096, 640), 32, True, torch.bfloat16),
+        ((16, 4096, 960), 32, True, torch.bfloat16),
+        ((16, 4096, 320), 32, False, torch.bfloat16),  # a transformer norm
         ((16, 1024, 1280), 32, False, torch.bfloat16),
+        ((16, 1024, 640), 32, True, torch.bfloat16),
+        ((16, 1024, 1920), 32, True, torch.bfloat16),
         ((16, 64, 2560), 32, True, torch.bfloat16),     # the 8x8 bottleneck
+        ((16, 4096, 320), 32, True, torch.float32),
         ((1, 1000, 96), 8, True, torch.float32),
+        ((1, 8192, 1024), 32, True, torch.float32),  # one batch: 512 blocks of 16 rows
     ],
 )
 def test_group_norm_kernel_matches_plain(cuda, shape, groups, silu, dtype):
     """Kernel #8 against fused_group_norm_ref: f32 sums in other orders, so
     a or b may round the other way; bf16 held to 2 ulps at the largest
-    magnitude, f32 to 1e-5 relative."""
+    magnitude, f32 to 1e-5 relative. One call is one launch of the
+    wrapper (its two passes)."""
     from sliders_tpu_torch.ops import group_norm as tg
 
     gen = torch.Generator(device=cuda).manual_seed(8)
@@ -751,6 +761,42 @@ def test_group_norm_kernel_matches_plain(cuda, shape, groups, silu, dtype):
         tg.fused_group_norm(strided, gamma, beta, groups)
     with pytest.raises(ValueError, match="contiguous gamma"):
         tg.fused_group_norm(x, torch.stack([gamma, beta], -1)[:, 0], beta, groups)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,dtype", [((16, 4096, 320), torch.bfloat16),
+                                         ((16, 256, 2560), torch.bfloat16),
+                                         ((16, 4096, 320), torch.float32)])
+def test_group_norm_kernel_is_deterministic(cuda, shape, dtype):
+    """Two launches of kernel #8 on the same inputs give the same bits: the
+    chunks' partial sums are folded in a fixed order, no atomics."""
+    from sliders_tpu_torch.ops import group_norm as tg
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn(shape[-1], generator=gen, device=cuda)
+    beta = 0.3 * torch.randn(shape[-1], generator=gen, device=cuda)
+    first = tg.fused_group_norm(x, gamma, beta, 32, 1e-5, True)
+    assert torch.equal(first, tg.fused_group_norm(x, gamma, beta, 32, 1e-5, True))
+
+
+@pytest.mark.requires_cuda
+def test_f32_kernel_holds_long_rows_with_outputs_near_one(cuda):
+    """#1 in f32 at L = 16384, d = 40 with v = 1 + 0.1 randn, so |o| is
+    about 1: o within 1e-5 of |o|max of its plain version. The first pass
+    rescales l by the exact 2^(b - b') (1 where the max holds); a factor
+    2^(c m - b') of 1 + an ulp taken every tile would drift l, and o with
+    it, by about 3e-5 over 512 tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    shape = (1, 2, 16384, 40)
+    q, k = (torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
+    v = 1.0 + 0.1 * torch.randn(shape, generator=gen, device=cuda)
+    out = sa.sd_attention(q, k, v)
+    ref = sa.sd_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert scale > 0.5
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
 
 
 @pytest.mark.requires_cuda
@@ -1004,6 +1050,11 @@ def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
         ((1, 2, 1024, 128), torch.float32, True),
         ((1, 1, 1024, 256), torch.float32, False),
         ((1, 2, 6912, 128), torch.float32, True),  # the tiny f32 FLUX run's 1280 px
+        # f32 d = 256 and 512 on the cluster plan: one that fills the card,
+        # head views, and the VAE's single head at d = 512
+        ((1, 16, 4096, 256), torch.float32, False),
+        ((2, 3, 1024, 256), torch.float32, True),
+        ((1, 1, 4096, 512), torch.float32, False),
     ],
 )
 def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype, views):
@@ -1046,11 +1097,12 @@ def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype, views):
 @pytest.mark.parametrize("d,dtype,plan", [(128, torch.bfloat16, "pair"),
                                           (256, torch.bfloat16, "split"),
                                           (128, torch.float32, "tf32"),
-                                          (256, torch.float32, "fma")])
+                                          (256, torch.float32, "cluster"),
+                                          (512, torch.float32, "cluster")])
 def test_flash_bwd_launches_by_plan(cuda, d, dtype, plan):
     """#4's backward counts each kernel launch under its plan: bf16 d = 128
     PAIR, d = 256 SPLIT, f32 d = 128 the TF32 plan (3xTF32 `wgmma`) and f32
-    d = 256 still the FMA kernel (flash_bwd_f32)."""
+    d = 256 and 512 the TF32 plan on clusters of blocks that split d."""
     from sliders_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(d + 38)
