@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD1.5 slider serving and slider training, its
-FLUX-dev slider serving and slider training, and its SDXL-base slider
-serving and slider training, once on one NVIDIA GPU, under the default conv
-route and the three conv-kernel routes of `ops.basic.set_conv_impl`, and
-with the layout pin (`ops.basic.set_layout_pin`) off and on.
+"""Drive the PyTorch port's SD1.5 slider serving and slider training (text
+and image sliders), its FLUX-dev slider serving and slider training, and
+its SDXL-base slider serving and slider training (text and image sliders),
+once on one NVIDIA GPU, under the default conv route and the three
+conv-kernel routes of `ops.basic.set_conv_impl`, and with the layout pin
+(`ops.basic.set_layout_pin`) off and on.
 
     python3 chip_smoke.py        # from the root of the repository
 
@@ -42,7 +43,11 @@ with its seconds and the seconds since the start:
      (the TF32 plan), and d = 256 (two shapes), and #2 at FLUX's 512 px
      grad pass; the layout pin #9 at the SDXL serving boundaries (bf16 and f32;
      contiguous, channel-major and sliced inputs; bit for bit) and its
-     identity gradient; each kernel's bound and the time of one PyTorch call
+     identity gradient; #4 at the VAE encoder's mid attention of image-slider
+     training ((2, 1, 1024, 512) and (2, 1, 4096, 512) f32) beside SDPA f32
+     and the 'xla' route and its two cuBLAS products, and the full-width
+     encoder at 256 and 512 px under attention impls 'auto' and 'xla' in
+     turns; each kernel's bound and the time of one PyTorch call
      computing the same function; then the tiny slice at 256 px and three tiny
      training steps at 256 px on the GPU (through the kernels) against the
      CPU (plain paths) in f32, under the default route and under conv impl
@@ -50,7 +55,11 @@ with its seconds and the seconds since the start:
      `cli/serve.py --flux` and trained at 1280 px through
      `cli/train_flux_slider.py` on both (#4's route, with its backward), and
      TINY_XL at 512 px with the pin on (one forward, three XL train steps
-     of a dynamic-crop pair; #1, #2 and #9 with exact launches) on both.
+     of a dynamic-crop pair; #1, #2 and #9 with exact launches) on both, and
+     tiny image-slider training at 64 px through
+     `cli/train_image_slider.py` on PNG folders the script writes (a
+     truncated file skipped with its warning) on both, then a two-style
+     `--stylecheck` run.
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
@@ -72,13 +81,17 @@ with its seconds and the seconds since the start:
      each kernel's launch count must equal its routed calls per UNet forward
      x 50 steps, plus under 'auto' the VAE decoder's, x the denoise batches.
   6. train:  a full-width SD1.5 snapshot with seeded random weights (UNet +
-     CLIP-L + tokenizer, no VAE) written to a temporary directory, then the
+     CLIP-L + SD VAE + tokenizer) written to a temporary directory, then the
      training CLI in-process with the values of data/config.yaml (bf16,
      remat, rank-4 noxattn, AdamW lr 2e-4, DDIM 50) for a few iterations,
      a resume from its state file, and two iterations under conv impl
      'fused'; losses, the moved LoRA, the frozen alphas, the saved files and
      the launch counts of the kernels are checked, and the time per
-     iteration is split by phase.
+     iteration is split by phase; then image-slider training through
+     `cli/train_image_slider.py` at 256 px for 4 iterations (#1 10, #2 5
+     and #4 1 an iteration), its time per iteration (the PNG reader's
+     host seconds beside) and device ms of the encode, the grad pass and the
+     update, and its peak memory.
   7. flux:   FLUX-dev at full width and depth (transformer, T5-XXL encoder,
      CLIP-L, FLUX VAE) in bf16 with seeded random weights and two rank-4
      xattn sliders; one transformer step at bucket 8, 1024 px, timed and
@@ -110,7 +123,9 @@ with its seconds and the seconds since the start:
      data/prompts-xl.yaml's age pair at 512 px for 4 iterations, pin on:
      launches exact (#1 10 x (t_to + 3), #2 10, #9 22 x (t_to + 2) + 21 per
      iteration), every down and up moved, host wall and device ms by phase,
-     peak memory.
+     peak memory; then image-slider training with --xl on the same snapshot
+     (its VAE too) at 512 px for 3 iterations, pin off (#1 20, #2 10, #4 1
+     an iteration), timed as SD1.5's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
 no such line. It needs a CUDA device and the rest of the repository beside
@@ -120,6 +135,7 @@ it.
 from __future__ import annotations
 
 import base64
+import contextlib
 import gc
 import json
 import math
@@ -144,8 +160,10 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubl
     ((16, 10, 4096, 64), "bfloat16", False),  # SDXL serving at 1024 px: 10 a forward
     ((16, 20, 1024, 64), "bfloat16", False),  # and 60 a forward
     ((2, 10, 1024, 64), "bfloat16", False),  # SDXL training's CFG-doubled denoise at 512 px
+    # (and SDXL image training's grad pass at 512 px, the +-s pair)
     ((2, 8, 1024, 128), "bfloat16", False),
     ((2, 24, 4608, 128), "bfloat16", False),  # FLUX's joint attention at 1024 px, 2 of 8 rows
+    ((2, 8, 1024, 40), "bfloat16", False),  # SD1.5 image training's grad pass at 256 px
     # --precision float32 (3xTF32): the CFG-doubled denoise of SD1.5's two
     # levels and SDXL's d = 64 at 512 px, and FLUX's joint attention at
     # 1024 px on head views of (B, L, 3072)
@@ -160,6 +178,8 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((2, 8, 4096, 40), "bfloat16"),
     ((1, 10, 1024, 64), "bfloat16"),  # SDXL training's grad pass at 512 px (10 a pass)
     ((3, 10, 1024, 64), "bfloat16"),  # the same at batch 3
+    ((2, 8, 1024, 40), "bfloat16"),  # image training's grad pass (the +-s pair): SD1.5 at 256 px
+    ((2, 10, 1024, 64), "bfloat16"),  # and SDXL at 512 px
     ((1, 24, 4096, 128), "bfloat16"),
     ((1, 24, 1536, 128), "bfloat16"),  # FLUX training's grad pass at 512 px
     # --precision float32 (the TF32 plan): SD1.5's two levels, SDXL's d and
@@ -331,6 +351,27 @@ TINY_XL_PX = 512
 TINY_XL_SD = 8
 TINY_XL_PINS = 8
 TINY_XL_LR = 1e-5  # as TINY_FLUX_LR
+# image-slider training (`cli/train_image_slider.py`): a pair's two images
+# encoded in f32 at 256 px (SD1.5) and 512 px (SDXL), whose mid attention
+# (one head, d = 512) is #4's; the UNet's self-attentions at L = 1024 are
+# #1's and #2's (SD1.5's level 0 at 256 px: 5; SDXL's 640-wide level at 512
+# px: SDXL_SD_512), and #1's again in the backward under remat
+IMAGE_PX = {"sd15": 256, "sdxl": 512}
+ENCODE_FLASH_SHAPES = [(2, 1, (px // 8) ** 2, 512) for px in IMAGE_PX.values()]
+ENCODE_AB_ROUNDS = 3  # 'auto' / 'xla' turns of the full-width encoder
+# cut from the configs' 1000; the last iteration is traced, and saves (per_steps
+# 2) fall outside it
+IMAGE_TRAIN_ITERATIONS = {"sd15": 5, "sdxl": 5}
+READER_PHOTO_PX = 1024  # the reader also timed on one photo-sized PNG
+IMAGE_SD_ROUTED = {"sd15": 5, "sdxl": SDXL_SD_512}
+# tiny image training GPU vs CPU through the CLI: TINY UNet and TINY VAE (one
+# downsample) at 64 px: 32 x 32 latents, 3 self-attentions at L = 1024 (d =
+# 16) a UNet call and the encoder's mid attention (d = 32), all #1's
+TINY_IMAGE_PX = 64
+TINY_IMAGE_ITERATIONS = 3
+TINY_IMAGE_ROUTED = 3
+TINY_IMAGE_BAD = "b2.png"  # truncated in every folder; the seed-0 draws reach it first
+SCALE_FOLDERS = ("verylow", "low", "high", "veryhigh")  # the CLI's default folders
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 outside
 # them (plain FMAs), TF32 tensor cores, device memory
@@ -1502,11 +1543,7 @@ def write_tiny_flux_snapshot(root: str) -> None:
         "text_encoder_2": (t5.init_params(gen, tcfg), {
             "vocab_size": tcfg.vocab_size, "d_model": tcfg.d_model, "d_kv": tcfg.d_kv,
             "d_ff": tcfg.d_ff, "num_layers": tcfg.num_layers, "num_heads": tcfg.num_heads}),
-        "vae": (vae.init_params(gen, vcfg), {
-            "latent_channels": vcfg.latent_channels,
-            "block_out_channels": list(vcfg.block_out_channels),
-            "layers_per_block": vcfg.layers_per_block, "norm_num_groups": vcfg.norm_num_groups,
-            "scaling_factor": vcfg.scaling_factor, "shift_factor": vcfg.shift_factor}),
+        "vae": (vae.init_params(gen, vcfg), vae_hf_config(vcfg)),
     }
     for sub, (params, config) in components.items():
         os.makedirs(os.path.join(root, sub))
@@ -2391,15 +2428,16 @@ def unet_hf_config(cfg) -> dict:
 
 def write_sd15_snapshot(root: str) -> int:
     """A diffusers-layout SD1.5 snapshot with seeded random weights: the UNet
-    in bf16, CLIP-L in f32, the synthetic tokenizer, and no VAE (training
-    needs none). Returns the UNet's parameter count."""
+    in bf16, CLIP-L and the SD VAE in f32 (image-slider training encodes
+    with it; text-slider training loads none), the synthetic tokenizer.
+    Returns the UNet's parameter count."""
     import torch
 
-    from sliders_tpu_torch.models import clip_text, unet2d
+    from sliders_tpu_torch.models import clip_text, unet2d, vae
     from sliders_tpu_torch.models.convert import write_safetensors
     from sliders_tpu_torch.utils.pytree import flatten
 
-    for sub in ("unet", "text_encoder", "tokenizer"):
+    for sub in ("unet", "text_encoder", "tokenizer", "vae"):
         os.makedirs(os.path.join(root, sub))
     write_tokenizer(os.path.join(root, "tokenizer"))
     with open(os.path.join(root, "tokenizer", "vocab.json")) as f:
@@ -2420,6 +2458,11 @@ def write_sd15_snapshot(root: str) -> int:
                    "intermediate_size": cfg.intermediate_size,
                    "max_position_embeddings": cfg.max_positions, "hidden_act": cfg.hidden_act,
                    "eos_token_id": eos}, f)
+    del clip
+    write_safetensors(os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
+                      flatten(vae.init_params(gen, vae.SD_VAE, device="cuda")))
+    with open(os.path.join(root, "vae", "config.json"), "w") as f:
+        json.dump(vae_hf_config(vae.SD_VAE), f)
     return n_params
 
 
@@ -2530,7 +2573,7 @@ def phase_train():
         t0 = time.perf_counter()
         n_params = write_sd15_snapshot(snap)
         say("train", f"SD1.5 snapshot with random weights (UNet {n_params / 1e6:.1f} M params "
-            f"bf16, CLIP-L f32, no VAE) written in {time.perf_counter() - t0:.1f} s")
+            f"bf16, CLIP-L and the SD VAE f32) written in {time.perf_counter() - t0:.1f} s")
 
         cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
         overrides = {
@@ -2615,6 +2658,9 @@ def phase_train():
             raise AssertionError("a conv kernel launched under the default conv impl 'xla'")
 
         fused = run_fused_training(cfg, tmp, recs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        image = timed("SD1.5 image training", phase_image_train, snap, tmp, "sd15")
 
     # time per iteration, past the first (which includes cuBLAS/cuDNN set-up)
     steady = recs[1:]
@@ -2637,7 +2683,7 @@ def phase_train():
         f"{fused['peak_gb']:.2f} GB")
     return {"fwd": run["fwd"], "bwd": run["bwd"], "resume_fwd": resumed["fwd"],
             "resume_bwd": resumed["bwd"], "fused_fwd": fused["fwd"], "fused_bwd": fused["bwd"],
-            "fused_conv": fused["conv"].get("fused_conv3x3", 0)}
+            "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -3498,8 +3544,8 @@ def phase_sdxl_http(engine) -> dict:
 
 def write_sdxl_snapshot(root: str, models) -> None:
     """A diffusers-layout SDXL snapshot of the engine's weights (bf16): the
-    UNet, CLIP-L, bigG with its projection, both tokenizers; no VAE
-    (training needs none)."""
+    UNet, CLIP-L, bigG with its projection, both tokenizers, and the SDXL
+    VAE (image-slider training encodes with it)."""
     from sliders_tpu_torch.models.convert import write_safetensors
     from sliders_tpu_torch.utils.pytree import flatten
 
@@ -3516,6 +3562,11 @@ def write_sdxl_snapshot(root: str, models) -> None:
         write_safetensors(os.path.join(root, sub, "model.safetensors"), flatten(te.params))
         with open(os.path.join(root, sub, "config.json"), "w") as f:
             json.dump(clip_hf_config(te.config, te.config.eos_token_id), f)
+    os.makedirs(os.path.join(root, "vae"))
+    write_safetensors(os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
+                      flatten(models.vae_params))
+    with open(os.path.join(root, "vae", "config.json"), "w") as f:
+        json.dump(vae_hf_config(models.vae_config), f)
 
 
 def phase_sdxl_train(snap: str, tmp: str) -> dict:
@@ -3604,7 +3655,518 @@ def phase_sdxl(tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     train = timed("SDXL training", phase_sdxl_train, snap, tmp)
-    return {"step": step, "conv": conv, "http": http, "train": train}
+    gc.collect()
+    torch.cuda.empty_cache()
+    image = timed("SDXL image training", phase_image_train, snap, tmp, "sdxl")
+    return {"step": step, "conv": conv, "http": http, "train": train, "image": image}
+
+
+@contextlib.contextmanager
+def tf32_flags(cudnn: bool, matmul: bool):
+    """cuDNN's and cuBLAS's TF32 flags as given inside the block, restored
+    after (later phases rely on the flags the earlier ones left)."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_encode_kernel():
+    """Kernel #4 against flash_attention_ref at the encoder's mid attention
+    of image-slider training (ENCODE_FLASH_SHAPES: a pair's two images at
+    256 and 512 px, f32, d = 512) within F32_TOL, one launch each on its
+    "d512" plan; each timed (median of 5) beside its bound (3xTF32 and
+    FMA, the lesser the row's), its plain version, SDPA f32, the 'xla'
+    route (`xla_attention`: f32 logits, softmax, P.V) and that route's two
+    cuBLAS products alone, with cuBLAS's TF32 off as the training CLI runs.
+    Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops.attention import xla_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for shape in ENCODE_FLASH_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        plan = fa.fwd_plan(torch.float32, shape[3])
+        plans = dict(fa.flash_attention.launches_by_plan)
+        out = fa.flash_attention(q, k, v)
+        plans = {p: n - plans[p] for p, n in fa.flash_attention.launches_by_plan.items()}
+        ref = fa.flash_attention_ref(q, k, v)
+        err = (out - ref).abs().max().item()
+        p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * shape[3] ** -0.5, dim=-1)
+        row = {"shape": shape, "dtype": "float32", "plan": plan, "err": err,
+               "ms": median_ms(lambda: fa.flash_attention(q, k, v), runs=5),
+               "plain_ms": median_ms(lambda: fa.flash_attention_ref(q, k, v), runs=3),
+               "library_ms": median_ms(lambda: F.scaled_dot_product_attention(q, k, v), runs=5),
+               "xla_ms": median_ms(lambda: xla_attention(q, k, v), runs=5),
+               "xla_products_ms": median_ms(
+                   lambda: (torch.matmul(q, k.transpose(-1, -2)), torch.matmul(p, v)), runs=5),
+               **attention_bounds(shape, "float32")}
+        say("encode", f"#4 at the encoder's {shape} f32 ({plan} plan, launches {plans}): max|err| "
+            f"vs plain {err:.3g} (tol {F32_TOL}); median #4 {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; 3xTF32 {row['tf32x3_bound_ms']:.4f}, "
+            f"FMA {row['fma_bound_ms']:.4f}); plain {row['plain_ms']:.4f}, SDPA f32 "
+            f"{row['library_ms']:.4f}, the 'xla' route {row['xla_ms']:.4f} (its two cuBLAS "
+            f"products {row['xla_products_ms']:.4f})")
+        if plans != {p: 1 if p == plan else 0 for p in plans}:
+            raise AssertionError(f"flash_attention at {shape} did not launch once on its {plan} "
+                                 f"plan: {plans}")
+        if not (err <= F32_TOL and out.shape == ref.shape and out.dtype == torch.float32):
+            raise AssertionError(f"flash_attention disagrees with its plain version at {shape}")
+        rows.append(row)
+        del q, k, v, p, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_encode_ab(rounds: int = ENCODE_AB_ROUNDS, runs: int = 3) -> dict:
+    """The SD VAE's encoder at full width (random f32 weights) on a pair's
+    two images at IMAGE_PX (256 px: SD1.5's image training; 512 px: SDXL's,
+    whose VAE differs only in its scaling factor), under attention impls
+    'auto' (#4 on the mid attention) and 'xla' in turns, `rounds` rounds of
+    a median of `runs` calls each, with PyTorch's default TF32 flags (cuDNN
+    on, cuBLAS off) as the training CLI runs. #4 launches once per 'auto'
+    encode and never under 'xla'; the two routes' means agree within 1e-3
+    of their scale. Returns {model: {"auto": ms, "xla": ms, ...}}."""
+    import torch
+
+    from sliders_tpu_torch.models import vae
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops.attention import set_attention_impl
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    params = vae.init_params(gen, vae.SD_VAE, device="cuda")
+
+    def encode(impl: str, imgs):
+        """The means of one encode under `impl`, and the median ms."""
+        set_attention_impl(impl)
+        with torch.no_grad():
+            before = fa.flash_attention.launches
+            mean = vae.encode(params, vae.SD_VAE, imgs)[0]
+            launched = fa.flash_attention.launches - before
+            ms = median_ms(lambda: vae.encode(params, vae.SD_VAE, imgs), runs=runs)
+        if launched != (impl == "auto"):
+            raise AssertionError(f"the {impl!r} encode launched #4 {launched} times")
+        return mean, ms
+
+    out = {}
+    with tf32_flags(True, False):
+        try:
+            for model, px in IMAGE_PX.items():
+                imgs = torch.rand((2, px, px, 3), generator=gen, device="cuda") * 2 - 1
+                samples, means = {"auto": [], "xla": []}, {}
+                for r in range(rounds):
+                    for impl in ("auto", "xla") if r % 2 == 0 else ("xla", "auto"):
+                        means[impl], ms = encode(impl, imgs)
+                        samples[impl].append(ms)
+                diff = (means["auto"] - means["xla"]).abs().max()
+                rel = (diff / means["xla"].abs().max()).item()
+                med = {impl: statistics.median(v) for impl, v in samples.items()}
+                say("encode", f"{model}'s VAE encoder, 2 images at {px} px, f32 (cuDNN TF32 "
+                    f"on): median 'auto' (#4) {med['auto']:.3f} ms, 'xla' {med['xla']:.3f} ms "
+                    f"({med['auto'] / med['xla']:.3f}x; {rounds} rounds in turns: 'auto' "
+                    f"{[f'{x:.3f}' for x in samples['auto']]}, 'xla' "
+                    f"{[f'{x:.3f}' for x in samples['xla']]}); mean max|diff| / max|mean| "
+                    f"{rel:.3g}")
+                if not (rel <= 1e-3 and all(torch.isfinite(m).all() for m in means.values())):
+                    raise AssertionError(f"{model}'s encode differs between the attention impls")
+                out[model] = {**med, "samples": samples, "rel_diff": rel}
+                del imgs, means
+        finally:
+            set_attention_impl("auto")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def vae_hf_config(cfg) -> dict:
+    """The diffusers vae/config.json of a VaeConfig."""
+    return {"latent_channels": cfg.latent_channels,
+            "block_out_channels": list(cfg.block_out_channels),
+            "layers_per_block": cfg.layers_per_block, "norm_num_groups": cfg.norm_num_groups,
+            "scaling_factor": cfg.scaling_factor, "shift_factor": cfg.shift_factor}
+
+
+def write_tiny_sd_snapshot(root: str) -> None:
+    """A diffusers-layout SD snapshot with seeded random f32 weights: the
+    TINY UNet, a tiny CLIP (the synthetic BPE tokenizer) and the TINY VAE."""
+    import torch
+
+    from sliders_tpu_torch.models import clip_text, unet2d, vae
+    from sliders_tpu_torch.models.convert import write_safetensors
+    from sliders_tpu_torch.utils.pytree import flatten
+
+    gen = torch.Generator().manual_seed(17)
+    os.makedirs(os.path.join(root, "tokenizer"))
+    write_tokenizer(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json")) as f:
+        vocab = json.load(f)
+    width = unet2d.TINY.cross_attention_dim
+    ccfg = clip_text.ClipTextConfig(
+        vocab_size=len(vocab), hidden_size=width, num_layers=2, num_heads=2,
+        intermediate_size=2 * width, max_positions=16, eos_token_id=vocab["<|endoftext|>"])
+    components = {
+        "unet": (unet2d.init_params(gen, unet2d.TINY), unet_hf_config(unet2d.TINY)),
+        "text_encoder": (clip_text.init_params(gen, ccfg), clip_hf_config(ccfg, ccfg.eos_token_id)),
+        "vae": (vae.init_params(gen, vae.TINY), vae_hf_config(vae.TINY)),
+    }
+    for sub, (params, config) in components.items():
+        os.makedirs(os.path.join(root, sub))
+        write_safetensors(os.path.join(root, sub, "model.safetensors"), flatten(params))
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump(config, f)
+
+
+def write_pair_folders(root: str, hw: tuple, files: int, seed: int, bad: str = "") -> tuple:
+    """SCALE_FOLDERS under `root` (scales -2, -1, 1, 2), each holding the
+    same `files` names: (h, w) PNGs written by `serving/server.encode_png`,
+    a wave pattern that brightens with the scale, plus noise; `bad`, if
+    given, a truncated PNG of that name in every folder. Returns the CLI's
+    --folders and --scales."""
+    import numpy as np
+
+    from sliders_tpu_torch.serving.server import encode_png
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i, folder in enumerate(SCALE_FOLDERS):
+        os.makedirs(os.path.join(root, folder))
+        for j in range(files):
+            wave = 40 * np.sin(xx / (5 + j) + yy / (9 + i))[..., None]
+            img = (45 + 50 * i + wave + rng.integers(0, 24, (h, w, 3))).clip(0, 255)
+            with open(os.path.join(root, folder, f"{chr(97 + j)}.png"), "wb") as f:
+                f.write(encode_png(img.astype(np.uint8)))
+        if bad:
+            with open(os.path.join(root, folder, bad), "wb") as f:
+                f.write(encode_png(np.zeros((8, 8, 3), np.uint8))[:40])
+    return ", ".join(SCALE_FOLDERS), "-2, -1, 1, 2"
+
+
+def run_image_training(cfg: dict, path: str, extra: list, trace_last: bool = False) -> dict:
+    """The image-slider CLI in-process with the config `cfg` (written to
+    `path`) and the arguments `extra`; the kernels' counts are set to 0 just
+    before and read just after, and the reader's skip warnings are kept.
+    Returns the per-iteration records, the counts, the LoRAs by save name,
+    the warnings, the seconds and the peak device memory. With
+    `trace_last`, torch.profiler traces the last iteration, from the end of
+    the one before to its own end: "trace" holds its host wall and device
+    ms by kernel class."""
+    import logging
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sliders_tpu_torch.cli import train_image_slider as icli
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            skipped.append(record.getMessage())
+
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg) + "\n")
+    records, skipped, handler = [], [], Keep(logging.WARNING)
+    last, trace = cfg["train"]["iterations"] - 1, {}
+
+    def on_step(i, state, m):
+        records.append((i, time.perf_counter(), m))
+        if trace_last and i == last - 1:
+            trace["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            trace["prof"].start()
+            trace["t0"] = time.perf_counter()
+        elif trace_last and i == last:
+            torch.cuda.synchronize()
+            trace["wall_ms"] = (time.perf_counter() - trace["t0"]) * 1e3
+            trace["prof"].stop()
+
+    reader_log = logging.getLogger("sliders_tpu_torch.data.paired_images")
+    reader_log.addHandler(handler)
+    torch.cuda.reset_peak_memory_stats()
+    sa.sd_attention.launches = sa.sd_attention_bwd.launches = fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        loras = icli.main(icli.build_parser().parse_args(["--config_file", path, *extra]),
+                          on_step=on_step)
+        torch.cuda.synchronize()
+    finally:
+        reader_log.removeHandler(handler)
+    return {"records": records, "sd": sa.sd_attention.launches,
+            "sd_bwd": sa.sd_attention_bwd.launches, "flash": fa.flash_attention.launches,
+            "loras": loras, "warnings": skipped, "seconds": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "trace": trace and {"wall_ms": trace["wall_ms"],
+                                "by_class": by_kernel_class(trace["prof"])}}
+
+
+def encode_png_paeth(img) -> bytes:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG with every row Paeth-filtered,
+    the filter libpng's adaptive choice mostly takes for photographs, and
+    the one the reader undoes by its slowest route (a wavefront)."""
+    import numpy as np
+
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]  # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]  # up
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]  # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) % 256).astype(np.uint8).reshape(x.shape[0], -1)
+    raw = np.concatenate([np.full((x.shape[0], 1), 4, np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", x.shape[1], x.shape[0], 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def time_reader_at_photo_size(tmp: str, px: int) -> dict:
+    """The port's reader on one READER_PHOTO_PX-square PNG, Paeth-filtered
+    (`encode_png_paeth`; a wave pattern plus noise, as the training folders
+    hold): host seconds, median of 3, of the decode alone and of the decode
+    with the resize to `px` (`load_batch`), and the file's size."""
+    import numpy as np
+
+    from sliders_tpu_torch.data import native_loader as nl
+
+    n = READER_PHOTO_PX
+    yy, xx = np.mgrid[0:n, 0:n]
+    img = 90 + 40 * np.sin(xx / 37 + yy / 53)[..., None]
+    img = img + np.random.default_rng(21).integers(0, 24, (n, n, 3))
+    img = img.clip(0, 255).astype(np.uint8)
+    path = os.path.join(tmp, f"photo_{n}.png")
+    with open(path, "wb") as f:
+        f.write(encode_png_paeth(img))
+    if not np.array_equal(nl.decode_file(path), img):
+        raise AssertionError("the reader does not give back the Paeth-filtered PNG's pixels")
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    return {"decode_s": median_s(lambda: nl.decode_file(path)),
+            "load_s": median_s(lambda: nl.load_batch([path], px)),
+            "mb": os.path.getsize(path) / 1e6}
+
+
+def phase_tiny_image() -> dict:
+    """Tiny image-slider training through the CLI on the GPU (the kernels)
+    against the CPU (plain paths), f32 with TF32 off, on a tiny snapshot and
+    paired folders this phase writes: scales -+1 and -+2, three files each
+    and a truncated one, which both runs skip with the reader's warning at
+    the same draw. Every loss within 1e-5 relative and the LoRA within 1e-6
+    absolute (lr 1e-4), as phase_tiny_train holds them; the GPU run's
+    launches exact (#1 TINY_IMAGE_ROUTED x (1 + remat) + 1 for the encoder
+    per iteration, #2 TINY_IMAGE_ROUTED). Then a two-style --stylecheck run
+    on the GPU: one slider per style folder, saved under its name."""
+    import torch
+
+    with tf32_flags(False, False), tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "sd_tiny")
+        write_tiny_sd_snapshot(snap)
+        pairs, styles = os.path.join(tmp, "pairs"), os.path.join(tmp, "styles")
+        folders, scales = write_pair_folders(pairs, (72, 80), 3, seed=18, bad=TINY_IMAGE_BAD)
+        for i, style in enumerate(("0", "1")):
+            write_pair_folders(os.path.join(styles, style), (72, 80), 2, seed=19 + i)
+        with open(os.path.join(tmp, "prompts.yaml"), "w") as f:
+            f.write("- target: eyes\n  positive: big eyes\n  neutral: eyes\n"
+                    "  unconditional: small eyes\n  resolution: 64\n")
+        cfg = {"prompts_file": os.path.join(tmp, "prompts.yaml"),
+               "pretrained_model": {"name_or_path": snap},
+               "network": {"rank": 2, "alpha": 1.0, "training_method": "noxattn"},
+               "train": {"precision": "float32", "iterations": TINY_IMAGE_ITERATIONS,
+                         "lr": TINY_LR, "max_denoising_steps": 5},
+               "save": {"name": "tiny", "per_steps": 2},
+               "logging": {"log_every": 1}, "tpu": {"remat": True}}
+        args = ["--folders", folders, "--scales", scales, "--resolution", str(TINY_IMAGE_PX)]
+        runs = {}
+        for device in ("0", "cpu"):
+            run_cfg = {**cfg, "save": {**cfg["save"], "path": os.path.join(tmp, f"out_{device}")}}
+            runs[device] = run_image_training(run_cfg, os.path.join(tmp, f"{device}.yaml"),
+                                              [*args, "--folder_main", pairs, "--device", device])
+        gpu, cpu = runs["0"], runs["cpu"]
+        style_cfg = {**cfg, "train": {**cfg["train"], "iterations": 2},
+                     "save": {**cfg["save"], "name": "style", "path": os.path.join(tmp, "st")}}
+        style = run_image_training(style_cfg, os.path.join(tmp, "style.yaml"),
+                                   [*args, "--folder_main", styles, "--stylecheck", "1",
+                                    "--device", "0"])
+        style_dir = os.path.join(tmp, "st", "style_alpha1.0_rank2_noxattn")
+        style_files = sorted(os.listdir(style_dir))
+
+    (name,) = gpu["loras"]
+    g_lora, c_lora = gpu["loras"][name], cpu["loras"][name]
+    g_loss = [m["loss"] for _, _, m in gpu["records"]]
+    c_loss = [m["loss"] for _, _, m in cpu["records"]]
+    draws = [(m["t_to"], m["scale"]) for _, _, m in gpu["records"]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    lora_err = max((g_lora[m][k] - c_lora[m][k]).abs().max().item()
+                   for m in c_lora for k in ("down", "up"))
+    n = len(gpu["records"])
+    expected = {"sd": n * (TINY_IMAGE_ROUTED * 2 + 1), "sd_bwd": n * TINY_IMAGE_ROUTED,
+                "flash": 0}
+    got = {k: gpu[k] for k in expected}
+    say("kernel", f"tiny image training {TINY_IMAGE_PX} px f32 through the CLI, {n} "
+        f"iterations ((t_to, scale) {draws}), GPU (launches {got}, expected {expected}) vs CPU "
+        f"(plain): losses {[f'{x:.6g}' for x in g_loss]} vs {[f'{x:.6g}' for x in c_loss]}, max "
+        f"rel err {loss_err:.3g} (tol 1e-5); LoRA max|err| {lora_err:.3g} (tol 1e-6); the "
+        f"reader skipped {len(gpu['warnings'])} / {len(cpu['warnings'])} files with the warning "
+        f"{gpu['warnings'][:1]}")
+    style_names = [f"{s}_style_alpha1.0_rank2_noxattn" for s in ("0", "1")]
+    style_expected = {"sd": 2 * 2 * (TINY_IMAGE_ROUTED * 2 + 1),
+                      "sd_bwd": 2 * 2 * TINY_IMAGE_ROUTED}
+    style_got = {k: style[k] for k in style_expected}
+    say("kernel", f"tiny --stylecheck on 2 style folders (GPU, 2 iterations each): sliders "
+        f"{list(style['loras'])}, files {style_files}, launches {style_got} (expected "
+        f"{style_expected})")
+    if got != expected or style_got != style_expected:
+        raise AssertionError("tiny image training on the GPU did not go through the kernels")
+    if draws != [(m["t_to"], m["scale"]) for _, _, m in cpu["records"]] or n != (
+            TINY_IMAGE_ITERATIONS):
+        raise AssertionError("the GPU and CPU runs did not take the same draws")
+    if not (loss_err <= 1e-5 and lora_err <= 1e-6):
+        raise AssertionError("tiny image training on the GPU disagrees with the CPU")
+    if not (gpu["warnings"] and len(gpu["warnings"]) == len(cpu["warnings"])
+            and all(TINY_IMAGE_BAD in w for w in gpu["warnings"])):
+        raise AssertionError("the truncated file was not skipped with its warning")
+    if list(style["loras"]) != style_names or style_files != sorted(
+            f"{s}_last.safetensors" for s in style_names):
+        raise AssertionError("--stylecheck did not train one slider per style folder")
+    a, b = (style["loras"][s] for s in style_names)
+    if all(torch.equal(a[m]["down"], b[m]["down"]) for m in a):
+        raise AssertionError("the two style folders trained the same slider")
+    return {**got, "style": style_got}
+
+
+def phase_image_train(snap: str, tmp: str, model: str) -> dict:
+    """Image-slider training at full width through the CLI in-process on
+    `snap` (a snapshot with random weights and a VAE): SD1.5 with
+    data/config.yaml's values, or SDXL (`--xl`) with data/config-xl.yaml's
+    (bf16, remat, rank-4 noxattn, AdamW lr 2e-4, DDIM 50), the first prompt
+    set of data/prompts(-xl).yaml, at IMAGE_PX (the CLI's default),
+    IMAGE_TRAIN_ITERATIONS iterations with per_steps 2, on paired folders
+    this phase writes (scales -+1 and -+2, two files each, 5/4 x 9/8 the
+    train size, so the reader resizes), with PyTorch's default TF32 flags.
+    Launches exact per iteration: #1 IMAGE_SD_ROUTED x (1 + remat), #2
+    IMAGE_SD_ROUTED, #4 one (the encode). Every up factor moves from zero,
+    the alphas stay, the saves are the JAX CLI's, `_last` reloads equal.
+    Prints each iteration's host wall, the reader's host seconds and the
+    device ms (CUDA-event spans, idle gaps included) of the encode, the grad
+    pass and the update, and the peak device memory; then the last
+    iteration, traced: its device busy ms by kernel class against its host
+    wall and its spans, and so its idle share; and the reader on one
+    photo-sized PNG (`time_reader_at_photo_size`)."""
+    import torch
+
+    from sliders_tpu_torch.core import yaml_subset
+    from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.models import unet2d
+
+    xl = model == "sdxl"
+    px = IMAGE_PX[model]
+    cfg = yaml_subset.load(os.path.join(REPO, "data", "config-xl.yaml" if xl else "config.yaml"))
+    cfg["prompts_file"] = os.path.join(REPO, "data", "prompts-xl.yaml" if xl else "prompts.yaml")
+    cfg["pretrained_model"]["name_or_path"] = snap
+    cfg["train"]["iterations"] = IMAGE_TRAIN_ITERATIONS[model]
+    cfg["save"].update(path=os.path.join(tmp, f"{model}_image_out"), per_steps=2)
+    cfg["logging"] = {"log_every": 1}
+    pairs = os.path.join(tmp, f"{model}_pairs")
+    folders, scales = write_pair_folders(pairs, (px * 5 // 4, px * 9 // 8), 2, seed=20)
+    say(model, f"image training: config data/{'config-xl' if xl else 'config'}.yaml: train "
+        f"{cfg['train']}; network {cfg['network']}; tpu {cfg['tpu']}; overridden: iterations, "
+        f"save.per_steps, logging.log_every and the paths; {px} px")
+    with tf32_flags(True, False):
+        run = run_image_training(cfg, os.path.join(tmp, f"{model}_image.yaml"),
+                                 ["--folder_main", pairs, "--folders", folders, "--scales", scales,
+                                  "--device", "0", *(["--xl"] if xl else [])], trace_last=True)
+    recs = run["records"]
+    n, routed, remat = len(recs), IMAGE_SD_ROUTED[model], bool(cfg["tpu"]["remat"])
+    expected = {"sd": n * routed * (1 + remat), "sd_bwd": n * routed, "flash": n}
+    got = {k: run[k] for k in expected}
+    ((name, lora),) = run["loras"].items()
+    moved = sum(bool(e["up"].abs().max() > 0) for e in lora.values())
+    alphas = all(e["alpha"].item() == cfg["network"]["alpha"] for e in lora.values())
+    out_dir = os.path.join(cfg["save"]["path"], name)
+    files = sorted(os.listdir(out_dir))
+    expected_files = sorted([f"{name}_last.safetensors"]
+                            + ([f"{name}_2steps.safetensors"] if n - 1 > 2 else []))
+    meta = unet2d.init_params(None, unet2d.SDXL if xl else unet2d.SD15, device="meta")
+    last = lora_io.load_slider(os.path.join(out_dir, f"{name}_last.safetensors"), meta)
+    reloads = set(last) == set(lora) and all(torch.equal(last[m][k], lora[m][k])
+                                             for m in lora for k in ("down", "up", "alpha"))
+    losses = [m["loss"] for _, _, m in recs]
+    say(model, f"image training {px} px: {n} iterations, (t_to, scale) "
+        f"{[(m['t_to'], m['scale']) for _, _, m in recs]}, losses "
+        f"{[f'{x:.6g}' for x in losses]}; launches {got} (expected {expected}: #1 {routed} x (1 + "
+        f"remat), #2 {routed}, #4 1 an iteration); {moved} of {len(lora)} up factors moved, "
+        f"alphas {'unchanged' if alphas else 'CHANGED'}; files {files}, _last reloads "
+        f"{'equal' if reloads else 'DIFFERENT'}; peak device memory {run['peak_gb']:.2f} GB; "
+        f"whole run {run['seconds']:.1f} s including the load")
+    prev = None
+    for i, t_end, m in recs:
+        ph = m["phase_ms"]
+        wall = "" if prev is None else f"host wall {t_end - prev:.3f} s; "
+        say(model, f"image iteration {i}{' (traced)' if i == n - 1 else ''}: {wall}reader "
+            f"{m['read_s']:.3f} s; device ms (event spans): encode {ph['encode']:.2f}, grad "
+            f"{ph['grad']:.2f}, update {ph['update']:.2f}")
+        prev = t_end
+    steady = recs[1:-1]  # the first warms up; the last is traced
+    per_iter = statistics.median(b[1] - a[1] for a, b in zip(recs[:-2], steady))
+    phases = {k: statistics.median(m["phase_ms"][k] for _, _, m in steady)
+              for k in ("encode", "grad", "update")}
+    read_s = statistics.median(m["read_s"] for _, _, m in steady)
+    say(model, f"image training median over iterations 1-{n - 2}: {per_iter:.3f} s an iteration "
+        f"host wall (the reader {read_s:.3f} s of it); device ms (event spans): encode "
+        f"{phases['encode']:.2f}, grad pass {phases['grad']:.2f}, update {phases['update']:.2f}")
+    tr, last_m = run["trace"], recs[-1][2]
+    busy = sum(tr["by_class"].values())
+    spans = sum(last_m["phase_ms"].values())
+    seen = busy > 0  # else the profiler saw no device time: no idle share
+    trace = {"wall_ms": tr["wall_ms"], "busy_ms": busy, "spans_ms": spans,
+             "read_ms": last_m["read_s"] * 1e3,
+             "idle_share": 1 - busy / tr["wall_ms"] if seen else None,
+             "span_idle_share": 1 - busy / spans if seen else None}
+    say(model, f"image iteration {n - 1} traced (profiler on): host wall {tr['wall_ms']:.2f} ms, "
+        f"the reader {trace['read_ms']:.2f} ms of it; event spans {spans:.2f} ms; device busy "
+        f"{busy:.2f} ms: " + ", ".join(f"{c} {ms:.2f}" for c, ms in sorted(
+            tr["by_class"].items(), key=lambda kv: -kv[1]))
+        + (f"; idle share {trace['idle_share'] * 100:.1f}% of the wall, "
+           f"{trace['span_idle_share'] * 100:.1f}% of the spans" if seen else
+           "; the profiler saw no device time: idle share not measured"))
+    photo = time_reader_at_photo_size(tmp, px)
+    say(model, f"reader on one {READER_PHOTO_PX}x{READER_PHOTO_PX} PNG ({photo['mb']:.2f} MB): "
+        f"decode {photo['decode_s']:.3f} s, decode and resize to {px} px {photo['load_s']:.3f} s "
+        f"(host, median of 3; a pair reads two)")
+    if [i for i, _, _ in recs] != list(range(IMAGE_TRAIN_ITERATIONS[model])):
+        raise AssertionError(f"the {model} image run did not take every iteration")
+    if got != expected:
+        raise AssertionError(f"the {model} image training launches {got} are not {expected}")
+    if moved != len(lora) or not alphas or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"the {model} image run's LoRA or losses are wrong")
+    if files != expected_files or not reloads:
+        raise AssertionError(f"the {model} image run saved {files}, expected {expected_files}, "
+                             f"or its _last does not reload equal")
+    return {**got, "peak_gb": run["peak_gb"], "iteration_s": per_iter, "read_s": read_s,
+            "phase_ms": phases, "trace": trace, "reader_photo": photo}
 
 
 def main() -> int:
@@ -3628,6 +4190,8 @@ def main() -> int:
     gn_results = timed("GroupNorm kernel", phase_group_norm_kernel)
     flash_checks, flash_times = timed("kernel #4", phase_flash_kernel)
     flash_bwd = timed("kernel #4 backward", phase_flash_bwd_kernel)
+    encode_rows = timed("kernel #4 at the encode shapes", phase_encode_kernel)
+    encode_ab = timed("VAE encoder 'auto' / 'xla'", phase_encode_ab)
     pin_results = timed("kernel #9", phase_layout_pin_kernel)
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
@@ -3637,6 +4201,7 @@ def main() -> int:
         tiny_flux = timed("tiny FLUX serving", phase_tiny_flux)
         tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
         tiny_xl = timed("tiny SDXL", phase_tiny_sdxl)
+        tiny_image = timed("tiny image training", phase_tiny_image)
         engine = timed("SD1.5 engine", build_engine, tok_dir)
     sd15_decode, sd15_decode_conv = timed("SD1.5 step", phase_step, engine)
     conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
@@ -3702,7 +4267,11 @@ def main() -> int:
                              "flux_train_512": flux["train"][512]["counts"]["sd"],
                              "sdxl_serve_1024": sdxl["http"]["sd"],
                              "sdxl_step_per_forward": sdxl["step"]["sd_per_step"],
-                             "sdxl_train_512": sdxl["train"]["sd"], "tiny_sdxl": tiny_xl["sd"]},
+                             "sdxl_train_512": sdxl["train"]["sd"], "tiny_sdxl": tiny_xl["sd"],
+                             "image_train_256": train["image"]["sd"],
+                             "sdxl_image_train_512": sdxl["image"]["sd"],
+                             "tiny_image_64": tiny_image["sd"],
+                             "tiny_image_stylecheck": tiny_image["style"]["sd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -3723,7 +4292,11 @@ def main() -> int:
                              "train_fused": train["fused_bwd"],
                              "flux_train_512": flux["train"][512]["counts"]["sd_bwd"],
                              "sdxl_train_512": sdxl["train"]["sd_bwd"],
-                             "tiny_sdxl": tiny_xl["sd_bwd"]},
+                             "tiny_sdxl": tiny_xl["sd_bwd"],
+                             "image_train_256": train["image"]["sd_bwd"],
+                             "sdxl_image_train_512": sdxl["image"]["sd_bwd"],
+                             "tiny_image_64": tiny_image["sd_bwd"],
+                             "tiny_image_stylecheck": tiny_image["style"]["sd_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
@@ -3742,15 +4315,21 @@ def main() -> int:
                              "tiny_flux_1280": tiny_flux["flash"], "serve_vae": serve_flash,
                              "flux_train_2048": flux["train"][2048]["counts"]["flash"],
                              "tiny_flux_train_1280": tiny_flux_train["flash"],
-                             "sdxl_serve_1024_vae": sdxl["http"]["flash"]},
+                             "sdxl_serve_1024_vae": sdxl["http"]["flash"],
+                             "image_train_256_encode": train["image"]["flash"],
+                             "sdxl_image_train_512_encode": sdxl["image"]["flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},
-        "max_abs_err": max(r["err"] for r in flash_checks),
+        "max_abs_err": max(r["err"] for r in flash_checks + encode_rows),
         **timing(flash0),
         "sd_attention_ms_same_inputs": flash0["sd_ms"],
         "vae_decode_shapes": [dict(timing(r), shape=r["shape"]) for r in flash_checks
                               if r["shape"] in VAE_DECODE_SHAPES],
+        "vae_encode_shapes": [dict(timing(r), shape=r["shape"], err=r["err"], xla_ms=r["xla_ms"],
+                                   xla_products_ms=r["xla_products_ms"]) for r in encode_rows],
+        "encode_ms_auto_vs_xla": {f"{model}_{IMAGE_PX[model]}": {k: v[k] for k in ("auto", "xla")}
+                                  for model, v in encode_ab.items()},
         "sdpa_shapes": [dict(timing(r), shape=r["shape"], dtype=r["dtype"], plan=r["plan"],
                              **{k: r[k] for k in ("fma_bound_ms", "tf32x3_bound_ms") if k in r})
                         for r in flash_checks

@@ -33,6 +33,12 @@ class DiffusionSchedule:
     num_train_timesteps: int = 1000
     prediction_type: str = "epsilon"
 
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(acp_t) x0 + sqrt(1 - acp_t) noise, at the
+        integer timestep `t` (an int or a (B,) tensor of per-row ones)."""
+        acp = _bcast(self.alphas_cumprod[torch.as_tensor(t, dtype=torch.long)], x0)
+        return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
+
 
 def _bcast(v, like: torch.Tensor) -> torch.Tensor:
     """Cast to like.dtype and right-pad dims so a per-row value broadcasts."""

@@ -1,11 +1,13 @@
-"""AutoencoderKL decoder (the SD VAE) as a function over a parameter dict
-(port of sliders_tpu/models/vae.py).
+"""AutoencoderKL (the SD VAE) as functions over a parameter dict
+(port of sliders_tpu/models/vae.py): `encode` for image-slider training,
+`decode` for serving.
 
 The parameter dict mirrors the diffusers state dict (encoder./decoder./
-quant_conv/post_quant_conv) in torch layouts. `scaling_factor` is applied by
-callers through `denormalize_latents`. Encode comes with the image-slider
-item of ROADMAP queue 1 (item 8); `init_params` still builds the encoder so
-parameter trees match the JAX package's.
+quant_conv/post_quant_conv) in torch layouts. `scaling_factor` (and FLUX's
+`shift_factor`) are applied by callers through `normalize_latents` and
+`denormalize_latents`. Every conv casts its weights to the activation's
+dtype (`ops/basic.conv2d`), so f32 images encode in f32 whatever dtype the
+weights were loaded in.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from sliders_tpu_torch.models.params import ParamFactory
 from sliders_tpu_torch.models.unet2d import upsample_nearest2x
@@ -39,6 +42,11 @@ FLUX_VAE = VaeConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1
 TINY = VaeConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8)
 TINY_FLUX = VaeConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,
                       latent_channels=4, scaling_factor=0.3611, shift_factor=0.1159)
+
+
+def normalize_latents(cfg: VaeConfig, raw: torch.Tensor) -> torch.Tensor:
+    """Posterior sample -> model-space latents: (z - shift) * scale."""
+    return (raw - cfg.shift_factor) * cfg.scaling_factor
 
 
 def denormalize_latents(cfg: VaeConfig, latents: torch.Tensor) -> torch.Tensor:
@@ -72,6 +80,45 @@ def _mid_block(p: dict, x, groups: int):
     x = _resnet(p["resnets"]["0"], x, groups)
     x = _mid_attention(p["attentions"]["0"], x, groups)
     return _resnet(p["resnets"]["1"], x, groups)
+
+
+def encode(params: dict, cfg: VaeConfig, images: torch.Tensor):
+    """images (B, H, W, 3) in [-1, 1], NHWC -> (mean, logvar) of the latent
+    posterior, each (B, H/8, W/8, latent_channels), logvar clipped to
+    [-30, 20]. The stride-2 and 1x1 convs run on cuDNN; under conv impl
+    'auto' the stride-1 3x3 convs take kernel #5, and the mid attention
+    (d = channels) takes kernel #4 from L = 1024 latent pixels."""
+    enc = params["encoder"]
+    g = cfg.norm_num_groups
+    h = conv2d(enc["conv_in"], images, padding=1)
+    n = len(cfg.block_out_channels)
+    for i in range(n):
+        bp = enc["down_blocks"][str(i)]
+        for j in range(cfg.layers_per_block):
+            h = _resnet(bp["resnets"][str(j)], h, g)
+        if i < n - 1:
+            # diffusers VAE downsample: asymmetric (0, 1, 0, 1) pad of H and
+            # W, then a stride-2 conv with no padding
+            h = F.pad(h, (0, 0, 0, 1, 0, 1))
+            h = conv2d(bp["downsamplers"]["0"]["conv"], h, stride=2, padding=0)
+    h = _mid_block(enc["mid_block"], h, g)
+    h = group_norm(enc["conv_norm_out"], h, g, eps=1e-6, silu=True)
+    h = conv2d(enc["conv_out"], h, padding=1)
+    h = conv2d(params["quant_conv"], h, padding=0)
+    mean, logvar = h.chunk(2, dim=-1)
+    return mean, torch.clamp(logvar, -30.0, 20.0)
+
+
+def sample_latents(mean: torch.Tensor, logvar: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean + exp(logvar / 2) * eps, with `eps` given or drawn unit-normal
+    from `generator` (on the generator's device, then moved to mean's)."""
+    if eps is None:
+        device = generator.device if generator is not None else mean.device
+        eps = torch.randn(mean.shape, generator=generator, device=device, dtype=mean.dtype)
+    std = torch.exp(0.5 * logvar)
+    return mean + std * eps.to(device=mean.device, dtype=mean.dtype)
 
 
 def decode(params: dict, cfg: VaeConfig, latents: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Host-side training loops (port of sliders_tpu/training/driver.py, and of
-the loop of sliders_tpu/cli/train_flux_slider.py as `train_flux_sliders`).
+"""Host-side training loops (port of sliders_tpu/training/driver.py, of
+the loop of sliders_tpu/cli/train_flux_slider.py as `train_flux_sliders`,
+and of `train_one` of sliders_tpu/cli/train_image_slider.py as
+`train_image_sliders`).
 
 The reference `train()` loop (train_lora.py:32-340) around one step
 function, with the JAX package's additions and observable behaviour: the
@@ -19,6 +21,7 @@ compute (item 2: the attention kernels take bf16 and f32).
 from __future__ import annotations
 
 import json
+import math
 import time
 from pathlib import Path
 from typing import Optional
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from sliders_tpu_torch.core.config import RootConfig, to_dict
+from sliders_tpu_torch.data.paired_images import PairedImageFolders
 from sliders_tpu_torch.diffusion.schedulers import (
     make_flowmatch_sampler,
     make_sampler,
@@ -40,6 +44,7 @@ from sliders_tpu_torch.pipelines.flux_t2i import encode_prompts_flux
 from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training import optimizers as opt_factory
 from sliders_tpu_torch.training.flux_slider import ROLES, make_flux_slider_step
+from sliders_tpu_torch.training.image_slider import make_image_slider_step
 from sliders_tpu_torch.training.text_slider import (
     SliderTrainState,
     make_text_slider_step,
@@ -151,6 +156,46 @@ def compute_dtype_of(config: RootConfig) -> torch.dtype:
                                                                     torch.float32)
 
 
+def _slider_optimizer(config: RootConfig, trainable_mask: dict):
+    """The config's optimizer over its LR schedule, as every training CLI builds it."""
+    return opt_factory.make_optimizer(
+        config.train.optimizer,
+        opt_factory.make_lr_schedule(config.train.lr_scheduler, config.train.lr,
+                                     config.train.iterations),
+        opt_factory.parse_optimizer_args(config.train.optimizer_args),
+        trainable_mask=trainable_mask,
+    )
+
+
+def _unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) -> dict:
+    """The UNet's slider LoRA drawn on the CPU from seed + 1 (master
+    weights in f32; the compute casts), moved to `device`."""
+    lora = lnet.create_slider_network(
+        torch.Generator().manual_seed(seed + 1), models.unet_params,
+        rank=config.network.rank, alpha=config.network.alpha,
+        train_method=config.network.training_method, network_type=config.network.type,
+        dtype=torch.float32, **init,
+    )
+    print(f"create LoRA for U-Net: {len(lora)} modules.")
+    return {m: {k: t.to(device) for k, t in e.items()} for m, e in lora.items()}
+
+
+def _note_steps_per_call(config: RootConfig) -> None:
+    if config.tpu.steps_per_call > 1:
+        print("tpu.steps_per_call has no effect here: an eager step dispatches once per iteration")
+
+
+def _save_due(sj: int, per_steps: int, iterations: int) -> bool:
+    """The SD CLIs' `{name}_{i}steps` rule: every `per_steps` (> 0)
+    iterations, never at the first or the last."""
+    return (per_steps or 0) > 0 and sj % per_steps == 0 and sj not in (
+        0, iterations - 1)
+
+
+def _cpu_lora(lora: dict) -> dict:
+    return {m: {k: t.detach().cpu() for k, t in e.items()} for m, e in lora.items()}
+
+
 def train_text_sliders(
     config: RootConfig,
     prompts: list,
@@ -182,22 +227,8 @@ def train_text_sliders(
     sampler = make_sampler(schedule, config.train.noise_scheduler,
                            config.train.max_denoising_steps)
 
-    lora = lnet.create_slider_network(
-        torch.Generator().manual_seed(seed + 1), models.unet_params,
-        rank=config.network.rank, alpha=config.network.alpha,
-        train_method=config.network.training_method, network_type=config.network.type,
-        dtype=torch.float32,  # master LoRA weights in f32; the compute casts
-    )
-    lora = {m: {k: t.to(device) for k, t in e.items()} for m, e in lora.items()}
-    print(f"create LoRA for U-Net: {len(lora)} modules.")
-
-    lr_schedule = opt_factory.make_lr_schedule(
-        config.train.lr_scheduler, config.train.lr, config.train.iterations)
-    optimizer = opt_factory.make_optimizer(
-        config.train.optimizer, lr_schedule,
-        opt_factory.parse_optimizer_args(config.train.optimizer_args),
-        trainable_mask=lnet.trainable_mask(lora),
-    )
+    lora = _unet_lora(config, models, seed, device)
+    optimizer = _slider_optimizer(config, lnet.trainable_mask(lora))
 
     steps: dict = {}
     bucket_pairs: dict = {}
@@ -225,8 +256,7 @@ def train_text_sliders(
     save_dir.mkdir(parents=True, exist_ok=True)
     with open(save_dir / f"{config.save.name}_metadata.json", "w") as f:
         json.dump(metadata, f, indent=2)
-    if tpu.steps_per_call > 1:
-        print("tpu.steps_per_call has no effect here: an eager step dispatches once per iteration")
+    _note_steps_per_call(config)
 
     bucket_keys = list(buckets.keys())
     host_rng = np.random.default_rng(seed)
@@ -254,9 +284,7 @@ def train_text_sliders(
         if on_step is not None:
             on_step(sj, state, m)
 
-        if (config.save.per_steps and config.save.per_steps > 0
-                and sj % config.save.per_steps == 0 and sj != 0
-                and sj != config.train.iterations - 1):
+        if _save_due(sj, config.save.per_steps, config.train.iterations):
             print("Saving...")
             lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"),
                                 state.lora, dtype=save_dtype)
@@ -267,7 +295,7 @@ def train_text_sliders(
     lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora,
                         dtype=save_dtype)
     print("Done.")
-    return {m: {k: t.detach().cpu() for k, t in e.items()} for m, e in state.lora.items()}
+    return _cpu_lora(state.lora)
 
 
 def train_flux_sliders(
@@ -307,13 +335,7 @@ def train_flux_sliders(
                 for m, e in lora.items()}
     print(f"create LoRA for transformer: {len(lora)} modules (ortho_up={ortho}).")
     mask = lnet.trainable_mask(lora, ortho_up=ortho)
-    optimizer = opt_factory.make_optimizer(
-        config.train.optimizer,
-        opt_factory.make_lr_schedule(config.train.lr_scheduler, config.train.lr,
-                                     config.train.iterations),
-        opt_factory.parse_optimizer_args(config.train.optimizer_args),
-        trainable_mask=mask,
-    )
+    optimizer = _slider_optimizer(config, mask)
     resolution = prompts[0].resolution
     sampler = make_flowmatch_sampler(num_steps=config.train.max_denoising_steps,
                                      image_seq_len=((resolution // 8) // 2) ** 2)
@@ -353,4 +375,90 @@ def train_flux_sliders(
             lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"), state.lora)
     lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
     print("Done.")
-    return {m: {k: t.detach().cpu() for k, t in e.items()} for m, e in state.lora.items()}
+    return _cpu_lora(state.lora)
+
+
+def to_u8(images: np.ndarray) -> np.ndarray:
+    """Reader floats in [-1, 1] -> uint8, rounded half up, as the JAX CLI
+    quantises them before the step normalises them back on the device."""
+    return np.clip((np.asarray(images, np.float32) + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
+
+
+def train_image_sliders(
+    config: RootConfig,
+    prompts: list,
+    models: SDModels,
+    folder_main: str,
+    folders: list,
+    scales: list,
+    resolution: int,
+    *,
+    seed: int = 0,
+    on_step=None,
+) -> dict:
+    """The image-slider loop of the JAX package's train_image_slider CLI
+    (`train_one`) on the device of the UNet's parameters: the first prompt
+    set's positive and neutral embeddings (encoded once), a LoRA with the
+    image sliders' kaiming a = sqrt(5) down-init drawn from seed + 1, one
+    paired-folder draw from `numpy.random.default_rng(seed)` and one step
+    call per iteration, `{name}_{i}steps` saves at the JAX CLI's steps, then
+    `{name}_last`. Returns the final LoRA on the CPU; `on_step(step, state,
+    metrics)` is called after every iteration, the step's metrics with
+    `read_s`, the host seconds of the pair's decode and resize."""
+    _refuse_unported(config)
+    if models.vae_params is None:
+        raise ValueError("image sliders encode their images: load the models with load_vae=True")
+    device = _param_device(models.unet_params)
+    dataset = PairedImageFolders(folder_main, folders, scales)
+    cache = PromptEmbedsCache(models)
+    settings = prompts[0]  # the reference samples one prompt set per run
+
+    schedule = make_schedule(
+        prediction_type="v_prediction" if config.pretrained_model.v_pred else "epsilon")
+    sampler = make_sampler(schedule, config.train.noise_scheduler,
+                           config.train.max_denoising_steps)
+    # image sliders use kaiming a = sqrt(5) down-init (imagesliders/lora.py:96)
+    lora = _unet_lora(config, models, seed, device, init_a=math.sqrt(5))
+    optimizer = _slider_optimizer(config, lnet.trainable_mask(lora))
+    _note_steps_per_call(config)
+    step = make_image_slider_step(
+        models.unet_config, models.vae_config, schedule, sampler, optimizer,
+        max_denoising_steps=config.train.max_denoising_steps,
+        compute_dtype=compute_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl,
+    )
+    state = SliderTrainState.create(seed, lora, optimizer)
+
+    batch_static = {}
+    for role, prompt in (("positive", settings.positive), ("neutral", settings.neutral)):
+        if models.is_xl:
+            batch_static[role], batch_static[f"pooled_{role}"] = cache[prompt]
+        else:
+            batch_static[role] = cache[prompt]
+    if models.is_xl:
+        batch_static["time_ids"] = get_add_time_ids(resolution, resolution)[0].to(device)
+
+    host_rng = np.random.default_rng(seed)
+    save_dir = Path(config.save.path)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    ext = ".safetensors" if config.save.format == "safetensors" else ".pt"
+    iterations, per = config.train.iterations, config.save.per_steps
+    for sj in range(iterations):
+        t_read = time.perf_counter()
+        s, lo, hi = dataset.sample_pair(host_rng, resolution)
+        read_s = time.perf_counter() - t_read
+        batch = dict(batch_static, scale=s,
+                     images_low=torch.from_numpy(to_u8(lo)[None]).to(device),
+                     images_high=torch.from_numpy(to_u8(hi)[None]).to(device))
+        state, m = step(state, models.unet_params, models.vae_params, batch)
+        m["read_s"] = read_s  # the host's decode and resize of the pair
+        if sj % config.logging.log_every == 0:
+            print(f"step {sj}: loss*1k={m['loss'] * 1000:.4f} scale={m['scale']}")
+        if on_step is not None:
+            on_step(sj, state, m)
+        if _save_due(sj, per, iterations):
+            print("Saving...")
+            lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"), state.lora)
+    print("Saving...")
+    lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
+    print("Done.")
+    return _cpu_lora(state.lora)

@@ -83,14 +83,43 @@ def stack_prompt_pairs(pairs: list) -> dict:
     return {k: torch.stack([torch.as_tensor(p[k]) for p in pairs]) for k in pairs[0]}
 
 
+def draw_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of iteration `step`'s draws, seeded from (seed,
+    step), so every device and every resumed run draws the same."""
+    return torch.Generator().manual_seed(((seed % 2**32) << 32) | (step % 2**32))
+
+
+def lora_leaves(lora: dict) -> dict:
+    """The LoRA's tensors as fresh leaves that the grad pass differentiates."""
+    return {m: {k: t.detach().requires_grad_() for k, t in e.items()} for m, e in lora.items()}
+
+
+def backward_and_update(state: SliderTrainState, optimizer: SliderOptimizer,
+                        loss: torch.Tensor, leaves: dict, timer: _PhaseTimer) -> torch.Tensor:
+    """The gradient of `loss` with respect to `leaves` (zeros for a leaf the
+    loss does not reach), then the optimizer's in-place update of
+    `state.lora` and `state.step + 1`; marks the timer's "grad" and
+    "update" phases and returns the gradient's global norm."""
+    flat = [t for e in leaves.values() for t in e.values()]
+    flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    flat_grads = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, flat_grads)]
+    it = iter(flat_grads)
+    grads = {m: {k: next(it) for k in e} for m, e in leaves.items()}
+    timer.mark("grad")
+    optimizer.update(state.lora, grads, state.opt_state)
+    state.step += 1
+    grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in flat_grads))
+    timer.mark("update")
+    return grad_norm
+
+
 def step_draws(seed: int, step: int, n_pairs: int, max_denoising_steps: int,
                latent_shape: tuple, init_noise_sigma: float, crop: bool = False):
-    """(pair index, t_to, latents) of iteration `step`: a CPU generator
-    seeded from (seed, step), so every device and every resumed run draws
-    the same. With `crop` (SDXL), a fourth entry follows, drawn last: (scale
-    in [1, 3), u_top, u_left), the uniforms of a dynamic crop
-    (`get_add_time_ids`)."""
-    gen = torch.Generator().manual_seed(((seed % 2**32) << 32) | (step % 2**32))
+    """(pair index, t_to, latents) of iteration `step`, from
+    `draw_generator(seed, step)`. With `crop` (SDXL), a fourth entry
+    follows, drawn last: (scale in [1, 3), u_top, u_left), the uniforms of a
+    dynamic crop (`get_add_time_ids`)."""
+    gen = draw_generator(seed, step)
     pair_idx = int(torch.randint(n_pairs, (1,), generator=gen))
     t_to = int(torch.randint(1, max_denoising_steps, (1,), generator=gen))
     latents = torch.randn(latent_shape, generator=gen) * init_noise_sigma
@@ -234,23 +263,12 @@ def make_text_slider_step(
             timer.mark("frozen")
 
         # 5 + 6. grad pass on the target prompt, slider ON
-        leaves = {m: {k: t.detach().requires_grad_() for k, t in e.items()}
-                  for m, e in state.lora.items()}
+        leaves = lora_leaves(state.lora)
         eps_t = unet(unet_params, x_scaled, t_cur, rep(pair["target"]), added_from(pair, "target"),
                      lora=SliderLora(weights=leaves, multiplier=1.0)).float()
         diff = eps_t - goal
         loss = torch.mean(diff * diff)
-        flat = [t for e in leaves.values() for t in e.values()]
-        flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        flat_grads = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, flat_grads)]
-        it = iter(flat_grads)
-        grads = {m: {k: next(it) for k in e} for m, e in leaves.items()}
-        timer.mark("grad")
-
-        optimizer.update(state.lora, grads, state.opt_state)
-        state.step += 1
-        grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in flat_grads))
-        timer.mark("update")
+        grad_norm = backward_and_update(state, optimizer, loss, leaves, timer)
         metrics = {"loss": loss.item(), "t_to": t_to, "pair": idx,
                    "grad_norm": grad_norm.item(), "phase_ms": timer.phase_ms()}
         return state, metrics

@@ -285,9 +285,11 @@ def test_port_runs_without_jax(snapshot, flux_snapshot, xl_snapshot, tmp_path):
     latents are 8x8, so no resnet passes the gate and the plain path runs),
     then the FLUX and SDXL engines built by `cli/serve.py --flux` and `--xl`
     (`--device cpu`) each serving one request over HTTP, and the FLUX and
-    SDXL training CLIs, with jax, flax, optax, pydantic, PyYAML and
-    safetensors made unimportable (the card's machine has none of them), and
-    the JAX package too (the port shares no module with it)."""
+    SDXL training CLIs, and the image-slider CLI (SD and `--xl`) on PNG
+    folders the port writes and reads itself, with jax, flax, optax,
+    pydantic, PyYAML, safetensors and PIL made unimportable (the card's
+    machine has none of them), and the JAX package too (the port shares no
+    module with it)."""
     (tmp_path / "prompts.yaml").write_text("- target: person\n  positive: old person\n"
                                            "  action: enhance\n  resolution: 64\n")
     (tmp_path / "config.yaml").write_text(
@@ -309,9 +311,16 @@ def test_port_runs_without_jax(snapshot, flux_snapshot, xl_snapshot, tmp_path):
         "network:\n  rank: 2\n  training_method: noxattn\n"
         "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
         f"save:\n  name: x\n  path: {tmp_path / 'xl_out'}\n")
+    for name, snap in (("image", snapshot), ("image_xl", xl_snapshot)):
+        (tmp_path / f"{name}.yaml").write_text(
+            f"prompts_file: {tmp_path / 'prompts.yaml'}\n"
+            f"pretrained_model:\n  name_or_path: {snap}\n"
+            "network:\n  rank: 2\n  training_method: noxattn\n"
+            "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 5\n"
+            f"save:\n  name: {name}\n  path: {tmp_path / 'image_out'}\n")
     code = f"""
-import sys
-banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "sliders_tpu")
+import os, sys
+banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "PIL", "sliders_tpu")
 for name in [m for m in sys.modules if m.split(".")[0] in banned]:
     del sys.modules[name]
 for name in banned:
@@ -374,6 +383,22 @@ engine.close(timeout=60)
 xl = cli.main(cli.build_parser().parse_args(
     ["--config_file", {str(tmp_path / "xl.yaml")!r}, "--device", "cpu", "--xl"]))
 assert all(torch.isfinite(t).all() for e in xl.values() for t in e.values())
+import numpy as np
+from sliders_tpu_torch.cli import train_image_slider as icli
+from sliders_tpu_torch.serving.server import encode_png
+pairs = {str(tmp_path / "pairs")!r}
+for folder, val in (("low", 40), ("high", 200)):
+    os.makedirs(os.path.join(pairs, folder))
+    for n in ("a.png", "b.png"):
+        with open(os.path.join(pairs, folder, n), "wb") as f:
+            f.write(encode_png(np.full((40, 36, 3), val, np.uint8)))
+for name, xl in (("image", []), ("image_xl", ["--xl"])):
+    out = icli.main(icli.build_parser().parse_args(
+        ["--config_file", os.path.join({str(tmp_path)!r}, name + ".yaml"), "--device", "cpu",
+         "--folder_main", pairs, "--folders", "low, high", "--scales", "-1, 1",
+         "--resolution", "32", *xl]))
+    (lora,) = out.values()
+    assert all(torch.isfinite(t).all() for e in lora.values() for t in e.values())
 from sliders_tpu_torch.cli import train_flux_slider as fcli
 lora = fcli.main(fcli.build_parser().parse_args(
     ["--config_file", {str(tmp_path / "flux.yaml")!r}, "--device", "cpu", "--t5_len", "16"]))
