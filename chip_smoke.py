@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD1.5 slider serving and slider training (text
-and image sliders), its FLUX-dev slider serving and slider training, and
-its SDXL-base slider serving and slider training (text and image sliders),
-once on one NVIDIA GPU, under the default conv route and the three
+"""Drive the PyTorch port's SD1.5 slider serving, slider training (text
+and image sliders) and offline sampling (`generate_images`), its FLUX-dev
+slider serving, slider training and scalar-scale sampling, and its
+SDXL-base slider serving, slider training (text and image sliders) and
+SDXL-Turbo sampling, once on one NVIDIA GPU, under the default conv route and the three
 conv-kernel routes of `ops.basic.set_conv_impl`, and with the layout pin
 (`ops.basic.set_layout_pin`) off and on.
 
@@ -91,7 +92,18 @@ with its seconds and the seconds since the start:
      `cli/train_image_slider.py` at 256 px for 4 iterations (#1 10, #2 5
      and #4 1 an iteration), its time per iteration (the PNG reader's
      host seconds beside) and device ms of the encode, the grad pass and the
-     update, and its peak memory.
+     update, and its peak memory; then offline sampling on the same
+     snapshot ("generate sd15"): `cli/generate_images.py` in-process with a
+     1-row CSV, --scales=-2,-1,0,1,2, 512 px, bf16, DDIM 50 and a rank-4
+     noxattn slider the phase saves (#1 10 x 50 = 500 launches at (10, 8,
+     4096, 40) / (10, 8, 1024, 80), #4 one 5-row decode at (5, 1, 4096,
+     512)), then --scheduler lms, euler_a and ddpm at 10 steps and
+     --compose a:1 --compose b:-1 (sweep 0, 1; 10 steps) (#1 100, #4 1
+     each); folders, files and distinct images checked, each CSV row's wall
+     and the peak memory printed; then the SD1 example's scalar merged-delta
+     path against the per-row path (LMS 10 steps, scale 1, the same
+     latents): f32 with TF32 off within GENERATE_F32_REL of max|x|, bf16
+     printed.
   7. flux:   FLUX-dev at full width and depth (transformer, T5-XXL encoder,
      CLIP-L, FLUX VAE) in bf16 with seeded random weights and two rank-4
      xattn sliders; one transformer step at bucket 8, 1024 px, timed and
@@ -109,7 +121,11 @@ with its seconds and the seconds since the start:
      iteration; iteration 1 under torch.profiler) and 1 at 2048 px (#4 57 x
      (t_to + 3) and its backward 57), each iteration's host wall and device
      ms by phase, the peak memory, every down moved and every up and alpha
-     bit for bit as initialised.
+     bit for bit as initialised. Then "flux scalar": the FLUX example's
+     scalar-scale call at 1024 px, 2 steps (merged deltas) against the same
+     call with the scale as a (1,) vector (the per-row branch) and at scale
+     0: #1 57 x 2 x 3 launches, max|err| of the latents beside the slider's
+     effect, the peak memory.
   8. sdxl:   SDXL-base at full width (UNet 2,567,463,684 parameters, CLIP-L,
      bigG with its projection, the SDXL VAE) in bf16 with seeded random
      weights and a rank-4 noxattn slider: one denoise step at bucket 8 (16
@@ -125,7 +141,14 @@ with its seconds and the seconds since the start:
      iteration), every down and up moved, host wall and device ms by phase,
      peak memory; then image-slider training with --xl on the same snapshot
      (its VAE too) at 512 px for 3 iterations, pin off (#1 20, #2 10, #4 1
-     an iteration), timed as SD1.5's.
+     an iteration), timed as SD1.5's; then "turbo sdxl" on the same
+     snapshot: `generate_images --xl --scheduler euler_a --ddim_steps 3
+     --guidance_scale 1 --start_noise 700 --image_size 512`, 5 scales (no
+     CFG: #1 10 x 3 at (5, 10, 1024, 64), #4 one 5-row decode at (5, 1,
+     4096, 512)); then an SDXL SliderEngine with scheduler 'euler_a' (3
+     steps, 512 px) behind HTTP: a 16-scale request and, queued together
+     behind it, two with one seed: three batches (no coalescing) and the
+     two replies' PNG bytes equal.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
 no such line. It needs a CUDA device and the rest of the repository beside
@@ -164,6 +187,7 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubl
     ((2, 8, 1024, 128), "bfloat16", False),
     ((2, 24, 4608, 128), "bfloat16", False),  # FLUX's joint attention at 1024 px, 2 of 8 rows
     ((2, 8, 1024, 40), "bfloat16", False),  # SD1.5 image training's grad pass at 256 px
+    ((5, 10, 1024, 64), "bfloat16", False),  # SDXL-Turbo at 512 px: 5 scales, no CFG rows
     # --precision float32 (3xTF32): the CFG-doubled denoise of SD1.5's two
     # levels and SDXL's d = 64 at 512 px, and FLUX's joint attention at
     # 1024 px on head views of (B, L, 3072)
@@ -276,7 +300,8 @@ FLUX_STEPS = {1024: 4, 2048: 2}
 # FLUX run) and at 1536 px (all 24 heads, where f32 first routes to #4), d =
 # 256 at a test shape and at one that fills the card in both dtypes, and the
 # VAE's single-head mid attention (d = 512, f32) at the decode shapes of
-# SD1.5 at 512 px (bucket 8) and FLUX at 1024 px (bucket 8) and 2048 px;
+# SD1.5 at 512 px (bucket 8) and FLUX at 1024 px (bucket 8) and 2048 px,
+# and a 5-row decode at 512 px (generate_images' and SDXL-Turbo's sweep);
 # every call must launch on the plan of its (dtype, d) (`fwd_plan`)
 FLASH_SHAPES = [
     ((1, 2, 16896, 128), "bfloat16"), ((2, 24, 4608, 128), "bfloat16"),
@@ -285,6 +310,7 @@ FLASH_SHAPES = [
     ((1, 2, 2048, 256), "float32"), ((1, 16, 4096, 256), "float32"),
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
+    ((5, 1, 4096, 512), "float32"),  # a 5-row decode at 512 px (generate_images, Turbo)
 ]
 # FLUX's and SDXL's VAE decode at 1024 px (bucket 8): #4's plain version and
 # SDPA in f32 are timed there, and at SD1.5's decode at 512 px (bucket 8)
@@ -375,6 +401,17 @@ SCALE_FOLDERS = ("verylow", "low", "high", "veryhigh")  # the CLI's default fold
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 outside
 # them (plain FMAs), TF32 tensor cores, device memory
+# offline sampling (phase_generate, phase_turbo, phase_flux_scalar): the
+# non-DDIM generate_images runs' steps, the f32 merged-against-branch limit
+# (of max|x|; the two round W + delta and the branch output apart), SDXL-
+# Turbo's steps, the engine's request (a) (the largest bucket, so (b) and (c)
+# queue behind it) and the FLUX scalar call's steps
+GENERATE_STEPS = 10
+GENERATE_F32_REL = 1e-5
+TURBO_STEPS = 3
+TURBO_A_SCALES = [float(s) for s in range(-8, 8)]
+FLUX_SCALAR_STEPS = 2
+GENERATE_RUNS = ("ddim", "lms", "euler_a", "ddpm", "compose")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
@@ -2661,6 +2698,9 @@ def phase_train():
         gc.collect()
         torch.cuda.empty_cache()
         image = timed("SD1.5 image training", phase_image_train, snap, tmp, "sd15")
+        gc.collect()
+        torch.cuda.empty_cache()
+        generate = timed("generate sd15", phase_generate, snap, tmp)
 
     # time per iteration, past the first (which includes cuBLAS/cuDNN set-up)
     steady = recs[1:]
@@ -2683,7 +2723,8 @@ def phase_train():
         f"{fused['peak_gb']:.2f} GB")
     return {"fwd": run["fwd"], "bwd": run["bwd"], "resume_fwd": resumed["fwd"],
             "resume_bwd": resumed["bwd"], "fused_fwd": fused["fwd"], "fused_bwd": fused["bwd"],
-            "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image}
+            "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image,
+            "generate": generate}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -3041,12 +3082,16 @@ def phase_flux(tmp: str) -> dict:
     served = timed("flux serving 1024 px", phase_flux_http, engine)
     torch.cuda.empty_cache()
     big = timed("flux serving 2048 px", phase_flux_2048, engine.models, engine.sliders)
-    models = engine.models
+    models, slider = engine.models, engine.sliders["s1"]
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     train = timed("flux training", phase_flux_train, models, tmp)
-    return {"step": step, "serve_1024": served, "serve_2048": big, "train": train}
+    gc.collect()
+    torch.cuda.empty_cache()
+    scalar = timed("flux scalar", phase_flux_scalar, models, slider)
+    return {"step": step, "serve_1024": served, "serve_2048": big, "train": train,
+            "scalar": scalar}
 
 
 # ---------------------------------------------------------------------------
@@ -3658,7 +3703,11 @@ def phase_sdxl(tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     image = timed("SDXL image training", phase_image_train, snap, tmp, "sdxl")
-    return {"step": step, "conv": conv, "http": http, "train": train, "image": image}
+    gc.collect()
+    torch.cuda.empty_cache()
+    turbo = timed("turbo sdxl", phase_turbo, snap, tmp)
+    return {"step": step, "conv": conv, "http": http, "train": train, "image": image,
+            "turbo": turbo}
 
 
 @contextlib.contextmanager
@@ -4169,6 +4218,323 @@ def phase_image_train(snap: str, tmp: str, model: str) -> dict:
             "phase_ms": phases, "trace": trace, "reader_photo": photo}
 
 
+# ---------------------------------------------------------------------------
+# offline slider sampling: generate_images, SDXL-Turbo, the scalar path
+# ---------------------------------------------------------------------------
+
+
+def sampling_counts() -> tuple:
+    """(#1, #4) launches since the last `reset_flux_counts`."""
+    counts = flux_counts()
+    return counts["sd"], counts["flash"]
+
+
+def load_example(name: str):
+    """An example script of examples/ as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "examples",
+                                                                     name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def save_random_slider(path: str, unet_cfg, seed: int, rank: int = 4) -> dict:
+    """A rank-`rank` noxattn slider with nonzero up (0.05 x normal) for the
+    module paths of `unet_cfg`, saved to `path` (CPU, f32)."""
+    import torch
+
+    from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import unet2d
+
+    gen = torch.Generator().manual_seed(seed)
+    w = create_slider_network(gen, unet2d.init_params(None, unet_cfg, device="meta"), rank=rank,
+                              alpha=1.0, train_method="noxattn")
+    for e in w.values():
+        e["up"] = torch.randn(e["up"].shape, generator=gen) * 0.05
+    lora_io.save_slider(path, w)
+    return w
+
+
+def run_generate(tag: str, snap: str, out: str, csv_path: str, slider_args: list, scales: list,
+                 extra: list, routed: int, steps: int, px: int) -> dict:
+    """`cli/generate_images.py` in-process at `px` for one CSV row: the
+    folders and files of the scorers' layout, PNGs that decode to distinct
+    images across the scales and an all/ grid of their width; launches
+    exact: #1 `routed` x `steps` (one denoise), #4 one per decode call."""
+    import torch
+
+    from sliders_tpu_torch.cli import generate_images as gcli
+    from sliders_tpu_torch.serving.server import decode_rows_for
+
+    argv = ["--base", snap, "--prompts_path", csv_path, "--save_path", out,
+            f"--scales={','.join(str(s) for s in scales)}", "--image_size", str(px),
+            "--ddim_steps", str(steps), "--device", "0", *slider_args, *extra]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flux_counts()
+    t0 = time.perf_counter()
+    res = gcli.main(gcli.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = sampling_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = (routed * steps, -(-len(scales) // decode_rows_for(px)))
+    (folder,) = res["folders"]
+    (case, row_s), = res["cases"]
+    names = [gcli.scale_folder_name(float(s)) for s in scales]
+    if sorted(os.listdir(folder)) != sorted(names + ["all"]):
+        raise AssertionError(f"{tag}: folders {sorted(os.listdir(folder))}")
+    pixels = []
+    for sub in names + ["all"]:
+        if os.listdir(os.path.join(folder, sub)) != [f"{case}_0.png"]:
+            raise AssertionError(f"{tag}: {sub}/ holds {os.listdir(os.path.join(folder, sub))}")
+        with open(os.path.join(folder, sub, f"{case}_0.png"), "rb") as f:
+            w, h, px_bytes = png_pixels(f.read())
+        if (w, h) != ((len(scales) if sub == "all" else 1) * px, px):
+            raise AssertionError(f"{tag}: {sub}/{case}_0.png is {w}x{h}")
+        if sub != "all":
+            pixels.append(px_bytes)
+    say("generate", f"{tag}: {len(scales)} scales at {px} px, {steps} steps, "
+        f"{' '.join(extra) or 'ddim, guidance 7.5'}: {wall:.2f} s the call with the model "
+        f"load, {row_s:.3f} s the CSV row (encode, denoise, decode, PNGs); launches (#1, #4) "
+        f"{counts} (expected {expected}); {len(set(pixels))} distinct images; peak device "
+        f"memory {peak:.2f} GB; folders {sorted(os.listdir(folder))}")
+    if counts != expected:
+        raise AssertionError(f"{tag}: launches {counts}, not {expected}")
+    if len(set(pixels)) != len(scales):
+        raise AssertionError(f"{tag}: the images are not distinct across the scales")
+    return {"sd": counts[0], "flash": counts[1], "row_s": row_s, "wall_s": wall,
+            "peak_gb": peak}
+
+
+def merged_vs_branch(models, weights, prompt: str, steps: int, dtype) -> dict:
+    """The SD1 example's scalar merged-delta path (`sweep_latents`, scale 1,
+    LMS `steps`) against the per-row branch (a (1,) scale vector) on the
+    same latents: max|err| of the final latents and their max|x|."""
+    import torch
+
+    from sliders_tpu_torch.diffusion import make_sampler, make_schedule
+    from sliders_tpu_torch.pipelines import text2image as t2i
+    from sliders_tpu_torch.pipelines.encoding import encode_prompts
+
+    example = load_example("sd1_slider_inference_torch")
+    (merged,) = example.sweep_latents(models, weights, prompt, [1.0], scheduler="lms",
+                                      steps=steps, start_noise=750.0, guidance=7.5, size=512,
+                                      seed=0, dtype=dtype)
+    sampler = make_sampler(make_schedule(), "lms", steps)
+    fn = t2i.make_sampling_fn(models.unet_config, sampler, compute_dtype=dtype)
+    te = models.text_encoders[0]
+    cond = encode_prompts(te.tokenizer, te.params, te.config, [prompt])
+    uncond = encode_prompts(te.tokenizer, te.params, te.config, [""])
+    lats = t2i.initial_latents(torch.Generator().manual_seed(0), 1, 512, 512,
+                               sampler.init_noise_sigma)
+    branch = fn(models.unet_params, lats.to(cond.device), cond, uncond, weights,
+                torch.ones(1), 750.0, 7.5)
+    merged, branch = merged.float(), branch.float()
+    if not (torch.isfinite(merged).all() and torch.isfinite(branch).all()):
+        raise AssertionError("the merged or the per-row latents are not finite")
+    return {"err": float((merged - branch).abs().max()), "max": float(branch.abs().max())}
+
+
+def phase_generate(snap: str, tmp: str) -> dict:
+    """`generate_images` on the full-width SD1.5 snapshot of `phase_train`
+    with a rank-4 noxattn slider it saves: 1 CSV row, --scales=-2,-1,0,1,2,
+    512 px, bf16, DDIM 50 (#1 10 x 50, #4 1); then --scheduler lms, euler_a
+    and ddpm at 10 steps (#1 10 x 10 each) and --compose a:1 --compose b:-1
+    (sweep 0, 1; 10 steps). Then the scalar merged path (the SD1 example's)
+    against the per-row path, LMS 10 steps at scale 1 on the same latents,
+    in f32 with TF32 off (held to GENERATE_F32_REL of max|x|) and in bf16
+    (printed)."""
+    import torch
+
+    from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.models import loader, unet2d
+    from sliders_tpu_torch.models.params import tree_to
+
+    gen_dir = os.path.join(tmp, "generate")
+    os.makedirs(gen_dir)
+    csv_path = os.path.join(gen_dir, "prompts.csv")
+    with open(csv_path, "w") as f:
+        f.write('case_number,prompt,evaluation_seed\n0,"a photo of a person, smiling",1\n')
+    a = os.path.join(gen_dir, "age_alpha1.0_rank4_noxattn_last.safetensors")
+    b = os.path.join(gen_dir, "eyes_alpha1.0_rank4_noxattn_last.safetensors")
+    save_random_slider(a, unet2d.SD15, 50)
+    save_random_slider(b, unet2d.SD15, 51)
+    out = os.path.join(gen_dir, "out")
+    # one CFG-doubled UNet forward a step: ROUTED_PER_FORWARD launches of #1
+    runs = {"ddim": run_generate("sd15 ddim", snap, out, csv_path, ["--model_name", a], SWEEP,
+                                 [], ROUTED_PER_FORWARD, STEPS, 512)}
+    for kind in ("lms", "euler_a", "ddpm"):
+        runs[kind] = run_generate(f"sd15 {kind}", snap, out, csv_path, ["--model_name", a], SWEEP,
+                                  ["--scheduler", kind], ROUTED_PER_FORWARD, GENERATE_STEPS, 512)
+    runs["compose"] = run_generate("sd15 compose", snap, out, csv_path,
+                                   ["--compose", f"{a}:1", "--compose", f"{b}:-1"], [0, 1], [],
+                                   ROUTED_PER_FORWARD, GENERATE_STEPS, 512)
+    with tf32_flags(False, False):
+        f32 = loader.load_sd(snap, device="cuda", dtype=torch.float32, load_vae=False)
+        w = tree_to(lora_io.load_slider(a, f32.unet_params), "cuda")
+        e32 = merged_vs_branch(f32, w, "a photo of a person, smiling", GENERATE_STEPS,
+                               torch.float32)
+        del f32
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf = loader.load_sd(snap, device="cuda", dtype=torch.bfloat16, load_vae=False)
+    e16 = merged_vs_branch(bf, w, "a photo of a person, smiling", GENERATE_STEPS, torch.bfloat16)
+    del bf
+    say("generate", f"scalar merged path (examples/sd1_slider_inference_torch.py) against the "
+        f"per-row path, LMS {GENERATE_STEPS} steps, scale 1, start_noise 750, same latents: f32 "
+        f"(TF32 off) max|err| {e32['err']:.3e} of max|x| {e32['max']:.4g} (limit "
+        f"{GENERATE_F32_REL:g} x max|x|); bf16 max|err| {e16['err']:.4g} of max|x| "
+        f"{e16['max']:.4g}")
+    if e32["err"] > GENERATE_F32_REL * e32["max"]:
+        raise AssertionError("the f32 merged path departs from the per-row path")
+    return {**runs, "merged_f32": e32, "merged_bf16": e16}
+
+
+def phase_turbo(snap: str, tmp: str) -> dict:
+    """SDXL-Turbo's path on the SDXL snapshot of `phase_sdxl`:
+    `generate_images --xl --scheduler euler_a --ddim_steps 3 --guidance_scale 1
+    --start_noise 700 --image_size 512`, 5 scales (no CFG: #1 10 x 3, the
+    (5, 10, 1024, 64) shape; #4 1, the (5, 1, 4096, 512) decode). Then an
+    SDXL SliderEngine with scheduler='euler_a' (3 steps, 512 px) on the same
+    weights: a request (a) and, queued together behind it, two with the
+    same seed (b, c); stats.batches grows by 3 (no coalescing), and (b)
+    and (c) have the same PNG bytes."""
+    import torch
+
+    from sliders_tpu_torch.models import loader, unet2d
+    from sliders_tpu_torch.serving.server import SliderEngine
+
+    gen_dir = os.path.join(tmp, "turbo")
+    os.makedirs(gen_dir)
+    csv_path = os.path.join(gen_dir, "prompts.csv")
+    with open(csv_path, "w") as f:
+        f.write("case_number,prompt,evaluation_seed\n0,a photo of a person,2\n")
+    slider = os.path.join(gen_dir, "muscular_alpha1.0_rank4_noxattn_last.safetensors")
+    w = save_random_slider(slider, unet2d.SDXL, 52)
+    run = run_generate("sdxl turbo", snap, os.path.join(gen_dir, "out"), csv_path,
+                       ["--model_name", slider], SWEEP,
+                       ["--xl", "--scheduler", "euler_a", "--guidance_scale", "1",
+                        "--start_noise", "700"], SDXL_SD_512, TURBO_STEPS, 512)
+
+    models = loader.load_sdxl(snap, device="cuda", dtype=torch.bfloat16, load_vae=True)
+    engine = SliderEngine(models, device="cuda", scheduler="euler_a", steps=TURBO_STEPS,
+                          image_size=512, guidance_scale=7.5, start_noise=700.0,
+                          compute_dtype=torch.bfloat16)
+    engine.register_slider("s1", w)
+
+    def serve(port):
+        stats0 = dict(engine.stats)
+        replies = {}
+
+        def call(key, seed, scales):
+            replies[key] = post(port, "/generate", {"prompt": "a photo of a person",
+                                                    "seed": seed, "slider": "s1",
+                                                    "scales": scales})
+
+        reset_flux_counts()
+        # (a) fills the largest bucket, so (b) and (c) queue behind it
+        ta = threading.Thread(target=call, args=("a", 1, TURBO_A_SCALES))
+        ta.start()
+        deadline = time.monotonic() + 600
+        while sampling_counts()[0] == 0:
+            if time.monotonic() > deadline or not ta.is_alive():
+                raise AssertionError("turbo engine: request (a) never started denoising")
+            time.sleep(0.002)
+        tb = [threading.Thread(target=call, args=(k, 3, [-2, 2])) for k in ("b", "c")]
+        for t in tb:
+            t.start()
+        queued = 0
+        while engine.stats["batches"] == stats0["batches"] and ta.is_alive():
+            queued = max(queued, len(engine._queue))
+            time.sleep(0.002)
+        for t in [ta, *tb]:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("turbo engine: a /generate call did not return")
+        batches = engine.stats["batches"] - stats0["batches"]
+        pngs = {k: [im["png"] for im in r["images"]] for k, r in replies.items()}
+        for k, r in replies.items():
+            check_images(r, TURBO_A_SCALES if k == "a" else [-2, 2], f"turbo engine {k}", 512)
+        say("sdxl", f"euler_a engine (3 steps, 512 px): requests a (seed 1) and, queued together "
+            f"behind it ({queued} in the queue at once), b and c (seed 3): {batches} batches "
+            f"(expected 3: no coalescing); b and c PNG bytes "
+            f"{'equal' if pngs['b'] == pngs['c'] else 'DIFFERENT'}; server latency "
+            f"{[replies[k]['latency_ms'] for k in 'abc']} ms")
+        if queued < 2 or batches != 3:
+            raise AssertionError("the euler_a engine coalesced requests, or (b) and (c) were "
+                                 "never queued together")
+        if pngs["b"] != pngs["c"]:
+            raise AssertionError("the euler_a engine does not repeat a seed bit for bit")
+        return {"batches": batches, "queued": queued}
+
+    served = serve_http(engine, serve)
+    del engine, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "engine": served}
+
+
+def phase_flux_scalar(models, weights) -> dict:
+    """FLUX-dev at 1024 px, FlowMatch FLUX_SCALAR_STEPS steps, bf16: the
+    FLUX example's scalar merged-delta call (scale 1.5, skip_till 0) against
+    the same call with the scale as a (1,) vector (the per-row branch) and
+    against scale 0; launches #1 57 x steps x 3 calls; max|err| of the
+    packed latents beside the slider's own effect, and the peak memory
+    (the merged weights add about the size of the targeted weights)."""
+    import torch
+
+    from sliders_tpu_torch.diffusion.schedulers import make_flowmatch_sampler
+    from sliders_tpu_torch.pipelines.flux_t2i import (encode_prompts_flux,
+                                                      initial_packed_latents,
+                                                      make_flux_sampling_fn)
+
+    example = load_example("flux_slider_inference_torch")
+    prompt, n = "a portrait photo", FLUX_SCALAR_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    reset_flux_counts()
+    t0 = time.perf_counter()
+    (merged,) = example.sweep_latents(models, weights, prompt, [1.5], steps=n, skip_till=0,
+                                      size=1024, seed=0)
+    torch.cuda.synchronize()
+    merged_s = time.perf_counter() - t0
+    merged_peak = torch.cuda.max_memory_allocated() / 1e9
+    sampler = make_flowmatch_sampler(num_steps=n, image_seq_len=(1024 // 16) ** 2)
+    fn = make_flux_sampling_fn(models.transformer_config, sampler, latent_hw=128)
+    pooled, t5e = encode_prompts_flux(models, [prompt])
+    lats = initial_packed_latents(torch.Generator().manual_seed(0), 1, 1024, 1024,
+                                  models.vae_config.latent_channels).to("cuda")
+    t0 = time.perf_counter()
+    branch = fn(models.transformer_params, lats, pooled, t5e, weights, torch.full((1,), 1.5),
+                torch.zeros(1), 3.5)
+    torch.cuda.synchronize()
+    branch_s = time.perf_counter() - t0
+    base = fn(models.transformer_params, lats, pooled, t5e, None, 0.0, 0.0, 3.5)
+    counts = sampling_counts()
+    expected = (FLUX_BLOCKS * n * 3, 0)
+    merged, branch, base = merged.float(), branch.float(), base.float()
+    err = float((merged - branch).abs().max())
+    effect = float((branch - base).abs().max())
+    say("flux", f"scalar merged path (examples/flux_slider_inference_torch.py) at 1024 px, {n} "
+        f"steps, scale 1.5, skip_till 0, bf16: max|err| against the per-row branch {err:.4g} "
+        f"(the slider's own effect, branch against scale 0: {effect:.4g}; max|x| "
+        f"{float(branch.abs().max()):.4g}); {merged_s:.2f} s merged (the merge included) / "
+        f"{branch_s:.2f} s branch; launches (#1, #4) {counts} (expected {expected}); peak device "
+        f"memory {merged_peak:.2f} GB in the merged call, {base_gb:.2f} GB held before it")
+    if counts != expected:
+        raise AssertionError(f"flux scalar: launches {counts}, not {expected}")
+    if not (math.isfinite(err) and err < 0.5 * effect):
+        raise AssertionError("the FLUX merged path departs from the per-row branch by as much "
+                             "as the slider moves the latents")
+    return {"sd": counts[0], "err": err, "effect": effect, "peak_gb": merged_peak,
+            "merged_s": merged_s, "branch_s": branch_s}
+
+
 def main() -> int:
     import torch
 
@@ -4232,6 +4598,7 @@ def main() -> int:
     # and #2 give their SDXL shapes' times beside, and #1, #2 and #4's
     # backward every shape's under "shapes".
     level0, bwd_level0, gn0, flash0 = results[0], bwd_results[0], gn_results[0], flash_times[0]
+    gen = train["generate"]
 
     def timing(r):
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -4271,7 +4638,11 @@ def main() -> int:
                              "image_train_256": train["image"]["sd"],
                              "sdxl_image_train_512": sdxl["image"]["sd"],
                              "tiny_image_64": tiny_image["sd"],
-                             "tiny_image_stylecheck": tiny_image["style"]["sd"]},
+                             "tiny_image_stylecheck": tiny_image["style"]["sd"],
+                             **{f"generate_sd15{'' if k == 'ddim' else '_' + k}": gen[k]["sd"]
+                                for k in GENERATE_RUNS},
+                             "turbo_sdxl_512": sdxl["turbo"]["sd"],
+                             "flux_scalar_1024": flux["scalar"]["sd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -4317,7 +4688,10 @@ def main() -> int:
                              "tiny_flux_train_1280": tiny_flux_train["flash"],
                              "sdxl_serve_1024_vae": sdxl["http"]["flash"],
                              "image_train_256_encode": train["image"]["flash"],
-                             "sdxl_image_train_512_encode": sdxl["image"]["flash"]},
+                             "sdxl_image_train_512_encode": sdxl["image"]["flash"],
+                             **{f"generate_sd15{'' if k == 'ddim' else '_' + k}_vae":
+                                gen[k]["flash"] for k in GENERATE_RUNS},
+                             "turbo_sdxl_512_vae": sdxl["turbo"]["flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},

@@ -10,12 +10,13 @@
   curl -s -X POST localhost:8000/generate -d \
       '{"prompt": "photo of a person", "slider": "age", "scales": [-2,0,2]}'
 
-The flags are the JAX CLI's, plus --device. SDXL (--xl) serves DDIM 50 at
-guidance 7.5 with guidance rescale 0.7. FLUX serves 30 FlowMatch steps at
-guidance 3.5 by default and gates sliders with --skip_till (per request:
-"skip_till"). --pp other than 1, --dp other than 1, --continuous and SD
-schedulers other than ddim are not ported yet and exit with a message naming
-their ROADMAP item.
+The flags are the JAX CLI's, plus --device. SD and SDXL serve --scheduler
+ddim (the default), ddpm, lms or euler_a; the ancestral ddpm and euler_a
+serve one request per denoise. SDXL (--xl) serves DDIM 50 at guidance 7.5
+with guidance rescale 0.7. FLUX serves 30 FlowMatch steps at guidance 3.5 by
+default (--scheduler does not apply) and gates sliders with --skip_till (per
+request: "skip_till"). --pp other than 1, --dp other than 1 and --continuous
+are not ported yet and exit with a message naming their ROADMAP item.
 """
 
 import argparse
@@ -65,9 +66,6 @@ def unported_reason(args):
         if args.flux:
             return "--continuous is SD/XL only (the FLUX engine batches at request boundaries)"
         return "--continuous: continuous batching is not ported yet (ROADMAP queue 1, item 13)"
-    if args.scheduler != "ddim" and not args.flux:
-        return (f"--scheduler {args.scheduler}: only ddim is ported yet "
-                "(ROADMAP queue 1, item 4)")
     return None
 
 
@@ -115,6 +113,7 @@ def make_engine(args):
         engine = SliderEngine(
             models,
             device=args.device,
+            scheduler=args.scheduler,
             steps=50 if args.ddim_steps is None else args.ddim_steps,
             image_size=args.image_size,
             guidance_scale=7.5 if args.guidance_scale is None else args.guidance_scale,

@@ -44,8 +44,6 @@ def main(args, on_step=None) -> dict:
     attributes = []
     if args.attributes is not None:
         attributes = [a.strip() for a in args.attributes.split(",")]
-    if args.prompts_file is not None:
-        config.prompts_file = args.prompts_file
     if args.rank is not None:
         config.network.rank = args.rank
     if args.alpha is not None:
@@ -89,6 +87,8 @@ def main(args, on_step=None) -> dict:
 def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--config_file", required=True, help="Config file for training.")
+    # parsed and not applied, as in the JAX CLI: training reads the
+    # config's prompts_file
     p.add_argument("--prompts_file", default=None, help="Prompts file for training.")
     p.add_argument("--alpha", type=float, default=None, help="LoRA weight.")
     p.add_argument("--rank", type=int, default=None, help="Rank of LoRA.")

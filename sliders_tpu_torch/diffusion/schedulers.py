@@ -1,20 +1,27 @@
-"""Diffusion noise schedules, the DDIM sampler and FlowMatch-Euler
-(port of the DDIM and FlowMatch paths of sliders_tpu/diffusion/schedulers.py).
+"""Diffusion noise schedules, the DDIM / DDPM / LMS / Euler-ancestral
+samplers and FlowMatch-Euler (port of sliders_tpu/diffusion/schedulers.py).
 
 `make_schedule` builds the 1000-step training tables (scaled_linear betas,
-0.00085 -> 0.012). `make_sampler(schedule, "ddim", n)` precomputes every
-per-step quantity with numpy ("leading" spacing, set_alpha_to_one=True, as
-the diffusers defaults the reference relies on); `Sampler.step(i, ...)` is
-indexed by step POSITION (0 = most noisy), and `i` may be an int or a (B,)
-tensor of per-row positions.
+0.00085 -> 0.012). `make_sampler(schedule, kind, n)` precomputes every
+per-step quantity with numpy in f64 and stores it as f32, as the diffusers
+defaults the reference relies on give them: "leading" spacing for DDIM and
+DDPM (set_alpha_to_one=True), "linspace" for LMS and Euler-ancestral, whose
+`init_noise_sigma` is sigmas.max() (about 14.6 at 50 steps, not 1). The LMS
+Adams-Bashforth coefficients are integrated exactly (a Lagrange basis of
+degree <= 3), four deep, zero-padded during the warm-up.
 
-Coefficients are cast to the latents' dtype before use, as the JAX package's
-`_bcast` does, so a bf16 denoise rounds at the same points.
+`Sampler.step(i, ...)` is indexed by step POSITION (0 = most noisy), and
+`i` may be an int or a (B,) tensor of per-row positions for every kind.
+Coefficients are cast to the latents' dtype before use, as the JAX
+package's `_bcast` does, so a bf16 denoise rounds at the same points; but
+DDPM forms its posterior coefficients in f32 first (the JAX step's bf16
+last step is 0 / 0, see `_ddpm_step`). The
+ancestral samplers (ddpm, euler_a) take their noise as a given tensor or
+draw it from a `torch.Generator`; they raise if given neither.
 
 `make_flowmatch_sampler` builds FLUX's FlowMatch-Euler tables (the
 resolution-dependent mu shift, custom_flux_pipeline.py:67-137) in f64 numpy,
-stored as f32. DDPM, LMS and Euler-ancestral come with ROADMAP queue 1,
-item 4.
+stored as f32.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+STOCHASTIC_KINDS = ("ddpm", "euler_a")
+LMS_ORDER = 4
+
 
 @dataclass(frozen=True)
 class DiffusionSchedule:
@@ -33,17 +43,39 @@ class DiffusionSchedule:
     num_train_timesteps: int = 1000
     prediction_type: str = "epsilon"
 
+    def _acp(self, t, like: torch.Tensor) -> torch.Tensor:
+        return _bcast(self.alphas_cumprod[torch.as_tensor(t, dtype=torch.long).cpu()], like)
+
     def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
         """q(x_t | x_0): sqrt(acp_t) x0 + sqrt(1 - acp_t) noise, at the
         integer timestep `t` (an int or a (B,) tensor of per-row ones)."""
-        acp = _bcast(self.alphas_cumprod[torch.as_tensor(t, dtype=torch.long)], x0)
+        acp = self._acp(t, x0)
         return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """The v-prediction target sqrt(acp_t) noise - sqrt(1 - acp_t) x0."""
+        acp = self._acp(t, x0)
+        return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * x0
+
+    def to_eps_x0(self, model_out: torch.Tensor, t, x_t: torch.Tensor):
+        """A model output under `prediction_type` -> (eps, x0)."""
+        acp = self._acp(t, x_t)
+        return _eps_x0(self.prediction_type, torch.sqrt(acp), torch.sqrt(1.0 - acp),
+                       model_out, x_t)
 
 
 def _bcast(v, like: torch.Tensor) -> torch.Tensor:
     """Cast to like.dtype and right-pad dims so a per-row value broadcasts."""
     v = torch.as_tensor(v).to(device=like.device, dtype=like.dtype)
     return v.reshape(v.shape + (1,) * (like.ndim - v.ndim))
+
+
+def _eps_x0(prediction_type: str, sq_a, sq_1ma, model_out, x):
+    if prediction_type == "epsilon":
+        return model_out, (x - sq_1ma * model_out) / sq_a
+    if prediction_type == "v_prediction":
+        return sq_a * model_out + sq_1ma * x, sq_a * x - sq_1ma * model_out
+    raise ValueError(f"unknown prediction_type {prediction_type}")
 
 
 def make_betas(
@@ -77,41 +109,142 @@ def make_schedule(
     )
 
 
+def _f32(a) -> Optional[torch.Tensor]:
+    return None if a is None else torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+
 @dataclass(frozen=True)
 class Sampler:
-    """Precomputed DDIM plan for `num_steps` steps (tables on the CPU, f32)."""
+    """Precomputed plan for `num_steps` steps (tables on the CPU, f32). The
+    alpha-based kinds (ddim, ddpm) fill alpha_prod / alpha_prod_prev (and
+    ddpm_variance); the sigma-based kinds (lms, euler_a) fill sigmas, with
+    a final 0 (and lms_coeffs)."""
 
     kind: str
     schedule: DiffusionSchedule
     timesteps: torch.Tensor  # (n,) value fed to the model
     init_noise_sigma: float
-    alpha_prod: torch.Tensor  # (n,) alpha_cumprod at t
-    alpha_prod_prev: torch.Tensor  # (n,) alpha_cumprod at the previous grid point
+    alpha_prod: Optional[torch.Tensor] = None  # (n,) alpha_cumprod at t
+    alpha_prod_prev: Optional[torch.Tensor] = None  # (n,) at the previous grid point
+    ddpm_variance: Optional[torch.Tensor] = None  # (n,)
+    sigmas: Optional[torch.Tensor] = None  # (n + 1,)
+    lms_coeffs: Optional[torch.Tensor] = None  # (n, LMS_ORDER)
 
     @property
     def num_steps(self) -> int:
         return self.timesteps.shape[0]
 
+    @property
+    def stochastic(self) -> bool:
+        return self.kind in STOCHASTIC_KINDS
+
     def scale_model_input(self, x: torch.Tensor, i) -> torch.Tensor:
-        return x  # identity for DDIM
+        """x / sqrt(sigma_i^2 + 1) for lms and euler_a; the identity else."""
+        if self.kind in ("lms", "euler_a"):
+            sigma = self.sigmas[_index(i)]
+            return x / _bcast(torch.sqrt(sigma**2 + 1.0), x)
+        return x
 
     def init_state(self, x: torch.Tensor) -> dict:
+        """The sampler's carry: LMS's derivative history, newest first."""
+        if self.kind == "lms":
+            return {"derivs": torch.zeros((LMS_ORDER,) + tuple(x.shape), dtype=x.dtype,
+                                          device=x.device)}
         return {}
 
-    def step(self, i, model_out: torch.Tensor, x: torch.Tensor, state: dict):
-        """x_t -> x_{t-1} (diffusers DDIMScheduler.step, eta=0,
-        clip_sample=False). Returns (x, state)."""
-        i = torch.as_tensor(i)
+    def step(self, i, model_out: torch.Tensor, x: torch.Tensor, state: dict,
+             generator: Optional[torch.Generator] = None, noise=None):
+        """x_t -> x_{t-1}; returns (x, state). The ancestral kinds add
+        `noise` (cast to x's dtype) or, without it, a unit-normal draw of
+        x's shape from `generator` (on the generator's device)."""
+        i = _index(i)
+        if self.kind == "ddim":
+            return self._ddim_step(i, model_out, x), state
+        if self.kind == "lms":
+            return self._lms_step(i, model_out, x, state)
+        if self.kind not in STOCHASTIC_KINDS:
+            raise ValueError(f"unknown sampler kind {self.kind}")
+        if noise is None:
+            if generator is None:
+                raise ValueError(f"the {self.kind} step needs a generator or noise")
+            noise = torch.randn(x.shape, generator=generator, device=generator.device)
+        noise = torch.as_tensor(noise).to(device=x.device, dtype=x.dtype)
+        if self.kind == "ddpm":
+            return self._ddpm_step(i, model_out, x, noise), state
+        return self._euler_a_step(i, model_out, x, noise), state
+
+    def _pred_eps_x0_alpha(self, i, model_out, x):
         acp = _bcast(self.alpha_prod[i], x)
-        sq_a, sq_1ma = torch.sqrt(acp), torch.sqrt(1.0 - acp)
-        if self.schedule.prediction_type == "epsilon":
-            eps = model_out
-            x0 = (x - sq_1ma * eps) / sq_a
-        else:  # v_prediction
-            x0 = sq_a * x - sq_1ma * model_out
-            eps = sq_a * model_out + sq_1ma * x
+        return _eps_x0(self.schedule.prediction_type, torch.sqrt(acp), torch.sqrt(1.0 - acp),
+                       model_out, x)
+
+    def _ddim_step(self, i, model_out, x):
+        # diffusers DDIMScheduler.step, eta=0, clip_sample=False
+        eps, x0 = self._pred_eps_x0_alpha(i, model_out, x)
         acp_prev = _bcast(self.alpha_prod_prev[i], x)
-        return torch.sqrt(acp_prev) * x0 + torch.sqrt(1.0 - acp_prev) * eps, state
+        return torch.sqrt(acp_prev) * x0 + torch.sqrt(1.0 - acp_prev) * eps
+
+    def _ddpm_step(self, i, model_out, x, noise):
+        # diffusers DDPMScheduler.step, variance_type="fixed_small"; the step
+        # at timestep 0 adds no noise. The posterior coefficients are formed
+        # from the f32 tables and then cast to x's dtype (the JAX package casts
+        # alpha_prod first: in bf16 acp at timestep 0, 0.99915, rounds to 1
+        # and its last step is 0 / 0); in f32 the two are the same numbers.
+        _, x0 = self._pred_eps_x0_alpha(i, model_out, x)
+        acp, acp_prev = self.alpha_prod[i], self.alpha_prod_prev[i]
+        alpha_t = acp / acp_prev
+        beta_t = 1.0 - alpha_t
+        coef_x0 = _bcast(torch.sqrt(acp_prev) * beta_t / (1.0 - acp), x)
+        coef_xt = _bcast(torch.sqrt(alpha_t) * (1.0 - acp_prev) / (1.0 - acp), x)
+        std = torch.where(self.timesteps[i] <= 0, 0.0, torch.sqrt(self.ddpm_variance[i]))
+        return coef_x0 * x0 + coef_xt * x + _bcast(std, x) * noise
+
+    def _sigma_eps_x0(self, i, model_out, x):
+        """(derivative, x0) in sigma space."""
+        sigma = _bcast(self.sigmas[i], x)
+        if self.schedule.prediction_type == "epsilon":
+            x0 = x - sigma * model_out
+        else:  # v_prediction: diffusers' sigma-space conversion
+            x0 = model_out * (-sigma / torch.sqrt(sigma**2 + 1)) + (x / (sigma**2 + 1))
+        return (x - x0) / sigma, x0
+
+    def _euler_a_step(self, i, model_out, x, noise):
+        sigma_from = _bcast(self.sigmas[i], x)
+        sigma_to = _bcast(self.sigmas[i + 1], x)
+        deriv, _ = self._sigma_eps_x0(i, model_out, x)
+        sigma_up2 = sigma_to**2 * (sigma_from**2 - sigma_to**2) / sigma_from**2
+        sigma_up = torch.sqrt(sigma_up2)
+        sigma_down = torch.sqrt(sigma_to**2 - sigma_up2)
+        x = x + deriv * (sigma_down - sigma_from)
+        return x + noise * sigma_up
+
+    def _lms_step(self, i, model_out, x, state):
+        deriv, _ = self._sigma_eps_x0(i, model_out, x)
+        derivs = torch.cat([deriv[None], state["derivs"][:-1]])  # [0] = newest
+        coeffs = self.lms_coeffs[i].to(device=x.device, dtype=x.dtype)
+        if coeffs.ndim == 1:  # one step position: (LMS_ORDER,), zero-padded in the warm-up
+            upd = torch.tensordot(coeffs, derivs, dims=1)
+        else:  # per-row positions: (B, LMS_ORDER) coefficient rows
+            upd = torch.einsum("bo,ob...->b...", coeffs, derivs)
+        return x + upd, {"derivs": derivs}
+
+    def ddim_inverse_step(self, i, model_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The exact inverse of the DDIM step `i`: moves x from the noise
+        level of alpha_prod_prev[i] up to alpha_prod[i]; running i = n-1 ..
+        0 inverts a clean latent to x_T (the null-text inversion notebook's
+        `next_step`)."""
+        i = _index(i)
+        acp_from = _bcast(self.alpha_prod_prev[i], x)
+        acp_to = _bcast(self.alpha_prod[i], x)
+        eps, x0 = _eps_x0(self.schedule.prediction_type, torch.sqrt(acp_from),
+                          torch.sqrt(1.0 - acp_from), model_out, x)
+        return torch.sqrt(acp_to) * x0 + torch.sqrt(1.0 - acp_to) * eps
+
+
+def _index(i) -> torch.Tensor:
+    """A step position (an int or a (B,) tensor) as an index of the CPU
+    tables."""
+    return torch.as_tensor(i, dtype=torch.long).cpu()
 
 
 def _leading_timesteps(T: int, n: int) -> np.ndarray:
@@ -119,27 +252,65 @@ def _leading_timesteps(T: int, n: int) -> np.ndarray:
     return (np.arange(0, n) * step_ratio).round()[::-1].copy().astype(np.int64)
 
 
+def _linspace_timesteps(T: int, n: int) -> np.ndarray:
+    return np.linspace(0, T - 1, n, dtype=np.float64)[::-1].copy()
+
+
+def _lms_coefficients(sigmas: np.ndarray, order: int = LMS_ORDER) -> np.ndarray:
+    """Exact Adams-Bashforth coefficients on the sigma grid:
+
+    coeff[i, j] = int_{sigma_i}^{sigma_{i+1}} prod_{k != j, k < ord_i}
+                  (s - c_k) / (c_j - c_k) ds
+
+    with c_m = sigmas[i - m] and ord_i = min(i + 1, order)."""
+    n = len(sigmas) - 1
+    out = np.zeros((n, order))
+    for i in range(n):
+        ord_i = min(i + 1, order)
+        for j in range(ord_i):
+            ck = [sigmas[i - k] for k in range(ord_i) if k != j]
+            num = np.poly(ck) if ck else np.array([1.0])  # roots -> coefficients
+            den = np.prod([sigmas[i - j] - c for c in ck]) if ck else 1.0
+            integ = np.polyint(num / den)
+            out[i, j] = np.polyval(integ, sigmas[i + 1]) - np.polyval(integ, sigmas[i])
+    return out
+
+
 def make_sampler(schedule: DiffusionSchedule, kind: str = "ddim", num_steps: int = 50) -> Sampler:
-    if kind in ("ddpm", "lms", "euler_a"):
-        raise NotImplementedError(
-            f"the {kind!r} sampler is not ported yet (ROADMAP queue 1, item 4)"
-        )
-    if kind != "ddim":
-        raise ValueError(f"Unknown scheduler name: {kind}")
     T = schedule.num_train_timesteps
     acp = schedule.alphas_cumprod.double().numpy()
-    ts = _leading_timesteps(T, num_steps)
-    prev_ts = ts - T // num_steps
-    # set_alpha_to_one=True -> the final alpha is exactly 1.0
-    alpha_prod_prev = np.where(prev_ts >= 0, acp[np.clip(prev_ts, 0, T - 1)], 1.0)
-    return Sampler(
-        kind=kind,
-        schedule=schedule,
-        timesteps=torch.as_tensor(ts, dtype=torch.float32),
-        init_noise_sigma=1.0,
-        alpha_prod=torch.as_tensor(acp[ts], dtype=torch.float32),
-        alpha_prod_prev=torch.as_tensor(alpha_prod_prev, dtype=torch.float32),
-    )
+
+    if kind in ("ddim", "ddpm"):
+        ts = _leading_timesteps(T, num_steps)
+        prev_ts = ts - T // num_steps
+        alpha_prod = acp[ts]
+        # set_alpha_to_one=True -> the final alpha is exactly 1.0
+        alpha_prod_prev = np.where(prev_ts >= 0, acp[np.clip(prev_ts, 0, T - 1)], 1.0)
+        ddpm_var = None
+        if kind == "ddpm":
+            alpha_t = alpha_prod / alpha_prod_prev
+            var = (1.0 - alpha_prod_prev) / (1.0 - alpha_prod) * (1.0 - alpha_t)
+            ddpm_var = np.clip(var, 1e-20, None)
+        return Sampler(kind=kind, schedule=schedule, timesteps=_f32(ts), init_noise_sigma=1.0,
+                       alpha_prod=_f32(alpha_prod), alpha_prod_prev=_f32(alpha_prod_prev),
+                       ddpm_variance=_f32(ddpm_var))
+
+    if kind in ("lms", "euler_a"):
+        ts = _linspace_timesteps(T, num_steps)
+        train_sigmas = np.sqrt((1.0 - acp) / acp)
+        sigmas = np.concatenate([np.interp(ts, np.arange(T), train_sigmas), [0.0]])
+        return Sampler(kind=kind, schedule=schedule, timesteps=_f32(ts),
+                       # "linspace" spacing -> init_noise_sigma = sigmas.max(), in f32
+                       init_noise_sigma=float(np.float32(sigmas.max())),
+                       sigmas=_f32(sigmas),
+                       lms_coeffs=_f32(_lms_coefficients(sigmas)) if kind == "lms" else None)
+
+    raise ValueError(f"Unknown scheduler name: {kind}")
+
+
+def sigma_add_noise(sampler: Sampler, x0: torch.Tensor, noise: torch.Tensor, i) -> torch.Tensor:
+    """add_noise of the sigma-based samplers: x0 + sigma_i * noise."""
+    return x0 + _bcast(sampler.sigmas[_index(i)], x0) * noise
 
 
 @dataclass(frozen=True)

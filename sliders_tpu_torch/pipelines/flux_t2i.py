@@ -8,14 +8,15 @@ resolution-dependent mu shift (:67-137), the distilled guidance embedding
 (:687-692), and the slider hook: the LoRA is on only while the step index
 exceeds `skip_slider_timestep_till` (:694-731).
 
-Here the slider scale, the gate and the guidance are per-row (B,) vectors and
-the adapters may be per-row stacked, so one batched denoise serves many
-requests: the gate is the LoRA multiplier scale * (i > skip_till). The
-JAX `lax.scan` over steps is a Python loop, one transformer forward per
-step. Not ported yet: the merged-delta sampling path that a scalar scale
-with a solo adapter takes (ROADMAP queue 1, item 7; the merge itself is in,
-`lora/merge.py`), and the pipeline-parallel `mesh` (item 15); both are
-refused by name.
+Two ways to apply a slider, chosen by the inputs as in the JAX package. A
+(B,) scale, gate and guidance, or per-row stacked adapters, ride the LoRA
+branch with the multiplier scale * (i > skip_till), so one batched denoise
+serves many requests. A 0-d scale with one adapter takes the merged-delta
+path: scale * (alpha / rank) * up @ down is folded into the targeted weights
+once (lora/merge.py), and step i runs on W + gate * delta with gate =
+(i > skip_till), a scalar. The JAX `lax.scan` over steps is a Python loop,
+one transformer forward per step. Not ported yet: the pipeline-parallel
+`mesh` (ROADMAP queue 1, item 15), refused by name.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from sliders_tpu_torch.diffusion.schedulers import FlowMatchSampler
 from sliders_tpu_torch.lora.batch import is_stacked
+from sliders_tpu_torch.lora.merge import merge_lora_weights
 from sliders_tpu_torch.models import clip_text, flux, t5
 from sliders_tpu_torch.ops.basic import SliderLora
 
@@ -55,7 +57,9 @@ def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, la
            slider_scale, skip_till, guidance) -> packed latents after all steps
 
     - `lora_weights`: a solo or per-row stacked LoRA tree, or None;
-    - `slider_scale`: a (B,) tensor (or a scalar with a stacked tree);
+    - `slider_scale`: a (B,) tensor, or a scalar: with a stacked tree the
+      branch at that multiplier, with a solo tree the merged-delta path,
+      which needs a scalar `skip_till`;
     - `skip_till`, `guidance`: (B,) tensors or scalars. Row b's slider is on
       while step i > skip_till[b] (-1 keeps it on throughout).
     Everything runs on the latents' device under torch.inference_mode()."""
@@ -73,23 +77,31 @@ def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, la
         g = None
         if cfg.guidance_embeds:
             g = torch.as_tensor(guidance, dtype=torch.float32, device=device).expand(B)
+        merge, merged = False, None  # W + delta, built at the first gated step
         if lora_weights is not None:
             slider_scale = torch.as_tensor(slider_scale, dtype=torch.float32, device=device)
-            if slider_scale.ndim == 0 and not is_stacked(lora_weights):
-                raise NotImplementedError(
-                    "a scalar slider scale with one adapter takes the merged-delta sampling "
-                    "path, not ported yet (ROADMAP queue 1, item 7); pass a (B,) scale vector")
             skip_till = torch.as_tensor(skip_till, dtype=torch.float32, device=device)
+            merge = slider_scale.ndim == 0 and not is_stacked(lora_weights)
+            if merge and skip_till.ndim > 0:
+                raise ValueError("a scalar slider scale (the merged-delta path) needs a "
+                                 "scalar skip_till")
+            gate_from = float(skip_till) if merge else None
         pooled = pooled.to(device=device, dtype=compute_dtype)
         t5_embeds = t5_embeds.to(device=device, dtype=compute_dtype)
         timesteps = sampler.timesteps.to(device)
         for i in range(sampler.num_steps):
             t_norm = (timesteps[i] / 1000.0).expand(B)
-            lora = None
-            if lora_weights is not None:
+            p, lora = params, None
+            if merge:
+                # gate = (i > skip_till) is 0 or 1: W or W + delta
+                if i > gate_from:
+                    if merged is None:
+                        merged = merge_lora_weights(params, lora_weights, slider_scale)
+                    p = merged
+            elif lora_weights is not None:
                 gated = slider_scale * torch.where(skip_till < i, 1.0, 0.0)
                 lora = SliderLora(weights=lora_weights, multiplier=gated)
-            v = flux.apply(params, cfg, x, t_norm, pooled, t5_embeds, tids, img_ids_arr,
+            v = flux.apply(p, cfg, x, t_norm, pooled, t5_embeds, tids, img_ids_arr,
                            guidance=g, lora=lora)
             x = sampler.step(i, v, x).to(compute_dtype)
         return x

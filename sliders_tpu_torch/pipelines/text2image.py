@@ -1,20 +1,34 @@
 """Text-to-image sampling with slider-scale gating
-(port of the per-row path of sliders_tpu/pipelines/text2image.py).
+(port of sliders_tpu/pipelines/text2image.py).
 
 The reference inference twist (generate_images_xl.py:323-362): a stock
 denoising loop where the LoRA multiplier is the user's slider scale, and the
-slider is OFF while t > start_noise to keep the early structure. Here the
-scale, the gate and the guidance strength are per-row (B,) vectors, so one
-batched denoise serves many requests; this is the path the serving engine
-runs. PyTorch runs the loop eagerly, one UNet forward per step.
+slider is OFF while t > start_noise to keep the early structure. PyTorch
+runs the loop eagerly, one UNet forward per step. Two ways to apply a
+slider, chosen by the inputs as in the JAX package:
 
-SDXL rides the same loop: its added conditioning (pooled text embeds and
-the six size/crop ids, `get_add_time_ids`) is CFG-doubled beside the prompt
-embeddings, and the guided noise is rescaled (`guidance_rescale`, 0.7 in the
-SDXL server).
+  - per-row: the scale, the gate and the guidance strength are (B,)
+    vectors, and the adapters may be per-row stacked, so one batched
+    denoise serves many requests (the serving engine, `generate_images`);
+  - merged: a 0-d scale with one adapter folds scale * (alpha / rank) *
+    up @ down into the targeted weights (lora/merge.py), and each step runs
+    on W + gate * delta with gate = (t <= start_noise), a scalar: the
+    examples' path. The numbers are the branch's up to the rounding of the
+    merged weight into the weights' dtype (bf16: once per weight).
 
-Not ported yet: the scalar-scale merged-delta path (lora/merge.py) and the
-continuous step function (ROADMAP queue 1, items 7 and 13).
+`use_cfg=False` runs one UNet row per latent with no guidance (SDXL-Turbo,
+guidance 1). SDXL rides the same loop: its added conditioning (pooled text
+embeds and the six size/crop ids, `get_add_time_ids`) goes beside the prompt
+embeddings, CFG-doubled when CFG is on, and the guided noise is rescaled
+(`guidance_rescale`, 0.7 in the SDXL server).
+
+The ancestral samplers (ddpm, euler_a) draw one noise tensor per step for
+the whole batch, as the JAX package's fold_in(key, i) does: from the
+caller's `torch.Generator`, or from `step_noise[i]` (a parity test passes
+the JAX package's draws there).
+
+Not ported yet: the dp `mesh` and the continuous step function (ROADMAP
+queue 1, items 15 and 13).
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import torch
 from sliders_tpu_torch.diffusion.guidance import cfg_combine, rescale_noise_cfg
 from sliders_tpu_torch.diffusion.schedulers import Sampler
 from sliders_tpu_torch.lora.batch import is_stacked
+from sliders_tpu_torch.lora.merge import merge_lora_weights
 from sliders_tpu_torch.models import unet2d, vae
 from sliders_tpu_torch.ops.basic import SliderLora
 
@@ -38,64 +53,91 @@ def _double_rows(weights: dict) -> dict:
             for name, entry in weights.items()}
 
 
-def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *,
+def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: bool = True,
                      guidance_rescale: float = 0.0, compute_dtype=torch.bfloat16):
     """Build
 
         fn(unet_params, latents, cond_emb, uncond_emb, lora_weights,
-           slider_scale, start_noise, guidance_scale, added_cond=None) -> latents
+           slider_scale, start_noise, guidance_scale, added_cond=None,
+           generator=None, step_noise=None) -> latents
 
     - `latents`: the initial noise times sampler.init_noise_sigma, NHWC;
     - `lora_weights`: a solo or per-row stacked LoRA tree, or None;
-    - `slider_scale`, `start_noise`, `guidance_scale`: per-row (B,) tensors
-      (start_noise and guidance may also be scalars); row b's slider is off
-      while t > start_noise[b];
-    - `added_cond` (SDXL): {'text_embeds', 'time_ids', 'uncond_text_embeds',
-      'uncond_time_ids'}, each with B rows, CFG-doubled as [uncond_*, *].
-    Every step is a CFG-doubled UNet forward ([uncond, cond] rows); with
-    `guidance_rescale` > 0 the guided noise is rescaled toward the
-    conditional prediction's std. The no-CFG (Turbo) variant comes with
-    ROADMAP queue 1, item 7. Everything runs on the latents' device under
-    torch.inference_mode()."""
+    - `slider_scale`: a (B,) tensor (per-row multipliers; `start_noise` and
+      `guidance_scale` may then be (B,) too: row b's slider is off while
+      t > start_noise[b]), or a scalar: with a solo tree the merged-delta
+      path, which needs a scalar `start_noise`;
+    - `added_cond` (SDXL): {'text_embeds', 'time_ids'} with B rows, and with
+      CFG also 'uncond_text_embeds', 'uncond_time_ids', doubled as
+      [uncond_*, *];
+    - `generator` / `step_noise`: the ancestral draws of ddpm and euler_a,
+      one (B, h, w, c) tensor per step (`step_noise[i]` if given).
+    With `use_cfg` every step is a CFG-doubled UNet forward ([uncond, cond]
+    rows) and, with `guidance_rescale` > 0, the guided noise is rescaled
+    toward the conditional prediction's std; without it `uncond_emb` and
+    `guidance_scale` are unused. Everything runs on the latents' device
+    under torch.inference_mode()."""
     n = sampler.num_steps
 
     @torch.inference_mode()
-    def fn(unet_params, latents, cond_emb, uncond_emb, lora_weights,
-           slider_scale, start_noise, guidance_scale, added_cond: Optional[dict] = None):
+    def fn(unet_params, latents, cond_emb, uncond_emb, lora_weights, slider_scale,
+           start_noise, guidance_scale, added_cond: Optional[dict] = None,
+           generator: Optional[torch.Generator] = None, step_noise=None):
         device = latents.device
         x = latents.to(compute_dtype)
-        ehs = torch.cat([uncond_emb, cond_emb]).to(device=device, dtype=compute_dtype)
-        added = None
-        if added_cond is not None:
-            added = {k: torch.cat([added_cond["uncond_" + k], added_cond[k]]).to(device)
-                     for k in ("text_embeds", "time_ids")}
+        if use_cfg:
+            ehs = torch.cat([uncond_emb, cond_emb])
+            added = None if added_cond is None else {
+                k: torch.cat([added_cond["uncond_" + k], added_cond[k]]).to(device)
+                for k in ("text_embeds", "time_ids")}
+        else:
+            ehs = cond_emb
+            added = None if added_cond is None else {
+                k: added_cond[k].to(device) for k in ("text_embeds", "time_ids")}
+        ehs = ehs.to(device=device, dtype=compute_dtype)
+        merge, merged = False, None  # W + delta, built at the first gated step
         if lora_weights is not None:
             slider_scale = torch.as_tensor(slider_scale, dtype=torch.float32, device=device)
-            if slider_scale.ndim == 0:
-                raise NotImplementedError(
-                    "a scalar slider scale takes the merged-delta path, not ported yet "
-                    "(ROADMAP queue 1, item 7); pass a (B,) scale vector"
-                )
             start_noise = torch.as_tensor(start_noise, dtype=torch.float32, device=device)
-            if is_stacked(lora_weights):
+            stacked = is_stacked(lora_weights)
+            if stacked and use_cfg:
                 lora_weights = _double_rows(lora_weights)
+            merge = slider_scale.ndim == 0 and not stacked
+            if merge and start_noise.ndim > 0:
+                raise ValueError("a scalar slider scale (the merged-delta path) needs a "
+                                 "scalar start_noise")
+            gate_till = float(start_noise) if merge else None
         if isinstance(guidance_scale, torch.Tensor):
             guidance_scale = guidance_scale.to(device)
+        if sampler.stochastic and generator is None and step_noise is None:
+            raise ValueError(f"the {sampler.kind} sampler needs a generator or step_noise")
         timesteps = sampler.timesteps.to(device)
         state = sampler.init_state(x)
         for i in range(n):
             t = timesteps[i]
-            lora = None
-            if lora_weights is not None:
+            params, lora = unet_params, None
+            if merge:
+                # gate = (t <= start_noise) is 0 or 1: the step runs on W or
+                # on W + delta, and W + delta is formed once
+                if float(sampler.timesteps[i]) <= gate_till:
+                    if merged is None:
+                        merged = merge_lora_weights(unet_params, lora_weights, slider_scale)
+                    params = merged
+            elif lora_weights is not None:
                 mult = torch.where(t > start_noise, 0.0, slider_scale)
-                lora = SliderLora(weights=lora_weights, multiplier=torch.cat([mult, mult]))
-            x_in = sampler.scale_model_input(torch.cat([x, x]), i).to(compute_dtype)
-            eps = unet2d.apply(unet_params, unet_cfg, x_in, t, ehs, added_cond=added, lora=lora)
-            eps_text = eps.chunk(2)[1]
-            eps = cfg_combine(eps, guidance_scale)
-            if guidance_rescale > 0:
-                eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
-            x, state = sampler.step(i, eps, x, state)
+                if use_cfg and mult.ndim > 0:
+                    mult = torch.cat([mult, mult])
+                lora = SliderLora(weights=lora_weights, multiplier=mult)
+            x_in = torch.cat([x, x]) if use_cfg else x
+            x_in = sampler.scale_model_input(x_in, i).to(compute_dtype)
+            eps = unet2d.apply(params, unet_cfg, x_in, t, ehs, added_cond=added, lora=lora)
+            if use_cfg:
+                eps_text = eps.chunk(2)[1]
+                eps = cfg_combine(eps, guidance_scale)
+                if guidance_rescale > 0:
+                    eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
+            noise = None if step_noise is None else step_noise[i]
+            x, state = sampler.step(i, eps, x, state, generator=generator, noise=noise)
             x = x.to(compute_dtype)
         return x
 

@@ -12,6 +12,10 @@
     latent, at scale 0.
   - Initial latents come from a torch.Generator seeded with the request
     seed, so a request's image does not depend on its co-riders.
+  - `scheduler` is ddim (the default), ddpm, lms or euler_a. The ancestral
+    samplers (ddpm, euler_a) draw one noise tensor per step for the whole
+    batch, from the request's generator after its latents, so coalescing is
+    OFF for them: a request's image must not depend on concurrent traffic.
   - SDXL (`models.is_xl`, the "xl" family) serves through the same engine:
     each row carries its pooled text embeds and time ids beside its prompt
     embeddings, and the guided noise is rescaled at 0.7.
@@ -25,13 +29,17 @@ deterministic).
 
 Endpoints (JSON in, JSON out; images as base64 PNG):
   GET  /healthz    -> {ok, family, is_xl, image_size, steps, sliders, stats}
-  POST /sliders    -> {name, path}
+  POST /sliders    -> {name, path} or {name, compose: [{path | name, scale}]}
   POST /generate   -> {prompt, seed?, slider?, scales?, start_noise? (FLUX:
                        skip_till?), negative_prompt?, guidance_scale?}
                    -> {images: [{scale, png: b64}, ...], latency_ms}
 
-Not ported yet: continuous batching, dp and pp meshes and `/sliders`
-compose (ROADMAP queue 1, items 13, 15 and 12).
+`load_composition` (and the compose form of POST /sliders) registers the
+rank concatenation of several sliders at their scales (lora/compose.py),
+served at slider scale 1 as one adapter.
+
+Not ported yet: continuous batching and dp and pp meshes (ROADMAP queue 1,
+items 13 and 15).
 
 Run it: python -m sliders_tpu_torch.cli.serve --base <snapshot> [--flux] [--port N]
 """
@@ -53,6 +61,7 @@ from sliders_tpu_torch.diffusion.schedulers import (make_flowmatch_sampler, make
                                                     make_schedule)
 from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora.batch import stack_sliders, structure_signature
+from sliders_tpu_torch.lora.compose import compose_sliders
 from sliders_tpu_torch.models import flux
 from sliders_tpu_torch.models.params import tree_to
 from sliders_tpu_torch.pipelines import flux_t2i
@@ -63,7 +72,12 @@ _SCALE_BUCKETS = (1, 2, 4, 8, 16)
 # took a bf16 FLUX-dev engine to a 68.3 GB peak on an 80 GB H100
 # (chip_smoke.py); larger buckets and canvases decode in slices of the bucket
 _DECODE_PIXELS = 8 * 1024 * 1024
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 13)"
+
+
+def decode_rows_for(image_size: int) -> int:
+    """Rows per VAE decode call at `image_size` px (8 at 1024 px, 32 at
+    512), which bounds the f32 decode's peak memory."""
+    return max(1, _DECODE_PIXELS // image_size ** 2)
 
 
 def _bucket(n: int, buckets=_SCALE_BUCKETS) -> int:
@@ -142,9 +156,11 @@ class SliderEngine:
         continuous: bool = False,
     ):
         if continuous:
-            raise NotImplementedError(f"continuous batching is {_NOT_PORTED}")
+            raise NotImplementedError(
+                "continuous batching is not ported yet (ROADMAP queue 1, item 13)")
         if mesh is not None:
-            raise NotImplementedError(f"multi-device (dp mesh) serving is {_NOT_PORTED}")
+            raise NotImplementedError(
+                "multi-device (dp mesh) serving is not ported yet (ROADMAP queue 1, item 15)")
         self.device = _serving_device(device, models)
         models.unet_params = tree_to(models.unet_params, self.device)
         models.vae_params = tree_to(models.vae_params, self.device)
@@ -161,12 +177,13 @@ class SliderEngine:
         self.fn = t2i.make_sampling_fn(models.unet_config, self.sampler,
                                        guidance_rescale=0.7 if models.is_xl else 0.0,
                                        compute_dtype=self.dtype)
-        self._init_runtime(buckets)
+        self._init_runtime(buckets, coalesce=not self.sampler.stochastic)
 
-    def _init_runtime(self, buckets) -> None:
+    def _init_runtime(self, buckets, coalesce: bool = True) -> None:
         """The registry, the prompt cache, the queue, the decode slice and
-        the batching worker."""
-        self.decode_rows = max(1, _DECODE_PIXELS // self.image_size ** 2)
+        the batching worker; `coalesce` lets the worker put several queued
+        requests in one denoise."""
+        self.decode_rows = decode_rows_for(self.image_size)
         self._buckets = _SCALE_BUCKETS
         if buckets is not None:
             buckets = tuple(int(b) for b in buckets)
@@ -178,6 +195,7 @@ class SliderEngine:
         # (prompt, negative) -> encoded conditioning; FIFO-capped
         self._embed_cache: dict[tuple, tuple] = {}
         self._embed_cache_cap = 32
+        self._coalesce = coalesce
         self._queue: list = []
         self._queue_cv = threading.Condition()
         self._closed = False
@@ -212,9 +230,22 @@ class SliderEngine:
         self.register_slider(name, lora_io.load_slider(path, self._lora_base()))
 
     def load_composition(self, name: str, parts: list) -> None:
-        raise NotImplementedError(
-            "slider composition is not ported yet (ROADMAP queue 1, item 12)"
-        )
+        """Register under `name` the composition of `parts`, each
+        {"path": <checkpoint>} or {"name": <loaded slider>} with an optional
+        "scale" (default 1)."""
+        adapters = []
+        for part in parts:
+            if not isinstance(part, dict) or not ({"name", "path"} & set(part)):
+                raise ValueError(f"compose part needs 'name' or 'path': {part!r}")
+            if "name" in part:
+                with self._registry_lock:
+                    if part["name"] not in self.sliders:
+                        raise KeyError(f"slider {part['name']!r} not loaded")
+                    w = self.sliders[part["name"]]
+            else:
+                w = lora_io.load_slider(part["path"], self._lora_base())
+            adapters.append((tree_to(w, self.device), float(part.get("scale", 1.0))))
+        self.register_slider(name, compose_sliders(adapters))
 
     # -- generation -------------------------------------------------------
 
@@ -289,7 +320,7 @@ class SliderEngine:
                 rows = len(batch[0].scales)
                 key = batch[0].sig
                 i = 0
-                while i < len(self._queue):
+                while self._coalesce and i < len(self._queue):
                     q = self._queue[i]
                     if q is not None and q.sig == key and rows + len(q.scales) <= max_rows:
                         batch.append(self._queue.pop(i))
@@ -340,15 +371,15 @@ class SliderEngine:
     def _run_rows(self, batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec) -> np.ndarray:
         """Denoise one padded row batch -> uint8 (rows, H, W, 3) on the host."""
         m = self.models
-        conds, unconds, addeds, lat_parts = [], [], [], []
+        conds, unconds, addeds, lat_parts, gens = [], [], [], [], []
         for p, r in zip(batch, rows):
             cond_b, uncond_b, added_b = t2i.tile_conditioning(*self._encode(p.prompt, p.negative),
                                                               r)
             conds.append(cond_b)
             unconds.append(uncond_b)
             addeds.append(added_b)
-            g = torch.Generator().manual_seed(p.seed)
-            lat = t2i.initial_latents(g, 1, self.image_size, self.image_size,
+            gens.append(torch.Generator().manual_seed(p.seed))
+            lat = t2i.initial_latents(gens[-1], 1, self.image_size, self.image_size,
                                       self.sampler.init_noise_sigma)
             lat_parts.append(lat.expand(r, -1, -1, -1))
         if pad_n:  # repeat the first row into the bucket padding
@@ -369,6 +400,9 @@ class SliderEngine:
             sn_vec,
             g_vec,
             added,
+            # the ancestral draws (ddpm, euler_a: one request a batch) go
+            # on from the request's generator past its latents
+            generator=gens[0] if self.sampler.stochastic else None,
         )
         if not torch.isfinite(x).all():
             raise FloatingPointError("denoised latents are not finite")
@@ -389,6 +423,10 @@ class SliderEngine:
         objects make the worker stack them."""
         if multi_tenant and with_slider is None:
             raise ValueError("multi_tenant warmup needs with_slider")
+        if multi_tenant and not self._coalesce:
+            raise ValueError(f"multi_tenant warmup is meaningless with the "
+                             f"{self.sampler.kind!r} sampler: it never coalesces requests, "
+                             f"so no stacked batch runs")
         self.generate("warmup", seed=0, slider=with_slider, scales=[0.0] * n_scales)
         if not multi_tenant:
             return
@@ -543,12 +581,13 @@ def make_http_server(engine: SliderEngine, host: str = "127.0.0.1", port: int = 
                 return self._send(400, {"error": "body must be a JSON object"})
             try:
                 if self.path == "/sliders":
-                    if "compose" in req:
-                        engine.load_composition(req.get("name"), req["compose"])
-                    missing = {"name", "path"} - set(req)
+                    missing = ({"name"} if "compose" in req else {"name", "path"}) - set(req)
                     if missing:
                         return self._send(400, {"error": f"missing field(s): {sorted(missing)}"})
-                    engine.load_slider(req["name"], req["path"])
+                    if "compose" in req:
+                        engine.load_composition(req["name"], req["compose"])
+                    else:
+                        engine.load_slider(req["name"], req["path"])
                     return self._send(200, {"ok": True, "name": req["name"]})
                 if self.path == "/generate":
                     if "prompt" not in req:

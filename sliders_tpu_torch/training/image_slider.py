@@ -15,8 +15,10 @@ As in the JAX package, the two passes of step 3 are ONE batch-2B UNet call
 with the per-row LoRA multiplier [+s] * B + [-s] * B (`ops/basic.SliderLora`),
 the reference's two dead frozen predictions are skipped, and its timestep
 quirk is kept: the noise goes in at the 50-grid timestep
-`sampler.timesteps[t_to]`, the UNet predicts at the 1000-grid timestep
-`ts1000[t_to * T / max_steps]` on the input scaled by `scale1000` there.
+`sampler.timesteps[t_to]`, truncated to an integer (lms and euler_a's
+linspace timesteps are floats), the UNet predicts at the 1000-grid timestep
+`ts1000[t_to * T / max_steps]` on the input scaled by `scale1000` there. The
+step never calls `sampler.step`, so every sampler kind runs it.
 
 The step runs eagerly (`torch.autograd.grad` of the loss with respect to
 the LoRA leaves). Its draws (t_to in [1, max_steps - 1), the posterior eps
@@ -25,7 +27,7 @@ from `text_slider.draw_generator(seed, step)` on the CPU, so a device and a
 rerun draw the same; a parity test passes the JAX package's in as `draws`.
 
 Not ported (each raises when asked for): `chunk > 1` (ROADMAP queue 1,
-item 18), a device mesh (item 15), samplers other than DDIM (item 4).
+item 18) and a device mesh (item 15).
 """
 
 from __future__ import annotations
@@ -88,9 +90,6 @@ def make_image_slider_step(
                                   "(ROADMAP queue 1, item 18)")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1, item 15)")
-    if sampler.kind != "ddim":
-        raise NotImplementedError(f"the {sampler.kind!r} sampler is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
     grid_stride = schedule.num_train_timesteps // max_denoising_steps
 
@@ -118,7 +117,9 @@ def make_image_slider_step(
             lat = vae.normalize_latents(vae_cfg, vae.sample_latents(mean, logvar, eps=eps_post))
             noise1 = torch.as_tensor(noise1).to(device=device, dtype=lat.dtype)
             noise = torch.cat([noise1, noise1])
-            t_add = int(sampler.timesteps[t_to])  # the 50-grid value (the reference's quirk)
+            # the 50-grid value (the reference's quirk), truncated as
+            # astype(int32) truncates it
+            t_add = int(sampler.timesteps[t_to])
             noisy = schedule.add_noise(lat, noise, t_add)
             t_idx = t_to * grid_stride
             t_cur = ts1000[t_idx].to(device)

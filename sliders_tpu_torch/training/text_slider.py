@@ -27,9 +27,14 @@ the pair's time ids (`pooled_*`, `time_ids` in the pairs). A pair with
 roles (train_lora_xl.py:198-203); its three uniforms are the fourth entry of
 the draws.
 
+Every sampler kind runs the denoise loop (`scale_model_input`, then `step`,
+as the JAX step does); the ancestral ones (ddpm, euler_a) take one noise
+tensor of the latents' shape per denoise step, the fifth entry of the draws
+(t_to of them, drawn last).
+
 Not ported (each raises when asked for): the `fused_tail`, `denoise_merged`
-and `chunk > 1` variants (ROADMAP queue 1, item 18), a device mesh (item
-15), and samplers other than DDIM (item 4).
+and `chunk > 1` variants (ROADMAP queue 1, item 18) and a device mesh (item
+15).
 """
 
 from __future__ import annotations
@@ -114,19 +119,27 @@ def backward_and_update(state: SliderTrainState, optimizer: SliderOptimizer,
 
 
 def step_draws(seed: int, step: int, n_pairs: int, max_denoising_steps: int,
-               latent_shape: tuple, init_noise_sigma: float, crop: bool = False):
+               latent_shape: tuple, init_noise_sigma: float, crop: bool = False,
+               ancestral: bool = False):
     """(pair index, t_to, latents) of iteration `step`, from
     `draw_generator(seed, step)`. With `crop` (SDXL), a fourth entry
-    follows, drawn last: (scale in [1, 3), u_top, u_left), the uniforms of a
-    dynamic crop (`get_add_time_ids`)."""
+    follows: (scale in [1, 3), u_top, u_left), the uniforms of a dynamic
+    crop (`get_add_time_ids`). With `ancestral` (ddpm, euler_a), a fifth,
+    drawn last: the denoise loop's noise, (t_to, *latent_shape); the fourth
+    is then None without `crop`."""
     gen = draw_generator(seed, step)
     pair_idx = int(torch.randint(n_pairs, (1,), generator=gen))
     t_to = int(torch.randint(1, max_denoising_steps, (1,), generator=gen))
     latents = torch.randn(latent_shape, generator=gen) * init_noise_sigma
-    if not crop:
-        return pair_idx, t_to, latents
-    u = torch.rand(3, generator=gen)
-    return pair_idx, t_to, latents, (1.0 + 2.0 * u[0], u[1], u[2])
+    draws = [pair_idx, t_to, latents]
+    if crop:
+        u = torch.rand(3, generator=gen)
+        draws.append((1.0 + 2.0 * u[0], u[1], u[2]))
+    if ancestral:
+        if not crop:
+            draws.append(None)
+        draws.append(torch.randn((t_to, *latent_shape), generator=gen))
+    return tuple(draws)
 
 
 class _PhaseTimer:
@@ -171,8 +184,10 @@ def make_text_slider_step(
     """Build `step(state, unet_params, pairs, draws=None) -> (state, metrics)`.
 
     `pairs` is `stack_prompt_pairs` output on the UNet's device. `draws`, if
-    given, is (pair index, t_to, latents[, crop]) in place of `step_draws`;
-    the crop entry is needed only by a pair with dynamic crops. The step
+    given, is (pair index, t_to, latents[, crop[, ancestral noise]]) in
+    place of `step_draws`; the crop entry is needed only by a pair with
+    dynamic crops, the noise (t_to or more per-step tensors of the latents'
+    shape) only by ddpm and euler_a. The step
     updates `state` in place (LoRA, optimizer state, step + 1) and returns
     it with the metrics loss, t_to, pair, grad_norm (Python numbers) and,
     on CUDA, phase_ms: the device time of the denoise loop, the frozen pass,
@@ -182,9 +197,6 @@ def make_text_slider_step(
                                   "not ported yet (ROADMAP queue 1, item 18)")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1, item 15)")
-    if sampler.kind != "ddim":
-        raise NotImplementedError(f"the {sampler.kind!r} sampler is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
     grid_stride = schedule.num_train_timesteps // max_denoising_steps
     height, width = resolution if isinstance(resolution, tuple) else (resolution, resolution)
@@ -214,16 +226,21 @@ def make_text_slider_step(
         n_pairs = pairs["target"].shape[0]
         if draws is None:
             draws = step_draws(state.seed, state.step, n_pairs, max_denoising_steps,
-                               latent_shape, sampler.init_noise_sigma, crop=is_xl)
-        idx, t_to, latents, *crop = draws
+                               latent_shape, sampler.init_noise_sigma, crop=is_xl,
+                               ancestral=sampler.stochastic)
+        idx, t_to, latents, *rest = draws
+        crop = rest[0] if rest else None
+        noise = rest[1] if len(rest) > 1 else None
         idx, t_to = int(idx), int(t_to)
         if not (0 <= idx < n_pairs and 1 <= t_to < max_denoising_steps):
             raise ValueError(f"draws out of range: pair {idx} of {n_pairs}, t_to {t_to}")
+        if sampler.stochastic and (noise is None or len(noise) < t_to):
+            raise ValueError(f"the {sampler.kind} denoise loop needs {t_to} ancestral draws")
         pair = {k: v[idx] for k, v in pairs.items()}
         if is_xl and "dynamic_crops" in pair:
-            if not crop:
+            if crop is None:
                 raise ValueError("an SDXL pair with dynamic_crops needs the crop draws")
-            dyn_ids = get_add_time_ids(height, width, dynamic_crops=True, draws=crop[0])[0]
+            dyn_ids = get_add_time_ids(height, width, dynamic_crops=True, draws=crop)[0]
             pair["time_ids"] = torch.where(pair["dynamic_crops"] > 0,
                                            dyn_ids.to(device, pair["time_ids"].dtype),
                                            pair["time_ids"])
@@ -243,7 +260,8 @@ def make_text_slider_step(
                 eps = unet(unet_params, x_in, timesteps[i], ehs_cfg, added_cfg, lora=lora_on)
                 eps_u, eps_c = eps.chunk(2)
                 eps_g = eps_u + denoise_guidance * (eps_c - eps_u)
-                x, s_state = sampler.step(i, eps_g, x, s_state)
+                x, s_state = sampler.step(i, eps_g, x, s_state,
+                                          noise=None if noise is None else noise[i])
                 x = x.to(compute_dtype)
             timer.mark("denoise")
 

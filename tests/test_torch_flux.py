@@ -274,9 +274,12 @@ def test_flux_sampling_fn_and_skip_till_gate_match_jax():
     _close(out, ref, 1e-4)
     torch.testing.assert_close(out[2], out[3], rtol=0, atol=0)  # gate never opened
     assert not torch.equal(out[0], out[1])  # the gate opened at another step
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tfn(from_jax_params(_np(jp)), torch.from_numpy(lat), torch.from_numpy(pooled),
-            torch.from_numpy(t5e), from_jax_params(_np(sl)), 1.0, -1.0, 3.5)
+    # a scalar scale takes the merged-delta path: every row is row 0's
+    # (scale 1.5, skip_till -1) up to the rounding of W + delta (f32)
+    merged = tfn(from_jax_params(_np(jp)), torch.from_numpy(lat), torch.from_numpy(pooled),
+                 torch.from_numpy(t5e), from_jax_params(_np(sl)), 1.5, -1.0, 3.5)
+    for b in range(B):
+        _close(merged[b:b + 1], out[:1].numpy(), 1e-5)
     with pytest.raises(NotImplementedError, match="item 15"):
         tpipe.make_flux_sampling_fn(flux.TINY, ts.make_flowmatch_sampler(2, 16), latent_hw=hw,
                                     mesh=object())

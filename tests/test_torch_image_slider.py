@@ -11,7 +11,6 @@ zero-initialised up factors into lr-sized steps, so atol 1e-5 on the LoRA
 is meaningful only at a small lr).
 """
 
-import dataclasses
 import math
 import os
 
@@ -191,16 +190,11 @@ def test_per_row_multiplier_equals_two_scalar_calls():
 
 
 def test_step_refusals():
-    """A mesh, chunk > 1 and a sampler other than DDIM name ROADMAP items
-    15, 18 and 4."""
+    """A mesh and chunk > 1 name ROADMAP items 15 and 18."""
     with pytest.raises(NotImplementedError, match="item 15"):
         _port_step(False, mesh=object())
     with pytest.raises(NotImplementedError, match="item 18"):
         _port_step(False, chunk=2)
-    sch = tsched.make_schedule()
-    lms = dataclasses.replace(tsched.make_sampler(sch, "ddim", MAX_STEPS), kind="lms")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tis.make_image_slider_step(tunet.TINY, tvae.TINY, sch, lms, None)
 
 
 def test_to_u8_matches_the_jax_cli():
@@ -280,6 +274,25 @@ def test_cli_end_to_end(cli_root, capsys):
             np.testing.assert_array_equal(from_jax_params(_np({m: back[m]}))[m][k].numpy(),
                                           final[m][k].numpy())
         assert float(final[m]["up"].abs().max()) > 0
+
+
+def test_cli_prompts_file_is_parsed_and_not_applied(cli_root, tmp_path, monkeypatch):
+    """--prompts_file is parsed and ignored, as the JAX CLI does
+    (sliders_tpu/cli/train_image_slider.py:431 reads config.prompts_file):
+    with the flag on another file, training gets the config's prompts."""
+    other = tmp_path / "other.yaml"
+    other.write_text("- target: 'other'\n  positive: 'small eyes'\n  unconditional: ''\n"
+                     "  neutral: 'eyes'\n  guidance_scale: 1\n  resolution: 48\n")
+    seen = []
+    monkeypatch.setattr(tcli, "train_image_sliders",
+                        lambda config, prompts, *a, **k: seen.append((config, prompts)) or {})
+    tcli.main(tcli.build_parser().parse_args(_argv(cli_root, "pairs", "--prompts_file",
+                                                   str(other))))
+    (config, prompts), = seen
+    assert config.prompts_file == str(cli_root / "prompts.yaml")
+    assert [p.positive for p in prompts] == ["big eyes"]
+    assert "--prompts_file" in {a for act in jcli.build_parser()._actions
+                                for a in act.option_strings}
 
 
 def test_cli_stylecheck_and_refusals(cli_root):

@@ -50,12 +50,6 @@ def test_ddim_step_matches(per_row):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("kind", ["ddpm", "lms", "euler_a"])
-def test_unported_samplers_name_their_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.make_sampler(ts.make_schedule(), kind, 10)
-
-
 @pytest.mark.parametrize("per_row", [False, True])
 def test_cfg_combine_and_rescale(per_row):
     rng = np.random.default_rng(1)
