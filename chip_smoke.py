@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD1.5 slider serving, slider training (text
-and image sliders) and offline sampling (`generate_images`), its FLUX-dev
+"""Drive the PyTorch port's SD1.5 slider serving (at request boundaries
+and continuous), slider training (text and image sliders), offline sampling
+(`generate_images`) and real-image editing, its FLUX-dev
 slider serving, slider training and scalar-scale sampling, and its
-SDXL-base slider serving, slider training (text and image sliders) and
-SDXL-Turbo sampling, once on one NVIDIA GPU, under the default conv route and the three
+SDXL-base slider serving (also continuous), slider training (text and
+image sliders) and SDXL-Turbo sampling, once on one NVIDIA GPU, under the default conv route and the three
 conv-kernel routes of `ops.basic.set_conv_impl`, and with the layout pin
 (`ops.basic.set_layout_pin`) off and on.
 
@@ -60,7 +61,12 @@ with its seconds and the seconds since the start:
      tiny image-slider training at 64 px through
      `cli/train_image_slider.py` on PNG folders the script writes (a
      truncated file skipped with its warning) on both, then a two-style
-     `--stylecheck` run.
+     `--stylecheck` run; then `pipelines/inversion.edit_image` on a tiny
+     snapshot at 64 px (the inversion, the null-text optimiser through #1
+     and #2, the edit) on both, the GPU's launches exact. The kernel
+     phases hold #1 in f32 at the edit's shapes ((1 | 6, 8, 4096, 40),
+     (1 | 6, 8, 1024, 80)) and #4 at its encode and decode ((1 | 3, 1,
+     4096, 512)), with plain and SDPA times at (5 | 1 | 3, 1, 4096, 512).
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
@@ -77,10 +83,17 @@ with its seconds and the seconds since the start:
      f32 (#1 and #2 on 3xTF32), in turns.
   5. http:   /generate with five scales, two concurrent /generate calls for
      the two sliders (coalesced into one stacked batch), /healthz; then
-     five-scale /generate calls under each conv impl ('auto' and 'xla' three
+     five-scale /generate calls under each conv impl ('auto' and 'xla' two
      each, in turns, their latencies printed); every reply is checked, and
      each kernel's launch count must equal its routed calls per UNet forward
      x 50 steps, plus under 'auto' the VAE decoder's, x the denoise batches.
+     Then "continuous": a continuous engine on the same models (8 rows in
+     flight, chunk 5) behind HTTP, under DDIM 50 and LMS 50: a 5-scale
+     request, and a 3-scale one sent after its first chunk that joins its
+     live batch; chunk and join ms, both latencies, chunks against two solo
+     runs, launches exact (#1 10 x 5 a chunk, #4 one per exit decode), and
+     both requests' PNGs against a boundary engine at bucket 8, byte for
+     byte.
   6. train:  a full-width SD1.5 snapshot with seeded random weights (UNet +
      CLIP-L + SD VAE + tokenizer) written to a temporary directory, then the
      training CLI in-process with the values of data/config.yaml (bf16,
@@ -103,7 +116,15 @@ with its seconds and the seconds since the start:
      and the peak memory printed; then the SD1 example's scalar merged-delta
      path against the per-row path (LMS 10 steps, scale 1, the same
      latents): f32 with TF32 off within GENERATE_F32_REL of max|x|, bf16
-     printed.
+     printed; then "edit": `edit_image` on the snapshot in f32 (TF32 off)
+     on a 512 px PNG the phase writes, scales 0, 2, 4 at start_noise 500,
+     DDIM steps cut to 10 and null-text inner steps to 5: the losses per
+     step, the scale-0 PSNR, the parts' seconds, the peak memory, an uncut
+     50 x 10 time extrapolated, launches exact (#1 f32, #2 f32 in the
+     null-text backward, #4 at the encode and the decode); then "maps":
+     examples/attention_maps_torch.py's word maps at 512 px in f32 under a
+     tap wanting attn2 (#1 10) and an unfiltered one (#1 0), the row sums,
+     eps against the untapped forward, the 16 x 16 maps written.
   7. flux:   FLUX-dev at full width and depth (transformer, T5-XXL encoder,
      CLIP-L, FLUX VAE) in bf16 with seeded random weights and two rank-4
      xattn sliders; one transformer step at bucket 8, 1024 px, timed and
@@ -148,7 +169,8 @@ with its seconds and the seconds since the start:
      4096, 512)); then an SDXL SliderEngine with scheduler 'euler_a' (3
      steps, 512 px) behind HTTP: a 16-scale request and, queued together
      behind it, two with one seed: three batches (no coalescing) and the
-     two replies' PNG bytes equal.
+     two replies' PNG bytes equal. Before the training, "SDXL continuous":
+     the SD1.5 continuous check at 1024 px, 8 steps, chunk 4, one join.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
 no such line. It needs a CUDA device and the rest of the repository beside
@@ -195,6 +217,12 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubl
     ((2, 8, 1024, 80), "float32", False),
     ((2, 10, 1024, 64), "float32", False),
     ((2, 24, 4608, 128), "float32", True),
+    # real-image editing in f32 at 512 px: the inversion and the null-text
+    # forwards at batch 1, the edit's CFG-doubled sweep of 3 scales
+    ((1, 8, 4096, 40), "float32", False),
+    ((1, 8, 1024, 80), "float32", False),
+    ((6, 8, 4096, 40), "float32", False),
+    ((6, 8, 1024, 80), "float32", False),
 ]
 BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, and f32
     ((1, 8, 4096, 40), "bfloat16"),
@@ -311,6 +339,8 @@ FLASH_SHAPES = [
     ((8, 1, 4096, 512), "float32"), ((8, 1, 16384, 512), "float32"),
     ((1, 1, 65536, 512), "float32"),
     ((5, 1, 4096, 512), "float32"),  # a 5-row decode at 512 px (generate_images, Turbo)
+    ((1, 1, 4096, 512), "float32"),  # the edit's encode at 512 px (batch 1)
+    ((3, 1, 4096, 512), "float32"),  # and its 3-row decode
 ]
 # FLUX's and SDXL's VAE decode at 1024 px (bucket 8): #4's plain version and
 # SDPA in f32 are timed there, and at SD1.5's decode at 512 px (bucket 8)
@@ -318,7 +348,9 @@ VAE_FLASH_SHAPE = (8, 1, 16384, 512)
 VAE_DECODE_SHAPES = (VAE_FLASH_SHAPE, (8, 1, 4096, 512))
 # and at the shapes of #4's bf16 d = 256 and f32 d = 128 / 256 forwards
 FLASH_SDPA_SHAPES = VAE_DECODE_SHAPES + ((1, 2, 6912, 128), (1, 24, 9728, 128),
-                                         (1, 2, 2048, 256), (1, 16, 4096, 256))
+                                         (1, 2, 2048, 256), (1, 16, 4096, 256),
+                                         (5, 1, 4096, 512), (1, 1, 4096, 512),
+                                         (3, 1, 4096, 512))
 # the two FLUX serving shapes (2048 px bucket 1: #4's route; 1024 px bucket
 # 8: #1's) at which #4, #1 and SDPA are timed on the same inputs
 FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
@@ -367,7 +399,7 @@ SDXL_SD_1024 = 70
 SDXL_SD_512 = 10
 SDXL_PX = 1024
 SDXL_HTTP_STEPS = 8  # DDIM steps per /generate, cut from the CLI's 50
-SDXL_STEP_ROUNDS = 3  # rounds of the step timing, pin off and on in turn
+SDXL_STEP_ROUNDS = 2  # rounds of the step timing, pin off and on in turn
 SDXL_TRAIN_ITERATIONS = 4  # cut from data/config-xl.yaml's 1000
 # kernel #9 at the SDXL serving boundaries (bucket 8, 16 CFG rows, 1024 px)
 PIN_SHAPES = [(16, 4096, 640), (16, 1024, 1280)]
@@ -412,6 +444,46 @@ TURBO_STEPS = 3
 TURBO_A_SCALES = [float(s) for s in range(-8, 8)]
 FLUX_SCALAR_STEPS = 2
 GENERATE_RUNS = ("ddim", "lms", "euler_a", "ddpm", "compose")
+# continuous serving (phase_continuous, phase_sdxl_continuous): the bucket in
+# flight, the steps a chunk (SDXL: half its 8 steps), request (b)'s sweep,
+# the samplers; the largest (pixel level, share of values) by which a
+# joiner's PNGs may depart from the boundary engine's at the same bucket,
+# as PSNR. A request that starts a batch holds the slots its boundary run
+# holds and must match it byte for byte. A joiner holds other slots: cuDNN's
+# bf16 3x3 convs at 32^2, 16^2 and 8^2 round a row by its position in the
+# batch (on the H100, whatever cudnn.deterministic or benchmark say), and
+# its exit decode runs at its pow2 row count, not the bucket's; 50 bf16
+# steps carry that rounding to 44.5-46.8 dB on an H100 (SD1.5 and SDXL)
+CONT_ROWS = 8
+CONT_CHUNK = 5
+SDXL_CONT_CHUNK = 4
+CONT_B_SCALES = [-1.5, 0.0, 1.5]
+CONT_KINDS = ("ddim", "lms")
+CONT_JOIN_PSNR = 40.0
+# real-image editing (phase_edit): DDIM steps cut from the notebook's 50,
+# null-text inner steps cut from 10, notebook cell 10's sweep and gate; in a
+# null-text backward every routed self-attention but the first takes #2 (the
+# first one's input does not depend on the uncond embedding)
+EDIT_STEPS = 10
+EDIT_INNER = 5
+EDIT_SCALES = [0.0, 2.0, 4.0]
+EDIT_START_NOISE = 500.0
+EDIT_ROUTED_BWD = ROUTED_PER_FORWARD - 1
+# phase_tiny_edit: TINY at 64 px (3 routed self-attentions a forward, 2 of
+# them in a null-text backward), the GPU against the CPU
+TINY_EDIT_STEPS = 3
+TINY_EDIT_INNER = 2
+TINY_EDIT_ROUTED_BWD = 2
+TINY_EDIT_REL = 1e-5
+# the images: one level on up to 5 % of the values. The null-text Adam
+# carries the sums' rounding into the embeddings at about 1e-4 relative
+# (tests/test_torch_inversion.py), and the decode truncates to uint8, so a
+# value that far from a level boundary flips (3.45-3.47 % on an H100)
+TINY_EDIT_PIXELS = (1, 0.05)
+# phase_attention_maps: the probabilities' row sums, and eps under a tap
+# (plain f32 path) against eps off it (#1's 3xTF32 kernel)
+PROB_SUM_TOL = 1e-5
+MAPS_EPS_REL = 1e-4
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
@@ -2378,12 +2450,12 @@ def phase_http(engine):
     return serve_http(engine, run)
 
 
-GENERATE_TURNS = ("auto", "xla", "xla", "auto", "auto", "xla", "fused_ep", "fused")
+GENERATE_TURNS = ("auto", "xla", "xla", "auto", "fused_ep", "fused")
 
 
 def serve_conv_impls(engine, port: int) -> dict:
     """Five-scale /generate calls under the conv-kernel impls in
-    GENERATE_TURNS ('auto' and 'xla' three times each, in turns, then
+    GENERATE_TURNS ('auto' and 'xla' twice each, in turns, then
     'fused_ep' and 'fused'); each reply is checked as phase 5 checks it,
     and the impl's kernel must have launched (its calls per UNet forward x
     50 steps + its calls per VAE decode) x the denoise batches, the others
@@ -2436,7 +2508,7 @@ def serve_conv_impls(engine, port: int) -> dict:
         if impl in latency:
             latency[impl].append(reply["latency_ms"])
     auto_ms, xla_ms = statistics.median(latency["auto"]), statistics.median(latency["xla"])
-    say("http", f"/generate server latency in turns {GENERATE_TURNS[:6]}: 'auto' "
+    say("http", f"/generate server latency in turns {GENERATE_TURNS[:4]}: 'auto' "
         f"{latency['auto']} ms (median {auto_ms:.1f}; the decoder's f32 convs on #5's 3xTF32 "
         f"mainloop, f32-accurate), 'xla' {latency['xla']} ms (median {xla_ms:.1f}; cuDNN "
         f"convs with TF32 on, as served: one TF32 pass); 'auto' / 'xla' {auto_ms / xla_ms:.3f}")
@@ -2701,6 +2773,12 @@ def phase_train():
         gc.collect()
         torch.cuda.empty_cache()
         generate = timed("generate sd15", phase_generate, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        edit = timed("edit sd15", phase_edit, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        maps = timed("attention maps sd15", phase_attention_maps, snap, tmp)
 
     # time per iteration, past the first (which includes cuBLAS/cuDNN set-up)
     steady = recs[1:]
@@ -2724,7 +2802,7 @@ def phase_train():
     return {"fwd": run["fwd"], "bwd": run["bwd"], "resume_fwd": resumed["fwd"],
             "resume_bwd": resumed["bwd"], "fused_fwd": fused["fwd"], "fused_bwd": fused["bwd"],
             "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image,
-            "generate": generate}
+            "generate": generate, "edit": edit, "maps": maps}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -3362,7 +3440,7 @@ def sdxl_step_fn(engine):
     return step, lat
 
 
-def phase_sdxl_conv_step(engine, rounds: int = 2) -> dict:
+def phase_sdxl_conv_step(engine, rounds: int = 1) -> dict:
     """The SDXL step of `phase_sdxl_step` (pin off) under each conv impl, in
     alternating rounds of 3 synced steps: ms per step, each conv kernel's
     launches per step (one UNet forward of 16 rows; SDXL_CONV_PER_FORWARD),
@@ -3694,6 +3772,7 @@ def phase_sdxl(tmp: str) -> dict:
     step = timed("SDXL step", phase_sdxl_step, engine)
     conv = timed("SDXL conv impls", phase_sdxl_conv_step, engine)
     http = timed("SDXL http", phase_sdxl_http, engine)
+    cont = timed("SDXL continuous", phase_sdxl_continuous, engine)
     snap = os.path.join(tmp, "sdxl")
     timed("SDXL snapshot", write_sdxl_snapshot, snap, engine.models)
     del engine  # the training run loads its own copy from the snapshot
@@ -3707,7 +3786,7 @@ def phase_sdxl(tmp: str) -> dict:
     torch.cuda.empty_cache()
     turbo = timed("turbo sdxl", phase_turbo, snap, tmp)
     return {"step": step, "conv": conv, "http": http, "train": train, "image": image,
-            "turbo": turbo}
+            "turbo": turbo, "continuous": cont}
 
 
 @contextlib.contextmanager
@@ -4535,6 +4614,393 @@ def phase_flux_scalar(models, weights) -> dict:
             "merged_s": merged_s, "branch_s": branch_s}
 
 
+def png_diff(a: bytes, b: bytes) -> tuple:
+    """(max |pixel difference|, share of differing values, PSNR in dB) of
+    two of the engine's PNGs of one size."""
+    import numpy as np
+
+    pa, pb = (np.frombuffer(png_pixels(p)[2], np.uint8).astype(np.int64) for p in (a, b))
+    d = np.abs(pa - pb)
+    mse = float(np.mean(d * d))
+    return int(d.max()), float(np.mean(d > 0)), (10 * math.log10(255.0 ** 2 / mse)
+                                                 if mse else float("inf"))
+
+
+def continuous_run(models, sliders: dict, tag: str, kind: str, px: int, steps: int, chunk: int,
+                   routed: int, b_slider: str) -> dict:
+    """One continuous engine (CONT_ROWS rows in flight, `chunk` steps a call)
+    behind the HTTP server: request (a), 5 scales of slider s1, and request
+    (b), CONT_B_SCALES of `b_slider`, sent once (a)'s first chunk has
+    started, so (b) joins (a)'s live batch after that chunk. Each chunk and the join are timed with a
+    device sync around the call. Launches exact: #1 `routed` x `chunk` x
+    chunks (every chunk runs `chunk` CFG-doubled forwards of the whole
+    bucket), #4 one per exit decode (2); chunks = the chunk (b) joined
+    after + ceil(steps / chunk). Then both requests through a boundary
+    engine at bucket CONT_ROWS: (a), whose rows hold the slots of its run
+    there, byte for byte; (b), which joins at other slots, to CONT_JOIN_PSNR
+    (see it)."""
+    import torch
+
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.serving.server import SliderEngine
+
+    kw = dict(device="cuda", scheduler=kind, steps=steps, image_size=px, guidance_scale=7.5,
+              start_noise=750.0, compute_dtype=torch.bfloat16)
+    cont = SliderEngine(models, continuous=True, continuous_rows=CONT_ROWS, chunk_steps=chunk,
+                        **kw)
+    for name in {"s1", b_slider}:
+        cont.register_slider(name, sliders[name])
+    chunk_ms, join_ms, joined_after = [], [], []
+    step_fn, join_fn = cont._cont_fn, cont._cont_join_state
+
+    def timed_chunk(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_join(*args):
+        joined_after.append(cont.stats["chunks"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = join_fn(*args)
+        torch.cuda.synchronize()
+        join_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    cont._cont_fn, cont._cont_join_state = timed_chunk, timed_join
+    req = {"a": {"prompt": "a photo of a person", "seed": 1, "slider": "s1", "scales": SWEEP},
+           "b": {"prompt": "a photo of a person, smiling", "seed": 2, "slider": b_slider,
+                 "scales": CONT_B_SCALES}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flux_counts()
+
+    def run(port):
+        replies = {}
+
+        def call(key):
+            t = time.perf_counter()
+            replies[key] = (post(port, "/generate", req[key]), time.perf_counter() - t)
+
+        ta = threading.Thread(target=call, args=("a",))
+        ta.start()
+        deadline = time.monotonic() + 600
+        while sa.sd_attention.launches == 0:  # (a)'s first chunk has started
+            if time.monotonic() > deadline or not ta.is_alive():
+                raise AssertionError(f"{tag}: request (a) never started its first chunk")
+            time.sleep(0.002)
+        tb = threading.Thread(target=call, args=("b",))
+        tb.start()
+        for t in (ta, tb):
+            t.join(timeout=900)
+            if t.is_alive():
+                raise AssertionError(f"{tag}: a /generate call did not return")
+        return replies
+
+    replies = serve_http(cont, run)
+    counts, peak = sampling_counts(), torch.cuda.max_memory_allocated() / 1e9
+    n_chunks = -(-steps // chunk)
+    if sorted(replies) != ["a", "b"] or len(joined_after) != 1:
+        raise AssertionError(f"{tag}: replies {sorted(replies)}, joins {joined_after}: (b) did "
+                             f"not join (a)'s live batch")
+    chunks = cont.stats["chunks"]
+    expected = (routed * chunk * chunks, 2)
+    px_a = check_images(replies["a"][0], SWEEP, f"{tag} a", px)
+    check_images(replies["b"][0], CONT_B_SCALES, f"{tag} b", px)
+    if px_a[0] == px_a[-1]:
+        raise AssertionError(f"{tag}: the -2 and +2 images are identical: the slider did nothing")
+
+    boundary = SliderEngine(models, buckets=(CONT_ROWS,), **kw)
+    for name in {"s1", b_slider}:
+        boundary.register_slider(name, sliders[name])
+    solo, solo_s = {}, {}
+    try:
+        for key, r in req.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            solo[key] = boundary.generate(r["prompt"], seed=r["seed"], slider=r["slider"],
+                                          scales=r["scales"])
+            solo_s[key] = time.perf_counter() - t
+    finally:
+        boundary.close(timeout=60)
+    diffs = {}
+    for key in req:
+        served = [base64.b64decode(im["png"]) for im in replies[key][0]["images"]]
+        ref = [png for _, png in solo[key]]
+        diffs[key] = [png_diff(a, b) for a, b in zip(served, ref)]
+    equal = {key: all(d[0] == 0 for d in ds) for key, ds in diffs.items()}
+    shown = {key: "byte-equal" if equal[key] else
+             [f"max {m} levels on {share:.4f} of values, PSNR {psnr:.2f} dB"
+              for m, share, psnr in ds] for key, ds in diffs.items()}
+    say("continuous", f"{tag} {kind}, {px} px, {steps} steps, {CONT_ROWS} rows, chunk {chunk}: "
+        f"(a) 5 scales server latency {replies['a'][0]['latency_ms']} ms (client "
+        f"{replies['a'][1] * 1e3:.1f}); (b) {len(CONT_B_SCALES)} scales joined after chunk "
+        f"{joined_after[0]}: server latency {replies['b'][0]['latency_ms']} ms (client "
+        f"{replies['b'][1] * 1e3:.1f}); chunks {chunks} (expected {joined_after[0]} + "
+        f"{n_chunks}; two solo runs {2 * n_chunks}); chunk ms median "
+        f"{statistics.median(chunk_ms):.2f} (min {min(chunk_ms):.2f}, max {max(chunk_ms):.2f}, "
+        f"{len(chunk_ms)} chunks, synced), join {join_ms[0]:.2f} ms; launches (#1, #4) {counts} "
+        f"(expected {expected}); peak device memory {peak:.2f} GB")
+    say("continuous", f"{tag} {kind}: boundary engine at bucket {CONT_ROWS}: (a) "
+        f"{solo_s['a']:.3f} s, (b) {solo_s['b']:.3f} s; (b) queued behind (a) there would wait "
+        f"out (a): {(solo_s['a'] + solo_s['b']) * 1e3:.1f} ms against "
+        f"{replies['b'][0]['latency_ms']} ms joined; PNGs against the continuous engine's: "
+        f"{shown}")
+    if chunks != joined_after[0] + n_chunks:
+        raise AssertionError(f"{tag}: {chunks} chunks, not {joined_after[0]} + {n_chunks}")
+    if counts != expected:
+        raise AssertionError(f"{tag}: launches {counts}, not {expected}")
+    join_psnr = min(d[2] for d in diffs["b"])
+    if not equal["a"] or join_psnr < CONT_JOIN_PSNR:
+        raise AssertionError(f"{tag} {kind}: against the boundary engine (a) is "
+                             f"{shown['a']}, (b) {shown['b']} (limit {CONT_JOIN_PSNR} dB)")
+    return {"sd": counts[0], "flash": counts[1], "chunks": chunks, "joined_after": joined_after[0],
+            "chunk_ms": statistics.median(chunk_ms), "join_ms": join_ms[0],
+            "latency_ms": {k: replies[k][0]["latency_ms"] for k in req},
+            "boundary_s": solo_s, "equal": equal, "join_psnr": join_psnr, "peak_gb": peak}
+
+
+def phase_continuous(models, sliders: dict) -> dict:
+    """SD1.5 at full width, 512 px, bf16, DDIM 50 and LMS 50: `continuous_run`
+    on the HTTP phase's models and sliders ((b) on slider s2: a stacked
+    batch of two adapters)."""
+    return {kind: continuous_run(models, sliders, "SD1.5", kind, 512, STEPS, CONT_CHUNK,
+                                 ROUTED_PER_FORWARD, "s2") for kind in CONT_KINDS}
+
+
+def phase_sdxl_continuous(engine) -> dict:
+    """SDXL-base at full width, 1024 px, bf16, DDIM SDXL_HTTP_STEPS (cut as
+    the SDXL http phase cuts them), chunk SDXL_CONT_CHUNK: `continuous_run`
+    with one join, both requests on slider s1."""
+    return continuous_run(engine.models, engine.sliders, "SDXL", "ddim", SDXL_PX,
+                          SDXL_HTTP_STEPS, SDXL_CONT_CHUNK, SDXL_SD_1024, "s1")
+
+
+def edit_test_image(px: int):
+    """A (px, px, 3) uint8 test picture: smooth colour ramps, a bright disc
+    and a dark bar."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:px, 0:px] / px
+    img = np.stack([0.2 + 0.6 * xx, 0.3 + 0.5 * yy, 0.5 + 0.3 * np.sin(6 * xx * yy)], -1)
+    img[(xx - 0.55) ** 2 + (yy - 0.45) ** 2 < 0.05] = (0.95, 0.85, 0.7)
+    img[(yy > 0.75) & (yy < 0.82) & (xx > 0.2) & (xx < 0.8)] = 0.1
+    return (img * 255).round().astype(np.uint8)
+
+
+def edit_launches(losses: dict, steps: int, routed: int, routed_bwd: int) -> tuple:
+    """(#1, #2) of `edit_image` at `steps` steps: `routed` forward launches
+    per UNet forward (the inversion's, each null-text step's conditional
+    forward, its inner steps' and its advance, the CFG-doubled edit's) and
+    `routed_bwd` backward launches per inner step."""
+    inner = sum(len(v) for v in losses.values())
+    return routed * (2 * steps + 2 * steps + inner), routed_bwd * inner
+
+
+def phase_edit(snap: str, tmp: str) -> dict:
+    """Real-image editing on the full-width SD1.5 snapshot of `phase_train`,
+    f32 (its bf16 UNet weights cast up), TF32 off: `edit_image` on a 512 px
+    PNG the phase writes (read back by examples/edit_real_image_torch.py's
+    `load_image`), a rank-4 noxattn slider, scales EDIT_SCALES, start_noise
+    500, DDIM steps cut from 50 to EDIT_STEPS and null-text inner steps cut
+    from 10 to EDIT_INNER. Prints each step's null-text losses, the scale-0
+    reconstruction's PSNR against the input, the seconds of each part, the
+    peak memory and an uncut (50 x 10) time extrapolated per forward and per
+    inner step. Launches exact: #1 and #2 (`edit_launches`), #4 two (the
+    encoder's mid attention (1, 1, 4096, 512), the 3-row decode's)."""
+    import numpy as np
+    import torch
+
+    from sliders_tpu_torch.models import loader, unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.pipelines.inversion import edit_image
+    from sliders_tpu_torch.serving.server import encode_png
+
+    path = os.path.join(tmp, "edit_input.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(edit_test_image(512)))
+    image = load_example("edit_real_image_torch").load_image(path, 512)
+    with tf32_flags(False, False):
+        models = loader.load_sd(snap, device="cuda", dtype=torch.float32, load_vae=True)
+        w = tree_to(save_random_slider(os.path.join(tmp, "edit.safetensors"), unet2d.SD15, 60),
+                    "cuda")
+        losses, timings = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flux_counts()
+        t0 = time.perf_counter()
+        out = edit_image(models, image, "a photo of a person", w, EDIT_SCALES,
+                         num_steps=EDIT_STEPS, start_noise=EDIT_START_NOISE, guidance_scale=7.5,
+                         num_inner_steps=EDIT_INNER,
+                         on_step=lambda i, ls: losses.setdefault(i, ls), timings=timings)
+        wall = time.perf_counter() - t0
+        counts = (sa.sd_attention.launches, sa.sd_attention_bwd.launches,
+                  flux_counts()["flash"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    del models
+    inner = sum(len(v) for v in losses.values())
+    expected = edit_launches(losses, EDIT_STEPS, ROUTED_PER_FORWARD, EDIT_ROUTED_BWD) + (2,)
+    ref = (image + 1.0) * 127.5
+    mse = float(np.mean((out[0.0].astype(np.float64) - ref) ** 2))
+    psnr = 10 * math.log10(255.0 ** 2 / mse) if mse else float("inf")
+    for i in sorted(losses):
+        say("edit", f"null-text step {i}: {len(losses[i])} updates, losses "
+            f"{' '.join(f'{x:.4e}' for x in losses[i])}")
+    per_fwd = timings["inversion"] / EDIT_STEPS
+    per_inner = (timings["null_text"] - 2 * EDIT_STEPS * per_fwd) / inner
+    uncut = (timings["encode"] + 50 * per_fwd + 50 * (2 * per_fwd + 10 * per_inner)
+             + timings["edit"] * 50 / EDIT_STEPS + timings["decode"])
+    say("edit", f"SD1.5 f32 (TF32 off), 512 px, scales {EDIT_SCALES}, start_noise "
+        f"{EDIT_START_NOISE:g}; cut: DDIM steps 50 -> {EDIT_STEPS}, null-text inner steps 10 -> "
+        f"{EDIT_INNER}: {wall:.2f} s (encode {timings['encode']:.3f}, inversion "
+        f"{timings['inversion']:.3f}, null-text {timings['null_text']:.3f} for {inner} inner "
+        f"steps, edit {timings['edit']:.3f} ({len(EDIT_SCALES)} rows, CFG-doubled), decode "
+        f"{timings['decode']:.3f}); {per_fwd * 1e3:.1f} ms a batch-1 forward, "
+        f"{per_inner * 1e3:.1f} ms an inner step (forward + backward + Adam); uncut 50 x 10 "
+        f"extrapolated {uncut:.1f} s; scale-0 reconstruction PSNR {psnr:.2f} dB against the "
+        f"input (random weights); launches (#1, #2, #4) {counts} (expected {expected}); peak "
+        f"device memory {peak:.2f} GB")
+    if counts != expected:
+        raise AssertionError(f"edit: launches {counts}, not {expected}")
+    for s, img in out.items():
+        if img.shape != (512, 512, 3) or img.dtype != np.uint8:
+            raise AssertionError(f"edit: the scale-{s} image is {img.shape} {img.dtype}")
+    if np.array_equal(out[EDIT_SCALES[0]], out[EDIT_SCALES[-1]]):
+        raise AssertionError("edit: the slider did nothing")
+    return {"sd": counts[0], "sd_bwd": counts[1], "flash": counts[2], "seconds": timings,
+            "per_inner_ms": per_inner * 1e3, "uncut_s": uncut, "psnr": psnr, "peak_gb": peak,
+            "inner": inner}
+
+
+def phase_attention_maps(snap: str, tmp: str) -> dict:
+    """examples/attention_maps_torch.py's `word_maps` on the full-width SD1.5
+    snapshot in f32 (TF32 off) at 512 px, t 501: one forward under a tap
+    that wants only attn2 (#1 takes the 10 self-attentions: 10 launches)
+    and one under an unfiltered tap (every call on the plain path: 0).
+    Every probability row sums to 1 within PROB_SUM_TOL; eps under each tap
+    is held to eps of the untapped forward within MAPS_EPS_REL of its
+    largest value (the tapped calls run the plain f32 path, the routed ones
+    #1's 3xTF32 kernel); the 16 x 16 word maps are written as PNGs."""
+    import torch
+
+    from sliders_tpu_torch.models import loader, unet2d
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.pipelines import text2image as t2i
+    from sliders_tpu_torch.pipelines.encoding import encode_prompts
+
+    example = load_example("attention_maps_torch")
+    prompt = "a photo of an old person"
+    with tf32_flags(False, False):
+        models = loader.load_sd(snap, device="cuda", dtype=torch.float32)
+        te = models.text_encoders[0]
+        ehs = encode_prompts(te.tokenizer, te.params, te.config, [prompt])
+        lat = t2i.initial_latents(torch.Generator().manual_seed(0), 1, 512, 512, 1.0)
+        with torch.inference_mode():
+            eps_ref = unet2d.apply(models.unet_params, models.unet_config, lat.cuda(),
+                                   torch.tensor([501.0]), ehs)
+        runs = {}
+        for name, flt in (("attn2", lambda n: n.endswith("attn2")), ("all", None)):
+            torch.cuda.synchronize()
+            reset_flux_counts()
+            t0 = time.perf_counter()
+            eps, raw, maps = example.word_maps(models, prompt, t=501.0, size=512, res=16,
+                                               attn_filter=flt)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = sa.sd_attention.launches
+            err = float((eps - eps_ref).abs().max())
+            sum_err = max(float((p.sum(-1) - 1).abs().max()) for p in raw.values())
+            files = example.save_maps(maps, os.path.join(tmp, f"maps_{name}"))
+            runs[name] = {"sd": launches, "taps": len(raw), "err": err, "sum_err": sum_err,
+                          "ms": ms, "maps": len(files)}
+            del raw
+        ref_max = float(eps_ref.abs().max())
+    del models
+    expected = {"attn2": (ROUTED_PER_FORWARD, 16), "all": (0, 32)}
+    for name, r in runs.items():
+        say("maps", f"tap wanting {name}: {r['taps']} call sites stored, #1 launches {r['sd']} "
+            f"(expected {expected[name][0]}); max |row sum - 1| {r['sum_err']:.3g} (limit "
+            f"{PROB_SUM_TOL:g}); eps max|err| against the untapped forward {r['err']:.3g} of "
+            f"max|eps| {ref_max:.4g} (limit {MAPS_EPS_REL:g} x); {r['maps']} 16 x 16 word maps "
+            f"written; {r['ms']:.1f} ms the forward with its maps")
+        if (r["sd"], r["taps"]) != expected[name] or r["maps"] < 3:
+            raise AssertionError(f"maps {name}: launches {r['sd']}, taps {r['taps']}, maps "
+                                 f"{r['maps']}")
+        if r["sum_err"] > PROB_SUM_TOL or r["err"] > MAPS_EPS_REL * ref_max:
+            raise AssertionError(f"maps {name}: the probabilities or eps are off")
+    return runs
+
+
+def phase_tiny_edit() -> dict:
+    """`edit_image` on a tiny snapshot (TINY UNet and VAE) at 64 px on the
+    GPU (the kernels: #1 at the level-0 self-attentions, L = 1024, and the
+    VAE's mid attentions, #2 in the null-text backward) against the CPU
+    (plain paths), f32 with TF32 off: the DDIM inversion within
+    TINY_EDIT_REL of the largest value, then the whole edit (3 steps, 2
+    inner steps, scales 0 and 2): the uint8 images within TINY_EDIT_PIXELS
+    (max level, share of values). The GPU run's launches exact."""
+    import numpy as np
+    import torch
+
+    from sliders_tpu_torch.diffusion import make_sampler, make_schedule
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import loader
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.pipelines import inversion
+    from sliders_tpu_torch.pipelines.encoding import encode_prompts
+
+    rng = np.random.default_rng(21)
+    image = (edit_test_image(64) / 127.5 - 1.0).astype(np.float32)
+    clean = rng.standard_normal((1, 32, 32, 4)).astype(np.float32) * 0.5
+    with tf32_flags(False, False), tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "sd_tiny")
+        write_tiny_sd_snapshot(snap)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            m = loader.load_sd(snap, device=dev, dtype=torch.float32, load_vae=True)
+            w = create_slider_network(torch.Generator().manual_seed(4), m.unet_params, rank=2,
+                                      alpha=1.0, train_method="noxattn")
+            for e in w.values():
+                e["up"] = e["up"] + 0.2
+            te = m.text_encoders[0]
+            cond = encode_prompts(te.tokenizer, te.params, te.config, ["a person"])
+            sampler = make_sampler(make_schedule(), "ddim", TINY_EDIT_STEPS)
+            traj = inversion.make_ddim_inversion_fn(m.unet_config, sampler)(
+                m.unet_params, torch.tensor(clean, device=dev), cond)
+            reset_flux_counts()
+            losses = {}
+            out = inversion.edit_image(m, image, "a person", tree_to(w, dev), [0.0, 2.0],
+                                       num_steps=TINY_EDIT_STEPS, num_inner_steps=TINY_EDIT_INNER,
+                                       on_step=lambda i, ls: losses.setdefault(i, ls))
+            res[dev] = {"traj": traj.cpu(), "out": out, "losses": losses,
+                        "counts": (sa.sd_attention.launches, sa.sd_attention_bwd.launches)}
+    g, c = res["cuda"], res["cpu"]
+    terr = float((g["traj"] - c["traj"]).abs().max())
+    tmax = float(c["traj"].abs().max())
+    worst = max((int(np.abs(g["out"][s].astype(int) - c["out"][s].astype(int)).max()),
+                 float((g["out"][s] != c["out"][s]).mean())) for s in c["out"])
+    expected = edit_launches(g["losses"], TINY_EDIT_STEPS, TINY_IMAGE_ROUTED,
+                             TINY_EDIT_ROUTED_BWD)
+    expected = (expected[0] + 2, expected[1])  # the VAE's encode and decode mid attentions
+    say("tiny edit", f"GPU vs CPU, f32: inversion max|err| {terr:.3g} of max {tmax:.4g} (limit "
+        f"{TINY_EDIT_REL:g} x); edit images (0, 2) at 64 px: worst (max level, share) {worst} "
+        f"(limit {TINY_EDIT_PIXELS}); null-text updates GPU {sum(map(len, g['losses'].values()))}"
+        f" CPU {sum(map(len, c['losses'].values()))}; GPU launches (#1, #2) {g['counts']} "
+        f"(expected {expected})")
+    if terr > TINY_EDIT_REL * tmax:
+        raise AssertionError("tiny edit: the GPU inversion departs from the CPU's")
+    if worst[0] > TINY_EDIT_PIXELS[0] or worst[1] > TINY_EDIT_PIXELS[1]:
+        raise AssertionError("tiny edit: the GPU images depart from the CPU's")
+    if g["counts"] != expected:
+        raise AssertionError(f"tiny edit: launches {g['counts']}, not {expected}")
+    return {"sd": g["counts"][0], "sd_bwd": g["counts"][1], "traj_err": terr, "worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -4568,12 +5034,14 @@ def main() -> int:
         tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
         tiny_xl = timed("tiny SDXL", phase_tiny_sdxl)
         tiny_image = timed("tiny image training", phase_tiny_image)
+        tiny_edit = timed("tiny edit", phase_tiny_edit)
         engine = timed("SD1.5 engine", build_engine, tok_dir)
     sd15_decode, sd15_decode_conv = timed("SD1.5 step", phase_step, engine)
     conv_step = timed("SD1.5 conv impls", phase_conv_step, engine)
     timed("SD1.5 grad pass", phase_grad_ab, engine)
     grad_f32 = timed("SD1.5 grad pass f32", phase_grad_ab, engine, "float32")
     serve_launches, serve_flash, serve_conv = timed("SD1.5 http", phase_http, engine)
+    cont = timed("SD1.5 continuous", phase_continuous, engine.models, engine.sliders)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4642,7 +5110,13 @@ def main() -> int:
                              **{f"generate_sd15{'' if k == 'ddim' else '_' + k}": gen[k]["sd"]
                                 for k in GENERATE_RUNS},
                              "turbo_sdxl_512": sdxl["turbo"]["sd"],
-                             "flux_scalar_1024": flux["scalar"]["sd"]},
+                             "flux_scalar_1024": flux["scalar"]["sd"],
+                             **{f"serve_continuous_sd15_{k}": v["sd"] for k, v in cont.items()},
+                             "serve_continuous_sdxl_1024": sdxl["continuous"]["sd"],
+                             "edit_sd15_f32": train["edit"]["sd"],
+                             "attention_maps_attn2_tap": train["maps"]["attn2"]["sd"],
+                             "attention_maps_full_tap": train["maps"]["all"]["sd"],
+                             "tiny_edit": tiny_edit["sd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -4667,7 +5141,9 @@ def main() -> int:
                              "image_train_256": train["image"]["sd_bwd"],
                              "sdxl_image_train_512": sdxl["image"]["sd_bwd"],
                              "tiny_image_64": tiny_image["sd_bwd"],
-                             "tiny_image_stylecheck": tiny_image["style"]["sd_bwd"]},
+                             "tiny_image_stylecheck": tiny_image["style"]["sd_bwd"],
+                             "edit_sd15_null_text_f32": train["edit"]["sd_bwd"],
+                             "tiny_edit": tiny_edit["sd_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
@@ -4691,7 +5167,11 @@ def main() -> int:
                              "sdxl_image_train_512_encode": sdxl["image"]["flash"],
                              **{f"generate_sd15{'' if k == 'ddim' else '_' + k}_vae":
                                 gen[k]["flash"] for k in GENERATE_RUNS},
-                             "turbo_sdxl_512_vae": sdxl["turbo"]["flash"]},
+                             "turbo_sdxl_512_vae": sdxl["turbo"]["flash"],
+                             **{f"serve_continuous_sd15_{k}_vae": v["flash"]
+                                for k, v in cont.items()},
+                             "serve_continuous_sdxl_1024_vae": sdxl["continuous"]["flash"],
+                             "edit_sd15_encode_decode": train["edit"]["flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},

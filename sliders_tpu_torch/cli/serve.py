@@ -15,8 +15,14 @@ ddim (the default), ddpm, lms or euler_a; the ancestral ddpm and euler_a
 serve one request per denoise. SDXL (--xl) serves DDIM 50 at guidance 7.5
 with guidance rescale 0.7. FLUX serves 30 FlowMatch steps at guidance 3.5 by
 default (--scheduler does not apply) and gates sliders with --skip_till (per
-request: "skip_till"). --pp other than 1, --dp other than 1 and --continuous
-are not ported yet and exit with a message naming their ROADMAP item.
+request: "skip_till"). --continuous serves SD and SDXL by step-level
+continuous batching (--cont_rows rows in flight, --chunk_steps steps a
+device call) on ddim or lms; it refuses FLUX and the ancestral samplers by
+name. --pp other than 1 and --dp other than 1 are not ported yet and exit
+with a message naming their ROADMAP item.
+
+  python -m sliders_tpu_torch.cli.serve --base /path/sd15 --continuous \
+      --cont_rows 8 --chunk_steps 5 --slider age=out/age_last.safetensors
 """
 
 import argparse
@@ -49,9 +55,17 @@ def build_parser():
                    help="batch bucket sizes (requests pad up to the next bucket); "
                    "default 1,2,4,8,16")
     p.add_argument("--dp", type=int, default=1, help="data-parallel devices")
-    p.add_argument("--continuous", action="store_true", help="step-level continuous batching")
-    p.add_argument("--cont_rows", type=int, default=None)
-    p.add_argument("--chunk_steps", type=int, default=5)
+    p.add_argument("--continuous", action="store_true",
+                   help="step-level continuous batching: keep one fixed row bucket in "
+                   "flight, requests join mid-denoise at chunk boundaries and exit when "
+                   "their steps complete (best for sustained overlapping traffic; SD/XL "
+                   "only, deterministic samplers only, incompatible with --dp)")
+    p.add_argument("--cont_rows", type=int, default=None,
+                   help="continuous-mode row bucket (default: largest --buckets entry); "
+                   "every request's scale sweep must fit in it")
+    p.add_argument("--chunk_steps", type=int, default=5,
+                   help="continuous-mode denoise steps per device call (admission "
+                   "granularity; smaller = lower join latency, more dispatches)")
     return p
 
 
@@ -62,17 +76,25 @@ def unported_reason(args):
                 "(ROADMAP queue 1, item 15)")
     if args.dp != 1:
         return "--dp: multi-device serving is not ported yet (ROADMAP queue 1, item 15)"
-    if args.continuous:
-        if args.flux:
-            return "--continuous is SD/XL only (the FLUX engine batches at request boundaries)"
-        return "--continuous: continuous batching is not ported yet (ROADMAP queue 1, item 13)"
+    return None
+
+
+def refused_reason(args):
+    """The message for a combination of flags that cannot be served, else
+    None."""
+    if args.continuous and args.flux:
+        return "--continuous is SD/XL only (the FLUX engine batches at request boundaries)"
+    if args.continuous and args.scheduler in ("ddpm", "euler_a"):
+        return (f"--continuous does not serve --scheduler {args.scheduler}: the ancestral "
+                "samplers draw one noise tensor a step for the whole batch, so a row's image "
+                "would depend on its co-riders; use ddim or lms")
     return None
 
 
 def make_engine(args):
     """The engine the flags describe, its sliders loaded and (unless
     --no_warmup) warmed."""
-    reason = unported_reason(args)
+    reason = unported_reason(args) or refused_reason(args)
     if reason:
         raise SystemExit(reason)
 
@@ -120,6 +142,9 @@ def make_engine(args):
             start_noise=args.start_noise,
             compute_dtype=dtype,
             buckets=buckets,
+            continuous=args.continuous,
+            continuous_rows=args.cont_rows,
+            chunk_steps=args.chunk_steps,
         )
     for spec in args.slider:
         name, _, path = spec.partition("=")

@@ -12,6 +12,9 @@ degree <= 3), four deep, zero-padded during the warm-up.
 
 `Sampler.step(i, ...)` is indexed by step POSITION (0 = most noisy), and
 `i` may be an int or a (B,) tensor of per-row positions for every kind.
+The tables live on the CPU; `Sampler.to(device)` gives a copy whose tables
+live on the device, so that per-row positions held there index them with
+no host sync (the continuous step function's chunks).
 Coefficients are cast to the latents' dtype before use, as the JAX
 package's `_bcast` does, so a bf16 denoise rounds at the same points; but
 DDPM forms its posterior coefficients in f32 first (the JAX step's bf16
@@ -26,7 +29,7 @@ stored as f32.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 import numpy as np
@@ -138,10 +141,15 @@ class Sampler:
     def stochastic(self) -> bool:
         return self.kind in STOCHASTIC_KINDS
 
+    def to(self, device) -> "Sampler":
+        """A copy whose tables live on `device` (the schedule's stay)."""
+        return replace(self, **{f.name: getattr(self, f.name).to(device) for f in fields(self)
+                                if isinstance(getattr(self, f.name), torch.Tensor)})
+
     def scale_model_input(self, x: torch.Tensor, i) -> torch.Tensor:
         """x / sqrt(sigma_i^2 + 1) for lms and euler_a; the identity else."""
         if self.kind in ("lms", "euler_a"):
-            sigma = self.sigmas[_index(i)]
+            sigma = self.sigmas[_index(i, self.timesteps.device)]
             return x / _bcast(torch.sqrt(sigma**2 + 1.0), x)
         return x
 
@@ -157,7 +165,7 @@ class Sampler:
         """x_t -> x_{t-1}; returns (x, state). The ancestral kinds add
         `noise` (cast to x's dtype) or, without it, a unit-normal draw of
         x's shape from `generator` (on the generator's device)."""
-        i = _index(i)
+        i = _index(i, self.timesteps.device)
         if self.kind == "ddim":
             return self._ddim_step(i, model_out, x), state
         if self.kind == "lms":
@@ -221,7 +229,11 @@ class Sampler:
     def _lms_step(self, i, model_out, x, state):
         deriv, _ = self._sigma_eps_x0(i, model_out, x)
         derivs = torch.cat([deriv[None], state["derivs"][:-1]])  # [0] = newest
+        # the coefficients are rounded to x's dtype, then promoted with the
+        # history (f32 once a guidance vector made eps f32), as JAX promotes
         coeffs = self.lms_coeffs[i].to(device=x.device, dtype=x.dtype)
+        coeffs = coeffs.to(torch.promote_types(coeffs.dtype, derivs.dtype))
+        derivs = derivs.to(coeffs.dtype)
         if coeffs.ndim == 1:  # one step position: (LMS_ORDER,), zero-padded in the warm-up
             upd = torch.tensordot(coeffs, derivs, dims=1)
         else:  # per-row positions: (B, LMS_ORDER) coefficient rows
@@ -233,7 +245,7 @@ class Sampler:
         level of alpha_prod_prev[i] up to alpha_prod[i]; running i = n-1 ..
         0 inverts a clean latent to x_T (the null-text inversion notebook's
         `next_step`)."""
-        i = _index(i)
+        i = _index(i, self.timesteps.device)
         acp_from = _bcast(self.alpha_prod_prev[i], x)
         acp_to = _bcast(self.alpha_prod[i], x)
         eps, x0 = _eps_x0(self.schedule.prediction_type, torch.sqrt(acp_from),
@@ -241,10 +253,10 @@ class Sampler:
         return torch.sqrt(acp_to) * x0 + torch.sqrt(1.0 - acp_to) * eps
 
 
-def _index(i) -> torch.Tensor:
-    """A step position (an int or a (B,) tensor) as an index of the CPU
-    tables."""
-    return torch.as_tensor(i, dtype=torch.long).cpu()
+def _index(i, device="cpu") -> torch.Tensor:
+    """A step position (an int or a (B,) tensor) as an index of tables on
+    `device`."""
+    return torch.as_tensor(i, dtype=torch.long).to(device)
 
 
 def _leading_timesteps(T: int, n: int) -> np.ndarray:
@@ -310,7 +322,7 @@ def make_sampler(schedule: DiffusionSchedule, kind: str = "ddim", num_steps: int
 
 def sigma_add_noise(sampler: Sampler, x0: torch.Tensor, noise: torch.Tensor, i) -> torch.Tensor:
     """add_noise of the sigma-based samplers: x0 + sigma_i * noise."""
-    return x0 + _bcast(sampler.sigmas[_index(i)], x0) * noise
+    return x0 + _bcast(sampler.sigmas[_index(i, sampler.sigmas.device)], x0) * noise
 
 
 @dataclass(frozen=True)

@@ -209,7 +209,7 @@ def _attention(p: dict, x, context, heads: int, lora, name: str):
     q = linear(p["to_q"], x, lora=lora, name=f"{name}.to_q")
     k = linear(p["to_k"], ctx, lora=lora, name=f"{name}.to_k")
     v = linear(p["to_v"], ctx, lora=lora, name=f"{name}.to_v")
-    out = multihead_attention(q, k, v, heads)
+    out = multihead_attention(q, k, v, heads, name=name)
     return linear(p["to_out"]["0"], out, lora=lora, name=f"{name}.to_out.0")
 
 

@@ -44,8 +44,14 @@ JAX package's 'pallas' also sends every call #1 refuses, masked ones
 included, to the stock kernel, which drops the mask (ROADMAP queue 3); the
 port's 'pallas' keeps the gates of 'auto'.
 
-`AttentionTap` and `ring_context` are not ported yet (ROADMAP queue 1,
-items 10 and 15).
+`AttentionTap` is the JAX package's attention-probability tap (the
+reference's prompt-to-prompt controller, ptp_utils.py:173-240): while a tap
+is active, every call whose `name` it wants runs the plain path, which
+returns the softmax probabilities (B, H, Lq, Lkv) (in v's dtype, as the
+JAX package's `_xla_attention_probs`: f32 under f32 compute), and stores
+them under that name in call order; every other call keeps its kernel
+route.
+`ring_context` is not ported yet (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ from typing import Optional
 import torch
 
 from sliders_tpu_torch.ops.flash_attention import flash_attention
-from sliders_tpu_torch.ops.sd_attention import MAX_D, sd_attention, sd_attention_ref
+from sliders_tpu_torch.ops.sd_attention import (MAX_D, sd_attention, sd_attention_probs,
+                                                sd_attention_ref)
 
 SD_KERNEL_MIN_SEQ = 1024
 # the JAX package's boundary between kernel #1 and the stock flash kernel:
@@ -158,16 +165,53 @@ def routes_to_sd_bwd_kernel(q_shape, k_shape, mask) -> bool:
     return routes_to_sd_kernel(q_shape, k_shape, mask)
 
 
+_active_tap = None
+
+
+class AttentionTap:
+    """While active (`with AttentionTap(filter_fn) as tap:`), every
+    `multihead_attention` call whose `name` the tap wants (`filter_fn(name)`,
+    or every named call without a filter) runs the plain path and stores
+    its softmax probabilities (B, H, Lq, Lkv) in `tap.store` under the
+    call-site path, in call order. Unnamed calls are never tapped. Taps
+    nest: leaving one restores the one before."""
+
+    def __init__(self, filter_fn=None):
+        self.store: dict = {}
+        self.filter_fn = filter_fn
+
+    def __enter__(self):
+        global _active_tap
+        self._prev = _active_tap
+        _active_tap = self
+        return self
+
+    def __exit__(self, *exc):
+        global _active_tap
+        _active_tap = self._prev
+        return False
+
+    def wants(self, name) -> bool:
+        if name is None:
+            return False
+        return self.filter_fn is None or bool(self.filter_fn(name))
+
+
 def multihead_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     num_heads: int,
     mask: Optional[torch.Tensor] = None,
+    name: Optional[str] = None,
 ) -> torch.Tensor:
     """q: (B, Lq, D); k, v: (B, Lkv, D). Returns (B, Lq, D). `mask` is
-    additive, broadcastable to (B, H, Lq, Lkv)."""
+    additive, broadcastable to (B, H, Lq, Lkv). `name` is the call-site
+    path that an active `AttentionTap` keys its store by."""
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
+    if _active_tap is not None and _active_tap.wants(name):
+        out, _active_tap.store[name] = sd_attention_probs(qh, kh, vh, mask)
+        return _merge_heads(out)
     if _impl != "xla" and routes_to_flash_kernel(qh.shape, kh.shape, mask, qh.element_size()):
         out = flash_attention(qh, kh, vh)
     elif _impl != "xla" and routes_to_sd_kernel(qh.shape, kh.shape, mask):

@@ -57,12 +57,20 @@ def sd_attention_ref(
     (`ops/attention.xla_attention`): (B, H, L, d) softmax(q k^T / sqrt(d)) v
     with f32 logits and softmax (plus an additive `mask`), probabilities cast
     to v.dtype before the product."""
+    return sd_attention_probs(q, k, v, mask)[0]
+
+
+def sd_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> tuple:
+    """`sd_attention_ref` returning (out, probs): the probabilities
+    (B, H, Lq, Lkv) as they enter the product, in v.dtype (the JAX
+    package's `_xla_attention_probs`)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    return torch.matmul(probs, v), probs
 
 
 def sd_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

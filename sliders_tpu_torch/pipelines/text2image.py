@@ -27,8 +27,11 @@ the whole batch, as the JAX package's fold_in(key, i) does: from the
 caller's `torch.Generator`, or from `step_noise[i]` (a parity test passes
 the JAX package's draws there).
 
-Not ported yet: the dp `mesh` and the continuous step function (ROADMAP
-queue 1, items 15 and 13).
+`make_continuous_step_fn` is the chunk of the continuous serving engine
+(serving/server.py): one fixed row bucket whose rows each sit at their own
+step position, advanced `chunk` steps a call.
+
+Not ported yet: the dp `mesh` (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -51,6 +54,31 @@ def _double_rows(weights: dict) -> dict:
     """CFG-double every leaf of a stacked tree along its row axis."""
     return {name: {k: torch.cat([w, w]) for k, w in entry.items()}
             for name, entry in weights.items()}
+
+
+def _unet_conditioning(cond_emb, uncond_emb, added_cond: Optional[dict], use_cfg: bool, device,
+                       compute_dtype):
+    """The UNet's context rows and added conditioning on `device`: [uncond,
+    cond] under CFG (SDXL's pooled embeds and time ids alike), else cond."""
+    keys = ("text_embeds", "time_ids")
+    if use_cfg:
+        ehs = torch.cat([uncond_emb, cond_emb])
+        added = None if added_cond is None else {
+            k: torch.cat([added_cond["uncond_" + k], added_cond[k]]).to(device) for k in keys}
+    else:
+        ehs = cond_emb
+        added = None if added_cond is None else {k: added_cond[k].to(device) for k in keys}
+    return ehs.to(device=device, dtype=compute_dtype), added
+
+
+def _guide(eps: torch.Tensor, guidance_scale, guidance_rescale: float) -> torch.Tensor:
+    """CFG over the [uncond, cond] rows of `eps`, rescaled toward the
+    conditional prediction's std when `guidance_rescale` > 0."""
+    eps_text = eps.chunk(2)[1]
+    eps = cfg_combine(eps, guidance_scale)
+    if guidance_rescale > 0:
+        eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
+    return eps
 
 
 def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: bool = True,
@@ -85,16 +113,8 @@ def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: 
            generator: Optional[torch.Generator] = None, step_noise=None):
         device = latents.device
         x = latents.to(compute_dtype)
-        if use_cfg:
-            ehs = torch.cat([uncond_emb, cond_emb])
-            added = None if added_cond is None else {
-                k: torch.cat([added_cond["uncond_" + k], added_cond[k]]).to(device)
-                for k in ("text_embeds", "time_ids")}
-        else:
-            ehs = cond_emb
-            added = None if added_cond is None else {
-                k: added_cond[k].to(device) for k in ("text_embeds", "time_ids")}
-        ehs = ehs.to(device=device, dtype=compute_dtype)
+        ehs, added = _unet_conditioning(cond_emb, uncond_emb, added_cond, use_cfg, device,
+                                        compute_dtype)
         merge, merged = False, None  # W + delta, built at the first gated step
         if lora_weights is not None:
             slider_scale = torch.as_tensor(slider_scale, dtype=torch.float32, device=device)
@@ -132,14 +152,91 @@ def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: 
             x_in = sampler.scale_model_input(x_in, i).to(compute_dtype)
             eps = unet2d.apply(params, unet_cfg, x_in, t, ehs, added_cond=added, lora=lora)
             if use_cfg:
-                eps_text = eps.chunk(2)[1]
-                eps = cfg_combine(eps, guidance_scale)
-                if guidance_rescale > 0:
-                    eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
+                eps = _guide(eps, guidance_scale, guidance_rescale)
             noise = None if step_noise is None else step_noise[i]
             x, state = sampler.step(i, eps, x, state, generator=generator, noise=noise)
             x = x.to(compute_dtype)
         return x
+
+    return fn
+
+
+def make_continuous_step_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, chunk: int,
+                            use_cfg: bool = True, guidance_rescale: float = 0.0,
+                            compute_dtype=torch.bfloat16):
+    """Build the chunk of step-level continuous batching:
+
+        fn(unet_params, x, s_state, step_idx, cond_emb, uncond_emb,
+           lora_weights, slider_scale, start_noise, guidance_scale,
+           added_cond=None) -> (x, s_state)
+
+    - `step_idx` is the (B,) step position of each row at entry; step k of
+      the chunk runs row b at i = clip(step_idx[b] + k, 0, n - 1), and a row
+      whose step_idx + k >= n is frozen: its latent (row-major) and its
+      sampler-state column (history-major, LMS's (ORDER, B, ...) derivs)
+      keep their values, so finished rows hold their final latents and free
+      slots never move. The caller advances positions on the host, so
+      nothing is read back between chunks.
+    - `lora_weights` is a per-row stacked tree (lora/batch.py) or None;
+      `slider_scale`, `start_noise` and `guidance_scale` are (B,) vectors.
+    A row's arithmetic is `make_sampling_fn`'s step with its step index
+    gathered per row, so its trajectory is the whole-loop program's at the
+    same batch size. The sampler's tables are copied to the latents' device
+    once, `step_idx` goes there once a call, and no value is read back
+    inside a chunk. The stochastic samplers (ddpm, euler_a) draw one noise
+    tensor a step for the whole batch, so a row's image would depend on
+    when it joined: they are refused. Runs under torch.inference_mode()."""
+    if sampler.stochastic:
+        raise NotImplementedError(
+            f"continuous batching does not support the stochastic '{sampler.kind}' sampler "
+            "(per-step batch-shared noise would make a row's output depend on co-riders); "
+            "use ddim or lms")
+    n = sampler.num_steps
+    on_device: dict = {}
+
+    @torch.inference_mode()
+    def fn(unet_params, x, s_state, step_idx, cond_emb, uncond_emb, lora_weights, slider_scale,
+           start_noise, guidance_scale, added_cond: Optional[dict] = None):
+        device = x.device
+        smp = on_device.get(device)
+        if smp is None:
+            smp = on_device[device] = sampler.to(device)
+        step_idx = torch.as_tensor(step_idx, dtype=torch.long)
+        if device.type == "cuda" and step_idx.device.type == "cpu":
+            # one asynchronous copy a chunk, from pinned memory: no host sync
+            step_idx = step_idx.pin_memory().to(device, non_blocking=True)
+        step_idx = step_idx.to(device)
+        ehs, added = _unet_conditioning(cond_emb, uncond_emb, added_cond, use_cfg, device,
+                                        compute_dtype)
+        weights = lora_weights
+        if weights is not None and use_cfg:
+            weights = _double_rows(weights)
+        x = x.to(compute_dtype)
+        for k in range(chunk):
+            idx = step_idx + k
+            adv = idx < n
+            i = idx.clamp(0, n - 1)
+            t = smp.timesteps[i]
+            lora = None
+            if weights is not None:
+                mult = torch.where(t > start_noise, 0.0, slider_scale)
+                if use_cfg:
+                    mult = torch.cat([mult, mult])
+                lora = SliderLora(weights=weights, multiplier=mult)
+            x_in = torch.cat([x, x]) if use_cfg else x
+            i_in = torch.cat([i, i]) if use_cfg else i
+            t_in = torch.cat([t, t]) if use_cfg else t
+            x_in = smp.scale_model_input(x_in, i_in).to(compute_dtype)
+            eps = unet2d.apply(unet_params, unet_cfg, x_in, t_in, ehs, added_cond=added,
+                               lora=lora)
+            if use_cfg:
+                eps = _guide(eps, guidance_scale, guidance_rescale)
+            x_new, s_new = smp.step(i, eps, x, s_state)
+            x = torch.where(adv.view((-1,) + (1,) * (x.ndim - 1)), x_new.to(compute_dtype), x)
+            s_state = {name: torch.where(adv.view((1, -1) + (1,) * (new.ndim - 2)), new,
+                                         s_state[name])
+                       for name, new in s_new.items()}
+        return x, s_state
 
     return fn
 

@@ -6,8 +6,9 @@
   - One worker thread owns the device and drains a request queue. Queued
     requests whose adapters share one structure signature — including
     DIFFERENT sliders — coalesce into one denoise: scales, start_noise and
-    guidance ride as per-row vectors, distinct adapters stack per row
-    (lora/batch.py), and the rows split back per request afterwards.
+    guidance ride as per-row vectors, the adapters stack per row
+    (lora/batch.py; also a lone adapter, where the JAX engine passes its
+    solo tree), and the rows split back per request afterwards.
     Padding rows reuse request 0's start_noise, guidance, conditioning and
     latent, at scale 0.
   - Initial latents come from a torch.Generator seeded with the request
@@ -38,8 +39,34 @@ Endpoints (JSON in, JSON out; images as base64 PNG):
 rank concatenation of several sliders at their scales (lora/compose.py),
 served at slider scale 1 as one adapter.
 
-Not ported yet: continuous batching and dp and pp meshes (ROADMAP queue 1,
-items 13 and 15).
+`SliderEngine(continuous=True)` (SD and SDXL) keeps one fixed row bucket
+in flight and advances it `chunk_steps` denoise steps a device call
+(`text2image.make_continuous_step_fn`): every row has its own step
+position, requests JOIN mid-flight at chunk boundaries (their rows written
+into free slots, their LMS history columns zeroed) and EXIT when their
+steps are done (the done rows gathered, padded to a power of two and
+decoded). A row computes what the boundary engine computes for it at the
+same bucket (both engines stack every adapter per row), so on the CPU a
+request's PNGs are the boundary engine's at bucket `continuous_rows`, byte
+for byte, joiners included (tests/test_torch_continuous.py). On the H100
+that holds for a request that starts a batch, whose rows hold the slots of
+its boundary run. A joiner's rows hold other slots, where cuDNN's bf16 3x3
+convs at the UNet's 32^2, 16^2 and 8^2 levels round a row by its position
+in the batch, and its exit decode runs at its power-of-two row count: its
+PNGs stay within 40 dB PSNR of the boundary run's (44.5-46.8 dB measured;
+chip_smoke.py; ROADMAP queue 3). Where the JAX engine's continuous worker
+is not followed (ROADMAP queue 3):
+  - starvation: a queue head that cannot join the live batch (signature,
+    rank bucket or free rows) waits at most ceil(steps / chunk_steps)
+    chunks; after that nothing else is admitted until it fits, at the
+    latest when the batch drains;
+  - error scope: a joining request whose host inputs fail (prompt encode,
+    adapter stacking, rank padding) fails alone; the batch-wide reset is
+    for failures of the chunk and decode device calls;
+  - the warm-up's join holds the device lock while it queues its two
+    requests, so the second really joins a live batch (`stats["joins"]`).
+
+Not ported yet: dp and pp meshes (ROADMAP queue 1, item 15).
 
 Run it: python -m sliders_tpu_torch.cli.serve --base <snapshot> [--flux] [--port N]
 """
@@ -60,7 +87,7 @@ import torch
 from sliders_tpu_torch.diffusion.schedulers import (make_flowmatch_sampler, make_sampler,
                                                     make_schedule)
 from sliders_tpu_torch.lora import io as lora_io
-from sliders_tpu_torch.lora.batch import stack_sliders, structure_signature
+from sliders_tpu_torch.lora.batch import _rank_axes, stack_sliders, structure_signature
 from sliders_tpu_torch.lora.compose import compose_sliders
 from sliders_tpu_torch.models import flux
 from sliders_tpu_torch.models.params import tree_to
@@ -117,7 +144,7 @@ class _Pending:
 
     __slots__ = (
         "prompt", "negative", "seed", "scales", "slider", "weights", "sig",
-        "start_noise", "guidance", "event", "result", "error",
+        "start_noise", "guidance", "event", "result", "error", "waited",
     )
 
     def __init__(self, prompt, negative, seed, scales, slider, weights, sig,
@@ -134,6 +161,7 @@ class _Pending:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.waited = 0  # continuous engine: chunks run while this request sat queued
 
 
 class SliderEngine:
@@ -154,10 +182,9 @@ class SliderEngine:
         buckets=None,
         mesh=None,
         continuous: bool = False,
+        continuous_rows: Optional[int] = None,
+        chunk_steps: int = 5,
     ):
-        if continuous:
-            raise NotImplementedError(
-                "continuous batching is not ported yet (ROADMAP queue 1, item 13)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device (dp mesh) serving is not ported yet (ROADMAP queue 1, item 15)")
@@ -174,15 +201,23 @@ class SliderEngine:
         self.default_start_noise = float(start_noise)
         self.dtype = compute_dtype
         self.sampler = make_sampler(make_schedule(), scheduler, num_steps=self.steps)
+        rescale = 0.7 if models.is_xl else 0.0
         self.fn = t2i.make_sampling_fn(models.unet_config, self.sampler,
-                                       guidance_rescale=0.7 if models.is_xl else 0.0,
-                                       compute_dtype=self.dtype)
-        self._init_runtime(buckets, coalesce=not self.sampler.stochastic)
+                                       guidance_rescale=rescale, compute_dtype=self.dtype)
+        if continuous:  # raises for the stochastic samplers
+            self._cont_fn = t2i.make_continuous_step_fn(
+                models.unet_config, self.sampler, chunk=int(chunk_steps),
+                guidance_rescale=rescale, compute_dtype=self.dtype)
+        self._init_runtime(buckets, coalesce=not self.sampler.stochastic, continuous=continuous,
+                           continuous_rows=continuous_rows, chunk_steps=chunk_steps)
 
-    def _init_runtime(self, buckets, coalesce: bool = True) -> None:
+    def _init_runtime(self, buckets, coalesce: bool = True, continuous: bool = False,
+                      continuous_rows: Optional[int] = None, chunk_steps: int = 5) -> None:
         """The registry, the prompt cache, the queue, the decode slice and
         the batching worker; `coalesce` lets the worker put several queued
-        requests in one denoise."""
+        requests in one denoise; `continuous` starts the continuous worker
+        on a bucket of `continuous_rows` rows (default: the largest bucket;
+        the buckets are cut to it) and `chunk_steps` steps a call."""
         self.decode_rows = decode_rows_for(self.image_size)
         self._buckets = _SCALE_BUCKETS
         if buckets is not None:
@@ -192,6 +227,9 @@ class SliderEngine:
             self._buckets = tuple(sorted(buckets))
         self.sliders: dict[str, dict] = {}
         self._registry_lock = threading.Lock()
+        # held by the worker around its device work; a caller that holds it
+        # knows the worker is not between two of its calls
+        self._lock = threading.Lock()
         # (prompt, negative) -> encoded conditioning; FIFO-capped
         self._embed_cache: dict[tuple, tuple] = {}
         self._embed_cache_cap = 32
@@ -201,7 +239,29 @@ class SliderEngine:
         self._closed = False
         self.request_timeout = 3600.0
         self.stats = {"requests": 0, "batches": 0, "rows": 0}
-        self._worker = threading.Thread(target=self._worker_loop, daemon=True)
+        self._continuous = bool(continuous)
+        target = self._worker_loop
+        if self._continuous:
+            if not coalesce:
+                raise ValueError("continuous batching requires a deterministic sampler "
+                                 "(coalescing is off for ddpm and euler_a)")
+            self._cont_rows = int(continuous_rows if continuous_rows is not None
+                                  else self._buckets[-1])
+            # every request must fit the fixed row budget or it is never served
+            self._buckets = tuple(b for b in self._buckets if b <= self._cont_rows)
+            if not self._buckets:
+                raise ValueError(f"continuous_rows={self._cont_rows} is below the smallest "
+                                 f"scale bucket")
+            self._cont_chunk = int(chunk_steps)
+            if not 1 <= self._cont_chunk <= self.steps:
+                raise ValueError(f"chunk_steps={chunk_steps} must be in [1, {self.steps}]")
+            # a queue head that cannot join waits this many chunks, one
+            # whole denoise, before admission closes behind it
+            self._cont_patience = -(-self.steps // self._cont_chunk)
+            self._cont_sig = self._cont_buckets = None  # the live batch's class
+            self.stats.update(chunks=0, joins=0)
+            target = self._continuous_worker_loop
+        self._worker = threading.Thread(target=target, daemon=True)
         self._worker.start()
 
     def close(self, timeout: Optional[float] = None) -> None:
@@ -351,13 +411,17 @@ class SliderEngine:
                                  dtype=torch.float32)
         sn_vec = torch.tensor([p.start_noise for p in per_row], dtype=torch.float32)
         g_vec = torch.tensor([p.guidance for p in per_row], dtype=torch.float32)
-        # one adapter in flight -> its solo tree; distinct adapters -> one
-        # stacked copy per row (pow2 rank buckets), padding rows at scale 0
+        # one stacked copy of each row's adapter (pow2 rank buckets), padding
+        # rows at scale 0, even with one adapter in flight: the LoRA branch
+        # is then the continuous engine's per-row product, whose bits do not
+        # depend on the batch's other rows (a solo tree's one product may
+        # split its sums otherwise on the card)
         weights = batch[0].weights
-        if weights is not None and any(p.weights is not weights for p in batch[1:]):
+        if weights is not None:
             weights = stack_sliders([p.weights for p in per_row], round_ranks_pow2=True)
 
-        imgs = self._run_rows(batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec)
+        with self._lock:
+            imgs = self._run_rows(batch, rows, pad_n, weights, scale_vec, sn_vec, g_vec)
         self.stats["requests"] += len(batch)
         self.stats["batches"] += 1
         self.stats["rows"] += total
@@ -415,12 +479,225 @@ class SliderEngine:
             t2i.decode_images(m.vae_params, m.vae_config, lat[i:i + self.decode_rows]).cpu().numpy()
             for i in range(0, lat.shape[0], self.decode_rows)])
 
+    # -- step-level continuous batching -------------------------------------
+    #
+    # The boundary worker admits requests only between denoises, so a
+    # newcomer waits out the whole denoise in flight. The continuous worker
+    # keeps ONE bucket of `_cont_rows` rows in flight and advances it
+    # `_cont_chunk` steps a call: each row carries its own step position,
+    # requests join at chunk boundaries and exit when their steps are done.
+    # Admission needs the live batch's structure signature AND the same pow2
+    # rank bucket per module, exactly (as the JAX engine: a row then runs
+    # the program shape of its solo run); sliderless requests form their own
+    # batches. The bucket is computed in full whatever its occupancy, so
+    # this mode is for sustained overlapping traffic.
+
+    def _cont_request_rows(self, q: _Pending) -> dict:
+        """A request's device inputs: its 1-row conditioning (cond, uncond,
+        added or None), its initial latent (1, h, w, 4) in the compute
+        dtype, and its adapter stacked over its rows at its pow2 rank
+        buckets (None without a slider): the values the boundary engine
+        feeds `_run_rows`, so the trajectories match."""
+        cond, uncond, added = self._encode(q.prompt, q.negative)
+        lat = t2i.initial_latents(torch.Generator().manual_seed(q.seed), 1, self.image_size,
+                                  self.image_size, self.sampler.init_noise_sigma)
+        # its pow2 rank buckets are the live batch's (`_cont_fits`)
+        w = (None if q.weights is None
+             else stack_sliders([q.weights] * len(q.scales), round_ranks_pow2=True))
+        return {"cond": cond, "uncond": uncond, "added": added,
+                "x": lat.to(self.device).to(self.dtype), "w": w}
+
+    @staticmethod
+    def _cont_rows_of(rows: list) -> dict:
+        """The row-major state leaves of `rows`, a list of (inputs, request,
+        scale index) in slot order."""
+        inputs = [inp for inp, _, _ in rows]
+        first = inputs[0]
+        out = {key: torch.cat([inp[key] for inp in inputs]) for key in ("x", "cond", "uncond")}
+        out["added"] = None if first["added"] is None else {
+            name: torch.cat([inp["added"][name] for inp in inputs]) for name in first["added"]}
+        out["w"] = None if first["w"] is None else {
+            name: {leaf: torch.cat([inp["w"][name][leaf][k:k + 1] for inp, _, k in rows])
+                   for leaf in entry}
+            for name, entry in first["w"].items()}
+        for key, values in (("scale", [q.scales[k] for _, q, k in rows]),
+                            ("sn", [q.start_noise for _, q, _ in rows]),
+                            ("g", [q.guidance for _, q, _ in rows])):
+            out[key] = torch.tensor(values, dtype=torch.float32, device=first["x"].device)
+        return out
+
+    def _cont_fresh_state(self, new: list) -> dict:
+        """The whole bucket's state from an admission into an EMPTY batch:
+        `new` is [(inputs, request, slots)]; free slots repeat the first
+        row's values and never advance (their step position stays n)."""
+        by_slot = {slot: (inp, q, k) for inp, q, slots in new for k, slot in enumerate(slots)}
+        fill = by_slot[min(by_slot)]
+        state = self._cont_rows_of([by_slot.get(j, fill) for j in range(self._cont_rows)])
+        state["s"] = self.sampler.init_state(state["x"])
+        return state
+
+    def _cont_join_state(self, state: dict, new: list) -> dict:
+        """Write an admission into the LIVE batch, in place: the row-major
+        leaves at the joining slots, and the sampler-state columns
+        (history-major: LMS's (ORDER, B, ...) derivs) of those slots zeroed."""
+        rows = [(inp, q, k) for inp, q, slots in new for k in range(len(slots))]
+        pos = torch.tensor([slot for _, _, slots in new for slot in slots],
+                           device=state["x"].device)
+        upd = self._cont_rows_of(rows)
+        for key in ("x", "cond", "uncond", "scale", "sn", "g"):
+            state[key][pos] = upd[key].to(state[key].dtype)
+        if state["added"] is not None:
+            for name, leaf in state["added"].items():
+                leaf[pos] = upd["added"][name].to(leaf.dtype)
+        if state["w"] is not None:
+            for name, entry in state["w"].items():
+                for leaf, live in entry.items():
+                    live[pos] = upd["w"][name][leaf].to(live.dtype)
+        for hist in state["s"].values():
+            hist[:, pos] = 0
+        return state
+
+    @staticmethod
+    def _cont_req_buckets(q: _Pending) -> Optional[dict]:
+        """The pow2 rank bucket of each module of a request's adapter (None
+        without a slider); shape arithmetic only."""
+        if q.weights is None:
+            return None
+        return {name: 1 << (e["down"].shape[_rank_axes(e)[0]] - 1).bit_length()
+                for name, e in q.weights.items()}
+
+    def _cont_fits(self, q: _Pending, buckets: Optional[dict]) -> bool:
+        """Can `q` ride a batch whose rank buckets are `buckets`? Exact
+        equality (the signature is the caller's check)."""
+        return self._cont_req_buckets(q) == buckets
+
+    def _cont_admit(self, busy: bool, free: list) -> list:
+        """One admission round, under the queue lock: pops and returns the
+        queued requests that join now, as [(request, slots)], taking their
+        slots from `free`. An empty batch takes its class (signature, rank
+        buckets) from the first request admitted. Once the oldest queued
+        request has waited `_cont_patience` chunks without fitting, only it
+        may be admitted: the batch drains until it fits."""
+        admitted = []
+        head = self._queue[0] if self._queue else None
+        gate = head is not None and head.waited >= self._cont_patience
+        i = 0
+        while i < len(self._queue):
+            q = self._queue[i]
+            if q is None:  # close() sentinel: what is before it drains first
+                break
+            if not busy and not admitted:
+                self._cont_sig, self._cont_buckets = q.sig, self._cont_req_buckets(q)
+            if (q.sig == self._cont_sig and len(q.scales) <= len(free)
+                    and self._cont_fits(q, self._cont_buckets)):
+                admitted.append((self._queue.pop(i), [free.pop(0) for _ in q.scales]))
+                gate = False
+            elif gate:
+                break
+            else:
+                i += 1
+        return admitted
+
+    def _cont_decode(self, state: dict, slots: list) -> np.ndarray:
+        """uint8 images of the done rows: gathered, padded to a power of two
+        rows (at most the bucket) and decoded `decode_rows` rows a call."""
+        n_done = len(slots)
+        nb = min(1 << (n_done - 1).bit_length(), self._cont_rows)
+        idx = slots + [slots[0]] * (nb - n_done)
+        x = state["x"][torch.tensor(idx, device=state["x"].device)]
+        if not torch.isfinite(x).all():
+            raise FloatingPointError("denoised latents are not finite")
+        return self._decode(x)[:n_done]
+
+    def _continuous_worker_loop(self):
+        N, C, n = self._cont_rows, self._cont_chunk, self.steps
+        state: Optional[dict] = None
+        slot_req: list = [None] * N  # slot -> (request, scale index)
+        step_idx = np.full(N, n, np.int64)
+        req_slots: dict = {}  # id(request) -> (request, [slots])
+
+        def release(q):
+            for slot in req_slots.pop(id(q))[1]:
+                slot_req[slot] = None
+                step_idx[slot] = n
+
+        while True:
+            with self._queue_cv:
+                busy = any(s is not None for s in slot_req)
+                while not self._queue and not busy:
+                    self._queue_cv.wait()
+                if not busy and self._queue[0] is None:
+                    return  # close(): drained
+                free = [j for j in range(N) if slot_req[j] is None]
+                new = self._cont_admit(busy, free)
+            for q, slots in new:
+                req_slots[id(q)] = (q, slots)
+                for k, slot in enumerate(slots):
+                    slot_req[slot] = (q, k)
+            try:
+                with self._lock, torch.inference_mode():
+                    built = []
+                    for q, slots in new:
+                        # a joiner's host inputs fail it alone
+                        try:
+                            built.append((self._cont_request_rows(q), q, slots))
+                        except Exception as e:
+                            release(q)
+                            q.error = e
+                            q.event.set()
+                    if built:
+                        if not busy:
+                            state = self._cont_fresh_state(built)
+                        else:
+                            state = self._cont_join_state(state, built)
+                            self.stats["joins"] += 1
+                        for _, _, slots in built:
+                            step_idx[slots] = 0
+                    if not any(s is not None for s in slot_req):
+                        continue
+                    state["x"], state["s"] = self._cont_fn(
+                        self.models.unet_params, state["x"], state["s"], step_idx,
+                        state["cond"], state["uncond"], state["w"], state["scale"],
+                        state["sn"], state["g"], state["added"])
+                    self.stats["chunks"] += 1
+                with self._queue_cv:
+                    for q in self._queue:
+                        if q is not None:
+                            q.waited += 1
+                occupied = np.array([s is not None for s in slot_req])
+                step_idx = np.where(occupied, np.minimum(step_idx + C, n), step_idx)
+                done = [j for j in range(N) if slot_req[j] is not None and step_idx[j] >= n]
+                if not done:
+                    continue
+                with self._lock, torch.inference_mode():
+                    imgs = self._cont_decode(state, done)
+                    self.stats["batches"] += 1
+                img_of = dict(zip(done, imgs))
+                finished = {id(slot_req[j][0]): slot_req[j][0] for j in done}
+                for q in finished.values():
+                    slots = req_slots[id(q)][1]
+                    q.result = [(q.scales[k], encode_png(img_of[slot]))
+                                for k, slot in enumerate(slots)]
+                    release(q)
+                    self.stats["requests"] += 1
+                    self.stats["rows"] += len(slots)
+                    q.event.set()
+            except BaseException as e:
+                # a failed chunk or decode: every slotted request fails and
+                # the batch resets (its latents are lost)
+                failed = {id(s[0]): s[0] for s in slot_req if s is not None}
+                for q in failed.values():
+                    release(q)
+                    q.error = e
+                    q.event.set()
+                state = None
+
     def warmup(self, with_slider: Optional[str] = None, n_scales: int = 5,
                multi_tenant: bool = False) -> None:
         """Run the hot path once before serving traffic (reference sweep size:
-        5 scales -> bucket 8). `multi_tenant=True` also runs the per-row
-        stacked path once: two queued requests whose trees are distinct
-        objects make the worker stack them."""
+        5 scales -> bucket 8). `multi_tenant=True` also runs a batch of two
+        coalesced requests whose trees are distinct objects once, and on the
+        continuous engine a mid-flight join (`_warmup_join`)."""
         if multi_tenant and with_slider is None:
             raise ValueError("multi_tenant warmup needs with_slider")
         if multi_tenant and not self._coalesce:
@@ -430,6 +707,9 @@ class SliderEngine:
         self.generate("warmup", seed=0, slider=with_slider, scales=[0.0] * n_scales)
         if not multi_tenant:
             return
+        if self._continuous:
+            self._warmup_join(with_slider)
+            return
         half = max(1, n_scales // 2)
         p1 = self._make_pending("warmup", slider=with_slider, scales=[0.0] * half)
         p2 = self._make_pending("warmup", slider=with_slider,
@@ -438,6 +718,33 @@ class SliderEngine:
         self._submit([p1, p2])
         for p in (p1, p2):
             self._wait(p)
+
+
+    def _warmup_join(self, with_slider: Optional[str]) -> None:
+        """Run the continuous engine's mid-flight join once: a request, then
+        a second queued while the worker is held at its first device call,
+        so it joins the first's live batch (checked by `stats["joins"]`). A
+        bucket of one row or a chunk of every step has no join to run."""
+        if self._cont_rows < 2 or self._cont_chunk >= self.steps:
+            return
+        p1, p2 = (self._make_pending("warmup", seed=seed, slider=with_slider, scales=[0.0])
+                  for seed in (0, 1))
+        joins = self.stats["joins"]
+        deadline = time.monotonic() + self.request_timeout
+        with self._lock:
+            self._submit([p1])
+            while True:  # until the worker has admitted p1 and waits on the lock
+                with self._queue_cv:
+                    if p1 not in self._queue:
+                        break
+                if time.monotonic() > deadline:
+                    raise TimeoutError("continuous warmup: the first request was never admitted")
+                time.sleep(0.001)
+            self._submit([p2])
+        for p in (p1, p2):
+            self._wait(p)
+        if self.stats["joins"] == joins:
+            raise RuntimeError("continuous warmup: the second request did not join a live batch")
 
 
 class FluxSliderEngine(SliderEngine):

@@ -192,11 +192,13 @@ def test_committed_reference_fixture_loads():
 
 def test_generate_without_jax(root, tmp_path):
     """generate_images (SD, and --xl with euler_a and no CFG), the SD1 and
-    Turbo examples' scalar merged path, and an import of the FLUX example,
-    with jax, the JAX package, pandas and PIL unimportable."""
+    Turbo examples' scalar merged path, an import of the FLUX example,
+    `serve --continuous` answering a request over HTTP, and the real-image
+    editing and attention-map examples end to end, with jax, the JAX
+    package, pandas and PIL unimportable."""
     xl = make_tiny_snapshot(str(tmp_path / "sdxl_tiny"), xl=True)
     code = f"""
-import importlib.util, os, sys
+import argparse, importlib.util, os, sys
 banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "PIL", "pandas",
           "sliders_tpu")
 for name in [m for m in sys.modules if m.split(".")[0] in banned]:
@@ -234,6 +236,37 @@ xm = loader.load_sdxl({xl!r}, dtype=torch.float32, load_vae=True)
 lats = examples["sdxl_turbo_slider_torch"].sweep_latents(xm, None, "a person", [0.0], steps=3,
                                                          size=64, dtype=torch.float32)
 assert torch.isfinite(lats[0]).all()
+import json, threading, urllib.request
+from sliders_tpu_torch.cli import serve
+from sliders_tpu_torch.serving.server import encode_png, make_http_server
+engine = serve.make_engine(serve.build_parser().parse_args(
+    ["--base", {str(root / "sd_tiny")!r}, "--device", "cpu", "--precision", "float32",
+     "--ddim_steps", "2", "--image_size", "64", "--continuous", "--cont_rows", "2",
+     "--chunk_steps", "1", "--no_warmup"]))
+server = make_http_server(engine, "127.0.0.1", 0)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+req = urllib.request.Request(f"http://127.0.0.1:{{server.server_address[1]}}/generate",
+                             data=json.dumps({{"prompt": "a person", "scales": [0.0, 1.0]}}).encode())
+reply = json.loads(urllib.request.urlopen(req, timeout=120).read())
+assert len(reply["images"]) == 2 and engine.stats["chunks"] == 2, (reply, engine.stats)
+server.shutdown()
+engine.close(timeout=60)
+for name in ("edit_real_image_torch", "attention_maps_torch"):
+    spec = importlib.util.spec_from_file_location(name, os.path.join({REPO!r}, "examples",
+                                                                     name + ".py"))
+    examples[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(examples[name])
+import numpy as np
+image = os.path.join({str(tmp_path)!r}, "face.png")
+with open(image, "wb") as f:
+    f.write(encode_png(np.random.default_rng(0).integers(0, 256, (40, 36, 3), dtype=np.uint8)))
+examples["edit_real_image_torch"].main(argparse.Namespace(
+    base={str(root / "sd_tiny")!r}, image=image, prompt="a person", slider=None, scales="0,2", steps=2,
+    start_noise=500, guidance=7.5, inner_steps=1, size=32, device="cpu",
+    out=os.path.join({str(tmp_path)!r}, "edit.png")))
+examples["attention_maps_torch"].main(argparse.Namespace(
+    base={str(root / "sd_tiny")!r}, prompt="a person", slider=None, scale=1.0, t=501, size=64, res=8, seed=0,
+    device="cpu", out=os.path.join({str(tmp_path)!r}, "maps")))
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in banned]
 assert not loaded, loaded
 print("ok")
@@ -248,3 +281,6 @@ print("ok")
             ["3_0.png"]
     assert Image.open(io.BytesIO((tmp_path / "xl" / "base" / "all" / "3_0.png").read_bytes())) \
         .size == (2 * 16, 16)
+    assert Image.open(tmp_path / "edit.png").size == (2 * 32, 32)
+    # bos, eos and the tiny vocabulary's four tokens of "a person"
+    assert len(os.listdir(tmp_path / "maps")) == 6

@@ -445,7 +445,7 @@ def test_encode_png_decodes_with_pillow():
 
 @pytest.mark.parametrize(
     "flags",
-    [["--flux", "--pp", "2"], ["--pp", "2"], ["--dp", "2"], ["--continuous"]],
+    [["--flux", "--pp", "2"], ["--pp", "2"], ["--dp", "2"], ["--continuous", "--dp", "2"]],
 )
 def test_serve_cli_names_unported_flags(flags):
     args = tserve.build_parser().parse_args(["--base", "/nonexistent", *flags])
