@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD1.5 slider serving (at request boundaries
 and continuous), slider training (text and image sliders), offline sampling
-(`generate_images`) and real-image editing, its FLUX-dev
+(`generate_images`), real-image editing and the eval harness (the UCE,
+textual-inversion and custom-diffusion generators, the CLIP and LPIPS
+scorers), its FLUX-dev
 slider serving, slider training and scalar-scale sampling, and its
 SDXL-base slider serving (also continuous), slider training (text and
 image sliders) and SDXL-Turbo sampling, once on one NVIDIA GPU, under the default conv route and the three
@@ -124,7 +126,18 @@ with its seconds and the seconds since the start:
      null-text backward, #4 at the encode and the decode); then "maps":
      examples/attention_maps_torch.py's word maps at 512 px in f32 under a
      tap wanting attn2 (#1 10) and an unfiltered one (#1 0), the row sums,
-     eps against the untapped forward, the 16 x 16 maps written.
+     eps against the untapped forward, the 16 x 16 maps written. Between
+     "generate" and "edit", the eval harness on the same snapshot: "uce
+     sd15" (`cli/generate_images_uce.py`: an edited UNet .pt of the
+     snapshot's weights + seeded noise, scales -1, 0, 1, LMS 10 steps, 512
+     px; #1 10 x 10 x 3, #4 3; scale 0 byte-equal to the adapter-free
+     sampler in-process), "ti sd15" (`cli/generate_images_text_inversion.py`
+     with a .pt embedding for a token the CLI adds, DDIM 10; #1 100, #4 1;
+     the encoder's new row equal to the file's) and "scores"
+     (`cli/clip_score.py` and `cli/lpips_score.py` on the UCE run folder
+     with ViT-B/32 and AlexNet / LPIPS files on seeded weights, on the card
+     and on the CPU: scores within 1e-4 relative, no kernel launch,
+     LPIPS(x, x) = 0, ms an image).
   7. flux:   FLUX-dev at full width and depth (transformer, T5-XXL encoder,
      CLIP-L, FLUX VAE) in bf16 with seeded random weights and two rank-4
      xattn sliders; one transformer step at bucket 8, 1024 px, timed and
@@ -138,7 +151,7 @@ with its seconds and the seconds since the start:
      slider training on the same models through `train_flux_sliders`
      (data/config.yaml's values with the xattn method: bf16, remat, rank-4
      ortho-up LoRA, AdamW lr 2e-4, T5 length 512, max_denoising_steps cut
-     to 8): 4 iterations at 512 px (#1 57 x (t_to + 3) and #2 57 per
+     to 8): 3 iterations at 512 px (#1 57 x (t_to + 3) and #2 57 per
      iteration; iteration 1 under torch.profiler) and 1 at 2048 px (#4 57 x
      (t_to + 3) and its backward 57), each iteration's host wall and device
      ms by phase, the peak memory, every down moved and every up and alpha
@@ -157,11 +170,11 @@ with its seconds and the seconds since the start:
      with the pin off and again on (#9 22 x steps, the same images),
      /healthz is_xl, #4 once per decode; then the training CLI with --xl on
      a snapshot of the same weights, with data/config-xl.yaml's values and
-     data/prompts-xl.yaml's age pair at 512 px for 4 iterations, pin on:
+     data/prompts-xl.yaml's age pair at 512 px for 3 iterations, pin on:
      launches exact (#1 10 x (t_to + 3), #2 10, #9 22 x (t_to + 2) + 21 per
      iteration), every down and up moved, host wall and device ms by phase,
      peak memory; then image-slider training with --xl on the same snapshot
-     (its VAE too) at 512 px for 3 iterations, pin off (#1 20, #2 10, #4 1
+     (its VAE too) at 512 px for 4 iterations, pin off (#1 20, #2 10, #4 1
      an iteration), timed as SD1.5's; then "turbo sdxl" on the same
      snapshot: `generate_images --xl --scheduler euler_a --ddim_steps 3
      --guidance_scale 1 --start_noise 700 --image_size 512`, 5 scales (no
@@ -169,7 +182,11 @@ with its seconds and the seconds since the start:
      4096, 512)); then an SDXL SliderEngine with scheduler 'euler_a' (3
      steps, 512 px) behind HTTP: a 16-scale request and, queued together
      behind it, two with one seed: three batches (no coalescing) and the
-     two replies' PNG bytes equal. Before the training, "SDXL continuous":
+     two replies' PNG bytes equal; then "custom diffusion sdxl":
+     `cli/generate_images_custom_diffusion.py --compress` on the snapshot
+     with a delta checkpoint (every attn2 to_k / to_v as rank-4 {'u','v'}
+     factors, a modifier token for both encoders) at 1024 px, DDIM 4
+     (#1 70 x 4, #4 1). Before the training, "SDXL continuous":
      the SD1.5 continuous check at 1024 px, 8 steps, chunk 4, one join.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises, exits non-zero and prints
@@ -379,7 +396,7 @@ TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
 TINY_FLUX_LR = 1e-5
 # FLUX-dev training at full width: iterations at each resolution, and
 # max_denoising_steps cut from data/config.yaml's 50 (t_to in [1, 8))
-FLUX_TRAIN_ITERATIONS = {512: 4, 2048: 1}
+FLUX_TRAIN_ITERATIONS = {512: 3, 2048: 1}
 FLUX_TRAIN_STEPS = 8
 # SDXL-base (the UNet's 2,567,463,684 parameters are diffusers' sdxl-base-1.0,
 # as tests/test_unet.py pins them). At 1024 px its 11 Transformer2D blocks
@@ -399,8 +416,8 @@ SDXL_SD_1024 = 70
 SDXL_SD_512 = 10
 SDXL_PX = 1024
 SDXL_HTTP_STEPS = 8  # DDIM steps per /generate, cut from the CLI's 50
-SDXL_STEP_ROUNDS = 2  # rounds of the step timing, pin off and on in turn
-SDXL_TRAIN_ITERATIONS = 4  # cut from data/config-xl.yaml's 1000
+SDXL_STEP_ROUNDS = 1  # rounds of the step timing, pin off and on in turn
+SDXL_TRAIN_ITERATIONS = 3  # cut from data/config-xl.yaml's 1000
 # kernel #9 at the SDXL serving boundaries (bucket 8, 16 CFG rows, 1024 px)
 PIN_SHAPES = [(16, 4096, 640), (16, 1024, 1280)]
 # TINY_XL at 512 px: its attention level is 32x32 (L = 1024, #1's route): 8
@@ -419,7 +436,7 @@ ENCODE_FLASH_SHAPES = [(2, 1, (px // 8) ** 2, 512) for px in IMAGE_PX.values()]
 ENCODE_AB_ROUNDS = 3  # 'auto' / 'xla' turns of the full-width encoder
 # cut from the configs' 1000; the last iteration is traced, and saves (per_steps
 # 2) fall outside it
-IMAGE_TRAIN_ITERATIONS = {"sd15": 5, "sdxl": 5}
+IMAGE_TRAIN_ITERATIONS = {"sd15": 4, "sdxl": 4}
 READER_PHOTO_PX = 1024  # the reader also timed on one photo-sized PNG
 IMAGE_SD_ROUTED = {"sd15": 5, "sdxl": SDXL_SD_512}
 # tiny image training GPU vs CPU through the CLI: TINY UNet and TINY VAE (one
@@ -444,6 +461,22 @@ TURBO_STEPS = 3
 TURBO_A_SCALES = [float(s) for s in range(-8, 8)]
 FLUX_SCALAR_STEPS = 2
 GENERATE_RUNS = ("ddim", "lms", "euler_a", "ddpm", "compose")
+# the eval harness (phase_uce, phase_ti, phase_custom_diffusion,
+# phase_scores): UCE's sweep and LMS steps, textual inversion's and custom
+# diffusion's DDIM steps (cut from the CLIs' 50; custom diffusion at its
+# CLI's default 1024 px), the UCE edit's noise (x each tensor's std), the
+# compressed deltas' rank, and the most by which a
+# score on the card may depart from the CPU's (relative, TF32 off)
+UCE_SCALES = [-1.0, 0.0, 1.0]
+UCE_STEPS = 10
+TI_STEPS = 10
+TI_TOKEN = "<sks-eyes>"
+CD_STEPS = 4
+CD_PX = 1024
+CD_TOKEN = "<sks-eyebrows>"
+CD_RANK = 4
+UCE_NOISE = 0.01
+SCORE_REL = 1e-4
 # continuous serving (phase_continuous, phase_sdxl_continuous): the bucket in
 # flight, the steps a chunk (SDXL: half its 8 steps), request (b)'s sweep,
 # the samplers; the largest (pixel level, share of values) by which a
@@ -1562,9 +1595,12 @@ def phase_tiny_train(conv_impl: str = "xla"):
     return conv
 
 
-def write_tokenizer(d: str) -> None:
+def write_tokenizer(d: str, size: int = 0) -> None:
     """A small synthetic CLIP BPE vocabulary (no tokenizer files ship with
-    random weights); any token id it yields is valid for CLIP-L."""
+    random weights); any token id it yields is valid for CLIP-L. With
+    `size`, padded with unused entries to `size` ids, as a real vocabulary
+    fills its encoder's embedding matrix (a token added to it then grows
+    the matrix)."""
     chars = list("abcdefghijklmnopqrstuvwxyz0123456789!,.")
     vocab = {}
     for c in chars:
@@ -1575,6 +1611,8 @@ def write_tokenizer(d: str) -> None:
         vocab.setdefault(a + b, len(vocab))
     vocab["<|startoftext|>"] = len(vocab)
     vocab["<|endoftext|>"] = len(vocab)
+    for i in range(size - len(vocab)):
+        vocab[f"<|unused{i}|>"] = len(vocab)
     with open(os.path.join(d, "vocab.json"), "w") as f:
         json.dump(vocab, f)
     with open(os.path.join(d, "merges.txt"), "w") as f:
@@ -1982,7 +2020,7 @@ def phase_step(engine):
     return dec, dec_conv
 
 
-def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 4, runs: int = 3,
+def decode_ab(vae_params, vae_config, lat, what: str, rounds: int = 2, runs: int = 3,
               route: str = "attention") -> dict:
     """One VAE decode (f32, as served: under the decode's own TF32 flags,
     `text2image.decode_precision`) timed under impls
@@ -2100,7 +2138,7 @@ def expect_hopper(per_forward: dict, variants: dict, what: str) -> None:
                              f"{total} on the Hopper mainloop")
 
 
-def phase_conv_step(engine, rounds: int = 2):
+def phase_conv_step(engine, rounds: int = 1):
     """The UNet step of `phase_step` (bucket 8, 16 rows, bf16, slider on)
     under each conv impl, in alternating rounds of 5 synced steps: ms per
     step, each conv kernel's launches per forward (CONV_PER_FORWARD), and the
@@ -2173,7 +2211,7 @@ def phase_conv_step(engine, rounds: int = 2):
     return out
 
 
-def phase_grad_ab(engine, dtype: str = "bfloat16", rounds: int = 4, passes: int = 5):
+def phase_grad_ab(engine, dtype: str = "bfloat16", rounds: int = 2, passes: int = 5):
     """The training grad pass at full width (SD1.5 UNet, batch 1, 512 px,
     remat, the rank-4 slider's factors as the leaves) through the kernel
     route (#1 and #2) against the plain attention route ('xla'), in
@@ -2775,6 +2813,11 @@ def phase_train():
         generate = timed("generate sd15", phase_generate, snap, tmp)
         gc.collect()
         torch.cuda.empty_cache()
+        uce = timed("uce sd15", phase_uce, snap, tmp)
+        ti = timed("ti sd15", phase_ti, snap, tmp)
+        scores = timed("scores", phase_scores, uce["folder"], uce["csv"], tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
         edit = timed("edit sd15", phase_edit, snap, tmp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2802,7 +2845,8 @@ def phase_train():
     return {"fwd": run["fwd"], "bwd": run["bwd"], "resume_fwd": resumed["fwd"],
             "resume_bwd": resumed["bwd"], "fused_fwd": fused["fwd"], "fused_bwd": fused["bwd"],
             "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image,
-            "generate": generate, "edit": edit, "maps": maps}
+            "generate": generate, "edit": edit, "maps": maps, "uce": uce, "ti": ti,
+            "scores": scores}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -3785,8 +3829,11 @@ def phase_sdxl(tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     turbo = timed("turbo sdxl", phase_turbo, snap, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    custom = timed("custom diffusion sdxl", phase_custom_diffusion, snap, tmp)
     return {"step": step, "conv": conv, "http": http, "train": train, "image": image,
-            "turbo": turbo, "continuous": cont}
+            "turbo": turbo, "continuous": cont, "custom_diffusion": custom}
 
 
 @contextlib.contextmanager
@@ -4935,6 +4982,335 @@ def phase_attention_maps(snap: str, tmp: str) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the eval harness: UCE, textual inversion, custom diffusion, CLIP / LPIPS
+# ---------------------------------------------------------------------------
+
+
+def eval_csv(path: str, seed: int) -> str:
+    with open(path, "w") as f:
+        f.write(f'case_number,prompt,evaluation_seed\n0,"a photo of a person, smiling",{seed}\n')
+    return path
+
+
+def run_eval_cli(tag: str, module, argv: list, expected: tuple) -> tuple:
+    """`module.main` in-process on CUDA device 0: (its result, its wall
+    seconds); launches (#1, #4) exact, the peak memory printed."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flux_counts()
+    t0 = time.perf_counter()
+    res = module.main(module.build_parser().parse_args(argv + ["--device", "0"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = sampling_counts()
+    say("eval", f"{tag}: {wall:.2f} s the call with the model load, "
+        f"{[round(s, 3) for _, s in res['cases']]} s the CSV row; launches (#1, #4) {counts} "
+        f"(expected {expected}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if counts != expected:
+        raise AssertionError(f"{tag}: launches {counts}, not {expected}")
+    return res, wall
+
+
+def full_vocab_snapshot(snap: str, root: str) -> str:
+    """`snap` under `root` with its weights linked and its tokenizers
+    rewritten at CLIP's full vocabulary (49408 ids, the embedding matrices'
+    rows), so that a token the CLIs add gets id 49408 and grows the matrix,
+    as with the real tokenizer files."""
+    from sliders_tpu_torch.models import clip_text
+
+    os.makedirs(root)
+    for sub in os.listdir(snap):
+        if sub.startswith("tokenizer"):
+            os.makedirs(os.path.join(root, sub))
+            write_tokenizer(os.path.join(root, sub), clip_text.CLIP_L.vocab_size)
+        else:
+            os.symlink(os.path.join(snap, sub), os.path.join(root, sub))
+    return root
+
+
+def png_files(folder: str) -> dict:
+    """{name: pixel bytes} of the 512 px PNGs of `folder`."""
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            out[name] = png_pixels(f.read())
+    return out
+
+
+def phase_uce(snap: str, tmp: str) -> dict:
+    """UCE on the full-width SD1.5 snapshot of `phase_train`: an edited UNet
+    state dict (.pt) = the snapshot's UNet + UCE_NOISE x normal (seeded),
+    then `generate_images_uce --scales=-1,0,1 --ddim_steps 10 --image_size
+    512 --num_samples 1` (LMS): #1 10 x 10 x 3, #4 3 (one decode a scale);
+    three distinct PNGs and an all/ strip. Then in-process: at scale 0
+    `make_uce_sampling_fn` gives the latents of `make_sampling_fn` with no
+    adapter, byte for byte (the interpolation at 0 is the base tree)."""
+    import torch
+
+    from sliders_tpu_torch.cli import generate_images_uce
+    from sliders_tpu_torch.diffusion import make_sampler, make_schedule
+    from sliders_tpu_torch.evals.baselines import make_uce_sampling_fn
+    from sliders_tpu_torch.models.convert import read_safetensors
+    from sliders_tpu_torch.pipelines import text2image as t2i
+    from sliders_tpu_torch.pipelines.encoding import encode_prompts
+
+    d = os.path.join(tmp, "uce")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    state = read_safetensors(os.path.join(snap, "unet", "diffusion_pytorch_model.safetensors"))
+    edited = {}
+    for k, v in state.items():
+        v = v.to("cuda")
+        noise = torch.randn(v.shape, generator=gen, device="cuda") * UCE_NOISE
+        scale = max(float(v.float().abs().mean()), 1e-3)
+        edited[k] = (v.float() + noise * scale).to(v.dtype).cpu()
+    ckpt = os.path.join(d, "uce_age.pt")
+    torch.save(edited, ckpt)
+    del state, edited
+    say("eval", f"uce sd15: edited UNet state dict written in {time.perf_counter() - t0:.1f} s")
+    csv_path = eval_csv(os.path.join(d, "prompts.csv"), 3)
+    argv = ["--model_name", ckpt, "--prompts_path", csv_path, "--base", snap, "--save_path",
+            os.path.join(d, "out"), f"--scales={','.join(str(s) for s in UCE_SCALES)}",
+            "--ddim_steps", str(UCE_STEPS), "--image_size", "512", "--num_samples", "1"]
+    res, wall = run_eval_cli("uce sd15", generate_images_uce, argv,
+                             (ROUTED_PER_FORWARD * UCE_STEPS * len(UCE_SCALES), len(UCE_SCALES)))
+    folder = res["folder"]
+    names = ["-1", "0", "1"]
+    if sorted(os.listdir(folder)) != sorted(names + ["all"]):
+        raise AssertionError(f"uce sd15: folders {sorted(os.listdir(folder))}")
+    pixels = {n: png_files(os.path.join(folder, n))["0_0.png"] for n in names}
+    strip = png_files(os.path.join(folder, "all"))["0_0.png"]
+    if {px[:2] for px in pixels.values()} != {(512, 512)} or strip[:2] != (1536, 512):
+        raise AssertionError("uce sd15: image sizes")
+    if len({px[2] for px in pixels.values()}) != len(names):
+        raise AssertionError("uce sd15: the three scales' PNGs are not distinct")
+
+    models, edited = res.pop("models"), res.pop("edited_params")  # the CLI's, loaded once
+    sampler = make_sampler(make_schedule(), "lms", UCE_STEPS)
+    te = models.text_encoders[0]
+    cond = encode_prompts(te.tokenizer, te.params, te.config, ["a photo of a person, smiling"])
+    uncond = encode_prompts(te.tokenizer, te.params, te.config, [""])
+    lats = t2i.initial_latents(torch.Generator().manual_seed(3), 1, 512, 512,
+                               sampler.init_noise_sigma).cuda()
+    uce0 = make_uce_sampling_fn(models.unet_config, sampler)(
+        models.unet_params, edited, lats, cond, uncond, 0.0, 800.0, 7.5)
+    uce1 = make_uce_sampling_fn(models.unet_config, sampler)(
+        models.unet_params, edited, lats, cond, uncond, 1.0, 800.0, 7.5)
+    base = t2i.make_sampling_fn(models.unet_config, sampler)(
+        models.unet_params, lats, cond, uncond, None, 0.0, 800.0, 7.5)
+    same = torch.equal(uce0, base)
+    moved = float((uce1.float() - base.float()).abs().max())
+    say("eval", f"uce sd15: at scale 0 the UCE sampler's latents are the adapter-free "
+        f"sampler's {'byte for byte' if same else 'NOT byte for byte'}; at scale 1 they move "
+        f"by max|dx| {moved:.4g} (max|x| {float(base.float().abs().max()):.4g})")
+    if not same or moved == 0.0:
+        raise AssertionError("uce sd15: scale 0 is not the base sampler, or scale 1 is")
+    row_s = res["cases"][0][1]
+    del models, edited, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sd": ROUTED_PER_FORWARD * UCE_STEPS * len(UCE_SCALES), "flash": len(UCE_SCALES),
+            "row_s": row_s, "wall_s": wall, "folder": folder, "csv": csv_path}
+
+
+def phase_ti(snap: str, tmp: str) -> dict:
+    """Textual inversion on the same snapshot (`full_vocab_snapshot`): a .pt
+    embedding for TI_TOKEN, which the vocabulary cannot spell (the CLI adds
+    it as id 49408 and grows the matrix), DDIM 10 steps at 512 px: #1
+    10 x 10, #4 1; the encoder's new row equals the file's vector (drawn
+    bf16-exact)."""
+    import torch
+
+    from sliders_tpu_torch.cli import generate_images_text_inversion
+
+    d = os.path.join(tmp, "ti")
+    os.makedirs(d)
+    vec = torch.randn(768, generator=torch.Generator().manual_seed(71)).bfloat16().float()
+    emb = os.path.join(d, "eyes_embeds.pt")
+    torch.save({TI_TOKEN: vec}, emb)
+    argv = ["--model_name", full_vocab_snapshot(snap, os.path.join(d, "sd15")),
+            "--prompts_path", eval_csv(os.path.join(d, "p.csv"), 4),
+            "--token", TI_TOKEN, "--embedding_file", emb, "--save_path", os.path.join(d, "out"),
+            "--ddim_steps", str(TI_STEPS), "--image_size", "512", "--num_samples", "1"]
+    expected = (ROUTED_PER_FORWARD * TI_STEPS, 1)
+    res, wall = run_eval_cli("ti sd15", generate_images_text_inversion, argv, expected)
+    (te,) = res["text_encoders"]
+    tid = te.tokenizer.convert_tokens_to_ids(TI_TOKEN)
+    emb_w = te.params["text_model"]["embeddings"]["token_embedding"]["weight"]
+    row_ok = tid == emb_w.shape[0] - 1 and torch.equal(emb_w[tid].float().cpu(), vec)
+    files, res_row = png_files(res["folder"]), res["cases"][0][1]
+    say("eval", f"ti sd15: token {TI_TOKEN!r} added as id {tid} of {emb_w.shape[0]}; the "
+        f"encoder's row {'equals' if row_ok else 'DIFFERS FROM'} the file's vector; files "
+        f"{sorted(files)}")
+    if not row_ok or sorted(files) != ["0_0.png"] or files["0_0.png"][:2] != (512, 512):
+        raise AssertionError("ti sd15: the learned row or the output")
+    del res, te, emb_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sd": expected[0], "flash": expected[1], "row_s": res_row, "wall_s": wall}
+
+
+def phase_custom_diffusion(snap: str, tmp: str) -> dict:
+    """Custom diffusion on the SDXL snapshot of `phase_sdxl`
+    (`full_vocab_snapshot`): a delta
+    checkpoint (attn2 to_k / to_v of every transformer block as rank-CD_RANK
+    {'u','v'} factors, a modifier token with a 768- and a 1280-wide
+    embedding) run with --compress at the CLI's default 1024 px, DDIM 4
+    steps: #1 70 x 4, #4 1; the run named after the checkpoint's folder."""
+    import torch
+
+    from sliders_tpu_torch.cli import generate_images_custom_diffusion
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.utils.pytree import flatten
+
+    d = os.path.join(tmp, "custom_diffusion", "eyebrows_run")
+    os.makedirs(d)
+    gen = torch.Generator().manual_seed(72)
+    meta = flatten(unet2d.init_params(None, unet2d.SDXL, device="meta"))
+    deltas = {k: {"u": torch.randn(w.shape[0], CD_RANK, generator=gen) * 0.02,
+                  "v": torch.randn(CD_RANK, w.shape[1], generator=gen) * 0.02}
+              for k, w in meta.items() if k.endswith(("attn2.to_k.weight", "attn2.to_v.weight"))}
+    ckpt = os.path.join(d, "delta.pt")
+    torch.save({"unet": deltas, "modifier_token": {CD_TOKEN: [
+        torch.randn(768, generator=gen) * 0.02, torch.randn(1280, generator=gen) * 0.02]}}, ckpt)
+    argv = ["--model_name", ckpt, "--prompts_path",
+            eval_csv(os.path.join(tmp, "custom_diffusion", "p.csv"), 5), "--token", CD_TOKEN,
+            "--base", full_vocab_snapshot(snap, os.path.join(tmp, "custom_diffusion", "sdxl")),
+            "--compress", "--save_path",
+            os.path.join(tmp, "custom_diffusion", "out"), "--ddim_steps", str(CD_STEPS),
+            "--num_samples", "1"]
+    expected = (SDXL_SD_1024 * CD_STEPS, 1)
+    res, wall = run_eval_cli(f"custom diffusion sdxl ({len(deltas)} compressed deltas)",
+                             generate_images_custom_diffusion, argv, expected)
+    files = png_files(res["folder"])
+    tes = res["text_encoders"]
+    rows = [te.params["text_model"]["embeddings"]["token_embedding"]["weight"].shape[0]
+            for te in tes]
+    if os.path.basename(res["folder"]) != "eyebrows_run" or sorted(files) != ["0_0.png"] \
+            or files["0_0.png"][:2] != (CD_PX, CD_PX) or rows != [49409, 49409]:
+        raise AssertionError(f"custom diffusion sdxl: output {res['folder']} {sorted(files)}, "
+                             f"embedding rows {rows}")
+    row_s = res["cases"][0][1]
+    del res, tes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sd": expected[0], "flash": expected[1], "row_s": row_s, "wall_s": wall}
+
+
+def write_score_models(d: str) -> tuple:
+    """A ViT-B/32 CLIP snapshot on seeded weights (config.json,
+    model.safetensors, the synthetic tokenizer; the text tower at
+    openai/clip-vit-base-patch32's widths, its vocabulary and 77
+    positions) and AlexNet / LPIPS .pth files in the torchvision and lpips
+    layouts. Returns (clip dir, alexnet path, lpips path)."""
+    import dataclasses
+
+    import torch
+
+    from sliders_tpu_torch.evals import lpips
+    from sliders_tpu_torch.models import clip_vision
+
+    clip_dir = os.path.join(d, "clip-vit-base-patch32")
+    os.makedirs(clip_dir)
+    write_tokenizer(clip_dir)
+    with open(os.path.join(clip_dir, "vocab.json")) as f:
+        eos = json.load(f)["<|endoftext|>"]
+    tcfg = dataclasses.replace(clip_vision.VIT_B32_TEXT, eos_token_id=eos)
+    gen = torch.Generator().manual_seed(73)
+    clip_vision.save_clip_model(clip_dir, clip_vision.init_params(
+        gen, clip_vision.VIT_B32, tcfg, projection_dim=tcfg.projection_dim),
+        clip_vision.VIT_B32, tcfg)
+    alex, lins = lpips.torchvision_state(lpips.init_params(gen))
+    paths = os.path.join(d, "alexnet.pth"), os.path.join(d, "alex.pth")
+    torch.save(alex, paths[0])
+    torch.save(lins, paths[1])
+    return (clip_dir, *paths)
+
+
+def phase_scores(run_folder: str, csv_path: str, tmp: str) -> dict:
+    """`clip_score` and `lpips_score` (--true 0) on the UCE run folder with
+    ViT-B/32 and AlexNet on seeded weights, on the card and on the CPU (the
+    scorers turn TF32 off): every score within SCORE_REL relative, the
+    columns the scale folders', no launch of #1 or #4 (ViT-B/32's 50 tokens
+    and AlexNet take the plain paths), LPIPS(x, x) = 0 on the card; then
+    the per-image time of each scorer on the card, the models loaded."""
+    import torch
+
+    from sliders_tpu_torch.cli import clip_score, lpips_score
+    from sliders_tpu_torch.evals import lpips, scoring
+    from sliders_tpu_torch.models import clip_vision
+
+    d = os.path.join(tmp, "scores")
+    os.makedirs(d)
+    clip_dir, alex, lins = write_score_models(d)
+    clip_argv = ["--im_path", run_folder, "--prompt", "a photo of an old person",
+                 "--prompts_path", csv_path, "--clip_model", clip_dir]
+    lpips_argv = ["--im_path", run_folder, "--prompts_path", csv_path, "--true", "0",
+                  "--alexnet_weights", alex, "--lpips_weights", lins]
+    tables = {}
+    for device in ("0", "cpu"):
+        reset_flux_counts()
+        t0 = time.perf_counter()
+        tables[device] = {
+            "clip": clip_score.main(clip_score.build_parser().parse_args(
+                clip_argv + ["--device", device])),
+            "lpips": lpips_score.main(lpips_score.build_parser().parse_args(
+                lpips_argv + ["--device", device]))}
+        say("eval", f"scores on {'the card' if device == '0' else 'the CPU'}: "
+            f"{time.perf_counter() - t0:.2f} s both CLIs with the model loads; launches "
+            f"(#1, #4) {sampling_counts()}")
+        if sampling_counts() != (0, 0):
+            raise AssertionError("scores: a scorer launched an attention kernel")
+    errs = {}
+    for kind, want_cols in (("clip", ["clip_-1", "clip_0", "clip_1"]),
+                            ("lpips", ["lpips_-1", "lpips_1"])):
+        gpu, cpu = tables["0"][kind], tables["cpu"][kind]
+        if list(gpu) != ["case_number", "prompt", "evaluation_seed", *want_cols] \
+                or list(cpu) != list(gpu):
+            raise AssertionError(f"scores: {kind} columns {list(gpu)}")
+        for col in want_cols:
+            (g,), (c,) = gpu[col], cpu[col]
+            if not (math.isfinite(g) and math.isfinite(c)):
+                raise AssertionError(f"scores: {col} is not finite: {g} / {c}")
+            errs[col] = abs(g - c) / max(abs(c), 1e-30)
+        say("eval", f"{kind} scores card / CPU: "
+            f"{[(col, gpu[col][0], cpu[col][0]) for col in want_cols]}")
+    worst = max(errs.values())
+
+    params, vcfg, tcfg, tok = clip_vision.load_clip_model(clip_dir, "cuda")
+    lp = lpips.load_torch_weights(alex, lins, "cuda")
+    x = lpips.load_image_64(os.path.join(run_folder, "0", "0_0.png")).cuda()
+    with tf32_flags(False, False):
+        self_dist = float(lpips.lpips_distance(lp, x, x)[0])
+    per_folder = {f: len(os.listdir(os.path.join(run_folder, f))) for f in ("-1", "0", "1")}
+    n_images, n_pairs = sum(per_folder.values()), per_folder["-1"] + per_folder["1"]
+    times = {}
+    for kind, fn in (("clip", lambda: scoring.clip_scores(
+            run_folder, "a photo of an old person", csv_path, params, vcfg, tcfg, tok)),
+                     ("lpips", lambda: scoring.lpips_scores(run_folder, "0", csv_path, lp))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[kind] = (time.perf_counter() - t0) * 1e3
+    say("eval", f"scores: max relative error card vs CPU {worst:.3g} (limit {SCORE_REL:g}; "
+        f"{errs}); LPIPS(x, x) on the card {self_dist}; a second call on loaded models: CLIP "
+        f"{times['clip']:.1f} ms for {n_images} images ({times['clip'] / n_images:.1f} ms an "
+        f"image, decode and CSV included), LPIPS {times['lpips']:.1f} ms for "
+        f"{n_pairs} pairs ({times['lpips'] / n_pairs:.1f} ms a pair)")
+    if worst > SCORE_REL or self_dist != 0.0:
+        raise AssertionError("scores: the card's scores depart from the CPU's, or LPIPS(x, x) "
+                             "is not 0")
+    return {"sd": 0, "flash": 0, "max_rel_err": worst, "clip_ms_per_image":
+            times["clip"] / n_images, "lpips_ms_per_pair": times["lpips"] / n_pairs}
+
+
 def phase_tiny_edit() -> dict:
     """`edit_image` on a tiny snapshot (TINY UNet and VAE) at 64 px on the
     GPU (the kernels: #1 at the level-0 self-attentions, L = 1024, and the
@@ -5116,7 +5492,10 @@ def main() -> int:
                              "edit_sd15_f32": train["edit"]["sd"],
                              "attention_maps_attn2_tap": train["maps"]["attn2"]["sd"],
                              "attention_maps_full_tap": train["maps"]["all"]["sd"],
-                             "tiny_edit": tiny_edit["sd"]},
+                             "tiny_edit": tiny_edit["sd"],
+                             "uce_sd15_lms": train["uce"]["sd"], "ti_sd15": train["ti"]["sd"],
+                             "custom_diffusion_sdxl_1024": sdxl["custom_diffusion"]["sd"],
+                             "scores_clip_lpips": train["scores"]["sd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -5171,7 +5550,12 @@ def main() -> int:
                              **{f"serve_continuous_sd15_{k}_vae": v["flash"]
                                 for k, v in cont.items()},
                              "serve_continuous_sdxl_1024_vae": sdxl["continuous"]["flash"],
-                             "edit_sd15_encode_decode": train["edit"]["flash"]},
+                             "edit_sd15_encode_decode": train["edit"]["flash"],
+                             "uce_sd15_vae": train["uce"]["flash"],
+                             "ti_sd15_vae": train["ti"]["flash"],
+                             "custom_diffusion_sdxl_1024_vae":
+                                 sdxl["custom_diffusion"]["flash"],
+                             "scores_clip_lpips": train["scores"]["flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},

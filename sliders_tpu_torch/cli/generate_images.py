@@ -34,7 +34,6 @@ are written by `serving.server.encode_png`. Not ported yet: --fleet
 from __future__ import annotations
 
 import argparse
-import csv
 import json
 import os
 import re
@@ -42,12 +41,10 @@ import time
 
 import numpy as np
 
+from sliders_tpu_torch.evals.scoring import PANDAS_NA, read_table  # noqa: F401
+
 DEFAULT_SCALES = [-2.0, -1.0, 0.0, 1.0, 2.0]
 HSPACE_SCALES = [-5.0, -2.0, -1.0, 0.0, 1.0, 2.0, 5.0]
-# pandas.read_csv's default NA strings: such a cell is NaN, which
-# str(row.prompt) turns into "nan"
-PANDAS_NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
-             "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"}
 
 
 def infer_params_from_name(model_path: str) -> dict:
@@ -136,33 +133,39 @@ def scale_folder_name(scale: float) -> str:
     return name or "0"
 
 
-def _column(cells: list) -> list:
-    """A numeric column as pandas types it: ints if every cell is one, else
-    floats (NaN for an NA cell); int() of the result is the CLI's value."""
-    try:
-        return [int(c) for c in cells]
-    except (TypeError, ValueError):  # a missing cell is None
-        return [float("nan") if c is None or c.strip() in PANDAS_NA else float(c)
-                for c in cells]
-
-
 def read_prompts_csv(path: str) -> list:
     """(case_number, prompt, evaluation_seed) per row of a prompts CSV, as
     int(row.case_number), str(row.prompt), int(row.evaluation_seed) give
-    them from pandas.read_csv: quoted fields with commas, blank lines
-    skipped, an NA cell as the prompt 'nan', '11.0' as the seed 11."""
-    with open(path, newline="", encoding="utf-8") as f:
-        rows = list(csv.DictReader(f))
-    if not rows:
+    them from pandas.read_csv (`evals.scoring.read_table`): quoted fields
+    with commas, blank lines skipped, an NA cell as the prompt 'nan', '11.0'
+    as the seed 11."""
+    table = read_table(path)
+    if not next(iter(table.values()), []):
         return []
-    missing = {"case_number", "prompt", "evaluation_seed"} - set(rows[0])
+    missing = {"case_number", "prompt", "evaluation_seed"} - set(table)
     if missing:
         raise ValueError(f"{path}: no column(s) {sorted(missing)}")
-    cases = _column([r["case_number"] for r in rows])
-    seeds = _column([r["evaluation_seed"] for r in rows])
-    prompts = ["nan" if r["prompt"] is None or r["prompt"] in PANDAS_NA else r["prompt"]
-               for r in rows]
-    return [(int(c), p, int(s)) for c, p, s in zip(cases, prompts, seeds)]
+    return [(int(c), str(p), int(s)) for c, p, s in
+            zip(table["case_number"], table["prompt"], table["evaluation_seed"])]
+
+
+def decode_batches(models, x, image_size: int) -> np.ndarray:
+    """Latents -> uint8 (B, H, W, 3) on the host, `decode_rows_for(image_size)`
+    rows a VAE call, as the server decodes."""
+    from sliders_tpu_torch.pipelines import text2image as t2i
+    from sliders_tpu_torch.serving.server import decode_rows_for
+
+    rows = decode_rows_for(image_size)
+    return np.concatenate([
+        t2i.decode_images(models.vae_params, models.vae_config, x[i:i + rows]).cpu().numpy()
+        for i in range(0, len(x), rows)])
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    from sliders_tpu_torch.serving.server import encode_png
+
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
 
 
 def _stem(path: str) -> str:
@@ -200,7 +203,6 @@ def main(args) -> dict:
     from sliders_tpu_torch.models import loader
     from sliders_tpu_torch.models.params import tree_to
     from sliders_tpu_torch.pipelines import text2image as t2i
-    from sliders_tpu_torch.serving.server import decode_rows_for, encode_png
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision in ("bf16", "bfloat16") else torch.float32
@@ -243,7 +245,6 @@ def main(args) -> dict:
     n_scales, n_samples = len(scales), args.num_samples
     n_total = n_samples * n_scales
     scale_all = torch.tensor(scales * n_samples, dtype=torch.float32)
-    decode_rows = decode_rows_for(args.image_size)
     cases = []
     for case, prompt, seed in read_prompts_csv(args.prompts_path):
         if not args.from_case <= case <= args.till_case:
@@ -265,16 +266,13 @@ def main(args) -> dict:
                generator=gens[0] if sampler.stochastic else None)
         if not torch.isfinite(x).all():
             raise FloatingPointError(f"case {case}: the denoised latents are not finite")
-        imgs = np.concatenate([
-            t2i.decode_images(models.vae_params, models.vae_config, x[i:i + decode_rows])
-            .cpu().numpy() for i in range(0, n_total, decode_rows)])
+        imgs = decode_batches(models, x, args.image_size)
         for i in range(n_samples):
             row = imgs[i * n_scales:(i + 1) * n_scales]
             for s_str, img in zip(scale_strs, row):
-                with open(os.path.join(folder, s_str, f"{case}_{i}.png"), "wb") as f:
-                    f.write(encode_png(img))
-            with open(os.path.join(folder, "all", f"{case}_{i}.png"), "wb") as f:
-                f.write(encode_png(np.concatenate(list(row), axis=1)))
+                write_png(os.path.join(folder, s_str, f"{case}_{i}.png"), img)
+            write_png(os.path.join(folder, "all", f"{case}_{i}.png"),
+                      np.concatenate(list(row), axis=1))
         seconds = time.perf_counter() - t0
         cases.append((case, seconds))
         print(f"case {case}: {n_total} images in {seconds:.2f} s")

@@ -23,6 +23,9 @@ ratio) with the C++ loader's arithmetic: coefficients in f64, normalised,
 stored as f32; a horizontal then a vertical pass of f32 products and sums
 in tap order; clamp to [0, 255], / 255, then x * 2 - 1.
 
+`resize_bilinear_pil` is PIL's 8-bit bilinear resize bit for bit (the
+LPIPS loader's, `evals/lpips.load_image_64`).
+
 A missing file raises FileNotFoundError; a file that does not decode
 raises ValueError naming it.
 """
@@ -316,6 +319,55 @@ def resize_bicubic(img: np.ndarray, resolution: int) -> np.ndarray:
     out = _resample_rows(np.ascontiguousarray(wide.transpose(1, 0, 2)), resolution)
     out = np.clip(out, np.float32(0.0), np.float32(255.0)) / np.float32(255.0)
     return out * np.float32(2.0) - np.float32(1.0)
+
+
+# ---------------------------------------------------------------------------
+# PIL's 8-bit bilinear resize (Pillow's Resample.c): the LPIPS loader's
+# ---------------------------------------------------------------------------
+
+_PRECISION_BITS = 22  # 32 - 8 - 2
+
+
+def _bilinear_coeffs_8bpc(in_size: int, out_size: int):
+    """(first input index (out,), int64 fixed-point weights (out, taps)):
+    Pillow's precompute_coeffs for the triangle filter (support 1 scaled by
+    the reduction ratio, each output's f64 weights normalised by their sum
+    in tap order), then normalize_coeffs_8bpc (x 2^22, rounded half away
+    from zero); weights beyond an output's taps are 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)  # C int()
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    x = np.abs(((taps[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where((x < 1.0) & (taps[None] < xmax[:, None]), 1.0 - x, 0.0)
+    ww = np.cumsum(w, axis=1)[:, -1:]
+    k = np.divide(w, ww, out=np.zeros_like(w), where=ww != 0.0)
+    k = k * (1 << _PRECISION_BITS)
+    return xmin, np.trunc(np.where(k < 0, k - 0.5, k + 0.5)).astype(np.int64)
+
+
+def _resample_rows_8bpc(x: np.ndarray, out_size: int) -> np.ndarray:
+    """One 8-bit pass along axis 0 of an (n, m, 3) uint8 array: int64 sums
+    from 2^21, shifted right by 22 and clipped to uint8."""
+    in_size = x.shape[0]
+    bounds, k = _bilinear_coeffs_8bpc(in_size, out_size)
+    acc = np.full((out_size,) + x.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for t in range(k.shape[1]):
+        idx = np.minimum(bounds + t, in_size - 1)  # past the taps the weight is 0
+        acc += k[:, t, None, None] * x[idx].astype(np.int64)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_pil(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(h, w, 3) uint8 -> (height, width, 3) uint8, bit for bit what
+    `Image.resize((width, height), Image.BILINEAR)` gives an RGB image: the
+    horizontal pass first, then the vertical."""
+    wide = _resample_rows_8bpc(np.ascontiguousarray(img.transpose(1, 0, 2)), width)
+    return _resample_rows_8bpc(np.ascontiguousarray(wide.transpose(1, 0, 2)), height)
 
 
 # ---------------------------------------------------------------------------

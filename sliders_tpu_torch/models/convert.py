@@ -156,9 +156,12 @@ def _tensor(w) -> torch.Tensor:
 def from_jax_params(tree: dict) -> dict:
     """A JAX parameter tree with numpy leaves -> the port's parameters (f32).
 
-    Model trees (UNet, CLIP, VAE, FLUX, T5) get their linear/conv weights
-    transposed to torch layouts (embeddings stay as they are), conv weights
-    laid out channels_last as `params.tree_to` lays them out. A slider tree
+    Model trees (UNet, CLIP text and vision, VAE, FLUX, T5, LPIPS) get
+    their linear/conv weights transposed to torch layouts (the CLIP vision
+    patch embedding and AlexNet's convs HWIO -> OIHW; embeddings, CLIP's
+    class embedding and logit scale and LPIPS's `lins` vectors stay as they
+    are), conv weights laid out channels_last as `params.tree_to` lays them
+    out. A slider tree
     ({lora_name: {down, up, alpha[, rank]}}, solo or per-row stacked) gets
     its factors transposed the same way."""
     if _is_slider_tree(tree):

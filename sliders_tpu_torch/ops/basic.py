@@ -16,6 +16,7 @@ b's adapter.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -213,6 +214,18 @@ def group_norm_affine(
     gamma = p["weight"].float()[None]
     beta = p["bias"].float()[None]
     return rstd_c * gamma, beta - mean_c * rstd_c * gamma
+
+
+@contextlib.contextmanager
+def tf32_flags(cudnn: bool, matmul: bool):
+    """cuDNN's and cuBLAS's TF32 flags as given inside the block, restored
+    after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -36,9 +36,7 @@ Not ported yet: the dp `mesh` (ROADMAP queue 1, item 15).
 
 from __future__ import annotations
 
-import contextlib
-
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -47,7 +45,7 @@ from sliders_tpu_torch.diffusion.schedulers import Sampler
 from sliders_tpu_torch.lora.batch import is_stacked
 from sliders_tpu_torch.lora.merge import merge_lora_weights
 from sliders_tpu_torch.models import unet2d, vae
-from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.ops.basic import SliderLora, tf32_flags
 
 
 def _double_rows(weights: dict) -> dict:
@@ -99,7 +97,12 @@ def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: 
       CFG also 'uncond_text_embeds', 'uncond_time_ids', doubled as
       [uncond_*, *];
     - `generator` / `step_noise`: the ancestral draws of ddpm and euler_a,
-      one (B, h, w, c) tensor per step (`step_noise[i]` if given).
+      one (B, h, w, c) tensor per step (`step_noise[i]` if given);
+    - `gated_params` (with no adapter and a scalar `start_noise`): a
+      callable giving the parameters that the steps with t <= start_noise
+      run on, called once, at the first such step (UCE's interpolated
+      weights, evals/baselines.py); the merged path swaps W + delta in the
+      same way.
     With `use_cfg` every step is a CFG-doubled UNet forward ([uncond, cond]
     rows) and, with `guidance_rescale` > 0, the guided noise is rescaled
     toward the conditional prediction's std; without it `uncond_emb` and
@@ -110,12 +113,19 @@ def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: 
     @torch.inference_mode()
     def fn(unet_params, latents, cond_emb, uncond_emb, lora_weights, slider_scale,
            start_noise, guidance_scale, added_cond: Optional[dict] = None,
-           generator: Optional[torch.Generator] = None, step_noise=None):
+           generator: Optional[torch.Generator] = None, step_noise=None,
+           gated_params: Optional[Callable[[], dict]] = None):
         device = latents.device
         x = latents.to(compute_dtype)
         ehs, added = _unet_conditioning(cond_emb, uncond_emb, added_cond, use_cfg, device,
                                         compute_dtype)
-        merge, merged = False, None  # W + delta, built at the first gated step
+        # the parameters of the steps with t <= start_noise, formed at the
+        # first such step: W + delta (merged path) or `gated_params()`
+        swap, swapped = None, None
+        if gated_params is not None:
+            if lora_weights is not None:
+                raise ValueError("gated_params replaces the adapter: pass lora_weights=None")
+            swap, gate_till = gated_params, float(start_noise)
         if lora_weights is not None:
             slider_scale = torch.as_tensor(slider_scale, dtype=torch.float32, device=device)
             start_noise = torch.as_tensor(start_noise, dtype=torch.float32, device=device)
@@ -126,7 +136,10 @@ def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: 
             if merge and start_noise.ndim > 0:
                 raise ValueError("a scalar slider scale (the merged-delta path) needs a "
                                  "scalar start_noise")
-            gate_till = float(start_noise) if merge else None
+            if merge:
+                gate_till = float(start_noise)
+                swap = lambda: merge_lora_weights(unet_params, lora_weights,  # noqa: E731
+                                                  slider_scale)
         if isinstance(guidance_scale, torch.Tensor):
             guidance_scale = guidance_scale.to(device)
         if sampler.stochastic and generator is None and step_noise is None:
@@ -136,13 +149,13 @@ def make_sampling_fn(unet_cfg: unet2d.UNetConfig, sampler: Sampler, *, use_cfg: 
         for i in range(n):
             t = timesteps[i]
             params, lora = unet_params, None
-            if merge:
+            if swap is not None:
                 # gate = (t <= start_noise) is 0 or 1: the step runs on W or
-                # on W + delta, and W + delta is formed once
+                # on the swapped tree, which is formed once
                 if float(sampler.timesteps[i]) <= gate_till:
-                    if merged is None:
-                        merged = merge_lora_weights(unet_params, lora_weights, slider_scale)
-                    params = merged
+                    if swapped is None:
+                        swapped = swap()
+                    params = swapped
             elif lora_weights is not None:
                 mult = torch.where(t > start_noise, 0.0, slider_scale)
                 if use_cfg and mult.ndim > 0:
@@ -259,18 +272,10 @@ DECODE_CONV_TF32 = True
 DECODE_MATMUL_TF32 = False
 
 
-@contextlib.contextmanager
 def decode_precision():
     """cuDNN's and cuBLAS's TF32 flags as the served decode takes them
     (DECODE_CONV_TF32, DECODE_MATMUL_TF32) inside the block, restored after."""
-    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = DECODE_CONV_TF32
-    torch.backends.cuda.matmul.allow_tf32 = DECODE_MATMUL_TF32
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+    return tf32_flags(DECODE_CONV_TF32, DECODE_MATMUL_TF32)
 
 
 @torch.inference_mode()
