@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD1.5 slider serving (at request boundaries
-and continuous), slider training (text and image sliders), offline sampling
+and continuous), slider training (text and image sliders, one at a time and
+in fleets, under AdamW and the adaptive optimizers), offline sampling
 (`generate_images`), real-image editing and the eval harness (the UCE,
 textual-inversion and custom-diffusion generators, the CLIP and LPIPS
 scorers), its FLUX-dev
@@ -137,7 +138,22 @@ with its seconds and the seconds since the start:
      (`cli/clip_score.py` and `cli/lpips_score.py` on the UCE run folder
      with ViT-B/32 and AlexNet / LPIPS files on seeded weights, on the card
      and on the CPU: scores within 1e-4 relative, no kernel launch,
-     LPIPS(x, x) = 0, ms an image).
+     LPIPS(x, x) = 0, ms an image). After "generate sd15", the fleet on the
+     same snapshot: "fleet sd15" (`cli/train_fleet.py` with K = 4 prompt
+     sets of data/, 512 px, data/config.yaml's values, one iteration under
+     each of per_row, shared and stratified on models loaded once: per-row
+     t_to, loop length, device ms by phase, peak memory, the four sliders'
+     files, #1 10 x (loop + 2 + remat) and #2 10 exact), "fleet rows"
+     (TINY at 256 px in f32: a K = 2 fleet against the solo runs of its row
+     seeds, and row isolation, each within FLEET_ROW_TOL), "fleet image
+     sd15" (`train_image_slider --stylecheck --fleet`, two styles at 256 px:
+     #1 10, #2 5 and #4 1 an iteration, #4 at (4, 1, 1024, 512)),
+     "generate fleet sd15" (`generate_images --fleet A --fleet B`, 3
+     scales, DDIM 10: #1 100, #4 1; each checkpoint's PNGs against its solo
+     run at CONT_JOIN_PSNR or better) and "adaptive optimizers" (prodigy,
+     dadaptadam, dadaptadamw, dadaptlion: 5 updates of the full-width
+     rank-4 noxattn LoRA on the card against the CPU, ms an update; a
+     2-iteration `train_text_slider` run under prodigy).
   7. flux:   FLUX-dev at full width and depth (transformer, T5-XXL encoder,
      CLIP-L, FLUX VAE) in bf16 with seeded random weights and two rank-4
      xattn sliders; one transformer step at bucket 8, 1024 px, timed and
@@ -202,6 +218,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -432,7 +449,8 @@ TINY_XL_LR = 1e-5  # as TINY_FLUX_LR
 # #1's and #2's (SD1.5's level 0 at 256 px: 5; SDXL's 640-wide level at 512
 # px: SDXL_SD_512), and #1's again in the backward under remat
 IMAGE_PX = {"sd15": 256, "sdxl": 512}
-ENCODE_FLASH_SHAPES = [(2, 1, (px // 8) ** 2, 512) for px in IMAGE_PX.values()]
+ENCODE_FLASH_SHAPES = [(2, 1, (px // 8) ** 2, 512) for px in IMAGE_PX.values()] + [
+    (4, 1, 1024, 512)]  # the last: the image fleet's encode (FLEET_ENCODE_SHAPE)
 ENCODE_AB_ROUNDS = 3  # 'auto' / 'xla' turns of the full-width encoder
 # cut from the configs' 1000; the last iteration is traced, and saves (per_steps
 # 2) fall outside it
@@ -493,6 +511,22 @@ SDXL_CONT_CHUNK = 4
 CONT_B_SCALES = [-1.5, 0.0, 1.5]
 CONT_KINDS = ("ddim", "lms")
 CONT_JOIN_PSNR = 40.0
+# fleet training (phase_fleet and its neighbours)
+FLEET_PROMPTS = ("person_age_slider_GPT", "smile_slider_GPT", "person_surprised_GPT",
+                 "animated_eyes_GPT")  # data/prompts-*.yaml: K = 4, 512 px, batch 1
+FLEET_MODES = ("per_row", "shared", "stratified")
+FLEET_ROW_TOL = 1e-5  # a fleet row's LoRA against its solo run, f32 at lr TINY_LR
+FLEET_IMAGE_ITERATIONS = 3
+FLEET_ENCODE_SHAPE = (4, 1, 1024, 512)  # the image fleet's encode of 2 x 2 images at 256 px
+FLEET_SCALES = [-1.0, 0.0, 1.0]
+FLEET_GENERATE_STEPS = 10
+ADAPTIVE_UPDATES = 5
+# the LoRA after the updates, card against CPU, element by element: ADAPTIVE_ULPS
+# ulps of the weight (an update of about 1e-6 rounds into weights of about 0.1)
+# plus ADAPTIVE_REL of its leaf's largest move (the up factors start at 0, and an
+# element's own move may cancel to near 0)
+ADAPTIVE_ULPS = 2
+ADAPTIVE_REL = 3e-4
 # real-image editing (phase_edit): DDIM steps cut from the notebook's 50,
 # null-text inner steps cut from 10, notebook cell 10's sweep and gate; in a
 # null-text backward every routed self-attention but the first takes #2 (the
@@ -2211,7 +2245,7 @@ def phase_conv_step(engine, rounds: int = 1):
     return out
 
 
-def phase_grad_ab(engine, dtype: str = "bfloat16", rounds: int = 2, passes: int = 5):
+def phase_grad_ab(engine, dtype: str = "bfloat16", rounds: int = 1, passes: int = 5):
     """The training grad pass at full width (SD1.5 UNet, batch 1, 512 px,
     remat, the rank-4 slider's factors as the leaves) through the kernel
     route (#1 and #2) against the plain attention route ('xla'), in
@@ -2628,10 +2662,11 @@ def dump_yaml(tree: dict, indent: int = 0) -> str:
     return "\n".join(lines)
 
 
-def run_training(cfg: dict, path: str, extra: list) -> dict:
+def run_training(cfg: dict, path: str, extra: list, probe=None) -> dict:
     """The training CLI in-process on cuda:0 with the config `cfg` (written
     to `path`); the kernels' counts are set to 0 just before and read just
-    after. Returns the per-iteration records, the counts and the LoRA."""
+    after. Returns the per-iteration records, the counts and the LoRA.
+    `probe(state)`, if given, adds its dict to each iteration's metrics."""
     import torch
 
     from sliders_tpu_torch.cli import train_text_slider as cli
@@ -2647,7 +2682,8 @@ def run_training(cfg: dict, path: str, extra: list) -> dict:
     t0 = time.perf_counter()
     final = cli.main(cli.build_parser().parse_args(["--config_file", path, "--device", "0",
                                                     *extra]),
-                     on_step=lambda i, state, m: records.append((i, time.perf_counter(), m)))
+                     on_step=lambda i, state, m: records.append(
+                         (i, time.perf_counter(), {**m, **(probe(state) if probe else {})})))
     torch.cuda.synchronize()
     return {"records": records, "fwd": sa.sd_attention.launches, "bwd": sa.sd_attention_bwd.launches,
             "pin": lp.layout_pin_copy.launches, "conv": conv_launches(), "lora": final,
@@ -2813,6 +2849,17 @@ def phase_train():
         generate = timed("generate sd15", phase_generate, snap, tmp)
         gc.collect()
         torch.cuda.empty_cache()
+        fleet = timed("fleet sd15", phase_fleet, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet_rows = timed("fleet rows", phase_fleet_rows)
+        fleet_image = timed("fleet image sd15", phase_fleet_image, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        generate_fleet = timed("generate fleet sd15", phase_generate_fleet, snap, tmp)
+        adaptive = timed("adaptive optimizers", phase_adaptive, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
         uce = timed("uce sd15", phase_uce, snap, tmp)
         ti = timed("ti sd15", phase_ti, snap, tmp)
         scores = timed("scores", phase_scores, uce["folder"], uce["csv"], tmp)
@@ -2846,7 +2893,8 @@ def phase_train():
             "resume_bwd": resumed["bwd"], "fused_fwd": fused["fwd"], "fused_bwd": fused["bwd"],
             "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image,
             "generate": generate, "edit": edit, "maps": maps, "uce": uce, "ti": ti,
-            "scores": scores}
+            "scores": scores, "fleet": fleet, "fleet_rows": fleet_rows,
+            "fleet_image": fleet_image, "generate_fleet": generate_fleet, "adaptive": adaptive}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -4345,6 +4393,421 @@ def phase_image_train(snap: str, tmp: str, model: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# fleet training, the adaptive optimizers and the fleet sweep
+# ---------------------------------------------------------------------------
+
+
+def fleet_counts() -> dict:
+    """#1, #2 and #4 launches since the last `reset_flux_counts`."""
+    counts = flux_counts()
+    return {"sd": counts["sd"], "sd_bwd": counts["sd_bwd"], "flash": counts["flash"]}
+
+
+def phase_fleet(snap: str, tmp: str) -> dict:
+    """`cli/train_fleet.py` in-process on the full-width SD1.5 snapshot of
+    `phase_train`: FLEET_PROMPTS (K = 4 prompt YAMLs of data/, batch 1, 512
+    px) with data/config.yaml's values (bf16, remat, rank-4 noxattn, AdamW
+    lr 2e-4, DDIM, max_denoising_steps 50), one iteration under each t_to
+    mode on the same models (loaded once by `loader.load_sd`, as the CLI
+    loads them). Each iteration's per-row t_to, loop length, host seconds
+    and peak device memory are printed. Checks: four `_last.safetensors`
+    with the reference key set that `lora/io` reloads equal, finite per-row
+    losses, and exact launches: #1 10 x (loop + 2 + remat) (a CFG-doubled
+    K-row call per loop step, the 3K-row frozen pass, the K-row grad pass
+    and its recomputation), #2 10 (the grad pass's backward)."""
+    import torch
+
+    from sliders_tpu_torch.cli import train_fleet as fcli
+    from sliders_tpu_torch.core import yaml_subset
+    from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.models import loader, unet2d
+    from sliders_tpu_torch.models.convert import read_safetensors
+
+    cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
+    cfg["pretrained_model"]["name_or_path"] = snap
+    cfg["train"]["iterations"] = 1
+    cfg["logging"] = {"log_every": 1}
+    remat = bool(cfg["tpu"]["remat"])
+    prompts = []
+    for p in FLEET_PROMPTS:
+        # data/'s prompt sets, their text cut to the letters and spaces the
+        # synthetic tokenizer holds
+        sets = yaml_subset.load(os.path.join(REPO, "data", f"prompts-{p}.yaml"))
+        for s in sets:
+            for role in ("target", "positive", "unconditional", "neutral"):
+                s[role] = re.sub(r"[^a-z ]", " ", str(s.get(role, "")).lower())
+        prompts.append(os.path.join(tmp, f"prompts-{p}.yaml"))
+        with open(prompts[-1], "w") as f:
+            f.write("".join("- " + dump_yaml(s).replace("\n", "\n  ") + "\n" for s in sets))
+    t0 = time.perf_counter()
+    models = loader.load_sd(snap, device="cuda", dtype=torch.bfloat16)
+    load_s = time.perf_counter() - t0
+    say("fleet", f"K = {len(prompts)} sliders (data/prompts-*.yaml of {', '.join(FLEET_PROMPTS)}, "
+        f"{len(sets)} pairs each, text cut to letters), data/config.yaml: "
+        f"train {cfg['train']}; network {cfg['network']}; tpu {cfg['tpu']}; overridden: "
+        f"iterations, logging.log_every and the paths; models loaded once in {load_s:.1f} s")
+    meta_unet = unet2d.init_params(None, unet2d.SD15, device="meta")
+    out = {}
+    for mode in FLEET_MODES:
+        run_cfg = {**cfg, "save": {**cfg["save"], "path": os.path.join(tmp, f"fleet_{mode}")}}
+        path = os.path.join(tmp, f"fleet_{mode}.yaml")
+        with open(path, "w") as f:
+            f.write(dump_yaml(run_cfg) + "\n")
+        records = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flux_counts()
+        t0 = time.perf_counter()
+        loras = fcli.main(fcli.build_parser().parse_args(
+            ["--config_file", path, "--device", "0", "--t_to_mode", mode, "--prompts_file",
+             *prompts]), on_step=lambda i, state, m: records.append(m), models=models)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = fleet_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        (m,) = records
+        expected = {"sd": ROUTED_PER_FORWARD * (m["loop"] + 2 + remat),
+                    "sd_bwd": ROUTED_PER_FORWARD, "flash": 0}
+        name = (f"{cfg['save']['name']}_alpha{float(cfg['network']['alpha'])}"
+                f"_rank{cfg['network']['rank']}_{cfg['network']['training_method']}")
+        out_dir = os.path.join(run_cfg["save"]["path"], f"{name}_fleet")
+        files = sorted(os.listdir(out_dir))
+        # the CLI names each slider by its prompts file's stem and the run suffix
+        sliders = [f"prompts-{p}{name[len(cfg['save']['name']):]}" for p in FLEET_PROMPTS]
+        expected_files = sorted([f"{s}_last.safetensors" for s in sliders]
+                                + [f"{name}_fleet_metadata.json"])
+        reloads = keys = True
+        for s, lora in zip(sliders, loras):
+            file = os.path.join(out_dir, f"{s}_last.safetensors")
+            keys &= set(read_safetensors(file)) == set(lora_io.to_reference_state_dict(lora))
+            last = lora_io.load_slider(file, meta_unet)
+            reloads &= set(last) == set(lora) and all(
+                torch.equal(last[k][n], lora[k][n]) for k in lora for n in ("down", "up", "alpha"))
+        ph = m["phase_ms"]
+        say("fleet", f"{mode}: per-row t_to {m['t_to']} (pairs {m['pair']}), loop {m['loop']}; "
+            f"losses {[f'{x:.6g}' for x in m['loss']]}, grad norms "
+            f"{[f'{x:.4g}' for x in m['grad_norm']]}; {seconds:.2f} s the CLI call (one "
+            f"iteration, prompt encodes and saves included); device ms denoise "
+            f"{ph['denoise']:.1f} ({ph['denoise'] / m['loop']:.2f} per {2 * len(prompts)}-row "
+            f"call), frozen {ph['frozen']:.2f}, grad {ph['grad']:.2f}, update {ph['update']:.2f}; "
+            f"peak device memory {peak:.2f} GB; launches {counts} (expected {expected}); files "
+            f"{files}; reference keys {'equal' if keys else 'DIFFERENT'}, _last reloads "
+            f"{'equal' if reloads else 'DIFFERENT'}")
+        if counts != expected:
+            raise AssertionError(f"fleet {mode}: launches {counts}, not {expected}")
+        if not all(map(math.isfinite, m["loss"])) or len(m["loss"]) != len(prompts):
+            raise AssertionError(f"fleet {mode}: per-row losses {m['loss']}")
+        if files != expected_files or not keys or not reloads:
+            raise AssertionError(f"fleet {mode}: files {files} (expected {expected_files}), "
+                                 f"keys or reloads wrong")
+        if mode == "shared" and len(set(m["t_to"])) != 1:
+            raise AssertionError(f"fleet shared: rows took t_to {m['t_to']}")
+        out[mode] = {**counts, "t_to": m["t_to"], "loop": m["loop"], "seconds": seconds,
+                     "peak_gb": peak, "phase_ms": ph}
+    del models
+    return out
+
+
+def phase_fleet_rows() -> dict:
+    """The fleet's row contract on the card, TINY at 256 px in f32 with TF32
+    off: a K = 2 fleet of `make_fleet_text_step` against the two solo port
+    runs (`make_text_slider_step`) of seeds `fleet_row_seed(seed, r)`, two
+    iterations at lr 1e-4, each row's LoRA within FLEET_ROW_TOL of its solo
+    run's (the fleet's rows sit at other batch positions than a solo run's,
+    which on the card may change bits: queue 3); then row isolation: row 1's
+    prompt pairs changed, row 0's largest change printed and held to the
+    same limit (on the CPU it is 0, bit for bit)."""
+    import torch
+
+    from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
+    from sliders_tpu_torch.lora.network import create_slider_network, trainable_mask
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.training import fleet, optimizers, text_slider
+
+    seed, px, steps = 12, 256, 5
+    sched = make_schedule()
+    sampler = make_sampler(sched, "ddim", steps)
+    gen = torch.Generator().manual_seed(13)
+    unet = tree_to(unet2d.init_params(gen, unet2d.TINY), "cuda")
+
+    def pairs(s, n):
+        g = torch.Generator().manual_seed(s)
+        p = {k: torch.randn((n, 8, 32), generator=g)
+             for k in ("target", "positive", "neutral", "unconditional")}
+        p["guidance_signed"] = torch.tensor([2.0, -1.0][:n])
+        return {k: v.to("cuda") for k, v in p.items()}
+
+    def opt(lora):
+        return optimizers.make_optimizer("adamw", optimizers.make_lr_schedule("constant", TINY_LR, 100),
+                                         trainable_mask=trainable_mask(lora))
+
+    def lora_of(s):
+        return tree_to(create_slider_network(torch.Generator().manual_seed(s + 1), unet2d.init_params(
+            None, unet2d.TINY, device="meta"), rank=4, train_method="noxattn"), "cuda")
+
+    def run_fleet(sets):
+        lora = fleet.stack_fleet([lora_of(fleet.fleet_row_seed(seed, r)) for r in range(2)])
+        tx = opt(lora)
+        step = fleet.make_fleet_text_step(unet2d.TINY, sched, sampler, tx, n_sliders=2,
+                                          max_denoising_steps=steps, resolution=px,
+                                          compute_dtype=torch.float32, remat=True)
+        state = text_slider.SliderTrainState.create(seed, lora, tx)
+        stacked = fleet.stack_fleet_pairs(sets)
+        ms = [step(state, unet, stacked)[1] for _ in range(2)]
+        return [tree_to(r, "cpu") for r in fleet.unstack_fleet(state.lora)], ms
+
+    with tf32_flags(False, False):
+        sets = [pairs(30, 2), pairs(31, 2)]
+        rows, ms = run_fleet(sets)
+        errs, solo_t = [], []
+        for r in range(2):
+            s = fleet.fleet_row_seed(seed, r)
+            lora = lora_of(s)
+            tx = opt(lora)
+            step = text_slider.make_text_slider_step(unet2d.TINY, sched, sampler, tx,
+                                                     max_denoising_steps=steps, resolution=px,
+                                                     compute_dtype=torch.float32, remat=True)
+            state = text_slider.SliderTrainState.create(s, lora, tx)
+            sm = [step(state, unet, sets[r])[1] for _ in range(2)]
+            solo_t.append([x["t_to"] for x in sm])
+            if [x["t_to"] for x in sm] != [x["t_to"][r] for x in ms]:
+                raise AssertionError(f"fleet row {r} did not draw its solo run's t_to")
+            errs.append(max((rows[r][m][k] - state.lora[m][k].cpu()).abs().max().item()
+                            for m in state.lora for k in ("down", "up")))
+        other, _ = run_fleet([sets[0], pairs(32, 2)])
+        iso = max((rows[0][m][k] - other[0][m][k]).abs().max().item()
+                  for m in rows[0] for k in ("down", "up"))
+        moved = max((rows[1][m]["up"] - other[1][m]["up"]).abs().max().item() for m in rows[1])
+    say("fleet", f"rows: TINY {px} px f32, K = 2, 2 iterations (t_to by row {solo_t}), lr "
+        f"{TINY_LR}: each row's LoRA against its solo run of seed fleet_row_seed(seed, r): "
+        f"max|err| {[f'{e:.3g}' for e in errs]} (limit {FLEET_ROW_TOL}); row 1's pairs changed: "
+        f"row 0 moved {iso:.3g} (limit {FLEET_ROW_TOL}), row 1 {moved:.3g}")
+    if max(errs) > FLEET_ROW_TOL or iso > FLEET_ROW_TOL or moved == 0:
+        raise AssertionError("the fleet's rows are not their solo runs, or not isolated")
+    return {"row_err": max(errs), "isolation": iso}
+
+
+def phase_fleet_image(snap: str, tmp: str) -> dict:
+    """`train_image_slider --stylecheck 1 --fleet` at full width on the
+    SD1.5 snapshot (its VAE too) with data/config.yaml's values at 256 px:
+    two style folders of `write_pair_folders`, FLEET_IMAGE_ITERATIONS
+    iterations with per_steps 2, one step for both sliders (an f32 VAE
+    encode of 2 x 2 images: #4 at (4, 1, 1024, 512)). Checks the per-style
+    files, finite per-row losses and exact launches per iteration: #1
+    IMAGE_SD_ROUTED x (1 + remat), #2 IMAGE_SD_ROUTED, #4 1."""
+    import torch
+
+    from sliders_tpu_torch.core import yaml_subset
+
+    cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
+    cfg["prompts_file"] = os.path.join(REPO, "data", "prompts.yaml")
+    cfg["pretrained_model"]["name_or_path"] = snap
+    cfg["train"]["iterations"] = FLEET_IMAGE_ITERATIONS
+    cfg["save"].update(path=os.path.join(tmp, "fleet_image_out"), per_steps=2, name="style")
+    cfg["logging"] = {"log_every": 1}
+    styles = os.path.join(tmp, "fleet_styles")
+    for i, style in enumerate(("0", "1")):
+        folders, scales = write_pair_folders(os.path.join(styles, style), (320, 288), 2,
+                                             seed=40 + i)
+    with tf32_flags(True, False):
+        run = run_image_training(cfg, os.path.join(tmp, "fleet_image.yaml"),
+                                 ["--folder_main", styles, "--folders", folders, "--scales",
+                                  scales, "--device", "0", "--stylecheck", "1", "--fleet"])
+    recs = run["records"]
+    n, routed, remat = len(recs), IMAGE_SD_ROUTED["sd15"], bool(cfg["tpu"]["remat"])
+    expected = {"sd": n * routed * (1 + remat), "sd_bwd": n * routed, "flash": n}
+    got = {k: run[k] for k in expected}
+    base = f"style_alpha{float(cfg['network']['alpha'])}_rank{cfg['network']['rank']}_noxattn"
+    names = [f"{s}_{base}" for s in ("0", "1")]
+    files = sorted(os.listdir(os.path.join(cfg["save"]["path"], base)))
+    saves = ("2steps", "last") if n - 1 > 2 else ("last",)  # the solo CLI's cadence
+    expected_files = sorted(f"{s}_{t}.safetensors" for s in names for t in saves)
+    losses = [m["loss"] for _, _, m in recs]
+    steady = [b[1] - a[1] for a, b in zip(recs, recs[1:])]
+    say("fleet", f"image --stylecheck --fleet 256 px, 2 styles, {n} iterations: (t_to, scale) by "
+        f"row {[(m['t_to'], m['scale']) for _, _, m in recs]}, losses "
+        f"{[[f'{x:.6g}' for x in l] for l in losses]}; launches {got} (expected {expected}); "
+        f"host wall per iteration after the first {[f'{s:.3f}' for s in steady]} s; peak device "
+        f"memory {run['peak_gb']:.2f} GB; sliders {list(run['loras'])}; files {files}")
+    if got != expected:
+        raise AssertionError(f"fleet image launches {got}, not {expected}")
+    if list(run["loras"]) != names or files != expected_files:
+        raise AssertionError(f"fleet image saved {files}, expected {expected_files}")
+    if not all(math.isfinite(x) for l in losses for x in l) or any(len(l) != 2 for l in losses):
+        raise AssertionError(f"fleet image losses {losses}")
+    return {**got, "peak_gb": run["peak_gb"], "iteration_s": steady}
+
+
+def phase_generate_fleet(snap: str, tmp: str) -> dict:
+    """`generate_images --fleet A --fleet B` on the SD1.5 snapshot: one CSV
+    row, one sample, FLEET_SCALES, DDIM FLEET_GENERATE_STEPS at 512 px: six
+    rows in one denoise (#1 10 x steps, #4 one decode); each checkpoint's
+    PNGs against its solo `--model_name` run at CONT_JOIN_PSNR or better
+    (its rows sit at other batch positions: queue 3), the PSNR printed."""
+    import torch
+
+    from sliders_tpu_torch.cli import generate_images as gcli
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.serving.server import decode_rows_for
+
+    root = os.path.join(tmp, "generate_fleet")
+    os.makedirs(root)
+    csv_path = os.path.join(root, "prompts.csv")
+    with open(csv_path, "w") as f:
+        f.write('case_number,prompt,evaluation_seed\n0,"a photo of a person, smiling",2\n')
+    ckpts = [os.path.join(root, f"{n}_alpha1.0_rank4_noxattn_last.safetensors")
+             for n in ("age", "smile")]
+    for i, path in enumerate(ckpts):
+        save_random_slider(path, unet2d.SD15, 60 + i)
+    argv = ["--base", snap, "--prompts_path", csv_path,
+            f"--scales={','.join(str(s) for s in FLEET_SCALES)}", "--image_size", "512",
+            "--ddim_steps", str(FLEET_GENERATE_STEPS), "--device", "0"]
+
+    def run(out, *extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flux_counts()
+        t0 = time.perf_counter()
+        res = gcli.main(gcli.build_parser().parse_args(argv + ["--save_path", out, *extra]))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, sampling_counts(), (
+            torch.cuda.max_memory_allocated() / 1e9)
+
+    res, wall, counts, peak = run(os.path.join(root, "fleet"), "--fleet", ckpts[0],
+                                  "--fleet", ckpts[1])
+    rows = len(ckpts) * len(FLEET_SCALES)
+    expected = (ROUTED_PER_FORWARD * FLEET_GENERATE_STEPS, -(-rows // decode_rows_for(512)))
+    (case, row_s), = res["cases"]
+    names = [gcli.scale_folder_name(float(s)) for s in FLEET_SCALES]
+    psnr = []
+    for path, folder in zip(ckpts, res["folders"]):
+        solo, _, _, _ = run(os.path.join(root, "solo"), "--model_name", path)
+        (solo_folder,) = solo["folders"]
+        if sorted(os.listdir(folder)) != sorted(names + ["all"]):
+            raise AssertionError(f"generate --fleet: {folder} holds {os.listdir(folder)}")
+        for sub in names:
+            with open(os.path.join(folder, sub, f"{case}_0.png"), "rb") as f:
+                a = f.read()
+            with open(os.path.join(solo_folder, sub, f"{case}_0.png"), "rb") as f:
+                b = f.read()
+            psnr.append(png_diff(a, b)[2])
+    say("generate", f"--fleet of 2 checkpoints x {len(FLEET_SCALES)} scales at 512 px, DDIM "
+        f"{FLEET_GENERATE_STEPS}: {rows} rows in one denoise, {row_s:.3f} s the CSV row, {wall:.2f} "
+        f"s the call with the load; launches (#1, #4) {counts} (expected {expected}); peak device "
+        f"memory {peak:.2f} GB; PSNR against each checkpoint's solo run "
+        f"{[f'{p:.2f}' for p in psnr]} dB (limit {CONT_JOIN_PSNR})")
+    if counts != expected:
+        raise AssertionError(f"generate --fleet: launches {counts}, not {expected}")
+    if min(psnr) < CONT_JOIN_PSNR:
+        raise AssertionError("generate --fleet departs from the checkpoints' solo runs")
+    return {"sd": counts[0], "flash": counts[1], "row_s": row_s, "psnr": min(psnr),
+            "peak_gb": peak}
+
+
+def phase_adaptive(snap: str, tmp: str) -> dict:
+    """The adaptive optimizers: ADAPTIVE_UPDATES updates of SD1.5's
+    full-width rank-4 noxattn LoRA tree on CUDA against the CPU from the same
+    seeded gradients (a common direction plus noise, so the step-size
+    estimates grow), for prodigy, dadaptadam, dadaptadamw and dadaptlion
+    (lr 1.0, weight decay 1e-2): each weight's difference held to
+    ADAPTIVE_ULPS ulps of it plus ADAPTIVE_REL of its leaf's largest move, the
+    estimates' relative difference printed, ms per update on the card
+    (synced, median). Then a 2-iteration full-width
+    `train_text_slider` run under `optimizer: prodigy` (lr 1.0): finite
+    losses, every up factor moved, `estim_lr` after each iteration, launches
+    as the AdamW run's."""
+    import warnings
+
+    import torch
+
+    from sliders_tpu_torch.core import yaml_subset
+    from sliders_tpu_torch.lora.network import create_slider_network, trainable_mask
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.training import optimizers
+
+    gen = torch.Generator().manual_seed(70)
+    lora = create_slider_network(gen, unet2d.init_params(None, unet2d.SD15, device="meta"),
+                                 rank=4, train_method="noxattn")
+    n_params = sum(t.numel() for e in lora.values() for k, t in e.items() if k != "alpha")
+    base = {m: {k: torch.randn(t.shape, generator=gen) for k, t in e.items()}
+            for m, e in lora.items()}
+    grads = [{m: {k: base[m][k] + 0.1 * torch.randn(t.shape, generator=gen)
+                  for k, t in e.items()} for m, e in lora.items()}
+             for _ in range(ADAPTIVE_UPDATES)]
+    gpu_grads = [tree_to(g, "cuda") for g in grads]
+    rows = {}
+    for name in ("prodigy", "dadaptadam", "dadaptadamw", "dadaptlion"):
+        results = {}
+        for device, gs in (("cpu", grads), ("cuda", gpu_grads)):
+            w = tree_to({m: {k: t.clone() for k, t in e.items()} for m, e in lora.items()},
+                        device)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                tx = optimizers.make_optimizer(name, optimizers.make_lr_schedule(
+                    "constant", 1.0, 100), {"weight_decay": 1e-2},
+                    trainable_mask=trainable_mask(w))
+            state = tx.init(w)
+            ms = []
+            for g in gs:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tx.update(w, g, state)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            results[device] = (tree_to(w, "cpu"), float(state["estim_lr"]), ms)
+        (cw, c_lr, _), (gw, g_lr, g_ms) = results["cpu"], results["cuda"]
+        leaves = [(cw[m][k], gw[m][k], lora[m][k]) for m in cw for k in ("down", "up")]
+        err = max((a - b).abs().max().item() for a, b, _ in leaves)
+        move = max((a - w).abs().max().item() for a, _, w in leaves)
+        # each element's difference over its limit
+        worst = max(((a - b).abs() / (ADAPTIVE_ULPS * (torch.nextafter(
+            a.abs(), torch.tensor(math.inf)) - a.abs()) + ADAPTIVE_REL * (a - w).abs().max())
+                     ).max().item() for a, b, w in leaves)
+        rows[name] = {"err": err, "of_limit": worst, "move": move, "estim_lr": g_lr,
+                      "estim_lr_rel": abs(g_lr - c_lr) / c_lr, "ms": statistics.median(g_ms[1:])}
+        say("adaptive", f"{name}: {ADAPTIVE_UPDATES} updates of the SD1.5 rank-4 noxattn LoRA "
+            f"({len(lora)} modules, {n_params} trainable values) on the card against the CPU: "
+            f"max|diff| {err:.3g} (the largest move {move:.3g}), at most {worst:.3g} of its limit "
+            f"({ADAPTIVE_ULPS} ulps of the weight + {ADAPTIVE_REL} of its leaf's largest move); "
+            f"estim_lr "
+            f"{g_lr:.6g} vs {c_lr:.6g} (rel {rows[name]['estim_lr_rel']:.3g}); "
+            f"{rows[name]['ms']:.2f} ms an update on the card (median of updates "
+            f"2-{ADAPTIVE_UPDATES}, synced)")
+        if worst > 1 or not math.isfinite(g_lr) or g_lr <= 1e-6:
+            raise AssertionError(f"{name} on the card disagrees with the CPU or did not adapt")
+
+    cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
+    cfg["prompts_file"] = os.path.join(REPO, "data", "prompts.yaml")
+    cfg["pretrained_model"]["name_or_path"] = snap
+    cfg["train"].update(iterations=2, optimizer="prodigy", lr=1.0)
+    cfg["save"].update(path=os.path.join(tmp, "prodigy_out"))
+    cfg["logging"] = {"log_every": 1}
+    run = run_training(cfg, os.path.join(tmp, "prodigy.yaml"), [],
+                       probe=lambda state: {"estim_lr": float(state.opt_state["estim_lr"])})
+    recs = run["records"]
+    fwd_expected = expected_fwd(recs, bool(cfg["tpu"]["remat"]))
+    moved = sum(bool(e["up"].abs().max() > 0) for e in run["lora"].values())
+    losses = [f"{m['loss']:.6g}" for _, _, m in recs]
+    estims = [f"{m['estim_lr']:.6g}" for _, _, m in recs]
+    say("adaptive", f"train_text_slider under prodigy (lr 1.0), 2 iterations at full width: "
+        f"t_to {[m['t_to'] for _, _, m in recs]}, losses {losses}, estim_lr {estims}; {moved} of "
+        f"{len(run['lora'])} up factors moved; launches forward {run['fwd']} (expected "
+        f"{fwd_expected}), backward {run['bwd']} (expected {2 * ROUTED_PER_FORWARD}); "
+        f"{run['seconds']:.1f} s with the load")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["estim_lr"]) for _, _, m in recs):
+        raise AssertionError("the prodigy run's losses or estimates are not finite")
+    if moved != len(run["lora"]) or run["fwd"] != fwd_expected or (
+            run["bwd"] != 2 * ROUTED_PER_FORWARD):
+        raise AssertionError("the prodigy run did not train through the kernels")
+    return {"optimizers": rows, "fwd": run["fwd"], "bwd": run["bwd"],
+            "estim_lr": [m["estim_lr"] for _, _, m in recs]}
+
+
+# ---------------------------------------------------------------------------
 # offline slider sampling: generate_images, SDXL-Turbo, the scalar path
 # ---------------------------------------------------------------------------
 
@@ -5495,7 +5958,11 @@ def main() -> int:
                              "tiny_edit": tiny_edit["sd"],
                              "uce_sd15_lms": train["uce"]["sd"], "ti_sd15": train["ti"]["sd"],
                              "custom_diffusion_sdxl_1024": sdxl["custom_diffusion"]["sd"],
-                             "scores_clip_lpips": train["scores"]["sd"]},
+                             "scores_clip_lpips": train["scores"]["sd"],
+                             **{f"fleet_sd15_{k}": v["sd"] for k, v in train["fleet"].items()},
+                             "fleet_image_sd15_256": train["fleet_image"]["sd"],
+                             "generate_fleet_sd15": train["generate_fleet"]["sd"],
+                             "train_prodigy_sd15": train["adaptive"]["fwd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -5522,7 +5989,11 @@ def main() -> int:
                              "tiny_image_64": tiny_image["sd_bwd"],
                              "tiny_image_stylecheck": tiny_image["style"]["sd_bwd"],
                              "edit_sd15_null_text_f32": train["edit"]["sd_bwd"],
-                             "tiny_edit": tiny_edit["sd_bwd"]},
+                             "tiny_edit": tiny_edit["sd_bwd"],
+                             **{f"fleet_sd15_{k}": v["sd_bwd"]
+                                for k, v in train["fleet"].items()},
+                             "fleet_image_sd15_256": train["fleet_image"]["sd_bwd"],
+                             "train_prodigy_sd15": train["adaptive"]["bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
@@ -5555,7 +6026,9 @@ def main() -> int:
                              "ti_sd15_vae": train["ti"]["flash"],
                              "custom_diffusion_sdxl_1024_vae":
                                  sdxl["custom_diffusion"]["flash"],
-                             "scores_clip_lpips": train["scores"]["flash"]},
+                             "scores_clip_lpips": train["scores"]["flash"],
+                             "fleet_image_sd15_256_encode": train["fleet_image"]["flash"],
+                             "generate_fleet_sd15_vae": train["generate_fleet"]["flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},

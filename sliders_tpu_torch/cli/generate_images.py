@@ -23,12 +23,16 @@ The slider's sweep comes from its `_metadata.json` sidecar when present,
 else from the checkpoint's name as the reference parses it
 (generate_images_sd1.py:80-104); hspace / last sliders widen it to +-5.
 `--compose CKPT:SCALE` (repeatable) sweeps the rank concatenation of
-several sliders (lora/compose.py) at global multipliers 0, 1.
+several sliders (lora/compose.py) at global multipliers 0, 1. `--fleet
+CKPT` (repeatable) sweeps several sliders in one batched denoise per CSV
+row: rows slider-major, then sample-major, each slider's rows on its own
+adapter (`lora/batch.stack_sliders`, built once), every slider on the same
+per-sample initial noise, one folder per checkpoint.
 
 The card's machine has no pandas and no Pillow: the CSV is read with the
 `csv` module the way pandas.read_csv reads it (`read_prompts_csv`), PNGs
-are written by `serving.server.encode_png`. Not ported yet: --fleet
-(ROADMAP queue 1, item 14) and --dp other than 1 (item 15).
+are written by `serving.server.encode_png`. Not ported yet: --dp other than
+1 (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -175,15 +179,28 @@ def _stem(path: str) -> str:
 def main(args) -> dict:
     """Run the CLI; returns {"folders": [...], "cases": [(case, seconds),
     ...]} for in-process callers."""
-    if args.fleet:
-        raise NotImplementedError("--fleet (several sliders in one sweep) is not ported yet "
-                                  "(ROADMAP queue 1, item 14)")
     if args.dp != 1:
         raise NotImplementedError("--dp: a data-parallel sweep is not ported yet "
                                   "(ROADMAP queue 1, item 15)")
-    if args.compose and args.model_name:
-        raise SystemExit("--compose conflicts with --model_name; fold the named slider into "
-                         "the composition as another --compose CKPT:SCALE entry")
+    # the argument guards, before the model load
+    if args.fleet:
+        names = [_stem(p) for p in args.fleet]
+        dup = sorted({n for n in names if names.count(n) > 1})
+        if dup:
+            # the output folders are keyed by basename
+            raise SystemExit(f"--fleet entries share basename(s) {dup}; rename the "
+                             "checkpoints or pass them in separate runs")
+        # hspace / last sliders widen the sweep: a fleet mixing them has no one sweep
+        per_ckpt = [_infer_scales(p) for p in args.fleet]
+        if args.scales is None and any(s != per_ckpt[0] for s in per_ckpt):
+            raise SystemExit("--fleet checkpoints imply different scale sweeps "
+                             f"({dict(zip(args.fleet, per_ckpt))}); pass --scales explicitly "
+                             "to sweep them together")
+    if args.compose and (args.model_name or args.fleet):
+        raise SystemExit("--compose conflicts with --model_name/--fleet; fold the named slider "
+                         "into the composition as another --compose CKPT:SCALE entry")
+    if args.fleet and args.model_name:
+        raise SystemExit("--fleet and --model_name conflict")
     compose = []
     for entry in args.compose or []:
         path, _, s = entry.rpartition(":")
@@ -199,6 +216,7 @@ def main(args) -> dict:
     from sliders_tpu_torch.cli.train_text_slider import resolve_device
     from sliders_tpu_torch.diffusion import make_sampler, make_schedule
     from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.lora.batch import stack_sliders
     from sliders_tpu_torch.lora.compose import compose_sliders
     from sliders_tpu_torch.models import loader
     from sliders_tpu_torch.models.params import tree_to
@@ -223,28 +241,38 @@ def main(args) -> dict:
         # scales lands in another folder
         name = "compose_" + "+".join(f"{_stem(p)}_{e.rpartition(':')[2]}"
                                      for (p, _), e in zip(compose, args.compose))
+    elif args.fleet:
+        fleet = [lora_io.load_slider(p, models.unet_params) for p in args.fleet]
+        inferred_scales = per_ckpt[0]  # one sweep, checked before the load
     else:
         if args.model_name:
             weights = lora_io.load_slider(args.model_name, models.unet_params)
             inferred_scales = _infer_scales(args.model_name)
         name = _stem(args.model_name or "base")
-    if weights is not None:
-        weights = tree_to(weights, device)
     scales = ([float(s) for s in args.scales.split(",")] if args.scales is not None
               else inferred_scales)
+    n_scales, n_samples = len(scales), args.num_samples
+    n_solo = n_samples * n_scales
+    n_fleet = len(args.fleet) if args.fleet else 1
+    if args.fleet:
+        # the per-row tree, built once: slider-major [s0 x n_solo, s1 x n_solo, ...]
+        weights = stack_sliders([w for w in fleet for _ in range(n_solo)])
+    if weights is not None:
+        weights = tree_to(weights, device)
 
     sampler = make_sampler(make_schedule(), args.scheduler, args.ddim_steps)
     fn = t2i.make_sampling_fn(models.unet_config, sampler, use_cfg=args.guidance_scale > 1.0,
                               guidance_rescale=0.7 if args.xl else 0.0, compute_dtype=dtype)
 
-    folder = os.path.join(args.save_path, name)
+    folders = ([os.path.join(args.save_path, _stem(p)) for p in args.fleet] if args.fleet
+               else [os.path.join(args.save_path, name)])
     scale_strs = [scale_folder_name(s) for s in scales]
-    for sub in ["all", *scale_strs]:
-        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for folder in folders:
+        for sub in ["all", *scale_strs]:
+            os.makedirs(os.path.join(folder, sub), exist_ok=True)
 
-    n_scales, n_samples = len(scales), args.num_samples
-    n_total = n_samples * n_scales
-    scale_all = torch.tensor(scales * n_samples, dtype=torch.float32)
+    n_total = n_fleet * n_solo
+    scale_all = torch.tensor(scales * n_samples * n_fleet, dtype=torch.float32)
     cases = []
     for case, prompt, seed in read_prompts_csv(args.prompts_path):
         if not args.from_case <= case <= args.till_case:
@@ -254,12 +282,13 @@ def main(args) -> dict:
         cond, uncond, added1 = t2i.encode_conditioning(models, prompt,
                                                        args.negative_prompt or "",
                                                        args.image_size)
-        # rows sample-major: [(s0, scale0), (s0, scale1), ..., (s1, scale0), ...]
+        # rows slider-major, then sample-major: [(k0, s0, scale0), (k0, s0, scale1), ...,
+        # (k0, s1, scale0), ..., (k1, s0, scale0), ...]; every slider on the same noise
         gens = [torch.Generator().manual_seed(seed + i * 1000) for i in range(n_samples)]
         lats = torch.cat([t2i.initial_latents(g, 1, args.image_size, args.image_size,
                                               sampler.init_noise_sigma).expand(n_scales, -1, -1,
                                                                                -1)
-                          for g in gens])
+                          for g in gens]).repeat(n_fleet, 1, 1, 1)
         cond_b, uncond_b, added_b = t2i.tile_conditioning(cond, uncond, added1, n_total)
         x = fn(models.unet_params, lats.to(device), cond_b, uncond_b, weights, scale_all,
                float(args.start_noise), float(args.guidance_scale), added_b,
@@ -267,16 +296,17 @@ def main(args) -> dict:
         if not torch.isfinite(x).all():
             raise FloatingPointError(f"case {case}: the denoised latents are not finite")
         imgs = decode_batches(models, x, args.image_size)
-        for i in range(n_samples):
-            row = imgs[i * n_scales:(i + 1) * n_scales]
-            for s_str, img in zip(scale_strs, row):
-                write_png(os.path.join(folder, s_str, f"{case}_{i}.png"), img)
-            write_png(os.path.join(folder, "all", f"{case}_{i}.png"),
-                      np.concatenate(list(row), axis=1))
+        for k, folder in enumerate(folders):
+            for i in range(n_samples):
+                row = imgs[k * n_solo + i * n_scales:k * n_solo + (i + 1) * n_scales]
+                for s_str, img in zip(scale_strs, row):
+                    write_png(os.path.join(folder, s_str, f"{case}_{i}.png"), img)
+                write_png(os.path.join(folder, "all", f"{case}_{i}.png"),
+                          np.concatenate(list(row), axis=1))
         seconds = time.perf_counter() - t0
         cases.append((case, seconds))
         print(f"case {case}: {n_total} images in {seconds:.2f} s")
-    return {"folders": [folder], "cases": cases}
+    return {"folders": folders, "cases": cases}
 
 
 def build_parser():
@@ -287,7 +317,9 @@ def build_parser():
                    help="compose several sliders (repeatable), each at its own signed scale; "
                         "the swept scales multiply the composition (default sweep 0,1)")
     p.add_argument("--fleet", action="append", default=None, metavar="CKPT",
-                   help="several sliders in one sweep (not ported yet: ROADMAP item 14)")
+                   help="sweep several sliders in one run (repeatable): every checkpoint's "
+                        "(samples x scales) rows in one batched denoise, on the same "
+                        "per-sample noise, one folder per checkpoint")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel devices (only 1 is ported: ROADMAP item 15)")
     p.add_argument("--prompts_path", required=True,

@@ -11,10 +11,11 @@ Usage:
 Training resolution follows the reference scripts: 256 px for SD1, 512 for
 SDXL (`--xl`, which loads an SDXL snapshot). `--stylecheck` trains one
 slider per sorted sub-folder of `--folder_main`, one after another, each
-saved as `{style}_{name}`. `--device` is a CUDA ordinal (the default, 0),
-cuda[:N] or cpu; asking for CUDA with no CUDA device is an error.
-`--prompts_file` overrides the config's `prompts_file`. `--fleet` (every
-style's slider in one step) is not ported yet and raises.
+saved as `{style}_{name}`; with `--fleet`, every style's slider trains in
+one step (`training/fleet.train_fleet_images`), saved under the same names.
+`--fleet` without `--stylecheck` exits. `--device` is a CUDA ordinal (the
+default, 0), cuda[:N] or cpu; asking for CUDA with no CUDA device is an
+error. `--prompts_file` is parsed and not applied, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -29,15 +30,15 @@ from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
 from sliders_tpu_torch.training.driver import compute_dtype_of, train_image_sliders
+from sliders_tpu_torch.training.fleet import train_fleet_images
 
 
 def main(args, on_step=None) -> dict:
     """Run the CLI; `on_step(step, state, metrics)` is passed to the driver
     (for in-process callers). Returns {save name: final LoRA} for each
     slider trained."""
-    if args.fleet:
-        raise NotImplementedError("--fleet (every style's slider in one step) is not ported yet "
-                                  "(ROADMAP queue 1, item 14)")
+    if args.fleet and args.stylecheck is None:
+        raise SystemExit("--fleet needs --stylecheck (one slider per style folder)")
     config = config_util.load_config_from_yaml(args.config_file)
     if args.name is not None:
         config.save.name = args.name
@@ -76,6 +77,11 @@ def main(args, on_step=None) -> dict:
         base_name, base_main = config.save.name, args.folder_main
         runs = [(f"{style}_{base_name}", os.path.join(base_main, style))
                 for style in sorted(os.listdir(base_main))]
+    if args.fleet:
+        # every style's slider in one step
+        loras = train_fleet_images(config, prompts, models, runs, folders, scales, resolution,
+                                   on_step=on_step)
+        return {name: lora for (name, _), lora in zip(runs, loras)}
     out = {}
     for name, folder_main in runs:
         config.save.name = name
@@ -106,7 +112,7 @@ def build_parser():
     p.add_argument("--stylecheck", type=str, default=None,
                    help="Train one slider per sorted style folder under --folder_main.")
     p.add_argument("--fleet", action="store_true",
-                   help="With --stylecheck, every style's slider in one step (not ported).")
+                   help="With --stylecheck, every style's slider in one step.")
     p.add_argument("--resolution", type=int, default=None,
                    help="Train resolution (default 256, 512 with --xl).")
     p.add_argument("--xl", action="store_true", help="Train on SDXL.")

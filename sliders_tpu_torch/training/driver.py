@@ -136,11 +136,13 @@ def _refuse_unported(config: RootConfig) -> None:
 
 
 def load_train_state(path: str, device) -> SliderTrainState:
-    """A `.pt` train state written by `train_text_sliders`."""
+    """A `.pt` train state written by `train_text_sliders` or
+    `fleet.train_fleet`."""
     p = Path(path)
     if p.is_dir() or p.suffix in (".msgpack", ".orbax"):
-        raise ValueError(f"{path}: JAX train states (.msgpack, orbax) do not resume in the port; "
-                         "resume from the port's own {name}_trainstate.pt")
+        raise ValueError(f"{path}: JAX train states (.msgpack, orbax) do not resume in the port "
+                         "(ROADMAP queue 1, item 15); resume from the port's own "
+                         "{name}_trainstate.pt")
     return SliderTrainState.from_state_dict(
         torch.load(p, map_location="cpu", weights_only=True), device)
 
@@ -167,7 +169,7 @@ def _slider_optimizer(config: RootConfig, trainable_mask: dict):
     )
 
 
-def _unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) -> dict:
+def draw_unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) -> dict:
     """The UNet's slider LoRA drawn on the CPU from seed + 1 (master
     weights in f32; the compute casts), moved to `device`."""
     lora = lnet.create_slider_network(
@@ -176,8 +178,13 @@ def _unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) 
         train_method=config.network.training_method, network_type=config.network.type,
         dtype=torch.float32, **init,
     )
-    print(f"create LoRA for U-Net: {len(lora)} modules.")
     return {m: {k: t.to(device) for k, t in e.items()} for m, e in lora.items()}
+
+
+def _unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) -> dict:
+    lora = draw_unet_lora(config, models, seed, device, **init)
+    print(f"create LoRA for U-Net: {len(lora)} modules.")
+    return lora
 
 
 def _note_steps_per_call(config: RootConfig) -> None:

@@ -88,10 +88,23 @@ def stack_prompt_pairs(pairs: list) -> dict:
     return {k: torch.stack([torch.as_tensor(p[k]) for p in pairs]) for k in pairs[0]}
 
 
+def mix64(x: int) -> int:
+    """splitmix64's finaliser: a bijection of 64-bit integers whose every
+    output bit depends on every input bit."""
+    x %= 2**64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) % 2**64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) % 2**64
+    return x ^ (x >> 31)
+
+
 def draw_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of iteration `step`'s draws, seeded from (seed,
-    step), so every device and every resumed run draws the same."""
-    return torch.Generator().manual_seed(((seed % 2**32) << 32) | (step % 2**32))
+    step), so every device and every resumed run draws the same. torch's
+    CPU generator (mt19937) keeps only the low 32 bits of its seed, so
+    (seed, step) is mixed into them (`mix64`): another seed draws another
+    stream."""
+    return torch.Generator().manual_seed(
+        mix64(((seed % 2**32) << 32) | (step % 2**32)) % 2**32)
 
 
 def lora_leaves(lora: dict) -> dict:
@@ -105,28 +118,37 @@ def backward_and_update(state: SliderTrainState, optimizer: SliderOptimizer,
     loss does not reach), then the optimizer's in-place update of
     `state.lora` and `state.step + 1`; marks the timer's "grad" and
     "update" phases and returns the gradient's global norm."""
-    flat = [t for e in leaves.values() for t in e.values()]
-    flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    flat_grads = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, flat_grads)]
-    it = iter(flat_grads)
-    grads = {m: {k: next(it) for k in e} for m, e in leaves.items()}
+    grads = lora_grads(loss, leaves)
     timer.mark("grad")
     optimizer.update(state.lora, grads, state.opt_state)
     state.step += 1
-    grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in flat_grads))
+    grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for e in grads.values()
+                               for g in e.values()))
     timer.mark("update")
     return grad_norm
 
 
+def lora_grads(loss: torch.Tensor, leaves: dict) -> dict:
+    """The gradient of `loss` with respect to `leaves`, as a tree of the
+    same structure (zeros for a leaf the loss does not reach)."""
+    flat = [t for e in leaves.values() for t in e.values()]
+    flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter(torch.zeros_like(t) if g is None else g for t, g in zip(flat, flat_grads))
+    return {m: {k: next(it) for k in e} for m, e in leaves.items()}
+
+
 def step_draws(seed: int, step: int, n_pairs: int, max_denoising_steps: int,
                latent_shape: tuple, init_noise_sigma: float, crop: bool = False,
-               ancestral: bool = False):
+               ancestral: bool = False, t_to_rule=None):
     """(pair index, t_to, latents) of iteration `step`, from
     `draw_generator(seed, step)`. With `crop` (SDXL), a fourth entry
     follows: (scale in [1, 3), u_top, u_left), the uniforms of a dynamic
     crop (`get_add_time_ids`). With `ancestral` (ddpm, euler_a), a fifth,
     drawn last: the denoise loop's noise, (t_to, *latent_shape); the fourth
-    is then None without `crop`."""
+    is then None without `crop`. `t_to_rule(t_to, generator)`, if given
+    (a fleet row, `training/fleet.py`), replaces the drawn t_to after the
+    crop, drawing from the same generator what it needs; the noise follows
+    the t_to it returns."""
     gen = draw_generator(seed, step)
     pair_idx = int(torch.randint(n_pairs, (1,), generator=gen))
     t_to = int(torch.randint(1, max_denoising_steps, (1,), generator=gen))
@@ -135,6 +157,8 @@ def step_draws(seed: int, step: int, n_pairs: int, max_denoising_steps: int,
     if crop:
         u = torch.rand(3, generator=gen)
         draws.append((1.0 + 2.0 * u[0], u[1], u[2]))
+    if t_to_rule is not None:
+        t_to = draws[1] = int(t_to_rule(t_to, gen))
     if ancestral:
         if not crop:
             draws.append(None)

@@ -1,6 +1,6 @@
 """The port's `generate_images` CLI on the CPU: end to end on the tiny
 snapshot (the folder and file layout, the `all/` grid, `--compose` naming,
-`--fleet` / `--dp 2` refusals); its name parsing and sweep inference
+`--fleet` conflicts, the `--dp 2` refusal); its name parsing and sweep inference
 against the JAX CLI's functions; the scale-folder expression against
 literal names; the CSV reader against pandas.read_csv; the committed
 reference slider fixture through the port's loader; and the CLI, SDXL-Turbo
@@ -103,8 +103,9 @@ def test_cli_writes_the_scorers_layout(root):
 
 def test_cli_compose_and_refusals(root):
     """--compose names its folder by the adapters and their scales and sweeps
-    0, 1 by default; at 0 it is the base model. --fleet and --dp 2 name
-    ROADMAP items 14 and 15; --compose with --model_name is refused."""
+    0, 1 by default; at 0 it is the base model. --dp 2 names ROADMAP item
+    15; --compose with --model_name or --fleet, and --fleet with
+    --model_name, exit before the model load."""
     a, b = (str(root / f"{n}_alpha1.0_rank{r}_noxattn_last.safetensors")
             for n, r in (("age", 2), ("eyes", 3)))
     _run(root, "--compose", f"{a}:1", "--compose", f"{b}:-1.5", "--scheduler", "lms")
@@ -115,8 +116,11 @@ def test_cli_compose_and_refusals(root):
     np.testing.assert_array_equal(_png(folder / "0" / "3_0.png"),
                                   _png(root / "out" / "base" / "0" / "3_0.png"))
     assert not np.array_equal(_png(folder / "1" / "3_0.png"), _png(folder / "0" / "3_0.png"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _run(root, "--fleet", a)
+    for extra in (["--compose", f"{a}:1"], ["--model_name", b]):
+        with pytest.raises(SystemExit, match="conflict"):
+            tgen.main(tgen.build_parser().parse_args(
+                ["--base", "/nonexistent", "--prompts_path", "/nonexistent.csv",
+                 "--save_path", str(root / "out"), "--device", "cpu", "--fleet", a, *extra]))
     with pytest.raises(NotImplementedError, match="item 15"):
         _run(root, "--dp", "2")
     with pytest.raises(SystemExit):
@@ -193,10 +197,22 @@ def test_committed_reference_fixture_loads():
 def test_generate_without_jax(root, tmp_path):
     """generate_images (SD, and --xl with euler_a and no CFG), the SD1 and
     Turbo examples' scalar merged path, an import of the FLUX example,
-    `serve --continuous` answering a request over HTTP, and the real-image
-    editing and attention-map examples end to end, with jax, the JAX
+    `serve --continuous` answering a request over HTTP, the real-image
+    editing and attention-map examples end to end, a two-slider
+    `train_fleet` run and `generate_images --fleet`, with jax, the JAX
     package, pandas and PIL unimportable."""
     xl = make_tiny_snapshot(str(tmp_path / "sdxl_tiny"), xl=True)
+    for name in ("a", "b"):
+        (tmp_path / f"{name}.yaml").write_text(
+            f"- target: person\n  positive: {name} person\n  unconditional: ''\n"
+            "  neutral: person\n  resolution: 64\n")
+    (tmp_path / "fleet.yaml").write_text(
+        f"prompts_file: {tmp_path / 'a.yaml'}\n"
+        f"pretrained_model:\n  name_or_path: {root / 'sd_tiny'}\n"
+        "network:\n  rank: 2\n  training_method: noxattn\n"
+        "train:\n  precision: float32\n  iterations: 2\n  max_denoising_steps: 3\n"
+        f"save:\n  name: f\n  path: {tmp_path / 'fleet'}\n"
+        "tpu:\n  remat: false\n")
     code = f"""
 import argparse, importlib.util, os, sys
 banned = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "PIL", "pandas",
@@ -206,6 +222,7 @@ for name in [m for m in sys.modules if m.split(".")[0] in banned]:
 for name in banned:
     sys.modules[name] = None
 import torch
+torch.set_num_threads(1)  # tiny tensors; the other test workers share the CPU
 from sliders_tpu_torch.cli import generate_images as g
 from sliders_tpu_torch.models import loader
 base = ["--prompts_path", {str(root / "prompts.csv")!r}, "--device", "cpu", "--precision",
@@ -267,6 +284,17 @@ examples["edit_real_image_torch"].main(argparse.Namespace(
 examples["attention_maps_torch"].main(argparse.Namespace(
     base={str(root / "sd_tiny")!r}, prompt="a person", slider=None, scale=1.0, t=501, size=64, res=8, seed=0,
     device="cpu", out=os.path.join({str(tmp_path)!r}, "maps")))
+from sliders_tpu_torch.cli import train_fleet
+loras = train_fleet.main(train_fleet.build_parser().parse_args(
+    ["--config_file", os.path.join({str(tmp_path)!r}, "fleet.yaml"), "--device", "cpu",
+     "--prompts_file", os.path.join({str(tmp_path)!r}, "a.yaml"),
+     os.path.join({str(tmp_path)!r}, "b.yaml")]))
+assert len(loras) == 2
+out = g.main(g.build_parser().parse_args(base + [
+    "--base", {str(root / "sd_tiny")!r}, "--save_path", {str(tmp_path / "gf")!r},
+    "--scales", "0,1", "--fleet", {str(root / "age_alpha1.0_rank2_noxattn_last.safetensors")!r},
+    "--fleet", {str(root / "eyes_alpha1.0_rank3_noxattn_last.safetensors")!r}]))
+assert len(out["folders"]) == 2
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in banned]
 assert not loaded, loaded
 print("ok")
@@ -284,3 +312,9 @@ print("ok")
     assert Image.open(tmp_path / "edit.png").size == (2 * 32, 32)
     # bos, eos and the tiny vocabulary's four tokens of "a person"
     assert len(os.listdir(tmp_path / "maps")) == 6
+    run = "f_alpha1.0_rank2_noxattn"
+    assert sorted(os.listdir(tmp_path / "fleet" / f"{run}_fleet")) == sorted(
+        [f"{n}_alpha1.0_rank2_noxattn_last.safetensors" for n in ("a", "b")]
+        + [f"{run}_fleet_metadata.json"])
+    for stem in ("age_alpha1.0_rank2_noxattn_last", "eyes_alpha1.0_rank3_noxattn_last"):
+        assert os.listdir(tmp_path / "gf" / stem / "1") == ["3_0.png"]

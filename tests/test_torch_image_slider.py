@@ -3,7 +3,7 @@ step (`training/image_slider.py`) held against the JAX step on the same
 weights, images and draws (SD's TINY UNet and TINY_XL, each with the TINY
 VAE), the fused [+s, -s] multiplier, the refusals, and the CLI end to end
 on the tiny snapshot (save names and cadence, files the JAX package reads,
-`--stylecheck`, `--fleet`, `--device`).
+`--stylecheck`, `--fleet` without `--stylecheck`, `--device`).
 
 The step parity runs in f32 at 32 px with lr 1e-4, as the text step's does
 (`tests/test_torch_training.py`: Adam turns ULP-level gradient noise on the
@@ -297,8 +297,8 @@ def test_cli_prompts_file_is_parsed_and_not_applied(cli_root, tmp_path, monkeypa
 
 def test_cli_stylecheck_and_refusals(cli_root):
     """--stylecheck trains one slider per sorted style folder, saved as
-    `{style}_{name}`; --fleet names ROADMAP item 14; --device cuda without a
-    card refuses."""
+    `{style}_{name}`; --fleet without --stylecheck exits, as the JAX CLI
+    does; --device cuda without a card refuses."""
     out = tcli.main(tcli.build_parser().parse_args(_argv(cli_root, "styles", "--stylecheck",
                                                          "1", "--name", "st")))
     names = [f"{i}_st_alpha1.0_rank2_noxattn" for i in range(2)]
@@ -309,9 +309,8 @@ def test_cli_stylecheck_and_refusals(cli_root):
     # the two style folders hold different images: different sliders
     assert not torch.equal(out[names[0]][next(iter(out[names[0]]))]["down"],
                            out[names[1]][next(iter(out[names[1]]))]["down"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcli.main(tcli.build_parser().parse_args(_argv(cli_root, "styles", "--stylecheck", "1",
-                                                       "--fleet")))
+    with pytest.raises(SystemExit, match="--fleet needs --stylecheck"):
+        tcli.main(tcli.build_parser().parse_args(_argv(cli_root, "styles", "--fleet")))
     if not torch.cuda.is_available():
         argv = _argv(cli_root)
         argv[argv.index("--device") + 1] = "0"

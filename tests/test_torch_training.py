@@ -12,6 +12,7 @@ queue 3), so atol 1e-5 on the LoRA is meaningful only at a small lr.
 import json
 import math
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -87,22 +88,51 @@ def _tree_np_to_torch(tree):
     return {m: {k: torch.tensor(np.asarray(v)) for k, v in e.items()} for m, e in tree.items()}
 
 
-@pytest.mark.parametrize("name,schedule", [("adamw", "constant"), ("adamw", "cosine"),
-                                           ("adam", "step"), ("lion", "linear")])
+ADAPTIVE = ("prodigy", "dadaptadam", "dadaptadamw", "dadaptlion")
+
+
+def _adaptive_inner_state(jstate):
+    """The optax.contrib state inside the masked chain's first transform."""
+    return jstate[0].inner_state
+
+
+@pytest.mark.parametrize("name,schedule", [
+    ("adamw", "constant"), ("adamw", "cosine"), ("adam", "step"), ("lion", "linear"),
+    ("prodigy", "constant"), ("prodigy", "cosine"), ("dadaptadam", "linear"),
+    ("dadaptadamw", "step"), ("dadaptlion", "cosine_with_restarts")])
 def test_optimizer_update_matches_optax(tiny, name, schedule):
-    """Three updates on the same gradients agree with optax within 1e-7 (f32
-    sums in another order), and the masked alphas stay bit for bit."""
+    """Three updates (five for the adaptive ones, whose estimates grow from
+    the fourth) on the same gradients agree with optax (optax.contrib
+    for prodigy and D-Adapt, under the trainable mask) within 1e-7 (f32 sums
+    in another order), and the masked alphas stay bit for bit. The adaptive
+    ones run at the lr 1.0 their schedules treat as the base, take weight
+    decay, and hold their step-size estimate and weighted numerator to
+    optax's within 1e-5 relative: their global sums run over the trainable
+    leaves only, as optax.masked hands them only those."""
     _, lora, _, _ = tiny
     mask = jnet.trainable_mask(lora)
-    jtx = jopt.make_optimizer(name, jopt.make_lr_schedule(schedule, 1e-3, 30), trainable_mask=mask)
-    ttx = topt.make_optimizer(name, topt.make_lr_schedule(schedule, 1e-3, 30),
-                              trainable_mask=tnet.trainable_mask(lora))
+    adaptive = name in ADAPTIVE
+    lr, kw = (1.0, {"weight_decay": 1e-2}) if adaptive else (1e-3, {})
+    if name == "prodigy":
+        kw["estim_lr0"] = 1e-5
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # dadaptlion's warning: test_optimizer_names
+        jtx = jopt.make_optimizer(name, jopt.make_lr_schedule(schedule, lr, 30), dict(kw),
+                                  trainable_mask=mask)
+        ttx = topt.make_optimizer(name, topt.make_lr_schedule(schedule, lr, 30), dict(kw),
+                                  trainable_mask=tnet.trainable_mask(lora))
     jw = lora
     tw = _tree_np_to_torch(_np(lora))
     jstate, tstate = jtx.init(jw), ttx.init(tw)
     rng = np.random.default_rng(0)
-    for _ in range(3):
-        g = {m: {k: rng.standard_normal(np.shape(v)).astype(np.float32) for k, v in e.items()}
+    # the adaptive ones on gradients with a common direction, so that their
+    # step-size estimates grow
+    base = {m: {k: rng.standard_normal(np.shape(v)).astype(np.float32) if adaptive else 0.0
+                for k, v in e.items()} for m, e in lora.items()}
+    n_updates = 5 if adaptive else 3
+    for _ in range(n_updates):
+        g = {m: {k: (base[m][k] + rng.standard_normal(np.shape(v)).astype(np.float32)
+                     * (0.1 if adaptive else 1.0)).astype(np.float32) for k, v in e.items()}
              for m, e in lora.items()}
         upd, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jw)
         jw = optax.apply_updates(jw, upd)
@@ -111,14 +141,65 @@ def test_optimizer_update_matches_optax(tiny, name, schedule):
         for k in ("down", "up"):
             np.testing.assert_allclose(tw[m][k].numpy(), np.asarray(jw[m][k]), rtol=0, atol=1e-7)
         assert tw[m]["alpha"].item() == float(lora[m]["alpha"])
+    if adaptive:
+        inner = _adaptive_inner_state(jstate)
+        assert tstate["count"] == int(inner.count) == n_updates
+        for key in ("estim_lr", "numerator_weighted"):
+            ref = float(getattr(inner, key))
+            assert tstate[key].item() == pytest.approx(ref, rel=1e-5), key
+        assert tstate["estim_lr"].item() > kw.get("estim_lr0", 1e-6)  # the estimate grew
+        assert set(tstate["exp_avg"][next(iter(lora))]) == {"down", "up"}  # no alpha moments
+
+
+@pytest.mark.parametrize("name", ["prodigy", "dadaptadamw"])
+def test_adaptive_optimizer_resume_equals_uninterrupted(tiny, tmp_path, name):
+    """Four updates straight against two, a round trip of the train state
+    through the `.pt` file `SliderTrainState.state_dict` writes, and two
+    more: the same weights and state, bit for bit."""
+    from sliders_tpu_torch.training.text_slider import SliderTrainState
+
+    _, _, _, tlora = tiny
+    mk = lambda: topt.make_optimizer(name, topt.make_lr_schedule("cosine", 1.0, 8),  # noqa: E731
+                                     trainable_mask=tnet.trainable_mask(tlora))
+    rng = np.random.default_rng(4)
+    grads = [{m: {k: torch.tensor(rng.standard_normal(tuple(t.shape)), dtype=torch.float32)
+                  for k, t in e.items()} for m, e in tlora.items()} for _ in range(4)]
+
+    def fresh():
+        tx = mk()
+        return tx, SliderTrainState.create(3, {m: {k: t.clone() for k, t in e.items()}
+                                               for m, e in tlora.items()}, tx)
+
+    tx, straight = fresh()
+    for g in grads:
+        tx.update(straight.lora, g, straight.opt_state)
+    tx, first = fresh()
+    for g in grads[:2]:
+        tx.update(first.lora, g, first.opt_state)
+    torch.save(first.state_dict(), tmp_path / "s_trainstate.pt")
+    resumed = SliderTrainState.from_state_dict(
+        torch.load(tmp_path / "s_trainstate.pt", weights_only=True), "cpu")
+    tx = mk()
+    for g in grads[2:]:
+        tx.update(resumed.lora, g, resumed.opt_state)
+    assert resumed.opt_state["count"] == straight.opt_state["count"] == 4
+    for m in tlora:
+        for k in ("down", "up", "alpha"):
+            assert torch.equal(resumed.lora[m][k], straight.lora[m][k])
+    for key in ("estim_lr", "numerator_weighted"):
+        assert torch.equal(resumed.opt_state[key], straight.opt_state[key])
 
 
 def test_optimizer_names():
     with pytest.warns(UserWarning, match="full-precision adamw"):
         assert topt.make_optimizer("AdamW8bit", lambda s: 1e-4).kind == "adamw"
-    for name in ("prodigy", "dadaptadam", "dadaptlion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
-            topt.make_optimizer(name, lambda s: 1e-4)
+    assert topt.make_optimizer("Prodigy", lambda s: 1.0).kind == "prodigy"
+    for name in ("dadaptadam", "dadaptadamw"):
+        assert topt.make_optimizer(name, lambda s: 1.0).kind == "dadapt_adamw"
+    with pytest.warns(UserWarning, match="dadaptlion.*dadapt_adamw"):
+        assert topt.make_optimizer("dadaptlion", lambda s: 1.0).kind == "dadapt_adamw"
+    with pytest.raises(TypeError, match="b1"):
+        topt.make_optimizer("prodigy", lambda s: 1.0, {"b1": 0.9})
     with pytest.raises(ValueError, match="Optimizer must be"):
         topt.make_optimizer("sgd", lambda s: 1e-4)
     with pytest.raises(TypeError, match="betas"):
