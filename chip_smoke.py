@@ -2743,6 +2743,169 @@ def run_fused_training(cfg: dict, tmp: str, xla_recs: list) -> dict:
     return run
 
 
+VALIDATE_STEPS = 3  # DDIM steps of the runbook's sweep, cut from its 50
+SINGLE_FILE_ATOL = 1e-4  # the runbook's single-file check, f32 UNet on the golden probe
+
+
+def write_ldm_single_file(snap: str, path: str) -> int:
+    """The snapshot's UNet, VAE and CLIP-L as one LDM-layout .safetensors
+    (keys by `ldm_checkpoint.diffusers_to_ldm_keys`, the VAE's attention
+    linears as 1x1 convs, CLIP's position_ids beside, as real files hold
+    them); returns the file's bytes."""
+    import torch
+
+    from sliders_tpu_torch.models import convert, ldm_checkpoint, unet2d, vae
+    from sliders_tpu_torch.models.convert import write_safetensors
+
+    state = ldm_checkpoint.to_ldm_state(
+        convert.load_component(snap, "unet"), unet2d.SD15, convert.load_component(snap, "vae"),
+        vae.SD_VAE, convert.load_component(snap, "text_encoder"))
+    state[ldm_checkpoint.TEXT_PREFIX + "text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    write_safetensors(path, state)
+    return os.path.getsize(path)
+
+
+def phase_single_file(snap: str, tmp: str) -> dict:
+    """SD1.5 at full width from one LDM single file: every tensor bit-equal
+    to the snapshot's load, then one UNet forward on the golden probe (512
+    px, #1 10 times) and one 512 px VAE decode (#4 at d = 512, once),
+    counted, and held against the snapshot model's forward."""
+    import torch
+
+    from sliders_tpu_torch.models import loader
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.pipelines import text2image as t2i
+    from sliders_tpu_torch.utils.goldens import fixed_unet_probe, unet_on_probe
+    from sliders_tpu_torch.utils.pytree import flatten
+
+    path = os.path.join(tmp, "sd15.safetensors")
+    t0 = time.perf_counter()
+    size = write_ldm_single_file(snap, path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = loader.load_sd(path, tokenizer_dir=os.path.join(snap, "tokenizer"), load_vae=True,
+                       device="cuda")
+    t_load = time.perf_counter() - t0
+    ref = loader.load_sd(snap, load_vae=True, device="cuda")
+    pairs = [(m.unet_params, ref.unet_params), (m.vae_params, ref.vae_params),
+             (m.text_encoders[0].params, ref.text_encoders[0].params)]
+    n_tensors, unequal = 0, []
+    for a, b in pairs:
+        got, want = flatten(a), flatten(b)
+        if set(got) != set(want):
+            raise AssertionError(f"the single file's tree has other paths: "
+                                 f"{sorted(set(got) ^ set(want))[:5]}")
+        n_tensors += len(got)
+        unequal += [k for k in got if got[k].dtype != want[k].dtype
+                    or got[k].stride() != want[k].stride() or not torch.equal(got[k], want[k])]
+    if unequal:
+        raise AssertionError(f"{len(unequal)} tensors differ from the snapshot's, e.g. "
+                             f"{unequal[:3]}")
+    probe = fixed_unet_probe(m.unet_config)
+    lat = torch.from_numpy(probe["x"]).cuda() * 0.5
+    sa.sd_attention.launches = fa.flash_attention.launches = 0
+    eps = unet_on_probe(m.unet_params, m.unet_config, probe)
+    img = t2i.decode_images(m.vae_params, m.vae_config, lat)
+    torch.cuda.synchronize()
+    counts = {"sd": sa.sd_attention.launches, "flash": fa.flash_attention.launches}
+    eps_ref = unet_on_probe(ref.unet_params, ref.unet_config, probe)
+    diff = (eps - eps_ref).abs().max().item()
+    scale = max(1.0, eps_ref.abs().max().item())
+    say("single file", f"{size / 1e9:.3f} GB LDM .safetensors written in {t_write:.1f} s, "
+        f"loaded in {t_load:.1f} s: {n_tensors} tensors (UNet, VAE, CLIP-L) bit-equal to the "
+        f"snapshot's in dtype, layout and value; UNet f32 forward on the 512 px probe: "
+        f"max|diff| {diff:.3g} against the snapshot model's (limit {SINGLE_FILE_ATOL} x "
+        f"{scale:.3g}); decode {tuple(img.shape)}; launches #1 {counts['sd']} (expected "
+        f"{ROUTED_PER_FORWARD}), #4 {counts['flash']} (expected 1)")
+    if not torch.isfinite(eps).all() or diff > SINGLE_FILE_ATOL * scale:
+        raise AssertionError("the single file's UNet disagrees with the snapshot's")
+    if tuple(img.shape) != (1, 512, 512, 3) or img.dtype != torch.uint8:
+        raise AssertionError(f"the decode gave {tuple(img.shape)} {img.dtype}")
+    if counts != {"sd": ROUTED_PER_FORWARD, "flash": 1}:
+        raise AssertionError("the single file's forward or decode did not go through #1 / #4")
+    del m, ref
+    return {"path": path, "bytes": size, **counts}
+
+
+def phase_validate(snap: str, ckpt: str, tmp: str) -> dict:
+    """The real-weight runbook `cli.validate_real_weights` in-process on the
+    card, --sd15 the snapshot --ckpt its single file, 512 px, VALIDATE_STEPS
+    DDIM steps, f32, twice with one golden: load, single_file and sweep PASS
+    and eps_golden RECORDED, then MATCHED; CLIP and LPIPS SKIP (no weights
+    passed). #1 launches 10 per UNet forward (the golden's, the two
+    single-file forwards and the sweep's CFG-doubled steps), #4 once (the
+    sweep's decode)."""
+    import torch
+
+    from sliders_tpu_torch.cli import validate_real_weights as rb
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    out, golden = os.path.join(tmp, "validate"), os.path.join(tmp, "torch_sd15_eps_golden.npz")
+    argv = ["--sd15", snap, "--ckpt", ckpt, "--golden", golden, "--out", out, "--steps",
+            str(VALIDATE_STEPS), "--image_size", "512", "--device", "0"]
+    want_sd = ROUTED_PER_FORWARD * (3 + VALIDATE_STEPS)
+    runs = []
+    for golden_status in ("RECORDED", "MATCHED"):
+        sa.sd_attention.launches = fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        rc = rb.main(rb.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "validation.json")) as f:
+            status = {k: v["status"] for k, v in json.load(f).items()}
+        counts = {"sd": sa.sd_attention.launches, "flash": fa.flash_attention.launches}
+        with open(os.path.join(out, "sweep_+0.0.png"), "rb") as f:
+            w, h, pixels = png_pixels(f.read())
+        say("validate", f"run {len(runs) + 1}: rc {rc} in {seconds:.1f} s, statuses {status}; "
+            f"sweep PNG {w}x{h} (pixel mean {sum(pixels) / len(pixels):.1f}); launches #1 "
+            f"{counts['sd']} (expected {want_sd} = 10 x (1 golden + 2 single-file + "
+            f"{VALIDATE_STEPS} sweep steps), of which the sweep's {counts['sd'] - 30}), #4 "
+            f"{counts['flash']} (expected 1: the sweep's decode)")
+        expected = {"load": "PASS", "eps_golden": golden_status, "single_file": "PASS",
+                    "clip": "SKIP", "lpips": "SKIP", "sweep": "PASS"}
+        if rc != 0 or status != expected or (w, h) != (512, 512):
+            raise AssertionError(f"the runbook gave {status} (rc {rc}), expected {expected}")
+        if counts != {"sd": want_sd, "flash": 1}:
+            raise AssertionError("the runbook's forwards or decode did not go through #1 / #4")
+        runs.append({"seconds": seconds, **counts})
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": runs, "sd": runs[0]["sd"], "flash": runs[0]["flash"],
+            "sweep_sd": runs[0]["sd"] - 3 * ROUTED_PER_FORWARD}
+
+
+class WandbStub:
+    """A stand-in `wandb` module (the card's machine has none): records each
+    init and log call with its host time."""
+
+    def __init__(self):
+        self.calls = []
+
+    def init(self, **kw):
+        self.calls.append(("init", time.perf_counter(), kw))
+
+    def log(self, row):
+        self.calls.append(("log", time.perf_counter(), row))
+
+
+def check_loop_trace(path: str, fwd: int, bwd: int) -> dict:
+    """The text loop's Chrome trace: parses as JSON, and its device kernels
+    name #1's bf16 forward (`attn_sm90`) and #2's (`attn_bwd_sm90`, two
+    kernels a backward)."""
+    with open(path) as f:
+        trace = json.load(f)
+    kernels = [e.get("name", "") for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    found = {"attn_sm90": sum("attn_sm90" in k for k in kernels),
+             "attn_bwd_sm90": sum("attn_bwd_sm90" in k for k in kernels)}
+    if not found["attn_sm90"] or not found["attn_bwd_sm90"]:
+        raise AssertionError(f"the loop's trace names neither #1 nor #2: {found}, "
+                             f"{len(kernels)} kernel events")
+    return {"bytes": os.path.getsize(path), "events": len(trace["traceEvents"]),
+            "kernels": len(kernels), "found": found, "fwd_launches": fwd, "bwd_launches": bwd}
+
+
 def phase_train():
     """SD1.5 at full width through the training CLI, then a resume."""
     import torch
@@ -2819,11 +2982,49 @@ def phase_train():
         say("train", f"{len(final)} LoRA modules: every up factor moved from zero, every alpha "
             f"still {cfg['network']['alpha']}; files {files}; _last reloads equal")
 
-        # resume from the state saved after step 3 for one more iteration
+        # resume from the state saved after step 3 for one more iteration,
+        # traced (tpu.profile_dir) and logged to a stub wandb
         cfg["train"]["iterations"] = 5
-        resumed = run_training(cfg, os.path.join(tmp, "config_resume.yaml"),
-                               ["--resume", os.path.join(out_dir, f"{name}_trainstate.pt")])
+        trace_dir = os.path.join(tmp, "trace")
+        cfg["tpu"]["profile_dir"], cfg["logging"]["use_wandb"] = trace_dir, True
+        stub, saved_wandb = WandbStub(), sys.modules.get("wandb")
+        sys.modules["wandb"] = stub
+        try:
+            resumed = run_training(cfg, os.path.join(tmp, "config_resume.yaml"),
+                                   ["--resume", os.path.join(out_dir, f"{name}_trainstate.pt")])
+        finally:
+            if saved_wandb is None:
+                del sys.modules["wandb"]
+            else:
+                sys.modules["wandb"] = saved_wandb
+        cfg["tpu"]["profile_dir"], cfg["logging"]["use_wandb"] = "", False
         rrecs = resumed["records"]
+        trace = check_loop_trace(os.path.join(trace_dir, f"{name}_loop.pt.trace.json"),
+                                 resumed["fwd"], resumed["bwd"])
+        kinds = [c[0] for c in stub.calls]
+        init_kw = stub.calls[0][2] if kinds and kinds[0] == "init" else {}
+        with open(os.path.join(out_dir, f"{name}_metadata.json")) as f:
+            meta = json.load(f)
+        logged = [c[2] for c in stub.calls[1:]]
+        want_log = [{"loss": rrecs[0][2]["loss"], "iteration": 4,
+                     "lr": float(cfg["train"]["lr"])}] if rrecs else []
+        traced_s = rrecs[0][1] - stub.calls[0][1] if rrecs and stub.calls else float("nan")
+        plain_s = recs[4][1] - recs[3][1]
+        r_ms, m_ms = rrecs[0][2]["phase_ms"], recs[4][2]["phase_ms"]
+        say("train", f"resumed run traced: {trace['bytes'] / 1e6:.1f} MB Chrome trace, "
+            f"{trace['events']} events, {trace['kernels']} device kernels, of which #1's "
+            f"attn_sm90 {trace['found']['attn_sm90']} (forward launches {resumed['fwd']}) and "
+            f"#2's attn_bwd_sm90 {trace['found']['attn_bwd_sm90']} (backward launches "
+            f"{resumed['bwd']}); step 4 host wall {traced_s:.3f} s with the profiler (from "
+            f"wandb.init to the step's end) against {plain_s:.3f} s without (the first run's "
+            f"step 4, from step 3's end, which includes step 3's saves); device ms "
+            f"{sum(r_ms.values()):.1f} / {sum(m_ms.values()):.1f}; whole resumed run "
+            f"{resumed['seconds']:.1f} s with the load and the trace's export; wandb stub: "
+            f"{kinds}, init project {init_kw.get('project')!r}")
+        if kinds != ["init", "log"] or init_kw != {"project": f"LECO_{name}", "config": meta}:
+            raise AssertionError(f"the stub wandb saw {kinds} with {init_kw.get('project')!r}")
+        if logged != want_log:
+            raise AssertionError(f"wandb.log got {logged}, expected {want_log}")
         if [i for i, _, _ in rrecs] != [4]:
             raise AssertionError(f"the resumed run took steps {[i for i, _, _ in rrecs]}, not [4]")
         m4, r4 = recs[4][2], rrecs[0][2]
@@ -2843,6 +3044,11 @@ def phase_train():
         fused = run_fused_training(cfg, tmp, recs)
         gc.collect()
         torch.cuda.empty_cache()
+        single_file = timed("single file", phase_single_file, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        validate = timed("validate_real_weights", phase_validate, snap, single_file["path"], tmp)
+        os.remove(single_file["path"])
         image = timed("SD1.5 image training", phase_image_train, snap, tmp, "sd15")
         gc.collect()
         torch.cuda.empty_cache()
@@ -2894,7 +3100,8 @@ def phase_train():
             "fused_conv": fused["conv"].get("fused_conv3x3", 0), "image": image,
             "generate": generate, "edit": edit, "maps": maps, "uce": uce, "ti": ti,
             "scores": scores, "fleet": fleet, "fleet_rows": fleet_rows,
-            "fleet_image": fleet_image, "generate_fleet": generate_fleet, "adaptive": adaptive}
+            "fleet_image": fleet_image, "generate_fleet": generate_fleet, "adaptive": adaptive,
+            "single_file": single_file, "validate": validate, "trace": trace}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -4516,7 +4723,11 @@ def phase_fleet_rows() -> dict:
     run's (the fleet's rows sit at other batch positions than a solo run's,
     which on the card may change bits: queue 3); then row isolation: row 1's
     prompt pairs changed, row 0's largest change printed and held to the
-    same limit (on the CPU it is 0, bit for bit)."""
+    same limit (on the CPU it is 0, bit for bit). Before that the same
+    fleet runs twice (printed: does the card repeat itself?), and twice
+    more with `cudnn.deterministic` and once with row 1's pairs changed:
+    there both are held to 0, bit for bit (cuDNN's default algorithms are
+    what moves row 0 under the default: ROADMAP queue 3)."""
     import torch
 
     from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
@@ -4557,9 +4768,31 @@ def phase_fleet_rows() -> dict:
         ms = [step(state, unet, stacked)[1] for _ in range(2)]
         return [tree_to(r, "cpu") for r in fleet.unstack_fleet(state.lora)], ms
 
+    def max_diff(a, b, keys=("down", "up")) -> float:
+        return max((a[m][k] - b[m][k]).abs().max().item() for m in a for k in keys)
+
     with tf32_flags(False, False):
         sets = [pairs(30, 2), pairs(31, 2)]
         rows, ms = run_fleet(sets)
+        # the same fleet again, then both again with cuDNN held to deterministic
+        # algorithms: does the card repeat itself, and does row isolation hold then?
+        again, _ = run_fleet(sets)
+        rerun = max(max_diff(rows[r], again[r]) for r in range(2))
+        saved_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = [run_fleet(sets)[0] for _ in range(2)]
+            det_other, _ = run_fleet([sets[0], pairs(32, 2)])
+        finally:
+            torch.backends.cudnn.deterministic = saved_det
+        det_rerun = max(max_diff(det[0][r], det[1][r]) for r in range(2))
+        det_iso = max_diff(det[0][0], det_other[0])
+        say("fleet", f"rows: the same fleet run twice: max|diff| {rerun:.3g} (bit-equal: "
+            f"{rerun == 0}); with cudnn.deterministic: twice {det_rerun:.3g}, row 1's pairs "
+            f"changed: row 0 moved {det_iso:.3g}")
+        if det_rerun or det_iso:
+            raise AssertionError("with cuDNN's deterministic algorithms the fleet's rows are "
+                                 "not repeatable or not isolated bit for bit")
         errs, solo_t = [], []
         for r in range(2):
             s = fleet.fleet_row_seed(seed, r)
@@ -4576,8 +4809,7 @@ def phase_fleet_rows() -> dict:
             errs.append(max((rows[r][m][k] - state.lora[m][k].cpu()).abs().max().item()
                             for m in state.lora for k in ("down", "up")))
         other, _ = run_fleet([sets[0], pairs(32, 2)])
-        iso = max((rows[0][m][k] - other[0][m][k]).abs().max().item()
-                  for m in rows[0] for k in ("down", "up"))
+        iso = max_diff(rows[0], other[0])
         moved = max((rows[1][m]["up"] - other[1][m]["up"]).abs().max().item() for m in rows[1])
     say("fleet", f"rows: TINY {px} px f32, K = 2, 2 iterations (t_to by row {solo_t}), lr "
         f"{TINY_LR}: each row's LoRA against its solo run of seed fleet_row_seed(seed, r): "
@@ -4585,7 +4817,8 @@ def phase_fleet_rows() -> dict:
         f"row 0 moved {iso:.3g} (limit {FLEET_ROW_TOL}), row 1 {moved:.3g}")
     if max(errs) > FLEET_ROW_TOL or iso > FLEET_ROW_TOL or moved == 0:
         raise AssertionError("the fleet's rows are not their solo runs, or not isolated")
-    return {"row_err": max(errs), "isolation": iso}
+    return {"row_err": max(errs), "isolation": iso, "rerun": rerun,
+            "deterministic_rerun": det_rerun, "deterministic_isolation": det_iso}
 
 
 def phase_fleet_image(snap: str, tmp: str) -> dict:
@@ -5962,7 +6195,12 @@ def main() -> int:
                              **{f"fleet_sd15_{k}": v["sd"] for k, v in train["fleet"].items()},
                              "fleet_image_sd15_256": train["fleet_image"]["sd"],
                              "generate_fleet_sd15": train["generate_fleet"]["sd"],
-                             "train_prodigy_sd15": train["adaptive"]["fwd"]},
+                             "train_prodigy_sd15": train["adaptive"]["fwd"],
+                             "single_file_sd15": train["single_file"]["sd"],
+                             "validate_real_weights_sd15": train["validate"]["sd"],
+                             "validate_real_weights_sd15_sweep": train["validate"]["sweep_sd"],
+                             "train_resume_traced_kernel_events":
+                                 train["trace"]["found"]["attn_sm90"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -5993,7 +6231,9 @@ def main() -> int:
                              **{f"fleet_sd15_{k}": v["sd_bwd"]
                                 for k, v in train["fleet"].items()},
                              "fleet_image_sd15_256": train["fleet_image"]["sd_bwd"],
-                             "train_prodigy_sd15": train["adaptive"]["bwd"]},
+                             "train_prodigy_sd15": train["adaptive"]["bwd"],
+                             "train_resume_traced_kernel_events":
+                                 train["trace"]["found"]["attn_bwd_sm90"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
@@ -6028,7 +6268,9 @@ def main() -> int:
                                  sdxl["custom_diffusion"]["flash"],
                              "scores_clip_lpips": train["scores"]["flash"],
                              "fleet_image_sd15_256_encode": train["fleet_image"]["flash"],
-                             "generate_fleet_sd15_vae": train["generate_fleet"]["flash"]},
+                             "generate_fleet_sd15_vae": train["generate_fleet"]["flash"],
+                             "single_file_sd15_vae": train["single_file"]["flash"],
+                             "validate_real_weights_sd15_vae": train["validate"]["flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},

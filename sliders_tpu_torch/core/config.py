@@ -12,11 +12,11 @@ from an int or a numeric string such as YAML's `1e-4`, a bool from 0/1 or
 yes/no words); anything else raises a `ValueError` naming the field.
 
 Of the `tpu:` section the port honours `remat`, `nan_check`,
-`state_checkpoint_every`, `per_device_batch` and `attention`; `donate` and
-`steps_per_call` are accepted and have no effect (PyTorch frees buffers
-itself, and an eager step dispatches once per iteration anyway). `dp` or
-`tp` above 1 and a non-empty `profile_dir` are refused by the training
-driver.
+`state_checkpoint_every`, `per_device_batch`, `attention` and, in the
+text-slider loop, `profile_dir`; `donate` and `steps_per_call` are accepted
+and have no effect (PyTorch frees buffers itself, and an eager step
+dispatches once per iteration anyway). `dp` or `tp` above 1 are refused by
+the training driver.
 """
 
 from __future__ import annotations

@@ -49,16 +49,26 @@ class _Line:
 
 
 def _strip_comment(text: str) -> str:
-    """Drop a comment: '#' at the start or after whitespace, outside quotes."""
+    """Drop a comment: '#' at the start or after whitespace, outside quotes
+    (a backslash escape inside double quotes and a doubled '' inside single
+    quotes do not close them)."""
     quote = None
-    for i, ch in enumerate(text):
+    i = 0
+    while i < len(text):
+        ch = text[i]
         if quote:
-            if ch == quote:
-                quote = None
+            if quote == '"' and ch == "\\":
+                i += 1
+            elif ch == quote:
+                if quote == "'" and text[i + 1:i + 2] == "'":
+                    i += 1
+                else:
+                    quote = None
         elif ch in "'\"" and (i == 0 or text[i - 1] in " \t:-[{,"):
             quote = ch
         elif ch == "#" and (i == 0 or text[i - 1] in " \t"):
             return text[:i].rstrip()
+        i += 1
     return text.rstrip()
 
 

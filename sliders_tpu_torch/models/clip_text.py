@@ -1,6 +1,7 @@
 """CLIP text encoder (CLIP-L/14 for SD1 and SDXL, OpenCLIP bigG/14 with
-its projection for SDXL's second encoder) as a function over a parameter
-dict (port of sliders_tpu/models/clip_text.py).
+its projection for SDXL's second encoder, the 23-layer OpenCLIP-H tower of
+SD2.x) as a function over a parameter dict (port of
+sliders_tpu/models/clip_text.py).
 
 Output contract of the reference's `train_util.encode_prompts`: the last
 hidden state after the final layer norm. The parameter dict mirrors the
@@ -35,6 +36,10 @@ class ClipTextConfig:
 
 
 CLIP_L = ClipTextConfig()  # SD1 / SDXL text_encoder
+CLIP_SD2 = ClipTextConfig(
+    hidden_size=1024, num_layers=23, num_heads=16, intermediate_size=4096,
+    hidden_act="gelu",
+)  # SD2.x text_encoder loaded with num_hidden_layers=23 (model_util.py:48)
 CLIP_BIG_G = ClipTextConfig(
     hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
     hidden_act="gelu", projection_dim=1280,

@@ -5,12 +5,14 @@ An SD snapshot holds unet/ text_encoder/ tokenizer/ vae/ subfolders with
 config.json and safetensors weights (sharded components load too); an SDXL
 snapshot adds text_encoder_2/ (OpenCLIP bigG with its projection) and
 tokenizer_2/; a FLUX snapshot holds transformer/ text_encoder/ (CLIP-L)
-tokenizer/ text_encoder_2/ (T5) tokenizer_2/ vae/. Single-file LDM
-checkpoints come with ROADMAP queue 1, item 16.
+tokenizer/ text_encoder_2/ (T5) tokenizer_2/ vae/. `load_sd` also takes a
+single-file `.ckpt` / `.safetensors` checkpoint in the original LDM layout
+(`ldm_checkpoint.py`) with a local tokenizer directory.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -108,16 +110,21 @@ def load_sd(
     clip_skip: Optional[int] = None,
     dtype=torch.bfloat16,
     load_vae: bool = False,
+    tokenizer_dir: Optional[str] = None,
 ) -> SDModels:
     """SD1.x / SD2.x diffusers snapshot -> SDModels with every parameter on
     `device` in `dtype`. clip_skip k keeps num_layers - (k - 1) text layers
-    (v2 defaults to clip_skip 2, as the reference does)."""
-    if model_dir.endswith((".ckpt", ".safetensors")):
-        raise NotImplementedError(
-            "single-file LDM checkpoints are not ported yet (ROADMAP queue 1, item 16)"
-        )
+    (v2 defaults to clip_skip 2, as the reference does).
+
+    `model_dir` may also be a single-file `.ckpt` / `.safetensors`
+    checkpoint in the original LDM layout (model_util.py:111-116 dispatch);
+    it carries no tokenizer, so it needs `tokenizer_dir` (a local CLIP
+    tokenizer directory with vocab.json and merges.txt)."""
     if clip_skip is None and v2:
         clip_skip = 2
+    if model_dir.endswith((".ckpt", ".safetensors")):
+        return _load_sd_single_file(model_dir, device=device, v2=v2, clip_skip=clip_skip,
+                                    dtype=dtype, load_vae=load_vae, tokenizer_dir=tokenizer_dir)
     unet_cfg = unet_config_from_hf(convert.load_component_config(model_dir, "unet"))
     unet_params = tree_to(convert.load_component(model_dir, "unet"), device, dtype)
     te = _load_clip(model_dir, device, dtype)
@@ -126,6 +133,37 @@ def load_sd(
     bundle = SDModels(unet_params, unet_cfg, [te])
     if load_vae:
         _load_vae(bundle, model_dir, device, dtype)
+    return bundle
+
+
+def _load_sd_single_file(path: str, *, device, v2: bool, clip_skip: Optional[int], dtype,
+                         load_vae: bool, tokenizer_dir: Optional[str]) -> SDModels:
+    """An LDM single file -> SDModels on the SD1.5 configs, or with `v2` on
+    SD2.1's UNet and the full 24-layer OpenCLIP text tower that single files
+    store (clip_skip truncates it at apply time, model_util.py:48). The VAE
+    only under `load_vae`."""
+    from sliders_tpu_torch.models import ldm_checkpoint
+
+    if tokenizer_dir is None:
+        raise ValueError(
+            "single-file checkpoints carry no tokenizer; pass tokenizer_dir "
+            "(a local CLIP tokenizer directory with vocab.json/merges.txt)"
+        )
+    unet_cfg = unet2d.SD21 if v2 else unet2d.SD15
+    vae_cfg = vae.SD_VAE
+    unet_tree, vae_tree, text_tree = ldm_checkpoint.load_single_file(
+        path, unet_cfg, vae_cfg if load_vae else None)
+    if unet_tree is None or text_tree is None:
+        raise ValueError(f"{path}: missing UNet or text-encoder weights")
+    te_cfg = dataclasses.replace(clip_text.CLIP_SD2, num_layers=24) if v2 else clip_text.CLIP_L
+    tokenizer = ClipTokenizer.from_pretrained(tokenizer_dir)
+    tokenizer.model_max_length = te_cfg.max_positions
+    layers = te_cfg.num_layers - (clip_skip - 1) if clip_skip else None
+    te = TextEncoderBundle(tokenizer, tree_to(text_tree, device, dtype), te_cfg, layers)
+    bundle = SDModels(tree_to(unet_tree, device, dtype), unet_cfg, [te])
+    if load_vae and vae_tree is not None:
+        bundle.vae_config = vae_cfg
+        bundle.vae_params = tree_to(vae_tree, device, dtype)
     return bundle
 
 

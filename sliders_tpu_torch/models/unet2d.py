@@ -84,7 +84,11 @@ class UNetConfig:
 
 
 SD15 = UNetConfig()
-
+SD21 = UNetConfig(
+    cross_attention_dim=1024,
+    num_attention_heads=(5, 10, 20, 20),
+    use_linear_projection=True,
+)
 SDXL = UNetConfig(
     block_out_channels=(320, 640, 1280),
     down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
@@ -124,6 +128,10 @@ TINY_XL = UNetConfig(
     addition_time_embed_dim=8,
     projection_class_embeddings_input_dim=16 + 6 * 8,  # pooled 16 + 6 ids x 8
 )
+
+
+def get_config(name: str) -> UNetConfig:
+    return {"sd15": SD15, "sd21": SD21, "sdxl": SDXL, "tiny": TINY, "tiny_xl": TINY_XL}[name]
 
 
 # ---------------------------------------------------------------------------

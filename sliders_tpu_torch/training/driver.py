@@ -12,14 +12,22 @@ the NaN guard, and a full train-state checkpoint with resume. The state file
 is `{name}_trainstate.pt` (step, LoRA, optimizer state, seed); a JAX
 `.msgpack` or orbax state does not resume here.
 
+The text-slider loop honours the JAX loop's `tpu.profile_dir` (a
+torch.profiler trace of the whole loop, CPU and CUDA activity, written as a
+Chrome trace `{profile_dir}/{name}_loop.pt.trace.json`) and
+`logging.use_wandb` (`wandb.init(project=f"LECO_{name}", config=metadata)`,
+then the loss, iteration and lr at every log line; wandb is imported only
+when asked for). The FLUX, image and fleet loops of the JAX package read
+neither key, so these loops ignore both with a printed note.
+
 Refused with `NotImplementedError` naming their ROADMAP item: `tpu.dp` or
-`tpu.tp` above 1 (queue 1, item 15), a non-empty `tpu.profile_dir` and
-`logging.use_wandb` (item 16; the card's machine has no wandb), fp16
-compute (item 2: the attention kernels take bf16 and f32).
+`tpu.tp` above 1 (queue 1, item 15), fp16 compute (item 2: the attention
+kernels take bf16 and f32).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -124,15 +132,42 @@ def _refuse_unported(config: RootConfig) -> None:
     if tpu.dp > 1 or tpu.tp > 1:
         raise NotImplementedError(f"tpu.dp={tpu.dp}, tpu.tp={tpu.tp}: data and tensor parallel "
                                   "training are not ported yet (ROADMAP queue 1, item 15)")
-    if tpu.profile_dir:
-        raise NotImplementedError("tpu.profile_dir: tracing the train loop is not ported yet "
-                                  "(ROADMAP queue 1, item 16)")
-    if config.logging.use_wandb:
-        raise NotImplementedError("logging.use_wandb: wandb logging is not ported "
-                                  "(ROADMAP queue 1, item 16)")
     if config.train.precision in ("fp16", "float16"):
         raise NotImplementedError("fp16 compute is not ported: the attention kernels take bf16 "
                                   "and f32 (ROADMAP queue 1, item 2)")
+
+
+def _note_text_loop_only(config: RootConfig) -> None:
+    """The FLUX, image and fleet loops neither trace nor log to wandb: the
+    JAX package's read neither key."""
+    keys = [k for k, on in (("tpu.profile_dir", bool(config.tpu.profile_dir)),
+                            ("logging.use_wandb", config.logging.use_wandb)) if on]
+    if keys:
+        print(f"{' and '.join(keys)}: read by the text-slider loop only; ignored here")
+
+
+@contextlib.contextmanager
+def _loop_trace(profile_dir: str, device: torch.device, name: str):
+    """torch.profiler around the training loop when `profile_dir` is set
+    (the JAX loop's jax.profiler.start_trace / stop_trace): CPU activity,
+    and CUDA activity on a CUDA device, exported as a Chrome trace
+    `{profile_dir}/{name}_loop.pt.trace.json` when the loop ends."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = Path(profile_dir) / f"{name}_loop.pt.trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    print(f"profile: the loop's trace written to {path}")
 
 
 def load_train_state(path: str, device) -> SliderTrainState:
@@ -158,12 +193,16 @@ def compute_dtype_of(config: RootConfig) -> torch.dtype:
                                                                     torch.float32)
 
 
+def _lr_schedule(config: RootConfig):
+    return opt_factory.make_lr_schedule(config.train.lr_scheduler, config.train.lr,
+                                        config.train.iterations)
+
+
 def _slider_optimizer(config: RootConfig, trainable_mask: dict):
     """The config's optimizer over its LR schedule, as every training CLI builds it."""
     return opt_factory.make_optimizer(
         config.train.optimizer,
-        opt_factory.make_lr_schedule(config.train.lr_scheduler, config.train.lr,
-                                     config.train.iterations),
+        _lr_schedule(config),
         opt_factory.parse_optimizer_args(config.train.optimizer_args),
         trainable_mask=trainable_mask,
     )
@@ -265,38 +304,49 @@ def train_text_sliders(
         json.dump(metadata, f, indent=2)
     _note_steps_per_call(config)
 
+    wandb = None
+    if config.logging.use_wandb:
+        import wandb
+
+        wandb.init(project=f"LECO_{config.save.name}", config=metadata)
+    lr_schedule = _lr_schedule(config)
+
     bucket_keys = list(buckets.keys())
     host_rng = np.random.default_rng(seed)
     t_last = time.perf_counter()
     save_dtype = lora_io.torch_precision(config.save.precision)
 
-    for sj in range(state.step, config.train.iterations):
-        bk = bucket_keys[host_rng.integers(len(bucket_keys))] if len(bucket_keys) > 1 \
-            else bucket_keys[0]
-        resolution, _batch = bk
-        if any(s.dynamic_resolution for s in buckets[bk]):
-            hw = random_resolution_in_bucket(host_rng, resolution)
-        else:
-            hw = (resolution, resolution)
-        step_fn, pairs_for_bucket = get_step(bk, hw)
-        state, m = step_fn(state, models.unet_params, pairs_for_bucket)
+    with _loop_trace(tpu.profile_dir, device, config.save.name):
+        for sj in range(state.step, config.train.iterations):
+            bk = bucket_keys[host_rng.integers(len(bucket_keys))] if len(bucket_keys) > 1 \
+                else bucket_keys[0]
+            resolution, _batch = bk
+            if any(s.dynamic_resolution for s in buckets[bk]):
+                hw = random_resolution_in_bucket(host_rng, resolution)
+            else:
+                hw = (resolution, resolution)
+            step_fn, pairs_for_bucket = get_step(bk, hw)
+            state, m = step_fn(state, models.unet_params, pairs_for_bucket)
 
-        if tpu.nan_check and not np.isfinite(m["loss"]):
-            raise FloatingPointError(f"non-finite loss at step {sj}: {m}")
-        if sj % config.logging.log_every == 0 or sj == config.train.iterations - 1:
-            dt = time.perf_counter() - t_last
-            t_last = time.perf_counter()
-            print(f"step {sj}: loss*1k={m['loss'] * 1000:.4f} t_to={m['t_to']} "
-                  f"pair={m['pair']} ({dt:.2f}s since last log)")
-        if on_step is not None:
-            on_step(sj, state, m)
+            if tpu.nan_check and not np.isfinite(m["loss"]):
+                raise FloatingPointError(f"non-finite loss at step {sj}: {m}")
+            if sj % config.logging.log_every == 0 or sj == config.train.iterations - 1:
+                dt = time.perf_counter() - t_last
+                t_last = time.perf_counter()
+                print(f"step {sj}: loss*1k={m['loss'] * 1000:.4f} t_to={m['t_to']} "
+                      f"pair={m['pair']} ({dt:.2f}s since last log)")
+                if wandb is not None:
+                    wandb.log({"loss": float(m["loss"]), "iteration": sj,
+                               "lr": float(lr_schedule(sj))})
+            if on_step is not None:
+                on_step(sj, state, m)
 
-        if _save_due(sj, config.save.per_steps, config.train.iterations):
-            print("Saving...")
-            lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"),
-                                state.lora, dtype=save_dtype)
-        if tpu.state_checkpoint_every and sj % tpu.state_checkpoint_every == 0 and sj != 0:
-            torch.save(state.state_dict(), save_dir / f"{config.save.name}_trainstate.pt")
+            if _save_due(sj, config.save.per_steps, config.train.iterations):
+                print("Saving...")
+                lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"),
+                                    state.lora, dtype=save_dtype)
+            if tpu.state_checkpoint_every and sj % tpu.state_checkpoint_every == 0 and sj != 0:
+                torch.save(state.state_dict(), save_dir / f"{config.save.name}_trainstate.pt")
 
     print("Saving...")
     lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora,
@@ -327,6 +377,7 @@ def train_flux_sliders(
     to train from in place of a fresh init (copied to the device), so that
     runs on two devices can start from the same factors."""
     _refuse_unported(config)
+    _note_text_loop_only(config)
     device = _param_device(models.transformer_params)
     dtype = compute_dtype_of(config)
     ortho = config.network.training_method != "full"
@@ -413,6 +464,7 @@ def train_image_sliders(
     metrics)` is called after every iteration, the step's metrics with
     `read_s`, the host seconds of the pair's decode and resize."""
     _refuse_unported(config)
+    _note_text_loop_only(config)
     if models.vae_params is None:
         raise ValueError("image sliders encode their images: load the models with load_vae=True")
     device = _param_device(models.unet_params)

@@ -69,6 +69,7 @@ from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training.driver import (
     PromptEmbedsCache,
     _note_steps_per_call,
+    _note_text_loop_only,
     _param_device,
     _refuse_unported,
     _save_due,
@@ -625,6 +626,7 @@ def train_fleet(
     every `tpu.state_checkpoint_every` iterations, from which
     `resume_from` continues."""
     _refuse_unported(config)
+    _note_text_loop_only(config)
     refuse_global_optimizer(config.train.optimizer)
     tpu = config.tpu
     device = _param_device(models.unet_params)
@@ -719,6 +721,7 @@ def train_fleet_images(
     state, metrics)` is called after every iteration, the metrics with
     `read_s`, the host seconds of the K pairs' decode and resize."""
     _refuse_unported(config)
+    _note_text_loop_only(config)
     refuse_global_optimizer(config.train.optimizer)
     if models.vae_params is None:
         raise ValueError("image sliders encode their images: load the models with load_vae=True")

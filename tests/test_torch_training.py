@@ -12,6 +12,8 @@ queue 3), so atol 1e-5 on the LoRA is meaningful only at a small lr.
 import json
 import math
 import os
+import sys
+import types
 import warnings
 
 import jax
@@ -476,8 +478,6 @@ def test_cli_refuses_jax_states(cli_run, tmp_path):
 @pytest.mark.parametrize(
     "old,new,item",
     [("tpu:\n", "tpu:\n  dp: 2\n", "item 15"), ("tpu:\n", "tpu:\n  tp: 2\n", "item 15"),
-     ("tpu:\n", "tpu:\n  profile_dir: /x\n", "item 16"),
-     ("logging:\n", "logging:\n  use_wandb: true\n", "item 16"),
      ("precision: float32", "precision: fp16", "item 2")],
 )
 def test_driver_refuses_unported_options(cli_run, tmp_path, old, new, item):
@@ -487,3 +487,89 @@ def test_driver_refuses_unported_options(cli_run, tmp_path, old, new, item):
     path.write_text(body)
     with pytest.raises(NotImplementedError, match=item):
         _run_cli(["--config_file", str(path), "--device", "cpu"])
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The tiny runs below gain nothing from torch's thread pool, and beside
+    the other test workers its threads oversubscribe the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _short_run_config(cli_run, tmp_path, iterations: int, *edits) -> str:
+    """The CLI config with `iterations`, its saves under `tmp_path` and the
+    (old, new) text edits applied."""
+    root, config, _ = cli_run
+    body = open(config).read().replace("iterations: 6", f"iterations: {iterations}", 1)
+    body = body.replace(str(root / "out"), str(tmp_path / "out"), 1)
+    for old, new in edits:
+        assert old in body
+        body = body.replace(old, new, 1)
+    path = tmp_path / "c.yaml"
+    path.write_text(body)
+    return str(path)
+
+
+def test_profile_dir_traces_the_loop(cli_run, tmp_path, capsys, one_torch_thread):
+    """tpu.profile_dir: a torch.profiler trace of the whole loop (CPU
+    activity here), a Chrome trace under the directory that names the UNet's
+    forward and backward ops; the run still saves its slider."""
+    trace_dir = tmp_path / "trace"
+    config = _short_run_config(cli_run, tmp_path, 2,
+                               ("tpu:\n", f"tpu:\n  profile_dir: {trace_dir}\n"))
+    _, seen = _run_cli(["--config_file", config, "--device", "cpu"])
+    assert [i for i, _ in seen] == [0, 1]
+    path = trace_dir / f"{RUN_NAME}_loop.pt.trace.json"
+    assert f"profile: the loop's trace written to {path}" in capsys.readouterr().out
+    trace = json.loads(path.read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert {"aten::conv2d", "aten::softmax", "aten::convolution_backward"} <= names
+    assert (tmp_path / "out" / RUN_NAME / f"{RUN_NAME}_last.safetensors").exists()
+
+
+def test_use_wandb_logs_like_the_jax_loop(cli_run, tmp_path, monkeypatch, one_torch_thread):
+    """logging.use_wandb: one wandb.init(project="LECO_<name>",
+    config=<the metadata sidecar>), then a wandb.log of the loss, the step
+    and its lr at each of the JAX loop's log steps (every log_every and the
+    last), against a stub module."""
+    calls = []
+    stub = types.ModuleType("wandb")
+    stub.init = lambda **kw: calls.append(("init", kw))
+    stub.log = lambda row: calls.append(("log", row))
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    config = _short_run_config(cli_run, tmp_path, 4,
+                               ("logging:\n", "logging:\n  use_wandb: true\n"),
+                               ("lr_scheduler: constant", "lr_scheduler: linear"))
+    _, seen = _run_cli(["--config_file", config, "--device", "cpu"])
+    meta = json.loads((tmp_path / "out" / RUN_NAME / f"{RUN_NAME}_metadata.json").read_text())
+    assert calls[0] == ("init", {"project": f"LECO_{RUN_NAME}", "config": meta})
+    schedule = topt.make_lr_schedule("linear", 1e-3, 4)
+    losses = dict(seen)
+    assert calls[1:] == [("log", {"loss": losses[i]["loss"], "iteration": i, "lr": schedule(i)})
+                         for i in (0, 2, 3)]
+    jax_lr = jopt.make_lr_schedule("linear", 1e-3, 4)
+    assert all(row["lr"] == pytest.approx(float(jax_lr(row["iteration"])), abs=1e-9)
+               for _, row in calls[1:])
+
+
+def test_other_loops_note_and_ignore_profile_dir_and_wandb(cli_run, tmp_path, capsys):
+    """The FLUX, image and fleet loops call `_note_text_loop_only` beside
+    `_refuse_unported`: both keys pass the refusals and get one printed
+    line, as the JAX loops never read them."""
+    from sliders_tpu_torch.core.config import load_config_from_yaml
+    from sliders_tpu_torch.training import driver
+
+    config = load_config_from_yaml(_short_run_config(
+        cli_run, tmp_path, 2, ("tpu:\n", "tpu:\n  profile_dir: /x\n"),
+        ("logging:\n", "logging:\n  use_wandb: true\n")))
+    driver._refuse_unported(config)
+    driver._note_text_loop_only(config)
+    assert capsys.readouterr().out == (
+        "tpu.profile_dir and logging.use_wandb: read by the text-slider loop only; "
+        "ignored here\n")
+    config.tpu.profile_dir, config.logging.use_wandb = "", False
+    driver._note_text_loop_only(config)
+    assert capsys.readouterr().out == ""
