@@ -25,7 +25,8 @@ with its seconds and the seconds since the start:
      of attention_bwd_sm90.cuh, #2's bf16 dq and dk/dv at d = 40, 64, 80,
      128, #4's at d = 128 and 256, #2's f32 (3xTF32) at every
      instantiation and #4's at d = 128, the split passes, and #4's f32
-     d = 512 kernel among them), and the build's seconds.
+     d = 512 kernel among them; every f16 instantiation of `precision:
+     fp16` too, each held to 0 spill bytes), and the build's seconds.
   3. kernel: the attention forward kernel against its plain PyTorch version
      at the serving shapes (SD1.5's and SDXL's at bucket 8, SDXL training's
      at 512 px) and in f32 (3xTF32) at SD1.5's and SDXL's 512 px denoise
@@ -70,6 +71,12 @@ with its seconds and the seconds since the start:
      phases hold #1 in f32 at the edit's shapes ((1 | 6, 8, 4096, 40),
      (1 | 6, 8, 1024, 80)) and #4 at its encode and decode ((1 | 3, 1,
      4096, 512)), with plain and SDPA times at (5 | 1 | 3, 1, 4096, 512).
+     "f16 kernels": #1, #2, #9 and #5-#7 in f16 (`precision: fp16`)
+     against their plain versions at SD1.5's and SDXL's shapes, each timed
+     beside its bf16 twin, its bound, its plain version and the library
+     call; "tiny training fp16": two f16 steps on f32 weights on the card
+     against the CPU, then under the three conv impls (the f16 conv
+     kernels' launches).
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
      512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
      random weights and two rank-4 noxattn sliders, behind the HTTP server;
@@ -102,7 +109,10 @@ with its seconds and the seconds since the start:
      training CLI in-process with the values of data/config.yaml (bf16,
      remat, rank-4 noxattn, AdamW lr 2e-4, DDIM 50) for a few iterations,
      a resume from its state file, and two iterations under conv impl
-     'fused'; losses, the moved LoRA, the frozen alphas, the saved files and
+     'fused'; then "fp16 sd15": the CLI under `precision: fp16` (f32
+     weights, f16 compute) for 3 iterations of the same draws, beside the
+     bf16 run, `train_fleet` at K = 2 in fp16, and one image-slider
+     iteration in fp16, which runs f32; losses, the moved LoRA, the frozen alphas, the saved files and
      the launch counts of the kernels are checked, and the time per
      iteration is split by phase; then image-slider training through
      `cli/train_image_slider.py` at 256 px for 4 iterations (#1 10, #2 5
@@ -143,9 +153,12 @@ with its seconds and the seconds since the start:
      sets of data/, 512 px, data/config.yaml's values, one iteration under
      each of per_row, shared and stratified on models loaded once: per-row
      t_to, loop length, device ms by phase, peak memory, the four sliders'
-     files, #1 10 x (loop + 2 + remat) and #2 10 exact), "fleet rows"
-     (TINY at 256 px in f32: a K = 2 fleet against the solo runs of its row
-     seeds, and row isolation, each within FLEET_ROW_TOL), "fleet image
+     files, #1 10 x (loop + 2 + remat) and #2 10 exact; one more per_row
+     iteration with cuDNN's default algorithms, its device spans beside the
+     deterministic ones the fleet runs on), "fleet rows" (TINY at 256 px in
+     f32: a K = 2 fleet against the solo runs of its row seeds within
+     FLEET_ROW_TOL; run twice, and with row 1's pairs changed: both held to
+     0, bit for bit), "fleet image
      sd15" (`train_image_slider --stylecheck --fleet`, two styles at 256 px:
      #1 10, #2 5 and #4 1 an iteration, #4 at (4, 1, 1024, 512)),
      "generate fleet sd15" (`generate_images --fleet A --fleet B`, 3
@@ -186,11 +199,12 @@ with its seconds and the seconds since the start:
      with the pin off and again on (#9 22 x steps, the same images),
      /healthz is_xl, #4 once per decode; then the training CLI with --xl on
      a snapshot of the same weights, with data/config-xl.yaml's values and
-     data/prompts-xl.yaml's age pair at 512 px for 3 iterations, pin on:
+     data/prompts-xl.yaml's age pair at 512 px for 2 iterations, pin on:
      launches exact (#1 10 x (t_to + 3), #2 10, #9 22 x (t_to + 2) + 21 per
      iteration), every down and up moved, host wall and device ms by phase,
-     peak memory; then image-slider training with --xl on the same snapshot
-     (its VAE too) at 512 px for 4 iterations, pin off (#1 20, #2 10, #4 1
+     peak memory, then one iteration under `precision: fp16` (f16 #1, #2
+     and #9; max_denoising_steps cut to 10); then image-slider training with --xl on the same snapshot
+     (its VAE too) at 512 px for 3 iterations, pin off (#1 20, #2 10, #4 1
      an iteration), timed as SD1.5's; then "turbo sdxl" on the same
      snapshot: `generate_images --xl --scheduler euler_a --ddim_steps 3
      --guidance_scale 1 --start_noise 700 --image_size 512`, 5 scales (no
@@ -277,7 +291,7 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
 ]
 # #2's shapes timed in interleaved rounds with SDPA's backward (rounds each):
 # at (1, 8, 1024, 80) two earlier runs read far apart (ROADMAP queue 2, item 2)
-BWD_INTERLEAVED = {(1, 8, 1024, 80): 6}
+BWD_INTERLEAVED = {(1, 8, 1024, 80): 4}
 TRAIN_ITERATIONS = 6  # the full-width run; per_steps and state_checkpoint_every 3
 FUSED_ITERATIONS = 2  # the full-width run under conv impl 'fused'
 # The 'fused' run's loss against the default ('xla') run's on the same draws,
@@ -391,7 +405,7 @@ FLUX_SERVE_SHAPES = [(1, 24, 16896, 128), (8, 24, 4608, 128)]
 # the tiny FLUX snapshot: L = 512 + (1280 / 16)**2 = 6912 at d = 128 in f32,
 # which kernel #1's TPU plan refuses, so the joint attention takes #4
 TINY_FLUX_PX = 1280  # the least size whose joint attention #4 takes in f32
-TINY_FLUX_STEPS = 2
+TINY_FLUX_STEPS = 1  # the CPU side's plain path bounds the phase
 # kernel #4's backward against its plain version: FLUX training's grad pass
 # at 2048 px (on head views), the tiny FLUX training run at 1280 px (f32, the
 # TF32 plan), FLUX's grad pass at 1536 px in f32 (where f32 first routes to
@@ -403,7 +417,7 @@ FLASH_BWD_SHAPES = [((1, 24, 16896, 128), "bfloat16"), ((1, 2, 6912, 128), "floa
                     ((1, 2, 2048, 256), "float32"), ((1, 16, 4096, 256), "float32"),
                     ((1, 1, 4096, 512), "float32")]
 # tiny FLUX training GPU vs CPU through the CLI at TINY_FLUX_PX in f32
-TINY_FLUX_TRAIN_ITERATIONS = 2
+TINY_FLUX_TRAIN_ITERATIONS = 1  # the CPU side's plain path bounds the phase
 TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
 # Adam moves an element by about lr a step whatever its gradient's size, so
 # f32 gradient noise on elements whose gradient nearly cancels between steps
@@ -434,7 +448,7 @@ SDXL_SD_512 = 10
 SDXL_PX = 1024
 SDXL_HTTP_STEPS = 8  # DDIM steps per /generate, cut from the CLI's 50
 SDXL_STEP_ROUNDS = 1  # rounds of the step timing, pin off and on in turn
-SDXL_TRAIN_ITERATIONS = 3  # cut from data/config-xl.yaml's 1000
+SDXL_TRAIN_ITERATIONS = 2  # cut from data/config-xl.yaml's 1000
 # kernel #9 at the SDXL serving boundaries (bucket 8, 16 CFG rows, 1024 px)
 PIN_SHAPES = [(16, 4096, 640), (16, 1024, 1280)]
 # TINY_XL at 512 px: its attention level is 32x32 (L = 1024, #1's route): 8
@@ -454,7 +468,7 @@ ENCODE_FLASH_SHAPES = [(2, 1, (px // 8) ** 2, 512) for px in IMAGE_PX.values()] 
 ENCODE_AB_ROUNDS = 3  # 'auto' / 'xla' turns of the full-width encoder
 # cut from the configs' 1000; the last iteration is traced, and saves (per_steps
 # 2) fall outside it
-IMAGE_TRAIN_ITERATIONS = {"sd15": 4, "sdxl": 4}
+IMAGE_TRAIN_ITERATIONS = {"sd15": 4, "sdxl": 3}
 READER_PHOTO_PX = 1024  # the reader also timed on one photo-sized PNG
 IMAGE_SD_ROUTED = {"sd15": 5, "sdxl": SDXL_SD_512}
 # tiny image training GPU vs CPU through the CLI: TINY UNet and TINY VAE (one
@@ -516,6 +530,42 @@ FLEET_PROMPTS = ("person_age_slider_GPT", "smile_slider_GPT", "person_surprised_
                  "animated_eyes_GPT")  # data/prompts-*.yaml: K = 4, 512 px, batch 1
 FLEET_MODES = ("per_row", "shared", "stratified")
 FLEET_ROW_TOL = 1e-5  # a fleet row's LoRA against its solo run, f32 at lr TINY_LR
+# `precision: fp16` (f16 compute): the f16 kernels' shapes (#1 at SD1.5's and
+# SDXL's serving shapes, #2 at the grad passes', #9 at SDXL's level-0
+# boundary, #5-#7 at one resnet conv of each SD1.5 level and its upsampler
+# conv, each in the mode the UNet uses there) and the generic conv's f16 case
+F16_SD_SHAPES = [(16, 8, 4096, 40), (16, 8, 1024, 80), (16, 10, 4096, 64), (16, 20, 1024, 64)]
+F16_BWD_SHAPES = [(1, 8, 4096, 40), (1, 8, 1024, 80), (1, 10, 1024, 64)]
+F16_PIN_SHAPE = (16, 4096, 640)
+F16_CONV_SHAPES = [(64, 320, 320, "temb"), (64, 960, 320, "temb"), (32, 1280, 1280, "none"),
+                   (16, 1920, 1280, "temb")]
+F16_CONV_GENERIC = (2, 32, 100, 160, "residual")
+F16_ULPS = 4  # attention: p, ds and the outputs rounded at the plain version's points
+F16_CONV_ULPS = 2  # one rounding of f32 sums taken in another order
+F16_SLOWER = 1.15  # an f16 kernel past this multiple of its bf16 twin is a finding
+F16_TURNS = 4  # rounds of f16 / bf16 timings in turns (the twins of a 0.2 ms kernel
+# differed by up to 1.33x in single medians)
+FP16_TRAIN_ITERATIONS = 3  # SD1.5 through the CLI: the bf16 run's first three draws
+FP16_FLEET_K = 2
+FP16_SDXL_STEPS = 10  # max_denoising_steps of the SDXL fp16 run: t_to in [1, 10)
+FP16_SDXL_ITERATIONS = 2  # the first pays the run's first f16 calls; the second is warm
+FP16_TINY_ITERATIONS = 2
+# TINY widened so that #1 and #2 take f16 instantiations (SD1.5's head dim
+# 40 at level 0, L = 1024 at 256 px) and the convs at level 1 (160
+# channels) pass the conv gates
+FP16_TINY = {"block_out_channels": (40, 160), "num_attention_heads": (1, 4)}
+FP16_RTOL = 1e-2  # f16 losses, card against CPU (tests/test_torch_fp16.py holds JAX's)
+# f16 grad norms, card against CPU, both taking #2's rounding points (the
+# CPU through `sd_attention_bwd_ref`, `cpu_attention_bwd_at_kernel_points`):
+# with no loss scaling (as in the JAX package) the UNet's output gradient is
+# 2 diff / N ~ 1e-5, in f16's subnormal range, where ds is rounded to f16;
+# the CPU's default backward (the XLA VJP's points) is 3.5 % away at
+# FP16_TINY's second step. tests/test_torch_fp16.py holds the port to JAX
+# at the same 1 %
+FP16_GRAD_RTOL = 1e-2
+# the share of LoRA elements within lr / 10 of the CPU's after the f16
+# steps, as tests/test_torch_fp16.py holds the port to JAX on the CPU
+FP16_LORA_SHARE = 0.97
 FLEET_IMAGE_ITERATIONS = 3
 FLEET_ENCODE_SHAPE = (4, 1, 1024, 512)  # the image fleet's encode of 2 x 2 images at 256 px
 FLEET_SCALES = [-1.0, 0.0, 1.0]
@@ -551,7 +601,7 @@ TINY_EDIT_PIXELS = (1, 0.05)
 # (plain f32 path) against eps off it (#1's 3xTF32 kernel)
 PROB_SUM_TOL = 1e-5
 MAPS_EPS_REL = 1e-4
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -588,7 +638,7 @@ def attention_bound(shape, dt: str, backward: bool = False) -> tuple:
     (q k^T, p v) over q, k, v read and o written; backward 10 B H L^2 d (s
     again, dp, dv, dq, dk) over q, k, v, g read and dq, dk, dv written."""
     B, H, L, d = shape
-    item = 2 if dt == "bfloat16" else 4
+    item = 4 if dt == "float32" else 2
     if backward:
         return bound(10 * B * H * L * L * d, 7 * B * H * L * d * item, dt)
     return bound(4 * B * H * L * L * d, 4 * B * H * L * d * item, dt)
@@ -728,7 +778,28 @@ BWD_SM90 = (("BCfgILi48ELi128ELb0ELb0ELb1ELi0ELi1EE", "attn_bwd_sm90 #2 dq d=40 
                f"attn_bwd_sm90 #2 f32 {'dk/dv' if dkv else 'dq'} d={dpf} "
                f"({'TMA' if tma else 'cp.async'}, TF32)")
               for dpf, tma in TF32_CONFIGS for dkv in (0, 1)))
-REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
+# the f16 instantiations of `precision: fp16`: #1's forward at every padded
+# head dim (CfgF16<DP, BK, TMA, two-pass, blocks an SM>), #2's dq and dk/dv at
+# d = 40, 64, 80 and 128 (BCfgF16<DP, BN, TMA, dk/dv>), the conv mainloop at
+# each BN with and without #6's prologue, and the generic conv kernel; each
+# must build with no spill
+F16_SM90 = (*((f"CfgF16ILi{dp}ELi{64 if dp == 64 and tma else 128}ELb{tma}ELb1ELi"
+               f"{2 if dp == 64 and tma else 1}E",
+               f"attn_sm90 #1 f16 d={dp} ({'TMA' if tma else 'cp.async'})")
+              for dp, tma in ((16, 0), (32, 0), (48, 0), (64, 0), (64, 1), (80, 0), (96, 0),
+                              (112, 0), (128, 0), (128, 1))),
+            *((f"BCfgF16ILi{dp}ELi{128 if dp <= 48 else 64}ELb{tma}ELb{dkv}E",
+               f"attn_bwd_sm90 #2 f16 {'dk/dv' if dkv else 'dq'} d={d} "
+               f"({'TMA' if tma else 'cp.async'})")
+              for d, dp, tma in ((40, 48, 0), (64, 64, 1), (80, 80, 0), (128, 128, 1))
+              for dkv in (0, 1)),
+            *((f"conv3x3_sm90I6__halfLi{bn}ELb{pro}E",
+               f"conv3x3_sm90{'<prologue>' if pro else ''} f16 BN={bn}")
+              for bn in (128, 160, 256) for pro in (0, 1) if not (pro and bn == 256)),
+            ("conv3x3_2byteI6__halfLb0E", "conv3x3_2byte f16"),
+            ("conv3x3_2byteI6__halfLb1E", "conv3x3_2byte<prologue> f16"))
+REPORTED = (*F16_SM90,
+            ("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             ("CfgILi80ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=80 (cp.async)"),
             ("CfgILi64ELi64ELb1ELb1ELi2E", "attn_sm90 #1 d=64 (TMA, 2 blocks an SM)"),
             ("CfgILi128ELi128ELb1ELb1ELi1E", "attn_sm90 #1 d=128 (TMA)"),
@@ -745,7 +816,8 @@ REPORTED = (("CfgILi48ELi128ELb0ELb1ELi1E", "attn_sm90 #1 d=40 (cp.async)"),
             *((f"conv3x3_sm90IfLi128ELb{pro}E",
                f"conv3x3_sm90{'<prologue>' if pro else ''} f32 (3xTF32) BN=128") for pro in (0, 1)),
             ("tf32_split", "tf32_split"),
-            ("conv3x3_bf16ILb0E", "conv3x3_bf16"), ("conv3x3_bf16ILb1E", "conv3x3_bf16<prologue>"),
+            ("conv3x3_2byteI13__nv_bfloat16Lb0E", "conv3x3_2byte bf16"),
+            ("conv3x3_2byteI13__nv_bfloat16Lb1E", "conv3x3_2byte<prologue> bf16"),
             ("conv3x3_f32ILb0E", "conv3x3_f32"), ("conv3x3_f32ILb1E", "conv3x3_f32<prologue>"),
             ("gn_statsI13__nv_bfloat16E", "gn_stats bf16"), ("gn_statsIfE", "gn_stats f32"),
             ("gn_applyI13__nv_bfloat16E", "gn_apply bf16"), ("gn_applyIfE", "gn_apply f32"),
@@ -837,10 +909,12 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_libraries()
     secs = time.perf_counter() - t0
+    f16_seen = []
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text()
         regs = ptxas_report(log)
         say("build", f"{lib.name} ({'; '.join(regs) or '?'})")
+        f16_seen += [r for r in regs if r.split(" Used ")[0] in {lb for _, lb in F16_SM90}]
         serialized = [ln for ln in log.splitlines() if "wgmma.mma_async instructions are serialized"
                       in ln]
         if serialized:
@@ -896,6 +970,11 @@ def phase_build():
         + ", ".join(f"{pl.tr}x{pl.tc}, {pl.bn}: {pl.stages} stages of hi + lo boxes, {pl.smem}"
                     for pl in f32_plans.values())
         + "; consumers 232 and producer 40, f32 #6 (384 threads, 3 transform warps) 224 and 56")
+    spilled = [r for r in f16_seen if "0 bytes spill stores" not in r]
+    say("build", f"f16 instantiations: {len(f16_seen)} of {len(F16_SM90)} reported, "
+        f"{len(spilled)} with spill stores")
+    if len(f16_seen) != len(F16_SM90) or spilled:
+        raise AssertionError(f"f16 kernels missing from the build or spilling: {spilled}")
     say("build", f"{len(libs)} libraries built and loaded in {secs:.1f} s")
 
 
@@ -1529,11 +1608,12 @@ TINY_LR = 1e-4
 
 
 def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list, cfg=None,
-               px: int = 256, lr: float = TINY_LR):
+               px: int = 256, lr: float = TINY_LR, dtype=None):
     """A tiny UNet (TINY unless `cfg`) at `px` (256: L=1024 at level 0, so
-    the routed attention path) in f32 with remat: len(draws) train steps
-    with the given draws (an SDXL step for a text_time `cfg`); returns the
-    losses, the grad norms and the final LoRA on the CPU."""
+    the routed attention path) in f32 (or the compute `dtype`, on the f32
+    weights) with remat: len(draws) train steps with the given draws (an
+    SDXL step for a text_time `cfg`); returns the losses, the grad norms and
+    the final LoRA on the CPU."""
     import torch
 
     from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
@@ -1548,9 +1628,11 @@ def tiny_train(device: str, unet: dict, lora: dict, pairs: dict, draws: list, cf
                                    trainable_mask=trainable_mask(lora))
     step = text_slider.make_text_slider_step(
         cfg, sched, make_sampler(sched, "ddim", 5), tx, max_denoising_steps=5,
-        resolution=px, compute_dtype=torch.float32, remat=True,
+        resolution=px, compute_dtype=dtype or torch.float32, remat=True,
         is_xl=cfg.addition_embed_type is not None)
-    state = text_slider.SliderTrainState.create(0, tree_to(lora, device), tx)
+    # a copy: the update is in place, and tree_to keeps a CPU tensor as it is
+    lora = {m: {k: t.to(device, copy=True) for k, t in e.items()} for m, e in lora.items()}
+    state = text_slider.SliderTrainState.create(0, lora, tx)
     params = tree_to(unet, device)
     on_device = {k: v.to(device) for k, v in pairs.items()}
     losses, norms = [], []
@@ -1627,6 +1709,192 @@ def phase_tiny_train(conv_impl: str = "xla"):
     if not (loss_err <= 1e-5 and norm_err <= 1e-4 and lora_err <= 1e-6):
         raise AssertionError("tiny training on the GPU disagrees with the CPU")
     return conv
+
+
+@contextlib.contextmanager
+def unet_input_dtypes():
+    """The dtype of x at every `models.unet2d.apply` call inside the block
+    (the training steps call it through the module)."""
+    from sliders_tpu_torch.models import unet2d
+
+    seen, apply = [], unet2d.apply
+
+    def spy(params, cfg, x, *args, **kwargs):
+        seen.append(x.dtype)
+        return apply(params, cfg, x, *args, **kwargs)
+
+    unet2d.apply = spy
+    try:
+        yield seen
+    finally:
+        unet2d.apply = apply
+
+
+@contextlib.contextmanager
+def f16_sum_flags():
+    """cuBLAS's `allow_fp16_reduced_precision_reduction` at every
+    `models.unet2d.apply` call inside the block (the fp16 text and fleet
+    steps turn it off: f16 GEMMs sum in f32, as the JAX package's do)."""
+    import torch
+
+    from sliders_tpu_torch.models import unet2d
+
+    seen, apply = [], unet2d.apply
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction)
+        return apply(*args, **kwargs)
+
+    unet2d.apply = spy
+    try:
+        yield seen
+    finally:
+        unet2d.apply = apply
+
+
+@contextlib.contextmanager
+def cpu_attention_bwd_at_kernel_points():
+    """Inside the block, `SdAttention`'s backward on CPU tensors is
+    `sd_attention_bwd_ref` (#2's plain version: its rounding points) in place
+    of autograd through the plain forward (the XLA VJP's points, as the JAX
+    package differentiates off the TPU), so that a CPU run holds #2 to its
+    own plain version."""
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    backward = sa.SdAttention.__dict__["backward"]
+
+    def at_kernel_points(ctx, g):
+        q, k, v = ctx.saved_tensors
+        if q.device.type != "cpu":
+            raise AssertionError("cpu_attention_bwd_at_kernel_points is for CPU runs")
+        return sa.sd_attention_bwd_ref(q, k, v, g)
+
+    sa.SdAttention.backward = staticmethod(at_kernel_points)
+    try:
+        yield
+    finally:
+        sa.SdAttention.backward = backward
+
+
+def lora_within_adamw(a: dict, b: dict, steps: int, lr: float) -> tuple:
+    """(largest |a - b| over the LoRA factors, share within lr / 10) and
+    whether each element is within 2 lr a step (AdamW's first steps move an
+    element about lr whatever its gradient's size, so an f16 gradient within
+    its rounding of zero may step the other way) and FP16_LORA_SHARE of
+    them within lr / 10."""
+    import torch
+
+    d = torch.cat([(a[m][k] - b[m][k]).abs().flatten() for m in b for k in ("down", "up")])
+    worst, share = d.max().item(), (d <= lr / 10).float().mean().item()
+    return worst, share, worst <= 2 * lr * steps * 1.01 and share >= FP16_LORA_SHARE
+
+
+def phase_tiny_train_fp16() -> dict:
+    """`precision: fp16` on a tiny UNet (TINY widened to FP16_TINY: head dim
+    40, so #1 and #2 take f16 instantiations at level 0's L = 1024 at 256
+    px, and level 1's convs pass the conv gates): FP16_TINY_ITERATIONS
+    text steps in f16 on f32 weights on the GPU (the kernels) against the
+    CPU (plain paths, the attention backward at #2's rounding points:
+    `cpu_attention_bwd_at_kernel_points`) on the same draws. Both run the
+    text step as the loop runs it (f16 GEMMs summing in f32); each sums in
+    its own order, so losses are held to FP16_RTOL relative, grad norms to
+    FP16_GRAD_RTOL and the LoRA by `lora_within_adamw`; every UNet call of
+    both runs takes f16 input. Then the same steps on the GPU under conv
+    impls 'auto', 'fused_ep' and 'fused': the f16 conv kernels #5, #7 and
+    #6 on the Hopper mainloop, each run's launches the per-forward count of
+    a probe forward (no grad) times sum(t_to + 2), its losses within
+    FUSED_LOSS_RTOL of the default run's. Returns the launches by kernel and run."""
+    import dataclasses
+
+    import torch
+
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import unet2d
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.ops import basic
+    from sliders_tpu_torch.ops import conv3x3 as tc
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.training.text_slider import step_draws
+
+    cfg = dataclasses.replace(unet2d.TINY, **FP16_TINY)
+    gen = torch.Generator().manual_seed(7)
+    unet = unet2d.init_params(gen, cfg)
+    lora = create_slider_network(gen, unet, rank=4, train_method="noxattn")
+    pairs = {k: torch.randn((1, 8, 32), generator=gen)
+             for k in ("target", "positive", "neutral", "unconditional")}
+    pairs["guidance_signed"] = torch.tensor([2.0])
+    draws = [step_draws(7, i, 1, 5, (1, 32, 32, 4), 1.0) for i in range(FP16_TINY_ITERATIONS)]
+    calls = sum(d[1] + 2 for d in draws)  # UNet forwards of the run
+    half = torch.float16
+    sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    with unet_input_dtypes() as gpu_in, f16_sum_flags() as sums:
+        gpu = tiny_train("cuda", unet, lora, pairs, draws, cfg, dtype=half)
+    gpu_s = time.perf_counter() - t0
+    fwd, bwd = sa.sd_attention.launches, sa.sd_attention_bwd.launches
+    t0 = time.perf_counter()
+    with unet_input_dtypes() as cpu_in, cpu_attention_bwd_at_kernel_points():
+        cpu = tiny_train("cpu", unet, lora, pairs, draws, cfg, dtype=half)
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gpu[0], cpu[0]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(gpu[1], cpu[1]))
+    worst, share, lora_ok = lora_within_adamw(gpu[2], cpu[2], len(draws), TINY_LR)
+    # #1's routed calls per forward, from one probe forward on the card
+    params = tree_to(unet, "cuda")
+    x = torch.randn((1, 32, 32, 4), device="cuda").half()
+    ehs = pairs["target"].to("cuda", half)
+    t = torch.tensor(500.0, device="cuda")
+
+    def probe():
+        with torch.no_grad():
+            return unet2d.apply(params, cfg, x, t, ehs)
+
+    sa.sd_attention.launches = 0
+    probe()
+    routed = sa.sd_attention.launches
+    say("fp16", f"tiny fp16 256 px (TINY at {FP16_TINY}, head dim 40), {len(draws)} steps (t_to "
+        f"{[d[1] for d in draws]}) in f16 on f32 weights, GPU (#1 {fwd}, #2 {bwd} f16 launches; "
+        f"{routed} a forward) vs CPU (plain): losses {[f'{v:.6g}' for v in gpu[0]]} vs "
+        f"{[f'{v:.6g}' for v in cpu[0]]} (max rel {loss_err:.3g}, tol {FP16_RTOL}); grad norms "
+        f"max rel {norm_err:.3g} (tol {FP16_GRAD_RTOL}); LoRA max|diff| {worst:.3g} (tol "
+        f"{2 * TINY_LR * len(draws):.3g}), {share:.4f} of it within lr / 10 (tol "
+        f"{FP16_LORA_SHARE}); UNet inputs {sorted({str(d) for d in gpu_in + cpu_in})}; "
+        f"{gpu_s:.1f} s on the card, {cpu_s:.1f} s on the CPU")
+    if not (fwd == routed * (calls + len(draws)) and bwd == routed * len(draws) and routed > 0):
+        raise AssertionError("tiny fp16 training did not take #1 and #2 on every routed call")
+    if set(gpu_in) != {half} or set(cpu_in) != {half} or len(gpu_in) != calls:
+        raise AssertionError("a tiny fp16 UNet call did not compute in f16")
+    if set(sums) != {False}:
+        raise AssertionError("a tiny fp16 UNet call let cuBLAS sum f16 GEMMs in f16")
+    if not (loss_err <= FP16_RTOL and norm_err <= FP16_GRAD_RTOL and lora_ok):
+        raise AssertionError("tiny fp16 training on the GPU disagrees with the CPU")
+    out = {"sd": fwd, "sd_bwd": bwd}
+    for impl, name in (("auto", "conv3x3"), ("fused_ep", "epi_conv3x3"),
+                       ("fused", "fused_conv3x3")):
+        basic.set_conv_impl(impl)
+        try:
+            reset_conv_launches()
+            probe()
+            per_forward = getattr(tc, name).launches
+            reset_conv_launches()
+            t0 = time.perf_counter()
+            losses = tiny_train("cuda", unet, lora, pairs, draws, cfg, dtype=half)[0]
+            run_s = time.perf_counter() - t0
+            got = dict(conv_launches())
+            variants = conv_variants()
+        finally:
+            basic.set_conv_impl("xla")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, gpu[0]))
+        say("fp16", f"tiny fp16 under conv impl {impl!r}: {name} f16 launches {got} ({per_forward} "
+            f"a forward x {calls} forwards), by variant {variants}; losses "
+            f"{[f'{v:.6g}' for v in losses]} (max rel {rel:.3g} from 'xla', tol "
+            f"{FUSED_LOSS_RTOL}); {run_s:.1f} s")
+        if per_forward == 0 or got != {name: per_forward * calls} or (
+                variants != {"hopper": per_forward * calls}) or rel > FUSED_LOSS_RTOL:
+            raise AssertionError(f"tiny fp16 under {impl!r} did not take the f16 {name} kernel "
+                                 "on every routed conv, or its losses moved")
+        out[name] = got[name]
+    return out
 
 
 def write_tokenizer(d: str, size: int = 0) -> None:
@@ -2522,13 +2790,13 @@ def phase_http(engine):
     return serve_http(engine, run)
 
 
-GENERATE_TURNS = ("auto", "xla", "xla", "auto", "fused_ep", "fused")
+GENERATE_TURNS = ("auto", "xla", "fused_ep", "fused")
 
 
 def serve_conv_impls(engine, port: int) -> dict:
     """Five-scale /generate calls under the conv-kernel impls in
-    GENERATE_TURNS ('auto' and 'xla' twice each, in turns, then
-    'fused_ep' and 'fused'); each reply is checked as phase 5 checks it,
+    GENERATE_TURNS ('auto', 'xla', 'fused_ep', 'fused'); each reply is
+    checked as phase 5 checks it,
     and the impl's kernel must have launched (its calls per UNet forward x
     50 steps + its calls per VAE decode) x the denoise batches, the others
     never, all on the Hopper mainloop (the decoder's f32 convs under 'auto'
@@ -2580,7 +2848,7 @@ def serve_conv_impls(engine, port: int) -> dict:
         if impl in latency:
             latency[impl].append(reply["latency_ms"])
     auto_ms, xla_ms = statistics.median(latency["auto"]), statistics.median(latency["xla"])
-    say("http", f"/generate server latency in turns {GENERATE_TURNS[:4]}: 'auto' "
+    say("http", f"/generate server latency under {GENERATE_TURNS[:2]}: 'auto' "
         f"{latency['auto']} ms (median {auto_ms:.1f}; the decoder's f32 convs on #5's 3xTF32 "
         f"mainloop, f32-accurate), 'xla' {latency['xla']} ms (median {xla_ms:.1f}; cuDNN "
         f"convs with TF32 on, as served: one TF32 pass); 'auto' / 'xla' {auto_ms / xla_ms:.3f}")
@@ -2906,6 +3174,149 @@ def check_loop_trace(path: str, fwd: int, bwd: int) -> dict:
             "kernels": len(kernels), "found": found, "fwd_launches": fwd, "bwd_launches": bwd}
 
 
+def spans_line(recs: list) -> str:
+    """Each iteration's t_to, host wall (from the one before) and device
+    spans of a training run's records."""
+    parts, prev = [], None
+    for i, t_end, m in recs:
+        ph = m["phase_ms"]
+        wall = "" if prev is None else f"{t_end - prev:.3f} s, "
+        parts.append(f"{i} (t_to {m['t_to']}): {wall}denoise {ph['denoise']:.1f}, frozen "
+                     f"{ph['frozen']:.1f}, grad {ph['grad']:.1f}, update {ph['update']:.1f} ms")
+        prev = t_end
+    return "; ".join(parts)
+
+
+def phase_fp16_sd15(snap: str, tmp: str, cfg: dict, bf16_recs: list) -> dict:
+    """`precision: fp16` at SD1.5's full width on phase_train's snapshot:
+      - the text-slider CLI with data/config.yaml's values but fp16, for
+        FP16_TRAIN_ITERATIONS iterations (seed 0: the draws of the bf16
+        run's first iterations): the weights load in f32, every UNet call
+        computes in f16, so every #1 and #2 launch of the run is an f16 one;
+        launches exact, losses finite; per-iteration host wall and device
+        spans beside the bf16 run's same iterations; peak memory;
+      - train_fleet at K = FP16_FLEET_K (FLEET_PROMPTS's first), one
+        iteration, f16 on f32-loaded weights, under conv impl 'auto': the
+        f16 #5 at full width, launches of #1, #2 and #5 exact;
+      - the image-slider CLI, one iteration at 256 px: it computes in f32,
+        as the JAX CLI does under fp16 (every UNet input f32), and says so.
+    Returns the launches and times of each."""
+    import io
+
+    import torch
+
+    from sliders_tpu_torch.cli import train_fleet as fcli
+    from sliders_tpu_torch.ops import basic
+
+    remat = bool(cfg["tpu"]["remat"])
+    run_cfg = json.loads(json.dumps(cfg))
+    run_cfg["train"].update(precision="fp16", iterations=FP16_TRAIN_ITERATIONS)
+    run_cfg["save"].update(path=os.path.join(tmp, "fp16_out"), per_steps=0)
+    run_cfg["tpu"].update(state_checkpoint_every=0, profile_dir="")
+    run_cfg["logging"]["use_wandb"] = False
+    with unet_input_dtypes() as dtypes, f16_sum_flags() as sums:
+        run = run_training(run_cfg, os.path.join(tmp, "config_fp16.yaml"), [])
+    recs = run["records"]
+    losses = [m["loss"] for _, _, m in recs]
+    expected = {"fwd": expected_fwd(recs, remat), "bwd": ROUTED_PER_FORWARD * len(recs)}
+    got = {"fwd": run["fwd"], "bwd": run["bwd"]}
+    wall = [b[1] - a[1] for a, b in zip(recs, recs[1:])]
+    bf16 = bf16_recs[:len(recs)]
+    say("fp16", f"SD1.5 text slider, precision fp16 (f32-loaded weights, f16 compute): "
+        f"{len(recs)} iterations, t_to {[m['t_to'] for _, _, m in recs]}, losses "
+        f"{[f'{v:.6g}' for v in losses]}; f16 launches #1 {got['fwd']}, #2 {got['bwd']} "
+        f"(expected {expected}); UNet inputs {sorted({str(d) for d in dtypes})} over "
+        f"{len(dtypes)} calls, f16 GEMMs summing in f32 at {sums.count(False)} of them; peak "
+        f"device memory {run['peak_gb']:.2f} GB; whole run {run['seconds']:.1f} s including "
+        f"the f32 load")
+    say("fp16", f"fp16 iterations: {spans_line(recs)}")
+    say("fp16", f"bf16 iterations of the same draws (this call's SD1.5 run): {spans_line(bf16)}")
+    if [m["t_to"] for _, _, m in recs] != [m["t_to"] for _, _, m in bf16]:
+        raise AssertionError("the fp16 run did not draw the bf16 run's t_to")
+    if got != expected or set(dtypes) != {torch.float16} or set(sums) != {False} or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"the SD1.5 fp16 run: launches {got} (expected {expected}), UNet "
+                             f"inputs {set(dtypes)}, f16 sums in f32 {set(sums)}, losses {losses}")
+    out = {**got, "t_to": [m["t_to"] for _, _, m in recs], "iteration_s": wall,
+           "phase_ms": [m["phase_ms"] for _, _, m in recs], "peak_gb": run["peak_gb"],
+           "bf16_iteration_s": [b[1] - a[1] for a, b in zip(bf16, bf16[1:])],
+           "bf16_phase_ms": [m["phase_ms"] for _, _, m in bf16]}
+
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    prompts, _ = fleet_prompt_files(tmp)
+    fleet_cfg = {**run_cfg, "train": {**run_cfg["train"], "iterations": 1},
+                 "save": {**run_cfg["save"], "path": os.path.join(tmp, "fp16_fleet")}}
+    path = os.path.join(tmp, "fleet_fp16.yaml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(fleet_cfg) + "\n")
+    records = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+    reset_conv_launches()
+    basic.set_conv_impl("auto")
+    t0 = time.perf_counter()
+    try:
+        with unet_input_dtypes() as fleet_dtypes, f16_sum_flags() as fleet_sums:
+            fcli.main(fcli.build_parser().parse_args(
+                ["--config_file", path, "--device", "0", "--prompts_file",
+                 *prompts[:FP16_FLEET_K]]), on_step=lambda i, state, m: records.append(m))
+        torch.cuda.synchronize()
+    finally:
+        basic.set_conv_impl("xla")
+    seconds = time.perf_counter() - t0
+    (m,) = records
+    # UNet forwards: the loop, the frozen pass, the grad pass; remat
+    # recomputes the transformer blocks (#1), not the resnets (#5)
+    calls = m["loop"] + 2
+    fgot = {"fwd": sa.sd_attention.launches, "bwd": sa.sd_attention_bwd.launches,
+            "conv": conv_launches(), "conv_variants": conv_variants()}
+    fexp = {"fwd": ROUTED_PER_FORWARD * (calls + remat), "bwd": ROUTED_PER_FORWARD,
+            "conv": {k: v * calls for k, v in CONV_PER_FORWARD["auto"].items()}}
+    ph = m["phase_ms"]
+    say("fp16", f"train_fleet fp16 under conv impl 'auto', K = {FP16_FLEET_K}, one iteration: "
+        f"per-row t_to {m['t_to']}, loop {m['loop']}, losses "
+        f"{[f'{v:.6g}' for v in m['loss']]}; f16 launches #1 {fgot['fwd']}, #2 {fgot['bwd']}, "
+        f"#5 {fgot['conv']} by variant {fgot['conv_variants']} (expected {fexp}); device ms "
+        f"denoise {ph['denoise']:.1f}, frozen {ph['frozen']:.1f}, grad {ph['grad']:.1f}, update "
+        f"{ph['update']:.1f}; {seconds:.2f} s the CLI call with the f32 load; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if ({k: fgot[k] for k in fexp} != fexp or set(fleet_dtypes) != {torch.float16}
+            or set(fleet_sums) != {False} or not all(map(math.isfinite, m["loss"]))):
+        raise AssertionError(f"the fp16 fleet: launches {fgot} (expected {fexp}), UNet inputs "
+                             f"{set(fleet_dtypes)}, losses {m['loss']}")
+    out["fleet"] = {**fgot, "loop": m["loop"], "seconds": seconds, "phase_ms": ph}
+
+    from sliders_tpu_torch.core import yaml_subset
+
+    image_cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
+    image_cfg["prompts_file"] = os.path.join(REPO, "data", "prompts.yaml")
+    image_cfg["pretrained_model"]["name_or_path"] = snap
+    image_cfg["train"].update(precision="fp16", iterations=1)
+    image_cfg["save"].update(path=os.path.join(tmp, "fp16_image_out"), per_steps=0)
+    image_cfg["logging"] = {"log_every": 1}
+    px = IMAGE_PX["sd15"]
+    pairs = os.path.join(tmp, "fp16_pairs")
+    folders, scales = write_pair_folders(pairs, (px * 5 // 4, px * 9 // 8), 2, seed=22)
+    text = io.StringIO()
+    with unet_input_dtypes() as image_dtypes, contextlib.redirect_stdout(text):
+        image = run_image_training(image_cfg, os.path.join(tmp, "fp16_image.yaml"),
+                                   ["--folder_main", pairs, "--folders", folders, "--scales",
+                                    scales, "--device", "0"])
+    note = next((ln for ln in text.getvalue().splitlines() if ln.startswith("precision fp16")),
+                None)
+    (_, _, im), = image["records"]
+    say("fp16", f"image slider, precision fp16, one iteration at {px} px: UNet inputs "
+        f"{sorted({str(d) for d in image_dtypes})}, loss {im['loss']:.6g}; launches #1 "
+        f"{image['sd']}, #2 {image['sd_bwd']}, #4 {image['flash']} (the f32 plans); the CLI "
+        f"said: {note!r}")
+    if set(image_dtypes) != {torch.float32} or note is None or not math.isfinite(im["loss"]):
+        raise AssertionError("the image slider under fp16 did not run, and say it runs, in f32")
+    out["image"] = {k: image[k] for k in ("sd", "sd_bwd", "flash")}
+    return out
+
+
 def phase_train():
     """SD1.5 at full width through the training CLI, then a resume."""
     import torch
@@ -3044,6 +3455,9 @@ def phase_train():
         fused = run_fused_training(cfg, tmp, recs)
         gc.collect()
         torch.cuda.empty_cache()
+        fp16 = timed("fp16 sd15", phase_fp16_sd15, snap, tmp, cfg, recs)
+        gc.collect()
+        torch.cuda.empty_cache()
         single_file = timed("single file", phase_single_file, snap, tmp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3101,7 +3515,7 @@ def phase_train():
             "generate": generate, "edit": edit, "maps": maps, "uce": uce, "ti": ti,
             "scores": scores, "fleet": fleet, "fleet_rows": fleet_rows,
             "fleet_image": fleet_image, "generate_fleet": generate_fleet, "adaptive": adaptive,
-            "single_file": single_file, "validate": validate, "trace": trace}
+            "single_file": single_file, "validate": validate, "trace": trace, "fp16": fp16}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -3535,6 +3949,210 @@ def phase_layout_pin_kernel():
     say("kernel", "#9 through LayoutPin: output and gradient (of a strided cotangent) equal "
         "their inputs bit for bit, both contiguous")
     return out
+
+
+def f16_tolerance(ref_max: float, ulps: int = F16_ULPS) -> float:
+    """`ulps` f16 ulps (11 significant bits) at the output's largest magnitude."""
+    return ulps * 2.0 ** (math.floor(math.log2(max(ref_max, 2.0**-14))) - 10)
+
+
+def f16_max_ulps(out, ref) -> float:
+    """bf16_max_ulps in f16 ulps: each element's error in ulps of its own
+    reference value (floored at 2**-6 of the largest)."""
+    import torch
+
+    r = ref.float().abs()
+    floor = max(r.max().item(), 2.0**-14) * 2.0**-6
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(r, min=floor))) - 10)
+    return ((out.float() - ref.float()).abs() / ulp).max().item()
+
+
+def phase_f16_kernels() -> dict:
+    """The f16 kernels of `precision: fp16` against their plain versions on
+    the same inputs, each timed beside its bf16 twin on the same values
+    rounded to bf16, in turns (F16_TURNS rounds): #1 at F16_SD_SHAPES and #2 at F16_BWD_SHAPES (F16_ULPS
+    f16 ulps at each output's largest magnitude; SDPA in f16, and its
+    backward, timed beside), #9 at F16_PIN_SHAPE contiguous and channel-major
+    (bit for bit; `torch.clone` / `.contiguous()` beside), #5-#7 at
+    F16_CONV_SHAPES on the Hopper mainloop (F16_CONV_ULPS f16 ulps of each
+    element; cuDNN's f16 conv + bias and phase_conv_kernels' library
+    expressions beside) and all three on the generic kernel at
+    F16_CONV_GENERIC (not timed). Bounds at 989 TFLOP/s f16 and 3.35 TB/s.
+    An f16 kernel past F16_SLOWER x its bf16 twin is printed as a finding.
+    Returns the rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from sliders_tpu_torch.ops import conv3x3 as tc
+    from sliders_tpu_torch.ops import layout_pin as lp
+    from sliders_tpu_torch.ops import sd_attention as sa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = {k: [] for k in ("sd_attention_fwd", "sd_attention_bwd", "layout_pin", "conv3x3",
+                            "epi_conv3x3", "fused_conv3x3")}
+    findings = []
+
+    def turns(f16_fn, bf16_fn, timer=median_ms, rounds=F16_TURNS):
+        """f16 and its bf16 twin timed in turns (f16, bf16, bf16, f16, ...):
+        the mean of each side's medians."""
+        ms = {"f16": [], "bf16": []}
+        for r in range(rounds):
+            for side in (("f16", "bf16") if r % 2 == 0 else ("bf16", "f16")):
+                ms[side].append(timer(f16_fn if side == "f16" else bf16_fn))
+        return statistics.mean(ms["f16"]), statistics.mean(ms["bf16"])
+
+    def row(kernel, what, **r):
+        r["bf16_ratio"] = r["ms"] / r["bf16_ms"]
+        if r["bf16_ratio"] > F16_SLOWER:
+            findings.append(f"{kernel} {what} {r['bf16_ratio']:.3f}x its bf16 twin")
+        rows[kernel].append(r)
+        return r
+
+    for shape in F16_SD_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").half() for _ in range(3))
+        out, ref = sa.sd_attention(q, k, v), sa.sd_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = f16_tolerance(ref.float().abs().max().item())
+        if not (err <= tol and out.dtype == torch.float16 and out.shape == shape):
+            raise AssertionError(f"#1 f16 disagrees with its plain version at {shape}")
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        b_ms, b_by = attention_bound(shape, "float16")
+        ms, bf16_ms = turns(lambda: sa.sd_attention(q, k, v), lambda: sa.sd_attention(qb, kb, vb))
+        r = row("sd_attention_fwd", str(shape), shape=shape, err=err, ms=ms, bf16_ms=bf16_ms,
+                plain_ms=median_ms(lambda: sa.sd_attention_ref(q, k, v)),
+                library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                bound_ms=b_ms, bound_by=b_by)
+        say("f16", f"#1 {shape} f16: max|err| {err:.3g} (tol {tol:.3g}); kernel {r['ms']:.4f} ms "
+            f"(bf16 twin {r['bf16_ms']:.4f}, {r['bf16_ratio']:.3f}x), plain {r['plain_ms']:.4f}, "
+            f"SDPA f16 {r['library_ms']:.4f}; bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v, qb, kb, vb, out, ref
+    for shape in F16_BWD_SHAPES:
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").half() for _ in range(4))
+        out, ref = sa.sd_attention_bwd(q, k, v, g), sa.sd_attention_bwd_ref(q, k, v, g)
+        torch.cuda.synchronize()
+        errs, worst = [], 0.0
+        for name, o, r_ in zip(("dq", "dk", "dv"), out, ref):
+            err = (o.float() - r_.float()).abs().max().item()
+            tol = f16_tolerance(r_.float().abs().max().item())
+            errs.append(f"{name} {err:.3g} (tol {tol:.3g})")
+            if not (err <= tol and o.dtype == torch.float16 and o.shape == shape):
+                raise AssertionError(f"#2 f16 disagrees with its plain version at {shape}")
+            worst = max(worst, err)
+        qb, kb, vb, gb = (t.bfloat16() for t in (q, k, v, g))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves)
+        b_ms, b_by = attention_bound(shape, "float16", backward=True)
+        ms, bf16_ms = turns(lambda: sa.sd_attention_bwd(q, k, v, g),
+                            lambda: sa.sd_attention_bwd(qb, kb, vb, gb))
+        r = row("sd_attention_bwd", str(shape), shape=shape, err=worst, ms=ms, bf16_ms=bf16_ms,
+                plain_ms=median_ms(lambda: sa.sd_attention_bwd_ref(q, k, v, g), runs=5),
+                library_ms=median_ms(lambda: torch.autograd.grad(o, leaves, g,
+                                                                 retain_graph=True)),
+                bound_ms=b_ms, bound_by=b_by)
+        # the grad pass's g, 2 diff / N with no loss scaling, lies in f16's
+        # subnormal range: there too both round ds and the outputs alike
+        gs = (g.float() * 2.0**-16).half()
+        small = [(o.float() - r_.float()).abs().max().item() / f16_tolerance(
+            r_.float().abs().max().item()) for o, r_ in zip(
+                sa.sd_attention_bwd(q, k, v, gs), sa.sd_attention_bwd_ref(q, k, v, gs))]
+        if max(small) > 1:
+            raise AssertionError(f"#2 f16 disagrees with its plain version at {shape} with g in "
+                                 f"the subnormal range: {small} of the tolerance")
+        say("f16", f"#2 {shape} f16: max|err| {', '.join(errs)}; with g x 2^-16 (subnormal) "
+            f"{max(small):.3f} of the tolerance; kernel {r['ms']:.4f} ms (bf16 "
+            f"twin {r['bf16_ms']:.4f}, {r['bf16_ratio']:.3f}x), plain {r['plain_ms']:.4f}, SDPA "
+            f"f16 backward {r['library_ms']:.4f}; bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v, g, gs, qb, kb, vb, gb, leaves, o, out, ref
+    B, L, C = F16_PIN_SHAPE
+    for kind in ("contiguous", "channel_major"):
+        x = torch.randn((B, L, C) if kind == "contiguous" else (B, C, L), generator=gen,
+                        device="cuda").half()
+        x = x if kind == "contiguous" else x.transpose(1, 2)
+        y = lp.layout_pin_copy(x)
+        torch.cuda.synchronize()
+        if not (y.is_contiguous() and torch.equal(y.view(torch.int16),
+                                                  lp.layout_pin_ref(x).view(torch.int16))):
+            raise AssertionError(f"#9 f16 at {F16_PIN_SHAPE} {kind} is not a bit-exact copy")
+        xb = x.bfloat16()
+        b_ms, b_by = bound(0, 2 * x.numel() * 2, "float16")
+        ms, bf16_ms = turns(lambda: lp.layout_pin_copy(x), lambda: lp.layout_pin_copy(xb),
+                            timer=per_call_ms)
+        r = row("layout_pin", kind, shape=F16_PIN_SHAPE, view=kind, err=0.0, ms=ms,
+                bf16_ms=bf16_ms,
+                plain_ms=per_call_ms(lambda: lp.layout_pin_ref(x)),
+                library_ms=per_call_ms((lambda: torch.clone(x)) if kind == "contiguous"
+                                       else x.contiguous),
+                bound_ms=b_ms, bound_by=b_by)
+        say("f16", f"#9 {F16_PIN_SHAPE} f16 {kind}: bit for bit; {r['ms']:.4f} ms (bf16 twin "
+            f"{r['bf16_ms']:.4f}, {r['bf16_ratio']:.3f}x; bound {b_ms:.4f}, plain "
+            f"{r['plain_ms']:.4f}, clone / .contiguous() {r['library_ms']:.4f})")
+        del x, xb, y
+    cases = [(16, h, c, n, mode, True) for h, c, n, mode in F16_CONV_SHAPES]
+    cases.append((*F16_CONV_GENERIC, False))
+    for Bc, H, Cc, N, mode, timed_case in cases:
+        want = "hopper" if timed_case else "generic"
+        x, a, s_, w, b, extra = conv_case(Bc, H, Cc, N, mode, torch.float16, gen)
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        eb = None if extra is None else extra.bfloat16()
+        xc, extra_c = x.permute(0, 3, 1, 2), (
+            None if extra is None else extra[:, :, None, None] if mode == "temb"
+            else extra.permute(0, 3, 1, 2))
+
+        def epi_library(inp=xc):
+            y_ = F.conv2d(inp, w, b, padding=1)
+            return y_ if extra_c is None else y_ + extra_c
+
+        calls = {  # kernel, its plain version, its bf16 twin, one PyTorch expression
+            "conv3x3": (lambda: tc.conv3x3(x, w, b), lambda: tc.conv3x3_ref(x, w, b),
+                        lambda: tc.conv3x3(xb, wb, bb), lambda: F.conv2d(xc, w, b, padding=1)),
+            "epi_conv3x3": (lambda: tc.epi_conv3x3(x, w, b, extra, mode),
+                            lambda: tc.epi_conv3x3_ref(x, w, b, extra, mode),
+                            lambda: tc.epi_conv3x3(xb, wb, bb, eb, mode), epi_library),
+            "fused_conv3x3": (lambda: tc.fused_conv3x3(x, a, s_, w, b, extra, mode),
+                              lambda: tc.fused_conv3x3_ref(x, a, s_, w, b, extra, mode),
+                              lambda: tc.fused_conv3x3(xb, a, s_, wb, bb, eb, mode),
+                              lambda: epi_library(F.silu(xc.float() * a[:, :, None, None]
+                                                         + s_[:, :, None, None]).half())),
+        }
+        parts = []
+        for name, (kernel, plain, twin, library) in calls.items():
+            fn = getattr(tc, name)
+            took = fn.variants[want]
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            ulps = f16_max_ulps(out, ref)
+            if fn.variants[want] != took + 1 or ulps > F16_CONV_ULPS or out.dtype != torch.float16:
+                raise AssertionError(f"{name} f16 at {(Bc, H, H, Cc)}x{N} {mode}: {ulps:.2f} "
+                                     f"ulps on {fn.variants}")
+            err = (out.float() - ref.float()).abs().max().item()
+            del out, ref
+            if not timed_case:
+                parts.append(f"{name} {ulps:.2f} ulps")
+                continue
+            extra_n = {"none": 0, "temb": Bc * N, "residual": Bc * H * H * N}[mode]
+            nbytes = 2 * (Bc * H * H * Cc + 9 * Cc * N + N + extra_n + Bc * H * H * N)
+            nbytes += 8 * Bc * Cc if name == "fused_conv3x3" else 0
+            b_ms, b_by = bound(2 * 9 * Bc * H * H * Cc * N, nbytes, "float16")
+            ms, bf16_ms = turns(kernel, twin)
+            r = row(name, f"{(Bc, H, H, Cc)}->{N} {mode}", shape=(Bc, H, H, Cc, N), mode=mode,
+                    err=err, ms=ms, bf16_ms=bf16_ms,
+                    plain_ms=median_ms(plain, runs=5), library_ms=median_ms(library),
+                    bound_ms=b_ms, bound_by=b_by)
+            parts.append(f"{name} {ulps:.2f} ulps (tol {F16_CONV_ULPS}), {r['ms']:.4f} ms (bf16 "
+                         f"twin {r['bf16_ms']:.4f}, {r['bf16_ratio']:.3f}x), plain "
+                         f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+                         f"{b_ms:.4f} ({b_by})")
+        say("f16", f"conv ({Bc}, {H}, {H}, {Cc})->{N} {mode} f16 [{want}]: " + "; ".join(parts)
+            + ("" if timed_case else " (not timed)")
+            + (" (library: cuDNN f16 conv + bias, + extra for #7, silu(x a + s) before it "
+               "for #6)" if timed_case else ""))
+        del x, a, s_, w, b, extra, xb, wb, bb, eb, calls
+        torch.cuda.empty_cache()
+    say("f16", "findings (an f16 kernel past " + f"{F16_SLOWER}x its bf16 twin): "
+        + ("; ".join(findings) if findings else "none"))
+    return rows
 
 
 def phase_tiny_sdxl():
@@ -4056,7 +4674,44 @@ def phase_sdxl_train(snap: str, tmp: str) -> dict:
         raise AssertionError(f"the SDXL training launches {got} are not {expected}")
     if moved != len(init) or not alphas or not all(map(math.isfinite, losses)):
         raise AssertionError("the SDXL run's LoRA or losses are wrong")
-    return {**got, "peak_gb": run["peak_gb"]}
+
+    # precision fp16: f32-loaded weights, f16 compute, pin on;
+    # FP16_SDXL_ITERATIONS iterations with the denoise cut to max_denoising_steps
+    # FP16_SDXL_STEPS
+    cfg["train"].update(precision="fp16", iterations=FP16_SDXL_ITERATIONS,
+                        max_denoising_steps=FP16_SDXL_STEPS)
+    cfg["save"]["path"] = os.path.join(tmp, "sdxl_fp16_out")
+    basic.set_layout_pin(True)
+    try:
+        with unet_input_dtypes() as dtypes, f16_sum_flags() as sums:
+            fp16 = run_training(cfg, os.path.join(tmp, "config_xl_fp16.yaml"), ["--xl"])
+    finally:
+        basic.set_layout_pin(False)
+    recs16 = fp16["records"]
+    t16 = [m["t_to"] for _, _, m in recs16]
+    losses16 = [m["loss"] for _, _, m in recs16]
+    exp16 = {"sd": SDXL_SD_512 * sum(t + 3 for t in t16), "sd_bwd": SDXL_SD_512 * len(recs16),
+             "pin": sum(SDXL_PINS * (t + 2) + SDXL_PIN_BWD for t in t16)}
+    got16 = {"sd": fp16["fwd"], "sd_bwd": fp16["bwd"], "pin": fp16["pin"]}
+    say("sdxl", f"train 512 px, precision fp16 (f32-loaded weights, f16 compute, pin on, "
+        f"max_denoising_steps {FP16_SDXL_STEPS}): {len(recs16)} iterations, t_to {t16}, losses "
+        f"{[f'{v:.6g}' for v in losses16]}; f16 launches {got16} (expected {exp16}); UNet inputs "
+        f"{sorted({str(d) for d in dtypes})}; peak device memory {fp16['peak_gb']:.2f} GB; "
+        f"whole run {fp16['seconds']:.1f} s including the f32 load")
+    for i, _, m in recs16:
+        ph = m["phase_ms"]
+        say("sdxl", f"train fp16 iteration {i}{' (the first f16 calls)' if i == 0 else ''}: "
+            f"t_to {m['t_to']}; device ms: denoise {ph['denoise']:.1f} "
+            f"({ph['denoise'] / m['t_to']:.1f} per CFG-doubled UNet call), frozen "
+            f"{ph['frozen']:.1f}, grad {ph['grad']:.1f}, update {ph['update']:.2f}")
+    if [i for i, _, _ in recs16] != list(range(FP16_SDXL_ITERATIONS)) or got16 != exp16 or (
+            set(dtypes) != {torch.float16}) or set(sums) != {False} or not all(
+            map(math.isfinite, losses16)):
+        raise AssertionError(f"the SDXL fp16 run: launches {got16} (expected {exp16}), UNet "
+                             f"inputs {set(dtypes)}, losses {losses16}")
+    return {**got, "peak_gb": run["peak_gb"],
+            "fp16": {**got16, "t_to": t16, "phase_ms": [m["phase_ms"] for _, _, m in recs16],
+                     "peak_gb": fp16["peak_gb"], "seconds": fp16["seconds"]}}
 
 
 def phase_sdxl(tmp: str) -> dict:
@@ -4610,6 +5265,25 @@ def fleet_counts() -> dict:
     return {"sd": counts["sd"], "sd_bwd": counts["sd_bwd"], "flash": counts["flash"]}
 
 
+def fleet_prompt_files(tmp: str) -> tuple:
+    """FLEET_PROMPTS's prompt sets of data/ written under `tmp`, their text
+    cut to the letters and spaces the synthetic tokenizer holds: (paths,
+    pairs in the last set)."""
+    from sliders_tpu_torch.core import yaml_subset
+
+    paths = []
+    for p in FLEET_PROMPTS:
+        sets = yaml_subset.load(os.path.join(REPO, "data", f"prompts-{p}.yaml"))
+        for s in sets:
+            for role in ("target", "positive", "unconditional", "neutral"):
+                s[role] = re.sub(r"[^a-z ]", " ", str(s.get(role, "")).lower())
+        paths.append(os.path.join(tmp, f"prompts-{p}.yaml"))
+        if not os.path.exists(paths[-1]):
+            with open(paths[-1], "w") as f:
+                f.write("".join("- " + dump_yaml(s).replace("\n", "\n  ") + "\n" for s in sets))
+    return paths, len(sets)
+
+
 def phase_fleet(snap: str, tmp: str) -> dict:
     """`cli/train_fleet.py` in-process on the full-width SD1.5 snapshot of
     `phase_train`: FLEET_PROMPTS (K = 4 prompt YAMLs of data/, batch 1, 512
@@ -4621,10 +5295,16 @@ def phase_fleet(snap: str, tmp: str) -> dict:
     with the reference key set that `lora/io` reloads equal, finite per-row
     losses, and exact launches: #1 10 x (loop + 2 + remat) (a CFG-doubled
     K-row call per loop step, the 3K-row frozen pass, the K-row grad pass
-    and its recomputation), #2 10 (the grad pass's backward)."""
+    and its recomputation), #2 10 (the grad pass's backward). The steps run
+    under cuDNN's deterministic algorithms (`fleet.deterministic_cudnn`);
+    one more shared iteration with that context replaced by a no-op
+    (cuDNN's defaults) prints both shared iterations' device spans side by
+    side (the same draws; both after the per_row iteration's warm-up): what
+    the rows' bit isolation costs."""
     import torch
 
     from sliders_tpu_torch.cli import train_fleet as fcli
+    from sliders_tpu_torch.training import fleet as tfleet
     from sliders_tpu_torch.core import yaml_subset
     from sliders_tpu_torch.lora import io as lora_io
     from sliders_tpu_torch.models import loader, unet2d
@@ -4635,27 +5315,18 @@ def phase_fleet(snap: str, tmp: str) -> dict:
     cfg["train"]["iterations"] = 1
     cfg["logging"] = {"log_every": 1}
     remat = bool(cfg["tpu"]["remat"])
-    prompts = []
-    for p in FLEET_PROMPTS:
-        # data/'s prompt sets, their text cut to the letters and spaces the
-        # synthetic tokenizer holds
-        sets = yaml_subset.load(os.path.join(REPO, "data", f"prompts-{p}.yaml"))
-        for s in sets:
-            for role in ("target", "positive", "unconditional", "neutral"):
-                s[role] = re.sub(r"[^a-z ]", " ", str(s.get(role, "")).lower())
-        prompts.append(os.path.join(tmp, f"prompts-{p}.yaml"))
-        with open(prompts[-1], "w") as f:
-            f.write("".join("- " + dump_yaml(s).replace("\n", "\n  ") + "\n" for s in sets))
+    prompts, n_pairs = fleet_prompt_files(tmp)
     t0 = time.perf_counter()
     models = loader.load_sd(snap, device="cuda", dtype=torch.bfloat16)
     load_s = time.perf_counter() - t0
     say("fleet", f"K = {len(prompts)} sliders (data/prompts-*.yaml of {', '.join(FLEET_PROMPTS)}, "
-        f"{len(sets)} pairs each, text cut to letters), data/config.yaml: "
+        f"{n_pairs} pairs each, text cut to letters), data/config.yaml: "
         f"train {cfg['train']}; network {cfg['network']}; tpu {cfg['tpu']}; overridden: "
         f"iterations, logging.log_every and the paths; models loaded once in {load_s:.1f} s")
     meta_unet = unet2d.init_params(None, unet2d.SD15, device="meta")
     out = {}
-    for mode in FLEET_MODES:
+    for mode in (*FLEET_MODES, "shared_cudnn_default"):
+        deterministic = mode != "shared_cudnn_default"
         run_cfg = {**cfg, "save": {**cfg["save"], "path": os.path.join(tmp, f"fleet_{mode}")}}
         path = os.path.join(tmp, f"fleet_{mode}.yaml")
         with open(path, "w") as f:
@@ -4665,9 +5336,16 @@ def phase_fleet(snap: str, tmp: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_flux_counts()
         t0 = time.perf_counter()
-        loras = fcli.main(fcli.build_parser().parse_args(
-            ["--config_file", path, "--device", "0", "--t_to_mode", mode, "--prompts_file",
-             *prompts]), on_step=lambda i, state, m: records.append(m), models=models)
+        saved = tfleet.deterministic_cudnn
+        if not deterministic:
+            tfleet.deterministic_cudnn = contextlib.nullcontext
+        try:
+            loras = fcli.main(fcli.build_parser().parse_args(
+                ["--config_file", path, "--device", "0", "--t_to_mode",
+                 mode if deterministic else "shared", "--prompts_file", *prompts]),
+                on_step=lambda i, state, m: records.append(m), models=models)
+        finally:
+            tfleet.deterministic_cudnn = saved
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = fleet_counts()
@@ -4711,6 +5389,16 @@ def phase_fleet(snap: str, tmp: str) -> dict:
             raise AssertionError(f"fleet shared: rows took t_to {m['t_to']}")
         out[mode] = {**counts, "t_to": m["t_to"], "loop": m["loop"], "seconds": seconds,
                      "peak_gb": peak, "phase_ms": ph}
+    det, dflt = out["shared"], out.pop("shared_cudnn_default")
+    say("fleet", f"shared under cuDNN's deterministic algorithms (the fleet's default) / its "
+        f"default ones, same draws (loop {det['loop']} / {dflt['loop']}): device ms " + ", ".join(
+            f"{k} {det['phase_ms'][k]:.1f} / {dflt['phase_ms'][k]:.1f} "
+            f"({det['phase_ms'][k] / dflt['phase_ms'][k]:.3f}x)"
+            for k in ("denoise", "frozen", "grad", "update"))
+        + f"; CLI call {det['seconds']:.2f} / {dflt['seconds']:.2f} s")
+    if dflt["t_to"] != det["t_to"]:
+        raise AssertionError("the two shared iterations drew different t_to")
+    out["cudnn_default"] = {"shared": dflt["phase_ms"], "seconds": dflt["seconds"]}
     del models
     return out
 
@@ -4721,13 +5409,10 @@ def phase_fleet_rows() -> dict:
     runs (`make_text_slider_step`) of seeds `fleet_row_seed(seed, r)`, two
     iterations at lr 1e-4, each row's LoRA within FLEET_ROW_TOL of its solo
     run's (the fleet's rows sit at other batch positions than a solo run's,
-    which on the card may change bits: queue 3); then row isolation: row 1's
-    prompt pairs changed, row 0's largest change printed and held to the
-    same limit (on the CPU it is 0, bit for bit). Before that the same
-    fleet runs twice (printed: does the card repeat itself?), and twice
-    more with `cudnn.deterministic` and once with row 1's pairs changed:
-    there both are held to 0, bit for bit (cuDNN's default algorithms are
-    what moves row 0 under the default: ROADMAP queue 3)."""
+    which on the card may change bits: ROADMAP queue 3). The fleet's steps
+    run under cuDNN's deterministic algorithms (`fleet.deterministic_cudnn`),
+    so the default fleet run twice is bit-equal and, with row 1's prompt
+    pairs changed, row 0 moves by 0, bit for bit: both held to 0."""
     import torch
 
     from sliders_tpu_torch.diffusion.schedulers import make_sampler, make_schedule
@@ -4774,25 +5459,8 @@ def phase_fleet_rows() -> dict:
     with tf32_flags(False, False):
         sets = [pairs(30, 2), pairs(31, 2)]
         rows, ms = run_fleet(sets)
-        # the same fleet again, then both again with cuDNN held to deterministic
-        # algorithms: does the card repeat itself, and does row isolation hold then?
         again, _ = run_fleet(sets)
         rerun = max(max_diff(rows[r], again[r]) for r in range(2))
-        saved_det = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            det = [run_fleet(sets)[0] for _ in range(2)]
-            det_other, _ = run_fleet([sets[0], pairs(32, 2)])
-        finally:
-            torch.backends.cudnn.deterministic = saved_det
-        det_rerun = max(max_diff(det[0][r], det[1][r]) for r in range(2))
-        det_iso = max_diff(det[0][0], det_other[0])
-        say("fleet", f"rows: the same fleet run twice: max|diff| {rerun:.3g} (bit-equal: "
-            f"{rerun == 0}); with cudnn.deterministic: twice {det_rerun:.3g}, row 1's pairs "
-            f"changed: row 0 moved {det_iso:.3g}")
-        if det_rerun or det_iso:
-            raise AssertionError("with cuDNN's deterministic algorithms the fleet's rows are "
-                                 "not repeatable or not isolated bit for bit")
         errs, solo_t = [], []
         for r in range(2):
             s = fleet.fleet_row_seed(seed, r)
@@ -4812,13 +5480,15 @@ def phase_fleet_rows() -> dict:
         iso = max_diff(rows[0], other[0])
         moved = max((rows[1][m]["up"] - other[1][m]["up"]).abs().max().item() for m in rows[1])
     say("fleet", f"rows: TINY {px} px f32, K = 2, 2 iterations (t_to by row {solo_t}), lr "
-        f"{TINY_LR}: each row's LoRA against its solo run of seed fleet_row_seed(seed, r): "
-        f"max|err| {[f'{e:.3g}' for e in errs]} (limit {FLEET_ROW_TOL}); row 1's pairs changed: "
-        f"row 0 moved {iso:.3g} (limit {FLEET_ROW_TOL}), row 1 {moved:.3g}")
-    if max(errs) > FLEET_ROW_TOL or iso > FLEET_ROW_TOL or moved == 0:
-        raise AssertionError("the fleet's rows are not their solo runs, or not isolated")
-    return {"row_err": max(errs), "isolation": iso, "rerun": rerun,
-            "deterministic_rerun": det_rerun, "deterministic_isolation": det_iso}
+        f"{TINY_LR}: the default fleet run twice: max|diff| {rerun:.3g} (limit 0); row 1's "
+        f"pairs changed: row 0 moved {iso:.3g} (limit 0), row 1 {moved:.3g}; each row's LoRA "
+        f"against its solo run of seed fleet_row_seed(seed, r): max|err| "
+        f"{[f'{e:.3g}' for e in errs]} (limit {FLEET_ROW_TOL})")
+    if rerun or iso:
+        raise AssertionError("the fleet's rows are not repeatable or not isolated bit for bit")
+    if max(errs) > FLEET_ROW_TOL or moved == 0:
+        raise AssertionError("the fleet's rows are not their solo runs, or row 1 did not move")
+    return {"row_err": max(errs), "isolation": iso, "rerun": rerun}
 
 
 def phase_fleet_image(snap: str, tmp: str) -> dict:
@@ -6073,6 +6743,51 @@ def phase_tiny_edit() -> dict:
     return {"sd": g["counts"][0], "sd_bwd": g["counts"][1], "traj_err": terr, "worst": worst}
 
 
+def f16_entries(f16: dict, train: dict, sdxl: dict, tiny_fp16: dict) -> list:
+    """The kernels line's f16 variants (`precision: fp16`): #1 and #2 with
+    their launches in the SD1.5 fp16 training run (beside the fleet's, the
+    SDXL run's and the tiny run's), #9 in the SDXL fp16 run with the pin on,
+    #5 in the fp16 fleet run under 'auto' (beside the tiny run's), #6 and #7
+    in the tiny fp16 runs under their conv impls; times, bounds and
+    errors at the first shape phase_f16_kernels lists, every shape's under
+    "shapes", each beside its bf16 twin's time."""
+    fp16, xl16 = train["fp16"], sdxl["train"]["fp16"]
+    where = {
+        "sd_attention_fwd": ("sliders_tpu_torch/csrc/sd_attention.cu",
+                             "sliders_tpu/ops/pallas_attention.py:43", fp16["fwd"],
+                             {"train_fp16": fp16["fwd"], "fleet_fp16": fp16["fleet"]["fwd"],
+                              "sdxl_train_512_fp16": xl16["sd"], "tiny_fp16": tiny_fp16["sd"]}),
+        "sd_attention_bwd": ("sliders_tpu_torch/csrc/sd_attention_bwd.cu",
+                             "sliders_tpu/ops/pallas_attention.py:156", fp16["bwd"],
+                             {"train_fp16": fp16["bwd"], "fleet_fp16": fp16["fleet"]["bwd"],
+                              "sdxl_train_512_fp16": xl16["sd_bwd"],
+                              "tiny_fp16": tiny_fp16["sd_bwd"]}),
+        "layout_pin": ("sliders_tpu_torch/csrc/layout_pin.cu", "sliders_tpu/ops/basic.py:339",
+                       xl16["pin"], {"sdxl_train_512_fp16_pin_on": xl16["pin"]}),
+        "conv3x3": ("sliders_tpu_torch/csrc/conv3x3.cu", "sliders_tpu/ops/pallas_conv.py:44",
+                    fp16["fleet"]["conv"]["conv3x3"],
+                    {"fleet_fp16_auto": fp16["fleet"]["conv"]["conv3x3"],
+                     "tiny_fp16_auto": tiny_fp16["conv3x3"]}),
+        "epi_conv3x3": ("sliders_tpu_torch/csrc/conv3x3.cu", "sliders_tpu/ops/pallas_conv.py:409",
+                        tiny_fp16["epi_conv3x3"], {"tiny_fp16_fused_ep": tiny_fp16["epi_conv3x3"]}),
+        "fused_conv3x3": ("sliders_tpu_torch/csrc/conv3x3.cu",
+                          "sliders_tpu/ops/pallas_conv.py:208", tiny_fp16["fused_conv3x3"],
+                          {"tiny_fp16_fused": tiny_fp16["fused_conv3x3"]}),
+    }
+    out = []
+    for name, (source, replaces, launches, by_path) in where.items():
+        rows = f16[name]
+        out.append({"name": f"{name}_f16", "route": "cuda", "source": source,
+                    "replaces": replaces, "dtype": "float16", "launches": launches,
+                    "launches_by_path": by_path, "max_abs_err": max(r["err"] for r in rows),
+                    **{k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "bf16_ms")},
+                    "shapes": [{k: r[k] for k in ("shape", "ms", "bf16_ms", "plain_ms",
+                                                  "library_ms", "bound_ms", "bound_by")}
+                               for r in rows]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6097,11 +6812,13 @@ def main() -> int:
     encode_rows = timed("kernel #4 at the encode shapes", phase_encode_kernel)
     encode_ab = timed("VAE encoder 'auto' / 'xla'", phase_encode_ab)
     pin_results = timed("kernel #9", phase_layout_pin_kernel)
+    f16 = timed("f16 kernels", phase_f16_kernels)
     with tempfile.TemporaryDirectory() as tok_dir:
         write_tokenizer(tok_dir)
         timed("tiny slice", phase_tiny_slice, tok_dir)
         timed("tiny training", phase_tiny_train)
         tiny_fused = timed("tiny training 'fused'", phase_tiny_train, "fused")
+        tiny_fp16 = timed("tiny training fp16", phase_tiny_train_fp16)
         tiny_flux = timed("tiny FLUX serving", phase_tiny_flux)
         tiny_flux_train = timed("tiny FLUX training", phase_tiny_flux_train)
         tiny_xl = timed("tiny SDXL", phase_tiny_sdxl)
@@ -6192,7 +6909,7 @@ def main() -> int:
                              "uce_sd15_lms": train["uce"]["sd"], "ti_sd15": train["ti"]["sd"],
                              "custom_diffusion_sdxl_1024": sdxl["custom_diffusion"]["sd"],
                              "scores_clip_lpips": train["scores"]["sd"],
-                             **{f"fleet_sd15_{k}": v["sd"] for k, v in train["fleet"].items()},
+                             **{f"fleet_sd15_{k}": train["fleet"][k]["sd"] for k in FLEET_MODES},
                              "fleet_image_sd15_256": train["fleet_image"]["sd"],
                              "generate_fleet_sd15": train["generate_fleet"]["sd"],
                              "train_prodigy_sd15": train["adaptive"]["fwd"],
@@ -6228,8 +6945,8 @@ def main() -> int:
                              "tiny_image_stylecheck": tiny_image["style"]["sd_bwd"],
                              "edit_sd15_null_text_f32": train["edit"]["sd_bwd"],
                              "tiny_edit": tiny_edit["sd_bwd"],
-                             **{f"fleet_sd15_{k}": v["sd_bwd"]
-                                for k, v in train["fleet"].items()},
+                             **{f"fleet_sd15_{k}": train["fleet"][k]["sd_bwd"]
+                                for k in FLEET_MODES},
                              "fleet_image_sd15_256": train["fleet_image"]["sd_bwd"],
                              "train_prodigy_sd15": train["adaptive"]["bwd"],
                              "train_resume_traced_kernel_events":
@@ -6351,6 +7068,7 @@ def main() -> int:
                               "tiny_sdxl": tiny_xl["pin"]},
          "routed": "opt-in: ops.basic.set_layout_pin(True), off by default as in the JAX package",
          "max_abs_err": max(r["err"] for r in pin_results), **timing(pin_results[0])},
+        *f16_entries(f16, train, sdxl, tiny_fp16),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,7 @@ from sliders_tpu_torch.core import config as config_util
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
-from sliders_tpu_torch.training.driver import compute_dtype_of
+from sliders_tpu_torch.training.driver import load_dtype_of
 from sliders_tpu_torch.training.fleet import train_fleet
 
 
@@ -70,12 +70,12 @@ def main(args, on_step=None, models=None) -> list:
     if models is None:
         if args.xl:
             models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
-                                      dtype=compute_dtype_of(config))
+                                      dtype=load_dtype_of(config))
         else:
             models = loader.load_sd(config.pretrained_model.name_or_path, device=device,
                                     v2=config.pretrained_model.v2,
                                     clip_skip=config.pretrained_model.clip_skip,
-                                    dtype=compute_dtype_of(config))
+                                    dtype=load_dtype_of(config))
     return train_fleet(config, prompt_sets, models, resume_from=args.resume, on_step=on_step,
                        shared_t_to=args.shared_t_to, t_to_mode=args.t_to_mode,
                        t_to_strata=args.t_to_strata)

@@ -22,7 +22,7 @@ from sliders_tpu_torch.core import config as config_util
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
-from sliders_tpu_torch.training.driver import compute_dtype_of, train_flux_sliders
+from sliders_tpu_torch.training.driver import load_dtype_of, train_flux_sliders
 
 
 def main(args, on_step=None, lora=None):
@@ -51,7 +51,7 @@ def main(args, on_step=None, lora=None):
     device = resolve_device(args.device)
     set_attention_impl(config.tpu.attention)
     models = loader.load_flux(config.pretrained_model.name_or_path, device=device,
-                              dtype=compute_dtype_of(config))
+                              dtype=load_dtype_of(config))
     return train_flux_sliders(config, prompts, models, seed=args.seed, t5_len=args.t5_len,
                               transformer_guidance=args.transformer_guidance, on_step=on_step,
                               lora=lora)

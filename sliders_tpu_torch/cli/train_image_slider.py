@@ -29,7 +29,7 @@ from sliders_tpu_torch.data.paired_images import parse_folder_args
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
-from sliders_tpu_torch.training.driver import compute_dtype_of, train_image_sliders
+from sliders_tpu_torch.training.driver import load_dtype_of, train_image_sliders
 from sliders_tpu_torch.training.fleet import train_fleet_images
 
 
@@ -56,7 +56,7 @@ def main(args, on_step=None) -> dict:
 
     device = resolve_device(args.device)
     set_attention_impl(config.tpu.attention)
-    dtype = compute_dtype_of(config)
+    dtype = load_dtype_of(config)
     if args.xl:
         models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
                                   dtype=dtype, load_vae=True)

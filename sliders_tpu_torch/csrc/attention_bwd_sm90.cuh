@@ -1,5 +1,6 @@
 // The Hopper mainloop of the attention backwards: kernel #2's exact softmax
-// backward (sd_attention_bwd.cu, every d its gate takes, bf16 and f32) and
+// backward (sd_attention_bwd.cu, every d its gate takes in bf16 and f32, and
+// d = 40, 64, 80 and 128 in f16) and
 // kernel #4's flash backward in bf16 at d = 128 and 256 and in f32 at d =
 // 128, 256 and 512 (flash_attention.cu). It takes the ring's fill and the descriptors of
 // attention_sm90.cuh, and the PTX wrappers of sm90_ptx.cuh. Its TF32 pieces
@@ -24,12 +25,13 @@
 // warpgroup keeps 40 registers and the two consumers take 232
 // (`setmaxnreg`). Three consumer plans share that ring (BCfg::KIND):
 //
-// PAIR (bf16, d <= 128): 128 resident rows, each consumer warpgroup 64 of
+// PAIR (bf16 and, as `BCfgF16`, f16: d <= 128): 128 resident rows, each consumer warpgroup 64 of
 // them and every product of its rows. Per streamed tile (64 rows, 128 for
 // #2 at d <= 48) a dk/dv consumer forms S^T = K.Q^T and dP^T = V.dO^T
 // (`wgmma`, both operands in shared memory, K-major), then P^T and dS^T in
 // f32 registers from the statistics of the tile's columns, rounds them to
-// bf16 straight into the A registers of dV += P^T.dO and dK += dS^T.Q
+// the input dtype (bf16 or f16, the TPU kernel's rounding points at that
+// dtype) straight into the A registers of dV += P^T.dO and dK += dS^T.Q
 // (`wgmma` with A from registers, dO and Q read MN-major through the
 // transpose flag, as #1 reads V); a dq consumer forms S and dP, dS in
 // registers, dQ += dS.K with K read MN-major. What bounds it is registers:
@@ -302,6 +304,14 @@ struct BCfg {
                             ((CS == 2 && BN == 32) || (CS == 4 && BN == 16))),
                 "CLUSTER is #4 in f32 at d = 256 (32-row tiles) and 512 (16-row tiles), a "
                 "block's 128 columns each");
+  static constexpr bool F16 = false;  // 2-byte operands are bf16
+};
+
+// PAIR on f16 operands (#2 under `precision: fp16`): `.f16` wgmma, p and ds
+// rounded to f16, f16 tensor maps and stores
+template <int DP_, int BN_, bool TMA_, bool DKV_>
+struct BCfgF16 : BCfg<DP_, BN_, TMA_, DKV_, true> {
+  static constexpr bool F16 = true;
 };
 
 struct BRing {
@@ -515,18 +525,18 @@ __device__ __forceinline__ void issue_pair(float* s, float* t, uint32_t a1, uint
   for (int kk = 0; kk < C::DP / 16; ++kk) {
     const uint64_t a = kmajor_desc<C>(a1, QROWS, rg0, kk), b = kmajor_desc<C>(b1, C::BN, 0, kk);
     if constexpr (C::BN == 128)
-      wgmma_ss_n128(s, a, b, kk > 0);
+      wgmma_ss_n128<C::F16>(s, a, b, kk > 0);
     else
-      wgmma_ss_n64(s, a, b, kk > 0);
+      wgmma_ss_n64<C::F16>(s, a, b, kk > 0);
   }
   wgmma_commit();
 #pragma unroll
   for (int kk = 0; kk < C::DP / 16; ++kk) {
     const uint64_t a = kmajor_desc<C>(a2, QROWS, rg0, kk), b = kmajor_desc<C>(b2, C::BN, 0, kk);
     if constexpr (C::BN == 128)
-      wgmma_ss_n128(t, a, b, kk > 0);
+      wgmma_ss_n128<C::F16>(t, a, b, kk > 0);
     else
-      wgmma_ss_n64(t, a, b, kk > 0);
+      wgmma_ss_n64<C::F16>(t, a, b, kk > 0);
   }
   wgmma_commit();
 }
@@ -542,12 +552,13 @@ __device__ __forceinline__ float ds_of(float pe, float dp, float dd, float scale
 
 // Accumulator element 4j + e is row g (e < 2) or g + 8 of the warpgroup's
 // rows, column 8j + 2 t4 + (e & 1) of the tile; two n8 blocks (j = 2kc,
-// 2kc + 1) are the A registers of k16 step kc.
+// 2kc + 1) are the A registers of k16 step kc, in bf16 or (F16) f16.
+template <bool F16 = false>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* x) {
-  a[0] = pack_bf16(x[0], x[1]);
-  a[1] = pack_bf16(x[2], x[3]);
-  a[2] = pack_bf16(x[4], x[5]);
-  a[3] = pack_bf16(x[6], x[7]);
+  a[0] = pack2<F16>(x[0], x[1]);
+  a[1] = pack2<F16>(x[2], x[3]);
+  a[2] = pack2<F16>(x[4], x[5]);
+  a[3] = pack2<F16>(x[6], x[7]);
 }
 
 // acc[.. DP / 2] += a (k16 steps of registers) . tile, the tile read MN-major
@@ -558,8 +569,8 @@ __device__ __forceinline__ void issue_rs(float* acc, uint32_t (*a)[4], uint32_t 
 }
 
 // rows row and row + 8 of NB n8 blocks of acc (columns col0 ..), times f,
-// to out (d columns valid)
-template <int NB>
+// to out (d columns valid), rounded to bf16 or (F16) f16
+template <int NB, bool F16 = false>
 __device__ __forceinline__ void store_cols(bf16* out, long long ld, int row, int nrows, int col0,
                                            int d, const float* acc, float f, int t4) {
 #pragma unroll
@@ -568,10 +579,10 @@ __device__ __forceinline__ void store_cols(bf16* out, long long ld, int row, int
     if (col < d) {
       if (row < nrows)
         *reinterpret_cast<uint32_t*>(out + (long long)row * ld + col) =
-            pack_bf16(acc[4 * j] * f, acc[4 * j + 1] * f);
+            pack2<F16>(acc[4 * j] * f, acc[4 * j + 1] * f);
       if (row + 8 < nrows)
         *reinterpret_cast<uint32_t*>(out + (long long)(row + 8) * ld + col) =
-            pack_bf16(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
+            pack2<F16>(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
     }
   }
 }
@@ -579,7 +590,7 @@ __device__ __forceinline__ void store_cols(bf16* out, long long ld, int row, int
 template <class C>
 __device__ __forceinline__ void store_rows(bf16* out, long long ld, int row, int nrows, int d,
                                            const float* acc, float f, int t4) {
-  store_cols<C::DP / 8>(out, ld, row, nrows, 0, d, acc, f, t4);
+  store_cols<C::DP / 8, C::F16>(out, ld, row, nrows, 0, d, acc, f, t4);
 }
 
 template <class C>
@@ -639,7 +650,7 @@ __device__ __forceinline__ void dkdv_item(const BwdArgs& p, const BRing& r, cons
       for (int kc = 0; kc < C::BN / 16; ++kc) {
         p_of(2 * kc, s + 8 * kc);
         p_of(2 * kc + 1, s + 8 * kc + 4);
-        pack_a(pa[kc], s + 8 * kc);
+        pack_a<C::F16>(pa[kc], s + 8 * kc);
       }
       fence_regs<C::DP / 2>(dv);
       wgmma_fence();
@@ -651,7 +662,7 @@ __device__ __forceinline__ void dkdv_item(const BwdArgs& p, const BRing& r, cons
       for (int kc = 0; kc < C::BN / 16; ++kc) {
         ds_block(2 * kc, s + 8 * kc, dp + 8 * kc);
         ds_block(2 * kc + 1, s + 8 * kc + 4, dp + 8 * kc + 4);
-        pack_a(da[kc], dp + 8 * kc);
+        pack_a<C::F16>(da[kc], dp + 8 * kc);
       }
       fence_regs<C::DP / 2>(dk);
       wgmma_fence();
@@ -673,8 +684,8 @@ __device__ __forceinline__ void dkdv_item(const BwdArgs& p, const BRing& r, cons
           p_of(2 * kc + h, s + 8 * kc + 4 * h);
           ds_block(2 * kc + h, s + 8 * kc + 4 * h, dp + 8 * kc + 4 * h);
         }
-        pack_a(pa[kc], s + 8 * kc);
-        pack_a(da[kc], dp + 8 * kc);
+        pack_a<C::F16>(pa[kc], s + 8 * kc);
+        pack_a<C::F16>(da[kc], dp + 8 * kc);
         wgmma_fence();
         pv_step<C, 0>(dv, pa[kc], tg, kc);
         pv_step<C, 0>(dk, da[kc], tq, kc);
@@ -803,7 +814,7 @@ __device__ __forceinline__ void dq_item(const BwdArgs& p, const BRing& r, const 
 #pragma unroll
       for (int i = 8 * kc; i < 8 * kc + 8; ++i)
         dp[i] = ds_of<C>(s[i], dp[i], i & 2 ? dd1 : dd0, p.scale);
-      pack_a(da[kc], dp + 8 * kc);
+      pack_a<C::F16>(da[kc], dp + 8 * kc);
       wgmma_fence();
       pv_step<C, 0>(dq, da[kc], tk, kc);
       wgmma_commit();
@@ -1728,7 +1739,7 @@ int launch_bwd_sm90(const BwdArgs& p, cudaStream_t stream) {
     // resident tiles 1 and 2 (K and V, or Q and dO), then the streamed ones
     auto map = [&](CUtensorMap* mp, const bf16* t, int L, long long sl, long long sh,
                    long long sb, int rows) {
-      return make_map(mp, t, p.dw, L, p.H, p.B, sl, sh, sb, rows, BW);
+      return make_map(mp, t, p.dw, L, p.H, p.B, sl, sh, sb, rows, BW, map_type<C::F16>());
     };
     bool ok = C::DKV ? map(&m[0], p.k, p.Lk, p.kl, p.kh, p.kb, C::RROWS) &&
                            map(&m[1], p.v, p.Lk, p.vl, p.vh, p.vb, C::RROWS)

@@ -1,6 +1,9 @@
-// The Hopper mainloop of the bf16 attention forwards: kernel #1's two-pass
-// exact softmax (sd_attention.cu) and kernel #4's one-pass online softmax at
-// d = 128 and 256 (flash_attention.cu). It takes the bf16 packing and the
+// The Hopper mainloop of the 2-byte attention forwards: kernel #1's two-pass
+// exact softmax (sd_attention.cu) in bf16 and f16, and kernel #4's one-pass
+// online softmax at d = 128 and 256 in bf16 (flash_attention.cu). A plan is
+// a `Cfg` (bf16) or a `CfgF16` (the same plan on f16 operands: `wgmma`
+// `.f32.f16.f16` in the same shapes, f16 tensor maps, p and o rounded to
+// f16); everything else is the same code. It takes the 2-byte packing and the
 // quad reductions from sd_attention_common.cuh, which does not include it,
 // so #2's build does not move with it, and the PTX wrappers (mbarriers, TMA,
 // the wgmma fence and waits) from sm90_ptx.cuh, which the conv mainloop
@@ -22,7 +25,7 @@
 //   - warpgroups 0 and 1, the consumers, own 64 q rows each. Per K tile
 //     S = Q.K^T is `wgmma.m64nBKk16` with both operands in shared memory
 //     (K read K-major); p is formed in registers from the f32 accumulator
-//     and goes, rounded to bf16, straight into the A registers of
+//     and goes, rounded to the input dtype, straight into the A registers of
 //     O += P.V, `wgmma` with A from registers and V read MN-major through
 //     the instruction's transpose flag (no V transpose anywhere).
 // With one block an SM, `setmaxnreg` moves registers from the producer to
@@ -119,57 +122,99 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // ---------------------------------------------------------------------------
-// wgmma (m64nNk16, bf16 in, f32 accumulate)
+// wgmma (m64nNk16, bf16 or f16 (F16) in, f32 accumulate)
 // ---------------------------------------------------------------------------
 
 // D(64 x 64, f32) (+)= A(64 x 16, smem) * B(16 x 64, smem), both K-major
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+#define WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(a), "l"(b), "r"(accumulate))
+  if constexpr (F16)
+    WGMMA_SS_N64("f16");
+  else
+    WGMMA_SS_N64("bf16");
+#undef WGMMA_SS_N64
 }
 
 // D(64 x 128, f32) (+)= A(64 x 16, smem) * B(16 x 128, smem), both K-major
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+#define WGMMA_SS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(a), "l"(b), "r"(accumulate))
+  if constexpr (F16)
+    WGMMA_SS_N128("f16");
+  else
+    WGMMA_SS_N128("bf16");
+#undef WGMMA_SS_N128
 }
 
 // D(64 x 16, f32) += A(64 x 16, registers) * B(16 x 16, smem, MN-major)
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\nwgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+#define WGMMA_RS_N16(TY) \
+  asm volatile( \
+      "{\nwgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+  if constexpr (F16)
+    WGMMA_RS_N16("f16");
+  else
+    WGMMA_RS_N16("bf16");
+#undef WGMMA_RS_N16
 }
 
 // D(64 x 32, f32) += A(64 x 16, registers) * B(16 x 32, smem, MN-major)
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\nwgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+#define WGMMA_RS_N32(TY) \
+  asm volatile( \
+      "{\nwgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+  if constexpr (F16)
+    WGMMA_RS_N32("f16");
+  else
+    WGMMA_RS_N32("bf16");
+#undef WGMMA_RS_N32
 }
 
 // D(64 x 64, f32) += A(64 x 16, registers) * B(16 x 64, smem, MN-major)
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\nwgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+#define WGMMA_RS_N64(TY) \
+  asm volatile( \
+      "{\nwgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+  if constexpr (F16)
+    WGMMA_RS_N64("f16");
+  else
+    WGMMA_RS_N64("bf16");
+#undef WGMMA_RS_N64
 }
 
 // D(64 x 128, f32) += A(64 x 16, registers) * B(16 x 128, smem, MN-major)
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+#define WGMMA_RS_N128(TY) \
+  asm volatile( \
+      "{\nwgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+  if constexpr (F16)
+    WGMMA_RS_N128("f16");
+  else
+    WGMMA_RS_N128("bf16");
+#undef WGMMA_RS_N128
 }
 
 // ---------------------------------------------------------------------------
@@ -208,7 +253,21 @@ struct Cfg {
   static_assert(!TMA || DP == 64 || DP == 128 || DP == 256, "TMA boxes are 64 columns");
   static_assert(DP <= 128 || (TMA && !TWO_PASS && CTAS == 1), "d = 256 is #4's one pass");
   static_assert(TMA || CTAS == 1, "a producer warp issues TMA only");
+  static constexpr bool F16 = false;  // bf16 operands
 };
+
+// the same plan on f16 operands (kernel #1 under `precision: fp16`)
+template <int DP_, int BK_, bool TMA_, bool TWO_PASS_, int CTAS_>
+struct CfgF16 : Cfg<DP_, BK_, TMA_, TWO_PASS_, CTAS_> {
+  static_assert(TWO_PASS_ && DP_ <= 128, "f16 is #1's two-pass forward");
+  static constexpr bool F16 = true;
+};
+
+// the tensor maps' element type of a plan (2-byte elements either way)
+template <bool F16>
+constexpr CUtensorMapDataType map_type() {
+  return F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
 
 // K-major operand (q rows or keys x head dim), k16 step kk, from the row
 // group rg0 on
@@ -272,9 +331,9 @@ __device__ __forceinline__ void logits(float* s, uint32_t q_tile, int rg0, uint3
     const uint64_t a = kmajor_desc<C>(q_tile, QROWS, rg0, kk);
     const uint64_t b = kmajor_desc<C>(k_tile, C::BK, 0, kk);
     if constexpr (C::BK == 128)
-      wgmma_ss_n128(s, a, b, kk > 0);
+      wgmma_ss_n128<C::F16>(s, a, b, kk > 0);
     else
-      wgmma_ss_n64(s, a, b, kk > 0);
+      wgmma_ss_n64<C::F16>(s, a, b, kk > 0);
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -290,13 +349,13 @@ __device__ __forceinline__ void pv_step(float* o, const uint32_t (&a)[4], uint32
     constexpr int W = REM >= 128 ? 128 : REM >= 64 ? 64 : REM >= 32 ? 32 : 16;
     const uint64_t b = vmajor_desc<C>(v_tile, kc, N0);
     if constexpr (W == 128)
-      wgmma_rs_n128(o + N0 / 2, a, b);
+      wgmma_rs_n128<C::F16>(o + N0 / 2, a, b);
     else if constexpr (W == 64)
-      wgmma_rs_n64(o + N0 / 2, a, b);
+      wgmma_rs_n64<C::F16>(o + N0 / 2, a, b);
     else if constexpr (W == 32)
-      wgmma_rs_n32(o + N0 / 2, a, b);
+      wgmma_rs_n32<C::F16>(o + N0 / 2, a, b);
     else
-      wgmma_rs_n16(o + N0 / 2, a, b);
+      wgmma_rs_n16<C::F16>(o + N0 / 2, a, b);
     pv_step<C, N0 + W>(o, a, v_tile, kc);
   }
 }
@@ -481,10 +540,10 @@ __device__ __forceinline__ void consume_item(const Params& p, const Ring& r, con
   auto pack = [&](const float* s) {
 #pragma unroll
     for (int kc = 0; kc < C::BK / 16; ++kc) {
-      pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
-      pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-      pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-      pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+      pa[kc][0] = pack2<C::F16>(s[8 * kc], s[8 * kc + 1]);
+      pa[kc][1] = pack2<C::F16>(s[8 * kc + 2], s[8 * kc + 3]);
+      pa[kc][2] = pack2<C::F16>(s[8 * kc + 4], s[8 * kc + 5]);
+      pa[kc][3] = pack2<C::F16>(s[8 * kc + 6], s[8 * kc + 7]);
     }
   };
 
@@ -520,7 +579,7 @@ __device__ __forceinline__ void consume_item(const Params& p, const Ring& r, con
     }
 
     // pass 2: the normalised p = exp(scale s - scale M) / l = 2^(c s - (c M +
-    // log2 l)), rounded to bf16 as the TPU kernel rounds it, times V
+    // log2 l)), rounded to the input dtype as the TPU kernel rounds it, times V
     const float n0 = M0 * c + log2f(l0), n1 = M1 * c + log2f(l1);
 #pragma unroll
     for (int i = 0; i < C::DP / 2; ++i) o[i] = 0.f;
@@ -592,10 +651,10 @@ __device__ __forceinline__ void consume_item(const Params& p, const Ring& r, con
     if (col < p.d) {
       if (row < p.Lq)
         *reinterpret_cast<uint32_t*>(out + (long long)row * p.ol + col) =
-            pack_bf16(o[4 * j] * f0, o[4 * j + 1] * f0);
+            pack2<C::F16>(o[4 * j] * f0, o[4 * j + 1] * f0);
       if (row + 8 < p.Lq)
         *reinterpret_cast<uint32_t*>(out + (long long)(row + 8) * p.ol + col) =
-            pack_bf16(o[4 * j + 2] * f1, o[4 * j + 3] * f1);
+            pack2<C::F16>(o[4 * j + 2] * f1, o[4 * j + 3] * f1);
     }
   }
   if (!C::TWO_PASS && p.ml != nullptr && t4 == 0) {
@@ -668,18 +727,20 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
 // host side
 // ---------------------------------------------------------------------------
 
-// a (d, L, H, B) bf16 tensor map with element strides (row, head, batch),
-// `cols`-column x `rows` boxes, zeros past L: 64 columns with the 128-byte
-// swizzle, or 8 (16 bytes, a core matrix's row) with none
+// a (d, L, H, B) tensor map of 2-byte elements (bf16, or f16 where `type`
+// says so) with element strides (row, head, batch), `cols`-column x `rows`
+// boxes, zeros past L: 64 columns with the 128-byte swizzle, or 8 (16
+// bytes, a core matrix's row) with none
 inline bool make_map(CUtensorMap* map, const void* ptr, int d, int L, int H, int B, long long sl,
-                     long long sh, long long sb, int rows, int cols = 64) {
+                     long long sh, long long sb, int rows, int cols = 64,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
             estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
@@ -694,9 +755,10 @@ int launch(const Params& p, cudaStream_t stream) {
   memset(&tk, 0, sizeof(tk));
   memset(&tv, 0, sizeof(tv));
   if constexpr (C::TMA) {
-    if (!make_map(&tq, p.q, p.d, p.Lq, p.H, p.B, p.ql, p.qh, p.qb, QROWS) ||
-        !make_map(&tk, p.k, p.d, p.Lk, p.H, p.B, p.kl, p.kh, p.kb, C::BK) ||
-        !make_map(&tv, p.v, p.d, p.Lk, p.H, p.B, p.vl, p.vh, p.vb, C::BK))
+    constexpr CUtensorMapDataType T = map_type<C::F16>();
+    if (!make_map(&tq, p.q, p.d, p.Lq, p.H, p.B, p.ql, p.qh, p.qb, QROWS, 64, T) ||
+        !make_map(&tk, p.k, p.d, p.Lk, p.H, p.B, p.kl, p.kh, p.kb, C::BK, 64, T) ||
+        !make_map(&tv, p.v, p.d, p.Lk, p.H, p.B, p.vl, p.vh, p.vb, C::BK, 64, T))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(attn_sm90<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -20,7 +20,8 @@
 //   - `conv3x3_sm90_launch`, the Hopper mainloop of conv3x3_sm90.cuh (a TMA
 //     halo tile per 128-byte channel chunk, a TMA weight ring, `wgmma` over
 //     the nine taps), for every call TMA can take: bf16 on bf16 tensor
-//     cores; f32 on TF32 tensor cores with error compensation (3xTF32: each
+//     cores, f16 (`precision: fp16`) on the same plan with f16 operands;
+//     f32 on TF32 tensor cores with error compensation (3xTF32: each
 //     operand split into a TF32 hi and lo part, three products a step),
 //     because the f32 products must match the exact-f32 plain version to
 //     1e-5 and one TF32 pass keeps about 11 bits. What bounds it is the
@@ -30,15 +31,15 @@
 //     `tf32_split_launch` below into a (2, N, 3, 3, C) scratch.
 //   - `conv3x3_launch`, the simple kernel ("generic") for what TMA cannot
 //     take (C or x's strides not multiples of 16 bytes, addresses off 16
-//     bytes, W < 8). It takes a 128 x 128 (bf16) or 64 x 64 (f32) output
-//     tile a block and loops over channel chunks of 32 (bf16) or 16 (f32):
+//     bytes, W < 8). It takes a 128 x 128 (bf16, f16) or 64 x 64 (f32) output
+//     tile a block and loops over channel chunks of 32 (bf16, f16) or 16 (f32):
 //     it stages the chunk's weights for all 9 taps once (read as they lie:
 //     the port keeps every conv weight channels_last, (N, 3, 3, C) in
 //     memory, so each tap's channels are one run), then for each tap
 //     gathers the shifted input tile (zero where the tap leaves the image),
 //     double-buffered through registers so that the next tap's loads
-//     overlap this tap's products: mma.sync m16n8k16 in bf16 (8 warps, 64 x
-//     32 outputs each), plain FMAs in f32 (4 x 4 outputs a thread). The
+//     overlap this tap's products: mma.sync m16n8k16 in bf16 and f16 (8
+//     warps, 64 x 32 outputs each), plain FMAs in f32 (4 x 4 outputs a thread). The
 //     fused prologue's a and s of a chunk are held in registers across its
 //     9 taps.
 
@@ -46,10 +47,14 @@
 
 namespace {
 
+// the element types of the dtype code the Python wrapper passes
+enum : int { DT_BF16 = 0, DT_F32 = 1, DT_F16 = 2 };
+
 // ws[t][nl][cl] = w[n0 + nl][t][c0 + cl] of the (N, 3, 3, C) weight, zero
 // past N or C: each (n, tap)'s chunk of channels is one contiguous run
-__device__ __forceinline__ void load_w_bf16(const Params& p, bf16* ws, int n0, int c0) {
-  const bf16* w = static_cast<const bf16*>(p.w);
+template <typename T>
+__device__ __forceinline__ void load_w_2byte(const Params& p, T* ws, int n0, int c0) {
+  const T* w = static_cast<const T*>(p.w);
   const long long row = 9LL * p.C;
   if (p.vec) {
     constexpr int PIECES = 9 * CK / 8;  // 16-byte pieces of one output channel's chunk
@@ -66,16 +71,18 @@ __device__ __forceinline__ void load_w_bf16(const Params& p, bf16* ws, int n0, i
       const int nl = i / (9 * CK), t = (i % (9 * CK)) / CK, cl = i % CK;
       const int n = n0 + nl;
       ws[t * (BN * SA) + nl * SA + cl] =
-          (n < p.N && c0 + cl < p.C) ? w[n * row + t * p.C + c0 + cl] : from_f<bf16>(0.f);
+          (n < p.N && c0 + cl < p.C) ? w[n * row + t * p.C + c0 + cl] : from_f<T>(0.f);
     }
   }
 }
 
-template <bool PRO>
-__global__ void __launch_bounds__(NTHREADS) conv3x3_bf16(Params p) {
+// T: bf16 or f16
+template <typename T, bool PRO>
+__global__ void __launch_bounds__(NTHREADS) conv3x3_2byte(Params p) {
+  constexpr bool F16 = conv_sm90::Elem<T>::F16;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ws = reinterpret_cast<bf16*>(smem);  // [9][BN][SA]: the chunk's weights by tap
-  bf16* as = ws + 9 * BN * SA;               // [2][BM][SA]: one tap's input tile, double-buffered
+  T* ws = reinterpret_cast<T*>(smem);  // [9][BN][SA]: the chunk's weights by tap
+  T* as = ws + 9 * BN * SA;            // [2][BM][SA]: one tap's input tile, double-buffered
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp & 1, wn = warp >> 1;  // this warp's outputs: rows wm*64.., columns wn*32..
@@ -111,12 +118,12 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_bf16(Params p) {
   bool in[2];
   float fa[2][8], fs[2][8];  // the prologue's a and s of this thread's two slots (PRO only)
   for (int c0 = 0; c0 < p.C; c0 += CK) {
-    load_w_bf16(p, ws, n0, c0);
+    load_w_2byte<T>(p, ws, n0, c0);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {  // tap 0: (dy, dx) = (-1, -1)
-      if (PRO) load_fold<bf16>(p, ab[j], c0 + ac[j], fa[j], fs[j]);
-      pre[j] = load_x16<bf16>(p, av[j], ab[j], ah[j] - 1, aw[j] - 1, c0 + ac[j], in[j]);
-      if (PRO && in[j]) prologue16<bf16>(pre[j], fa[j], fs[j]);
+      if (PRO) load_fold<T>(p, ab[j], c0 + ac[j], fa[j], fs[j]);
+      pre[j] = load_x16<T>(p, av[j], ab[j], ah[j] - 1, aw[j] - 1, c0 + ac[j], in[j]);
+      if (PRO && in[j]) prologue16<T>(pre[j], fa[j], fs[j]);
       *reinterpret_cast<uint4*>(as + ar[j] * SA + ac[j]) = pre[j];
     }
     __syncthreads();
@@ -125,16 +132,16 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_bf16(Params p) {
         const int dy = (t + 1) / 3 - 1, dx = (t + 1) % 3 - 1;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          pre[j] = load_x16<bf16>(p, av[j], ab[j], ah[j] + dy, aw[j] + dx, c0 + ac[j], in[j]);
+          pre[j] = load_x16<T>(p, av[j], ab[j], ah[j] + dy, aw[j] + dx, c0 + ac[j], in[j]);
       }
-      const bf16* at = as + (t & 1) * (BM * SA);
-      const bf16* wt = ws + t * (BN * SA);
+      const T* at = as + (t & 1) * (BM * SA);
+      const T* wt = ws + t * (BN * SA);
 #pragma unroll
       for (int kk = 0; kk < CK / 16; ++kk) {
         uint32_t af[4][4];
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
-          const bf16* base = at + (wm * 64 + mt * 16 + g) * SA + kk * 16 + t4 * 2;
+          const T* base = at + (wm * 64 + mt * 16 + g) * SA + kk * 16 + t4 * 2;
           af[mt][0] = *reinterpret_cast<const uint32_t*>(base);
           af[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SA);
           af[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
@@ -142,18 +149,18 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_bf16(Params p) {
         }
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          const bf16* bb = wt + (wn * 32 + nt * 8 + g) * SA + kk * 16 + t4 * 2;
+          const T* bb = wt + (wn * 32 + nt * 8 + g) * SA + kk * 16 + t4 * 2;
           const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(bb),
                                    *reinterpret_cast<const uint32_t*>(bb + 8)};
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], af[mt], bfr);
+          for (int mt = 0; mt < 4; ++mt) mma_16816<F16>(acc[mt][nt], af[mt], bfr);
         }
       }
       if (t < 8) {  // the next tap's prologue runs after this tap's products are issued
-        bf16* an = as + ((t + 1) & 1) * (BM * SA);
+        T* an = as + ((t + 1) & 1) * (BM * SA);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          if (PRO && in[j]) prologue16<bf16>(pre[j], fa[j], fs[j]);
+          if (PRO && in[j]) prologue16<T>(pre[j], fa[j], fs[j]);
           *reinterpret_cast<uint4*>(an + ar[j] * SA + ac[j]) = pre[j];
         }
       }
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_bf16(Params p) {
     }
   }
 
-  bf16* y = static_cast<bf16*>(p.y);
+  T* y = static_cast<T*>(p.y);
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
@@ -174,17 +181,17 @@ __global__ void __launch_bounds__(NTHREADS) conv3x3_bf16(Params p) {
       for (int nt = 0; nt < 4; ++nt) {
         const int n = n0 + wn * 32 + nt * 8 + t4 * 2;
         if (n >= p.N) continue;
-        const float v0 = epilogue<bf16>(p, b, h, w, n, acc[mt][nt][half * 2]);
+        const float v0 = epilogue<T>(p, b, h, w, n, acc[mt][nt][half * 2]);
         if (n + 1 < p.N) {
-          const float v1 = epilogue<bf16>(p, b, h, w, n + 1, acc[mt][nt][half * 2 + 1]);
+          const float v1 = epilogue<T>(p, b, h, w, n + 1, acc[mt][nt][half * 2 + 1]);
           if ((p.N & 1) == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(y + m * p.N + n) = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<uint32_t*>(y + m * p.N + n) = pack_pair<T>(v0, v1);
           } else {
-            y[m * p.N + n] = from_f<bf16>(v0);
-            y[m * p.N + n + 1] = from_f<bf16>(v1);
+            y[m * p.N + n] = from_f<T>(v0);
+            y[m * p.N + n + 1] = from_f<T>(v1);
           }
         } else {
-          y[m * p.N + n] = from_f<bf16>(v0);
+          y[m * p.N + n] = from_f<T>(v0);
         }
       }
     }
@@ -340,22 +347,41 @@ int launch(Kernel kernel, const Params& p, dim3 grid, size_t smem, cudaStream_t 
 
 bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15u) == 0; }
 
+// the Hopper mainloop's 2-byte instantiations (T: bf16 or f16) by BN and
+// the prologue
+template <typename T>
+int launch_2byte(const Params& p, const conv_sm90::Plan& q, int BN, int prologue, int smem,
+                 cudaStream_t st) {
+  switch (BN * 2 + (prologue ? 1 : 0)) {
+    case 256: return conv_sm90::launch<T, 128, false>(p, q, smem, st);
+    case 257: return conv_sm90::launch<T, 128, true>(p, q, smem, st);
+    case 320: return conv_sm90::launch<T, 160, false>(p, q, smem, st);
+    case 321: return conv_sm90::launch<T, 160, true>(p, q, smem, st);
+    case 512: return conv_sm90::launch<T, 256, false>(p, q, smem, st);
+    // #6 takes BN <= 160: its consumers have 184 registers, short of a
+    // 64 x 256 f32 accumulator's 128 and the A buffers
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Returns the launch's CUDA error (0 on success). x: (B, H, W, C) with
 // element strides xs_* and contiguous channels; w: (N, C, 3, 3) laid out
 // channels_last, i.e. (N, 3, 3, C) in memory; bias (N,) and extra in x's
-// dtype; extra is the temb (B, N) with row stride es_b (mode 1) or the
+// dtype (`dtype` 0 bf16, 1 f32, 2 f16); extra is the temb (B, N) with row stride es_b (mode 1) or the
 // residual (B, H, W, N) with strides es_* and contiguous channels (mode 2); a, s: (B, C) f32 contiguous when prologue
 // is 1; y: (B, H, W, N) contiguous. The Python wrapper checks all of this.
 extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, const void* extra,
                               const void* a, const void* s, void* y, int B, int H, int W, int C,
-                              int N, int is_f32, int mode, int prologue, long long xs_b,
+                              int N, int dtype, int mode, int prologue, long long xs_b,
                               long long xs_h, long long xs_w, long long es_b, long long es_h,
                               long long es_w, void* stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || N < 1 || mode < MODE_NONE || mode > MODE_RESIDUAL ||
-      (mode != MODE_NONE && extra == nullptr) || (prologue && (a == nullptr || s == nullptr)))
+      (mode != MODE_NONE && extra == nullptr) || (prologue && (a == nullptr || s == nullptr)) ||
+      dtype < DT_BF16 || dtype > DT_F16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool is_f32 = dtype == DT_F32;
   const int V = is_f32 ? 4 : 8;  // elements in 16 bytes
   Params p{x, w, bias, extra, static_cast<const float*>(a), static_cast<const float*>(s), y,
            B, H, W, C, N, mode, 0, xs_b, xs_h, xs_w, es_b, es_h, es_w};
@@ -371,8 +397,11 @@ extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, co
   }
   const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM), (N + BN - 1) / BN);
   const size_t smem = sizeof(bf16) * (9 * BN * SA + 2 * BM * SA);
-  return prologue ? launch(conv3x3_bf16<true>, p, grid, smem, st)
-                  : launch(conv3x3_bf16<false>, p, grid, smem, st);
+  if (dtype == DT_F16)
+    return prologue ? launch(conv3x3_2byte<f16, true>, p, grid, smem, st)
+                    : launch(conv3x3_2byte<f16, false>, p, grid, smem, st);
+  return prologue ? launch(conv3x3_2byte<bf16, true>, p, grid, smem, st)
+                  : launch(conv3x3_2byte<bf16, false>, p, grid, smem, st);
 }
 
 // Returns the launch's CUDA error (0 on success). hi = tf32(w), lo =
@@ -392,7 +421,7 @@ extern "C" int tf32_split_launch(const void* w, void* out, long long n, void* st
 
 // Returns the launch's CUDA error (0 on success). The Hopper mainloop on a
 // tile plan (ops/conv3x3.plan): TR x TC output tiles (TR TC = 128), BN
-// output channels a tile (bf16: 128, 160 or 256, and 128 or 160 with the
+// output channels a tile (bf16 and f16: 128, 160 or 256, and 128 or 160 with the
 // prologue; f32: 128), `stages` weight
 // stages, `smem` bytes of dynamic shared memory. The tensors are
 // conv3x3_launch's, with C, x's strides and the addresses of x, w (and a,
@@ -402,11 +431,12 @@ extern "C" int tf32_split_launch(const void* w, void* out, long long n, void* st
 // (cudaErrorInvalidValue), never changed.
 extern "C" int conv3x3_sm90_launch(const void* x, const void* w, const void* bias,
                                    const void* extra, const void* a, const void* s, void* y, int B,
-                                   int H, int W, int C, int N, int is_f32, int mode, int prologue,
+                                   int H, int W, int C, int N, int dtype, int mode, int prologue,
                                    long long xs_b, long long xs_h, long long xs_w, long long es_b,
                                    long long es_h, long long es_w, int TR, int TC, int BN,
                                    int stages, int smem, void* stream) {
   using namespace conv_sm90;
+  const bool is_f32 = dtype == DT_F32;
   const int V = is_f32 ? 4 : 8;  // elements in 16 bytes
   const bool tc_ok = TC == 8 || TC == 16 || TC == 32 || TC == 64 || TC == 128;
   const bool bn_ok = is_f32 ? BN == 128 : (BN == 128 || BN == 160 || (BN == 256 && !prologue));
@@ -414,7 +444,8 @@ extern "C" int conv3x3_sm90_launch(const void* x, const void* w, const void* bia
       (mode != MODE_NONE && extra == nullptr) || (prologue && (a == nullptr || s == nullptr)) ||
       C % V != 0 || xs_b % V != 0 || xs_h % V != 0 || xs_w % V != 0 || !aligned16(x) ||
       !aligned16(w) || (prologue && !(aligned16(a) && aligned16(s))) || !tc_ok ||
-      TR * TC != 128 || !bn_ok || stages < 2 || stages > MAX_STAGES ||
+      TR * TC != 128 || !bn_ok || stages < 2 || stages > MAX_STAGES || dtype < DT_BF16 ||
+      dtype > DT_F16 ||
       smem != plan_smem(TR, TC, BN, stages, is_f32 != 0) || smem > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   // vec: the epilogue's 16-byte accesses (store_row16)
@@ -448,14 +479,6 @@ extern "C" int conv3x3_sm90_launch(const void* x, const void* w, const void* bia
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  switch (BN * 2 + (prologue ? 1 : 0)) {
-    case 256: return conv_sm90::launch<bf16, 128, false>(p, q, smem, st);
-    case 257: return conv_sm90::launch<bf16, 128, true>(p, q, smem, st);
-    case 320: return conv_sm90::launch<bf16, 160, false>(p, q, smem, st);
-    case 321: return conv_sm90::launch<bf16, 160, true>(p, q, smem, st);
-    case 512: return conv_sm90::launch<bf16, 256, false>(p, q, smem, st);
-    // #6 takes BN <= 160: its consumers have 184 registers, short of a
-    // 64 x 256 f32 accumulator's 128 and the A buffers
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dtype == DT_F16 ? launch_2byte<f16>(p, q, BN, prologue, smem, st)
+                         : launch_2byte<bf16>(p, q, BN, prologue, smem, st);
 }

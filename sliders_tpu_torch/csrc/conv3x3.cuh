@@ -1,5 +1,5 @@
 // Device helpers of the 3x3 conv kernels (conv3x3.cu): the parameter block,
-// tile constants, mma.sync m16n8k16 bf16, element conversions, the input
+// tile constants, mma.sync m16n8k16 (bf16 or f16), element conversions, the input
 // loader with the fused GroupNorm-affine + SiLU prologue, and the epilogue.
 // Kept apart from sd_attention_common.cuh so that a change here cannot move
 // the attention kernels' register allocation.
@@ -14,11 +14,13 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 // epilogue modes: the TPU kernels' mode 'none' / 'temb' / 'residual'
 constexpr int MODE_NONE = 0;
@@ -26,7 +28,7 @@ constexpr int MODE_TEMB = 1;
 constexpr int MODE_RESIDUAL = 2;
 
 constexpr int NTHREADS = 256;
-// bf16: a 128 x 128 output tile, K in chunks of 32 channels x 9 taps;
+// bf16 and f16: a 128 x 128 output tile, K in chunks of 32 channels x 9 taps;
 // 8 warps as 2 (rows) x 4 (columns), 64 x 32 outputs each
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -54,16 +56,25 @@ struct Params {
   long long es_b, es_h, es_w;
 };
 
+// c += a b on bf16 operands, or f16 ones where F16
+template <bool F16>
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#define MMA_16816(TY) \
+  asm volatile( \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 " \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n" \
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
+  if constexpr (F16)
+    MMA_16816("f16");
+  else
+    MMA_16816("bf16");
+#undef MMA_16816
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(f16 v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -71,6 +82,23 @@ template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+template <>
+__device__ __forceinline__ f16 from_f<f16>(float v) { return __float2half_rn(v); }
+
+// two floats rounded to T (bf16 or f16, to nearest even) as one register,
+// lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack_pair<bf16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack_pair<f16>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // 16 bytes of channels c.. of input pixel (b, hh, ww): zero outside the
 // image (the SAME padding), past C and for a tile row past M (`valid`

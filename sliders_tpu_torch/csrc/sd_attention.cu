@@ -20,7 +20,9 @@
 // (about 295 operations per byte) once K/V of a head (4096 x 40 x 2 B =
 // 320 KB) stay in L2, so the kernel has to keep the tensor cores fed.
 //
-// bf16: the Hopper mainloop of attention_sm90.cuh in two-pass mode: 128 q
+// bf16 and f16: the Hopper mainloop of attention_sm90.cuh in two-pass mode
+// (f16 on the same plans, `CfgF16`: f16 operands to `wgmma`, p and o
+// rounded to f16, as the TPU kernel computes at f16): 128 q
 // rows a block on two consumer warpgroups, a producer filling a K/V ring
 // (TMA at d = 64 and 128, cp.async with zero-fill elsewhere), wgmma for
 // Q.K^T and P.V. Both passes run on the same ring: pass 1 streams K only,
@@ -50,7 +52,12 @@
 #include "attention_bwd_sm90.cuh"
 #include "attention_fwd_tf32.cuh"
 
+#include <type_traits>
+
 namespace {
+
+// the element types of the dtype code the Python wrapper passes
+enum : int { DT_BF16 = 0, DT_F32 = 1, DT_F16 = 2 };
 
 struct Params {
   const void* q;
@@ -105,10 +112,15 @@ int launch_f32(const Params& p, int B, int H, float* scratch, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16
+// bf16 and f16
 // ---------------------------------------------------------------------------
 
-template <int DP>
+// the plan <DP, BK, TMA, two-pass, blocks an SM> on bf16 or f16 operands
+template <bool F16, int DP, int BK, bool TMA, int CTAS>
+using Plan = std::conditional_t<F16, sm90::CfgF16<DP, BK, TMA, true, CTAS>,
+                                sm90::Cfg<DP, BK, TMA, true, CTAS>>;
+
+template <int DP, bool F16>
 int launch(const Params& p, int B, int H, cudaStream_t stream) {
   const sm90::Params sp{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
                         static_cast<const bf16*>(p.v), static_cast<bf16*>(p.o), nullptr,
@@ -117,44 +129,51 @@ int launch(const Params& p, int B, int H, cudaStream_t stream) {
                         p.vs.b, p.vs.h, p.vs.l, p.os.b, p.os.h, p.os.l, p.scale};
   // d = 64 (SDXL): two blocks an SM, 64-key tiles; else one block, 128-key tiles
   if constexpr (DP == 64) {
-    if (p.d == 64) return sm90::launch<sm90::Cfg<64, 64, true, true, 2>>(sp, stream);
+    if (p.d == 64) return sm90::launch<Plan<F16, 64, 64, true, 2>>(sp, stream);
   }
   if constexpr (DP == 128) {
-    if (p.d == 128) return sm90::launch<sm90::Cfg<128, 128, true, true, 1>>(sp, stream);
+    if (p.d == 128) return sm90::launch<Plan<F16, 128, 128, true, 1>>(sp, stream);
   }
-  return sm90::launch<sm90::Cfg<DP, 128, false, true, 1>>(sp, stream);
+  return sm90::launch<Plan<F16, DP, 128, false, 1>>(sp, stream);
+}
+
+template <bool F16>
+int launch_2byte(const Params& p, int B, int H, cudaStream_t st) {
+  switch ((p.d + 15) / 16 * 16) {
+    case 16: return launch<16, F16>(p, B, H, st);
+    case 32: return launch<32, F16>(p, B, H, st);
+    case 48: return launch<48, F16>(p, B, H, st);
+    case 64: return launch<64, F16>(p, B, H, st);
+    case 80: return launch<80, F16>(p, B, H, st);
+    case 96: return launch<96, F16>(p, B, H, st);
+    case 112: return launch<112, F16>(p, B, H, st);
+    case 128: return launch<128, F16>(p, B, H, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). Pointers must be
 // 16-byte aligned, d a multiple of 8 in [8, 128], row/head/batch strides (in
-// elements) multiples of 8, and in f32 `scratch` 16-byte aligned f32 room for
-// K's hi and lo planes and V^T's (2 B H Lk d + 2 B H d Lk' floats, Lk' = Lk
-// rounded up to 8; null in bf16); the Python wrapper checks all of this.
+// elements) multiples of 8, `dtype` 0 (bf16), 1 (f32) or 2 (f16), and in f32
+// `scratch` 16-byte aligned f32 room for K's hi and lo planes and V^T's (2 B
+// H Lk d + 2 B H d Lk' floats, Lk' = Lk rounded up to 8; null in bf16 and
+// f16); the Python wrapper checks all of this.
 extern "C" int sd_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                float* scratch, int B, int H, int Lq, int Lk, int d, int is_f32,
+                                float* scratch, int B, int H, int Lq, int Lk, int d, int dtype,
                                 long long q_sb, long long q_sh, long long q_sl, long long k_sb,
                                 long long k_sh, long long k_sl, long long v_sb, long long v_sh,
                                 long long v_sl, long long o_sb, long long o_sh, long long o_sl,
                                 float scale, void* stream) {
   if (d < 8 || d > 128 || d % 8 != 0 || B < 1 || H < 1 || Lq < 1 || Lk < 1 || B > 65535 ||
-      H > 65535 || (is_f32 && (scratch == nullptr || (long long)B * H > 65535)))
+      H > 65535 || dtype < DT_BF16 || dtype > DT_F16 ||
+      (dtype == DT_F32 && (scratch == nullptr || (long long)B * H > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, Lq, Lk, d,
                  {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl}, {o_sb, o_sh, o_sl},
                  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f32) return launch_f32(p, B, H, scratch, st);
-  switch ((d + 15) / 16 * 16) {
-    case 16: return launch<16>(p, B, H, st);
-    case 32: return launch<32>(p, B, H, st);
-    case 48: return launch<48>(p, B, H, st);
-    case 64: return launch<64>(p, B, H, st);
-    case 80: return launch<80>(p, B, H, st);
-    case 96: return launch<96>(p, B, H, st);
-    case 112: return launch<112>(p, B, H, st);
-    case 128: return launch<128>(p, B, H, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == DT_F32) return launch_f32(p, B, H, scratch, st);
+  return dtype == DT_F16 ? launch_2byte<true>(p, B, H, st) : launch_2byte<false>(p, B, H, st);
 }

@@ -31,7 +31,14 @@
 // 8): a producer filling a ring by TMA (bf16 by cp.async with zero-filled
 // pad columns where a row is not 128 or 256 bytes), `wgmma` on two
 // consumer warpgroups. bf16 runs the PAIR plan (ds and p from registers
-// straight into the A operands of the accumulating products). f32
+// straight into the A operands of the accumulating products); f16
+// (`precision: fp16`) the same plan on f16 operands (`BCfgF16`: p and ds
+// rounded to f16 where bf16 rounds them to bf16), at the head dims of the
+// UNets that train in f16, d = 40, 64 and 80, and at d = 128. f16 keeps
+// nothing in 2 bytes that the TPU kernel keeps in f32: its 2-byte values
+// are the inputs, round(p) in [0, 1], round(ds) and the outputs, each a
+// rounding the TPU kernel makes at f16, so f16's range (2^-24 to 65504)
+// cuts them where it cuts the TPU kernel's. f32
 // (`--precision float32`) runs the TF32 plan, every product three TF32
 // `wgmma`s (hi and lo parts): the `tf32_split_bhld` pass first writes
 // the hi and lo planes of q, k, v and g into the scratch after the
@@ -43,7 +50,12 @@
 #include "sd_attention_common.cuh"
 #include "attention_bwd_sm90.cuh"
 
+#include <type_traits>
+
 namespace {
+
+// the element types of the dtype code the Python wrapper passes
+enum : int { DT_BF16 = 0, DT_F32 = 1, DT_F16 = 2 };
 
 struct BwdParams {
   const void* q;
@@ -107,24 +119,41 @@ int launch_f32(const BwdParams& p, int B, cudaStream_t stream) {
   return sm90::launch_bwd_sm90<sm90::BCfg<2 * DPF, BN, TMA, true, true, sm90::TF32>>(a, stream);
 }
 
+// the PAIR plan's dq or dk/dv kernel on bf16 or (F16) f16 operands
+template <bool F16, int DP, int BN, bool TMA, bool DKV>
+using Pair = std::conditional_t<F16, sm90::BCfgF16<DP, BN, TMA, DKV>,
+                                sm90::BCfg<DP, BN, TMA, DKV, true>>;
+
 // the dq kernel (which writes the statistics), then the dk/dv kernel; TMA
 // where d fills a 64-column box exactly, cp.async elsewhere; 128-row
 // streamed tiles where d <= 48 leaves the consumers the registers
-template <int DP, bool TMA>
-int launch_bf16(const sm90::BwdArgs& a, cudaStream_t stream) {
+template <int DP, bool TMA, bool F16 = false>
+int launch_pair(const sm90::BwdArgs& a, cudaStream_t stream) {
   constexpr int BN = DP <= 48 ? 128 : 64;
-  const int err = sm90::launch_bwd_sm90<sm90::BCfg<DP, BN, TMA, false, true>>(a, stream);
+  const int err = sm90::launch_bwd_sm90<Pair<F16, DP, BN, TMA, false>>(a, stream);
   if (err != 0) return err;
-  return sm90::launch_bwd_sm90<sm90::BCfg<DP, BN, TMA, true, true>>(a, stream);
+  return sm90::launch_bwd_sm90<Pair<F16, DP, BN, TMA, true>>(a, stream);
 }
 
 template <int DP>
 int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
   const sm90::BwdArgs a = bwd_args(p, B, false);
   if constexpr (DP == 64 || DP == 128) {
-    if (p.d == DP) return launch_bf16<DP, true>(a, stream);
+    if (p.d == DP) return launch_pair<DP, true>(a, stream);
   }
-  return launch_bf16<DP, false>(a, stream);
+  return launch_pair<DP, false>(a, stream);
+}
+
+// f16: d = 40 and 80 by cp.async, 64 and 128 by TMA; any other d is refused
+int launch_f16(const BwdParams& p, int B, cudaStream_t stream) {
+  const sm90::BwdArgs a = bwd_args(p, B, false);
+  switch (p.d) {
+    case 40: return launch_pair<48, false, true>(a, stream);
+    case 64: return launch_pair<64, true, true>(a, stream);
+    case 80: return launch_pair<80, false, true>(a, stream);
+    case 128: return launch_pair<128, true, true>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // f32: d itself where it is 40 (SD1.5) or a multiple of 16, else the next
@@ -155,13 +184,14 @@ int launch_f32_any(const BwdParams& p, int B, cudaStream_t stream) {
 
 // Launches the dq kernel, then the dk/dv kernel (f32: after the split
 // pass), on `stream`; returns the first CUDA error that is not 0, else 0.
-// Pointers must be 16-byte aligned, d a multiple of 8 in [8, 128],
-// row/head/batch strides (in elements) multiples of 8, and `stats` an f32
+// Pointers must be 16-byte aligned, d a multiple of 8 in [8, 128] (f16: 40,
+// 64, 80 or 128), `dtype` 0 (bf16), 1 (f32) or 2 (f16), row/head/batch
+// strides (in elements) multiples of 8, and `stats` an f32
 // scratch of 3 B H Lq' floats, Lq' = Lq rounded up to 128, and in f32 4 B H
 // (Lq + Lk) d more; the Python wrapper checks all of this.
 extern "C" int sd_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                 void* dq, void* dk, void* dv, float* stats, int B, int H, int Lq,
-                                int Lk, int d, int is_f32, long long q_sb, long long q_sh,
+                                int Lk, int d, int dtype, long long q_sb, long long q_sh,
                                 long long q_sl, long long k_sb, long long k_sh, long long k_sl,
                                 long long v_sb, long long v_sh, long long v_sl, long long g_sb,
                                 long long g_sh, long long g_sl, long long dq_sb, long long dq_sh,
@@ -169,14 +199,15 @@ extern "C" int sd_attention_bwd(const void* q, const void* k, const void* v, con
                                 long long dv_sb, long long dv_sh, long long dv_sl, float scale,
                                 void* stream) {
   if (d < 8 || d > 128 || d % 8 != 0 || B < 1 || H < 1 || Lq < 1 || Lk < 1 || B > 65535 ||
-      H > 65535)
+      H > 65535 || dtype < DT_BF16 || dtype > DT_F16)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdParams p{q, k, v, g, dq, dk, dv, stats, H, Lq, Lk, d,
                     {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl},
                     {g_sb, g_sh, g_sl}, {dq_sb, dq_sh, dq_sl}, {dk_sb, dk_sh, dk_sl},
                     {dv_sb, dv_sh, dv_sl}, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f32) return launch_f32_any(p, B, st);
+  if (dtype == DT_F32) return launch_f32_any(p, B, st);
+  if (dtype == DT_F16) return launch_f16(p, B, st);
   switch ((d + 15) / 16 * 16) {
     case 16: return launch_bwd<16>(p, B, st);
     case 32: return launch_bwd<32>(p, B, st);

@@ -39,13 +39,16 @@ LIBRARIES = {
                                        CSRC / "attention_sm90.cuh",
                                        CSRC / "attention_bwd_sm90.cuh",
                                        CSRC / "attention_fwd_tf32.cuh", CSRC / "sm90_ptx.cuh"), {
-        # q, k, v, o, scratch; B, H, Lq, Lk, d, is_f32; q/k/v/o strides; scale, stream
+        # q, k, v, o, scratch; B, H, Lq, Lk, d, dtype (0 bf16, 1 f32, 2 f16);
+        # q/k/v/o strides; scale, stream
         "sd_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _P],
     }),
     "bwd": (CSRC / "sd_attention_bwd.cu", (CSRC / "sd_attention_common.cuh",
                                            CSRC / "attention_sm90.cuh",
                                            CSRC / "attention_bwd_sm90.cuh",
                                            CSRC / "sm90_ptx.cuh"), {
+        # q, k, v, g, dq, dk, dv, stats; B, H, Lq, Lk, d, dtype (as the
+        # forward's); q/k/v/g/dq/dk/dv strides; scale, stream
         "sd_attention_bwd": [_P] * 8 + [_I] * 6 + [_L] * 21 + [_F, _P],
     }),
     "flash": (CSRC / "flash_attention.cu", (CSRC / "sd_attention_common.cuh",
@@ -62,7 +65,8 @@ LIBRARIES = {
     }),
     "conv": (CSRC / "conv3x3.cu", (CSRC / "conv3x3.cuh", CSRC / "conv3x3_sm90.cuh",
                                    CSRC / "sm90_ptx.cuh"), {
-        # x, w, bias, extra, a, s, y; B, H, W, C, N, is_f32, mode, prologue;
+        # x, w, bias, extra, a, s, y; B, H, W, C, N, dtype (0 bf16, 1 f32,
+        # 2 f16), mode, prologue;
         # x strides (b, h, w), extra strides (b, h, w); stream
         "conv3x3_launch": [_P] * 7 + [_I] * 8 + [_L] * 6 + [_P],
         # the same, then the tile plan: TR, TC, BN, stages, shared-memory

@@ -228,6 +228,21 @@ def tf32_flags(cudnn: bool, matmul: bool):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def f16_sums_in_f32():
+    """cuBLAS's f16 GEMMs sum in f32 inside the block: PyTorch's default
+    (`allow_fp16_reduced_precision_reduction = True`) lets a split-K GEMM
+    add its partial sums in f16, where the JAX package and the CPU sum f16
+    products in f32. The flag is restored after."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_fp16_reduced_precision_reduction
+    matmul.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_fp16_reduced_precision_reduction = saved
+
+
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)

@@ -21,7 +21,9 @@ not contiguous, a weight that is not channels_last) is an error, never a
 quiet copy. Which of the library's two kernels runs is chosen by `plan`
 from the shape, strides and addresses alone: the Hopper mainloop
 (`csrc/conv3x3_sm90.cuh`, variant 'hopper') for every call TMA can take,
-bf16 and f32, the simple implicit GEMM (variant 'generic') for the rest.
+bf16, f16 (`precision: fp16`, on bf16's plans with f16 operands) and f32,
+the simple implicit GEMM (variant 'generic', bf16, f16 and f32) for the
+rest.
 In f32 the Hopper mainloop runs three TF32 products a step on each
 operand's TF32 hi and lo parts (3xTF32), within the f32 plain version's
 1e-5; the wrapper first splits the weight with the `tf32_split` kernel
@@ -61,7 +63,7 @@ from sliders_tpu_torch.ops import _build
 
 LANES = 128
 MODES = {"none": 0, "temb": 1, "residual": 2}
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}  # the kernels' dtype codes
 
 
 # ---------------------------------------------------------------------------
@@ -145,19 +147,19 @@ def plan(x_shape, n: int, dtype, x_strides=None, aligned: bool = True,
     `x_strides` (contiguous when None) and n output channels; `aligned`
     tells whether x, w (and a, s) lie on 16-byte addresses.
 
-    'hopper' takes bf16 and f32 wherever TMA can: C and x's batch, row and
-    column strides multiples of 16 bytes (8 bf16 or 4 f32 elements), the
+    'hopper' takes bf16, f16 and f32 wherever TMA can: C and x's batch, row
+    and column strides multiples of 16 bytes (8 bf16 or f16, or 4 f32 elements), the
     addresses aligned, W >= 8. Its tile is the TR x TC (TR TC = 128) of one
     image with the fewest tiles, then the smallest halo ((TR + 2)(TC + 2)
     pixels), then the widest; BN the width with the least time in whole
     waves of `sms` blocks, ceil(tiles / sms) (BN + 64) (64 for a tile's
-    fixed costs), then the widest, among the dtype's widths (bf16 SM90_BN,
+    fixed costs), then the widest, among the dtype's widths (bf16 and f16 SM90_BN,
     with #6's `prologue` PRO_BN; f32 F32_BN) that leave room for two weight
     stages; as many weight stages as the shared memory holds, at most 6.
     Everything else (other dtypes too) takes 'generic'."""
     B, H, W, C = x_shape
     strides = tuple(x_strides[:3]) if x_strides is not None else (H * W * C, W * C, C)
-    vec = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
+    vec = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}.get(dtype)
     if vec is None or C % vec or any(s % vec for s in strides) or not aligned or W < 8:
         return Plan("generic")
     f32 = dtype == torch.float32
@@ -332,7 +334,8 @@ def _launch(fn, x, a, s, w, b, extra, mode: str) -> torch.Tensor:
         raise ValueError(f"the conv kernels run on cpu or cuda, not {x.device}")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w, b) if t is not None) or (
             extra is not None and extra.dtype != x.dtype):
-        raise ValueError(f"the conv kernels take bf16 or f32 x, w, b and extra of one dtype, got "
+        raise ValueError(f"the conv kernels (#5-#7) take bf16, f16 or f32 x, w, b and extra of "
+                         f"one dtype, got "
                          f"{x.dtype}, {w.dtype}, {b.dtype}, "
                          f"{None if extra is None else extra.dtype}")
     if x.stride(3) != 1 or (mode == "residual" and extra.stride(3) != 1) or (

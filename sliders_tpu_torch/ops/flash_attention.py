@@ -139,7 +139,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"flash_attention takes bf16 or f32 q/k/v of one dtype, got "
+        raise ValueError(f"flash_attention (kernel #4) takes bf16 or f32 q/k/v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes (B, H, L, d) q/k/v, got "

@@ -142,7 +142,7 @@ def fused_group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm runs on cpu or cuda, not {x.device}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"fused_group_norm takes bf16 or f32, got {x.dtype}")
+        raise ValueError(f"fused_group_norm (kernel #8) takes bf16 or f32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"fused_group_norm needs a contiguous (B, L, C) x, got strides "
                          f"{x.stride()}")

@@ -22,7 +22,7 @@ import torch
 
 from sliders_tpu_torch.ops import _build
 
-_ELEM_BYTES = {torch.bfloat16: 2, torch.float32: 4}
+_ELEM_BYTES = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4}
 
 
 def layout_pin_ref(x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +40,7 @@ def layout_pin_copy(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"layout_pin_copy runs on cpu or cuda, not {x.device}")
     if x.dtype not in _ELEM_BYTES:
-        raise ValueError(f"layout_pin_copy takes bf16 or f32, got {x.dtype}")
+        raise ValueError(f"layout_pin_copy (kernel #9) takes bf16, f16 or f32, got {x.dtype}")
     B, L, C = x.shape
     y = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     if y.numel() == 0:

@@ -20,12 +20,15 @@ The forward kernel replaces `sliders_tpu/ops/pallas_attention.py::_attn_kernel`
 and the backward kernel `_attn_bwd_kernel`. The forward streams K twice and
 V once per 128-row q tile: pass 1 finds each row's softmax max and sum, pass
 2 forms the normalised probabilities, rounds them to the input dtype (the
-TPU kernel's rounding point) and multiplies by V. In bf16 it runs on the
-Hopper mainloop of `csrc/attention_sm90.cuh` (a producer warpgroup filling a
-K/V ring by TMA or cp.async, wgmma on two consumer warpgroups). The bf16
-backward runs on the backward mainloop of `csrc/attention_bwd_sm90.cuh` on
-the same ring: a dq kernel that first finds each row's softmax statistics,
-then a dk/dv kernel, no atomics. In f32 both take every product as three
+TPU kernel's rounding point) and multiplies by V. In bf16 and f16 it runs
+on the Hopper mainloop of `csrc/attention_sm90.cuh` (a producer warpgroup
+filling a K/V ring by TMA or cp.async, wgmma on two consumer warpgroups;
+f16 on the same plans with f16 operands, as `precision: fp16` computes).
+The bf16 and f16 backwards run on the backward mainloop of
+`csrc/attention_bwd_sm90.cuh` on the same ring: a dq kernel that first
+finds each row's softmax statistics, then a dk/dv kernel, no atomics; f16
+at the head dims `F16_BWD_DIMS` (the UNets' d = 40, 64 and 80, and 128), any
+other f16 head dim raises. In f32 both take every product as three
 TF32 `wgmma`s (error-compensated TF32), after a pass that splits their
 streamed operands into TF32 hi and lo planes in a scratch the wrapper
 allocates: the forward splits k, and v transposed (its own two-pass kernel
@@ -47,7 +50,10 @@ import torch
 from sliders_tpu_torch.ops import _build
 
 MAX_D = 128
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# the kernels' dtype codes
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+# the head dims of the f16 backward's instantiations
+F16_BWD_DIMS = (40, 64, 80, 128)
 
 
 def sd_attention_ref(
@@ -98,7 +104,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"sd_attention takes bf16 or f32 q/k/v of one dtype, got "
+        raise ValueError(f"sd_attention takes bf16, f16 or f32 q/k/v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"sd_attention takes (B, H, L, d) q/k/v, got "
@@ -186,6 +192,9 @@ def sd_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} does not match q {tuple(q.shape)} {q.dtype}")
+    if q.dtype == torch.float16 and q.shape[3] not in F16_BWD_DIMS:
+        raise ValueError(f"sd_attention_bwd (kernel #2) takes float16 at head dims "
+                         f"{F16_BWD_DIMS}, not d = {q.shape[3]}")
     if not _kernel_layout(g):
         g = g.contiguous()
     B, H, Lq, d = q.shape

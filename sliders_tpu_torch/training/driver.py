@@ -20,9 +20,16 @@ then the loss, iteration and lr at every log line; wandb is imported only
 when asked for). The FLUX, image and fleet loops of the JAX package read
 neither key, so these loops ignore both with a printed note.
 
+`train.precision` as the JAX package reads it: the weights load in bf16
+under bf16 and in f32 otherwise (`load_dtype_of`, the JAX CLIs' map); the
+text loop (and the text fleet, `training/fleet.py`) computes in bf16, f16
+(`fp16`) or f32 (`compute_dtype_of`, the JAX loops' map), so fp16 runs the
+UNet in f16 on f32 weights and an f32 LoRA, with no loss scaling, as the
+JAX package does. The FLUX and image loops (and the image fleet) compute in
+the load dtype, as their JAX CLIs do: f32 under fp16, with a printed note.
+
 Refused with `NotImplementedError` naming their ROADMAP item: `tpu.dp` or
-`tpu.tp` above 1 (queue 1, item 15), fp16 compute (item 2: the attention
-kernels take bf16 and f32).
+`tpu.tp` above 1 (queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -132,9 +139,14 @@ def _refuse_unported(config: RootConfig) -> None:
     if tpu.dp > 1 or tpu.tp > 1:
         raise NotImplementedError(f"tpu.dp={tpu.dp}, tpu.tp={tpu.tp}: data and tensor parallel "
                                   "training are not ported yet (ROADMAP queue 1, item 15)")
-    if config.train.precision in ("fp16", "float16"):
-        raise NotImplementedError("fp16 compute is not ported: the attention kernels take bf16 "
-                                  "and f32 (ROADMAP queue 1, item 2)")
+
+
+def _note_f32_under_fp16(config: RootConfig, loop: str) -> None:
+    """The FLUX and image loops compute in f32 under fp16: their JAX CLIs
+    map every precision but bf16 to f32."""
+    if config.train.precision in FP16:
+        print(f"precision {config.train.precision}: {loop} runs in float32, as the JAX CLI "
+              "maps every precision but bf16 to float32")
 
 
 def _note_text_loop_only(config: RootConfig) -> None:
@@ -188,9 +200,23 @@ def _param_device(tree: dict) -> torch.device:
     raise ValueError("empty parameter tree")
 
 
+BF16 = ("bf16", "bfloat16")
+FP16 = ("fp16", "float16")
+
+
+def load_dtype_of(config: RootConfig) -> torch.dtype:
+    """The dtype the training CLIs load the weights in (the JAX CLIs'
+    map): bf16 under bf16, f32 under every other precision, fp16 included.
+    The FLUX and image loops also compute in it."""
+    return torch.bfloat16 if config.train.precision in BF16 else torch.float32
+
+
 def compute_dtype_of(config: RootConfig) -> torch.dtype:
-    return {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}.get(config.train.precision,
-                                                                    torch.float32)
+    """The text loop's and the text fleet's compute dtype (the JAX
+    loops' map): bf16, f16 under fp16, else f32."""
+    if config.train.precision in BF16:
+        return torch.bfloat16
+    return torch.float16 if config.train.precision in FP16 else torch.float32
 
 
 def _lr_schedule(config: RootConfig):
@@ -378,8 +404,9 @@ def train_flux_sliders(
     runs on two devices can start from the same factors."""
     _refuse_unported(config)
     _note_text_loop_only(config)
+    _note_f32_under_fp16(config, "FLUX slider training")
     device = _param_device(models.transformer_params)
-    dtype = compute_dtype_of(config)
+    dtype = load_dtype_of(config)
     ortho = config.network.training_method != "full"
     if lora is None:
         lora = lnet.create_slider_network(
@@ -465,6 +492,7 @@ def train_image_sliders(
     `read_s`, the host seconds of the pair's decode and resize."""
     _refuse_unported(config)
     _note_text_loop_only(config)
+    _note_f32_under_fp16(config, "image slider training")
     if models.vae_params is None:
         raise ValueError("image sliders encode their images: load the models with load_vae=True")
     device = _param_device(models.unet_params)
@@ -483,7 +511,7 @@ def train_image_sliders(
     step = make_image_slider_step(
         models.unet_config, models.vae_config, schedule, sampler, optimizer,
         max_denoising_steps=config.train.max_denoising_steps,
-        compute_dtype=compute_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl,
+        compute_dtype=load_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl,
     )
     state = SliderTrainState.create(seed, lora, optimizer)
 

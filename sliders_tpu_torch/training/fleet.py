@@ -36,6 +36,14 @@ independent. prodigy and the D-Adaptation optimizers estimate one step size
 over the whole tree and would couple the rows; the fleet refuses them by
 name, as the JAX fleet does.
 
+Row isolation on the card: the rows share every UNet call, and cuDNN's
+default convolution algorithms do not repeat themselves from run to run, so
+under them a row's bits could move with another row's data. The fleet's
+steps run under cuDNN's deterministic algorithms (`deterministic_cudnn`),
+which hold a rerun and a row's isolation to 0, bit for bit; the solo steps
+keep cuDNN's defaults. Under f16 compute the text fleet sums its f16 GEMMs
+in f32, as the solo text step does.
+
 The steps run eagerly, as the solo steps do. Not ported (each raises when
 asked for): `chunk > 1` (ROADMAP queue 1, item 18) and the dp-sharded fleet
 over a device mesh (item 15).
@@ -43,6 +51,7 @@ over a device mesh (item 15).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -64,10 +73,11 @@ from sliders_tpu_torch.diffusion.schedulers import (
 from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora import network as lnet
 from sliders_tpu_torch.models import unet2d, vae
-from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.ops.basic import SliderLora, f16_sums_in_f32
 from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training.driver import (
     PromptEmbedsCache,
+    _note_f32_under_fp16,
     _note_steps_per_call,
     _note_text_loop_only,
     _param_device,
@@ -77,6 +87,7 @@ from sliders_tpu_torch.training.driver import (
     build_pairs,
     compute_dtype_of,
     draw_unet_lora,
+    load_dtype_of,
     load_train_state,
     to_u8,
 )
@@ -89,6 +100,7 @@ from sliders_tpu_torch.training.text_slider import (
     lora_grads,
     lora_leaves,
     mix64,
+    run_under,
     step_draws,
 )
 
@@ -106,6 +118,28 @@ def fleet_row_seed(seed: int, row: int) -> int:
     row), cut to 31 bits, so rows draw from unrelated streams and a solo
     run of that seed (draws from it, LoRA from it + 1) is row `row`."""
     return mix64(seed * 0x9E3779B97F4A7C15 + (row + 1) * 0xBF58476D1CE4E5B9) % 2**31
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block
+    (`torch.backends.cudnn.deterministic = True`, `benchmark = False`), both
+    flags restored after."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def _fleet_step_flags():
+    """`deterministic_cudnn` and, as in the solo text step,
+    `f16_sums_in_f32`."""
+    with deterministic_cudnn(), f16_sums_in_f32():
+        yield
 
 
 def refuse_global_optimizer(optimizer_name: str) -> None:
@@ -301,7 +335,7 @@ def make_fleet_text_step(
     updates `state` in place and returns it with per-row metrics (lists of
     K): loss, t_to, pair, grad_norm (each row's own norm); `loop`, the
     denoise loop's length max(t_to); and on CUDA phase_ms as the solo step
-    gives it.
+    gives it. It runs under `deterministic_cudnn` and `f16_sums_in_f32`.
 
     `t_to_mode` ("per_row" by default; `shared_t_to=True` means "shared"):
     the denoise loop runs to max_r(t_to_r), so the joint distribution sets
@@ -451,7 +485,7 @@ def make_fleet_text_step(
                    "phase_ms": timer.phase_ms()}
         return state, metrics
 
-    return step
+    return run_under(_fleet_step_flags, step)
 
 
 def _row_norms(grads: dict, K: int) -> list:
@@ -497,7 +531,9 @@ def make_fleet_image_step(
     per-row multipliers sign * scale; the loss of a slider is 2 * mean over
     its own rows (its solo loss), the step's the sum. Metrics are lists of
     K: loss, t_to, scale, grad_norm; on CUDA phase_ms as the solo step
-    gives it."""
+    gives it. It runs under `deterministic_cudnn`. The step computes in
+    `compute_dtype`, which `train_fleet_images` takes from the load dtype
+    (f32 under fp16), as the JAX image CLI does."""
     _check_builder(optimizer, optimizer_name, mesh, chunk)
     K = n_sliders
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
@@ -575,7 +611,7 @@ def make_fleet_image_step(
                    "grad_norm": _row_norms(grads, K), "phase_ms": timer.phase_ms()}
         return state, metrics
 
-    return step
+    return run_under(_fleet_step_flags, step)
 
 
 # ---------------------------------------------------------------------------
@@ -722,6 +758,7 @@ def train_fleet_images(
     `read_s`, the host seconds of the K pairs' decode and resize."""
     _refuse_unported(config)
     _note_text_loop_only(config)
+    _note_f32_under_fp16(config, "image fleet training")
     refuse_global_optimizer(config.train.optimizer)
     if models.vae_params is None:
         raise ValueError("image sliders encode their images: load the models with load_vae=True")
@@ -745,7 +782,7 @@ def train_fleet_images(
         models.unet_config, models.vae_config, schedule, sampler, optimizer, n_sliders=K,
         optimizer_name=config.train.optimizer,
         max_denoising_steps=config.train.max_denoising_steps,
-        compute_dtype=compute_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl)
+        compute_dtype=load_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl)
     state = SliderTrainState.create(seed, fleet_lora, optimizer)
 
     batch_static = {}

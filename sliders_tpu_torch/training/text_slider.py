@@ -32,6 +32,9 @@ as the JAX step does); the ancestral ones (ddpm, euler_a) take one noise
 tensor of the latents' shape per denoise step, the fifth entry of the draws
 (t_to of them, drawn last).
 
+Under f16 compute (`precision: fp16`) cuBLAS sums the step's f16 GEMMs in
+f32 (`ops.basic.f16_sums_in_f32`), as the JAX package does.
+
 Not ported (each raises when asked for): the `fused_tail`, `denoise_merged`
 and `chunk > 1` variants (ROADMAP queue 1, item 18) and a device mesh (item
 15).
@@ -39,6 +42,7 @@ and `chunk > 1` variants (ROADMAP queue 1, item 18) and a device mesh (item
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -47,7 +51,7 @@ import torch
 from sliders_tpu_torch.diffusion.guidance import train_grid_tables
 from sliders_tpu_torch.diffusion.schedulers import DiffusionSchedule, Sampler
 from sliders_tpu_torch.models import unet2d
-from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.ops.basic import SliderLora, f16_sums_in_f32
 from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training.optimizers import SliderOptimizer
 
@@ -187,6 +191,17 @@ class _PhaseTimer:
                 for (_, start), (name, end) in zip(self.marks, self.marks[1:])}
 
 
+def run_under(context, step):
+    """`step` run inside `context()`, its backward too."""
+
+    @functools.wraps(step)
+    def wrapped(*args, **kwargs):
+        with context():
+            return step(*args, **kwargs)
+
+    return wrapped
+
+
 def make_text_slider_step(
     unet_cfg: unet2d.UNetConfig,
     schedule: DiffusionSchedule,
@@ -215,7 +230,8 @@ def make_text_slider_step(
     updates `state` in place (LoRA, optimizer state, step + 1) and returns
     it with the metrics loss, t_to, pair, grad_norm (Python numbers) and,
     on CUDA, phase_ms: the device time of the denoise loop, the frozen pass,
-    the grad pass (forward and backward) and the update."""
+    the grad pass (forward and backward) and the update. It runs under
+    `f16_sums_in_f32`."""
     if fused_tail or denoise_merged or chunk != 1:
         raise NotImplementedError("the fused_tail, denoise_merged and chunk > 1 step variants are "
                                   "not ported yet (ROADMAP queue 1, item 18)")
@@ -315,4 +331,4 @@ def make_text_slider_step(
                    "grad_norm": grad_norm.item(), "phase_ms": timer.phase_ms()}
         return state, metrics
 
-    return step
+    return run_under(f16_sums_in_f32, step)

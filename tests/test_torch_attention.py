@@ -103,8 +103,10 @@ def test_sd_attention_rejects_what_the_kernel_does_not_take():
     q = torch.zeros((1, 2, 1024, 40))
     with pytest.raises(ValueError, match="head dim"):
         tsa._check(q[..., :36], q[..., :36], q[..., :36])
-    with pytest.raises(ValueError, match="bf16 or f32"):
-        tsa._check(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        tsa._check(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="one dtype"):
+        tsa._check(q.half(), q, q)
     with pytest.raises(ValueError, match="disagree"):
         tsa._check(q, q[:, :1], q[:, :1])
     d_major = q.transpose(2, 3).contiguous().transpose(2, 3)  # same shape, stride(3) != 1

@@ -5,7 +5,8 @@ its draws (DDIM at K = 2 with pair counts 2 and 3, LMS at K = 4 and B = 1, where
 freeze mask that tells the LMS history from the latents by shape would
 land on the history axis, and Euler-ancestral), and the port's own
 contracts: row r is the solo run of seed `fleet_row_seed(seed, r)`, rows
-are isolated bit for bit, and an SDXL fleet with a dynamic-crop pair equals
+are isolated bit for bit, the steps run under cuDNN's deterministic
+algorithms, and an SDXL fleet with a dynamic-crop pair equals
 its solo XL runs.
 
 The steps run the TINY UNet in f32 at 64 px with lr 1e-4 (a small lr: Adam
@@ -382,6 +383,34 @@ def test_rows_are_isolated_bit_for_bit(unet, mode):
             assert torch.equal(ra[m][k], rb[m][k])
     assert any(not torch.equal(x["up"], y["up"]) for x, y in zip(
         tfleet.unstack_fleet(sa.lora)[1].values(), tfleet.unstack_fleet(sb.lora)[1].values()))
+
+
+def test_fleet_steps_run_under_deterministic_cudnn(unet, monkeypatch):
+    """Every UNet call of a fleet step, forward and backward, runs with
+    cuDNN's deterministic algorithms and without its benchmark search (the
+    rows' bit isolation on the card); the flags are restored after the step,
+    and after a step that raises."""
+    _, tparams = unet
+    cudnn = torch.backends.cudnn
+    seen, apply = [], tunet.apply
+
+    def spy(*args, **kwargs):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        return apply(*args, **kwargs)
+
+    monkeypatch.setattr(tunet, "apply", spy)
+    before = (cudnn.deterministic, cudnn.benchmark)
+    _port_fleet(tparams, [_raw_pairs(2, 60), _raw_pairs(2, 61)], steps=1)
+    assert seen and set(seen) == {(True, False)}
+    assert (cudnn.deterministic, cudnn.benchmark) == before
+    with pytest.raises(ValueError, match="rows of draws"):
+        step = tfleet.make_fleet_text_step(
+            tunet.TINY, tsched.make_schedule(),
+            tsched.make_sampler(tsched.make_schedule(), "ddim", MAX_STEPS), None, n_sliders=2,
+            max_denoising_steps=MAX_STEPS, resolution=64)
+        step(None, tparams, tfleet.stack_fleet_pairs(
+            [tts.stack_prompt_pairs(_raw_pairs(2, 62))] * 2), draws=[])
+    assert (cudnn.deterministic, cudnn.benchmark) == before
 
 
 def test_shared_mode_gives_row_zero_draw(unet):

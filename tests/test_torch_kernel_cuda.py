@@ -1,7 +1,8 @@
 """The hand-written kernels (SD attention #1-#2, flash attention #4 and its
 backward, conv #5-#7, GroupNorm #8, the layout pin #9) against their plain
 versions on a CUDA device, a tiny FLUX training step through them, and the
-tiny SDXL UNet's gradient with the layout pin on.
+tiny SDXL UNet's gradient with the layout pin on; the f16 kernels of
+`precision: fp16` (#1, #2, #5-#7, #9) at the end, and #4 and #8 refusing f16.
 
 Skips without a card. On one, run it without the JAX test setup:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernel_cuda.py -q
@@ -365,7 +366,7 @@ def _variant(shape, dtype) -> str:
     """The kernel `ops/conv3x3.plan` gives a contiguous input: the Hopper
     mainloop where C is a multiple of 16 bytes (8 bf16 or 4 f32 channels)
     and W >= 8, else the generic one."""
-    vec = 8 if dtype == torch.bfloat16 else 4
+    vec = 4 if dtype == torch.float32 else 8
     return "hopper" if shape[3] % vec == 0 and shape[2] >= 8 else "generic"
 CONV_KERNELS = [("conv3x3", "none"), ("epi", "none"), ("epi", "temb"), ("epi", "residual"),
                 ("fused", "none"), ("fused", "temb"), ("fused", "residual")]
@@ -1280,8 +1281,8 @@ def test_layout_pin_kernel_matches_plain(cuda, kind, shape, dtype):
 def test_layout_pin_refuses_what_it_does_not_take(cuda):
     from sliders_tpu_torch.ops import layout_pin as lp
 
-    with pytest.raises(ValueError, match="bf16 or f32"):
-        lp.layout_pin_copy(torch.zeros(2, 3, 4, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        lp.layout_pin_copy(torch.zeros(2, 3, 4, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match=r"\(B, L, C\)"):
         lp.layout_pin_copy(torch.zeros(2, 3, device=cuda))
 
@@ -1372,3 +1373,122 @@ def test_served_decode_sets_its_own_conv_precision(cuda):
     assert torch.equal(images[0], images[1])
     scale = plain.abs().max().item()
     assert (served - plain).abs().max().item() <= 2.0**-6 * scale
+
+
+# ---------------------------------------------------------------------------
+# f16 (`precision: fp16`): #1, #2, #5-#7 and #9 on f16 operands; #4 and #8
+# are on no f16 path and refuse it
+# ---------------------------------------------------------------------------
+
+
+def _ulps_f16(ref_max: float) -> float:
+    """One f16 ulp (11 significant bits) at the largest magnitude."""
+    return 2.0 ** (math.floor(math.log2(max(ref_max, 2.0**-14))) - 10)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 20, 1024, 64),
+                                   (1, 3, 1000, 8), (1, 2, 1090, 24), (1, 2, 1000, 128)])
+def test_f16_kernel_matches_plain(cuda, shape):
+    """#1 in f16 (every padded head dim's plan, TMA and cp.async, ragged
+    tiles): p and o rounded to f16 at the plain version's points, sums in
+    another order, held to 4 f16 ulps at the largest magnitude."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).half() for _ in range(3))
+    launches = sa.sd_attention.launches
+    out = sa.sd_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert sa.sd_attention.launches == launches + 1
+    ref = sa.sd_attention_ref(q, k, v)
+    assert out.dtype == torch.float16 and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= 4 * _ulps_f16(
+        ref.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("length", [1000, 1090, 100])
+@pytest.mark.parametrize("d", [40, 64, 80, 128])
+def test_f16_bwd_kernel_matches_plain(cuda, d, length):
+    """#2 in f16 at its head dims, ragged lengths: dq, dk, dv within 4 f16
+    ulps of sd_attention_bwd_ref at each output's largest magnitude."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 7 + length)
+    q, k, v, g = (torch.randn((2, 3, length, d), generator=gen, device=cuda).half()
+                  for _ in range(4))
+    launches = sa.sd_attention_bwd.launches
+    out = sa.sd_attention_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert sa.sd_attention_bwd.launches == launches + 1
+    for name, o, r in zip(("dq", "dk", "dv"), out, sa.sd_attention_bwd_ref(q, k, v, g)):
+        assert o.dtype == torch.float16 and o.shape == r.shape, name
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= 4 * _ulps_f16(r.float().abs().max().item()), (name, err)
+
+
+@pytest.mark.requires_cuda
+def test_f16_bwd_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros((1, 2, 256, 32), dtype=torch.float16, device=cuda)
+    launches = sa.sd_attention_bwd.launches
+    with pytest.raises(ValueError, match="kernel #2.*float16"):
+        sa.sd_attention_bwd(q, q, q, q)
+    assert sa.sd_attention_bwd.launches == launches
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["contiguous", "channel_major", "odd_slice", "expanded"])
+def test_f16_layout_pin_is_bit_exact(cuda, kind):
+    from sliders_tpu_torch.ops import layout_pin as lp
+
+    x = _pin_input(kind, (2, 4096, 640), torch.float16, cuda)
+    before = lp.layout_pin_copy.launches
+    y = lp.layout_pin_copy(x)
+    torch.cuda.synchronize()
+    assert lp.layout_pin_copy.launches == before + 1 and y.is_contiguous()
+    assert torch.equal(y.view(torch.int16), lp.layout_pin_ref(x).view(torch.int16))
+
+
+F16_CONV_CASES = [  # (B, H, W, C, N): SD1.5 shapes, a generic one, the mainloop's edges
+    (2, 32, 32, 320, 640), (2, 16, 16, 1280, 1280), (1, 16, 24, 100, 200),
+    (3, 17, 15, 64, 131), (2, 1, 128, 64, 256), (2, 20, 16, 128, 320), (2, 9, 9, 72, 129),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", F16_CONV_CASES)
+@pytest.mark.parametrize("kernel,mode", CONV_KERNELS)
+def test_f16_conv_kernels_match_plain(cuda, shape, kernel, mode):
+    """#5-#7 in f16, 'hopper' and 'generic': one rounding of f32 sums,
+    held to 2 f16 ulps at the largest magnitude."""
+    from sliders_tpu_torch.ops import conv3x3 as tc
+
+    args = _conv_inputs(shape, torch.float16, mode, cuda)
+    fn = {"conv3x3": tc.conv3x3, "epi": tc.epi_conv3x3, "fused": tc.fused_conv3x3}[kernel]
+    launches, variants = fn.launches, dict(fn.variants)
+    out = _conv_call(kernel, mode, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    variants[_variant(shape, torch.float16)] += 1
+    assert fn.variants == variants
+    ref = _conv_call(kernel, mode, *args, ref=True)
+    assert out.dtype == torch.float16 and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= 2 * _ulps_f16(
+        ref.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+def test_kernels_off_the_f16_path_refuse_f16(cuda):
+    """#4 (flash attention) and #8 (GroupNorm) have no f16 instantiation: an
+    f16 CUDA tensor raises by name and launches nothing."""
+    from sliders_tpu_torch.ops import flash_attention as fa
+    from sliders_tpu_torch.ops import group_norm as tg
+
+    q = torch.zeros((1, 2, 1024, 128), dtype=torch.float16, device=cuda)
+    launches = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="kernel #4"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == launches
+    x = torch.zeros((1, 256, 64), dtype=torch.float16, device=cuda)
+    gamma = torch.ones(64, dtype=torch.float16, device=cuda)
+    launches = tg.fused_group_norm.launches
+    with pytest.raises(ValueError, match="kernel #8"):
+        tg.fused_group_norm(x, gamma, gamma, 32)
+    assert tg.fused_group_norm.launches == launches

@@ -477,8 +477,7 @@ def test_cli_refuses_jax_states(cli_run, tmp_path):
 
 @pytest.mark.parametrize(
     "old,new,item",
-    [("tpu:\n", "tpu:\n  dp: 2\n", "item 15"), ("tpu:\n", "tpu:\n  tp: 2\n", "item 15"),
-     ("precision: float32", "precision: fp16", "item 2")],
+    [("tpu:\n", "tpu:\n  dp: 2\n", "item 15"), ("tpu:\n", "tpu:\n  tp: 2\n", "item 15")],
 )
 def test_driver_refuses_unported_options(cli_run, tmp_path, old, new, item):
     _, config, _ = cli_run
@@ -511,6 +510,27 @@ def _short_run_config(cli_run, tmp_path, iterations: int, *edits) -> str:
     path = tmp_path / "c.yaml"
     path.write_text(body)
     return str(path)
+
+
+def test_cli_trains_fp16_in_f16_on_f32_weights(cli_run, tmp_path, monkeypatch,
+                                                one_torch_thread):
+    """`precision: fp16`, which the port refused before it had f16 kernels:
+    the CLI loads the weights in f32, as the JAX CLI does, and the loop runs
+    every UNet call in f16 (the JAX loop's compute dtype) on an f32 LoRA,
+    with finite losses and its slider saved."""
+    loads, calls = [], []
+    load_sd, apply = loader.load_sd, tunet.apply
+    monkeypatch.setattr(loader, "load_sd",
+                        lambda *a, **kw: loads.append(kw["dtype"]) or load_sd(*a, **kw))
+    monkeypatch.setattr(tunet, "apply", lambda p, c, x, t, ehs, **kw: calls.append(
+        (x.dtype, ehs.dtype)) or apply(p, c, x, t, ehs, **kw))
+    config = _short_run_config(cli_run, tmp_path, 2, ("precision: float32", "precision: fp16"))
+    final, seen = _run_cli(["--config_file", config, "--device", "cpu"])
+    assert loads == [torch.float32]
+    assert calls and set(calls) == {(torch.float16, torch.float16)}
+    assert [i for i, _ in seen] == [0, 1] and all(math.isfinite(m["loss"]) for _, m in seen)
+    assert all(t.dtype == torch.float32 for e in final.values() for t in e.values())
+    assert (tmp_path / "out" / RUN_NAME / f"{RUN_NAME}_last.safetensors").exists()
 
 
 def test_profile_dir_traces_the_loop(cli_run, tmp_path, capsys, one_torch_thread):
