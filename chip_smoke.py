@@ -271,6 +271,9 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubl
     ((1, 8, 1024, 80), "float32", False),
     ((6, 8, 4096, 40), "float32", False),
     ((6, 8, 1024, 80), "float32", False),
+    # SD1.5 at tp = 2 (phase_mesh): a rank's 4 local heads of a 1-row pass
+    ((1, 4, 4096, 40), "bfloat16", False),
+    ((1, 4, 1024, 80), "bfloat16", False),
 ]
 BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, and f32
     ((1, 8, 4096, 40), "bfloat16"),
@@ -288,11 +291,14 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     ((1, 8, 1024, 80), "float32"),
     ((1, 10, 1024, 64), "float32"),
     ((1, 24, 1536, 128), "float32"),
+    # SD1.5's grad pass at tp = 2 (phase_mesh): 4 local heads, one row a rank
+    ((1, 4, 4096, 40), "bfloat16"),
+    ((1, 4, 1024, 80), "bfloat16"),
 ]
 # #2's shapes timed in interleaved rounds with SDPA's backward (rounds each):
 # at (1, 8, 1024, 80) two earlier runs read far apart (ROADMAP queue 2, item 2)
 BWD_INTERLEAVED = {(1, 8, 1024, 80): 4}
-TRAIN_ITERATIONS = 6  # the full-width run; per_steps and state_checkpoint_every 3
+TRAIN_ITERATIONS = 5  # the full-width run; per_steps and state_checkpoint_every 3
 FUSED_ITERATIONS = 2  # the full-width run under conv impl 'fused'
 # The 'fused' run's loss against the default ('xla') run's on the same draws,
 # relative. Both are bf16; 'fused' rounds silu(x*a + s) once in f32 where
@@ -370,7 +376,7 @@ GN_SHAPES = [(hw * hw, c, True, 1e-5) for hw, cs in ((64, (320, 640, 960)),
 # FLUX-dev serving: 19 double-stream + 38 single-stream blocks, one joint
 # attention each; FlowMatch steps per request, cut from the CLI's 30
 FLUX_BLOCKS = 57
-FLUX_STEPS = {1024: 4, 2048: 2}
+FLUX_STEPS = {1024: 4, 2048: 1}  # cut from 30
 # kernel #4 against its plain version: FLUX's joint attention at 2048 px (two
 # of its 24 heads), two rows of the 1024 px bucket, f32 at 1280 px (the tiny
 # FLUX run) and at 1536 px (all 24 heads, where f32 first routes to #4), d =
@@ -427,7 +433,7 @@ TINY_FLUX_TRAIN_STEPS = 3  # max_denoising_steps: t_to in [1, 3)
 TINY_FLUX_LR = 1e-5
 # FLUX-dev training at full width: iterations at each resolution, and
 # max_denoising_steps cut from data/config.yaml's 50 (t_to in [1, 8))
-FLUX_TRAIN_ITERATIONS = {512: 3, 2048: 1}
+FLUX_TRAIN_ITERATIONS = {512: 2, 2048: 1}
 FLUX_TRAIN_STEPS = 8
 # SDXL-base (the UNet's 2,567,463,684 parameters are diffusers' sdxl-base-1.0,
 # as tests/test_unet.py pins them). At 1024 px its 11 Transformer2D blocks
@@ -449,6 +455,7 @@ SDXL_PX = 1024
 SDXL_HTTP_STEPS = 8  # DDIM steps per /generate, cut from the CLI's 50
 SDXL_STEP_ROUNDS = 1  # rounds of the step timing, pin off and on in turn
 SDXL_TRAIN_ITERATIONS = 2  # cut from data/config-xl.yaml's 1000
+SDXL_TRAIN_STEPS = 20  # max_denoising_steps of the bf16 run, cut from 50: t_to in [1, 20)
 # kernel #9 at the SDXL serving boundaries (bucket 8, 16 CFG rows, 1024 px)
 PIN_SHAPES = [(16, 4096, 640), (16, 1024, 1280)]
 # TINY_XL at 512 px: its attention level is 32x32 (L = 1024, #1's route): 8
@@ -524,6 +531,7 @@ CONT_CHUNK = 5
 SDXL_CONT_CHUNK = 4
 CONT_B_SCALES = [-1.5, 0.0, 1.5]
 CONT_KINDS = ("ddim", "lms")
+CONT_STEPS = 25  # SD1.5's continuous runs, cut from STEPS
 CONT_JOIN_PSNR = 40.0
 # fleet training (phase_fleet and its neighbours)
 FLEET_PROMPTS = ("person_age_slider_GPT", "smile_slider_GPT", "person_surprised_GPT",
@@ -566,6 +574,14 @@ FP16_GRAD_RTOL = 1e-2
 # the share of LoRA elements within lr / 10 of the CPU's after the f16
 # steps, as tests/test_torch_fp16.py holds the port to JAX on the CPU
 FP16_LORA_SHARE = 0.97
+# the mesh phase (phase_mesh): SD1.5 at 512 px, 4 ranks on the one card
+# over gloo (NCCL refuses two ranks of a communicator on one device, so
+# the times say nothing of scaling), t_to in [1, MESH_DENOISE_STEPS)
+MESH_DENOISE_STEPS = 4
+MESH_ITERATIONS = 2
+MESH_REL = 0.01  # loss and grad norm of the 2 x 2 mesh against world 1
+MESH_HEADS = 4  # SD1.5's 8 heads over tp = 2
+MESH_LAUNCH_TIMEOUT_S = 300
 FLEET_IMAGE_ITERATIONS = 3
 FLEET_ENCODE_SHAPE = (4, 1, 1024, 512)  # the image fleet's encode of 2 x 2 images at 256 px
 FLEET_SCALES = [-1.0, 0.0, 1.0]
@@ -3489,6 +3505,9 @@ def phase_train():
         gc.collect()
         torch.cuda.empty_cache()
         maps = timed("attention maps sd15", phase_attention_maps, snap, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = timed("mesh sd15", phase_mesh, snap, tmp, cfg)
 
     # time per iteration, past the first (which includes cuBLAS/cuDNN set-up)
     steady = recs[1:]
@@ -3515,7 +3534,8 @@ def phase_train():
             "generate": generate, "edit": edit, "maps": maps, "uce": uce, "ti": ti,
             "scores": scores, "fleet": fleet, "fleet_rows": fleet_rows,
             "fleet_image": fleet_image, "generate_fleet": generate_fleet, "adaptive": adaptive,
-            "single_file": single_file, "validate": validate, "trace": trace, "fp16": fp16}
+            "single_file": single_file, "validate": validate, "trace": trace, "fp16": fp16,
+            "mesh": mesh}
 
 
 def build_flux_engine(tok_dir: str, t5_tok_dir: str):
@@ -4613,8 +4633,9 @@ def phase_sdxl_train(snap: str, tmp: str) -> dict:
     """SDXL slider training at full width through the training CLI in
     process (`--xl`, on `snap`, a snapshot of the serving phases' weights), with the
     values of data/config-xl.yaml (bf16, remat, rank-4 noxattn lierla, AdamW
-    lr 2e-4, DDIM 50) and data/prompts-xl.yaml's age pair at 512 px, for
-    SDXL_TRAIN_ITERATIONS iterations, with the layout pin on. Launches are
+    lr 2e-4, DDIM; max_denoising_steps cut to SDXL_TRAIN_STEPS) and
+    data/prompts-xl.yaml's age pair at 512 px, for SDXL_TRAIN_ITERATIONS
+    iterations, with the layout pin on. Launches are
     exact: #1 10 x (t_to + 3) (t_to denoise calls, the frozen pass, the grad
     pass and its remat recompute), #2 10, #9 22 x (t_to + 2) forward (the
     pins sit outside the remat checkpoints) + 21 backward per iteration.
@@ -4629,11 +4650,12 @@ def phase_sdxl_train(snap: str, tmp: str) -> dict:
     cfg = yaml_subset.load(os.path.join(REPO, "data", "config-xl.yaml"))
     cfg["prompts_file"] = os.path.join(REPO, "data", "prompts-xl.yaml")
     cfg["pretrained_model"]["name_or_path"] = snap
-    cfg["train"]["iterations"] = SDXL_TRAIN_ITERATIONS
+    cfg["train"].update(iterations=SDXL_TRAIN_ITERATIONS, max_denoising_steps=SDXL_TRAIN_STEPS)
     cfg["save"]["path"] = os.path.join(tmp, "sdxl_out")
     cfg["logging"] = {"log_every": 1}
     say("sdxl", f"config data/config-xl.yaml: train {cfg['train']}; network {cfg['network']}; "
-        f"tpu {cfg['tpu']}; overridden: iterations, logging.log_every and the paths (prompts: "
+        f"tpu {cfg['tpu']}; overridden: iterations, max_denoising_steps, logging.log_every and "
+        f"the paths (prompts: "
         f"data/prompts-xl.yaml)")
     basic.set_layout_pin(True)
     try:
@@ -4654,7 +4676,8 @@ def phase_sdxl_train(snap: str, tmp: str) -> dict:
     alphas = all(final[m]["alpha"].item() == 1.0 for m in init)
     losses = [m["loss"] for _, _, m in recs]
     say("sdxl", f"train 512 px (bf16, remat, rank 4 noxattn, AdamW lr {cfg['train']['lr']}, "
-        f"DDIM 50, pin on): {len(recs)} iterations, t_to {t_tos}, losses "
+        f"DDIM, max_denoising_steps {SDXL_TRAIN_STEPS}, pin on): {len(recs)} iterations, t_to "
+        f"{t_tos}, losses "
         f"{[f'{v:.6g}' for v in losses]}; launches {got} (expected {expected}: 10 x sum(t_to + "
         f"3), 10 x {len(recs)}, sum(22 x (t_to + 2) + 21)); {moved} of {len(init)} modules moved "
         f"both down and up, alphas {'unchanged' if alphas else 'CHANGED'}; peak device memory "
@@ -6177,10 +6200,10 @@ def continuous_run(models, sliders: dict, tag: str, kind: str, px: int, steps: i
 
 
 def phase_continuous(models, sliders: dict) -> dict:
-    """SD1.5 at full width, 512 px, bf16, DDIM 50 and LMS 50: `continuous_run`
-    on the HTTP phase's models and sliders ((b) on slider s2: a stacked
-    batch of two adapters)."""
-    return {kind: continuous_run(models, sliders, "SD1.5", kind, 512, STEPS, CONT_CHUNK,
+    """SD1.5 at full width, 512 px, bf16, DDIM and LMS at CONT_STEPS:
+    `continuous_run` on the HTTP phase's models and sliders ((b) on slider
+    s2: a stacked batch of two adapters)."""
+    return {kind: continuous_run(models, sliders, "SD1.5", kind, 512, CONT_STEPS, CONT_CHUNK,
                                  ROUTED_PER_FORWARD, "s2") for kind in CONT_KINDS}
 
 
@@ -6788,6 +6811,293 @@ def f16_entries(f16: dict, train: dict, sdxl: dict, tiny_fp16: dict) -> list:
     return out
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank(argv: list) -> int:
+    """One rank of the mesh launch (`chip_smoke.py --mesh-rank OUT
+    TEXT-ARGS... --fleet FLEET-ARGS...` under torch.distributed.run): the
+    rank joins the process group (`maybe_initialize_distributed`), runs the
+    text CLI, then `train_fleet` (f32, TF32 off), each in-process on that
+    group, with #1 and #2's counts set to 0 just before each run and read
+    just after and #1's calls counted by head count; writes OUT.{rank}.json,
+    and rank 0 the text run's last train state (OUT.state.pt) and the
+    fleet's rows (OUT.rows.pt)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from sliders_tpu_torch.cli import train_fleet as fleet_cli
+    from sliders_tpu_torch.cli import train_text_slider as text_cli
+    from sliders_tpu_torch.ops import attention as att
+    from sliders_tpu_torch.ops import sd_attention as sa
+    from sliders_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    out, rest = argv[0], argv[1:]
+    cut = rest.index("--fleet")
+    text_args, fleet_args = rest[:cut], rest[cut + 1:]
+    maybe_initialize_distributed(torch.device("cuda"))
+    rank = dist.get_rank()
+    kernel = att.sd_attention
+    heads: dict = {}
+
+    def by_heads(q, k, v, *a, **kw):
+        heads[q.shape[1]] = heads.get(q.shape[1], 0) + 1
+        return kernel(q, k, v, *a, **kw)
+
+    att.sd_attention = by_heads
+
+    def run(main) -> dict:
+        records = []
+        heads.clear()
+        sa.sd_attention.launches = sa.sd_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        main(records)
+        torch.cuda.synchronize()
+        return {"records": records, "fwd": sa.sd_attention.launches,
+                "bwd": sa.sd_attention_bwd.launches, "heads": dict(heads),
+                "seconds": time.perf_counter() - t0}
+
+    def text(records):
+        def on_step(i, state, m):
+            records.append({k: m[k] for k in ("loss", "grad_norm", "t_to", "pair")}
+                           | {"i": i, "host_s": time.perf_counter()})
+            if rank == 0:
+                torch.save(state.state_dict(), f"{out}.state.pt")
+
+        text_cli.main(text_cli.build_parser().parse_args(text_args), on_step=on_step)
+
+    def fleet(records):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        rows = fleet_cli.main(fleet_cli.build_parser().parse_args(fleet_args), on_step=lambda
+                              i, s, m: records.append({"i": i, "loss": m["loss"],
+                                                       "t_to": m["t_to"], "loop": m["loop"]}))
+        if rank == 0:
+            torch.save(rows, f"{out}.rows.pt")
+
+    result = {"rank": rank, "text": run(text), "fleet": run(fleet),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def launch_ranks(tag: str, n: int, out: str, args: list) -> list:
+    """`n` ranks of `mesh_rank` under torch.distributed.run on this card (a
+    process group of their own, killed whole past MESH_LAUNCH_TIMEOUT_S);
+    prints the launch's mesh lines, rank 0's step lines and its [time]
+    line; returns the ranks' records."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "localhost", "--master_port", str(free_port()),
+           os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", out, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    try:
+        log, _ = proc.communicate(timeout=MESH_LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        raise AssertionError(f"{tag}: the ranks ran past {MESH_LAUNCH_TIMEOUT_S} s:\n{log[-3000:]}")
+    secs = time.perf_counter() - t0
+    for line in log.splitlines():
+        if line.startswith(("mesh ", "tp=", "fleet of", "step ", "fleet step ", "resumed")):
+            say("mesh", f"{tag}: {line}")
+    say("time", f"mesh launch {tag} ({n} ranks): {secs:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: torch.distributed.run exited {proc.returncode}:\n"
+                             f"{log[-4000:]}")
+    ranks = []
+    for r in range(n):
+        with open(f"{out}.{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def nccl_world1_check() -> dict:
+    """A world-1 NCCL process group on the card: `make_mesh` (its line
+    names the backend), one all_reduce and one all_gather of CUDA tensors,
+    and `copy_to_tp` / `reduce_from_tp` forward and backward through it."""
+    import torch
+    import torch.distributed as dist
+
+    from sliders_tpu_torch.parallel import collectives as pc
+    from sliders_tpu_torch.parallel import mesh as pm
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda:0"))
+    try:
+        mesh = pm.make_mesh(dp=1, tp=1)
+        x = torch.arange(8.0, device="cuda")
+        summed, gathered = pc.all_reduce_sum(x, mesh), pc.all_gather_rows(x[None], mesh)
+        z = x.clone().requires_grad_()
+        (pc.copy_to_tp(z, mesh) * 2).sum().backward()
+        u = x.clone().requires_grad_()
+        reduced = pc.reduce_from_tp(u, mesh)
+        (reduced * 3).sum().backward()
+        torch.cuda.synchronize()
+        ok = (mesh.backend == "nccl" and all(t.is_cuda for t in (summed, gathered, z.grad))
+              and torch.equal(summed, x) and torch.equal(gathered[0], x)
+              and torch.equal(z.grad, torch.full_like(x, 2.0)) and torch.equal(reduced, x)
+              and torch.equal(u.grad, torch.full_like(x, 3.0)))
+        say("mesh", f"NCCL at world 1: backend {mesh.backend}, all_reduce, all_gather, "
+            f"copy_to_tp / reduce_from_tp forward and backward on cuda: {ok}")
+        if not ok:
+            raise AssertionError("the world-1 NCCL collectives disagree")
+        return {"backend": mesh.backend}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(snap: str, tmp: str, base_cfg: dict) -> dict:
+    """The process mesh on the card at SD1.5's full width, 512 px (the
+    snapshot of `phase_train`): NCCL at world 1; `train_text_slider` on a
+    2 x 2 mesh (tpu.dp 2, tpu.tp 2: 4 ranks sharing the card over gloo),
+    MESH_ITERATIONS iterations with state_checkpoint_every 1, each
+    iteration's loss and LoRA grad norm within MESH_REL of a world-1 run of
+    the same config and draws (per_device_batch 2: the same 2-row batch),
+    the launches of #1 (all at MESH_HEADS local heads) and #2 per rank
+    exact; the step-2 `.dcp` state restored at world 1 equal to rank 0's
+    state bit for bit, then resumed at world 1 for one iteration; and, on
+    the same launch's ranks (two of them idle), `train_fleet` with K = 2 at
+    dp = 2 (f32, TF32 off, lr TINY_LR, one iteration) against the dp = 1
+    fleet, rows within FLEET_ROW_TOL."""
+    import copy
+
+    import torch
+
+    from sliders_tpu_torch.cli import train_fleet as fleet_cli
+    from sliders_tpu_torch.training.driver import load_train_state
+    from sliders_tpu_torch.training.text_slider import SliderTrainState
+
+    nccl = nccl_world1_check()
+    cfg = copy.deepcopy(base_cfg)
+    cfg["train"].update(iterations=MESH_ITERATIONS, max_denoising_steps=MESH_DENOISE_STEPS)
+    cfg["save"].update(path=os.path.join(tmp, "mesh"), per_steps=0)
+    cfg["tpu"].update(dp=2, tp=2, state_checkpoint_every=1, profile_dir="")
+    cfg["logging"]["use_wandb"] = False
+    path = os.path.join(tmp, "mesh.yaml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg) + "\n")
+    # the dp-sharded fleet: K = 2 over dp = 2 of the same 4 ranks (2 idle)
+    fcfg = copy.deepcopy(cfg)
+    fcfg["train"].update(iterations=1, precision="float32", lr=TINY_LR)
+    fcfg["tpu"].update(dp=2, tp=1, state_checkpoint_every=0)
+    prompt_files, _ = fleet_prompt_files(tmp)
+    fleet_argv = {}
+    for dp in (2, 1):
+        fcfg["save"]["path"] = os.path.join(tmp, f"mesh_fleet_dp{dp}")
+        fpath = os.path.join(tmp, f"mesh_fleet_dp{dp}.yaml")
+        with open(fpath, "w") as f:
+            f.write(dump_yaml(fcfg) + "\n")
+        fleet_argv[dp] = ["--config_file", fpath, "--device", "0", "--prompts_file",
+                          *prompt_files[:2]]
+    out = os.path.join(tmp, "mesh_ranks")
+    ranks = launch_ranks("2x2 text, then the fleet at dp=2", 4, out,
+                         ["--config_file", path, "--device", "0", "--fleet", *fleet_argv[2]])
+    remat = bool(cfg["tpu"]["remat"])
+    text = [r["text"] for r in ranks]
+    recs = text[0]["records"]
+    fwd_expected = expected_fwd([(0, 0, m) for m in recs], remat)
+    bwd_expected = ROUTED_PER_FORWARD * len(recs)
+    host_s = [b["host_s"] - a["host_s"] for a, b in zip(recs, recs[1:])]
+    say("mesh", f"2 x 2 mesh, {len(recs)} iterations: t_to {[m['t_to'] for m in recs]}, losses "
+        f"{[m['loss'] for m in recs]}, grad norms {[m['grad_norm'] for m in recs]}; iteration 1 "
+        f"host wall {host_s} s; per rank #1 {[t['fwd'] for t in text]} by heads "
+        f"{[t['heads'] for t in text]} (expected {fwd_expected} at {MESH_HEADS} heads), #2 "
+        f"{[t['bwd'] for t in text]} (expected {bwd_expected}); the CLI's seconds a rank "
+        f"{[round(t['seconds'], 1) for t in text]}, peak GB "
+        f"{[round(r['peak_gb'], 2) for r in ranks]}")
+    strip = [[{k: v for k, v in m.items() if k != "host_s"} for m in t["records"]] for t in text]
+    if any(st != strip[0] for st in strip):
+        raise AssertionError("the mesh ranks disagree on the iterations' metrics")
+    if any(t["fwd"] != fwd_expected or t["bwd"] != bwd_expected
+           or t["heads"] != {str(MESH_HEADS): fwd_expected} for t in text):
+        raise AssertionError("a rank's routed self-attentions did not all go through #1 and #2 "
+                             f"at {MESH_HEADS} heads")
+
+    w1 = copy.deepcopy(cfg)
+    w1["tpu"].update(dp=-1, tp=1, per_device_batch=2, state_checkpoint_every=0)
+    w1["save"]["path"] = os.path.join(tmp, "mesh_w1")
+    ref = run_training(w1, os.path.join(tmp, "mesh_w1.yaml"), [])
+    rrecs = [m for _, _, m in ref["records"]]
+    rel = [max(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+               abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+           for a, b in zip(recs, rrecs)]
+    say("mesh", f"world 1 (per_device_batch 2): t_to {[m['t_to'] for m in rrecs]}, losses "
+        f"{[m['loss'] for m in rrecs]}, grad norms {[m['grad_norm'] for m in rrecs]}; largest "
+        f"relative difference of the mesh's loss or grad norm {max(rel):.3g} (tol {MESH_REL})")
+    if [m["t_to"] for m in rrecs] != [m["t_to"] for m in recs] or max(rel) > MESH_REL:
+        raise AssertionError("the 2 x 2 mesh does not repeat the world-1 run")
+
+    name = (f"{cfg['save']['name']}_alpha{float(cfg['network']['alpha'])}"
+            f"_rank{cfg['network']['rank']}_{cfg['network']['training_method']}")
+    dcp = os.path.join(tmp, "mesh", name, f"{name}_trainstate.dcp")
+    saved = torch.load(f"{out}.state.pt")
+
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros_like(tree) if isinstance(tree, torch.Tensor) else 0
+
+    zero = SliderTrainState.from_state_dict(zeros(saved), "cuda")
+    restored = load_train_state(dcp, torch.device("cuda"), template=zero).state_dict()
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, torch.Tensor):
+            return a.dtype == b.dtype and torch.equal(a, b)
+        return a == b
+
+    exact = same(restored, saved)
+    resume = copy.deepcopy(w1)
+    resume["train"]["iterations"] = MESH_ITERATIONS + 1
+    resume["save"]["path"] = os.path.join(tmp, "mesh_resume")
+    resumed = run_training(resume, os.path.join(tmp, "mesh_resume.yaml"), ["--resume", dcp])
+    res = [(i, m["loss"]) for i, _, m in resumed["records"]]
+    say("mesh", f"the step-{saved['step']} .dcp state ({sorted(os.listdir(dcp))}) restored at "
+        f"world 1 equals rank 0's state bit for bit: {exact}; resumed at world 1: iterations "
+        f"{res}, launches #1 {resumed['fwd']} / #2 {resumed['bwd']}")
+    if not exact or [i for i, _ in res] != [MESH_ITERATIONS] \
+            or not all(math.isfinite(x) for _, x in res):
+        raise AssertionError("the mesh's train state did not restore and resume at world 1")
+
+    # the dp-sharded fleet against dp = 1
+    saved_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {1: fleet_cli.main(fleet_cli.build_parser().parse_args(fleet_argv[1])),
+                2: torch.load(f"{out}.rows.pt")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    franks = [r["fleet"] for r in ranks]
+    worst = max((runs[2][r][m][k].float() - runs[1][r][m][k].float()).abs().max().item()
+                for r in range(2) for m in runs[1][r] for k in ("down", "up", "alpha"))
+    frecs = franks[0]["records"]
+    f_fwd = [ROUTED_PER_FORWARD * (t + 2 + int(remat)) for t in frecs[0]["t_to"]] + [0, 0]
+    say("mesh", f"fleet K = 2 at dp = 2: t_to {frecs[0]['t_to']}, losses {frecs[0]['loss']}; "
+        f"per rank #1 {[r['fwd'] for r in franks]} (expected {f_fwd}: ranks 2 and 3 idle), #2 "
+        f"{[r['bwd'] for r in franks]}; the CLI's seconds a rank "
+        f"{[round(r['seconds'], 1) for r in franks]}; rows against the dp = 1 fleet: max|diff| "
+        f"{worst:.3g} (tol {FLEET_ROW_TOL})")
+    if worst > FLEET_ROW_TOL or [r["fwd"] for r in franks] != f_fwd \
+            or [r["bwd"] for r in franks] != [ROUTED_PER_FORWARD] * 2 + [0, 0]:
+        raise AssertionError("the dp = 2 fleet does not match the dp = 1 fleet")
+    return {"nccl": nccl, "text_fwd": text[0]["fwd"], "text_bwd": text[0]["bwd"],
+            "fleet_fwd": franks[0]["fwd"], "fleet_bwd": franks[0]["bwd"],
+            "resume_fwd": resumed["fwd"], "resume_bwd": resumed["bwd"]}
+
+
 def main() -> int:
     import torch
 
@@ -6917,7 +7227,10 @@ def main() -> int:
                              "validate_real_weights_sd15": train["validate"]["sd"],
                              "validate_real_weights_sd15_sweep": train["validate"]["sweep_sd"],
                              "train_resume_traced_kernel_events":
-                                 train["trace"]["found"]["attn_sm90"]},
+                                 train["trace"]["found"]["attn_sm90"],
+                             "mesh_sd15_2x2_rank0_4_heads": train["mesh"]["text_fwd"],
+                             "mesh_sd15_resume_world1": train["mesh"]["resume_fwd"],
+                             "mesh_fleet_dp2_rank0": train["mesh"]["fleet_fwd"]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -6950,7 +7263,10 @@ def main() -> int:
                              "fleet_image_sd15_256": train["fleet_image"]["sd_bwd"],
                              "train_prodigy_sd15": train["adaptive"]["bwd"],
                              "train_resume_traced_kernel_events":
-                                 train["trace"]["found"]["attn_bwd_sm90"]},
+                                 train["trace"]["found"]["attn_bwd_sm90"],
+                             "mesh_sd15_2x2_rank0_4_heads": train["mesh"]["text_bwd"],
+                             "mesh_sd15_resume_world1": train["mesh"]["resume_bwd"],
+                             "mesh_fleet_dp2_rank0": train["mesh"]["fleet_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
@@ -7077,4 +7393,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase_mesh's launch
+        sys.exit(mesh_rank(sys.argv[2:]))
     sys.exit(main())

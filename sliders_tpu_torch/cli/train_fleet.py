@@ -17,19 +17,30 @@ periodic `{name}_{i}steps...`, under `{save.path}/{save.name}_fleet/`
 beside `{save.name}_fleet_metadata.json` and the train state
 `{save.name}_fleet_trainstate.pt`. `--device` is a CUDA ordinal (the
 default, 0), cuda[:N] or cpu; asking for CUDA with no CUDA device is an
-error. `tpu.dp` above 1 (the dp-sharded fleet) and a JAX `.msgpack` state
-raise, naming ROADMAP queue 1, item 15.
+error. A JAX `.msgpack` state raises, naming ROADMAP queue 1, item 15.
+
+The dp-sharded fleet: launched as N processes (torchrun or the SLIDERS_*
+variables, as `train_text_slider`), the K rows split over gcd(dp, K)
+ranks (the JAX CLI's rule, printed when it differs from dp), each training
+its K / dp sliders; rank 0 writes every slider's files, and the train state
+is the directory `{save.name}_fleet_trainstate.dcp`, which resumes on
+another dp (or a `.pt` one on a mesh). `dp: 2` on one process runs
+unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
+
+import torch.distributed as dist
 from pathlib import Path
 
-from sliders_tpu_torch.cli.train_text_slider import resolve_device
+from sliders_tpu_torch.cli.train_text_slider import resolve_device, shard_unet
 from sliders_tpu_torch.core import config as config_util
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
+from sliders_tpu_torch.parallel.mesh import main_rank_output, training_mesh
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
 from sliders_tpu_torch.training.driver import load_dtype_of
 from sliders_tpu_torch.training.fleet import train_fleet
@@ -65,20 +76,38 @@ def main(args, on_step=None, models=None) -> list:
     for name, settings in prompt_sets:
         print(f"[{name}] {len(settings)} prompt pair(s)")
 
-    device = resolve_device(args.device)
-    set_attention_impl(config.tpu.attention)
-    if models is None:
-        if args.xl:
-            models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
-                                      dtype=load_dtype_of(config))
-        else:
-            models = loader.load_sd(config.pretrained_model.name_or_path, device=device,
-                                    v2=config.pretrained_model.v2,
-                                    clip_skip=config.pretrained_model.clip_skip,
-                                    dtype=load_dtype_of(config))
-    return train_fleet(config, prompt_sets, models, resume_from=args.resume, on_step=on_step,
-                       shared_t_to=args.shared_t_to, t_to_mode=args.t_to_mode,
-                       t_to_strata=args.t_to_strata)
+    mesh, device = training_mesh(resolve_device(args.device), config.tpu.dp, config.tpu.tp,
+                                 fit_dp=lambda dp, world: fleet_dp(dp, len(prompt_sets)))
+    if mesh is not None and not mesh.active:
+        mesh.finish()
+        return []
+    with main_rank_output(mesh):
+        set_attention_impl(config.tpu.attention)
+        if models is None:
+            if args.xl:
+                models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
+                                          dtype=load_dtype_of(config))
+            else:
+                models = loader.load_sd(config.pretrained_model.name_or_path, device=device,
+                                        v2=config.pretrained_model.v2,
+                                        clip_skip=config.pretrained_model.clip_skip,
+                                        dtype=load_dtype_of(config))
+        shard_unet(mesh, models, config.tpu.tp)
+        out = train_fleet(config, prompt_sets, models, resume_from=args.resume,
+                          on_step=on_step, shared_t_to=args.shared_t_to,
+                          t_to_mode=args.t_to_mode, t_to_strata=args.t_to_strata, mesh=mesh)
+    if mesh is not None:
+        mesh.finish()
+    return out
+
+
+def fleet_dp(dp: int, K: int) -> int:
+    """The JAX CLI's rule: the K rows split over gcd(dp, K), printed when
+    it differs from dp."""
+    fit = math.gcd(dp, K)
+    if fit != dp and (not dist.is_initialized() or dist.get_rank() == 0):
+        print(f"fleet of {K} does not divide dp={dp}; using dp={fit}")
+    return fit
 
 
 def build_parser():
@@ -96,8 +125,8 @@ def build_parser():
                              "slider.")
     parser.add_argument("--xl", action="store_true", help="Train SDXL sliders.")
     parser.add_argument("--resume", default=None,
-                        help="Train state to resume: a {name}_fleet_trainstate.pt written by "
-                             "this CLI.")
+                        help="Train state to resume: a {name}_fleet_trainstate.pt or .dcp "
+                             "written by this CLI.")
     parser.add_argument("--device", default="0",
                         help="CUDA device ordinal (as the reference), cuda[:N], or cpu.")
     parser.add_argument("--shared_t_to", action="store_true",

@@ -16,6 +16,12 @@ one step (`training/fleet.train_fleet_images`), saved under the same names.
 `--fleet` without `--stylecheck` exits. `--device` is a CUDA ordinal (the
 default, 0), cuda[:N] or cpu; asking for CUDA with no CUDA device is an
 error. `--prompts_file` is parsed and not applied, as in the JAX CLI.
+
+Mesh runs as in `train_text_slider` (torchrun or the SLIDERS_* variables;
+a mesh when there is more than one process or `tpu.tp` > 1): the fused
++-s batch of 2 rows splits over dp, and a dp that does not divide 2 runs
+dp = 1 with tp, as the JAX CLI does; with `--fleet` the style rows split
+over gcd(dp, K).
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ from __future__ import annotations
 import argparse
 import os
 
-from sliders_tpu_torch.cli.train_text_slider import resolve_device
+from sliders_tpu_torch.cli.train_fleet import fleet_dp
+from sliders_tpu_torch.cli.train_text_slider import resolve_device, shard_unet
 from sliders_tpu_torch.core import config as config_util
 from sliders_tpu_torch.data.paired_images import parse_folder_args
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
+from sliders_tpu_torch.parallel.mesh import main_rank_output, training_mesh
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
 from sliders_tpu_torch.training.driver import load_dtype_of, train_image_sliders
 from sliders_tpu_torch.training.fleet import train_fleet_images
@@ -54,20 +62,6 @@ def main(args, on_step=None) -> dict:
     config.save.name += f"_{config.network.training_method}"
     config.save.path += f"/{config.save.name}"
 
-    device = resolve_device(args.device)
-    set_attention_impl(config.tpu.attention)
-    dtype = load_dtype_of(config)
-    if args.xl:
-        models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
-                                  dtype=dtype, load_vae=True)
-        resolution = args.resolution or 512
-    else:
-        models = loader.load_sd(config.pretrained_model.name_or_path, device=device,
-                                v2=config.pretrained_model.v2,
-                                clip_skip=config.pretrained_model.clip_skip, dtype=dtype,
-                                load_vae=True)
-        resolution = args.resolution or 256
-
     prompts = load_prompts_from_yaml(config.prompts_file, attributes)
     folders, scales = parse_folder_args(args.folders, args.scales)
     runs = [(config.save.name, args.folder_main)]
@@ -77,17 +71,50 @@ def main(args, on_step=None) -> dict:
         base_name, base_main = config.save.name, args.folder_main
         runs = [(f"{style}_{base_name}", os.path.join(base_main, style))
                 for style in sorted(os.listdir(base_main))]
-    if args.fleet:
-        # every style's slider in one step
-        loras = train_fleet_images(config, prompts, models, runs, folders, scales, resolution,
-                                   on_step=on_step)
-        return {name: lora for (name, _), lora in zip(runs, loras)}
-    out = {}
-    for name, folder_main in runs:
-        config.save.name = name
-        out[name] = train_image_sliders(config, prompts, models, folder_main, folders, scales,
-                                        resolution, on_step=on_step)
+
+    mesh, device = training_mesh(resolve_device(args.device), config.tpu.dp, config.tpu.tp,
+                                 fit_dp=_fleet_dp(len(runs)) if args.fleet else _image_dp)
+    if mesh is not None and not mesh.active:
+        mesh.finish()
+        return {}
+    with main_rank_output(mesh):
+        set_attention_impl(config.tpu.attention)
+        dtype = load_dtype_of(config)
+        if args.xl:
+            models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
+                                      dtype=dtype, load_vae=True)
+            resolution = args.resolution or 512
+        else:
+            models = loader.load_sd(config.pretrained_model.name_or_path, device=device,
+                                    v2=config.pretrained_model.v2,
+                                    clip_skip=config.pretrained_model.clip_skip, dtype=dtype,
+                                    load_vae=True)
+            resolution = args.resolution or 256
+        shard_unet(mesh, models, config.tpu.tp)
+        if args.fleet:
+            # every style's slider in one step
+            loras = train_fleet_images(config, prompts, models, runs, folders, scales,
+                                       resolution, on_step=on_step, mesh=mesh)
+            out = {name: lora for (name, _), lora in zip(runs, loras)}
+        else:
+            out = {}
+            for name, folder_main in runs:
+                config.save.name = name
+                out[name] = train_image_sliders(config, prompts, models, folder_main, folders,
+                                                scales, resolution, on_step=on_step, mesh=mesh)
+    if mesh is not None:
+        mesh.finish()
     return out
+
+
+def _image_dp(dp: int, world: int) -> int:
+    """The JAX CLI's rule: the fused +-s batch has 2 rows, so a dp that does
+    not divide 2 runs dp = 1."""
+    return dp if 2 % dp == 0 else 1
+
+
+def _fleet_dp(K: int):
+    return lambda dp, world: fleet_dp(dp, K)
 
 
 def build_parser():

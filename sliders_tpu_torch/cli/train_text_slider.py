@@ -12,6 +12,18 @@ Usage:
 `--device` keeps the reference's meaning, a CUDA device ordinal (`cuda:N`);
 `cpu` runs on the CPU (tests). Asking for CUDA with no CUDA device is an
 error. `--xl` loads an SDXL snapshot (`loader.load_sdxl`), as in the JAX CLI.
+
+Mesh runs (`tpu.dp`, `tpu.tp`; `parallel/mesh.py`): launch N processes with
+`python -m torch.distributed.run --nproc_per_node N -m
+sliders_tpu_torch.cli.train_text_slider ...` or with the JAX package's
+variables SLIDERS_NUM_PROCESSES / SLIDERS_COORDINATOR / SLIDERS_PROCESS_ID.
+A mesh is built when there is more than one process or tp > 1, so `dp: 2`
+on one process runs unsharded and `tp: 2` on one raises. Each rank runs on
+`cuda:{LOCAL_RANK % device_count}` (NCCL with a card a rank, gloo when
+ranks share one) or, with `--device cpu`, on the CPU over gloo; only rank 0
+prints and writes. The train state of a mesh run is the directory
+`{name}_trainstate.dcp`, and `--resume` takes it or a `.pt` at any world
+size.
 """
 
 from __future__ import annotations
@@ -21,8 +33,9 @@ import argparse
 import torch
 
 from sliders_tpu_torch.core import config as config_util
-from sliders_tpu_torch.models import loader
+from sliders_tpu_torch.models import loader, unet2d
 from sliders_tpu_torch.ops.attention import set_attention_impl
+from sliders_tpu_torch.parallel.mesh import main_rank_output, shard_params, training_mesh
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
 from sliders_tpu_torch.training.driver import load_dtype_of, train_text_sliders
 
@@ -64,24 +77,39 @@ def main(args, on_step=None):
     config.save.path += f"/{config.save.name}"
 
     prompts = load_prompts_from_yaml(config.prompts_file, attributes)
-    for p in prompts:
-        print(p)
+    mesh, device = training_mesh(resolve_device(args.device), config.tpu.dp, config.tpu.tp)
+    if mesh is not None and not mesh.active:
+        mesh.finish()
+        return None
+    with main_rank_output(mesh):
+        for p in prompts:
+            print(p)
+        set_attention_impl(config.tpu.attention)
+        if args.xl:
+            models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
+                                      dtype=load_dtype_of(config))
+        else:
+            models = loader.load_sd(
+                config.pretrained_model.name_or_path,
+                device=device,
+                v2=config.pretrained_model.v2,
+                clip_skip=config.pretrained_model.clip_skip,
+                dtype=load_dtype_of(config),
+            )
+        shard_unet(mesh, models, config.tpu.tp)
+        out = train_text_sliders(config, prompts, models, resume_from=args.resume,
+                                 on_step=on_step, mesh=mesh)
+    if mesh is not None:
+        mesh.finish()
+    return out
 
-    device = resolve_device(args.device)
-    set_attention_impl(config.tpu.attention)
-    if args.xl:
-        models = loader.load_sdxl(config.pretrained_model.name_or_path, device=device,
-                                  dtype=load_dtype_of(config))
-    else:
-        models = loader.load_sd(
-            config.pretrained_model.name_or_path,
-            device=device,
-            v2=config.pretrained_model.v2,
-            clip_skip=config.pretrained_model.clip_skip,
-            dtype=load_dtype_of(config),
-        )
-    return train_text_sliders(config, prompts, models, resume_from=args.resume,
-                              on_step=on_step)
+
+def shard_unet(mesh, models, tp: int) -> None:
+    """The UNet's parameters replaced by this rank's tp shards
+    (`shard_params` with tp_enabled = tp > 1), as the JAX CLIs shard them."""
+    if mesh is not None:
+        models.unet_params = shard_params(mesh, models.unet_params, tp_enabled=tp > 1,
+                                          heads=unet2d.attention_heads(models.unet_config))
 
 
 def build_parser():
@@ -99,7 +127,8 @@ def build_parser():
     )
     parser.add_argument("--xl", action="store_true", help="Train on SDXL.")
     parser.add_argument("--resume", type=str, default=None,
-                        help="Train state to resume: a {name}_trainstate.pt written by this CLI.")
+                        help="Train state to resume: a {name}_trainstate.pt or "
+                             "{name}_trainstate.dcp written by this CLI.")
     return parser
 
 

@@ -15,8 +15,10 @@ Of the `tpu:` section the port honours `remat`, `nan_check`,
 `state_checkpoint_every`, `per_device_batch`, `attention` and, in the
 text-slider loop, `profile_dir`; `donate` and `steps_per_call` are accepted
 and have no effect (PyTorch frees buffers itself, and an eager step
-dispatches once per iteration anyway). `dp` or `tp` above 1 are refused by
-the training driver.
+dispatches once per iteration anyway). `dp` and `tp` size the process mesh
+of the text, image and fleet CLIs (`parallel/mesh.py`), which build one, as
+the JAX CLIs do, when there is more than one process or tp > 1; the FLUX
+loop refuses `dp` or `tp` above 1 (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations

@@ -21,6 +21,11 @@ added_cond=...)`). The token tensors at every transformer boundary go
 through `ops.basic.layout_pin` (kernel #9 when `set_layout_pin(True)`, else
 the identity), in the JAX package's four places and outside the remat
 checkpoints, so recomputation adds no pin.
+
+Tensor parallelism (`parallel/`): on the parameters `parallel.mesh.
+shard_params` slices and inside `parallel.collectives.tensor_parallel`,
+the attention and GEGLU blocks run Megatron's column / row split, one
+all-reduce each forward; everything else runs replicated.
 """
 
 from __future__ import annotations
@@ -47,6 +52,12 @@ from sliders_tpu_torch.ops.basic import (
     linear,
     silu,
     timestep_embedding,
+)
+from sliders_tpu_torch.parallel.collectives import (
+    active_mesh,
+    copy_to_tp,
+    tensor_parallel,
+    tp_shard,
 )
 
 
@@ -212,20 +223,38 @@ def _resnet_fused(p: dict, x, emb, cfg: UNetConfig, lora, name: str):
 
 
 def _attention(p: dict, x, context, heads: int, lora, name: str):
-    """diffusers Attention (to_q/to_k/to_v/to_out.0)."""
+    """diffusers Attention (to_q/to_k/to_v/to_out.0). Under a tp split
+    (`collectives.tensor_parallel`) q/k/v run column-parallel, the
+    attention on this rank's heads // tp heads, to_out.0 row-parallel."""
+    col = tp_shard(f"{name}.to_q", "col")
+    row = None
+    if col is not None:
+        if heads % col.size:
+            raise ValueError(f"{name}: {heads} heads do not split over tp={col.size}")
+        x = copy_to_tp(x, col.mesh)
+        context = None if context is None else copy_to_tp(context, col.mesh)
+        heads //= col.size
+        row = tp_shard(f"{name}.to_out.0", "row")
     ctx = x if context is None else context
-    q = linear(p["to_q"], x, lora=lora, name=f"{name}.to_q")
-    k = linear(p["to_k"], ctx, lora=lora, name=f"{name}.to_k")
-    v = linear(p["to_v"], ctx, lora=lora, name=f"{name}.to_v")
+    q = linear(p["to_q"], x, lora=lora, name=f"{name}.to_q", tp=col)
+    k = linear(p["to_k"], ctx, lora=lora, name=f"{name}.to_k", tp=col)
+    v = linear(p["to_v"], ctx, lora=lora, name=f"{name}.to_v", tp=col)
     out = multihead_attention(q, k, v, heads, name=name)
-    return linear(p["to_out"]["0"], out, lora=lora, name=f"{name}.to_out.0")
+    return linear(p["to_out"]["0"], out, lora=lora, name=f"{name}.to_out.0", tp=row)
 
 
 def _geglu_ff(p: dict, x, lora, name: str):
-    h = linear(p["net"]["0"]["proj"], x, lora=lora, name=f"{name}.net.0.proj")
+    """GEGLU feed-forward; under a tp split net.0.proj runs column-parallel
+    (each rank's slice of h and of gate), net.2 row-parallel."""
+    col = tp_shard(f"{name}.net.0.proj", "col", halves=2)
+    row = None
+    if col is not None:
+        x = copy_to_tp(x, col.mesh)
+        row = tp_shard(f"{name}.net.2", "row")
+    h = linear(p["net"]["0"]["proj"], x, lora=lora, name=f"{name}.net.0.proj", tp=col)
     h, gate = h.chunk(2, dim=-1)
     h = h * gelu(gate)
-    return linear(p["net"]["2"], h, lora=lora, name=f"{name}.net.2")
+    return linear(p["net"]["2"], h, lora=lora, name=f"{name}.net.2", tp=row)
 
 
 def _basic_transformer_block(p: dict, x, context, heads: int, lora, name: str):
@@ -233,6 +262,11 @@ def _basic_transformer_block(p: dict, x, context, heads: int, lora, name: str):
     x = x + _attention(p["attn2"], layer_norm(p["norm2"], x), context, heads, lora, f"{name}.attn2")
     x = x + _geglu_ff(p["ff"], layer_norm(p["norm3"], x), lora, f"{name}.ff")
     return x
+
+
+def _block_under(mesh, *args):
+    with tensor_parallel(mesh):
+        return _basic_transformer_block(*args)
 
 
 def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name: str,
@@ -253,7 +287,8 @@ def _transformer2d(p: dict, x, context, heads: int, cfg: UNetConfig, lora, name:
     for k in range(len(blocks)):
         args = (blocks[str(k)], h, context, heads, lora, f"{name}.transformer_blocks.{k}")
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_basic_transformer_block, *args, use_reentrant=False)
+            # the recomputation in the backward re-enters this tp split
+            h = checkpoint(_block_under, active_mesh(), *args, use_reentrant=False)
         else:
             h = _basic_transformer_block(*args)
     if cfg.use_linear_projection:
@@ -374,6 +409,31 @@ def apply(
 # ---------------------------------------------------------------------------
 # init (tests / benchmarks; real weights via models/loader.py)
 # ---------------------------------------------------------------------------
+
+
+def attention_heads(cfg: UNetConfig) -> dict:
+    """{attention path: head count} of every attn1 / attn2 of the UNet (the
+    head counts `parallel.mesh.shard_params` checks against tp)."""
+    out = {}
+
+    def add(prefix, heads, layers):
+        for k in range(layers):
+            for a in ("attn1", "attn2"):
+                out[f"{prefix}.transformer_blocks.{k}.{a}"] = heads
+
+    for i, bt in enumerate(cfg.down_block_types):
+        if bt == "CrossAttnDownBlock2D":
+            for j in range(cfg.layers_per_block):
+                add(f"down_blocks.{i}.attentions.{j}", cfg.num_attention_heads[i],
+                    cfg.transformer_layers_per_block[i])
+    add("mid_block.attentions.0", cfg.num_attention_heads[-1], cfg.transformer_layers_per_block[-1])
+    rev_heads = tuple(reversed(cfg.num_attention_heads))
+    rev_layers = tuple(reversed(cfg.transformer_layers_per_block))
+    for i, bt in enumerate(cfg.up_block_types):
+        if bt == "CrossAttnUpBlock2D":
+            for j in range(cfg.layers_per_block + 1):
+                add(f"up_blocks.{i}.attentions.{j}", rev_heads[i], rev_layers[i])
+    return out
 
 
 def _down_channel_plan(cfg: UNetConfig):

@@ -11,7 +11,8 @@ name is in ``lora.weights`` the low-rank branch
 are torch layouts too: linear down (r, in), up (out, r); conv down
 (r, in, kh, kw), up (out, r, 1, 1). A per-row STACKED tree (lora/batch.py)
 carries a leading row axis on every leaf, and row b of the batch gets row
-b's adapter.
+b's adapter. Under a tensor-parallel mesh a linear takes its shard of the
+weight and the matching slice of a whole LoRA (`linear(..., tp=...)`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from sliders_tpu_torch.ops import conv3x3
 from sliders_tpu_torch.ops.layout_pin import LayoutPin
+from sliders_tpu_torch.parallel.collectives import TPShard, reduce_from_tp, shard_slice
 
 
 @dataclass
@@ -60,21 +62,38 @@ def linear(
     *,
     lora: Optional[SliderLora] = None,
     name: Optional[str] = None,
+    tp: Optional[TPShard] = None,
 ) -> torch.Tensor:
-    """y = x W^T (+ b) (+ LoRA branch), in x.dtype."""
+    """y = x W^T (+ b) (+ LoRA branch), in x.dtype.
+
+    With `tp` (`parallel.collectives.tp_shard`) `p` holds this rank's shard
+    and the LoRA is whole: 'col' applies the rows of `up` that match the
+    shard's output features; 'row' applies the columns of `down` that
+    match its input features, adds the LoRA's partial product to the base
+    partial, all-reduces the sum over tp once, and adds the bias after."""
     bias = p.get("bias")
-    y = F.linear(x, p["weight"].to(x.dtype), None if bias is None else bias.to(x.dtype))
+    row = tp is not None and tp.mode == "row"
+    y = F.linear(x, p["weight"].to(x.dtype),
+                 None if bias is None or row else bias.to(x.dtype))
     entry = _lora_entry(lora, name)
     if entry is not None:
         down, up = entry["down"].to(x.dtype), entry["up"].to(x.dtype)
         rank = entry.get("rank", down.shape[-2])
         scale = _lora_scale(lora.multiplier, entry["alpha"], rank, y)
+        if tp is not None and tp.mode == "col":
+            up = shard_slice(up, up.ndim - 2, tp.index, tp.size, tp.halves)
+        elif row:
+            down = shard_slice(down, down.ndim - 1, tp.index, tp.size)
         if down.ndim == 3:
             # per-row stacked: down (B, r, in), up (B, out, r); x (B, ..., in)
             h = torch.einsum("b...i,bri->b...r", x, down)
             y = y + torch.einsum("b...r,bor->b...o", h, up) * scale
         else:
             y = y + F.linear(F.linear(x, down), up) * scale
+    if row:
+        y = reduce_from_tp(y, tp.mesh)
+        if bias is not None:
+            y = y + bias.to(x.dtype)
     return y
 
 

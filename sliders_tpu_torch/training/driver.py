@@ -9,8 +9,16 @@ prompt-embedding cache, bucket round-robin with dynamic resolution, the
 `{name}_metadata.json` sidecar, periodic slider saves `{name}_{i}steps{ext}`
 and the final `{name}_last{ext}` at the same cadence, the same stdout lines,
 the NaN guard, and a full train-state checkpoint with resume. The state file
-is `{name}_trainstate.pt` (step, LoRA, optimizer state, seed); a JAX
-`.msgpack` or orbax state does not resume here.
+is `{name}_trainstate.pt` (step, LoRA, optimizer state, seed), and under a
+process mesh the directory `{name}_trainstate.dcp` (`training/checkpoint.py`,
+where the JAX package writes orbax); either resumes at any world size. A
+JAX `.msgpack` or orbax state does not resume here, and the JAX package
+cannot resume the port's states either.
+
+Under a process mesh (`mesh=`, `parallel/mesh.py`) the text loop's batch is
+batch x per_device_batch x dp, as in the JAX loop; only the main rank
+writes the slider files, the metadata, the trace and the wandb log, and
+every rank takes part in each collective and in the state save.
 
 The text-slider loop honours the JAX loop's `tpu.profile_dir` (a
 torch.profiler trace of the whole loop, CPU and CUDA activity, written as a
@@ -29,7 +37,7 @@ JAX package does. The FLUX and image loops (and the image fleet) compute in
 the load dtype, as their JAX CLIs do: f32 under fp16, with a printed note.
 
 Refused with `NotImplementedError` naming their ROADMAP item: `tpu.dp` or
-`tpu.tp` above 1 (queue 1, item 15).
+`tpu.tp` above 1 in the FLUX loop (queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -54,9 +62,11 @@ from sliders_tpu_torch.diffusion.schedulers import (
 from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora import network as lnet
 from sliders_tpu_torch.models.loader import FluxModels, SDModels
+from sliders_tpu_torch.parallel.mesh import whole_params
 from sliders_tpu_torch.pipelines.encoding import encode_prompts, encode_prompts_xl
 from sliders_tpu_torch.pipelines.flux_t2i import encode_prompts_flux
 from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
+from sliders_tpu_torch.training import checkpoint
 from sliders_tpu_torch.training import optimizers as opt_factory
 from sliders_tpu_torch.training.flux_slider import ROLES, make_flux_slider_step
 from sliders_tpu_torch.training.image_slider import make_image_slider_step
@@ -137,8 +147,8 @@ def random_resolution_in_bucket(rng, bucket_resolution: int = 512) -> tuple:
 def _refuse_unported(config: RootConfig) -> None:
     tpu = config.tpu
     if tpu.dp > 1 or tpu.tp > 1:
-        raise NotImplementedError(f"tpu.dp={tpu.dp}, tpu.tp={tpu.tp}: data and tensor parallel "
-                                  "training are not ported yet (ROADMAP queue 1, item 15)")
+        raise NotImplementedError(f"tpu.dp={tpu.dp}, tpu.tp={tpu.tp}: FLUX over a mesh is not "
+                                  "ported yet (ROADMAP queue 1, item 15)")
 
 
 def _note_f32_under_fp16(config: RootConfig, loop: str) -> None:
@@ -182,16 +192,50 @@ def _loop_trace(profile_dir: str, device: torch.device, name: str):
     print(f"profile: the loop's trace written to {path}")
 
 
-def load_train_state(path: str, device) -> SliderTrainState:
-    """A `.pt` train state written by `train_text_sliders` or
-    `fleet.train_fleet`."""
+def load_train_state(path: str, device, template: Optional[SliderTrainState] = None,
+                     mesh=None, rows: Optional[tuple] = None) -> SliderTrainState:
+    """A train state written by `train_text_sliders` or `fleet.train_fleet`:
+    a `.pt` file, or a `.dcp` directory of a mesh run (read onto
+    `template`'s layout, resharded onto `mesh`). `rows` (lo, hi): a fleet
+    run's share of the rows, sliced out of a `.pt` state and read as this
+    rank's shard of a `.dcp` one. A JAX `.msgpack` or orbax state is
+    refused."""
     p = Path(path)
+    if p.is_dir() and checkpoint.is_dcp_state(path):
+        if template is None:
+            raise ValueError(f"{path}: a sharded train state is read onto a template state")
+        return checkpoint.restore_sharded(path, template, mesh, row_sharded=rows is not None)
     if p.is_dir() or p.suffix in (".msgpack", ".orbax"):
         raise ValueError(f"{path}: JAX train states (.msgpack, orbax) do not resume in the port "
                          "(ROADMAP queue 1, item 15); resume from the port's own "
-                         "{name}_trainstate.pt")
-    return SliderTrainState.from_state_dict(
+                         "{name}_trainstate.pt or {name}_trainstate.dcp")
+    state = SliderTrainState.from_state_dict(
         torch.load(p, map_location="cpu", weights_only=True), device)
+    if rows is not None:
+        lo, hi = rows
+        state.lora = _slice_rows(state.lora, lo, hi)
+        state.opt_state = _slice_rows(state.opt_state, lo, hi)
+    return state
+
+
+def _slice_rows(tree, lo: int, hi: int):
+    """Rows [lo, hi) of every tensor with a leading axis (0-d leaves and
+    Python scalars kept)."""
+    if isinstance(tree, dict):
+        return {k: _slice_rows(v, lo, hi) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.ndim > 0:
+        return tree[lo:hi].clone()
+    return tree
+
+
+def save_train_state(stem: Path, state: SliderTrainState, mesh=None,
+                     row_sharded: bool = False) -> None:
+    """`{stem}.pt` without a mesh; under one, the sharded `{stem}.dcp`
+    directory (`checkpoint.save_sharded`; every rank calls)."""
+    if mesh is None:
+        torch.save(state.state_dict(), f"{stem}.pt")
+    else:
+        checkpoint.save_sharded(f"{stem}.dcp", state, mesh, row_sharded=row_sharded)
 
 
 def _param_device(tree: dict) -> torch.device:
@@ -234,11 +278,13 @@ def _slider_optimizer(config: RootConfig, trainable_mask: dict):
     )
 
 
-def draw_unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) -> dict:
+def draw_unet_lora(config: RootConfig, models: SDModels, seed: int, device, mesh=None,
+                   **init) -> dict:
     """The UNet's slider LoRA drawn on the CPU from seed + 1 (master
-    weights in f32; the compute casts), moved to `device`."""
+    weights in f32; the compute casts), moved to `device`; whole on every
+    rank of a mesh, sized from the UNet's whole weights."""
     lora = lnet.create_slider_network(
-        torch.Generator().manual_seed(seed + 1), models.unet_params,
+        torch.Generator().manual_seed(seed + 1), whole_params(mesh, models.unet_params),
         rank=config.network.rank, alpha=config.network.alpha,
         train_method=config.network.training_method, network_type=config.network.type,
         dtype=torch.float32, **init,
@@ -246,8 +292,9 @@ def draw_unet_lora(config: RootConfig, models: SDModels, seed: int, device, **in
     return {m: {k: t.to(device) for k, t in e.items()} for m, e in lora.items()}
 
 
-def _unet_lora(config: RootConfig, models: SDModels, seed: int, device, **init) -> dict:
-    lora = draw_unet_lora(config, models, seed, device, **init)
+def _unet_lora(config: RootConfig, models: SDModels, seed: int, device, mesh=None,
+               **init) -> dict:
+    lora = draw_unet_lora(config, models, seed, device, mesh, **init)
     print(f"create LoRA for U-Net: {len(lora)} modules.")
     return lora
 
@@ -276,12 +323,15 @@ def train_text_sliders(
     resume_from: Optional[str] = None,
     seed: int = 0,
     on_step=None,
+    mesh=None,
 ) -> dict:
     """Run the text-slider training loop on the device of the UNet's
     parameters; returns the final LoRA weights. `on_step(step, state,
-    metrics)` is called after every iteration."""
-    _refuse_unported(config)
+    metrics)` is called after every iteration. `mesh`: the process mesh
+    the step splits over (`make_text_slider_step`)."""
     tpu = config.tpu
+    main = mesh is None or mesh.is_main
+    n_dp = 1 if mesh is None else mesh.size("dp")
     device = _param_device(models.unet_params)
     save_dir = Path(config.save.path)
     ext = ".safetensors" if config.save.format == "safetensors" else ".pt"
@@ -299,7 +349,7 @@ def train_text_sliders(
     sampler = make_sampler(schedule, config.train.noise_scheduler,
                            config.train.max_denoising_steps)
 
-    lora = _unet_lora(config, models, seed, device)
+    lora = _unet_lora(config, models, seed, device, mesh)
     optimizer = _slider_optimizer(config, lnet.trainable_mask(lora))
 
     steps: dict = {}
@@ -312,8 +362,8 @@ def train_text_sliders(
             steps[(bucket_key, hw)] = make_text_slider_step(
                 models.unet_config, schedule, sampler, optimizer,
                 max_denoising_steps=config.train.max_denoising_steps, resolution=hw,
-                batch_size=batch * max(tpu.per_device_batch, 1),
-                compute_dtype=compute_dtype, remat=tpu.remat, is_xl=models.is_xl,
+                batch_size=batch * max(tpu.per_device_batch, 1) * n_dp,
+                compute_dtype=compute_dtype, remat=tpu.remat, is_xl=models.is_xl, mesh=mesh,
             )
             bucket_pairs[(bucket_key, hw)] = build_pairs(buckets[bucket_key], cache,
                                                          models.is_xl, resolution_hw=hw)
@@ -321,17 +371,18 @@ def train_text_sliders(
 
     state = SliderTrainState.create(seed, lora, optimizer)
     if resume_from is not None:
-        state = load_train_state(resume_from, device)
+        state = load_train_state(resume_from, device, template=state, mesh=mesh)
         print(f"resumed from {resume_from} at step {state.step}")
 
     metadata = {"prompts": [p.to_dict() for p in prompts], "config": to_dict(config)}
-    save_dir.mkdir(parents=True, exist_ok=True)
-    with open(save_dir / f"{config.save.name}_metadata.json", "w") as f:
-        json.dump(metadata, f, indent=2)
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        with open(save_dir / f"{config.save.name}_metadata.json", "w") as f:
+            json.dump(metadata, f, indent=2)
     _note_steps_per_call(config)
 
     wandb = None
-    if config.logging.use_wandb:
+    if config.logging.use_wandb and main:
         import wandb
 
         wandb.init(project=f"LECO_{config.save.name}", config=metadata)
@@ -342,7 +393,7 @@ def train_text_sliders(
     t_last = time.perf_counter()
     save_dtype = lora_io.torch_precision(config.save.precision)
 
-    with _loop_trace(tpu.profile_dir, device, config.save.name):
+    with _loop_trace(tpu.profile_dir if main else "", device, config.save.name):
         for sj in range(state.step, config.train.iterations):
             bk = bucket_keys[host_rng.integers(len(bucket_keys))] if len(bucket_keys) > 1 \
                 else bucket_keys[0]
@@ -369,14 +420,16 @@ def train_text_sliders(
 
             if _save_due(sj, config.save.per_steps, config.train.iterations):
                 print("Saving...")
-                lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"),
-                                    state.lora, dtype=save_dtype)
+                if main:
+                    lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"),
+                                        state.lora, dtype=save_dtype)
             if tpu.state_checkpoint_every and sj % tpu.state_checkpoint_every == 0 and sj != 0:
-                torch.save(state.state_dict(), save_dir / f"{config.save.name}_trainstate.pt")
+                save_train_state(save_dir / f"{config.save.name}_trainstate", state, mesh)
 
     print("Saving...")
-    lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora,
-                        dtype=save_dtype)
+    if main:
+        lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora,
+                            dtype=save_dtype)
     print("Done.")
     return _cpu_lora(state.lora)
 
@@ -480,6 +533,7 @@ def train_image_sliders(
     *,
     seed: int = 0,
     on_step=None,
+    mesh=None,
 ) -> dict:
     """The image-slider loop of the JAX package's train_image_slider CLI
     (`train_one`) on the device of the UNet's parameters: the first prompt
@@ -489,8 +543,10 @@ def train_image_sliders(
     call per iteration, `{name}_{i}steps` saves at the JAX CLI's steps, then
     `{name}_last`. Returns the final LoRA on the CPU; `on_step(step, state,
     metrics)` is called after every iteration, the step's metrics with
-    `read_s`, the host seconds of the pair's decode and resize."""
-    _refuse_unported(config)
+    `read_s`, the host seconds of the pair's decode and resize. `mesh`:
+    the process mesh the fused +-s batch splits over; only its main rank
+    writes files."""
+    main = mesh is None or mesh.is_main
     _note_text_loop_only(config)
     _note_f32_under_fp16(config, "image slider training")
     if models.vae_params is None:
@@ -505,13 +561,14 @@ def train_image_sliders(
     sampler = make_sampler(schedule, config.train.noise_scheduler,
                            config.train.max_denoising_steps)
     # image sliders use kaiming a = sqrt(5) down-init (imagesliders/lora.py:96)
-    lora = _unet_lora(config, models, seed, device, init_a=math.sqrt(5))
+    lora = _unet_lora(config, models, seed, device, mesh, init_a=math.sqrt(5))
     optimizer = _slider_optimizer(config, lnet.trainable_mask(lora))
     _note_steps_per_call(config)
     step = make_image_slider_step(
         models.unet_config, models.vae_config, schedule, sampler, optimizer,
         max_denoising_steps=config.train.max_denoising_steps,
         compute_dtype=load_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl,
+        mesh=mesh,
     )
     state = SliderTrainState.create(seed, lora, optimizer)
 
@@ -526,7 +583,8 @@ def train_image_sliders(
 
     host_rng = np.random.default_rng(seed)
     save_dir = Path(config.save.path)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
     ext = ".safetensors" if config.save.format == "safetensors" else ".pt"
     iterations, per = config.train.iterations, config.save.per_steps
     for sj in range(iterations):
@@ -544,8 +602,11 @@ def train_image_sliders(
             on_step(sj, state, m)
         if _save_due(sj, per, iterations):
             print("Saving...")
-            lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"), state.lora)
+            if main:
+                lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"),
+                                    state.lora)
     print("Saving...")
-    lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
+    if main:
+        lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
     print("Done.")
     return _cpu_lora(state.lora)

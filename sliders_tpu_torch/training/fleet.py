@@ -44,14 +44,20 @@ which hold a rerun and a row's isolation to 0, bit for bit; the solo steps
 keep cuDNN's defaults. Under f16 compute the text fleet sums its f16 GEMMs
 in f32, as the solo text step does.
 
-The steps run eagerly, as the solo steps do. Not ported (each raises when
-asked for): `chunk > 1` (ROADMAP queue 1, item 18) and the dp-sharded fleet
-over a device mesh (item 15).
+The dp-sharded fleet (`mesh=`, `parallel/mesh.py`): the K rows split over
+the mesh's dp with their adapters and optimizer states, each rank training
+K / dp sliders with no gradient collective (the per-row metrics are
+gathered for the printout); K % dp raises. tp splits the UNet's blocks as
+in the solo steps. The main rank writes every row's files.
+
+The steps run eagerly, as the solo steps do. Not ported (it raises when
+asked for): `chunk > 1` (ROADMAP queue 1, item 18).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import time
@@ -74,6 +80,11 @@ from sliders_tpu_torch.lora import io as lora_io
 from sliders_tpu_torch.lora import network as lnet
 from sliders_tpu_torch.models import unet2d, vae
 from sliders_tpu_torch.ops.basic import SliderLora, f16_sums_in_f32
+from sliders_tpu_torch.parallel.collectives import (
+    all_gather_rows,
+    all_reduce_grads,
+    tensor_parallel,
+)
 from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training.driver import (
     PromptEmbedsCache,
@@ -81,7 +92,6 @@ from sliders_tpu_torch.training.driver import (
     _note_steps_per_call,
     _note_text_loop_only,
     _param_device,
-    _refuse_unported,
     _save_due,
     _slider_optimizer,
     build_pairs,
@@ -89,6 +99,7 @@ from sliders_tpu_torch.training.driver import (
     draw_unet_lora,
     load_dtype_of,
     load_train_state,
+    save_train_state,
     to_u8,
 )
 from sliders_tpu_torch.training.image_slider import image_step_draws
@@ -135,10 +146,10 @@ def deterministic_cudnn():
 
 
 @contextlib.contextmanager
-def _fleet_step_flags():
+def _fleet_step_flags(mesh=None):
     """`deterministic_cudnn` and, as in the solo text step,
-    `f16_sums_in_f32`."""
-    with deterministic_cudnn(), f16_sums_in_f32():
+    `f16_sums_in_f32`, with the mesh's tp split (`tensor_parallel`)."""
+    with deterministic_cudnn(), f16_sums_in_f32(), tensor_parallel(mesh):
         yield
 
 
@@ -287,16 +298,35 @@ def fleet_step_draws(seed: int, step: int, n_pairs: Sequence[int], max_denoising
 # ---------------------------------------------------------------------------
 
 
-def _check_builder(optimizer: SliderOptimizer, optimizer_name: str, mesh, chunk: int) -> None:
+def _check_builder(optimizer: SliderOptimizer, optimizer_name: str, mesh, chunk: int,
+                   K: int) -> tuple:
+    """The builders' refusals; returns (local rows, first local row): the
+    fleet's K rows split over the mesh's dp (K % dp raises the JAX
+    package's ValueError)."""
     refuse_global_optimizer(optimizer_name)
     if optimizer is not None and optimizer.adaptive:
         refuse_global_optimizer(optimizer.kind.replace("_", ""))
     if chunk != 1:
         raise NotImplementedError("the chunk > 1 step variant is not ported yet "
                                   "(ROADMAP queue 1, item 18)")
-    if mesh is not None:
-        raise NotImplementedError("the dp-sharded fleet over a device mesh is not ported yet "
-                                  "(ROADMAP queue 1, item 15)")
+    dp = 1 if mesh is None else mesh.size("dp")
+    if K % dp:
+        raise ValueError(f"fleet size {K} must divide over dp={dp}")
+    return K // dp, (0 if mesh is None else mesh.coord("dp")) * (K // dp)
+
+
+def _gather_metrics(metrics: dict, keys: tuple, mesh) -> dict:
+    """The per-row metric lists of this rank's rows gathered over dp into
+    the fleet's K (the step's only collective without tp)."""
+    if mesh is None or mesh.size("dp") == 1:
+        return metrics
+    local = torch.tensor([metrics[k] for k in keys], dtype=torch.float64)  # (n_keys, K / dp)
+    whole = all_gather_rows(local.T.contiguous(), mesh).T
+    out = dict(metrics)
+    for i, k in enumerate(keys):
+        kind = type(metrics[k][0]) if metrics[k] else float
+        out[k] = [kind(v) for v in whole[i].tolist()]
+    return out
 
 
 def make_fleet_text_step(
@@ -352,9 +382,9 @@ def make_fleet_text_step(
         raise ValueError(f"t_to_mode must be per_row/shared/stratified, got {t_to_mode!r}")
     if t_to_mode == "stratified" and not 1 <= t_to_strata <= max_denoising_steps - 1:
         raise ValueError(f"t_to_strata={t_to_strata} must be in [1, {max_denoising_steps - 1}]")
-    _check_builder(optimizer, optimizer_name, mesh, chunk)
-
-    K, B = n_sliders, batch_size
+    K_all = n_sliders
+    K, r0 = _check_builder(optimizer, optimizer_name, mesh, chunk, K_all)
+    B = batch_size
     KB = K * B
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
     grid_stride = schedule.num_train_timesteps // max_denoising_steps
@@ -381,14 +411,19 @@ def make_fleet_text_step(
 
     def step(state: SliderTrainState, unet_params: dict, pairs: dict, draws=None):
         device = pairs["target"].device
-        n_pairs = [int(n) for n in pairs["n_pairs"]]
         if draws is None:
-            draws = fleet_step_draws(state.seed, state.step, n_pairs, max_denoising_steps,
+            draws = fleet_step_draws(state.seed, state.step,
+                                     [int(n) for n in pairs["n_pairs"]], max_denoising_steps,
                                      latent_shape, sampler.init_noise_sigma, mode=t_to_mode,
                                      strata=t_to_strata, crop=is_xl,
                                      ancestral=sampler.stochastic)
-        if len(draws) != K:
-            raise ValueError(f"{len(draws)} rows of draws for a fleet of {K}")
+        if len(draws) != K_all:
+            raise ValueError(f"{len(draws)} rows of draws for a fleet of {K_all}")
+        all_idx, all_t_to = [int(d[0]) for d in draws], [int(d[1]) for d in draws]
+        # this rank's rows of the draws and pairs (all of them without dp)
+        draws = draws[r0:r0 + K]
+        pairs = {k: v[r0:r0 + K] for k, v in pairs.items()}
+        n_pairs = [int(n) for n in pairs["n_pairs"]]
         idx = [int(d[0]) for d in draws]
         t_to = [int(d[1]) for d in draws]
         for r in range(K):
@@ -475,17 +510,25 @@ def make_fleet_text_step(
                      lora=SliderLora(weights=_repeat_rows(leaves, B), multiplier=1.0)).float()
         diff = eps_t - goal
         loss_vec = (diff * diff).reshape(K, -1).mean(dim=1)
-        grads = lora_grads(loss_vec.sum(), leaves)
+        grads = _tp_whole(lora_grads(loss_vec.sum(), leaves), mesh)
         timer.mark("grad")
         optimizer.update(state.lora, grads, state.opt_state)
         state.step += 1
         timer.mark("update")
-        metrics = {"loss": loss_vec.tolist(), "t_to": t_to, "pair": idx,
+        metrics = {"loss": loss_vec.tolist(), "t_to": all_t_to, "pair": all_idx,
                    "grad_norm": _row_norms(grads, K), "loop": loop,
                    "phase_ms": timer.phase_ms()}
-        return state, metrics
+        return state, _gather_metrics(metrics, ("loss", "grad_norm"), mesh)
 
-    return run_under(_fleet_step_flags, step)
+    return run_under(functools.partial(_fleet_step_flags, mesh), step)
+
+
+def _tp_whole(grads: dict, mesh) -> dict:
+    """A fleet gradient made whole over tp (the split modules' leaves
+    summed); rows never exchange data over dp."""
+    if mesh is None or mesh.size("tp") == 1:
+        return grads
+    return all_reduce_grads(grads, mesh, dp=False)
 
 
 def _row_norms(grads: dict, K: int) -> list:
@@ -534,14 +577,21 @@ def make_fleet_image_step(
     gives it. It runs under `deterministic_cudnn`. The step computes in
     `compute_dtype`, which `train_fleet_images` takes from the load dtype
     (f32 under fp16), as the JAX image CLI does."""
-    _check_builder(optimizer, optimizer_name, mesh, chunk)
-    K = n_sliders
+    K_all = n_sliders
+    K, r0 = _check_builder(optimizer, optimizer_name, mesh, chunk, K_all)
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
     grid_stride = schedule.num_train_timesteps // max_denoising_steps
 
     def step(state: SliderTrainState, unet_params: dict, vae_params: dict, batch: dict,
              draws=None):
         device = batch["positive"].device
+        if len(batch["images_high"]) != K_all:
+            raise ValueError(f"{len(batch['images_high'])} rows of images for a fleet of {K_all}")
+        if draws is not None and len(draws) != K_all:
+            raise ValueError(f"{len(draws)} rows of draws for a fleet of {K_all}")
+        # this rank's rows (all of them without dp)
+        batch = {k: v[r0:r0 + K] for k, v in batch.items()}
+        draws = None if draws is None else draws[r0:r0 + K]
         B = batch["images_high"].shape[1]
         KB = K * B
         timer = _PhaseTimer(device)
@@ -564,9 +614,7 @@ def make_fleet_image_step(
             if draws is None:
                 draws = [image_step_draws(fleet_row_seed(state.seed, r), state.step,
                                           max_denoising_steps, (B, *mean.shape[1:]))
-                         for r in range(K)]
-            if len(draws) != K:
-                raise ValueError(f"{len(draws)} rows of draws for a fleet of {K}")
+                         for r in range(r0, r0 + K)]
             t_to = [int(d[0]) for d in draws]
             if not all(1 <= t < max_denoising_steps - 1 for t in t_to):
                 raise ValueError(f"t_to {t_to} out of [1, {max_denoising_steps - 1})")
@@ -602,16 +650,16 @@ def make_fleet_image_step(
                            remat=remat).float()
         diff = eps - noise
         loss_vec = 2.0 * (diff * diff).reshape(2, K, -1).mean(dim=(0, 2))
-        grads = lora_grads(loss_vec.sum(), leaves)
+        grads = _tp_whole(lora_grads(loss_vec.sum(), leaves), mesh)
         timer.mark("grad")
         optimizer.update(state.lora, grads, state.opt_state)
         state.step += 1
         timer.mark("update")
         metrics = {"loss": loss_vec.tolist(), "t_to": t_to, "scale": s.tolist(),
                    "grad_norm": _row_norms(grads, K), "phase_ms": timer.phase_ms()}
-        return state, metrics
+        return state, _gather_metrics(metrics, ("loss", "t_to", "scale", "grad_norm"), mesh)
 
-    return run_under(_fleet_step_flags, step)
+    return run_under(functools.partial(_fleet_step_flags, mesh), step)
 
 
 # ---------------------------------------------------------------------------
@@ -619,14 +667,38 @@ def make_fleet_image_step(
 # ---------------------------------------------------------------------------
 
 
-def _fleet_loras(config, models, seed: int, K: int, device, **init) -> dict:
-    """The stacked initial LoRA: row r's is the solo run's of seed
-    `fleet_row_seed(seed, r)` (drawn from that seed + 1)."""
-    return stack_fleet([draw_unet_lora(config, models, fleet_row_seed(seed, r), device, **init)
-                        for r in range(K)])
+def _fleet_loras(config, models, seed: int, rows: range, device, mesh=None, **init) -> dict:
+    """The stacked initial LoRA of fleet rows `rows`: row r's is the solo
+    run's of seed `fleet_row_seed(seed, r)` (drawn from that seed + 1)."""
+    return stack_fleet([draw_unet_lora(config, models, fleet_row_seed(seed, r), device, mesh,
+                                       **init) for r in rows])
 
 
-def _save_all(save_dir: Path, names: list, lora: dict, suffix: str, ext: str, dtype) -> None:
+def _local_rows(K: int, mesh) -> range:
+    """The fleet rows this rank trains: its dp share of range(K)."""
+    if mesh is None:
+        return range(K)
+    if K % mesh.size("dp"):
+        raise ValueError(f"fleet size {K} must divide over dp={mesh.size('dp')}")
+    n = K // mesh.size("dp")
+    return range(mesh.coord("dp") * n, (mesh.coord("dp") + 1) * n)
+
+
+def _whole_fleet(lora: dict, mesh) -> dict:
+    """The fleet's K rows from every rank's share (a gather over dp; every
+    rank takes part)."""
+    if mesh is None or mesh.size("dp") == 1:
+        return lora
+    return {m: {k: all_gather_rows(t, mesh) for k, t in e.items()} for m, e in lora.items()}
+
+
+def _save_all(save_dir: Path, names: list, lora: dict, suffix: str, ext: str, dtype,
+              mesh=None) -> None:
+    """Every row's slider file, written by the main rank from the whole
+    fleet (every rank takes part in the gather)."""
+    lora = _whole_fleet(lora, mesh)
+    if mesh is not None and not mesh.is_main:
+        return
     for name, solo in zip(names, unstack_fleet(lora)):
         lora_io.save_slider(str(save_dir / f"{name}{suffix}{ext}"), solo, dtype=dtype)
 
@@ -647,6 +719,7 @@ def train_fleet(
     shared_t_to: bool = False,
     t_to_mode: Optional[str] = None,
     t_to_strata: int = 8,
+    mesh=None,
 ) -> list:
     """Train len(prompt_sets) text sliders at once on the device of the
     UNet's parameters; returns their final LoRAs on the CPU, in input order.
@@ -660,8 +733,13 @@ def train_fleet(
     slider's `{name}_{i}steps{ext}` at the solo driver's steps and
     `{name}_last{ext}`, and the train state `{save.name}_fleet_trainstate.pt`
     every `tpu.state_checkpoint_every` iterations, from which
-    `resume_from` continues."""
-    _refuse_unported(config)
+    `resume_from` continues.
+
+    Under a process mesh (`mesh=`) each rank trains its dp share of the K
+    rows (their adapters and optimizer states), with no gradient
+    collective; the main rank writes every row's files, the file set of
+    the dp = 1 run, and the train state is `{save.name}_fleet_trainstate.dcp`
+    (`training/checkpoint.py`), from which a run on another dp resumes."""
     _note_text_loop_only(config)
     refuse_global_optimizer(config.train.optimizer)
     tpu = config.tpu
@@ -683,7 +761,8 @@ def train_fleet(
         prediction_type="v_prediction" if config.pretrained_model.v_pred else "epsilon")
     sampler = make_sampler(schedule, config.train.noise_scheduler,
                            config.train.max_denoising_steps)
-    fleet_lora = _fleet_loras(config, models, seed, K, device)
+    rows = _local_rows(K, mesh)
+    fleet_lora = _fleet_loras(config, models, seed, rows, device, mesh)
     print(f"fleet: {K} sliders x {len(fleet_lora)} LoRA modules")
     optimizer = _slider_optimizer(config, lnet.trainable_mask(fleet_lora))
     pairs = stack_fleet_pairs([build_pairs(settings, cache, models.is_xl)
@@ -694,18 +773,21 @@ def train_fleet(
         max_denoising_steps=config.train.max_denoising_steps, resolution=resolution,
         batch_size=batch * max(tpu.per_device_batch, 1), compute_dtype=compute_dtype_of(config),
         remat=tpu.remat, is_xl=models.is_xl, shared_t_to=shared_t_to, t_to_mode=t_to_mode,
-        t_to_strata=t_to_strata)
+        t_to_strata=t_to_strata, mesh=mesh)
 
     state = SliderTrainState.create(seed, fleet_lora, optimizer)
     if resume_from is not None:
-        state = load_train_state(resume_from, device)
+        state = load_train_state(resume_from, device, template=state, mesh=mesh,
+                                 rows=(rows.start, rows.stop))
         print(f"fleet resumed from {resume_from} at step {state.step}")
 
-    save_dir.mkdir(parents=True, exist_ok=True)
-    with open(save_dir / f"{config.save.name}_fleet_metadata.json", "w") as f:
-        json.dump({"sliders": names,
-                   "prompts": {n: [p.to_dict() for p in ss] for n, ss in prompt_sets},
-                   "config": to_dict(config)}, f, indent=2)
+    main = mesh is None or mesh.is_main
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        with open(save_dir / f"{config.save.name}_fleet_metadata.json", "w") as f:
+            json.dump({"sliders": names,
+                       "prompts": {n: [p.to_dict() for p in ss] for n, ss in prompt_sets},
+                       "config": to_dict(config)}, f, indent=2)
     _note_steps_per_call(config)
     save_dtype = lora_io.torch_precision(config.save.precision)
 
@@ -724,14 +806,15 @@ def train_fleet(
             on_step(sj, state, m)
         if _save_due(sj, config.save.per_steps, config.train.iterations):
             print("Saving...")
-            _save_all(save_dir, names, state.lora, f"_{sj}steps", ext, save_dtype)
+            _save_all(save_dir, names, state.lora, f"_{sj}steps", ext, save_dtype, mesh)
         if tpu.state_checkpoint_every and sj % tpu.state_checkpoint_every == 0 and sj != 0:
-            torch.save(state.state_dict(), save_dir / f"{config.save.name}_fleet_trainstate.pt")
+            save_train_state(save_dir / f"{config.save.name}_fleet_trainstate", state, mesh,
+                             row_sharded=True)
 
     print("Saving...")
-    _save_all(save_dir, names, state.lora, "_last", ext, save_dtype)
+    _save_all(save_dir, names, state.lora, "_last", ext, save_dtype, mesh)
     print("Done.")
-    return _cpu_rows(state.lora)
+    return _cpu_rows(_whole_fleet(state.lora, mesh))
 
 
 def train_fleet_images(
@@ -745,6 +828,7 @@ def train_fleet_images(
     *,
     seed: int = 0,
     on_step=None,
+    mesh=None,
 ) -> list:
     """One image slider per (name, folder_main) entry, all in one step
     (`make_fleet_image_step`): the fleet path of the reference's
@@ -755,8 +839,10 @@ def train_fleet_images(
     `{name}_{i}steps{ext}` at the solo CLI's steps and `{name}_last{ext}`.
     Returns the final LoRAs on the CPU in input order; `on_step(step,
     state, metrics)` is called after every iteration, the metrics with
-    `read_s`, the host seconds of the K pairs' decode and resize."""
-    _refuse_unported(config)
+    `read_s`, the host seconds of the K pairs' decode and resize. Under a
+    process mesh each rank trains its dp share of the rows, as in
+    `train_fleet`; every rank reads every pair, so the host stream is the
+    dp = 1 run's."""
     _note_text_loop_only(config)
     _note_f32_under_fp16(config, "image fleet training")
     refuse_global_optimizer(config.train.optimizer)
@@ -774,7 +860,8 @@ def train_fleet_images(
     sampler = make_sampler(schedule, config.train.noise_scheduler,
                            config.train.max_denoising_steps)
     # image sliders use kaiming a = sqrt(5) down-init (imagesliders/lora.py:96)
-    fleet_lora = _fleet_loras(config, models, seed, K, device, init_a=math.sqrt(5))
+    fleet_lora = _fleet_loras(config, models, seed, _local_rows(K, mesh), device, mesh,
+                              init_a=math.sqrt(5))
     print(f"fleet: {K} image sliders x {len(fleet_lora)} LoRA modules")
     optimizer = _slider_optimizer(config, lnet.trainable_mask(fleet_lora))
     _note_steps_per_call(config)
@@ -782,7 +869,8 @@ def train_fleet_images(
         models.unet_config, models.vae_config, schedule, sampler, optimizer, n_sliders=K,
         optimizer_name=config.train.optimizer,
         max_denoising_steps=config.train.max_denoising_steps,
-        compute_dtype=load_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl)
+        compute_dtype=load_dtype_of(config), remat=config.tpu.remat, is_xl=models.is_xl,
+        mesh=mesh)
     state = SliderTrainState.create(seed, fleet_lora, optimizer)
 
     batch_static = {}
@@ -799,7 +887,8 @@ def train_fleet_images(
 
     host_rng = np.random.default_rng(seed)
     save_dir = Path(config.save.path)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if mesh is None or mesh.is_main:
+        save_dir.mkdir(parents=True, exist_ok=True)
     ext = ".safetensors" if config.save.format == "safetensors" else ".pt"
     iterations, per = config.train.iterations, config.save.per_steps
     for sj in range(iterations):
@@ -821,8 +910,8 @@ def train_fleet_images(
             on_step(sj, state, m)
         if _save_due(sj, per, iterations):
             print("Saving...")
-            _save_all(save_dir, names, state.lora, f"_{sj}steps", ext, torch.float32)
+            _save_all(save_dir, names, state.lora, f"_{sj}steps", ext, torch.float32, mesh)
     print("Saving...")
-    _save_all(save_dir, names, state.lora, "_last", ext, torch.float32)
+    _save_all(save_dir, names, state.lora, "_last", ext, torch.float32, mesh)
     print("Done.")
-    return _cpu_rows(state.lora)
+    return _cpu_rows(_whole_fleet(state.lora, mesh))

@@ -26,11 +26,18 @@ of each of the 2B images, one noise tensor shared by the two halves) come
 from `text_slider.draw_generator(seed, step)` on the CPU, so a device and a
 rerun draw the same; a parity test passes the JAX package's in as `draws`.
 
-Not ported (each raises when asked for): `chunk > 1` (ROADMAP queue 1,
-item 18) and a device mesh (item 15).
+Under a process mesh (`mesh=`) the fused 2B-row batch is split over dp
+(`text_slider.mesh_grad_pass`), the LoRA gradient made whole over the
+mesh; the VAE encode runs whole on every rank. tp splits the UNet's
+attention and feed-forward blocks.
+
+Not ported (it raises when asked for): `chunk > 1` (ROADMAP queue 1, item
+18).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -38,6 +45,7 @@ from sliders_tpu_torch.diffusion.guidance import train_grid_tables
 from sliders_tpu_torch.diffusion.schedulers import DiffusionSchedule, Sampler
 from sliders_tpu_torch.models import unet2d, vae
 from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.parallel.collectives import tensor_parallel
 from sliders_tpu_torch.training.optimizers import SliderOptimizer
 from sliders_tpu_torch.training.text_slider import (
     SliderTrainState,
@@ -45,6 +53,8 @@ from sliders_tpu_torch.training.text_slider import (
     backward_and_update,
     draw_generator,
     lora_leaves,
+    mesh_grad_pass,
+    run_under,
 )
 
 
@@ -88,8 +98,6 @@ def make_image_slider_step(
     if chunk != 1:
         raise NotImplementedError("the chunk > 1 step variant is not ported yet "
                                   "(ROADMAP queue 1, item 18)")
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1, item 15)")
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
     grid_stride = schedule.num_train_timesteps // max_denoising_steps
 
@@ -139,16 +147,25 @@ def make_image_slider_step(
             timer.mark("encode")
 
         leaves = lora_leaves(state.lora)
-        eps = unet2d.apply(unet_params, unet_cfg, x_in, t_cur, ehs, added_cond=added,
-                           lora=SliderLora(weights=leaves, multiplier=mult.to(device)),
-                           remat=remat).float()
-        diff = eps - noise
+
+        def forward(lo, hi):
+            return unet2d.apply(
+                unet_params, unet_cfg, x_in[lo:hi], t_cur, ehs[lo:hi],
+                added_cond=None if added is None else {k: v[lo:hi] for k, v in added.items()},
+                lora=SliderLora(weights=leaves, multiplier=mult[lo:hi].to(device)),
+                remat=remat).float()
+
         # the sum of the two sides' MSEs (the reference accumulates both
         # backwards before one optimizer step)
-        loss = 2.0 * torch.mean(diff * diff)
-        grad_norm = backward_and_update(state, optimizer, loss, leaves, timer)
+        if mesh is None:
+            diff = forward(0, 2 * B) - noise
+            loss = 2.0 * torch.mean(diff * diff)
+            grad_norm = backward_and_update(state, optimizer, loss, leaves, timer)
+        else:
+            loss, grad_norm = mesh_grad_pass(state, optimizer, leaves, timer, mesh, noise,
+                                             forward, scale=2.0)
         metrics = {"loss": loss.item(), "t_to": t_to, "scale": float(s),
                    "grad_norm": grad_norm.item(), "phase_ms": timer.phase_ms()}
         return state, metrics
 
-    return step
+    return run_under(functools.partial(tensor_parallel, mesh), step)

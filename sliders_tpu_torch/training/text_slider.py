@@ -35,13 +35,23 @@ tensor of the latents' shape per denoise step, the fifth entry of the draws
 Under f16 compute (`precision: fp16`) cuBLAS sums the step's f16 GEMMs in
 f32 (`ops.basic.f16_sums_in_f32`), as the JAX package does.
 
+Under a process mesh (`mesh=`, `parallel/mesh.py`) the row axis of every
+fan-out is split over dp where the JAX step constrains it
+(`constrain_batch`): the CFG-doubled denoise input (2B rows) and the 3B-row
+frozen pass run on each rank's rows and are gathered whole for the CFG
+combine and the loss's targets; the B-row grad pass runs on each rank's
+rows, its LoRA gradient made whole by `all_reduce_grads`, and the loss is
+the global mean. Every rank draws the same (seed, step) stream, holds the
+whole LoRA and applies the same update. tp splits the attention and
+feed-forward blocks (`collectives.tensor_parallel`).
+
 Not ported (each raises when asked for): the `fused_tail`, `denoise_merged`
-and `chunk > 1` variants (ROADMAP queue 1, item 18) and a device mesh (item
-15).
+and `chunk > 1` variants (ROADMAP queue 1, item 18).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Optional
@@ -52,6 +62,14 @@ from sliders_tpu_torch.diffusion.guidance import train_grid_tables
 from sliders_tpu_torch.diffusion.schedulers import DiffusionSchedule, Sampler
 from sliders_tpu_torch.models import unet2d
 from sliders_tpu_torch.ops.basic import SliderLora, f16_sums_in_f32
+from sliders_tpu_torch.parallel.collectives import (
+    all_reduce_grads,
+    all_reduce_sum,
+    gather_rows,
+    row_range,
+    scatter_rows,
+    tensor_parallel,
+)
 from sliders_tpu_torch.pipelines.text2image import get_add_time_ids
 from sliders_tpu_torch.training.optimizers import SliderOptimizer
 
@@ -235,8 +253,6 @@ def make_text_slider_step(
     if fused_tail or denoise_merged or chunk != 1:
         raise NotImplementedError("the fused_tail, denoise_merged and chunk > 1 step variants are "
                                   "not ported yet (ROADMAP queue 1, item 18)")
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP queue 1, item 15)")
     ts1000, scale1000 = train_grid_tables(schedule, sampler.kind)
     grid_stride = schedule.num_train_timesteps // max_denoising_steps
     height, width = resolution if isinstance(resolution, tuple) else (resolution, resolution)
@@ -245,6 +261,20 @@ def make_text_slider_step(
     def unet(params, x, t, ehs, added, lora=None):
         return unet2d.apply(params, unet_cfg, x, t, ehs, added_cond=added, lora=lora,
                             remat=remat)
+
+    def unet_rows(params, x, t, ehs, added, lora=None):
+        """`unet` on this rank's rows of an n-row fan-out (all of them
+        without a mesh), the outputs gathered whole over dp."""
+        if mesh is None:
+            return unet(params, x, t, ehs, added, lora)
+        n = x.shape[0]
+        x, ehs = scatter_rows(x, mesh), scatter_rows(ehs, mesh)
+        out = x.new_empty((0, *x.shape[1:3], unet_cfg.out_channels))
+        if len(x):
+            out = unet(params, x, t, ehs,
+                       None if added is None else {k: scatter_rows(v, mesh)
+                                                   for k, v in added.items()}, lora)
+        return gather_rows(out, n, mesh)
 
     def rep(e):
         """(...) -> (batch_size, ...) in the compute dtype (the time ids too,
@@ -297,7 +327,8 @@ def make_text_slider_step(
             s_state = sampler.init_state(x)
             for i in range(t_to):
                 x_in = sampler.scale_model_input(torch.cat([x, x]), i).to(compute_dtype)
-                eps = unet(unet_params, x_in, timesteps[i], ehs_cfg, added_cfg, lora=lora_on)
+                eps = unet_rows(unet_params, x_in, timesteps[i], ehs_cfg, added_cfg,
+                                lora=lora_on)
                 eps_u, eps_c = eps.chunk(2)
                 eps_g = eps_u + denoise_guidance * (eps_c - eps_u)
                 x, s_state = sampler.step(i, eps_g, x, s_state,
@@ -315,20 +346,67 @@ def make_text_slider_step(
                               rep(pair["unconditional"])])
             added3 = added_concat(*(added_from(pair, r)
                                     for r in ("positive", "neutral", "unconditional")))
-            frozen = unet(unet_params, x_scaled.repeat(3, 1, 1, 1), t_cur, ehs3, added3).float()
+            frozen = unet_rows(unet_params, x_scaled.repeat(3, 1, 1, 1), t_cur, ehs3,
+                               added3).float()
             eps_pos, eps_neu, eps_unc = frozen.chunk(3)
             goal = eps_neu + pair["guidance_signed"] * (eps_pos - eps_unc)
             timer.mark("frozen")
 
         # 5 + 6. grad pass on the target prompt, slider ON
         leaves = lora_leaves(state.lora)
-        eps_t = unet(unet_params, x_scaled, t_cur, rep(pair["target"]), added_from(pair, "target"),
-                     lora=SliderLora(weights=leaves, multiplier=1.0)).float()
-        diff = eps_t - goal
-        loss = torch.mean(diff * diff)
-        grad_norm = backward_and_update(state, optimizer, loss, leaves, timer)
+        if mesh is None:
+            eps_t = unet(unet_params, x_scaled, t_cur, rep(pair["target"]),
+                         added_from(pair, "target"),
+                         lora=SliderLora(weights=leaves, multiplier=1.0)).float()
+            diff = eps_t - goal
+            loss = torch.mean(diff * diff)
+            grad_norm = backward_and_update(state, optimizer, loss, leaves, timer)
+        else:
+            loss, grad_norm = mesh_grad_pass(
+                state, optimizer, leaves, timer, mesh, goal,
+                lambda lo, hi: unet(
+                    unet_params, x_scaled[lo:hi], t_cur, rep(pair["target"])[lo:hi],
+                    (None if not is_xl else
+                     {k: v[lo:hi] for k, v in added_from(pair, "target").items()}),
+                    lora=SliderLora(weights=leaves, multiplier=1.0)).float())
         metrics = {"loss": loss.item(), "t_to": t_to, "pair": idx,
                    "grad_norm": grad_norm.item(), "phase_ms": timer.phase_ms()}
         return state, metrics
 
-    return run_under(f16_sums_in_f32, step)
+    return run_under(functools.partial(_step_context, mesh), step)
+
+
+@contextlib.contextmanager
+def _step_context(mesh):
+    """`f16_sums_in_f32` and the mesh's tp split (`tensor_parallel`)."""
+    with f16_sums_in_f32(), tensor_parallel(mesh):
+        yield
+
+
+def mesh_grad_pass(state: SliderTrainState, optimizer: SliderOptimizer, leaves: dict,
+                   timer: _PhaseTimer, mesh, target: torch.Tensor, forward,
+                   scale: float = 1.0) -> tuple:
+    """The grad pass of a step whose loss is `scale` * mean((out - target)^2)
+    over `target`'s n rows, with this rank's rows [lo, hi) of them
+    (`row_range` over dp) computed by `forward(lo, hi)`: the rank's share of
+    the loss sum, differentiated with respect to `leaves` (zeros on a rank
+    without rows), made whole by `all_reduce_grads` (the sum over tp of the
+    split modules' leaves, the mean over dp, so the rank's share is scaled
+    by dp), then the optimizer's update of `state`. Returns the global loss
+    and the gradient's global norm."""
+    lo, hi = row_range(target.shape[0], mesh.size("dp"), mesh.coord("dp"))
+    part = torch.zeros((), device=target.device)
+    if hi > lo:
+        diff = forward(lo, hi) - target[lo:hi]
+        part = scale * (diff * diff).sum() / target.numel()
+        grads = lora_grads(part * mesh.size("dp"), leaves)
+    else:
+        grads = {m: {k: torch.zeros_like(t) for k, t in e.items()} for m, e in leaves.items()}
+    grads = all_reduce_grads(grads, mesh)
+    timer.mark("grad")
+    optimizer.update(state.lora, grads, state.opt_state)
+    state.step += 1
+    grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for e in grads.values()
+                               for g in e.values()))
+    timer.mark("update")
+    return all_reduce_sum(part.float(), mesh), grad_norm

@@ -179,8 +179,12 @@ def test_t_to_mode_validation_and_variants():
         _builder("stratified", t_to_strata=0)
     with pytest.raises(NotImplementedError, match="item 18"):
         _builder(chunk=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _builder(mesh=object())
+    # the dp-sharded fleet is ported: a mesh builds, and K % dp raises JAX's error
+    from sliders_tpu_torch.parallel.mesh import make_mesh
+
+    assert callable(_builder(mesh=make_mesh(dp=2, world=2)))
+    with pytest.raises(ValueError, match=r"fleet size 2 must divide over dp=4"):
+        _builder(mesh=make_mesh(dp=4, world=4))
 
 
 @pytest.mark.parametrize("name", ["prodigy", "dadaptadam", "dadaptadamw", "dadaptlion"])

@@ -186,11 +186,14 @@ def test_train_fleet_refusals(root, tmp_path):
     with pytest.raises(ValueError, match="item 15"):
         _train(root, "--resume", str(msgpack))
     body = (root / "out.yaml").read_text()
-    (tmp_path / "dp.yaml").write_text(body.replace("tpu:\n", "tpu:\n  dp: 2\n", 1))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcli.main(tcli.build_parser().parse_args(
-            ["--config_file", str(tmp_path / "dp.yaml"), "--prompts_file",
-             str(root / "age.yaml"), "--device", "cpu"]))
+    # dp above 1 in one process builds no mesh (the JAX CLI's rule): the
+    # fleet trains unsharded
+    (tmp_path / "dp.yaml").write_text(body.replace("tpu:\n", "tpu:\n  dp: 2\n", 1).replace(
+        str(root / "out"), str(tmp_path / "out")))
+    rows = tcli.main(tcli.build_parser().parse_args(
+        ["--config_file", str(tmp_path / "dp.yaml"), "--prompts_file",
+         str(root / "age.yaml"), "--device", "cpu"]))
+    assert len(rows) == 1
     smile = (root / "smile.yaml").read_text()
     for new, match in (("resolution: 64\n  dynamic_resolution: true", "dynamic_resolution"),
                        ("resolution: 128", "ONE .resolution, batch. bucket")):

@@ -190,9 +190,18 @@ def test_per_row_multiplier_equals_two_scalar_calls():
 
 
 def test_step_refusals():
-    """A mesh and chunk > 1 name ROADMAP items 15 and 18."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _port_step(False, mesh=object())
+    """chunk > 1 names ROADMAP item 18. A mesh is ported: `mesh=` builds
+    the sharded step, which on a single-process mesh is the unsharded step,
+    bit for bit."""
+    from sliders_tpu_torch.parallel.mesh import make_mesh
+
+    batch = {k: torch.from_numpy(v) for k, v in _batch(False).items()}
+    batch["scale"] = 1.5
+    (s0, st0, p, v), (s1, st1, _, _) = _port_step(False), _port_step(False, mesh=make_mesh())
+    st0, m0 = s0(st0, p, v, batch)
+    st1, m1 = s1(st1, p, v, batch)
+    assert (m1["loss"], m1["grad_norm"]) == (m0["loss"], m0["grad_norm"])
+    assert all(torch.equal(st1.lora[m][k], st0.lora[m][k]) for m in st0.lora for k in st0.lora[m])
     with pytest.raises(NotImplementedError, match="item 18"):
         _port_step(False, chunk=2)
 

@@ -380,8 +380,32 @@ def test_step_draws_repeat_per_step():
 @pytest.mark.parametrize("kw,item", [({"fused_tail": True}, "item 18"),
                                      ({"denoise_merged": True}, "item 18"),
                                      ({"chunk": 2}, "item 18"), ({"mesh": object()}, "item 15")])
-def test_step_variants_not_ported_raise(kw, item):
+def test_step_variants_not_ported_raise(kw, item, tiny):
+    """The item 18 variants raise. A mesh is ported (item 15's UNet part):
+    `mesh=` builds the sharded step, and on a single-process mesh it is the
+    unsharded step, bit for bit."""
     sched = tsched.make_schedule()
+    if "mesh" in kw:
+        from sliders_tpu_torch.parallel.mesh import make_mesh
+
+        _, _, tparams, tlora = tiny
+        tpairs = tts.stack_prompt_pairs(_pairs())
+        draws = tts.step_draws(0, 0, 2, 5, (1, 8, 8, 4), 1.0)
+        runs = []
+        for mesh in (None, make_mesh()):
+            tx = topt.make_optimizer("adamw", topt.make_lr_schedule("constant", 1e-4, 100),
+                                     trainable_mask=tnet.trainable_mask(tlora))
+            step = tts.make_text_slider_step(
+                tunet.TINY, sched, tsched.make_sampler(sched, "ddim", 5), tx,
+                max_denoising_steps=5, resolution=64, batch_size=1, compute_dtype=torch.float32,
+                remat=False, mesh=mesh)
+            state = tts.SliderTrainState.create(
+                0, {m: {k: t.clone() for k, t in e.items()} for m, e in tlora.items()}, tx)
+            runs.append(step(state, tparams, tpairs, draws=draws))
+        (s0, m0), (s1, m1) = runs
+        assert (m1["loss"], m1["grad_norm"]) == (m0["loss"], m0["grad_norm"])
+        assert all(torch.equal(s1.lora[m][k], s0.lora[m][k]) for m in s0.lora for k in s0.lora[m])
+        return
     with pytest.raises(NotImplementedError, match=item):
         tts.make_text_slider_step(tunet.TINY, sched, tsched.make_sampler(sched, "ddim", 5),
                                   None, **kw)
@@ -479,13 +503,25 @@ def test_cli_refuses_jax_states(cli_run, tmp_path):
     "old,new,item",
     [("tpu:\n", "tpu:\n  dp: 2\n", "item 15"), ("tpu:\n", "tpu:\n  tp: 2\n", "item 15")],
 )
-def test_driver_refuses_unported_options(cli_run, tmp_path, old, new, item):
-    _, config, _ = cli_run
-    body = open(config).read().replace(old, new, 1)
+def test_driver_refuses_unported_options(cli_run, tmp_path, old, new, item, one_torch_thread):
+    """The mesh options as the JAX CLI reads them (item 15's UNet part is
+    ported): `tpu.dp: 2` in one process builds no mesh and trains the
+    unsharded run, bit for bit; `tpu.tp: 2` in one process raises
+    `make_mesh`'s error."""
+    root, config, _ = cli_run
+    body = open(config).read().replace(f"path: {root / 'out'}", f"path: {tmp_path / 'out'}")
     path = tmp_path / "c.yaml"
-    path.write_text(body)
-    with pytest.raises(NotImplementedError, match=item):
-        _run_cli(["--config_file", str(path), "--device", "cpu"])
+    path.write_text(body.replace(old, new, 1))
+    if "tp: 2" in new:
+        with pytest.raises(ValueError, match=r"1 devices not divisible by tp\*sp\*pp=2"):
+            _run_cli(["--config_file", str(path), "--device", "cpu"])
+        return
+    sharded, seen = _run_cli(["--config_file", str(path), "--device", "cpu"])
+    plain_path = tmp_path / "plain.yaml"
+    plain_path.write_text(body)
+    plain, _ = _run_cli(["--config_file", str(plain_path), "--device", "cpu"])
+    assert [i for i, _ in seen] == list(range(6))
+    assert all(torch.equal(sharded[m][k], plain[m][k]) for m in plain for k in plain[m])
 
 
 @pytest.fixture
