@@ -78,8 +78,9 @@ with its seconds and the seconds since the start:
      against the CPU, then under the three conv impls (the f16 conv
      kernels' launches).
   4. engine: an SD1.5 SliderEngine at full width (UNet SD15, CLIP-L, SD VAE,
-     512 px, DDIM 50, guidance 7.5, start_noise 750) in bf16 with seeded
-     random weights and two rank-4 noxattn sliders, behind the HTTP server;
+     512 px, DDIM STEPS (cut from the CLI's 50), guidance 7.5, start_noise
+     750) in bf16 with seeded random weights and two rank-4 noxattn
+     sliders, behind the HTTP server;
      one UNet step timed through the kernel and on the plain attention
      path, its device time by kernel class, and the 8-image VAE decode
      under attention impls 'auto' (#4 on the mid attention) and 'xla' in
@@ -96,9 +97,10 @@ with its seconds and the seconds since the start:
      five-scale /generate calls under each conv impl ('auto' and 'xla' two
      each, in turns, their latencies printed); every reply is checked, and
      each kernel's launch count must equal its routed calls per UNet forward
-     x 50 steps, plus under 'auto' the VAE decoder's, x the denoise batches.
-     Then "continuous": a continuous engine on the same models (8 rows in
-     flight, chunk 5) behind HTTP, under DDIM 50 and LMS 50: a 5-scale
+     x STEPS steps, plus under 'auto' the VAE decoder's, x the denoise
+     batches. Then "continuous": a continuous engine on the same models (8
+     rows in flight, chunk 5) behind HTTP, under DDIM and LMS at
+     CONT_STEPS: a 5-scale
      request, and a 3-scale one sent after its first chunk that joins its
      live batch; chunk and join ms, both latencies, chunks against two solo
      runs, launches exact (#1 10 x 5 a chunk, #4 one per exit decode), and
@@ -120,14 +122,14 @@ with its seconds and the seconds since the start:
      host seconds beside) and device ms of the encode, the grad pass and the
      update, and its peak memory; then offline sampling on the same
      snapshot ("generate sd15"): `cli/generate_images.py` in-process with a
-     1-row CSV, --scales=-2,-1,0,1,2, 512 px, bf16, DDIM 50 and a rank-4
-     noxattn slider the phase saves (#1 10 x 50 = 500 launches at (10, 8,
+     1-row CSV, --scales=-2,-1,0,1,2, 512 px, bf16, DDIM STEPS and a rank-4
+     noxattn slider the phase saves (#1 10 x STEPS launches at (10, 8,
      4096, 40) / (10, 8, 1024, 80), #4 one 5-row decode at (5, 1, 4096,
-     512)), then --scheduler lms, euler_a and ddpm at 10 steps and
-     --compose a:1 --compose b:-1 (sweep 0, 1; 10 steps) (#1 100, #4 1
-     each); folders, files and distinct images checked, each CSV row's wall
+     512)), then --scheduler lms, euler_a and ddpm at GENERATE_STEPS steps
+     and --compose a:1 --compose b:-1 (sweep 0, 1; GENERATE_STEPS steps)
+     (#1 10 x GENERATE_STEPS, #4 1 each); folders, files and distinct images checked, each CSV row's wall
      and the peak memory printed; then the SD1 example's scalar merged-delta
-     path against the per-row path (LMS 10 steps, scale 1, the same
+     path against the per-row path (LMS GENERATE_STEPS steps, scale 1, the same
      latents): f32 with TF32 off within GENERATE_F32_REL of max|x|, bf16
      printed; then "edit": `edit_image` on the snapshot in f32 (TF32 off)
      on a 512 px PNG the phase writes, scales 0, 2, 4 at start_noise 500,
@@ -140,10 +142,10 @@ with its seconds and the seconds since the start:
      eps against the untapped forward, the 16 x 16 maps written. Between
      "generate" and "edit", the eval harness on the same snapshot: "uce
      sd15" (`cli/generate_images_uce.py`: an edited UNet .pt of the
-     snapshot's weights + seeded noise, scales -1, 0, 1, LMS 10 steps, 512
+     snapshot's weights + seeded noise, scales -1, 0, 1, LMS UCE_STEPS steps, 512
      px; #1 10 x 10 x 3, #4 3; scale 0 byte-equal to the adapter-free
      sampler in-process), "ti sd15" (`cli/generate_images_text_inversion.py`
-     with a .pt embedding for a token the CLI adds, DDIM 10; #1 100, #4 1;
+     with a .pt embedding for a token the CLI adds, DDIM TI_STEPS; #1 10 x TI_STEPS, #4 1;
      the encoder's new row equal to the file's) and "scores"
      (`cli/clip_score.py` and `cli/lpips_score.py` on the UCE run folder
      with ViT-B/32 and AlexNet / LPIPS files on seeded weights, on the card
@@ -162,7 +164,7 @@ with its seconds and the seconds since the start:
      sd15" (`train_image_slider --stylecheck --fleet`, two styles at 256 px:
      #1 10, #2 5 and #4 1 an iteration, #4 at (4, 1, 1024, 512)),
      "generate fleet sd15" (`generate_images --fleet A --fleet B`, 3
-     scales, DDIM 10: #1 100, #4 1; each checkpoint's PNGs against its solo
+     scales, DDIM FLEET_GENERATE_STEPS: #1 10 x those steps, #4 1; each checkpoint's PNGs against its solo
      run at CONT_JOIN_PSNR or better) and "adaptive optimizers" (prodigy,
      dadaptadam, dadaptadamw, dadaptlion: 5 updates of the full-width
      rank-4 noxattn LoRA on the card against the CPU, ms an update; a
@@ -188,7 +190,18 @@ with its seconds and the seconds since the start:
      scalar-scale call at 1024 px, 2 steps (merged deltas) against the same
      call with the scale as a (1,) vector (the per-row branch) and at scale
      0: #1 57 x 2 x 3 launches, max|err| of the latents beside the slider's
-     effect, the peak memory.
+     effect, the peak memory. Then "mesh flux" (the phase's models freed
+     first): one torchrun launch of 4 ranks on the card over gloo,
+     against this phase's world-1 records: the TINY FLUX step at dp 2 x
+     tp 2 in f32 with TF32 off against a world-1 run here; FLUX-dev
+     training at tp = 2 (the 512 px config and seed above; 2 ranks, each
+     drawing the weights in the world-1 order and keeping its shard: t_to
+     equal, loss and grad norm within MESH_REL, #1 and #2 per rank exact at
+     12 heads, downs moved, ups and alphas as initialised); and `serve
+     --flux --pp 2` at 1024 px (each rank holding one stage's blocks)
+     answering the 5-scale sweep and a request with no slider: PSNR
+     against the world-1 PNGs, #1 per stage (29 and 28 a forward), each
+     rank's peak memory.
   8. sdxl:   SDXL-base at full width (UNet 2,567,463,684 parameters, CLIP-L,
      bigG with its projection, the SDXL VAE) in bf16 with seeded random
      weights and a rank-4 noxattn slider: one denoise step at bucket 8 (16
@@ -245,7 +258,7 @@ import urllib.request
 import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-STEPS = 50
+STEPS = 25  # the SD1.5 engine's DDIM steps, cut from the CLI's 50
 ROUTED_PER_FORWARD = 10  # SD1.5 at 512 px: 5 self-attentions at L=4096 + 5 at L=1024
 KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubled, and others
     ((16, 8, 4096, 40), "bfloat16", False),
@@ -274,6 +287,10 @@ KERNEL_SHAPES = [  # (B, H, L, d), dtype, head views: the 8-row bucket CFG-doubl
     # SD1.5 at tp = 2 (phase_mesh): a rank's 4 local heads of a 1-row pass
     ((1, 4, 4096, 40), "bfloat16", False),
     ((1, 4, 1024, 80), "bfloat16", False),
+    # FLUX-dev training at tp = 2, 512 px ("mesh flux"): a rank's 12 local
+    # heads, the target pass and the frozen batch-3 pass
+    ((1, 12, 1536, 128), "bfloat16", False),
+    ((3, 12, 1536, 128), "bfloat16", False),
 ]
 BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d, and f32
     ((1, 8, 4096, 40), "bfloat16"),
@@ -294,6 +311,8 @@ BWD_SHAPES = [  # (B, H, L, d), dtype: the grad pass at batch 1 and 2, FLUX's d,
     # SD1.5's grad pass at tp = 2 (phase_mesh): 4 local heads, one row a rank
     ((1, 4, 4096, 40), "bfloat16"),
     ((1, 4, 1024, 80), "bfloat16"),
+    # FLUX-dev's grad pass at tp = 2, 512 px ("mesh flux"): 12 local heads
+    ((1, 12, 1536, 128), "bfloat16"),
 ]
 # #2's shapes timed in interleaved rounds with SDPA's backward (rounds each):
 # at (1, 8, 1024, 80) two earlier runs read far apart (ROADMAP queue 2, item 2)
@@ -376,7 +395,7 @@ GN_SHAPES = [(hw * hw, c, True, 1e-5) for hw, cs in ((64, (320, 640, 960)),
 # FLUX-dev serving: 19 double-stream + 38 single-stream blocks, one joint
 # attention each; FlowMatch steps per request, cut from the CLI's 30
 FLUX_BLOCKS = 57
-FLUX_STEPS = {1024: 4, 2048: 1}  # cut from 30
+FLUX_STEPS = {1024: 3, 2048: 1}  # cut from 30
 # kernel #4 against its plain version: FLUX's joint attention at 2048 px (two
 # of its 24 heads), two rows of the 1024 px bucket, f32 at 1280 px (the tiny
 # FLUX run) and at 1536 px (all 24 heads, where f32 first routes to #4), d =
@@ -452,7 +471,7 @@ SDXL_PIN_BWD = 21
 SDXL_SD_1024 = 70
 SDXL_SD_512 = 10
 SDXL_PX = 1024
-SDXL_HTTP_STEPS = 8  # DDIM steps per /generate, cut from the CLI's 50
+SDXL_HTTP_STEPS = 6  # DDIM steps per /generate, cut from the CLI's 50
 SDXL_STEP_ROUNDS = 1  # rounds of the step timing, pin off and on in turn
 SDXL_TRAIN_ITERATIONS = 2  # cut from data/config-xl.yaml's 1000
 SDXL_TRAIN_STEPS = 20  # max_denoising_steps of the bf16 run, cut from 50: t_to in [1, 20)
@@ -494,7 +513,7 @@ SCALE_FOLDERS = ("verylow", "low", "high", "veryhigh")  # the CLI's default fold
 # (of max|x|; the two round W + delta and the branch output apart), SDXL-
 # Turbo's steps, the engine's request (a) (the largest bucket, so (b) and (c)
 # queue behind it) and the FLUX scalar call's steps
-GENERATE_STEPS = 10
+GENERATE_STEPS = 6
 GENERATE_F32_REL = 1e-5
 TURBO_STEPS = 3
 TURBO_A_SCALES = [float(s) for s in range(-8, 8)]
@@ -507,8 +526,8 @@ GENERATE_RUNS = ("ddim", "lms", "euler_a", "ddpm", "compose")
 # compressed deltas' rank, and the most by which a
 # score on the card may depart from the CPU's (relative, TF32 off)
 UCE_SCALES = [-1.0, 0.0, 1.0]
-UCE_STEPS = 10
-TI_STEPS = 10
+UCE_STEPS = 6
+TI_STEPS = 6
 TI_TOKEN = "<sks-eyes>"
 CD_STEPS = 4
 CD_PX = 1024
@@ -582,10 +601,20 @@ MESH_ITERATIONS = 2
 MESH_REL = 0.01  # loss and grad norm of the 2 x 2 mesh against world 1
 MESH_HEADS = 4  # SD1.5's 8 heads over tp = 2
 MESH_LAUNCH_TIMEOUT_S = 300
+# FLUX over the process mesh (phase "mesh flux"): the 2 x 2 TINY run, f32
+# with TF32 off, against world 1 (only the tp all-reduce's sums move: loss
+# and grad norm to 1e-5 relative, the LoRA to 1e-6 at lr TINY_FLUX_LR)
+MESH_FLUX_TINY_PX = 256
+MESH_FLUX_TINY_ITERATIONS = 1
+MESH_FLUX_TINY_REL = 1e-5
+MESH_FLUX_TINY_ATOL = 1e-6
+MESH_FLUX_HEADS = 12  # FLUX-dev's 24 heads over tp = 2
+MESH_FLUX_STAGE_BLOCKS = (10 + 19, 9 + 19)  # blocks of stages 0 and 1 at pp = 2
+MESH_FLUX_LAUNCH_TIMEOUT_S = 480
 FLEET_IMAGE_ITERATIONS = 3
 FLEET_ENCODE_SHAPE = (4, 1, 1024, 512)  # the image fleet's encode of 2 x 2 images at 256 px
 FLEET_SCALES = [-1.0, 0.0, 1.0]
-FLEET_GENERATE_STEPS = 10
+FLEET_GENERATE_STEPS = 6
 ADAPTIVE_UPDATES = 5
 # the LoRA after the updates, card against CPU, element by element: ADAPTIVE_ULPS
 # ulps of the weight (an update of about 1e-6 rounds into weights of about 0.1)
@@ -597,7 +626,7 @@ ADAPTIVE_REL = 3e-4
 # null-text inner steps cut from 10, notebook cell 10's sweep and gate; in a
 # null-text backward every routed self-attention but the first takes #2 (the
 # first one's input does not depend on the uncond embedding)
-EDIT_STEPS = 10
+EDIT_STEPS = 6
 EDIT_INNER = 5
 EDIT_SCALES = [0.0, 2.0, 4.0]
 EDIT_START_NOISE = 500.0
@@ -2706,6 +2735,7 @@ def serve_http(engine, fn):
 
 
 SWEEP = [-2, -1, 0, 1, 2]
+NO_SLIDER_REQUEST = {"prompt": "a photo of a dog", "seed": 6}
 
 
 def sweep_and_pair(engine, port: int, size: int, tag: str) -> dict:
@@ -2814,7 +2844,7 @@ def serve_conv_impls(engine, port: int) -> dict:
     GENERATE_TURNS ('auto', 'xla', 'fused_ep', 'fused'); each reply is
     checked as phase 5 checks it,
     and the impl's kernel must have launched (its calls per UNet forward x
-    50 steps + its calls per VAE decode) x the denoise batches, the others
+    STEPS steps + its calls per VAE decode) x the denoise batches, the others
     never, all on the Hopper mainloop (the decoder's f32 convs under 'auto'
     on its 3xTF32 path, each after one weight split). Prints the server
     latencies of 'auto' and 'xla' with their medians. Returns {kernel:
@@ -3659,7 +3689,8 @@ def phase_flux_http(engine) -> dict:
     (a) again with skip_till past the last step: every image must equal
     (a)'s scale-0 image (the same batch shape and rows, so no summation
     order changes); /healthz. #1 must launch 57 x steps x batches, #4 once
-    per batch (the VAE's mid attention)."""
+    per batch (the VAE's mid attention). Then NO_SLIDER_REQUEST; returns
+    (a)'s and its PNGs beside the counts."""
     import torch
 
     from sliders_tpu_torch.ops import flash_attention as fa
@@ -3699,7 +3730,13 @@ def phase_flux_http(engine) -> dict:
             raise AssertionError("the two FLUX (b) requests were not coalesced into one batch")
         if sd != expected or flash != batches:
             raise AssertionError("not every FLUX joint attention went through kernel #1")
-        return {"sd": sd, "flash": flash}
+        # the world-1 images of phase_mesh_flux's pp = 2 engine: (a) and a
+        # request with no slider
+        none = post(port, "/generate", NO_SLIDER_REQUEST)
+        check_images(none, [0.0], "flux no slider", size)
+        return {"sd": sd, "flash": flash,
+                "pngs": {"a": [base64.b64decode(im["png"]) for im in replies["a"][0]["images"]],
+                         "none": [base64.b64decode(im["png"]) for im in none["images"]]}}
 
     return serve_http(engine, run)
 
@@ -3750,23 +3787,14 @@ def phase_flux_2048(models, sliders: dict) -> dict:
     return serve_http(engine, run)
 
 
-def flux_train_run(models, tmp: str, px: int, profile: bool = False) -> dict:
-    """`train_flux_sliders` on the in-memory FLUX-dev at `px` with the values
-    of data/config.yaml (bf16, remat, rank 4, alpha 1, AdamW lr 2e-4) but the
-    FLUX slider method xattn (266 modules, ortho-up), data/prompts.yaml's
-    pairs at `px`, T5 length 512, FLUX_TRAIN_ITERATIONS[px] iterations and
-    max_denoising_steps FLUX_TRAIN_STEPS. The kernels' counts are set to 0
-    just before and read just after. With `profile`, torch.profiler records
-    iteration 1 alone (started and stopped at the iteration boundaries,
-    where the step has synced on its loss)."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profiler
-
+def flux_train_config(tmp: str, px: int, tp: int = 1) -> tuple:
+    """The FLUX training run's config (data/config.yaml's values with the
+    xattn method, FLUX_TRAIN_ITERATIONS[px] iterations, max_denoising_steps
+    FLUX_TRAIN_STEPS, `tpu.tp` = tp) and prompts (data/prompts.yaml's pairs
+    at `px`), written under `tmp`: (RootConfig, prompts, the config dict)."""
     from sliders_tpu_torch.core import config as config_util
     from sliders_tpu_torch.core import yaml_subset
     from sliders_tpu_torch.prompts import load_prompts_from_yaml
-    from sliders_tpu_torch.training.driver import train_flux_sliders
 
     cfg = yaml_subset.load(os.path.join(REPO, "data", "config.yaml"))
     pairs = yaml_subset.load(os.path.join(REPO, "data", "prompts.yaml"))
@@ -3779,13 +3807,32 @@ def flux_train_run(models, tmp: str, px: int, profile: bool = False) -> dict:
     cfg["pretrained_model"]["name_or_path"] = "flux-dev (random weights, in memory)"
     cfg["network"]["training_method"] = "xattn"
     cfg["train"].update(iterations=FLUX_TRAIN_ITERATIONS[px], max_denoising_steps=FLUX_TRAIN_STEPS)
-    cfg["save"]["path"] = os.path.join(tmp, f"flux_train_{px}")
+    cfg["save"]["path"] = os.path.join(tmp, f"flux_train_{px}_tp{tp}")
     cfg["logging"] = {**cfg.get("logging", {}), "log_every": 1}
-    path = os.path.join(tmp, f"flux_train_{px}.yaml")
+    cfg["tpu"] = {**cfg.get("tpu", {}), "dp": 1, "tp": tp}
+    path = os.path.join(tmp, f"flux_train_{px}_tp{tp}.yaml")
     with open(path, "w") as f:
         f.write(dump_yaml(cfg) + "\n")
-    config = config_util.load_config_from_yaml(path)
-    prompts = load_prompts_from_yaml(prompts_path, [])
+    return config_util.load_config_from_yaml(path), load_prompts_from_yaml(prompts_path, []), cfg
+
+
+def flux_train_run(models, tmp: str, px: int, lora: dict, profile: bool = False) -> dict:
+    """`train_flux_sliders` on the in-memory FLUX-dev at `px` with the values
+    of data/config.yaml (bf16, remat, rank 4, alpha 1, AdamW lr 2e-4) but the
+    FLUX slider method xattn (266 modules, ortho-up), data/prompts.yaml's
+    pairs at `px`, T5 length 512, FLUX_TRAIN_ITERATIONS[px] iterations and
+    max_denoising_steps FLUX_TRAIN_STEPS (`flux_train_config`), from `lora`
+    (the driver's ortho-up draw, made once by phase_flux_train). The
+    kernels' counts are set to 0 just before and read just after. With `profile`,
+    torch.profiler records iteration 1 alone (started and stopped at the
+    iteration boundaries, where the step has synced on its loss)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from sliders_tpu_torch.training.driver import train_flux_sliders
+
+    config, prompts, cfg = flux_train_config(tmp, px)
     records = []  # (iteration, host start, host end, metrics)
     prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile else None
 
@@ -3800,7 +3847,8 @@ def flux_train_run(models, tmp: str, px: int, profile: bool = False) -> dict:
     reset_flux_counts()
     t0 = time.perf_counter()
     start = [t0]
-    final = train_flux_sliders(config, prompts, models, seed=0, t5_len=512, on_step=on_step)
+    final = train_flux_sliders(config, prompts, models, seed=0, t5_len=512, on_step=on_step,
+                               lora=lora)
     torch.cuda.synchronize()
     return {"records": records, "seconds": time.perf_counter() - t0,
             "counts": flux_counts(), "lora": final, "prof": prof,
@@ -3812,9 +3860,10 @@ def phase_flux_train(models, tmp: str) -> dict:
     FLUX_TRAIN_ITERATIONS at 512 px (L = 1024 + 512: #1 forward, #2 backward)
     and at 2048 px (L = 16896: #4 forward and backward). Launches are exact:
     57 blocks x (t_to denoise + 1 frozen + 2 grad with remat) forward and 57
-    backward per iteration. Every down must move, every up and alpha must
-    equal a fresh init's bit for bit (the ortho-up mask freezes them), every
-    loss be finite; per iteration the host wall time and the device ms by
+    backward per iteration. Both runs start from one ortho-up draw of the
+    driver's (seed + 1 on the card), made here once. Every down must move,
+    every up and alpha must equal the init bit for bit (the ortho-up mask
+    freezes them), every loss be finite; per iteration the host wall time and the device ms by
     phase, and the peak device memory, are printed."""
     import torch
 
@@ -3827,10 +3876,10 @@ def phase_flux_train(models, tmp: str) -> dict:
                                  train_method="xattn", ortho_up=True, device="cuda")
     init = {m: {k: t.cpu() for k, t in e.items()} for m, e in init.items()}
     say("flux", f"ortho-up init of {len(init)} xattn modules on the card (the driver's draw, "
-        f"repeated for the checks): {time.perf_counter() - t0:.1f} s")
+        f"the runs' start): {time.perf_counter() - t0:.1f} s")
     out = {}
     for px in FLUX_TRAIN_ITERATIONS:
-        run = flux_train_run(models, tmp, px, profile=px == 512)
+        run = flux_train_run(models, tmp, px, init, profile=px == 512)
         recs, c = run["records"], run["counts"]
         t_tos = [m["t_to"] for *_, m in recs]
         fwd_expected = FLUX_BLOCKS * sum(t + 3 for t in t_tos)
@@ -3853,7 +3902,7 @@ def phase_flux_train(models, tmp: str) -> dict:
             ph = m["phase_ms"]
             say("flux", f"train {px} px iteration {i}: pair {m['pair']}, t_to {m['t_to']}, loss "
                 f"{m['loss']:.6g}, grad norm {m['grad_norm']:.4g}; host wall {wall:.3f} s"
-                f"{' (with the prompt encodes and the LoRA init)' if i == 0 else ''}"
+                f"{' (with the prompt encodes)' if i == 0 else ''}"
                 f"{' (profiler on)' if run['prof'] is not None and i == 1 else ''}; device ms: denoise "
                 f"{ph['denoise']:.1f} ({ph['denoise'] / m['t_to']:.1f} per forward), frozen "
                 f"{ph['frozen']:.1f}, grad {ph['grad']:.1f}, update {ph['update']:.2f}")
@@ -3875,7 +3924,10 @@ def phase_flux_train(models, tmp: str) -> dict:
             raise AssertionError(f"the {px} px FLUX training run's launches {c} are not {expected}")
         if moved != len(init) or frozen != len(init) or not all(map(math.isfinite, losses)):
             raise AssertionError(f"the {px} px FLUX training run's LoRA or losses are wrong")
-        out[px] = {"counts": c, "peak_gb": run["peak_gb"]}
+        out[px] = {"counts": c, "peak_gb": run["peak_gb"],
+                   "metrics": [{k: m[k] for k in ("t_to", "pair", "loss", "grad_norm")}
+                               for *_, m in recs]}
+    out["init"] = init
     return out
 
 
@@ -5857,10 +5909,11 @@ def merged_vs_branch(models, weights, prompt: str, steps: int, dtype) -> dict:
 def phase_generate(snap: str, tmp: str) -> dict:
     """`generate_images` on the full-width SD1.5 snapshot of `phase_train`
     with a rank-4 noxattn slider it saves: 1 CSV row, --scales=-2,-1,0,1,2,
-    512 px, bf16, DDIM 50 (#1 10 x 50, #4 1); then --scheduler lms, euler_a
-    and ddpm at 10 steps (#1 10 x 10 each) and --compose a:1 --compose b:-1
-    (sweep 0, 1; 10 steps). Then the scalar merged path (the SD1 example's)
-    against the per-row path, LMS 10 steps at scale 1 on the same latents,
+    512 px, bf16, DDIM STEPS (#1 10 x STEPS, #4 1); then --scheduler lms,
+    euler_a and ddpm at GENERATE_STEPS steps (#1 10 x GENERATE_STEPS each)
+    and --compose a:1 --compose b:-1 (sweep 0, 1; GENERATE_STEPS steps).
+    Then the scalar merged path (the SD1 example's) against the per-row
+    path, LMS GENERATE_STEPS steps at scale 1 on the same latents,
     in f32 with TF32 off (held to GENERATE_F32_REL of max|x|) and in bf16
     (printed)."""
     import torch
@@ -6510,8 +6563,8 @@ def phase_uce(snap: str, tmp: str) -> dict:
 def phase_ti(snap: str, tmp: str) -> dict:
     """Textual inversion on the same snapshot (`full_vocab_snapshot`): a .pt
     embedding for TI_TOKEN, which the vocabulary cannot spell (the CLI adds
-    it as id 49408 and grows the matrix), DDIM 10 steps at 512 px: #1
-    10 x 10, #4 1; the encoder's new row equals the file's vector (drawn
+    it as id 49408 and grows the matrix), DDIM TI_STEPS steps at 512 px: #1
+    10 x TI_STEPS, #4 1; the encoder's new row equals the file's vector (drawn
     bf16-exact)."""
     import torch
 
@@ -6834,7 +6887,6 @@ def mesh_rank(argv: list) -> int:
     sys.path.insert(0, REPO)
     from sliders_tpu_torch.cli import train_fleet as fleet_cli
     from sliders_tpu_torch.cli import train_text_slider as text_cli
-    from sliders_tpu_torch.ops import attention as att
     from sliders_tpu_torch.ops import sd_attention as sa
     from sliders_tpu_torch.parallel.mesh import maybe_initialize_distributed
 
@@ -6843,14 +6895,7 @@ def mesh_rank(argv: list) -> int:
     text_args, fleet_args = rest[:cut], rest[cut + 1:]
     maybe_initialize_distributed(torch.device("cuda"))
     rank = dist.get_rank()
-    kernel = att.sd_attention
-    heads: dict = {}
-
-    def by_heads(q, k, v, *a, **kw):
-        heads[q.shape[1]] = heads.get(q.shape[1], 0) + 1
-        return kernel(q, k, v, *a, **kw)
-
-    att.sd_attention = by_heads
+    heads = count_heads()
 
     def run(main) -> dict:
         records = []
@@ -6889,28 +6934,30 @@ def mesh_rank(argv: list) -> int:
     return 0
 
 
-def launch_ranks(tag: str, n: int, out: str, args: list) -> list:
-    """`n` ranks of `mesh_rank` under torch.distributed.run on this card (a
-    process group of their own, killed whole past MESH_LAUNCH_TIMEOUT_S);
-    prints the launch's mesh lines, rank 0's step lines and its [time]
-    line; returns the ranks' records."""
+def launch_ranks(tag: str, n: int, out: str, args: list, entry: str = "--mesh-rank",
+                 timeout: float = MESH_LAUNCH_TIMEOUT_S) -> list:
+    """`n` ranks of `mesh_rank` (or the rank function of `entry`) under
+    torch.distributed.run on this card (a process group of their own,
+    killed whole past `timeout` seconds); prints the launch's mesh lines,
+    rank 0's step lines and its [time] line; returns the ranks' records."""
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
            "--master_addr", "localhost", "--master_port", str(free_port()),
-           os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", out, *args]
+           os.path.join(REPO, "chip_smoke.py"), entry, out, *args]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             start_new_session=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
     try:
-        log, _ = proc.communicate(timeout=MESH_LAUNCH_TIMEOUT_S)
+        log, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         log, _ = proc.communicate()
-        raise AssertionError(f"{tag}: the ranks ran past {MESH_LAUNCH_TIMEOUT_S} s:\n{log[-3000:]}")
+        raise AssertionError(f"{tag}: the ranks ran past {timeout} s:\n{log[-3000:]}")
     secs = time.perf_counter() - t0
     for line in log.splitlines():
-        if line.startswith(("mesh ", "tp=", "fleet of", "step ", "fleet step ", "resumed")):
+        if line.startswith(("mesh ", "tp=", "fleet of", "step ", "fleet step ", "resumed",
+                            "serving ", "create LoRA")):
             say("mesh", f"{tag}: {line}")
     say("time", f"mesh launch {tag} ({n} ranks): {secs:.1f} s")
     if proc.returncode != 0:
@@ -6921,6 +6968,367 @@ def launch_ranks(tag: str, n: int, out: str, args: list) -> list:
         with open(f"{out}.{r}.json") as f:
             ranks.append(json.load(f))
     return ranks
+
+
+def count_heads() -> dict:
+    """{head count: calls} of kernel #1's forward from here on (the
+    attention router's entry wrapped)."""
+    from sliders_tpu_torch.ops import attention as att
+
+    heads: dict = {}
+    kernel = att.sd_attention
+
+    def by_heads(q, k, v, *a, **kw):
+        heads[q.shape[1]] = heads.get(q.shape[1], 0) + 1
+        return kernel(q, k, v, *a, **kw)
+
+    att.sd_attention = by_heads
+    return heads
+
+
+def tiny_flux_mesh_steps(mesh=None) -> list:
+    """(c) of "mesh flux": MESH_FLUX_TINY_ITERATIONS FLUX slider steps of
+    TINY at MESH_FLUX_TINY_PX, batch 2, f32 with TF32 off, remat, an
+    ortho-up rank-4 xattn LoRA at lr TINY_FLUX_LR, max_denoising_steps
+    TINY_FLUX_TRAIN_STEPS, on the draws of seed 0, on `mesh` (this rank's tp
+    shard of every block) or unsharded; the weights, LoRA and pairs drawn on
+    the CPU from fixed seeds. Returns [(metrics, LoRA on the CPU)] per
+    iteration."""
+    import torch
+
+    from sliders_tpu_torch.diffusion.schedulers import make_flowmatch_sampler
+    from sliders_tpu_torch.lora import network as lnet
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.models.params import tree_to
+    from sliders_tpu_torch.parallel import mesh as pm
+    from sliders_tpu_torch.training import flux_slider, optimizers
+    from sliders_tpu_torch.training.text_slider import SliderTrainState, stack_prompt_pairs
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, gen = flux.TINY, torch.Generator().manual_seed(23)
+    params = flux.init_params(gen, cfg)
+    lora = lnet.create_slider_network(gen, params, rank=4, alpha=1.0, train_method="xattn",
+                                      ortho_up=True)
+    pairs = stack_prompt_pairs([{
+        **{f"{r}_t5": torch.randn(16, cfg.joint_attention_dim, generator=gen)
+           for r in flux_slider.ROLES},
+        **{f"{r}_pooled": torch.randn(cfg.pooled_projection_dim, generator=gen)
+           for r in flux_slider.ROLES},
+        "guidance_signed": torch.tensor(sign)} for sign in (2.0, -1.0)])
+    params = tree_to(params, "cuda")
+    if mesh is not None:
+        params = flux.keep_blocks(params, pm.tp_keep(mesh))
+    mask = lnet.trainable_mask(lora, ortho_up=True)
+    tx = optimizers.make_optimizer(
+        "adamw", optimizers.make_lr_schedule("constant", TINY_FLUX_LR, 100), trainable_mask=mask)
+    px = MESH_FLUX_TINY_PX
+    step = flux_slider.make_flux_slider_step(
+        cfg, make_flowmatch_sampler(num_steps=TINY_FLUX_TRAIN_STEPS, image_seq_len=(px // 16) ** 2),
+        tx, resolution=px, batch_size=2, compute_dtype=torch.float32, remat=True, mesh=mesh,
+        trainable_mask=mask)
+    state = SliderTrainState.create(0, tree_to(lora, "cuda"), tx)
+    pairs = {k: v.cuda() for k, v in pairs.items()}
+    out = []
+    for _ in range(MESH_FLUX_TINY_ITERATIONS):
+        state, m = step(state, params, pairs)
+        out.append(({k: m[k] for k in ("t_to", "pair", "loss", "grad_norm")},
+                    {n: {k: t.cpu() for k, t in e.items()} for n, e in state.lora.items()}))
+    return out
+
+
+def draw_flux_models(gen, keep, tokenizers, vae_too: bool):
+    """FLUX-dev in bf16 on the card drawn from `gen` in `build_flux_engine`'s
+    order (transformer, T5-XXL, CLIP-L, VAE), each transformer block passed
+    through `keep` as it is drawn. Without `tokenizers` (the CLIP and T5
+    tokenizer directories) only the transformer (a pipeline follower's),
+    else the FluxModels, with the VAE when `vae_too`."""
+    import torch
+
+    from sliders_tpu_torch.models import clip_text, flux, t5, vae
+    from sliders_tpu_torch.models.loader import FluxModels, TextEncoderBundle
+    from sliders_tpu_torch.text.t5_tokenizer import T5Tokenizer
+    from sliders_tpu_torch.text.tokenizer import ClipTokenizer
+
+    bf16 = torch.bfloat16
+    transformer = flux.init_params(gen, flux.FLUX_DEV, dtype=bf16, device="cuda", keep=keep)
+    if tokenizers is None:
+        return transformer
+    tok_dir, t5_dir = tokenizers
+    tok = ClipTokenizer.from_pretrained(tok_dir)
+    tok.model_max_length = clip_text.CLIP_L.max_positions
+    t5_params = t5.init_params(gen, t5.T5_XXL, dtype=bf16, device="cuda")
+    clip = TextEncoderBundle(tok, clip_text.init_params(gen, clip_text.CLIP_L, dtype=bf16,
+                                                        device="cuda"), clip_text.CLIP_L)
+    return FluxModels(
+        transformer, flux.FLUX_DEV, clip, t5_params, t5.T5_XXL,
+        T5Tokenizer.from_pretrained(t5_dir),
+        vae_params=vae.init_params(gen, vae.FLUX_VAE, dtype=bf16, device="cuda")
+        if vae_too else None, vae_config=vae.FLUX_VAE if vae_too else None)
+
+
+def mesh_flux_train(tmp: str, tokenizers: tuple, rank: int, heads: dict) -> dict:
+    """(a) of "mesh flux": `train_flux_sliders` (the CLI's loop) at FLUX-dev's
+    full width on the `training_mesh` of `tpu: {dp: 1, tp: 2}` (the CLI's
+    mesh: the surplus ranks wait), each rank drawing the weights in the
+    world-1 order and keeping its tp shard (`parallel.mesh.tp_keep`), with
+    phase_flux_train's 512 px config and seed."""
+    import torch
+
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.parallel import mesh as pm
+    from sliders_tpu_torch.parallel.mesh import main_rank_output, training_mesh
+    from sliders_tpu_torch.training.driver import train_flux_sliders
+
+    config, prompts, _ = flux_train_config(tmp, 512, tp=2)
+    batch = prompts[0].batch_size
+    mesh, device = training_mesh(torch.device("cuda"), config.tpu.dp, config.tpu.tp,
+                                 fit_dp=lambda dp, world: dp if batch % dp == 0 else 1)
+    if not mesh.active:
+        mesh.finish()
+        return {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    models = draw_flux_models(torch.Generator(device="cuda").manual_seed(11),
+                              pm.tp_keep(mesh), tokenizers, False)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(models.transformer_params))
+    drawn = time.perf_counter() - t0
+    records = []
+    reset_flux_counts()
+    heads.clear()
+    t0 = time.perf_counter()
+    with main_rank_output(mesh):
+        final = train_flux_sliders(config, prompts, models, seed=0, t5_len=512, mesh=mesh,
+                                   on_step=lambda i, st, m: records.append(
+                                       {k: m[k] for k in ("t_to", "pair", "loss", "grad_norm")}))
+    torch.cuda.synchronize()
+    out = {"records": records, "counts": flux_counts(), "heads": dict(heads),
+           "seconds": time.perf_counter() - t0, "draw_s": drawn, "transformer_params": n_params,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        torch.save(final, os.path.join(tmp, "mesh_flux_lora.pt"))
+    del models, final
+    mesh.finish()
+    return out
+
+
+def mesh_flux_serve(tokenizers: tuple) -> dict:
+    """(b) of "mesh flux": `serve --flux --pp 2` at 1024 px and
+    FLUX_STEPS[1024] steps through the CLI's functions (`pipeline_mesh`,
+    `make_engine`, `make_follower`) on in-memory weights: each rank draws
+    the weights in the world-1 order and keeps its stage (`pp_keep`); rank
+    0 also draws the encoders, the VAE and the two sliders (on the whole
+    transformer's names), serves phase_flux_http's sweep (a) and
+    NO_SLIDER_REQUEST over HTTP and closes; rank 1 follows."""
+    import torch
+
+    from sliders_tpu_torch.cli import serve as serve_cli
+    from sliders_tpu_torch.lora.network import create_slider_network
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.parallel.pipeline import pp_keep
+    from sliders_tpu_torch.serving.server import make_http_server
+
+    args = serve_cli.build_parser().parse_args(
+        ["--flux", "--pp", "2", "--base", "(in memory)", "--image_size", "1024",
+         "--ddim_steps", str(FLUX_STEPS[1024]), "--no_warmup"])
+    mesh, device = serve_cli.pipeline_mesh(args)
+    if not mesh.active:
+        mesh.finish()
+        return {}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    stage = mesh.coord("pp")
+    models = draw_flux_models(gen, pp_keep(mesh, flux.FLUX_DEV), None if stage else tokenizers,
+                              True)
+    transformer = models if stage else models.transformer_params
+    torch.cuda.synchronize()
+    blocks = {f: sorted(int(i) for i in transformer[f])
+              for f in ("transformer_blocks", "single_transformer_blocks")}
+    n_params = sum(t.numel() for t in _leaves(transformer))
+    drawn = time.perf_counter() - t0
+    reset_flux_counts()
+    t0 = time.perf_counter()
+    out = {"blocks": blocks, "transformer_params": n_params, "draw_s": drawn}
+    if stage:
+        follower = serve_cli.make_follower(args, mesh, device, stage=(models, flux.FLUX_DEV))
+        follower.run()
+        out["forwards"] = follower.stats["forwards"]
+    else:
+        engine = serve_cli.make_engine(args, models=models, mesh=mesh, device=device)
+        skeleton = flux.init_params(None, flux.FLUX_DEV, device="meta")
+        for name in ("s1", "s2"):
+            w = create_slider_network(gen, skeleton, rank=4, alpha=1.0, train_method="xattn",
+                                      device="cuda")
+            for e in w.values():
+                e["up"] = torch.randn(e["up"].shape, generator=gen, device="cuda") * 0.05
+            engine.register_slider(name, w)
+        server = make_http_server(engine, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        port = server.server_address[1]
+        try:
+            replies = {key: post(port, "/generate", payload) for key, payload in (
+                ("a", {"prompt": "a photo of a person", "seed": 1, "slider": "s1",
+                       "scales": SWEEP}), ("none", NO_SLIDER_REQUEST))}
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.close(timeout=60)
+        out["latency_ms"] = {k: r["latency_ms"] for k, r in replies.items()}
+        out["pngs"] = {k: [im["png"] for im in r["images"]] for k, r in replies.items()}
+        out["stats"] = dict(engine.stats)
+        del engine
+    torch.cuda.synchronize()
+    out.update(counts=flux_counts(), seconds=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del models
+    mesh.finish()
+    return out
+
+
+def mesh_flux_rank(argv: list) -> int:
+    """One rank of the "mesh flux" launch (`chip_smoke.py --mesh-flux-rank
+    OUT TMP TOKENIZER_DIR T5_TOKENIZER_DIR` under torch.distributed.run, 4
+    ranks on this card): the rank joins the process group, runs (c) the
+    TINY 2 x 2 step, (a) the tp = 2 FLUX-dev training and (b) the pp = 2
+    FLUX-dev server, counting #1 (by heads), #2 and #4 around each, and
+    writes OUT.{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from sliders_tpu_torch.parallel import mesh as pm
+
+    out, tmp, tokenizers = argv[0], argv[1], (argv[2], argv[3])
+    pm.maybe_initialize_distributed(torch.device("cuda"))
+    rank = dist.get_rank()
+    heads = count_heads()
+    result = {"rank": rank}
+    mesh = pm.make_mesh(dp=2, tp=2, device=torch.device("cuda"))
+    t0 = time.perf_counter()
+    seen = tiny_flux_mesh_steps(mesh)
+    result["tiny"] = {"metrics": [m for m, _ in seen], "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        torch.save(seen[-1][1], os.path.join(tmp, "mesh_flux_tiny_lora.pt"))
+    mesh.finish()
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["train"] = mesh_flux_train(tmp, tokenizers, rank, heads)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["serve"] = mesh_flux_serve(tokenizers)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_mesh_flux(flux: dict, tmp: str) -> dict:
+    """FLUX-dev over the process mesh, one torchrun launch of 4 ranks on the
+    card over gloo (`mesh_flux_rank`), against phase_flux's world-1 records
+    (its models freed first): (c) TINY at dp 2 x tp 2, f32 with TF32 off,
+    against a world-1 run of the same step here (loss and grad norm within
+    MESH_FLUX_TINY_REL, the LoRA within MESH_FLUX_TINY_ATOL); (a)
+    `train_flux_sliders` at tp = 2, bf16, 512 px, with phase_flux_train's
+    config and seed: t_to equal, loss and grad norm within MESH_REL, #1
+    (57 x sum(t_to + 3), all at MESH_FLUX_HEADS heads) and #2 (57 an
+    iteration) per rank exact, every down moved and every up / alpha equal
+    to the init bit for bit; (b) `serve --flux --pp 2` at 1024 px
+    answering phase_flux_http's sweep and NO_SLIDER_REQUEST: PSNR at least
+    CONT_JOIN_PSNR against the world-1 PNGs (bit equality printed), #1 per
+    rank MESH_FLUX_STAGE_BLOCKS x steps x batches, #4 once a decode on rank
+    0; each rank's peak device memory."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref = tiny_flux_mesh_steps()
+    say("mesh", f"flux (c) world 1, TINY {MESH_FLUX_TINY_PX} px f32: "
+        f"{[m for m, _ in ref]} ({time.perf_counter() - t0:.1f} s)")
+    out = os.path.join(tmp, "mesh_flux")
+    ranks = launch_ranks("flux: 2 x 2 TINY, tp = 2 training, pp = 2 serving", 4, out,
+                         [tmp, os.path.join(tmp, "tokenizer"), os.path.join(tmp, "tokenizer_2")],
+                         entry="--mesh-flux-rank",
+                         timeout=MESH_FLUX_LAUNCH_TIMEOUT_S)
+
+    # (c)
+    tiny = [r["tiny"]["metrics"] for r in ranks]
+    lora = torch.load(os.path.join(tmp, "mesh_flux_tiny_lora.pt"))
+    rel = max(max(abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm"))
+              for a, (b, _) in zip(tiny[0], ref))
+    err = max((lora[n][k] - ref[-1][1][n][k]).abs().max().item() for n in lora for k in lora[n])
+    say("mesh", f"flux (c) 2 x 2 TINY: {tiny[0]}; largest relative difference of loss or grad "
+        f"norm against world 1 {rel:.3g} (tol {MESH_FLUX_TINY_REL}), LoRA max|diff| {err:.3g} "
+        f"(tol {MESH_FLUX_TINY_ATOL}); {ranks[0]['tiny']['seconds']:.1f} s a rank")
+    if any(t != tiny[0] for t in tiny) or [(m["t_to"], m["pair"]) for m in tiny[0]] != [
+            (m["t_to"], m["pair"]) for m, _ in ref] or rel > MESH_FLUX_TINY_REL \
+            or err > MESH_FLUX_TINY_ATOL:
+        raise AssertionError("the 2 x 2 TINY FLUX run does not repeat world 1")
+
+    # (a)
+    train = [r["train"] for r in ranks[:2]]
+    recs, w1 = train[0]["records"], flux["train"][512]["metrics"]
+    t_tos = [m["t_to"] for m in recs]
+    fwd = FLUX_BLOCKS * sum(t + 3 for t in t_tos)
+    bwd = FLUX_BLOCKS * len(recs)
+    rel = max(max(abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm"))
+              for a, b in zip(recs, w1))
+    init, final = flux["train"]["init"], torch.load(os.path.join(tmp, "mesh_flux_lora.pt"))
+    moved = sum(not torch.equal(final[m]["down"], init[m]["down"]) for m in init)
+    frozen = sum(torch.equal(final[m]["up"], init[m]["up"])
+                 and torch.equal(final[m]["alpha"], init[m]["alpha"]) for m in init)
+    say("mesh", f"flux (a) tp = 2 training, 512 px bf16: {recs} against world 1 {w1}: largest "
+        f"relative difference of loss or grad norm {rel:.3g} (tol {MESH_REL}); per rank #1 "
+        f"{[t['counts']['sd'] for t in train]} by heads {[t['heads'] for t in train]} (expected "
+        f"{fwd} at {MESH_FLUX_HEADS}), #2 {[t['counts']['sd_bwd'] for t in train]} (expected "
+        f"{bwd}); {moved} of {len(init)} down factors moved, {frozen} up/alpha pairs equal to "
+        f"the init; transformer params a rank {[t['transformer_params'] for t in train]}; draw "
+        f"s {[round(t['draw_s'], 1) for t in train]}, loop s "
+        f"{[round(t['seconds'], 1) for t in train]}; peak GB "
+        f"{[round(t['peak_gb'], 2) for t in train]}")
+    if any(t["records"] != recs for t in train) or t_tos != [m["t_to"] for m in w1] \
+            or rel > MESH_REL:
+        raise AssertionError("the tp = 2 FLUX-dev training does not repeat world 1")
+    if any(t["counts"]["sd"] != fwd or t["counts"]["sd_bwd"] != bwd
+           or t["heads"] != {str(MESH_FLUX_HEADS): fwd} for t in train):
+        raise AssertionError(f"a tp = 2 rank's joint attentions did not all go through #1 and "
+                             f"#2 at {MESH_FLUX_HEADS} heads")
+    if moved != len(init) or frozen != len(init):
+        raise AssertionError("the tp = 2 run's LoRA moved a frozen factor or left a down")
+
+    # (b)
+    serve = [r["serve"] for r in ranks[:2]]
+    lead = serve[0]
+    batches = lead["stats"]["batches"]
+    want = [FLUX_STEPS[1024] * batches * n for n in MESH_FLUX_STAGE_BLOCKS]
+    diffs = {k: [png_diff(base64.b64decode(a), b) for a, b in zip(lead["pngs"][k],
+                                                                  flux["serve_1024"]["pngs"][k])]
+             for k in ("a", "none")}
+    equal = all(d[0] == 0 for ds in diffs.values() for d in ds)
+    psnr = min(d[2] for ds in diffs.values() for d in ds)
+    say("mesh", f"flux (b) serve --flux --pp 2, 1024 px, {FLUX_STEPS[1024]} steps: blocks a "
+        f"stage {[{f: (b[0], b[-1], len(b)) for f, b in t['blocks'].items()} for t in serve]}, "
+        f"transformer params {[t['transformer_params'] for t in serve]}; latency ms "
+        f"{lead['latency_ms']}; against world 1: bit-equal {equal}, min PSNR {psnr:.2f} dB "
+        f"(limit {CONT_JOIN_PSNR}); #1 per rank {[t['counts']['sd'] for t in serve]} (expected "
+        f"{want}), #4 {[t['counts']['flash'] for t in serve]} (expected [{batches}, 0]); "
+        f"follower forwards {serve[1]['forwards']}; draw s "
+        f"{[round(t['draw_s'], 1) for t in serve]}, serving s "
+        f"{[round(t['seconds'], 1) for t in serve]}; peak GB "
+        f"{[round(t['peak_gb'], 2) for t in serve]}")
+    if len(lead["pngs"]["a"]) != len(SWEEP) or psnr < CONT_JOIN_PSNR:
+        raise AssertionError("the pp = 2 engine's images are not the world-1 engine's")
+    if [t["counts"]["sd"] for t in serve] != want \
+            or [t["counts"]["flash"] for t in serve] != [batches, 0] \
+            or serve[1]["forwards"] != FLUX_STEPS[1024] * batches:
+        raise AssertionError("a pp = 2 stage's joint attentions did not all go through #1")
+    return {"tp_fwd": train[0]["counts"]["sd"], "tp_bwd": train[0]["counts"]["sd_bwd"],
+            "pp_fwd": [t["counts"]["sd"] for t in serve], "pp_flash": lead["counts"]["flash"],
+            "bit_equal": equal, "psnr": psnr}
 
 
 def nccl_world1_check() -> dict:
@@ -7149,6 +7557,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         flux = phase_flux(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_flux = timed("mesh flux", phase_mesh_flux, flux, tmp)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -7230,7 +7641,10 @@ def main() -> int:
                                  train["trace"]["found"]["attn_sm90"],
                              "mesh_sd15_2x2_rank0_4_heads": train["mesh"]["text_fwd"],
                              "mesh_sd15_resume_world1": train["mesh"]["resume_fwd"],
-                             "mesh_fleet_dp2_rank0": train["mesh"]["fleet_fwd"]},
+                             "mesh_fleet_dp2_rank0": train["mesh"]["fleet_fwd"],
+                             "mesh_flux_tp2_rank0_12_heads": mesh_flux["tp_fwd"],
+                             "mesh_flux_pp2_stage0": mesh_flux["pp_fwd"][0],
+                             "mesh_flux_pp2_stage1": mesh_flux["pp_fwd"][1]},
         "max_abs_err": max([r["err"] for r in results]
                            + [r["sd_err"] for r in flash_checks if "sd_err" in r]),
         **timing(level0),
@@ -7266,7 +7680,8 @@ def main() -> int:
                                  train["trace"]["found"]["attn_bwd_sm90"],
                              "mesh_sd15_2x2_rank0_4_heads": train["mesh"]["text_bwd"],
                              "mesh_sd15_resume_world1": train["mesh"]["resume_bwd"],
-                             "mesh_fleet_dp2_rank0": train["mesh"]["fleet_bwd"]},
+                             "mesh_fleet_dp2_rank0": train["mesh"]["fleet_bwd"],
+                             "mesh_flux_tp2_rank0_12_heads": mesh_flux["tp_bwd"]},
         "max_abs_err": max(r["err"] for r in bwd_results),
         **timing(bwd_level0),
         "sdxl_train_shape": timing(next(r for r in bwd_results if r["shape"] == SDXL_BWD_SHAPE)),
@@ -7303,7 +7718,8 @@ def main() -> int:
                              "fleet_image_sd15_256_encode": train["fleet_image"]["flash"],
                              "generate_fleet_sd15_vae": train["generate_fleet"]["flash"],
                              "single_file_sd15_vae": train["single_file"]["flash"],
-                             "validate_real_weights_sd15_vae": train["validate"]["flash"]},
+                             "validate_real_weights_sd15_vae": train["validate"]["flash"],
+                             "mesh_flux_pp2_stage0_vae": mesh_flux["pp_flash"]},
         "launches_by_plan": {"tiny_flux_1280": tiny_flux["fwd_plans"],
                              "tiny_flux_train_1280": tiny_flux_train["fwd_plans"],
                              "flux_train_2048": flux["train"][2048]["counts"]["fwd_plans"]},
@@ -7395,4 +7811,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase_mesh's launch
         sys.exit(mesh_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-flux-rank"]:  # one rank of phase_mesh_flux's launch
+        sys.exit(mesh_flux_rank(sys.argv[2:]))
     sys.exit(main())

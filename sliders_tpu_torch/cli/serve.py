@@ -18,14 +18,27 @@ default (--scheduler does not apply) and gates sliders with --skip_till (per
 request: "skip_till"). --continuous serves SD and SDXL by step-level
 continuous batching (--cont_rows rows in flight, --chunk_steps steps a
 device call) on ddim or lms; it refuses FLUX and the ancestral samplers by
-name. --pp other than 1 and --dp other than 1 are not ported yet and exit
-with a message naming their ROADMAP item.
+name. --dp other than 1 (and --pp without --flux) is not ported yet and
+exits with a message naming its ROADMAP item.
+
+--flux --pp N serves FLUX pipeline-parallel over N processes, one stage
+each (`parallel/pipeline.py`), launched by torchrun or the SLIDERS_*
+variables; rank 0 answers HTTP, encodes, runs stage 0, steps the sampler
+and decodes, the other ranks hold their stage's blocks and follow it:
+
+  torchrun --nproc-per-node 2 -m sliders_tpu_torch.cli.serve --flux --pp 2 \
+      --base /path/flux-dev --image_size 1024 --slider age=age_flux.safetensors
+
+In one process --pp 2 raises the mesh's error ("needs 2 devices, have 1").
+An error inside a pipelined forward stops the server: rank 0 exits naming
+it, and each follower's next receive then fails, so every rank ends.
 
   python -m sliders_tpu_torch.cli.serve --base /path/sd15 --continuous \
       --cont_rows 8 --chunk_steps 5 --slider age=out/age_last.safetensors
 """
 
 import argparse
+import threading
 
 
 def build_parser():
@@ -71,9 +84,9 @@ def build_parser():
 
 def unported_reason(args):
     """The message for a flag this port does not serve yet, else None."""
-    if args.pp != 1:
-        return ("--pp: pipeline-parallel FLUX serving is not ported yet "
-                "(ROADMAP queue 1, item 15)")
+    if args.pp != 1 and not args.flux:
+        return ("--pp: the SD / SDXL engines' multi-device serving is not ported yet "
+                "(ROADMAP queue 1, item 15); --pp is FLUX's")
     if args.dp != 1:
         return "--dp: multi-device serving is not ported yet (ROADMAP queue 1, item 15)"
     return None
@@ -91,19 +104,57 @@ def refused_reason(args):
     return None
 
 
-def make_engine(args):
-    """The engine the flags describe, its sliders loaded and (unless
-    --no_warmup) warmed."""
+def _dtype(args):
+    import torch
+
+    return torch.bfloat16 if args.precision in ("bf16", "bfloat16") else torch.float32
+
+
+def pipeline_mesh(args):
+    """With --flux --pp N (N > 1): join the process group and return the
+    1 x 1 x pp mesh (`make_mesh` raises JAX's error when there are too few
+    processes) and this rank's device; else (None, --device)."""
+    import torch
+
+    from sliders_tpu_torch.parallel import mesh as pm
+
+    device = torch.device(args.device)
+    if not (args.flux and args.pp > 1):
+        return None, device
+    pm.maybe_initialize_distributed(device)
+    device = pm.rank_device(device)
+    mesh = pm.make_mesh(dp=1, tp=1, pp=args.pp, device=device)
+    print(f"serving pipeline-parallel over {args.pp} stages")
+    return mesh, device
+
+
+def make_follower(args, mesh, device, stage=None):
+    """A stage past 0 (`FluxStageFollower`) on its blocks of --base, or on
+    `stage` = (this stage's params, FluxConfig) for an in-process caller."""
+    from sliders_tpu_torch.models import convert, loader
+    from sliders_tpu_torch.parallel.pipeline import pp_keep
+    from sliders_tpu_torch.serving.server import FluxStageFollower
+
+    if stage is None:
+        cfg = loader.flux_config_from_hf(convert.load_component_config(args.base, "transformer"))
+        stage = loader.load_flux_transformer(args.base, device=device, dtype=_dtype(args),
+                                             keep=pp_keep(mesh, cfg))
+    return FluxStageFollower(*stage, mesh, device=device)
+
+
+def make_engine(args, models=None, mesh=None, device=None):
+    """The engine the flags describe (stage 0 of `mesh` under --pp), its
+    sliders loaded and (unless --no_warmup) warmed. `models`, if given,
+    replaces the load from --base (in-process callers)."""
     reason = unported_reason(args) or refused_reason(args)
     if reason:
         raise SystemExit(reason)
 
-    import torch
-
-    from sliders_tpu_torch.models import loader
+    from sliders_tpu_torch.models import convert, loader
     from sliders_tpu_torch.serving.server import FluxSliderEngine, SliderEngine
 
-    dtype = torch.bfloat16 if args.precision in ("bf16", "bfloat16") else torch.float32
+    dtype = _dtype(args)
+    device = args.device if device is None else device
     buckets = None
     if args.buckets is not None:
         try:
@@ -115,26 +166,35 @@ def make_engine(args):
             raise SystemExit(f"--buckets wants positive batch sizes, got {args.buckets!r}")
 
     if args.flux:
-        models = loader.load_flux(args.base, device=args.device, dtype=dtype, load_vae=True)
+        if models is None:
+            keep = None
+            if mesh is not None:
+                from sliders_tpu_torch.parallel.pipeline import pp_keep
+
+                keep = pp_keep(mesh, loader.flux_config_from_hf(
+                    convert.load_component_config(args.base, "transformer")))
+            models = loader.load_flux(args.base, device=device, dtype=dtype, load_vae=True,
+                                      transformer_keep=keep)
         engine = FluxSliderEngine(
             models,
-            device=args.device,
+            device=device,
             steps=30 if args.ddim_steps is None else args.ddim_steps,
             image_size=args.image_size,
             guidance_scale=3.5 if args.guidance_scale is None else args.guidance_scale,
             skip_till=args.skip_till,
             compute_dtype=dtype,
             buckets=buckets,
+            mesh=mesh,
         )
     else:
-        if args.xl:
-            models = loader.load_sdxl(args.base, device=args.device, dtype=dtype, load_vae=True)
-        else:
-            models = loader.load_sd(args.base, device=args.device, v2=args.v2, dtype=dtype,
+        if models is None and args.xl:
+            models = loader.load_sdxl(args.base, device=device, dtype=dtype, load_vae=True)
+        elif models is None:
+            models = loader.load_sd(args.base, device=device, v2=args.v2, dtype=dtype,
                                     load_vae=True)
         engine = SliderEngine(
             models,
-            device=args.device,
+            device=device,
             scheduler=args.scheduler,
             steps=50 if args.ddim_steps is None else args.ddim_steps,
             image_size=args.image_size,
@@ -162,10 +222,23 @@ def make_engine(args):
 
 
 def main(args):
-    engine = make_engine(args)
+    reason = unported_reason(args) or refused_reason(args)
+    if reason:
+        raise SystemExit(reason)
+    mesh, device = pipeline_mesh(args)
+    if mesh is not None and (not mesh.active or mesh.coord("pp") > 0):
+        if mesh.active:  # a stage past 0 follows rank 0 until it closes
+            make_follower(args, mesh, device).run()
+        mesh.finish()
+        return
+    engine = make_engine(args, mesh=mesh, device=device)
     from sliders_tpu_torch.serving.server import make_http_server
 
     server = make_http_server(engine, args.host, args.port)
+    channel = getattr(engine, "channel", None)
+    if channel is not None:  # an error inside a forward ends the pipeline and the server
+        channel.on_failure = lambda e: threading.Thread(target=server.shutdown,
+                                                        daemon=True).start()
     print(f"serving on http://{args.host}:{server.server_address[1]}")
     try:
         server.serve_forever()
@@ -173,6 +246,12 @@ def main(args):
         server.shutdown()
     finally:
         engine.close()
+        if mesh is not None and channel.failed is None:
+            mesh.finish()
+    if channel is not None and channel.failed is not None:
+        # the other stages wait for messages that never come; this process
+        # ends, which fails their receives
+        raise SystemExit(f"the pipeline failed, stopping the server: {channel.failed!r}")
 
 
 if __name__ == "__main__":

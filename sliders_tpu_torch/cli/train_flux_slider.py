@@ -11,6 +11,17 @@ Usage:
 tests); asking for CUDA with no CUDA device is an error. The loop itself is
 `training.driver.train_flux_sliders`, which takes loaded models, so a caller
 that already holds them (chip_smoke.py) trains without a snapshot on disk.
+
+Mesh runs (`tpu.dp`, `tpu.tp`; `parallel/mesh.py`), as the JAX CLI builds
+them: launch N processes with torchrun or the SLIDERS_* variables,
+
+  torchrun --nproc-per-node 2 -m sliders_tpu_torch.cli.train_flux_slider \
+      --config_file cfg.yaml        # tpu: {dp: 1, tp: 2}
+
+A mesh is built when there is more than one process or tp > 1; when the
+prompts' `batch_size` is not a multiple of dp, dp falls back to 1 at the
+same tp (the JAX CLI's rule). Each rank loads the transformer, keeps its tp
+shard, and draws the whole LoRA; only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from sliders_tpu_torch.cli.train_text_slider import resolve_device
 from sliders_tpu_torch.core import config as config_util
 from sliders_tpu_torch.models import loader
 from sliders_tpu_torch.ops.attention import set_attention_impl
+from sliders_tpu_torch.parallel.mesh import main_rank_output, tp_keep, training_mesh
 from sliders_tpu_torch.prompts import load_prompts_from_yaml
 from sliders_tpu_torch.training.driver import load_dtype_of, train_flux_sliders
 
@@ -48,13 +60,24 @@ def main(args, on_step=None, lora=None):
         attributes = [a.strip() for a in args.attributes.split(",")]
     prompts = load_prompts_from_yaml(config.prompts_file, attributes)
 
-    device = resolve_device(args.device)
-    set_attention_impl(config.tpu.attention)
-    models = loader.load_flux(config.pretrained_model.name_or_path, device=device,
-                              dtype=load_dtype_of(config))
-    return train_flux_sliders(config, prompts, models, seed=args.seed, t5_len=args.t5_len,
-                              transformer_guidance=args.transformer_guidance, on_step=on_step,
-                              lora=lora)
+    batch = prompts[0].batch_size
+    mesh, device = training_mesh(resolve_device(args.device), config.tpu.dp, config.tpu.tp,
+                                 fit_dp=lambda dp, world: dp if batch % dp == 0 else 1)
+    if mesh is not None and not mesh.active:
+        mesh.finish()
+        return None
+    with main_rank_output(mesh):
+        set_attention_impl(config.tpu.attention)
+        models = loader.load_flux(config.pretrained_model.name_or_path, device=device,
+                                  dtype=load_dtype_of(config),
+                                  transformer_keep=None if mesh is None else tp_keep(
+                                      mesh, config.tpu.tp > 1))
+        out = train_flux_sliders(config, prompts, models, seed=args.seed, t5_len=args.t5_len,
+                                 transformer_guidance=args.transformer_guidance,
+                                 on_step=on_step, lora=lora, mesh=mesh)
+    if mesh is not None:
+        mesh.finish()
+    return out
 
 
 def build_parser():

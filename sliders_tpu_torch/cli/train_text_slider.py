@@ -109,7 +109,8 @@ def shard_unet(mesh, models, tp: int) -> None:
     (`shard_params` with tp_enabled = tp > 1), as the JAX CLIs shard them."""
     if mesh is not None:
         models.unet_params = shard_params(mesh, models.unet_params, tp_enabled=tp > 1,
-                                          heads=unet2d.attention_heads(models.unet_config))
+                                          heads=unet2d.attention_heads(models.unet_config),
+                                          geglu=unet2d.geglu_units(models.unet_config))
 
 
 def build_parser():

@@ -19,6 +19,17 @@ applied in f32, GELU with the tanh approximation. The joint attention
 the backward instead of keeping its activations (`torch.utils.checkpoint`,
 non-reentrant, as the JAX package wraps the blocks in `jax.checkpoint`,
 models/flux.py:296-298); it takes effect only when grad mode is on.
+
+Under a tp split (`parallel.collectives.tensor_parallel`, the tree from
+`parallel.mesh.shard_params`) each block runs Megatron-style on this rank's
+heads // tp heads: `copy_to_tp` in front of the column-split projections
+(q/k/v of both streams, the MLPs' `net.0.proj`, a single block's
+`proj_mlp`) and one `reduce_from_tp` per row-split output, four a double
+block (`to_out.0`, `to_add_out`, `ff.net.2`, `ff_context.net.2`) and one a
+single block (`proj_out`, whose input is [this rank's attention features |
+its MLP features]). The per-head q/k RMSNorm, RoPE and the joint attention
+stay local; the adaLN modulations, the embedders and the final layer run
+replicated. A checkpointed block re-enters the split in its recomputation.
 """
 
 from __future__ import annotations
@@ -33,6 +44,12 @@ from torch.utils.checkpoint import checkpoint
 from sliders_tpu_torch.models.params import ParamFactory
 from sliders_tpu_torch.ops.attention import multihead_attention
 from sliders_tpu_torch.ops.basic import SliderLora, gelu_tanh, linear, silu, timestep_embedding
+from sliders_tpu_torch.parallel.collectives import (
+    active_mesh,
+    copy_to_tp,
+    tensor_parallel,
+    tp_shard,
+)
 
 
 @dataclass(frozen=True)
@@ -146,12 +163,26 @@ def _modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torc
 
 
 def _mlp(p: dict, x: torch.Tensor, lora, name: str) -> torch.Tensor:
-    h = gelu_tanh(linear(p["net"]["0"]["proj"], x, lora=lora, name=f"{name}.net.0.proj"))
-    return linear(p["net"]["2"], h, lora=lora, name=f"{name}.net.2")
+    """The tanh-GELU MLP; under a tp split net.0.proj runs column-parallel
+    (a contiguous slice of the hidden features), net.2 row-parallel."""
+    col = tp_shard(f"{name}.net.0.proj", "col")
+    row = None
+    if col is not None:
+        x = copy_to_tp(x, col.mesh)
+        row = tp_shard(f"{name}.net.2", "row")
+    h = gelu_tanh(linear(p["net"]["0"]["proj"], x, lora=lora, name=f"{name}.net.0.proj", tp=col))
+    return linear(p["net"]["2"], h, lora=lora, name=f"{name}.net.2", tp=row)
+
+
+def _local_heads(heads: int, col, name: str) -> int:
+    if col is None:
+        return heads
+    if heads % col.size:
+        raise ValueError(f"{name}: {heads} heads do not split over tp={col.size}")
+    return heads // col.size
 
 
 def _double_block(p: dict, img, txt, temb, cos, sin, cfg: FluxConfig, lora, name: str):
-    heads = cfg.num_attention_heads
     # adaLN-zero modulation, six chunks for each stream
     sh_a, sc_a, g_a, sh_m, sc_m, g_m = linear(p["norm1"]["linear"], silu(temb)).chunk(6, dim=-1)
     csh_a, csc_a, cg_a, csh_m, csc_m, cg_m = linear(
@@ -160,9 +191,15 @@ def _double_block(p: dict, img, txt, temb, cos, sin, cfg: FluxConfig, lora, name
     txt_n = _modulate(txt, csh_a, csc_a)
 
     a, an = p["attn"], f"{name}.attn"
+    col = tp_shard(f"{an}.to_q", "col")
+    heads = _local_heads(cfg.num_attention_heads, col, an)
+    if col is not None:
+        img_n, txt_n = copy_to_tp(img_n, col.mesh), copy_to_tp(txt_n, col.mesh)
 
     def proj(key, x):
-        return linear(a[key], x, lora=lora, name=f"{an}.{key}")
+        mode = "row" if key in ("to_out.0", "to_add_out") else "col"
+        w = a["to_out"]["0"] if key == "to_out.0" else a[key]
+        return linear(w, x, lora=lora, name=f"{an}.{key}", tp=tp_shard(f"{an}.{key}", mode))
 
     q = _rms_qk(a["norm_q"], proj("to_q", img_n), heads)
     k = _rms_qk(a["norm_k"], proj("to_k", img_n), heads)
@@ -174,7 +211,7 @@ def _double_block(p: dict, img, txt, temb, cos, sin, cfg: FluxConfig, lora, name
     vv = torch.cat([proj("add_v_proj", txt_n), proj("to_v", img_n)], dim=1)
     out = multihead_attention(q, k, vv, heads)
     n_txt = txt.shape[1]
-    img_out = linear(a["to_out"]["0"], out[:, n_txt:], lora=lora, name=f"{an}.to_out.0")
+    img_out = proj("to_out.0", out[:, n_txt:])
     ctx_out = proj("to_add_out", out[:, :n_txt])
 
     img = img + g_a[:, None] * img_out
@@ -186,19 +223,45 @@ def _double_block(p: dict, img, txt, temb, cos, sin, cfg: FluxConfig, lora, name
 
 
 def _single_block(p: dict, x, temb, cos, sin, cfg: FluxConfig, lora, name: str):
-    heads = cfg.num_attention_heads
     shift, scale, gate = linear(p["norm"]["linear"], silu(temb)).chunk(3, dim=-1)
     xn = _modulate(x, shift, scale)
     a, an = p["attn"], f"{name}.attn"
-    q = _rms_qk(a["norm_q"], linear(a["to_q"], xn, lora=lora, name=f"{an}.to_q"), heads)
-    k = _rms_qk(a["norm_k"], linear(a["to_k"], xn, lora=lora, name=f"{an}.to_k"), heads)
-    v = linear(a["to_v"], xn, lora=lora, name=f"{an}.to_v")
+    col = tp_shard(f"{an}.to_q", "col")
+    heads = _local_heads(cfg.num_attention_heads, col, name)
+    if col is not None:
+        xn = copy_to_tp(xn, col.mesh)
+
+    def proj(w, key, mode="col"):
+        return linear(w, xn, lora=lora, name=key, tp=tp_shard(key, mode))
+
+    q = _rms_qk(a["norm_q"], proj(a["to_q"], f"{an}.to_q"), heads)
+    k = _rms_qk(a["norm_k"], proj(a["to_k"], f"{an}.to_k"), heads)
+    v = proj(a["to_v"], f"{an}.to_v")
     attn_out = multihead_attention(apply_rope(q, cos, sin, heads), apply_rope(k, cos, sin, heads),
                                    v, heads)
-    mlp = gelu_tanh(linear(p["proj_mlp"], xn, lora=lora, name=f"{name}.proj_mlp"))
+    mlp = gelu_tanh(proj(p["proj_mlp"], f"{name}.proj_mlp"))
     out = linear(p["proj_out"], torch.cat([attn_out, mlp], dim=-1), lora=lora,
-                 name=f"{name}.proj_out")
+                 name=f"{name}.proj_out", tp=tp_shard(f"{name}.proj_out", "row"))
     return x + gate[:, None] * out
+
+
+def _block_under(mesh, block, *args):
+    with tensor_parallel(mesh):
+        return block(*args)
+
+
+def keep_blocks(params: dict, keep) -> dict:
+    """`params` with `keep(prefix, block)` applied to each block (see
+    `init_params`), for a tree already loaded."""
+    out = dict(params)
+    for family in ("transformer_blocks", "single_transformer_blocks"):
+        kept = {}
+        for i, block in params[family].items():
+            block = keep(f"{family}.{i}", block)
+            if block is not None:
+                kept[i] = block
+        out[family] = kept
+    return out
 
 
 # -- forward ------------------------------------------------------------------
@@ -250,7 +313,8 @@ def apply(params: dict, cfg: FluxConfig, packed_latents: torch.Tensor, timestep:
 
     def run(block, *args):
         if remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            # the recomputation in the backward re-enters this tp split
+            return checkpoint(_block_under, active_mesh(), block, *args, use_reentrant=False)
         return block(*args)
 
     for i in range(cfg.num_layers):
@@ -267,11 +331,15 @@ def apply(params: dict, cfg: FluxConfig, packed_latents: torch.Tensor, timestep:
 
 
 def init_params(generator: Optional[torch.Generator], cfg: FluxConfig, dtype=torch.float32,
-                device="cpu") -> dict:
+                device="cpu", keep=None) -> dict:
     """Random init with the JAX package's distributions (normal weights *
     fan_in^-1/2, zero biases, unit RMSNorm scales), each leaf drawn in
     `dtype` on `device`: FLUX-dev in bf16 is 23.8 GB and never exists in
-    f32."""
+    f32. `keep(prefix, block)`, if given, is called on each block as soon
+    as it is drawn (prefix `transformer_blocks.N` or
+    `single_transformer_blocks.N`) and its result kept in its place, None
+    dropping the block: a rank of a mesh draws the whole stream in the
+    world-1 order and holds only its shard or its stage."""
     f = ParamFactory(generator, dtype, device)
     D, d_head = cfg.inner_dim, cfg.attention_head_dim
 
@@ -308,6 +376,16 @@ def init_params(generator: Optional[torch.Generator], cfg: FluxConfig, dtype=tor
     def embedder(i):
         return {"linear_1": f.dense(i, D), "linear_2": f.dense(D, D)}
 
+    def kept(family, draw, n):
+        blocks = {}
+        for i in range(n):
+            block = draw()
+            if keep is not None:
+                block = keep(f"{family}.{i}", block)
+            if block is not None:
+                blocks[str(i)] = block
+        return blocks
+
     tte = {"timestep_embedder": embedder(256),
            "text_embedder": embedder(cfg.pooled_projection_dim)}
     if cfg.guidance_embeds:
@@ -316,8 +394,9 @@ def init_params(generator: Optional[torch.Generator], cfg: FluxConfig, dtype=tor
         "x_embedder": f.dense(cfg.in_channels, D),
         "context_embedder": f.dense(cfg.joint_attention_dim, D),
         "time_text_embed": tte,
-        "transformer_blocks": {str(i): double() for i in range(cfg.num_layers)},
-        "single_transformer_blocks": {str(i): single() for i in range(cfg.num_single_layers)},
+        "transformer_blocks": kept("transformer_blocks", double, cfg.num_layers),
+        "single_transformer_blocks": kept("single_transformer_blocks", single,
+                                          cfg.num_single_layers),
         "norm_out": {"linear": f.dense(D, 2 * D)},
         "proj_out": f.dense(D, cfg.in_channels),
     }

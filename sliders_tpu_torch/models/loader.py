@@ -236,14 +236,27 @@ class FluxModels:
     vae_config: Optional[vae.VaeConfig] = None
 
 
+def load_flux_transformer(model_dir: str, *, device="cpu", dtype=torch.bfloat16,
+                          keep=None) -> tuple:
+    """(parameters on `device` in `dtype`, FluxConfig) of a FLUX snapshot's
+    transformer. `keep(prefix, block)` (`flux.keep_blocks`: a rank's tp
+    shard or pipeline stage) runs on the host copy, before the move, so a
+    rank's device holds only its part."""
+    params = convert.load_component(model_dir, "transformer")
+    if keep is not None:
+        params = flux.keep_blocks(params, keep)
+    return (tree_to(params, device, dtype),
+            flux_config_from_hf(convert.load_component_config(model_dir, "transformer")))
+
+
 def load_flux(model_dir: str, *, device="cpu", dtype=torch.bfloat16,
-              load_vae: bool = False) -> FluxModels:
+              load_vae: bool = False, transformer_keep=None) -> FluxModels:
     """A FLUX diffusers snapshot (transformer + CLIP-L + T5 + the 16-channel
     VAE) -> FluxModels with every parameter on `device` in `dtype`. The T5
-    tokenizer is the port's own reader of tokenizer_2/tokenizer.json."""
+    tokenizer is the port's own reader of tokenizer_2/tokenizer.json.
+    `transformer_keep`: see `load_flux_transformer`."""
     bundle = FluxModels(
-        tree_to(convert.load_component(model_dir, "transformer"), device, dtype),
-        flux_config_from_hf(convert.load_component_config(model_dir, "transformer")),
+        *load_flux_transformer(model_dir, device=device, dtype=dtype, keep=transformer_keep),
         _load_clip(model_dir, device, dtype),
         tree_to(convert.load_component(model_dir, "text_encoder_2"), device, dtype),
         t5_config_from_hf(convert.load_component_config(model_dir, "text_encoder_2")),

@@ -246,7 +246,7 @@ def _attention(p: dict, x, context, heads: int, lora, name: str):
 def _geglu_ff(p: dict, x, lora, name: str):
     """GEGLU feed-forward; under a tp split net.0.proj runs column-parallel
     (each rank's slice of h and of gate), net.2 row-parallel."""
-    col = tp_shard(f"{name}.net.0.proj", "col", halves=2)
+    col = tp_shard(f"{name}.net.0.proj", "col")
     row = None
     if col is not None:
         x = copy_to_tp(x, col.mesh)
@@ -434,6 +434,13 @@ def attention_heads(cfg: UNetConfig) -> dict:
             for j in range(cfg.layers_per_block + 1):
                 add(f"up_blocks.{i}.attentions.{j}", rev_heads[i], rev_layers[i])
     return out
+
+
+def geglu_units(cfg: UNetConfig) -> set:
+    """The feed-forward of every transformer block of the UNet: GEGLU,
+    whose `net.0.proj` outputs [h | gate] (the units whose halves
+    `parallel.mesh.shard_params` splits apart)."""
+    return {a.rsplit(".", 1)[0] + ".ff" for a in attention_heads(cfg)}
 
 
 def _down_channel_plan(cfg: UNetConfig):

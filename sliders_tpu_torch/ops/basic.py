@@ -81,9 +81,9 @@ def linear(
         rank = entry.get("rank", down.shape[-2])
         scale = _lora_scale(lora.multiplier, entry["alpha"], rank, y)
         if tp is not None and tp.mode == "col":
-            up = shard_slice(up, up.ndim - 2, tp.index, tp.size, tp.halves)
+            up = shard_slice(up, up.ndim - 2, tp.index, tp.size, parts=tp.parts)
         elif row:
-            down = shard_slice(down, down.ndim - 1, tp.index, tp.size)
+            down = shard_slice(down, down.ndim - 1, tp.index, tp.size, parts=tp.parts)
         if down.ndim == 3:
             # per-row stacked: down (B, r, in), up (B, out, r); x (B, ..., in)
             h = torch.einsum("b...i,bri->b...r", x, down)

@@ -12,7 +12,10 @@ explicit:
   fan-outs of the training steps, which need not divide: 3 frozen rows
   over dp = 2 give ranks 2 and 1 rows (`row_range`);
 - `all_reduce_grads`: the LoRA gradient summed over tp for the modules
-  whose base weight tp splits, then averaged over dp.
+  whose base weight tp splits, then averaged over dp;
+- `isend_tensors` / `irecv_tensors` between the stages of the pipeline
+  axis (pp, `parallel/pipeline.py`), staged through host buffers when the
+  ranks share a card over gloo.
 
 `tensor_parallel(mesh)` makes a mesh's tp split visible to the UNet's
 attention and feed-forward blocks (`tp_shard`); outside it, or on a mesh
@@ -33,27 +36,33 @@ import torch.distributed as dist
 @dataclass(frozen=True)
 class TPShard:
     """This rank's share of a tp-split linear: `mode` 'col' (output
-    features split; `halves` = 2 for GEGLU's [h | gate] output, each half
-    split on its own) or 'row' (input features split), shard `index` of
-    `size`, and the mesh whose tp group reduces it."""
+    features split) or 'row' (input features split), shard `index` of
+    `size`, the mesh whose tp group reduces it, and `parts`, the widths of
+    the blocks the split features are made of, each split on its own (()
+    for one block; GEGLU's [h | gate] output is two equal halves, a FLUX
+    single block's `proj_out` input [attention | MLP] two unequal parts)."""
 
     mode: str
     index: int
     size: int
     mesh: object
-    halves: int = 1
+    parts: tuple = ()
 
 
-def shard_slice(t: torch.Tensor, dim: int, index: int, size: int, halves: int = 1) -> torch.Tensor:
-    """Shard `index` of `size` along `dim`: with `halves` > 1 the `index`-th
-    slice of each of the `halves` equal blocks, concatenated (GEGLU's
-    projection chunks its output into [h | gate], so rank r holds the r-th
-    slice of h and of gate)."""
-    n = t.shape[dim]
-    block = n // halves
-    width = block // size
-    parts = [t.narrow(dim, k * block + index * width, width) for k in range(halves)]
-    return parts[0] if halves == 1 else torch.cat(parts, dim)
+def shard_slice(t: torch.Tensor, dim: int, index: int, size: int,
+                parts: tuple = ()) -> torch.Tensor:
+    """Shard `index` of `size` along `dim`: the `index`-th slice of each
+    block of `parts` (widths summing to the dim's size; () for one block),
+    concatenated. GEGLU's projection chunks its output into [h | gate], so
+    rank r holds the r-th slice of h and of gate; a FLUX single block's
+    `proj_out` reads [attention | MLP], so rank r holds the columns of its
+    own heads and of its own MLP rows."""
+    out, start = [], 0
+    for w in parts or (t.shape[dim],):
+        width = w // size
+        out.append(t.narrow(dim, start + index * width, width))
+        start += w
+    return out[0] if len(out) == 1 else torch.cat(out, dim)
 
 
 def row_range(n: int, size: int, index: int) -> tuple:
@@ -208,6 +217,61 @@ def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     return torch.cat(_all_gather(x.detach(), mesh, "dp"))
 
 
+# --- point to point over the pipeline axis (pp) -------------------------------
+
+
+def p2p_via_host(mesh, device) -> bool:
+    """Whether a send or receive of a tensor on `device` is staged through
+    host memory: a CUDA tensor on a gloo mesh (ranks sharing a card; gloo
+    refuses CUDA send / recv), which this module copies through host
+    buffers itself (`make_mesh` names them in its line); NCCL sends device
+    memory directly."""
+    return torch.device(device).type == "cuda" and mesh.backend == "gloo"
+
+
+def _stage_rank(mesh, stage: int) -> int:
+    return dist.get_global_rank(mesh.group("pp"), stage)
+
+
+def isend_tensors(tensors: list, mesh, stage: int, tag: int) -> list:
+    """Start sending `tensors`, in order, to pipeline stage `stage` (tags
+    tag, tag + 1, ...); returns the pending (work, buffer) pairs for
+    `wait_all`."""
+    dst = _stage_rank(mesh, stage)
+    pending = []
+    for i, t in enumerate(tensors):
+        buf = t.detach().contiguous()
+        if p2p_via_host(mesh, buf.device):
+            buf = buf.cpu()
+        pending.append((dist.isend(buf, dst, group=mesh.group("pp"), tag=tag + i), buf))
+    return pending
+
+
+def irecv_tensors(specs: list, mesh, stage: int, tag: int, device):
+    """Start receiving tensors of `specs` [(shape, dtype), ...] from
+    pipeline stage `stage` (the tags of `isend_tensors`); returns
+    `finish()`, which waits and returns the tensors on `device`."""
+    src = _stage_rank(mesh, stage)
+    host = p2p_via_host(mesh, device)
+    bufs = [torch.empty(shape, dtype=dtype, device="cpu" if host else device)
+            for shape, dtype in specs]
+    pending = [(dist.irecv(b, src, group=mesh.group("pp"), tag=tag + i), b)
+               for i, b in enumerate(bufs)]
+
+    def finish():
+        wait_all(pending)
+        return [b.to(device) for b in bufs]
+
+    return finish
+
+
+def wait_all(pending: list) -> None:
+    """Wait for pending sends or receives; each wait is bounded by the
+    process group's time-out, so a dead peer fails the run."""
+    for work, _ in pending:
+        work.wait()
+
+
 _ACTIVE: Optional[object] = None
 
 
@@ -230,11 +294,11 @@ def active_mesh():
     return _ACTIVE
 
 
-def tp_shard(module: str, mode: str, halves: int = 1) -> Optional[TPShard]:
+def tp_shard(module: str, mode: str) -> Optional[TPShard]:
     """This rank's `TPShard` of the linear at dotted path `module` inside
-    `tensor_parallel`, or None when no mesh is active or tp left the
-    module whole."""
+    `tensor_parallel` (its parts as `shard_params` recorded them), or None
+    when no mesh is active or tp left the module whole."""
     mesh = _ACTIVE
     if mesh is None or module not in mesh.tp_split:
         return None
-    return TPShard(mode, mesh.coord("tp"), mesh.size("tp"), mesh, halves)
+    return TPShard(mode, mesh.coord("tp"), mesh.size("tp"), mesh, mesh.tp_parts.get(module, ()))

@@ -18,12 +18,20 @@ never stages through the host, and no path turns a CUDA run into a CPU
 run.
 
 The tp rules (`param_spec`) are the JAX package's `_TP_RULES`, the FLUX
-entries included, in the JAX layout (in, out): q/k/v and GEGLU's
-`ff.net.0.proj` split on their outputs, `to_out.0` and `ff.net.2` on their
-inputs, everything else (resnets, norms, convs, proj_in / proj_out)
+entries included, in the JAX layout (in, out): q/k/v (FLUX's `add_*_proj`
+too), the feed-forwards' `net.0.proj` and a FLUX single block's
+`proj_mlp` split on their outputs, `to_out.0`, `to_add_out`, `net.2` and a
+single block's `proj_out` on their inputs, everything else (resnets,
+norms, convs, the adaLN modulations, the embedders, proj_in / proj_out)
 replicated. `shard_params` applies them to the port's (out, in) weights
 and records the split modules on the mesh (`Mesh.tp_split`), which the
-UNet reads under `collectives.tensor_parallel`.
+UNet and the MMDiT read under `collectives.tensor_parallel`. Two FLUX
+traps: its `ff.net.0.proj` is a plain GELU projection (not GEGLU's two
+halves), and a single block's `proj_out` reads [attention | MLP], so its
+columns split in those two parts.
+
+A `pp` axis (`make_mesh(pp=...)`) carries the FLUX pipeline
+(`parallel/pipeline.py`): its group's ranks are the stages, in order.
 """
 
 from __future__ import annotations
@@ -123,6 +131,7 @@ class Mesh:
     backend: str
     via_host: tuple = ()
     tp_split: set = field(default_factory=set)
+    tp_parts: dict = field(default_factory=dict)
     whole_shapes: dict = field(default_factory=dict)
     active_group: object = None
     owns_group: bool = False
@@ -208,7 +217,9 @@ def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1,
                     groups[axis] = g
         active_group = dist.new_group(list(range(k)))
         if backend == "gloo" and device is not None and torch.device(device).type == "cuda":
-            via_host = ("all_reduce", "all_gather")
+            # gloo copies these itself; send / recv are staged by
+            # `collectives.isend_tensors` / `irecv_tensors`
+            via_host = ("all_reduce", "all_gather") + (("send/recv",) if pp > 1 else ())
         if "nccl" in backend:
             backend = "nccl"
         if sp == pp == 1:
@@ -268,57 +279,116 @@ def param_spec(path: str, tp_enabled: bool, ndim: Optional[int] = None) -> tuple
     return ()
 
 
-_ATTN = re.compile(r"^(.*\.attn[12])\.(to_q|to_k|to_v|to_out\.0)\.(weight|bias)$")
-_FF = re.compile(r"^(.*\.ff)\.net\.(0\.proj|2)\.(weight|bias)$")
+# The units tp splits together, each with the head count `heads` keys it
+# by: a UNet attention (`...attn1` / `attn2`), a FLUX double block's joint
+# attention (`transformer_blocks.N.attn`: both streams' q/k/v and their two
+# out projections), a FLUX single block (`single_transformer_blocks.N`: its
+# q/k/v, `proj_mlp` and the `proj_out` that reads both), and a
+# feed-forward (`...ff`, FLUX's `ff_context` too). FLUX's paths start at
+# the transformer's root, the UNet's under its blocks.
+_UNITS = (
+    re.compile(r"^(single_transformer_blocks\.\d+)\.(?:attn\.to_[qkv]|proj_mlp|proj_out)\."
+               r"(?:weight|bias)$"),
+    re.compile(r"^(transformer_blocks\.\d+\.attn)\.(?:to_[qkv]|add_[qkv]_proj|to_out\.0|"
+               r"to_add_out)\.(?:weight|bias)$"),
+    re.compile(r"^(.*\.attn[12])\.(?:to_q|to_k|to_v|to_out\.0)\.(?:weight|bias)$"),
+    re.compile(r"^(.*\.ff(?:_context)?)\.net\.(?:0\.proj|2)\.(?:weight|bias)$"),
+)
+
+
+def _tp_unit(path: str) -> Optional[str]:
+    for pat in _UNITS:
+        m = pat.match(path)
+        if m is not None:
+            return m.group(1)
+    return None
+
+
+def _split_parts(path: str, n: int, dim: int, unit: str, geglu, flat: dict) -> tuple:
+    """The widths of the blocks that a split dimension of size n is made
+    of. A GEGLU feed-forward's `net.0.proj` (a unit in `geglu`: the
+    UNet's) outputs [h | gate], two halves; FLUX's MLP projection is a
+    plain tanh-GELU one, split contiguously. A FLUX single block's
+    `proj_out` reads [attention | MLP], whose MLP part is as wide as
+    `proj_mlp`'s output."""
+    if unit in geglu and path.startswith(f"{unit}.net.0.proj."):
+        return (n // 2, n // 2)
+    if path == f"{unit}.proj_out.weight" and dim == 1:
+        mlp = flat[f"{unit}.proj_mlp.weight"].shape[0]
+        return (n - mlp, mlp)
+    return (n,)
 
 
 def shard_params(mesh: Mesh, params: dict, tp_enabled: bool = False,
-                 heads: Optional[dict] = None) -> dict:
-    """This rank's slices of a UNet parameter tree under `param_spec`: an
-    output-split weight keeps rows (out) r of tp, an input-split one columns
-    (in) r of tp, a split bias its slice; GEGLU's `ff.net.0.proj` keeps the
-    r-th slice of each of its [h | gate] halves. An attention whose head
-    count (`heads`, {attention path: heads}, `models.unet2d.attention_heads`)
-    tp does not divide, or a feed-forward whose width it does not divide,
-    stays whole on every rank with no collective (printed once). Records the
-    split modules in `mesh.tp_split`. Returns a new tree sharing the
-    unsplit leaves."""
+                 heads: Optional[dict] = None, geglu=(), prefix: str = "") -> dict:
+    """This rank's slices of a UNet or FLUX parameter tree under
+    `param_spec`: an output-split weight keeps rows (out) r of tp, an
+    input-split one columns (in) r of tp, a split bias its slice, each of
+    the blocks a split dimension is made of split on its own
+    (`_split_parts`: the two halves of a GEGLU unit in `geglu`,
+    `models.unet2d.geglu_units`; a FLUX single block's `proj_out`
+    columns [attention slice r | MLP slice r], so that its one all-reduce
+    sums the products of this rank's own heads and MLP rows). A unit
+    (`_UNITS`) whose head count (`heads`, {unit: heads};
+    `models.unet2d.attention_heads`, or a FLUX block's from `tp_keep`)
+    tp does not divide, or one with a width it does not divide, stays whole on
+    every rank with no collective (printed once). Records the split
+    modules and their parts on the mesh (`Mesh.tp_split`, `tp_parts`) and
+    the split leaves' whole shapes (`whole_shapes`); a call on a subtree
+    at dotted `prefix` (a FLUX block as `flux.init_params` draws it) adds
+    to them. Returns a new tree sharing the unsplit leaves."""
     tp = mesh.size(MODEL_AXIS)
     if not tp_enabled or tp == 1:
         return params
-    flat = pytree.flatten(params)
-    whole_attn = {a for a, h in (heads or {}).items() if h % tp}
+    root = f"{prefix}." if prefix else ""
+    flat = {root + p: t for p, t in pytree.flatten(params).items()}
     r = mesh.coord(MODEL_AXIS)
-    out = {}
-    split = set()
-    kept_whole = set()
+    plan = {}  # path -> (unit, dim, parts)
     for path, leaf in flat.items():
         spec = param_spec(path, True, leaf.ndim)
         if not spec:
-            out[path] = leaf
             continue
-        module = path.rsplit(".", 1)[0]
-        m = _ATTN.match(path) or _FF.match(path)
-        if m is None:
-            # the FLUX entries: FLUX under a mesh is refused before this
-            raise NotImplementedError(f"{path}: tp of this module is not ported (ROADMAP queue "
-                                      "1, item 15)")
-        halves = 2 if path.endswith("net.0.proj.weight") or path.endswith("net.0.proj.bias") \
-            else 1
+        unit = _tp_unit(path)
+        if unit is None:
+            raise NotImplementedError(f"{path}: a tp rule matches a module of no known block "
+                                      "(ROADMAP queue 1, item 15)")
         # the JAX spec is (in, out); the port's weight is (out, in)
         dim = (1 if spec[0] == MODEL_AXIS else 0) if leaf.ndim == 2 else 0
-        if m.group(1) in whole_attn or (leaf.shape[dim] // halves) % tp:
-            kept_whole.add(m.group(1))
-            out[path] = leaf
+        plan[path] = (unit, dim, _split_parts(path, leaf.shape[dim], dim, unit, geglu, flat))
+    kept_whole = {u for u, h in (heads or {}).items() if h % tp}
+    kept_whole |= {u for u, _, parts in plan.values() if any(w % tp for w in parts)}
+    out = dict(flat)
+    for path, (unit, dim, parts) in plan.items():
+        if unit in kept_whole:
             continue
-        out[path] = shard_slice(leaf, dim, r, tp, halves).contiguous()
+        leaf = flat[path]
+        out[path] = shard_slice(leaf, dim, r, tp, parts=parts).contiguous()
         mesh.whole_shapes[path] = tuple(leaf.shape)
-        split.add(module)
-    mesh.tp_split = split
-    if kept_whole and mesh.is_main:
-        print(f"tp={tp}: {len(kept_whole)} block(s) whose heads or width tp does not divide "
-              f"stay whole on every rank, e.g. {sorted(kept_whole)[0]}", flush=True)
-    return pytree.unflatten(out)
+        module = path.rsplit(".", 1)[0]
+        mesh.tp_split.add(module)
+        if len(parts) > 1:
+            mesh.tp_parts[module] = parts
+    kept = sorted(u for u in kept_whole if any(p[0] == u for p in plan.values()))
+    if kept and mesh.is_main:
+        print(f"tp={tp}: {len(kept)} block(s) whose heads or width tp does not divide "
+              f"stay whole on every rank, e.g. {kept[0]}", flush=True)
+    return pytree.unflatten({p[len(root):]: t for p, t in out.items()})
+
+
+def tp_keep(mesh: Mesh, tp_enabled: bool = True):
+    """The `keep` hook of `models.flux.init_params` / `keep_blocks` that
+    replaces each FLUX block by this rank's tp shard (`shard_params`, with
+    the block's head count read from its q projection and q norm; FLUX has
+    no GEGLU unit)."""
+
+    def keep(prefix, block):
+        a = block["attn"]
+        heads = a["to_q"]["weight"].shape[0] // a["norm_q"]["weight"].shape[0]
+        unit = f"{prefix}.attn" if prefix.startswith("transformer_blocks") else prefix
+        return shard_params(mesh, block, tp_enabled=tp_enabled, heads={unit: heads},
+                            prefix=prefix)
+
+    return keep
 
 
 def whole_params(mesh: Optional[Mesh], params: dict) -> dict:

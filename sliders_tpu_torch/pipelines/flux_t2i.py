@@ -15,8 +15,14 @@ serves many requests. A 0-d scale with one adapter takes the merged-delta
 path: scale * (alpha / rank) * up @ down is folded into the targeted weights
 once (lora/merge.py), and step i runs on W + gate * delta with gate =
 (i > skip_till), a scalar. The JAX `lax.scan` over steps is a Python loop,
-one transformer forward per step. Not ported yet: the pipeline-parallel
-`mesh` (ROADMAP queue 1, item 15), refused by name.
+one transformer forward per step.
+
+With a `mesh` that has a pp axis, every forward runs pipeline-parallel
+(`parallel/pipeline.flux_apply_pp`, params from `flux_pp_params`) and the
+slider rides the branch with the multiplier scale * (i > skip_till), per
+row, as in JAX (pipelines/flux_t2i.py:100-126) but for the per-row scale
+that the JAX pipeline refuses. Stage 0 returns the latents, the other
+stages None.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from sliders_tpu_torch.lora.batch import is_stacked
 from sliders_tpu_torch.lora.merge import merge_lora_weights
 from sliders_tpu_torch.models import clip_text, flux, t5
 from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.parallel.mesh import PIPE_AXIS
 
 
 @torch.no_grad()
@@ -50,7 +57,8 @@ def encode_prompts_flux(models, prompts: list[str], t5_ids=None, max_t5_len: int
 
 
 def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, latent_hw: int,
-                          compute_dtype=torch.bfloat16, mesh=None, num_microbatches: int = 1):
+                          compute_dtype=torch.bfloat16, mesh=None, num_microbatches: int = 1,
+                          channel=None):
     """Build
 
         fn(params, packed_latents, pooled, t5_embeds, lora_weights,
@@ -62,10 +70,16 @@ def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, la
       which needs a scalar `skip_till`;
     - `skip_till`, `guidance`: (B,) tensors or scalars. Row b's slider is on
       while step i > skip_till[b] (-1 keeps it on throughout).
-    Everything runs on the latents' device under torch.inference_mode()."""
-    if mesh is not None or num_microbatches != 1:
-        raise NotImplementedError(
-            "pipeline-parallel FLUX sampling is not ported yet (ROADMAP queue 1, item 15)")
+    Everything runs on the latents' device under torch.inference_mode().
+    `mesh` (with a pp axis), `num_microbatches` and `channel` (a server's
+    `pipeline.StageChannel`) pipeline every forward, see the module
+    docstring; a mesh without a pp axis raises JAX's ValueError."""
+    use_pp = mesh is not None
+    if use_pp:
+        from sliders_tpu_torch.parallel.pipeline import flux_apply_pp
+
+        if mesh.size(PIPE_AXIS) == 1:
+            raise ValueError(f"mesh has no '{PIPE_AXIS}' axis: {tuple(mesh.shape)}")
     img_ids_arr = torch.as_tensor(flux.image_ids(latent_hw, latent_hw))
 
     @torch.inference_mode()
@@ -81,7 +95,7 @@ def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, la
         if lora_weights is not None:
             slider_scale = torch.as_tensor(slider_scale, dtype=torch.float32, device=device)
             skip_till = torch.as_tensor(skip_till, dtype=torch.float32, device=device)
-            merge = slider_scale.ndim == 0 and not is_stacked(lora_weights)
+            merge = slider_scale.ndim == 0 and not is_stacked(lora_weights) and not use_pp
             if merge and skip_till.ndim > 0:
                 raise ValueError("a scalar slider scale (the merged-delta path) needs a "
                                  "scalar skip_till")
@@ -101,10 +115,17 @@ def make_flux_sampling_fn(cfg: flux.FluxConfig, sampler: FlowMatchSampler, *, la
             elif lora_weights is not None:
                 gated = slider_scale * torch.where(skip_till < i, 1.0, 0.0)
                 lora = SliderLora(weights=lora_weights, multiplier=gated)
-            v = flux.apply(p, cfg, x, t_norm, pooled, t5_embeds, tids, img_ids_arr,
-                           guidance=g, lora=lora)
+            if use_pp:
+                v = flux_apply_pp(p, cfg, x, t_norm, pooled, t5_embeds, tids, img_ids_arr,
+                                  mesh, guidance=g, lora=lora,
+                                  num_microbatches=num_microbatches, channel=channel)
+                if v is None:  # a stage past 0: stage 0 steps the sampler
+                    continue
+            else:
+                v = flux.apply(p, cfg, x, t_norm, pooled, t5_embeds, tids, img_ids_arr,
+                               guidance=g, lora=lora)
             x = sampler.step(i, v, x).to(compute_dtype)
-        return x
+        return None if use_pp and mesh.coord(PIPE_AXIS) > 0 else x
 
     return fn
 

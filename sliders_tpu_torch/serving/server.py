@@ -91,6 +91,7 @@ from sliders_tpu_torch.lora.batch import _rank_axes, stack_sliders, structure_si
 from sliders_tpu_torch.lora.compose import compose_sliders
 from sliders_tpu_torch.models import flux
 from sliders_tpu_torch.models.params import tree_to
+from sliders_tpu_torch.ops.basic import SliderLora
 from sliders_tpu_torch.pipelines import flux_t2i
 from sliders_tpu_torch.pipelines import text2image as t2i
 
@@ -144,7 +145,7 @@ class _Pending:
 
     __slots__ = (
         "prompt", "negative", "seed", "scales", "slider", "weights", "sig",
-        "start_noise", "guidance", "event", "result", "error", "waited",
+        "start_noise", "guidance", "event", "result", "error", "waited", "slider_id",
     )
 
     def __init__(self, prompt, negative, seed, scales, slider, weights, sig,
@@ -162,6 +163,7 @@ class _Pending:
         self.result = None
         self.error = None
         self.waited = 0  # continuous engine: chunks run while this request sat queued
+        self.slider_id = None  # a pipeline's registration id of `weights`
 
 
 class SliderEngine:
@@ -226,7 +228,7 @@ class SliderEngine:
                 raise ValueError(f"buckets must be non-empty positive ints, got {buckets}")
             self._buckets = tuple(sorted(buckets))
         self.sliders: dict[str, dict] = {}
-        self._registry_lock = threading.Lock()
+        self._registry_lock = threading.RLock()
         # held by the worker around its device work; a caller that holds it
         # knows the worker is not between two of its calls
         self._lock = threading.Lock()
@@ -763,8 +765,23 @@ class FluxSliderEngine(SliderEngine):
         request's seed;
       - the f32 VAE decode takes `decode_rows` rows at a time, as the SD
         engine's does (8 at 1024 px, 2 at 2048 px).
-    The pipeline-parallel `mesh` (the TPU's capacity path) is not ported
-    (ROADMAP queue 1, item 15): FLUX-dev in bf16 fits one 80 GB card."""
+
+    With a `mesh` that has a pp axis (`parallel/pipeline.py`) this engine
+    is stage 0 of a pipeline: it keeps only its stage's blocks
+    (`flux_pp_params`) beside the encoders and the VAE, encodes, embeds,
+    steps the sampler and decodes, and drives the other stages, each a
+    `FluxStageFollower`, through a `StageChannel`: every registration of a
+    slider (also one loaded from a file or composed) is sent to them once
+    under an id of its own, each batch's per-row ids (those its requests
+    captured when they were queued, so that a name registered again
+    while a request waits changes no stage's rows) before its denoise,
+    each transformer call's shapes and per-row multiplier, and `close`.
+    A registration no name and no queued request holds any more is
+    dropped by the followers with the next batch. Slider files resolve
+    against the whole transformer's names (a meta-device skeleton).
+    `num_microbatches` splits each forward's rows (GPipe). An error inside
+    a forward ends the pipeline (`StageChannel`): the request gets it, and
+    every later one a RuntimeError naming it (`failed`)."""
 
     def __init__(
         self,
@@ -780,9 +797,19 @@ class FluxSliderEngine(SliderEngine):
         buckets=None,
         num_microbatches: int = 1,
     ):
-        if mesh is not None or num_microbatches != 1:
-            raise NotImplementedError(
-                "pipeline-parallel FLUX serving is not ported yet (ROADMAP queue 1, item 15)")
+        self.mesh, self.channel = mesh, None
+        if mesh is not None:
+            from sliders_tpu_torch.parallel.pipeline import StageChannel, flux_pp_params
+
+            if mesh.size("pp") == 1 or mesh.coord("pp") != 0:
+                raise ValueError("FluxSliderEngine runs stage 0 of a mesh with a pp axis")
+            models.transformer_params = flux_pp_params(mesh, models.transformer_params,
+                                                       models.transformer_config)
+            self.channel = StageChannel(mesh)
+            self._slider_ids: dict[str, int] = {}  # name -> its registration's id
+            self._holds: dict[int, int] = {}  # id -> the names and requests that hold it
+            self._next_id = 0
+            self._dropped: list = []  # ids no one holds, for the followers to drop
         self.device = _serving_device(device, models)
         models.transformer_params = tree_to(models.transformer_params, self.device)
         models.t5_params = tree_to(models.t5_params, self.device)
@@ -800,11 +827,69 @@ class FluxSliderEngine(SliderEngine):
                                               image_seq_len=(self._latent_hw // 2) ** 2)
         self.fn = flux_t2i.make_flux_sampling_fn(models.transformer_config, self.sampler,
                                                  latent_hw=self._latent_hw,
-                                                 compute_dtype=self.dtype)
+                                                 compute_dtype=self.dtype, mesh=mesh,
+                                                 num_microbatches=num_microbatches,
+                                                 channel=self.channel)
+        self._skeleton = None
         self._init_runtime(buckets)
 
     def _lora_base(self) -> dict:
-        return self.models.transformer_params
+        if self.mesh is None:
+            return self.models.transformer_params
+        if self._skeleton is None:  # every block's names; this stage holds some
+            self._skeleton = flux.init_params(None, self.models.transformer_config,
+                                              device="meta")
+        return self._skeleton
+
+    @property
+    def failed(self) -> Optional[BaseException]:
+        """The error that ended this engine's pipeline, or None."""
+        return None if self.channel is None else self.channel.failed
+
+    def register_slider(self, name: str, weights: dict) -> None:
+        if self.channel is None:
+            return super().register_slider(name, weights)
+        weights = tree_to(weights, self.device)
+        with self._registry_lock:
+            sid, self._next_id = self._next_id, self._next_id + 1
+        self.channel.announce(("register", sid, name, tree_to(weights, "cpu")))
+        with self._registry_lock:
+            old = self._slider_ids.get(name)
+            self.sliders[name], self._slider_ids[name], self._holds[sid] = weights, sid, 1
+            if old is not None:
+                self._release(old)
+
+    def _release(self, sid: int) -> None:
+        """One holder of registration `sid` less (under the registry lock)."""
+        self._holds[sid] -= 1
+        if not self._holds[sid]:
+            del self._holds[sid]
+            self._dropped.append(sid)
+
+    def _make_pending(self, prompt: str, **kw) -> _Pending:
+        with self._registry_lock:  # the weights and their id in one step
+            p = super()._make_pending(prompt, **kw)
+            if self.channel is not None and p.slider is not None:
+                p.slider_id = self._slider_ids[p.slider]
+                self._holds[p.slider_id] += 1
+        return p
+
+    def _generate_batch(self, batch: list) -> list:
+        try:
+            return super()._generate_batch(batch)
+        finally:
+            if self.channel is not None:
+                with self._registry_lock:
+                    for p in batch:
+                        if p.slider_id is not None:
+                            self._release(p.slider_id)
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Stop the worker after the queued requests, then (stage 0 of a
+        pipeline) the followers."""
+        super().close(timeout)
+        if self.channel is not None:
+            self.channel.close()
 
     def _encode(self, prompt: str, negative: str):
         """Cached 1-row (pooled, t5_embeds); FLUX has no CFG negative, so
@@ -833,6 +918,14 @@ class FluxSliderEngine(SliderEngine):
             pooleds.append(pooleds[0][:1].expand(pad_n, -1))
             t5s.append(t5s[0][:1].expand(pad_n, -1, -1))
             lat_parts.append(lat_parts[0][:1].expand(pad_n, -1, -1))
+        if self.channel is not None:  # the followers stack the same rows
+            ids = None
+            if weights is not None:
+                ids = [p.slider_id for p, r in zip(batch, rows) for _ in range(r)]
+                ids += [batch[0].slider_id] * pad_n
+            with self._registry_lock:
+                dropped, self._dropped = self._dropped, []
+            self.channel.announce(("batch", ids, dropped))
         x = self.fn(m.transformer_params, torch.cat(lat_parts).to(self.device),
                     torch.cat(pooleds), torch.cat(t5s), weights, scale_vec,
                     sn_vec,  # per-row skip_till
@@ -840,6 +933,74 @@ class FluxSliderEngine(SliderEngine):
         if not torch.isfinite(x).all():
             raise FloatingPointError("denoised latents are not finite")
         return self._decode(flux.unpack_latents(x, self._latent_hw, self._latent_hw))
+
+
+class FluxStageFollower:
+    """A stage past 0 of a pipeline-parallel FLUX server (`parallel/
+    pipeline.py`): `run()` answers stage 0's `StageChannel` until it
+    closes. It holds this stage's blocks (`params`, from `flux_pp_params`
+    or `pp_keep`), keeps the entries of its blocks of every registration
+    by its id until stage 0 drops it, stacks each batch's per-row sliders
+    as stage 0 does (`stack_sliders`, ranks rounded to powers of two) and
+    runs its part of each transformer call. An error ends `run()` and so
+    this process, which fails stage 0's next receive."""
+
+    def __init__(self, params: dict, cfg: flux.FluxConfig, mesh, device=None):
+        from sliders_tpu_torch.parallel.pipeline import StageChannel, stage_layers
+
+        self.params, self.cfg, self.mesh = params, cfg, mesh
+        self.device = torch.device(device) if device is not None else \
+            params["proj_out"]["weight"].device
+        self.channel = StageChannel(mesh)
+        self._layers = stage_layers(cfg, mesh.size("pp"), mesh.coord("pp"))
+        self.sliders: dict[int, dict] = {}  # registration id -> this stage's entries
+        self.names: dict[int, str] = {}
+        self._stacked = None
+        self.stats = {"forwards": 0, "batches": 0}
+
+    def _mine(self, module: str) -> bool:
+        family, i = module.split(".")[:2]
+        return family in self._layers and int(i) in self._layers[family]
+
+    def run(self) -> None:
+        from sliders_tpu_torch.parallel.pipeline import flux_apply_pp
+
+        while True:
+            msg = self.channel.listen()
+            kind = msg[0]
+            if kind == "close":
+                return
+            if kind == "register":
+                _, sid, name, weights = msg
+                self.sliders[sid] = tree_to({m: e for m, e in weights.items()
+                                             if self._mine(m)}, self.device)
+                self.names[sid] = name
+            elif kind == "batch":
+                _, ids, dropped = msg
+                for sid in dropped:
+                    del self.sliders[sid], self.names[sid]
+                self._stacked = None
+                if ids is not None:
+                    rows = [self.sliders[i] for i in ids]
+                    self._stacked = stack_sliders(rows, round_ranks_pow2=True) if rows[0] \
+                        else {}
+                self.stats["batches"] += 1
+            elif kind == "forward":
+                d = msg[1]
+                B, L_img, C = d["shape"]
+                meta = {"device": "meta", "dtype": d["dtype"]}
+                lora = None
+                if d["multiplier"] is not None:
+                    lora = SliderLora(self._stacked, d["multiplier"].to(self.device))
+                with torch.inference_mode():
+                    flux_apply_pp(
+                        self.params, self.cfg, torch.empty((B, L_img, C), **meta),
+                        torch.empty((B,), **meta),
+                        torch.empty((B, self.cfg.pooled_projection_dim), **meta),
+                        torch.empty((B, d["txt_len"], self.cfg.joint_attention_dim), **meta),
+                        d["txt_ids"], d["img_ids"], self.mesh, lora=lora,
+                        num_microbatches=d["microbatches"], channel=self.channel)
+                self.stats["forwards"] += 1
 
 
 # -- HTTP layer -----------------------------------------------------------

@@ -36,8 +36,9 @@ UNet in f16 on f32 weights and an f32 LoRA, with no loss scaling, as the
 JAX package does. The FLUX and image loops (and the image fleet) compute in
 the load dtype, as their JAX CLIs do: f32 under fp16, with a printed note.
 
-Refused with `NotImplementedError` naming their ROADMAP item: `tpu.dp` or
-`tpu.tp` above 1 in the FLUX loop (queue 1, item 15).
+The FLUX loop takes the same process mesh (`mesh=`, a dp x tp mesh of
+`parallel.mesh.training_mesh`): its batch is the prompts' `batch_size`,
+split over dp by the step, and only the main rank writes.
 """
 
 from __future__ import annotations
@@ -142,13 +143,6 @@ def random_resolution_in_bucket(rng, bucket_resolution: int = 512) -> tuple:
     h = int(rng.integers(min_step, max_step)) * step
     w = int(rng.integers(min_step, max_step)) * step
     return h, w
-
-
-def _refuse_unported(config: RootConfig) -> None:
-    tpu = config.tpu
-    if tpu.dp > 1 or tpu.tp > 1:
-        raise NotImplementedError(f"tpu.dp={tpu.dp}, tpu.tp={tpu.tp}: FLUX over a mesh is not "
-                                  "ported yet (ROADMAP queue 1, item 15)")
 
 
 def _note_f32_under_fp16(config: RootConfig, loop: str) -> None:
@@ -444,6 +438,7 @@ def train_flux_sliders(
     transformer_guidance: float = 1.0,
     on_step=None,
     lora: Optional[dict] = None,
+    mesh=None,
 ) -> dict:
     """The FLUX text-slider loop of the JAX package's train_flux_slider CLI,
     on the device of the transformer's parameters: an ortho-up LoRA for
@@ -454,8 +449,11 @@ def train_flux_sliders(
     `{name}_last`. Returns the final LoRA on the CPU; `on_step(step, state,
     metrics)` is called after every iteration. `lora`, if given, is the tree
     to train from in place of a fresh init (copied to the device), so that
-    runs on two devices can start from the same factors."""
-    _refuse_unported(config)
+    runs on two devices can start from the same factors. `mesh`: the dp x
+    tp process mesh the step splits over; the LoRA is drawn whole on every
+    rank from the transformer's whole shapes (`whole_params`), and only
+    the main rank writes files."""
+    main = mesh is None or mesh.is_main
     _note_text_loop_only(config)
     _note_f32_under_fp16(config, "FLUX slider training")
     device = _param_device(models.transformer_params)
@@ -463,7 +461,8 @@ def train_flux_sliders(
     ortho = config.network.training_method != "full"
     if lora is None:
         lora = lnet.create_slider_network(
-            torch.Generator(device=device).manual_seed(seed + 1), models.transformer_params,
+            torch.Generator(device=device).manual_seed(seed + 1),
+            whole_params(mesh, models.transformer_params),
             rank=config.network.rank, alpha=config.network.alpha,
             train_method=config.network.training_method, ortho_up=ortho,
             dtype=torch.float32, device=device,  # master LoRA weights in f32; the merge casts
@@ -480,7 +479,7 @@ def train_flux_sliders(
     step = make_flux_slider_step(
         models.transformer_config, sampler, optimizer, resolution=resolution,
         batch_size=prompts[0].batch_size, transformer_guidance=transformer_guidance,
-        compute_dtype=dtype, remat=config.tpu.remat, trainable_mask=mask,
+        compute_dtype=dtype, remat=config.tpu.remat, trainable_mask=mask, mesh=mesh,
     )
 
     pair_dicts = []
@@ -496,11 +495,12 @@ def train_flux_sliders(
 
     state = SliderTrainState.create(seed, lora, optimizer)
     save_dir = Path(config.save.path)
-    save_dir.mkdir(parents=True, exist_ok=True)
     ext = ".safetensors" if config.save.format == "safetensors" else ".pt"
-    with open(save_dir / f"{config.save.name}_metadata.json", "w") as f:
-        json.dump({"prompts": [p.to_dict() for p in prompts], "config": to_dict(config)}, f,
-                  indent=2)
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        with open(save_dir / f"{config.save.name}_metadata.json", "w") as f:
+            json.dump({"prompts": [p.to_dict() for p in prompts], "config": to_dict(config)}, f,
+                      indent=2)
 
     iterations, per = config.train.iterations, config.save.per_steps
     for sj in range(iterations):
@@ -509,9 +509,10 @@ def train_flux_sliders(
             print(f"step {sj}: loss*1k={m['loss'] * 1000:.4f}")
         if on_step is not None:
             on_step(sj, state, m)
-        if per and sj % per == 0 and sj != 0 and sj != iterations - 1:
+        if main and per and sj % per == 0 and sj != 0 and sj != iterations - 1:
             lora_io.save_slider(str(save_dir / f"{config.save.name}_{sj}steps{ext}"), state.lora)
-    lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
+    if main:
+        lora_io.save_slider(str(save_dir / f"{config.save.name}_last{ext}"), state.lora)
     print("Done.")
     return _cpu_lora(state.lora)
 

@@ -31,6 +31,7 @@ from sliders_tpu_torch.models import convert, flux, t5
 from sliders_tpu_torch.models import vae as tvae
 from sliders_tpu_torch.models.convert import from_jax_params
 from sliders_tpu_torch.ops.basic import SliderLora
+from sliders_tpu_torch.parallel import mesh as pm
 from sliders_tpu_torch.pipelines import flux_t2i as tpipe
 from sliders_tpu_torch.utils import pytree as tpytree
 
@@ -280,9 +281,11 @@ def test_flux_sampling_fn_and_skip_till_gate_match_jax():
                  torch.from_numpy(t5e), from_jax_params(_np(sl)), 1.5, -1.0, 3.5)
     for b in range(B):
         _close(merged[b:b + 1], out[:1].numpy(), 1e-5)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # a mesh without a pp axis raises JAX's error (the pp path:
+    # tests/test_torch_pipeline.py, tests/test_torch_serve_pp.py)
+    with pytest.raises(ValueError, match="mesh has no 'pp' axis"):
         tpipe.make_flux_sampling_fn(flux.TINY, ts.make_flowmatch_sampler(2, 16), latent_hw=hw,
-                                    mesh=object())
+                                    mesh=pm.make_mesh())
 
 
 @pytest.mark.parametrize("method", ["full", "xattn", "xattn-strict", "noxattn", "selfattn",

@@ -33,6 +33,7 @@ from sliders_tpu_torch.lora import merge as tmerge
 from sliders_tpu_torch.lora import network as tnet
 from sliders_tpu_torch.models import flux
 from sliders_tpu_torch.models.convert import from_jax_params, read_safetensors
+from sliders_tpu_torch.parallel import mesh as pm
 from sliders_tpu_torch.training import flux_slider as tfs
 from sliders_tpu_torch.training import optimizers as topt
 from sliders_tpu_torch.training import text_slider as tts
@@ -364,12 +365,16 @@ def test_twenty_steps_loss_falls(tiny):
     assert losses[-1] < losses[0], (losses[0], losses[-1])
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 15"),
+@pytest.mark.parametrize("kw,item", [({"mesh": "pp"}, "item 15"),
                                      ({"pp_microbatches": 2}, "item 15"),
                                      ({"chunk": 2}, "item 18")])
 def test_step_variants_not_ported_raise(tiny, kw, item):
+    """A dp x tp mesh is ported (tests/test_torch_flux_mesh.py); a pp mesh
+    (the differentiable pipeline), pp_microbatches and chunk still raise."""
     _, _, _, tlora = tiny
     tx = topt.make_optimizer("adamw", lambda s: LR)
+    if kw.get("mesh") == "pp":
+        kw = {"mesh": pm.make_mesh(dp=1, pp=2, world=2)}
     with pytest.raises(NotImplementedError, match=item):
         tfs.make_flux_slider_step(flux.TINY, ts.make_flowmatch_sampler(2, mu=0.5), tx, **kw)
 

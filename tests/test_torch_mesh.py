@@ -116,7 +116,7 @@ def test_shard_params_geglu_and_head_traps():
     w = torch.arange(8.0)[:, None].expand(8, 3).contiguous()  # (out = 2 * 4, in)
     params = {"b": {"ff": {"net": {"0": {"proj": {"weight": w, "bias": torch.arange(8.0)}},
                                    "2": {"weight": torch.ones(3, 4)}}}}}
-    out = pm.shard_params(m, params, tp_enabled=True)
+    out = pm.shard_params(m, params, tp_enabled=True, geglu={"b.ff"})
     proj = out["b"]["ff"]["net"]["0"]["proj"]
     assert proj["bias"].tolist() == [0.0, 1.0, 4.0, 5.0]  # rank 0: h[0:2] and gate[0:2]
     assert torch.equal(proj["weight"][:, 0], torch.tensor([0.0, 1.0, 4.0, 5.0]))
@@ -126,7 +126,8 @@ def test_shard_params_geglu_and_head_traps():
     shapes = pytree.flatten(tunet.init_params(None, tunet.SD21, device="meta"))
     m21 = pm.make_mesh(world=2, tp=2)
     sharded = pytree.flatten(pm.shard_params(m21, pytree.unflatten(shapes), tp_enabled=True,
-                                             heads=tunet.attention_heads(tunet.SD21)))
+                                             heads=tunet.attention_heads(tunet.SD21),
+                                             geglu=tunet.geglu_units(tunet.SD21)))
     level0 = "down_blocks.0.attentions.0.transformer_blocks.0"
     assert sharded[f"{level0}.attn1.to_q.weight"].shape == (320, 320)  # 5 heads: whole
     assert f"{level0}.attn1.to_q" not in m21.tp_split
@@ -145,7 +146,7 @@ def test_row_range_and_shard_slice():
     assert [pc.row_range(4, 2, r) for r in range(2)] == [(0, 2), (2, 4)]
     t = torch.arange(12).reshape(2, 6)
     assert pc.shard_slice(t, 1, 1, 3).tolist() == [[2, 3], [8, 9]]
-    assert pc.shard_slice(t, 1, 1, 3, halves=2).tolist() == [[1, 4], [7, 10]]
+    assert pc.shard_slice(t, 1, 1, 3, parts=(3, 3)).tolist() == [[1, 4], [7, 10]]
 
 
 def test_collectives_over_two_ranks(tmp_path):

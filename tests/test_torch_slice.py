@@ -445,9 +445,11 @@ def test_encode_png_decodes_with_pillow():
 
 @pytest.mark.parametrize(
     "flags",
-    [["--flux", "--pp", "2"], ["--pp", "2"], ["--dp", "2"], ["--continuous", "--dp", "2"]],
+    [["--flux", "--dp", "2"], ["--pp", "2"], ["--dp", "2"], ["--continuous", "--dp", "2"]],
 )
 def test_serve_cli_names_unported_flags(flags):
+    """--dp and an SD engine's --pp name item 15; `--flux --pp 2` is ported
+    (tests/test_torch_serve_pp.py)."""
     args = tserve.build_parser().parse_args(["--base", "/nonexistent", *flags])
     with pytest.raises(SystemExit, match="not ported yet"):
         tserve.main(args)

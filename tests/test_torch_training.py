@@ -612,16 +612,14 @@ def test_use_wandb_logs_like_the_jax_loop(cli_run, tmp_path, monkeypatch, one_to
 
 
 def test_other_loops_note_and_ignore_profile_dir_and_wandb(cli_run, tmp_path, capsys):
-    """The FLUX, image and fleet loops call `_note_text_loop_only` beside
-    `_refuse_unported`: both keys pass the refusals and get one printed
-    line, as the JAX loops never read them."""
+    """The FLUX, image and fleet loops call `_note_text_loop_only`: both
+    keys get one printed line, as the JAX loops never read them."""
     from sliders_tpu_torch.core.config import load_config_from_yaml
     from sliders_tpu_torch.training import driver
 
     config = load_config_from_yaml(_short_run_config(
         cli_run, tmp_path, 2, ("tpu:\n", "tpu:\n  profile_dir: /x\n"),
         ("logging:\n", "logging:\n  use_wandb: true\n")))
-    driver._refuse_unported(config)
     driver._note_text_loop_only(config)
     assert capsys.readouterr().out == (
         "tpu.profile_dir and logging.use_wandb: read by the text-slider loop only; "

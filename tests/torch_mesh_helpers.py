@@ -174,7 +174,7 @@ def unet_tp_rank(rank, world, cfg, params, lora, inputs, out_path):
 
     mesh = _mesh(dp=1, tp=world)
     sharded = pm.shard_params(mesh, params, tp_enabled=True,
-                              heads=unet2d.attention_heads(cfg))
+                              heads=unet2d.attention_heads(cfg), geglu=unet2d.geglu_units(cfg))
     leaves = lora_leaves(lora)
     with pc.tensor_parallel(mesh):
         y = unet2d.apply(sharded, cfg, inputs["x"], inputs["t"], inputs["ehs"],
@@ -215,7 +215,8 @@ def text_step_rank(rank, world, dp, tp, spec, out_path):
 
     mesh = _mesh(dp, tp)
     params = pm.shard_params(mesh, spec["params"], tp_enabled=tp > 1,
-                             heads=unet2d.attention_heads(spec["cfg"]))
+                             heads=unet2d.attention_heads(spec["cfg"]),
+                             geglu=unet2d.geglu_units(spec["cfg"]))
     step, state = text_step(spec, mesh)
     seen = []
     for draws in spec["draws"]:
@@ -334,3 +335,275 @@ def _zeros(tree):
     if isinstance(tree, dict):
         return {k: _zeros(v) for k, v in tree.items()}
     return torch.zeros_like(tree) if isinstance(tree, torch.Tensor) else 0
+
+
+def _clone(tree):
+    return {m: {k: t.detach().clone() for k, t in e.items()} for m, e in tree.items()}
+
+
+def flux_step_rank(rank, world, dp, tp, spec, out_path):
+    """The port's FLUX step (TINY, f32) on a dp x tp mesh, this rank
+    holding its tp shard of every block (`parallel.mesh.tp_keep`), for
+    len(spec['draws']) iterations on the given draws; rank 0 saves the
+    metrics, the LoRA after each and the split modules."""
+    from sliders_tpu_torch.diffusion import schedulers as ts
+    from sliders_tpu_torch.lora import network as tnet
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.parallel import mesh as pm
+    from sliders_tpu_torch.training import flux_slider as tfs
+    from sliders_tpu_torch.training import optimizers as topt
+    from sliders_tpu_torch.training.text_slider import SliderTrainState
+
+    mesh = _mesh(dp, tp)
+    params = flux.keep_blocks(spec["params"], pm.tp_keep(mesh, tp > 1))
+    mask = tnet.trainable_mask(spec["lora"], ortho_up=True)
+    tx = topt.make_optimizer("adamw", topt.make_lr_schedule("constant", spec["lr"], 100),
+                             trainable_mask=mask)
+    step = tfs.make_flux_slider_step(
+        flux.TINY, ts.make_flowmatch_sampler(num_steps=spec["n_steps"], mu=0.5), tx,
+        resolution=64, batch_size=spec["batch"], compute_dtype=torch.float32,
+        remat=spec["remat"], mesh=mesh, trainable_mask=mask)
+    state = SliderTrainState.create(0, _clone(spec["lora"]), tx)
+    seen = []
+    for draws in spec["draws"]:
+        state, m = step(state, params, spec["pairs"], draws=draws)
+        seen.append(({k: m[k] for k in ("loss", "grad_norm", "t_to", "pair")},
+                     _clone(state.lora)))
+    if rank == 0:
+        torch.save({"seen": seen, "split": sorted(mesh.tp_split)}, out_path)
+    mesh.finish()
+
+
+def flux_cli_rank(rank, world, argv, out_path):
+    """`train_flux_slider` (the CLI's main) on this rank; rank 0 saves the
+    final LoRA and the per-iteration metrics."""
+    from sliders_tpu_torch.cli import train_flux_slider as cli
+
+    seen = []
+    final = cli.main(cli.build_parser().parse_args(argv),
+                     on_step=lambda i, state, m: seen.append(
+                         (i, {k: m[k] for k in ("loss", "grad_norm", "t_to", "pair")})))
+    if rank == 0:
+        torch.save({"final": final, "seen": seen}, out_path)
+
+
+def flux_pp_rank(rank, world, cases, out_path):
+    """`flux_apply_pp` on a pp = world mesh, each rank drawing the whole
+    tree from the case's seed and keeping its stage (`pp_keep`), for each
+    case {cfg, seed, inputs, lora, multiplier, microbatches}; every rank
+    calls it with the same arguments. Rank 0 saves the velocities (or the
+    ValueError's message) and every rank its block names."""
+    from sliders_tpu_torch.models import flux
+    from sliders_tpu_torch.ops.basic import SliderLora
+    from sliders_tpu_torch.parallel import pipeline as pl
+
+    mesh = _pp_mesh(world)
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        params = case.get("params")
+        if params is None:
+            params = flux.init_params(torch.Generator().manual_seed(case["seed"]), cfg,
+                                      keep=pl.pp_keep(mesh, cfg))
+        else:
+            params = pl.flux_pp_params(mesh, params, cfg)
+        d = case["inputs"]
+        lora = None if case["lora"] is None else SliderLora(case["lora"], case["multiplier"])
+        try:
+            v = pl.flux_apply_pp(params, cfg, d["packed"], d["t"], d["pooled"], d["ehs"],
+                                 d["tids"], d["iids"], mesh, guidance=d["g"], lora=lora,
+                                 num_microbatches=case["microbatches"])
+        except ValueError as e:
+            v = str(e)
+        blocks = {f: sorted(int(i) for i in params[f]) for f in pl.FAMILIES}
+        out.append((v if rank == 0 else v is None, blocks))
+    torch.save(out, f"{out_path}.{rank}")
+    mesh.finish()
+
+
+def _pp_mesh(pp: int):
+    from sliders_tpu_torch.parallel import mesh as pm
+
+    pm.maybe_initialize_distributed(torch.device("cpu"))
+    mesh = pm.make_mesh(dp=1, tp=1, pp=pp)
+    mesh.owns_group = True
+    return mesh
+
+
+def flux_serve_rank(rank, world, snap, slider_path, requests, out_path):
+    """A pipeline-parallel FLUX server over world stages built by
+    `cli/serve.py`'s functions (`pipeline_mesh`, `make_engine`,
+    `make_follower`) on the tiny snapshot: rank 0 registers the slider file
+    and an in-memory copy, a composition, serves `requests` through
+    `generate` and closes; the followers run until it does. Rank 0 saves
+    the PNGs, every rank its stats."""
+    from sliders_tpu_torch.cli import serve
+    from sliders_tpu_torch.lora import io as lora_io
+
+    args = serve.build_parser().parse_args(
+        ["--flux", "--pp", str(world), "--base", snap, "--device", "cpu", "--precision",
+         "float32", "--ddim_steps", "2", "--image_size", "64", "--no_warmup",
+         "--slider", f"s1={slider_path}"])
+    mesh, device = serve.pipeline_mesh(args)
+    mesh.owns_group = True
+    if mesh.coord("pp") > 0:
+        follower = serve.make_follower(args, mesh, device)
+        follower.run()
+        torch.save({"stats": follower.stats, "sliders": sorted(follower.names.values()),
+                    "blocks": {f: sorted(follower.params[f]) for f in
+                               ("transformer_blocks", "single_transformer_blocks")}},
+                   f"{out_path}.{rank}")
+        mesh.finish()
+        return
+    engine = serve.make_engine(args, mesh=mesh, device=device)
+    engine.register_slider("s2", lora_io.load_slider(slider_path, engine._lora_base()))
+    engine.load_composition("c", [{"name": "s1", "scale": 0.5}, {"path": slider_path}])
+    results = [engine.generate(r["prompt"], seed=r["seed"], slider=r.get("slider"),
+                               scales=r.get("scales")) for r in requests]
+    engine.close(timeout=120)
+    torch.save({"results": results, "stats": dict(engine.stats)}, f"{out_path}.{rank}")
+    mesh.finish()
+
+
+def flux_serve_faults_rank(rank, world, snap, slider_path, requests, out_path):
+    """Two faults of a pipeline-parallel FLUX server over world stages (the
+    CLI's functions, as `flux_serve_rank`):
+
+    - a name registered again while requests for it wait: rank 0 holds
+      the worker (its device lock), queues requests[0] and requests[1]
+      for slider "s" (the file's adapter), registers "s" again as the
+      adapter with its up factors negated, lets the worker go and serves
+      requests[2] (the new "s");
+    - a raise on stage 0 inside a forward (its `embed_inputs` replaced):
+      the request gets the error, the next one the pipeline's failure, and
+      the followers' `run()` raises once rank 0's process has ended.
+
+    Rank 0 saves the PNGs, the errors and the failure hook's calls; the
+    followers the slider names they held as each batch came and the error
+    that ended their loop."""
+    from sliders_tpu_torch.cli import serve
+    from sliders_tpu_torch.lora import io as lora_io
+    from sliders_tpu_torch.models import flux
+
+    args = serve.build_parser().parse_args(
+        ["--flux", "--pp", str(world), "--base", snap, "--device", "cpu", "--precision",
+         "float32", "--ddim_steps", "2", "--image_size", "64", "--no_warmup",
+         "--slider", f"s={slider_path}"])
+    mesh, device = serve.pipeline_mesh(args)
+    if mesh.coord("pp") > 0:
+        follower = serve.make_follower(args, mesh, device)
+        seen = {"held": []}
+        real = follower.channel.listen
+
+        def listen():  # the names held as each batch's message comes
+            msg = real()
+            if msg[0] == "batch":
+                seen["held"].append(sorted(follower.names.values()))
+            return msg
+
+        follower.channel.listen = listen
+        try:
+            follower.run()
+            seen["error"] = None
+        except Exception as e:
+            seen["error"] = type(e).__name__
+        seen["stats"] = follower.stats
+        torch.save(seen, f"{out_path}.{rank}")
+        return
+    engine = serve.make_engine(args, mesh=mesh, device=device)
+    failures = []
+    engine.channel.on_failure = failures.append
+
+    def generate(r):
+        return engine.generate(r["prompt"], seed=r["seed"], slider=r.get("slider"),
+                               scales=r.get("scales"))
+
+    def pending(r):
+        return engine._make_pending(r["prompt"], seed=r["seed"], slider=r.get("slider"),
+                                    scales=r.get("scales"))
+
+    engine._lock.acquire()  # the worker takes requests[0] and waits for the lock
+    first = pending(requests[0])
+    engine._submit([first])
+    while engine._queue:
+        time.sleep(0.01)
+    second = pending(requests[1])
+    engine._submit([second])
+    w = lora_io.load_slider(slider_path, engine._lora_base())
+    engine.register_slider("s", {m: {**e, "up": -e["up"]} for m, e in w.items()})
+    engine._lock.release()
+    results = [engine._wait(first), engine._wait(second)]
+    results.append(generate(requests[2]))
+
+    errors = []
+
+    def boom(*a, **k):
+        raise RuntimeError("injected on stage 0")
+
+    flux.embed_inputs = boom
+    for r in (requests[3], requests[3]):
+        try:
+            generate(r)
+            errors.append(None)
+        except RuntimeError as e:
+            errors.append(str(e))
+    engine.close(timeout=60)
+    torch.save({"results": results, "errors": errors,
+                "failures": [str(e) for e in failures], "failed": str(engine.failed)},
+               f"{out_path}.{rank}")
+
+
+def flux_serve_main_fault_rank(rank, world, snap, port, request, out_path):
+    """`cli/serve.py`'s `main` on world stages with a raise on stage 0
+    inside a forward (its `embed_inputs` replaced): rank 0's HTTP client
+    posts `request` and gets a 500 naming the error, `main` stops the
+    server and raises SystemExit naming it (skipping the mesh's closing
+    barrier, which the followers could not reach), and the followers'
+    `main` raises once rank 0's process has ended. Every rank saves how its
+    `main` ended, rank 0 the reply."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from sliders_tpu_torch.cli import serve
+    from sliders_tpu_torch.models import flux
+
+    args = serve.build_parser().parse_args(
+        ["--flux", "--pp", str(world), "--base", snap, "--device", "cpu", "--precision",
+         "float32", "--ddim_steps", "2", "--image_size", "64", "--no_warmup",
+         "--port", str(port)])
+    seen = {}
+
+    def client():
+        url = f"http://127.0.0.1:{port}"
+        while True:
+            try:
+                urllib.request.urlopen(f"{url}/healthz", timeout=5)
+                break
+            except OSError:
+                time.sleep(0.05)
+        req = urllib.request.Request(f"{url}/generate", data=json.dumps(request).encode())
+        try:
+            urllib.request.urlopen(req, timeout=30)
+            seen["status"] = 200
+        except urllib.error.HTTPError as e:
+            seen["status"], seen["reply"] = e.code, json.loads(e.read())
+
+    if rank == 0:
+        def boom(*a, **k):
+            raise RuntimeError("injected on stage 0")
+
+        flux.embed_inputs = boom
+        asker = threading.Thread(target=client, daemon=True)
+        asker.start()
+    try:
+        serve.main(args)
+        seen["main"] = "returned"
+    except SystemExit as e:
+        seen["main"] = f"SystemExit: {e}"
+    except Exception as e:
+        seen["main"] = type(e).__name__
+    if rank == 0:
+        asker.join(30)
+    torch.save(seen, f"{out_path}.{rank}")
